@@ -1,0 +1,298 @@
+"""Static conv plan verifier and traffic cross-audit — the port's copy
+of the accounting-profile half of ``repro/analysis/plan_check.py``.
+
+  * **Legality pass** — :func:`check_conv_plan` verifies a
+    :class:`~repro_torch.kernels.conv_lb.ops.ConvPlan` against the
+    structural contract of the reference planner: grid divisibility,
+    halo windows in bounds, the lhs-dilated compact walk, fused pool
+    alignment, and the working set against the budget.  The TPU
+    alignment rules of the reference (its ``mosaic`` profile) are
+    TPU legality and are not ported.
+  * **Traffic cross-audit** — :func:`symbolic_conv_traffic` /
+    :func:`symbolic_bound_words` re-derive each plan's words and its
+    Eq. (15) bound by a second, simpler route, and
+    :func:`audit_handles` asserts exact agreement with the accountant
+    for every handle the serve ledger charges.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+from repro_torch.core.dataflow import Traffic
+from repro_torch.core.hopper_adapter import REF_PLAN_BUDGET
+from repro_torch.core.layer import ceil_div
+
+ERROR = "error"
+WARN = "warn"
+
+
+@dataclasses.dataclass(frozen=True)
+class Diagnostic:
+    """One finding of the static verifier: ``severity`` is ``error``
+    (the plan must not be served) or ``warn``; ``hint`` says how to
+    repair the shape."""
+
+    rule: str
+    severity: str
+    message: str
+    hint: str = ""
+    where: str = ""
+
+    def __str__(self) -> str:
+        tail = f"  [{self.hint}]" if self.hint else ""
+        head = f"{self.where}: " if self.where else ""
+        return f"{self.severity}:{self.rule}: {head}{self.message}{tail}"
+
+
+def errors(diags) -> list[Diagnostic]:
+    return [d for d in diags if d.severity == ERROR]
+
+
+def format_diagnostics(diags) -> str:
+    return "\n".join(str(d) for d in diags) or "clean"
+
+
+class PlanLegalityError(ValueError):
+    """An auto-chosen plan failed the legality pass (a planner bug:
+    the search must never emit a structurally illegal plan)."""
+
+    def __init__(self, diags):
+        self.diagnostics = list(diags)
+        super().__init__("illegal plan:\n" + format_diagnostics(
+            errors(self.diagnostics)))
+
+
+def _err(rule: str, message: str, hint: str = "",
+         where: str = "") -> Diagnostic:
+    return Diagnostic(rule=rule, severity=ERROR, message=message,
+                      hint=hint, where=where)
+
+
+def check_conv_plan(plan, *, batch: int = 1, dtype_bytes: int = 4,
+                    vmem_budget: int | None = None,
+                    where: str = "") -> list[Diagnostic]:
+    """Verify one plan against the structural contract of the
+    reference planner, re-derived independently of it."""
+    del batch          # plans carry no batch extent
+    budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
+    blk = plan.blocks
+    sy, sx = plan.stride
+    ekh = (plan.hk - 1) * plan.dilation[0] + 1
+    ekw = (plan.wk - 1) * plan.dilation[1] + 1
+    diags: list[Diagnostic] = []
+
+    # -- grid divisibility ---------------------------------------------------
+    for name, dim, b in (("ho_pad", plan.ho_pad, blk.y),
+                         ("wo_pad", plan.wo_pad, blk.x),
+                         ("ci_pad", plan.ci_pad, blk.ci),
+                         ("co_pad", plan.co_pad, blk.co)):
+        if b < 1 or dim % b:
+            diags.append(_err(
+                "conv.grid", f"{name}={dim} does not divide its block "
+                f"{b}", hint=f"pad {name} to a multiple of {b}",
+                where=where))
+    for name, dim, true in (("ho", plan.ho_pad, plan.ho),
+                            ("wo", plan.wo_pad, plan.wo),
+                            ("ci", plan.ci_pad, plan.ci),
+                            ("co", plan.co_pad, plan.co)):
+        if true and dim < true:
+            diags.append(_err(
+                "conv.grid", f"padded {name} {dim} is smaller than "
+                f"the true dim {true}", where=where))
+
+    # -- halo windows in bounds ----------------------------------------------
+    want_hy = (blk.y - 1) * sy + ekh
+    want_hx = (blk.x - 1) * sx + ekw
+    if (blk.halo_y, blk.halo_x) != (want_hy, want_hx):
+        diags.append(_err(
+            "conv.halo", f"halo ({blk.halo_y}, {blk.halo_x}) does not "
+            f"match the tile's input footprint ({want_hy}, {want_hx})",
+            hint="halos belong to the tile: (t-1)*stride + dilated "
+                 "kernel extent", where=where))
+    if plan.ho_pad // max(1, blk.y):
+        last_y = (plan.ho_pad // blk.y - 1) * blk.y * sy + blk.halo_y
+        last_x = (plan.wo_pad // blk.x - 1) * blk.x * sx + blk.halo_x
+        if last_y > plan.hp_pad or last_x > plan.wp_pad:
+            diags.append(_err(
+                "conv.halo", f"last tile's halo reads "
+                f"({last_y}, {last_x}) past the padded input plane "
+                f"({plan.hp_pad}, {plan.wp_pad})",
+                hint="pad the input to the last tile's halo end",
+                where=where))
+
+    # -- lhs-dilated compact-plane walk --------------------------------------
+    if plan.lhs_dilated:
+        ldy, ldx = plan.lhs_dilation
+        for name, bv, s, ld in (("y", blk.y, sy, ldy),
+                                ("x", blk.x, sx, ldx)):
+            if ld > 1 and (bv * s) % ld:
+                diags.append(_err(
+                    "conv.lhsdil",
+                    f"{name}-block {bv} * stride {s} is not a multiple "
+                    f"of lhs_dilation {ld} — compact fetches would "
+                    f"start mid-phase",
+                    hint="snap the block so block*stride % lhs_dilation"
+                         " == 0", where=where))
+        if plan.pool > 1 or plan.residual:
+            diags.append(_err(
+                "conv.lhsdil", "lhs-dilated plans fuse no "
+                "pool/residual epilogue", where=where))
+
+    # -- fused pool alignment ------------------------------------------------
+    if plan.pool > 1:
+        if blk.y % plan.pool or blk.x % plan.pool:
+            diags.append(_err(
+                "conv.pool", f"tile {blk.y}x{blk.x} is not divisible "
+                f"by the fused pool {plan.pool}",
+                hint="snap spatial blocks to pool multiples",
+                where=where))
+        if plan.ho % plan.pool or plan.wo % plan.pool:
+            diags.append(_err(
+                "conv.pool", f"output plane {plan.ho}x{plan.wo} is "
+                f"not divisible by the fused pool {plan.pool}",
+                where=where))
+
+    # -- working set against the budget --------------------------------------
+    pinned = blk.ci >= plan.ci_pad and blk.co >= plan.co_pad
+    need = blk.vmem_bytes(plan.hk, plan.wk, dtype_bytes,
+                          w_pinned=pinned, residual=plan.residual)
+    if need > budget:
+        diags.append(_err(
+            "conv.vmem", f"working set {need} B exceeds the "
+            f"{budget} B budget (psum {blk.psum_bytes} B + "
+            f"double-buffered panels"
+            f"{' + residual join panel' if plan.residual else ''})",
+            hint="shrink ci/batch blocks first (they only cost "
+                 "memory), then the spatial tile", where=where))
+    return diags
+
+
+def symbolic_conv_traffic(plan, batch: int) -> Traffic:
+    """Independent re-derivation of :meth:`ConvPlan.traffic`: fetches
+    per operand counted straight from the block walk (an operand is
+    re-fetched when its block index changes between consecutive grid
+    steps, nci innermost) times the block volume, with ceil divisions
+    of the *true* dims."""
+    blk = plan.blocks
+    tb = max(1, min(blk.b, batch))
+    nb = ceil_div(batch, tb)
+    ny, nx = ceil_div(plan.ho, blk.y), ceil_div(plan.wo, blk.x)
+    nci = ceil_div(plan.ci_pad, blk.ci)
+    nco = ceil_div(plan.co_pad, blk.co)
+    spatial_blocks = nb * ny * nx
+    # the input halo tile is constant across the Co sweep only when
+    # there is a sole Ci block
+    in_fetches = (spatial_blocks if nci == 1
+                  else spatial_blocks * nco * nci)
+    fetch_y, fetch_x = blk.halo_y, blk.halo_x
+    if plan.lhs_dilated:
+        def compact(halo, ld, p):
+            if ld == 1:
+                return halo
+            return ceil_div(p, ld) + max(1, ceil_div(halo - p, ld))
+        fetch_y = compact(blk.halo_y, plan.lhs_dilation[0], plan.py)
+        fetch_x = compact(blk.halo_x, plan.lhs_dilation[1], plan.px)
+    in_words = in_fetches * (tb * fetch_y * fetch_x * blk.ci)
+    # the weight slice is constant over the whole grid iff both channel
+    # dims have a single block
+    w_fetches = 1 if nci * nco == 1 else spatial_blocks * nco * nci
+    w_words = w_fetches * (plan.hk * plan.wk * blk.ci * blk.co)
+    if plan.residual:
+        in_words += spatial_blocks * nco * (tb * blk.y * blk.x * blk.co)
+    out_words = (spatial_blocks * nco
+                 * (tb * (blk.y // plan.pool) * (blk.x // plan.pool)
+                    * blk.co))
+    return Traffic(reads_in=float(in_words), reads_w=float(w_words),
+                   reads_out=0.0, writes_out=float(out_words))
+
+
+def symbolic_bound_words(plan, layer) -> float:
+    """Independent re-derivation of :meth:`ConvPlan.bound_words`:
+    Eq. (15) at the plan's realized footprint, floored at the
+    once-per-word ideal, plus the residual join's mandatory read."""
+    s = plan.footprint_elems()
+    macs = (layer.batch * layer.ho * layer.wo * layer.co
+            * layer.hk * layer.wk * layer.ci)
+    r = max(1.0, (layer.hk * layer.wk) / float(layer.stride ** 2))
+    outputs = layer.batch * layer.co * layer.ho * layer.wo
+    touched = (layer.batch * layer.ci
+               * layer.fetched_area(layer.wo, layer.ho))
+    ideal = float(touched + layer.hk * layer.wk * layer.ci * layer.co
+                  + outputs)
+    q = max(2.0 * macs / math.sqrt(r * s) + outputs, ideal)
+    if plan.residual:
+        q += float(outputs)
+    return q
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanAuditEntry:
+    """One plan's verdict: legality diagnostics + cross-audit flags."""
+
+    name: str
+    diagnostics: tuple[Diagnostic, ...]
+    traffic_ok: bool     # symbolic re-derivation == accountant
+    bound_ok: bool       # symbolic Eq. (15) == ConvPlan.bound_words
+    words: float
+    bound: float
+
+    @property
+    def legal(self) -> bool:
+        return not errors(self.diagnostics)
+
+    @property
+    def ok(self) -> bool:
+        return self.legal and self.traffic_ok and self.bound_ok
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanAudit:
+    """The audit over a set of plan handles."""
+
+    entries: tuple[PlanAuditEntry, ...]
+
+    @property
+    def ok(self) -> bool:
+        return all(e.ok for e in self.entries)
+
+    def errors(self) -> list[Diagnostic]:
+        return [d for e in self.entries for d in errors(e.diagnostics)]
+
+    def report(self) -> str:
+        lines = [f"plan audit: "
+                 f"{sum(e.legal for e in self.entries)}/"
+                 f"{len(self.entries)} legal, "
+                 f"{sum(not e.traffic_ok for e in self.entries)} traffic"
+                 f" mismatch(es), "
+                 f"{sum(not e.bound_ok for e in self.entries)} bound "
+                 f"mismatch(es)"]
+        for e in self.entries:
+            flag = "ok " if e.ok else "BAD"
+            lines.append(f"  {flag} {e.name}: {e.words:.3g} words vs "
+                         f"bound {e.bound:.3g}")
+            for d in errors(e.diagnostics):
+                lines.append(f"       {d}")
+        return "\n".join(lines)
+
+
+def audit_handles(handles, *, batch: int, dtype_bytes: int = 4,
+                  vmem_budget: int | None = None) -> PlanAudit:
+    """Audit forward ``[(ConvLayer, ConvPlan)]`` handles (the
+    :func:`~repro_torch.models.graph.graph_plan_handles` export): the
+    legality pass and the exact traffic/bound cross-audit."""
+    entries = []
+    for layer, plan in handles:
+        name = f"{layer.name}/fwd"
+        diags = check_conv_plan(plan, batch=batch,
+                                dtype_bytes=dtype_bytes,
+                                vmem_budget=vmem_budget, where=name)
+        acct = plan.traffic(batch)
+        bound = plan.bound_words(layer)
+        entries.append(PlanAuditEntry(
+            name=name, diagnostics=tuple(diags),
+            traffic_ok=symbolic_conv_traffic(plan, batch) == acct,
+            bound_ok=symbolic_bound_words(plan, layer) == bound,
+            words=acct.total, bound=bound))
+    return PlanAudit(entries=tuple(entries))

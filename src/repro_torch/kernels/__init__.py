@@ -1,0 +1,1 @@
+"""Hand-written Hopper kernels and their plain PyTorch versions."""

@@ -1,0 +1,246 @@
+"""The conv kernel's wrapper: build, bind and launch the hand-written
+CUDA kernel (``csrc/conv_lb.cu``), which replaces the TPU kernel
+``_conv_kernel`` / ``conv_lb_call`` of
+``repro/kernels/conv_lb/kernel.py``.
+
+Build: at first use ``nvcc`` compiles the source in this checkout for
+``sm_90a`` into a shared library with a plain C interface under
+``build/repro_torch/`` (named by the source's hash, so an edited source
+is rebuilt), and ``ctypes`` binds it.  Nothing is compiled when the
+module is imported.
+
+:func:`conv_lb` dispatches on where its tensors lie and nothing else:
+a CUDA tensor launches the kernel or raises (a failed build, a refused
+launch, a geometry or dtype the kernel does not take); a CPU tensor
+runs the plain version (:func:`~repro_torch.kernels.conv_lb.ref.conv2d_ref`).
+Each launch adds one to ``conv_lb.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from functools import lru_cache
+from pathlib import Path
+
+import torch
+
+from repro_torch.core.hopper_adapter import (REGS_PER_SM, SM_COUNT,
+                                             SMEM_PER_BLOCK)
+from repro_torch.core.layer import ceil_div
+from repro_torch.kernels.conv_lb.ref import conv2d_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb.cu"
+BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+#: the kernel's fixed CTA shape (must match csrc/conv_lb.cu)
+TILE_M = 128        # output pixels per CTA
+CI_BLOCK = 8        # input channels staged per step
+THREADS = 256
+MAX_REGS = 128      # per thread, as __launch_bounds__(256, 2) caps it
+CTAS_PER_SM = REGS_PER_SM // (THREADS * MAX_REGS)
+
+
+class _Library:
+    """The loaded kernel library and what its build printed."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, log: str,
+                 seconds: float):
+        self.lib, self.path, self.log, self.seconds = lib, path, log, seconds
+        fwd = lib.conv_lb_forward
+        fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 27
+                        + [ctypes.c_void_p])
+        fwd.restype = ctypes.c_int
+        lib.conv_lb_error_string.argtypes = [ctypes.c_int]
+        lib.conv_lb_error_string.restype = ctypes.c_char_p
+
+    def error_string(self, code: int) -> str:
+        return self.lib.conv_lb_error_string(code).decode()
+
+
+_LIBRARY: _Library | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError("nvcc not found: the conv kernel is built "
+                           "from csrc/conv_lb.cu at first use and needs "
+                           "the CUDA toolkit")
+    return found
+
+
+def build() -> _Library:
+    """Compile (once per process and source) and load the kernel
+    library; raises with the compiler's output if the build fails."""
+    global _LIBRARY
+    if _LIBRARY is not None:
+        return _LIBRARY
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"conv_lb-{digest}.so"
+    t0 = time.perf_counter()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                               str(SOURCE)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, target)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    seconds = time.perf_counter() - t0
+    _LIBRARY = _Library(ctypes.CDLL(str(target)), target,
+                        proc.stdout + proc.stderr, seconds)
+    return _LIBRARY
+
+
+@lru_cache(maxsize=4096)
+def cta_tile(batch: int, ho: int, wo: int, co: int,
+             pool: int) -> tuple[int, int, int, int]:
+    """The kernel's own CTA tile ``(bb, ty, tx, tn)`` for one conv:
+    ``bb`` images x ``ty`` x ``tx`` output pixels (<= 128, pool-aligned)
+    x ``tn`` output channels.  Chosen to need the fewest waves of CTAs
+    over the card's SMs, then the fewest CTAs (each CTA does
+    128 x tn work whatever part of it is real), then the least halo
+    per output pixel (the squarest tile)."""
+    if pool > 16:
+        raise ValueError(f"pool={pool} exceeds the kernel's 16-column "
+                         f"tile")
+    best = None
+    for tn in (64, 128):
+        if tn == 128 and co <= 64:
+            continue
+        nco = ceil_div(co, tn)
+        for tx in range(pool, min(16, -(-wo // pool) * pool) + 1, pool):
+            for ty in range(pool, min(TILE_M // tx,
+                                      -(-ho // pool) * pool) + 1, pool):
+                bb = max(1, min(batch, TILE_M // (ty * tx)))
+                ctas = (ceil_div(batch, bb) * ceil_div(ho, ty)
+                        * ceil_div(wo, tx) * nco)
+                waves = ceil_div(ctas, SM_COUNT * CTAS_PER_SM)
+                halo = (ty + 2) * (tx + 2) / (ty * tx)
+                key = (waves * tn, ctas * tn, halo, -tn)
+                if best is None or key < best[0]:
+                    best = (key, (bb, ty, tx, tn))
+    return best[1]
+
+
+def cta_smem_bytes(bb: int, ty: int, tx: int, tn: int, hk: int, wk: int,
+                   stride: tuple[int, int], dilation: tuple[int, int],
+                   pool: int) -> int:
+    """Dynamic shared memory of one CTA: two stage buffers of the halo
+    tile and weight slice, or the pre-pool output tile when a pool is
+    fused."""
+    hy = (ty - 1) * stride[0] + (hk - 1) * dilation[0] + 1
+    hx = (tx - 1) * stride[1] + (wk - 1) * dilation[1] + 1
+    staged = 2 * (bb * hy * hx + hk * wk * tn) * CI_BLOCK * 4
+    return max(staged, TILE_M * tn * 4 if pool > 1 else 0)
+
+
+def _check_cuda_operand(name: str, t: torch.Tensor, device,
+                        shape: tuple) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, x on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"the conv kernel takes float32; {name} is "
+                        f"{t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, the conv "
+                         f"needs {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    """16-byte copies need 16-byte aligned rows (the kernel also needs
+    the channel count to divide by 4, which it checks itself)."""
+    return t.data_ptr() % 16 == 0
+
+
+def conv_lb(x: torch.Tensor, w: torch.Tensor,
+            bias: torch.Tensor | None = None,
+            residual: torch.Tensor | None = None, *,
+            stride=(1, 1), padding=(0, 0), dilation=(1, 1),
+            lhs_dilation=(1, 1), relu: bool = False,
+            pool: int = 1) -> torch.Tensor:
+    """One group of the conv: x (B, H, W, Ci), w (Hk, Wk, Ci, Co),
+    bias (Co,), residual (B, Ho, Wo, Co) -> (B, Ho/pool, Wo/pool, Co).
+
+    A CUDA ``x`` launches the CUDA kernel; a CPU ``x`` runs the plain
+    version.  Any other device raises."""
+    if x.device.type == "cpu":
+        return conv2d_ref(x, w, bias, residual, stride=stride,
+                          padding=padding, dilation=dilation,
+                          lhs_dilation=lhs_dilation, relu=relu, pool=pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"the conv kernel runs on CUDA tensors (or its "
+                         f"plain version on CPU ones), not {x.device}")
+    b, h, wd, ci = x.shape
+    hk, wk, _, co = w.shape
+    sy, sx = stride
+    py, px = padding
+    dy, dx = dilation
+    ly, lx = lhs_dilation
+    if min(sy, sx, dy, dx, ly, lx, pool) < 1 or min(py, px) < 0:
+        raise ValueError("stride, dilation, lhs_dilation and pool must "
+                         "be >= 1 and padding >= 0")
+    ho = ((h - 1) * ly + 1 + 2 * py - ((hk - 1) * dy + 1)) // sy + 1
+    wo = ((wd - 1) * lx + 1 + 2 * px - ((wk - 1) * dx + 1)) // sx + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"{hk}x{wk} conv has no output on a {h}x{wd} "
+                         f"plane")
+    if pool > 1 and (ho % pool or wo % pool):
+        raise ValueError(f"fused pool={pool} needs a pool-divisible "
+                         f"output plane, got {ho}x{wo}")
+    _check_cuda_operand("x", x, x.device, (b, h, wd, ci))
+    _check_cuda_operand("w", w, x.device, (hk, wk, ci, co))
+    if bias is not None:
+        _check_cuda_operand("bias", bias, x.device, (co,))
+    if residual is not None:
+        _check_cuda_operand("residual", residual, x.device,
+                            (b, ho, wo, co))
+    bb, ty, tx, tn = cta_tile(b, ho, wo, co, pool)
+    smem = cta_smem_bytes(bb, ty, tx, tn, hk, wk, (sy, sx), (dy, dx),
+                          pool)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"a {hk}x{wk} stride {stride} dilation "
+                         f"{dilation} conv needs {smem} B of shared "
+                         f"memory per CTA, more than the card's "
+                         f"{SMEM_PER_BLOCK} B")
+    lib = build()
+    out = torch.empty((b, ho // pool, wo // pool, co), dtype=torch.float32,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.lib.conv_lb_forward(
+            x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), b, h, wd, ci, co, hk, wk, ho, wo,
+            sy, sx, dy, dx, ly, lx, py, px, pool, int(relu),
+            bb, ty, tx, tn, _aligned(x), _aligned(w),
+            _aligned(out) and (residual is None or _aligned(residual)),
+            smem, stream)
+    if err != 0:
+        raise RuntimeError(f"conv_lb kernel launch failed: "
+                           f"{lib.error_string(err)} (error {err})")
+    conv_lb.launches += 1
+    return out
+
+
+conv_lb.launches = 0

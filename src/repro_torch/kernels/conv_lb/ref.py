@@ -1,0 +1,91 @@
+"""The plain PyTorch version of the conv kernel (the port's
+counterpart of ``repro/kernels/conv_lb/ref.py`` and the unfused
+epilogue ``_lax_epilogue`` of ``ops.py``).
+
+It repeats the kernel's arithmetic in the plainest form: the
+lhs-dilated plane is materialized by zero insertion, padded, and the
+conv is the sum over the Hk x Wk windows of one (B*Ho*Wo, Ci) x
+(Ci, Co) product each, accumulated in f32 — the implicit-GEMM form of
+paper Fig. 3 — followed by the unfused epilogue (bias -> residual ->
+ReLU -> max-pool).  The kernel wrapper runs it for CPU tensors, and
+the chip smoke holds the kernel against it on the card; it never runs
+for a CUDA tensor on the serving path.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _pair(v) -> tuple[int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (int(v), int(v))
+
+
+def max_pool(y: torch.Tensor, pool: int) -> torch.Tensor:
+    """Aligned ``pool`` x ``pool`` max-pool, stride = pool, VALID
+    (a trailing partial window is dropped), on NHWC."""
+    if pool <= 1:
+        return y
+    b, h, w, c = y.shape
+    hp, wp = h // pool, w // pool
+    y = y[:, :hp * pool, :wp * pool]
+    return y.reshape(b, hp, pool, wp, pool, c).amax(dim=(2, 4))
+
+
+def epilogue(y: torch.Tensor, bias=None, relu: bool = False,
+             pool: int = 1, residual=None) -> torch.Tensor:
+    """The unfused epilogue: bias -> residual join -> relu -> max-pool,
+    the exact math the kernel fuses on its f32 register tile."""
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    if residual is not None:
+        y = y + residual.to(y.dtype)
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return max_pool(y, pool)
+
+
+def _conv_sum(x, w, stride, padding, dilation, lhs_dilation):
+    """Pre-epilogue conv of one group as a sum of window products."""
+    sy, sx = stride
+    py, px = padding
+    dy, dx = dilation
+    ldy, ldx = lhs_dilation
+    b, h, wd, ci = x.shape
+    hk, wk, _, co = w.shape
+    x = x.to(torch.float32)
+    w = w.to(torch.float32)
+    if (ldy, ldx) != (1, 1):
+        xd = x.new_zeros(b, (h - 1) * ldy + 1, (wd - 1) * ldx + 1, ci)
+        xd[:, ::ldy, ::ldx] = x
+        x = xd
+    x = F.pad(x, (0, 0, px, px, py, py))
+    hp, wp = x.shape[1], x.shape[2]
+    ho = (hp - ((hk - 1) * dy + 1)) // sy + 1
+    wo = (wp - ((wk - 1) * dx + 1)) // sx + 1
+    if ho < 1 or wo < 1:
+        raise ValueError(f"{hk}x{wk} conv has no output on a {h}x{wd} "
+                         f"plane")
+    acc = x.new_zeros(b * ho * wo, co)
+    for ky in range(hk):
+        for kx in range(wk):
+            xs = x[:, ky * dy:ky * dy + (ho - 1) * sy + 1:sy,
+                   kx * dx:kx * dx + (wo - 1) * sx + 1:sx, :]
+            acc.addmm_(xs.reshape(b * ho * wo, ci), w[ky, kx])
+    return acc.reshape(b, ho, wo, co)
+
+
+def conv2d_ref(x, w, bias=None, residual=None, *, stride=1, padding=0,
+               dilation=1, lhs_dilation=1, groups: int = 1,
+               relu: bool = False, pool: int = 1) -> torch.Tensor:
+    """x: (B, H, W, Ci); w: (Hk, Wk, Ci/groups, Co)
+    -> (B, Ho/pool, Wo/pool, Co), in x's dtype."""
+    kw = dict(stride=_pair(stride), padding=_pair(padding),
+              dilation=_pair(dilation), lhs_dilation=_pair(lhs_dilation))
+    ci_g, co = w.shape[2], w.shape[3]
+    co_g = co // groups
+    y = torch.cat([_conv_sum(x[..., g * ci_g:(g + 1) * ci_g],
+                             w[..., g * co_g:(g + 1) * co_g], **kw)
+                   for g in range(groups)], dim=-1)
+    return epilogue(y, bias, relu, pool, residual).to(x.dtype)

@@ -1,0 +1,96 @@
+"""Batched image-serving driver of the port (the counterpart of
+``repro/launch/serve_images.py``).
+
+Feeds a stream of mixed-size classification requests through the
+bucketed :class:`repro_torch.serve.ImageServer` and prints the
+per-request traffic ledger: bytes/image, distance to the Eq. (15)
+bound at the accounting budget, and the weight-read amortization the
+bucketing bought vs per-image dispatch.
+
+  # VGG16/224 at full width through the CUDA kernel on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve_images \\
+      --width-mult 1.0 --image 224 --requests 16
+
+  # paper-scale serving economics, no compute, on any host:
+  PYTHONPATH=src python -m repro_torch.launch.serve_images \\
+      --account-only --device cpu --width-mult 1.0 --image 224
+
+  # ResNet-20 through the same server and ledger, plain version on CPU:
+  PYTHONPATH=src python -m repro_torch.launch.serve_images \\
+      --model resnet --device cpu --width-mult 0.25 --image 32
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.models.cnn import init_resnet, init_vgg, resnet_graph
+from repro_torch.serve import ImageServer
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("vgg", "resnet"), default="vgg")
+    ap.add_argument("--width-mult", type=float, default=1.0)
+    ap.add_argument("--image", type=int, default=224,
+                    help="square image edge")
+    ap.add_argument("--classes", type=int, default=10)
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--buckets", type=int, nargs="+",
+                    default=[1, 2, 4, 8])
+    ap.add_argument("--wait-ms", type=float, default=20.0,
+                    help="deadline flush budget for partial buckets")
+    ap.add_argument("--budget-kib", type=int, default=1024,
+                    help="on-chip accounting budget (ledger scale)")
+    ap.add_argument("--account-only", action="store_true",
+                    help="plan + ledger, no compute")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="cuda runs the CUDA kernel; cpu its plain "
+                         "PyTorch version")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    gen = torch.Generator().manual_seed(args.seed)
+    if args.model == "resnet":
+        graph = resnet_graph(width_mult=args.width_mult)
+        params = init_resnet(gen, graph, n_classes=args.classes,
+                             device=args.device)
+    else:
+        graph = None
+        params = init_vgg(gen, n_classes=args.classes,
+                          width_mult=args.width_mult, device=args.device)
+    server = ImageServer(params, args.image, args.image, graph=graph,
+                         buckets=args.buckets,
+                         wait_budget=args.wait_ms / 1e3,
+                         account_budget=args.budget_kib * 1024,
+                         target=("account-only" if args.account_only
+                                 else "kernel"),
+                         device=args.device)
+    rng = np.random.default_rng(args.seed)
+    max_req = max(args.buckets)
+    t0 = time.perf_counter()
+    results = []
+    for _ in range(args.requests):
+        n = int(rng.integers(1, max_req + 1))
+        if args.account_only:
+            server.submit(n_images=n)
+        else:
+            server.submit(rng.standard_normal(
+                (n, args.image, args.image, 3), dtype=np.float32))
+        results += server.poll()
+    results += server.drain()
+    dt = time.perf_counter() - t0
+
+    s = server.ledger.summary()
+    print(server.ledger.format_summary())
+    print(f"stats: {server.stats}")
+    print(f"served {s['requests']} requests / {s['images']} images in "
+          f"{dt:.2f}s on {args.device}")
+
+
+if __name__ == "__main__":
+    main()

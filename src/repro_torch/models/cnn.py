@@ -1,0 +1,105 @@
+"""Conv-network builders over the :mod:`repro_torch.models.graph` IR —
+the port's copy of the VGG and ResNet builders of
+``repro/models/cnn.py``.
+
+VGG16 (the paper's own workload) and CIFAR-style ResNet BasicBlock
+stacks are both :class:`~repro_torch.models.graph.ConvGraph` s; the
+ResNet is the one that carries stride-2 downsampling, 1x1 projection
+shortcuts and residual joins.  Init is He (Kaiming) with the sqrt(2)
+ReLU gain, drawn from a ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.exec_target import resolve_device
+from repro_torch.core.vgg import _CFG
+from repro_torch.models.graph import ConvGraph, ConvNode, init_graph
+
+
+def vgg_layer_dims(width_mult: float = 1.0):
+    dims = []
+    for name, ci, co, h, w in _CFG:
+        dims.append((name, max(1, int(ci * width_mult)) if ci != 3 else 3,
+                     max(1, int(co * width_mult)), h, w))
+    return dims
+
+
+def init_vgg(generator: torch.Generator, n_classes: int = 10,
+             width_mult: float = 1.0, *, device="cuda") -> dict:
+    """He-init VGG16 conv params (3x3, zero bias) and a linear head,
+    drawn from ``generator`` and placed on ``device``."""
+    dev = resolve_device(device)
+    convs = []
+    for _, ci, co, _, _ in vgg_layer_dims(width_mult):
+        w = torch.randn((3, 3, ci, co), generator=generator) \
+            * (math.sqrt(2.0) / math.sqrt(9 * ci))
+        convs.append({"w": w.to(dev),
+                      "b": torch.zeros((co,), device=dev)})
+    last_co = vgg_layer_dims(width_mult)[-1][2]
+    head = torch.randn((last_co, n_classes), generator=generator) \
+        / math.sqrt(last_co)
+    return {"convs": convs, "head": head.to(dev)}
+
+
+_POOL_AFTER = {"conv1_2", "conv2_2", "conv3_3", "conv4_3", "conv5_3"}
+
+
+def vgg_graph(params, name: str = "vgg") -> ConvGraph:
+    """The VGG stack the params realize: channel counts from the param
+    shapes (any ``width_mult``), pool cadence from the VGG-16 config."""
+    nodes = []
+    for p, (cfg_name, *_rest) in zip(params["convs"], _CFG):
+        ci, co = int(p["w"].shape[2]), int(p["w"].shape[3])
+        nodes.append(ConvNode(name=cfg_name, ci=ci, co=co,
+                              pool=2 if cfg_name in _POOL_AFTER else 1))
+    return ConvGraph(name=name, nodes=tuple(nodes))
+
+
+def resnet_graph(blocks=(3, 3, 3), widths=(16, 32, 64), in_ch: int = 3,
+                 width_mult: float = 1.0,
+                 name: str | None = None) -> ConvGraph:
+    """CIFAR-style ResNet of BasicBlocks: one 3x3 stem, then
+    ``blocks[i]`` BasicBlocks at ``widths[i]`` channels per stage;
+    every stage after the first opens with a stride-2 block whose
+    shortcut is a 1x1 stride-2 projection.  Each block is
+
+        x -> conv3x3(stride s) + ReLU -> conv3x3 -> (+ shortcut) -> ReLU
+
+    with the join as the second conv's ``residual`` edge.  Defaults
+    build ResNet-20; ``width_mult`` scales channel widths."""
+    widths = tuple(max(1, int(round(w * width_mult))) for w in widths)
+    if name is None:
+        name = f"resnet{2 + 2 * sum(blocks)}"
+    nodes = [ConvNode(name="stem", ci=in_ch, co=widths[0])]
+    prev = "stem"
+    ci = widths[0]
+    for si, (n_blocks, co) in enumerate(zip(blocks, widths), start=1):
+        for bi in range(n_blocks):
+            stride = 2 if si > 1 and bi == 0 else 1
+            base = f"s{si}b{bi}"
+            block_in = prev
+            if stride != 1 or ci != co:
+                nodes.append(ConvNode(name=f"{base}_proj", ci=ci, co=co,
+                                      hk=1, wk=1, stride=stride, pad=0,
+                                      relu=False, src=block_in))
+                shortcut = f"{base}_proj"
+            else:
+                shortcut = block_in
+            nodes.append(ConvNode(name=f"{base}_a", ci=ci, co=co,
+                                  stride=stride, src=block_in))
+            nodes.append(ConvNode(name=f"{base}_b", ci=co, co=co,
+                                  residual=shortcut))
+            prev = f"{base}_b"
+            ci = co
+    return ConvGraph(name=name, nodes=tuple(nodes))
+
+
+def init_resnet(generator: torch.Generator, graph: ConvGraph | None = None,
+                n_classes: int = 10, *, device="cuda") -> dict:
+    """He-init params for a ResNet graph (default: ResNet-20)."""
+    return init_graph(generator, graph or resnet_graph(),
+                      n_classes=n_classes, device=device)
