@@ -5,14 +5,17 @@ of the accounting-profile half of ``repro/analysis/plan_check.py``.
     :class:`~repro_torch.kernels.conv_lb.ops.ConvPlan` against the
     structural contract of the reference planner: grid divisibility,
     halo windows in bounds, the lhs-dilated compact walk, fused pool
-    alignment, and the working set against the budget.  The TPU
+    alignment, and the working set against the budget;
+    :func:`check_wgrad_plan` does the same for a
+    :class:`~repro_torch.kernels.conv_lb.ops.WgradPlan`.  The TPU
     alignment rules of the reference (its ``mosaic`` profile) are
     TPU legality and are not ported.
   * **Traffic cross-audit** — :func:`symbolic_conv_traffic` /
-    :func:`symbolic_bound_words` re-derive each plan's words and its
-    Eq. (15) bound by a second, simpler route, and
-    :func:`audit_handles` asserts exact agreement with the accountant
-    for every handle the serve ledger charges.
+    :func:`symbolic_wgrad_traffic` / :func:`symbolic_bound_words`
+    re-derive each plan's words and its Eq. (15) bound by a second,
+    simpler route, and :func:`audit_handles` asserts exact agreement
+    with the accountant for every handle the serve ledger and the
+    training report charge (forward, dgrad and wgrad plans).
 """
 
 from __future__ import annotations
@@ -169,6 +172,51 @@ def check_conv_plan(plan, *, batch: int = 1, dtype_bytes: int = 4,
     return diags
 
 
+def check_wgrad_plan(wplan, *, batch: int = 1, dtype_bytes: int = 4,
+                     vmem_budget: int | None = None,
+                     where: str = "") -> list[Diagnostic]:
+    """Verify a dW-stationary plan: the resident dW block plus
+    double-buffered x/dy strips must fit the budget, the channel
+    blocks must describe a real partition of the layer, and the lagged
+    carry must cover the strip halo."""
+    del batch          # plans carry no batch extent
+    budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
+    diags: list[Diagnostic] = []
+    for name, b, dim in (("ci_b", wplan.ci_b, wplan.ci),
+                         ("co_b", wplan.co_b, wplan.co),
+                         ("strip", wplan.strip, wplan.ho)):
+        if b < 1 or b > dim:
+            diags.append(_err(
+                "wgrad.grid", f"{name}={b} outside [1, {dim}]",
+                where=where))
+    if diags:
+        return diags
+    # the lagged rolling fetch: carry rows must cover the halo strips
+    # share (re-derived from the raw geometry, not through
+    # WgradPlan.lag)
+    r_rows = wplan.strip * wplan.sy
+    k_rows = max(0, wplan.ekh - wplan.sy)
+    lag = -(-k_rows // r_rows) if k_rows > 0 else 0
+    if wplan.lag != lag or lag * r_rows < k_rows:
+        diags.append(_err(
+            "wgrad.strip",
+            f"lag {wplan.lag} x {r_rows}-row fetches cannot carry the "
+            f"{k_rows}-row strip halo",
+            hint="lag must be ceil((ekh - stride) / (strip*stride))",
+            where=where))
+    xrows = (wplan.strip - 1) * wplan.sy + wplan.ekh
+    need = (4 * wplan.hk * wplan.wk * wplan.ci_b * wplan.co_b
+            + 2 * dtype_bytes * xrows * wplan.wp * wplan.ci_b
+            + 2 * dtype_bytes * wplan.strip * wplan.wo * wplan.co_b)
+    if need > budget:
+        diags.append(_err(
+            "wgrad.vmem", f"resident dW block + strips need {need} B "
+            f"> {budget} B budget",
+            hint="shrink the strip first, then the channel blocks",
+            where=where))
+    return diags
+
+
 def symbolic_conv_traffic(plan, batch: int) -> Traffic:
     """Independent re-derivation of :meth:`ConvPlan.traffic`: fetches
     per operand counted straight from the block walk (an operand is
@@ -206,6 +254,29 @@ def symbolic_conv_traffic(plan, batch: int) -> Traffic:
                     * blk.co))
     return Traffic(reads_in=float(in_words), reads_w=float(w_words),
                    reads_out=0.0, writes_out=float(out_words))
+
+
+def symbolic_wgrad_traffic(wplan, batch: int) -> Traffic:
+    """Independent re-derivation of :meth:`WgradPlan.traffic`, walked
+    off the reference kernel's grid ``(nci, nco, batch, strips +
+    lag)``: the disjoint x fetch changes every step (warm-up fetches
+    included), the dy strip takes exactly ``strips`` distinct values
+    per (ci-block, co-block, image), and the resident dW block flushes
+    exactly once."""
+    nci = ceil_div(wplan.ci, wplan.ci_b)
+    nco = ceil_div(wplan.co, wplan.co_b)
+    ns = ceil_div(wplan.ho, wplan.strip)
+    r_rows = wplan.strip * wplan.sy
+    k_rows = max(0, wplan.ekh - wplan.sy)
+    lag = -(-k_rows // r_rows) if k_rows > 0 else 0
+    reads_x = (nci * nco * batch * (ns + lag)
+               * r_rows * wplan.wp * wplan.ci_b)
+    reads_dy = (nci * nco * batch * ns
+                * wplan.strip * wplan.wo * wplan.co_b)
+    writes = (wplan.hk * wplan.wk) * (nci * wplan.ci_b) * (nco
+                                                           * wplan.co_b)
+    return Traffic(reads_in=float(reads_x), reads_w=float(reads_dy),
+                   reads_out=0.0, writes_out=float(writes))
 
 
 def symbolic_bound_words(plan, layer) -> float:
@@ -277,22 +348,51 @@ class PlanAudit:
         return "\n".join(lines)
 
 
+def _audit_conv(name, layer, plan, *, batch, dtype_bytes,
+                vmem_budget) -> PlanAuditEntry:
+    diags = check_conv_plan(plan, batch=batch, dtype_bytes=dtype_bytes,
+                            vmem_budget=vmem_budget, where=name)
+    acct = plan.traffic(batch)
+    bound = plan.bound_words(layer) if layer is not None else 0.0
+    return PlanAuditEntry(
+        name=name, diagnostics=tuple(diags),
+        traffic_ok=symbolic_conv_traffic(plan, batch) == acct,
+        bound_ok=(layer is None
+                  or symbolic_bound_words(plan, layer) == bound),
+        words=acct.total, bound=bound)
+
+
+def _audit_wgrad(name, wplan, *, batch, dtype_bytes,
+                 vmem_budget) -> PlanAuditEntry:
+    diags = check_wgrad_plan(wplan, dtype_bytes=dtype_bytes,
+                             vmem_budget=vmem_budget, where=name)
+    acct = wplan.traffic(batch)
+    return PlanAuditEntry(
+        name=name, diagnostics=tuple(diags),
+        traffic_ok=symbolic_wgrad_traffic(wplan, batch) == acct,
+        bound_ok=True, words=acct.total, bound=0.0)
+
+
 def audit_handles(handles, *, batch: int, dtype_bytes: int = 4,
                   vmem_budget: int | None = None) -> PlanAudit:
-    """Audit forward ``[(ConvLayer, ConvPlan)]`` handles (the
+    """Audit ``[(ConvLayer, ConvPlan | ConvTrainingPlan)]`` handles (the
     :func:`~repro_torch.models.graph.graph_plan_handles` export): the
-    legality pass and the exact traffic/bound cross-audit."""
+    legality pass on every constituent plan and the exact traffic/bound
+    cross-audit against the accountant."""
+    kw = dict(batch=batch, dtype_bytes=dtype_bytes,
+              vmem_budget=vmem_budget)
     entries = []
-    for layer, plan in handles:
-        name = f"{layer.name}/fwd"
-        diags = check_conv_plan(plan, batch=batch,
-                                dtype_bytes=dtype_bytes,
-                                vmem_budget=vmem_budget, where=name)
-        acct = plan.traffic(batch)
-        bound = plan.bound_words(layer)
-        entries.append(PlanAuditEntry(
-            name=name, diagnostics=tuple(diags),
-            traffic_ok=symbolic_conv_traffic(plan, batch) == acct,
-            bound_ok=symbolic_bound_words(plan, layer) == bound,
-            words=acct.total, bound=bound))
+    for layer, handle in handles:
+        if hasattr(handle, "fwd"):        # ConvTrainingPlan triple
+            entries.append(_audit_conv(f"{layer.name}/fwd", layer,
+                                       handle.fwd, **kw))
+            # the dgrad conv is its own layer geometry; legality and
+            # the traffic re-derivation apply, the fwd bound does not
+            entries.append(_audit_conv(f"{layer.name}/dgrad", None,
+                                       handle.dgrad, **kw))
+            entries.append(_audit_wgrad(f"{layer.name}/wgrad",
+                                        handle.wgrad, **kw))
+        else:
+            entries.append(_audit_conv(f"{layer.name}/fwd", layer,
+                                       handle, **kw))
     return PlanAudit(entries=tuple(entries))

@@ -8,6 +8,9 @@ serving path uses:
                  (:func:`q_dram_practical`), floored at the once-per-word
                  ideal, and its serving-horizon form
                  (:func:`q_dram_serving`);
+  * Eq. (15) applied to the backward convs of a training step
+                 (:func:`q_dram_dgrad`, :func:`q_dram_wgrad`) and
+                 their per-step sum (:func:`q_dram_training`);
   * the optimal tile aspect ratio  u = R*z,  u*z = S (Sec. IV-C's two
     key conditions, :func:`optimal_block`), and the unfolding of u into
     a batch-folded (b, y, x) tile (:func:`fold_u`), which seed the
@@ -47,6 +50,57 @@ def q_dram_serving(layer: ConvLayer, s: int, *, requests: int) -> float:
     n = max(1, int(requests))
     horizon = dataclasses.replace(layer, batch=n)
     return q_dram_practical(horizon, s) / n
+
+
+def q_dram_dgrad(layer: ConvLayer, s: int) -> float:
+    """Eq. (15) applied to the layer's *dgrad* conv (dx from dy).
+
+    A conv's input gradient is itself a conv: dy (spatially dilated by
+    the forward stride) against the flipped ``(Hk, Wk, Co, Ci)``
+    weights at unit stride and "full" padding.  It performs the same
+    #MACs as the forward pass; each *real* dy word feeds Hk*Wk output
+    positions (unit-stride window reuse, regardless of the forward
+    stride — the dilation zeros carry no data), and every dx element
+    is a mandatory write.  Floored at the once-per-word ideal (dy and
+    the weights read once, dx written once).
+    """
+    r = float(layer.hk * layer.wk)
+    read = 2.0 * layer.macs / math.sqrt(r * s)
+    ideal = float(layer.n_outputs + layer.n_weights + layer.n_inputs)
+    return max(read + float(layer.n_inputs), ideal)
+
+
+def q_dram_wgrad(layer: ConvLayer, s: int) -> float:
+    """Eq. (15) applied to the layer's *wgrad* conv (dW from x and dy).
+
+    dW is the conv of the input with the incoming gradient: the
+    "kernel" plane is dy (Ho x Wo), batch folds into the reduction
+    (every image contributes to the same dW), and the output is the
+    Hk x Wk x Ci x Co weight tensor — written exactly once.  Same
+    #MACs as the forward; an input element is reused by at most
+    Hk*Wk / stride**2 of the Hk x Wk output positions, i.e. the
+    forward reuse factor R.  Floored at the once-per-word ideal (x and
+    dy read once, dW written once).
+    """
+    read = 2.0 * layer.macs / math.sqrt(layer.reuse_r * s)
+    touched_in = (layer.batch * layer.ci
+                  * layer.fetched_area(layer.wo, layer.ho))
+    ideal = float(touched_in + layer.n_outputs + layer.n_weights)
+    return max(read + float(layer.n_weights), ideal)
+
+
+def q_dram_training(layer: ConvLayer, s: int, *, bwd: bool = True) -> float:
+    """Attainable lower bound for one *training step* of the layer:
+    forward + dgrad + wgrad, each a conv covered by Theorem 2.
+
+      Q_step >= Q_fwd(S) + Q_dgrad(S) + Q_wgrad(S)
+
+    ``bwd=False`` reduces to :func:`q_dram_practical` (inference).
+    """
+    q = q_dram_practical(layer, s)
+    if bwd:
+        q += q_dram_dgrad(layer, s) + q_dram_wgrad(layer, s)
+    return q
 
 
 def q_dram_ideal(layer: ConvLayer) -> float:

@@ -3,8 +3,9 @@ CUDA kernel (``csrc/conv_lb.cu``), which replaces the TPU kernel
 ``_conv_kernel`` / ``conv_lb_call`` of
 ``repro/kernels/conv_lb/kernel.py``.
 
-Build: at first use ``nvcc`` compiles the source in this checkout for
-``sm_90a`` into a shared library with a plain C interface under
+Build (:func:`build`, shared with the wgrad kernel's wrapper): at
+first use ``nvcc`` compiles a source in this checkout for ``sm_90a``
+into a shared library with a plain C interface under
 ``build/repro_torch/`` (named by the source's hash, so an edited source
 is rebuilt), and ``ctypes`` binds it.  Nothing is compiled when the
 module is imported.
@@ -49,64 +50,92 @@ MAX_REGS = 128      # per thread, as __launch_bounds__(256, 2) caps it
 CTAS_PER_SM = REGS_PER_SM // (THREADS * MAX_REGS)
 
 
-class _Library:
-    """The loaded kernel library and what its build printed."""
+class Library:
+    """One loaded kernel library and what its build printed.  The C
+    interface of ``csrc/<stem>.cu`` exports ``<stem>_error_string``."""
 
     def __init__(self, lib: ctypes.CDLL, path: Path, log: str,
-                 seconds: float):
+                 seconds: float, stem: str):
         self.lib, self.path, self.log, self.seconds = lib, path, log, seconds
-        fwd = lib.conv_lb_forward
-        fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 27
-                        + [ctypes.c_void_p])
-        fwd.restype = ctypes.c_int
-        lib.conv_lb_error_string.argtypes = [ctypes.c_int]
-        lib.conv_lb_error_string.restype = ctypes.c_char_p
+        self._error_string = getattr(lib, f"{stem}_error_string")
+        self._error_string.argtypes = [ctypes.c_int]
+        self._error_string.restype = ctypes.c_char_p
+        self._bound: dict[str, object] = {}
+
+    def bind(self, name: str, n_pointers: int, n_ints: int):
+        """The C function ``name`` taking ``n_pointers`` pointers, then
+        ``n_ints`` ints, then the stream, and returning a CUDA error
+        code."""
+        if name not in self._bound:
+            fn = getattr(self.lib, name)
+            fn.argtypes = ([ctypes.c_void_p] * n_pointers
+                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._bound[name] = fn
+        return self._bound[name]
 
     def error_string(self, code: int) -> str:
-        return self.lib.conv_lb_error_string(code).decode()
+        return self._error_string(code).decode()
 
 
-_LIBRARY: _Library | None = None
+_LIBRARIES: dict[Path, Library] = {}
 
 
 def _nvcc() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the conv kernel is built "
-                           "from csrc/conv_lb.cu at first use and needs "
-                           "the CUDA toolkit")
+        raise RuntimeError("nvcc not found: the kernels are built from "
+                           "their csrc/*.cu sources at first use and "
+                           "need the CUDA toolkit")
     return found
 
 
-def build() -> _Library:
-    """Compile (once per process and source) and load the kernel
-    library; raises with the compiler's output if the build fails."""
-    global _LIBRARY
-    if _LIBRARY is not None:
-        return _LIBRARY
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    target = BUILD_DIR / f"conv_lb-{digest}.so"
-    t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                               str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    seconds = time.perf_counter() - t0
-    _LIBRARY = _Library(ctypes.CDLL(str(target)), target,
-                        proc.stdout + proc.stderr, seconds)
-    return _LIBRARY
+def build_many(sources) -> list[Library]:
+    """Compile (once per process and source) and load kernel libraries,
+    one ``nvcc`` per source, all started together; raises with the
+    compiler's output if a build fails."""
+    todo = {}
+    for source in sources:
+        source = Path(source)
+        if source in _LIBRARIES or source in todo:
+            continue
+        src = source.read_bytes()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
+                                ).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                 str(source)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        todo[source] = (proc, tmp,
+                        BUILD_DIR / f"{source.stem}-{digest}.so",
+                        time.perf_counter())
+    # wait for every compiler before loading or raising
+    logs = {source: job[0].communicate()[0] for source, job in todo.items()}
+    failed = []
+    for source, (proc, tmp, target, t0) in todo.items():
+        log = logs[source]
+        try:
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}) on "
+                              f"{source}:\n{log}")
+                continue
+            os.replace(tmp, target)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+        _LIBRARIES[source] = Library(ctypes.CDLL(str(target)), target, log,
+                                     time.perf_counter() - t0, source.stem)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [_LIBRARIES[Path(s)] for s in sources]
+
+
+def build(source: Path = SOURCE) -> Library:
+    """Compile (once per process) and load one kernel library, by
+    default the conv kernel's."""
+    return build_many([source])[0]
 
 
 @lru_cache(maxsize=4096)
@@ -223,11 +252,12 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
                          f"memory per CTA, more than the card's "
                          f"{SMEM_PER_BLOCK} B")
     lib = build()
+    forward = lib.bind("conv_lb_forward", 5, 27)
     out = torch.empty((b, ho // pool, wo // pool, co), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lib.conv_lb_forward(
+        err = forward(
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(),

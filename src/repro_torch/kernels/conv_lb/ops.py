@@ -1,6 +1,6 @@
-"""Planner, traffic accountant and the forward op of the
+"""Planner, traffic accountant and the differentiable op of the
 paper-dataflow conv — the port's copy of
-``repro/kernels/conv_lb/ops.py`` for the serving path.
+``repro/kernels/conv_lb/ops.py``.
 
 Two halves, kept apart on purpose:
 
@@ -11,14 +11,21 @@ Two halves, kept apart on purpose:
     counts the words those blocks move under the reference's refetch
     rule: a block is fetched again only when its index changes between
     consecutive steps of the grid (nb, ny, nx, nco, nci), nci
-    innermost.  The serve ledger charges these plans, so they equal the
-    reference's word for word.
+    innermost.  A training step adds the dgrad conv
+    (:func:`plan_conv_dgrad`) and the dW-stationary wgrad schedule
+    (:class:`WgradPlan`), combined per layer by
+    :func:`plan_conv_training`.  The serve ledger and the training
+    report charge these plans, so they equal the reference's word for
+    word.
   * **Execution.**  :func:`conv2d_lb` runs the conv, group by group,
     through :func:`repro_torch.kernels.conv_lb.kernel.conv_lb`: the
     hand-written CUDA kernel on a CUDA tensor, its plain PyTorch
-    version on a CPU tensor.  The kernel tiles for the card, not for
-    the accounting plan; what it moves on the card is a measurement of
-    its own, not a change to the ledger.
+    version on a CPU tensor.  Its backward (:class:`ConvLb`) runs on
+    the same kernel (the pre-epilogue recompute and dgrad) and on the
+    wgrad kernel (:func:`repro_torch.kernels.conv_lb.wgrad.wgrad_lb`).
+    The kernels tile for the card, not for the accounting plans; what
+    they move on the card is a measurement of its own, not a change to
+    the ledger.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from functools import lru_cache
 from math import gcd as _gcd
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.analysis.plan_check import (Diagnostic, PlanLegalityError,
                                              check_conv_plan, errors)
@@ -36,9 +44,12 @@ from repro_torch.core.hopper_adapter import (REF_PLAN_BUDGET,
                                              ConvBlockShape, balanced_tile,
                                              conv_block_candidates,
                                              conv_lb_block_shape, round_up)
-from repro_torch.core.layer import ceil_div
-from repro_torch.core.lower_bound import q_dram_practical
+from repro_torch.core.layer import balanced_candidates, ceil_div
+from repro_torch.core.lower_bound import (q_dram_dgrad, q_dram_practical,
+                                          q_dram_wgrad)
 from repro_torch.kernels.conv_lb.kernel import conv_lb
+from repro_torch.kernels.conv_lb.ref import conv2d_ref, flip_w
+from repro_torch.kernels.conv_lb.wgrad import WgradGeometry, wgrad_lb
 from repro_torch.obs.tracer import active_tracer
 
 
@@ -392,13 +403,467 @@ def conv_lb_traffic_bytes(*args, dtype: torch.dtype | None = None,
     return t.total * dtype_bytes
 
 
+# --------------------------------------------------------------------------
+# backward pass: dgrad / wgrad as planned convs (accounting)
+# --------------------------------------------------------------------------
+
+def dgrad_rides_kernel(plan: ConvPlan) -> bool:
+    """True when the layer's dgrad can execute through the conv kernel
+    itself: a forward padding the full-padding transform can absorb.
+    Unit-stride layers run the plain conv over the flipped weights;
+    strided layers run the *same* kernel over the compact dy plane
+    with ``lhs_dilation = stride``."""
+    ekh = (plan.hk - 1) * plan.dilation[0] + 1
+    ekw = (plan.wk - 1) * plan.dilation[1] + 1
+    return plan.py <= ekh - 1 and plan.px <= ekw - 1
+
+
+def plan_conv_dgrad(plan: ConvPlan, *, batch: int = 1,
+                    dtype_bytes: int = 4,
+                    vmem_budget: int | None = None,
+                    autotune: bool = True) -> ConvPlan:
+    """Plan the layer's *dgrad* conv (dx from dy) off a forward handle.
+
+    dx is the conv of dy with the spatially-flipped ``(Hk, Wk, Co, Ci)``
+    weights at unit stride and full padding; a strided forward
+    lhs-dilates the dy plane first (``stride-1`` zeros between dy
+    rows/cols), which the kernel executes off the *compact* plane
+    (``lhs_dilation = stride``): the plan is over the dilated extents
+    but its traffic charges dy words only."""
+    sy, sx = plan.stride
+    hd = plan.ho if sy == 1 else (plan.ho - 1) * sy + 1
+    wd = plan.wo if sx == 1 else (plan.wo - 1) * sx + 1
+    ekh = (plan.hk - 1) * plan.dilation[0] + 1
+    ekw = (plan.wk - 1) * plan.dilation[1] + 1
+    return plan_conv(hd, wd, plan.co, plan.ci, plan.hk, plan.wk,
+                     batch=batch, stride=(1, 1),
+                     padding=(max(0, ekh - 1 - plan.py),
+                              max(0, ekw - 1 - plan.px)),
+                     dilation=plan.dilation,
+                     lhs_dilation=(sy, sx), dtype_bytes=dtype_bytes,
+                     vmem_budget=vmem_budget, autotune=autotune)
+
+
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """dW-stationary tiled schedule for the layer's *wgrad* conv — the
+    reference's accounting of its wgrad kernel.
+
+    dW is the conv of the padded input with the incoming gradient as
+    the kernel plane:
+
+      dW[ky, kx, ci, co] = sum_{b, oy, ox}
+          x_pad[b, ky*dil + oy*stride, kx*dil + ox*stride, ci]
+          * dy[b, oy, ox, co]
+
+    Batch folds into the reduction, so a ``(Hk, Wk, ci_b, co_b)`` block
+    of dW stays resident (OutR on the weight gradient, written once)
+    while matching spatial strips of x and dy stream through, image
+    after image.  Per (ci-block, co-block) sweep each step fetches a
+    disjoint ``strip*stride``-row x block while the ``ekh - stride``
+    halo rows stay in a carry; the compute lags the fetch by
+    ``lag = ceil((ekh - stride)/(strip*stride))`` steps.  x is
+    re-fetched once per Co-block sweep, dy once per Ci-block sweep.
+    The port's CUDA kernel (:mod:`.wgrad`) tiles for the card; this
+    plan is what the ledger charges.
+    """
+
+    hk: int            # dW spatial extent (= fwd kernel)
+    wk: int
+    ci: int
+    co: int
+    ho: int            # dy plane (the wgrad reduction's spatial extent)
+    wo: int
+    wp: int            # padded input plane cols
+    ekh: int           # dilated kernel extent (x strip halo rows)
+    sy: int            # fwd stride (x rows advanced per dy row)
+    ci_b: int          # resident dW block channels
+    co_b: int
+    strip: int         # dy rows streamed per strip
+    sx: int = 1        # fwd stride cols
+    ekw: int = 1       # dilated kernel extent cols
+    dly: int = 1       # rhs (kernel) dilation
+    dlx: int = 1
+    py: int = 0        # fwd conv padding
+    px: int = 0
+    h: int = 0         # true input plane rows
+
+    @property
+    def n_strips(self) -> int:
+        return ceil_div(self.ho, self.strip)
+
+    @property
+    def lag(self) -> int:
+        """Fetch steps the compute trails behind: the resident carry
+        holds ``K = ekh - stride`` halo rows spanning the previous
+        ``lag`` disjoint fetches (0 when ``ekh <= stride``)."""
+        k = self.ekh - self.sy
+        return ceil_div(k, self.strip * self.sy) if k > 0 else 0
+
+    @property
+    def ho_pad(self) -> int:
+        """dy rows after strip alignment (zero-padded tail)."""
+        return self.n_strips * self.strip
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        """(n_ci_blocks, n_co_blocks, n_strips)."""
+        return (ceil_div(self.ci, self.ci_b),
+                ceil_div(self.co, self.co_b),
+                self.n_strips)
+
+    def _x_rows(self) -> int:
+        """x rows fetched per image-channel plane pass: ``n_strips +
+        lag`` fetches of ``strip*stride`` rows each."""
+        return (self.n_strips + self.lag) * self.strip * self.sy
+
+    def traffic(self, batch: int) -> Traffic:
+        """HBM words one wgrad pass moves at ``batch`` images: x is
+        re-read once per Co-block sweep, dy once per Ci-block sweep,
+        the dW block accumulates on chip and is written once."""
+        nci, nco, _ = self.grid
+        ci_pad = nci * self.ci_b
+        co_pad = nco * self.co_b
+        reads_x = nco * batch * ci_pad * self._x_rows() * self.wp
+        reads_dy = nci * batch * co_pad * self.ho_pad * self.wo
+        writes = self.hk * self.wk * ci_pad * co_pad
+        return Traffic(reads_in=float(reads_x), reads_w=float(reads_dy),
+                       reads_out=0.0, writes_out=float(writes))
+
+    def traffic_bytes(self, batch: int, dtype_bytes: int = 4) -> float:
+        return self.traffic(batch).total * dtype_bytes
+
+    def footprint_elems(self) -> int:
+        """On-chip words S of the paper's model: resident dW block +
+        one x strip + one dy strip (no double buffering)."""
+        xrows = (self.strip - 1) * self.sy + self.ekh
+        return (self.hk * self.wk * self.ci_b * self.co_b
+                + xrows * self.wp * self.ci_b
+                + self.strip * self.wo * self.co_b)
+
+
+@lru_cache(maxsize=1024)
+def plan_conv_wgrad(plan: ConvPlan, *, dtype_bytes: int = 4,
+                    vmem_budget: int | None = None,
+                    autotune: bool = True) -> WgradPlan:
+    """Choose the dW-stationary blocks for a layer's wgrad conv off a
+    forward handle: minimize the re-read volume
+    ``n_co_blocks*|x| + n_ci_blocks*|dy|`` under the budget (resident
+    f32 dW block + double-buffered x/dy strips).  LRU-cached on the
+    (hashable) forward handle, like ``plan_conv``."""
+    budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
+    db = dtype_bytes
+    sy, sx = plan.stride
+    ekh = (plan.hk - 1) * plan.dilation[0] + 1
+    ekw = (plan.wk - 1) * plan.dilation[1] + 1
+    wp = plan.w + 2 * plan.px
+
+    def mk(cib, cob, s):
+        return WgradPlan(hk=plan.hk, wk=plan.wk, ci=plan.ci, co=plan.co,
+                         ho=plan.ho, wo=plan.wo, wp=wp, ekh=ekh, sy=sy,
+                         ci_b=cib, co_b=cob, strip=s,
+                         sx=sx, ekw=ekw,
+                         dly=plan.dilation[0], dlx=plan.dilation[1],
+                         py=plan.py, px=plan.px, h=plan.h)
+
+    def vmem_bytes(cib, cob, s):
+        xrows = (s - 1) * sy + ekh
+        return (4 * plan.hk * plan.wk * cib * cob     # f32 dW psums
+                + 2 * db * xrows * wp * cib           # double-buffered
+                + 2 * db * s * plan.wo * cob)         # streamed strips
+
+    ci_cands = balanced_candidates(plan.ci)
+    co_cands = balanced_candidates(plan.co)
+    s_cands = balanced_candidates(plan.ho) if autotune else [1]
+    best = mk(1, 1, 1)      # minimal block: always the fallback
+    best_cost = None
+    for cib in ci_cands:
+        for cob in co_cands:
+            for s in s_cands:
+                if vmem_bytes(cib, cob, s) > budget:
+                    continue
+                cand = mk(cib, cob, s)
+                # reads scale uniformly with batch and writes are
+                # batch-free, so ranking at batch=1 is batch-robust
+                cost = cand.traffic(1).total
+                if best_cost is None or cost < best_cost:
+                    best, best_cost = cand, cost
+    return best
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingTraffic:
+    """Per-training-step HBM words, split by pass."""
+
+    fwd: Traffic
+    dgrad: Traffic
+    wgrad: Traffic
+
+    @property
+    def total(self) -> float:
+        return self.fwd.total + self.dgrad.total + self.wgrad.total
+
+    @property
+    def bwd_share(self) -> float:
+        """Fraction of the step's words moved by the backward convs."""
+        return (self.dgrad.total + self.wgrad.total) / max(self.total,
+                                                           1e-30)
+
+    def total_bytes(self, dtype_bytes: int = 4) -> float:
+        return self.total * dtype_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTrainingPlan:
+    """The three planned convs of one layer's training step.
+
+    ``dgrad_kernel`` keeps the reference's flag: whether its dx
+    executes through the planned conv kernel (False for grouped
+    layers, or a forward padding past the full-padding transform).
+    The port runs grouped layers per group through the kernels all the
+    same; the flag is accounting."""
+
+    fwd: ConvPlan
+    dgrad: ConvPlan
+    wgrad: WgradPlan
+    dgrad_kernel: bool
+
+    def traffic(self, batch: int) -> TrainingTraffic:
+        """Words per training step at ``batch`` images."""
+        return TrainingTraffic(fwd=self.fwd.traffic(batch),
+                               dgrad=self.dgrad.traffic(batch),
+                               wgrad=self.wgrad.traffic(batch))
+
+    def traffic_bytes(self, batch: int, dtype_bytes: int = 4) -> float:
+        return self.traffic(batch).total_bytes(dtype_bytes)
+
+    def bound_words(self, layer) -> float:
+        """q_dram_training with each pass's Eq. (15) term evaluated at
+        that pass's *realized* plan footprint; the forward term rides
+        :meth:`ConvPlan.bound_words`, so a fused residual join's
+        mandatory read is on the bound side too."""
+        return (self.fwd.bound_words(layer)
+                + q_dram_dgrad(layer, self.dgrad.footprint_elems())
+                + q_dram_wgrad(layer, self.wgrad.footprint_elems()))
+
+
+def plan_conv_training(fwd: ConvPlan, *, batch: int, groups: int = 1,
+                       dtype_bytes: int = 4,
+                       vmem_budget: int | None = None,
+                       autotune: bool = True) -> ConvTrainingPlan:
+    """Derive the full training-step plan triple from a forward handle
+    (every constituent ``plan_conv`` call is memoized).  ``groups`` is
+    the executed conv's group count; it gates ``dgrad_kernel`` as in
+    the reference."""
+    if not (fwd.ci and fwd.co):
+        raise ValueError("forward plan carries no layer geometry; "
+                         "build it via plan_conv")
+    kw = dict(dtype_bytes=dtype_bytes, vmem_budget=vmem_budget,
+              autotune=autotune)
+    return ConvTrainingPlan(
+        fwd=fwd,
+        dgrad=plan_conv_dgrad(fwd, batch=batch, **kw),
+        wgrad=plan_conv_wgrad(fwd, **kw),
+        dgrad_kernel=dgrad_rides_kernel(fwd) and groups == 1)
+
+
+# --------------------------------------------------------------------------
+# execution: the forward and its backward through the kernels
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ConvArgs:
+    """The geometry and epilogue of one :func:`conv2d_lb` call."""
+
+    stride: tuple[int, int]
+    padding: tuple[int, int]
+    dilation: tuple[int, int]
+    lhs_dilation: tuple[int, int]
+    groups: int
+    relu: bool
+    pool: int
+
+
+def _per_group(x, w, bias, residual, a: ConvArgs, *, relu: bool,
+               pool: int) -> torch.Tensor:
+    """The conv group by group through
+    :func:`~repro_torch.kernels.conv_lb.kernel.conv_lb`."""
+    kw = dict(stride=a.stride, padding=a.padding, dilation=a.dilation,
+              lhs_dilation=a.lhs_dilation, relu=relu, pool=pool)
+    if a.groups == 1:
+        return conv_lb(x, w, bias, residual, **kw)
+    ci_g, co_g = w.shape[2], w.shape[3] // a.groups
+    outs = []
+    for g in range(a.groups):
+        cs = slice(g * co_g, (g + 1) * co_g)
+        outs.append(conv_lb(
+            x[..., g * ci_g:(g + 1) * ci_g].contiguous(),
+            w[..., cs].contiguous(),
+            None if bias is None else bias[cs].contiguous(),
+            None if residual is None else residual[..., cs].contiguous(),
+            **kw))
+    return torch.cat(outs, dim=-1)
+
+
+def max_pool_vjp(a: torch.Tensor, pool: int, g: torch.Tensor
+                 ) -> torch.Tensor:
+    """Pull ``g`` (B, H/p, W/p, C) back through the aligned ``pool`` x
+    ``pool`` max of ``a`` (B, H, W, C): each window's gradient goes to
+    one maximum, the first in row-major order, as the reference's
+    ``reduce_window`` max does (not spread over ties)."""
+    b, h, w, c = a.shape
+    hp, wp = h // pool, w // pool
+    win = (a.reshape(b, hp, pool, wp, pool, c).permute(0, 1, 3, 5, 2, 4)
+           .reshape(b, hp, wp, c, pool * pool))
+    idx = win.argmax(dim=-1, keepdim=True)
+    gw = torch.zeros_like(win).scatter_(-1, idx, g.unsqueeze(-1))
+    return (gw.reshape(b, hp, wp, c, pool, pool).permute(0, 1, 4, 2, 5, 3)
+            .reshape(b, h, w, c))
+
+
+def relu_slope(z: torch.Tensor) -> torch.Tensor:
+    """The ReLU's derivative as the reference takes it: 1 above zero,
+    0 below, and 1/2 at an exact zero (``jnp.maximum(z, 0)`` splits a
+    tie's gradient between its two arguments)."""
+    return (z > 0).to(z.dtype) + 0.5 * (z == 0).to(z.dtype)
+
+
+def epilogue_vjp(y: torch.Tensor, bias, residual, relu: bool, pool: int,
+                 g: torch.Tensor):
+    """Pull ``g`` back through bias -> residual -> ReLU -> pool applied
+    to the pre-epilogue sums ``y``: ``(gy, db, dres)`` (``dres`` is
+    ``gy``: the join passes its gradient through)."""
+    z = y
+    if bias is not None:
+        z = z + bias
+    if residual is not None:
+        z = z + residual
+    if pool > 1:
+        g = max_pool_vjp(torch.clamp_min(z, 0.0) if relu else z, pool, g)
+    if relu:
+        g = g * relu_slope(z)
+    db = None if bias is None else g.sum(dim=(0, 1, 2))
+    return g, db, (None if residual is None else g)
+
+
+def dgrad_lb(gy: torch.Tensor, w: torch.Tensor, a: ConvArgs, h: int,
+             wd: int) -> torch.Tensor:
+    """dx through the conv kernel: gy against the flipped weights at
+    full padding; a strided forward hands the compact gy plane over
+    with ``lhs_dilation = stride`` after one appended zero row/col
+    (its dilated plane otherwise ends ``(h + 2p - ekh) % s`` rows short
+    of the last input rows), and the surplus is cropped."""
+    (sy, sx), (py, px), (dy, dx) = a.stride, a.padding, a.dilation
+    hk, wk = w.shape[0], w.shape[1]
+    if sy > 1 or sx > 1:
+        gy = F.pad(gy, (0, 0, 0, int(sx > 1), 0, int(sy > 1)))
+    ci_g, co_g = w.shape[2], w.shape[3] // a.groups
+    outs = []
+    for g in range(a.groups):
+        gyg = gy if a.groups == 1 else \
+            gy[..., g * co_g:(g + 1) * co_g].contiguous()
+        outs.append(conv_lb(
+            gyg, flip_w(w[..., g * co_g:(g + 1) * co_g]),
+            stride=(1, 1), padding=((hk - 1) * dy - py, (wk - 1) * dx - px),
+            dilation=(dy, dx), lhs_dilation=(sy, sx)))
+    gx = outs[0] if a.groups == 1 else torch.cat(outs, dim=-1)
+    return gx[:, :h, :wd].contiguous()
+
+
+def _wgrad(x: torch.Tensor, gy: torch.Tensor, hk: int, wk: int,
+           a: ConvArgs) -> torch.Tensor:
+    """dW through the wgrad kernel, group by group."""
+    geom = WgradGeometry(hk=hk, wk=wk, stride=a.stride,
+                         padding=a.padding, dilation=a.dilation)
+    if a.groups == 1:
+        return wgrad_lb(x, gy, geom)
+    ci_g = x.shape[3] // a.groups
+    co_g = gy.shape[3] // a.groups
+    return torch.cat([
+        wgrad_lb(x[..., g * ci_g:(g + 1) * ci_g].contiguous(),
+                 gy[..., g * co_g:(g + 1) * co_g].contiguous(), geom)
+        for g in range(a.groups)], dim=-1)
+
+
+def _backward_on_kernels(a: ConvArgs, hk: int, wk: int) -> bool:
+    """Whether the kernels run this conv's backward: not for an
+    lhs-dilated forward, nor for a padding past the full-padding
+    transform (the dgrad conv's padding would be negative)."""
+    ekh = (hk - 1) * a.dilation[0] + 1
+    ekw = (wk - 1) * a.dilation[1] + 1
+    return (a.lhs_dilation == (1, 1) and a.padding[0] <= ekh - 1
+            and a.padding[1] <= ekw - 1)
+
+
+class ConvLb(torch.autograd.Function):
+    """The conv with its backward through the kernels — the
+    counterpart of the reference's ``kernel_conv`` custom VJP.
+
+    forward: the conv kernel with the fused epilogue.  backward:
+      1. recompute the pre-epilogue sums through the conv kernel with
+         no epilogue (no library conv runs anywhere in the backward);
+      2. pull ``g`` back through the epilogue in plain torch, which
+         gives ``db`` and ``dres = gy``;
+      3. dx through the conv kernel in the dgrad geometry, only when x
+         needs a gradient;
+      4. dW through the wgrad kernel.
+    Grouped layers run group by group.  A backward the kernels do not
+    take (:func:`_backward_on_kernels`) raises on a CUDA tensor; on a
+    CPU tensor it is the autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, a: ConvArgs):
+        ctx.args = a
+        ctx.save_for_backward(x, w, bias, residual)
+        return _per_group(x, w, bias, residual, a, relu=a.relu,
+                          pool=a.pool)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias, residual = ctx.saved_tensors
+        a = ctx.args
+        hk, wk = w.shape[0], w.shape[1]
+        need = ctx.needs_input_grad
+        g = g.contiguous()
+        if not _backward_on_kernels(a, hk, wk):
+            if x.device.type != "cpu":
+                raise NotImplementedError(
+                    f"no kernel backward for an lhs-dilated forward or a "
+                    f"padding past the full-padding transform (padding "
+                    f"{a.padding}, lhs_dilation {a.lhs_dilation}, "
+                    f"{hk}x{wk} kernel)")
+            return _plain_vjp(x, w, bias, residual, a, g) + (None,)
+        y = _per_group(x, w, None, None, a, relu=False, pool=1)
+        gy, db, dres = epilogue_vjp(y, bias, residual, a.relu, a.pool, g)
+        gy = gy.contiguous()
+        gx = dgrad_lb(gy, w, a, x.shape[1], x.shape[2]) if need[0] else None
+        gw = _wgrad(x, gy, hk, wk, a).to(w.dtype) if need[1] else None
+        return (gx, gw, db if need[2] else None,
+                dres if need[3] else None, None)
+
+
+def _plain_vjp(x, w, bias, residual, a: ConvArgs, g):
+    """The autograd of the plain version, for CPU tensors only."""
+    leaves = [t.detach().requires_grad_(True) if t is not None else None
+              for t in (x, w, bias, residual)]
+    with torch.enable_grad():
+        out = conv2d_ref(*leaves, stride=a.stride, padding=a.padding,
+                         dilation=a.dilation,
+                         lhs_dilation=a.lhs_dilation, groups=a.groups,
+                         relu=a.relu, pool=a.pool)
+        live = [t for t in leaves if t is not None]
+        grads = iter(torch.autograd.grad(out, live, g))
+    return tuple(None if t is None else next(grads) for t in leaves)
+
+
 def conv2d_lb(x: torch.Tensor, w: torch.Tensor,
               bias: torch.Tensor | None = None,
               residual: torch.Tensor | None = None, *,
               stride=1, padding=0, dilation=1, lhs_dilation=1,
               groups: int = 1, relu: bool = False,
               pool: int = 1) -> torch.Tensor:
-    """NHWC conv with the fused epilogue.
+    """NHWC conv with the fused epilogue, differentiable through the
+    kernels (:class:`ConvLb`).
 
     x: (B, H, W, Ci); w: (Hk, Wk, Ci/groups, Co) -> (B, Ho/pool,
     Wo/pool, Co).  ``stride``/``padding``/``dilation`` take an int or
@@ -410,7 +875,8 @@ def conv2d_lb(x: torch.Tensor, w: torch.Tensor,
     max-pool form the epilogue, applied to the f32 sums before the one
     store.  Each group runs
     :func:`~repro_torch.kernels.conv_lb.kernel.conv_lb`: the CUDA
-    kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel on a CUDA tensor, the plain version on a CPU tensor.  When
+    no input requires a gradient nothing is recorded for a backward."""
     sy, sx = _pair(stride)
     py, px = _pair(padding)
     dy, dx = _pair(dilation)
@@ -427,18 +893,7 @@ def conv2d_lb(x: torch.Tensor, w: torch.Tensor,
     if (ldy, ldx) != (1, 1) and (pool > 1 or residual is not None):
         raise ValueError("lhs-dilated convs fuse no pool/residual "
                          "epilogue")
-    kw = dict(stride=(sy, sx), padding=(py, px), dilation=(dy, dx),
-              lhs_dilation=(ldy, ldx), relu=relu, pool=pool)
-    if groups == 1:
-        return conv_lb(x, w, bias, residual, **kw)
-    co_g = co // groups
-    outs = []
-    for g in range(groups):
-        cs = slice(g * co_g, (g + 1) * co_g)
-        outs.append(conv_lb(
-            x[..., g * ci_g:(g + 1) * ci_g].contiguous(),
-            w[..., cs].contiguous(),
-            None if bias is None else bias[cs].contiguous(),
-            None if residual is None else residual[..., cs].contiguous(),
-            **kw))
-    return torch.cat(outs, dim=-1)
+    a = ConvArgs(stride=(sy, sx), padding=(py, px), dilation=(dy, dx),
+                 lhs_dilation=(ldy, ldx), groups=groups, relu=relu,
+                 pool=pool)
+    return ConvLb.apply(x, w, bias, residual, a)

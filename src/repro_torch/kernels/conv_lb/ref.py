@@ -1,6 +1,7 @@
-"""The plain PyTorch version of the conv kernel (the port's
-counterpart of ``repro/kernels/conv_lb/ref.py`` and the unfused
-epilogue ``_lax_epilogue`` of ``ops.py``).
+"""The plain PyTorch versions of the conv kernel and the wgrad kernel
+(the port's counterpart of ``repro/kernels/conv_lb/ref.py``, the
+unfused epilogue ``_lax_epilogue`` and the dgrad kernel ``_flip_w`` of
+``ops.py``).
 
 It repeats the kernel's arithmetic in the plainest form: the
 lhs-dilated plane is materialized by zero insertion, padded, and the
@@ -9,7 +10,9 @@ conv is the sum over the Hk x Wk windows of one (B*Ho*Wo, Ci) x
 paper Fig. 3 — followed by the unfused epilogue (bias -> residual ->
 ReLU -> max-pool).  The kernel wrapper runs it for CPU tensors, and
 the chip smoke holds the kernel against it on the card; it never runs
-for a CUDA tensor on the serving path.
+for a CUDA tensor on the serving or training path.  :func:`wgrad_ref`
+is the weight gradient in the same form: one ``xs^T @ dy`` product per
+window, summed in f32.
 """
 
 from __future__ import annotations
@@ -89,3 +92,31 @@ def conv2d_ref(x, w, bias=None, residual=None, *, stride=1, padding=0,
                              w[..., g * co_g:(g + 1) * co_g], **kw)
                    for g in range(groups)], dim=-1)
     return epilogue(y, bias, relu, pool, residual).to(x.dtype)
+
+
+def flip_w(w: torch.Tensor) -> torch.Tensor:
+    """(Hk, Wk, Ci, Co) -> spatially flipped (Hk, Wk, Co, Ci): the
+    dgrad conv's kernel (contiguous)."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def wgrad_ref(x: torch.Tensor, dy: torch.Tensor, hk: int, wk: int, *,
+              stride=1, padding=0, dilation=1) -> torch.Tensor:
+    """dW (Hk, Wk, Ci, Co) f32 of the conv x (B, H, W, Ci) -> dy
+    (B, Ho, Wo, Co): for every window, the product of the window's
+    strided input slice (B*Ho*Wo, Ci) transposed with dy
+    (B*Ho*Wo, Co), accumulated in f32."""
+    sy, sx = _pair(stride)
+    py, px = _pair(padding)
+    dly, dlx = _pair(dilation)
+    b, _, _, ci = x.shape
+    _, ho, wo, co = dy.shape
+    xp = F.pad(x.to(torch.float32), (0, 0, px, px, py, py))
+    g = dy.to(torch.float32).reshape(b * ho * wo, co)
+    out = g.new_zeros(hk, wk, ci, co)
+    for ky in range(hk):
+        for kx in range(wk):
+            xs = xp[:, ky * dly:ky * dly + (ho - 1) * sy + 1:sy,
+                    kx * dlx:kx * dlx + (wo - 1) * sx + 1:sx, :]
+            out[ky, kx] = xs.reshape(b * ho * wo, ci).t() @ g
+    return out

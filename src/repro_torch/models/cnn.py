@@ -6,7 +6,9 @@ VGG16 (the paper's own workload) and CIFAR-style ResNet BasicBlock
 stacks are both :class:`~repro_torch.models.graph.ConvGraph` s; the
 ResNet is the one that carries stride-2 downsampling, 1x1 projection
 shortcuts and residual joins.  Init is He (Kaiming) with the sqrt(2)
-ReLU gain, drawn from a ``torch.Generator``.
+ReLU gain, drawn from a ``torch.Generator``.  The training loss
+(:func:`graph_loss` / :func:`vgg_loss`) and the VGG training-step
+report are the reference's.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ import torch
 
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.core.vgg import _CFG
-from repro_torch.models.graph import ConvGraph, ConvNode, init_graph
+from repro_torch.kernels.conv_lb.ops import conv2d_lb
+from repro_torch.models.graph import (ConvGraph, ConvNode, graph_logits,
+                                      graph_training_step_report,
+                                      init_graph)
 
 
 def vgg_layer_dims(width_mult: float = 1.0):
@@ -57,6 +62,34 @@ def vgg_graph(params, name: str = "vgg") -> ConvGraph:
         nodes.append(ConvNode(name=cfg_name, ci=ci, co=co,
                               pool=2 if cfg_name in _POOL_AFTER else 1))
     return ConvGraph(name=name, nodes=tuple(nodes))
+
+
+def vgg_training_step_report(params, h: int, w: int, *, batch: int,
+                             in_ch: int = 3, dtype_bytes: int = 4,
+                             vmem_budget: int | None = None) -> dict:
+    """Per-training-step traffic accounting for the VGG conv stack —
+    :func:`~repro_torch.models.graph.graph_training_step_report` over
+    the VGG graph."""
+    return graph_training_step_report(
+        vgg_graph(params), h, w, batch=batch, in_ch=in_ch,
+        dtype_bytes=dtype_bytes, vmem_budget=vmem_budget, strict=False)
+
+
+def graph_loss(graph: ConvGraph, params, images: torch.Tensor,
+               labels: torch.Tensor, *, conv=conv2d_lb) -> torch.Tensor:
+    """Mean negative log-likelihood of ``log_softmax`` over the logits,
+    in f32 (the reference's ``vgg_loss``, for any graph); ``conv`` as
+    in :func:`~repro_torch.models.graph.graph_forward`."""
+    logits = graph_logits(graph, params, images, conv=conv)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(1, labels.long()[:, None]).mean()
+
+
+def vgg_loss(params, batch: dict) -> torch.Tensor:
+    """:func:`graph_loss` over the VGG graph of ``params``;
+    ``batch`` holds ``images`` and ``labels``."""
+    return graph_loss(vgg_graph(params), params, batch["images"],
+                      batch["labels"])
 
 
 def resnet_graph(blocks=(3, 3, 3), widths=(16, 32, 64), in_ch: int = 3,

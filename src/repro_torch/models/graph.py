@@ -1,6 +1,5 @@
 """Model-agnostic conv-graph IR — the port's copy of
-``repro/models/graph.py`` (forward and accounting; the training report
-belongs to the training slice).
+``repro/models/graph.py``.
 
 A :class:`ConvGraph` of :class:`ConvNode` s carries each conv's
 geometry, its epilogue (bias/relu/pool) and an optional residual input
@@ -11,7 +10,11 @@ consumer:
     :func:`~repro_torch.kernels.conv_lb.ops.conv2d_lb` with its
     epilogue (bias, residual join, ReLU, aligned pool) fused;
   * :func:`graph_plan_handles` — the ``(ConvLayer, ConvPlan)``
-    accounting handles the serve ledger charges.
+    accounting handles the serve ledger charges, or with
+    ``training=True`` the ``(ConvLayer, ConvTrainingPlan)`` handles of
+    a training step (forward, dgrad and wgrad plans);
+  * :func:`graph_training_step_report` — a training step's accounted
+    words against the per-step Eq. (15) sum.
 
 Topology: nodes are listed in topological order; each node consumes
 ``src`` (a prior node's name, or :data:`GRAPH_INPUT`; ``None`` chains
@@ -30,7 +33,8 @@ from repro_torch.analysis.plan_check import (Diagnostic, PlanLegalityError,
                                              audit_handles)
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.core.layer import ConvLayer
-from repro_torch.kernels.conv_lb.ops import conv2d_lb, plan_conv
+from repro_torch.kernels.conv_lb.ops import (conv2d_lb, plan_conv,
+                                            plan_conv_training)
 from repro_torch.kernels.conv_lb.ref import max_pool
 from repro_torch.obs.tracer import active_tracer
 
@@ -211,18 +215,22 @@ def graph_logits(graph: ConvGraph, params, images: torch.Tensor, *,
 def graph_plan_handles(graph: ConvGraph, h: int, w: int, *, batch: int,
                        in_ch: int = 3, dtype_bytes: int = 4,
                        vmem_budget: int | None = None,
+                       training: bool = False, strict: bool = True,
                        verify: bool = False):
     """Accounting handles for the whole graph at an arrival batch:
     ``[(ConvLayer, ConvPlan)]`` per conv stage, from the memoized
     ``plan_conv`` cache (grouped nodes export one per-group handle per
-    group).  An explicit ``vmem_budget`` (e.g. the paper's 1 MiB GBuf)
-    yields the accounting plans the ledger scores distance-to-bound
-    with.  ``verify=True`` audits the handles
+    group).  ``training=True`` exports ``(ConvLayer,
+    ConvTrainingPlan)`` instead: the forward handle plus the planned
+    dgrad/wgrad convs of each layer's backward.  An explicit
+    ``vmem_budget`` (e.g. the paper's 1 MiB GBuf) yields the
+    accounting plans the ledger scores distance-to-bound with.
+    ``verify=True`` audits the handles
     (:func:`~repro_torch.analysis.plan_check.audit_handles`) and raises
     :class:`~repro_torch.analysis.plan_check.PlanLegalityError` on any
     structural finding or accountant drift."""
     handles = []
-    for st in graph_stages(graph, h, w, in_ch):
+    for st in graph_stages(graph, h, w, in_ch, strict=strict):
         node = st.node
         ci_g, co_g = node.ci // node.groups, node.co // node.groups
         layer = ConvLayer(name=node.name, batch=batch, ci=ci_g, co=co_g,
@@ -235,6 +243,10 @@ def graph_plan_handles(graph: ConvGraph, h: int, w: int, *, batch: int,
                          residual=st.residual,
                          dtype_bytes=dtype_bytes,
                          vmem_budget=vmem_budget)
+        if training:
+            plan = plan_conv_training(
+                plan, batch=batch, groups=node.groups,
+                dtype_bytes=dtype_bytes, vmem_budget=vmem_budget)
         handles.extend([(layer, plan)] * node.groups)
     if verify:
         audit = audit_handles(handles, batch=batch,
@@ -246,3 +258,47 @@ def graph_plan_handles(graph: ConvGraph, h: int, w: int, *, batch: int,
                 message=audit.report())]
             raise PlanLegalityError(diags)
     return handles
+
+
+def graph_training_step_report(graph: ConvGraph, h: int, w: int, *,
+                               batch: int, in_ch: int = 3,
+                               dtype_bytes: int = 4,
+                               vmem_budget: int | None = None,
+                               strict: bool = True,
+                               tracer=None) -> dict:
+    """Per-training-step traffic accounting for any conv graph: every
+    layer's planned fwd+dgrad+wgrad words
+    (:meth:`ConvTrainingPlan.traffic`) scored against the per-graph
+    ``q_dram_training`` sum, each pass's Eq. (15) term at its realized
+    plan footprint — the training counterpart of the serve ledger's
+    ``vs_bound_x``.  The ambient (or given) tracer records a
+    ``graph.training_report`` span."""
+    tr = active_tracer() if tracer is None else tracer
+    with tr.span("graph.training_report", model=graph.name,
+                 batch=batch) as _sp:
+        handles = graph_plan_handles(graph, h, w, batch=batch,
+                                     in_ch=in_ch,
+                                     dtype_bytes=dtype_bytes,
+                                     vmem_budget=vmem_budget,
+                                     training=True, strict=strict)
+        words = fwd_words = bound = 0.0
+        kernel_layers = 0
+        for layer, tp in handles:
+            t = tp.traffic(batch)
+            words += t.total
+            fwd_words += t.fwd.total
+            bound += tp.bound_words(layer)
+            kernel_layers += int(tp.dgrad_kernel)
+        n_stages = len(graph_stages(graph, h, w, in_ch, strict=strict))
+        _sp.set(traffic_bytes=words * dtype_bytes,
+                train_vs_bound_x=words / max(bound, 1e-30))
+        return {
+            "model": graph.name,
+            "layers": n_stages,
+            "dgrad_kernel_layers": kernel_layers,
+            "dgrad_kernel_frac": kernel_layers / max(1, len(handles)),
+            "bytes_per_step": words * dtype_bytes,
+            "bound_bytes_per_step": bound * dtype_bytes,
+            "train_vs_bound_x": words / max(bound, 1e-30),
+            "bwd_share": (words - fwd_words) / max(words, 1e-30),
+        }

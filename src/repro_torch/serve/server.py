@@ -177,7 +177,8 @@ class ImageServer:
         graph, params = self.graph, self.params
 
         def fwd(imgs: torch.Tensor) -> torch.Tensor:
-            return graph_logits(graph, params, imgs)
+            with torch.no_grad():     # serving records no backward
+                return graph_logits(graph, params, imgs)
 
         self._pipelines[bucket] = fwd
         return fwd
