@@ -1,11 +1,27 @@
 #!/usr/bin/env python3
-"""Chip smoke of the PyTorch/CUDA port: builds the conv kernel (K1)
-and the wgrad kernel (K2) from the sources in this checkout, holds
-each against its plain PyTorch version on the card (K1 also in its
-dgrad geometries), serves VGG16/224 (full width) and ResNet-20/32
-through ``repro_torch.serve.ImageServer`` with every conv on K1,
-trains both for a few SGD steps with the backward on K1 (recompute,
-dgrad) and K2 (wgrad), and times each kernel per VGG layer.
+"""Chip smoke of the PyTorch/CUDA port.  Phases, in order:
+
+  * ``build``: the conv (K1), wgrad (K2), matmul (K3) and attention
+    (K4) kernels from the sources in this checkout, one nvcc each, all
+    started together; ptxas registers, spills and shared memory;
+  * ``check``, ``check_bwd``: K1 (also in its dgrad geometries) and K2
+    against their plain PyTorch versions; the two backwards the
+    kernels do not take (lhs-dilated, padding past full) against the
+    plain autograd, with the library-rung tally;
+  * ``check_matmul``, ``check_attention``: K3 and K4 through
+    ``matmul_lb`` / ``flash_attention`` at every shape and type of the
+    reference's sweeps and a fully masked row case, against their
+    plain versions (``CARD_TOL``; deliberately wrong results are shown
+    to fail the same gate), one launch per call;
+  * ``vgg``, ``resnet``: VGG16/224 (full width) and ResNet-20/32
+    served through ``repro_torch.serve.ImageServer``, every conv on K1;
+  * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
+    on K1 (recompute, dgrad) and K2 (wgrad);
+  * ``matmul``, ``attention``: the two entry points at full width
+    (phi3-medium-14b's projections at 4096 tokens; phi3-medium-14b's
+    and mixtral-8x7b's attention), f32 and bf16, held against the
+    plain versions and timed beside their bounds and a library call;
+  * ``layers``, ``layers_bwd``: each kernel timed per VGG layer.
 
     python3 chip_smoke.py        # on a host with one NVIDIA H100
 
@@ -30,12 +46,24 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
-                                             PEAK_F32_FLOPS)
+                                             PEAK_BF16_FLOPS,
+                                             PEAK_F32_FLOPS,
+                                             hbm_traffic_model)
+from repro_torch.kernels.attention_block import kernel as K4  # noqa: E402
+from repro_torch.kernels.attention_block.ops import (  # noqa: E402
+    flash_attention, heads_first)
+from repro_torch.kernels.attention_block.ref import (  # noqa: E402
+    attention_plain)
 from repro_torch.kernels.conv_lb import kernel as K  # noqa: E402
+from repro_torch.kernels.conv_lb import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.conv_lb import wgrad as W  # noqa: E402
 from repro_torch.kernels.conv_lb.ops import (ConvArgs,  # noqa: E402
                                              conv2d_lb, dgrad_lb,
                                              relu_slope)
+from repro_torch.kernels.matmul_lb import kernel as K3  # noqa: E402
+from repro_torch.kernels.matmul_lb.ops import (accounted_block,  # noqa: E402
+                                               matmul_lb)
+from repro_torch.kernels.matmul_lb.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
                                              wgrad_ref)
 from repro_torch.launch import train_vgg as T  # noqa: E402
@@ -64,6 +92,25 @@ SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb.cu"
 REPLACES = "src/repro/kernels/conv_lb/kernel.py:116"
 WGRAD_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb.cu"
 WGRAD_REPLACES = "src/repro/kernels/conv_lb/wgrad.py:50"
+MATMUL_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb.cu"
+MATMUL_REPLACES = "src/repro/kernels/matmul_lb/kernel.py:23"
+ATTN_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
+               "attention_block.cu")
+ATTN_REPLACES = "src/repro/kernels/attention_block/kernel.py:22"
+#: K3 and K4 vs their plain versions on the card: (rtol, atol, atol per
+#: rms of the plain output), |out - plain| <= rtol |plain| + atol', where
+#: atol' = min(atol, atol_rms * rms(plain)), so the gate is never looser
+#: than the reference's (tests/test_kernels.py: f32 rtol 2e-5, atol 2e-4;
+#: bf16 rtol 8e-2, atol 0.8).  Kernel and plain version sum the same
+#: words in f32 and round once to the output type: in f32 they differ by
+#: the order of the sums (~sqrt(K) 2^-24 of the summed magnitude, so
+#: 1e-3 rms leaves a wide margin); in bf16 by at most one rounding step
+#: (<= 2^-7 |plain|), so rtol 2^-6 is two steps, and near zero by the
+#: f32 order of the sums, which 1e-2 rms covers.
+CARD_TOL = {torch.float32: (2e-5, 2e-4, 1e-3),
+            torch.bfloat16: (2 ** -6, 0.8, 1e-2)}
+DTYPES = (torch.float32, torch.bfloat16)
+PEAK = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
 
 
 class SmokeFailure(RuntimeError):
@@ -102,15 +149,16 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Both kernels, one nvcc each, started together."""
+    """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    libs = K.build_many([K.SOURCE, W.SOURCE])
-    for lib, source in zip(libs, (SOURCE, WGRAD_SOURCE)):
+    libs = K.build_many([K.SOURCE, W.SOURCE, K3.SOURCE, K4.SOURCE])
+    for lib, source in zip(libs, (SOURCE, WGRAD_SOURCE, MATMUL_SOURCE,
+                                  ATTN_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
               "ptxas": [ln.strip() for ln in lib.log.splitlines()
                         if "registers" in ln or "spill" in ln
-                        or "Compiling entry" in ln]})
+                        or "smem" in ln or "Compiling entry" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
 
 
@@ -367,7 +415,344 @@ def phase_check_bwd() -> float:
                                                   b * ho * wo)),
                    wgrad_tol=WGRAD_TOL)
         emit(row)
+    check_library_bwd(gen)
     return worst
+
+
+# name, forward kwargs, the (K1, K2) launches of the backward, the
+# tally it adds: where the reference routes to lax the port routes to
+# the library rung (cuDNN), loudly; the padding past full keeps its
+# recompute on K1 and its wgrad on K2
+LIBRARY_BWD = [
+    ("lhs_dilated_b2", dict(padding=2, lhs_dilation=2, relu=True), (0, 0),
+     {"bwd": 1}),
+    ("padding_past_full_b2", dict(padding=3, relu=True), (1, 1),
+     {"dgrad": 1}),
+]
+
+
+def check_library_bwd(gen) -> None:
+    for name, kw, launches, tally in LIBRARY_BWD:
+        x = _randn(gen, 2, 9, 9, 8)
+        w = _randn(gen, 3, 3, 8, 16, scale=(9 * 8) ** -0.5)
+        bias = _randn(gen, 16)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        out = conv2d_lb(*leaves, **kw)
+        gy = torch.randn(out.shape, generator=gen).cuda()
+        conv_ops.reset_fallback_counts()
+        k1, k2 = K.conv_lb.launches, W.wgrad_lb.launches
+        got = torch.autograd.grad(out, leaves, gy)
+        torch.cuda.synchronize()
+        ran = (K.conv_lb.launches - k1, W.wgrad_lb.launches - k2)
+        counts = conv_ops.exec_fallback_counts()
+        plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        want = torch.autograd.grad(conv2d_ref(*plain, **kw), plain, gy)
+        rels = [rel_err(a, b)[1] for a, b in zip(got, want)]
+        emit({"phase": "check_bwd", "geometry": name,
+              "route": "library rung (cuDNN)", "fallback_tally": counts,
+              "kernel_launches_k1_k2": list(ran),
+              "grad_max_abs_err_over_max_plain": rels, "tol": TOL})
+        require(counts == tally, f"check_bwd {name}: tally {counts} != "
+                                 f"{tally}")
+        require(ran == launches, f"check_bwd {name}: K1/K2 launches {ran} "
+                                 f"!= {launches}")
+        require(max(rels) <= TOL, f"check_bwd {name}: grads vs plain "
+                                  f"autograd {max(rels)} > {TOL}")
+
+
+def within(out: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
+    """K3/K4 against a plain version at :data:`CARD_TOL`: the max abs
+    error and the worst |err| / tolerance (the gate is <= 1)."""
+    rtol, atol, atol_rms = CARD_TOL[dtype]
+    ref = ref.float()
+    rms = ref.square().mean().sqrt().item()
+    atol = min(atol, atol_rms * rms)
+    err = (out.float() - ref).abs()
+    return {"max_abs_err": err.max().item(),
+            "worst_over_tol": (err / (atol + rtol * ref.abs())).max().item(),
+            "rtol": rtol, "atol": atol, "plain_rms": rms}
+
+
+def control(what: str, wrong: torch.Tensor, plain: torch.Tensor,
+            dtype) -> dict:
+    """A deliberately wrong result held to the same gate: it must fail
+    it, or the gate could not see that fault."""
+    row = within(wrong, plain, dtype)
+    require(row["worst_over_tol"] > 1.0,
+            f"control {what} {dtype} passes the gate: {row}")
+    return {"what": what, "worst_over_tol": row["worst_over_tol"],
+            "max_abs_err": row["max_abs_err"]}
+
+
+def matmul_control(x: torch.Tensor, w: torch.Tensor, chunk: int):
+    """What K3 would give with one fault of its type: in bf16, the
+    accumulator held in bf16 across the K sweep (rounded after every
+    ``chunk`` of K); in f32, the product on TF32 tensor cores (the
+    operands' mantissas cut to 10 bits)."""
+    if x.dtype == torch.float32:
+        def tf32(t):
+            return (t.view(torch.int32) & -8192).view(torch.float32)
+        return ("tf32 operands", tf32(x) @ tf32(w))
+    acc = torch.zeros(x.shape[0], w.shape[1], dtype=x.dtype,
+                      device=x.device)
+    for k0 in range(0, x.shape[1], chunk):
+        acc = (acc.float() + x[:, k0:k0 + chunk].float()
+               @ w[k0:k0 + chunk].float()).to(x.dtype)
+    return (f"bf16 accumulator, rounded every {chunk} of K", acc)
+
+
+MATMUL_SWEEP = [(64, 64, 64), (128, 256, 128), (300, 200, 150),
+                (1000, 333, 77), (8, 8, 8), (257, 129, 511)]
+#: sweep shapes whose gate is also shown to fail a wrong result
+MATMUL_CONTROLS = ((1000, 333, 77), (257, 129, 511))
+#: the K depth K3 stages per step (``kBK`` in matmul_lb.cu)
+MATMUL_K_STEP = 16
+
+
+def phase_check_matmul() -> None:
+    """Every shape and type of the reference's matmul sweep through
+    ``matmul_lb`` on the card, against the plain version."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for dtype in DTYPES:
+        for m, k, n in MATMUL_SWEEP:
+            x = _randn(gen, m, k).to(dtype)
+            w = _randn(gen, k, n).to(dtype)
+            before = K3.matmul_lb.launches
+            out = matmul_lb(x, w)
+            torch.cuda.synchronize()
+            launched = K3.matmul_lb.launches - before
+            plain = matmul_ref(x, w)
+            row = within(out, plain, dtype)
+            if (m, k, n) in MATMUL_CONTROLS:
+                row["control"] = control(*matmul_control(x, w, 1),
+                                         plain, dtype)
+            emit({"phase": "check_matmul", "shape": [m, k, n],
+                  "dtype": str(dtype), "launches": launched, **row})
+            require(launched == 1, f"check_matmul {m}x{k}x{n}: "
+                                   f"{launched} launches")
+            require(out.dtype == dtype and out.shape == (m, n),
+                    f"check_matmul {m}x{k}x{n}: {out.dtype} {out.shape}")
+            require(row["worst_over_tol"] <= 1.0,
+                    f"check_matmul {m}x{k}x{n} {dtype}: {row}")
+
+
+def plain_attention(q, k, v, *, window: int, causal: bool,
+                    max_bytes: int = 4 << 30) -> torch.Tensor:
+    """The plain version on (B, S, H, hd) tensors, run kv head group by
+    kv head group so that no group's f32 scores exceed ``max_bytes``."""
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    qf, kf, vf = (heads_first(t) for t in (q, k, v))
+    step = max(1, max_bytes // (4 * g * sq * skv))
+    outs = [attention_plain(qf[i * g:(i + step) * g], kf[i:i + step],
+                            vf[i:i + step], groups=g, window=window,
+                            causal=causal)
+            for i in range(0, b * kv, step)]
+    return torch.cat(outs).reshape(b, h, sq, hd).transpose(1, 2)
+
+
+# b, sq, skv, h, kv, hd, window, causal: the reference's sweep and a
+# row with no unmasked key (q >= 20 + 8 - 1)
+ATTN_SWEEP = [
+    (2, 64, 64, 4, 2, 16, 0, True),
+    (1, 100, 100, 8, 8, 32, 0, True),
+    (2, 128, 128, 4, 1, 16, 32, True),
+    (1, 48, 80, 4, 4, 16, 0, False),
+    (1, 33, 65, 2, 1, 8, 16, True),
+    (1, 64, 20, 2, 1, 16, 8, True),
+]
+
+
+def phase_check_attention() -> None:
+    """Every case and type of the reference's attention sweep, and the
+    fully masked rows, through ``flash_attention`` on the card, against
+    the plain version."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    for dtype in DTYPES:
+        for b, sq, skv, h, kv, hd, win, causal in ATTN_SWEEP:
+            q = _randn(gen, b, sq, h, hd).to(dtype)
+            k = _randn(gen, b, skv, kv, hd).to(dtype)
+            v = _randn(gen, b, skv, kv, hd).to(dtype)
+            before = K4.attention.launches
+            out = flash_attention(q, k, v, window=win, causal=causal)
+            torch.cuda.synchronize()
+            launched = K4.attention.launches - before
+            plain = plain_attention(q, k, v, window=win, causal=causal)
+            row = within(out, plain, dtype)
+            case = [b, sq, skv, h, kv, hd, win, causal]
+            if win:
+                row["control"] = control(
+                    "window off by one", plain_attention(
+                        q, k, v, window=win + 1, causal=causal),
+                    plain, dtype)
+            if sq > skv + win - 1 and win:
+                # rows with no unmasked key: the mean of V over Skv keys
+                mean_v = v.float().mean(dim=1).repeat_interleave(h // kv,
+                                                                 dim=1)
+                row["masked_rows_vs_mean_v"] = within(
+                    out[:, skv + win - 1:], mean_v[:, None].expand(
+                        b, sq - skv - win + 1, h, hd), dtype)
+                require(row["masked_rows_vs_mean_v"]["worst_over_tol"]
+                        <= 1.0, f"check_attention {case}: masked rows")
+            emit({"phase": "check_attention", "case": case,
+                  "dtype": str(dtype), "launches": launched, **row})
+            require(launched == 1, f"check_attention {case}: {launched} "
+                                   f"launches")
+            require(out.dtype == dtype and out.shape == q.shape,
+                    f"check_attention {case}: {out.dtype} {out.shape}")
+            require(row["worst_over_tol"] <= 1.0,
+                    f"check_attention {case} {dtype}: {row}")
+
+
+#: phi3-medium-14b (src/repro/configs/phi3_medium_14b.py: d_model 5120,
+#: 40 heads, 10 kv heads, hd 128, d_ff 17920) at 4096 tokens
+MATMUL_FULL = [("wq", 4096, 5120, 5120), ("wk", 4096, 5120, 1280),
+               ("ffn_up", 4096, 5120, 17920),
+               ("ffn_down", 4096, 17920, 5120)]
+
+
+def phase_matmul(card: str) -> tuple[int, list[dict]]:
+    """``matmul_lb`` at full width, f32 and bf16: the main path run
+    (launch count), then each call held against the plain version and
+    timed alone beside its bound and ``torch.matmul``.  Weights are
+    scaled by 1/sqrt(K), as a projection's are."""
+    gen = torch.Generator().manual_seed(SEED + 5)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    ops = [(name, m, k, n, dtype,
+            _randn(gen, m, k).to(dtype),
+            _randn(gen, k, n, scale=k ** -0.5).to(dtype))
+           for dtype in DTYPES for name, m, k, n in MATMUL_FULL]
+    K3.matmul_lb.launches = 0
+    outs = [matmul_lb(x, w) for *_, x, w in ops]
+    torch.cuda.synchronize()
+    launches = K3.matmul_lb.launches
+    require(launches == len(ops), f"matmul: {launches} launches for "
+                                  f"{len(ops)} calls")
+    rows = []
+    for (name, m, k, n, dtype, x, w), out in zip(ops, outs):
+        plain = matmul_ref(x, w)
+        chk = within(out, plain, dtype)
+        require(chk["worst_over_tol"] <= 1.0 and
+                bool(torch.isfinite(out).all()),
+                f"matmul {name} {dtype}: {chk}")
+        if name == "wq":
+            chk["control"] = control(*matmul_control(x, w, MATMUL_K_STEP),
+                                     plain, dtype)
+        del plain
+        elt = x.element_size()
+        flops = 2.0 * m * n * k
+        n_bytes = float((m * k + k * n + m * n) * elt)
+        t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+        blk = accounted_block(m, n, k, elt)
+        row = {"phase": "matmul", "config": "phi3-medium-14b",
+               "projection": name, "shape": [m, k, n],
+               "dtype": str(dtype), **chk,
+               "ms": _time_ms(lambda: matmul_lb(x, w), flush),
+               "plain_ms": _time_ms(lambda: matmul_ref(x, w), flush),
+               "library_ms": _time_ms(lambda: torch.matmul(x, w), flush),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "peak_flops": PEAK[dtype], "flops": flops,
+               "bytes": n_bytes, "cta_tn": K3.cta_tile(m, n),
+               "accounted_block": [blk.bm, blk.bn, blk.bk],
+               "accounted_bytes": hbm_traffic_model(m, n, k, blk, elt),
+               "card": card}
+        emit(row)
+        rows.append(row)
+    return launches, rows
+
+
+def unmasked_pairs(sq: int, skv: int, window: int, causal: bool) -> int:
+    """(query, key) pairs that no mask hides, per head."""
+    q = np.arange(sq)
+    hi = np.minimum(q, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros(sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+# source config, b, s, h, kv, hd, window, causal
+ATTN_FULL = [("phi3-medium-14b", 1, 4096, 40, 10, 128, 0, True),
+             ("mixtral-8x7b", 1, 8192, 32, 8, 128, 4096, True)]
+
+
+def _library_attention(qh, kh, vh, *, window: int, causal: bool):
+    """``F.scaled_dot_product_attention`` on (B, H, S, hd): the time
+    yardstick (never called by the port)."""
+    sq, skv = qh.shape[2], kh.shape[2]
+    if not window:
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=True)
+    q_pos = torch.arange(sq, device="cuda")[:, None]
+    k_pos = torch.arange(skv, device="cuda")[None, :]
+    mask = k_pos > q_pos - window
+    if causal:
+        mask &= k_pos <= q_pos
+    return lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def phase_attention(card: str) -> tuple[int, list[dict]]:
+    """``flash_attention`` at full width, f32 and bf16: the main path
+    run (launch count), then each call held against the plain version
+    and the kernel timed alone beside its bound and
+    ``F.scaled_dot_product_attention``."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    cases = [(cfg, b, s, h, kv, hd, win, causal, dtype,
+              _randn(gen, b, s, h, hd).to(dtype),
+              _randn(gen, b, s, kv, hd).to(dtype),
+              _randn(gen, b, s, kv, hd).to(dtype))
+             for dtype in DTYPES
+             for cfg, b, s, h, kv, hd, win, causal in ATTN_FULL]
+    K4.attention.launches = 0
+    outs = [flash_attention(*c[9:], window=c[6], causal=c[7])
+            for c in cases]
+    torch.cuda.synchronize()
+    launches = K4.attention.launches
+    require(launches == len(cases), f"attention: {launches} launches for "
+                                    f"{len(cases)} calls")
+    rows = []
+    for (cfg, b, s, h, kv, hd, win, causal, dtype, q, k, v), out in zip(
+            cases, outs):
+        plain = plain_attention(q, k, v, window=win, causal=causal)
+        chk = within(out, plain, dtype)
+        require(chk["worst_over_tol"] <= 1.0 and
+                bool(torch.isfinite(out).all()),
+                f"attention {cfg} {dtype}: {chk}")
+        # query head h on kv head h % KV instead of h // (H / KV)
+        g = h // kv
+        chk["control"] = control(
+            "kv head h % KV", plain_attention(
+                q, k.repeat(1, 1, g, 1), v.repeat(1, 1, g, 1),
+                window=win, causal=causal), plain, dtype)
+        del plain
+        qf, kf, vf = (heads_first(t) for t in (q, k, v))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = b * h * unmasked_pairs(s, s, win, causal)
+        flops = 4.0 * hd * pairs
+        n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
+        t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+        row = {"phase": "attention", "config": cfg,
+               "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd},
+               "window": win, "causal": causal, "dtype": str(dtype),
+               **chk,
+               "ms": _time_ms(lambda: K4.attention(
+                   qf, kf, vf, groups=h // kv, window=win,
+                   causal=causal), flush),
+               "entry_ms": _time_ms(lambda: flash_attention(
+                   q, k, v, window=win, causal=causal), flush),
+               "plain_ms": _time_ms(lambda: plain_attention(
+                   q, k, v, window=win, causal=causal), flush, reps=3),
+               "library_ms": _time_ms(_library_attention(
+                   qh, kh, vh, window=win, causal=causal), flush),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "peak_flops": PEAK[dtype], "unmasked_pairs": pairs,
+               "flops": flops, "bytes": n_bytes, "card": card}
+        emit(row)
+        rows.append(row)
+    return launches, rows
 
 
 class Decisions:
@@ -596,6 +981,11 @@ def _sums(rows: list[dict]) -> dict:
             "max_abs_err": max(r["max_abs_err"] for r in rows)}
 
 
+def _by_dtype(rows: list[dict]) -> dict:
+    return {str(d): _sums([r for r in rows if r["dtype"] == str(d)])
+            for d in DTYPES}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -607,10 +997,14 @@ def main() -> int:
     phase_build()
     phase_check()
     phase_check_bwd()
+    phase_check_matmul()
+    phase_check_attention()
     vgg_launches = phase_serve("vgg")
     resnet_launches = phase_serve("resnet")
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
+    matmul_launches, matmul_rows = phase_matmul(card)
+    attn_launches, attn_rows = phase_attention(card)
     rows = phase_layers(card)
     dgrad_rows, wgrad_rows = phase_layers_bwd(card)
     dgrad = _sums(dgrad_rows)
@@ -631,6 +1025,19 @@ def main() -> int:
              launches_train_resnet=train_resnet["wgrad_lb"],
              reduce_launches=train_vgg["wgrad_reduce"],
              times_are="sums over the 13 VGG16/224 convs at batch 8",
+             card=card),
+        dict(_sums(matmul_rows), name="matmul_lb", route="cuda",
+             source=MATMUL_SOURCE, replaces=MATMUL_REPLACES,
+             launches=matmul_launches, by_dtype=_by_dtype(matmul_rows),
+             times_are="sums over phi3-medium-14b's wq, wk, FFN up and "
+                       "FFN down at 4096 tokens, f32 and bf16",
+             card=card),
+        dict(_sums(attn_rows), name="attention", route="cuda",
+             source=ATTN_SOURCE, replaces=ATTN_REPLACES,
+             launches=attn_launches, by_dtype=_by_dtype(attn_rows),
+             times_are="sums over phi3-medium-14b's (S 4096, causal) and "
+                       "mixtral-8x7b's (S 8192, causal, window 4096) "
+                       "attention, f32 and bf16",
              card=card)]
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)

@@ -7,9 +7,14 @@ of the accounting-profile half of ``repro/analysis/plan_check.py``.
     halo windows in bounds, the lhs-dilated compact walk, fused pool
     alignment, and the working set against the budget;
     :func:`check_wgrad_plan` does the same for a
-    :class:`~repro_torch.kernels.conv_lb.ops.WgradPlan`.  The TPU
-    alignment rules of the reference (its ``mosaic`` profile) are
-    TPU legality and are not ported.
+    :class:`~repro_torch.kernels.conv_lb.ops.WgradPlan`.
+    :func:`check_matmul_block` checks the matmul's accounted block
+    (``repro/analysis/plan_check.py:412-457``) with the reference's
+    rules, severities and messages, its alignment rules included
+    (:func:`_lane_rule` / :func:`_sublane_rule`): warnings under the
+    ``interpret`` profile the port plans at, errors under ``mosaic``.
+    The conv plans' alignment rules are TPU legality and are not
+    ported.
   * **Traffic cross-audit** — :func:`symbolic_conv_traffic` /
     :func:`symbolic_wgrad_traffic` / :func:`symbolic_bound_words`
     re-derive each plan's words and its Eq. (15) bound by a second,
@@ -24,11 +29,19 @@ import dataclasses
 import math
 
 from repro_torch.core.dataflow import Traffic
-from repro_torch.core.hopper_adapter import REF_PLAN_BUDGET
+from repro_torch.core.hopper_adapter import (REF_ALIGN, REF_PLAN_BUDGET,
+                                             row_align_for)
 from repro_torch.core.layer import ceil_div
 
 ERROR = "error"
 WARN = "warn"
+
+#: the reference's plan profiles: ``interpret`` (accounting; alignment
+#: findings are warnings) and ``mosaic`` (alignment findings are errors)
+TARGET_INTERPRET = "interpret"
+TARGET_MOSAIC = "mosaic"
+#: the reference's last-dim tile and systolic-array edge
+LANE = MXU_DIM = REF_ALIGN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +84,86 @@ def _err(rule: str, message: str, hint: str = "",
          where: str = "") -> Diagnostic:
     return Diagnostic(rule=rule, severity=ERROR, message=message,
                       hint=hint, where=where)
+
+
+def _mosaic_sev(target: str) -> str:
+    return ERROR if target == TARGET_MOSAIC else WARN
+
+
+def _lane_rule(block: int, full: int, operand: str, target: str,
+               where: str = "") -> Diagnostic | None:
+    """Last-dim tile rule: a LANE multiple, or the block covers the
+    whole (padded) dim."""
+    if block % LANE == 0 or block >= full:
+        return None
+    legal = min(full, -(-block // LANE) * LANE)
+    return Diagnostic(
+        rule="mosaic.lane", severity=_mosaic_sev(target), where=where,
+        message=f"{operand} last dim {block} is neither a multiple of "
+                f"{LANE} nor the full dim {full}",
+        hint=f"grow to {legal} (or the full {full})")
+
+
+def _sublane_rule(block: int, full: int, dtype_bytes: int,
+                  operand: str, target: str,
+                  where: str = "") -> Diagnostic | None:
+    """Second-minor tile rule, keyed by the word size."""
+    sub = row_align_for(dtype_bytes)
+    if block % sub == 0 or block >= full:
+        return None
+    legal = min(full, -(-block // sub) * sub)
+    return Diagnostic(
+        rule="mosaic.sublane", severity=_mosaic_sev(target), where=where,
+        message=f"{operand} second-minor dim {block} is not a "
+                f"{sub}-row tile ({dtype_bytes}-byte words) nor the "
+                f"full dim {full}",
+        hint=f"grow to {legal} (or the full {full})")
+
+
+def check_matmul_block(blk, m: int, n: int, k: int, *,
+                       dtype_bytes: int = 2,
+                       vmem_budget: int | None = None,
+                       target: str = TARGET_INTERPRET,
+                       where: str = "") -> list[Diagnostic]:
+    """Verify the matmul's accounted
+    :class:`~repro_torch.core.hopper_adapter.BlockShape`: a degenerate
+    block and a working set over the budget are errors; the alignment
+    rules follow ``target``; a reduction slice under the 128-wide
+    array is a warning.  The CUDA kernel's own CTA tile is not this
+    block and is not checked here."""
+    budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
+    diags: list[Diagnostic] = []
+    for name, b in (("bm", blk.bm), ("bn", blk.bn), ("bk", blk.bk)):
+        if b < 1:
+            diags.append(_err("matmul.shape", f"{name}={b} < 1",
+                              where=where))
+    if diags:
+        return diags
+    need = blk.vmem_bytes(dtype_bytes)
+    if need > budget:
+        diags.append(_err(
+            "matmul.vmem", f"psum + double-buffered panels need "
+            f"{need} B > {budget} B budget",
+            hint="shrink bm/bn toward the paper's u ~= R*z balance",
+            where=where))
+    mp, np_, kp = (ceil_div(m, blk.bm) * blk.bm,
+                   ceil_div(n, blk.bn) * blk.bn,
+                   ceil_div(k, blk.bk) * blk.bk)
+    for d in (_lane_rule(blk.bn, np_, "B-panel/psum block", target,
+                         where),
+              _lane_rule(blk.bk, kp, "A-panel block", target, where),
+              _sublane_rule(blk.bm, mp, dtype_bytes, "A-panel/psum "
+                            "block", target, where),
+              _sublane_rule(blk.bk, kp, dtype_bytes, "B-panel block",
+                            target, where)):
+        if d:
+            diags.append(d)
+    if blk.bk < min(MXU_DIM, kp):
+        diags.append(Diagnostic(
+            rule="mosaic.mxu", severity=WARN, where=where,
+            message=f"reduction slice bk={blk.bk} underfills the "
+                    f"{MXU_DIM}-wide MXU"))
+    return diags
 
 
 def check_conv_plan(plan, *, batch: int = 1, dtype_bytes: int = 4,

@@ -17,6 +17,10 @@ Two kinds of constants live here and must not be mixed up:
     and the published peak rates a kernel's ``bound_ms`` is computed
     from.
 
+:func:`hbm_traffic_model` and :func:`arithmetic_intensity` are the
+reference's accounting of the matmul (``tpu_adapter.py:270-288``),
+word for word.
+
 Maps {S, u, z, k} of the paper onto a batch-folded conv block
 (:class:`ConvBlockShape`): u = b*y*x psum rows, z = co channels
 resident, k = ci slice streamed per pass, with halos for WndR.
@@ -48,6 +52,7 @@ SMEM_PER_BLOCK = 232_448          # bytes, dynamic, after opt-in above 48 KB
 REGS_PER_SM = 65_536
 #: published dense peaks at the 700 W limit
 PEAK_F32_FLOPS = 67e12            # f32 FMA outside the tensor cores
+PEAK_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -228,6 +233,25 @@ def conv_lb_block_shape(ho: int, wo: int, ci: int, co: int,
     return mk(balanced_tile(batch, tb), balanced_tile(ho, ty),
               balanced_tile(wo, tx), balanced_tile(co, co_b),
               balanced_tile(ci, ci_b))
+
+
+def hbm_traffic_model(m: int, n: int, k: int, blk: BlockShape,
+                      dtype_bytes: int = 2) -> float:
+    """Eq. (14) with R = 1 for the matmul's accounted blocks: bytes
+    moved.  Per bm x bn output block the A-panel bm*k and the B-panel
+    k*bn are read once; C is written once."""
+    nblocks_m = -(-m // blk.bm)
+    nblocks_n = -(-n // blk.bn)
+    reads = nblocks_n * (m * k) + nblocks_m * (k * n)
+    writes = m * n
+    return float((reads + writes) * dtype_bytes)
+
+
+def arithmetic_intensity(m: int, n: int, k: int, blk: BlockShape,
+                         dtype_bytes: int = 2) -> float:
+    """FLOP per accounted byte of :func:`hbm_traffic_model`."""
+    flops = 2.0 * m * n * k
+    return flops / hbm_traffic_model(m, n, k, blk, dtype_bytes)
 
 
 def conv_block_candidates(batch: int, ho: int, wo: int, ci: int

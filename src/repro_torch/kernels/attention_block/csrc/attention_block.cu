@@ -1,0 +1,370 @@
+// Blocked (flash-style) attention forward with causal and
+// sliding-window masks and grouped-query heads, f32 or bf16 in, f32
+// online-softmax state, the output in the input's type, for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernel `_attn_kernel` launched by `attention_call`
+// (src/repro/kernels/attention_block/kernel.py:22, :63).  It computes
+// the same function; it is not a block-by-block copy.
+//
+// Layout: q (B*H, Sq, hd); k, v (B*KV, Skv, hd); out like q.  Query
+// head bh reads kv head bh / groups.
+//
+// What bounds it on this card.  Per (query, key) pair the work is
+// 4*hd operations (the score's dot product and the value update)
+// against q, k, v and out read or written once: hundreds of
+// operations per byte at the configs' sequence lengths, so operations
+// bound it, at the f32 FMA rate without tensor cores.
+//
+// What the design does about it.
+//  * One CTA of 256 threads owns 64 query rows of one head.  Its
+//    online-softmax state (acc, m, l) stays in registers for the whole
+//    sweep over the keys (the reference's resident output block):
+//    each thread holds 4 rows x hd/16 columns of acc and the rows' m
+//    and l, and the output is written once.
+//  * Per 64-key tile the CTA stages K and V with cp.async,
+//    double-buffered, so the next tile arrives while this one is
+//    computed; Q is staged once.  S = Q K^T is a 64 x 64 register
+//    tile (4 x 4 a thread), the row max and sum are reduced across
+//    the 16 lanes that share a row with shuffles, and P goes through
+//    shared memory to the P V product.
+//  * Rows are padded by 16 bytes in shared memory so that the lanes
+//    reading 16 different keys hit different banks.
+//  * bf16 stays bf16 in shared memory and is widened to f32 in
+//    registers; the output is rounded to nearest-even.
+//  * Plain FMA, no tensor cores or TMA yet, and every key tile is
+//    visited, also one that the masks hide wholly from a query tile.
+//
+// Masks use absolute positions from 0 on both sides: causal keeps
+// k <= q, a window keeps k > q - window (also without causal).  A
+// masked score is the finite -1e30 of the reference, so a row with no
+// unmasked key gets the mean of V over the Skv real keys, as the
+// reference's lax target gives.  A key at k >= Skv does not exist: it
+// is predicated away and not counted.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kBQ = 64;     // query rows per CTA
+constexpr int kBKV = 64;    // keys per staged tile
+constexpr float kNegInf = -1e30f;
+
+struct Geom {
+  int BH, Sq, Skv, groups, window, causal;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// n (1, 2 or 4) consecutive staged words, widened
+template <int n>
+__device__ __forceinline__ void loadn(const float* p, float* out) {
+  if (n == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+    out[2] = v.z;
+    out[3] = v.w;
+  } else if (n == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    out[0] = v.x;
+    out[1] = v.y;
+  } else {
+    out[0] = *p;
+  }
+}
+
+template <int n>
+__device__ __forceinline__ void loadn(const __nv_bfloat16* p, float* out) {
+  if (n == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 b =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
+  } else if (n == 2) {
+    const float2 a =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    out[0] = a.x;
+    out[1] = a.y;
+  } else {
+    out[0] = __bfloat162float(*p);
+  }
+}
+
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// the acc columns of one thread: for hd >= 64, groups of 4 at
+// tk*4 + 64*c; below, hd/16 consecutive columns at tk*(hd/16) (hd = 8:
+// one column, lanes tk >= 8 idle)
+template <int HD>
+struct Cols {
+  static constexpr int kPer = HD >= 16 ? HD / 16 : 1;   // per thread
+  static constexpr int kVec = HD >= 64 ? 4 : kPer;      // per load
+  __device__ static int col(int tk, int c) {
+    return HD >= 64 ? (c / 4) * 64 + tk * 4 + (c % 4) : tk * kPer + c;
+  }
+  __device__ static bool active(int tk) { return tk * kPer < HD; }
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 const Geom g) {
+  constexpr int VE = 16 / sizeof(T);   // words per 16-byte copy
+  constexpr int LD = HD + VE;          // padded row of a staged tile
+  constexpr int LP = kBKV + 4;         // padded row of the P tile
+  constexpr int NC = Cols<HD>::kPer;
+  constexpr int NV = Cols<HD>::kVec;
+  extern __shared__ float4 smem4[];
+  T* s_q = reinterpret_cast<T*>(smem4);          // [kBQ][LD]
+  T* s_kv = s_q + kBQ * LD;                      // 2 x {K, V} [kBKV][LD]
+  float* s_p = reinterpret_cast<float*>(s_kv + 4 * kBKV * LD);  // [kBQ][LP]
+
+  const int tid = threadIdx.x;
+  const int tq = tid >> 4;   // rows tq + 16*i
+  const int tk = tid & 15;   // keys tk + 16*j; acc columns Cols::col
+  const int bh = blockIdx.y;
+  const int q0 = blockIdx.x * kBQ;
+  const T* qh = q + static_cast<size_t>(bh) * g.Sq * HD;
+  const size_t kv_off = static_cast<size_t>(bh / g.groups) * g.Skv * HD;
+  const T* kh = k + kv_off;
+  const T* vh = v + kv_off;
+
+  // stage rows [r0, r0 + 64) of a (rows, HD) head into a padded tile
+  auto stage = [&](T* dst, const T* src, int r0, int rows) {
+    for (int e = tid; e < 64 * (HD / VE); e += kThreads) {
+      const int r = e / (HD / VE);
+      const int d = (e - r * (HD / VE)) * VE;
+      const bool ok = r0 + r < rows;
+      cp_async16(dst + r * LD + d,
+                 ok ? src + static_cast<size_t>(r0 + r) * HD + d : src, ok);
+    }
+  };
+
+  float acc[4][NC];
+  float m_run[4], l_run[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int nkv = (g.Skv + kBKV - 1) / kBKV;
+  stage(s_q, qh, q0, g.Sq);
+  stage(s_kv, kh, 0, g.Skv);
+  stage(s_kv + kBKV * LD, vh, 0, g.Skv);
+  cp_async_commit();
+  for (int t = 0; t < nkv; ++t) {
+    const int cur = t & 1;
+    if (t + 1 < nkv) {
+      // the other buffer was last read before the previous barrier
+      T* nxt = s_kv + (cur ^ 1) * 2 * kBKV * LD;
+      stage(nxt, kh, (t + 1) * kBKV, g.Skv);
+      stage(nxt + kBKV * LD, vh, (t + 1) * kBKV, g.Skv);
+      cp_async_commit();
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+    const T* s_k = s_kv + cur * 2 * kBKV * LD;
+    const T* s_v = s_k + kBKV * LD;
+    const int k0 = t * kBKV;
+
+    // S = Q K^T for 4 rows x 4 keys a thread
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      float qv[4][4], kv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) loadn<4>(s_q + (tq + 16 * i) * LD + d, qv[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) loadn<4>(s_k + (tk + 16 * j) * LD + d, kv[j]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
+    }
+
+    // masks and the online softmax; a row's 16 lanes are neighbours
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + tq + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tk + 16 * j;
+        const bool masked = (g.causal && kp > qp) ||
+                            (g.window > 0 && kp <= qp - g.window);
+        s[i][j] = kp >= g.Skv ? -INFINITY
+                  : masked    ? kNegInf
+                              : s[i][j] * g.scale;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float alpha = expf(m_run[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = k0 + tk + 16 * j < g.Skv ? expf(s[i][j] - m_new) : 0.f;
+        s_p[(tq + 16 * i) * LP + tk + 16 * j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l_run[i] = l_run[i] * alpha + sum;
+      m_run[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    // acc += P V
+    if (Cols<HD>::active(tk)) {
+#pragma unroll 2
+      for (int kk = 0; kk < kBKV; kk += 4) {
+        float pv[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) loadn<4>(s_p + (tq + 16 * i) * LP + kk, pv[i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float vv[NC];
+#pragma unroll
+          for (int c = 0; c < NC; c += NV)
+            loadn<NV>(s_v + (kk + e) * LD + Cols<HD>::col(tk, c), vv + c);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i][e], vv[c], acc[i][c]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!Cols<HD>::active(tk)) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + tq + 16 * i;
+    if (qp >= g.Sq) continue;
+    const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
+    T* row = out + (static_cast<size_t>(bh) * g.Sq + qp) * HD;
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+      store1(row + Cols<HD>::col(tk, c), acc[i][c] * inv);
+  }
+}
+
+template <typename T, int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   const Geom& g, cudaStream_t stream) {
+  constexpr int VE = 16 / sizeof(T);
+  constexpr int smem = (kBQ + 4 * kBKV) * (HD + VE) * sizeof(T) +
+                       kBQ * (kBKV + 4) * sizeof(float);
+  static bool opted_in = false;
+  if (!opted_in && smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid((g.Sq + kBQ - 1) / kBQ, g.BH);
+  attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
+                      void* out, const Geom& g, cudaStream_t s) {
+  switch (hd) {
+    case 8: return launch<T, 8>(q, k, v, out, g, s);
+    case 16: return launch<T, 16>(q, k, v, out, g, s);
+    case 32: return launch<T, 32>(q, k, v, out, g, s);
+    case 64: return launch<T, 64>(q, k, v, out, g, s);
+    case 128: return launch<T, 128>(q, k, v, out, g, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = f32, 1 = bf16.  Every operand's base must be 16-byte
+// aligned (the wrapper checks it).
+extern "C" int attention_block_forward(const void* q, const void* k,
+                                       const void* v, void* out, int BH,
+                                       int Sq, int Skv, int hd, int groups,
+                                       int window, int causal, int dtype,
+                                       void* stream) {
+  if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || BH > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Geom g;
+  g.BH = BH;
+  g.Sq = Sq;
+  g.Skv = Skv;
+  g.groups = groups;
+  g.window = window;
+  g.causal = causal;
+  // the reference's 1 / hd ** 0.5, rounded once to f32
+  g.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0)
+    err = launch_hd<float>(hd, q, k, v, out, g, s);
+  else if (dtype == 1)
+    err = launch_hd<__nv_bfloat16>(hd, q, k, v, out, g, s);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+extern "C" const char* attention_block_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

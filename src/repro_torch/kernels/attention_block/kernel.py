@@ -1,0 +1,89 @@
+"""The attention kernel's wrapper: build, bind and launch the
+hand-written CUDA kernel (``csrc/attention_block.cu``, K4), which
+replaces the TPU kernel ``_attn_kernel`` / ``attention_call`` of
+``repro/kernels/attention_block/kernel.py``.
+
+The library is built like the conv kernel's
+(:func:`repro_torch.kernels.conv_lb.kernel.build`): ``nvcc`` at first
+use, never at import.  :func:`attention` dispatches on where its
+tensors lie and nothing else: a CUDA tensor launches the kernel or
+raises; a CPU tensor runs the plain version
+(:func:`~repro_torch.kernels.attention_block.ref.attention_plain`).
+Each launch adds one to ``attention.launches``.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.attention_block.ref import attention_plain
+from repro_torch.kernels.conv_lb.kernel import _aligned, build
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_block.cu"
+
+#: head dims the kernel is instantiated for (the reference's sweep and
+#: the repo's configs)
+HEAD_DIMS = (8, 16, 32, 64, 128)
+#: input types the kernel takes, by the code its C interface uses
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              groups: int, window: int = 0,
+              causal: bool = True) -> torch.Tensor:
+    """q (B*H, Sq, hd); k, v (B*KV, Skv, hd) with H = KV * ``groups``
+    -> (B*H, Sq, hd) in ``q.dtype``.
+
+    A CUDA ``q`` launches the CUDA kernel; a CPU ``q`` runs the plain
+    version.  Any other device raises."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, groups=groups, window=window,
+                               causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"the attention kernel runs on CUDA tensors (or "
+                         f"its plain version on CPU ones), not {q.device}")
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    if groups < 1 or bh != k.shape[0] * groups:
+        raise ValueError(f"{bh} query heads do not split into groups of "
+                         f"{groups} over {k.shape[0]} kv heads")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} is not one the attention kernel "
+                         f"takes {HEAD_DIMS}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    for name, t, shape in (("k", k, (bh // groups, skv, hd)),
+                           ("v", v, (bh // groups, skv, hd))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                             f"attention needs {shape}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} lies on {t.device}, q on {q.device}")
+        if t.dtype not in DTYPES or t.dtype != q.dtype:
+            raise TypeError(f"the attention kernel takes float32 or "
+                            f"bfloat16 operands of one type; {name} is "
+                            f"{t.dtype}, q {q.dtype}")
+        if not t.is_contiguous() or not _aligned(t):
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned")
+    if bh > 65535:
+        raise ValueError(f"{bh} heads exceed the kernel's grid")
+    lib = build(SOURCE)
+    forward = lib.bind("attention_block_forward", 4, 8)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), bh, sq, skv, hd, groups, window,
+                      int(causal), DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: "
+                           f"{lib.error_string(err)} (error {err})")
+    attention.launches += 1
+    return out
+
+
+attention.launches = 0

@@ -1,0 +1,59 @@
+"""Public entry point of the blocked attention — the port's copy of
+``repro/kernels/attention_block/ops.py``.
+
+:func:`flash_attention` takes and returns the reference's
+``(B, S, H, hd)`` layout and runs the heads-first kernel layout through
+:func:`~repro_torch.kernels.attention_block.kernel.attention`: the
+CUDA kernel (K4) on a CUDA tensor, its plain version on a CPU tensor.
+The semantics are those of the reference's ``lax`` target: a row with
+no unmasked key gets the mean of V over the real keys, whatever the
+block sizes (the reference's Pallas kernel agrees whenever ``Skv`` is a
+multiple of its ``bk``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.exec_target import resolve_target
+from repro_torch.kernels.attention_block import kernel
+
+
+def heads_first(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> contiguous, 16-byte aligned (B*H, S, hd)."""
+    b, s, h, hd = t.shape
+    t = t.transpose(1, 2).reshape(b * h, s, hd).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int = 0, causal: bool = True,
+                    bq: int = 128, bk: int = 128,
+                    target=None) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd).
+
+    Causal keeps key k <= query q by absolute position from 0 on both
+    sides; ``window`` keeps k > q - window (also without causal); the
+    kv head of query head h is h // (H / KV).  ``bq`` and ``bk`` are the
+    reference's query and key blocks, clamped as it clamps them; the
+    result does not depend on them, and the CUDA kernel tiles for the
+    card on its own.  ``target`` is ``kernel`` (the default) or
+    ``account-only``, which cannot execute attention and raises."""
+    if target is not None and not resolve_target(target).compute:
+        raise ValueError("account-only target cannot execute attention")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"attention needs q (B, Sq, H, hd) and k, v "
+                         f"(B, Skv, KV, hd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != hd or kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads of dim {hd} do not group over "
+                         f"k {tuple(k.shape)}")
+    bq = min(bq, max(8, sq))
+    bk = min(bk, max(8, skv))
+    if bq < 1 or bk < 1:
+        raise ValueError(f"blocks must be >= 1, got bq={bq}, bk={bk}")
+    out = kernel.attention(heads_first(q), heads_first(k), heads_first(v),
+                           groups=h // kv, window=window, causal=causal)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)

@@ -22,7 +22,10 @@ Two halves, kept apart on purpose:
     hand-written CUDA kernel on a CUDA tensor, its plain PyTorch
     version on a CPU tensor.  Its backward (:class:`ConvLb`) runs on
     the same kernel (the pre-epilogue recompute and dgrad) and on the
-    wgrad kernel (:func:`repro_torch.kernels.conv_lb.wgrad.wgrad_lb`).
+    wgrad kernel (:func:`repro_torch.kernels.conv_lb.wgrad.wgrad_lb`),
+    except where the reference itself routes to lax: there it routes
+    to the library rung (cuDNN on the card), loudly, and counts it
+    (:data:`FALLBACK_COUNTS`).
     The kernels tile for the card, not for the accounting plans; what
     they move on the card is a measurement of its own, not a change to
     the ledger.
@@ -48,7 +51,8 @@ from repro_torch.core.layer import balanced_candidates, ceil_div
 from repro_torch.core.lower_bound import (q_dram_dgrad, q_dram_practical,
                                           q_dram_wgrad)
 from repro_torch.kernels.conv_lb.kernel import conv_lb
-from repro_torch.kernels.conv_lb.ref import conv2d_ref, flip_w
+from repro_torch.kernels.conv_lb.ref import (conv2d_ref, epilogue, flip_w,
+                                            lhs_dilate)
 from repro_torch.kernels.conv_lb.wgrad import WgradGeometry, wgrad_lb
 from repro_torch.obs.tracer import active_tracer
 
@@ -785,14 +789,86 @@ def _wgrad(x: torch.Tensor, gy: torch.Tensor, hk: int, wk: int,
         for g in range(a.groups)], dim=-1)
 
 
-def _backward_on_kernels(a: ConvArgs, hk: int, wk: int) -> bool:
-    """Whether the kernels run this conv's backward: not for an
-    lhs-dilated forward, nor for a padding past the full-padding
-    transform (the dgrad conv's padding would be negative)."""
+# process-wide tally of the backward's library-rung routes, keyed by
+# pass ("bwd": the whole backward, "dgrad": dx only), as the
+# reference's ``FALLBACK_COUNTS`` (``ops.py:1001-1029``); each is also
+# a loud ``exec.fallback`` event on the active tracer
+FALLBACK_COUNTS: dict[str, int] = {}
+
+
+def record_fallback(conv_pass: str, reason: str, *, layer: str) -> None:
+    """One loud route to the library rung: traced event + tally."""
+    FALLBACK_COUNTS[conv_pass] = FALLBACK_COUNTS.get(conv_pass, 0) + 1
+    active_tracer().event("exec.fallback", to="library", layer=layer,
+                          reason=reason, **{"pass": conv_pass})
+
+
+def exec_fallback_counts() -> dict[str, int]:
+    """Snapshot of the per-pass tally."""
+    return dict(FALLBACK_COUNTS)
+
+
+def reset_fallback_counts() -> None:
+    FALLBACK_COUNTS.clear()
+
+
+def _dgrad_on_kernel(a: ConvArgs, hk: int, wk: int) -> bool:
+    """Whether K1 runs this conv's dgrad: not for a padding past the
+    full-padding transform (the dgrad conv's padding would be
+    negative), as the reference's ``dgrad_rides_kernel``."""
     ekh = (hk - 1) * a.dilation[0] + 1
     ekw = (wk - 1) * a.dilation[1] + 1
-    return (a.lhs_dilation == (1, 1) and a.padding[0] <= ekh - 1
-            and a.padding[1] <= ekw - 1)
+    return a.padding[0] <= ekh - 1 and a.padding[1] <= ekw - 1
+
+
+def _no_tf32():
+    """cuDNN with TF32 off, as the kernels sum in f32."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def _library_conv(x, w, bias, residual, a: ConvArgs) -> torch.Tensor:
+    """The conv with its epilogue on the library rung: the plain
+    version on a CPU tensor; on a CUDA tensor ``F.conv2d`` (cuDNN, TF32
+    off) on the zero-inserted plane, then the plain epilogue."""
+    if x.device.type == "cpu":
+        return conv2d_ref(x, w, bias, residual, stride=a.stride,
+                          padding=a.padding, dilation=a.dilation,
+                          lhs_dilation=a.lhs_dilation, groups=a.groups,
+                          relu=a.relu, pool=a.pool)
+    with _no_tf32():
+        y = F.conv2d(lhs_dilate(x, a.lhs_dilation).permute(0, 3, 1, 2),
+                     w.permute(3, 2, 0, 1), stride=a.stride,
+                     padding=a.padding, dilation=a.dilation,
+                     groups=a.groups)
+    return epilogue(y.permute(0, 2, 3, 1), bias, a.relu, a.pool, residual)
+
+
+def _library_vjp(x, w, bias, residual, a: ConvArgs, g, need):
+    """The VJP of :func:`_library_conv` (cuDNN's backward on a CUDA
+    tensor, the plain version's autograd on a CPU one) for the inputs
+    flagged in ``need``; None for the others."""
+    leaves = [None if t is None else t.detach().requires_grad_(bool(n))
+              for t, n in zip((x, w, bias, residual), need)]
+    with torch.enable_grad():
+        out = _library_conv(*leaves, a)
+        live = [t for t, n in zip(leaves, need) if t is not None and n]
+        grads = iter(torch.autograd.grad(out, live, g))
+    return tuple(next(grads) if t is not None and n else None
+                 for t, n in zip(leaves, need))
+
+
+def _library_dgrad(x, w, gy, a: ConvArgs) -> torch.Tensor:
+    """dx of the bare conv (no lhs dilation, no epilogue) on the library
+    rung: ``torch.nn.grad.conv2d_input``, cuDNN with TF32 off on a CUDA
+    tensor."""
+    with _no_tf32():
+        gx = torch.nn.grad.conv2d_input(
+            x.permute(0, 3, 1, 2).shape, w.to(gy.dtype).permute(3, 2, 0, 1),
+            gy.permute(0, 3, 1, 2), stride=a.stride, padding=a.padding,
+            dilation=a.dilation, groups=a.groups)
+    return gx.permute(0, 2, 3, 1).contiguous()
 
 
 class ConvLb(torch.autograd.Function):
@@ -801,15 +877,18 @@ class ConvLb(torch.autograd.Function):
 
     forward: the conv kernel with the fused epilogue.  backward:
       1. recompute the pre-epilogue sums through the conv kernel with
-         no epilogue (no library conv runs anywhere in the backward);
+         no epilogue;
       2. pull ``g`` back through the epilogue in plain torch, which
          gives ``db`` and ``dres = gy``;
       3. dx through the conv kernel in the dgrad geometry, only when x
          needs a gradient;
       4. dW through the wgrad kernel.
-    Grouped layers run group by group.  A backward the kernels do not
-    take (:func:`_backward_on_kernels`) raises on a CUDA tensor; on a
-    CPU tensor it is the autograd of the plain version."""
+    Grouped layers run group by group.  Where the reference itself
+    routes to lax, this routes to the library rung,
+    loudly (:func:`record_fallback`): an lhs-dilated forward takes the
+    library's VJP wholesale (:func:`_library_vjp`), and a padding past
+    the full-padding transform takes its dx only
+    (:func:`_library_dgrad`; steps 1, 2 and 4 stay on the kernels)."""
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, a: ConvArgs):
@@ -825,35 +904,25 @@ class ConvLb(torch.autograd.Function):
         hk, wk = w.shape[0], w.shape[1]
         need = ctx.needs_input_grad
         g = g.contiguous()
-        if not _backward_on_kernels(a, hk, wk):
-            if x.device.type != "cpu":
-                raise NotImplementedError(
-                    f"no kernel backward for an lhs-dilated forward or a "
-                    f"padding past the full-padding transform (padding "
-                    f"{a.padding}, lhs_dilation {a.lhs_dilation}, "
-                    f"{hk}x{wk} kernel)")
-            return _plain_vjp(x, w, bias, residual, a, g) + (None,)
+        layer = f"{x.shape[3]}->{w.shape[3]}k{hk}x{wk}"
+        if a.lhs_dilation != (1, 1):
+            record_fallback("bwd", "grouped or lhs-dilated forward",
+                            layer=layer)
+            return _library_vjp(x, w, bias, residual, a, g,
+                                need[:4]) + (None,)
         y = _per_group(x, w, None, None, a, relu=False, pool=1)
         gy, db, dres = epilogue_vjp(y, bias, residual, a.relu, a.pool, g)
         gy = gy.contiguous()
-        gx = dgrad_lb(gy, w, a, x.shape[1], x.shape[2]) if need[0] else None
+        gx = None
+        if need[0] and _dgrad_on_kernel(a, hk, wk):
+            gx = dgrad_lb(gy, w, a, x.shape[1], x.shape[2])
+        elif need[0]:
+            record_fallback("dgrad", "padding past the full-padding "
+                            "transform", layer=layer)
+            gx = _library_dgrad(x, w, gy, a)
         gw = _wgrad(x, gy, hk, wk, a).to(w.dtype) if need[1] else None
         return (gx, gw, db if need[2] else None,
                 dres if need[3] else None, None)
-
-
-def _plain_vjp(x, w, bias, residual, a: ConvArgs, g):
-    """The autograd of the plain version, for CPU tensors only."""
-    leaves = [t.detach().requires_grad_(True) if t is not None else None
-              for t in (x, w, bias, residual)]
-    with torch.enable_grad():
-        out = conv2d_ref(*leaves, stride=a.stride, padding=a.padding,
-                         dilation=a.dilation,
-                         lhs_dilation=a.lhs_dilation, groups=a.groups,
-                         relu=a.relu, pool=a.pool)
-        live = [t for t in leaves if t is not None]
-        grads = iter(torch.autograd.grad(out, live, g))
-    return tuple(None if t is None else next(grads) for t in leaves)
 
 
 def conv2d_lb(x: torch.Tensor, w: torch.Tensor,

@@ -49,20 +49,27 @@ def epilogue(y: torch.Tensor, bias=None, relu: bool = False,
     return max_pool(y, pool)
 
 
+def lhs_dilate(x: torch.Tensor, lhs_dilation) -> torch.Tensor:
+    """(B, H, W, C) with ``ldy - 1`` zero rows between input rows and
+    ``ldx - 1`` zero columns between input columns."""
+    ldy, ldx = lhs_dilation
+    if (ldy, ldx) == (1, 1):
+        return x
+    b, h, wd, ci = x.shape
+    xd = x.new_zeros(b, (h - 1) * ldy + 1, (wd - 1) * ldx + 1, ci)
+    xd[:, ::ldy, ::ldx] = x
+    return xd
+
+
 def _conv_sum(x, w, stride, padding, dilation, lhs_dilation):
     """Pre-epilogue conv of one group as a sum of window products."""
     sy, sx = stride
     py, px = padding
     dy, dx = dilation
-    ldy, ldx = lhs_dilation
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
-    x = x.to(torch.float32)
+    x = lhs_dilate(x.to(torch.float32), lhs_dilation)
     w = w.to(torch.float32)
-    if (ldy, ldx) != (1, 1):
-        xd = x.new_zeros(b, (h - 1) * ldy + 1, (wd - 1) * ldx + 1, ci)
-        xd[:, ::ldy, ::ldx] = x
-        x = xd
     x = F.pad(x, (0, 0, px, px, py, py))
     hp, wp = x.shape[1], x.shape[2]
     ho = (hp - ((hk - 1) * dy + 1)) // sy + 1

@@ -1,0 +1,170 @@
+"""The port's blocked attention on the CPU held against the reference:
+``repro_torch.kernels.attention_block.ops.flash_attention`` (whose
+kernel wrapper runs the plain version on a CPU tensor) against the
+reference's Pallas kernel at ``target="interpret"``, its oracle
+``attention_ref`` and its ``target="lax"``, on the same numpy inputs,
+over every case and type of the reference's sweep
+(``tests/test_kernels.py:225-256``).
+
+A query row with no unmasked key (``Sq > Skv`` with a window) takes the
+``lax`` target's semantics: the mean of V over the real keys.  The
+reference's Pallas kernel agrees when ``Skv`` is a multiple of its
+``bk``; its oracle gives NaN there (it masks with ``-inf``).
+
+Tolerances are the reference's: f32 ``rtol 2e-5, atol 2e-4``; bf16
+``rtol 8e-2, atol 0.8``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.attention_block.ops import flash_attention as jax_flash
+from repro.kernels.attention_block.ref import attention_ref as jax_ref
+from repro.models.layers import attention_naive as jax_naive
+from repro_torch.kernels.attention_block import kernel as K4
+from repro_torch.kernels.attention_block.ops import (flash_attention,
+                                                     heads_first)
+from repro_torch.kernels.attention_block.ref import (attention_plain,
+                                                     attention_ref)
+from repro_torch.models.layers import attention_naive
+
+TOL = {"float32": (2e-5, 2e-4), "bfloat16": (8e-2, 0.8)}
+# b, sq, skv, h, kv, hd, window, causal
+SWEEP = [
+    (2, 64, 64, 4, 2, 16, 0, True),
+    (1, 100, 100, 8, 8, 32, 0, True),
+    (2, 128, 128, 4, 1, 16, 32, True),
+    (1, 48, 80, 4, 4, 16, 0, False),
+    (1, 33, 65, 2, 1, 8, 16, True),
+]
+
+
+def _inputs(b, sq, skv, h, kv, hd, dtype="float32", seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd))]
+    if dtype == "bfloat16":     # round once, the same words on both sides
+        arrs = [np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+                for a in arrs]
+    return arrs
+
+
+def _port(fn, arrs, dtype="float32", **kw):
+    t = getattr(torch, dtype)
+    out = fn(*[torch.from_numpy(a).to(t) for a in arrs], **kw)
+    assert out.dtype == t
+    return out.to(torch.float32).numpy()
+
+
+def _jax(fn, arrs, dtype="float32", **kw):
+    t = getattr(jnp, dtype)
+    out = fn(*[jnp.asarray(a, t) for a in arrs], **kw)
+    assert out.dtype == t
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _close(out, ref, dtype="float32"):
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(out, ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", SWEEP)
+def test_flash_attention_matches_reference(b, sq, skv, h, kv, hd, win,
+                                           causal, dtype):
+    arrs = _inputs(b, sq, skv, h, kv, hd, dtype)
+    kw = dict(window=win, causal=causal)
+    got = _port(flash_attention, arrs, dtype, bq=32, bk=32, **kw)
+    assert got.shape == (b, sq, h, hd)
+    _close(got, _jax(jax_flash, arrs, dtype, bq=32, bk=32,
+                     target="interpret", **kw), dtype)
+    _close(got, _jax(jax_ref, arrs, dtype, **kw), dtype)
+    _close(got, _jax(jax_flash, arrs, dtype, target="lax", **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", SWEEP)
+def test_oracle_matches_reference_oracle(b, sq, skv, h, kv, hd, win,
+                                         causal, dtype):
+    arrs = _inputs(b, sq, skv, h, kv, hd, dtype, seed=1)
+    kw = dict(window=win, causal=causal)
+    _close(_port(attention_ref, arrs, dtype, **kw),
+           _jax(jax_ref, arrs, dtype, **kw), dtype)
+
+
+def test_attention_naive_matches_reference():
+    q, k, v = _inputs(2, 40, 56, 4, 2, 16)
+    q_pos, kv_pos = np.arange(16, 56), np.arange(56)
+    got = attention_naive(*[torch.from_numpy(a) for a in (q, k, v)],
+                          torch.from_numpy(q_pos), torch.from_numpy(kv_pos),
+                          window=12).numpy()
+    _close(got, np.asarray(jax_naive(q, k, v, jnp.asarray(q_pos),
+                                     jnp.asarray(kv_pos), window=12)))
+
+
+# q (1, 64, 2, 16), k/v (1, 20, 1, 16), window 8, causal: rows
+# q >= 20 + 8 - 1 have no unmasked key
+MASKED = (1, 64, 20, 2, 1, 16)
+
+
+def test_fully_masked_rows_take_the_lax_semantics():
+    arrs = _inputs(*MASKED, seed=2)
+    kw = dict(window=8, causal=True)
+    got = _port(flash_attention, arrs, **kw)
+    mean_v = arrs[2][0, :, 0].mean(axis=0)
+    for row in (27, 40, 63):
+        _close(got[0, row, 0], mean_v)
+        _close(got[0, row, 1], mean_v)
+    _close(got, _jax(jax_flash, arrs, target="lax", **kw))
+    # the reference kernel agrees where no kv padding exists (bk | Skv)
+    for bq, bk in ((32, 32), (16, 10), (64, 20)):
+        _close(got, _jax(jax_flash, arrs, bq=bq, bk=bk, target="interpret",
+                         **kw))
+    # its oracle masks with -inf: NaN on those rows, equal elsewhere
+    oracle = _jax(jax_ref, arrs, **kw)
+    assert np.isnan(oracle[0, 27:]).all()
+    _close(got[0, :27], oracle[0, :27])
+
+
+@pytest.mark.parametrize("bq,bk", [(16, 16), (32, 96), (96, 32), (48, 48),
+                                   (8, 8), (128, 128)])
+def test_block_size_invariance(bq, bk):
+    """The blocks change no result, in either package (the reference's
+    where its kv padding is empty)."""
+    arrs = _inputs(1, 96, 96, 4, 2, 16, seed=3)
+    ref = _jax(jax_ref, arrs)
+    got = _port(flash_attention, arrs, bq=bq, bk=bk)
+    np.testing.assert_array_equal(got, _port(flash_attention, arrs))
+    _close(got, ref)
+    _close(_jax(jax_flash, arrs, bq=bq, bk=bk, target="interpret"), ref)
+
+
+def test_window_applies_without_causal():
+    arrs = _inputs(1, 40, 40, 2, 1, 8, seed=4)
+    kw = dict(window=6, causal=False)
+    _close(_port(flash_attention, arrs, **kw),
+           _jax(jax_flash, arrs, target="lax", **kw))
+
+
+def test_plain_version_is_the_heads_first_layout():
+    q, k, v = _inputs(2, 24, 30, 6, 3, 8, seed=5)
+    got = attention_plain(*[heads_first(torch.from_numpy(a))
+                            for a in (q, k, v)], groups=2, window=5)
+    want = _port(flash_attention, (q, k, v), window=5)
+    np.testing.assert_array_equal(
+        got.reshape(2, 6, 24, 8).transpose(1, 2).numpy(), want)
+
+
+def test_cpu_tensors_launch_nothing_and_account_only_raises():
+    before = K4.attention.launches
+    arrs = _inputs(1, 16, 16, 2, 1, 8)
+    _port(flash_attention, arrs)
+    assert K4.attention.launches == before
+    t = [torch.from_numpy(a) for a in arrs]
+    with pytest.raises(ValueError, match="account-only"):
+        flash_attention(*t, target="account-only")
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(t[0], torch.zeros((1, 16, 3, 8)),
+                        torch.zeros((1, 16, 3, 8)))

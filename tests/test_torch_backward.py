@@ -120,7 +120,7 @@ def test_serving_records_no_backward():
 
 def test_lhs_dilated_forward_backward_on_cpu_is_the_plain_autograd():
     """No kernel backward for an lhs-dilated forward: on a CPU tensor
-    it is the plain version's autograd (on the card it raises)."""
+    it is the plain version's autograd (on the card, cuDNN's)."""
     rng = np.random.default_rng(1)
     x = rng.standard_normal((2, 7, 7, 4)).astype(np.float32)
     w = (rng.standard_normal((3, 3, 4, 6)) * 0.2).astype(np.float32)
@@ -154,3 +154,43 @@ def test_epilogue_pullback_splits_ties_like_the_reference(relu, pool):
                                      pool, torch.from_numpy(g))
     assert db is None and dres is None
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name,kw,tally,kernel_calls", [
+    ("lhs_dilated", dict(padding=2, lhs_dilation=2), {"bwd": 1}, (1, 0)),
+    ("padding_past_full", dict(padding=3), {"dgrad": 1}, (2, 1)),
+])
+def test_backward_the_kernels_do_not_take_is_loud(monkeypatch, name, kw,
+                                                  tally, kernel_calls):
+    """Where the reference routes to lax, the backward routes to the
+    library rung, and each route adds to the tally and traces an
+    ``exec.fallback`` event; the padding past full keeps the recompute
+    and wgrad on the kernels' wrappers (the forward is the first conv
+    call)."""
+    from repro_torch.obs.tracer import Tracer
+    calls = {"conv": 0, "wgrad": 0}
+    conv_lb, wgrad_lb = ops.conv_lb, ops.wgrad_lb
+
+    def count(key, fn):
+        def wrapped(*args, **kw_):
+            calls[key] += 1
+            return fn(*args, **kw_)
+        return wrapped
+
+    monkeypatch.setattr(ops, "conv_lb", count("conv", conv_lb))
+    monkeypatch.setattr(ops, "wgrad_lb", count("wgrad", wgrad_lb))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((1, 7, 7, 3))
+                         .astype(np.float32)).requires_grad_(True)
+    w = torch.from_numpy((rng.standard_normal((3, 3, 3, 5)) * 0.2)
+                         .astype(np.float32)).requires_grad_(True)
+    ops.reset_fallback_counts()
+    tracer = Tracer()
+    with tracer.activate():
+        conv2d_lb(x, w, relu=True, **kw).sum().backward()
+    assert ops.exec_fallback_counts() == tally
+    (pass_,) = tally
+    (ev,) = tracer.find("exec.fallback")
+    assert ev.attrs["pass"] == pass_ and ev.attrs["layer"] == "3->5k3x3"
+    assert (calls["conv"], calls["wgrad"]) == kernel_calls
+    assert x.grad is not None and w.grad is not None

@@ -1,7 +1,13 @@
 """The port's CUDA kernels on the card, held against their plain
 PyTorch versions on the same inputs (TF32 off on both sides): the conv
-kernel (also in its dgrad geometry), the wgrad kernel, and a ResNet-20
-training step against the plain version's autograd.
+kernel (also in its dgrad geometry), the wgrad kernel, a ResNet-20
+training step against the plain version's autograd, the two backwards
+the kernels do not take (routed to the library rung, loudly), and the
+matmul and attention kernels in f32 and bf16 (kernel and plain version
+sum the same words in f32 and round once: f32 rtol 2e-5, atol the
+smaller of 2e-4 and 1e-3 rms(plain); bf16 rtol 2^-6, two rounding
+steps, atol the smaller of 0.8 and 1e-2 rms(plain); never looser than
+the reference's f32 rtol 2e-5, atol 2e-4 and bf16 rtol 8e-2, atol 0.8).
 
 Marked ``gpu``: on a host without a CUDA device these skip with a
 reason.  Run them on the card with ``pytest -m gpu tests/test_torch_gpu.py``.
@@ -16,10 +22,17 @@ import torch
 
 import torch.nn.functional as F
 
+from repro_torch.kernels.attention_block import kernel as K4
+from repro_torch.kernels.attention_block.ops import (flash_attention,
+                                                     heads_first)
+from repro_torch.kernels.attention_block.ref import attention_plain
 from repro_torch.kernels.conv_lb import kernel as K
 from repro_torch.kernels.conv_lb import wgrad as W
 from repro_torch.kernels.conv_lb.ops import conv2d_lb
 from repro_torch.kernels.conv_lb.ref import conv2d_ref, flip_w, wgrad_ref
+from repro_torch.kernels.matmul_lb import kernel as K3
+from repro_torch.kernels.matmul_lb.ops import matmul_lb
+from repro_torch.kernels.matmul_lb.ref import matmul_ref
 from repro_torch.launch import train_vgg as T
 from repro_torch.models.cnn import init_resnet, resnet_graph
 from repro_torch.models.graph import graph_logits
@@ -155,12 +168,109 @@ def test_resnet_training_step_matches_plain_autograd(cuda):
         _close(got, ref, tol=1e-3)
 
 
-def test_lhs_dilated_forward_backward_raises_on_the_card(cuda):
-    x = torch.randn((2, 7, 7, 4), device=cuda, requires_grad=True)
-    w = torch.randn((3, 3, 4, 6), device=cuda, requires_grad=True)
-    out = conv2d_lb(x, w, padding=2, lhs_dilation=2)
-    with pytest.raises(NotImplementedError, match="lhs-dilated"):
-        out.sum().backward()
+@pytest.mark.parametrize("name,lhs_dilation,padding,launches,tally", [
+    # the reference takes lax's VJP wholesale: no kernel in the backward
+    ("lhs_dilated", 2, 2, (0, 0), {"bwd": 1}),
+    # the reference runs dgrad on lax and wgrad on its kernel; the
+    # recompute runs on K1 as in every backward of the port
+    ("padding_past_full", 1, 3, (1, 1), {"dgrad": 1}),
+])
+def test_backward_the_kernels_do_not_take_routes_to_the_library(
+        cuda, name, lhs_dilation, padding, launches, tally):
+    from repro_torch.kernels.conv_lb import ops
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((2, 9, 9, 4), generator=g).to(cuda)
+    w = (torch.randn((3, 3, 4, 6), generator=g) * 0.2).to(cuda)
+    bias = torch.randn((6,), generator=g).to(cuda)
+    kw = dict(padding=padding, lhs_dilation=lhs_dilation, relu=True)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    out = conv2d_lb(*leaves, **kw)
+    gy = torch.randn(out.shape, generator=g).to(cuda)
+    ops.reset_fallback_counts()
+    k1, k2 = K.conv_lb.launches, W.wgrad_lb.launches
+    got = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    assert (K.conv_lb.launches - k1, W.wgrad_lb.launches - k2) == launches
+    assert ops.exec_fallback_counts() == tally
+    plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    want = torch.autograd.grad(conv2d_ref(*plain, **kw), plain, gy)
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+MATMULS = [(64, 64, 64), (300, 200, 150), (1000, 333, 77), (8, 8, 8),
+           (257, 129, 511)]
+# (rtol, atol, atol per rms of the plain output): the atol in force is
+# the smaller, so the gate is never looser than the reference's
+# (tests/test_kernels.py: f32 2e-5, 2e-4; bf16 8e-2, 0.8)
+TOL = {torch.float32: (2e-5, 2e-4, 1e-3),
+       torch.bfloat16: (2 ** -6, 0.8, 1e-2)}
+
+
+def _within(out, ref, dtype):
+    rtol, atol, atol_rms = TOL[dtype]
+    ref = ref.float()
+    atol = min(atol, atol_rms * ref.square().mean().sqrt().item())
+    torch.testing.assert_close(out.float(), ref, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", MATMULS)
+def test_matmul_kernel_matches_plain(cuda, m, k, n, dtype):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((m, k), generator=g).to(cuda, dtype)
+    w = torch.randn((k, n), generator=g).to(cuda, dtype)
+    before = K3.matmul_lb.launches
+    out = matmul_lb(x, w)
+    torch.cuda.synchronize()
+    assert K3.matmul_lb.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    _within(out, matmul_ref(x, w), dtype)
+
+
+def test_matmul_kernel_takes_a_misaligned_operand(cuda):
+    buf = torch.randn(1 + 129 * 65, device=cuda)
+    x = buf[1:].view(129, 65)        # 4 bytes past an aligned base
+    w = torch.randn((65, 33), device=cuda)
+    _within(K3.matmul_lb(x, w), matmul_ref(x, w), torch.float32)
+
+
+# b, sq, skv, h, kv, hd, window, causal: the reference's sweep, a fully
+# masked row case, and the configs' head dims 64 and 128
+ATTENTION = [
+    (2, 64, 64, 4, 2, 16, 0, True),
+    (1, 100, 100, 8, 8, 32, 0, True),
+    (1, 48, 80, 4, 4, 16, 0, False),
+    (1, 33, 65, 2, 1, 8, 16, True),
+    (1, 64, 20, 2, 1, 16, 8, True),
+    (1, 200, 200, 4, 2, 64, 0, True),
+    (2, 130, 130, 4, 1, 128, 64, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", ATTENTION)
+def test_attention_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, win,
+                                        causal, dtype):
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, dtype)
+               for s in ((b, sq, h, hd), (b, skv, kv, hd), (b, skv, kv, hd)))
+    before = K4.attention.launches
+    out = flash_attention(q, k, v, window=win, causal=causal)
+    torch.cuda.synchronize()
+    assert K4.attention.launches == before + 1
+    want = attention_plain(*map(heads_first, (q, k, v)), groups=h // kv,
+                           window=win, causal=causal)
+    _within(out, want.reshape(b, h, sq, hd).transpose(1, 2), dtype)
+
+
+def test_attention_kernel_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((2, 16, 24), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        K4.attention(q, q[:1], q[:1], groups=2)
+    q = torch.randn((2, 16, 32), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or"):
+        K4.attention(q, q[:1], q[:1], groups=2)
 
 
 def test_profile_step_sees_the_ports_kernels(cuda):
