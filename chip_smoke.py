@@ -1,26 +1,31 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
-  * ``build``: the conv (K1), wgrad (K2), matmul (K3) and attention
-    (K4) kernels from the sources in this checkout, one nvcc each, all
-    started together; ptxas registers, spills and shared memory;
-  * ``check``, ``check_bwd``: K1 (also in its dgrad geometries) and K2
-    against their plain PyTorch versions; the two backwards the
-    kernels do not take (lhs-dilated, padding past full) against the
-    plain autograd, with the library-rung tally;
+  * ``build``: the conv (K1), wgrad (K2), matmul (K3: FMA and sm90)
+    and attention (K4) kernels from the sources in this checkout, one
+    nvcc each, all started together; ptxas registers, spills and
+    shared memory;
+  * ``check``, ``check_bwd``: K1 (also in its dgrad geometries, and at
+    7x7 and 11x11 windows) and K2 against their plain PyTorch versions;
+    the two backwards the kernels do not take (lhs-dilated, padding
+    past full) against the plain autograd, with the library-rung tally;
   * ``check_matmul``, ``check_attention``: K3 and K4 through
     ``matmul_lb`` / ``flash_attention`` at every shape and type of the
-    reference's sweeps and a fully masked row case, against their
-    plain versions (``CARD_TOL``; deliberately wrong results are shown
-    to fail the same gate), one launch per call;
+    reference's sweeps (K3 also with a K-major ``w`` and at a ragged
+    and a long-K shape, each row with the route it took; K4 also at
+    head dims 80, 96 and 256) and a fully masked row case, against
+    their plain versions (``CARD_TOL``; deliberately wrong results are
+    shown to fail the same gate), one launch per call;
   * ``vgg``, ``resnet``: VGG16/224 (full width) and ResNet-20/32
     served through ``repro_torch.serve.ImageServer``, every conv on K1;
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
     on K1 (recompute, dgrad) and K2 (wgrad);
   * ``matmul``, ``attention``: the two entry points at full width
-    (phi3-medium-14b's projections at 4096 tokens; phi3-medium-14b's
-    and mixtral-8x7b's attention), f32 and bf16, held against the
-    plain versions and timed beside their bounds and a library call;
+    (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
+    kernel, and wq also with a K-major ``w``; phi3-medium-14b's and
+    mixtral-8x7b's attention), f32 and bf16, held against the plain
+    versions and timed beside their bounds and a library call;
+  * ``attention_head_dims``: K4 at head dims 80, 96 and 256, timed;
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer.
 
     python3 chip_smoke.py        # on a host with one NVIDIA H100
@@ -93,6 +98,7 @@ REPLACES = "src/repro/kernels/conv_lb/kernel.py:116"
 WGRAD_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb.cu"
 WGRAD_REPLACES = "src/repro/kernels/conv_lb/wgrad.py:50"
 MATMUL_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb.cu"
+SM90_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb_sm90.cu"
 MATMUL_REPLACES = "src/repro/kernels/matmul_lb/kernel.py:23"
 ATTN_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
                "attention_block.cu")
@@ -151,9 +157,10 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    libs = K.build_many([K.SOURCE, W.SOURCE, K3.SOURCE, K4.SOURCE])
+    libs = K.build_many([K.SOURCE, W.SOURCE, K3.SOURCE, K3.SM90_SOURCE,
+                         K4.SOURCE])
     for lib, source in zip(libs, (SOURCE, WGRAD_SOURCE, MATMUL_SOURCE,
-                                  ATTN_SOURCE)):
+                                  SM90_SOURCE, ATTN_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
               "ptxas": [ln.strip() for ln in lib.log.splitlines()
@@ -191,6 +198,15 @@ CHECKS = [
      1),
     ("vgg_conv5_3_pool2_b8", 8, (14, 14), 512, 512, 3, 1, 1, 1, 1, 1,
      True, False, True, 2),
+    # windows whose weight slice crowds shared memory: a 7x7/2 stem and
+    # a 7x7 at dilation 2 (fewer pixels per CTA), and an 11x11/4 whose
+    # slice alone exceeds it (staged a kernel row at a time)
+    ("stem_7x7_s2_p3_b8", 8, (224, 224), 3, 64, 7, 2, 3, 1, 1, 1, True,
+     False, True, 1),
+    ("7x7_dilation2_b2", 2, (40, 40), 16, 64, 7, 1, 6, 2, 1, 1, True,
+     False, True, 1),
+    ("11x11_s4_b2", 2, (227, 227), 3, 64, 11, 4, 2, 1, 1, 1, True, False,
+     True, 1),
 ]
 
 
@@ -216,7 +232,9 @@ def phase_check() -> None:
         err, rel = rel_err(out, ref)
         emit({"phase": "check", "geometry": name,
               "shape": list(out.shape), "max_abs_err": err,
-              "max_abs_err_over_max_ref": rel, "tol": TOL})
+              "max_abs_err_over_max_ref": rel, "tol": TOL,
+              "cta_plan": list(K.cta_plan(b, ho, wo, co // g, pool, k, k,
+                                          (s, s), (d, d)))})
         require(rel <= TOL, f"check {name}: kernel vs plain {rel} > {TOL}")
 
 
@@ -503,6 +521,9 @@ def matmul_control(x: torch.Tensor, w: torch.Tensor, chunk: int):
 
 MATMUL_SWEEP = [(64, 64, 64), (128, 256, 128), (300, 200, 150),
                 (1000, 333, 77), (8, 8, 8), (257, 129, 511)]
+#: beside the sweep, for the sm90 kernel (bf16 only): a ragged edge in
+#: every dimension and a long K, whose rows TMA can describe
+MATMUL_EXTRA = [(1000, 328, 88), (520, 4104, 392)]
 #: sweep shapes whose gate is also shown to fail a wrong result
 MATMUL_CONTROLS = ((1000, 333, 77), (257, 129, 511))
 #: the K depth K3 stages per step (``kBK`` in matmul_lb.cu)
@@ -518,6 +539,7 @@ def phase_check_matmul() -> None:
             x = _randn(gen, m, k).to(dtype)
             w = _randn(gen, k, n).to(dtype)
             before = K3.matmul_lb.launches
+            route = K3.route(x, w)
             out = matmul_lb(x, w)
             torch.cuda.synchronize()
             launched = K3.matmul_lb.launches - before
@@ -527,13 +549,62 @@ def phase_check_matmul() -> None:
                 row["control"] = control(*matmul_control(x, w, 1),
                                          plain, dtype)
             emit({"phase": "check_matmul", "shape": [m, k, n],
-                  "dtype": str(dtype), "launches": launched, **row})
+                  "dtype": str(dtype), "launches": launched, **row,
+                  "route": route, "layout": "n-major"})
             require(launched == 1, f"check_matmul {m}x{k}x{n}: "
                                    f"{launched} launches")
             require(out.dtype == dtype and out.shape == (m, n),
                     f"check_matmul {m}x{k}x{n}: {out.dtype} {out.shape}")
             require(row["worst_over_tol"] <= 1.0,
                     f"check_matmul {m}x{k}x{n} {dtype}: {row}")
+    check_matmul_layouts(gen)
+
+
+def check_matmul_layouts(gen) -> None:
+    """The sweep with ``w`` K-major (``w.t()`` of a contiguous
+    ``(N, K)``) in both types, and in bf16 the extra shapes in both
+    layouts: each row with its route and the copies it made; a bf16
+    product whose rows TMA describes must take ``sm90``."""
+    extra = [(sh, layout) for sh in MATMUL_EXTRA
+             for layout in ("k-major", "n-major")]
+    for dtype in DTYPES:
+        for (m, k, n), layout in (
+                [(sh, "k-major") for sh in MATMUL_SWEEP]
+                + (extra if dtype == torch.bfloat16 else [])):
+            x = _randn(gen, m, k).to(dtype)
+            w = _randn(gen, k, n).to(dtype)
+            if layout == "k-major":
+                w = w.t().contiguous().t()
+            route = K3.route(x, w)
+            tma = dtype == torch.bfloat16 and (2 * k) % 16 == 0 and (
+                layout == "k-major" or (2 * n) % 16 == 0)
+            before = dict(K3.matmul_lb.launches_by_route)
+            copies = K3.matmul_lb.copies
+            out = matmul_lb(x, w)
+            torch.cuda.synchronize()
+            launched = {r: K3.matmul_lb.launches_by_route[r] - before[r]
+                        for r in before}
+            plain = matmul_ref(x, w)
+            row = within(out, plain, dtype)
+            if dtype == torch.bfloat16 and (m, k, n) in MATMUL_EXTRA:
+                row["control"] = control(*matmul_control(x, w, 1),
+                                         plain, dtype)
+            emit({"phase": "check_matmul", "shape": [m, k, n],
+                  "dtype": str(dtype), "layout": layout, "route": route,
+                  "launches_by_route": launched,
+                  "copies": K3.matmul_lb.copies - copies, **row})
+            where = f"check_matmul {m}x{k}x{n} {dtype} {layout}"
+            require(route == ("sm90" if tma else "fma"),
+                    f"{where}: route {route}")
+            # the FMA kernel takes a K-major w by one counted copy
+            require(K3.matmul_lb.copies - copies
+                    == int(route == "fma" and layout == "k-major"),
+                    f"{where}: {K3.matmul_lb.copies - copies} copies")
+            require(launched == dict.fromkeys(K3.ROUTES, 0) | {route: 1},
+                    f"{where}: launches {launched}")
+            require(out.dtype == dtype and out.shape == (m, n),
+                    f"{where}: {out.dtype} {out.shape}")
+            require(row["worst_over_tol"] <= 1.0, f"{where}: {row}")
 
 
 def plain_attention(q, k, v, *, window: int, causal: bool,
@@ -562,6 +633,13 @@ ATTN_SWEEP = [
     (1, 33, 65, 2, 1, 8, 16, True),
     (1, 64, 20, 2, 1, 16, 8, True),
 ]
+#: head dims the kernel pads to its next width (80, 96: their own
+#: width; 256: one K/V stage in f32)
+ATTN_HEAD_DIMS = [
+    (1, 150, 150, 4, 2, 80, 0, True),
+    (1, 130, 130, 4, 1, 96, 32, True),
+    (1, 100, 100, 2, 1, 256, 0, True),
+]
 
 
 def phase_check_attention() -> None:
@@ -570,7 +648,8 @@ def phase_check_attention() -> None:
     the plain version."""
     gen = torch.Generator().manual_seed(SEED + 4)
     for dtype in DTYPES:
-        for b, sq, skv, h, kv, hd, win, causal in ATTN_SWEEP:
+        for b, sq, skv, h, kv, hd, win, causal in (ATTN_SWEEP
+                                                   + ATTN_HEAD_DIMS):
             q = _randn(gen, b, sq, h, hd).to(dtype)
             k = _randn(gen, b, skv, kv, hd).to(dtype)
             v = _randn(gen, b, skv, kv, hd).to(dtype)
@@ -612,33 +691,56 @@ MATMUL_FULL = [("wq", 4096, 5120, 5120), ("wk", 4096, 5120, 1280),
                ("ffn_down", 4096, 17920, 5120)]
 
 
-def phase_matmul(card: str) -> tuple[int, list[dict]]:
-    """``matmul_lb`` at full width, f32 and bf16: the main path run
-    (launch count), then each call held against the plain version and
-    timed alone beside its bound and ``torch.matmul``.  Weights are
-    scaled by 1/sqrt(K), as a projection's are."""
+#: the K depth of the new bf16 control: an accumulator rounded to bf16
+#: every 64 of K (the sm90 kernel's stage depth) must fail the gate too
+MATMUL_K_STAGE = 64
+
+
+def phase_matmul(card: str) -> tuple[dict, list[dict]]:
+    """``matmul_lb`` at full width, f32 and bf16 (and bf16 wq again
+    with a K-major ``w``): the main path run (launch counts by route),
+    then each call held against the plain version and timed alone
+    beside its bound and ``torch.matmul``.  Weights are scaled by
+    1/sqrt(K), as a projection's are."""
     gen = torch.Generator().manual_seed(SEED + 5)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
-    ops = [(name, m, k, n, dtype,
+    ops = [(name, m, k, n, dtype, "n-major",
             _randn(gen, m, k).to(dtype),
             _randn(gen, k, n, scale=k ** -0.5).to(dtype))
            for dtype in DTYPES for name, m, k, n in MATMUL_FULL]
+    # wq's bf16 operands again, w K-major (w.t() of a contiguous (N, K))
+    name, m, k, n, dtype, _, x, w = ops[len(MATMUL_FULL)]
+    ops.append((name, m, k, n, dtype, "k-major", x,
+                w.t().contiguous().t()))
     K3.matmul_lb.launches = 0
+    K3.matmul_lb.launches_by_route = dict.fromkeys(K3.ROUTES, 0)
+    K3.matmul_lb.copies = 0
     outs = [matmul_lb(x, w) for *_, x, w in ops]
     torch.cuda.synchronize()
-    launches = K3.matmul_lb.launches
-    require(launches == len(ops), f"matmul: {launches} launches for "
-                                  f"{len(ops)} calls")
+    launches = {"launches": K3.matmul_lb.launches,
+                "by_route": dict(K3.matmul_lb.launches_by_route),
+                "copies": K3.matmul_lb.copies}
+    require(launches["launches"] == len(ops),
+            f"matmul: {launches} for {len(ops)} calls")
+    require(launches["by_route"]["sm90"] == len(MATMUL_FULL) + 1
+            and launches["copies"] == 0,
+            f"matmul: {launches}: every bf16 projection must take sm90")
     rows = []
-    for (name, m, k, n, dtype, x, w), out in zip(ops, outs):
+    for (name, m, k, n, dtype, layout, x, w), out in zip(ops, outs):
+        route = K3.route(x, w)
+        require(route == ("sm90" if dtype == torch.bfloat16 else "fma"),
+                f"matmul {name} {dtype} {layout}: route {route}")
         plain = matmul_ref(x, w)
         chk = within(out, plain, dtype)
         require(chk["worst_over_tol"] <= 1.0 and
                 bool(torch.isfinite(out).all()),
                 f"matmul {name} {dtype}: {chk}")
-        if name == "wq":
+        if name == "wq" and layout == "n-major":
             chk["control"] = control(*matmul_control(x, w, MATMUL_K_STEP),
                                      plain, dtype)
+            if dtype == torch.bfloat16:
+                chk["control_stage"] = control(
+                    *matmul_control(x, w, MATMUL_K_STAGE), plain, dtype)
         del plain
         elt = x.element_size()
         flops = 2.0 * m * n * k
@@ -647,14 +749,17 @@ def phase_matmul(card: str) -> tuple[int, list[dict]]:
         blk = accounted_block(m, n, k, elt)
         row = {"phase": "matmul", "config": "phi3-medium-14b",
                "projection": name, "shape": [m, k, n],
-               "dtype": str(dtype), **chk,
+               "dtype": str(dtype), "route": route, "layout": layout,
+               **chk,
                "ms": _time_ms(lambda: matmul_lb(x, w), flush),
                "plain_ms": _time_ms(lambda: matmul_ref(x, w), flush),
                "library_ms": _time_ms(lambda: torch.matmul(x, w), flush),
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "peak_flops": PEAK[dtype], "flops": flops,
-               "bytes": n_bytes, "cta_tn": K3.cta_tile(m, n),
+               "bytes": n_bytes,
+               "cta_tn": (K3.sm90_tile(m, n) if route == "sm90"
+                          else K3.cta_tile(m, n)),
                "accounted_block": [blk.bm, blk.bn, blk.bk],
                "accounted_bytes": hbm_traffic_model(m, n, k, blk, elt),
                "card": card}
@@ -753,6 +858,64 @@ def phase_attention(card: str) -> tuple[int, list[dict]]:
         emit(row)
         rows.append(row)
     return launches, rows
+
+
+# name, b, s, h, kv, hd, window, causal: head dims the configs do not
+# use, at 4096 tokens (80 and 96 run at their own width, 256 with one
+# K/V stage in f32)
+ATTN_HEAD_DIM_FULL = [("hd80", 1, 4096, 32, 32, 80, 0, True),
+                      ("hd96", 1, 4096, 32, 8, 96, 0, True),
+                      ("hd256", 1, 4096, 16, 16, 256, 0, True)]
+
+
+def phase_attention_head_dims(card: str) -> list[dict]:
+    """K4 at head dims 80, 96 and 256, f32 and bf16: each call held
+    against the plain version and timed alone beside its bound and
+    ``F.scaled_dot_product_attention``."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    rows = []
+    for dtype in DTYPES:
+        for name, b, s, h, kv, hd, win, causal in ATTN_HEAD_DIM_FULL:
+            q, k, v = (_randn(gen, b, s, heads, hd).to(dtype)
+                       for heads in (h, kv, kv))
+            before = K4.attention.launches
+            out = flash_attention(q, k, v, window=win, causal=causal)
+            torch.cuda.synchronize()
+            launched = K4.attention.launches - before
+            plain = plain_attention(q, k, v, window=win, causal=causal)
+            chk = within(out, plain, dtype)
+            del plain
+            require(launched == 1 and chk["worst_over_tol"] <= 1.0 and
+                    bool(torch.isfinite(out).all()),
+                    f"attention {name} {dtype}: {launched} launches, {chk}")
+            qf, kf, vf = (heads_first(t) for t in (q, k, v))
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            pairs = b * h * unmasked_pairs(s, s, win, causal)
+            flops = 4.0 * hd * pairs
+            n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
+            t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+            row = {"phase": "attention_head_dims", "case": name,
+                   "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd},
+                   "width": K4.padded_head_dim(hd),
+                   "stages": K4.attention_stages(K4.padded_head_dim(hd),
+                                                 dtype),
+                   "window": win, "causal": causal, "dtype": str(dtype),
+                   "launches": launched, **chk,
+                   "ms": _time_ms(lambda: K4.attention(
+                       qf, kf, vf, groups=h // kv, window=win,
+                       causal=causal), flush),
+                   "plain_ms": _time_ms(lambda: plain_attention(
+                       q, k, v, window=win, causal=causal), flush, reps=3),
+                   "library_ms": _time_ms(_library_attention(
+                       qh, kh, vh, window=win, causal=causal), flush),
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes", "flops": flops, "bytes": n_bytes,
+                   "card": card}
+            emit(row)
+            rows.append(row)
+    return rows
 
 
 class Decisions:
@@ -1003,8 +1166,12 @@ def main() -> int:
     resnet_launches = phase_serve("resnet")
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
-    matmul_launches, matmul_rows = phase_matmul(card)
+    matmul_launches, matmul_all = phase_matmul(card)
+    # the sums: the four projections per type, w N-major
+    matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
+    sm90_rows = [r for r in matmul_rows if r["route"] == "sm90"]
     attn_launches, attn_rows = phase_attention(card)
+    phase_attention_head_dims(card)
     rows = phase_layers(card)
     dgrad_rows, wgrad_rows = phase_layers_bwd(card)
     dgrad = _sums(dgrad_rows)
@@ -1028,9 +1195,22 @@ def main() -> int:
              card=card),
         dict(_sums(matmul_rows), name="matmul_lb", route="cuda",
              source=MATMUL_SOURCE, replaces=MATMUL_REPLACES,
-             launches=matmul_launches, by_dtype=_by_dtype(matmul_rows),
+             launches=matmul_launches["launches"],
+             by_route=matmul_launches["by_route"],
+             copies=matmul_launches["copies"],
+             by_dtype=_by_dtype(matmul_rows),
              times_are="sums over phi3-medium-14b's wq, wk, FFN up and "
-                       "FFN down at 4096 tokens, f32 and bf16",
+                       "FFN down at 4096 tokens, f32 (FMA kernel) and "
+                       "bf16 (sm90 kernel); launches of both kernels",
+             card=card),
+        dict(_sums(sm90_rows), name="matmul_lb_sm90", route="cuda",
+             source=SM90_SOURCE, replaces=MATMUL_REPLACES,
+             launches=matmul_launches["by_route"]["sm90"],
+             k_major_wq_ms=[r["ms"] for r in matmul_all
+                            if r["layout"] == "k-major"][0],
+             times_are="sums over phi3-medium-14b's wq, wk, FFN up and "
+                       "FFN down at 4096 tokens, bf16, w N-major "
+                       "(launches: also wq with w K-major)",
              card=card),
         dict(_sums(attn_rows), name="attention", route="cuda",
              source=ATTN_SOURCE, replaces=ATTN_REPLACES,

@@ -32,6 +32,17 @@
 //    reading 16 different keys hit different banks.
 //  * bf16 stays bf16 in shared memory and is widened to f32 in
 //    registers; the output is rounded to nearest-even.
+//  * Any head dim up to 256: the kernel is instantiated at widths HD
+//    of 8, 16, 32, 64, 80, 96, 128 and 256 and runs a head dim hd at
+//    the next width.  The columns from hd to HD of the staged Q, K and
+//    V tiles are zeros, so they add nothing to a score and make acc
+//    columns that are never stored; the rows in device memory are hd
+//    words apart, and a pitch that is not a multiple of 16 bytes is
+//    staged a word at a time.  A head dim equal to its width runs an
+//    instance where hd is the compile-time HD, which has none of
+//    this.  The softmax scale is 1/sqrt(hd).  Where
+//    two stages of K and V do not fit in shared memory (f32 at 256),
+//    the kernel stages one.
 //  * Plain FMA, no tensor cores or TMA yet, and every key tile is
 //    visited, also one that the masks hide wholly from a query tile.
 //
@@ -58,8 +69,25 @@ constexpr float kNegInf = -1e30f;
 
 struct Geom {
   int BH, Sq, Skv, groups, window, causal;
+  int hd;    // the real head dim: the rows' pitch and stored columns
+  int vec;   // rows are 16-byte pitched: stage by 16-byte copies
   float scale;
 };
+
+constexpr int kSmemPerBlock = 232448;
+
+// shared memory of one CTA with `stages` K/V stages: Q, the K and V
+// stages, and the P tile
+template <typename T, int HD>
+constexpr int smem_bytes(int stages) {
+  return (kBQ + 2 * stages * kBKV) * (HD + 16 / int(sizeof(T))) *
+             int(sizeof(T)) +
+         kBQ * (kBKV + 4) * int(sizeof(float));
+}
+
+// two stages where they fit, else one
+template <typename T, int HD>
+constexpr int kStagesFor = smem_bytes<T, HD>(2) <= kSmemPerBlock ? 2 : 1;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool pred) {
@@ -120,25 +148,38 @@ __device__ __forceinline__ void loadn(const __nv_bfloat16* p, float* out) {
   }
 }
 
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// the acc columns of one thread: for hd >= 64, groups of 4 at
-// tk*4 + 64*c; below, hd/16 consecutive columns at tk*(hd/16) (hd = 8:
-// one column, lanes tk >= 8 idle)
+// the acc columns of one thread: for a multiple of 64, groups of 4 at
+// tk*4 + 64*c; otherwise HD/16 consecutive columns at tk*(HD/16),
+// loaded 4, 2 or 1 at a time (HD = 8: one column, lanes tk >= 8 idle)
 template <int HD>
 struct Cols {
+  static constexpr bool kSpread = HD % 64 == 0;
   static constexpr int kPer = HD >= 16 ? HD / 16 : 1;   // per thread
-  static constexpr int kVec = HD >= 64 ? 4 : kPer;      // per load
+  static constexpr int kVec = kSpread || kPer % 4 == 0 ? 4
+                              : kPer % 2 == 0         ? 2
+                                                      : 1;   // per load
   __device__ static int col(int tk, int c) {
-    return HD >= 64 ? (c / 4) * 64 + tk * 4 + (c % 4) : tk * kPer + c;
+    return kSpread ? (c / 4) * 64 + tk * 4 + (c % 4) : tk * kPer + c;
   }
   __device__ static bool active(int tk) { return tk * kPer < HD; }
 };
 
-template <typename T, int HD>
+// EXACT: hd == HD, so the pitch and every column bound are constants
+template <typename T, int HD, int STAGES, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -150,27 +191,41 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NV = Cols<HD>::kVec;
   extern __shared__ float4 smem4[];
   T* s_q = reinterpret_cast<T*>(smem4);          // [kBQ][LD]
-  T* s_kv = s_q + kBQ * LD;                      // 2 x {K, V} [kBKV][LD]
-  float* s_p = reinterpret_cast<float*>(s_kv + 4 * kBKV * LD);  // [kBQ][LP]
+  T* s_kv = s_q + kBQ * LD;              // STAGES x {K, V} [kBKV][LD]
+  float* s_p = reinterpret_cast<float*>(s_kv + 2 * STAGES * kBKV * LD);
 
+  const int hd = EXACT ? HD : g.hd;
+  const bool vec = EXACT || g.vec;
   const int tid = threadIdx.x;
   const int tq = tid >> 4;   // rows tq + 16*i
   const int tk = tid & 15;   // keys tk + 16*j; acc columns Cols::col
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBQ;
-  const T* qh = q + static_cast<size_t>(bh) * g.Sq * HD;
-  const size_t kv_off = static_cast<size_t>(bh / g.groups) * g.Skv * HD;
+  const T* qh = q + static_cast<size_t>(bh) * g.Sq * hd;
+  const size_t kv_off = static_cast<size_t>(bh / g.groups) * g.Skv * hd;
   const T* kh = k + kv_off;
   const T* vh = v + kv_off;
 
-  // stage rows [r0, r0 + 64) of a (rows, HD) head into a padded tile
+  // stage rows [r0, r0 + 64) of a (rows, hd) head into a padded tile,
+  // zeros in the columns from hd to HD
   auto stage = [&](T* dst, const T* src, int r0, int rows) {
-    for (int e = tid; e < 64 * (HD / VE); e += kThreads) {
-      const int r = e / (HD / VE);
-      const int d = (e - r * (HD / VE)) * VE;
-      const bool ok = r0 + r < rows;
-      cp_async16(dst + r * LD + d,
-                 ok ? src + static_cast<size_t>(r0 + r) * HD + d : src, ok);
+    if (vec) {
+      for (int e = tid; e < 64 * (HD / VE); e += kThreads) {
+        const int r = e / (HD / VE);
+        const int d = (e - r * (HD / VE)) * VE;
+        const bool ok = r0 + r < rows && (EXACT || d < hd);
+        cp_async16(dst + r * LD + d,
+                   ok ? src + static_cast<size_t>(r0 + r) * hd + d : src,
+                   ok);
+      }
+    } else {
+      for (int e = tid; e < 64 * HD; e += kThreads) {
+        const int r = e / HD;
+        const int d = e - r * HD;
+        dst[r * LD + d] = r0 + r < rows && d < hd
+                              ? src[static_cast<size_t>(r0 + r) * hd + d]
+                              : zero<T>();
+      }
     }
   };
 
@@ -190,8 +245,8 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage(s_kv + kBKV * LD, vh, 0, g.Skv);
   cp_async_commit();
   for (int t = 0; t < nkv; ++t) {
-    const int cur = t & 1;
-    if (t + 1 < nkv) {
+    const int cur = STAGES == 2 ? t & 1 : 0;
+    if (STAGES == 2 && t + 1 < nkv) {
       // the other buffer was last read before the previous barrier
       T* nxt = s_kv + (cur ^ 1) * 2 * kBKV * LD;
       stage(nxt, kh, (t + 1) * kBKV, g.Skv);
@@ -199,6 +254,13 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
       cp_async_wait_one();
     } else {
+      if (STAGES == 1 && t > 0) {
+        // one stage: this tile replaces the last, read before the
+        // previous barrier
+        stage(s_kv, kh, t * kBKV, g.Skv);
+        stage(s_kv + kBKV * LD, vh, t * kBKV, g.Skv);
+        cp_async_commit();
+      }
       cp_async_wait_all();
     }
     __syncthreads();
@@ -293,57 +355,71 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + tq + 16 * i;
     if (qp >= g.Sq) continue;
     const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
-    T* row = out + (static_cast<size_t>(bh) * g.Sq + qp) * HD;
+    T* row = out + (static_cast<size_t>(bh) * g.Sq + qp) * hd;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store1(row + Cols<HD>::col(tk, c), acc[i][c] * inv);
+      if (EXACT || Cols<HD>::col(tk, c) < hd)
+        store1(row + Cols<HD>::col(tk, c), acc[i][c] * inv);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool EXACT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    const Geom& g, cudaStream_t stream) {
-  constexpr int VE = 16 / sizeof(T);
-  constexpr int smem = (kBQ + 4 * kBKV) * (HD + VE) * sizeof(T) +
-                       kBQ * (kBKV + 4) * sizeof(float);
+  constexpr int stages = kStagesFor<T, HD>;
+  constexpr int smem = smem_bytes<T, HD>(stages);
+  static_assert(smem <= kSmemPerBlock, "attention tile exceeds shared memory");
   static bool opted_in = false;
   if (!opted_in && smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        attention_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        attention_kernel<T, HD, stages, EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
   const dim3 grid((g.Sq + kBQ - 1) / kBQ, g.BH);
-  attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  attention_kernel<T, HD, stages, EXACT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), g);
   return cudaGetLastError();
 }
 
+template <typename T, int HD>
+cudaError_t launch_width(const void* q, const void* k, const void* v,
+                         void* out, const Geom& g, cudaStream_t s) {
+  return g.hd == HD ? launch<T, HD, true>(q, k, v, out, g, s)
+                    : launch<T, HD, false>(q, k, v, out, g, s);
+}
+
+// HD: the instantiated width, from the wrapper (>= the real hd)
 template <typename T>
-cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v,
+cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
                       void* out, const Geom& g, cudaStream_t s) {
-  switch (hd) {
-    case 8: return launch<T, 8>(q, k, v, out, g, s);
-    case 16: return launch<T, 16>(q, k, v, out, g, s);
-    case 32: return launch<T, 32>(q, k, v, out, g, s);
-    case 64: return launch<T, 64>(q, k, v, out, g, s);
-    case 128: return launch<T, 128>(q, k, v, out, g, s);
+  switch (HD) {
+    case 8: return launch_width<T, 8>(q, k, v, out, g, s);
+    case 16: return launch_width<T, 16>(q, k, v, out, g, s);
+    case 32: return launch_width<T, 32>(q, k, v, out, g, s);
+    case 64: return launch_width<T, 64>(q, k, v, out, g, s);
+    case 80: return launch_width<T, 80>(q, k, v, out, g, s);
+    case 96: return launch_width<T, 96>(q, k, v, out, g, s);
+    case 128: return launch_width<T, 128>(q, k, v, out, g, s);
+    case 256: return launch_width<T, 256>(q, k, v, out, g, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = f32, 1 = bf16.  Every operand's base must be 16-byte
-// aligned (the wrapper checks it).
+// dtype: 0 = f32, 1 = bf16.  hd is the real head dim, hd_pad the
+// instantiated width the kernel runs it at.  Every operand's base must
+// be 16-byte aligned (the wrapper checks it).
 extern "C" int attention_block_forward(const void* q, const void* k,
                                        const void* v, void* out, int BH,
-                                       int Sq, int Skv, int hd, int groups,
-                                       int window, int causal, int dtype,
-                                       void* stream) {
-  if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || BH > 65535)
+                                       int Sq, int Skv, int hd, int hd_pad,
+                                       int groups, int window, int causal,
+                                       int dtype, void* stream) {
+  if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || BH > 65535 || hd < 1 ||
+      hd > hd_pad)
     return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   g.BH = BH;
@@ -352,14 +428,16 @@ extern "C" int attention_block_forward(const void* q, const void* k,
   g.groups = groups;
   g.window = window;
   g.causal = causal;
-  // the reference's 1 / hd ** 0.5, rounded once to f32
+  g.hd = hd;
+  g.vec = hd % (dtype == 0 ? 4 : 8) == 0;
+  // the reference's 1 / hd ** 0.5 of the real hd, rounded once to f32
   g.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = launch_hd<float>(hd, q, k, v, out, g, s);
+    err = launch_hd<float>(hd_pad, q, k, v, out, g, s);
   else if (dtype == 1)
-    err = launch_hd<__nv_bfloat16>(hd, q, k, v, out, g, s);
+    err = launch_hd<__nv_bfloat16>(hd_pad, q, k, v, out, g, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -9,7 +9,10 @@ use, never at import.  :func:`attention` dispatches on where its
 tensors lie and nothing else: a CUDA tensor launches the kernel or
 raises; a CPU tensor runs the plain version
 (:func:`~repro_torch.kernels.attention_block.ref.attention_plain`).
-Each launch adds one to ``attention.launches``.
+Each launch adds one to ``attention.launches``.  The kernel runs a head
+dim at the next width it is instantiated for (:func:`padded_head_dim`),
+with zeros in the padded columns and the softmax scale of the real
+head dim.
 """
 
 from __future__ import annotations
@@ -18,16 +21,47 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.hopper_adapter import SMEM_PER_BLOCK
 from repro_torch.kernels.attention_block.ref import attention_plain
 from repro_torch.kernels.conv_lb.kernel import _aligned, build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_block.cu"
 
-#: head dims the kernel is instantiated for (the reference's sweep and
-#: the repo's configs)
-HEAD_DIMS = (8, 16, 32, 64, 128)
+#: the widths the kernel is instantiated for (must match
+#: csrc/attention_block.cu); a head dim runs at the next one
+HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128, 256)
+#: the kernel's fixed tiles (must match csrc/attention_block.cu)
+BQ = BKV = 64
 #: input types the kernel takes, by the code its C interface uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def padded_head_dim(hd: int) -> int:
+    """The width the kernel runs head dim ``hd`` at: the least
+    instantiated width >= ``hd``; above 256 it raises."""
+    for width in HEAD_DIMS:
+        if width >= hd:
+            return width
+    raise ValueError(f"head dim {hd} exceeds the attention kernel's "
+                     f"largest width {HEAD_DIMS[-1]}")
+
+
+def attention_stages(width: int, dtype: torch.dtype) -> int:
+    """K/V stages the kernel keeps at ``width``: two where they fit in
+    the card's shared memory, else one (f32 at 256)."""
+    return 2 if attention_smem_bytes(width, dtype, 2) <= SMEM_PER_BLOCK \
+        else 1
+
+
+def attention_smem_bytes(width: int, dtype: torch.dtype,
+                         stages: int | None = None) -> int:
+    """Dynamic shared memory of one CTA: Q, ``stages`` stages of K and V
+    (rows padded by 16 bytes) and the f32 P tile."""
+    if stages is None:
+        stages = attention_stages(width, dtype)
+    elt = torch.empty((), dtype=dtype).element_size()
+    return ((BQ + 2 * stages * BKV) * (width + 16 // elt) * elt
+            + BQ * (BKV + 4) * 4)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -49,9 +83,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if groups < 1 or bh != k.shape[0] * groups:
         raise ValueError(f"{bh} query heads do not split into groups of "
                          f"{groups} over {k.shape[0]} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one the attention kernel "
-                         f"takes {HEAD_DIMS}")
+    width = padded_head_dim(hd)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     for name, t, shape in (("k", k, (bh // groups, skv, hd)),
@@ -72,12 +104,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bh > 65535:
         raise ValueError(f"{bh} heads exceed the kernel's grid")
     lib = build(SOURCE)
-    forward = lib.bind("attention_block_forward", 4, 8)
+    forward = lib.bind("attention_block_forward", 4, 9)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), bh, sq, skv, hd, groups, window,
+                      out.data_ptr(), bh, sq, skv, hd, width, groups, window,
                       int(causal), DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: "

@@ -28,6 +28,10 @@
 //    arrives while this one is computed.  Padding, ragged edges and
 //    lhs-dilation zeros come from predicates (a predicated-off copy
 //    writes zeros), never from memory, so no padded copy of x is made.
+//    A large window whose whole weight slice does not fit (beyond 7x7
+//    at 64 channels) is staged one kernel row at a time: each step
+//    then holds the halo rows and the (Wk, ci_b, TN) slice of one
+//    kernel row, and the steps run over (Ci block, kernel row).
 //    The epilogue adds bias and the residual (read once per output
 //    tile), applies the ReLU and the aligned pool x pool max, and
 //    stores only the pooled tile: one write per pooled output word.
@@ -54,7 +58,7 @@ struct Geom {
   int sy, sx, dy, dx, ly, lx, py, px;
   int pool, relu;
   int bb, ty, tx;   // CTA output tile: bb images x ty rows x tx cols
-  int hy, hx;       // logical halo extent of one tile
+  int hy, hx;       // logical halo extent of one staged step
   int nty, ntx;     // tiles along Ho and Wo
   int x_vec;        // x 16-byte aligned and Ci % 4 == 0
   int w_vec;        // w 16-byte aligned and Co % 4 == 0
@@ -89,7 +93,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-template <int TN>
+// ROWS: stage one kernel row per step (a window whose whole weight
+// slice does not fit); otherwise the whole window per Ci block
+template <int TN, bool ROWS>
 __global__ void __launch_bounds__(kThreads, 2)
 conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
                const float* __restrict__ bias,
@@ -99,7 +105,8 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int halo_px = g.bb * g.hy * g.hx;
-  const int nwin = g.Hk * g.Wk;
+  const int krows = ROWS ? 1 : g.Hk;   // kernel rows staged per step
+  const int nwin = krows * g.Wk;       // windows staged per step
   // one stage buffer: [halo_px][kCiB] input, then [nwin][kCiB][TN] weights
   const int in_floats = halo_px * kCiB;
   const int stage_floats = in_floats + nwin * kCiB * TN;
@@ -144,8 +151,11 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int wd = (g.W - 1) * g.lx + 1;
   const int hyx = g.hy * g.hx;
 
-  // issue the copies of one Ci block into one stage buffer
-  auto stage = [&](int ci0, float* s_in, float* s_w) {
+  // issue the copies of one step (Ci block, first kernel row ky0) into
+  // one stage buffer
+  auto stage = [&](int step, float* s_in, float* s_w) {
+    const int ci0 = (ROWS ? step / g.Hk : step) * kCiB;
+    const int ky0 = ROWS ? step % g.Hk : 0;
     const int per_px = g.x_vec ? kCiB / 4 : kCiB;
     for (int e = tid; e < halo_px * per_px; e += kThreads) {
       const int p = e / per_px;
@@ -153,7 +163,7 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int lb = p / hyx;
       const int q = p - lb * hyx;
       const int qy = q / g.hx;
-      const int r = r0 + qy;
+      const int r = r0 + ky0 * g.dy + qy;
       const int col = c0 + (q - qy * g.hx);
       const int b = b0 + lb;
       const int ci = ci0 + c;
@@ -179,7 +189,9 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int co = co0 + n;
       const bool ok = ci < g.Ci && co < g.Co;
       const float* src =
-          ok ? w + (static_cast<size_t>(win) * g.Ci + ci) * g.Co + co : w;
+          ok ? w + (static_cast<size_t>(ky0 * g.Wk + win) * g.Ci + ci) *
+                       g.Co + co
+             : w;
       if (g.w_vec)
         cp_async16(s_w + q * TN + n, src, ok);
       else
@@ -187,7 +199,7 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
   };
 
-  const int nkb = (g.Ci + kCiB - 1) / kCiB;
+  const int nkb = (g.Ci + kCiB - 1) / kCiB * (ROWS ? g.Hk : 1);
   stage(0, smem, smem + in_floats);
   cp_async_commit();
   for (int kb = 0; kb < nkb; ++kb) {
@@ -196,7 +208,7 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
     if (kb + 1 < nkb) {
       // the other buffer was last read before the previous barrier
       float* nxt = smem + ((kb + 1) & 1) * stage_floats;
-      stage((kb + 1) * kCiB, nxt, nxt + in_floats);
+      stage(kb + 1, nxt, nxt + in_floats);
       cp_async_commit();
       cp_async_wait_one();
     } else {
@@ -204,8 +216,8 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
     __syncthreads();
 
-    // every window served from the one staged tile
-    for (int ky = 0; ky < g.Hk; ++ky) {
+    // every staged window served from the one staged tile
+    for (int ky = 0; ky < krows; ++ky) {
       for (int kx = 0; kx < g.Wk; ++kx) {
         const float* a_base = s_in + (ky * g.dy * g.hx + kx * g.dx) * kCiB;
         const float* b_base = s_w + (ky * g.Wk + kx) * kCiB * TN + tn * 4;
@@ -334,23 +346,32 @@ conv_lb_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <int TN>
+template <int TN, bool ROWS>
 cudaError_t launch(const float* x, const float* w, const float* bias,
                    const float* res, float* out, const Geom& g,
                    int smem_bytes, cudaStream_t stream) {
   static int opted_in = 48 * 1024;
   if (smem_bytes > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        conv_lb_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
+        conv_lb_kernel<TN, ROWS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return err;
     opted_in = smem_bytes;
   }
   const int nbt = (g.B + g.bb - 1) / g.bb;
   const dim3 grid(nbt * g.nty * g.ntx, (g.Co + TN - 1) / TN);
-  conv_lb_kernel<TN><<<grid, kThreads, smem_bytes, stream>>>(
+  conv_lb_kernel<TN, ROWS><<<grid, kThreads, smem_bytes, stream>>>(
       x, w, bias, res, out, g);
   return cudaGetLastError();
+}
+
+template <int TN>
+cudaError_t launch_rows(const float* x, const float* w, const float* bias,
+                        const float* res, float* out, const Geom& g,
+                        bool rows, int smem_bytes, cudaStream_t stream) {
+  return rows ? launch<TN, true>(x, w, bias, res, out, g, smem_bytes, stream)
+              : launch<TN, false>(x, w, bias, res, out, g, smem_bytes,
+                                  stream);
 }
 
 }  // namespace
@@ -360,7 +381,8 @@ extern "C" int conv_lb_forward(
     float* out, int B, int H, int W, int Ci, int Co, int Hk, int Wk,
     int Ho, int Wo, int sy, int sx, int dy, int dx, int ly, int lx,
     int py, int px, int pool, int relu, int bb, int ty, int tx, int tn,
-    int x_vec, int w_vec, int o_vec, int smem_bytes, void* stream) {
+    int krows, int x_vec, int w_vec, int o_vec, int smem_bytes,
+    void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.Ci = Ci; g.Co = Co; g.Hk = Hk; g.Wk = Wk;
   g.Ho = Ho; g.Wo = Wo;
@@ -368,21 +390,23 @@ extern "C" int conv_lb_forward(
   g.py = py; g.px = px;
   g.pool = pool; g.relu = relu;
   g.bb = bb; g.ty = ty; g.tx = tx;
-  g.hy = (ty - 1) * sy + (Hk - 1) * dy + 1;
+  g.hy = (ty - 1) * sy + (krows - 1) * dy + 1;
   g.hx = (tx - 1) * sx + (Wk - 1) * dx + 1;
   g.nty = (Ho + ty - 1) / ty;
   g.ntx = (Wo + tx - 1) / tx;
   g.x_vec = x_vec && Ci % 4 == 0;
   g.w_vec = w_vec && Co % 4 == 0;
   g.o_vec = o_vec && Co % 4 == 0;
-  if (bb * ty * tx > kTileM || ty % pool || tx % pool)
+  if (bb * ty * tx > kTileM || ty % pool || tx % pool ||
+      (krows != Hk && krows != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
+  const bool rows = krows != Hk;
   if (tn == 128)
-    err = launch<128>(x, w, bias, res, out, g, smem_bytes, s);
+    err = launch_rows<128>(x, w, bias, res, out, g, rows, smem_bytes, s);
   else if (tn == 64)
-    err = launch<64>(x, w, bias, res, out, g, smem_bytes, s);
+    err = launch_rows<64>(x, w, bias, res, out, g, rows, smem_bytes, s);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

@@ -138,18 +138,12 @@ def build(source: Path = SOURCE) -> Library:
     return build_many([source])[0]
 
 
-@lru_cache(maxsize=4096)
-def cta_tile(batch: int, ho: int, wo: int, co: int,
-             pool: int) -> tuple[int, int, int, int]:
-    """The kernel's own CTA tile ``(bb, ty, tx, tn)`` for one conv:
-    ``bb`` images x ``ty`` x ``tx`` output pixels (<= 128, pool-aligned)
-    x ``tn`` output channels.  Chosen to need the fewest waves of CTAs
-    over the card's SMs, then the fewest CTAs (each CTA does
-    128 x tn work whatever part of it is real), then the least halo
-    per output pixel (the squarest tile)."""
-    if pool > 16:
-        raise ValueError(f"pool={pool} exceeds the kernel's 16-column "
-                         f"tile")
+def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
+               wk: int, stride: tuple[int, int], dilation: tuple[int, int],
+               krows: int, fit: bool):
+    """The best ``((bb, ty, tx, tn), ctas)`` by :func:`cta_tile`'s
+    ranking, among the tiles whose shared memory fits (``fit``) or
+    among all; ``None`` if none qualifies."""
     best = None
     for tn in (64, 128):
         if tn == 128 and co <= 64:
@@ -159,25 +153,73 @@ def cta_tile(batch: int, ho: int, wo: int, co: int,
             for ty in range(pool, min(TILE_M // tx,
                                       -(-ho // pool) * pool) + 1, pool):
                 bb = max(1, min(batch, TILE_M // (ty * tx)))
+                if fit and cta_smem_bytes(bb, ty, tx, tn, hk, wk, stride,
+                                          dilation, pool,
+                                          krows) > SMEM_PER_BLOCK:
+                    continue
                 ctas = (ceil_div(batch, bb) * ceil_div(ho, ty)
                         * ceil_div(wo, tx) * nco)
                 waves = ceil_div(ctas, SM_COUNT * CTAS_PER_SM)
                 halo = (ty + 2) * (tx + 2) / (ty * tx)
                 key = (waves * tn, ctas * tn, halo, -tn)
                 if best is None or key < best[0]:
-                    best = (key, (bb, ty, tx, tn))
-    return best[1]
+                    best = (key, (bb, ty, tx, tn), ctas)
+    return None if best is None else best[1:]
+
+
+@lru_cache(maxsize=4096)
+def cta_plan(batch: int, ho: int, wo: int, co: int, pool: int,
+             hk: int = 1, wk: int = 1, stride: tuple[int, int] = (1, 1),
+             dilation: tuple[int, int] = (1, 1)
+             ) -> tuple[int, int, int, int, int]:
+    """The kernel's own CTA tile and staging ``(bb, ty, tx, tn, krows)``
+    for one conv: ``bb`` images x ``ty`` x ``tx`` output pixels (<= 128,
+    pool-aligned) x ``tn`` output channels, the weight slice of
+    ``krows`` kernel rows staged per step (``hk``: the whole window;
+    1: one kernel row at a time).  Only tiles whose shared memory
+    (:func:`cta_smem_bytes`) fits in ``SMEM_PER_BLOCK`` are ranked:
+    the fewest waves of CTAs over the card's SMs, then the fewest CTAs
+    (each CTA does 128 x tn work whatever part of it is real), then the
+    least halo per output pixel (the squarest tile).  The whole window
+    is staged if a tile fits so with at least as many CTAs as the card
+    has SMs (or as row staging gets); otherwise one kernel row at a
+    time.  If no tile fits either way, the best tile of the ranking,
+    which the launch then refuses."""
+    if pool > 16:
+        raise ValueError(f"pool={pool} exceeds the kernel's 16-column "
+                         f"tile")
+    geom = (batch, ho, wo, co, pool, hk, wk, tuple(stride),
+            tuple(dilation))
+    whole = _best_tile(*geom, krows=hk, fit=True)
+    rows = _best_tile(*geom, krows=1, fit=True) if hk > 1 else None
+    if whole is not None and (rows is None
+                              or whole[1] >= min(SM_COUNT, rows[1])):
+        return whole[0] + (hk,)
+    if rows is not None:
+        return rows[0] + (1,)
+    return _best_tile(*geom, krows=1, fit=False)[0] + (1,)
+
+
+def cta_tile(batch: int, ho: int, wo: int, co: int, pool: int,
+             hk: int = 1, wk: int = 1, stride: tuple[int, int] = (1, 1),
+             dilation: tuple[int, int] = (1, 1)
+             ) -> tuple[int, int, int, int]:
+    """The kernel's own CTA tile ``(bb, ty, tx, tn)`` for one conv
+    (:func:`cta_plan` without its staging)."""
+    return cta_plan(batch, ho, wo, co, pool, hk, wk, tuple(stride),
+                    tuple(dilation))[:4]
 
 
 def cta_smem_bytes(bb: int, ty: int, tx: int, tn: int, hk: int, wk: int,
                    stride: tuple[int, int], dilation: tuple[int, int],
-                   pool: int) -> int:
+                   pool: int, krows: int | None = None) -> int:
     """Dynamic shared memory of one CTA: two stage buffers of the halo
-    tile and weight slice, or the pre-pool output tile when a pool is
-    fused."""
-    hy = (ty - 1) * stride[0] + (hk - 1) * dilation[0] + 1
+    tile and weight slice of ``krows`` kernel rows (default all ``hk``),
+    or the pre-pool output tile when a pool is fused."""
+    krows = hk if krows is None else krows
+    hy = (ty - 1) * stride[0] + (krows - 1) * dilation[0] + 1
     hx = (tx - 1) * stride[1] + (wk - 1) * dilation[1] + 1
-    staged = 2 * (bb * hy * hx + hk * wk * tn) * CI_BLOCK * 4
+    staged = 2 * (bb * hy * hx + krows * wk * tn) * CI_BLOCK * 4
     return max(staged, TILE_M * tn * 4 if pool > 1 else 0)
 
 
@@ -243,16 +285,17 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if residual is not None:
         _check_cuda_operand("residual", residual, x.device,
                             (b, ho, wo, co))
-    bb, ty, tx, tn = cta_tile(b, ho, wo, co, pool)
+    bb, ty, tx, tn, krows = cta_plan(b, ho, wo, co, pool, hk, wk,
+                                     (sy, sx), (dy, dx))
     smem = cta_smem_bytes(bb, ty, tx, tn, hk, wk, (sy, sx), (dy, dx),
-                          pool)
+                          pool, krows)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"a {hk}x{wk} stride {stride} dilation "
                          f"{dilation} conv needs {smem} B of shared "
                          f"memory per CTA, more than the card's "
                          f"{SMEM_PER_BLOCK} B")
     lib = build()
-    forward = lib.bind("conv_lb_forward", 5, 27)
+    forward = lib.bind("conv_lb_forward", 5, 28)
     out = torch.empty((b, ho // pool, wo // pool, co), dtype=torch.float32,
                       device=x.device)
     with torch.cuda.device(x.device):
@@ -263,7 +306,7 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
             None if residual is None else residual.data_ptr(),
             out.data_ptr(), b, h, wd, ci, co, hk, wk, ho, wo,
             sy, sx, dy, dx, ly, lx, py, px, pool, int(relu),
-            bb, ty, tx, tn, _aligned(x), _aligned(w),
+            bb, ty, tx, tn, krows, _aligned(x), _aligned(w),
             _aligned(out) and (residual is None or _aligned(residual)),
             smem, stream)
     if err != 0:

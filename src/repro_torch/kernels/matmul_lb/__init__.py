@@ -1,2 +1,2 @@
-"""The lower-bound (psum-stationary) matmul: op, CUDA kernel (K3) and
-its plain version."""
+"""The lower-bound (psum-stationary) matmul: op, CUDA kernels (K3: bf16
+on the tensor cores, and FMA) and their plain version."""

@@ -1,9 +1,12 @@
 // Psum-stationary matmul (M, K) @ (K, N) -> (M, N), f32 or bf16 in,
 // f32 sums, the output in the input's type, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `_matmul_kernel` launched by
-// `matmul_lb_call` (src/repro/kernels/matmul_lb/kernel.py:23, :36).
-// It computes the same function; it is not a block-by-block copy.
+// Replaces, with csrc/matmul_lb_sm90.cu, the TPU kernel
+// `_matmul_kernel` launched by `matmul_lb_call`
+// (src/repro/kernels/matmul_lb/kernel.py:23, :36).  It computes the
+// same function; it is not a block-by-block copy.  It runs f32, and the
+// bf16 products whose operands TMA cannot describe (kernel.py `route`);
+// every other bf16 product runs on the tensor cores in the sm90 kernel.
 //
 // What bounds it on this card.  At the shapes the repo's configs give
 // (thousands of rows, columns and reduction steps) the work is

@@ -9,9 +9,11 @@ reference clamps it, and checked by
 ``interpret`` profile; a structural error raises
 :class:`~repro_torch.analysis.plan_check.PlanLegalityError`.  That
 block is what :func:`~repro_torch.core.hopper_adapter.hbm_traffic_model`
-charges; the CUDA kernel tiles for the card on its own
-(:func:`~repro_torch.kernels.matmul_lb.kernel.cta_tile`), and its
-operands are predicated at the ragged edges, never padded.
+charges; the CUDA kernels tile for the card on their own
+(:func:`~repro_torch.kernels.matmul_lb.kernel.sm90_tile`,
+:func:`~repro_torch.kernels.matmul_lb.kernel.cta_tile`), and the
+ragged edges are zero-filled by TMA or predicated, never padded in
+memory.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def matmul_lb(x: torch.Tensor, w: torch.Tensor,
 
     ``target`` is ``kernel`` (the default) or ``account-only``, which
     cannot execute a matmul and raises.  A CUDA ``x`` launches the
-    CUDA kernel or raises; a CPU ``x`` runs the plain version."""
+    CUDA kernel :func:`~repro_torch.kernels.matmul_lb.kernel.route`
+    names or raises; a CPU ``x`` runs the plain version.  ``w`` may be
+    strided (``w.t()`` of a contiguous ``(N, K)`` included)."""
     if target is not None and not resolve_target(target).compute:
         raise ValueError("account-only target cannot execute a matmul")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0]:

@@ -64,27 +64,53 @@ class ImageServer:
     ``params`` is the ``{"convs", "head"}`` dict of the served graph;
     ``graph=None`` reconstructs the VGG graph from the param shapes.
     Every request carries 1..max(buckets) images of the
-    ``(h, w, in_ch)`` geometry.  ``account_budget`` is the on-chip scale
-    the ledger scores distance-to-bound at (default: the paper's
-    1 MiB GBuf).  ``target`` is ``"kernel"`` (the default) or
+    ``(h, w, in_ch)`` geometry.  A custom ``forward`` callable
+    ``(params, images, target) -> logits`` replaces the generic
+    :func:`graph_logits` pipeline (``target`` is the server's resolved
+    :class:`~repro_torch.core.exec_target.ExecTarget`); it needs an
+    explicit ``graph``, which the ledger charges.  ``account_budget``
+    is the on-chip scale the ledger scores distance-to-bound at
+    (default: the paper's 1 MiB GBuf).  ``dtype`` is the served word:
+    the ledger charges ``dtype.itemsize`` bytes a word, as the
+    reference does.  ``target`` is ``"kernel"`` (the default) or
     ``"account-only"``; ``device`` is where a computing server runs —
-    ``cuda`` unless the caller asks for ``cpu``."""
+    ``cuda`` unless the caller asks for ``cpu``.
+
+    K1 and its plain version compute in float32 only, so a computing
+    server of another ``dtype`` with the generic pipeline raises at
+    construction (it would compute in float32 and charge narrower
+    words); an account-only server serves any ``dtype``."""
 
     def __init__(self, params, h: int, w: int, in_ch: int = 3, *,
                  graph: ConvGraph | None = None,
+                 forward=None,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  wait_budget: float = 0.02,
                  account_budget: int = 1 << 20,
+                 dtype: torch.dtype = torch.float32,
                  target: ExecTarget | str = KERNEL,
                  device="cuda",
                  clock=time.monotonic,
                  tracer=None):
         self.params = params
+        if graph is None and forward is not None:
+            raise ValueError("a custom forward= needs an explicit graph= "
+                             "(the ledger charges plan handles walked "
+                             "from the graph, and only bare VGG params "
+                             "can reconstruct one)")
         self.graph = vgg_graph(params) if graph is None else graph
+        self._forward = forward
         self.h, self.w, self.in_ch = int(h), int(w), int(in_ch)
         self.target = resolve_target(target)
+        if (self.target.compute and forward is None
+                and dtype != torch.float32):
+            raise ValueError(
+                f"a computing {dtype} server needs K1's {dtype} path, "
+                f"which the port does not have yet (K1 and its plain "
+                f"version compute in float32); serve {dtype} with "
+                f"target='account-only', or pass a forward=")
         self.device = resolve_device(device)
-        self.dtype = torch.float32      # the kernel's type
+        self.dtype = dtype
         self.account_budget = int(account_budget)
         self._clock = clock
         self.tracer = NULL_TRACER if tracer is None else tracer
@@ -174,10 +200,12 @@ class ImageServer:
             self._counters["pipeline_hits"] += 1
             return self._pipelines[bucket]
         self._counters["traces"] += 1
-        graph, params = self.graph, self.params
+        graph, params, forward = self.graph, self.params, self._forward
 
         def fwd(imgs: torch.Tensor) -> torch.Tensor:
             with torch.no_grad():     # serving records no backward
+                if forward is not None:
+                    return forward(params, imgs, self.target)
                 return graph_logits(graph, params, imgs)
 
         self._pipelines[bucket] = fwd

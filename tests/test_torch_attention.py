@@ -168,3 +168,42 @@ def test_cpu_tensors_launch_nothing_and_account_only_raises():
     with pytest.raises(ValueError, match="group"):
         flash_attention(t[0], torch.zeros((1, 16, 3, 8)),
                         torch.zeros((1, 16, 3, 8)))
+
+
+def test_padded_head_dim_and_its_shared_memory():
+    """A head dim runs at the next instantiated width, up to 256; every
+    width fits the card's shared memory in both types, with one K/V
+    stage only where two do not fit (f32 at 256)."""
+    from repro_torch.core.hopper_adapter import SMEM_PER_BLOCK
+    want = {1: 8, 8: 8, 9: 16, 20: 32, 24: 32, 33: 64, 64: 64, 65: 80,
+            80: 80, 81: 96, 96: 96, 100: 128, 128: 128, 129: 256,
+            200: 256, 256: 256}
+    assert {hd: K4.padded_head_dim(hd) for hd in want} == want
+    with pytest.raises(ValueError, match="head dim 257"):
+        K4.padded_head_dim(257)
+    for width in K4.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            stages = K4.attention_stages(width, dtype)
+            assert stages == (1 if (width, dtype) == (256, torch.float32)
+                              else 2)
+            assert K4.attention_smem_bytes(width, dtype) <= SMEM_PER_BLOCK
+    assert K4.attention_smem_bytes(256, torch.float32, 2) > SMEM_PER_BLOCK
+
+
+# head dims outside the configs': 80 and 96 (phi-2, llama-style 96),
+# 20 (padded, and not 16-byte pitched)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", [
+    (1, 40, 40, 4, 2, 80, 0, True),
+    (1, 33, 33, 2, 1, 96, 16, True),
+    (2, 24, 24, 2, 2, 20, 0, True),
+])
+def test_flash_attention_at_other_head_dims_matches_reference(
+        b, sq, skv, h, kv, hd, win, causal, dtype):
+    arrs = _inputs(b, sq, skv, h, kv, hd, dtype, seed=2)
+    kw = dict(window=win, causal=causal)
+    got = _port(flash_attention, arrs, dtype, bq=32, bk=32, **kw)
+    assert got.shape == (b, sq, h, hd)
+    _close(got, _jax(jax_flash, arrs, dtype, bq=32, bk=32,
+                     target="interpret", **kw), dtype)
+    _close(got, _jax(jax_flash, arrs, dtype, target="lax", **kw), dtype)

@@ -9,6 +9,8 @@ residual join, which the reference runs through
 1e-5 * max |ref| in f32 (the sums run in another order).
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -152,3 +154,115 @@ def test_cta_tile_is_pool_aligned_and_fits(batch, ho, wo, co, pool):
     smem = torch_kernel.cta_smem_bytes(bb, ty, tx, tn, 3, 3, (1, 1),
                                        (1, 1), pool)
     assert smem <= torch_kernel.SMEM_PER_BLOCK
+
+
+def _tile_before(batch, ho, wo, co, pool):
+    """The tile ranking the kernel used before tiles were held to the
+    shared-memory budget (no geometry, every tile a candidate)."""
+    ceil_div = torch_kernel.ceil_div
+    best = None
+    for tn in (64, 128):
+        if tn == 128 and co <= 64:
+            continue
+        nco = ceil_div(co, tn)
+        for tx in range(pool, min(16, -(-wo // pool) * pool) + 1, pool):
+            for ty in range(pool, min(torch_kernel.TILE_M // tx,
+                                      -(-ho // pool) * pool) + 1, pool):
+                bb = max(1, min(batch, torch_kernel.TILE_M // (ty * tx)))
+                ctas = (ceil_div(batch, bb) * ceil_div(ho, ty)
+                        * ceil_div(wo, tx) * nco)
+                waves = ceil_div(ctas, torch_kernel.SM_COUNT
+                                 * torch_kernel.CTAS_PER_SM)
+                halo = (ty + 2) * (tx + 2) / (ty * tx)
+                key = (waves * tn, ctas * tn, halo, -tn)
+                if best is None or key < best[0]:
+                    best = (key, (bb, ty, tx, tn))
+    return best[1]
+
+
+@pytest.mark.parametrize("hk", range(1, 12))
+def test_cta_plan_fits_every_window_stride_and_dilation(hk):
+    """Over wk 1..11 and stride, dilation 1..4, every tile the kernel
+    would launch fits the card's shared memory, or the conv has no
+    output; the whole window is staged wherever a tile fits so."""
+    for (b, h, co), wk, s, d in itertools.product(
+            [(8, 224, 64), (1, 32, 128)], range(1, 12), range(1, 5),
+            range(1, 5)):
+        ho = (h + 2 * (hk // 2) - ((hk - 1) * d + 1)) // s + 1
+        wo = (h + 2 * (wk // 2) - ((wk - 1) * d + 1)) // s + 1
+        if ho < 1 or wo < 1:
+            continue
+        geom = (hk, wk, (s, s), (d, d))
+        bb, ty, tx, tn, krows = torch_kernel.cta_plan(b, ho, wo, co, 1,
+                                                      *geom)
+        assert krows in (hk, 1)
+        assert bb * ty * tx <= torch_kernel.TILE_M and tn in (64, 128)
+        assert torch_kernel.cta_smem_bytes(bb, ty, tx, tn, *geom, 1,
+                                           krows) <= \
+            torch_kernel.SMEM_PER_BLOCK, (b, h, co, geom)
+        assert (bb, ty, tx, tn) == torch_kernel.cta_tile(b, ho, wo, co, 1,
+                                                         *geom)
+
+
+def test_7x7_stride2_gets_a_tile_that_fits():
+    """The conv that raised on the card: the ranking's first choice,
+    (1, 16, 8, 64), needs 250,432 B; the chosen tile fits with the
+    whole window staged and at least one CTA per SM."""
+    geom = (7, 7, (2, 2), (1, 1))
+    assert _tile_before(8, 112, 112, 64, 1) == (1, 16, 8, 64)
+    assert torch_kernel.cta_smem_bytes(1, 16, 8, 64, *geom, 1) == 250432
+    for batch in (1, 8):
+        bb, ty, tx, tn, krows = torch_kernel.cta_plan(batch, 112, 112, 64,
+                                                      1, *geom)
+        assert krows == 7
+        assert torch_kernel.cta_smem_bytes(bb, ty, tx, tn, *geom, 1) <= \
+            torch_kernel.SMEM_PER_BLOCK
+        assert (-(-batch // bb) * -(-112 // ty) * -(-112 // tx)
+                >= torch_kernel.SM_COUNT)
+    # 11x11: the whole window's weights alone exceed the budget
+    assert torch_kernel.cta_plan(2, 55, 55, 64, 1, 11, 11, (4, 4),
+                                 (1, 1))[4] == 1
+
+
+def _model_stages():
+    from repro_torch.models.cnn import init_vgg, resnet_graph, vgg_graph
+    from repro_torch.models.graph import graph_stages
+    vgg = vgg_graph(init_vgg(torch.Generator().manual_seed(0),
+                             device="cpu"))
+    return {"vgg16_224": graph_stages(vgg, 224, 224),
+            "resnet20_32": graph_stages(resnet_graph(), 32, 32)}
+
+
+@pytest.mark.parametrize("model", ["vgg16_224", "resnet20_32"])
+@pytest.mark.parametrize("batch", [1, 2, 4, 8])
+def test_model_layers_keep_their_tiles(model, batch):
+    """VGG16/224's 13 and ResNet-20/32's 21 convs, forward and dgrad,
+    keep the tile they had before the budget, with the whole window
+    staged."""
+    stages = _model_stages()[model]
+    assert len(stages) == {"vgg16_224": 13, "resnet20_32": 21}[model]
+    for st in stages:
+        n = st.node
+        pool = st.pool if st.fused_pool else 1
+        geom = (n.hk, n.wk, (n.stride, n.stride), (1, 1))
+        fwd = torch_kernel.cta_plan(batch, st.ho, st.wo, n.co, pool,
+                                    *geom)
+        assert fwd == _tile_before(batch, st.ho, st.wo, n.co, pool) + (
+            n.hk,), n.name
+        # dgrad: a stride-1 conv onto the input plane, Ci out
+        dgrad = torch_kernel.cta_plan(batch, st.h, st.w, n.ci, 1, n.hk,
+                                      n.wk)
+        assert dgrad == _tile_before(batch, st.h, st.w, n.ci, 1) + (
+            n.hk,), n.name
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,s,p,d", [
+    (2, 23, 3, 8, 7, 2, 3, 1),      # a stem: 7x7 stride 2
+    (1, 20, 4, 6, 7, 1, 2, 2),      # 7x7 at dilation 2
+    (1, 27, 3, 5, 11, 4, 2, 1),     # 11x11 stride 4
+])
+def test_large_windows_match_reference(b, h, ci, co, k, s, p, d):
+    x, wt = _arrays(3, (b, h, h, ci), (k, k, ci, co))
+    out = conv2d_lb(_t(x), _t(wt), stride=s, padding=p, dilation=d)
+    _assert_close(out, jax_conv2d_ref(x, wt, stride=s, padding=p,
+                                      dilation=d))

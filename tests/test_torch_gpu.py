@@ -265,7 +265,7 @@ def test_attention_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, win,
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.randn((2, 16, 24), device=cuda)
+    q = torch.randn((2, 16, 264), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         K4.attention(q, q[:1], q[:1], groups=2)
     q = torch.randn((2, 16, 32), device=cuda, dtype=torch.float16)
@@ -281,3 +281,132 @@ def test_profile_step_sees_the_ports_kernels(cuda):
     assert own["K1 conv_lb"]["launches_per_step"] == 62
     assert own["K2 wgrad_lb"]["launches_per_step"] == 21
     assert 0.0 <= rep["device_idle_share"] < 1.0
+
+
+# b, h, ci, co, k, stride, pad, dilation: windows whose whole weight
+# slice (7x7 at 64 channels: 200,704 B double-buffered) crowds the
+# shared memory, and one (11x11) whose slice alone exceeds it, staged
+# a kernel row at a time
+LARGE_WINDOWS = [
+    (8, 224, 3, 64, 7, 2, 3, 1),
+    (2, 40, 16, 64, 7, 1, 6, 2),
+    (2, 227, 3, 64, 11, 4, 2, 1),
+]
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,s,p,d", LARGE_WINDOWS)
+def test_large_window_kernel_matches_plain(cuda, b, h, ci, co, k, s, p,
+                                           d):
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((b, h, h, ci), generator=g).to(cuda)
+    w = (torch.randn((k, k, ci, co), generator=g) / (k * k * ci) ** 0.5
+         ).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    kw = dict(stride=s, padding=p, dilation=d, relu=True)
+    before = K.conv_lb.launches
+    out = conv2d_lb(x, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert K.conv_lb.launches == before + 1
+    _close(out, conv2d_ref(x, w, bias, **kw))
+
+
+# b, s, h, kv, hd, window: head dims between and above the configs'
+# (80, 96: the next width is their own; 20, 24: padded, and 20 is not
+# 16-byte pitched in either type; 256: one K/V stage in f32)
+PADDED_HEADS = [
+    (1, 150, 4, 2, 80, 0),
+    (1, 130, 4, 1, 96, 32),
+    (1, 100, 2, 1, 256, 0),
+    (2, 70, 4, 2, 24, 0),
+    (1, 90, 2, 2, 20, 16),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,hd,win", PADDED_HEADS)
+def test_attention_kernel_at_any_head_dim(cuda, b, s, h, kv, hd, win,
+                                          dtype):
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (torch.randn(shape, generator=g).to(cuda, dtype)
+               for shape in ((b, s, h, hd), (b, s, kv, hd), (b, s, kv, hd)))
+    before = K4.attention.launches
+    out = flash_attention(q, k, v, window=win, causal=True)
+    torch.cuda.synchronize()
+    assert K4.attention.launches == before + 1
+    assert out.shape == q.shape and out.dtype == dtype
+    want = attention_plain(*map(heads_first, (q, k, v)), groups=h // kv,
+                           window=win, causal=True)
+    _within(out, want.reshape(b, h, s, hd).transpose(1, 2), dtype)
+
+
+def _bf16_operands(m, k, n, layout, seed=8):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((m, k), generator=g).to("cuda", torch.bfloat16)
+    if layout == "k-major":     # w.t() of a contiguous (N, K)
+        w = torch.randn((n, k), generator=g).to("cuda", torch.bfloat16).t()
+    else:
+        w = torch.randn((k, n), generator=g).to("cuda", torch.bfloat16)
+    return x, w
+
+
+# the reference's sweep shapes whose rows TMA can describe, a ragged
+# edge in every dimension, and a long K
+SM90_MATMULS = [(64, 64, 64), (128, 256, 128), (8, 8, 8), (1000, 328, 88),
+                (520, 4104, 392)]
+
+
+@pytest.mark.parametrize("layout", ["n-major", "k-major"])
+@pytest.mark.parametrize("m,k,n", SM90_MATMULS)
+def test_sm90_matmul_matches_plain(cuda, m, k, n, layout):
+    x, w = _bf16_operands(m, k, n, layout)
+    assert K3.route(x, w) == "sm90" and K3.w_layout(w) == layout
+    launches = dict(K3.matmul_lb.launches_by_route)
+    copies = K3.matmul_lb.copies
+    out = matmul_lb(x, w)
+    torch.cuda.synchronize()
+    assert K3.matmul_lb.launches_by_route == dict(
+        launches, sm90=launches["sm90"] + 1)
+    assert K3.matmul_lb.copies == copies
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    _within(out, matmul_ref(x, w), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", ["f32 w.t()", "bf16 x off by 2 bytes",
+                                  "bf16 x strided, odd pitch"])
+def test_matmul_routes_and_copies_what_tma_cannot_take(cuda, case):
+    g = torch.Generator().manual_seed(9)
+    if case == "f32 w.t()":
+        x = torch.randn((100, 72), generator=g).to(cuda)
+        w = torch.randn((40, 72), generator=g).to(cuda).t()
+        dtype, want_copies = torch.float32, 1
+    elif case == "bf16 x off by 2 bytes":
+        buf = torch.randn(1 + 96 * 64, generator=g).to(cuda, torch.bfloat16)
+        x = buf[1:].view(96, 64)
+        w = torch.randn((64, 48), generator=g).to(cuda, torch.bfloat16)
+        dtype, want_copies = torch.bfloat16, 0
+    else:
+        x = torch.randn((96, 65), generator=g).to(cuda, torch.bfloat16)
+        x = x[:, :64]
+        w = torch.randn((64, 48), generator=g).to(cuda, torch.bfloat16)
+        dtype, want_copies = torch.bfloat16, 1
+    assert K3.route(x, w) == "fma"
+    launches = dict(K3.matmul_lb.launches_by_route)
+    copies = K3.matmul_lb.copies
+    out = matmul_lb(x, w)
+    torch.cuda.synchronize()
+    assert K3.matmul_lb.launches_by_route == dict(
+        launches, fma=launches["fma"] + 1)
+    assert K3.matmul_lb.copies == copies + want_copies
+    _within(out, matmul_ref(x, w), dtype)
+
+
+def test_sm90_launch_error_raises(cuda):
+    """A tensor map the driver refuses (a 130-byte row pitch, which the
+    route would never send) raises with its reason and counts no
+    launch."""
+    x = torch.zeros((64, 65), device=cuda, dtype=torch.bfloat16)[:, :64]
+    w = torch.zeros((64, 64), device=cuda, dtype=torch.bfloat16)
+    before = K3.matmul_lb.launches
+    with pytest.raises(RuntimeError, match="matmul_lb_sm90"):
+        K3._sm90(x, w)
+    assert K3.matmul_lb.launches == before

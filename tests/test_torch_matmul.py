@@ -162,3 +162,88 @@ def test_check_matmul_block_equals_the_reference(target):
         assert [(d.rule, d.severity, d.message, d.hint, d.where)
                 for d in got] == [(d.rule, d.severity, d.message, d.hint,
                                    d.where) for d in want], (blk, m, n, k)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def _sm90_pitch(k_or_n):
+    return (2 * k_or_n) % 16 == 0
+
+
+@pytest.mark.parametrize("m,k,n", SWEEP + FULL)
+def test_route_reads_types_strides_and_pointers(m, k, n):
+    """bf16 goes to the sm90 kernel iff TMA can describe both operands:
+    x row-major, w N-major (rows of N) or K-major (rows of K), 16-byte
+    pitches and bases; f32 and mixed types go to the FMA kernel."""
+    x = _bf16(m, k)
+    w_n = _bf16(k, n)                # N-major
+    w_k = _bf16(n, k).t()            # K-major: w.t() of a contiguous (N, K)
+    assert K3.w_layout(w_n) == ("n-major" if _sm90_pitch(n) else None)
+    assert K3.w_layout(w_k) == ("k-major" if _sm90_pitch(k) else None)
+    want_n = "sm90" if _sm90_pitch(k) and _sm90_pitch(n) else "fma"
+    want_k = "sm90" if _sm90_pitch(k) else "fma"
+    assert K3.route(x, w_n) == want_n
+    assert K3.route(x, w_k) == want_k
+    assert K3.route(x.float(), w_n.float()) == "fma"
+    assert K3.route(x.float(), w_k.float()) == "fma"
+    assert K3.route(x, w_n.float()) == "fma"
+    assert K3.route(x.float(), w_n) == "fma"
+
+
+def test_route_of_the_projections_and_off_by_two_bytes():
+    for m, k, n in FULL:
+        x, w = _bf16(m, k), _bf16(k, n)
+        assert K3.route(x, w) == "sm90"
+        assert K3.route(x, _bf16(n, k).t()) == "sm90"
+    buf = _bf16(1 + 64 * 64)
+    off = buf[1:].view(64, 64)       # 2 bytes past an aligned base
+    assert off.data_ptr() % 16 == 2
+    assert K3.route(off, _bf16(64, 64)) == "fma"
+    assert K3.route(_bf16(64, 64), off) == "fma"
+    wide = _bf16(64, 65)[:, :64]     # rows 130 bytes apart
+    assert K3.route(wide, _bf16(64, 64)) == "fma"
+    assert K3.route(_bf16(64, 64), wide) == "fma"
+    pitched = _bf16(64, 72)[:, :64]  # rows 144 bytes apart: TMA takes it
+    assert K3.route(pitched, _bf16(64, 64)) == "sm90"
+    assert K3.route(_bf16(64, 64), _bf16(64, 64).expand(64, 64)) == "sm90"
+    assert K3.route(_bf16(64, 64), _bf16(1, 64).expand(64, 64)) == "fma"
+
+
+@pytest.mark.parametrize("m,k,n", SWEEP + FULL)
+def test_sm90_tile_takes_fewest_waves_then_fewest_ctas(m, k, n):
+    cost = {}
+    for bn in K3.SM90_TILES:
+        ctas = -(-m // K3.TILE_M) * -(-n // bn)
+        cost[bn] = (-(-ctas // ha.SM_COUNT) * bn, ctas * bn, -bn)
+    assert K3.sm90_tile(m, n) == min(cost, key=cost.get)
+    assert K3.sm90_tile(m, n) in K3.SM90_TILES
+
+
+def test_sm90_tile_of_the_projections():
+    # wk (N 1280): 3 waves of 320 CTAs at 128, 2 of 160 at 256
+    assert [K3.sm90_tile(m, n) for m, _, n in FULL] == [256, 128, 256,
+                                                        256]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (300, 200, 150),
+                                   (1000, 333, 77), (8, 8, 8)])
+def test_transposed_w_matches_reference(m, k, n, dtype):
+    """``matmul_lb(x, w.t())`` with ``w`` a contiguous ``(N, K)``: the
+    port on the CPU against the reference's kernel at ``interpret``,
+    its oracle and ``lax``; no copy is counted on the CPU."""
+    x, w = _inputs(m, k, n, dtype, seed=3)
+    w_nk = np.ascontiguousarray(w.T)
+    t = getattr(torch, dtype)
+    copies = K3.matmul_lb.copies
+    got = matmul_lb(torch.from_numpy(x).to(t),
+                    torch.from_numpy(w_nk).to(t).t())
+    assert K3.matmul_lb.copies == copies
+    got = got.to(torch.float32).numpy()
+    assert got.shape == (m, n)
+    _close(got, _jax(jax_matmul_lb, x, w_nk.T, dtype, target="interpret"),
+           dtype)
+    _close(got, _jax(jax_matmul_ref, x, w_nk.T, dtype), dtype)
+    _close(got, _jax(jax_matmul_lb, x, w_nk.T, dtype, target="lax"), dtype)

@@ -11,6 +11,7 @@
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,7 +24,8 @@ from repro.serve import ImageRequest as JaxImageRequest
 from repro.serve import ImageServer as JaxImageServer
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve_images
-from repro_torch.models.cnn import init_vgg, resnet_graph
+from repro_torch.models.cnn import init_vgg, resnet_graph, vgg_graph
+from repro_torch.models.graph import graph_logits
 from repro_torch.serve import AdmissionQueue, ImageRequest, ImageServer
 
 _FIELDS = ("requests", "images", "dispatches", "padded_images",
@@ -169,3 +171,95 @@ def test_launch_cli_computes_resnet_on_cpu(capsys):
                        "8"])
     out = capsys.readouterr().out
     assert "ledger: 3 req" in out and "[resnet20]" in out
+
+
+def test_ledger_accounts_bf16_serving_equals_reference():
+    """The mirror of the reference's ``test_ledger_accounts_bf16_serving``:
+    a bf16 server charges 2-byte words, and every charge and summary
+    field equals the reference's, byte for byte, in both types."""
+    ref_params = jax_init_vgg(jax.random.PRNGKey(0), n_classes=4,
+                              width_mult=0.05)
+    params = init_vgg(torch.Generator().manual_seed(0), n_classes=4,
+                      width_mult=0.05, device="cpu")
+    charges = {}
+    for dtype, jdtype in ((torch.float32, jnp.float32),
+                          (torch.bfloat16, jnp.bfloat16)):
+        t = [0.0]
+        ref_srv = JaxImageServer(ref_params, 8, 8, compute=False,
+                                 dtype=jdtype, clock=lambda: t[0],
+                                 wait_budget=0.0)
+        srv = ImageServer(params, 8, 8, target="account-only",
+                          device="cpu", dtype=dtype, clock=lambda: t[0],
+                          wait_budget=0.0)
+        for s in (ref_srv, srv):
+            s.submit(n_images=4, now=0.0)
+        (ref,) = ref_srv.poll(now=0.0)
+        (res,) = srv.poll(now=0.0)
+        words = sum(p.traffic(4).total for _, p in srv.plan_handles(4))
+        assert res.charge.bytes_total == words * dtype.itemsize
+        assert dataclasses.asdict(res.charge) == dataclasses.asdict(
+            ref.charge)
+        got, want = srv.ledger.summary(), ref_srv.ledger.summary()
+        for f in _FIELDS:
+            assert got[f] == want[f], f
+        charges[dtype] = res.charge
+    assert (charges[torch.bfloat16].bytes_total * 2
+            == charges[torch.float32].bytes_total)
+
+
+def test_bf16_sizes_equal_reference_at_full_width(full_vgg):
+    """VGG16/224 account-only in bf16 over a mixed trace: the ledger
+    equals the reference's field for field."""
+    ref_params, params = full_vgg
+    sizes = (1, 3, 8, 5, 2, 2, 7, 1)
+    t = [0.0]
+    ref_srv = JaxImageServer(ref_params, 224, 224, compute=False,
+                             dtype=jnp.bfloat16, clock=lambda: t[0])
+    srv = ImageServer(params, 224, 224, target="account-only",
+                      device="cpu", dtype=torch.bfloat16,
+                      clock=lambda: t[0])
+    _drive(ref_srv, sizes)
+    _drive(srv, sizes)
+    got, ref = srv.ledger.summary(), ref_srv.ledger.summary()
+    for f in _FIELDS:
+        assert got[f] == ref[f], f
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_computing_bf16_server_raises_at_construction(device):
+    """K1 computes in float32 only: a computing bf16 server would
+    compute in float32 and charge 2-byte words, so it raises, naming
+    what is missing, before any device is touched."""
+    params = init_vgg(torch.Generator().manual_seed(0), n_classes=4,
+                      width_mult=0.05, device="cpu")
+    with pytest.raises(ValueError, match="K1's torch.bfloat16 path"):
+        ImageServer(params, 8, 8, dtype=torch.bfloat16, device=device)
+
+
+def test_custom_forward_serves_and_needs_a_graph():
+    params = init_vgg(torch.Generator().manual_seed(0), n_classes=4,
+                      width_mult=0.05, device="cpu")
+    graph = vgg_graph(params)
+    seen = []
+
+    def forward(p, imgs, target):
+        seen.append((tuple(imgs.shape), target.name))
+        return graph_logits(graph, p, imgs.float())
+
+    with pytest.raises(ValueError, match="explicit graph"):
+        ImageServer(params, 8, 8, forward=forward, device="cpu")
+    t = [0.0]
+    srv = ImageServer(params, 8, 8, graph=graph, forward=forward,
+                      buckets=(1, 2), device="cpu", clock=lambda: t[0])
+    rng = np.random.default_rng(2)
+    imgs = rng.standard_normal((2, 8, 8, 3)).astype(np.float32)
+    (res,) = _drive(srv, (2,), [imgs])
+    assert seen == [((2, 8, 8, 3), "kernel")]
+    want = graph_logits(graph, params, torch.from_numpy(imgs))
+    torch.testing.assert_close(res.logits, want)
+    # a custom forward may serve bf16: the words it is charged are 2 bytes
+    bf = ImageServer(params, 8, 8, graph=graph, forward=forward,
+                     buckets=(1, 2), device="cpu", dtype=torch.bfloat16,
+                     clock=lambda: t[0])
+    (res16,) = _drive(bf, (2,), [imgs])
+    assert res16.charge.bytes_total * 2 == res.charge.bytes_total
