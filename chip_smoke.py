@@ -2,31 +2,38 @@
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
   * ``build``: the conv (K1), wgrad (K2), matmul (K3: FMA and sm90)
-    and attention (K4) kernels from the sources in this checkout, one
-    nvcc each, all started together; ptxas registers, spills and
-    shared memory;
-  * ``check``, ``check_bwd``: K1 (also in its dgrad geometries, and at
-    7x7 and 11x11 windows) and K2 against their plain PyTorch versions;
-    the two backwards the kernels do not take (lhs-dilated, padding
-    past full) against the plain autograd, with the library-rung tally;
+    and attention (K4: FMA and sm90) kernels from the sources in this
+    checkout, one nvcc each, all started together; ptxas registers,
+    spills and shared memory;
+  * ``check``, ``check_bwd``: K1 (f32 and bf16; also in its dgrad
+    geometries, and at 7x7 and 11x11 windows) and K2 (x and dy f32 and
+    bf16) against their plain PyTorch versions; one bf16 backward
+    through K1 and K2 against the plain autograd; the two backwards
+    the kernels do not take (lhs-dilated, padding past full) against
+    the plain autograd, with the library-rung tally;
   * ``check_matmul``, ``check_attention``: K3 and K4 through
     ``matmul_lb`` / ``flash_attention`` at every shape and type of the
     reference's sweeps (K3 also with a K-major ``w`` and at a ragged
-    and a long-K shape, each row with the route it took; K4 also at
-    head dims 80, 96 and 256) and a fully masked row case, against
-    their plain versions (``CARD_TOL``; deliberately wrong results are
+    and a long-K shape, each row with the route it took; K4 on every
+    route that takes each case, also at head dims 20, 80, 96, 256, 320
+    and 512 and two long cases) and a fully masked row case, against
+    their plain versions (``CARD_TOL``; deliberately wrong results, a
+    dropped key tile and a bf16 output accumulator among them, are
     shown to fail the same gate), one launch per call;
-  * ``vgg``, ``resnet``: VGG16/224 (full width) and ResNet-20/32
-    served through ``repro_torch.serve.ImageServer``, every conv on K1;
+  * ``vgg``, ``serve_bf16_vgg``, ``resnet``: VGG16/224 (full width, f32
+    and bf16) and ResNet-20/32 served through
+    ``repro_torch.serve.ImageServer``, every conv on K1;
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
     on K1 (recompute, dgrad) and K2 (wgrad);
   * ``matmul``, ``attention``: the two entry points at full width
     (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
     kernel, and wq also with a K-major ``w``; phi3-medium-14b's and
-    mixtral-8x7b's attention), f32 and bf16, held against the plain
-    versions and timed beside their bounds and a library call;
+    mixtral-8x7b's attention, bf16 on the sm90 kernel), f32 and bf16,
+    held against the plain versions and timed beside their bounds and
+    a library call;
   * ``attention_head_dims``: K4 at head dims 80, 96 and 256, timed;
-  * ``layers``, ``layers_bwd``: each kernel timed per VGG layer.
+  * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
+    and bf16.
 
     python3 chip_smoke.py        # on a host with one NVIDIA H100
 
@@ -102,6 +109,8 @@ SM90_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb_sm90.cu"
 MATMUL_REPLACES = "src/repro/kernels/matmul_lb/kernel.py:23"
 ATTN_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
                "attention_block.cu")
+ATTN_SM90_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
+                    "attention_block_sm90.cu")
 ATTN_REPLACES = "src/repro/kernels/attention_block/kernel.py:22"
 #: K3 and K4 vs their plain versions on the card: (rtol, atol, atol per
 #: rms of the plain output), |out - plain| <= rtol |plain| + atol', where
@@ -158,14 +167,16 @@ def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
     libs = K.build_many([K.SOURCE, W.SOURCE, K3.SOURCE, K3.SM90_SOURCE,
-                         K4.SOURCE])
+                         K4.SOURCE, K4.SM90_SOURCE])
     for lib, source in zip(libs, (SOURCE, WGRAD_SOURCE, MATMUL_SOURCE,
-                                  SM90_SOURCE, ATTN_SOURCE)):
+                                  SM90_SOURCE, ATTN_SOURCE,
+                                  ATTN_SM90_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
               "ptxas": [ln.strip() for ln in lib.log.splitlines()
                         if "registers" in ln or "spill" in ln
-                        or "smem" in ln or "Compiling entry" in ln]})
+                        or "smem" in ln or "Compiling entry" in ln
+                        or "Performance Loss" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
 
 
@@ -211,6 +222,9 @@ CHECKS = [
 
 
 def phase_check() -> None:
+    """K1 at every geometry of :data:`CHECKS` in f32 (``TOL`` of max
+    |plain|) and in bf16 (the bf16 ``CARD_TOL``: both sum the same bf16
+    words in f32 and round once), against the plain version."""
     gen = torch.Generator().manual_seed(SEED)
     for (name, b, (h, w), ci, co, k, s, p, d, ld, g, has_bias,
          has_res, relu, pool) in CHECKS:
@@ -223,23 +237,35 @@ def phase_check() -> None:
         res = _randn(gen, b, ho, wo, co) if has_res else None
         kw = dict(stride=s, padding=p, dilation=d, lhs_dilation=ld,
                   groups=g, relu=relu, pool=pool)
-        out = conv2d_lb(x, wt, bias, res, **kw)
-        ref = conv2d_ref(x, wt, bias, res, **kw)
-        torch.cuda.synchronize()
-        require(out.shape == ref.shape,
-                f"check {name}: shape {tuple(out.shape)} != "
-                f"{tuple(ref.shape)}")
-        err, rel = rel_err(out, ref)
-        emit({"phase": "check", "geometry": name,
-              "shape": list(out.shape), "max_abs_err": err,
-              "max_abs_err_over_max_ref": rel, "tol": TOL,
-              "cta_plan": list(K.cta_plan(b, ho, wo, co // g, pool, k, k,
-                                          (s, s), (d, d)))})
-        require(rel <= TOL, f"check {name}: kernel vs plain {rel} > {TOL}")
+        for dtype in DTYPES:
+            args = [None if t is None else t.to(dtype)
+                    for t in (x, wt, bias, res)]
+            out = conv2d_lb(*args, **kw)
+            ref = conv2d_ref(*args, **kw)
+            torch.cuda.synchronize()
+            require(out.shape == ref.shape and out.dtype == dtype,
+                    f"check {name} {dtype}: {out.dtype} "
+                    f"{tuple(out.shape)} != {tuple(ref.shape)}")
+            err, rel = rel_err(out.float(), ref.float())
+            row = {"phase": "check", "geometry": name, "dtype": str(dtype),
+                   "shape": list(out.shape), "max_abs_err": err,
+                   "max_abs_err_over_max_ref": rel,
+                   "cta_plan": list(K.cta_plan(
+                       b, ho, wo, co // g, pool, k, k, (s, s), (d, d),
+                       out.element_size()))}
+            if dtype == torch.float32:
+                row["tol"] = TOL
+                ok = rel <= TOL
+            else:
+                row.update(within(out, ref, dtype))
+                ok = row["worst_over_tol"] <= 1.0
+            emit(row)
+            require(ok, f"check {name} {dtype}: kernel vs plain {row}")
 
 
-def phase_serve(model: str) -> int:
-    """Serve 16 requests of 1-8 images; returns the kernel launches."""
+def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> int:
+    """Serve 16 requests of 1-8 images in ``dtype`` (bf16: the same
+    weights rounded once); returns the kernel launches."""
     gen = torch.Generator().manual_seed(SEED)
     if model == "vgg":
         params = init_vgg(gen, device="cuda")
@@ -248,13 +274,17 @@ def phase_serve(model: str) -> int:
         graph = resnet_graph()
         params = init_resnet(gen, graph, device="cuda")
         size = 32
+    params = {"convs": [{k: t.to(dtype) for k, t in p.items()}
+                        for p in params["convs"]],
+              "head": params["head"].to(dtype)}
+    phase = model if dtype == torch.float32 else f"serve_bf16_{model}"
     n_convs = len(graph_stages(graph, size, size))
     sizes = np.random.default_rng(SEED).integers(1, 9, size=16)
     images = [torch.randn((int(n), size, size, 3), generator=gen)
               for n in sizes]
     tracer = Tracer()
     srv = ImageServer(params, size, size, graph=graph, device="cuda",
-                      tracer=tracer)
+                      dtype=dtype, tracer=tracer)
     srv.warm()
     K.conv_lb.launches = 0
     results = []
@@ -265,23 +295,27 @@ def phase_serve(model: str) -> int:
     launches = K.conv_lb.launches
     rids = sorted(r.rid for r in results)
     require(rids == list(range(len(images))),
-            f"{model}: rids answered {rids}")
+            f"{phase}: rids answered {rids}")
     dispatches = srv.stats["dispatches"]
     require(launches == n_convs * dispatches,
-            f"{model}: {launches} kernel launches for {dispatches} "
+            f"{phase}: {launches} kernel launches for {dispatches} "
             f"dispatches of {n_convs} convs")
     got = torch.cat([r.logits for r in sorted(results,
                                               key=lambda r: r.rid)])
     with torch.no_grad():
-        plain = graph_logits(graph, params, torch.cat(images).cuda(),
+        plain = graph_logits(graph, params,
+                             torch.cat(images).to("cuda", dtype),
                              conv=conv2d_ref)
     torch.cuda.synchronize()
-    err, rel = rel_err(got, plain)
+    err, rel = rel_err(got.float(), plain.float())
     finite = bool(torch.isfinite(got).all().item())
+    gate = ({"tol": TOL} if dtype == torch.float32
+            else within(got, plain, dtype))
     dispatch_ms = [s.attrs["us"] / 1e3
                    for s in tracer.find("serve.execute")]
     summary = srv.ledger.summary()
-    emit({"phase": model, "requests": len(images),
+    emit({"phase": phase, "dtype": str(dtype), "logits_dtype":
+          str(got.dtype), **gate, "requests": len(images),
           "images": int(sum(sizes)), "dispatches": dispatches,
           "convs_per_dispatch": n_convs, "kernel_launches": launches,
           "every_rid_answered_once": True,
@@ -292,8 +326,13 @@ def phase_serve(model: str) -> int:
               "bytes_per_image", "vs_bound_x", "w_amortization_x",
               "vs_serving_x", "dispatches", "padded_images")}})
     print(srv.ledger.format_summary(), flush=True)
-    require(finite, f"{model}: non-finite logits")
-    require(rel <= TOL, f"{model}: logits vs plain {rel} > {TOL}")
+    require(finite and got.dtype == dtype,
+            f"{phase}: {got.dtype} logits, finite {finite}")
+    if dtype == torch.float32:
+        require(rel <= TOL, f"{phase}: logits vs plain {rel} > {TOL}")
+    else:
+        require(gate["worst_over_tol"] <= 1.0,
+                f"{phase}: logits vs plain {gate}")
     return launches
 
 
@@ -314,6 +353,9 @@ def _time_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
 
 
 def phase_layers(card: str) -> list[dict]:
+    """K1 per VGG16/224 layer at batch 8, f32 and bf16 (the same words
+    rounded once), held against the plain version and timed beside its
+    bound and ``F.conv2d`` (cuDNN, TF32 off) in the same type."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED)
     params = init_vgg(gen, device="cuda")
@@ -322,41 +364,54 @@ def phase_layers(card: str) -> list[dict]:
     rows = []
     for st, p in zip(graph_stages(graph, 224, 224), params["convs"]):
         node = st.node
-        x = _randn(gen, batch, st.h, st.w, node.ci)
-        w, b = p["w"], _randn(gen, node.co, scale=0.1)
+        x32 = _randn(gen, batch, st.h, st.w, node.ci)
+        b32 = _randn(gen, node.co, scale=0.1)
         pool = st.pool if st.fused_pool else 1
         kw = dict(stride=node.stride, padding=node.pad, relu=node.relu,
                   pool=pool)
-        x_nchw = x.permute(0, 3, 1, 2).contiguous(
-            memory_format=torch.channels_last)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        out = conv2d_lb(x, w, b, **kw)
-        ref = conv2d_ref(x, w, b, **kw)
-        err, rel = rel_err(out, ref)
-        require(rel <= TOL, f"layer {node.name}: kernel vs plain {rel}")
-        ms = _time_ms(lambda: conv2d_lb(x, w, b, **kw), flush)
-        plain_ms = _time_ms(lambda: conv2d_ref(x, w, b, **kw), flush)
-        library_ms = _time_ms(lambda: F.conv2d(
-            x_nchw, w_oihw, b, stride=node.stride, padding=node.pad),
-            flush)
-        flops = 2.0 * batch * st.ho * st.wo * node.co * node.ci * 9
-        n_bytes = 4.0 * (x.numel() + w.numel() + b.numel() + out.numel())
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / HBM_BYTES_PER_S
-        row = {"phase": "layers", "model": "vgg16", "layer": node.name,
-               "batch": batch, "in": [st.h, st.w, node.ci],
-               "co": node.co, "pool": pool, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "flops": flops, "bytes": n_bytes,
-               "launches_per_dispatch": 1, "max_abs_err": err,
-               "max_abs_err_over_max_ref": rel,
-               "tile": list(K.cta_tile(batch, st.ho, st.wo, node.co,
-                                       pool)),
-               "card": card}
-        emit(row)
-        rows.append(row)
+        for dtype in DTYPES:
+            x, w, b = (t.to(dtype) for t in (x32, p["w"], b32))
+            x_nchw = x.permute(0, 3, 1, 2).contiguous(
+                memory_format=torch.channels_last)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            out = conv2d_lb(x, w, b, **kw)
+            ref = conv2d_ref(x, w, b, **kw)
+            err, rel = rel_err(out.float(), ref.float())
+            if dtype == torch.float32:
+                gate = {"tol": TOL}
+                require(rel <= TOL, f"layer {node.name}: kernel vs plain "
+                                    f"{rel}")
+            else:
+                gate = within(out, ref, dtype)
+                require(gate["worst_over_tol"] <= 1.0,
+                        f"layer {node.name} {dtype}: {gate}")
+            ms = _time_ms(lambda: conv2d_lb(x, w, b, **kw), flush)
+            plain_ms = _time_ms(lambda: conv2d_ref(x, w, b, **kw), flush)
+            library_ms = _time_ms(lambda: F.conv2d(
+                x_nchw, w_oihw, b, stride=node.stride, padding=node.pad),
+                flush)
+            flops = 2.0 * batch * st.ho * st.wo * node.co * node.ci * 9
+            n_bytes = float(x.element_size() * (x.numel() + w.numel()
+                                                + b.numel() + out.numel()))
+            t_ops = flops / PEAK[dtype]
+            t_bytes = n_bytes / HBM_BYTES_PER_S
+            row = {"phase": "layers", "model": "vgg16", "layer": node.name,
+                   "dtype": str(dtype), "batch": batch,
+                   "in": [st.h, st.w, node.ci], "co": node.co,
+                   "pool": pool, "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms,
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes
+                   else "bytes", "peak_flops": PEAK[dtype],
+                   "flops": flops, "bytes": n_bytes,
+                   "launches_per_dispatch": 1, "max_abs_err": err,
+                   "max_abs_err_over_max_ref": rel, **gate,
+                   "tile": list(K.cta_tile(batch, st.ho, st.wo, node.co,
+                                           pool, elt=x.element_size())),
+                   "card": card}
+            emit(row)
+            rows.append(row)
     return rows
 
 
@@ -432,9 +487,64 @@ def phase_check_bwd() -> float:
                    wgrad_split=list(W.wgrad_split(k * k * ci, co,
                                                   b * ho * wo)),
                    wgrad_tol=WGRAD_TOL)
+        # bf16: K2 widens the same words the plain version widens and
+        # sums in f32 (WGRAD_TOL); K1's dgrad rounds once (bf16 gate)
+        xb, gyb = x.to(torch.bfloat16), gy.to(torch.bfloat16)
+        dwb = W.wgrad_lb(xb, gyb, W.WgradGeometry(
+            hk=k, wk=k, stride=(s, s), padding=(p, p)))
+        _, brel = rel_err(dwb, wgrad_ref(xb, gyb, k, k, stride=s,
+                                         padding=p))
+        require(dwb.dtype == torch.float32 and brel <= WGRAD_TOL,
+                f"check_bwd {name}: bf16 wgrad {dwb.dtype} {brel}")
+        row.update(wgrad_bf16_max_abs_err_over_max_ref=brel)
+        if (name, b, (h, w), ci, co, k, s, p) in BWD_CHECKS:
+            gypb, wfb = gyp.to(torch.bfloat16), wf.to(torch.bfloat16)
+            gate = within(conv2d_lb(gypb, wfb, **kw),
+                          conv2d_ref(gypb, wfb, **kw), torch.bfloat16)
+            require(gate["worst_over_tol"] <= 1.0,
+                    f"check_bwd {name}: bf16 dgrad {gate}")
+            row.update(dgrad_bf16=gate)
         emit(row)
     check_library_bwd(gen)
     return worst
+
+
+def check_bwd_bf16() -> dict:
+    """One bf16 backward through the kernels (``conv2d_lb``'s autograd:
+    K1's recompute and dgrad, K2's wgrad) at a VGG16 conv4 shape with a
+    bias and no ReLU or pool (no discrete choice to flip between the
+    two), held to the plain version's autograd at the bf16 gate: both
+    sum in f32 and round each gradient once to bf16.  Returns the
+    launches of the backward."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    x = _randn(gen, 8, 28, 28, 256).to(torch.bfloat16)
+    w = _randn(gen, 3, 3, 256, 512, scale=(9 * 256) ** -0.5).to(
+        torch.bfloat16)
+    bias = _randn(gen, 512).to(torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    out = conv2d_lb(*leaves, padding=1)
+    gy = _randn(gen, *out.shape).to(torch.bfloat16)
+    K.conv_lb.launches = 0
+    W.wgrad_lb.launches = 0
+    got = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    launches = {"conv_lb": K.conv_lb.launches,
+                "wgrad_lb": W.wgrad_lb.launches}
+    plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    want = torch.autograd.grad(conv2d_ref(*plain, padding=1), plain, gy)
+    rows = {n: within(a, b, torch.bfloat16)
+            for n, a, b in zip(("dx", "dw", "db"), got, want)}
+    emit({"phase": "check_bwd", "geometry": "bf16_conv4_b8",
+          "dtypes": [str(t.dtype) for t in got], "launches": launches,
+          **rows})
+    require(all(t.dtype == torch.bfloat16 for t in got),
+            f"check_bwd bf16: gradient types {[t.dtype for t in got]}")
+    # recompute + dgrad on K1, wgrad on K2
+    require(launches == {"conv_lb": 2, "wgrad_lb": 1},
+            f"check_bwd bf16: launches {launches}")
+    for n, r in rows.items():
+        require(r["worst_over_tol"] <= 1.0, f"check_bwd bf16 {n}: {r}")
+    return launches
 
 
 # name, forward kwargs, the (K1, K2) launches of the backward, the
@@ -633,55 +743,176 @@ ATTN_SWEEP = [
     (1, 33, 65, 2, 1, 8, 16, True),
     (1, 64, 20, 2, 1, 16, 8, True),
 ]
-#: head dims the kernel pads to its next width (80, 96: their own
-#: width; 256: one K/V stage in f32)
+#: head dims the kernels pad to their next width (80, 96: their own
+#: width; 256: one K/V stage in f32, one consumer warpgroup on sm90;
+#: 20: bf16 TMA cannot describe, so fma) and those above 256, which the
+#: FMA kernel runs as 256-column chunks
 ATTN_HEAD_DIMS = [
     (1, 150, 150, 4, 2, 80, 0, True),
     (1, 130, 130, 4, 1, 96, 32, True),
     (1, 100, 100, 2, 1, 256, 0, True),
+    (1, 90, 90, 2, 1, 20, 16, True),
+    (1, 70, 70, 2, 1, 320, 0, True),
+    (1, 130, 100, 4, 2, 512, 16, True),
+]
+#: long enough (32 key tiles a row) that an output accumulator rounded
+#: to bf16 once per key tile shows above the gate
+ATTN_LONG = [
+    (1, 2048, 2048, 4, 2, 128, 0, False),
+    (1, 2048, 2048, 2, 2, 64, 0, False),
 ]
 
 
-def phase_check_attention() -> None:
-    """Every case and type of the reference's attention sweep, and the
-    fully masked rows, through ``flash_attention`` on the card, against
-    the plain version."""
+def tile_ranges(sq: int, skv: int, window: int, causal: bool,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each query row's visited key tiles ``[lo, hi)``: its 64-row query
+    tile's :func:`K4.key_tile_range` (both kernels skip on 64 x 64
+    tiles)."""
+    lo = torch.empty(sq, dtype=torch.long)
+    hi = torch.empty(sq, dtype=torch.long)
+    for q0 in range(0, sq, K4.BQ):
+        lo[q0:q0 + K4.BQ], hi[q0:q0 + K4.BQ] = K4.key_tile_range(
+            q0, min(q0 + K4.BQ, sq), skv, window, causal, K4.BKV)
+    return lo.to(device), hi.to(device)
+
+
+def attention_fault(q, k, v, *, groups: int, window: int, causal: bool,
+                    fault: str) -> torch.Tensor:
+    """What K4 would give with one fault of its kind, on heads-first
+    ``(B*H, S, hd)`` tensors: the kernels' tiled online softmax in f32
+    over the visited key tiles, with ``fault`` ``"drop"`` (every query
+    tile stops one visited key tile early) or ``"round_o"`` (the output
+    sums rounded to bf16 after every key tile)."""
+    bh, sq, hd = q.shape
+    skv = k.shape[1]
+    lo, hi = tile_ranges(sq, skv, window, causal, q.device)
+    if fault == "drop":
+        hi = torch.maximum(lo, hi - 1)
+    qf = q.float()
+    kx = k.float().repeat_interleave(groups, dim=0)
+    vx = v.float().repeat_interleave(groups, dim=0)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    m = torch.full((bh, sq, 1), -float("inf"), device=q.device)
+    l = torch.zeros((bh, sq, 1), device=q.device)
+    o = torch.zeros((bh, sq, hd), device=q.device)
+    for t in range(-(-skv // K4.BKV)):
+        rows = ((lo <= t) & (t < hi))[None, :, None]
+        if not bool(rows.any()):
+            continue
+        k0, k1 = t * K4.BKV, min((t + 1) * K4.BKV, skv)
+        k_pos = torch.arange(k0, k1, device=q.device)[None, :]
+        keep = torch.ones((sq, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            keep &= k_pos <= q_pos
+        if window:
+            keep &= k_pos > q_pos - window
+        sc = torch.bmm(qf, kx[:, k0:k1].transpose(1, 2)) * hd ** -0.5
+        sc = sc.masked_fill(~keep, -1e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l_new = l * alpha + p.sum(dim=-1, keepdim=True)
+        o_new = o * alpha + torch.bmm(p, vx[:, k0:k1])
+        if fault == "round_o":
+            o_new = o_new.to(torch.bfloat16).float()
+        m = torch.where(rows, m_new, m)
+        l = torch.where(rows, l_new, l)
+        o = torch.where(rows, o_new, o)
+    return (o / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _fault(q, k, v, *, window: int, causal: bool, fault: str):
+    """:func:`attention_fault` on (B, S, H, hd) tensors."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    out = attention_fault(*(heads_first(t) for t in (q, k, v)),
+                          groups=h // kv, window=window, causal=causal,
+                          fault=fault)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def attention_routes(q: torch.Tensor, hd: int) -> tuple[str, ...]:
+    """The routes that take inputs of ``q``'s type at head dim ``hd``."""
+    if q.dtype == torch.bfloat16 and K4.sm90_head_dim(hd) is not None:
+        return K4.ROUTES
+    return ("fma",)
+
+
+def _attention_via(q, k, v, *, window: int, causal: bool, via: str):
+    """``flash_attention``'s layout around ``K4.attention(via=...)``."""
+    b, sq, h, hd = q.shape
+    out = K4.attention(*(heads_first(t) for t in (q, k, v)),
+                       groups=h // k.shape[2], window=window, causal=causal,
+                       via=via)
+    return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def phase_check_attention() -> dict:
+    """Every case and type of the reference's attention sweep, the head
+    dims beside it (also above 256), the fully masked rows and two long
+    cases, on every route that takes each (the route :func:`K4.route`
+    picks through ``flash_attention``, the other by ``via``), against
+    the plain version.  Controls: a window off by one, the last visited
+    key tile dropped (every case and route), the output accumulator
+    rounded to bf16 once per key tile (sm90; it must fail on the long
+    cases).  Returns the launches by route."""
     gen = torch.Generator().manual_seed(SEED + 4)
+    by_route = dict.fromkeys(K4.ROUTES, 0)
     for dtype in DTYPES:
-        for b, sq, skv, h, kv, hd, win, causal in (ATTN_SWEEP
-                                                   + ATTN_HEAD_DIMS):
+        for case in ATTN_SWEEP + ATTN_HEAD_DIMS + ATTN_LONG:
+            b, sq, skv, h, kv, hd, win, causal = case
             q = _randn(gen, b, sq, h, hd).to(dtype)
             k = _randn(gen, b, skv, kv, hd).to(dtype)
             v = _randn(gen, b, skv, kv, hd).to(dtype)
-            before = K4.attention.launches
-            out = flash_attention(q, k, v, window=win, causal=causal)
-            torch.cuda.synchronize()
-            launched = K4.attention.launches - before
             plain = plain_attention(q, k, v, window=win, causal=causal)
-            row = within(out, plain, dtype)
-            case = [b, sq, skv, h, kv, hd, win, causal]
-            if win:
-                row["control"] = control(
-                    "window off by one", plain_attention(
-                        q, k, v, window=win + 1, causal=causal),
-                    plain, dtype)
-            if sq > skv + win - 1 and win:
-                # rows with no unmasked key: the mean of V over Skv keys
-                mean_v = v.float().mean(dim=1).repeat_interleave(h // kv,
-                                                                 dim=1)
-                row["masked_rows_vs_mean_v"] = within(
-                    out[:, skv + win - 1:], mean_v[:, None].expand(
-                        b, sq - skv - win + 1, h, hd), dtype)
-                require(row["masked_rows_vs_mean_v"]["worst_over_tol"]
-                        <= 1.0, f"check_attention {case}: masked rows")
-            emit({"phase": "check_attention", "case": case,
-                  "dtype": str(dtype), "launches": launched, **row})
-            require(launched == 1, f"check_attention {case}: {launched} "
-                                   f"launches")
-            require(out.dtype == dtype and out.shape == q.shape,
-                    f"check_attention {case}: {out.dtype} {out.shape}")
-            require(row["worst_over_tol"] <= 1.0,
-                    f"check_attention {case} {dtype}: {row}")
+            kw = dict(window=win, causal=causal)
+            for rt in attention_routes(q, hd):
+                before = dict(K4.attention.launches_by_route)
+                if rt == K4.route(q, k, v):
+                    out = flash_attention(q, k, v, **kw)
+                else:
+                    out = _attention_via(q, k, v, via=rt, **kw)
+                torch.cuda.synchronize()
+                launched = {r: K4.attention.launches_by_route[r] - before[r]
+                            for r in before}
+                by_route[rt] += launched[rt]
+                row = within(out, plain, dtype)
+                if win:
+                    row["control"] = control(
+                        "window off by one", plain_attention(
+                            q, k, v, window=win + 1, causal=causal),
+                        plain, dtype)
+                row["control_drop"] = control(
+                    "last visited key tile dropped",
+                    _fault(q, k, v, fault="drop", **kw), plain, dtype)
+                if rt == "sm90":
+                    wrong = _fault(q, k, v, fault="round_o", **kw)
+                    if case in ATTN_LONG:
+                        row["control_round_o"] = control(
+                            "output sums rounded to bf16 per key tile",
+                            wrong, plain, dtype)
+                    else:   # too few key tiles to show: reported only
+                        row["round_o_worst_over_tol"] = within(
+                            wrong, plain, dtype)["worst_over_tol"]
+                if sq > skv + win - 1 and win:
+                    # rows with no unmasked key: the mean of V over Skv
+                    mean_v = v.float().mean(dim=1).repeat_interleave(
+                        h // kv, dim=1)
+                    row["masked_rows_vs_mean_v"] = within(
+                        out[:, skv + win - 1:], mean_v[:, None].expand(
+                            b, sq - skv - win + 1, h, hd), dtype)
+                    require(row["masked_rows_vs_mean_v"]["worst_over_tol"]
+                            <= 1.0, f"check_attention {case}: masked rows")
+                emit({"phase": "check_attention", "case": list(case),
+                      "dtype": str(dtype), "route": rt,
+                      "launches_by_route": launched, **row})
+                require(launched == dict.fromkeys(K4.ROUTES, 0) | {rt: 1},
+                        f"check_attention {case} {rt}: {launched}")
+                require(out.dtype == dtype and out.shape == q.shape,
+                        f"check_attention {case}: {out.dtype} {out.shape}")
+                require(row["worst_over_tol"] <= 1.0,
+                        f"check_attention {case} {dtype} {rt}: {row}")
+    return by_route
 
 
 #: phi3-medium-14b (src/repro/configs/phi3_medium_14b.py: d_model 5120,
@@ -797,11 +1028,27 @@ def _library_attention(qh, kh, vh, *, window: int, causal: bool):
         qh, kh, vh, attn_mask=mask, enable_gqa=True)
 
 
-def phase_attention(card: str) -> tuple[int, list[dict]]:
-    """``flash_attention`` at full width, f32 and bf16: the main path
-    run (launch count), then each call held against the plain version
-    and the kernel timed alone beside its bound and
-    ``F.scaled_dot_product_attention``."""
+def library_kernels(fn) -> list[str]:
+    """The CUDA kernels one call of ``fn`` runs, by name, from
+    ``torch.profiler`` (which SDPA backend it picked)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")})
+
+
+def phase_attention(card: str) -> tuple[dict, list[dict]]:
+    """``flash_attention`` at full width, f32 (route fma) and bf16
+    (route sm90): the main path run (launches by route), then each call
+    held against the plain version and the kernel timed alone beside
+    its bound, the pairs it visits against the unmasked ones, and
+    ``F.scaled_dot_product_attention`` (whose kernels the profiler
+    names).  Controls: kv head ``h % KV``; on sm90 the output sums
+    rounded to bf16 once per key tile."""
     gen = torch.Generator().manual_seed(SEED + 6)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     cases = [(cfg, b, s, h, kv, hd, win, causal, dtype,
@@ -811,15 +1058,22 @@ def phase_attention(card: str) -> tuple[int, list[dict]]:
              for dtype in DTYPES
              for cfg, b, s, h, kv, hd, win, causal in ATTN_FULL]
     K4.attention.launches = 0
+    K4.attention.launches_by_route = dict.fromkeys(K4.ROUTES, 0)
     outs = [flash_attention(*c[9:], window=c[6], causal=c[7])
             for c in cases]
     torch.cuda.synchronize()
-    launches = K4.attention.launches
-    require(launches == len(cases), f"attention: {launches} launches for "
-                                    f"{len(cases)} calls")
+    launches = {"launches": K4.attention.launches,
+                "by_route": dict(K4.attention.launches_by_route)}
+    require(launches["launches"] == len(cases)
+            and launches["by_route"]["sm90"] == len(ATTN_FULL),
+            f"attention: {launches} for {len(cases)} calls: every bf16 "
+            f"call must take sm90")
     rows = []
     for (cfg, b, s, h, kv, hd, win, causal, dtype, q, k, v), out in zip(
             cases, outs):
+        rt = K4.route(*(heads_first(t) for t in (q, k, v)))
+        require(rt == ("sm90" if dtype == torch.bfloat16 else "fma"),
+                f"attention {cfg} {dtype}: route {rt}")
         plain = plain_attention(q, k, v, window=win, causal=causal)
         chk = within(out, plain, dtype)
         require(chk["worst_over_tol"] <= 1.0 and
@@ -831,17 +1085,24 @@ def phase_attention(card: str) -> tuple[int, list[dict]]:
             "kv head h % KV", plain_attention(
                 q, k.repeat(1, 1, g, 1), v.repeat(1, 1, g, 1),
                 window=win, causal=causal), plain, dtype)
+        if rt == "sm90":
+            chk["control_round_o"] = control(
+                "output sums rounded to bf16 per key tile",
+                _fault(q, k, v, window=win, causal=causal,
+                       fault="round_o"), plain, dtype)
         del plain
         qf, kf, vf = (heads_first(t) for t in (q, k, v))
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = b * h * unmasked_pairs(s, s, win, causal)
+        visited = b * h * K4.visited_pairs(s, s, win, causal)
         flops = 4.0 * hd * pairs
         n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
         t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+        library = _library_attention(qh, kh, vh, window=win, causal=causal)
         row = {"phase": "attention", "config": cfg,
                "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd},
                "window": win, "causal": causal, "dtype": str(dtype),
-               **chk,
+               "route": rt, **chk,
                "ms": _time_ms(lambda: K4.attention(
                    qf, kf, vf, groups=h // kv, window=win,
                    causal=causal), flush),
@@ -849,11 +1110,13 @@ def phase_attention(card: str) -> tuple[int, list[dict]]:
                    q, k, v, window=win, causal=causal), flush),
                "plain_ms": _time_ms(lambda: plain_attention(
                    q, k, v, window=win, causal=causal), flush, reps=3),
-               "library_ms": _time_ms(_library_attention(
-                   qh, kh, vh, window=win, causal=causal), flush),
+               "library_ms": _time_ms(library, flush),
+               "library_kernels": library_kernels(library),
                "bound_ms": max(t_ops, t_bytes) * 1e3,
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                "peak_flops": PEAK[dtype], "unmasked_pairs": pairs,
+               "visited_pairs": visited,
+               "visited_over_unmasked": visited / pairs,
                "flops": flops, "bytes": n_bytes, "card": card}
         emit(row)
         rows.append(row)
@@ -862,16 +1125,16 @@ def phase_attention(card: str) -> tuple[int, list[dict]]:
 
 # name, b, s, h, kv, hd, window, causal: head dims the configs do not
 # use, at 4096 tokens (80 and 96 run at their own width, 256 with one
-# K/V stage in f32)
+# K/V stage in f32 and one consumer warpgroup in bf16)
 ATTN_HEAD_DIM_FULL = [("hd80", 1, 4096, 32, 32, 80, 0, True),
                       ("hd96", 1, 4096, 32, 8, 96, 0, True),
                       ("hd256", 1, 4096, 16, 16, 256, 0, True)]
 
 
 def phase_attention_head_dims(card: str) -> list[dict]:
-    """K4 at head dims 80, 96 and 256, f32 and bf16: each call held
-    against the plain version and timed alone beside its bound and
-    ``F.scaled_dot_product_attention``."""
+    """K4 at head dims 80, 96 and 256, f32 (route fma) and bf16 (route
+    sm90): each call held against the plain version and timed alone
+    beside its bound and ``F.scaled_dot_product_attention``."""
     gen = torch.Generator().manual_seed(SEED + 7)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     rows = []
@@ -891,15 +1154,16 @@ def phase_attention_head_dims(card: str) -> list[dict]:
                     f"attention {name} {dtype}: {launched} launches, {chk}")
             qf, kf, vf = (heads_first(t) for t in (q, k, v))
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            rt = K4.route(qf, kf, vf)
             pairs = b * h * unmasked_pairs(s, s, win, causal)
             flops = 4.0 * hd * pairs
             n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
             t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+            width = (K4.sm90_head_dim(hd) if rt == "sm90"
+                     else K4.padded_head_dim(hd))
             row = {"phase": "attention_head_dims", "case": name,
                    "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd},
-                   "width": K4.padded_head_dim(hd),
-                   "stages": K4.attention_stages(K4.padded_head_dim(hd),
-                                                 dtype),
+                   "route": rt, "width": width,
                    "window": win, "causal": causal, "dtype": str(dtype),
                    "launches": launched, **chk,
                    "ms": _time_ms(lambda: K4.attention(
@@ -1058,7 +1322,9 @@ def phase_train(model: str) -> dict:
 
 
 def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
-    """dgrad (K1) and wgrad (K2) per VGG16/224 layer at batch 8."""
+    """dgrad (K1) and wgrad (K2) per VGG16/224 layer at batch 8, f32
+    and bf16 (the same words rounded once; K2's dW is f32 in both),
+    each timed beside its bound and cuDNN's in the same type."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED + 2)
     params = init_vgg(gen, device="cuda")
@@ -1069,66 +1335,86 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                                     params["convs"])):
         node = st.node
         ci, co = node.ci, node.co
-        x = _randn(gen, batch, st.h, st.w, ci)
-        gy = _randn(gen, batch, st.ho, st.wo, co)
-        w = p["w"]
+        x32 = _randn(gen, batch, st.h, st.w, ci)
+        gy32 = _randn(gen, batch, st.ho, st.wo, co)
         flops = 2.0 * batch * st.ho * st.wo * co * ci * 9
-        t_ops = flops / PEAK_F32_FLOPS
-        cl = torch.channels_last
-        x_nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
-        gy_nchw = gy.permute(0, 3, 1, 2).contiguous(memory_format=cl)
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
-        base = {"model": "vgg16", "layer": node.name, "batch": batch,
-                "in": [st.h, st.w, ci], "co": co, "flops": flops,
-                "card": card}
-        if i > 0:      # conv1_1's dgrad is never needed
-            wf = flip_w(w)
-            kw = dict(stride=(1, 1), padding=(1, 1))
-            out = K.conv_lb(gy, wf, **kw)
-            ref = conv2d_ref(gy, wf, **kw)
-            err, rel = rel_err(out, ref)
-            require(rel <= TOL, f"dgrad {node.name}: kernel vs plain {rel}")
-            n_bytes = 4.0 * (gy.numel() + wf.numel() + out.numel())
+        for dtype in DTYPES:
+            x, gy, w = (t.to(dtype) for t in (x32, gy32, p["w"]))
+            elt = x.element_size()
+            t_ops = flops / PEAK[dtype]
+            cl = torch.channels_last
+            x_nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            gy_nchw = gy.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+            base = {"model": "vgg16", "layer": node.name, "batch": batch,
+                    "dtype": str(dtype), "in": [st.h, st.w, ci], "co": co,
+                    "flops": flops, "peak_flops": PEAK[dtype],
+                    "card": card}
+            if i > 0:      # conv1_1's dgrad is never needed
+                wf = flip_w(w)
+                kw = dict(stride=(1, 1), padding=(1, 1))
+                out = K.conv_lb(gy, wf, **kw)
+                ref = conv2d_ref(gy, wf, **kw)
+                err, rel = rel_err(out.float(), ref.float())
+                if dtype == torch.float32:
+                    gate = {"tol": TOL}
+                    require(rel <= TOL, f"dgrad {node.name}: kernel vs "
+                                        f"plain {rel}")
+                else:
+                    gate = within(out, ref, dtype)
+                    require(gate["worst_over_tol"] <= 1.0,
+                            f"dgrad {node.name} {dtype}: {gate}")
+                    del gate["max_abs_err"]
+                n_bytes = float(elt * (gy.numel() + wf.numel()
+                                       + out.numel()))
+                t_bytes = n_bytes / HBM_BYTES_PER_S
+                row = dict(base, phase="layers_bwd", op="dgrad",
+                           ms=_time_ms(lambda: K.conv_lb(gy, wf, **kw),
+                                       flush),
+                           plain_ms=_time_ms(
+                               lambda: conv2d_ref(gy, wf, **kw), flush),
+                           library_ms=_time_ms(
+                               lambda: torch.nn.grad.conv2d_input(
+                                   x_nchw.shape, w_oihw, gy_nchw,
+                                   padding=1), flush),
+                           bound_ms=max(t_ops, t_bytes) * 1e3,
+                           bound_by="operations" if t_ops >= t_bytes
+                           else "bytes", bytes=n_bytes,
+                           max_abs_err=err, max_abs_err_over_max_ref=rel,
+                           **gate,
+                           tile=list(K.cta_tile(batch, st.h, st.w, ci, 1,
+                                                elt=elt)))
+                emit(row)
+                dgrad_rows.append(row)
+            geom = W.WgradGeometry(hk=3, wk=3, stride=(1, 1),
+                                   padding=(1, 1))
+            dw = W.wgrad_lb(x, gy, geom)
+            dw_ref = wgrad_ref(x, gy, 3, 3, padding=1)
+            err, rel = rel_err(dw, dw_ref)
+            require(rel <= WGRAD_TOL, f"wgrad {node.name} {dtype}: kernel "
+                                      f"vs plain {rel}")
+            # x and dy read in their type, dW written in f32
+            n_bytes = float(elt * (x.numel() + gy.numel())
+                            + 4 * dw.numel())
             t_bytes = n_bytes / HBM_BYTES_PER_S
-            row = dict(base, phase="layers_bwd", op="dgrad",
-                       ms=_time_ms(lambda: K.conv_lb(gy, wf, **kw), flush),
-                       plain_ms=_time_ms(lambda: conv2d_ref(gy, wf, **kw),
-                                         flush),
+            row = dict(base, phase="layers_bwd", op="wgrad",
+                       ms=_time_ms(lambda: W.wgrad_lb(x, gy, geom), flush),
+                       plain_ms=_time_ms(
+                           lambda: wgrad_ref(x, gy, 3, 3, padding=1),
+                           flush),
                        library_ms=_time_ms(
-                           lambda: torch.nn.grad.conv2d_input(
-                               x_nchw.shape, w_oihw, gy_nchw, padding=1),
+                           lambda: torch.nn.grad.conv2d_weight(
+                               x_nchw, w_oihw.shape, gy_nchw, padding=1),
                            flush),
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes
-                       else "bytes", bytes=n_bytes,
-                       max_abs_err=err, max_abs_err_over_max_ref=rel,
-                       tile=list(K.cta_tile(batch, st.h, st.w, ci, 1)))
+                       else "bytes",
+                       bytes=n_bytes, max_abs_err=err,
+                       max_abs_err_over_max_ref=rel, tol=WGRAD_TOL,
+                       split=list(W.wgrad_split(9 * ci, co,
+                                                batch * st.ho * st.wo)))
             emit(row)
-            dgrad_rows.append(row)
-        geom = W.WgradGeometry(hk=3, wk=3, stride=(1, 1), padding=(1, 1))
-        dw = W.wgrad_lb(x, gy, geom)
-        dw_ref = wgrad_ref(x, gy, 3, 3, padding=1)
-        err, rel = rel_err(dw, dw_ref)
-        require(rel <= WGRAD_TOL, f"wgrad {node.name}: kernel vs plain "
-                                  f"{rel}")
-        n_bytes = 4.0 * (x.numel() + gy.numel() + dw.numel())
-        t_bytes = n_bytes / HBM_BYTES_PER_S
-        row = dict(base, phase="layers_bwd", op="wgrad",
-                   ms=_time_ms(lambda: W.wgrad_lb(x, gy, geom), flush),
-                   plain_ms=_time_ms(
-                       lambda: wgrad_ref(x, gy, 3, 3, padding=1), flush),
-                   library_ms=_time_ms(
-                       lambda: torch.nn.grad.conv2d_weight(
-                           x_nchw, w_oihw.shape, gy_nchw, padding=1),
-                       flush),
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   bytes=n_bytes, max_abs_err=err,
-                   max_abs_err_over_max_ref=rel,
-                   split=list(W.wgrad_split(9 * ci, co,
-                                            batch * st.ho * st.wo)))
-        emit(row)
-        wgrad_rows.append(row)
+            wgrad_rows.append(row)
     return dgrad_rows, wgrad_rows
 
 
@@ -1149,6 +1435,10 @@ def _by_dtype(rows: list[dict]) -> dict:
             for d in DTYPES}
 
 
+def _of(rows: list[dict], dtype: torch.dtype) -> list[dict]:
+    return [r for r in rows if r["dtype"] == str(dtype)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1160,9 +1450,11 @@ def main() -> int:
     phase_build()
     phase_check()
     phase_check_bwd()
+    bwd_bf16 = check_bwd_bf16()
     phase_check_matmul()
-    phase_check_attention()
+    check_attn_by_route = phase_check_attention()
     vgg_launches = phase_serve("vgg")
+    vgg_bf16_launches = phase_serve("vgg", torch.bfloat16)
     resnet_launches = phase_serve("resnet")
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
@@ -1174,27 +1466,37 @@ def main() -> int:
     phase_attention_head_dims(card)
     rows = phase_layers(card)
     dgrad_rows, wgrad_rows = phase_layers_bwd(card)
-    dgrad = _sums(dgrad_rows)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    dgrad = {str(d): {k: v for k, v in _sums(_of(dgrad_rows, d)).items()
+                      if k in keys} for d in DTYPES}
+    attn_sums = {rt: _sums([r for r in attn_rows if r["route"] == rt])
+                 for rt in K4.ROUTES}
+    vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
     kernels = [
-        dict(_sums(rows), name="conv_lb", route="cuda", source=SOURCE,
-             replaces=REPLACES, launches=vgg_launches,
+        dict(_sums(_of(rows, torch.float32)), name="conv_lb", route="cuda",
+             source=SOURCE, replaces=REPLACES, launches=vgg_launches,
              launches_resnet=resnet_launches,
+             launches_serve_bf16=vgg_bf16_launches,
+             launches_bwd_bf16=bwd_bf16["conv_lb"],
              launches_train_vgg=train_vgg["conv_lb"],
              launches_train_resnet=train_resnet["conv_lb"],
-             dgrad={k: dgrad[k] for k in ("ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms")},
-             times_are="sums over the 13 VGG16/224 convs at batch 8 "
-                       "(dgrad: the 12 whose dgrad a step runs)",
+             by_dtype=_by_dtype(rows), dgrad=dgrad,
+             times_are=f"f32 {vgg_times} (by_dtype: f32 and bf16; "
+                       f"dgrad: the 12 whose dgrad a step runs)",
              card=card),
-        dict(_sums(wgrad_rows), name="wgrad_lb", route="cuda",
-             source=WGRAD_SOURCE, replaces=WGRAD_REPLACES,
+        dict(_sums(_of(wgrad_rows, torch.float32)), name="wgrad_lb",
+             route="cuda", source=WGRAD_SOURCE, replaces=WGRAD_REPLACES,
              launches=train_vgg["wgrad_lb"],
              launches_train_resnet=train_resnet["wgrad_lb"],
+             launches_bwd_bf16=bwd_bf16["wgrad_lb"],
              reduce_launches=train_vgg["wgrad_reduce"],
-             times_are="sums over the 13 VGG16/224 convs at batch 8",
+             by_dtype=_by_dtype(wgrad_rows),
+             times_are=f"f32 {vgg_times} (by_dtype: x and dy f32 and "
+                       f"bf16, dW f32)",
              card=card),
         dict(_sums(matmul_rows), name="matmul_lb", route="cuda",
-             source=MATMUL_SOURCE, replaces=MATMUL_REPLACES,
+             kernel_route="fma", source=MATMUL_SOURCE,
+             replaces=MATMUL_REPLACES,
              launches=matmul_launches["launches"],
              by_route=matmul_launches["by_route"],
              copies=matmul_launches["copies"],
@@ -1204,7 +1506,8 @@ def main() -> int:
                        "bf16 (sm90 kernel); launches of both kernels",
              card=card),
         dict(_sums(sm90_rows), name="matmul_lb_sm90", route="cuda",
-             source=SM90_SOURCE, replaces=MATMUL_REPLACES,
+             kernel_route="sm90", source=SM90_SOURCE,
+             replaces=MATMUL_REPLACES,
              launches=matmul_launches["by_route"]["sm90"],
              k_major_wq_ms=[r["ms"] for r in matmul_all
                             if r["layout"] == "k-major"][0],
@@ -1212,12 +1515,23 @@ def main() -> int:
                        "FFN down at 4096 tokens, bf16, w N-major "
                        "(launches: also wq with w K-major)",
              card=card),
-        dict(_sums(attn_rows), name="attention", route="cuda",
-             source=ATTN_SOURCE, replaces=ATTN_REPLACES,
-             launches=attn_launches, by_dtype=_by_dtype(attn_rows),
+        dict(attn_sums["fma"], name="attention", route="cuda",
+             kernel_route="fma", source=ATTN_SOURCE,
+             replaces=ATTN_REPLACES,
+             launches=attn_launches["by_route"]["fma"],
+             launches_check_attention=check_attn_by_route["fma"],
              times_are="sums over phi3-medium-14b's (S 4096, causal) and "
                        "mixtral-8x7b's (S 8192, causal, window 4096) "
-                       "attention, f32 and bf16",
+                       "attention, f32",
+             card=card),
+        dict(attn_sums["sm90"], name="attention_sm90", route="cuda",
+             kernel_route="sm90", source=ATTN_SM90_SOURCE,
+             replaces=ATTN_REPLACES,
+             launches=attn_launches["by_route"]["sm90"],
+             launches_check_attention=check_attn_by_route["sm90"],
+             times_are="sums over phi3-medium-14b's (S 4096, causal) and "
+                       "mixtral-8x7b's (S 8192, causal, window 4096) "
+                       "attention, bf16",
              card=card)]
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)

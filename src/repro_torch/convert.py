@@ -18,14 +18,24 @@ import torch
 from repro_torch.core.exec_target import resolve_device
 
 
+def _tensor(a) -> torch.Tensor:
+    """One numpy leaf as a tensor of its own type; a bfloat16 leaf
+    (numpy's extension type, which ``torch.from_numpy`` does not take)
+    through its 16-bit pattern."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_numpy(tree: dict, device="cuda") -> dict:
     """``{"convs": [{"w": ndarray, "b": ndarray?}], "head": ndarray}``
-    -> the same dict of f32 tensors on ``device``."""
+    -> the same dict of tensors on ``device``, each of its leaf's type
+    (float32 or bfloat16, as the reference's params are)."""
     dev = resolve_device(device)
 
     def t(a) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, copy=True)).to(
-            device=dev, dtype=torch.float32)
+        return _tensor(a).to(device=dev)
 
     return {"convs": [{k: t(v) for k, v in conv.items()}
                       for conv in tree["convs"]],
@@ -34,10 +44,14 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
 
 def params_to_numpy(tree: dict) -> dict:
     """The port's ``{"convs": [{"w", "b"?}], "head"}`` tensors -> the
-    same dict of numpy arrays (detached, on the host)."""
+    same dict of numpy arrays (detached, on the host); a bfloat16 leaf
+    comes back widened, exactly, to float32."""
 
     def a(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
 
     return {"convs": [{k: a(v) for k, v in conv.items()}
                       for conv in tree["convs"]],

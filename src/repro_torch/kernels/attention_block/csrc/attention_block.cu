@@ -43,8 +43,21 @@
 //    this.  The softmax scale is 1/sqrt(hd).  Where
 //    two stages of K and V do not fit in shared memory (f32 at 256),
 //    the kernel stages one.
-//  * Plain FMA, no tensor cores or TMA yet, and every key tile is
-//    visited, also one that the masks hide wholly from a query tile.
+//  * Masks cost little: a query tile visits only the key tiles that
+//    hold an unmasked pair (key_tile_range, mirrored in kernel.py: up
+//    to the diagonal under causal, from the first tile that reaches
+//    q - window + 1 under a window), and masks are applied only on the
+//    boundary tiles.  A tile that holds a row with no unmasked key
+//    (Sq > Skv + window - 1) visits every key.  The longest query tiles
+//    launch first (query tile rank slowest, heads fastest).
+//  * Head dims above 256 run as ceil(hd / 256) column chunks, a grid
+//    dimension of their own (attention_wide_kernel): each CTA computes
+//    the full scores over the whole hd, staging Q and K 256 columns at
+//    a time, and accumulates only its own 256 output columns of P V.
+//    m and l are the same in every chunk, because the scores are; Q K^T
+//    is recomputed once per chunk, at widths no repo config uses.
+//  * Plain FMA, no tensor cores or TMA: bf16 at the head dims TMA
+//    describes runs on csrc/attention_block_sm90.cu instead.
 //
 // Masks use absolute positions from 0 on both sides: causal keeps
 // k <= q, a window keeps k > q - window (also without causal).  A
@@ -65,14 +78,43 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;     // query rows per CTA
 constexpr int kBKV = 64;    // keys per staged tile
+constexpr int kWide = 256;  // the widest instance; column chunk above it
 constexpr float kNegInf = -1e30f;
 
 struct Geom {
   int BH, Sq, Skv, groups, window, causal;
   int hd;    // the real head dim: the rows' pitch and stored columns
   int vec;   // rows are 16-byte pitched: stage by 16-byte copies
+  int nqt;   // query tiles per head
+  int chunks;  // 256-column chunks of hd (attention_wide_kernel)
   float scale;
 };
+
+// the key tiles [lo, hi) that query rows [q0, q1) visit: every tile
+// that holds an unmasked pair, or every tile if a row has no unmasked
+// key; mirrors key_tile_range in kernel.py
+__device__ __forceinline__ void key_tile_range(int q0, int q1, int Skv,
+                                               int window, int causal,
+                                               int bkv, int* lo, int* hi) {
+  const int nkv = (Skv + bkv - 1) / bkv;
+  *lo = 0;
+  *hi = nkv;
+  if (window > 0 &&
+      static_cast<long long>(q1) - 1 >= static_cast<long long>(Skv) +
+                                             window - 1)
+    return;
+  if (causal) *hi = min(nkv, (q1 - 1) / bkv + 1);
+  if (window > 0) *lo = max(0, q0 - window + 1) / bkv;
+}
+
+// whether key tile [k0, k0 + kBKV) needs masks for rows [q0, q1): a
+// key past the diagonal, one too old for the window, or past Skv
+__device__ __forceinline__ bool edge_tile(int k0, int q0, int q1,
+                                          const Geom& g) {
+  return k0 + kBKV > g.Skv || (g.causal && k0 + kBKV - 1 > q0) ||
+         (g.window > 0 && static_cast<long long>(k0) <=
+                              static_cast<long long>(q1) - 1 - g.window);
+}
 
 constexpr int kSmemPerBlock = 232448;
 
@@ -178,17 +220,165 @@ struct Cols {
   __device__ static bool active(int tk) { return tk * kPer < HD; }
 };
 
+// stage rows [r0, r0 + 64) and columns [c0, c0 + HD) of a (rows, hd)
+// head into a padded tile, zeros outside the head (EXACT: hd == HD and
+// c0 == 0, so every column bound is a constant)
+template <typename T, int HD, bool EXACT>
+__device__ __forceinline__ void stage_tile(T* dst, const T* src, int r0,
+                                           int rows, int c0, int hd,
+                                           bool vec, int tid) {
+  constexpr int VE = 16 / sizeof(T);   // words per 16-byte copy
+  constexpr int LD = HD + VE;          // padded row of a staged tile
+  if (vec) {
+    for (int e = tid; e < 64 * (HD / VE); e += kThreads) {
+      const int r = e / (HD / VE);
+      const int d = (e - r * (HD / VE)) * VE;
+      const bool ok = r0 + r < rows && (EXACT || c0 + d < hd);
+      cp_async16(dst + r * LD + d,
+                 ok ? src + static_cast<size_t>(r0 + r) * hd + c0 + d : src,
+                 ok);
+    }
+  } else {
+    for (int e = tid; e < 64 * HD; e += kThreads) {
+      const int r = e / HD;
+      const int d = e - r * HD;
+      dst[r * LD + d] = r0 + r < rows && c0 + d < hd
+                            ? src[static_cast<size_t>(r0 + r) * hd + c0 + d]
+                            : zero<T>();
+    }
+  }
+}
+
+// s += Q K^T over the HD staged columns, 4 rows x 4 keys a thread
+template <typename T, int HD>
+__device__ __forceinline__ void score_tile(float (&s)[4][4], const T* s_q,
+                                           const T* s_k, int tq, int tk) {
+  constexpr int LD = HD + 16 / sizeof(T);
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float qv[4][4], kv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) loadn<4>(s_q + (tq + 16 * i) * LD + d, qv[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) loadn<4>(s_k + (tk + 16 * j) * LD + d, kv[j]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
+  }
+}
+
+// masks (on an edge tile only) and the online softmax of one key tile:
+// P into the shared tile, acc rescaled; a row's 16 lanes are neighbours
+template <int NC>
+__device__ __forceinline__ void softmax_tile(float (&s)[4][4],
+                                             float (&acc)[4][NC],
+                                             float (&m_run)[4],
+                                             float (&l_run)[4], float* s_p,
+                                             int q0, int k0, bool edge,
+                                             int tq, int tk, const Geom& g) {
+  constexpr int LP = kBKV + 4;   // padded row of the P tile
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + tq + 16 * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (edge) {
+        const int kp = k0 + tk + 16 * j;
+        const bool masked =
+            (g.causal && kp > qp) ||
+            (g.window > 0 && static_cast<long long>(kp) <=
+                                 static_cast<long long>(qp) - g.window);
+        s[i][j] = kp >= g.Skv ? -INFINITY
+                  : masked    ? kNegInf
+                              : s[i][j] * g.scale;
+      } else {
+        s[i][j] *= g.scale;
+      }
+      mx = fmaxf(mx, s[i][j]);
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_new = fmaxf(m_run[i], mx);
+    const float alpha = expf(m_run[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float p = expf(s[i][j] - m_new);   // 0 for a key past Skv
+      s_p[(tq + 16 * i) * LP + tk + 16 * j] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l_run[i] = l_run[i] * alpha + sum;
+    m_run[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+  }
+}
+
+// acc += P V over one key tile, for the thread's acc columns
+template <typename T, int HD>
+__device__ __forceinline__ void value_tile(float (&acc)[4][Cols<HD>::kPer],
+                                           const float* s_p, const T* s_v,
+                                           int tq, int tk) {
+  constexpr int LD = HD + 16 / sizeof(T);
+  constexpr int LP = kBKV + 4;
+  constexpr int NC = Cols<HD>::kPer;
+  constexpr int NV = Cols<HD>::kVec;
+#pragma unroll 2
+  for (int kk = 0; kk < kBKV; kk += 4) {
+    float pv[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) loadn<4>(s_p + (tq + 16 * i) * LP + kk, pv[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float vv[NC];
+#pragma unroll
+      for (int c = 0; c < NC; c += NV)
+        loadn<NV>(s_v + (kk + e) * LD + Cols<HD>::col(tk, c), vv + c);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i][e], vv[c], acc[i][c]);
+    }
+  }
+}
+
+// one store of acc / l: the columns [c0, c0 + HD) of the rows below Sq
+template <typename T, int HD, bool EXACT>
+__device__ __forceinline__ void store_rows(T* out,
+                                           float (&acc)[4][Cols<HD>::kPer],
+                                           const float (&l_run)[4], int bh,
+                                           int q0, int c0, int tq, int tk,
+                                           const Geom& g) {
+  const int hd = EXACT ? HD : g.hd;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + tq + 16 * i;
+    if (qp >= g.Sq) continue;
+    const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
+    T* row = out + (static_cast<size_t>(bh) * g.Sq + qp) * hd + c0;
+#pragma unroll
+    for (int c = 0; c < Cols<HD>::kPer; ++c)
+      if (EXACT || c0 + Cols<HD>::col(tk, c) < hd)
+        store1(row + Cols<HD>::col(tk, c), acc[i][c] * inv);
+  }
+}
+
 // EXACT: hd == HD, so the pitch and every column bound are constants
 template <typename T, int HD, int STAGES, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  const Geom g) {
-  constexpr int VE = 16 / sizeof(T);   // words per 16-byte copy
-  constexpr int LD = HD + VE;          // padded row of a staged tile
-  constexpr int LP = kBKV + 4;         // padded row of the P tile
+  constexpr int LD = HD + 16 / sizeof(T);   // padded row of a staged tile
   constexpr int NC = Cols<HD>::kPer;
-  constexpr int NV = Cols<HD>::kVec;
   extern __shared__ float4 smem4[];
   T* s_q = reinterpret_cast<T*>(smem4);          // [kBQ][LD]
   T* s_kv = s_q + kBQ * LD;              // STAGES x {K, V} [kBKV][LD]
@@ -199,34 +389,16 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tq = tid >> 4;   // rows tq + 16*i
   const int tk = tid & 15;   // keys tk + 16*j; acc columns Cols::col
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  // longest query tiles first: tile rank slowest, heads fastest
+  const int bh = blockIdx.x % g.BH;
+  const int q0 = (g.nqt - 1 - static_cast<int>(blockIdx.x / g.BH)) * kBQ;
+  const int q1 = min(q0 + kBQ, g.Sq);
   const T* qh = q + static_cast<size_t>(bh) * g.Sq * hd;
   const size_t kv_off = static_cast<size_t>(bh / g.groups) * g.Skv * hd;
   const T* kh = k + kv_off;
   const T* vh = v + kv_off;
-
-  // stage rows [r0, r0 + 64) of a (rows, hd) head into a padded tile,
-  // zeros in the columns from hd to HD
   auto stage = [&](T* dst, const T* src, int r0, int rows) {
-    if (vec) {
-      for (int e = tid; e < 64 * (HD / VE); e += kThreads) {
-        const int r = e / (HD / VE);
-        const int d = (e - r * (HD / VE)) * VE;
-        const bool ok = r0 + r < rows && (EXACT || d < hd);
-        cp_async16(dst + r * LD + d,
-                   ok ? src + static_cast<size_t>(r0 + r) * hd + d : src,
-                   ok);
-      }
-    } else {
-      for (int e = tid; e < 64 * HD; e += kThreads) {
-        const int r = e / HD;
-        const int d = e - r * HD;
-        dst[r * LD + d] = r0 + r < rows && d < hd
-                              ? src[static_cast<size_t>(r0 + r) * hd + d]
-                              : zero<T>();
-      }
-    }
+    stage_tile<T, HD, EXACT>(dst, src, r0, rows, 0, hd, vec, tid);
   };
 
   float acc[4][NC];
@@ -239,14 +411,15 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int nkv = (g.Skv + kBKV - 1) / kBKV;
+  int lo, hi;
+  key_tile_range(q0, q1, g.Skv, g.window, g.causal, kBKV, &lo, &hi);
   stage(s_q, qh, q0, g.Sq);
-  stage(s_kv, kh, 0, g.Skv);
-  stage(s_kv + kBKV * LD, vh, 0, g.Skv);
+  stage(s_kv, kh, lo * kBKV, g.Skv);
+  stage(s_kv + kBKV * LD, vh, lo * kBKV, g.Skv);
   cp_async_commit();
-  for (int t = 0; t < nkv; ++t) {
-    const int cur = STAGES == 2 ? t & 1 : 0;
-    if (STAGES == 2 && t + 1 < nkv) {
+  for (int t = lo; t < hi; ++t) {
+    const int cur = STAGES == 2 ? (t - lo) & 1 : 0;
+    if (STAGES == 2 && t + 1 < hi) {
       // the other buffer was last read before the previous barrier
       T* nxt = s_kv + (cur ^ 1) * 2 * kBKV * LD;
       stage(nxt, kh, (t + 1) * kBKV, g.Skv);
@@ -254,7 +427,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       cp_async_commit();
       cp_async_wait_one();
     } else {
-      if (STAGES == 1 && t > 0) {
+      if (STAGES == 1 && t > lo) {
         // one stage: this tile replaces the last, read before the
         // previous barrier
         stage(s_kv, kh, t * kBKV, g.Skv);
@@ -268,99 +441,93 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* s_v = s_k + kBKV * LD;
     const int k0 = t * kBKV;
 
-    // S = Q K^T for 4 rows x 4 keys a thread
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      float qv[4][4], kv[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) loadn<4>(s_q + (tq + 16 * i) * LD + d, qv[i]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) loadn<4>(s_k + (tk + 16 * j) * LD + d, kv[j]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[i][j] = fmaf(qv[i][e], kv[j][e], s[i][j]);
-    }
-
-    // masks and the online softmax; a row's 16 lanes are neighbours
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + tq + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tk + 16 * j;
-        const bool masked = (g.causal && kp > qp) ||
-                            (g.window > 0 && kp <= qp - g.window);
-        s[i][j] = kp >= g.Skv ? -INFINITY
-                  : masked    ? kNegInf
-                              : s[i][j] * g.scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = k0 + tk + 16 * j < g.Skv ? expf(s[i][j] - m_new) : 0.f;
-        s_p[(tq + 16 * i) * LP + tk + 16 * j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_run[i] = l_run[i] * alpha + sum;
-      m_run[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-    }
+    score_tile<T, HD>(s, s_q, s_k, tq, tk);
+    softmax_tile<NC>(s, acc, m_run, l_run, s_p, q0, k0,
+                     edge_tile(k0, q0, q1, g), tq, tk, g);
     __syncthreads();
-
-    // acc += P V
-    if (Cols<HD>::active(tk)) {
-#pragma unroll 2
-      for (int kk = 0; kk < kBKV; kk += 4) {
-        float pv[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) loadn<4>(s_p + (tq + 16 * i) * LP + kk, pv[i]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float vv[NC];
-#pragma unroll
-          for (int c = 0; c < NC; c += NV)
-            loadn<NV>(s_v + (kk + e) * LD + Cols<HD>::col(tk, c), vv + c);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i][e], vv[c], acc[i][c]);
-        }
-      }
-    }
+    if (Cols<HD>::active(tk)) value_tile<T, HD>(acc, s_p, s_v, tq, tk);
     __syncthreads();
   }
 
   if (!Cols<HD>::active(tk)) return;
+  store_rows<T, HD, EXACT>(out, acc, l_run, bh, q0, 0, tq, tk, g);
+}
+
+// a head dim above kWide: blockIdx.y picks this CTA's kWide output
+// columns; the scores run over every kWide-column chunk of Q and K,
+// staged one chunk at a time (one stage)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      const Geom g) {
+  constexpr int HD = kWide;
+  constexpr int LD = HD + 16 / sizeof(T);
+  constexpr int NC = Cols<HD>::kPer;
+  extern __shared__ float4 smem4[];
+  T* s_q = reinterpret_cast<T*>(smem4);   // [kBQ][LD], one chunk
+  T* s_k = s_q + kBQ * LD;                // [kBKV][LD], one chunk
+  T* s_v = s_k + kBKV * LD;               // [kBKV][LD], own columns
+  float* s_p = reinterpret_cast<float*>(s_v + kBKV * LD);
+
+  const int tid = threadIdx.x;
+  const int tq = tid >> 4;
+  const int tk = tid & 15;
+  const int bh = blockIdx.x % g.BH;
+  const int q0 = (g.nqt - 1 - static_cast<int>(blockIdx.x / g.BH)) * kBQ;
+  const int q1 = min(q0 + kBQ, g.Sq);
+  const int c0 = blockIdx.y * HD;   // this CTA's output columns
+  const T* qh = q + static_cast<size_t>(bh) * g.Sq * g.hd;
+  const size_t kv_off = static_cast<size_t>(bh / g.groups) * g.Skv * g.hd;
+  const T* kh = k + kv_off;
+  const T* vh = v + kv_off;
+  const bool vec = g.vec;
+
+  float acc[4][NC];
+  float m_run[4], l_run[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + tq + 16 * i;
-    if (qp >= g.Sq) continue;
-    const float inv = 1.f / fmaxf(l_run[i], 1e-30f);
-    T* row = out + (static_cast<size_t>(bh) * g.Sq + qp) * hd;
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (EXACT || Cols<HD>::col(tk, c) < hd)
-        store1(row + Cols<HD>::col(tk, c), acc[i][c] * inv);
+    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
+
+  int lo, hi;
+  key_tile_range(q0, q1, g.Skv, g.window, g.causal, kBKV, &lo, &hi);
+  for (int t = lo; t < hi; ++t) {
+    const int k0 = t * kBKV;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    for (int c = 0; c < g.chunks; ++c) {
+      // both tiles were last read before the previous barrier
+      stage_tile<T, HD, false>(s_q, qh, q0, g.Sq, c * HD, g.hd, vec, tid);
+      stage_tile<T, HD, false>(s_k, kh, k0, g.Skv, c * HD, g.hd, vec, tid);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      score_tile<T, HD>(s, s_q, s_k, tq, tk);
+      __syncthreads();
+    }
+    // this CTA's V columns arrive while the softmax runs
+    stage_tile<T, HD, false>(s_v, vh, k0, g.Skv, c0, g.hd, vec, tid);
+    cp_async_commit();
+    softmax_tile<NC>(s, acc, m_run, l_run, s_p, q0, k0,
+                     edge_tile(k0, q0, q1, g), tq, tk, g);
+    cp_async_wait_all();
+    __syncthreads();
+    value_tile<T, HD>(acc, s_p, s_v, tq, tk);
+    __syncthreads();
+  }
+  store_rows<T, HD, false>(out, acc, l_run, bh, q0, c0, tq, tk, g);
 }
 
 template <typename T, int HD, bool EXACT>
@@ -377,8 +544,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
-  const dim3 grid((g.Sq + kBQ - 1) / kBQ, g.BH);
+  const dim3 grid(static_cast<unsigned>(g.nqt) * g.BH);
   attention_kernel<T, HD, stages, EXACT><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), g);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v,
+                        void* out, const Geom& g, cudaStream_t stream) {
+  // Q and K chunks and own V columns: the one-stage tile of width kWide
+  constexpr int smem = smem_bytes<T, kWide>(1);
+  static_assert(smem <= kSmemPerBlock, "attention tile exceeds shared memory");
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_wide_kernel<T>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in = true;
+  }
+  const dim3 grid(static_cast<unsigned>(g.nqt) * g.BH, g.chunks);
+  attention_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), g);
   return cudaGetLastError();
@@ -391,10 +579,12 @@ cudaError_t launch_width(const void* q, const void* k, const void* v,
                     : launch<T, HD, false>(q, k, v, out, g, s);
 }
 
-// HD: the instantiated width, from the wrapper (>= the real hd)
+// HD: the instantiated width, from the wrapper (>= the real hd, or
+// kWide for a head dim above it)
 template <typename T>
 cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
                       void* out, const Geom& g, cudaStream_t s) {
+  if (g.hd > kWide) return launch_wide<T>(q, k, v, out, g, s);
   switch (HD) {
     case 8: return launch_width<T, 8>(q, k, v, out, g, s);
     case 16: return launch_width<T, 16>(q, k, v, out, g, s);
@@ -411,15 +601,19 @@ cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16.  hd is the real head dim, hd_pad the
-// instantiated width the kernel runs it at.  Every operand's base must
+// instantiated width the kernel runs it at (256 for a head dim above
+// 256, which runs as ceil(hd / 256) column chunks).  Every operand's base must
 // be 16-byte aligned (the wrapper checks it).
 extern "C" int attention_block_forward(const void* q, const void* k,
                                        const void* v, void* out, int BH,
                                        int Sq, int Skv, int hd, int hd_pad,
                                        int groups, int window, int causal,
                                        int dtype, void* stream) {
-  if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || BH > 65535 || hd < 1 ||
-      hd > hd_pad)
+  const int nqt = (Sq + kBQ - 1) / kBQ;
+  const int chunks = (hd + kWide - 1) / kWide;
+  if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || hd < 1 || window < 0 ||
+      (hd > hd_pad && hd_pad != kWide) ||
+      static_cast<long long>(nqt) * BH > 0x7fffffffLL || chunks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   g.BH = BH;
@@ -430,6 +624,8 @@ extern "C" int attention_block_forward(const void* q, const void* k,
   g.causal = causal;
   g.hd = hd;
   g.vec = hd % (dtype == 0 ? 4 : 8) == 0;
+  g.nqt = nqt;
+  g.chunks = chunks;
   // the reference's 1 / hd ** 0.5 of the real hd, rounded once to f32
   g.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,18 +1,31 @@
-"""The attention kernel's wrapper: build, bind and launch the
-hand-written CUDA kernel (``csrc/attention_block.cu``, K4), which
-replaces the TPU kernel ``_attn_kernel`` / ``attention_call`` of
-``repro/kernels/attention_block/kernel.py``.
+"""The attention kernels' wrapper: build, bind and launch the two
+hand-written CUDA kernels of K4, which together replace the TPU kernel
+``_attn_kernel`` / ``attention_call`` of
+``repro/kernels/attention_block/kernel.py``:
 
-The library is built like the conv kernel's
+  * ``csrc/attention_block_sm90.cu`` (route ``"sm90"``): bf16 on the
+    tensor cores, TMA into an mbarrier ring feeding ``wgmma``;
+  * ``csrc/attention_block.cu`` (route ``"fma"``): f32, the bf16 head
+    dims TMA cannot describe and every head dim above 256, on FMA.
+
+The libraries are built like the conv kernel's
 (:func:`repro_torch.kernels.conv_lb.kernel.build`): ``nvcc`` at first
 use, never at import.  :func:`attention` dispatches on where its
-tensors lie and nothing else: a CUDA tensor launches the kernel or
-raises; a CPU tensor runs the plain version
-(:func:`~repro_torch.kernels.attention_block.ref.attention_plain`).
-Each launch adds one to ``attention.launches``.  The kernel runs a head
-dim at the next width it is instantiated for (:func:`padded_head_dim`),
-with zeros in the padded columns and the softmax scale of the real
-head dim.
+tensors lie: a CUDA tensor launches a kernel or raises; a CPU tensor
+runs the plain version
+(:func:`~repro_torch.kernels.attention_block.ref.attention_plain`).  On
+the card :func:`route` picks the kernel from type and head dim before
+launch, never by trying one.  Each launch adds one to
+``attention.launches`` and to its route's entry of
+``attention.launches_by_route``.
+
+Both kernels visit only the key tiles that hold an unmasked pair for a
+query tile (:func:`key_tile_range`, which the CUDA code mirrors).  Each
+runs a head dim at the next width it is instantiated for
+(:func:`padded_head_dim`, :func:`sm90_head_dim`), with zeros in the
+padded columns and the softmax scale of the real head dim; the FMA
+kernel runs a head dim above 256 as ``ceil(hd / 256)`` column chunks
+(:func:`head_dim_chunks`).
 """
 
 from __future__ import annotations
@@ -22,41 +35,119 @@ from pathlib import Path
 import torch
 
 from repro_torch.core.hopper_adapter import SMEM_PER_BLOCK
+from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.attention_block.ref import attention_plain
 from repro_torch.kernels.conv_lb.kernel import _aligned, build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_block.cu"
+SM90_SOURCE = (Path(__file__).resolve().parent / "csrc"
+               / "attention_block_sm90.cu")
 
-#: the widths the kernel is instantiated for (must match
-#: csrc/attention_block.cu); a head dim runs at the next one
+#: the widths the FMA kernel is instantiated for (must match
+#: csrc/attention_block.cu); a head dim runs at the next one, and one
+#: above the last as column chunks of it
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128, 256)
-#: the kernel's fixed tiles (must match csrc/attention_block.cu)
+#: the tiles both kernels skip key tiles on (must match both sources):
+#: 64 query rows (an FMA CTA, an sm90 consumer warpgroup) x 64 keys
 BQ = BKV = 64
-#: input types the kernel takes, by the code its C interface uses
+#: the widths the sm90 kernel is instantiated for (must match
+#: csrc/attention_block_sm90.cu)
+SM90_HEAD_DIMS = (64, 80, 96, 128, 256)
+#: input types the kernels take, by the code the FMA kernel's C
+#: interface uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("sm90", "fma")
+#: the grid's limits: blocks along x, and along y (the column chunks)
+GRID_X, GRID_Y = 2 ** 31 - 1, 65535
 
 
 def padded_head_dim(hd: int) -> int:
-    """The width the kernel runs head dim ``hd`` at: the least
-    instantiated width >= ``hd``; above 256 it raises."""
+    """The width the FMA kernel runs head dim ``hd`` at: the least
+    instantiated width >= ``hd``; above the last (256), 256, in
+    :func:`head_dim_chunks` column chunks."""
     for width in HEAD_DIMS:
         if width >= hd:
             return width
-    raise ValueError(f"head dim {hd} exceeds the attention kernel's "
-                     f"largest width {HEAD_DIMS[-1]}")
+    return HEAD_DIMS[-1]
+
+
+def head_dim_chunks(hd: int) -> int:
+    """The FMA kernel's 256-column chunks of head dim ``hd``: one up to
+    256, ``ceil(hd / 256)`` above."""
+    return ceil_div(hd, HEAD_DIMS[-1])
+
+
+def sm90_head_dim(hd: int) -> int | None:
+    """The width the sm90 kernel runs head dim ``hd`` at, or ``None``
+    where TMA cannot describe its rows (``hd * 2`` not a multiple of 16
+    bytes) or ``hd`` exceeds 256."""
+    if hd % 8:
+        return None
+    for width in SM90_HEAD_DIMS:
+        if width >= hd:
+            return width
+    return None
+
+
+def sm90_cta_rows(width: int) -> int:
+    """Query rows of one sm90 CTA at ``width``: two consumer
+    warpgroups of 64, one above 128 (where O alone takes 128 registers
+    a thread)."""
+    return BQ if width > 128 else 2 * BQ
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"sm90"`` iff q, k and v are bf16 and the head dim has an sm90
+    width (:func:`sm90_head_dim`); else ``"fma"``.  Read from types
+    and shapes only."""
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and sm90_head_dim(q.shape[-1]) is not None):
+        return "sm90"
+    return "fma"
+
+
+def key_tile_range(q0: int, q1: int, skv: int, window: int, causal: bool,
+                   bkv: int) -> tuple[int, int]:
+    """The key tiles ``[lo, hi)`` of ``bkv`` keys that query rows
+    ``[q0, q1)`` visit: every tile that holds an unmasked pair (up to
+    the diagonal under ``causal``, from the tile that holds
+    ``q0 - window + 1`` under a window); every tile if a row has no
+    unmasked key (``q1 - 1 >= skv + window - 1`` with a window), which
+    then takes the mean of V over all ``skv`` keys.  The CUDA kernels
+    mirror it."""
+    nkv = ceil_div(skv, bkv)
+    if window > 0 and q1 - 1 >= skv + window - 1:
+        return 0, nkv
+    hi = min(nkv, (q1 - 1) // bkv + 1) if causal else nkv
+    lo = max(0, q0 - window + 1) // bkv if window > 0 else 0
+    return lo, hi
+
+
+def visited_pairs(sq: int, skv: int, window: int, causal: bool) -> int:
+    """(query, key) pairs both kernels visit per head: each 64-row query
+    tile's real rows against the real keys of the key tiles
+    :func:`key_tile_range` gives it."""
+    pairs = 0
+    for q0 in range(0, sq, BQ):
+        q1 = min(q0 + BQ, sq)
+        lo, hi = key_tile_range(q0, q1, skv, window, causal, BKV)
+        pairs += (q1 - q0) * max(0, min(hi * BKV, skv) - lo * BKV)
+    return pairs
 
 
 def attention_stages(width: int, dtype: torch.dtype) -> int:
-    """K/V stages the kernel keeps at ``width``: two where they fit in
-    the card's shared memory, else one (f32 at 256)."""
+    """K/V stages the FMA kernel keeps at ``width``: two where they fit
+    in the card's shared memory, else one (f32 at 256)."""
     return 2 if attention_smem_bytes(width, dtype, 2) <= SMEM_PER_BLOCK \
         else 1
 
 
 def attention_smem_bytes(width: int, dtype: torch.dtype,
                          stages: int | None = None) -> int:
-    """Dynamic shared memory of one CTA: Q, ``stages`` stages of K and V
-    (rows padded by 16 bytes) and the f32 P tile."""
+    """Dynamic shared memory of one FMA CTA: Q, ``stages`` stages of K
+    and V (rows padded by 16 bytes) and the f32 P tile.  A head dim
+    above 256 runs the one-stage tile of width 256 (a Q chunk, a K
+    chunk and its own V columns)."""
     if stages is None:
         stages = attention_stages(width, dtype)
     elt = torch.empty((), dtype=dtype).element_size()
@@ -64,14 +155,24 @@ def attention_smem_bytes(width: int, dtype: torch.dtype,
             + BQ * (BKV + 4) * 4)
 
 
+def _launched(lib, err: int, name: str, rt: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.error_string(err)} (error {err})")
+    attention.launches += 1
+    attention.launches_by_route[rt] += 1
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              groups: int, window: int = 0,
-              causal: bool = True) -> torch.Tensor:
+              groups: int, window: int = 0, causal: bool = True,
+              via: str | None = None) -> torch.Tensor:
     """q (B*H, Sq, hd); k, v (B*KV, Skv, hd) with H = KV * ``groups``
     -> (B*H, Sq, hd) in ``q.dtype``.
 
-    A CUDA ``q`` launches the CUDA kernel; a CPU ``q`` runs the plain
-    version.  Any other device raises."""
+    A CUDA ``q`` launches the kernel :func:`route` names, or the one
+    ``via`` names (``"fma"`` takes every input; ``"sm90"`` raises on an
+    input it does not take); a CPU ``q`` runs the plain version.
+    Any other device raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, groups=groups, window=window,
                                causal=causal)
@@ -83,7 +184,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if groups < 1 or bh != k.shape[0] * groups:
         raise ValueError(f"{bh} query heads do not split into groups of "
                          f"{groups} over {k.shape[0]} kv heads")
-    width = padded_head_dim(hd)
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     for name, t, shape in (("k", k, (bh // groups, skv, hd)),
@@ -101,21 +201,45 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if not t.is_contiguous() or not _aligned(t):
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
-    if bh > 65535:
-        raise ValueError(f"{bh} heads exceed the kernel's grid")
-    lib = build(SOURCE)
-    forward = lib.bind("attention_block_forward", 4, 9)
+    if max(sq, skv, hd, window) >= 2 ** 31 or \
+            max(q.numel(), k.numel()) >= 2 ** 62:
+        raise ValueError(f"attention of {bh} heads x {sq} x {skv} keys at "
+                         f"head dim {hd} exceeds the kernel's index range")
+    rt = route(q, k, v) if via is None else via
+    if rt not in ROUTES:
+        raise ValueError(f"unknown attention route {rt!r}; expected one "
+                         f"of {ROUTES}")
+    bq = sm90_cta_rows(sm90_head_dim(hd) or 0) if rt == "sm90" else BQ
+    if ceil_div(sq, bq) * bh > GRID_X:
+        raise ValueError(f"{bh} heads x {ceil_div(sq, bq)} query tiles "
+                         f"exceed the grid's {GRID_X} blocks")
+    if head_dim_chunks(hd) > GRID_Y:
+        raise ValueError(f"head dim {hd} needs {head_dim_chunks(hd)} "
+                         f"column chunks, more than the grid's {GRID_Y}")
     out = torch.empty_like(q)
+    if rt == "sm90":
+        width = sm90_head_dim(hd)
+        if q.dtype != torch.bfloat16 or width is None:
+            raise ValueError(f"route sm90 takes bf16 at a head dim that "
+                             f"is a multiple of 8 up to 256, not {q.dtype} "
+                             f"at {hd}")
+        lib = build(SM90_SOURCE)
+        forward = lib.bind("attention_block_sm90_forward", 4, 8)
+        args = (bh, sq, skv, hd, width, groups, window, int(causal))
+        name = "attention_block_sm90"
+    else:
+        lib = build(SOURCE)
+        forward = lib.bind("attention_block_forward", 4, 9)
+        args = (bh, sq, skv, hd, padded_head_dim(hd), groups, window,
+                int(causal), DTYPES[q.dtype])
+        name = "attention_block"
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), bh, sq, skv, hd, width, groups, window,
-                      int(causal), DTYPES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: "
-                           f"{lib.error_string(err)} (error {err})")
-    attention.launches += 1
+                      out.data_ptr(), *args, stream)
+    _launched(lib, err, name, rt)
     return out
 
 
 attention.launches = 0
+attention.launches_by_route = dict.fromkeys(ROUTES, 0)

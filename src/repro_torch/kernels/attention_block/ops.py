@@ -3,8 +3,9 @@
 
 :func:`flash_attention` takes and returns the reference's
 ``(B, S, H, hd)`` layout and runs the heads-first kernel layout through
-:func:`~repro_torch.kernels.attention_block.kernel.attention`: the
-CUDA kernel (K4) on a CUDA tensor, its plain version on a CPU tensor.
+:func:`~repro_torch.kernels.attention_block.kernel.attention`: on a
+CUDA tensor the CUDA kernel (K4) its ``route`` names (bf16 on the
+tensor cores, the rest on FMA), on a CPU tensor the plain version.
 The semantics are those of the reference's ``lax`` target: a row with
 no unmasked key gets the mean of V over the real keys, whatever the
 block sizes (the reference's Pallas kernel agrees whenever ``Skv`` is a

@@ -39,10 +39,20 @@
 //    of neighbouring rows of dW run side by side (blockIdx.x fastest)
 //    on the same pixels, so those re-reads are served by L2, not HBM.
 //  * Plain FMA on f32, no tensor cores or TMA yet.
+//
+// Types.  x and g are f32 or bf16 (one type); dW is f32, as the
+// reference's wgrad returns it.  bf16 words are widened to f32 as they
+// are staged (plain loads, 8 bytes where 4 channels allow, since
+// cp.async cannot widen), so shared memory, the FMA and the sums are
+// the f32 kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -88,9 +98,36 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-template <int TN>
+// stage 4 consecutive words (vec) or one into f32 shared memory: f32 by
+// cp.async, bf16 by plain loads widened to f32 (zeros where !ok)
+template <typename T>
+__device__ __forceinline__ void stage_words(float* dst, const T* src,
+                                            bool ok, bool vec) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec)
+      cp_async16(dst, src, ok);
+    else
+      cp_async4(dst, src, ok);
+  } else if (vec) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok) {
+      const uint2 a = *reinterpret_cast<const uint2*>(src);
+      const float2 lo =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
+      const float2 hi =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
+      v = make_float4(lo.x, lo.y, hi.x, hi.y);
+    }
+    *reinterpret_cast<float4*>(dst) = v;
+  } else {
+    *dst = ok ? __bfloat162float(*src) : 0.f;
+  }
+}
+
+// T: the type of x and g (float or __nv_bfloat16); dW is f32
+template <typename T, int TN>
 __global__ void __launch_bounds__(kThreads, 2)
-wgrad_lb_kernel(const float* __restrict__ x, const float* __restrict__ gy,
+wgrad_lb_kernel(const T* __restrict__ x, const T* __restrict__ gy,
                 float* __restrict__ out, const Geom g) {
   constexpr int NJ = TN / 16;  // dW columns per thread
   __shared__ __align__(16) float s_a[2][kChunk][kTileM];
@@ -138,24 +175,18 @@ wgrad_lb_kernel(const float* __restrict__ x, const float* __restrict__ gy,
       const int ix = (rem - oy * g.Wo) * g.sx + a_ox;
       const bool ok = a_ok && k < k_end && iy >= 0 && iy < g.H &&
                       ix >= 0 && ix < g.W;
-      const float* src =
+      const T* src =
           ok ? x + ((static_cast<size_t>(b) * g.H + iy) * g.W + ix) *
                        g.Ci + a_ci
              : x;
-      if (g.x_vec)
-        cp_async16(&s_a[buf][r][a_col], src, ok);
-      else
-        cp_async4(&s_a[buf][r][a_col], src, ok);
+      stage_words(&s_a[buf][r][a_col], src, ok, g.x_vec);
     }
     for (int r = b_row0; r < kChunk; r += b_rstep) {
       const int k = kbase + r;
       const bool ok = b_ok && k < k_end;
-      const float* src =
+      const T* src =
           ok ? gy + static_cast<size_t>(k) * g.Co + co0 + b_col : gy;
-      if (g.g_vec)
-        cp_async16(&s_b[buf][r][b_col], src, ok);
-      else
-        cp_async4(&s_b[buf][r][b_col], src, ok);
+      stage_words(&s_b[buf][r][b_col], src, ok, g.g_vec);
     }
   };
 
@@ -243,25 +274,36 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
-template <int TN>
-cudaError_t launch(const float* x, const float* gy, float* dst,
+template <typename T, int TN>
+cudaError_t launch(const void* x, const void* gy, float* dst,
                    const Geom& g, cudaStream_t stream) {
   const dim3 grid((g.M + kTileM - 1) / kTileM, (g.Co + TN - 1) / TN,
                   g.splits);
-  wgrad_lb_kernel<TN><<<grid, kThreads, 0, stream>>>(x, gy, dst, g);
+  wgrad_lb_kernel<T, TN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(gy), dst, g);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_tn(int tn, const void* x, const void* gy, float* dst,
+                      const Geom& g, cudaStream_t stream) {
+  if (tn == 128) return launch<T, 128>(x, gy, dst, g, stream);
+  if (tn == 64) return launch<T, 64>(x, gy, dst, g, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dW (Hk, Wk, Ci, Co) f32 from x (B, H, W, Ci) and g (B, Ho, Wo, Co).
-// With splits > 1 the partial tiles go to `ws` (splits x M x Co words)
-// and a second kernel sums them into `dw`.
+// dW (Hk, Wk, Ci, Co) f32 from x (B, H, W, Ci) and g (B, Ho, Wo, Co),
+// both f32 (dtype 0) or bf16 (dtype 1).  With splits > 1 the partial
+// tiles go to `ws` (splits x M x Co words) and a second kernel sums
+// them into `dw`.
 extern "C" int wgrad_lb_forward(
-    const float* x, const float* gy, float* dw, float* ws, int B, int H,
+    const void* x, const void* gy, float* dw, float* ws, int B, int H,
     int W, int Ci, int Co, int Hk, int Wk, int Ho, int Wo, int sy, int sx,
     int dy, int dx, int py, int px, int tn, int splits,
-    int chunks_per_split, int x_vec, int g_vec, int o_vec, void* stream) {
+    int chunks_per_split, int x_vec, int g_vec, int o_vec, int dtype,
+    void* stream) {
   Geom g;
   g.B = B; g.H = H; g.W = W; g.Ci = Ci; g.Co = Co; g.Hk = Hk; g.Wk = Wk;
   g.Ho = Ho; g.Wo = Wo;
@@ -281,10 +323,10 @@ extern "C" int wgrad_lb_forward(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* dst = splits > 1 ? ws : dw;
   cudaError_t err;
-  if (tn == 128)
-    err = launch<128>(x, gy, dst, g, s);
-  else if (tn == 64)
-    err = launch<64>(x, gy, dst, g, s);
+  if (dtype == 0)
+    err = launch_tn<float>(tn, x, gy, dst, g, s);
+  else if (dtype == 1)
+    err = launch_tn<__nv_bfloat16>(tn, x, gy, dst, g, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);

@@ -48,6 +48,9 @@ CI_BLOCK = 8        # input channels staged per step
 THREADS = 256
 MAX_REGS = 128      # per thread, as __launch_bounds__(256, 2) caps it
 CTAS_PER_SM = REGS_PER_SM // (THREADS * MAX_REGS)
+#: operand types the conv and wgrad kernels take, by the code their C
+#: interfaces use
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 class Library:
@@ -140,7 +143,7 @@ def build(source: Path = SOURCE) -> Library:
 
 def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
                wk: int, stride: tuple[int, int], dilation: tuple[int, int],
-               krows: int, fit: bool):
+               elt: int, krows: int, fit: bool):
     """The best ``((bb, ty, tx, tn), ctas)`` by :func:`cta_tile`'s
     ranking, among the tiles whose shared memory fits (``fit``) or
     among all; ``None`` if none qualifies."""
@@ -154,8 +157,8 @@ def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
                                       -(-ho // pool) * pool) + 1, pool):
                 bb = max(1, min(batch, TILE_M // (ty * tx)))
                 if fit and cta_smem_bytes(bb, ty, tx, tn, hk, wk, stride,
-                                          dilation, pool,
-                                          krows) > SMEM_PER_BLOCK:
+                                          dilation, pool, krows,
+                                          elt) > SMEM_PER_BLOCK:
                     continue
                 ctas = (ceil_div(batch, bb) * ceil_div(ho, ty)
                         * ceil_div(wo, tx) * nco)
@@ -170,14 +173,15 @@ def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
 @lru_cache(maxsize=4096)
 def cta_plan(batch: int, ho: int, wo: int, co: int, pool: int,
              hk: int = 1, wk: int = 1, stride: tuple[int, int] = (1, 1),
-             dilation: tuple[int, int] = (1, 1)
+             dilation: tuple[int, int] = (1, 1), elt: int = 4
              ) -> tuple[int, int, int, int, int]:
     """The kernel's own CTA tile and staging ``(bb, ty, tx, tn, krows)``
-    for one conv: ``bb`` images x ``ty`` x ``tx`` output pixels (<= 128,
-    pool-aligned) x ``tn`` output channels, the weight slice of
-    ``krows`` kernel rows staged per step (``hk``: the whole window;
-    1: one kernel row at a time).  Only tiles whose shared memory
-    (:func:`cta_smem_bytes`) fits in ``SMEM_PER_BLOCK`` are ranked:
+    for one conv of ``elt``-byte words (4 f32, 2 bf16): ``bb`` images x
+    ``ty`` x ``tx`` output pixels (<= 128, pool-aligned) x ``tn`` output
+    channels, the weight slice of ``krows`` kernel rows staged per step
+    (``hk``: the whole window; 1: one kernel row at a time).  Only tiles
+    whose shared memory (:func:`cta_smem_bytes`) fits in
+    ``SMEM_PER_BLOCK`` are ranked:
     the fewest waves of CTAs over the card's SMs, then the fewest CTAs
     (each CTA does 128 x tn work whatever part of it is real), then the
     least halo per output pixel (the squarest tile).  The whole window
@@ -189,7 +193,7 @@ def cta_plan(batch: int, ho: int, wo: int, co: int, pool: int,
         raise ValueError(f"pool={pool} exceeds the kernel's 16-column "
                          f"tile")
     geom = (batch, ho, wo, co, pool, hk, wk, tuple(stride),
-            tuple(dilation))
+            tuple(dilation), elt)
     whole = _best_tile(*geom, krows=hk, fit=True)
     rows = _best_tile(*geom, krows=1, fit=True) if hk > 1 else None
     if whole is not None and (rows is None
@@ -202,34 +206,37 @@ def cta_plan(batch: int, ho: int, wo: int, co: int, pool: int,
 
 def cta_tile(batch: int, ho: int, wo: int, co: int, pool: int,
              hk: int = 1, wk: int = 1, stride: tuple[int, int] = (1, 1),
-             dilation: tuple[int, int] = (1, 1)
+             dilation: tuple[int, int] = (1, 1), elt: int = 4
              ) -> tuple[int, int, int, int]:
     """The kernel's own CTA tile ``(bb, ty, tx, tn)`` for one conv
     (:func:`cta_plan` without its staging)."""
     return cta_plan(batch, ho, wo, co, pool, hk, wk, tuple(stride),
-                    tuple(dilation))[:4]
+                    tuple(dilation), elt)[:4]
 
 
 def cta_smem_bytes(bb: int, ty: int, tx: int, tn: int, hk: int, wk: int,
                    stride: tuple[int, int], dilation: tuple[int, int],
-                   pool: int, krows: int | None = None) -> int:
+                   pool: int, krows: int | None = None,
+                   elt: int = 4) -> int:
     """Dynamic shared memory of one CTA: two stage buffers of the halo
-    tile and weight slice of ``krows`` kernel rows (default all ``hk``),
-    or the pre-pool output tile when a pool is fused."""
+    tile and weight slice of ``krows`` kernel rows (default all ``hk``)
+    in ``elt``-byte words, or the f32 pre-pool output tile when a pool
+    is fused."""
     krows = hk if krows is None else krows
     hy = (ty - 1) * stride[0] + (krows - 1) * dilation[0] + 1
     hx = (tx - 1) * stride[1] + (wk - 1) * dilation[1] + 1
-    staged = 2 * (bb * hy * hx + krows * wk * tn) * CI_BLOCK * 4
+    staged = 2 * (bb * hy * hx + krows * wk * tn) * CI_BLOCK * elt
     return max(staged, TILE_M * tn * 4 if pool > 1 else 0)
 
 
 def _check_cuda_operand(name: str, t: torch.Tensor, device,
-                        shape: tuple) -> None:
+                        shape: tuple, dtype: torch.dtype) -> None:
     if t.device != device:
         raise ValueError(f"{name} lies on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the conv kernel takes float32; {name} is "
-                        f"{t.dtype}")
+    if t.dtype not in DTYPES or t.dtype != dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 operands "
+                        f"of one type; {name} is {t.dtype}"
+                        + ("" if name == "x" else f", x {dtype}"))
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, the conv "
                          f"needs {shape}")
@@ -278,25 +285,26 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if pool > 1 and (ho % pool or wo % pool):
         raise ValueError(f"fused pool={pool} needs a pool-divisible "
                          f"output plane, got {ho}x{wo}")
-    _check_cuda_operand("x", x, x.device, (b, h, wd, ci))
-    _check_cuda_operand("w", w, x.device, (hk, wk, ci, co))
+    _check_cuda_operand("x", x, x.device, (b, h, wd, ci), x.dtype)
+    _check_cuda_operand("w", w, x.device, (hk, wk, ci, co), x.dtype)
     if bias is not None:
-        _check_cuda_operand("bias", bias, x.device, (co,))
+        _check_cuda_operand("bias", bias, x.device, (co,), x.dtype)
     if residual is not None:
         _check_cuda_operand("residual", residual, x.device,
-                            (b, ho, wo, co))
+                            (b, ho, wo, co), x.dtype)
+    elt = x.element_size()
     bb, ty, tx, tn, krows = cta_plan(b, ho, wo, co, pool, hk, wk,
-                                     (sy, sx), (dy, dx))
+                                     (sy, sx), (dy, dx), elt)
     smem = cta_smem_bytes(bb, ty, tx, tn, hk, wk, (sy, sx), (dy, dx),
-                          pool, krows)
+                          pool, krows, elt)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"a {hk}x{wk} stride {stride} dilation "
                          f"{dilation} conv needs {smem} B of shared "
                          f"memory per CTA, more than the card's "
                          f"{SMEM_PER_BLOCK} B")
     lib = build()
-    forward = lib.bind("conv_lb_forward", 5, 28)
-    out = torch.empty((b, ho // pool, wo // pool, co), dtype=torch.float32,
+    forward = lib.bind("conv_lb_forward", 5, 29)
+    out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
                       device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -308,7 +316,7 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
             sy, sx, dy, dx, ly, lx, py, px, pool, int(relu),
             bb, ty, tx, tn, krows, _aligned(x), _aligned(w),
             _aligned(out) and (residual is None or _aligned(residual)),
-            smem, stream)
+            DTYPES[x.dtype], smem, stream)
     if err != 0:
         raise RuntimeError(f"conv_lb kernel launch failed: "
                            f"{lib.error_string(err)} (error {err})")

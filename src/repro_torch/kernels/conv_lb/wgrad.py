@@ -31,7 +31,8 @@ import torch
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,
                                              PEAK_F32_FLOPS, SM_COUNT)
 from repro_torch.core.layer import ceil_div
-from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, _aligned,
+from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, DTYPES,
+                                                _aligned,
                                                 _check_cuda_operand, build)
 from repro_torch.kernels.conv_lb.ref import _pair, wgrad_ref
 
@@ -95,7 +96,8 @@ def wgrad_split(m: int, co: int, k: int) -> tuple[int, int, int]:
 
 def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
     """dW (Hk, Wk, Ci, Co) f32 of one group of the conv x (B, H, W, Ci)
-    -> dy (B, Ho, Wo, Co); ``geom`` a :class:`WgradGeometry` or a
+    -> dy (B, Ho, Wo, Co), x and dy f32 or bf16 (one type, widened to
+    f32 as they are staged); ``geom`` a :class:`WgradGeometry` or a
     :class:`~repro_torch.kernels.conv_lb.ops.WgradPlan`.
 
     A CUDA ``x`` launches the CUDA kernel; a CPU ``x`` runs the plain
@@ -120,15 +122,15 @@ def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
         raise ValueError(f"{g.hk}x{g.wk} conv has no output on a "
                          f"{h}x{wd} plane")
     co = dy.shape[-1]
-    _check_cuda_operand("x", x, x.device, (b, h, wd, ci))
-    _check_cuda_operand("dy", dy, x.device, (b, ho, wo, co))
+    _check_cuda_operand("x", x, x.device, (b, h, wd, ci), x.dtype)
+    _check_cuda_operand("dy", dy, x.device, (b, ho, wo, co), x.dtype)
     m, k = g.hk * g.wk * ci, b * ho * wo
     if max(m, k) >= 2 ** 31:
         raise ValueError(f"wgrad of {m} x {co} over {k} pixels exceeds "
                          f"the kernel's index range")
     tn, splits, cps = wgrad_split(m, co, k)
     lib = build(SOURCE)
-    forward = lib.bind("wgrad_lb_forward", 4, 21)
+    forward = lib.bind("wgrad_lb_forward", 4, 22)
     dw = torch.empty((g.hk, g.wk, ci, co), dtype=torch.float32,
                      device=x.device)
     ws = (torch.empty((splits, m, co), dtype=torch.float32,
@@ -140,7 +142,8 @@ def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
             None if ws is None else ws.data_ptr(),
             b, h, wd, ci, co, g.hk, g.wk, ho, wo, sy, sx, dly, dlx, py, px,
             tn, splits, cps, _aligned(x), _aligned(dy),
-            _aligned(dw) and (ws is None or _aligned(ws)), stream)
+            _aligned(dw) and (ws is None or _aligned(ws)),
+            DTYPES[x.dtype], stream)
     if err != 0:
         raise RuntimeError(f"wgrad_lb kernel launch failed: "
                            f"{lib.error_string(err)} (error {err})")

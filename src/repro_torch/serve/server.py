@@ -42,6 +42,9 @@ from repro_torch.serve.bucketing import (DEFAULT_BUCKETS, AdmissionQueue,
 from repro_torch.serve.ledger import RequestCharge, TrafficLedger
 
 
+#: the types a computing server runs K1 in
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
 #: recent results kept for lookup; dispatch return values are the
 #: durable hand-off, so a long-serving process does not pin every
 #: logits tensor
@@ -76,10 +79,11 @@ class ImageServer:
     ``"account-only"``; ``device`` is where a computing server runs —
     ``cuda`` unless the caller asks for ``cpu``.
 
-    K1 and its plain version compute in float32 only, so a computing
-    server of another ``dtype`` with the generic pipeline raises at
-    construction (it would compute in float32 and charge narrower
-    words); an account-only server serves any ``dtype``."""
+    A computing server runs K1 in its ``dtype``, float32 or bfloat16
+    (bf16 operands, f32 sums and epilogue, one rounding on store; the
+    head a plain ``@`` in ``dtype``, as the reference's); another
+    ``dtype`` with the generic pipeline raises at construction.  An
+    account-only server serves any ``dtype``."""
 
     def __init__(self, params, h: int, w: int, in_ch: int = 3, *,
                  graph: ConvGraph | None = None,
@@ -103,11 +107,10 @@ class ImageServer:
         self.h, self.w, self.in_ch = int(h), int(w), int(in_ch)
         self.target = resolve_target(target)
         if (self.target.compute and forward is None
-                and dtype != torch.float32):
+                and dtype not in COMPUTE_DTYPES):
             raise ValueError(
-                f"a computing {dtype} server needs K1's {dtype} path, "
-                f"which the port does not have yet (K1 and its plain "
-                f"version compute in float32); serve {dtype} with "
+                f"a computing {dtype} server needs K1 in {dtype}, which "
+                f"takes float32 or bfloat16; serve {dtype} with "
                 f"target='account-only', or pass a forward=")
         self.device = resolve_device(device)
         self.dtype = dtype

@@ -171,16 +171,18 @@ def test_cpu_tensors_launch_nothing_and_account_only_raises():
 
 
 def test_padded_head_dim_and_its_shared_memory():
-    """A head dim runs at the next instantiated width, up to 256; every
-    width fits the card's shared memory in both types, with one K/V
-    stage only where two do not fit (f32 at 256)."""
+    """A head dim runs on the FMA kernel at the next instantiated width
+    up to 256, and above 256 at 256 in ceil(hd / 256) column chunks
+    (no head dim raises); every width fits the card's shared memory in
+    both types, with one K/V stage only where two do not fit (f32 at
+    256, which is also the tile of the chunked head dims)."""
     from repro_torch.core.hopper_adapter import SMEM_PER_BLOCK
     want = {1: 8, 8: 8, 9: 16, 20: 32, 24: 32, 33: 64, 64: 64, 65: 80,
             80: 80, 81: 96, 96: 96, 100: 128, 128: 128, 129: 256,
-            200: 256, 256: 256}
+            200: 256, 256: 256, 257: 256, 320: 256, 512: 256, 4096: 256}
     assert {hd: K4.padded_head_dim(hd) for hd in want} == want
-    with pytest.raises(ValueError, match="head dim 257"):
-        K4.padded_head_dim(257)
+    chunks = {1: 1, 256: 1, 257: 2, 320: 2, 512: 2, 513: 3, 4096: 16}
+    assert {hd: K4.head_dim_chunks(hd) for hd in chunks} == chunks
     for width in K4.HEAD_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             stages = K4.attention_stages(width, dtype)
@@ -188,6 +190,117 @@ def test_padded_head_dim_and_its_shared_memory():
                               else 2)
             assert K4.attention_smem_bytes(width, dtype) <= SMEM_PER_BLOCK
     assert K4.attention_smem_bytes(256, torch.float32, 2) > SMEM_PER_BLOCK
+    assert K4.attention_smem_bytes(256, torch.float32, 1) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", [
+    (1, 24, 24, 2, 1, 320, 0, True),
+    (1, 20, 28, 2, 2, 512, 8, False),
+    (1, 40, 16, 2, 1, 264, 6, True),
+])
+def test_flash_attention_above_head_dim_256_matches_reference(
+        b, sq, skv, h, kv, hd, win, causal, dtype):
+    """Head dims above the kernels' widest instance: the port (whose
+    FMA kernel runs them as 256-column chunks on the card) against the
+    reference's Pallas kernel at ``interpret`` and its ``lax`` target;
+    the last case has rows with no unmasked key (q >= 16 + 6 - 1)."""
+    arrs = _inputs(b, sq, skv, h, kv, hd, dtype, seed=6)
+    kw = dict(window=win, causal=causal)
+    got = _port(flash_attention, arrs, dtype, bq=8, bk=8, **kw)
+    assert got.shape == (b, sq, h, hd)
+    _close(got, _jax(jax_flash, arrs, dtype, target="lax", **kw), dtype)
+    if skv % 8 == 0 or not win:
+        _close(got, _jax(jax_flash, arrs, dtype, bq=8, bk=8,
+                         target="interpret", **kw), dtype)
+
+
+def _brute_tiles(q0, q1, skv, window, causal, bkv):
+    """Per key tile: does any row of [q0, q1) keep a key in it, and is
+    any row of [q0, q1) left with no unmasked key at all."""
+    q = np.arange(q0, q1)[:, None]
+    k = np.arange(skv)[None, :]
+    keep = np.ones((q1 - q0, skv), bool)
+    if causal:
+        keep &= k <= q
+    if window:
+        keep &= k > q - window
+    nkv = -(-skv // bkv)
+    hold = [keep[:, t * bkv:(t + 1) * bkv].any() for t in range(nkv)]
+    return hold, bool((~keep.any(axis=1)).any())
+
+
+@pytest.mark.parametrize("window", [0, 1, 8, 20, 64, 100, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("sq,skv", [(130, 130), (64, 20), (200, 77),
+                                    (33, 65), (1, 1), (257, 300)])
+def test_key_tile_range_visits_every_unmasked_pair(sq, skv, window,
+                                                   causal):
+    """Against brute-force enumeration of the masks, for every query
+    tile: every unmasked pair lies in a visited key tile, every skipped
+    tile is wholly masked for the tile's rows, the range is contiguous
+    and tight (its end tiles hold an unmasked pair), and a tile that
+    holds a row with no unmasked key visits every key tile."""
+    for bq, bkv in ((64, 64), (16, 32), (32, 16)):
+        for q0 in range(0, sq, bq):
+            q1 = min(q0 + bq, sq)
+            lo, hi = K4.key_tile_range(q0, q1, skv, window, causal, bkv)
+            hold, masked_row = _brute_tiles(q0, q1, skv, window, causal,
+                                            bkv)
+            if masked_row:
+                assert (lo, hi) == (0, len(hold))
+                continue
+            assert 0 <= lo < hi <= len(hold)
+            assert not any(hold[:lo]) and not any(hold[hi:])
+            assert hold[lo] and hold[hi - 1]
+
+
+def test_visited_pairs_counts_the_visited_tiles():
+    """Causal S 4096 visits the lower triangle of 64 x 64 tiles, the
+    diagonal tiles whole: 1 + 63/4097 of the unmasked pairs; a full
+    mask (no causal, no window) visits every pair once."""
+    unmasked = 4096 * 4097 // 2
+    visited = K4.visited_pairs(4096, 4096, 0, True)
+    assert visited == 64 * 64 * (64 * 65 // 2)
+    assert visited / unmasked == pytest.approx(1 + 63 / 4097)
+    assert K4.visited_pairs(100, 70, 0, False) == 100 * 70
+    # every row fully masked: each query tile visits all keys
+    assert K4.visited_pairs(64, 20, 8, True) == 27 * 20 + 37 * 20
+
+
+@pytest.mark.parametrize("hd", [1, 8, 16, 20, 24, 64, 72, 80, 96, 100,
+                                104, 128, 136, 200, 256, 257, 264, 320,
+                                512])
+def test_route_by_type_and_head_dim(hd):
+    """bf16 whose rows TMA describes (hd a multiple of 8, up to 256)
+    takes sm90 at the next of 64, 80, 96, 128, 256; everything else
+    (f32, other bf16 head dims, above 256) takes fma."""
+    sm90 = hd % 8 == 0 and hd <= 256
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.zeros((2, 4, hd), dtype=dtype)
+        kv = torch.zeros((1, 4, hd), dtype=dtype)
+        want = "sm90" if sm90 and dtype == torch.bfloat16 else "fma"
+        assert K4.route(q, kv, kv) == want
+    width = K4.sm90_head_dim(hd)
+    assert width == (min(w for w in K4.SM90_HEAD_DIMS if w >= hd)
+                     if sm90 else None)
+    # the sm90 CTA holds 128 query rows, 64 at width 256
+    if width is not None:
+        assert K4.sm90_cta_rows(width) == (64 if width == 256 else 128)
+    # a mixed pair of types is never sm90
+    q = torch.zeros((2, 4, hd), dtype=torch.bfloat16)
+    assert K4.route(q, torch.zeros((1, 4, hd)), torch.zeros((1, 4, hd))) \
+        == "fma"
+
+
+def test_cpu_tensors_count_no_launch_on_any_route():
+    before = dict(K4.attention.launches_by_route)
+    q = torch.zeros((2, 16, 64), dtype=torch.bfloat16)
+    kv = torch.zeros((1, 16, 64), dtype=torch.bfloat16)
+    out = K4.attention(q, kv, kv, groups=2, via="sm90")
+    assert out.dtype == torch.bfloat16
+    assert K4.attention.launches_by_route == before
+    assert set(before) == set(K4.ROUTES)
 
 
 # head dims outside the configs': 80 and 96 (phi-2, llama-style 96),

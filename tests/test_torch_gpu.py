@@ -265,9 +265,16 @@ def test_attention_kernel_matches_plain(cuda, b, sq, skv, h, kv, hd, win,
 
 
 def test_attention_kernel_rejects_what_it_does_not_take(cuda):
-    q = torch.randn((2, 16, 264), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        K4.attention(q, q[:1], q[:1], groups=2)
+    q = torch.randn((2, 16, 32), device=cuda)
+    with pytest.raises(ValueError, match="route sm90 takes bf16"):
+        K4.attention(q, q[:1], q[:1], groups=2, via="sm90")
+    with pytest.raises(ValueError, match="route sm90 takes bf16"):
+        K4.attention(q[..., :20].contiguous().bfloat16(),
+                     q[:1, :, :20].contiguous().bfloat16(),
+                     q[:1, :, :20].contiguous().bfloat16(), groups=2,
+                     via="sm90")
+    with pytest.raises(ValueError, match="unknown attention route"):
+        K4.attention(q, q[:1], q[:1], groups=2, via="tma")
     q = torch.randn((2, 16, 32), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="float32 or"):
         K4.attention(q, q[:1], q[:1], groups=2)
@@ -410,3 +417,148 @@ def test_sm90_launch_error_raises(cuda):
     with pytest.raises(RuntimeError, match="matmul_lb_sm90"):
         K3._sm90(x, w)
     assert K3.matmul_lb.launches == before
+
+
+# b, sq, skv, h, kv, hd, window, causal: every sm90 width (16 and 48 run
+# at 64), causal tails, windows, non-causal, fully masked rows (q >= 20 +
+# 8 - 1), GQA, and head dims above 256 (fma, in column chunks)
+ROUTED = [
+    (2, 200, 200, 4, 2, 16, 0, True),
+    (1, 130, 130, 4, 2, 48, 0, False),
+    (1, 300, 300, 4, 1, 64, 100, True),
+    (1, 150, 150, 4, 2, 80, 0, True),
+    (1, 130, 130, 4, 1, 96, 32, True),
+    (2, 257, 257, 8, 2, 128, 0, True),
+    (1, 64, 20, 2, 1, 128, 8, True),
+    (1, 200, 150, 2, 1, 256, 64, True),
+    (1, 100, 100, 2, 1, 320, 0, True),
+    (1, 130, 100, 4, 2, 512, 16, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", ROUTED)
+def test_attention_every_route_matches_plain(cuda, b, sq, skv, h, kv, hd,
+                                             win, causal, dtype):
+    """Each case on every route that takes it (f32 and head dims above
+    256 only fma; bf16 at a multiple of 8 up to 256 also sm90, which
+    ``route`` picks), one launch of that route each."""
+    g = torch.Generator().manual_seed(10)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, dtype)
+               for s in ((b * h, sq, hd), (b * kv, skv, hd),
+                         (b * kv, skv, hd)))
+    want = attention_plain(q, k, v, groups=h // kv, window=win,
+                           causal=causal)
+    routes = ["fma"]
+    if dtype == torch.bfloat16 and K4.sm90_head_dim(hd) is not None:
+        routes.append("sm90")
+    assert K4.route(q, k, v) == routes[-1]
+    for rt in routes:
+        before = dict(K4.attention.launches_by_route)
+        out = K4.attention(q, k, v, groups=h // kv, window=win,
+                           causal=causal, via=rt)
+        torch.cuda.synchronize()
+        assert K4.attention.launches_by_route == dict(
+            before, **{rt: before[rt] + 1})
+        assert out.dtype == dtype and out.shape == q.shape
+        _within(out, want, dtype)
+
+
+# b, h, ci, co, k, stride, pad, lhs dilation, pool, residual: conv1_1
+# (Ci = 3: 6-byte bf16 pixels, staged by plain loads), odd channels,
+# the dgrad geometry, a fused pool and residual, a 7x7/2 stem
+BF16_CONVS = [
+    (2, 33, 3, 64, 3, 1, 1, 1, 1, False),
+    (3, 15, 7, 9, 3, 1, 1, 1, 1, False),
+    (2, 9, 8, 8, 3, 1, 2, 2, 1, False),
+    (3, 12, 24, 40, 3, 1, 1, 1, 2, True),
+    (8, 14, 256, 200, 3, 1, 1, 1, 1, True),
+    (8, 56, 3, 64, 7, 2, 3, 1, 1, False),
+]
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,s,p,ld,pool,res", BF16_CONVS)
+def test_bf16_conv_kernel_matches_plain(cuda, b, h, ci, co, k, s, p, ld,
+                                        pool, res):
+    """K1 in bf16: bf16 operands, f32 sums and epilogue, one rounding;
+    the plain version does the same, so the bf16 gate holds."""
+    g = torch.Generator().manual_seed(11)
+    bf = torch.bfloat16
+    x = torch.randn((b, h, h, ci), generator=g).to(cuda, bf)
+    w = (torch.randn((k, k, ci, co), generator=g) / (k * k * ci) ** 0.5
+         ).to(cuda, bf)
+    bias = torch.randn((co,), generator=g).to(cuda, bf)
+    hd = (h - 1) * ld + 1
+    ho = (hd + 2 * p - k) // s + 1
+    r = (torch.randn((b, ho, ho, co), generator=g).to(cuda, bf)
+         if res else None)
+    kw = dict(stride=s, padding=p, lhs_dilation=ld, pool=pool, relu=True)
+    before = K.conv_lb.launches
+    out = conv2d_lb(x, w, bias, r, **kw)
+    torch.cuda.synchronize()
+    assert K.conv_lb.launches == before + 1 and out.dtype == bf
+    _within(out, conv2d_ref(x, w, bias, r, **kw), bf)
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,s,p", BWD)
+def test_bf16_wgrad_kernel_matches_plain(cuda, b, h, w, ci, co, k, s, p):
+    """K2 takes bf16 x and dy, widens them as it stages them and sums
+    in f32: dW (f32) within the f32 wgrad tolerance of the plain
+    version on the same words."""
+    g = torch.Generator().manual_seed(12)
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    x = torch.randn((b, h, w, ci), generator=g).to(cuda, torch.bfloat16)
+    dy = torch.randn((b, ho, wo, co), generator=g).to(cuda, torch.bfloat16)
+    dw = W.wgrad_lb(x, dy, W.WgradGeometry(hk=k, wk=k, stride=(s, s),
+                                           padding=(p, p)))
+    torch.cuda.synchronize()
+    assert dw.dtype == torch.float32
+    _close(dw, wgrad_ref(x, dy, k, k, stride=s, padding=p), tol=2e-4)
+
+
+def test_bf16_backward_through_the_kernels(cuda):
+    """A bf16 conv's backward on the card: K1 recomputes and runs the
+    dgrad, K2 the wgrad; the gradients come back in bf16 and agree with
+    the plain version's autograd at the bf16 gate."""
+    g = torch.Generator().manual_seed(13)
+    bf = torch.bfloat16
+    x = torch.randn((4, 16, 16, 32), generator=g).to(cuda, bf)
+    w = (torch.randn((3, 3, 32, 64), generator=g) / 17).to(cuda, bf)
+    bias = torch.randn((64,), generator=g).to(cuda, bf)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    out = conv2d_lb(*leaves, stride=2, padding=1)
+    gy = torch.randn(out.shape, generator=g).to(cuda, bf)
+    k1, k2 = K.conv_lb.launches, W.wgrad_lb.launches
+    got = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    assert (K.conv_lb.launches - k1, W.wgrad_lb.launches - k2) == (2, 1)
+    plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    want = torch.autograd.grad(conv2d_ref(*plain, stride=2, padding=1),
+                               plain, gy)
+    for a, b in zip(got, want):
+        assert a.dtype == bf
+        _within(a, b, bf)
+
+
+def test_bf16_server_on_the_card(cuda):
+    """A computing bf16 ImageServer runs every conv on K1 in bf16 and
+    answers bf16 logits within the bf16 gate of the plain version."""
+    from repro_torch.models.cnn import init_vgg, vgg_graph
+    from repro_torch.serve import ImageServer
+    params = init_vgg(torch.Generator().manual_seed(14), width_mult=0.25,
+                      device=cuda)
+    params = {"convs": [{k: t.bfloat16() for k, t in p.items()}
+                        for p in params["convs"]],
+              "head": params["head"].bfloat16()}
+    srv = ImageServer(params, 32, 32, device=cuda, dtype=torch.bfloat16,
+                      buckets=(2,))
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator()
+                    .manual_seed(15))
+    before = K.conv_lb.launches
+    srv.submit(x)
+    (res,) = srv.drain()
+    assert K.conv_lb.launches == before + 13
+    assert res.logits.dtype == torch.bfloat16
+    want = graph_logits(vgg_graph(params), params,
+                        x.to(cuda, torch.bfloat16), conv=conv2d_ref)
+    _within(res.logits, want, torch.bfloat16)

@@ -227,13 +227,31 @@ def test_bf16_sizes_equal_reference_at_full_width(full_vgg):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_computing_bf16_server_raises_at_construction(device):
-    """K1 computes in float32 only: a computing bf16 server would
-    compute in float32 and charge 2-byte words, so it raises, naming
-    what is missing, before any device is touched."""
+    """A computing server runs K1 in float32 or bfloat16.  A bf16
+    server constructs and serves bf16 logits (on the CPU here; a cuda
+    request on a host without a card raises for the device, never for
+    the type); a type K1 does not take (float16) still raises at
+    construction, naming K1's types, before any device is touched."""
     params = init_vgg(torch.Generator().manual_seed(0), n_classes=4,
                       width_mult=0.05, device="cpu")
-    with pytest.raises(ValueError, match="K1's torch.bfloat16 path"):
-        ImageServer(params, 8, 8, dtype=torch.bfloat16, device=device)
+    with pytest.raises(ValueError, match="takes float32 or bfloat16"):
+        ImageServer(params, 8, 8, dtype=torch.float16, device=device)
+    if device == "cuda" and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ImageServer(params, 8, 8, dtype=torch.bfloat16, device=device)
+        return
+    bf16 = {"convs": [{k: t.to(device, torch.bfloat16)
+                       for k, t in p.items()} for p in params["convs"]],
+            "head": params["head"].to(device, torch.bfloat16)}
+    t = [0.0]
+    srv = ImageServer(bf16, 8, 8, dtype=torch.bfloat16, device=device,
+                      buckets=(1, 2), clock=lambda: t[0])
+    imgs = np.random.default_rng(4).standard_normal(
+        (2, 8, 8, 3)).astype(np.float32)
+    (res,) = _drive(srv, (2,), [imgs])
+    assert res.logits.dtype == torch.bfloat16
+    assert tuple(res.logits.shape) == (2, 4)
+    assert bool(torch.isfinite(res.logits.float()).all())
 
 
 def test_custom_forward_serves_and_needs_a_graph():
