@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
-  * ``build``: the conv (K1), wgrad (K2), matmul (K3: FMA and sm90)
-    and attention (K4: FMA and sm90) kernels from the sources in this
-    checkout, one nvcc each, all started together; ptxas registers,
-    spills and shared memory;
-  * ``check``, ``check_bwd``: K1 (f32 and bf16; also in its dgrad
-    geometries, and at 7x7 and 11x11 windows) and K2 (x and dy f32 and
-    bf16) against their plain PyTorch versions; one bf16 backward
-    through K1 and K2 against the plain autograd; the two backwards
-    the kernels do not take (lhs-dilated, padding past full) against
-    the plain autograd, with the library-rung tally;
+  * ``build``: the conv (K1: FMA and sm90), wgrad (K2), matmul (K3:
+    FMA and sm90) and attention (K4: FMA and sm90) kernels from the
+    sources in this checkout, one nvcc each, all started together;
+    ptxas registers, spills and shared memory;
+  * ``check``, ``check_bwd``: K1 (f32 and bf16, each row with the
+    route it took and its tile; also in its dgrad geometries, and at
+    7x7 and 11x11 windows) and K2 (x and dy f32 and bf16) against their
+    plain PyTorch versions; a wrong result of K1's sm90 kernel (the
+    halo read one row off) shown to fail the bf16 gate; one bf16
+    backward through K1 and K2 against the plain autograd; the two
+    backwards the kernels do not take (lhs-dilated, padding past full)
+    against the plain autograd, with the library-rung tally;
   * ``check_matmul``, ``check_attention``: K3 and K4 through
     ``matmul_lb`` / ``flash_attention`` at every shape and type of the
     reference's sweeps (K3 also with a K-major ``w`` and at a ragged
@@ -22,7 +24,8 @@
     shown to fail the same gate), one launch per call;
   * ``vgg``, ``serve_bf16_vgg``, ``resnet``: VGG16/224 (full width, f32
     and bf16) and ResNet-20/32 served through
-    ``repro_torch.serve.ImageServer``, every conv on K1;
+    ``repro_torch.serve.ImageServer``, every conv on K1 (bf16 VGG: 12
+    convs a dispatch on the sm90 kernel, conv1_1 on FMA);
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
     on K1 (recompute, dgrad) and K2 (wgrad);
   * ``matmul``, ``attention``: the two entry points at full width
@@ -33,7 +36,13 @@
     a library call;
   * ``attention_head_dims``: K4 at head dims 80, 96 and 256, timed;
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
-    and bf16.
+    and bf16, each row with its route and tile.
+
+Times are CUDA events around one call, the L2 cache flushed before
+it; a call shorter than the host's time to enqueue it is charged that
+time too.  ``layers`` rows also give the host's time to enqueue one
+call of the kernel and of the library (``host_us``,
+``library_host_us``).
 
     python3 chip_smoke.py        # on a host with one NVIDIA H100
 
@@ -45,6 +54,7 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -101,6 +111,7 @@ TRAIN_STEPS = 3
 TRAIN_LR = {"vgg": 1e-4, "resnet": 1e-3}
 SEED = 0
 SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb.cu"
+CONV_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb_sm90.cu"
 REPLACES = "src/repro/kernels/conv_lb/kernel.py:116"
 WGRAD_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb.cu"
 WGRAD_REPLACES = "src/repro/kernels/conv_lb/wgrad.py:50"
@@ -166,10 +177,10 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    libs = K.build_many([K.SOURCE, W.SOURCE, K3.SOURCE, K3.SM90_SOURCE,
-                         K4.SOURCE, K4.SM90_SOURCE])
-    for lib, source in zip(libs, (SOURCE, WGRAD_SOURCE, MATMUL_SOURCE,
-                                  SM90_SOURCE, ATTN_SOURCE,
+    libs = K.build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, K3.SOURCE,
+                         K3.SM90_SOURCE, K4.SOURCE, K4.SM90_SOURCE])
+    for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE, WGRAD_SOURCE,
+                                  MATMUL_SOURCE, SM90_SOURCE, ATTN_SOURCE,
                                   ATTN_SM90_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
@@ -221,10 +232,22 @@ CHECKS = [
 ]
 
 
+def conv_route(x, w, bias=None, residual=None, **kw) -> tuple[str, list]:
+    """The route :func:`K.plan_of` names for one group of a conv and the
+    tile that route's kernel runs: ``[bb, ty, tx, bn, cib]`` (sm90) or
+    ``cta_plan``'s ``[bb, ty, tx, tn, krows]`` (fma)."""
+    def pair(v):
+        return (v, v) if isinstance(v, int) else tuple(v)
+    kw = {k: v if k == "pool" else pair(v) for k, v in kw.items()}
+    rt, plan = K.plan_of(x, w, bias, residual, **kw)
+    return rt, list(plan.tile if rt == "sm90" else plan)
+
+
 def phase_check() -> None:
     """K1 at every geometry of :data:`CHECKS` in f32 (``TOL`` of max
     |plain|) and in bf16 (the bf16 ``CARD_TOL``: both sum the same bf16
-    words in f32 and round once), against the plain version."""
+    words in f32 and round once), against the plain version; each row
+    with the route :func:`K.route` names and the launches it took."""
     gen = torch.Generator().manual_seed(SEED)
     for (name, b, (h, w), ci, co, k, s, p, d, ld, g, has_bias,
          has_res, relu, pool) in CHECKS:
@@ -240,19 +263,29 @@ def phase_check() -> None:
         for dtype in DTYPES:
             args = [None if t is None else t.to(dtype)
                     for t in (x, wt, bias, res)]
+            # the route of one group (the groups are alike)
+            route, tile = conv_route(
+                *[None if t is None else t[..., :t.shape[-1] // g]
+                  .contiguous() for t in args],
+                stride=s, padding=p, dilation=d, lhs_dilation=ld,
+                pool=pool)
+            before = dict(K.conv_lb.launches_by_route)
             out = conv2d_lb(*args, **kw)
-            ref = conv2d_ref(*args, **kw)
             torch.cuda.synchronize()
+            launched = {r: K.conv_lb.launches_by_route[r] - before[r]
+                        for r in before}
+            ref = conv2d_ref(*args, **kw)
             require(out.shape == ref.shape and out.dtype == dtype,
                     f"check {name} {dtype}: {out.dtype} "
                     f"{tuple(out.shape)} != {tuple(ref.shape)}")
+            require(launched == dict.fromkeys(K.ROUTES, 0) | {route: g},
+                    f"check {name} {dtype}: launches {launched}, route "
+                    f"{route}")
             err, rel = rel_err(out.float(), ref.float())
             row = {"phase": "check", "geometry": name, "dtype": str(dtype),
                    "shape": list(out.shape), "max_abs_err": err,
-                   "max_abs_err_over_max_ref": rel,
-                   "cta_plan": list(K.cta_plan(
-                       b, ho, wo, co // g, pool, k, k, (s, s), (d, d),
-                       out.element_size()))}
+                   "max_abs_err_over_max_ref": rel, "route": route,
+                   "tile": tile, "launches_by_route": launched}
             if dtype == torch.float32:
                 row["tol"] = TOL
                 ok = rel <= TOL
@@ -261,11 +294,50 @@ def phase_check() -> None:
                 ok = row["worst_over_tol"] <= 1.0
             emit(row)
             require(ok, f"check {name} {dtype}: kernel vs plain {row}")
+    check_sm90_control(gen)
 
 
-def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> int:
+# name, batch, plane, ci, co, pool: VGG16/224 layers at batch 8 on which
+# a fault of the sm90 kernel is shown to fail the bf16 gate
+SM90_CONTROLS = [("conv3_2", 8, 56, 256, 256, 1),
+                 ("conv5_3", 8, 14, 512, 512, 2)]
+
+
+def check_sm90_control(gen) -> None:
+    """K1's sm90 kernel with one fault of its own: the centre window
+    (1, 1) reads the halo one row off (its shift passed one halo row too
+    far).  The right launch passes the unchanged bf16 gate; the faulty
+    one must fail it."""
+    bf = torch.bfloat16
+    for name, b, h, ci, co, pool in SM90_CONTROLS:
+        x = _randn(gen, b, h, h, ci).to(bf)
+        w = _randn(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5).to(bf)
+        bias = _randn(gen, co).to(bf)
+        kw = dict(padding=(1, 1), relu=True, pool=pool)
+        require(K.route(x, w, bias=bias, pool=pool) == "sm90",
+                f"control sm90 {name}: route")
+        plan = K.sm90_plan(b, h, h, co, ci, 3, 3, (1, 1))
+        off = list(plan.win_off)
+        off[4] += plan.sbo
+        bad = dataclasses.replace(plan, win_off=tuple(off))
+        right = K.conv_lb(x, w, bias, **kw)
+        wrong = K._sm90(x, w, bias, None, h, h, (1, 1), True, pool, bad)
+        plain = conv2d_ref(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        gate = within(right, plain, bf)
+        emit({"phase": "check", "geometry": f"sm90_control_{name}_b{b}",
+              "dtype": str(bf), "route": "sm90",
+              "tile": list(plan.tile),
+              **gate, "control": control(
+                  "centre window reads the halo one row off", wrong,
+                  plain, bf)})
+        require(gate["worst_over_tol"] <= 1.0,
+                f"control sm90 {name}: the right launch {gate}")
+
+
+def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
     """Serve 16 requests of 1-8 images in ``dtype`` (bf16: the same
-    weights rounded once); returns the kernel launches."""
+    weights rounded once); returns K1's launches by route."""
     gen = torch.Generator().manual_seed(SEED)
     if model == "vgg":
         params = init_vgg(gen, device="cuda")
@@ -287,12 +359,14 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> int:
                       dtype=dtype, tracer=tracer)
     srv.warm()
     K.conv_lb.launches = 0
+    K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
     results = []
     for im in images:
         srv.submit(im)
         results += srv.poll()
     results += srv.drain()
     launches = K.conv_lb.launches
+    by_route = dict(K.conv_lb.launches_by_route)
     rids = sorted(r.rid for r in results)
     require(rids == list(range(len(images))),
             f"{phase}: rids answered {rids}")
@@ -300,6 +374,12 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> int:
     require(launches == n_convs * dispatches,
             f"{phase}: {launches} kernel launches for {dispatches} "
             f"dispatches of {n_convs} convs")
+    # bf16 VGG: conv1_2 ... conv5_3 on the sm90 kernel, conv1_1 (Ci = 3)
+    # on FMA; everything else on FMA
+    sm90 = 12 if (model, dtype) == ("vgg", torch.bfloat16) else 0
+    want = {"sm90": sm90 * dispatches, "fma": (n_convs - sm90) * dispatches}
+    require(by_route == want, f"{phase}: launches by route {by_route}, "
+                              f"want {want}")
     got = torch.cat([r.logits for r in sorted(results,
                                               key=lambda r: r.rid)])
     with torch.no_grad():
@@ -318,6 +398,7 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> int:
           str(got.dtype), **gate, "requests": len(images),
           "images": int(sum(sizes)), "dispatches": dispatches,
           "convs_per_dispatch": n_convs, "kernel_launches": launches,
+          "launches_by_route": by_route,
           "every_rid_answered_once": True,
           "logits_shape": list(got.shape), "logits_finite": finite,
           "max_abs_err_vs_plain": err, "max_rel_err_vs_plain": rel,
@@ -333,7 +414,7 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> int:
     else:
         require(gate["worst_over_tol"] <= 1.0,
                 f"{phase}: logits vs plain {gate}")
-    return launches
+    return by_route
 
 
 def _time_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
@@ -352,10 +433,26 @@ def _time_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
     return sum(s.elapsed_time(e) for s, e in zip(start, end)) / reps
 
 
+def _host_us(fn, calls: int = 20) -> float:
+    """Mean host microseconds to enqueue one call of ``fn``, the stream
+    held busy meanwhile (some 20 ms of spinning), so that the card's
+    time is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_layers(card: str) -> list[dict]:
     """K1 per VGG16/224 layer at batch 8, f32 and bf16 (the same words
     rounded once), held against the plain version and timed beside its
-    bound and ``F.conv2d`` (cuDNN, TF32 off) in the same type."""
+    bound and ``F.conv2d`` (cuDNN, TF32 off) in the same type; also the
+    host's time to enqueue one ``conv2d_lb`` call (``host_us``)."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED)
     params = init_vgg(gen, device="cuda")
@@ -375,7 +472,12 @@ def phase_layers(card: str) -> list[dict]:
                 memory_format=torch.channels_last)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
+            route, tile = conv_route(x, w, b, stride=node.stride,
+                                     padding=node.pad, pool=pool)
+            before = dict(K.conv_lb.launches_by_route)
             out = conv2d_lb(x, w, b, **kw)
+            require(K.conv_lb.launches_by_route[route] == before[route] + 1,
+                    f"layer {node.name} {dtype}: not on route {route}")
             ref = conv2d_ref(x, w, b, **kw)
             err, rel = rel_err(out.float(), ref.float())
             if dtype == torch.float32:
@@ -387,10 +489,14 @@ def phase_layers(card: str) -> list[dict]:
                 require(gate["worst_over_tol"] <= 1.0,
                         f"layer {node.name} {dtype}: {gate}")
             ms = _time_ms(lambda: conv2d_lb(x, w, b, **kw), flush)
+            host_us = _host_us(lambda: conv2d_lb(x, w, b, **kw))
             plain_ms = _time_ms(lambda: conv2d_ref(x, w, b, **kw), flush)
-            library_ms = _time_ms(lambda: F.conv2d(
-                x_nchw, w_oihw, b, stride=node.stride, padding=node.pad),
-                flush)
+            def library():
+                return F.conv2d(x_nchw, w_oihw, b, stride=node.stride,
+                                padding=node.pad)
+
+            library_ms = _time_ms(library, flush)
+            library_host_us = _host_us(library)
             flops = 2.0 * batch * st.ho * st.wo * node.co * node.ci * 9
             n_bytes = float(x.element_size() * (x.numel() + w.numel()
                                                 + b.numel() + out.numel()))
@@ -407,9 +513,8 @@ def phase_layers(card: str) -> list[dict]:
                    "flops": flops, "bytes": n_bytes,
                    "launches_per_dispatch": 1, "max_abs_err": err,
                    "max_abs_err_over_max_ref": rel, **gate,
-                   "tile": list(K.cta_tile(batch, st.ho, st.wo, node.co,
-                                           pool, elt=x.element_size())),
-                   "card": card}
+                   "route": route, "tile": tile, "host_us": host_us,
+                   "library_host_us": library_host_us, "card": card}
             emit(row)
             rows.append(row)
     return rows
@@ -525,23 +630,27 @@ def check_bwd_bf16() -> dict:
     out = conv2d_lb(*leaves, padding=1)
     gy = _randn(gen, *out.shape).to(torch.bfloat16)
     K.conv_lb.launches = 0
+    K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
     W.wgrad_lb.launches = 0
     got = torch.autograd.grad(out, leaves, gy)
     torch.cuda.synchronize()
     launches = {"conv_lb": K.conv_lb.launches,
                 "wgrad_lb": W.wgrad_lb.launches}
+    by_route = dict(K.conv_lb.launches_by_route)
     plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
     want = torch.autograd.grad(conv2d_ref(*plain, padding=1), plain, gy)
     rows = {n: within(a, b, torch.bfloat16)
             for n, a, b in zip(("dx", "dw", "db"), got, want)}
     emit({"phase": "check_bwd", "geometry": "bf16_conv4_b8",
           "dtypes": [str(t.dtype) for t in got], "launches": launches,
-          **rows})
+          "conv_lb_launches_by_route": by_route, **rows})
     require(all(t.dtype == torch.bfloat16 for t in got),
             f"check_bwd bf16: gradient types {[t.dtype for t in got]}")
-    # recompute + dgrad on K1, wgrad on K2
+    # recompute + dgrad on K1 (both on its sm90 kernel), wgrad on K2
     require(launches == {"conv_lb": 2, "wgrad_lb": 1},
             f"check_bwd bf16: launches {launches}")
+    require(by_route == {"sm90": 2, "fma": 0},
+            f"check_bwd bf16: K1 launches by route {by_route}")
     for n, r in rows.items():
         require(r["worst_over_tol"] <= 1.0, f"check_bwd bf16 {n}: {r}")
     return launches
@@ -1353,7 +1462,12 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
             if i > 0:      # conv1_1's dgrad is never needed
                 wf = flip_w(w)
                 kw = dict(stride=(1, 1), padding=(1, 1))
+                route, tile = conv_route(gy, wf, padding=1)
+                before = dict(K.conv_lb.launches_by_route)
                 out = K.conv_lb(gy, wf, **kw)
+                require(K.conv_lb.launches_by_route[route]
+                        == before[route] + 1,
+                        f"dgrad {node.name} {dtype}: not on route {route}")
                 ref = conv2d_ref(gy, wf, **kw)
                 err, rel = rel_err(out.float(), ref.float())
                 if dtype == torch.float32:
@@ -1381,9 +1495,7 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                            bound_by="operations" if t_ops >= t_bytes
                            else "bytes", bytes=n_bytes,
                            max_abs_err=err, max_abs_err_over_max_ref=rel,
-                           **gate,
-                           tile=list(K.cta_tile(batch, st.h, st.w, ci, 1,
-                                                elt=elt)))
+                           **gate, route=route, tile=tile)
                 emit(row)
                 dgrad_rows.append(row)
             geom = W.WgradGeometry(hk=3, wk=3, stride=(1, 1),
@@ -1453,9 +1565,9 @@ def main() -> int:
     bwd_bf16 = check_bwd_bf16()
     phase_check_matmul()
     check_attn_by_route = phase_check_attention()
-    vgg_launches = phase_serve("vgg")
-    vgg_bf16_launches = phase_serve("vgg", torch.bfloat16)
-    resnet_launches = phase_serve("resnet")
+    vgg_launches = sum(phase_serve("vgg").values())
+    vgg_bf16 = phase_serve("vgg", torch.bfloat16)
+    resnet_launches = sum(phase_serve("resnet").values())
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
     matmul_launches, matmul_all = phase_matmul(card)
@@ -1469,6 +1581,13 @@ def main() -> int:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dgrad = {str(d): {k: v for k, v in _sums(_of(dgrad_rows, d)).items()
                       if k in keys} for d in DTYPES}
+    bf16_rows = _of(rows, torch.bfloat16)
+    bf16_dgrad = _of(dgrad_rows, torch.bfloat16)
+    sm90_fwd = [r for r in bf16_rows if r["route"] == "sm90"]
+    sm90_dgrad = [r for r in bf16_dgrad if r["route"] == "sm90"]
+    require(len(sm90_fwd) == 12 and len(sm90_dgrad) == 12,
+            f"layers: {len(sm90_fwd)} forward and {len(sm90_dgrad)} dgrad "
+            f"bf16 layers on sm90, want 12 and 12")
     attn_sums = {rt: _sums([r for r in attn_rows if r["route"] == rt])
                  for rt in K4.ROUTES}
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
@@ -1476,13 +1595,35 @@ def main() -> int:
         dict(_sums(_of(rows, torch.float32)), name="conv_lb", route="cuda",
              source=SOURCE, replaces=REPLACES, launches=vgg_launches,
              launches_resnet=resnet_launches,
-             launches_serve_bf16=vgg_bf16_launches,
+             launches_serve_bf16=sum(vgg_bf16.values()),
+             launches_serve_bf16_by_route=vgg_bf16,
              launches_bwd_bf16=bwd_bf16["conv_lb"],
              launches_train_vgg=train_vgg["conv_lb"],
              launches_train_resnet=train_resnet["conv_lb"],
              by_dtype=_by_dtype(rows), dgrad=dgrad,
-             times_are=f"f32 {vgg_times} (by_dtype: f32 and bf16; "
-                       f"dgrad: the 12 whose dgrad a step runs)",
+             bf16_by_route={
+                 rt: {"layers": [r["layer"] for r in bf16_rows
+                                 if r["route"] == rt],
+                      "forward": _sums([r for r in bf16_rows
+                                        if r["route"] == rt]),
+                      "dgrad": _sums([r for r in bf16_dgrad
+                                      if r["route"] == rt]) if any(
+                          r["route"] == rt for r in bf16_dgrad) else None}
+                 for rt in K.ROUTES},
+             times_are=f"f32 {vgg_times} (by_dtype: f32 and bf16, every "
+                       f"layer on the route it takes, bf16_by_route: "
+                       f"split by route; dgrad: the 12 whose dgrad a "
+                       f"step runs)",
+             card=card),
+        dict(_sums(sm90_fwd), name="conv_lb_sm90", route="cuda",
+             kernel_route="sm90", source=CONV_SM90_SOURCE,
+             replaces=REPLACES, dtype="bf16",
+             launches=vgg_bf16["sm90"],
+             launches_bwd_bf16=bwd_bf16["conv_lb"],
+             dgrad=_sums(sm90_dgrad),
+             times_are=f"bf16 sums over the 12 VGG16/224 convs after "
+                       f"conv1_1 at batch 8 (dgrad: the same 12 layers' "
+                       f"dgrads); launches: the bf16 serving run",
              card=card),
         dict(_sums(_of(wgrad_rows, torch.float32)), name="wgrad_lb",
              route="cuda", source=WGRAD_SOURCE, replaces=WGRAD_REPLACES,

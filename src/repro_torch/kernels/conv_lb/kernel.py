@@ -1,7 +1,12 @@
-"""The conv kernel's wrapper: build, bind and launch the hand-written
-CUDA kernel (``csrc/conv_lb.cu``), which replaces the TPU kernel
+"""The conv kernel's wrapper: build, bind and launch the two
+hand-written CUDA kernels of K1, which together replace the TPU kernel
 ``_conv_kernel`` / ``conv_lb_call`` of
-``repro/kernels/conv_lb/kernel.py``.
+``repro/kernels/conv_lb/kernel.py``:
+
+  * ``csrc/conv_lb_sm90.cu`` (route ``"sm90"``): bf16 at stride 1 on
+    the tensor cores, TMA into mbarrier rings feeding ``wgmma``;
+  * ``csrc/conv_lb.cu`` (route ``"fma"``): f32, and every bf16 conv
+    :func:`route` does not send to the sm90 kernel, on FMA.
 
 Build (:func:`build`, shared with the wgrad kernel's wrapper): at
 first use ``nvcc`` compiles a source in this checkout for ``sm_90a``
@@ -10,17 +15,23 @@ into a shared library with a plain C interface under
 is rebuilt), and ``ctypes`` binds it.  Nothing is compiled when the
 module is imported.
 
-:func:`conv_lb` dispatches on where its tensors lie and nothing else:
-a CUDA tensor launches the kernel or raises (a failed build, a refused
-launch, a geometry or dtype the kernel does not take); a CPU tensor
-runs the plain version (:func:`~repro_torch.kernels.conv_lb.ref.conv2d_ref`).
-Each launch adds one to ``conv_lb.launches``.
+:func:`conv_lb` dispatches first on where its tensors lie: a CUDA
+tensor launches the kernel :func:`route` names or raises (a
+failed build, a refused launch, a geometry or dtype the kernel does not
+take); a CPU tensor runs the plain version
+(:func:`~repro_torch.kernels.conv_lb.ref.conv2d_ref`).  The route is
+read from types, geometry and pointers before launch, never by trying
+one; :func:`plan_of` names it with the tile its kernel runs.  Each
+launch adds one to ``conv_lb.launches`` and to its route's
+entry of ``conv_lb.launches_by_route``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
@@ -37,6 +48,7 @@ from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.conv_lb.ref import conv2d_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb.cu"
+SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb_sm90.cu"
 BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
@@ -141,6 +153,14 @@ def build(source: Path = SOURCE) -> Library:
     return build_many([source])[0]
 
 
+@lru_cache(maxsize=None)
+def _entry(source: Path, name: str, n_pointers: int, n_ints: int):
+    """``(library, bound C function)``, built and bound once per
+    process: a launch then spends no host time on either."""
+    lib = build(source)
+    return lib, lib.bind(name, n_pointers, n_ints)
+
+
 def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
                wk: int, stride: tuple[int, int], dilation: tuple[int, int],
                elt: int, krows: int, fit: bool):
@@ -229,6 +249,172 @@ def cta_smem_bytes(bb: int, ty: int, tx: int, tn: int, hk: int, wk: int,
     return max(staged, TILE_M * tn * 4 if pool > 1 else 0)
 
 
+#: the sm90 kernel's fixed shape (must match csrc/conv_lb_sm90.cu): a
+#: CTA owns two wgmma blocks of 8 x 8 output pixels of one image,
+#: ``(bb, ty, tx)`` side by side or in two images
+SM90_BLOCK = 8
+SM90_TILES = ((1, 8, 16), (2, 8, 8))
+SM90_BN = (64, 128, 256)     # output channels per CTA
+SM90_W_STAGES = 4            # weight ring: (Ci block, window) stages
+SM90_H_STAGES = 2            # halo ring: Ci blocks
+SM90_MAX_WIN = 128           # windows whose offsets a launch carries
+SM90_BOX_MAX = 256           # a TMA box's extent in any dimension
+SM90_PLANE = 8               # channels of one 16-byte halo plane
+ROUTES = ("sm90", "fma")
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Plan:
+    """The sm90 kernel's tile and every shared-memory offset it is
+    passed (bytes).  The halo of one Ci block lies as ``cib / 8``
+    planes ``[bb][hy][hx][8 channels]``, each padded to 128 bytes: A's
+    core matrix (8 output pixels of a row x 8 channels) is then 128
+    contiguous bytes, the next 8 channels one plane further (the
+    descriptor's leading offset), the next output row one halo row
+    further (its stride offset), and window ``(ky, kx)`` the same
+    descriptor shifted by ``win_off[ky * wk + kx]``."""
+
+    bb: int
+    ty: int
+    tx: int
+    bn: int                    # output channels per CTA
+    cib: int                   # input channels per Ci block
+    hy: int                    # halo box rows
+    hx: int                    # halo box columns
+    plane_bytes: int           # A's leading offset
+    sbo: int                   # A's stride offset
+    blk_off: tuple[int, int]   # each consumer's block in the halo
+    win_off: tuple[int, ...]   # window ky * wk + kx -> shift in the halo
+    smem_bytes: int
+    ctas: int
+
+    @property
+    def tile(self) -> tuple[int, int, int, int, int]:
+        """``(bb, ty, tx, bn, cib)``."""
+        return self.bb, self.ty, self.tx, self.bn, self.cib
+
+
+def sm90_cibs(ci: int) -> tuple[int, ...]:
+    """Input channels per Ci block, widest first: 64, 32 and 16 (a
+    multiple of wgmma's 16-channel depth), none wider than ``ci``
+    rounded up to that depth."""
+    return tuple(c for c in (64, 32, 16) if c <= ceil_div(ci, 16) * 16)
+
+
+def sm90_layout(bb: int, ty: int, tx: int, bn: int, cib: int, hk: int,
+                wk: int, dilation: tuple[int, int]) -> dict:
+    """The halo box and the shared-memory offsets of one tile (the
+    fields of :class:`Sm90Plan` but ``ctas``)."""
+    dy, dx = dilation
+    hy, hx = ty + (hk - 1) * dy, tx + (wk - 1) * dx
+    plane = ceil_div(bb * hy * hx * 2 * SM90_PLANE, 128) * 128
+    # the second consumer's block: the next image's, or 8 columns on
+    blk = ((bb - 1) * hy * hx + (tx - SM90_BLOCK)) * 16
+    win = tuple((ky * dy * hx + kx * dx) * 16
+                for ky in range(hk) for kx in range(wk))
+    # 1024 bytes to align the weight ring to its swizzle, the weight
+    # ring, the halo ring, a full and an empty mbarrier per stage
+    smem = (1024 + SM90_W_STAGES * bn * cib * 2
+            + SM90_H_STAGES * (cib // SM90_PLANE) * plane
+            + 8 * 2 * (SM90_W_STAGES + SM90_H_STAGES))
+    return dict(bb=bb, ty=ty, tx=tx, bn=bn, cib=cib, hy=hy, hx=hx,
+                plane_bytes=plane, sbo=hx * 16, blk_off=(0, blk),
+                win_off=win, smem_bytes=smem)
+
+
+def _sm90_fits(lay: dict) -> bool:
+    return (lay["smem_bytes"] <= SMEM_PER_BLOCK
+            and len(lay["win_off"]) <= SM90_MAX_WIN
+            and max(lay["hy"], lay["hx"]) <= SM90_BOX_MAX)
+
+
+@lru_cache(maxsize=4096)
+def sm90_plan(batch: int, ho: int, wo: int, co: int, ci: int, hk: int = 1,
+              wk: int = 1, dilation: tuple[int, int] = (1, 1)
+              ) -> Sm90Plan | None:
+    """The sm90 kernel's tile for one stride-1 conv, ranked as
+    :func:`cta_plan` ranks (one CTA per SM: 384 threads at up to 232
+    registers for the consumers): the fewest waves of CTAs over the
+    card's SMs, then the fewest CTAs (each does 128 x ``bn`` work
+    whatever part of it is real), then the least halo per output pixel,
+    then the widest ``bn``, then the widest Ci block (a narrower one
+    only where a wide halo does not fit otherwise).  Only tiles whose
+    shared memory fits are ranked; ``None`` if none does."""
+    best = None
+    for bn, cib, (bb, ty, tx) in itertools.product(SM90_BN, sm90_cibs(ci),
+                                                   SM90_TILES):
+        if bn > 64 and co <= bn // 2:
+            continue
+        lay = sm90_layout(bb, ty, tx, bn, cib, hk, wk, tuple(dilation))
+        if not _sm90_fits(lay):
+            continue
+        ctas = (ceil_div(batch, bb) * ceil_div(ho, ty) * ceil_div(wo, tx)
+                * ceil_div(co, bn))
+        waves = ceil_div(ctas, SM_COUNT)
+        halo = lay["hy"] * lay["hx"] / (ty * tx)
+        key = (waves * bn, ctas * bn, halo, -bn, -cib)
+        if best is None or key < best[0]:
+            best = (key, Sm90Plan(**lay, ctas=ctas))
+    return None if best is None else best[1]
+
+
+def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
+          lhs_dilation=(1, 1), *, bias: torch.Tensor | None = None,
+          residual: torch.Tensor | None = None, dilation=(1, 1),
+          pool: int = 1) -> str:
+    """``"sm90"`` iff x, w, bias and residual (where given) are bf16,
+    stride and lhs dilation are (1, 1) (any dilation and padding), Ci
+    and Co are multiples of 8 (16-byte pixel and row pitches that a TMA
+    map describes), every base address is 16-byte aligned, the fused
+    pool is 1 or 2 (the sm90 epilogue pools 2 x 2 in registers) and a
+    tile of :func:`sm90_plan` fits shared memory with at most
+    ``SM90_MAX_WIN`` windows; else ``"fma"``.  Read from types,
+    geometry and pointers only, before launch."""
+    operands = [t for t in (x, w, bias, residual) if t is not None]
+    ci, co = x.shape[-1], w.shape[-1]
+    if (all(t.dtype == torch.bfloat16 for t in operands)
+            and tuple(stride) == (1, 1) and tuple(lhs_dilation) == (1, 1)
+            and ci % SM90_PLANE == 0 and co % SM90_PLANE == 0
+            and all(t.data_ptr() % 16 == 0 for t in operands)
+            and pool in (1, 2)
+            and sm90_plan(1, 1, 1, co, ci, w.shape[0], w.shape[1],
+                          tuple(dilation)) is not None):
+        return "sm90"
+    return "fma"
+
+
+def _out_plane(h: int, wd: int, hk: int, wk: int, stride, padding,
+               dilation, lhs_dilation) -> tuple[int, int]:
+    """The conv's output plane ``(ho, wo)`` before the pool."""
+    (sy, sx), (py, px) = stride, padding
+    (dy, dx), (ly, lx) = dilation, lhs_dilation
+    return (((h - 1) * ly + 1 + 2 * py - ((hk - 1) * dy + 1)) // sy + 1,
+            ((wd - 1) * lx + 1 + 2 * px - ((wk - 1) * dx + 1)) // sx + 1)
+
+
+def plan_of(x: torch.Tensor, w: torch.Tensor,
+            bias: torch.Tensor | None = None,
+            residual: torch.Tensor | None = None, *, stride=(1, 1),
+            padding=(0, 0), dilation=(1, 1), lhs_dilation=(1, 1),
+            pool: int = 1) -> tuple[str, Sm90Plan | tuple]:
+    """The route :func:`conv_lb` takes for these operands and the plan
+    its kernel then runs: an :class:`Sm90Plan` (``"sm90"``) or
+    :func:`cta_plan`'s ``(bb, ty, tx, tn, krows)`` (``"fma"``).  Read
+    from types, geometry and pointers only, before launch."""
+    b, h, wd, ci = x.shape
+    hk, wk, _, co = w.shape
+    stride, padding = tuple(stride), tuple(padding)
+    dilation, lhs_dilation = tuple(dilation), tuple(lhs_dilation)
+    ho, wo = _out_plane(h, wd, hk, wk, stride, padding, dilation,
+                        lhs_dilation)
+    rt = route(x, w, stride, lhs_dilation, bias=bias, residual=residual,
+               dilation=dilation, pool=pool)
+    if rt == "sm90":
+        return rt, sm90_plan(b, ho, wo, co, ci, hk, wk, dilation)
+    return rt, cta_plan(b, ho, wo, co, pool, hk, wk, stride, dilation,
+                        x.element_size())
+
+
 def _check_cuda_operand(name: str, t: torch.Tensor, device,
                         shape: tuple, dtype: torch.dtype) -> None:
     if t.device != device:
@@ -259,8 +445,8 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     """One group of the conv: x (B, H, W, Ci), w (Hk, Wk, Ci, Co),
     bias (Co,), residual (B, Ho, Wo, Co) -> (B, Ho/pool, Wo/pool, Co).
 
-    A CUDA ``x`` launches the CUDA kernel; a CPU ``x`` runs the plain
-    version.  Any other device raises."""
+    A CUDA ``x`` launches the kernel :func:`route` names; a CPU ``x``
+    runs the plain version.  Any other device raises."""
     if x.device.type == "cpu":
         return conv2d_ref(x, w, bias, residual, stride=stride,
                           padding=padding, dilation=dilation,
@@ -277,8 +463,8 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if min(sy, sx, dy, dx, ly, lx, pool) < 1 or min(py, px) < 0:
         raise ValueError("stride, dilation, lhs_dilation and pool must "
                          "be >= 1 and padding >= 0")
-    ho = ((h - 1) * ly + 1 + 2 * py - ((hk - 1) * dy + 1)) // sy + 1
-    wo = ((wd - 1) * lx + 1 + 2 * px - ((wk - 1) * dx + 1)) // sx + 1
+    ho, wo = _out_plane(h, wd, hk, wk, stride, padding, dilation,
+                        lhs_dilation)
     if ho < 1 or wo < 1:
         raise ValueError(f"{hk}x{wk} conv has no output on a {h}x{wd} "
                          f"plane")
@@ -292,9 +478,63 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if residual is not None:
         _check_cuda_operand("residual", residual, x.device,
                             (b, ho, wo, co), x.dtype)
+    rt, plan = plan_of(x, w, bias, residual, stride=stride,
+                       padding=padding, dilation=dilation,
+                       lhs_dilation=lhs_dilation, pool=pool)
+    if rt == "sm90":
+        out = _sm90(x, w, bias, residual, ho, wo, (py, px), relu, pool,
+                    plan)
+    else:
+        out = _fma(x, w, bias, residual, ho, wo, stride, padding, dilation,
+                   lhs_dilation, relu, pool, plan)
+    conv_lb.launches += 1
+    conv_lb.launches_by_route[rt] += 1
+    return out
+
+
+def _launched(lib: Library, err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.error_string(err)} (error {err})")
+
+
+def _sm90(x, w, bias, residual, ho: int, wo: int, padding, relu: bool,
+          pool: int, plan: Sm90Plan) -> torch.Tensor:
+    """One launch of ``csrc/conv_lb_sm90.cu`` on the tile and offsets of
+    ``plan``: :func:`sm90_plan`'s, or a wrong one that a check passes
+    to show that the card's gate sees it."""
+    b, h, wd, ci = x.shape
+    hk, wk, _, co = w.shape
+    lib, forward = _entry(SM90_SOURCE, "conv_lb_sm90_forward", 6, 25)
+    out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
+                      device=x.device)
+    win_off = (ctypes.c_int * len(plan.win_off))(*plan.win_off)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(
+            x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), ctypes.addressof(win_off), b, h, wd, ci, co, hk,
+            wk, ho, wo, padding[0], padding[1], pool, int(relu), plan.bb,
+            plan.ty, plan.tx, plan.hy, plan.hx, plan.bn, plan.cib,
+            plan.plane_bytes, plan.sbo, plan.blk_off[0], plan.blk_off[1],
+            plan.smem_bytes, stream)
+    _launched(lib, err, "conv_lb_sm90")
+    return out
+
+
+def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,
+         dilation, lhs_dilation, relu: bool, pool: int,
+         plan: tuple[int, int, int, int, int]) -> torch.Tensor:
+    """One launch of ``csrc/conv_lb.cu`` on ``plan``, the tile of
+    :func:`cta_plan`."""
+    b, h, wd, ci = x.shape
+    hk, wk, _, co = w.shape
+    (sy, sx), (py, px) = stride, padding
+    (dy, dx), (ly, lx) = dilation, lhs_dilation
     elt = x.element_size()
-    bb, ty, tx, tn, krows = cta_plan(b, ho, wo, co, pool, hk, wk,
-                                     (sy, sx), (dy, dx), elt)
+    bb, ty, tx, tn, krows = plan
     smem = cta_smem_bytes(bb, ty, tx, tn, hk, wk, (sy, sx), (dy, dx),
                           pool, krows, elt)
     if smem > SMEM_PER_BLOCK:
@@ -302,8 +542,7 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
                          f"{dilation} conv needs {smem} B of shared "
                          f"memory per CTA, more than the card's "
                          f"{SMEM_PER_BLOCK} B")
-    lib = build()
-    forward = lib.bind("conv_lb_forward", 5, 29)
+    lib, forward = _entry(SOURCE, "conv_lb_forward", 5, 29)
     out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
                       device=x.device)
     with torch.cuda.device(x.device):
@@ -317,11 +556,9 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
             bb, ty, tx, tn, krows, _aligned(x), _aligned(w),
             _aligned(out) and (residual is None or _aligned(residual)),
             DTYPES[x.dtype], smem, stream)
-    if err != 0:
-        raise RuntimeError(f"conv_lb kernel launch failed: "
-                           f"{lib.error_string(err)} (error {err})")
-    conv_lb.launches += 1
+    _launched(lib, err, "conv_lb")
     return out
 
 
 conv_lb.launches = 0
+conv_lb.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -562,3 +562,103 @@ def test_bf16_server_on_the_card(cuda):
     want = graph_logits(vgg_graph(params), params,
                         x.to(cuda, torch.bfloat16), conv=conv2d_ref)
     _within(res.logits, want, torch.bfloat16)
+
+
+# b, h, ci, co, pool, residual, dilation, pad: K1's sm90 kernel at VGG
+# shapes (conv1_2 with its pool, conv3_2, conv5_3 with its pool on the
+# 14 x 14 plane), a residual join, dilation 2, and Co 200 (not a
+# multiple of any CTA width) at Ci 24 (a Ci block past Ci)
+SM90_CONVS = [
+    (2, 224, 64, 64, 2, False, 1, 1),
+    (8, 56, 256, 256, 1, False, 1, 1),
+    (8, 14, 512, 512, 2, False, 1, 1),
+    (4, 28, 64, 64, 1, True, 1, 1),
+    (2, 20, 32, 48, 1, False, 2, 2),
+    (3, 12, 24, 200, 2, True, 1, 1),
+]
+
+
+def _sm90_launched(before):
+    return {r: K.conv_lb.launches_by_route[r] - before[r] for r in before}
+
+
+@pytest.mark.parametrize("b,h,ci,co,pool,res,d,p", SM90_CONVS)
+def test_sm90_conv_matches_plain(cuda, b, h, ci, co, pool, res, d, p):
+    """K1's sm90 kernel (TMA, wgmma, f32 sums, one rounding) within the
+    bf16 gate of the plain version, one launch on route ``sm90``."""
+    g = torch.Generator().manual_seed(16)
+    bf = torch.bfloat16
+    x = torch.randn((b, h, h, ci), generator=g).to(cuda, bf)
+    w = (torch.randn((3, 3, ci, co), generator=g) / (9 * ci) ** 0.5
+         ).to(cuda, bf)
+    bias = torch.randn((co,), generator=g).to(cuda, bf)
+    ho = h + 2 * p - 2 * d
+    r = (torch.randn((b, ho, ho, co), generator=g).to(cuda, bf)
+         if res else None)
+    kw = dict(padding=(p, p), dilation=(d, d), relu=True, pool=pool)
+    assert K.route(x, w, bias=bias, residual=r, dilation=(d, d),
+                   pool=pool) == "sm90"
+    before = dict(K.conv_lb.launches_by_route)
+    out = K.conv_lb(x, w, bias, r, **kw)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == {"sm90": 1, "fma": 0}
+    assert out.dtype == bf and out.shape == (b, ho // pool, ho // pool, co)
+    _within(out, conv2d_ref(x, w, bias, r, **kw), bf)
+
+
+@pytest.mark.parametrize("b,h,ci,co", [(8, 28, 256, 512), (2, 14, 512, 512),
+                                       (2, 56, 128, 256)])
+def test_sm90_dgrad_geometry_matches_plain(cuda, b, h, ci, co):
+    """The dgrad of a VGG layer (gy against the flipped weights, stride
+    1, full padding) takes the sm90 kernel."""
+    g = torch.Generator().manual_seed(17)
+    bf = torch.bfloat16
+    gy = torch.randn((b, h, h, co), generator=g).to(cuda, bf)
+    wf = flip_w((torch.randn((3, 3, ci, co), generator=g) / (9 * ci) ** 0.5
+                 ).to(cuda, bf))
+    before = dict(K.conv_lb.launches_by_route)
+    out = K.conv_lb(gy, wf, padding=(1, 1))
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == {"sm90": 1, "fma": 0}
+    _within(out, conv2d_ref(gy, wf, padding=(1, 1)), bf)
+
+
+@pytest.mark.parametrize("case", ["stride 2", "lhs dilation 2", "ci 3",
+                                  "x off by 2 bytes"])
+def test_what_sm90_does_not_take_runs_on_fma(cuda, case):
+    """Geometries the route refuses run on the FMA kernel, at the same
+    gate."""
+    g = torch.Generator().manual_seed(18)
+    bf = torch.bfloat16
+    ci = 3 if case == "ci 3" else 16
+    x = torch.randn((2, 16, 16, ci), generator=g).to(cuda, bf)
+    if case == "x off by 2 bytes":
+        flat = torch.zeros(x.numel() + 8, dtype=bf, device=cuda)
+        x = flat[1:x.numel() + 1].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 2
+    w = (torch.randn((3, 3, ci, 32), generator=g) / (9 * ci) ** 0.5
+         ).to(cuda, bf)
+    kw = dict(padding=(1, 1), relu=True,
+              stride=(2, 2) if case == "stride 2" else (1, 1),
+              lhs_dilation=(2, 2) if case == "lhs dilation 2" else (1, 1))
+    assert K.route(x, w, kw["stride"], kw["lhs_dilation"]) == "fma"
+    before = dict(K.conv_lb.launches_by_route)
+    out = K.conv_lb(x, w, **kw)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == {"sm90": 0, "fma": 1}
+    _within(out, conv2d_ref(x, w, **kw), bf)
+
+
+def test_conv_sm90_launch_error_raises(cuda, monkeypatch):
+    """A tensor map the driver refuses (24-byte pixels: Ci = 12, which
+    the route would never send, forced onto sm90 here) raises through
+    ``conv_lb`` with its reason and counts no launch on any route."""
+    bf = torch.bfloat16
+    x = torch.zeros((1, 8, 8, 12), device=cuda, dtype=bf)
+    w = torch.zeros((3, 3, 12, 16), device=cuda, dtype=bf)
+    assert K.route(x, w) == "fma"
+    monkeypatch.setattr(K, "route", lambda *a, **kw: "sm90")
+    before = (K.conv_lb.launches, dict(K.conv_lb.launches_by_route))
+    with pytest.raises(RuntimeError, match="conv_lb_sm90"):
+        K.conv_lb(x, w, padding=(1, 1))
+    assert (K.conv_lb.launches, K.conv_lb.launches_by_route) == before
