@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
-  * ``build``: the conv (K1: FMA and sm90), wgrad (K2), matmul (K3:
-    FMA and sm90) and attention (K4: FMA and sm90) kernels from the
+  * ``build``: the conv (K1: FMA and sm90), wgrad (K2: FMA and sm90),
+    matmul (K3: FMA and sm90) and attention (K4: FMA and sm90) kernels from the
     sources in this checkout, one nvcc each, all started together;
     ptxas registers, spills and shared memory;
   * ``check``, ``check_bwd``: K1 (f32 and bf16, each row with the
     route it took and its tile; also in its dgrad geometries, and at
-    7x7 and 11x11 windows) and K2 (x and dy f32 and bf16) against their
-    plain PyTorch versions; a wrong result of K1's sm90 kernel (the
-    halo read one row off) shown to fail the bf16 gate; one bf16
-    backward through K1 and K2 against the plain autograd; the two
+    7x7 and 11x11 windows) and K2 (x and dy f32 and bf16, each row with
+    the route it took and its plan) against their plain PyTorch
+    versions; wrong results of K1's and K2's sm90 kernels (the halo
+    read one row off) shown to fail the bf16 gate and ``WGRAD_TOL``;
+    one bf16 backward through K1 and K2 (both on sm90) against the
+    plain autograd; the two
     backwards the kernels do not take (lhs-dilated, padding past full)
     against the plain autograd, with the library-rung tally;
   * ``check_matmul``, ``check_attention``: K3 and K4 through
@@ -36,7 +38,9 @@
     a library call;
   * ``attention_head_dims``: K4 at head dims 80, 96 and 256, timed;
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
-    and bf16, each row with its route and tile.
+    and bf16, each row with its route and tile (K2: plan) and the
+    host's time to enqueue one call (``host_us``; K1's forward and
+    K2).
 
 Times are CUDA events around one call, the L2 cache flushed before
 it; a call shorter than the host's time to enqueue it is charged that
@@ -114,6 +118,7 @@ SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb.cu"
 CONV_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb_sm90.cu"
 REPLACES = "src/repro/kernels/conv_lb/kernel.py:116"
 WGRAD_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb.cu"
+WGRAD_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb_sm90.cu"
 WGRAD_REPLACES = "src/repro/kernels/conv_lb/wgrad.py:50"
 MATMUL_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb.cu"
 SM90_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb_sm90.cu"
@@ -177,10 +182,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    libs = K.build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, K3.SOURCE,
-                         K3.SM90_SOURCE, K4.SOURCE, K4.SM90_SOURCE])
+    libs = K.build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, W.SM90_SOURCE,
+                         K3.SOURCE, K3.SM90_SOURCE, K4.SOURCE,
+                         K4.SM90_SOURCE])
     for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE, WGRAD_SOURCE,
-                                  MATMUL_SOURCE, SM90_SOURCE, ATTN_SOURCE,
+                                  WGRAD_SM90_SOURCE, MATMUL_SOURCE,
+                                  SM90_SOURCE, ATTN_SOURCE,
                                   ATTN_SM90_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
@@ -241,6 +248,28 @@ def conv_route(x, w, bias=None, residual=None, **kw) -> tuple[str, list]:
     kw = {k: v if k == "pool" else pair(v) for k, v in kw.items()}
     rt, plan = K.plan_of(x, w, bias, residual, **kw)
     return rt, list(plan.tile if rt == "sm90" else plan)
+
+
+def wgrad_route(x, dy, geom) -> tuple[str, list]:
+    """The route :func:`W.plan_of` names for one wgrad and the plan that
+    route's kernel runs: ``[bn, nwc, cib, splits]`` (sm90) or
+    ``wgrad_split``'s ``[tn, splits, chunks_per_split]`` (fma)."""
+    rt, plan = W.plan_of(x, dy, geom)
+    return rt, list(plan.tile if rt == "sm90" else plan)
+
+
+def wgrad_launch(x, dy, geom, what: str):
+    """One ``wgrad_lb`` call, required to launch the kernel of the route
+    :func:`wgrad_route` names (once, on no other route): returns dW,
+    the route and its plan."""
+    rt, plan = wgrad_route(x, dy, geom)
+    before = dict(W.wgrad_lb.launches_by_route)
+    dw = W.wgrad_lb(x, dy, geom)
+    launched = {r: W.wgrad_lb.launches_by_route[r] - before[r]
+                for r in before}
+    require(launched == dict.fromkeys(W.ROUTES, 0) | {rt: 1},
+            f"{what}: wgrad launches {launched}, route {rt}")
+    return dw, rt, plan
 
 
 def phase_check() -> None:
@@ -578,8 +607,8 @@ def phase_check_bwd() -> float:
             row.update(dgrad_shape=list(out.shape), dgrad_max_abs_err=err,
                        dgrad_max_abs_err_over_max_ref=rel,
                        dx_vs_autograd_over_max_ref=grel, dgrad_tol=TOL)
-        dw = W.wgrad_lb(x, gy, W.WgradGeometry(hk=k, wk=k, stride=(s, s),
-                                               padding=(p, p)))
+        geom = W.WgradGeometry(hk=k, wk=k, stride=(s, s), padding=(p, p))
+        dw, rt, plan = wgrad_launch(x, gy, geom, f"check_bwd {name}")
         dw_ref = wgrad_ref(x, gy, k, k, stride=s, padding=p)
         torch.cuda.synchronize()
         require(dw.shape == dw_ref.shape, f"check_bwd {name}: wgrad shape")
@@ -588,20 +617,25 @@ def phase_check_bwd() -> float:
                                   f"plain {rel} > {WGRAD_TOL}")
         worst = max(worst, err)
         row.update(wgrad_shape=list(dw.shape), wgrad_max_abs_err=err,
-                   wgrad_max_abs_err_over_max_ref=rel,
-                   wgrad_split=list(W.wgrad_split(k * k * ci, co,
-                                                  b * ho * wo)),
-                   wgrad_tol=WGRAD_TOL)
-        # bf16: K2 widens the same words the plain version widens and
-        # sums in f32 (WGRAD_TOL); K1's dgrad rounds once (bf16 gate)
+                   wgrad_max_abs_err_over_max_ref=rel, wgrad_route=rt,
+                   wgrad_plan=plan, wgrad_tol=WGRAD_TOL)
+        # bf16: K2 sums the same bf16 words as the plain version in f32
+        # (WGRAD_TOL), on sm90 where the stride is 1 and TMA describes
+        # the channels; K1's dgrad rounds once (bf16 gate)
         xb, gyb = x.to(torch.bfloat16), gy.to(torch.bfloat16)
-        dwb = W.wgrad_lb(xb, gyb, W.WgradGeometry(
-            hk=k, wk=k, stride=(s, s), padding=(p, p)))
+        dwb, brt, bplan = wgrad_launch(xb, gyb, geom,
+                                       f"check_bwd {name} bf16")
         _, brel = rel_err(dwb, wgrad_ref(xb, gyb, k, k, stride=s,
                                          padding=p))
         require(dwb.dtype == torch.float32 and brel <= WGRAD_TOL,
                 f"check_bwd {name}: bf16 wgrad {dwb.dtype} {brel}")
-        row.update(wgrad_bf16_max_abs_err_over_max_ref=brel)
+        want_rt = "sm90" if s == 1 and ci % 8 == 0 and co % 8 == 0 else "fma"
+        require(brt == want_rt, f"check_bwd {name}: bf16 wgrad on {brt}, "
+                                f"want {want_rt}")
+        row.update(wgrad_bf16_max_abs_err_over_max_ref=brel,
+                   wgrad_bf16_route=brt, wgrad_bf16_plan=bplan,
+                   wgrad_bf16_host_us=_host_us(
+                       lambda: W.wgrad_lb(xb, gyb, geom)))
         if (name, b, (h, w), ci, co, k, s, p) in BWD_CHECKS:
             gypb, wfb = gyp.to(torch.bfloat16), wf.to(torch.bfloat16)
             gate = within(conv2d_lb(gypb, wfb, **kw),
@@ -610,8 +644,49 @@ def phase_check_bwd() -> float:
                     f"check_bwd {name}: bf16 dgrad {gate}")
             row.update(dgrad_bf16=gate)
         emit(row)
+    check_wgrad_sm90_control(gen)
     check_library_bwd(gen)
     return worst
+
+
+# name, batch, plane, ci, co: VGG16/224 layers at batch 8 on which a
+# fault of K2's sm90 kernel is shown to fail WGRAD_TOL
+WGRAD_SM90_CONTROLS = [("conv3_2", 8, 56, 256, 256),
+                       ("conv5_3", 8, 14, 512, 512)]
+
+
+def check_wgrad_sm90_control(gen) -> None:
+    """K2's sm90 kernel with one fault of its own: the centre window
+    (1, 1) reads the halo one row off (its shift passed one halo row too
+    far).  The right launch passes ``WGRAD_TOL``; the faulty one must
+    fail it by more than 10x."""
+    bf = torch.bfloat16
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    for name, b, h, ci, co in WGRAD_SM90_CONTROLS:
+        x = _randn(gen, b, h, h, ci).to(bf)
+        gy = _randn(gen, b, h, h, co).to(bf)
+        right, rt, plan = wgrad_launch(x, gy, geom, f"control {name}")
+        require(rt == "sm90", f"control wgrad sm90 {name}: route {rt}")
+        p = W.sm90_wgrad_plan(b, h, h, ci, co, 3, 3, (1, 1))
+        off = list(p.win_off)
+        off[4] += p.sbo
+        wrong = W._sm90(x, gy, geom, dataclasses.replace(
+            p, win_off=tuple(off)))
+        plain = wgrad_ref(x, gy, 3, 3, padding=1)
+        torch.cuda.synchronize()
+        _, rel = rel_err(right, plain)
+        _, wrel = rel_err(wrong, plain)
+        emit({"phase": "check_bwd", "geometry":
+              f"wgrad_sm90_control_{name}_b{b}", "dtype": str(bf),
+              "route": rt, "plan": plan,
+              "max_abs_err_over_max_ref": rel, "tol": WGRAD_TOL,
+              "control": {"what": "centre window reads the halo one row "
+                                  "off", "max_abs_err_over_max_ref": wrel,
+                          "over_tol": wrel / WGRAD_TOL}})
+        require(rel <= WGRAD_TOL, f"control wgrad sm90 {name}: the right "
+                                  f"launch {rel}")
+        require(wrel > 10 * WGRAD_TOL, f"control wgrad sm90 {name}: the "
+                f"faulty launch {wrel} fails the gate by less than 10x")
 
 
 def check_bwd_bf16() -> dict:
@@ -620,7 +695,7 @@ def check_bwd_bf16() -> dict:
     bias and no ReLU or pool (no discrete choice to flip between the
     two), held to the plain version's autograd at the bf16 gate: both
     sum in f32 and round each gradient once to bf16.  Returns the
-    launches of the backward."""
+    launches of the backward (K2's also by route: it must take sm90)."""
     gen = torch.Generator().manual_seed(SEED + 8)
     x = _randn(gen, 8, 28, 28, 256).to(torch.bfloat16)
     w = _randn(gen, 3, 3, 256, 512, scale=(9 * 256) ** -0.5).to(
@@ -632,18 +707,21 @@ def check_bwd_bf16() -> dict:
     K.conv_lb.launches = 0
     K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
     W.wgrad_lb.launches = 0
+    W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
     got = torch.autograd.grad(out, leaves, gy)
     torch.cuda.synchronize()
     launches = {"conv_lb": K.conv_lb.launches,
                 "wgrad_lb": W.wgrad_lb.launches}
     by_route = dict(K.conv_lb.launches_by_route)
+    wgrad_by_route = dict(W.wgrad_lb.launches_by_route)
     plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
     want = torch.autograd.grad(conv2d_ref(*plain, padding=1), plain, gy)
     rows = {n: within(a, b, torch.bfloat16)
             for n, a, b in zip(("dx", "dw", "db"), got, want)}
     emit({"phase": "check_bwd", "geometry": "bf16_conv4_b8",
           "dtypes": [str(t.dtype) for t in got], "launches": launches,
-          "conv_lb_launches_by_route": by_route, **rows})
+          "conv_lb_launches_by_route": by_route,
+          "wgrad_lb_launches_by_route": wgrad_by_route, **rows})
     require(all(t.dtype == torch.bfloat16 for t in got),
             f"check_bwd bf16: gradient types {[t.dtype for t in got]}")
     # recompute + dgrad on K1 (both on its sm90 kernel), wgrad on K2
@@ -651,9 +729,11 @@ def check_bwd_bf16() -> dict:
             f"check_bwd bf16: launches {launches}")
     require(by_route == {"sm90": 2, "fma": 0},
             f"check_bwd bf16: K1 launches by route {by_route}")
+    require(wgrad_by_route == {"sm90": 1, "fma": 0},
+            f"check_bwd bf16: K2 launches by route {wgrad_by_route}")
     for n, r in rows.items():
         require(r["worst_over_tol"] <= 1.0, f"check_bwd bf16 {n}: {r}")
-    return launches
+    return launches | {"wgrad_lb_by_route": wgrad_by_route}
 
 
 # name, forward kwargs, the (K1, K2) launches of the backward, the
@@ -1389,6 +1469,7 @@ def phase_train(model: str) -> dict:
     with tracer.activate():
         K.conv_lb.launches = 0
         W.wgrad_lb.launches = 0
+        W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
         W.wgrad_lb.reduce_launches = 0
         losses = T.train(graph, params, images, labels,
                          steps=TRAIN_STEPS, lr=TRAIN_LR[model],
@@ -1396,6 +1477,7 @@ def phase_train(model: str) -> dict:
                          on_step=check)
         launches = {"conv_lb": K.conv_lb.launches,
                     "wgrad_lb": W.wgrad_lb.launches,
+                    "wgrad_lb_by_route": dict(W.wgrad_lb.launches_by_route),
                     "wgrad_reduce": W.wgrad_lb.reduce_launches}
     k1 = [c - p for (c, _), (p, _) in zip(per_step, [(0, 0)] + per_step)]
     k2 = [c - p for (_, c), (_, p) in zip(per_step, [(0, 0)] + per_step)]
@@ -1433,7 +1515,9 @@ def phase_train(model: str) -> dict:
 def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
     """dgrad (K1) and wgrad (K2) per VGG16/224 layer at batch 8, f32
     and bf16 (the same words rounded once; K2's dW is f32 in both),
-    each timed beside its bound and cuDNN's in the same type."""
+    each timed beside its bound and cuDNN's in the same type; each
+    wgrad row with its route (bf16 after conv1_1: sm90, required), its
+    plan and the host's time to enqueue one call."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED + 2)
     params = init_vgg(gen, device="cuda")
@@ -1500,11 +1584,22 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                 dgrad_rows.append(row)
             geom = W.WgradGeometry(hk=3, wk=3, stride=(1, 1),
                                    padding=(1, 1))
-            dw = W.wgrad_lb(x, gy, geom)
+            dw, rt, plan = wgrad_launch(x, gy, geom,
+                                        f"wgrad {node.name} {dtype}")
+            # bf16 after conv1_1 on sm90; conv1_1 (Ci = 3) and f32 on fma
+            want_rt = ("sm90" if dtype == torch.bfloat16 and i > 0
+                       else "fma")
+            require(rt == want_rt, f"wgrad {node.name} {dtype}: on {rt}, "
+                                   f"want {want_rt}")
             dw_ref = wgrad_ref(x, gy, 3, 3, padding=1)
             err, rel = rel_err(dw, dw_ref)
             require(rel <= WGRAD_TOL, f"wgrad {node.name} {dtype}: kernel "
                                       f"vs plain {rel}")
+
+            def library():
+                return torch.nn.grad.conv2d_weight(
+                    x_nchw, w_oihw.shape, gy_nchw, padding=1)
+
             # x and dy read in their type, dW written in f32
             n_bytes = float(elt * (x.numel() + gy.numel())
                             + 4 * dw.numel())
@@ -1514,17 +1609,15 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                        plain_ms=_time_ms(
                            lambda: wgrad_ref(x, gy, 3, 3, padding=1),
                            flush),
-                       library_ms=_time_ms(
-                           lambda: torch.nn.grad.conv2d_weight(
-                               x_nchw, w_oihw.shape, gy_nchw, padding=1),
-                           flush),
+                       library_ms=_time_ms(library, flush),
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes
                        else "bytes",
                        bytes=n_bytes, max_abs_err=err,
                        max_abs_err_over_max_ref=rel, tol=WGRAD_TOL,
-                       split=list(W.wgrad_split(9 * ci, co,
-                                                batch * st.ho * st.wo)))
+                       route=rt, plan=plan,
+                       host_us=_host_us(lambda: W.wgrad_lb(x, gy, geom)),
+                       library_host_us=_host_us(library))
             emit(row)
             wgrad_rows.append(row)
     return dgrad_rows, wgrad_rows
@@ -1588,6 +1681,10 @@ def main() -> int:
     require(len(sm90_fwd) == 12 and len(sm90_dgrad) == 12,
             f"layers: {len(sm90_fwd)} forward and {len(sm90_dgrad)} dgrad "
             f"bf16 layers on sm90, want 12 and 12")
+    bf16_wgrad = _of(wgrad_rows, torch.bfloat16)
+    sm90_wgrad = [r for r in bf16_wgrad if r["route"] == "sm90"]
+    require(len(sm90_wgrad) == 12, f"layers_bwd: {len(sm90_wgrad)} bf16 "
+                                   f"wgrad layers on sm90, want 12")
     attn_sums = {rt: _sums([r for r in attn_rows if r["route"] == rt])
                  for rt in K4.ROUTES}
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
@@ -1632,8 +1729,24 @@ def main() -> int:
              launches_bwd_bf16=bwd_bf16["wgrad_lb"],
              reduce_launches=train_vgg["wgrad_reduce"],
              by_dtype=_by_dtype(wgrad_rows),
+             bf16_by_route={
+                 rt: {"layers": [r["layer"] for r in bf16_wgrad
+                                 if r["route"] == rt],
+                      **_sums([r for r in bf16_wgrad if r["route"] == rt])}
+                 for rt in W.ROUTES},
              times_are=f"f32 {vgg_times} (by_dtype: x and dy f32 and "
-                       f"bf16, dW f32)",
+                       f"bf16, dW f32, every layer on the route it takes; "
+                       f"bf16_by_route: split by route)",
+             card=card),
+        dict(_sums(sm90_wgrad), name="wgrad_lb_sm90", route="cuda",
+             kernel_route="sm90", source=WGRAD_SM90_SOURCE,
+             replaces=WGRAD_REPLACES, dtype="bf16",
+             launches=bwd_bf16["wgrad_lb_by_route"]["sm90"],
+             host_us=sum(r["host_us"] for r in sm90_wgrad),
+             library_host_us=sum(r["library_host_us"] for r in sm90_wgrad),
+             times_are="bf16 sums over the 12 VGG16/224 layers after "
+                       "conv1_1 at batch 8 (x and dy bf16, dW f32); "
+                       "launches: the bf16 backward",
              card=card),
         dict(_sums(matmul_rows), name="matmul_lb", route="cuda",
              kernel_route="fma", source=MATMUL_SOURCE,

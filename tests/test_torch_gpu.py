@@ -662,3 +662,80 @@ def test_conv_sm90_launch_error_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="conv_lb_sm90"):
         K.conv_lb(x, w, padding=(1, 1))
     assert (K.conv_lb.launches, K.conv_lb.launches_by_route) == before
+
+
+# b, h, w, ci, co, pad, dilation: K2's sm90 kernel at VGG16/224 shapes
+# (conv1_2 and conv3_1 at batch 2, conv5_3 at batch 8: the longest and
+# the shortest reductions), a ragged 13 x 15 plane, Ci 16 and 24 (a Ci
+# block past Ci), dilation 2
+SM90_WGRADS = [
+    (2, 224, 224, 64, 64, 1, 1),
+    (2, 56, 56, 128, 256, 1, 1),
+    (8, 14, 14, 512, 512, 1, 1),
+    (3, 13, 15, 32, 48, 1, 1),
+    (2, 20, 20, 16, 64, 1, 1),
+    (2, 20, 20, 24, 40, 1, 1),
+    (2, 20, 20, 32, 32, 2, 2),
+]
+
+
+def _wgrad_launched(before):
+    return {r: W.wgrad_lb.launches_by_route[r] - before[r] for r in before}
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,p,d", SM90_WGRADS)
+def test_sm90_wgrad_matches_plain(cuda, b, h, w, ci, co, p, d):
+    """K2's sm90 kernel (TMA, wgmma, f32 sums) within the wgrad
+    tolerance of the plain version on the same bf16 words, one launch on
+    route ``sm90``."""
+    g = torch.Generator().manual_seed(19)
+    bf = torch.bfloat16
+    ho, wo = h + 2 * p - 2 * d, w + 2 * p - 2 * d
+    x = torch.randn((b, h, w, ci), generator=g).to(cuda, bf)
+    dy = torch.randn((b, ho, wo, co), generator=g).to(cuda, bf)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(p, p), dilation=(d, d))
+    assert W.route(x, dy, geom) == "sm90"
+    before = dict(W.wgrad_lb.launches_by_route)
+    dw = W.wgrad_lb(x, dy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == {"sm90": 1, "fma": 0}
+    assert dw.dtype == torch.float32
+    _close(dw, wgrad_ref(x, dy, 3, 3, padding=p, dilation=d), tol=2e-4)
+
+
+@pytest.mark.parametrize("case", ["stride 2", "ci 3", "x off by 2 bytes"])
+def test_what_sm90_wgrad_does_not_take_runs_on_fma(cuda, case):
+    g = torch.Generator().manual_seed(20)
+    bf = torch.bfloat16
+    ci, s = (3 if case == "ci 3" else 16), (2 if case == "stride 2" else 1)
+    x = torch.randn((2, 16, 16, ci), generator=g).to(cuda, bf)
+    if case == "x off by 2 bytes":
+        flat = torch.zeros(x.numel() + 8, dtype=bf, device=cuda)
+        x = flat[1:x.numel() + 1].view(x.shape).copy_(x)
+        assert x.data_ptr() % 16 == 2
+    ho = (16 + 2 - 3) // s + 1
+    dy = torch.randn((2, ho, ho, 32), generator=g).to(cuda, bf)
+    geom = W.WgradGeometry(hk=3, wk=3, stride=(s, s), padding=(1, 1))
+    assert W.route(x, dy, geom) == "fma"
+    before = dict(W.wgrad_lb.launches_by_route)
+    dw = W.wgrad_lb(x, dy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == {"sm90": 0, "fma": 1}
+    _close(dw, wgrad_ref(x, dy, 3, 3, stride=s, padding=1), tol=2e-4)
+
+
+def test_wgrad_sm90_launch_error_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (Ci = 12, which the route would never
+    send, forced onto sm90 here) raises through ``wgrad_lb`` with its
+    reason and counts no launch on any route."""
+    bf = torch.bfloat16
+    x = torch.zeros((1, 8, 8, 12), device=cuda, dtype=bf)
+    dy = torch.zeros((1, 8, 8, 16), device=cuda, dtype=bf)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    assert W.route(x, dy, geom) == "fma"
+    plan = W.sm90_wgrad_plan(1, 8, 8, 16, 16, 3, 3, (1, 1))
+    monkeypatch.setattr(W, "plan_of", lambda *a, **kw: ("sm90", plan))
+    before = (W.wgrad_lb.launches, dict(W.wgrad_lb.launches_by_route))
+    with pytest.raises(RuntimeError, match="wgrad_lb_sm90"):
+        W.wgrad_lb(x, dy, geom)
+    assert (W.wgrad_lb.launches, W.wgrad_lb.launches_by_route) == before
