@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
-  * ``build``: the conv (K1: FMA and sm90), wgrad (K2: FMA and sm90),
-    matmul (K3: FMA and sm90) and attention (K4: FMA and sm90) kernels from the
-    sources in this checkout, one nvcc each, all started together;
-    ptxas registers, spills and shared memory;
+  * ``build``: the conv (K1: FMA and sm90), wgrad (K2: FMA, sm90 bf16,
+    sm90 3xTF32 and the im2col staging kernel), matmul (K3: FMA and
+    sm90) and attention (K4: FMA and sm90) kernels from the sources in
+    this checkout, one nvcc each, all started together; ptxas
+    registers, spills and shared memory;
   * ``check``, ``check_bwd``: K1 (f32 and bf16, each row with the
     route it took and its tile; also in its dgrad geometries, and at
     7x7 and 11x11 windows) and K2 (x and dy f32 and bf16, each row with
     the route it took and its plan) against their plain PyTorch
     versions; wrong results of K1's and K2's sm90 kernels (the halo
-    read one row off) shown to fail the bf16 gate and ``WGRAD_TOL``;
+    read one row off) shown to fail the bf16 gate and ``WGRAD_TOL``,
+    of K2's im2col plane (one tap one column off) to fail ``WGRAD_TOL``
+    by over 10x, and K2's 3xTF32 kernel without its lo terms (1xTF32)
+    to err at least 4x more than the route;
     one bf16 backward through K1 and K2 (both on sm90) against the
     plain autograd; the two
     backwards the kernels do not take (lhs-dilated, padding past full)
@@ -29,7 +33,9 @@
     ``repro_torch.serve.ImageServer``, every conv on K1 (bf16 VGG: 12
     convs a dispatch on the sm90 kernel, conv1_1 on FMA);
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
-    on K1 (recompute, dgrad) and K2 (wgrad);
+    on K1 (recompute, dgrad) and K2 (wgrad), K2's launches per route
+    exact (f32 VGG: conv1_1 on ``sm90_im2col``, the 12 after it on
+    ``sm90_tf32``);
   * ``matmul``, ``attention``: the two entry points at full width
     (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
     kernel, and wq also with a K-major ``w``; phi3-medium-14b's and
@@ -40,7 +46,11 @@
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
     and bf16, each row with its route and tile (K2: plan) and the
     host's time to enqueue one call (``host_us``; K1's forward and
-    K2).
+    K2); K2's rows also with the FMA kernel's time and error on the same
+    inputs (``fma_ms``, ``fma_err``, gated like the route) and its
+    bound (``fma_bound_ms``) beside the route's (``bound_ms``: f32 as
+    3xTF32, three products at the TF32 rate) and, at conv1_1, the
+    im2col staging kernel's own time.
 
 Times are CUDA events around one call, the L2 cache flushed before
 it; a call shorter than the host's time to enqueue it is charged that
@@ -74,6 +84,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
                                              PEAK_BF16_FLOPS,
                                              PEAK_F32_FLOPS,
+                                             PEAK_TF32_FLOPS,
                                              hbm_traffic_model)
 from repro_torch.kernels.attention_block import kernel as K4  # noqa: E402
 from repro_torch.kernels.attention_block.ops import (  # noqa: E402
@@ -91,7 +102,7 @@ from repro_torch.kernels.matmul_lb.ops import (accounted_block,  # noqa: E402
                                                matmul_lb)
 from repro_torch.kernels.matmul_lb.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
-                                             wgrad_ref)
+                                             im2col_ref, wgrad_ref)
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph)
@@ -119,6 +130,9 @@ CONV_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb_sm90.cu"
 REPLACES = "src/repro/kernels/conv_lb/kernel.py:116"
 WGRAD_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb.cu"
 WGRAD_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb_sm90.cu"
+WGRAD_TF32_SOURCE = ("src/repro_torch/kernels/conv_lb/csrc/"
+                     "wgrad_lb_sm90_tf32.cu")
+WGRAD_IM2COL_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_im2col.cu"
 WGRAD_REPLACES = "src/repro/kernels/conv_lb/wgrad.py:50"
 MATMUL_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb.cu"
 SM90_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb_sm90.cu"
@@ -183,10 +197,11 @@ def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
     libs = K.build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, W.SM90_SOURCE,
-                         K3.SOURCE, K3.SM90_SOURCE, K4.SOURCE,
-                         K4.SM90_SOURCE])
+                         W.TF32_SOURCE, W.IM2COL_SOURCE, K3.SOURCE,
+                         K3.SM90_SOURCE, K4.SOURCE, K4.SM90_SOURCE])
     for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE, WGRAD_SOURCE,
-                                  WGRAD_SM90_SOURCE, MATMUL_SOURCE,
+                                  WGRAD_SM90_SOURCE, WGRAD_TF32_SOURCE,
+                                  WGRAD_IM2COL_SOURCE, MATMUL_SOURCE,
                                   SM90_SOURCE, ATTN_SOURCE,
                                   ATTN_SM90_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
@@ -252,10 +267,25 @@ def conv_route(x, w, bias=None, residual=None, **kw) -> tuple[str, list]:
 
 def wgrad_route(x, dy, geom) -> tuple[str, list]:
     """The route :func:`W.plan_of` names for one wgrad and the plan that
-    route's kernel runs: ``[bn, nwc, cib, splits]`` (sm90) or
-    ``wgrad_split``'s ``[tn, splits, chunks_per_split]`` (fma)."""
+    route's kernel runs: ``[bn, nwc, cib, splits]`` (sm90, sm90_tf32),
+    ``[cp, bn, nwc, cib, splits]`` (sm90_im2col: the plane's channels,
+    then its 1x1 wgrad's tile) or ``wgrad_split``'s ``[tn, splits,
+    chunks_per_split]`` (fma)."""
     rt, plan = W.plan_of(x, dy, geom)
-    return rt, list(plan.tile if rt == "sm90" else plan)
+    return rt, list(plan if rt == "fma" else plan.tile)
+
+
+def want_wgrad_route(dtype, ci: int, co: int, k: int, s: int) -> str:
+    """The route a wgrad must take on aligned operands: stride 1 and Co
+    a multiple of the 16-byte pitch (8 bf16, 4 f32 channels) on the
+    tensor cores, Ci a multiple of it directly, else a plane of at most
+    64 taps; all else on FMA."""
+    pitch = 8 if dtype == torch.bfloat16 else 4
+    if s != 1 or co % pitch:
+        return "fma"
+    if ci % pitch == 0:
+        return "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
+    return "sm90_im2col" if k * k * ci <= W.IM2COL_MAX else "fma"
 
 
 def wgrad_launch(x, dy, geom, what: str):
@@ -609,6 +639,9 @@ def phase_check_bwd() -> float:
                        dx_vs_autograd_over_max_ref=grel, dgrad_tol=TOL)
         geom = W.WgradGeometry(hk=k, wk=k, stride=(s, s), padding=(p, p))
         dw, rt, plan = wgrad_launch(x, gy, geom, f"check_bwd {name}")
+        want_rt = want_wgrad_route(torch.float32, ci, co, k, s)
+        require(rt == want_rt, f"check_bwd {name}: f32 wgrad on {rt}, "
+                               f"want {want_rt}")
         dw_ref = wgrad_ref(x, gy, k, k, stride=s, padding=p)
         torch.cuda.synchronize()
         require(dw.shape == dw_ref.shape, f"check_bwd {name}: wgrad shape")
@@ -621,7 +654,8 @@ def phase_check_bwd() -> float:
                    wgrad_plan=plan, wgrad_tol=WGRAD_TOL)
         # bf16: K2 sums the same bf16 words as the plain version in f32
         # (WGRAD_TOL), on sm90 where the stride is 1 and TMA describes
-        # the channels; K1's dgrad rounds once (bf16 gate)
+        # the channels, through the im2col plane where the taps fit it;
+        # K1's dgrad rounds once (bf16 gate)
         xb, gyb = x.to(torch.bfloat16), gy.to(torch.bfloat16)
         dwb, brt, bplan = wgrad_launch(xb, gyb, geom,
                                        f"check_bwd {name} bf16")
@@ -629,7 +663,7 @@ def phase_check_bwd() -> float:
                                          padding=p))
         require(dwb.dtype == torch.float32 and brel <= WGRAD_TOL,
                 f"check_bwd {name}: bf16 wgrad {dwb.dtype} {brel}")
-        want_rt = "sm90" if s == 1 and ci % 8 == 0 and co % 8 == 0 else "fma"
+        want_rt = want_wgrad_route(torch.bfloat16, ci, co, k, s)
         require(brt == want_rt, f"check_bwd {name}: bf16 wgrad on {brt}, "
                                 f"want {want_rt}")
         row.update(wgrad_bf16_max_abs_err_over_max_ref=brel,
@@ -645,6 +679,8 @@ def phase_check_bwd() -> float:
             row.update(dgrad_bf16=gate)
         emit(row)
     check_wgrad_sm90_control(gen)
+    check_wgrad_tf32_control(gen)
+    check_wgrad_im2col_control(gen)
     check_library_bwd(gen)
     return worst
 
@@ -689,6 +725,75 @@ def check_wgrad_sm90_control(gen) -> None:
                 f"faulty launch {wrel} fails the gate by less than 10x")
 
 
+# name, batch, plane, ci, co: VGG16/224 layers at batch 8 on which the
+# 3xTF32 kernel's lo terms are shown to matter
+WGRAD_TF32_CONTROLS = [("conv1_2", 8, 224, 64, 64),
+                       ("conv5_3", 8, 14, 512, 512)]
+
+
+def check_wgrad_tf32_control(gen) -> None:
+    """K2's 3xTF32 kernel with its lo words dropped (1xTF32, one launch
+    of the same plan): the route passes ``WGRAD_TOL``; 1xTF32 must err
+    at least 4x more on the same inputs (the small terms are real)."""
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    for name, b, h, ci, co in WGRAD_TF32_CONTROLS:
+        x = _randn(gen, b, h, h, ci)
+        gy = _randn(gen, b, h, h, co)
+        right, rt, plan = wgrad_launch(x, gy, geom, f"control {name}")
+        require(rt == "sm90_tf32", f"control wgrad tf32 {name}: route {rt}")
+        p = W.plan_of(x, gy, geom)[1]
+        one = W._sm90_tf32(x, gy, geom, p, lo_terms=False)
+        plain = wgrad_ref(x, gy, 3, 3, padding=1)
+        torch.cuda.synchronize()
+        _, rel = rel_err(right, plain)
+        _, wrel = rel_err(one, plain)
+        emit({"phase": "check_bwd", "geometry":
+              f"wgrad_tf32_control_{name}_b{b}", "dtype": "torch.float32",
+              "route": rt, "plan": plan, "max_abs_err_over_max_ref": rel,
+              "tol": WGRAD_TOL,
+              "control": {"what": "1xTF32: the lo words dropped",
+                          "max_abs_err_over_max_ref": wrel,
+                          "over_route": wrel / max(rel, 1e-30),
+                          "over_tol": wrel / WGRAD_TOL}})
+        require(rel <= WGRAD_TOL, f"control wgrad tf32 {name}: the route "
+                                  f"{rel}")
+        require(wrel >= 4 * rel, f"control wgrad tf32 {name}: 1xTF32 errs "
+                f"{wrel}, under 4x the route's {rel}")
+
+
+def check_wgrad_im2col_control(gen) -> None:
+    """K2's im2col route with one fault of its own: the centre tap read
+    one column off (its offset passed one too far), at VGG16's conv1_1,
+    batch 8, in f32 and bf16.  The right launch passes ``WGRAD_TOL``;
+    the faulty one must fail it by more than 10x."""
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    x32 = _randn(gen, 8, 224, 224, 3)
+    gy32 = _randn(gen, 8, 224, 224, 64)
+    for dtype in DTYPES:
+        x, gy = x32.to(dtype), gy32.to(dtype)
+        right, rt, plan = wgrad_launch(x, gy, geom, "control im2col")
+        require(rt == "sm90_im2col", f"control im2col {dtype}: route {rt}")
+        p = W.plan_of(x, gy, geom)[1]
+        taps = list(p.taps)
+        taps[4] = (taps[4][0], taps[4][1] + 1)
+        wrong = W._im2col_wgrad(x, gy, geom,
+                                dataclasses.replace(p, taps=tuple(taps)))
+        plain = wgrad_ref(x, gy, 3, 3, padding=1)
+        torch.cuda.synchronize()
+        _, rel = rel_err(right, plain)
+        _, wrel = rel_err(wrong, plain)
+        emit({"phase": "check_bwd", "geometry": "wgrad_im2col_control_"
+              "conv1_1_b8", "dtype": str(dtype), "route": rt, "plan": plan,
+              "max_abs_err_over_max_ref": rel, "tol": WGRAD_TOL,
+              "control": {"what": "the centre tap one column off",
+                          "max_abs_err_over_max_ref": wrel,
+                          "over_tol": wrel / WGRAD_TOL}})
+        require(rel <= WGRAD_TOL, f"control im2col {dtype}: the right "
+                                  f"launch {rel}")
+        require(wrel > 10 * WGRAD_TOL, f"control im2col {dtype}: the "
+                f"faulty launch {wrel} fails the gate by less than 10x")
+
+
 def check_bwd_bf16() -> dict:
     """One bf16 backward through the kernels (``conv2d_lb``'s autograd:
     K1's recompute and dgrad, K2's wgrad) at a VGG16 conv4 shape with a
@@ -729,7 +834,7 @@ def check_bwd_bf16() -> dict:
             f"check_bwd bf16: launches {launches}")
     require(by_route == {"sm90": 2, "fma": 0},
             f"check_bwd bf16: K1 launches by route {by_route}")
-    require(wgrad_by_route == {"sm90": 1, "fma": 0},
+    require(wgrad_by_route == dict.fromkeys(W.ROUTES, 0) | {"sm90": 1},
             f"check_bwd bf16: K2 launches by route {wgrad_by_route}")
     for n, r in rows.items():
         require(r["worst_over_tol"] <= 1.0, f"check_bwd bf16 {n}: {r}")
@@ -1443,7 +1548,14 @@ def phase_train(model: str) -> dict:
     graph, params = T.build_model(model, width_mult=1.0, n_classes=10,
                                   generator=gen, device="cuda")
     images, labels = T.make_batch(8, size, 10, gen, "cuda")
-    n_convs = len(graph_stages(graph, size, size))
+    stages = graph_stages(graph, size, size)
+    n_convs = len(stages)
+    # every conv's wgrad takes the route of its geometry, f32
+    want_routes = dict.fromkeys(W.ROUTES, 0)
+    for st in stages:
+        n = st.node
+        want_routes[want_wgrad_route(torch.float32, n.ci, n.co, n.hk,
+                                     n.stride)] += TRAIN_STEPS
     plain_loss, plain = T.loss_and_grads(graph, params, images, labels,
                                          conv=conv2d_ref)
     dec = Decisions()
@@ -1471,6 +1583,7 @@ def phase_train(model: str) -> dict:
         W.wgrad_lb.launches = 0
         W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
         W.wgrad_lb.reduce_launches = 0
+        W.wgrad_lb.stage_launches = 0
         losses = T.train(graph, params, images, labels,
                          steps=TRAIN_STEPS, lr=TRAIN_LR[model],
                          traffic_bytes=rep["bytes_per_step"],
@@ -1478,7 +1591,8 @@ def phase_train(model: str) -> dict:
         launches = {"conv_lb": K.conv_lb.launches,
                     "wgrad_lb": W.wgrad_lb.launches,
                     "wgrad_lb_by_route": dict(W.wgrad_lb.launches_by_route),
-                    "wgrad_reduce": W.wgrad_lb.reduce_launches}
+                    "wgrad_reduce": W.wgrad_lb.reduce_launches,
+                    "wgrad_stage": W.wgrad_lb.stage_launches}
     k1 = [c - p for (c, _), (p, _) in zip(per_step, [(0, 0)] + per_step)]
     k2 = [c - p for (_, c), (_, p) in zip(per_step, [(0, 0)] + per_step)]
     step_ms = [sp.attrs["us"] / 1e3 for sp in tracer.find("train.step")]
@@ -1509,6 +1623,12 @@ def phase_train(model: str) -> dict:
             f"train_{model}: K1 launches per step {k1} != {want_k1}")
     require(k2 == [n_convs] * TRAIN_STEPS,
             f"train_{model}: K2 launches per step {k2} != {n_convs}")
+    require(launches["wgrad_lb_by_route"] == want_routes,
+            f"train_{model}: K2 launches by route "
+            f"{launches['wgrad_lb_by_route']} != {want_routes}")
+    require(launches["wgrad_stage"] == want_routes["sm90_im2col"],
+            f"train_{model}: im2col staging launches "
+            f"{launches['wgrad_stage']}")
     return launches
 
 
@@ -1516,8 +1636,12 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
     """dgrad (K1) and wgrad (K2) per VGG16/224 layer at batch 8, f32
     and bf16 (the same words rounded once; K2's dW is f32 in both),
     each timed beside its bound and cuDNN's in the same type; each
-    wgrad row with its route (bf16 after conv1_1: sm90, required), its
-    plan and the host's time to enqueue one call."""
+    wgrad row with its route (required: conv1_1 ``sm90_im2col``, the
+    12 after it ``sm90`` in bf16 and ``sm90_tf32`` in f32), its plan,
+    the host's time to enqueue one call, the FMA kernel's time, error
+    (gated) and bound on the same inputs through its own launcher, the
+    route's tensor-core bound (f32: 3xTF32), and at conv1_1 the staging
+    kernel's time."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED + 2)
     params = init_vgg(gen, device="cuda")
@@ -1586,41 +1710,84 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                                    padding=(1, 1))
             dw, rt, plan = wgrad_launch(x, gy, geom,
                                         f"wgrad {node.name} {dtype}")
-            # bf16 after conv1_1 on sm90; conv1_1 (Ci = 3) and f32 on fma
-            want_rt = ("sm90" if dtype == torch.bfloat16 and i > 0
-                       else "fma")
+            # conv1_1 (Ci = 3) through the im2col plane; the 12 after it
+            # on the tensor cores of their type
+            want_rt = ("sm90_im2col" if i == 0 else "sm90"
+                       if dtype == torch.bfloat16 else "sm90_tf32")
             require(rt == want_rt, f"wgrad {node.name} {dtype}: on {rt}, "
                                    f"want {want_rt}")
             dw_ref = wgrad_ref(x, gy, 3, 3, padding=1)
             err, rel = rel_err(dw, dw_ref)
             require(rel <= WGRAD_TOL, f"wgrad {node.name} {dtype}: kernel "
                                       f"vs plain {rel}")
+            fma_plan = W.wgrad_split(9 * ci, co, batch * st.ho * st.wo)
+            fma_abs, fma_err = rel_err(W._fma(x, gy, geom, fma_plan),
+                                       dw_ref)
+            require(fma_err <= WGRAD_TOL, f"wgrad {node.name} {dtype}: FMA "
+                                          f"kernel vs plain {fma_err}")
 
             def library():
                 return torch.nn.grad.conv2d_weight(
                     x_nchw, w_oihw.shape, gy_nchw, padding=1)
 
-            # x and dy read in their type, dW written in f32
+            # x and dy read in their type, dW written in f32; on the
+            # tensor cores f32 takes three TF32 products a multiply-add
+            # (bound_ms: every row here is on the tensor cores);
+            # fma_bound_ms is the FMA kernel's
             n_bytes = float(elt * (x.numel() + gy.numel())
                             + 4 * dw.numel())
             t_bytes = n_bytes / HBM_BYTES_PER_S
+            t_tc = (flops / PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else 3 * flops / PEAK_TF32_FLOPS)
+            stage = phase_stage(x, geom, flush) if i == 0 else {}
             row = dict(base, phase="layers_bwd", op="wgrad",
                        ms=_time_ms(lambda: W.wgrad_lb(x, gy, geom), flush),
                        plain_ms=_time_ms(
                            lambda: wgrad_ref(x, gy, 3, 3, padding=1),
                            flush),
                        library_ms=_time_ms(library, flush),
-                       bound_ms=max(t_ops, t_bytes) * 1e3,
-                       bound_by="operations" if t_ops >= t_bytes
+                       bound_ms=max(t_tc, t_bytes) * 1e3,
+                       bound_by="operations" if t_tc >= t_bytes
                        else "bytes",
                        bytes=n_bytes, max_abs_err=err,
                        max_abs_err_over_max_ref=rel, tol=WGRAD_TOL,
                        route=rt, plan=plan,
                        host_us=_host_us(lambda: W.wgrad_lb(x, gy, geom)),
-                       library_host_us=_host_us(library))
+                       library_host_us=_host_us(library),
+                       fma_ms=_time_ms(lambda: W._fma(x, gy, geom,
+                                                      fma_plan), flush),
+                       fma_err=fma_err, fma_max_abs_err=fma_abs,
+                       fma_plan=list(fma_plan),
+                       fma_bound_ms=max(t_ops, t_bytes) * 1e3,
+                       fma_bound_by="operations" if t_ops >= t_bytes
+                       else "bytes", **stage)
             emit(row)
             wgrad_rows.append(row)
     return dgrad_rows, wgrad_rows
+
+
+def phase_stage(x: torch.Tensor, geom, flush: torch.Tensor) -> dict:
+    """The im2col staging kernel alone on conv1_1's input: its plane
+    against the plain version's (a copy: equal bits), its time beside its
+    bound (x read once, the plane written once) and the plain
+    version's."""
+    before = W.wgrad_lb.stage_launches
+    plane = W.im2col_plane(x, geom)
+    require(W.wgrad_lb.stage_launches == before + 1, "im2col: no launch")
+    cp = plane.shape[-1]
+    plain = im2col_ref(x, geom.hk, geom.wk, padding=geom.padding,
+                       channels=cp)
+    err = (plane.float() - plain.float()).abs().max().item()
+    require(err == 0.0, f"im2col {x.dtype}: plane vs plain {err}")
+    n_bytes = float(x.element_size() * (x.numel() + plane.numel()))
+    return {"stage_ms": _time_ms(lambda: W.im2col_plane(x, geom), flush),
+            "stage_plain_ms": _time_ms(
+                lambda: im2col_ref(x, geom.hk, geom.wk,
+                                   padding=geom.padding, channels=cp),
+                flush),
+            "stage_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "stage_bytes": n_bytes, "stage_max_abs_err": err,
+            "stage_host_us": _host_us(lambda: W.im2col_plane(x, geom))}
 
 
 def _sums(rows: list[dict]) -> dict:
@@ -1642,6 +1809,22 @@ def _by_dtype(rows: list[dict]) -> dict:
 
 def _of(rows: list[dict], dtype: torch.dtype) -> list[dict]:
     return [r for r in rows if r["dtype"] == str(dtype)]
+
+
+def _fma_of(rows: list[dict]) -> list[dict]:
+    """wgrad rows as the FMA kernel timed them on the same inputs, beside
+    its own bound."""
+    return [dict(r, ms=r["fma_ms"], max_abs_err=r["fma_max_abs_err"],
+                 bound_ms=r["fma_bound_ms"], bound_by=r["fma_bound_by"])
+            for r in rows]
+
+
+def _stage_of(row: dict) -> dict:
+    """conv1_1's staging-kernel fields as a kernel's sums."""
+    return {"ms": row["stage_ms"], "plain_ms": row["stage_plain_ms"],
+            "bound_ms": row["stage_bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": row["stage_max_abs_err"],
+            "host_us": row["stage_host_us"]}
 
 
 def main() -> int:
@@ -1682,9 +1865,30 @@ def main() -> int:
             f"layers: {len(sm90_fwd)} forward and {len(sm90_dgrad)} dgrad "
             f"bf16 layers on sm90, want 12 and 12")
     bf16_wgrad = _of(wgrad_rows, torch.bfloat16)
+    f32_wgrad = _of(wgrad_rows, torch.float32)
     sm90_wgrad = [r for r in bf16_wgrad if r["route"] == "sm90"]
-    require(len(sm90_wgrad) == 12, f"layers_bwd: {len(sm90_wgrad)} bf16 "
-                                   f"wgrad layers on sm90, want 12")
+    tf32_wgrad = [r for r in f32_wgrad if r["route"] == "sm90_tf32"]
+    plane_wgrad = {r["dtype"]: r for r in wgrad_rows
+                   if r["route"] == "sm90_im2col"}
+    require(len(sm90_wgrad) == 12 and len(tf32_wgrad) == 12
+            and len(plane_wgrad) == 2,
+            f"layers_bwd: {len(sm90_wgrad)} bf16 wgrad layers on sm90, "
+            f"{len(tf32_wgrad)} f32 on sm90_tf32, {len(plane_wgrad)} "
+            f"conv1_1 rows on sm90_im2col, want 12, 12 and 2")
+    c11 = plane_wgrad[str(torch.bfloat16)]
+    tf32_sums = _sums(tf32_wgrad)
+    emit({"phase": "k2_targets",
+          "conv1_1_bf16_ms": c11["ms"],
+          "conv1_1_bf16_library_ms": c11["library_ms"],
+          "conv1_1_bf16_over_library": c11["ms"] / c11["library_ms"],
+          "conv1_1_bf16_fma_ms": c11["fma_ms"], "conv1_1_asked_at_most": 2,
+          "f32_12_ms": tf32_sums["ms"],
+          "f32_12_library_ms": tf32_sums["library_ms"],
+          "f32_12_over_library": tf32_sums["ms"] / tf32_sums["library_ms"],
+          "f32_12_fma_ms": sum(r["fma_ms"] for r in tf32_wgrad),
+          "f32_12_fma_bound_ms": sum(r["fma_bound_ms"] for r in tf32_wgrad),
+          "f32_12_bound_ms": tf32_sums["bound_ms"],
+          "f32_12_asked_at_most": 1, "card": card})
     attn_sums = {rt: _sums([r for r in attn_rows if r["route"] == rt])
                  for rt in K4.ROUTES}
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
@@ -1722,21 +1926,24 @@ def main() -> int:
                        f"conv1_1 at batch 8 (dgrad: the same 12 layers' "
                        f"dgrads); launches: the bf16 serving run",
              card=card),
-        dict(_sums(_of(wgrad_rows, torch.float32)), name="wgrad_lb",
-             route="cuda", source=WGRAD_SOURCE, replaces=WGRAD_REPLACES,
-             launches=train_vgg["wgrad_lb"],
-             launches_train_resnet=train_resnet["wgrad_lb"],
-             launches_bwd_bf16=bwd_bf16["wgrad_lb"],
+        dict(_sums(_fma_of(f32_wgrad)), name="wgrad_lb", route="cuda",
+             kernel_route="fma", source=WGRAD_SOURCE,
+             replaces=WGRAD_REPLACES,
+             launches=(train_vgg["wgrad_lb_by_route"]["fma"]
+                       + train_resnet["wgrad_lb_by_route"]["fma"]),
+             launches_train_vgg_by_route=train_vgg["wgrad_lb_by_route"],
+             launches_train_resnet_by_route=train_resnet[
+                 "wgrad_lb_by_route"],
              reduce_launches=train_vgg["wgrad_reduce"],
-             by_dtype=_by_dtype(wgrad_rows),
-             bf16_by_route={
-                 rt: {"layers": [r["layer"] for r in bf16_wgrad
-                                 if r["route"] == rt],
-                      **_sums([r for r in bf16_wgrad if r["route"] == rt])}
-                 for rt in W.ROUTES},
-             times_are=f"f32 {vgg_times} (by_dtype: x and dy f32 and "
-                       f"bf16, dW f32, every layer on the route it takes; "
-                       f"bf16_by_route: split by route)",
+             by_dtype={str(d): _sums(_fma_of(_of(wgrad_rows, d)))
+                       for d in DTYPES},
+             route_by_dtype={str(d): _sums(_of(wgrad_rows, d))
+                             for d in DTYPES},
+             times_are=f"the FMA kernel through its own launcher on the "
+                       f"inputs of every wgrad row, f32 {vgg_times} "
+                       f"(by_dtype: f32 and bf16; route_by_dtype: K2 as "
+                       f"wgrad_lb routes each layer); launches: the FMA "
+                       f"route in the VGG and ResNet training runs",
              card=card),
         dict(_sums(sm90_wgrad), name="wgrad_lb_sm90", route="cuda",
              kernel_route="sm90", source=WGRAD_SM90_SOURCE,
@@ -1747,6 +1954,40 @@ def main() -> int:
              times_are="bf16 sums over the 12 VGG16/224 layers after "
                        "conv1_1 at batch 8 (x and dy bf16, dW f32); "
                        "launches: the bf16 backward",
+             card=card),
+        dict(tf32_sums, name="wgrad_lb_sm90_tf32", route="cuda",
+             kernel_route="sm90_tf32", source=WGRAD_TF32_SOURCE,
+             replaces=WGRAD_REPLACES, dtype="f32",
+             launches=(train_vgg["wgrad_lb_by_route"]["sm90_tf32"]
+                       + train_vgg["wgrad_lb_by_route"]["sm90_im2col"]),
+             launches_train_resnet=(
+                 train_resnet["wgrad_lb_by_route"]["sm90_tf32"]
+                 + train_resnet["wgrad_lb_by_route"]["sm90_im2col"]),
+             fma_bound_ms=sum(r["fma_bound_ms"] for r in tf32_wgrad),
+             fma_ms=sum(r["fma_ms"] for r in tf32_wgrad),
+             host_us=sum(r["host_us"] for r in tf32_wgrad),
+             library_host_us=sum(r["library_host_us"] for r in tf32_wgrad),
+             conv1_1_plane=_sums([plane_wgrad[str(torch.float32)]]),
+             times_are="f32 sums over the 12 VGG16/224 layers after "
+                       "conv1_1 at batch 8 (bound_ms: three TF32 products "
+                       "a multiply-add at 495 TFLOP/s; fma_bound_ms: one at "
+                       "the FMA rate, 67); "
+                       "conv1_1_plane: conv1_1's whole route (plane + 1x1 "
+                       "on this kernel); launches: the f32 VGG training "
+                       "run (sm90_tf32 and sm90_im2col layers)",
+             card=card),
+        dict(_stage_of(plane_wgrad[str(torch.float32)]),
+             name="wgrad_im2col", route="cuda", kernel_route="sm90_im2col",
+             source=WGRAD_IM2COL_SOURCE, replaces=WGRAD_REPLACES,
+             launches=train_vgg["wgrad_stage"],
+             launches_train_resnet=train_resnet["wgrad_stage"],
+             by_dtype={d: _stage_of(r) for d, r in plane_wgrad.items()},
+             route_by_dtype={d: _sums([r]) for d, r in plane_wgrad.items()},
+             times_are="the staging kernel alone on VGG16/224 conv1_1's "
+                       "input at batch 8, f32 (by_dtype: f32 and bf16; "
+                       "route_by_dtype: conv1_1's whole wgrad on "
+                       "sm90_im2col); no PyTorch call builds this plane in "
+                       "this layout; launches: the f32 VGG training run",
              card=card),
         dict(_sums(matmul_rows), name="matmul_lb", route="cuda",
              kernel_route="fma", source=MATMUL_SOURCE,
@@ -1787,6 +2028,8 @@ def main() -> int:
                        "mixtral-8x7b's (S 8192, causal, window 4096) "
                        "attention, bf16",
              card=card)]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: no launch on its path")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})

@@ -53,6 +53,7 @@ REGS_PER_SM = 65_536
 #: published dense peaks at the 700 W limit
 PEAK_F32_FLOPS = 67e12            # f32 FMA outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
+PEAK_TF32_FLOPS = 495e12          # TF32 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
 
 

@@ -127,3 +127,22 @@ def wgrad_ref(x: torch.Tensor, dy: torch.Tensor, hk: int, wk: int, *,
                     kx * dlx:kx * dlx + (wo - 1) * sx + 1:sx, :]
             out[ky, kx] = xs.reshape(b * ho * wo, ci).t() @ g
     return out
+
+
+def im2col_ref(x: torch.Tensor, hk: int, wk: int, *, padding=0, dilation=1,
+               channels: int | None = None) -> torch.Tensor:
+    """The stride-1 im2col plane (B, Ho, Wo, channels) of x (B, H, W,
+    Ci), in x's dtype: channel (ky * wk + kx) * Ci + ci of pixel
+    (oy, ox) is x[oy + ky*dly - py, ox + kx*dlx - px, ci] (zero outside
+    the plane), channels Hk*Wk*Ci onward zero.  Its 1x1 weight gradient
+    against dy, rows 0 .. Hk*Wk*Ci - 1, is the conv's dW in HWIO
+    order."""
+    py, px = _pair(padding)
+    dly, dlx = _pair(dilation)
+    _, h, w, ci = x.shape
+    ho, wo = h + 2 * py - (hk - 1) * dly, w + 2 * px - (wk - 1) * dlx
+    xp = F.pad(x, (0, 0, px, px, py, py))
+    plane = torch.cat([xp[:, ky * dly:ky * dly + ho, kx * dlx:kx * dlx + wo]
+                       for ky in range(hk) for kx in range(wk)], dim=-1)
+    k = hk * wk * ci
+    return F.pad(plane, (0, (channels or k) - k))

@@ -1,12 +1,19 @@
-"""The wgrad kernel's wrapper: build, bind and launch the two
-hand-written CUDA kernels of K2, which together replace the TPU kernel
+"""The wgrad kernel's wrapper: build, bind and launch the hand-written
+CUDA kernels of K2, which together replace the TPU kernel
 ``_wgrad_kernel`` / ``wgrad_lb_call`` of
 ``repro/kernels/conv_lb/wgrad.py``:
 
   * ``csrc/wgrad_lb_sm90.cu`` (route ``"sm90"``): bf16 at stride 1 on
     the tensor cores, TMA into an mbarrier ring feeding ``wgmma``;
-  * ``csrc/wgrad_lb.cu`` (route ``"fma"``): f32, and every bf16 wgrad
-    :func:`route` does not send to the sm90 kernel, on FMA.
+  * ``csrc/wgrad_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 at
+    stride 1 on the tensor cores in 3xTF32, A (x) from registers, B
+    (dy) rewritten once per pixel block into K-major hi and lo tiles;
+  * ``csrc/wgrad_im2col.cu`` (route ``"sm90_im2col"``): a channel
+    count too small for a TMA map (VGG16's conv1_1, Ci = 3) staged as
+    an im2col plane of ``Cp`` <= 64 channels, then one of the two
+    tensor-core kernels above on it as a 1x1 wgrad;
+  * ``csrc/wgrad_lb.cu`` (route ``"fma"``): strides, and what no
+    tensor-core route takes, on FMA.
 
 dW is the conv of the input with the incoming gradient as the kernel
 plane (batch folds into the reduction):
@@ -25,7 +32,9 @@ read from types, geometry and pointers before launch, never by trying
 one; :func:`plan_of` names it with the plan its kernel runs.  Each
 layer call that launches a kernel adds one to ``wgrad_lb.launches`` and
 to its route's entry of ``wgrad_lb.launches_by_route``; a split
-reduction's second pass adds one to ``wgrad_lb.reduce_launches``.
+reduction's second pass adds one to ``wgrad_lb.reduce_launches``; the
+im2col staging kernel adds one to ``wgrad_lb.stage_launches`` where it
+launches.
 """
 
 from __future__ import annotations
@@ -40,23 +49,29 @@ import torch
 
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,
                                              PEAK_BF16_FLOPS,
-                                             PEAK_F32_FLOPS, SM_COUNT,
-                                             SMEM_PER_BLOCK)
+                                             PEAK_F32_FLOPS,
+                                             PEAK_TF32_FLOPS, SM_COUNT,
+                                             SMEM_PER_BLOCK, round_up)
 from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, DTYPES,
                                                 _aligned,
                                                 _check_cuda_operand,
                                                 _entry, _launched)
-from repro_torch.kernels.conv_lb.ref import _pair, wgrad_ref
+from repro_torch.kernels.conv_lb.ref import _pair, im2col_ref, wgrad_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_lb_sm90.cu"
+TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
+               / "wgrad_lb_sm90_tf32.cu")
+IM2COL_SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_im2col.cu"
 
 #: the FMA kernel's fixed CTA shape (must match csrc/wgrad_lb.cu)
 TILE_M = 128        # dW rows (ky, kx, ci) per CTA
 CHUNK = 16          # reduction pixels staged per step
 MAX_SPLITS = 1024
-ROUTES = ("sm90", "fma")
+#: the tensor-core kernels' grid runs one z index a split range
+GRID_Z_MAX = 65535
+ROUTES = ("sm90", "sm90_tf32", "sm90_im2col", "fma")
 
 #: the sm90 kernel's fixed shape (must match csrc/wgrad_lb_sm90.cu): a K
 #: step is an 8 x 8 block of output pixels of one image; two consumer
@@ -82,6 +97,32 @@ SM90_FILL_BYTES_PER_S = 2 * HBM_BYTES_PER_S
 #: operations a clock per SM)
 SM90_SMEM_BYTES_PER_CLOCK = 64
 SM90_CLOCK_HZ = PEAK_BF16_FLOPS / (SM_COUNT * 4096)
+
+#: the 3xTF32 kernel's fixed shape (must match csrc/wgrad_lb_sm90_tf32.cu):
+#: the same 8 x 8 pixel blocks and two consumer warpgroups; a consumer
+#: holds ``nwc`` row blocks of 64 dW rows x ``bn`` columns and its A
+#: fragments in four buffers (8 registers a row block a step), so
+#: ``nwc * bn / 2 + 32 * nwc`` <= 128; halo and dy boxes are 32 f32
+#: channels (one 128-byte swizzled row); three producer-warpgroup warps
+#: rewrite each dy tile into K-major hi and lo tiles, a ring of two
+#: stages
+TF32_TILES = ((128, 1), (64, 2), (64, 1))     # (bn, nwc)
+TF32_CIBS = (32, 64, 128)      # channels of one halo (one Ci block)
+TF32_BOX = 32                  # channels of one halo or dy box
+TF32_CPRS = (16, 32, 64)       # channels of one window in a row block
+TF32_TRANSPOSERS = 3
+TF32_BSTAGES = 2
+#: 3xTF32: three tensor-core products per multiply-add
+TF32_PRODUCTS = 3
+#: pixel blocks a 3xTF32 split range may hold (4,096 pixels): three
+#: products a k8 step add six times as often to the f32 sums as the bf16
+#: kernel's k16 steps, and their drift grows with a range's length
+#: (conv1_2 at batch 8: 7.0e-5 of max |dW| at 143 blocks, 4.6e-5 at 98)
+TF32_MAX_RANGE = 64
+
+#: the im2col plane's channels: at most 64 (one tensor-core row block),
+#: a multiple of 8 (16-byte bf16 pixels); its staging kernel's taps
+IM2COL_MAX = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,15 +287,8 @@ def sm90_wgrad_plan(batch: int, ho: int, wo: int, ci: int, co: int,
         step_s = max(2.0 * SM90_BLOCK ** 2 * rows * bn / per_sm_flops,
                      smem_s, stage / per_sm_fill)
         store_s = 4.0 * rows * bn / per_sm_fill
-        for splits in range(ceil_div(nblk, SM90_MAX_RANGE),
-                            min(nblk, MAX_SPLITS) + 1):
-            bps = ceil_div(nblk, splits)
-            if ceil_div(nblk, bps) != splits:      # no empty range
-                continue
-            ws = 4 * splits * m * co if splits > 1 else 0
-            t = ceil_div(tiles * splits, SM_COUNT) * (bps * step_s
-                                                      + store_s)
-            t += (2 * ws + 4 * m * co * (splits > 1)) / HBM_BYTES_PER_S
+        for t, splits, bps, ws in _splits(nblk, tiles, step_s, store_s,
+                                          m, co, SM90_MAX_RANGE):
             key = (t, splits, -bn, -cib)
             if best is None or key < best[0]:
                 best = (key, Sm90WgradPlan(
@@ -263,49 +297,266 @@ def sm90_wgrad_plan(batch: int, ho: int, wo: int, ci: int, co: int,
     return None if best is None else best[1]
 
 
-def _out_plane(x: torch.Tensor, g: WgradGeometry) -> tuple[int, int]:
+def _splits(nblk: int, tiles: int, step_s: float, store_s: float, m: int,
+            co: int, max_range: int):
+    """Every split of ``nblk`` pixel blocks into contiguous ranges of at
+    most ``max_range`` blocks, none empty, as ``(t, splits, bps,
+    ws_bytes)``: ``t`` the tensor-core kernels' model of the time, waves
+    of ``tiles * splits`` CTAs (one per SM) x (the blocks of one range x
+    ``step_s`` + ``store_s``), plus the second pass's workspace bytes
+    (written once, read once, dW written) at the HBM rate.  Up to
+    ``MAX_SPLITS`` ranges are ranked; where the range cap needs more (a
+    large batch: VGG16/224's conv1_2 in f32 from batch 84), only the
+    fewest it allows, as long as a range is a grid z index
+    (``GRID_Z_MAX``); none past that."""
+    least = ceil_div(nblk, max_range)
+    for splits in range(least, min(nblk, max(least, MAX_SPLITS),
+                                   GRID_Z_MAX) + 1):
+        bps = ceil_div(nblk, splits)
+        if ceil_div(nblk, bps) != splits:      # no empty range
+            continue
+        ws = 4 * splits * m * co if splits > 1 else 0
+        t = ceil_div(tiles * splits, SM_COUNT) * (bps * step_s + store_s)
+        t += (2 * ws + 4 * m * co * (splits > 1)) / HBM_BYTES_PER_S
+        yield t, splits, bps, ws
+
+
+@dataclasses.dataclass(frozen=True)
+class Sm90Tf32Plan:
+    """The 3xTF32 wgrad kernel's tile, split and shared-memory offsets
+    (bytes).  A CTA owns ``2 * nwc`` row blocks of one Ci block of
+    ``cib`` channels x ``bn`` output channels over ``bps`` pixel blocks.
+    A row block is 64 rows: ``cpr`` channels of each of ``64 / cpr``
+    windows (a window group), of one channel slice; row blocks run
+    slice-major.  The halo of one pixel block lies as ``cib / 32``
+    boxes ``[hy][hx][32 channels]``, ``sub_bytes`` apart, one 128-byte
+    swizzled row per pixel; window ``(ky, kx)`` reads it shifted by
+    ``win_off[ky * wk + kx]``."""
+
+    bn: int                    # dW columns (output channels) per CTA
+    nwc: int                   # row blocks per consumer
+    cib: int                   # input channels per Ci block (halo)
+    cpr: int                   # channels of one window in a row block
+    stages: int                # TMA ring depth
+    hy: int                    # halo box rows
+    hx: int                    # halo box columns
+    sub_bytes: int             # one 32-channel halo box
+    win_off: tuple[int, ...]   # window ky * wk + kx -> shift in the halo
+    smem_bytes: int
+    nblk: int                  # pixel blocks of the reduction
+    splits: int                # contiguous ranges of pixel blocks
+    bps: int                   # pixel blocks per range
+    tiles: int                 # CTAs per range
+    ws_bytes: int              # the second pass's workspace
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles * self.splits
+
+    @property
+    def tile(self) -> tuple[int, int, int, int]:
+        """``(bn, nwc, cib, splits)``."""
+        return self.bn, self.nwc, self.cib, self.splits
+
+
+def sm90_tf32_wgrad_layout(bn: int, nwc: int, cib: int, ci: int, hk: int,
+                           wk: int, dilation: tuple[int, int]) -> dict:
+    """The halo box, the row-block shape, the ring depth and the
+    shared-memory offsets of one 3xTF32 tile: from a 1024-byte line the
+    TMA ring (per stage a 64-pixel x ``bn`` dy tile, then ``cib / 32``
+    halo boxes of 1024-byte multiples), the B ring (``TF32_BSTAGES``
+    stages of a hi and a lo tile, each 64 pixels x ``bn`` words), then a
+    full and an empty mbarrier per stage of each ring; as many TMA
+    stages as fit, up to ``SM90_MAX_STAGES``.  ``cpr``, the channels of
+    one window in a row block, is the next power of two of ``ci`` from
+    16 up to ``cib`` and 64."""
+    dy, dx = dilation
+    hy = SM90_BLOCK + (hk - 1) * dy
+    hx = SM90_BLOCK + (wk - 1) * dx
+    sub = ceil_div(hy * hx * 128, 1024) * 1024
+    win = tuple((ky * dy * hx + kx * dx) * 128
+                for ky in range(hk) for kx in range(wk))
+    tile = bn * SM90_BLOCK * SM90_BLOCK * 4
+    stage = tile + (cib // TF32_BOX) * sub
+    fixed = 1024 + TF32_BSTAGES * (2 * tile + 16)
+    stages = min(SM90_MAX_STAGES, (SMEM_PER_BLOCK - fixed) // (stage + 16))
+    cpr = min(cib, 64, max(16, 1 << (ci - 1).bit_length()))
+    return dict(bn=bn, nwc=nwc, cib=cib, cpr=cpr, stages=stages, hy=hy,
+                hx=hx, sub_bytes=sub, win_off=win,
+                smem_bytes=fixed + stages * (stage + 16))
+
+
+@lru_cache(maxsize=4096)
+def sm90_tf32_wgrad_plan(batch: int, ho: int, wo: int, ci: int, co: int,
+                         hk: int = 1, wk: int = 1,
+                         dilation: tuple[int, int] = (1, 1),
+                         only: tuple[int, int, int] | None = None
+                         ) -> Sm90Tf32Plan | None:
+    """The 3xTF32 wgrad kernel's tile and split for one stride-1 f32
+    conv (one CTA per SM), on :func:`sm90_wgrad_plan`'s model of the
+    time: a pixel block's time the largest of its ``wgmma`` work (three
+    products a multiply-add, rows past the last included) at the TF32
+    tensor-core rate, the shared memory it moves at
+    ``SM90_SMEM_BYTES_PER_CLOCK`` (B read by each of the three products
+    of each row block and k8 step, the A fragments' loads, the dy tile's
+    rewrite into hi and lo, TMA's writes), and its ring stage at
+    ``SM90_FILL_BYTES_PER_S``.  Ranges hold at most ``TF32_MAX_RANGE``
+    pixel blocks; ties go to fewer splits, then to the widest ``bn``.
+    ``only`` = ``(bn, nwc, cib)`` ranks the splits of that one tile.
+    ``None`` if no tile fits shared memory."""
+    nwin = hk * wk
+    nblk = batch * ceil_div(ho, SM90_BLOCK) * ceil_div(wo, SM90_BLOCK)
+    m = nwin * ci
+    per_sm_flops = PEAK_TF32_FLOPS / SM_COUNT
+    per_sm_fill = SM90_FILL_BYTES_PER_S / SM_COUNT
+    smem_rate = SM90_SMEM_BYTES_PER_CLOCK * SM90_CLOCK_HZ
+    px = SM90_BLOCK * SM90_BLOCK
+    best = None
+    for (bn, nwc), cib in itertools.product(TF32_TILES, TF32_CIBS):
+        if only is not None and (bn, nwc, cib) != tuple(only):
+            continue
+        if only is None and ((bn > 64 and co <= bn // 2)
+                             or (cib > 32 and ci <= cib // 2)):
+            continue
+        lay = sm90_tf32_wgrad_layout(bn, nwc, cib, ci, hk, wk,
+                                     tuple(dilation))
+        if not _sm90_fits(lay):
+            continue
+        cpr = lay["cpr"]
+        nrb = ceil_div(min(cib, ci), cpr) * ceil_div(nwin, 64 // cpr)
+        ngrp = ceil_div(nrb, SM90_CONSUMERS * nwc)
+        tiles = ceil_div(ci, cib) * ngrp * ceil_div(co, bn)
+        rows = SM90_CONSUMERS * nwc * SM90_ROWS
+        stage = bn * px * 4 + (cib // TF32_BOX) * lay["sub_bytes"]
+        steps = SM90_CONSUMERS * nwc * SM90_BLOCK     # row block x k8
+        moved = (steps * (TF32_PRODUCTS * 8 * bn * 4 + SM90_ROWS * 8 * 4)
+                 + px * bn * 12 + stage)
+        step_s = max(TF32_PRODUCTS * 2.0 * px * rows * bn / per_sm_flops,
+                     moved / smem_rate, stage / per_sm_fill)
+        store_s = 4.0 * rows * bn / per_sm_fill
+        for t, splits, bps, ws in _splits(nblk, tiles, step_s, store_s,
+                                          m, co, TF32_MAX_RANGE):
+            key = (t, splits, -bn, -cib)
+            if best is None or key < best[0]:
+                best = (key, Sm90Tf32Plan(
+                    **lay, nblk=nblk, splits=splits, bps=bps, tiles=tiles,
+                    ws_bytes=ws))
+    return None if best is None else best[1]
+
+
+@dataclasses.dataclass(frozen=True)
+class Im2colPlan:
+    """Route ``sm90_im2col``: the plane's ``cp`` channels, the taps its
+    staging kernel reads (per window ``(ky*dly - py, kx*dlx - px)``),
+    and the plan of the 1x1 wgrad of the plane (:func:`sm90_wgrad_plan`'s
+    in bf16, :func:`sm90_tf32_wgrad_plan`'s in f32)."""
+
+    cp: int
+    taps: tuple[tuple[int, int], ...]
+    inner: Sm90WgradPlan | Sm90Tf32Plan
+
+    @property
+    def splits(self) -> int:
+        return self.inner.splits
+
+    @property
+    def tile(self) -> tuple[int, ...]:
+        """``(cp, bn, nwc, cib, splits)``."""
+        return (self.cp, *self.inner.tile)
+
+
+def im2col_channels(ci: int, hk: int, wk: int) -> int:
+    """The plane's channels: Hk*Wk*Ci rounded up to a multiple of 8."""
+    return round_up(hk * wk * ci, 8)
+
+
+def im2col_taps(geom) -> tuple[tuple[int, int], ...]:
+    """Per window ``ky * wk + kx``, the (row, column) offset of the input
+    pixel it reads from the output pixel: ``(ky*dly - py, kx*dlx - px)``."""
+    g = WgradGeometry.of(geom)
+    (py, px), (dly, dlx) = _pair(g.padding), _pair(g.dilation)
+    return tuple((ky * dly - py, kx * dlx - px)
+                 for ky in range(g.hk) for kx in range(g.wk))
+
+
+def _im2col_inner(dtype: torch.dtype, batch: int, ho: int, wo: int,
+                  cp: int, co: int):
+    """The plan of the plane's 1x1 wgrad on the tensor-core kernel of
+    ``dtype``."""
+    plan = (sm90_wgrad_plan if dtype == torch.bfloat16
+            else sm90_tf32_wgrad_plan)
+    return plan(batch, ho, wo, cp, co, 1, 1, (1, 1))
+
+
+def _out_plane(xshape, g: WgradGeometry) -> tuple[int, int]:
     (sy, sx), (py, px), (dly, dlx) = (_pair(g.stride), _pair(g.padding),
                                       _pair(g.dilation))
-    _, h, wd, _ = x.shape
+    _, h, wd, _ = xshape
     return ((h + 2 * py - ((g.hk - 1) * dly + 1)) // sy + 1,
             (wd + 2 * px - ((g.wk - 1) * dlx + 1)) // sx + 1)
 
 
 def route(x: torch.Tensor, dy: torch.Tensor, geom) -> str:
-    """``"sm90"`` iff x and dy are bf16, the stride is (1, 1) (any
-    dilation and padding), Ci and Co are multiples of 8 (16-byte pixel
-    pitches that a TMA map describes), both base addresses are 16-byte
-    aligned and a tile of :func:`sm90_wgrad_plan` fits shared memory
-    with at most ``SM90_MAX_WIN`` windows; else ``"fma"``.  Read from
-    types, geometry and pointers only, before launch."""
-    g = WgradGeometry.of(geom)
-    ci, co = x.shape[-1], dy.shape[-1]
-    if (x.dtype == torch.bfloat16 and dy.dtype == torch.bfloat16
-            and _pair(g.stride) == (1, 1)
-            and ci % 8 == 0 and co % 8 == 0
-            and x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-            and sm90_wgrad_plan(1, 1, 1, ci, co, g.hk, g.wk,
-                                _pair(g.dilation)) is not None):
-        return "sm90"
-    return "fma"
+    """The kernel a wgrad runs on, read from types, geometry and
+    pointers only, before launch.  The tensor-core routes need x and dy
+    of one type, the stride (1, 1) (any dilation and padding) and both
+    base addresses 16-byte aligned; then, with ``pitch`` 8 channels in
+    bf16 and 4 in f32 (16-byte pixels that a TMA map describes) and Co a
+    multiple of it:
+
+      * ``"sm90"``: bf16, Ci a multiple of 8, and :func:`sm90_wgrad_plan`
+        finds a tile that fits shared memory with at most
+        ``SM90_MAX_WIN`` windows and a split of this call's reduction;
+      * ``"sm90_tf32"``: f32, Ci a multiple of 4, and
+        :func:`sm90_tf32_wgrad_plan` finds the same;
+      * ``"sm90_im2col"``: Ci not a multiple of ``pitch`` and
+        Hk*Wk*Ci <= ``IM2COL_MAX`` (VGG16's conv1_1: 27), staged as an
+        im2col plane of :func:`im2col_channels` channels whose 1x1
+        wgrad the tensor-core kernel of its type plans likewise.
+
+    Everything else (strides, misaligned or mixed operands, channel
+    counts no staging fits, a reduction no split of ranges of at most
+    ``SM90_MAX_RANGE`` or ``TF32_MAX_RANGE`` pixel blocks covers)
+    ``"fma"``."""
+    return plan_of(x, dy, geom)[0]
 
 
 def plan_of(x: torch.Tensor, dy: torch.Tensor, geom
-            ) -> tuple[str, Sm90WgradPlan | tuple[int, int, int]]:
+            ) -> tuple[str, Sm90WgradPlan | Sm90Tf32Plan | Im2colPlan
+                       | tuple[int, int, int]]:
     """The route :func:`wgrad_lb` takes for these operands and the plan
-    its kernel then runs: a :class:`Sm90WgradPlan` (``"sm90"``) or
+    its kernel then runs, both at this call's size: a
+    :class:`Sm90WgradPlan` (``"sm90"``), a :class:`Sm90Tf32Plan`
+    (``"sm90_tf32"``), an :class:`Im2colPlan` (``"sm90_im2col"``) or
     :func:`wgrad_split`'s ``(tn, splits, chunks_per_split)``
     (``"fma"``).  Read from types, geometry and pointers only, before
     launch."""
-    g = WgradGeometry.of(geom)
-    b, _, _, ci = x.shape
-    co = dy.shape[-1]
-    ho, wo = _out_plane(x, g)
-    rt = route(x, dy, g)
-    if rt == "sm90":
-        return rt, sm90_wgrad_plan(b, ho, wo, ci, co, g.hk, g.wk,
-                                   _pair(g.dilation))
-    return rt, wgrad_split(g.hk * g.wk * ci, co, b * ho * wo)
+    return _plan_of(x.dtype, dy.dtype, tuple(x.shape), dy.shape[-1],
+                    WgradGeometry.of(geom),
+                    x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+
+
+@lru_cache(maxsize=4096)
+def _plan_of(dt: torch.dtype, dy_dt: torch.dtype, xshape: tuple, co: int,
+             g: WgradGeometry, aligned: bool):
+    b, _, _, ci = xshape
+    ho, wo = _out_plane(xshape, g)
+    plan = None
+    pitch = 8 if dt == torch.bfloat16 else 4
+    if (dt == dy_dt and dt in (torch.bfloat16, torch.float32)
+            and _pair(g.stride) == (1, 1) and aligned and co % pitch == 0):
+        dil = _pair(g.dilation)
+        if ci % pitch == 0:
+            rt, plan = (("sm90", sm90_wgrad_plan) if dt == torch.bfloat16
+                        else ("sm90_tf32", sm90_tf32_wgrad_plan))
+            plan = plan(b, ho, wo, ci, co, g.hk, g.wk, dil)
+        elif (cp := im2col_channels(ci, g.hk, g.wk)) <= IM2COL_MAX:
+            rt, plan = "sm90_im2col", _im2col_inner(dt, b, ho, wo, cp, co)
+            if plan is not None:
+                plan = Im2colPlan(cp, im2col_taps(g), plan)
+    if plan is not None:
+        return rt, plan
+    return "fma", wgrad_split(g.hk * g.wk * ci, co, b * ho * wo)
 
 
 def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
@@ -330,7 +581,7 @@ def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
         raise ValueError("stride and dilation must be >= 1 and padding "
                          ">= 0")
     b, h, wd, ci = x.shape
-    ho, wo = _out_plane(x, g)
+    ho, wo = _out_plane(x.shape, g)
     if ho < 1 or wo < 1:
         raise ValueError(f"{g.hk}x{g.wk} conv has no output on a "
                          f"{h}x{wd} plane")
@@ -342,12 +593,10 @@ def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
         raise ValueError(f"wgrad of {m} x {co} over {k} pixels exceeds "
                          f"the kernel's index range")
     rt, plan = plan_of(x, dy, g)
-    if rt == "sm90":
-        dw = _sm90(x, dy, g, plan)
-        splits = plan.splits
-    else:
-        dw = _fma(x, dy, g, plan)
-        splits = plan[1]
+    launch = {"sm90": _sm90, "sm90_tf32": _sm90_tf32,
+              "sm90_im2col": _im2col_wgrad, "fma": _fma}[rt]
+    dw = launch(x, dy, g, plan)
+    splits = plan[1] if rt == "fma" else plan.splits
     wgrad_lb.launches += 1
     wgrad_lb.launches_by_route[rt] += 1
     if splits > 1:
@@ -370,7 +619,7 @@ def _sm90(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
     ws = (torch.empty((plan.splits, g.hk * g.wk * ci, co),
                       dtype=torch.float32, device=x.device)
           if plan.splits > 1 else None)
-    win_off = (ctypes.c_int * len(plan.win_off))(*plan.win_off)
+    win_off = _c_ints(plan.win_off)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = forward(
@@ -381,6 +630,92 @@ def _sm90(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
             plan.sbo, plan.splits, plan.bps, plan.smem_bytes, stream)
     _launched(lib, err, "wgrad_lb_sm90")
     return dw
+
+
+def _sm90_tf32(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
+               plan: Sm90Tf32Plan, lo_terms: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/wgrad_lb_sm90_tf32.cu`` (and its second
+    pass) on the tile, split and offsets of ``plan``.  ``lo_terms=False``
+    drops the lo words (1xTF32): a control that the card's gate sees the
+    small terms, never a route."""
+    b, h, wd, ci = x.shape
+    _, ho, wo, co = dy.shape
+    py, px = _pair(g.padding)
+    lib, forward = _entry(TF32_SOURCE, "wgrad_lb_sm90_tf32_forward", 5, 23)
+    dw = torch.empty((g.hk, g.wk, ci, co), dtype=torch.float32,
+                     device=x.device)
+    ws = (torch.empty((plan.splits, g.hk * g.wk * ci, co),
+                      dtype=torch.float32, device=x.device)
+          if plan.splits > 1 else None)
+    win_off = _c_ints(plan.win_off)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(
+            x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
+            None if ws is None else ws.data_ptr(), ctypes.addressof(win_off),
+            b, h, wd, ci, co, g.hk, g.wk, ho, wo, py, px, plan.hy, plan.hx,
+            plan.bn, plan.nwc, plan.cib, plan.cpr, plan.stages,
+            plan.sub_bytes, plan.splits, plan.bps, plan.smem_bytes,
+            int(lo_terms), stream)
+    _launched(lib, err, "wgrad_lb_sm90_tf32")
+    return dw
+
+
+def im2col_plane(x: torch.Tensor, geom) -> torch.Tensor:
+    """The stride-1 im2col plane (B, Ho, Wo, :func:`im2col_channels`) of
+    x (B, H, W, Ci), in x's type: a CUDA ``x`` launches
+    ``csrc/wgrad_im2col.cu`` on :func:`im2col_taps`; a CPU ``x`` runs
+    the plain version (:func:`~repro_torch.kernels.conv_lb.ref.
+    im2col_ref`)."""
+    g = WgradGeometry.of(geom)
+    cp = im2col_channels(x.shape[-1], g.hk, g.wk)
+    if x.device.type == "cpu":
+        return im2col_ref(x, g.hk, g.wk, padding=g.padding,
+                          dilation=g.dilation, channels=cp)
+    if x.device.type != "cuda":
+        raise ValueError(f"the im2col kernel runs on CUDA tensors (or its "
+                         f"plain version on CPU ones), not {x.device}")
+    return _im2col(x, g, cp, im2col_taps(g))
+
+
+def _im2col(x: torch.Tensor, g: WgradGeometry, cp: int,
+            taps: tuple[tuple[int, int], ...]) -> torch.Tensor:
+    """One launch of the staging kernel ``csrc/wgrad_im2col.cu``."""
+    b, h, wd, ci = x.shape
+    ho, wo = _out_plane(x.shape, g)
+    lib, forward = _entry(IM2COL_SOURCE, "wgrad_im2col_forward", 3, 9)
+    plane = torch.empty((b, ho, wo, cp), dtype=x.dtype, device=x.device)
+    offs = _c_ints(tuple(itertools.chain(*taps)))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(x.data_ptr(), plane.data_ptr(), ctypes.addressof(offs),
+                      b, h, wd, ci, ho, wo, len(taps), cp, DTYPES[x.dtype],
+                      stream)
+    _launched(lib, err, "wgrad_im2col")
+    wgrad_lb.stage_launches += 1
+    return plane
+
+
+def _im2col_wgrad(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
+                  plan: Im2colPlan) -> torch.Tensor:
+    """Route ``sm90_im2col``: the plane on ``plan``'s taps, its 1x1
+    wgrad on the tensor-core kernel of x's type, and rows 0 ..
+    Hk*Wk*Ci - 1 of that dW (a view) as dW (Hk, Wk, Ci, Co)."""
+    ci, co = x.shape[-1], dy.shape[-1]
+    plane = _im2col(x, g, plan.cp, plan.taps)
+    launch = _sm90 if x.dtype == torch.bfloat16 else _sm90_tf32
+    dw = launch(plane, dy, _ONE_BY_ONE, plan.inner)
+    return dw.view(plan.cp, co)[:g.hk * g.wk * ci].view(g.hk, g.wk, ci, co)
+
+
+_ONE_BY_ONE = WgradGeometry(hk=1, wk=1)
+
+
+@lru_cache(maxsize=4096)
+def _c_ints(values: tuple[int, ...]):
+    """A C int array of ``values``, made once and kept (a launch passes
+    its address)."""
+    return (ctypes.c_int * len(values))(*values)
 
 
 def _fma(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
@@ -413,3 +748,4 @@ def _fma(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
 wgrad_lb.launches = 0
 wgrad_lb.launches_by_route = dict.fromkeys(ROUTES, 0)
 wgrad_lb.reduce_launches = 0
+wgrad_lb.stage_launches = 0

@@ -29,7 +29,8 @@ from repro_torch.kernels.attention_block.ref import attention_plain
 from repro_torch.kernels.conv_lb import kernel as K
 from repro_torch.kernels.conv_lb import wgrad as W
 from repro_torch.kernels.conv_lb.ops import conv2d_lb
-from repro_torch.kernels.conv_lb.ref import conv2d_ref, flip_w, wgrad_ref
+from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w, im2col_ref,
+                                             wgrad_ref)
 from repro_torch.kernels.matmul_lb import kernel as K3
 from repro_torch.kernels.matmul_lb.ops import matmul_lb
 from repro_torch.kernels.matmul_lb.ref import matmul_ref
@@ -286,7 +287,12 @@ def test_profile_step_sees_the_ports_kernels(cuda):
                         steps=1, warmup=1, lr=1e-3)
     own = {r["kernel"]: r for r in rep["own_kernels"]}
     assert own["K1 conv_lb"]["launches_per_step"] == 62
-    assert own["K2 wgrad_lb"]["launches_per_step"] == 21
+    # f32 at width 0.25: the stem through the im2col plane onto the
+    # 3xTF32 kernel, the stride-1 3x3 convs on it, the stride-2 convs
+    # and the projections (4) on FMA
+    assert own["K2 wgrad_lb"]["launches_per_step"] == 4
+    assert own["K2 wgrad_lb_sm90_tf32"]["launches_per_step"] == 17
+    assert own["K2 im2col staging"]["launches_per_step"] == 1
     assert 0.0 <= rep["device_idle_share"] < 1.0
 
 
@@ -698,16 +704,22 @@ def test_sm90_wgrad_matches_plain(cuda, b, h, w, ci, co, p, d):
     before = dict(W.wgrad_lb.launches_by_route)
     dw = W.wgrad_lb(x, dy, geom)
     torch.cuda.synchronize()
-    assert _wgrad_launched(before) == {"sm90": 1, "fma": 0}
+    assert _wgrad_launched(before) == _one_on("sm90")
     assert dw.dtype == torch.float32
     _close(dw, wgrad_ref(x, dy, 3, 3, padding=p, dilation=d), tol=2e-4)
 
 
-@pytest.mark.parametrize("case", ["stride 2", "ci 3", "x off by 2 bytes"])
+def _one_on(rt):
+    return dict.fromkeys(W.ROUTES, 0) | {rt: 1}
+
+
+@pytest.mark.parametrize("case", ["stride 2", "ci 9", "x off by 2 bytes"])
 def test_what_sm90_wgrad_does_not_take_runs_on_fma(cuda, case):
+    """Strides, a misaligned base, and Ci = 9 (81 taps: neither a TMA map
+    nor the im2col plane takes it) run on FMA."""
     g = torch.Generator().manual_seed(20)
     bf = torch.bfloat16
-    ci, s = (3 if case == "ci 3" else 16), (2 if case == "stride 2" else 1)
+    ci, s = (9 if case == "ci 9" else 16), (2 if case == "stride 2" else 1)
     x = torch.randn((2, 16, 16, ci), generator=g).to(cuda, bf)
     if case == "x off by 2 bytes":
         flat = torch.zeros(x.numel() + 8, dtype=bf, device=cuda)
@@ -720,7 +732,7 @@ def test_what_sm90_wgrad_does_not_take_runs_on_fma(cuda, case):
     before = dict(W.wgrad_lb.launches_by_route)
     dw = W.wgrad_lb(x, dy, geom)
     torch.cuda.synchronize()
-    assert _wgrad_launched(before) == {"sm90": 0, "fma": 1}
+    assert _wgrad_launched(before) == _one_on("fma")
     _close(dw, wgrad_ref(x, dy, 3, 3, stride=s, padding=1), tol=2e-4)
 
 
@@ -737,5 +749,106 @@ def test_wgrad_sm90_launch_error_raises(cuda, monkeypatch):
     monkeypatch.setattr(W, "plan_of", lambda *a, **kw: ("sm90", plan))
     before = (W.wgrad_lb.launches, dict(W.wgrad_lb.launches_by_route))
     with pytest.raises(RuntimeError, match="wgrad_lb_sm90"):
+        W.wgrad_lb(x, dy, geom)
+    assert (W.wgrad_lb.launches, W.wgrad_lb.launches_by_route) == before
+
+
+# b, h, w, ci, co, pad, dilation: K2's 3xTF32 kernel at VGG16/224 shapes
+# (conv1_2 and conv3_1 at batch 2, conv5_3 at batch 8), a ragged 13 x 15
+# plane, Ci 4 and 12 (16 channels of a window in a row block, a 32-channel
+# box past Ci), dilation 2
+TF32_WGRADS = [
+    (2, 224, 224, 64, 64, 1, 1),
+    (2, 56, 56, 128, 256, 1, 1),
+    (8, 14, 14, 512, 512, 1, 1),
+    (3, 13, 15, 32, 48, 1, 1),
+    (2, 20, 20, 4, 16, 1, 1),
+    (2, 20, 20, 12, 20, 1, 1),
+    (2, 20, 20, 32, 32, 2, 2),
+]
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,p,d", TF32_WGRADS)
+def test_tf32_wgrad_matches_plain(cuda, b, h, w, ci, co, p, d):
+    """K2's 3xTF32 kernel (TMA, A from registers, hi and lo dy tiles,
+    wgmma .tf32) within the wgrad tolerance of the plain version on the
+    same f32 words, one launch on route ``sm90_tf32``; the same plan
+    without its lo terms (1xTF32) errs at least 4x more."""
+    g = torch.Generator().manual_seed(20)
+    ho, wo = h + 2 * p - 2 * d, w + 2 * p - 2 * d
+    x = torch.randn((b, h, w, ci), generator=g).to(cuda)
+    dy = torch.randn((b, ho, wo, co), generator=g).to(cuda)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(p, p), dilation=(d, d))
+    rt, plan = W.plan_of(x, dy, geom)
+    assert rt == "sm90_tf32"
+    before = dict(W.wgrad_lb.launches_by_route)
+    dw = W.wgrad_lb(x, dy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == _one_on("sm90_tf32")
+    want = wgrad_ref(x, dy, 3, 3, padding=p, dilation=d)
+    _close(dw, want, tol=2e-4)
+    one = W._sm90_tf32(x, dy, geom, plan, lo_terms=False)
+    scale = want.abs().max()
+    assert ((one - want).abs().max() / scale
+            >= 4 * (dw - want).abs().max() / scale)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_im2col_wgrad_matches_plain(cuda, dtype, b):
+    """VGG16's conv1_1 (Ci = 3) on route ``sm90_im2col``: one layer
+    launch, one staging launch, the plane equal to the plain one, dW
+    within the wgrad tolerance."""
+    g = torch.Generator().manual_seed(21)
+    x = torch.randn((b, 224, 224, 3), generator=g).to(cuda, dtype)
+    dy = torch.randn((b, 224, 224, 64), generator=g).to(cuda, dtype)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    assert W.route(x, dy, geom) == "sm90_im2col"
+    before = dict(W.wgrad_lb.launches_by_route)
+    stages = W.wgrad_lb.stage_launches
+    dw = W.wgrad_lb(x, dy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == _one_on("sm90_im2col")
+    assert W.wgrad_lb.stage_launches == stages + 1
+    assert dw.shape == (3, 3, 3, 64) and dw.dtype == torch.float32
+    _close(dw, wgrad_ref(x, dy, 3, 3, padding=1), tol=2e-4)
+    assert torch.equal(W.im2col_plane(x, geom),
+                       im2col_ref(x, 3, 3, padding=1, channels=32))
+
+
+@pytest.mark.parametrize("dtype,batch", [(torch.float32, 84),
+                                         (torch.bfloat16, 336)])
+def test_wgrad_past_max_splits_matches_plain(cuda, dtype, batch):
+    """A 224 x 224 reduction long enough that the range cap needs more than
+    ``MAX_SPLITS`` ranges (65,856 pixel blocks in f32, 263,424 in bf16):
+    one launch on the tensor-core route of its type, over that many
+    splits, within the wgrad tolerance of the plain version."""
+    g = torch.Generator().manual_seed(22)
+    ci = 4 if dtype == torch.float32 else 8
+    x = torch.randn((batch, 224, 224, ci), generator=g).to(cuda, dtype)
+    dy = torch.randn((batch, 224, 224, 8), generator=g).to(cuda, dtype)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    rt, plan = W.plan_of(x, dy, geom)
+    assert rt == ("sm90_tf32" if dtype == torch.float32 else "sm90")
+    assert plan.splits > W.MAX_SPLITS
+    before = dict(W.wgrad_lb.launches_by_route)
+    dw = W.wgrad_lb(x, dy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == _one_on(rt)
+    _close(dw, wgrad_ref(x, dy, 3, 3, padding=1), tol=2e-4)
+
+
+def test_wgrad_tf32_launch_error_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (Ci = 6, which the route would never
+    send, forced onto sm90_tf32 here) raises through ``wgrad_lb`` with
+    its reason and counts no launch on any route."""
+    x = torch.zeros((1, 8, 8, 6), device=cuda)
+    dy = torch.zeros((1, 8, 8, 16), device=cuda)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    assert W.route(x, dy, geom) == "sm90_im2col"
+    plan = W.sm90_tf32_wgrad_plan(1, 8, 8, 8, 16, 3, 3, (1, 1))
+    monkeypatch.setattr(W, "plan_of", lambda *a, **kw: ("sm90_tf32", plan))
+    before = (W.wgrad_lb.launches, dict(W.wgrad_lb.launches_by_route))
+    with pytest.raises(RuntimeError, match="wgrad_lb_sm90_tf32"):
         W.wgrad_lb(x, dy, geom)
     assert (W.wgrad_lb.launches, W.wgrad_lb.launches_by_route) == before

@@ -3,8 +3,11 @@ before it launches ``csrc/wgrad_lb_sm90.cu``.
 
   * :func:`route` for every case it reads (types, stride, channel
     counts, pointers, the window count and the halo box), and on the
-    VGG16/224 and ResNet-20/32 stacks: ``sm90`` for the 12 VGG layers
-    after conv1_1, ``fma`` for conv1_1 and ResNet-20's stride-2 layers;
+    VGG16/224 and ResNet-20/32 stacks: ``sm90`` for the 12 bf16 VGG
+    layers after conv1_1, ``sm90_im2col`` for conv1_1 (Ci = 3, through
+    the im2col plane), ``fma`` for ResNet-20's stride-2 layers (f32
+    takes ``sm90_tf32``; ``test_torch_wgrad_tc.py`` holds both newer
+    routes);
   * :func:`sm90_wgrad_plan`: a ring that fits the card's shared memory,
     at most 128 f32 sums a consumer thread, and a split that covers the
     reduction exactly, for every VGG16/224 and ResNet-20/32 layer the
@@ -73,14 +76,14 @@ def _geom(k=3, s=1, p=1, d=1):
 
 @pytest.mark.parametrize("case,want", [
     ("bf16", "sm90"),
-    ("f32", "fma"),
+    ("f32", "sm90_tf32"),
     ("bf16 x, f32 dy", "fma"),
     ("f32 x, bf16 dy", "fma"),
     ("stride 2", "fma"),
     ("stride (1, 2)", "fma"),
     ("dilation 2", "sm90"),
     ("padding 0", "sm90"),
-    ("ci 3", "fma"),
+    ("ci 3", "sm90_im2col"),
     ("ci 12", "fma"),
     ("ci 8", "sm90"),
     ("co 12", "fma"),
@@ -121,8 +124,9 @@ def test_route_reads_types_geometry_and_pointers(case, want):
 
 
 def test_route_names_sm90_for_vgg16_after_conv1_1():
-    """conv1_1 (Ci = 3: 6-byte pixels TMA cannot stride) stays on FMA;
-    conv1_2 ... conv5_3 take the sm90 kernel, in bf16 only."""
+    """conv1_1 (Ci = 3: 6-byte pixels TMA cannot stride) goes through
+    the im2col plane; conv1_2 ... conv5_3 take the sm90 kernel in bf16
+    and the 3xTF32 kernel in f32."""
     got = {BF: [], torch.float32: []}
     for st in _vgg_stages():
         n = st.node
@@ -130,13 +134,14 @@ def test_route_names_sm90_for_vgg16_after_conv1_1():
             x = torch.zeros((1, st.h, st.w, n.ci), dtype=dtype)
             dy = torch.zeros((1, st.ho, st.wo, n.co), dtype=dtype)
             got[dtype].append(W.route(x, dy, _geom(s=n.stride, p=n.pad)))
-    assert got[BF] == ["fma"] + ["sm90"] * 12
-    assert got[torch.float32] == ["fma"] * 13
+    assert got[BF] == ["sm90_im2col"] + ["sm90"] * 12
+    assert got[torch.float32] == ["sm90_im2col"] + ["sm90_tf32"] * 12
 
 
 def test_route_on_resnet20():
-    """The stride-1 3x3 convs take sm90; the stem (Ci = 3), the stride-2
-    3x3 convs and the 1x1/2 projections stay on FMA."""
+    """The stride-1 3x3 convs take sm90; the stem (Ci = 3) goes through
+    the im2col plane; the stride-2 3x3 convs and the 1x1/2 projections
+    stay on FMA."""
     got = {}
     for st in _resnet_stages():
         n = st.node
@@ -144,7 +149,8 @@ def test_route_on_resnet20():
         dy = torch.zeros((1, st.ho, st.wo, n.co), dtype=BF)
         got[n.name] = W.route(x, dy, _geom(k=n.hk, s=n.stride, p=n.pad))
     for name, rt in got.items():
-        want = ("fma" if name == "stem" or name.endswith("_proj")
+        want = ("sm90_im2col" if name == "stem" else
+                "fma" if name.endswith("_proj")
                 or name in ("s2b0_a", "s3b0_a") else "sm90")
         assert rt == want, name
     assert sum(rt == "sm90" for rt in got.values()) == 16
@@ -154,8 +160,9 @@ def test_route_on_resnet20():
 def test_plan_of_names_the_route_and_its_kernels_plan(dtype):
     """``plan_of`` gives what ``wgrad_lb`` launches on VGG16/224 at
     batch 8: the route :func:`W.route` names, with ``sm90_wgrad_plan``'s
-    plan there and ``wgrad_split``'s on FMA; a reference-style
-    ``WgradPlan`` names the same as its geometry."""
+    plan there (``sm90_tf32_wgrad_plan``'s and the im2col route's are
+    held in ``test_torch_wgrad_tc.py``); a reference-style ``WgradPlan``
+    names the same as its geometry."""
     for st in _vgg_stages():
         n = st.node
         x = torch.zeros((8, st.h, st.w, n.ci), dtype=dtype)
@@ -167,8 +174,12 @@ def test_plan_of_names_the_route_and_its_kernels_plan(dtype):
             assert plan == W.sm90_wgrad_plan(8, st.ho, st.wo, n.ci, n.co,
                                              3, 3, (1, 1))
             assert plan.tile == (plan.bn, plan.nwc, plan.cib, plan.splits)
+        elif rt == "sm90_tf32":
+            assert plan == W.sm90_tf32_wgrad_plan(8, st.ho, st.wo, n.ci,
+                                                  n.co, 3, 3, (1, 1))
         else:
-            assert plan == W.wgrad_split(9 * n.ci, n.co, 8 * st.ho * st.wo)
+            assert rt == "sm90_im2col" and n.ci == 3
+            assert plan.inner.nblk == 8 * 28 * 28
         wplan = plan_conv_wgrad(plan_conv(st.h, st.w, n.ci, n.co, 3, 3,
                                           batch=8, stride=(n.stride,) * 2,
                                           padding=(n.pad,) * 2))
@@ -177,7 +188,7 @@ def test_plan_of_names_the_route_and_its_kernels_plan(dtype):
 
 def test_launch_counters_by_route():
     assert set(W.wgrad_lb.launches_by_route) == set(W.ROUTES) == {
-        "sm90", "fma"}
+        "sm90", "sm90_tf32", "sm90_im2col", "fma"}
     assert isinstance(W.wgrad_lb.launches, int)
     assert isinstance(W.wgrad_lb.reduce_launches, int)
 
