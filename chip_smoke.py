@@ -2,16 +2,17 @@
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
   * ``build``: the conv (K1: FMA and sm90), wgrad (K2: FMA, sm90 bf16,
-    sm90 3xTF32 and the im2col staging kernel), matmul (K3: FMA and
-    sm90) and attention (K4: FMA and sm90) kernels from the sources in
-    this checkout, one nvcc each, all started together; ptxas
-    registers, spills and shared memory;
+    sm90 3xTF32), the im2col staging kernel (K1 and K2), matmul (K3:
+    FMA, sm90 bf16 and sm90 3xTF32) and attention (K4: FMA and sm90)
+    kernels from the sources in this checkout, one nvcc each, all
+    started together; ptxas registers, spills and shared memory;
   * ``check``, ``check_bwd``: K1 (f32 and bf16, each row with the
     route it took and its tile; also in its dgrad geometries, and at
     7x7 and 11x11 windows) and K2 (x and dy f32 and bf16, each row with
     the route it took and its plan) against their plain PyTorch
     versions; wrong results of K1's and K2's sm90 kernels (the halo
     read one row off) shown to fail the bf16 gate and ``WGRAD_TOL``,
+    of K1's im2col plane (one tap one column off) to fail the bf16 gate,
     of K2's im2col plane (one tap one column off) to fail ``WGRAD_TOL``
     by over 10x, and K2's 3xTF32 kernel without its lo terms (1xTF32)
     to err at least 4x more than the route;
@@ -22,7 +23,8 @@
   * ``check_matmul``, ``check_attention``: K3 and K4 through
     ``matmul_lb`` / ``flash_attention`` at every shape and type of the
     reference's sweeps (K3 also with a K-major ``w`` and at a ragged
-    and a long-K shape, each row with the route it took; K4 on every
+    and a long-K shape, each row with the route it took, f32 on
+    ``sm90_tf32`` where TMA describes the operands; K4 on every
     route that takes each case, also at head dims 20, 80, 96, 256, 320
     and 512 and two long cases) and a fully masked row case, against
     their plain versions (``CARD_TOL``; deliberately wrong results, a
@@ -31,14 +33,18 @@
   * ``vgg``, ``serve_bf16_vgg``, ``resnet``: VGG16/224 (full width, f32
     and bf16) and ResNet-20/32 served through
     ``repro_torch.serve.ImageServer``, every conv on K1 (bf16 VGG: 12
-    convs a dispatch on the sm90 kernel, conv1_1 on FMA);
+    convs a dispatch on the sm90 kernel, conv1_1 on ``sm90_im2col``: the
+    plane, then the sm90 kernel as a 1x1 conv);
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
     on K1 (recompute, dgrad) and K2 (wgrad), K2's launches per route
     exact (f32 VGG: conv1_1 on ``sm90_im2col``, the 12 after it on
     ``sm90_tf32``);
   * ``matmul``, ``attention``: the two entry points at full width
     (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
-    kernel, and wq also with a K-major ``w``; phi3-medium-14b's and
+    kernel, f32 on the 3xTF32 kernel, and wq also with a K-major ``w``
+    in both types, the 1xTF32 control (lo words dropped) shown to fail
+    the f32 gate and err 4x more, the FMA kernel timed on the f32
+    inputs through its own launcher; phi3-medium-14b's and
     mixtral-8x7b's attention, bf16 on the sm90 kernel), f32 and bf16,
     held against the plain versions and timed beside their bounds and
     a library call;
@@ -46,11 +52,16 @@
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
     and bf16, each row with its route and tile (K2: plan) and the
     host's time to enqueue one call (``host_us``; K1's forward and
-    K2); K2's rows also with the FMA kernel's time and error on the same
-    inputs (``fma_ms``, ``fma_err``, gated like the route) and its
-    bound (``fma_bound_ms``) beside the route's (``bound_ms``: f32 as
-    3xTF32, three products at the TF32 rate) and, at conv1_1, the
-    im2col staging kernel's own time.
+    K2); K1's conv1_1 bf16 row (``sm90_im2col``) and K2's rows also with
+    the FMA kernel's time and error on the same inputs (``fma_ms``,
+    ``fma_err``, gated like the route) and its bound (``fma_bound_ms``)
+    beside the route's (``bound_ms``: f32 as 3xTF32, three products at
+    the TF32 rate) and, at conv1_1, the im2col staging kernel's own
+    time (``stage_ms``; K1 also ``plane_bound_ms``, the bound with the
+    plane's bytes);
+  * ``layers_bwd_resnet``: K2 on FMA at its own main-path inputs,
+    ResNet-20/32's four strided wgrads at batch 8, f32 and bf16, timed
+    beside cuDNN's ``conv2d_weight`` and the bound.
 
 Times are CUDA events around one call, the L2 cache flushed before
 it; a call shorter than the host's time to enqueue it is charged that
@@ -91,6 +102,7 @@ from repro_torch.kernels.attention_block.ops import (  # noqa: E402
     flash_attention, heads_first)
 from repro_torch.kernels.attention_block.ref import (  # noqa: E402
     attention_plain)
+from repro_torch.kernels.conv_lb import im2col as I  # noqa: E402
 from repro_torch.kernels.conv_lb import kernel as K  # noqa: E402
 from repro_torch.kernels.conv_lb import ops as conv_ops  # noqa: E402
 from repro_torch.kernels.conv_lb import wgrad as W  # noqa: E402
@@ -103,7 +115,10 @@ from repro_torch.kernels.matmul_lb.ops import (accounted_block,  # noqa: E402
 from repro_torch.kernels.matmul_lb.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
                                              im2col_ref, wgrad_ref)
+from repro_torch.kernels.nvcc import build_many  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
+from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
+from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph)
 from repro_torch.models.graph import (graph_logits, graph_stages,  # noqa: E402
@@ -113,9 +128,6 @@ from repro_torch.serve import ImageServer  # noqa: E402
 
 #: kernel vs plain version: sums run in another order over K <= 4608
 TOL = 1e-4
-#: wgrad kernel vs plain version: sums over up to 401,408 pixels in
-#: another order (split ranges, then the splits)
-WGRAD_TOL = 2e-4
 #: training-step gradients vs plain autograd on the same ReLU masks and
 #: pool maxima (``Decisions``): 13-21 layers of f32 sums in another
 #: order, relative to each tensor's max |plain grad|
@@ -136,24 +148,14 @@ WGRAD_IM2COL_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_im2col.cu"
 WGRAD_REPLACES = "src/repro/kernels/conv_lb/wgrad.py:50"
 MATMUL_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb.cu"
 SM90_SOURCE = "src/repro_torch/kernels/matmul_lb/csrc/matmul_lb_sm90.cu"
+MATMUL_TF32_SOURCE = ("src/repro_torch/kernels/matmul_lb/csrc/"
+                      "matmul_lb_sm90_tf32.cu")
 MATMUL_REPLACES = "src/repro/kernels/matmul_lb/kernel.py:23"
 ATTN_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
                "attention_block.cu")
 ATTN_SM90_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
                     "attention_block_sm90.cu")
 ATTN_REPLACES = "src/repro/kernels/attention_block/kernel.py:22"
-#: K3 and K4 vs their plain versions on the card: (rtol, atol, atol per
-#: rms of the plain output), |out - plain| <= rtol |plain| + atol', where
-#: atol' = min(atol, atol_rms * rms(plain)), so the gate is never looser
-#: than the reference's (tests/test_kernels.py: f32 rtol 2e-5, atol 2e-4;
-#: bf16 rtol 8e-2, atol 0.8).  Kernel and plain version sum the same
-#: words in f32 and round once to the output type: in f32 they differ by
-#: the order of the sums (~sqrt(K) 2^-24 of the summed magnitude, so
-#: 1e-3 rms leaves a wide margin); in bf16 by at most one rounding step
-#: (<= 2^-7 |plain|), so rtol 2^-6 is two steps, and near zero by the
-#: f32 order of the sums, which 1e-2 rms covers.
-CARD_TOL = {torch.float32: (2e-5, 2e-4, 1e-3),
-            torch.bfloat16: (2 ** -6, 0.8, 1e-2)}
 DTYPES = (torch.float32, torch.bfloat16)
 PEAK = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
 
@@ -196,14 +198,15 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    libs = K.build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, W.SM90_SOURCE,
-                         W.TF32_SOURCE, W.IM2COL_SOURCE, K3.SOURCE,
-                         K3.SM90_SOURCE, K4.SOURCE, K4.SM90_SOURCE])
+    libs = build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, W.SM90_SOURCE,
+                         W.TF32_SOURCE, I.SOURCE, K3.SOURCE,
+                         K3.SM90_SOURCE, K3.TF32_SOURCE, K4.SOURCE,
+                         K4.SM90_SOURCE])
     for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE, WGRAD_SOURCE,
                                   WGRAD_SM90_SOURCE, WGRAD_TF32_SOURCE,
                                   WGRAD_IM2COL_SOURCE, MATMUL_SOURCE,
-                                  SM90_SOURCE, ATTN_SOURCE,
-                                  ATTN_SM90_SOURCE)):
+                                  SM90_SOURCE, MATMUL_TF32_SOURCE,
+                                  ATTN_SOURCE, ATTN_SM90_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
               "ptxas": [ln.strip() for ln in lib.log.splitlines()
@@ -256,13 +259,15 @@ CHECKS = [
 
 def conv_route(x, w, bias=None, residual=None, **kw) -> tuple[str, list]:
     """The route :func:`K.plan_of` names for one group of a conv and the
-    tile that route's kernel runs: ``[bb, ty, tx, bn, cib]`` (sm90) or
-    ``cta_plan``'s ``[bb, ty, tx, tn, krows]`` (fma)."""
+    tile that route's kernel runs: ``[bb, ty, tx, bn, cib]`` (sm90),
+    ``[cp, bb, ty, tx, bn, cib]`` (sm90_im2col: the plane's channels,
+    then its 1x1 conv's tile) or ``cta_plan``'s ``[bb, ty, tx, tn,
+    krows]`` (fma)."""
     def pair(v):
         return (v, v) if isinstance(v, int) else tuple(v)
     kw = {k: v if k == "pool" else pair(v) for k, v in kw.items()}
     rt, plan = K.plan_of(x, w, bias, residual, **kw)
-    return rt, list(plan.tile if rt == "sm90" else plan)
+    return rt, list(plan if rt == "fma" else plan.tile)
 
 
 def wgrad_route(x, dy, geom) -> tuple[str, list]:
@@ -285,7 +290,7 @@ def want_wgrad_route(dtype, ci: int, co: int, k: int, s: int) -> str:
         return "fma"
     if ci % pitch == 0:
         return "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
-    return "sm90_im2col" if k * k * ci <= W.IM2COL_MAX else "fma"
+    return "sm90_im2col" if k * k * ci <= I.IM2COL_MAX else "fma"
 
 
 def wgrad_launch(x, dy, geom, what: str):
@@ -354,6 +359,7 @@ def phase_check() -> None:
             emit(row)
             require(ok, f"check {name} {dtype}: kernel vs plain {row}")
     check_sm90_control(gen)
+    check_im2col_conv_control(gen)
 
 
 # name, batch, plane, ci, co, pool: VGG16/224 layers at batch 8 on which
@@ -394,6 +400,34 @@ def check_sm90_control(gen) -> None:
                 f"control sm90 {name}: the right launch {gate}")
 
 
+def check_im2col_conv_control(gen) -> None:
+    """K1's route ``sm90_im2col`` at VGG16/224 conv1_1 (bf16, batch 8)
+    with one fault of its own: the plane's centre tap read one column
+    off.  The right launch passes the unchanged bf16 gate; the faulty
+    one must fail it."""
+    bf = torch.bfloat16
+    x = _randn(gen, 8, 224, 224, 3).to(bf)
+    w = _randn(gen, 3, 3, 3, 64, scale=27 ** -0.5).to(bf)
+    bias = _randn(gen, 64).to(bf)
+    kw = dict(padding=(1, 1), relu=True)
+    rt, plan = K.plan_of(x, w, bias, padding=(1, 1))
+    require(rt == "sm90_im2col", f"control im2col conv: route {rt}")
+    taps = list(plan.taps)
+    taps[4] = (taps[4][0], taps[4][1] + 1)
+    bad = dataclasses.replace(plan, taps=tuple(taps))
+    right = K.conv_lb(x, w, bias, **kw)
+    wrong = K._im2col_sm90(x, w, bias, None, 224, 224, True, 1, bad)
+    plain = conv2d_ref(x, w, bias, **kw)
+    torch.cuda.synchronize()
+    gate = within(right, plain, bf)
+    emit({"phase": "check", "geometry": "im2col_control_conv1_1_b8",
+          "dtype": str(bf), "route": rt, "tile": list(plan.tile), **gate,
+          "control": control("centre tap one column off", wrong, plain,
+                             bf)})
+    require(gate["worst_over_tol"] <= 1.0,
+            f"control im2col conv: the right launch {gate}")
+
+
 def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
     """Serve 16 requests of 1-8 images in ``dtype`` (bf16: the same
     weights rounded once); returns K1's launches by route."""
@@ -419,6 +453,7 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
     srv.warm()
     K.conv_lb.launches = 0
     K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+    K.conv_lb.stage_launches = 0
     results = []
     for im in images:
         srv.submit(im)
@@ -426,6 +461,7 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
     results += srv.drain()
     launches = K.conv_lb.launches
     by_route = dict(K.conv_lb.launches_by_route)
+    stages = K.conv_lb.stage_launches
     rids = sorted(r.rid for r in results)
     require(rids == list(range(len(images))),
             f"{phase}: rids answered {rids}")
@@ -434,11 +470,17 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
             f"{phase}: {launches} kernel launches for {dispatches} "
             f"dispatches of {n_convs} convs")
     # bf16 VGG: conv1_2 ... conv5_3 on the sm90 kernel, conv1_1 (Ci = 3)
-    # on FMA; everything else on FMA
-    sm90 = 12 if (model, dtype) == ("vgg", torch.bfloat16) else 0
-    want = {"sm90": sm90 * dispatches, "fma": (n_convs - sm90) * dispatches}
+    # through the im2col plane onto it (one staging launch each);
+    # everything else on FMA
+    bf16_vgg = (model, dtype) == ("vgg", torch.bfloat16)
+    want = dict.fromkeys(K.ROUTES, 0) | (
+        {"sm90": 12 * dispatches, "sm90_im2col": dispatches} if bf16_vgg
+        else {"fma": n_convs * dispatches})
     require(by_route == want, f"{phase}: launches by route {by_route}, "
                               f"want {want}")
+    require(stages == want["sm90_im2col"],
+            f"{phase}: {stages} staging launches for {dispatches} "
+            f"dispatches")
     got = torch.cat([r.logits for r in sorted(results,
                                               key=lambda r: r.rid)])
     with torch.no_grad():
@@ -457,7 +499,7 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
           str(got.dtype), **gate, "requests": len(images),
           "images": int(sum(sizes)), "dispatches": dispatches,
           "convs_per_dispatch": n_convs, "kernel_launches": launches,
-          "launches_by_route": by_route,
+          "launches_by_route": by_route, "stage_launches": stages,
           "every_rid_answered_once": True,
           "logits_shape": list(got.shape), "logits_finite": finite,
           "max_abs_err_vs_plain": err, "max_rel_err_vs_plain": rel,
@@ -474,22 +516,6 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
         require(gate["worst_over_tol"] <= 1.0,
                 f"{phase}: logits vs plain {gate}")
     return by_route
-
-
-def _time_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
-    """Mean device ms of ``fn`` with the L2 cache flushed before each
-    call (a serving layer finds its weights cold)."""
-    for _ in range(2):
-        fn()
-    start = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    end = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for i in range(reps):
-        flush.zero_()
-        start[i].record()
-        fn()
-        end[i].record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(start, end)) / reps
 
 
 def _host_us(fn, calls: int = 20) -> float:
@@ -511,7 +537,9 @@ def phase_layers(card: str) -> list[dict]:
     """K1 per VGG16/224 layer at batch 8, f32 and bf16 (the same words
     rounded once), held against the plain version and timed beside its
     bound and ``F.conv2d`` (cuDNN, TF32 off) in the same type; also the
-    host's time to enqueue one ``conv2d_lb`` call (``host_us``)."""
+    host's time to enqueue one ``conv2d_lb`` call (``host_us``: at
+    conv1_1 in bf16 both of route ``sm90_im2col``'s enqueues, which is
+    required there, with :func:`plane_fields`)."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED)
     params = init_vgg(gen, device="cuda")
@@ -533,6 +561,9 @@ def phase_layers(card: str) -> list[dict]:
                 memory_format=torch.channels_last)
             route, tile = conv_route(x, w, b, stride=node.stride,
                                      padding=node.pad, pool=pool)
+            if node.ci == 3 and dtype == torch.bfloat16:
+                require(route == "sm90_im2col",
+                        f"layer {node.name} {dtype}: on {route}")
             before = dict(K.conv_lb.launches_by_route)
             out = conv2d_lb(x, w, b, **kw)
             require(K.conv_lb.launches_by_route[route] == before[route] + 1,
@@ -574,9 +605,50 @@ def phase_layers(card: str) -> list[dict]:
                    "max_abs_err_over_max_ref": rel, **gate,
                    "route": route, "tile": tile, "host_us": host_us,
                    "library_host_us": library_host_us, "card": card}
+            if route == "sm90_im2col":
+                row.update(plane_fields(x, w, b, pool, ref, n_bytes, flush))
             emit(row)
             rows.append(row)
     return rows
+
+
+def plane_fields(x, w, b, pool: int, ref, n_bytes: float,
+                 flush: torch.Tensor) -> dict:
+    """A 3x3, pad-1 conv's fields on route ``sm90_im2col``: the staging
+    launch alone (its plane equal to the plain one bit for bit) beside
+    its bound, the bound with the plane's bytes (written once, read
+    once), and the FMA kernel on the same inputs through its own
+    launcher, its time and its error (held to the same bf16 gate)."""
+    bsz, h, wd, _ = x.shape
+    co = w.shape[-1]
+    before = I.im2col_plane.stage_launches
+    plane = I.im2col_plane(x, 3, 3, (1, 1))
+    require(I.im2col_plane.stage_launches == before + 1,
+            "im2col conv: no staging launch")
+    require(torch.equal(plane, im2col_ref(x, 3, 3, padding=1,
+                                          channels=plane.shape[-1])),
+            "im2col conv: the plane differs from the plain one")
+    plane_bytes = float(plane.numel() * plane.element_size())
+    one = (1, 1)
+    fma_plan = K.cta_plan(bsz, h, wd, co, pool, 3, 3, one, one,
+                          x.element_size())
+
+    def fma():
+        return K._fma(x, w, b, None, h, wd, one, one, one, one, True, pool,
+                      fma_plan)
+
+    gate = within(fma(), ref, x.dtype)
+    require(gate["worst_over_tol"] <= 1.0, f"im2col conv: FMA kernel vs "
+                                           f"plain {gate}")
+    return {"stage_ms": _time_ms(lambda: I.im2col_plane(x, 3, 3, (1, 1)),
+                                 flush),
+            "stage_bound_ms": (x.numel() * x.element_size() + plane_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "plane_bytes": plane_bytes,
+            "plane_bound_ms": (n_bytes + 2 * plane_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "fma_ms": _time_ms(fma, flush), "fma_err": gate["worst_over_tol"],
+            "fma_max_abs_err": gate["max_abs_err"], "fma_tile": fma_plan}
 
 
 # name, batch, (h, w), ci, co, k, stride, pad: the forward conv whose
@@ -832,7 +904,7 @@ def check_bwd_bf16() -> dict:
     # recompute + dgrad on K1 (both on its sm90 kernel), wgrad on K2
     require(launches == {"conv_lb": 2, "wgrad_lb": 1},
             f"check_bwd bf16: launches {launches}")
-    require(by_route == {"sm90": 2, "fma": 0},
+    require(by_route == dict.fromkeys(K.ROUTES, 0) | {"sm90": 2},
             f"check_bwd bf16: K1 launches by route {by_route}")
     require(wgrad_by_route == dict.fromkeys(W.ROUTES, 0) | {"sm90": 1},
             f"check_bwd bf16: K2 launches by route {wgrad_by_route}")
@@ -882,19 +954,6 @@ def check_library_bwd(gen) -> None:
                                   f"autograd {max(rels)} > {TOL}")
 
 
-def within(out: torch.Tensor, ref: torch.Tensor, dtype) -> dict:
-    """K3/K4 against a plain version at :data:`CARD_TOL`: the max abs
-    error and the worst |err| / tolerance (the gate is <= 1)."""
-    rtol, atol, atol_rms = CARD_TOL[dtype]
-    ref = ref.float()
-    rms = ref.square().mean().sqrt().item()
-    atol = min(atol, atol_rms * rms)
-    err = (out.float() - ref).abs()
-    return {"max_abs_err": err.max().item(),
-            "worst_over_tol": (err / (atol + rtol * ref.abs())).max().item(),
-            "rtol": rtol, "atol": atol, "plain_rms": rms}
-
-
 def control(what: str, wrong: torch.Tensor, plain: torch.Tensor,
             dtype) -> dict:
     """A deliberately wrong result held to the same gate: it must fail
@@ -925,8 +984,13 @@ def matmul_control(x: torch.Tensor, w: torch.Tensor, chunk: int):
 
 MATMUL_SWEEP = [(64, 64, 64), (128, 256, 128), (300, 200, 150),
                 (1000, 333, 77), (8, 8, 8), (257, 129, 511)]
-#: beside the sweep, for the sm90 kernel (bf16 only): a ragged edge in
-#: every dimension and a long K, whose rows TMA can describe
+#: beside the sweep, for the tensor-core kernels (sm90 in bf16,
+#: sm90_tf32 in f32): a ragged edge in every dimension and a long K,
+#: whose rows TMA can describe.  In f32 ``w`` is scaled by 1/sqrt(K), as
+#: a projection's is: with unscaled N(0, 1) words at a K in the thousands
+#: the sums cancel so far that two f32 orders of them, the plain
+#: version's among them, approach the f32 gate from the float64 product
+#: (``launch/tf32_promote.py --unscaled``)
 MATMUL_EXTRA = [(1000, 328, 88), (520, 4104, 392)]
 #: sweep shapes whose gate is also shown to fail a wrong result
 MATMUL_CONTROLS = ((1000, 333, 77), (257, 129, 511))
@@ -934,10 +998,13 @@ MATMUL_CONTROLS = ((1000, 333, 77), (257, 129, 511))
 MATMUL_K_STEP = 16
 
 
-def phase_check_matmul() -> None:
+def phase_check_matmul() -> dict:
     """Every shape and type of the reference's matmul sweep through
-    ``matmul_lb`` on the card, against the plain version."""
+    ``matmul_lb`` on the card, against the plain version (the path of
+    the shapes TMA cannot describe, on ``fma``).  Returns the launches
+    by route of the phase."""
     gen = torch.Generator().manual_seed(SEED + 3)
+    K3.matmul_lb.launches_by_route = dict.fromkeys(K3.ROUTES, 0)
     for dtype in DTYPES:
         for m, k, n in MATMUL_SWEEP:
             x = _randn(gen, m, k).to(dtype)
@@ -962,26 +1029,32 @@ def phase_check_matmul() -> None:
             require(row["worst_over_tol"] <= 1.0,
                     f"check_matmul {m}x{k}x{n} {dtype}: {row}")
     check_matmul_layouts(gen)
+    return dict(K3.matmul_lb.launches_by_route)
 
 
 def check_matmul_layouts(gen) -> None:
     """The sweep with ``w`` K-major (``w.t()`` of a contiguous
-    ``(N, K)``) in both types, and in bf16 the extra shapes in both
-    layouts: each row with its route and the copies it made; a bf16
-    product whose rows TMA describes must take ``sm90``."""
+    ``(N, K)``) and the extra shapes in both layouts, in both types:
+    each row with its route and the copies it made; a product whose rows
+    TMA describes must take ``sm90`` in bf16 and ``sm90_tf32`` in
+    f32."""
     extra = [(sh, layout) for sh in MATMUL_EXTRA
              for layout in ("k-major", "n-major")]
     for dtype in DTYPES:
         for (m, k, n), layout in (
-                [(sh, "k-major") for sh in MATMUL_SWEEP]
-                + (extra if dtype == torch.bfloat16 else [])):
+                [(sh, "k-major") for sh in MATMUL_SWEEP] + extra):
             x = _randn(gen, m, k).to(dtype)
-            w = _randn(gen, k, n).to(dtype)
+            f32_extra = (dtype == torch.float32
+                         and (m, k, n) in MATMUL_EXTRA)
+            w = _randn(gen, k, n, scale=k ** -0.5 if f32_extra
+                       else 1.0).to(dtype)
             if layout == "k-major":
                 w = w.t().contiguous().t()
             route = K3.route(x, w)
-            tma = dtype == torch.bfloat16 and (2 * k) % 16 == 0 and (
-                layout == "k-major" or (2 * n) % 16 == 0)
+            elt = x.element_size()
+            tma = (elt * k) % 16 == 0 and (
+                layout == "k-major" or (elt * n) % 16 == 0)
+            tc = "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
             before = dict(K3.matmul_lb.launches_by_route)
             copies = K3.matmul_lb.copies
             out = matmul_lb(x, w)
@@ -990,7 +1063,7 @@ def check_matmul_layouts(gen) -> None:
                         for r in before}
             plain = matmul_ref(x, w)
             row = within(out, plain, dtype)
-            if dtype == torch.bfloat16 and (m, k, n) in MATMUL_EXTRA:
+            if (m, k, n) in MATMUL_EXTRA:
                 row["control"] = control(*matmul_control(x, w, 1),
                                          plain, dtype)
             emit({"phase": "check_matmul", "shape": [m, k, n],
@@ -998,7 +1071,7 @@ def check_matmul_layouts(gen) -> None:
                   "launches_by_route": launched,
                   "copies": K3.matmul_lb.copies - copies, **row})
             where = f"check_matmul {m}x{k}x{n} {dtype} {layout}"
-            require(route == ("sm90" if tma else "fma"),
+            require(route == (tc if tma else "fma"),
                     f"{where}: route {route}")
             # the FMA kernel takes a K-major w by one counted copy
             require(K3.matmul_lb.copies - copies
@@ -1221,11 +1294,20 @@ MATMUL_FULL = [("wq", 4096, 5120, 5120), ("wk", 4096, 5120, 1280),
 MATMUL_K_STAGE = 64
 
 
+#: the f32 projections whose 1xTF32 control (the 3xTF32 kernel without
+#: its lo words, same tile) must fail the f32 gate and err 4x the route
+MATMUL_TF32_CONTROLS = ("wq", "ffn_down")
+
+
 def phase_matmul(card: str) -> tuple[dict, list[dict]]:
-    """``matmul_lb`` at full width, f32 and bf16 (and bf16 wq again
-    with a K-major ``w``): the main path run (launch counts by route),
-    then each call held against the plain version and timed alone
-    beside its bound and ``torch.matmul``.  Weights are scaled by
+    """``matmul_lb`` at full width, f32 and bf16 (and wq again with a
+    K-major ``w`` in both types): the main path run (launch counts by
+    route: bf16 on ``sm90``, f32 on ``sm90_tf32``, none on ``fma``), then
+    each call held against the plain version and timed alone beside its
+    bound and ``torch.matmul``; f32 rows also with the FMA kernel on the
+    same inputs through its own launcher (``fma_ms``, its error gated)
+    beside its bound (``fma_bound_ms``; ``bound_ms`` is the 3xTF32
+    bound, three products at the TF32 rate).  Weights are scaled by
     1/sqrt(K), as a projection's are."""
     gen = torch.Generator().manual_seed(SEED + 5)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
@@ -1233,10 +1315,11 @@ def phase_matmul(card: str) -> tuple[dict, list[dict]]:
             _randn(gen, m, k).to(dtype),
             _randn(gen, k, n, scale=k ** -0.5).to(dtype))
            for dtype in DTYPES for name, m, k, n in MATMUL_FULL]
-    # wq's bf16 operands again, w K-major (w.t() of a contiguous (N, K))
-    name, m, k, n, dtype, _, x, w = ops[len(MATMUL_FULL)]
-    ops.append((name, m, k, n, dtype, "k-major", x,
-                w.t().contiguous().t()))
+    # wq's operands again, w K-major (w.t() of a contiguous (N, K))
+    for i in (0, len(MATMUL_FULL)):
+        name, m, k, n, dtype, _, x, w = ops[i]
+        ops.append((name, m, k, n, dtype, "k-major", x,
+                    w.t().contiguous().t()))
     K3.matmul_lb.launches = 0
     K3.matmul_lb.launches_by_route = dict.fromkeys(K3.ROUTES, 0)
     K3.matmul_lb.copies = 0
@@ -1245,15 +1328,19 @@ def phase_matmul(card: str) -> tuple[dict, list[dict]]:
     launches = {"launches": K3.matmul_lb.launches,
                 "by_route": dict(K3.matmul_lb.launches_by_route),
                 "copies": K3.matmul_lb.copies}
+    per_type = len(MATMUL_FULL) + 1
     require(launches["launches"] == len(ops),
             f"matmul: {launches} for {len(ops)} calls")
-    require(launches["by_route"]["sm90"] == len(MATMUL_FULL) + 1
+    require(launches["by_route"] == {"sm90": per_type,
+                                     "sm90_tf32": per_type, "fma": 0}
             and launches["copies"] == 0,
-            f"matmul: {launches}: every bf16 projection must take sm90")
+            f"matmul: {launches}: every bf16 projection must take sm90 "
+            f"and every f32 one sm90_tf32")
     rows = []
     for (name, m, k, n, dtype, layout, x, w), out in zip(ops, outs):
         route = K3.route(x, w)
-        require(route == ("sm90" if dtype == torch.bfloat16 else "fma"),
+        f32 = dtype == torch.float32
+        require(route == ("sm90_tf32" if f32 else "sm90"),
                 f"matmul {name} {dtype} {layout}: route {route}")
         plain = matmul_ref(x, w)
         chk = within(out, plain, dtype)
@@ -1266,11 +1353,41 @@ def phase_matmul(card: str) -> tuple[dict, list[dict]]:
             if dtype == torch.bfloat16:
                 chk["control_stage"] = control(
                     *matmul_control(x, w, MATMUL_K_STAGE), plain, dtype)
-        del plain
         elt = x.element_size()
         flops = 2.0 * m * n * k
         n_bytes = float((m * k + k * n + m * n) * elt)
         t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+        t_tc = (K3.TF32_PRODUCTS * flops / PEAK_TF32_FLOPS if f32
+                else t_ops)
+        extra = {}
+        if f32:
+            # no atomics: a second launch gives the same bits (a race
+            # between a stage's last reads and its refill would not)
+            require(torch.equal(K3._sm90_tf32(x, w), out),
+                    f"matmul {name} {layout}: two launches differ")
+        if f32 and layout == "n-major":
+            if name in MATMUL_TF32_CONTROLS:
+                one = K3._sm90_tf32(x, w, lo_terms=False)
+                extra["control_1xtf32"] = control(
+                    "1xTF32: lo words dropped, same tile", one, plain,
+                    dtype)
+                ratio = (extra["control_1xtf32"]["max_abs_err"]
+                         / max(chk["max_abs_err"], 1e-30))
+                extra["control_1xtf32"]["over_route"] = ratio
+                require(ratio >= 4, f"matmul {name}: 1xTF32 errs only "
+                                    f"{ratio}x the route")
+                del one
+            fma_gate = within(K3._fma(x, w), plain, dtype)
+            require(fma_gate["worst_over_tol"] <= 1.0,
+                    f"matmul {name}: FMA kernel vs plain {fma_gate}")
+            extra.update(
+                fma_ms=_time_ms(lambda: K3._fma(x, w), flush),
+                fma_err=fma_gate["worst_over_tol"],
+                fma_max_abs_err=fma_gate["max_abs_err"],
+                fma_bound_ms=max(t_ops, t_bytes) * 1e3,
+                fma_bound_by="operations" if t_ops >= t_bytes
+                else "bytes", fma_cta_tn=K3.cta_tile(m, n))
+        del plain
         blk = accounted_block(m, n, k, elt)
         row = {"phase": "matmul", "config": "phi3-medium-14b",
                "projection": name, "shape": [m, k, n],
@@ -1279,12 +1396,15 @@ def phase_matmul(card: str) -> tuple[dict, list[dict]]:
                "ms": _time_ms(lambda: matmul_lb(x, w), flush),
                "plain_ms": _time_ms(lambda: matmul_ref(x, w), flush),
                "library_ms": _time_ms(lambda: torch.matmul(x, w), flush),
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "peak_flops": PEAK[dtype], "flops": flops,
+               "bound_ms": max(t_tc, t_bytes) * 1e3,
+               "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+               "peak_flops": PEAK_TF32_FLOPS / K3.TF32_PRODUCTS if f32
+               else PEAK[dtype], "flops": flops,
                "bytes": n_bytes,
-               "cta_tn": (K3.sm90_tile(m, n) if route == "sm90"
-                          else K3.cta_tile(m, n)),
+               "cta_tn": (K3.tf32_tile(m, n) if f32
+                          else K3.sm90_tile(m, n)),
+               **({"promote": K3.TF32_PROMOTE} if f32 else {}),
+               **extra,
                "accounted_block": [blk.bm, blk.bn, blk.bk],
                "accounted_bytes": hbm_traffic_model(m, n, k, blk, elt),
                "card": card}
@@ -1771,23 +1891,91 @@ def phase_stage(x: torch.Tensor, geom, flush: torch.Tensor) -> dict:
     against the plain version's (a copy: equal bits), its time beside its
     bound (x read once, the plane written once) and the plain
     version's."""
-    before = W.wgrad_lb.stage_launches
-    plane = W.im2col_plane(x, geom)
-    require(W.wgrad_lb.stage_launches == before + 1, "im2col: no launch")
+    before = I.im2col_plane.stage_launches
+    plane = I.im2col_plane(x, geom.hk, geom.wk, geom.padding)
+    require(I.im2col_plane.stage_launches == before + 1, "im2col: no launch")
     cp = plane.shape[-1]
     plain = im2col_ref(x, geom.hk, geom.wk, padding=geom.padding,
                        channels=cp)
     err = (plane.float() - plain.float()).abs().max().item()
     require(err == 0.0, f"im2col {x.dtype}: plane vs plain {err}")
     n_bytes = float(x.element_size() * (x.numel() + plane.numel()))
-    return {"stage_ms": _time_ms(lambda: W.im2col_plane(x, geom), flush),
+    def stage():
+        return I.im2col_plane(x, geom.hk, geom.wk, geom.padding)
+
+    return {"stage_ms": _time_ms(stage, flush),
             "stage_plain_ms": _time_ms(
                 lambda: im2col_ref(x, geom.hk, geom.wk,
                                    padding=geom.padding, channels=cp),
                 flush),
             "stage_bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
             "stage_bytes": n_bytes, "stage_max_abs_err": err,
-            "stage_host_us": _host_us(lambda: W.im2col_plane(x, geom))}
+            "stage_host_us": _host_us(stage)}
+
+
+def phase_layers_bwd_resnet(card: str) -> list[dict]:
+    """K2 on FMA at the inputs its main path gives it: ResNet-20/32's
+    four strided wgrads at batch 8 (the two stride-2 3x3 convs and the two
+    1x1/2 projections), f32 (the training step's type) and bf16, each on
+    route ``fma`` (required), held to ``WGRAD_TOL`` and timed beside its
+    bound and cuDNN's ``conv2d_weight`` in the same type (TF32 off)."""
+    batch = 8
+    gen = torch.Generator().manual_seed(SEED + 6)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    rows = []
+    for st in graph_stages(resnet_graph(), 32, 32):
+        node = st.node
+        if node.stride == 1:
+            continue
+        ci, co, k = node.ci, node.co, node.hk
+        x32 = _randn(gen, batch, st.h, st.w, ci)
+        gy32 = _randn(gen, batch, st.ho, st.wo, co)
+        geom = W.WgradGeometry(hk=k, wk=k, stride=(node.stride,) * 2,
+                               padding=(node.pad,) * 2)
+        flops = 2.0 * batch * st.ho * st.wo * co * ci * k * k
+        for dtype in DTYPES:
+            x, gy = x32.to(dtype), gy32.to(dtype)
+            dw, rt, plan = wgrad_launch(x, gy, geom,
+                                        f"resnet wgrad {node.name} {dtype}")
+            require(rt == "fma", f"resnet wgrad {node.name}: on {rt}")
+            kw = dict(stride=node.stride, padding=node.pad)
+            dw_ref = wgrad_ref(x, gy, k, k, **kw)
+            err, rel = rel_err(dw, dw_ref)
+            require(rel <= WGRAD_TOL, f"resnet wgrad {node.name} {dtype}: "
+                                      f"kernel vs plain {rel}")
+            cl = torch.channels_last
+            x_nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            gy_nchw = gy.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            w_shape = (co, ci, k, k)
+
+            def library():
+                return torch.nn.grad.conv2d_weight(x_nchw, w_shape, gy_nchw,
+                                                   **kw)
+
+            n_bytes = float(x.element_size() * (x.numel() + gy.numel())
+                            + 4 * dw.numel())
+            t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+            row = {"phase": "layers_bwd_resnet", "model": "resnet20",
+                   "layer": node.name, "op": "wgrad", "dtype": str(dtype),
+                   "batch": batch, "in": [st.h, st.w, ci], "co": co,
+                   "k": k, "stride": node.stride, "route": rt,
+                   "plan": list(plan),
+                   "ms": _time_ms(lambda: W.wgrad_lb(x, gy, geom), flush),
+                   "plain_ms": _time_ms(lambda: wgrad_ref(x, gy, k, k, **kw),
+                                        flush),
+                   "library_ms": _time_ms(library, flush),
+                   "bound_ms": max(t_ops, t_bytes) * 1e3,
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "flops": flops, "bytes": n_bytes,
+                   "peak_flops": PEAK[dtype], "max_abs_err": err,
+                   "max_abs_err_over_max_ref": rel, "tol": WGRAD_TOL,
+                   "host_us": _host_us(lambda: W.wgrad_lb(x, gy, geom)),
+                   "library_host_us": _host_us(library), "card": card}
+            emit(row)
+            rows.append(row)
+    require(len(rows) == 8, f"layers_bwd_resnet: {len(rows)} rows, want "
+                            f"4 layers x 2 types")
+    return rows
 
 
 def _sums(rows: list[dict]) -> dict:
@@ -1839,7 +2027,7 @@ def main() -> int:
     phase_check()
     phase_check_bwd()
     bwd_bf16 = check_bwd_bf16()
-    phase_check_matmul()
+    check_matmul_by_route = phase_check_matmul()
     check_attn_by_route = phase_check_attention()
     vgg_launches = sum(phase_serve("vgg").values())
     vgg_bf16 = phase_serve("vgg", torch.bfloat16)
@@ -1850,10 +2038,12 @@ def main() -> int:
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
     sm90_rows = [r for r in matmul_rows if r["route"] == "sm90"]
+    tf32_rows = [r for r in matmul_rows if r["route"] == "sm90_tf32"]
     attn_launches, attn_rows = phase_attention(card)
     phase_attention_head_dims(card)
     rows = phase_layers(card)
     dgrad_rows, wgrad_rows = phase_layers_bwd(card)
+    resnet_wgrad = phase_layers_bwd_resnet(card)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dgrad = {str(d): {k: v for k, v in _sums(_of(dgrad_rows, d)).items()
                       if k in keys} for d in DTYPES}
@@ -1864,6 +2054,7 @@ def main() -> int:
     require(len(sm90_fwd) == 12 and len(sm90_dgrad) == 12,
             f"layers: {len(sm90_fwd)} forward and {len(sm90_dgrad)} dgrad "
             f"bf16 layers on sm90, want 12 and 12")
+    (plane_fwd,) = [r for r in bf16_rows if r["route"] == "sm90_im2col"]
     bf16_wgrad = _of(wgrad_rows, torch.bfloat16)
     f32_wgrad = _of(wgrad_rows, torch.float32)
     sm90_wgrad = [r for r in bf16_wgrad if r["route"] == "sm90"]
@@ -1889,6 +2080,23 @@ def main() -> int:
           "f32_12_fma_bound_ms": sum(r["fma_bound_ms"] for r in tf32_wgrad),
           "f32_12_bound_ms": tf32_sums["bound_ms"],
           "f32_12_asked_at_most": 1, "card": card})
+    k3_sums = _sums(tf32_rows)
+    emit({"phase": "k1_k3_targets",
+          "conv1_1_bf16_ms": plane_fwd["ms"],
+          "conv1_1_bf16_fma_ms": plane_fwd["fma_ms"],
+          "conv1_1_bf16_library_ms": plane_fwd["library_ms"],
+          "conv1_1_bf16_over_library":
+          plane_fwd["ms"] / plane_fwd["library_ms"],
+          "conv1_1_asked_at_most": 1.2,
+          "conv1_1_bf16_host_us": plane_fwd["host_us"],
+          "k3_f32_ms": k3_sums["ms"],
+          "k3_f32_library_ms": k3_sums["library_ms"],
+          "k3_f32_over_library": k3_sums["ms"] / k3_sums["library_ms"],
+          "k3_f32_asked_at_most": 1,
+          "k3_f32_fma_ms": sum(r["fma_ms"] for r in tf32_rows),
+          "k3_f32_bound_ms": k3_sums["bound_ms"],
+          "k3_f32_fma_bound_ms": sum(r["fma_bound_ms"] for r in tf32_rows),
+          "card": card})
     attn_sums = {rt: _sums([r for r in attn_rows if r["route"] == rt])
                  for rt in K4.ROUTES}
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
@@ -1906,7 +2114,8 @@ def main() -> int:
                  rt: {"layers": [r["layer"] for r in bf16_rows
                                  if r["route"] == rt],
                       "forward": _sums([r for r in bf16_rows
-                                        if r["route"] == rt]),
+                                        if r["route"] == rt]) if any(
+                          r["route"] == rt for r in bf16_rows) else None,
                       "dgrad": _sums([r for r in bf16_dgrad
                                       if r["route"] == rt]) if any(
                           r["route"] == rt for r in bf16_dgrad) else None}
@@ -1915,6 +2124,23 @@ def main() -> int:
                        f"layer on the route it takes, bf16_by_route: "
                        f"split by route; dgrad: the 12 whose dgrad a "
                        f"step runs)",
+             card=card),
+        dict(_sums([plane_fwd]), name="conv_lb_sm90_im2col", route="cuda",
+             kernel_route="sm90_im2col", source=CONV_SM90_SOURCE,
+             staging_source=WGRAD_IM2COL_SOURCE, replaces=REPLACES,
+             dtype="bf16", launches=vgg_bf16["sm90_im2col"],
+             host_us=plane_fwd["host_us"],
+             library_host_us=plane_fwd["library_host_us"],
+             stage_ms=plane_fwd["stage_ms"],
+             stage_bound_ms=plane_fwd["stage_bound_ms"],
+             plane_bound_ms=plane_fwd["plane_bound_ms"],
+             fma_ms=plane_fwd["fma_ms"], fma_err=plane_fwd["fma_err"],
+             times_are="bf16 VGG16/224 conv1_1 at batch 8 (the plane, then "
+                       "the sm90 kernel as a 1x1 conv; bound_ms: x, w, "
+                       "bias and out; plane_bound_ms: with the plane "
+                       "written and read; stage_ms: the staging launch "
+                       "alone; fma_ms: conv_lb.cu on the same inputs); "
+                       "launches: the bf16 serving run",
              card=card),
         dict(_sums(sm90_fwd), name="conv_lb_sm90", route="cuda",
              kernel_route="sm90", source=CONV_SM90_SOURCE,
@@ -1926,8 +2152,8 @@ def main() -> int:
                        f"conv1_1 at batch 8 (dgrad: the same 12 layers' "
                        f"dgrads); launches: the bf16 serving run",
              card=card),
-        dict(_sums(_fma_of(f32_wgrad)), name="wgrad_lb", route="cuda",
-             kernel_route="fma", source=WGRAD_SOURCE,
+        dict(_sums(_of(resnet_wgrad, torch.float32)), name="wgrad_lb",
+             route="cuda", kernel_route="fma", source=WGRAD_SOURCE,
              replaces=WGRAD_REPLACES,
              launches=(train_vgg["wgrad_lb_by_route"]["fma"]
                        + train_resnet["wgrad_lb_by_route"]["fma"]),
@@ -1935,15 +2161,20 @@ def main() -> int:
              launches_train_resnet_by_route=train_resnet[
                  "wgrad_lb_by_route"],
              reduce_launches=train_vgg["wgrad_reduce"],
-             by_dtype={str(d): _sums(_fma_of(_of(wgrad_rows, d)))
-                       for d in DTYPES},
+             by_dtype=_by_dtype(resnet_wgrad),
+             vgg_inputs_by_dtype={str(d): _sums(_fma_of(_of(wgrad_rows, d)))
+                                  for d in DTYPES},
              route_by_dtype={str(d): _sums(_of(wgrad_rows, d))
                              for d in DTYPES},
-             times_are=f"the FMA kernel through its own launcher on the "
-                       f"inputs of every wgrad row, f32 {vgg_times} "
-                       f"(by_dtype: f32 and bf16; route_by_dtype: K2 as "
-                       f"wgrad_lb routes each layer); launches: the FMA "
-                       f"route in the VGG and ResNet training runs",
+             times_are="f32 sums over ResNet-20/32's four strided wgrads "
+                       "at batch 8 (the two stride-2 3x3 convs and the two "
+                       "1x1/2 projections: the FMA route's main-path "
+                       "inputs; by_dtype: f32 and bf16); "
+                       "vgg_inputs_by_dtype: the FMA kernel through its "
+                       f"own launcher on the inputs of every VGG wgrad "
+                       f"row ({vgg_times}), which take the tensor-core "
+                       "routes (route_by_dtype); launches: the FMA route "
+                       "in the VGG and ResNet training runs",
              card=card),
         dict(_sums(sm90_wgrad), name="wgrad_lb_sm90", route="cuda",
              kernel_route="sm90", source=WGRAD_SM90_SOURCE,
@@ -1989,23 +2220,54 @@ def main() -> int:
                        "sm90_im2col); no PyTorch call builds this plane in "
                        "this layout; launches: the f32 VGG training run",
              card=card),
-        dict(_sums(matmul_rows), name="matmul_lb", route="cuda",
+        dict(_sums(_fma_of(tf32_rows)), name="matmul_lb", route="cuda",
              kernel_route="fma", source=MATMUL_SOURCE,
              replaces=MATMUL_REPLACES,
-             launches=matmul_launches["launches"],
-             by_route=matmul_launches["by_route"],
+             launches=matmul_launches["by_route"]["fma"],
+             on_main_path=False,
+             launches_off_path=check_matmul_by_route["fma"],
+             launches_check_matmul_by_route=check_matmul_by_route,
+             launches_matmul_by_route=matmul_launches["by_route"],
              copies=matmul_launches["copies"],
              by_dtype=_by_dtype(matmul_rows),
+             times_are="the FMA kernel through its own launcher on "
+                       "phi3-medium-14b's f32 wq, wk, FFN up and FFN down "
+                       "at 4096 tokens (which take sm90_tf32); by_dtype: "
+                       "matmul_lb as it routes them, f32 and bf16; "
+                       "launches: the matmul path, which no longer runs "
+                       "this kernel (every projection takes a tensor-core "
+                       "route); launches_check_matmul_by_route: the "
+                       "reference's sweep through matmul_lb, whose shapes "
+                       "TMA cannot describe run here",
+             card=card),
+        dict(k3_sums, name="matmul_lb_sm90_tf32", route="cuda",
+             kernel_route="sm90_tf32", source=MATMUL_TF32_SOURCE,
+             replaces=MATMUL_REPLACES, dtype="f32",
+             launches=matmul_launches["by_route"]["sm90_tf32"],
+             launches_check_matmul=check_matmul_by_route["sm90_tf32"],
+             fma_bound_ms=sum(r["fma_bound_ms"] for r in tf32_rows),
+             fma_ms=sum(r["fma_ms"] for r in tf32_rows),
+             promote=K3.TF32_PROMOTE,
+             control_1xtf32_over_route={
+                 r["projection"]: r["control_1xtf32"]["over_route"]
+                 for r in tf32_rows if "control_1xtf32" in r},
+             k_major_wq_ms=[r["ms"] for r in matmul_all
+                            if r["layout"] == "k-major"
+                            and r["route"] == "sm90_tf32"][0],
              times_are="sums over phi3-medium-14b's wq, wk, FFN up and "
-                       "FFN down at 4096 tokens, f32 (FMA kernel) and "
-                       "bf16 (sm90 kernel); launches of both kernels",
+                       "FFN down at 4096 tokens, f32, w N-major (bound_ms: "
+                       "three TF32 products a multiply-add at 495 "
+                       "TFLOP/s; fma_bound_ms: one at the FMA rate, 67); "
+                       "launches: the matmul path (also wq with w "
+                       "K-major)",
              card=card),
         dict(_sums(sm90_rows), name="matmul_lb_sm90", route="cuda",
              kernel_route="sm90", source=SM90_SOURCE,
              replaces=MATMUL_REPLACES,
              launches=matmul_launches["by_route"]["sm90"],
              k_major_wq_ms=[r["ms"] for r in matmul_all
-                            if r["layout"] == "k-major"][0],
+                            if r["layout"] == "k-major"
+                            and r["route"] == "sm90"][0],
              times_are="sums over phi3-medium-14b's wq, wk, FFN up and "
                        "FFN down at 4096 tokens, bf16, w N-major "
                        "(launches: also wq with w K-major)",
@@ -2029,7 +2291,11 @@ def main() -> int:
                        "attention, bf16",
              card=card)]
     for k in kernels:
-        require(k["launches"] > 0, f"{k['name']}: no launch on its path")
+        if k.get("on_main_path", True):
+            require(k["launches"] > 0, f"{k['name']}: no launch on its path")
+        else:   # left its path: it runs only where a sweep sends it
+            require(k["launches"] == 0 and k["launches_off_path"] > 0,
+                    f"{k['name']}: launched on the main path, or never")
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})

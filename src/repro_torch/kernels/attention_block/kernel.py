@@ -9,8 +9,8 @@ hand-written CUDA kernels of K4, which together replace the TPU kernel
     dims TMA cannot describe and every head dim above 256, on FMA.
 
 The libraries are built like the conv kernel's
-(:func:`repro_torch.kernels.conv_lb.kernel.build`): ``nvcc`` at first
-use, never at import.  :func:`attention` dispatches on where its
+(:mod:`repro_torch.kernels.nvcc`): ``nvcc`` at first use, never at
+import.  :func:`attention` dispatches on where its
 tensors lie: a CUDA tensor launches a kernel or raises; a CPU tensor
 runs the plain version
 (:func:`~repro_torch.kernels.attention_block.ref.attention_plain`).  On
@@ -37,7 +37,8 @@ import torch
 from repro_torch.core.hopper_adapter import SMEM_PER_BLOCK
 from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.attention_block.ref import attention_plain
-from repro_torch.kernels.conv_lb.kernel import _aligned, build
+from repro_torch.kernels.conv_lb.kernel import _aligned
+from repro_torch.kernels.nvcc import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_block.cu"
 SM90_SOURCE = (Path(__file__).resolve().parent / "csrc"

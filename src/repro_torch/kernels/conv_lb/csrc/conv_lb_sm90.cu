@@ -34,10 +34,15 @@
 //    row (the next output row), and window (ky, kx) is the same
 //    descriptor shifted by (ky*dy*hx + kx*dx)*16 bytes.  Every offset
 //    is computed by the wrapper and passed in.
-//  * B, the weights: a 3-D TMA map over (Co, Ci, Hk*Wk) with the
+//  * B, the weights: a 3-D TMA map over (Co, wCi, Hk*Wk) with the
 //    128-byte swizzle, read MN-major (transpose-B) as matmul_lb_sm90.cu
-//    reads an N-major w; a Ci block past Ci arrives as zeros and never
-//    reads the next window's rows.  Weights go through a ring of
+//    reads an N-major w; a Ci block past wCi arrives as zeros and never
+//    reads the next window's rows.  wCi is Ci, or fewer: the 1x1 conv of
+//    an im2col plane (route sm90_im2col, csrc/wgrad_im2col.cu) reads w
+//    (Hk, Wk, Ci, Co) as its Hk*Wk*Ci rows against the plane's 32
+//    channels, and the rows past them arrive as TMA's exact zeros (no
+//    padded copy of w, and nothing stale times the plane's zero
+//    channels).  Weights go through a ring of
 //    (Ci block, window) stages, the halo through a ring of its own, two
 //    stages deep, released only after every window of its Ci block has
 //    retired.  One producer thread feeds each ring, so neither waits
@@ -588,7 +593,8 @@ cudaError_t launch_k(int cib, const CUtensorMap& mx, const CUtensorMap& mw,
 
 }  // namespace
 
-// x (B, H, W, Ci), w (Hk, Wk, Ci, Co), bias (Co) or null, res (B, Ho,
+// x (B, H, W, Ci), w (Hk, Wk, wCi, Co) with 1 <= wCi <= Ci (channels
+// wCi .. Ci - 1 of x meet zero weights), bias (Co) or null, res (B, Ho,
 // Wo, Co) or null, out (B, Ho/pool, Wo/pool, Co): contiguous bf16, bases
 // 16-byte aligned, Ci and Co multiples of 8, stride 1 (the wrapper's
 // route checks all of it).  The tile (bb, ty, tx, bn, cib), the halo
@@ -599,12 +605,13 @@ cudaError_t launch_k(int cib, const CUtensorMap& mx, const CUtensorMap& mw,
 // refused tensor map, or -1 if the driver has no cuTensorMapEncodeTiled.
 extern "C" int conv_lb_sm90_forward(
     const void* x, const void* w, const void* bias, const void* res,
-    void* out, const void* win_off, int B, int H, int W, int Ci, int Co,
-    int Hk, int Wk, int Ho, int Wo, int py, int px, int pool, int relu,
+    void* out, const void* win_off, int B, int H, int W, int Ci, int wCi,
+    int Co, int Hk, int Wk, int Ho, int Wo, int py, int px, int pool, int relu,
     int bb, int ty, int tx, int hy, int hx, int bn, int cib, int plane_bytes,
     int sbo, int blk_off0, int blk_off1, int smem_bytes, void* stream) {
   const int nwin = Hk * Wk;
-  if (B < 1 || Ci < 1 || Co < 1 || nwin < 1 || nwin > kMaxWin ||
+  if (B < 1 || Ci < 1 || wCi < 1 || wCi > Ci || Co < 1 || nwin < 1 ||
+      nwin > kMaxWin ||
       (pool != 1 && pool != 2) || ty != 8 || bb * tx != 16 ||
       (cib != 16 && cib != 32 && cib != 64) || plane_bytes % 128 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -634,11 +641,11 @@ extern "C" int conv_lb_sm90_forward(
   const cuuint32_t x_box[4] = {8, static_cast<cuuint32_t>(hx),
                                static_cast<cuuint32_t>(hy),
                                static_cast<cuuint32_t>(bb)};
-  // w: (Co, Ci, Hk*Wk), 64 output channels x cib input channels per box
+  // w: (Co, wCi, Hk*Wk), 64 output channels x cib input channels per box
   const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(Co),
-                                static_cast<cuuint64_t>(Ci),
+                                static_cast<cuuint64_t>(wCi),
                                 static_cast<cuuint64_t>(nwin)};
-  const cuuint64_t w_strides[2] = {2ull * Co, 2ull * Co * Ci};
+  const cuuint64_t w_strides[2] = {2ull * Co, 2ull * Co * wCi};
   const cuuint32_t w_box[3] = {64, static_cast<cuuint32_t>(cib), 1};
   CUtensorMap mx, mw;
   int err = make_map(&mx, x, 4, x_dims, x_strides, x_box,

@@ -1,19 +1,23 @@
-"""The conv kernel's wrapper: build, bind and launch the two
-hand-written CUDA kernels of K1, which together replace the TPU kernel
+"""The conv kernel's wrapper: build, bind and launch the hand-written
+CUDA kernels of K1, which together replace the TPU kernel
 ``_conv_kernel`` / ``conv_lb_call`` of
 ``repro/kernels/conv_lb/kernel.py``:
 
   * ``csrc/conv_lb_sm90.cu`` (route ``"sm90"``): bf16 at stride 1 on
     the tensor cores, TMA into mbarrier rings feeding ``wgmma``;
+  * ``csrc/wgrad_im2col.cu``, then ``csrc/conv_lb_sm90.cu`` (route
+    ``"sm90_im2col"``): bf16 at stride 1 with a channel count too small
+    for a TMA map (VGG16's conv1_1, Ci = 3) staged as an im2col plane
+    of at most 64 channels (:mod:`~repro_torch.kernels.conv_lb.im2col`,
+    shared with K2), then a 1x1 conv of the plane on the sm90 kernel
+    against w read as Hk*Wk*Ci rows (its weight map zero past them);
   * ``csrc/conv_lb.cu`` (route ``"fma"``): f32, and every bf16 conv
     :func:`route` does not send to the sm90 kernel, on FMA.
 
-Build (:func:`build`, shared with the wgrad kernel's wrapper): at
+Build (:mod:`repro_torch.kernels.nvcc`, shared by every wrapper): at
 first use ``nvcc`` compiles a source in this checkout for ``sm_90a``
-into a shared library with a plain C interface under
-``build/repro_torch/`` (named by the source's hash, so an edited source
-is rebuilt), and ``ctypes`` binds it.  Nothing is compiled when the
-module is imported.
+into a shared library with a plain C interface, and ``ctypes`` binds
+it.  Nothing is compiled when the module is imported.
 
 :func:`conv_lb` dispatches first on where its tensors lie: a CUDA
 tensor launches the kernel :func:`route` names or raises (a
@@ -22,21 +26,16 @@ take); a CPU tensor runs the plain version
 (:func:`~repro_torch.kernels.conv_lb.ref.conv2d_ref`).  The route is
 read from types, geometry and pointers before launch, never by trying
 one; :func:`plan_of` names it with the tile its kernel runs.  Each
-launch adds one to ``conv_lb.launches`` and to its route's
-entry of ``conv_lb.launches_by_route``.
+layer call that launches adds one to ``conv_lb.launches`` and to its
+route's entry of ``conv_lb.launches_by_route``; the im2col staging
+kernel adds one to ``conv_lb.stage_launches`` where it launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import itertools
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 from functools import lru_cache
 from pathlib import Path
 
@@ -45,14 +44,14 @@ import torch
 from repro_torch.core.hopper_adapter import (REGS_PER_SM, SM_COUNT,
                                              SMEM_PER_BLOCK)
 from repro_torch.core.layer import ceil_div
+from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, im2col_channels,
+                                                im2col_taps, stage,
+                                                stage_fits)
 from repro_torch.kernels.conv_lb.ref import conv2d_ref
+from repro_torch.kernels.nvcc import Library, _entry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb_sm90.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 
 #: the kernel's fixed CTA shape (must match csrc/conv_lb.cu)
 TILE_M = 128        # output pixels per CTA
@@ -63,102 +62,6 @@ CTAS_PER_SM = REGS_PER_SM // (THREADS * MAX_REGS)
 #: operand types the conv and wgrad kernels take, by the code their C
 #: interfaces use
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-class Library:
-    """One loaded kernel library and what its build printed.  The C
-    interface of ``csrc/<stem>.cu`` exports ``<stem>_error_string``."""
-
-    def __init__(self, lib: ctypes.CDLL, path: Path, log: str,
-                 seconds: float, stem: str):
-        self.lib, self.path, self.log, self.seconds = lib, path, log, seconds
-        self._error_string = getattr(lib, f"{stem}_error_string")
-        self._error_string.argtypes = [ctypes.c_int]
-        self._error_string.restype = ctypes.c_char_p
-        self._bound: dict[str, object] = {}
-
-    def bind(self, name: str, n_pointers: int, n_ints: int):
-        """The C function ``name`` taking ``n_pointers`` pointers, then
-        ``n_ints`` ints, then the stream, and returning a CUDA error
-        code."""
-        if name not in self._bound:
-            fn = getattr(self.lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * n_pointers
-                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._bound[name] = fn
-        return self._bound[name]
-
-    def error_string(self, code: int) -> str:
-        return self._error_string(code).decode()
-
-
-_LIBRARIES: dict[Path, Library] = {}
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(found):
-        raise RuntimeError("nvcc not found: the kernels are built from "
-                           "their csrc/*.cu sources at first use and "
-                           "need the CUDA toolkit")
-    return found
-
-
-def build_many(sources) -> list[Library]:
-    """Compile (once per process and source) and load kernel libraries,
-    one ``nvcc`` per source, all started together; raises with the
-    compiler's output if a build fails."""
-    todo = {}
-    for source in sources:
-        source = Path(source)
-        if source in _LIBRARIES or source in todo:
-            continue
-        src = source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                 str(source)], stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        todo[source] = (proc, tmp,
-                        BUILD_DIR / f"{source.stem}-{digest}.so",
-                        time.perf_counter())
-    # wait for every compiler before loading or raising
-    logs = {source: job[0].communicate()[0] for source, job in todo.items()}
-    failed = []
-    for source, (proc, tmp, target, t0) in todo.items():
-        log = logs[source]
-        try:
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed ({proc.returncode}) on "
-                              f"{source}:\n{log}")
-                continue
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-        _LIBRARIES[source] = Library(ctypes.CDLL(str(target)), target, log,
-                                     time.perf_counter() - t0, source.stem)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return [_LIBRARIES[Path(s)] for s in sources]
-
-
-def build(source: Path = SOURCE) -> Library:
-    """Compile (once per process) and load one kernel library, by
-    default the conv kernel's."""
-    return build_many([source])[0]
-
-
-@lru_cache(maxsize=None)
-def _entry(source: Path, name: str, n_pointers: int, n_ints: int):
-    """``(library, bound C function)``, built and bound once per
-    process: a launch then spends no host time on either."""
-    lib = build(source)
-    return lib, lib.bind(name, n_pointers, n_ints)
 
 
 def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
@@ -260,7 +163,7 @@ SM90_H_STAGES = 2            # halo ring: Ci blocks
 SM90_MAX_WIN = 128           # windows whose offsets a launch carries
 SM90_BOX_MAX = 256           # a TMA box's extent in any dimension
 SM90_PLANE = 8               # channels of one 16-byte halo plane
-ROUTES = ("sm90", "fma")
+ROUTES = ("sm90", "sm90_im2col", "fma")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,25 +264,40 @@ def sm90_plan(batch: int, ho: int, wo: int, co: int, ci: int, hk: int = 1,
 def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
           lhs_dilation=(1, 1), *, bias: torch.Tensor | None = None,
           residual: torch.Tensor | None = None, dilation=(1, 1),
-          pool: int = 1) -> str:
-    """``"sm90"`` iff x, w, bias and residual (where given) are bf16,
-    stride and lhs dilation are (1, 1) (any dilation and padding), Ci
-    and Co are multiples of 8 (16-byte pixel and row pitches that a TMA
-    map describes), every base address is 16-byte aligned, the fused
-    pool is 1 or 2 (the sm90 epilogue pools 2 x 2 in registers) and a
-    tile of :func:`sm90_plan` fits shared memory with at most
-    ``SM90_MAX_WIN`` windows; else ``"fma"``.  Read from types,
-    geometry and pointers only, before launch."""
+          pool: int = 1, padding=(0, 0)) -> str:
+    """The tensor-core routes need x, w, bias and residual (where given)
+    bf16, stride and lhs dilation (1, 1) (any dilation and padding), Co
+    a multiple of 8 (a 16-byte row pitch that a TMA map describes),
+    every base address 16-byte aligned and the fused pool 1 or 2 (the
+    sm90 epilogue pools 2 x 2 in registers); then
+
+      * ``"sm90"``: Ci a multiple of 8 and a tile of :func:`sm90_plan`
+        that fits shared memory with at most ``SM90_MAX_WIN`` windows;
+      * ``"sm90_im2col"``: Ci not a multiple of 8, Hk*Wk*Ci <=
+        ``im2col.IM2COL_MAX`` (VGG16's conv1_1: 27), the staging kernel
+        takes the plane (``stage_fits``) and a tile of
+        :func:`sm90_plan` fits the plane's 1x1 conv.
+
+    Else ``"fma"``.  Read from types, geometry and pointers only, before
+    launch."""
     operands = [t for t in (x, w, bias, residual) if t is not None]
-    ci, co = x.shape[-1], w.shape[-1]
-    if (all(t.dtype == torch.bfloat16 for t in operands)
+    b, h, wd, ci = x.shape
+    hk, wk, _, co = w.shape
+    if not (all(t.dtype == torch.bfloat16 for t in operands)
             and tuple(stride) == (1, 1) and tuple(lhs_dilation) == (1, 1)
-            and ci % SM90_PLANE == 0 and co % SM90_PLANE == 0
+            and co % SM90_PLANE == 0
             and all(t.data_ptr() % 16 == 0 for t in operands)
-            and pool in (1, 2)
-            and sm90_plan(1, 1, 1, co, ci, w.shape[0], w.shape[1],
-                          tuple(dilation)) is not None):
-        return "sm90"
+            and pool in (1, 2)):
+        return "fma"
+    if ci % SM90_PLANE == 0:
+        fits = sm90_plan(1, 1, 1, co, ci, hk, wk, tuple(dilation))
+        return "fma" if fits is None else "sm90"
+    cp = im2col_channels(ci, hk, wk)
+    ho, wo = _out_plane(h, wd, hk, wk, (1, 1), tuple(padding),
+                        tuple(dilation), (1, 1))
+    if (min(ho, wo) >= 1 and stage_fits(b, h, wd, ci, ho, wo, cp, 2)
+            and sm90_plan(1, 1, 1, co, cp) is not None):
+        return "sm90_im2col"
     return "fma"
 
 
@@ -396,11 +314,13 @@ def plan_of(x: torch.Tensor, w: torch.Tensor,
             bias: torch.Tensor | None = None,
             residual: torch.Tensor | None = None, *, stride=(1, 1),
             padding=(0, 0), dilation=(1, 1), lhs_dilation=(1, 1),
-            pool: int = 1) -> tuple[str, Sm90Plan | tuple]:
+            pool: int = 1) -> tuple[str, Sm90Plan | Im2colPlan
+                                    | tuple]:
     """The route :func:`conv_lb` takes for these operands and the plan
-    its kernel then runs: an :class:`Sm90Plan` (``"sm90"``) or
-    :func:`cta_plan`'s ``(bb, ty, tx, tn, krows)`` (``"fma"``).  Read
-    from types, geometry and pointers only, before launch."""
+    its kernel then runs: an :class:`Sm90Plan` (``"sm90"``), an
+    :class:`Im2colPlan` (``"sm90_im2col"``) or :func:`cta_plan`'s
+    ``(bb, ty, tx, tn, krows)`` (``"fma"``).  Read from types, geometry
+    and pointers only, before launch."""
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
     stride, padding = tuple(stride), tuple(padding)
@@ -408,9 +328,14 @@ def plan_of(x: torch.Tensor, w: torch.Tensor,
     ho, wo = _out_plane(h, wd, hk, wk, stride, padding, dilation,
                         lhs_dilation)
     rt = route(x, w, stride, lhs_dilation, bias=bias, residual=residual,
-               dilation=dilation, pool=pool)
+               dilation=dilation, pool=pool, padding=padding)
     if rt == "sm90":
         return rt, sm90_plan(b, ho, wo, co, ci, hk, wk, dilation)
+    if rt == "sm90_im2col":
+        cp = im2col_channels(ci, hk, wk)
+        return rt, Im2colPlan(cp, im2col_taps(hk, wk, padding,
+                                                  dilation),
+                                  sm90_plan(b, ho, wo, co, cp))
     return rt, cta_plan(b, ho, wo, co, pool, hk, wk, stride, dilation,
                         x.element_size())
 
@@ -484,6 +409,8 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if rt == "sm90":
         out = _sm90(x, w, bias, residual, ho, wo, (py, px), relu, pool,
                     plan)
+    elif rt == "sm90_im2col":
+        out = _im2col_sm90(x, w, bias, residual, ho, wo, relu, pool, plan)
     else:
         out = _fma(x, w, bias, residual, ho, wo, stride, padding, dilation,
                    lhs_dilation, relu, pool, plan)
@@ -502,10 +429,12 @@ def _sm90(x, w, bias, residual, ho: int, wo: int, padding, relu: bool,
           pool: int, plan: Sm90Plan) -> torch.Tensor:
     """One launch of ``csrc/conv_lb_sm90.cu`` on the tile and offsets of
     ``plan``: :func:`sm90_plan`'s, or a wrong one that a check passes
-    to show that the card's gate sees it."""
+    to show that the card's gate sees it.  w's input channels may be
+    fewer than x's (the 1x1 conv of an im2col plane): the weight map
+    reads zeros past them."""
     b, h, wd, ci = x.shape
-    hk, wk, _, co = w.shape
-    lib, forward = _entry(SM90_SOURCE, "conv_lb_sm90_forward", 6, 25)
+    hk, wk, wci, co = w.shape
+    lib, forward = _entry(SM90_SOURCE, "conv_lb_sm90_forward", 6, 26)
     out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
                       device=x.device)
     win_off = (ctypes.c_int * len(plan.win_off))(*plan.win_off)
@@ -515,13 +444,26 @@ def _sm90(x, w, bias, residual, ho: int, wo: int, padding, relu: bool,
             x.data_ptr(), w.data_ptr(),
             None if bias is None else bias.data_ptr(),
             None if residual is None else residual.data_ptr(),
-            out.data_ptr(), ctypes.addressof(win_off), b, h, wd, ci, co, hk,
-            wk, ho, wo, padding[0], padding[1], pool, int(relu), plan.bb,
+            out.data_ptr(), ctypes.addressof(win_off), b, h, wd, ci, wci, co,
+            hk, wk, ho, wo, padding[0], padding[1], pool, int(relu), plan.bb,
             plan.ty, plan.tx, plan.hy, plan.hx, plan.bn, plan.cib,
             plan.plane_bytes, plan.sbo, plan.blk_off[0], plan.blk_off[1],
             plan.smem_bytes, stream)
     _launched(lib, err, "conv_lb_sm90")
     return out
+
+
+def _im2col_sm90(x, w, bias, residual, ho: int, wo: int, relu: bool,
+                 pool: int, plan: Im2colPlan) -> torch.Tensor:
+    """Route ``sm90_im2col``: the plane on ``plan``'s taps, then its 1x1
+    conv on ``csrc/conv_lb_sm90.cu`` against w (Hk, Wk, Ci, Co) read as
+    (1, 1, Hk*Wk*Ci, Co), the plane's channels past those rows times the
+    weight map's zeros."""
+    hk, wk, ci, co = w.shape
+    plane = stage(x, plan.taps, ho, wo, plan.cp)
+    conv_lb.stage_launches += 1
+    return _sm90(plane, w.view(1, 1, hk * wk * ci, co), bias, residual, ho,
+                 wo, (0, 0), relu, pool, plan.inner)
 
 
 def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,
@@ -562,3 +504,4 @@ def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,
 
 conv_lb.launches = 0
 conv_lb.launches_by_route = dict.fromkeys(ROUTES, 0)
+conv_lb.stage_launches = 0

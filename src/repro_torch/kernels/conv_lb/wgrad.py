@@ -10,8 +10,9 @@ CUDA kernels of K2, which together replace the TPU kernel
     (dy) rewritten once per pixel block into K-major hi and lo tiles;
   * ``csrc/wgrad_im2col.cu`` (route ``"sm90_im2col"``): a channel
     count too small for a TMA map (VGG16's conv1_1, Ci = 3) staged as
-    an im2col plane of ``Cp`` <= 64 channels, then one of the two
-    tensor-core kernels above on it as a 1x1 wgrad;
+    an im2col plane of ``Cp`` <= 64 channels
+    (:mod:`~repro_torch.kernels.conv_lb.im2col`, shared with K1), then
+    one of the two tensor-core kernels above on it as a 1x1 wgrad;
   * ``csrc/wgrad_lb.cu`` (route ``"fma"``): strides, and what no
     tensor-core route takes, on FMA.
 
@@ -23,8 +24,7 @@ plane (batch folds into the reduction):
       * dy[b, oy, ox, co]
 
 The libraries are built like the conv kernel's
-(:func:`repro_torch.kernels.conv_lb.kernel.build`) and bound once
-(``_entry``).  :func:`wgrad_lb` dispatches first on where its tensors
+(:mod:`repro_torch.kernels.nvcc`) and bound once (``_entry``).  :func:`wgrad_lb` dispatches first on where its tensors
 lie: a CUDA tensor launches the kernel :func:`route` names or raises; a
 CPU tensor runs the plain version
 (:func:`~repro_torch.kernels.conv_lb.ref.wgrad_ref`).  The route is
@@ -51,19 +51,23 @@ from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,
                                              PEAK_BF16_FLOPS,
                                              PEAK_F32_FLOPS,
                                              PEAK_TF32_FLOPS, SM_COUNT,
-                                             SMEM_PER_BLOCK, round_up)
+                                             SMEM_PER_BLOCK)
 from repro_torch.core.layer import ceil_div
+from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, _c_ints,
+                                                im2col_channels,
+                                                im2col_taps, stage,
+                                                stage_fits)
 from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, DTYPES,
                                                 _aligned,
                                                 _check_cuda_operand,
-                                                _entry, _launched)
-from repro_torch.kernels.conv_lb.ref import _pair, im2col_ref, wgrad_ref
+                                                _launched)
+from repro_torch.kernels.conv_lb.ref import _pair, wgrad_ref
+from repro_torch.kernels.nvcc import _entry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_lb_sm90.cu"
 TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
                / "wgrad_lb_sm90_tf32.cu")
-IM2COL_SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_im2col.cu"
 
 #: the FMA kernel's fixed CTA shape (must match csrc/wgrad_lb.cu)
 TILE_M = 128        # dW rows (ky, kx, ci) per CTA
@@ -119,10 +123,6 @@ TF32_PRODUCTS = 3
 #: kernel's k16 steps, and their drift grows with a range's length
 #: (conv1_2 at batch 8: 7.0e-5 of max |dW| at 143 blocks, 4.6e-5 at 98)
 TF32_MAX_RANGE = 64
-
-#: the im2col plane's channels: at most 64 (one tensor-core row block),
-#: a multiple of 8 (16-byte bf16 pixels); its staging kernel's taps
-IM2COL_MAX = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,41 +444,6 @@ def sm90_tf32_wgrad_plan(batch: int, ho: int, wo: int, ci: int, co: int,
     return None if best is None else best[1]
 
 
-@dataclasses.dataclass(frozen=True)
-class Im2colPlan:
-    """Route ``sm90_im2col``: the plane's ``cp`` channels, the taps its
-    staging kernel reads (per window ``(ky*dly - py, kx*dlx - px)``),
-    and the plan of the 1x1 wgrad of the plane (:func:`sm90_wgrad_plan`'s
-    in bf16, :func:`sm90_tf32_wgrad_plan`'s in f32)."""
-
-    cp: int
-    taps: tuple[tuple[int, int], ...]
-    inner: Sm90WgradPlan | Sm90Tf32Plan
-
-    @property
-    def splits(self) -> int:
-        return self.inner.splits
-
-    @property
-    def tile(self) -> tuple[int, ...]:
-        """``(cp, bn, nwc, cib, splits)``."""
-        return (self.cp, *self.inner.tile)
-
-
-def im2col_channels(ci: int, hk: int, wk: int) -> int:
-    """The plane's channels: Hk*Wk*Ci rounded up to a multiple of 8."""
-    return round_up(hk * wk * ci, 8)
-
-
-def im2col_taps(geom) -> tuple[tuple[int, int], ...]:
-    """Per window ``ky * wk + kx``, the (row, column) offset of the input
-    pixel it reads from the output pixel: ``(ky*dly - py, kx*dlx - px)``."""
-    g = WgradGeometry.of(geom)
-    (py, px), (dly, dlx) = _pair(g.padding), _pair(g.dilation)
-    return tuple((ky * dly - py, kx * dlx - px)
-                 for ky in range(g.hk) for kx in range(g.wk))
-
-
 def _im2col_inner(dtype: torch.dtype, batch: int, ho: int, wo: int,
                   cp: int, co: int):
     """The plan of the plane's 1x1 wgrad on the tensor-core kernel of
@@ -510,9 +475,10 @@ def route(x: torch.Tensor, dy: torch.Tensor, geom) -> str:
       * ``"sm90_tf32"``: f32, Ci a multiple of 4, and
         :func:`sm90_tf32_wgrad_plan` finds the same;
       * ``"sm90_im2col"``: Ci not a multiple of ``pitch`` and
-        Hk*Wk*Ci <= ``IM2COL_MAX`` (VGG16's conv1_1: 27), staged as an
-        im2col plane of :func:`im2col_channels` channels whose 1x1
-        wgrad the tensor-core kernel of its type plans likewise.
+        Hk*Wk*Ci <= ``im2col.IM2COL_MAX`` (VGG16's conv1_1: 27), staged as an
+        im2col plane of :func:`im2col_channels` channels (where the
+        staging kernel takes the plane: ``stage_fits``) whose 1x1 wgrad
+        the tensor-core kernel of its type plans likewise.
 
     Everything else (strides, misaligned or mixed operands, channel
     counts no staging fits, a reduction no split of ranges of at most
@@ -550,10 +516,13 @@ def _plan_of(dt: torch.dtype, dy_dt: torch.dtype, xshape: tuple, co: int,
             rt, plan = (("sm90", sm90_wgrad_plan) if dt == torch.bfloat16
                         else ("sm90_tf32", sm90_tf32_wgrad_plan))
             plan = plan(b, ho, wo, ci, co, g.hk, g.wk, dil)
-        elif (cp := im2col_channels(ci, g.hk, g.wk)) <= IM2COL_MAX:
+        elif stage_fits(b, *xshape[1:], ho, wo,
+                        cp := im2col_channels(ci, g.hk, g.wk),
+                        2 if dt == torch.bfloat16 else 4):
             rt, plan = "sm90_im2col", _im2col_inner(dt, b, ho, wo, cp, co)
             if plan is not None:
-                plan = Im2colPlan(cp, im2col_taps(g), plan)
+                plan = Im2colPlan(cp, im2col_taps(g.hk, g.wk, g.padding,
+                                                  g.dilation), plan)
     if plan is not None:
         return rt, plan
     return "fma", wgrad_split(g.hk * g.wk * ci, co, b * ho * wo)
@@ -661,61 +630,20 @@ def _sm90_tf32(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
     return dw
 
 
-def im2col_plane(x: torch.Tensor, geom) -> torch.Tensor:
-    """The stride-1 im2col plane (B, Ho, Wo, :func:`im2col_channels`) of
-    x (B, H, W, Ci), in x's type: a CUDA ``x`` launches
-    ``csrc/wgrad_im2col.cu`` on :func:`im2col_taps`; a CPU ``x`` runs
-    the plain version (:func:`~repro_torch.kernels.conv_lb.ref.
-    im2col_ref`)."""
-    g = WgradGeometry.of(geom)
-    cp = im2col_channels(x.shape[-1], g.hk, g.wk)
-    if x.device.type == "cpu":
-        return im2col_ref(x, g.hk, g.wk, padding=g.padding,
-                          dilation=g.dilation, channels=cp)
-    if x.device.type != "cuda":
-        raise ValueError(f"the im2col kernel runs on CUDA tensors (or its "
-                         f"plain version on CPU ones), not {x.device}")
-    return _im2col(x, g, cp, im2col_taps(g))
-
-
-def _im2col(x: torch.Tensor, g: WgradGeometry, cp: int,
-            taps: tuple[tuple[int, int], ...]) -> torch.Tensor:
-    """One launch of the staging kernel ``csrc/wgrad_im2col.cu``."""
-    b, h, wd, ci = x.shape
-    ho, wo = _out_plane(x.shape, g)
-    lib, forward = _entry(IM2COL_SOURCE, "wgrad_im2col_forward", 3, 9)
-    plane = torch.empty((b, ho, wo, cp), dtype=x.dtype, device=x.device)
-    offs = _c_ints(tuple(itertools.chain(*taps)))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = forward(x.data_ptr(), plane.data_ptr(), ctypes.addressof(offs),
-                      b, h, wd, ci, ho, wo, len(taps), cp, DTYPES[x.dtype],
-                      stream)
-    _launched(lib, err, "wgrad_im2col")
-    wgrad_lb.stage_launches += 1
-    return plane
-
-
 def _im2col_wgrad(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
                   plan: Im2colPlan) -> torch.Tensor:
     """Route ``sm90_im2col``: the plane on ``plan``'s taps, its 1x1
     wgrad on the tensor-core kernel of x's type, and rows 0 ..
     Hk*Wk*Ci - 1 of that dW (a view) as dW (Hk, Wk, Ci, Co)."""
     ci, co = x.shape[-1], dy.shape[-1]
-    plane = _im2col(x, g, plan.cp, plan.taps)
+    plane = stage(x, plan.taps, *_out_plane(x.shape, g), plan.cp)
+    wgrad_lb.stage_launches += 1
     launch = _sm90 if x.dtype == torch.bfloat16 else _sm90_tf32
     dw = launch(plane, dy, _ONE_BY_ONE, plan.inner)
     return dw.view(plan.cp, co)[:g.hk * g.wk * ci].view(g.hk, g.wk, ci, co)
 
 
 _ONE_BY_ONE = WgradGeometry(hk=1, wk=1)
-
-
-@lru_cache(maxsize=4096)
-def _c_ints(values: tuple[int, ...]):
-    """A C int array of ``values``, made once and kept (a launch passes
-    its address)."""
-    return (ctypes.c_int * len(values))(*values)
 
 
 def _fma(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,

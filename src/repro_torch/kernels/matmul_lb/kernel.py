@@ -1,16 +1,21 @@
-"""The matmul kernels' wrapper: build, bind and launch the two
-hand-written CUDA kernels of K3, which together replace the TPU kernel
+"""The matmul kernels' wrapper: build, bind and launch the hand-written
+CUDA kernels of K3, which together replace the TPU kernel
 ``_matmul_kernel`` / ``matmul_lb_call`` of
 ``repro/kernels/matmul_lb/kernel.py``:
 
   * ``csrc/matmul_lb_sm90.cu`` (route ``"sm90"``): bf16 on the tensor
     cores, TMA into an mbarrier ring feeding ``wgmma``;
-  * ``csrc/matmul_lb.cu`` (route ``"fma"``): f32, and every bf16
-    product whose operands TMA cannot describe, on FMA.
+  * ``csrc/matmul_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 on the
+    tensor cores in 3xTF32, the same ring, A from registers, w rewritten
+    into K-major hi and lo tiles by producer warps, the tensor cores'
+    sums promoted into f32 sums on the CUDA cores every
+    ``TF32_PROMOTE`` stages;
+  * ``csrc/matmul_lb.cu`` (route ``"fma"``): every product whose
+    operands TMA cannot describe, on FMA.
 
 The libraries are built like the conv kernel's
-(:func:`repro_torch.kernels.conv_lb.kernel.build`): ``nvcc`` at first
-use, never at import.  :func:`matmul_lb` dispatches on where its
+(:mod:`repro_torch.kernels.nvcc`): ``nvcc`` at first use, never at
+import.  :func:`matmul_lb` dispatches on where its
 tensors lie: a CUDA tensor launches a kernel or raises; a CPU tensor
 runs the plain version
 (:func:`~repro_torch.kernels.matmul_lb.ref.matmul_ref`).  On the card
@@ -30,11 +35,14 @@ import torch
 
 from repro_torch.core.hopper_adapter import SM_COUNT
 from repro_torch.core.layer import ceil_div
-from repro_torch.kernels.conv_lb.kernel import CTAS_PER_SM, _aligned, build
+from repro_torch.kernels.conv_lb.kernel import CTAS_PER_SM, _aligned
 from repro_torch.kernels.matmul_lb.ref import matmul_ref
+from repro_torch.kernels.nvcc import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "matmul_lb_sm90.cu"
+TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
+               / "matmul_lb_sm90_tf32.cu")
 
 #: the kernel's fixed CTA shape (must match csrc/matmul_lb.cu)
 TILE_M = 128        # output rows per CTA
@@ -42,7 +50,21 @@ TILE_M = 128        # output rows per CTA
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the sm90 kernel's column tiles (must match csrc/matmul_lb_sm90.cu)
 SM90_TILES = (128, 256)
-ROUTES = ("sm90", "fma")
+#: the 3xTF32 kernel's shape (must match csrc/matmul_lb_sm90_tf32.cu):
+#: 128-row CTAs of two consumer warpgroups, 64 or 128 columns (two f32
+#: accumulators a thread, BN / 2 words each), 32 of K a stage
+TF32_TILES = (64, 128)
+TF32_BK = 32
+TF32_STAGES = 4
+TF32_BSTAGES = 2
+TF32_TRANSPOSERS = 3
+#: 3xTF32: three tensor-core products per multiply-add
+TF32_PRODUCTS = 3
+#: stages (32 of K each) the tensor cores sum before the kernel adds
+#: their sums into its CUDA-core f32 sums: the kernel's compile-time
+#: ``kPromote``, chosen by the sweep of ``launch/tf32_promote.py``
+TF32_PROMOTE = 2
+ROUTES = ("sm90", "sm90_tf32", "fma")
 
 
 @lru_cache(maxsize=4096)
@@ -60,19 +82,32 @@ def cta_tile(m: int, n: int) -> int:
     return best[1]
 
 
-@lru_cache(maxsize=4096)
-def sm90_tile(m: int, n: int) -> int:
-    """The sm90 kernel's column tile ``BN`` (128 or 256) for an ``m`` x
-    ``n`` output, ranked as :func:`cta_tile` ranks (one CTA per SM: its
-    ring fills the shared memory)."""
+def _one_per_sm_tile(m: int, n: int, tiles: tuple[int, ...]) -> int:
+    """The column tile of ``tiles`` for an ``m`` x ``n`` output, ranked
+    as :func:`cta_tile` ranks, one CTA per SM (its rings fill the shared
+    memory)."""
     best = None
-    for bn in SM90_TILES:
+    for bn in tiles:
         ctas = ceil_div(m, TILE_M) * ceil_div(n, bn)
         waves = ceil_div(ctas, SM_COUNT)
         key = (waves * bn, ctas * bn, -bn)
         if best is None or key < best[0]:
             best = (key, bn)
     return best[1]
+
+
+@lru_cache(maxsize=4096)
+def sm90_tile(m: int, n: int) -> int:
+    """The sm90 kernel's column tile ``BN`` (128 or 256) for an ``m`` x
+    ``n`` output."""
+    return _one_per_sm_tile(m, n, SM90_TILES)
+
+
+@lru_cache(maxsize=4096)
+def tf32_tile(m: int, n: int) -> int:
+    """The 3xTF32 kernel's column tile ``BN`` (64 or 128) for an ``m`` x
+    ``n`` output."""
+    return _one_per_sm_tile(m, n, TF32_TILES)
 
 
 def _pitched(t: torch.Tensor, dim: int) -> bool:
@@ -96,15 +131,18 @@ def w_layout(w: torch.Tensor) -> str | None:
 
 
 def route(x: torch.Tensor, w: torch.Tensor) -> str:
-    """``"sm90"`` iff both operands are bf16, ``x`` is row-major, ``w``
-    is N-major or K-major, the base addresses are 16-byte aligned and
-    the row pitches are multiples of 16 bytes; else ``"fma"``.  Read
+    """Where both operands are of one type, ``x`` is row-major, ``w`` is
+    N-major or K-major, the base addresses are 16-byte aligned and the
+    row pitches are multiples of 16 bytes (a TMA map describes both):
+    ``"sm90"`` in bf16, ``"sm90_tf32"`` in f32.  Else ``"fma"``.  Read
     from types, strides and pointers only."""
-    if (x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16
-            and x.dim() == 2 and w.dim() == 2
+    if (x.dtype == w.dtype and x.dim() == 2 and w.dim() == 2
             and _pitched(x, 1) and w_layout(w) is not None
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
-        return "sm90"
+        if x.dtype == torch.bfloat16:
+            return "sm90"
+        if x.dtype == torch.float32:
+            return "sm90_tf32"
     return "fma"
 
 
@@ -129,6 +167,42 @@ def _sm90(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                       x.stride(0), w.stride(1) if kmajor else w.stride(0),
                       sm90_tile(m, n), int(kmajor), stream)
     _launched(lib, err, "matmul_lb_sm90", "sm90")
+    return out
+
+
+def _sm90_tf32(x: torch.Tensor, w: torch.Tensor, *,
+               lo_terms: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/matmul_lb_sm90_tf32.cu`` on :func:`tf32_tile`.
+    ``lo_terms=False`` drops the lo words (1xTF32, same tile): a control
+    that the card's gate sees the small terms, never a route."""
+    m, k = x.shape
+    n = w.shape[1]
+    kmajor = w_layout(w) == "k-major"
+    lib = build(TF32_SOURCE)
+    forward = lib.bind("matmul_lb_sm90_tf32_forward", 3, 8)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                      x.stride(0), w.stride(1) if kmajor else w.stride(0),
+                      tf32_tile(m, n), int(kmajor), int(lo_terms), stream)
+    _launched(lib, err, "matmul_lb_sm90_tf32", "sm90_tf32")
+    return out
+
+
+def _fma(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One launch of ``csrc/matmul_lb.cu`` on contiguous operands."""
+    m, k = x.shape
+    n = w.shape[1]
+    lib = build(SOURCE)
+    forward = lib.bind("matmul_lb_forward", 3, 8)
+    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
+                      cta_tile(m, n), DTYPES[x.dtype], _aligned(x),
+                      _aligned(w), _aligned(out), stream)
+    _launched(lib, err, "matmul_lb", "fma")
     return out
 
 
@@ -159,22 +233,12 @@ def matmul_lb(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"the matmul kernel takes float32 or bfloat16 "
                         f"operands of one type; got {x.dtype} and "
                         f"{w.dtype}")
-    if route(x, w) == "sm90":
+    rt = route(x, w)
+    if rt == "sm90":
         return _sm90(x, w)
-    x, w = _contiguous(x), _contiguous(w)
-    m, k = x.shape
-    n = w.shape[1]
-    tn = cta_tile(m, n)
-    lib = build(SOURCE)
-    forward = lib.bind("matmul_lb_forward", 3, 8)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = forward(x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k,
-                      tn, DTYPES[x.dtype], _aligned(x), _aligned(w),
-                      _aligned(out), stream)
-    _launched(lib, err, "matmul_lb", "fma")
-    return out
+    if rt == "sm90_tf32":
+        return _sm90_tf32(x, w)
+    return _fma(_contiguous(x), _contiguous(w))
 
 
 matmul_lb.launches = 0

@@ -33,25 +33,9 @@ import torch
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.kernels.conv_lb import wgrad as W
 from repro_torch.kernels.conv_lb.ref import wgrad_ref
+from repro_torch.launch.yardstick import WGRAD_TOL
+from repro_torch.launch.yardstick import time_ms as _time_ms
 from repro_torch.models.cnn import vgg_layer_dims
-
-#: wgrad kernel vs plain version (as ``chip_smoke.WGRAD_TOL``)
-WGRAD_TOL = 2e-4
-
-
-def _time_ms(fn, flush: torch.Tensor, reps: int = 10) -> float:
-    for _ in range(2):
-        fn()
-    start = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    end = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    for i in range(reps):
-        flush.zero_()
-        start[i].record()
-        fn()
-        end[i].record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in zip(start, end)) / reps
-
 
 #: per type: the plan, the kernel's launcher and the tiles it may pick
 KERNELS = {

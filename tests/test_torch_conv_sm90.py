@@ -3,7 +3,8 @@ before it launches ``csrc/conv_lb_sm90.cu``.
 
   * :func:`route` for every case it reads (types, stride, lhs dilation,
     channel counts, pointers, the fused pool), and on the VGG16/224
-    stack: ``sm90`` for the 12 layers after conv1_1 and their dgrads;
+    stack: ``sm90`` for the 12 layers after conv1_1 and their dgrads,
+    ``sm90_im2col`` for conv1_1 (Ci = 3, through the im2col plane);
   * :func:`sm90_plan`: two pool-aligned 8 x 8 blocks per CTA whose
     rings fit the card's shared memory, for every VGG16/224 and
     ResNet-20/32 layer the route takes, at batch 1 and 8;
@@ -72,7 +73,7 @@ def _operands(ci=64, co=64, dtype=BF, bias=True):
     ("lhs dilation 2", "fma"),
     ("lhs dilation (1, 2)", "fma"),
     ("rhs dilation 2", "sm90"),
-    ("ci 3", "fma"),
+    ("ci 3", "sm90_im2col"),
     ("ci 12", "fma"),
     ("ci 8", "sm90"),
     ("co 12", "fma"),
@@ -129,10 +130,11 @@ def test_route_refuses_a_halo_that_fits_no_tile():
 
 
 def test_route_names_sm90_for_vgg16_after_conv1_1_and_every_dgrad():
-    """conv1_1 (Ci = 3: 6-byte pixels TMA cannot stride) stays on FMA;
-    conv1_2 ... conv5_3 and the dgrads a training step runs (conv1_2's
-    to conv5_3's: gy against the flipped weights, stride 1, full
-    padding) take the sm90 kernel."""
+    """conv1_1 (Ci = 3: 6-byte pixels TMA cannot stride) takes the
+    im2col plane and the sm90 kernel as a 1x1 conv; conv1_2 ... conv5_3
+    and the dgrads a training step runs (conv1_2's to conv5_3's: gy
+    against the flipped weights, stride 1, full padding) take the sm90
+    kernel."""
     fwd, bwd = [], []
     for st in _vgg_stages():
         n = st.node
@@ -143,15 +145,16 @@ def test_route_names_sm90_for_vgg16_after_conv1_1_and_every_dgrad():
         fwd.append(K.route(x, w, (n.stride,) * 2, bias=b, pool=pool))
         gy = torch.zeros((1, st.ho, st.wo, n.co), dtype=BF)
         bwd.append(K.route(gy, flip_w(w)))
-    assert fwd == ["fma"] + ["sm90"] * 12
+    assert fwd == ["sm90_im2col"] + ["sm90"] * 12
     # conv1_1's dgrad is never run (the images need no gradient); its
     # flipped weights have Co = 3 and would stay on FMA
     assert bwd == ["fma"] + ["sm90"] * 12
 
 
 def test_route_on_resnet20():
-    """The stride-1 3x3 convs take sm90; the stem (Ci = 3), the stride-2
-    3x3 convs and the 1x1/2 projections stay on FMA."""
+    """The stride-1 3x3 convs take sm90, the stem (Ci = 3) the im2col
+    plane; the stride-2 3x3 convs and the 1x1/2 projections stay on
+    FMA."""
     got = {}
     for st in _resnet_stages():
         n = st.node
@@ -159,8 +162,9 @@ def test_route_on_resnet20():
         w = torch.zeros((n.hk, n.wk, n.ci, n.co), dtype=BF)
         got[n.name] = K.route(x, w, (n.stride,) * 2)
     for name, rt in got.items():
-        want = ("fma" if name == "stem" or name.endswith("_proj")
-                or name in ("s2b0_a", "s3b0_a") else "sm90")
+        want = ("sm90_im2col" if name == "stem" else "fma"
+                if name.endswith("_proj") or name in ("s2b0_a", "s3b0_a")
+                else "sm90")
         assert rt == want, name
     assert sum(rt == "sm90" for rt in got.values()) == 16
 
@@ -185,6 +189,10 @@ def test_plan_of_names_the_route_and_its_kernels_tile(dtype):
             assert plan == K.sm90_plan(8, st.ho, st.wo, n.co, n.ci, 3, 3)
             assert plan.tile == (plan.bb, plan.ty, plan.tx, plan.bn,
                                  plan.cib)
+        elif rt == "sm90_im2col":
+            assert dtype == BF and n.ci == 3
+            assert plan.inner == K.sm90_plan(8, st.ho, st.wo, n.co, 32)
+            assert plan.tile == (32, *plan.inner.tile)
         else:
             assert plan == K.cta_plan(8, st.ho, st.wo, n.co, pool, 3, 3,
                                       (n.stride,) * 2, (1, 1), elt)
@@ -199,7 +207,8 @@ def test_plan_of_names_the_route_and_its_kernels_tile(dtype):
 
 def test_launch_counters_by_route():
     assert set(K.conv_lb.launches_by_route) == set(K.ROUTES) == {
-        "sm90", "fma"}
+        "sm90", "sm90_im2col", "fma"}
+    assert isinstance(K.conv_lb.stage_launches, int)
 
 
 # ---------------------------------------------------------------- plan

@@ -26,6 +26,7 @@ from repro_torch.kernels.attention_block import kernel as K4
 from repro_torch.kernels.attention_block.ops import (flash_attention,
                                                      heads_first)
 from repro_torch.kernels.attention_block.ref import attention_plain
+from repro_torch.kernels.conv_lb import im2col as I
 from repro_torch.kernels.conv_lb import kernel as K
 from repro_torch.kernels.conv_lb import wgrad as W
 from repro_torch.kernels.conv_lb.ops import conv2d_lb
@@ -388,9 +389,9 @@ def test_sm90_matmul_matches_plain(cuda, m, k, n, layout):
                                   "bf16 x strided, odd pitch"])
 def test_matmul_routes_and_copies_what_tma_cannot_take(cuda, case):
     g = torch.Generator().manual_seed(9)
-    if case == "f32 w.t()":
-        x = torch.randn((100, 72), generator=g).to(cuda)
-        w = torch.randn((40, 72), generator=g).to(cuda).t()
+    if case == "f32 w.t()":     # K = 70: 280-byte rows, no TMA map
+        x = torch.randn((100, 70), generator=g).to(cuda)
+        w = torch.randn((40, 70), generator=g).to(cuda).t()
         dtype, want_copies = torch.float32, 1
     elif case == "bf16 x off by 2 bytes":
         buf = torch.randn(1 + 96 * 64, generator=g).to(cuda, torch.bfloat16)
@@ -588,6 +589,10 @@ def _sm90_launched(before):
     return {r: K.conv_lb.launches_by_route[r] - before[r] for r in before}
 
 
+def _on_conv(rt):
+    return dict.fromkeys(K.ROUTES, 0) | {rt: 1}
+
+
 @pytest.mark.parametrize("b,h,ci,co,pool,res,d,p", SM90_CONVS)
 def test_sm90_conv_matches_plain(cuda, b, h, ci, co, pool, res, d, p):
     """K1's sm90 kernel (TMA, wgmma, f32 sums, one rounding) within the
@@ -607,7 +612,7 @@ def test_sm90_conv_matches_plain(cuda, b, h, ci, co, pool, res, d, p):
     before = dict(K.conv_lb.launches_by_route)
     out = K.conv_lb(x, w, bias, r, **kw)
     torch.cuda.synchronize()
-    assert _sm90_launched(before) == {"sm90": 1, "fma": 0}
+    assert _sm90_launched(before) == _on_conv("sm90")
     assert out.dtype == bf and out.shape == (b, ho // pool, ho // pool, co)
     _within(out, conv2d_ref(x, w, bias, r, **kw), bf)
 
@@ -625,18 +630,18 @@ def test_sm90_dgrad_geometry_matches_plain(cuda, b, h, ci, co):
     before = dict(K.conv_lb.launches_by_route)
     out = K.conv_lb(gy, wf, padding=(1, 1))
     torch.cuda.synchronize()
-    assert _sm90_launched(before) == {"sm90": 1, "fma": 0}
+    assert _sm90_launched(before) == _on_conv("sm90")
     _within(out, conv2d_ref(gy, wf, padding=(1, 1)), bf)
 
 
-@pytest.mark.parametrize("case", ["stride 2", "lhs dilation 2", "ci 3",
+@pytest.mark.parametrize("case", ["stride 2", "lhs dilation 2", "ci 12",
                                   "x off by 2 bytes"])
 def test_what_sm90_does_not_take_runs_on_fma(cuda, case):
     """Geometries the route refuses run on the FMA kernel, at the same
-    gate."""
+    gate (Ci = 12: 108 taps, more than the im2col plane's 64)."""
     g = torch.Generator().manual_seed(18)
     bf = torch.bfloat16
-    ci = 3 if case == "ci 3" else 16
+    ci = 12 if case == "ci 12" else 16
     x = torch.randn((2, 16, 16, ci), generator=g).to(cuda, bf)
     if case == "x off by 2 bytes":
         flat = torch.zeros(x.numel() + 8, dtype=bf, device=cuda)
@@ -651,7 +656,7 @@ def test_what_sm90_does_not_take_runs_on_fma(cuda, case):
     before = dict(K.conv_lb.launches_by_route)
     out = K.conv_lb(x, w, **kw)
     torch.cuda.synchronize()
-    assert _sm90_launched(before) == {"sm90": 0, "fma": 1}
+    assert _sm90_launched(before) == _on_conv("fma")
     _within(out, conv2d_ref(x, w, **kw), bf)
 
 
@@ -812,7 +817,7 @@ def test_im2col_wgrad_matches_plain(cuda, dtype, b):
     assert W.wgrad_lb.stage_launches == stages + 1
     assert dw.shape == (3, 3, 3, 64) and dw.dtype == torch.float32
     _close(dw, wgrad_ref(x, dy, 3, 3, padding=1), tol=2e-4)
-    assert torch.equal(W.im2col_plane(x, geom),
+    assert torch.equal(I.im2col_plane(x, 3, 3, (1, 1)),
                        im2col_ref(x, 3, 3, padding=1, channels=32))
 
 
@@ -852,3 +857,114 @@ def test_wgrad_tf32_launch_error_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="wgrad_lb_sm90_tf32"):
         W.wgrad_lb(x, dy, geom)
     assert (W.wgrad_lb.launches, W.wgrad_lb.launches_by_route) == before
+
+
+# b, h, ci, co, k, pad, pool, residual: K1's route sm90_im2col at
+# VGG16's conv1_1 (batch 8), ResNet-20's stem, a fused 2x2 pool with a
+# residual join, and 63 taps (Ci 7)
+IM2COL_CONVS = [
+    (8, 224, 3, 64, 3, 1, 1, False),
+    (8, 32, 3, 16, 3, 1, 1, False),
+    (2, 20, 3, 32, 3, 1, 2, True),
+    (2, 18, 7, 24, 3, 1, 1, False),
+]
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,p,pool,res", IM2COL_CONVS)
+def test_im2col_conv_matches_plain(cuda, b, h, ci, co, k, p, pool, res):
+    """K1 at Ci not a multiple of 8 on route ``sm90_im2col``: one layer
+    launch, one staging launch, the output within the bf16 gate of the
+    plain version."""
+    g = torch.Generator().manual_seed(23)
+    bf = torch.bfloat16
+    x = torch.randn((b, h, h, ci), generator=g).to(cuda, bf)
+    w = (torch.randn((k, k, ci, co), generator=g) / (k * k * ci) ** 0.5
+         ).to(cuda, bf)
+    bias = torch.randn((co,), generator=g).to(cuda, bf)
+    ho = h + 2 * p - k + 1
+    r = (torch.randn((b, ho, ho, co), generator=g).to(cuda, bf)
+         if res else None)
+    kw = dict(padding=(p, p), relu=True, pool=pool)
+    assert K.route(x, w, bias=bias, residual=r, pool=pool,
+                   padding=(p, p)) == "sm90_im2col"
+    before = dict(K.conv_lb.launches_by_route)
+    stages = K.conv_lb.stage_launches
+    out = K.conv_lb(x, w, bias, r, **kw)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == _on_conv("sm90_im2col")
+    assert K.conv_lb.stage_launches == stages + 1
+    assert out.dtype == bf and out.shape == (b, ho // pool, ho // pool, co)
+    _within(out, conv2d_ref(x, w, bias, r, **kw), bf)
+
+
+# m, k, n: K3's 3xTF32 route at the reference's sweep shapes whose f32
+# rows TMA describes, a ragged edge in every dimension, and
+# phi3-medium-14b's FFN down (K = 17,920: four promotions a 128 of K)
+TF32_MATMULS = [(64, 64, 64), (128, 256, 128), (8, 8, 8), (1000, 328, 88),
+                (520, 4104, 392), (4096, 17920, 5120)]
+
+
+@pytest.mark.parametrize("layout", ["n-major", "k-major"])
+@pytest.mark.parametrize("m,k,n", TF32_MATMULS)
+def test_tf32_matmul_matches_plain(cuda, m, k, n, layout):
+    """K3's f32 route ``sm90_tf32`` within the f32 card gate of the plain
+    version (f32 sums on FMA), one launch, the same bits on every launch
+    (no atomics); the same tile without its lo terms (1xTF32) errs at
+    least 4x more."""
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn((m, k), generator=g).to(cuda)
+    if layout == "k-major":
+        w = (torch.randn((n, k), generator=g) / k ** 0.5).to(cuda).t()
+    else:
+        w = (torch.randn((k, n), generator=g) / k ** 0.5).to(cuda)
+    assert K3.route(x, w) == "sm90_tf32" and K3.w_layout(w) == layout
+    launches = dict(K3.matmul_lb.launches_by_route)
+    out = matmul_lb(x, w)
+    torch.cuda.synchronize()
+    assert K3.matmul_lb.launches_by_route == dict(
+        launches, sm90_tf32=launches["sm90_tf32"] + 1)
+    assert out.dtype == torch.float32 and out.shape == (m, n)
+    want = matmul_ref(x, w)
+    _within(out, want, torch.float32)
+    for _ in range(3):
+        assert torch.equal(K3._sm90_tf32(x, w), out)
+    one = K3._sm90_tf32(x, w, lo_terms=False)
+    assert ((one - want).abs().max()
+            >= 4 * (out - want).abs().max())
+
+
+def test_tf32_matmul_launch_error_raises(cuda):
+    """A tensor map the driver refuses (a 260-byte row pitch, which the
+    route would never send) raises with its reason and counts no
+    launch."""
+    x = torch.zeros((64, 65), device=cuda)[:, :64]
+    w = torch.zeros((64, 64), device=cuda)
+    assert K3.route(x, w) == "fma"
+    before = K3.matmul_lb.launches
+    with pytest.raises(RuntimeError, match="matmul_lb_sm90_tf32"):
+        K3._sm90_tf32(x, w)
+    assert K3.matmul_lb.launches == before
+
+
+def test_wgrad_stem_at_batch_65536_matches_plain(cuda):
+    """ResNet-20/32's stem wgrad (Ci 3, Co 16, 3x3, pad 1) at batch
+    65536 in bf16 (x 0.4 GB, dy 2.1 GB, the plane 4.3 GB): route
+    ``sm90_im2col``, whose staging grid now takes 65536 images, within
+    ``WGRAD_TOL`` of the plain version summed over batch chunks of
+    4096."""
+    bf = torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(25)
+    batch, chunk = 65536, 4096
+    x = torch.randn((batch, 32, 32, 3), generator=gen, device=cuda).to(bf)
+    dy = torch.randn((batch, 32, 32, 16), generator=gen, device=cuda).to(bf)
+    geom = W.WgradGeometry(hk=3, wk=3, padding=(1, 1))
+    assert W.route(x, dy, geom) == "sm90_im2col"
+    before = dict(W.wgrad_lb.launches_by_route)
+    stages = W.wgrad_lb.stage_launches
+    dw = W.wgrad_lb(x, dy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == _one_on("sm90_im2col")
+    assert W.wgrad_lb.stage_launches == stages + 1
+    want = sum(wgrad_ref(x[i:i + chunk], dy[i:i + chunk], 3, 3, padding=1)
+               for i in range(0, batch, chunk))
+    _close(dw, want, tol=2e-4)

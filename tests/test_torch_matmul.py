@@ -174,9 +174,10 @@ def _sm90_pitch(k_or_n):
 
 @pytest.mark.parametrize("m,k,n", SWEEP + FULL)
 def test_route_reads_types_strides_and_pointers(m, k, n):
-    """bf16 goes to the sm90 kernel iff TMA can describe both operands:
-    x row-major, w N-major (rows of N) or K-major (rows of K), 16-byte
-    pitches and bases; f32 and mixed types go to the FMA kernel."""
+    """bf16 goes to the sm90 kernel, f32 to the 3xTF32 kernel, iff TMA
+    can describe both operands: x row-major, w N-major (rows of N) or
+    K-major (rows of K), 16-byte pitches and bases; mixed types and what
+    TMA cannot describe go to the FMA kernel."""
     x = _bf16(m, k)
     w_n = _bf16(k, n)                # N-major
     w_k = _bf16(n, k).t()            # K-major: w.t() of a contiguous (N, K)
@@ -186,8 +187,11 @@ def test_route_reads_types_strides_and_pointers(m, k, n):
     want_k = "sm90" if _sm90_pitch(k) else "fma"
     assert K3.route(x, w_n) == want_n
     assert K3.route(x, w_k) == want_k
-    assert K3.route(x.float(), w_n.float()) == "fma"
-    assert K3.route(x.float(), w_k.float()) == "fma"
+    f32_pitch = (4 * k) % 16 == 0
+    assert K3.route(x.float(), w_n.float()) == (
+        "sm90_tf32" if f32_pitch and (4 * n) % 16 == 0 else "fma")
+    assert K3.route(x.float(), w_k.float().t().contiguous().t()) == (
+        "sm90_tf32" if f32_pitch else "fma")
     assert K3.route(x, w_n.float()) == "fma"
     assert K3.route(x.float(), w_n) == "fma"
 

@@ -50,6 +50,7 @@ from repro.kernels.conv_lb.ops import plan_conv_wgrad as jax_plan_wgrad
 from repro.kernels.conv_lb.wgrad import wgrad_lb_call
 from repro_torch.core.hopper_adapter import (PEAK_TF32_FLOPS,
                                              SMEM_PER_BLOCK)
+from repro_torch.kernels.conv_lb import im2col as I
 from repro_torch.kernels.conv_lb import wgrad as W
 from repro_torch.kernels.conv_lb.ref import im2col_ref, wgrad_ref
 from repro_torch.models.cnn import resnet_graph, vgg_graph, vgg_layer_dims
@@ -286,8 +287,8 @@ def test_im2col_plane_as_a_1x1_wgrad_is_the_wgrad(b, h, w, ci, co, k, pad,
     x, dy, ho, wo = _inputs(b, h, w, ci, co, k, pad, d, seed=ci + h)
     xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
     geom = _geom(k=k, p=pad, d=d)
-    cp = W.im2col_channels(ci, k, k)
-    plane = W.im2col_plane(xt, geom)       # a CPU tensor: the plain one
+    cp = I.im2col_channels(ci, k, k)
+    plane = I.im2col_plane(xt, k, k, (pad, pad), (d, d))   # the plain one
     assert torch.equal(plane, im2col_ref(xt, k, k, padding=pad, dilation=d,
                                          channels=cp))
     assert plane.shape == (b, ho, wo, cp) and cp % 8 == 0
@@ -309,7 +310,7 @@ def test_im2col_plane_sees_a_tap_one_column_off():
     b, h, w, ci, co = 1, 10, 10, 3, 8
     x, dy, _, _ = _inputs(b, h, w, ci, co, 3, 1, 1, seed=5)
     xt, dyt = torch.from_numpy(x), torch.from_numpy(dy)
-    taps = list(W.im2col_taps(_geom()))
+    taps = list(I.im2col_taps(3, 3, (1, 1)))
     taps[4] = (taps[4][0], taps[4][1] + 1)
     plane = torch.cat([torch.nn.functional.pad(
         xt, (0, 0, 2, 2, 2, 2))[:, 2 + ty:2 + ty + h, 2 + tx:2 + tx + w]
@@ -748,12 +749,12 @@ def test_tf32_kernel_constants_match_the_wrapper():
     for cpr in W.TF32_CPRS:
         assert f"cpr != {cpr}" in src
     assert int(re.search(r"constexpr int kMaxTaps = (\d+);",
-                         _src(W.IM2COL_SOURCE))[1]) == W.IM2COL_MAX
+                         _src(I.SOURCE))[1]) == I.IM2COL_MAX
 
 
 @pytest.mark.parametrize("source,name,pointers,ints", [
     (W.TF32_SOURCE, "wgrad_lb_sm90_tf32_forward", 5, 23),
-    (W.IM2COL_SOURCE, "wgrad_im2col_forward", 3, 9),
+    (I.SOURCE, "wgrad_im2col_forward", 3, 9),
 ])
 def test_wrapper_binds_the_kernels_c_interface(source, name, pointers,
                                                ints):
@@ -764,6 +765,7 @@ def test_wrapper_binds_the_kernels_c_interface(source, name, pointers,
     params = [p.strip() for p in sig.split(",")]
     assert sum(p.startswith("int ") for p in params) == ints
     assert sum("*" in p for p in params) == pointers + 1   # + stream
-    assert (f'_entry({"TF32_SOURCE" if "tf32" in name else "IM2COL_SOURCE"}'
-            f', "{name}", {pointers}, {ints})') in \
-        Path(W.__file__).read_text()
+    module, var = ((W, "TF32_SOURCE") if "tf32" in name
+                   else (I, "SOURCE"))
+    assert (f'_entry({var}, "{name}", {pointers}, {ints})'
+            in Path(module.__file__).read_text())
