@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port.  Phases, in order:
 
-  * ``build``: the conv (K1: FMA and sm90), wgrad (K2: FMA, sm90 bf16,
-    sm90 3xTF32), the im2col staging kernel (K1 and K2), matmul (K3:
+  * ``build``: the conv (K1: FMA, sm90 bf16, sm90 3xTF32), wgrad (K2:
+    FMA, sm90 bf16, sm90 3xTF32), the im2col staging kernel (K1 and
+    K2), matmul (K3:
     FMA, sm90 bf16 and sm90 3xTF32) and attention (K4: FMA and sm90)
     kernels from the sources in this checkout, one nvcc each, all
     started together; ptxas registers, spills and shared memory;
@@ -12,6 +13,9 @@
     the route it took and its plan) against their plain PyTorch
     versions; wrong results of K1's and K2's sm90 kernels (the halo
     read one row off) shown to fail the bf16 gate and ``WGRAD_TOL``,
+    of K1's 3xTF32 kernel (the same fault) to fail ``TOL``, and K1's
+    3xTF32 kernel without its lo terms to err at least 4x more than
+    the route,
     of K1's im2col plane (one tap one column off) to fail the bf16 gate,
     of K2's im2col plane (one tap one column off) to fail ``WGRAD_TOL``
     by over 10x, and K2's 3xTF32 kernel without its lo terms (1xTF32)
@@ -32,13 +36,15 @@
     shown to fail the same gate), one launch per call;
   * ``vgg``, ``serve_bf16_vgg``, ``resnet``: VGG16/224 (full width, f32
     and bf16) and ResNet-20/32 served through
-    ``repro_torch.serve.ImageServer``, every conv on K1 (bf16 VGG: 12
-    convs a dispatch on the sm90 kernel, conv1_1 on ``sm90_im2col``: the
-    plane, then the sm90 kernel as a 1x1 conv);
+    ``repro_torch.serve.ImageServer``, every conv on K1, its launches by
+    route exact (VGG: 12 convs a dispatch on the sm90 kernel in bf16 and
+    the 3xTF32 kernel in f32, conv1_1 on ``sm90_im2col``: the plane,
+    then that kernel as a 1x1 conv; ResNet: its 16 stride-1 convs on the
+    3xTF32 kernel, the stem on the plane, 4 strided convs on FMA);
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
-    on K1 (recompute, dgrad) and K2 (wgrad), K2's launches per route
-    exact (f32 VGG: conv1_1 on ``sm90_im2col``, the 12 after it on
-    ``sm90_tf32``);
+    on K1 (recompute, dgrad) and K2 (wgrad), K1's and K2's launches per
+    route exact (f32 VGG: conv1_1 on ``sm90_im2col``, the 12 after it on
+    ``sm90_tf32``, forward, recompute and dgrad);
   * ``matmul``, ``attention``: the two entry points at full width
     (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
     kernel, f32 on the 3xTF32 kernel, and wq also with a K-major ``w``
@@ -52,13 +58,13 @@
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
     and bf16, each row with its route and tile (K2: plan) and the
     host's time to enqueue one call (``host_us``; K1's forward and
-    K2); K1's conv1_1 bf16 row (``sm90_im2col``) and K2's rows also with
-    the FMA kernel's time and error on the same inputs (``fma_ms``,
-    ``fma_err``, gated like the route) and its bound (``fma_bound_ms``)
-    beside the route's (``bound_ms``: f32 as 3xTF32, three products at
-    the TF32 rate) and, at conv1_1, the im2col staging kernel's own
-    time (``stage_ms``; K1 also ``plane_bound_ms``, the bound with the
-    plane's bytes);
+    K2); K1's f32 rows (forward and dgrad), its conv1_1 bf16 row
+    (``sm90_im2col``) and K2's rows also with the FMA kernel's time and
+    error on the same inputs (``fma_ms``, ``fma_err``, gated like the
+    route) and its bound (``fma_bound_ms``) beside the route's
+    (``bound_ms``: f32 as 3xTF32, three products at the TF32 rate) and,
+    at conv1_1, the im2col staging kernel's own time (``stage_ms``; K1
+    also ``plane_bound_ms``, the bound with the plane's bytes);
   * ``layers_bwd_resnet``: K2 on FMA at its own main-path inputs,
     ResNet-20/32's four strided wgrads at batch 8, f32 and bf16, timed
     beside cuDNN's ``conv2d_weight`` and the bound.
@@ -139,6 +145,8 @@ TRAIN_LR = {"vgg": 1e-4, "resnet": 1e-3}
 SEED = 0
 SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb.cu"
 CONV_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/conv_lb_sm90.cu"
+CONV_TF32_SOURCE = ("src/repro_torch/kernels/conv_lb/csrc/"
+                    "conv_lb_sm90_tf32.cu")
 REPLACES = "src/repro/kernels/conv_lb/kernel.py:116"
 WGRAD_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb.cu"
 WGRAD_SM90_SOURCE = "src/repro_torch/kernels/conv_lb/csrc/wgrad_lb_sm90.cu"
@@ -198,11 +206,12 @@ def phase_device() -> str:
 def phase_build() -> None:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
-    libs = build_many([K.SOURCE, K.SM90_SOURCE, W.SOURCE, W.SM90_SOURCE,
-                         W.TF32_SOURCE, I.SOURCE, K3.SOURCE,
-                         K3.SM90_SOURCE, K3.TF32_SOURCE, K4.SOURCE,
-                         K4.SM90_SOURCE])
-    for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE, WGRAD_SOURCE,
+    libs = build_many([K.SOURCE, K.SM90_SOURCE, K.TF32_SOURCE, W.SOURCE,
+                       W.SM90_SOURCE, W.TF32_SOURCE, I.SOURCE, K3.SOURCE,
+                       K3.SM90_SOURCE, K3.TF32_SOURCE, K4.SOURCE,
+                       K4.SM90_SOURCE])
+    for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE,
+                                  CONV_TF32_SOURCE, WGRAD_SOURCE,
                                   WGRAD_SM90_SOURCE, WGRAD_TF32_SOURCE,
                                   WGRAD_IM2COL_SOURCE, MATMUL_SOURCE,
                                   SM90_SOURCE, MATMUL_TF32_SOURCE,
@@ -307,11 +316,13 @@ def wgrad_launch(x, dy, geom, what: str):
     return dw, rt, plan
 
 
-def phase_check() -> None:
+def phase_check() -> dict:
     """K1 at every geometry of :data:`CHECKS` in f32 (``TOL`` of max
-    |plain|) and in bf16 (the bf16 ``CARD_TOL``: both sum the same bf16
-    words in f32 and round once), against the plain version; each row
-    with the route :func:`K.route` names and the launches it took."""
+    |plain|; on ``sm90_tf32`` or ``sm90_im2col`` where the route sends
+    it) and in bf16 (the bf16 ``CARD_TOL``: both sum the same bf16 words
+    in f32 and round once), against the plain version; each row with the
+    route :func:`K.route` names and the launches it took.  Returns the
+    1xTF32 control's error over the route's, by layer."""
     gen = torch.Generator().manual_seed(SEED)
     for (name, b, (h, w), ci, co, k, s, p, d, ld, g, has_bias,
          has_res, relu, pool) in CHECKS:
@@ -359,7 +370,9 @@ def phase_check() -> None:
             emit(row)
             require(ok, f"check {name} {dtype}: kernel vs plain {row}")
     check_sm90_control(gen)
+    tf32_controls = check_tf32_control(gen)
     check_im2col_conv_control(gen)
+    return tf32_controls
 
 
 # name, batch, plane, ci, co, pool: VGG16/224 layers at batch 8 on which
@@ -400,6 +413,57 @@ def check_sm90_control(gen) -> None:
                 f"control sm90 {name}: the right launch {gate}")
 
 
+def check_tf32_control(gen) -> dict:
+    """K1's 3xTF32 kernel at the layers of :data:`SM90_CONTROLS` in f32:
+    the route passes ``TOL`` and gives the same bits on a second launch;
+    two faults of its own are shown to matter: the centre window (1, 1)
+    reading the halo one row off must fail ``TOL``, and 1xTF32 (the lo
+    words dropped, one launch of the same plan) must err at least 4x
+    more than the route.  Returns 1xTF32's error over the route's, by
+    layer."""
+    over_route = {}
+    for name, b, h, ci, co, pool in SM90_CONTROLS:
+        x = _randn(gen, b, h, h, ci)
+        w = _randn(gen, 3, 3, ci, co, scale=(9 * ci) ** -0.5)
+        bias = _randn(gen, co)
+        kw = dict(padding=(1, 1), relu=True, pool=pool)
+        rt, plan = K.plan_of(x, w, bias, padding=(1, 1), pool=pool)
+        require(rt == "sm90_tf32", f"control tf32 {name}: route {rt}")
+        off = list(plan.win_off)
+        off[4] += plan.sbo
+        bad = dataclasses.replace(plan, win_off=tuple(off))
+        right = K.conv_lb(x, w, bias, **kw)
+        again = K.conv_lb(x, w, bias, **kw)
+        args = (x, w, bias, None, h, h, (1, 1), True, pool)
+        wrong = K._sm90_tf32(*args, bad)
+        one = K._sm90_tf32(*args, plan, lo_terms=False)
+        plain = conv2d_ref(x, w, bias, **kw)
+        torch.cuda.synchronize()
+        _, rel = rel_err(right, plain)
+        _, wrel = rel_err(wrong, plain)
+        _, orel = rel_err(one, plain)
+        same = bool(torch.equal(right, again))
+        emit({"phase": "check", "geometry": f"tf32_control_{name}_b{b}",
+              "dtype": "torch.float32", "route": rt,
+              "tile": list(plan.tile), "max_abs_err_over_max_ref": rel,
+              "tol": TOL, "same_bits_second_launch": same,
+              "control": {"what": "centre window reads the halo one row "
+                                  "off", "max_abs_err_over_max_ref": wrel,
+                          "over_tol": wrel / TOL},
+              "control_1xtf32": {"what": "1xTF32: the lo words dropped",
+                                 "max_abs_err_over_max_ref": orel,
+                                 "over_route": orel / max(rel, 1e-30),
+                                 "over_tol": orel / TOL}})
+        require(rel <= TOL and same, f"control tf32 {name}: the right "
+                                     f"launch {rel}, same bits {same}")
+        require(wrel > TOL, f"control tf32 {name}: the faulty launch "
+                            f"{wrel} passes {TOL}")
+        require(orel >= 4 * rel, f"control tf32 {name}: 1xTF32 errs "
+                f"{orel}, under 4x the route's {rel}")
+        over_route[name] = orel / max(rel, 1e-30)
+    return over_route
+
+
 def check_im2col_conv_control(gen) -> None:
     """K1's route ``sm90_im2col`` at VGG16/224 conv1_1 (bf16, batch 8)
     with one fault of its own: the plane's centre tap read one column
@@ -426,6 +490,14 @@ def check_im2col_conv_control(gen) -> None:
                              bf)})
     require(gate["worst_over_tol"] <= 1.0,
             f"control im2col conv: the right launch {gate}")
+
+
+#: K1's launches by route in one dispatch of each served model and type
+SERVE_ROUTES = {
+    ("vgg", torch.float32): {"sm90_tf32": 12, "sm90_im2col": 1},
+    ("vgg", torch.bfloat16): {"sm90": 12, "sm90_im2col": 1},
+    ("resnet", torch.float32): {"sm90_tf32": 16, "sm90_im2col": 1,
+                                "fma": 4}}
 
 
 def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
@@ -469,13 +541,12 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
     require(launches == n_convs * dispatches,
             f"{phase}: {launches} kernel launches for {dispatches} "
             f"dispatches of {n_convs} convs")
-    # bf16 VGG: conv1_2 ... conv5_3 on the sm90 kernel, conv1_1 (Ci = 3)
-    # through the im2col plane onto it (one staging launch each);
-    # everything else on FMA
-    bf16_vgg = (model, dtype) == ("vgg", torch.bfloat16)
-    want = dict.fromkeys(K.ROUTES, 0) | (
-        {"sm90": 12 * dispatches, "sm90_im2col": dispatches} if bf16_vgg
-        else {"fma": n_convs * dispatches})
+    # VGG: conv1_2 ... conv5_3 on the tensor-core kernel of the type,
+    # conv1_1 (Ci = 3) through the im2col plane onto it (one staging
+    # launch each); ResNet (f32): its 16 stride-1 convs on the 3xTF32
+    # kernel, the stem on the plane, the 4 strided convs on FMA
+    want = dict.fromkeys(K.ROUTES, 0) | {
+        rt: n * dispatches for rt, n in SERVE_ROUTES[model, dtype].items()}
     require(by_route == want, f"{phase}: launches by route {by_route}, "
                               f"want {want}")
     require(stages == want["sm90_im2col"],
@@ -538,8 +609,11 @@ def phase_layers(card: str) -> list[dict]:
     rounded once), held against the plain version and timed beside its
     bound and ``F.conv2d`` (cuDNN, TF32 off) in the same type; also the
     host's time to enqueue one ``conv2d_lb`` call (``host_us``: at
-    conv1_1 in bf16 both of route ``sm90_im2col``'s enqueues, which is
-    required there, with :func:`plane_fields`)."""
+    conv1_1 both of route ``sm90_im2col``'s enqueues, which is required
+    there, with :func:`plane_fields`).  The f32 rows take the 3xTF32
+    routes (required): ``bound_ms`` is their 3xTF32 bound,
+    ``fma_bound_ms`` the FMA one, beside the FMA kernel's time and error
+    on the same inputs (:func:`fma_fields`)."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED)
     params = init_vgg(gen, device="cuda")
@@ -561,9 +635,10 @@ def phase_layers(card: str) -> list[dict]:
                 memory_format=torch.channels_last)
             route, tile = conv_route(x, w, b, stride=node.stride,
                                      padding=node.pad, pool=pool)
-            if node.ci == 3 and dtype == torch.bfloat16:
-                require(route == "sm90_im2col",
-                        f"layer {node.name} {dtype}: on {route}")
+            want = ("sm90_im2col" if node.ci == 3 else "sm90"
+                    if dtype == torch.bfloat16 else "sm90_tf32")
+            require(route == want, f"layer {node.name} {dtype}: on {route}, "
+                                   f"want {want}")
             before = dict(K.conv_lb.launches_by_route)
             out = conv2d_lb(x, w, b, **kw)
             require(K.conv_lb.launches_by_route[route] == before[route] + 1,
@@ -590,7 +665,7 @@ def phase_layers(card: str) -> list[dict]:
             flops = 2.0 * batch * st.ho * st.wo * node.co * node.ci * 9
             n_bytes = float(x.element_size() * (x.numel() + w.numel()
                                                 + b.numel() + out.numel()))
-            t_ops = flops / PEAK[dtype]
+            t_ops = ops_s(flops, dtype, route)
             t_bytes = n_bytes / HBM_BYTES_PER_S
             row = {"phase": "layers", "model": "vgg16", "layer": node.name,
                    "dtype": str(dtype), "batch": batch,
@@ -599,28 +674,74 @@ def phase_layers(card: str) -> list[dict]:
                    "library_ms": library_ms,
                    "bound_ms": max(t_ops, t_bytes) * 1e3,
                    "bound_by": "operations" if t_ops >= t_bytes
-                   else "bytes", "peak_flops": PEAK[dtype],
-                   "flops": flops, "bytes": n_bytes,
+                   else "bytes", "flops": flops, "bytes": n_bytes,
                    "launches_per_dispatch": 1, "max_abs_err": err,
                    "max_abs_err_over_max_ref": rel, **gate,
                    "route": route, "tile": tile, "host_us": host_us,
                    "library_host_us": library_host_us, "card": card}
             if route == "sm90_im2col":
-                row.update(plane_fields(x, w, b, pool, ref, n_bytes, flush))
+                row.update(plane_fields(x, w, n_bytes, flush))
+            if dtype == torch.float32 or route == "sm90_im2col":
+                row.update(fma_fields(x, w, b, pool, node.relu, ref, flush),
+                           **fma_bound(flops, t_bytes))
             emit(row)
             rows.append(row)
     return rows
 
 
-def plane_fields(x, w, b, pool: int, ref, n_bytes: float,
-                 flush: torch.Tensor) -> dict:
+def ops_s(flops: float, dtype, route: str) -> float:
+    """The least time the card takes for ``flops`` on the route's units:
+    bf16 at the tensor cores' bf16 rate; f32 on the tensor cores as
+    3xTF32 (three products a multiply-add at the TF32 rate), on FMA at
+    the f32 rate."""
+    if dtype == torch.bfloat16:
+        return flops / PEAK_BF16_FLOPS
+    if route == "fma":
+        return flops / PEAK_F32_FLOPS
+    return 3 * flops / PEAK_TF32_FLOPS
+
+
+def fma_bound(flops: float, t_bytes: float) -> dict:
+    """The FMA kernel's f32 bound beside a tensor-core row's."""
+    t_ops = flops / PEAK_F32_FLOPS
+    return {"fma_bound_ms": max(t_ops, t_bytes) * 1e3,
+            "fma_bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def fma_fields(x, w, b, pool: int, relu: bool, ref,
+               flush: torch.Tensor) -> dict:
+    """K1's FMA kernel on the same inputs through its own launcher (a
+    3x3, pad-1 conv: a VGG layer or its dgrad), its time, tile and error,
+    gated like the route: f32 within ``TOL`` of max |plain| (``fma_err``
+    that ratio), bf16 within the bf16 gate (``fma_err`` its worst |err|
+    over tolerance)."""
+    bsz, h, wd, _ = x.shape
+    one = (1, 1)
+    plan = K.cta_plan(bsz, h, wd, w.shape[-1], pool, 3, 3, one, one,
+                      x.element_size())
+
+    def fma():
+        return K._fma(x, w, b, None, h, wd, one, one, one, one, relu, pool,
+                      plan)
+
+    out = fma()
+    if x.dtype == torch.float32:
+        abs_err, err = rel_err(out, ref)
+        ok = err <= TOL
+    else:
+        gate = within(out, ref, x.dtype)
+        abs_err, err = gate["max_abs_err"], gate["worst_over_tol"]
+        ok = err <= 1.0
+    require(ok, f"FMA kernel vs plain at {tuple(x.shape)} {x.dtype}: {err}")
+    return {"fma_ms": _time_ms(fma, flush), "fma_err": err,
+            "fma_max_abs_err": abs_err, "fma_tile": plan}
+
+
+def plane_fields(x, w, n_bytes: float, flush: torch.Tensor) -> dict:
     """A 3x3, pad-1 conv's fields on route ``sm90_im2col``: the staging
     launch alone (its plane equal to the plain one bit for bit) beside
-    its bound, the bound with the plane's bytes (written once, read
-    once), and the FMA kernel on the same inputs through its own
-    launcher, its time and its error (held to the same bf16 gate)."""
-    bsz, h, wd, _ = x.shape
-    co = w.shape[-1]
+    its bound, and the bound with the plane's bytes (written once, read
+    once)."""
     before = I.im2col_plane.stage_launches
     plane = I.im2col_plane(x, 3, 3, (1, 1))
     require(I.im2col_plane.stage_launches == before + 1,
@@ -629,26 +750,13 @@ def plane_fields(x, w, b, pool: int, ref, n_bytes: float,
                                           channels=plane.shape[-1])),
             "im2col conv: the plane differs from the plain one")
     plane_bytes = float(plane.numel() * plane.element_size())
-    one = (1, 1)
-    fma_plan = K.cta_plan(bsz, h, wd, co, pool, 3, 3, one, one,
-                          x.element_size())
-
-    def fma():
-        return K._fma(x, w, b, None, h, wd, one, one, one, one, True, pool,
-                      fma_plan)
-
-    gate = within(fma(), ref, x.dtype)
-    require(gate["worst_over_tol"] <= 1.0, f"im2col conv: FMA kernel vs "
-                                           f"plain {gate}")
     return {"stage_ms": _time_ms(lambda: I.im2col_plane(x, 3, 3, (1, 1)),
                                  flush),
             "stage_bound_ms": (x.numel() * x.element_size() + plane_bytes)
             / HBM_BYTES_PER_S * 1e3,
             "plane_bytes": plane_bytes,
             "plane_bound_ms": (n_bytes + 2 * plane_bytes)
-            / HBM_BYTES_PER_S * 1e3,
-            "fma_ms": _time_ms(fma, flush), "fma_err": gate["worst_over_tol"],
-            "fma_max_abs_err": gate["max_abs_err"], "fma_tile": fma_plan}
+            / HBM_BYTES_PER_S * 1e3}
 
 
 # name, batch, (h, w), ci, co, k, stride, pad: the forward conv whose
@@ -687,9 +795,16 @@ def phase_check_bwd() -> float:
             gyp = F.pad(gy, (0, 0, 0, int(s > 1), 0, int(s > 1)))
             kw = dict(stride=1, padding=k - 1 - p, lhs_dilation=s)
             wf = flip_w(wt)
+            route, tile = conv_route(gyp, wf, **kw)
+            before = dict(K.conv_lb.launches_by_route)
             out = conv2d_lb(gyp, wf, **kw)
             ref = conv2d_ref(gyp, wf, **kw)
             torch.cuda.synchronize()
+            launched = {r: K.conv_lb.launches_by_route[r] - before[r]
+                        for r in before}
+            require(launched == dict.fromkeys(K.ROUTES, 0) | {route: 1},
+                    f"check_bwd {name}: dgrad launches {launched}, route "
+                    f"{route}")
             require(out.shape == ref.shape, f"check_bwd {name}: dgrad "
                     f"shape {tuple(out.shape)} != {tuple(ref.shape)}")
             err, rel = rel_err(out, ref)
@@ -708,7 +823,9 @@ def phase_check_bwd() -> float:
                     f"check_bwd {name}: dx vs plain autograd {grel}")
             row.update(dgrad_shape=list(out.shape), dgrad_max_abs_err=err,
                        dgrad_max_abs_err_over_max_ref=rel,
-                       dx_vs_autograd_over_max_ref=grel, dgrad_tol=TOL)
+                       dx_vs_autograd_over_max_ref=grel, dgrad_tol=TOL,
+                       dgrad_route=route, dgrad_tile=tile,
+                       dgrad_launches_by_route=launched)
         geom = W.WgradGeometry(hk=k, wk=k, stride=(s, s), padding=(p, p))
         dw, rt, plan = wgrad_launch(x, gy, geom, f"check_bwd {name}")
         want_rt = want_wgrad_route(torch.float32, ci, co, k, s)
@@ -1656,6 +1773,15 @@ class Decisions:
         return z
 
 
+#: K1's launches by route in one f32 SGD step (forward, the backward's
+#: recompute, and the dgrad of every conv but the first): VGG16/224's
+#: 12 stride-1 convs and conv1_1's plane; ResNet-20/32's 16 stride-1
+#: convs and its stem's plane, its 4 strided convs, their recomputes and
+#: lhs-dilated dgrads on FMA
+TRAIN_ROUTES = {"vgg": {"sm90_tf32": 36, "sm90_im2col": 2},
+                "resnet": {"sm90_tf32": 48, "sm90_im2col": 2, "fma": 12}}
+
+
 def phase_train(model: str) -> dict:
     """A few SGD steps at full width, batch 8, through
     ``launch/train_vgg.py``'s step on the card; step 0's gradients held
@@ -1700,6 +1826,8 @@ def phase_train(model: str) -> dict:
     tracer = Tracer()
     with tracer.activate():
         K.conv_lb.launches = 0
+        K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+        K.conv_lb.stage_launches = 0
         W.wgrad_lb.launches = 0
         W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
         W.wgrad_lb.reduce_launches = 0
@@ -1709,6 +1837,8 @@ def phase_train(model: str) -> dict:
                          traffic_bytes=rep["bytes_per_step"],
                          on_step=check)
         launches = {"conv_lb": K.conv_lb.launches,
+                    "conv_lb_by_route": dict(K.conv_lb.launches_by_route),
+                    "conv_stage": K.conv_lb.stage_launches,
                     "wgrad_lb": W.wgrad_lb.launches,
                     "wgrad_lb_by_route": dict(W.wgrad_lb.launches_by_route),
                     "wgrad_reduce": W.wgrad_lb.reduce_launches,
@@ -1743,6 +1873,13 @@ def phase_train(model: str) -> dict:
             f"train_{model}: K1 launches per step {k1} != {want_k1}")
     require(k2 == [n_convs] * TRAIN_STEPS,
             f"train_{model}: K2 launches per step {k2} != {n_convs}")
+    want_k1_routes = dict.fromkeys(K.ROUTES, 0) | {
+        rt: n * TRAIN_STEPS for rt, n in TRAIN_ROUTES[model].items()}
+    require(launches["conv_lb_by_route"] == want_k1_routes,
+            f"train_{model}: K1 launches by route "
+            f"{launches['conv_lb_by_route']} != {want_k1_routes}")
+    require(launches["conv_stage"] == want_k1_routes["sm90_im2col"],
+            f"train_{model}: K1 staging launches {launches['conv_stage']}")
     require(launches["wgrad_lb_by_route"] == want_routes,
             f"train_{model}: K2 launches by route "
             f"{launches['wgrad_lb_by_route']} != {want_routes}")
@@ -1791,6 +1928,9 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                 wf = flip_w(w)
                 kw = dict(stride=(1, 1), padding=(1, 1))
                 route, tile = conv_route(gy, wf, padding=1)
+                want = "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
+                require(route == want, f"dgrad {node.name} {dtype}: on "
+                                       f"{route}, want {want}")
                 before = dict(K.conv_lb.launches_by_route)
                 out = K.conv_lb(gy, wf, **kw)
                 require(K.conv_lb.launches_by_route[route]
@@ -1810,6 +1950,10 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                 n_bytes = float(elt * (gy.numel() + wf.numel()
                                        + out.numel()))
                 t_bytes = n_bytes / HBM_BYTES_PER_S
+                t_route = ops_s(flops, dtype, route)
+                fma = ({} if dtype == torch.bfloat16 else
+                       dict(fma_fields(gy, wf, None, 1, False, ref, flush),
+                            **fma_bound(flops, t_bytes)))
                 row = dict(base, phase="layers_bwd", op="dgrad",
                            ms=_time_ms(lambda: K.conv_lb(gy, wf, **kw),
                                        flush),
@@ -1819,11 +1963,11 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                                lambda: torch.nn.grad.conv2d_input(
                                    x_nchw.shape, w_oihw, gy_nchw,
                                    padding=1), flush),
-                           bound_ms=max(t_ops, t_bytes) * 1e3,
-                           bound_by="operations" if t_ops >= t_bytes
+                           bound_ms=max(t_route, t_bytes) * 1e3,
+                           bound_by="operations" if t_route >= t_bytes
                            else "bytes", bytes=n_bytes,
                            max_abs_err=err, max_abs_err_over_max_ref=rel,
-                           **gate, route=route, tile=tile)
+                           **gate, route=route, tile=tile, **fma)
                 emit(row)
                 dgrad_rows.append(row)
             geom = W.WgradGeometry(hk=3, wk=3, stride=(1, 1),
@@ -2024,14 +2168,14 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    phase_check()
+    tf32_controls = phase_check()
     phase_check_bwd()
     bwd_bf16 = check_bwd_bf16()
     check_matmul_by_route = phase_check_matmul()
     check_attn_by_route = phase_check_attention()
-    vgg_launches = sum(phase_serve("vgg").values())
+    vgg_f32 = phase_serve("vgg")
     vgg_bf16 = phase_serve("vgg", torch.bfloat16)
-    resnet_launches = sum(phase_serve("resnet").values())
+    resnet_f32 = phase_serve("resnet")
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
     matmul_launches, matmul_all = phase_matmul(card)
@@ -2055,6 +2199,29 @@ def main() -> int:
             f"layers: {len(sm90_fwd)} forward and {len(sm90_dgrad)} dgrad "
             f"bf16 layers on sm90, want 12 and 12")
     (plane_fwd,) = [r for r in bf16_rows if r["route"] == "sm90_im2col"]
+    f32_rows = _of(rows, torch.float32)
+    f32_dgrad = _of(dgrad_rows, torch.float32)
+    tf32_fwd = [r for r in f32_rows if r["route"] == "sm90_tf32"]
+    tf32_dgrad = [r for r in f32_dgrad if r["route"] == "sm90_tf32"]
+    require(len(tf32_fwd) == 12 and len(tf32_dgrad) == 12,
+            f"layers: {len(tf32_fwd)} forward and {len(tf32_dgrad)} dgrad "
+            f"f32 layers on sm90_tf32, want 12 and 12")
+    (plane_f32,) = [r for r in f32_rows if r["route"] == "sm90_im2col"]
+    k1_f32, k1_f32_dgrad = _sums(f32_rows), _sums(f32_dgrad)
+    emit({"phase": "k1_f32_targets",
+          "forward_13_ms": k1_f32["ms"],
+          "forward_13_fma_ms": sum(r["fma_ms"] for r in f32_rows),
+          "forward_13_library_ms": k1_f32["library_ms"],
+          "forward_13_bound_ms": k1_f32["bound_ms"],
+          "forward_13_fma_bound_ms": sum(r["fma_bound_ms"] for r in f32_rows),
+          "dgrad_12_ms": k1_f32_dgrad["ms"],
+          "dgrad_12_fma_ms": sum(r["fma_ms"] for r in f32_dgrad),
+          "dgrad_12_library_ms": k1_f32_dgrad["library_ms"],
+          "dgrad_12_bound_ms": k1_f32_dgrad["bound_ms"],
+          "dgrad_12_fma_bound_ms": sum(r["fma_bound_ms"] for r in f32_dgrad),
+          "forward_over_bound": k1_f32["ms"] / k1_f32["bound_ms"],
+          "dgrad_over_bound": k1_f32_dgrad["ms"] / k1_f32_dgrad["bound_ms"],
+          "card": card})
     bf16_wgrad = _of(wgrad_rows, torch.bfloat16)
     f32_wgrad = _of(wgrad_rows, torch.float32)
     sm90_wgrad = [r for r in bf16_wgrad if r["route"] == "sm90"]
@@ -2101,15 +2268,18 @@ def main() -> int:
                  for rt in K4.ROUTES}
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
     kernels = [
-        dict(_sums(_of(rows, torch.float32)), name="conv_lb", route="cuda",
-             source=SOURCE, replaces=REPLACES, launches=vgg_launches,
-             launches_resnet=resnet_launches,
-             launches_serve_bf16=sum(vgg_bf16.values()),
-             launches_serve_bf16_by_route=vgg_bf16,
+        dict(_sums(_fma_of(f32_rows)), name="conv_lb", route="cuda",
+             kernel_route="fma", source=SOURCE, replaces=REPLACES,
+             launches=resnet_f32["fma"],
+             launches_train_resnet=train_resnet["conv_lb_by_route"]["fma"],
+             launches_serve_by_route={"vgg_f32": vgg_f32,
+                                      "vgg_bf16": vgg_bf16,
+                                      "resnet_f32": resnet_f32},
+             launches_train_vgg_by_route=train_vgg["conv_lb_by_route"],
+             launches_train_resnet_by_route=train_resnet["conv_lb_by_route"],
              launches_bwd_bf16=bwd_bf16["conv_lb"],
-             launches_train_vgg=train_vgg["conv_lb"],
-             launches_train_resnet=train_resnet["conv_lb"],
-             by_dtype=_by_dtype(rows), dgrad=dgrad,
+             dgrad=_sums(_fma_of(f32_dgrad)),
+             route_by_dtype=_by_dtype(rows), route_dgrad_by_dtype=dgrad,
              bf16_by_route={
                  rt: {"layers": [r["layer"] for r in bf16_rows
                                  if r["route"] == rt],
@@ -2120,15 +2290,51 @@ def main() -> int:
                                       if r["route"] == rt]) if any(
                           r["route"] == rt for r in bf16_dgrad) else None}
                  for rt in K.ROUTES},
-             times_are=f"f32 {vgg_times} (by_dtype: f32 and bf16, every "
-                       f"layer on the route it takes, bf16_by_route: "
-                       f"split by route; dgrad: the 12 whose dgrad a "
-                       f"step runs)",
+             times_are=f"the FMA kernel through its own launcher on the f32 "
+                       f"inputs of the {vgg_times} (which take the "
+                       f"tensor-core routes; bound_ms: one multiply-add at "
+                       f"the FMA rate; dgrad: the 12 whose dgrad a step "
+                       f"runs); route_by_dtype: every layer on the route it "
+                       f"takes, f32 and bf16; bf16_by_route: split by "
+                       f"route; launches: ResNet-20/32's four strided convs "
+                       f"in the f32 serving run (launches_train_resnet: "
+                       f"with their recomputes and lhs-dilated dgrads)",
+             card=card),
+        dict(k1_f32, name="conv_lb_sm90_tf32", route="cuda",
+             kernel_route="sm90_tf32", source=CONV_TF32_SOURCE,
+             replaces=REPLACES, dtype="f32",
+             launches=vgg_f32["sm90_tf32"] + vgg_f32["sm90_im2col"],
+             launches_serve_resnet=(resnet_f32["sm90_tf32"]
+                                    + resnet_f32["sm90_im2col"]),
+             launches_train_vgg=(
+                 train_vgg["conv_lb_by_route"]["sm90_tf32"]
+                 + train_vgg["conv_lb_by_route"]["sm90_im2col"]),
+             launches_train_resnet=(
+                 train_resnet["conv_lb_by_route"]["sm90_tf32"]
+                 + train_resnet["conv_lb_by_route"]["sm90_im2col"]),
+             dgrad=k1_f32_dgrad,
+             fma_ms=sum(r["fma_ms"] for r in f32_rows),
+             fma_bound_ms=sum(r["fma_bound_ms"] for r in f32_rows),
+             dgrad_fma_ms=sum(r["fma_ms"] for r in f32_dgrad),
+             dgrad_fma_bound_ms=sum(r["fma_bound_ms"] for r in f32_dgrad),
+             host_us=sum(r["host_us"] for r in f32_rows),
+             library_host_us=sum(r["library_host_us"] for r in f32_rows),
+             conv1_1_plane=_sums([plane_f32]),
+             promote=K.TF32_PROMOTE,
+             control_1xtf32_over_route=tf32_controls,
+             times_are=f"f32 {vgg_times} (12 on sm90_tf32, conv1_1 on "
+                       f"sm90_im2col: the plane, then this kernel as a 1x1 "
+                       f"conv; bound_ms: three TF32 products a multiply-add "
+                       f"at 495 TFLOP/s; fma_bound_ms: one at the FMA rate, "
+                       f"67; fma_ms: conv_lb.cu on the same inputs); dgrad: "
+                       f"the 12 a step runs; launches: the f32 VGG serving "
+                       f"run (sm90_tf32 and sm90_im2col layers)",
              card=card),
         dict(_sums([plane_fwd]), name="conv_lb_sm90_im2col", route="cuda",
              kernel_route="sm90_im2col", source=CONV_SM90_SOURCE,
              staging_source=WGRAD_IM2COL_SOURCE, replaces=REPLACES,
              dtype="bf16", launches=vgg_bf16["sm90_im2col"],
+             launches_f32=vgg_f32["sm90_im2col"], f32=_sums([plane_f32]),
              host_us=plane_fwd["host_us"],
              library_host_us=plane_fwd["library_host_us"],
              stage_ms=plane_fwd["stage_ms"],
@@ -2140,7 +2346,9 @@ def main() -> int:
                        "bias and out; plane_bound_ms: with the plane "
                        "written and read; stage_ms: the staging launch "
                        "alone; fma_ms: conv_lb.cu on the same inputs); "
-                       "launches: the bf16 serving run",
+                       "f32: the same layer onto conv_lb_sm90_tf32.cu; "
+                       "launches: the bf16 serving run (launches_f32: the "
+                       "f32 one)",
              card=card),
         dict(_sums(sm90_fwd), name="conv_lb_sm90", route="cuda",
              kernel_route="sm90", source=CONV_SM90_SOURCE,

@@ -5,14 +5,18 @@ CUDA kernels of K1, which together replace the TPU kernel
 
   * ``csrc/conv_lb_sm90.cu`` (route ``"sm90"``): bf16 at stride 1 on
     the tensor cores, TMA into mbarrier rings feeding ``wgmma``;
-  * ``csrc/wgrad_im2col.cu``, then ``csrc/conv_lb_sm90.cu`` (route
-    ``"sm90_im2col"``): bf16 at stride 1 with a channel count too small
-    for a TMA map (VGG16's conv1_1, Ci = 3) staged as an im2col plane
-    of at most 64 channels (:mod:`~repro_torch.kernels.conv_lb.im2col`,
-    shared with K2), then a 1x1 conv of the plane on the sm90 kernel
-    against w read as Hk*Wk*Ci rows (its weight map zero past them);
-  * ``csrc/conv_lb.cu`` (route ``"fma"``): f32, and every bf16 conv
-    :func:`route` does not send to the sm90 kernel, on FMA.
+  * ``csrc/conv_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 at
+    stride 1 on the tensor cores in 3xTF32, A (the halo) from registers,
+    the weights rewritten once per K step into K-major hi and lo tiles;
+  * ``csrc/wgrad_im2col.cu``, then one of the two kernels above (route
+    ``"sm90_im2col"``): stride 1 with a channel count too small for a
+    TMA map (VGG16's conv1_1, Ci = 3) staged as an im2col plane of at
+    most 64 channels (:mod:`~repro_torch.kernels.conv_lb.im2col`, shared
+    with K2), then a 1x1 conv of the plane on the tensor-core kernel of
+    its type against w read as Hk*Wk*Ci rows (its weight map zero past
+    them);
+  * ``csrc/conv_lb.cu`` (route ``"fma"``): strides, lhs dilation and
+    every conv :func:`route` does not send to the tensor cores, on FMA.
 
 Build (:mod:`repro_torch.kernels.nvcc`, shared by every wrapper): at
 first use ``nvcc`` compiles a source in this checkout for ``sm_90a``
@@ -44,7 +48,8 @@ import torch
 from repro_torch.core.hopper_adapter import (REGS_PER_SM, SM_COUNT,
                                              SMEM_PER_BLOCK)
 from repro_torch.core.layer import ceil_div
-from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, im2col_channels,
+from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, _c_ints,
+                                                im2col_channels,
                                                 im2col_taps, stage,
                                                 stage_fits)
 from repro_torch.kernels.conv_lb.ref import conv2d_ref
@@ -52,6 +57,8 @@ from repro_torch.kernels.nvcc import Library, _entry
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb_sm90.cu"
+TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
+               / "conv_lb_sm90_tf32.cu")
 
 #: the kernel's fixed CTA shape (must match csrc/conv_lb.cu)
 TILE_M = 128        # output pixels per CTA
@@ -163,7 +170,27 @@ SM90_H_STAGES = 2            # halo ring: Ci blocks
 SM90_MAX_WIN = 128           # windows whose offsets a launch carries
 SM90_BOX_MAX = 256           # a TMA box's extent in any dimension
 SM90_PLANE = 8               # channels of one 16-byte halo plane
-ROUTES = ("sm90", "sm90_im2col", "fma")
+ROUTES = ("sm90", "sm90_tf32", "sm90_im2col", "fma")
+
+#: the 3xTF32 kernel's fixed shape (must match csrc/conv_lb_sm90_tf32.cu):
+#: the sm90 kernel's two 8 x 8 pixel blocks a CTA (``SM90_TILES``), K
+#: steps of one window of a 32-channel Ci block (one 128-byte f32 halo
+#: row a pixel), ``bn`` output channels (a wgmma N, a multiple of the
+#: transposers' 32 lanes); three producer-warpgroup warps rewrite each
+#: weight slice into K-major hi and lo tiles
+TF32_BN = (32, 64, 128)
+TF32_BK = 32                 # channels of a Ci block
+TF32_W_STAGES = 4            # weight ring: (Ci block, window) stages
+TF32_B_STAGES = 2            # ring of the hi/lo B tiles
+TF32_H_STAGES = 2            # halo ring: Ci blocks
+TF32_TRANSPOSERS = 3
+#: 3xTF32: three tensor-core products per multiply-add
+TF32_PRODUCTS = 3
+#: K steps (32 of K each) the tensor cores sum before the consumers
+#: promote their sums into round-to-nearest f32 sums: K3's interval,
+#: held at VGG's deepest K (4608) by ``tests/test_torch_conv_tc.py``'s
+#: model and swept on the card by ``launch/conv_tf32_promote.py``
+TF32_PROMOTE = 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,42 +288,134 @@ def sm90_plan(batch: int, ho: int, wo: int, co: int, ci: int, hk: int = 1,
     return None if best is None else best[1]
 
 
+@dataclasses.dataclass(frozen=True)
+class Sm90Tf32Plan:
+    """The 3xTF32 kernel's tile and every shared-memory offset it is
+    passed (bytes).  The halo of one Ci block lies as ``bb`` images x
+    ``hy`` x ``hx`` pixels, one 128-byte swizzled row of 32 channels a
+    pixel, in a stage of ``h_stage`` bytes; a consumer's pixel (r, c)
+    of its block reads row ``blk_off / 128 + r * hx + c``, and window
+    ``(ky, kx)`` the same rows shifted by ``win_off[ky * wk + kx]``."""
+
+    bb: int
+    ty: int
+    tx: int
+    bn: int                    # output channels per CTA
+    hy: int                    # halo box rows
+    hx: int                    # halo box columns
+    h_stage: int               # one halo stage (a 1024-byte multiple)
+    sbo: int                   # one halo row (hx * 128)
+    blk_off: tuple[int, int]   # each consumer's block in the halo
+    win_off: tuple[int, ...]   # window ky * wk + kx -> shift in the halo
+    smem_bytes: int
+    ctas: int
+
+    @property
+    def tile(self) -> tuple[int, int, int, int]:
+        """``(bb, ty, tx, bn)``."""
+        return self.bb, self.ty, self.tx, self.bn
+
+
+def sm90_tf32_layout(bb: int, ty: int, tx: int, bn: int, hk: int, wk: int,
+                     dilation: tuple[int, int]) -> dict:
+    """The halo box and the shared-memory offsets of one 3xTF32 tile
+    (the fields of :class:`Sm90Tf32Plan` but ``ctas``): from a
+    1024-byte line the weight ring (``bn`` x 32 words a stage), the B
+    ring (a hi and a lo tile of ``bn`` x 32 words a stage), the halo
+    ring, then a full and an empty mbarrier per stage of each ring."""
+    dy, dx = dilation
+    hy, hx = ty + (hk - 1) * dy, tx + (wk - 1) * dx
+    h_stage = ceil_div(bb * hy * hx * 128, 1024) * 1024
+    # the second consumer's block: the next image's, or 8 columns on
+    blk = ((bb - 1) * hy * hx + (tx - SM90_BLOCK)) * 128
+    win = tuple((ky * dy * hx + kx * dx) * 128
+                for ky in range(hk) for kx in range(wk))
+    tile = bn * TF32_BK * 4
+    smem = (1024 + TF32_W_STAGES * tile + TF32_B_STAGES * 2 * tile
+            + TF32_H_STAGES * h_stage
+            + 16 * (TF32_W_STAGES + TF32_B_STAGES + TF32_H_STAGES))
+    return dict(bb=bb, ty=ty, tx=tx, bn=bn, hy=hy, hx=hx, h_stage=h_stage,
+                sbo=hx * 128, blk_off=(0, blk), win_off=win,
+                smem_bytes=smem)
+
+
+@lru_cache(maxsize=4096)
+def sm90_tf32_plan(batch: int, ho: int, wo: int, co: int, ci: int,
+                   hk: int = 1, wk: int = 1,
+                   dilation: tuple[int, int] = (1, 1)
+                   ) -> Sm90Tf32Plan | None:
+    """The 3xTF32 kernel's tile for one stride-1 f32 conv, ranked as
+    :func:`sm90_plan` ranks (one CTA per SM): the fewest waves of CTAs
+    over the card's SMs, then the fewest CTAs (each does 128 x ``bn``
+    work whatever part of it is real), then the least halo per output
+    pixel, then the widest ``bn`` (a narrower one where Co is small:
+    ResNet-20's 16 and 32 channels).  ``ci`` does not enter the rank:
+    every tile steps over 32-channel Ci blocks.  Only tiles whose shared
+    memory fits with at most ``SM90_MAX_WIN`` windows are ranked;
+    ``None`` if none does."""
+    best = None
+    for bn, (bb, ty, tx) in itertools.product(TF32_BN, SM90_TILES):
+        if bn > TF32_BN[0] and co <= bn // 2:
+            continue
+        lay = sm90_tf32_layout(bb, ty, tx, bn, hk, wk, tuple(dilation))
+        if not _sm90_fits(lay):
+            continue
+        ctas = (ceil_div(batch, bb) * ceil_div(ho, ty) * ceil_div(wo, tx)
+                * ceil_div(co, bn))
+        waves = ceil_div(ctas, SM_COUNT)
+        halo = lay["hy"] * lay["hx"] / (ty * tx)
+        key = (waves * bn, ctas * bn, halo, -bn)
+        if best is None or key < best[0]:
+            best = (key, Sm90Tf32Plan(**lay, ctas=ctas))
+    return None if best is None else best[1]
+
+
 def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
           lhs_dilation=(1, 1), *, bias: torch.Tensor | None = None,
           residual: torch.Tensor | None = None, dilation=(1, 1),
           pool: int = 1, padding=(0, 0)) -> str:
     """The tensor-core routes need x, w, bias and residual (where given)
-    bf16, stride and lhs dilation (1, 1) (any dilation and padding), Co
-    a multiple of 8 (a 16-byte row pitch that a TMA map describes),
-    every base address 16-byte aligned and the fused pool 1 or 2 (the
-    sm90 epilogue pools 2 x 2 in registers); then
+    of one type, bf16 or f32, stride and lhs dilation (1, 1) (any
+    dilation and padding), Co a multiple of ``pitch`` (8 bf16, 4 f32
+    channels: a 16-byte row pitch that a TMA map describes), every base
+    address 16-byte aligned and the fused pool 1 or 2 (the epilogue
+    pools 2 x 2 in registers); then
 
-      * ``"sm90"``: Ci a multiple of 8 and a tile of :func:`sm90_plan`
-        that fits shared memory with at most ``SM90_MAX_WIN`` windows;
-      * ``"sm90_im2col"``: Ci not a multiple of 8, Hk*Wk*Ci <=
-        ``im2col.IM2COL_MAX`` (VGG16's conv1_1: 27), the staging kernel
-        takes the plane (``stage_fits``) and a tile of
-        :func:`sm90_plan` fits the plane's 1x1 conv.
+      * ``"sm90"`` (bf16) or ``"sm90_tf32"`` (f32): Ci a multiple of
+        ``pitch`` and a tile of :func:`sm90_plan` or
+        :func:`sm90_tf32_plan` that fits shared memory with at most
+        ``SM90_MAX_WIN`` windows;
+      * ``"sm90_im2col"``: Ci not a multiple of ``pitch``, Hk*Wk*Ci <=
+        ``im2col.IM2COL_MAX`` (VGG16's conv1_1 and ResNet-20's stem:
+        27), the staging kernel takes the plane (``stage_fits``) and a
+        tile of the type's plan fits the plane's 1x1 conv.
 
     Else ``"fma"``.  Read from types, geometry and pointers only, before
     launch."""
     operands = [t for t in (x, w, bias, residual) if t is not None]
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
-    if not (all(t.dtype == torch.bfloat16 for t in operands)
+    dt = x.dtype
+    if not (dt in (torch.bfloat16, torch.float32)
+            and all(t.dtype == dt for t in operands)
             and tuple(stride) == (1, 1) and tuple(lhs_dilation) == (1, 1)
-            and co % SM90_PLANE == 0
             and all(t.data_ptr() % 16 == 0 for t in operands)
             and pool in (1, 2)):
         return "fma"
-    if ci % SM90_PLANE == 0:
-        fits = sm90_plan(1, 1, 1, co, ci, hk, wk, tuple(dilation))
-        return "fma" if fits is None else "sm90"
+    bf16 = dt == torch.bfloat16
+    pitch = SM90_PLANE if bf16 else 4
+    plan = sm90_plan if bf16 else sm90_tf32_plan
+    if co % pitch:
+        return "fma"
+    if ci % pitch == 0:
+        fits = plan(1, 1, 1, co, ci, hk, wk, tuple(dilation))
+        return "fma" if fits is None else ("sm90" if bf16 else "sm90_tf32")
     cp = im2col_channels(ci, hk, wk)
     ho, wo = _out_plane(h, wd, hk, wk, (1, 1), tuple(padding),
                         tuple(dilation), (1, 1))
-    if (min(ho, wo) >= 1 and stage_fits(b, h, wd, ci, ho, wo, cp, 2)
-            and sm90_plan(1, 1, 1, co, cp) is not None):
+    if (min(ho, wo) >= 1 and stage_fits(b, h, wd, ci, ho, wo, cp,
+                                        x.element_size())
+            and plan(1, 1, 1, co, cp) is not None):
         return "sm90_im2col"
     return "fma"
 
@@ -314,13 +433,14 @@ def plan_of(x: torch.Tensor, w: torch.Tensor,
             bias: torch.Tensor | None = None,
             residual: torch.Tensor | None = None, *, stride=(1, 1),
             padding=(0, 0), dilation=(1, 1), lhs_dilation=(1, 1),
-            pool: int = 1) -> tuple[str, Sm90Plan | Im2colPlan
-                                    | tuple]:
+            pool: int = 1) -> tuple[str, Sm90Plan | Sm90Tf32Plan
+                                    | Im2colPlan | tuple]:
     """The route :func:`conv_lb` takes for these operands and the plan
     its kernel then runs: an :class:`Sm90Plan` (``"sm90"``), an
-    :class:`Im2colPlan` (``"sm90_im2col"``) or :func:`cta_plan`'s
-    ``(bb, ty, tx, tn, krows)`` (``"fma"``).  Read from types, geometry
-    and pointers only, before launch."""
+    :class:`Sm90Tf32Plan` (``"sm90_tf32"``), an :class:`Im2colPlan`
+    (``"sm90_im2col"``, its inner plan the one of x's type) or
+    :func:`cta_plan`'s ``(bb, ty, tx, tn, krows)`` (``"fma"``).  Read
+    from types, geometry and pointers only, before launch."""
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
     stride, padding = tuple(stride), tuple(padding)
@@ -331,11 +451,13 @@ def plan_of(x: torch.Tensor, w: torch.Tensor,
                dilation=dilation, pool=pool, padding=padding)
     if rt == "sm90":
         return rt, sm90_plan(b, ho, wo, co, ci, hk, wk, dilation)
+    if rt == "sm90_tf32":
+        return rt, sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dilation)
     if rt == "sm90_im2col":
         cp = im2col_channels(ci, hk, wk)
-        return rt, Im2colPlan(cp, im2col_taps(hk, wk, padding,
-                                                  dilation),
-                                  sm90_plan(b, ho, wo, co, cp))
+        inner = sm90_plan if x.dtype == torch.bfloat16 else sm90_tf32_plan
+        return rt, Im2colPlan(cp, im2col_taps(hk, wk, padding, dilation),
+                              inner(b, ho, wo, co, cp))
     return rt, cta_plan(b, ho, wo, co, pool, hk, wk, stride, dilation,
                         x.element_size())
 
@@ -409,6 +531,9 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if rt == "sm90":
         out = _sm90(x, w, bias, residual, ho, wo, (py, px), relu, pool,
                     plan)
+    elif rt == "sm90_tf32":
+        out = _sm90_tf32(x, w, bias, residual, ho, wo, (py, px), relu,
+                         pool, plan)
     elif rt == "sm90_im2col":
         out = _im2col_sm90(x, w, bias, residual, ho, wo, relu, pool, plan)
     else:
@@ -453,17 +578,50 @@ def _sm90(x, w, bias, residual, ho: int, wo: int, padding, relu: bool,
     return out
 
 
+def _sm90_tf32(x, w, bias, residual, ho: int, wo: int, padding,
+               relu: bool, pool: int, plan: Sm90Tf32Plan,
+               lo_terms: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/conv_lb_sm90_tf32.cu`` on the tile and
+    offsets of ``plan``: :func:`sm90_tf32_plan`'s, or a wrong one that a
+    check passes to show that the card's gate sees it.  w's input
+    channels may be fewer than x's (the 1x1 conv of an im2col plane):
+    the weight map reads zeros past them.  ``lo_terms=False`` drops the
+    lo words (1xTF32): a control that the card's gate sees the small
+    terms, never a route."""
+    b, h, wd, ci = x.shape
+    hk, wk, wci, co = w.shape
+    lib, forward = _entry(TF32_SOURCE, "conv_lb_sm90_tf32_forward", 6, 25)
+    out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
+                      device=x.device)
+    win_off = _c_ints(plan.win_off)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = forward(
+            x.data_ptr(), w.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            out.data_ptr(), ctypes.addressof(win_off), b, h, wd, ci, wci, co,
+            hk, wk, ho, wo, padding[0], padding[1], pool, int(relu), plan.bb,
+            plan.ty, plan.tx, plan.hy, plan.hx, plan.bn, plan.h_stage,
+            plan.blk_off[0], plan.blk_off[1], plan.smem_bytes, int(lo_terms),
+            stream)
+    _launched(lib, err, "conv_lb_sm90_tf32")
+    return out
+
+
 def _im2col_sm90(x, w, bias, residual, ho: int, wo: int, relu: bool,
                  pool: int, plan: Im2colPlan) -> torch.Tensor:
     """Route ``sm90_im2col``: the plane on ``plan``'s taps, then its 1x1
-    conv on ``csrc/conv_lb_sm90.cu`` against w (Hk, Wk, Ci, Co) read as
-    (1, 1, Hk*Wk*Ci, Co), the plane's channels past those rows times the
-    weight map's zeros."""
+    conv on the tensor-core kernel of x's type (``csrc/conv_lb_sm90.cu``
+    in bf16, ``csrc/conv_lb_sm90_tf32.cu`` in f32) against w (Hk, Wk,
+    Ci, Co) read as (1, 1, Hk*Wk*Ci, Co), the plane's channels past
+    those rows times the weight map's zeros."""
     hk, wk, ci, co = w.shape
     plane = stage(x, plan.taps, ho, wo, plan.cp)
     conv_lb.stage_launches += 1
-    return _sm90(plane, w.view(1, 1, hk * wk * ci, co), bias, residual, ho,
-                 wo, (0, 0), relu, pool, plan.inner)
+    launch = _sm90 if x.dtype == torch.bfloat16 else _sm90_tf32
+    return launch(plane, w.view(1, 1, hk * wk * ci, co), bias, residual, ho,
+                  wo, (0, 0), relu, pool, plan.inner)
 
 
 def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,

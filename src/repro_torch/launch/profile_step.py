@@ -1,7 +1,7 @@
 """Where a training step's device time goes: ``torch.profiler`` over a
 few SGD steps of :mod:`repro_torch.launch.train_vgg` on the card,
 device time summed by kernel (the conv kernels of K1, the wgrad kernels
-of K2, their second passes and the im2col staging kernel, and
+of K2, their second passes and the im2col staging kernel both use, and
 PyTorch's own kernels by name), beside the
 host clock around the same number of synchronized steps run without
 the profiler (the device's idle share is taken against those).
@@ -31,10 +31,11 @@ from repro_torch.launch import train_vgg as T
 #: kernel names of the port's own kernels (no name is a part of another)
 OWN = {"conv_lb_kernel": "K1 conv_lb",
        "conv_lb_sm90_kernel": "K1 conv_lb_sm90",
+       "conv_lb_sm90_tf32_kernel": "K1 conv_lb_sm90_tf32",
        "wgrad_lb_kernel": "K2 wgrad_lb",
        "wgrad_lb_sm90_kernel": "K2 wgrad_lb_sm90",
        "wgrad_lb_sm90_tf32_kernel": "K2 wgrad_lb_sm90_tf32",
-       "wgrad_im2col_kernel": "K2 im2col staging",
+       "wgrad_im2col_kernel": "K1/K2 im2col staging",
        "wgrad_reduce_kernel": "K2 second pass",
        "wgrad_sm90_reduce_kernel": "K2 second pass",
        "wgrad_tf32_reduce_kernel": "K2 second pass"}

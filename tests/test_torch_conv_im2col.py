@@ -4,8 +4,9 @@ what the wrappers decide and compute before they launch
 1x1 conv).
 
   * :func:`K.route` and :func:`K.plan_of`: ``sm90_im2col`` for bf16
-    VGG16/224 conv1_1 and ResNet-20/32's stem (also at batch 65536),
-    ``fma`` for f32, strides, Hk*Wk*Ci > 64, Co off the 16-byte pitch,
+    VGG16/224 conv1_1 and ResNet-20/32's stem (also at batch 65536), and
+    for f32 (onto the 3xTF32 kernel, ``test_torch_conv_tc.py``); ``fma``
+    for strides, Hk*Wk*Ci > 64, Co off the 16-byte pitch,
     a misaligned base, a pool the sm90 epilogue does not take, and a
     plane whose staging grid would pass 2^31 - 1 blocks; K2's
     ``plan_of`` at the ResNet stem and batch 65536 still names
@@ -107,9 +108,9 @@ def test_route_refuses_what_the_plane_route_does_not_take(case):
     kw = dict(bias=b, padding=(1, 1))
     stride, lhs = (1, 1), (1, 1)
     want = "fma"
-    if case == "f32":
+    if case == "f32":                     # the plane onto the 3xTF32 kernel
         x, w, b = x.float(), w.float(), b.float()
-        kw["bias"] = b
+        kw["bias"], want = b, "sm90_im2col"
     elif case == "stride 2":
         stride = (2, 2)
     elif case == "lhs dilation 2":

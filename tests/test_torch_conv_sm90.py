@@ -3,8 +3,10 @@ before it launches ``csrc/conv_lb_sm90.cu``.
 
   * :func:`route` for every case it reads (types, stride, lhs dilation,
     channel counts, pointers, the fused pool), and on the VGG16/224
-    stack: ``sm90`` for the 12 layers after conv1_1 and their dgrads,
-    ``sm90_im2col`` for conv1_1 (Ci = 3, through the im2col plane);
+    stack: ``sm90`` (bf16) or ``sm90_tf32`` (f32,
+    ``test_torch_conv_tc.py``) for the 12 layers after conv1_1 and
+    their dgrads, ``sm90_im2col`` for conv1_1 (Ci = 3, through the
+    im2col plane);
   * :func:`sm90_plan`: two pool-aligned 8 x 8 blocks per CTA whose
     rings fit the card's shared memory, for every VGG16/224 and
     ResNet-20/32 layer the route takes, at batch 1 and 8;
@@ -65,7 +67,7 @@ def _operands(ci=64, co=64, dtype=BF, bias=True):
 
 @pytest.mark.parametrize("case,want", [
     ("bf16", "sm90"),
-    ("f32", "fma"),
+    ("f32", "sm90_tf32"),
     ("bf16 x, f32 w", "fma"),
     ("f32 bias", "fma"),
     ("stride 2", "fma"),
@@ -131,50 +133,53 @@ def test_route_refuses_a_halo_that_fits_no_tile():
 
 def test_route_names_sm90_for_vgg16_after_conv1_1_and_every_dgrad():
     """conv1_1 (Ci = 3: 6-byte pixels TMA cannot stride) takes the
-    im2col plane and the sm90 kernel as a 1x1 conv; conv1_2 ... conv5_3
-    and the dgrads a training step runs (conv1_2's to conv5_3's: gy
-    against the flipped weights, stride 1, full padding) take the sm90
-    kernel."""
-    fwd, bwd = [], []
-    for st in _vgg_stages():
-        n = st.node
-        x = torch.zeros((1, st.h, st.w, n.ci), dtype=BF)
-        w = torch.zeros((3, 3, n.ci, n.co), dtype=BF)
-        b = torch.zeros((n.co,), dtype=BF)
-        pool = st.pool if st.fused_pool else 1
-        fwd.append(K.route(x, w, (n.stride,) * 2, bias=b, pool=pool))
-        gy = torch.zeros((1, st.ho, st.wo, n.co), dtype=BF)
-        bwd.append(K.route(gy, flip_w(w)))
-    assert fwd == ["sm90_im2col"] + ["sm90"] * 12
-    # conv1_1's dgrad is never run (the images need no gradient); its
-    # flipped weights have Co = 3 and would stay on FMA
-    assert bwd == ["fma"] + ["sm90"] * 12
+    im2col plane and the tensor-core kernel of its type as a 1x1 conv;
+    conv1_2 ... conv5_3 and the dgrads a training step runs (conv1_2's
+    to conv5_3's: gy against the flipped weights, stride 1, full
+    padding) take the sm90 kernel in bf16 and the 3xTF32 kernel in
+    f32."""
+    for dtype, tc in ((BF, "sm90"), (torch.float32, "sm90_tf32")):
+        fwd, bwd = [], []
+        for st in _vgg_stages():
+            n = st.node
+            x = torch.zeros((1, st.h, st.w, n.ci), dtype=dtype)
+            w = torch.zeros((3, 3, n.ci, n.co), dtype=dtype)
+            b = torch.zeros((n.co,), dtype=dtype)
+            pool = st.pool if st.fused_pool else 1
+            fwd.append(K.route(x, w, (n.stride,) * 2, bias=b, pool=pool))
+            gy = torch.zeros((1, st.ho, st.wo, n.co), dtype=dtype)
+            bwd.append(K.route(gy, flip_w(w)))
+        assert fwd == ["sm90_im2col"] + [tc] * 12, dtype
+        # conv1_1's dgrad is never run (the images need no gradient); its
+        # flipped weights have Co = 3 and would stay on FMA
+        assert bwd == ["fma"] + [tc] * 12, dtype
 
 
 def test_route_on_resnet20():
-    """The stride-1 3x3 convs take sm90, the stem (Ci = 3) the im2col
-    plane; the stride-2 3x3 convs and the 1x1/2 projections stay on
-    FMA."""
-    got = {}
-    for st in _resnet_stages():
-        n = st.node
-        x = torch.zeros((1, st.h, st.w, n.ci), dtype=BF)
-        w = torch.zeros((n.hk, n.wk, n.ci, n.co), dtype=BF)
-        got[n.name] = K.route(x, w, (n.stride,) * 2)
-    for name, rt in got.items():
-        want = ("sm90_im2col" if name == "stem" else "fma"
-                if name.endswith("_proj") or name in ("s2b0_a", "s3b0_a")
-                else "sm90")
-        assert rt == want, name
-    assert sum(rt == "sm90" for rt in got.values()) == 16
+    """The stride-1 3x3 convs take sm90 in bf16 and sm90_tf32 in f32,
+    the stem (Ci = 3) the im2col plane; the stride-2 3x3 convs and the
+    1x1/2 projections stay on FMA."""
+    for dtype, tc in ((BF, "sm90"), (torch.float32, "sm90_tf32")):
+        got = {}
+        for st in _resnet_stages():
+            n = st.node
+            x = torch.zeros((1, st.h, st.w, n.ci), dtype=dtype)
+            w = torch.zeros((n.hk, n.wk, n.ci, n.co), dtype=dtype)
+            got[n.name] = K.route(x, w, (n.stride,) * 2)
+        for name, rt in got.items():
+            want = ("sm90_im2col" if name == "stem" else "fma"
+                    if name.endswith("_proj") or name in ("s2b0_a", "s3b0_a")
+                    else tc)
+            assert rt == want, (name, dtype)
+        assert sum(rt == tc for rt in got.values()) == 16
 
 
 @pytest.mark.parametrize("dtype", [BF, torch.float32])
 def test_plan_of_names_the_route_and_its_kernels_tile(dtype):
     """``plan_of`` gives what ``conv_lb`` launches on VGG16/224 at batch
     8: the route :func:`K.route` names, with ``sm90_plan``'s tile there
-    and ``cta_plan``'s on FMA (forward with the fused pool, and the
-    dgrad geometry)."""
+    (bf16), ``sm90_tf32_plan``'s (f32) and ``cta_plan``'s on FMA
+    (forward with the fused pool, and the dgrad geometry)."""
     elt = torch.tensor([], dtype=dtype).element_size()
     for st in _vgg_stages():
         n = st.node
@@ -189,25 +194,34 @@ def test_plan_of_names_the_route_and_its_kernels_tile(dtype):
             assert plan == K.sm90_plan(8, st.ho, st.wo, n.co, n.ci, 3, 3)
             assert plan.tile == (plan.bb, plan.ty, plan.tx, plan.bn,
                                  plan.cib)
+        elif rt == "sm90_tf32":
+            assert dtype == torch.float32
+            assert plan == K.sm90_tf32_plan(8, st.ho, st.wo, n.co, n.ci, 3,
+                                            3)
+            assert plan.tile == (plan.bb, plan.ty, plan.tx, plan.bn)
         elif rt == "sm90_im2col":
-            assert dtype == BF and n.ci == 3
-            assert plan.inner == K.sm90_plan(8, st.ho, st.wo, n.co, 32)
+            assert n.ci == 3
+            inner = K.sm90_plan if dtype == BF else K.sm90_tf32_plan
+            assert plan.inner == inner(8, st.ho, st.wo, n.co, 32)
             assert plan.tile == (32, *plan.inner.tile)
         else:
             assert plan == K.cta_plan(8, st.ho, st.wo, n.co, pool, 3, 3,
                                       (n.stride,) * 2, (1, 1), elt)
         gy = torch.zeros((8, st.ho, st.wo, n.co), dtype=dtype)
         rt, plan = K.plan_of(gy, flip_w(w), padding=(1, 1))
-        assert rt == ("sm90" if dtype == BF and n.ci % 8 == 0 else "fma")
+        tc = "sm90" if dtype == BF else "sm90_tf32"
+        assert rt == (tc if n.ci % 8 == 0 else "fma")
         assert plan == (K.sm90_plan(8, st.h, st.w, n.ci, n.co, 3, 3)
                         if rt == "sm90" else
+                        K.sm90_tf32_plan(8, st.h, st.w, n.ci, n.co, 3, 3)
+                        if rt == "sm90_tf32" else
                         K.cta_plan(8, st.h, st.w, n.ci, 1, 3, 3, (1, 1),
                                    (1, 1), elt))
 
 
 def test_launch_counters_by_route():
     assert set(K.conv_lb.launches_by_route) == set(K.ROUTES) == {
-        "sm90", "sm90_im2col", "fma"}
+        "sm90", "sm90_tf32", "sm90_im2col", "fma"}
     assert isinstance(K.conv_lb.stage_launches, int)
 
 

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain
 PyTorch versions on the same inputs (TF32 off on both sides): the conv
-kernel (also in its dgrad geometry), the wgrad kernel, a ResNet-20
+kernel (also in its dgrad geometry; in f32 on the 3xTF32 kernel, whose
+second launch gives the same bits and whose recompute gives the
+forward's pre-epilogue sums bit for bit), the wgrad kernel, a ResNet-20
 training step against the plain version's autograd, the two backwards
 the kernels do not take (routed to the library rung, loudly), and the
 matmul and attention kernels in f32 and bf16 (kernel and plain version
@@ -287,13 +289,16 @@ def test_profile_step_sees_the_ports_kernels(cuda):
     rep = profile_steps("resnet", image=32, batch=4, width_mult=0.25,
                         steps=1, warmup=1, lr=1e-3)
     own = {r["kernel"]: r for r in rep["own_kernels"]}
-    assert own["K1 conv_lb"]["launches_per_step"] == 62
-    # f32 at width 0.25: the stem through the im2col plane onto the
-    # 3xTF32 kernel, the stride-1 3x3 convs on it, the stride-2 convs
-    # and the projections (4) on FMA
+    # f32 at width 0.25 (4, 8 and 16 channels): K1's and K2's stems
+    # through the im2col plane onto the 3xTF32 kernels, the 16 stride-1
+    # 3x3 convs on them (K1: forward, recompute, dgrad), the stride-2
+    # convs and the projections (4) on FMA (K1: forward, recompute and
+    # the lhs-dilated dgrad)
+    assert own["K1 conv_lb"]["launches_per_step"] == 12
+    assert own["K1 conv_lb_sm90_tf32"]["launches_per_step"] == 50
     assert own["K2 wgrad_lb"]["launches_per_step"] == 4
     assert own["K2 wgrad_lb_sm90_tf32"]["launches_per_step"] == 17
-    assert own["K2 im2col staging"]["launches_per_step"] == 1
+    assert own["K1/K2 im2col staging"]["launches_per_step"] == 3
     assert 0.0 <= rep["device_idle_share"] < 1.0
 
 
@@ -968,3 +973,106 @@ def test_wgrad_stem_at_batch_65536_matches_plain(cuda):
     want = sum(wgrad_ref(x[i:i + chunk], dy[i:i + chunk], 3, 3, padding=1)
                for i in range(0, batch, chunk))
     _close(dw, want, tol=2e-4)
+
+
+# b, h, ci, co, pool, residual: K1's 3xTF32 route at VGG16/224 batch 8
+# (conv1_2 and conv5_3 with their pools, conv3_2) and a ResNet-20/32
+# residual layer (16 channels: 32-wide CTAs)
+TF32_CONVS = [
+    (8, 224, 64, 64, 2, False),
+    (8, 56, 256, 256, 1, False),
+    (8, 14, 512, 512, 2, False),
+    (8, 32, 16, 16, 1, True),
+]
+
+
+@pytest.mark.parametrize("b,h,ci,co,pool,res", TF32_CONVS)
+def test_tf32_conv_matches_plain(cuda, b, h, ci, co, pool, res):
+    """K1's f32 route ``sm90_tf32`` (3x3, pad 1, bias, ReLU) within 1e-4
+    of max |plain|, one launch; a second launch gives the same bits (no
+    atomics, no race on the rings), and the backward's recompute (no
+    epilogue) gives the forward's pre-epilogue sums bit for bit: the
+    epilogue applied to it in PyTorch is the forward's output."""
+    g = torch.Generator().manual_seed(26)
+    x = torch.randn((b, h, h, ci), generator=g).to(cuda)
+    w = (torch.randn((3, 3, ci, co), generator=g) / (9 * ci) ** 0.5
+         ).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    r = torch.randn((b, h, h, co), generator=g).to(cuda) if res else None
+    kw = dict(padding=(1, 1), relu=True, pool=pool)
+    assert K.route(x, w, bias=bias, residual=r, pool=pool) == "sm90_tf32"
+    before = dict(K.conv_lb.launches_by_route)
+    out = K.conv_lb(x, w, bias, r, **kw)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == _on_conv("sm90_tf32")
+    assert out.shape == (b, h // pool, h // pool, co)
+    _close(out, conv2d_ref(x, w, bias, r, **kw))
+    assert torch.equal(K.conv_lb(x, w, bias, r, **kw), out)
+    z = K.conv_lb(x, w, padding=(1, 1)) + bias
+    if r is not None:
+        z = z + r
+    z = torch.clamp_min(z, 0.0)
+    if pool == 2:
+        z = z.reshape(b, h // 2, 2, h // 2, 2, co).amax(dim=(2, 4))
+    assert torch.equal(z, out)
+
+
+def test_tf32_dgrad_and_backward_ride_the_kernel(cuda):
+    """A VGG conv4 layer's backward in f32: the recompute and the dgrad
+    (gy against the flipped weights, full padding) on ``sm90_tf32``,
+    the gradients within 1e-4 of the plain autograd (no ReLU or pool: no
+    discrete choice to flip)."""
+    g = torch.Generator().manual_seed(27)
+    x = torch.randn((8, 28, 28, 256), generator=g).to(cuda)
+    w = (torch.randn((3, 3, 256, 512), generator=g) / (9 * 256) ** 0.5
+         ).to(cuda)
+    bias = torch.randn((512,), generator=g).to(cuda)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    out = conv2d_lb(*leaves, padding=1)
+    gy = torch.randn(out.shape, generator=g).to(cuda)
+    before = dict(K.conv_lb.launches_by_route)
+    got = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == dict.fromkeys(K.ROUTES, 0) | {
+        "sm90_tf32": 2}
+    plain = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    want = torch.autograd.grad(conv2d_ref(*plain, padding=1), plain, gy)
+    for a, b_ in zip(got, want):
+        _close(a, b_, tol=2e-4)
+
+
+@pytest.mark.parametrize("b,h,co", [(8, 224, 64), (8, 32, 16)])
+def test_tf32_im2col_conv_matches_plain(cuda, b, h, co):
+    """f32 conv1_1 and the ResNet stem (Ci = 3) on ``sm90_im2col``: the
+    plane, then the 3xTF32 kernel as a 1x1 conv; one layer and one
+    staging launch, within 1e-4 of max |plain|."""
+    g = torch.Generator().manual_seed(28)
+    x = torch.randn((b, h, h, 3), generator=g).to(cuda)
+    w = (torch.randn((3, 3, 3, co), generator=g) / 27 ** 0.5).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    kw = dict(padding=(1, 1), relu=True)
+    rt, plan = K.plan_of(x, w, bias, padding=(1, 1))
+    assert rt == "sm90_im2col"
+    assert plan.inner == K.sm90_tf32_plan(b, h, h, co, 32)
+    before = dict(K.conv_lb.launches_by_route)
+    stages = K.conv_lb.stage_launches
+    out = K.conv_lb(x, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == _on_conv("sm90_im2col")
+    assert K.conv_lb.stage_launches == stages + 1
+    _close(out, conv2d_ref(x, w, bias, **kw))
+
+
+def test_conv_tf32_launch_error_raises(cuda, monkeypatch):
+    """A launch the kernel refuses (Ci = 6, which the route would never
+    send, forced onto sm90_tf32 here) raises through ``conv_lb`` with
+    its reason and counts no launch on any route."""
+    x = torch.zeros((1, 8, 8, 6), device=cuda)
+    w = torch.zeros((3, 3, 6, 16), device=cuda)
+    assert K.route(x, w, padding=(1, 1)) == "sm90_im2col"
+    plan = K.sm90_tf32_plan(1, 8, 8, 16, 6, 3, 3)
+    monkeypatch.setattr(K, "plan_of", lambda *a, **kw: ("sm90_tf32", plan))
+    before = (K.conv_lb.launches, dict(K.conv_lb.launches_by_route))
+    with pytest.raises(RuntimeError, match="conv_lb_sm90_tf32"):
+        K.conv_lb(x, w, padding=(1, 1))
+    assert (K.conv_lb.launches, K.conv_lb.launches_by_route) == before
