@@ -4,9 +4,10 @@
   * ``build``: the conv (K1: FMA, sm90 bf16, sm90 3xTF32), wgrad (K2:
     FMA, sm90 bf16, sm90 3xTF32), the im2col staging kernel (K1 and
     K2), matmul (K3:
-    FMA, sm90 bf16 and sm90 3xTF32) and attention (K4: FMA and sm90)
-    kernels from the sources in this checkout, one nvcc each, all
-    started together; ptxas registers, spills and shared memory;
+    FMA, sm90 bf16 and sm90 3xTF32) and attention (K4: FMA, sm90 bf16
+    and sm90 3xTF32) kernels from the sources in this checkout, one nvcc
+    each, all started together; ptxas registers, spills and shared
+    memory;
   * ``check``, ``check_bwd``: K1 (f32 and bf16, each row with the
     route it took and its tile; also in its dgrad geometries, and at
     7x7 and 11x11 windows) and K2 (x and dy f32 and bf16, each row with
@@ -29,7 +30,8 @@
     reference's sweeps (K3 also with a K-major ``w`` and at a ragged
     and a long-K shape, each row with the route it took, f32 on
     ``sm90_tf32`` where TMA describes the operands; K4 on every
-    route that takes each case, also at head dims 20, 80, 96, 256, 320
+    route that takes each case (f32 ``sm90_tf32`` and ``fma``, bf16
+    ``sm90`` and ``fma``), also at head dims 20, 80, 96, 256, 320
     and 512 and two long cases) and a fully masked row case, against
     their plain versions (``CARD_TOL``; deliberately wrong results, a
     dropped key tile and a bf16 output accumulator among them, are
@@ -51,9 +53,13 @@
     in both types, the 1xTF32 control (lo words dropped) shown to fail
     the f32 gate and err 4x more, the FMA kernel timed on the f32
     inputs through its own launcher; phi3-medium-14b's and
-    mixtral-8x7b's attention, bf16 on the sm90 kernel), f32 and bf16,
-    held against the plain versions and timed beside their bounds and
-    a library call;
+    mixtral-8x7b's attention, bf16 on the sm90 kernel, f32 on the
+    3xTF32 kernel, each f32 call giving the same bits on a second
+    launch, its 1xTF32 control erring 4x more and its transposers
+    reading V one key off failing the f32 gate, the FMA kernel timed
+    and gated on the f32 inputs through ``via="fma"``), f32 and bf16,
+    held against the plain versions and timed beside their bounds, the
+    host's enqueue and a library call;
   * ``attention_head_dims``: K4 at head dims 80, 96 and 256, timed;
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
     and bf16, each row with its route and tile (K2: plan) and the
@@ -67,7 +73,11 @@
     also ``plane_bound_ms``, the bound with the plane's bytes);
   * ``layers_bwd_resnet``: K2 on FMA at its own main-path inputs,
     ResNet-20/32's four strided wgrads at batch 8, f32 and bf16, timed
-    beside cuDNN's ``conv2d_weight`` and the bound.
+    beside cuDNN's ``conv2d_weight`` and the bound;
+  * ``layers_resnet``: K1 on FMA at its own main-path inputs, the same
+    four strided convs, forward and dgrad (lhs-dilated, as
+    ``dgrad_lb`` runs it), f32 and bf16, timed beside cuDNN's
+    ``conv2d`` and ``conv2d_input``, the bound and the host's enqueue.
 
 Times are CUDA events around one call, the L2 cache flushed before
 it; a call shorter than the host's time to enqueue it is charged that
@@ -163,6 +173,8 @@ ATTN_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
                "attention_block.cu")
 ATTN_SM90_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
                     "attention_block_sm90.cu")
+ATTN_TF32_SOURCE = ("src/repro_torch/kernels/attention_block/csrc/"
+                    "attention_block_sm90_tf32.cu")
 ATTN_REPLACES = "src/repro/kernels/attention_block/kernel.py:22"
 DTYPES = (torch.float32, torch.bfloat16)
 PEAK = {torch.float32: PEAK_F32_FLOPS, torch.bfloat16: PEAK_BF16_FLOPS}
@@ -209,13 +221,14 @@ def phase_build() -> None:
     libs = build_many([K.SOURCE, K.SM90_SOURCE, K.TF32_SOURCE, W.SOURCE,
                        W.SM90_SOURCE, W.TF32_SOURCE, I.SOURCE, K3.SOURCE,
                        K3.SM90_SOURCE, K3.TF32_SOURCE, K4.SOURCE,
-                       K4.SM90_SOURCE])
+                       K4.SM90_SOURCE, K4.TF32_SOURCE])
     for lib, source in zip(libs, (SOURCE, CONV_SM90_SOURCE,
                                   CONV_TF32_SOURCE, WGRAD_SOURCE,
                                   WGRAD_SM90_SOURCE, WGRAD_TF32_SOURCE,
                                   WGRAD_IM2COL_SOURCE, MATMUL_SOURCE,
                                   SM90_SOURCE, MATMUL_TF32_SOURCE,
-                                  ATTN_SOURCE, ATTN_SM90_SOURCE)):
+                                  ATTN_SOURCE, ATTN_SM90_SOURCE,
+                                  ATTN_TF32_SOURCE)):
         emit({"phase": "build", "seconds": lib.seconds,
               "library": lib.path.name, "source": source,
               "ptxas": [ln.strip() for ln in lib.log.splitlines()
@@ -1316,9 +1329,13 @@ def _fault(q, k, v, *, window: int, causal: bool, fault: str):
 
 
 def attention_routes(q: torch.Tensor, hd: int) -> tuple[str, ...]:
-    """The routes that take inputs of ``q``'s type at head dim ``hd``."""
+    """The routes that take inputs of ``q``'s type at head dim ``hd``:
+    the tensor-core route of its type where its width takes ``hd``, and
+    ``fma``, which takes every input."""
     if q.dtype == torch.bfloat16 and K4.sm90_head_dim(hd) is not None:
-        return K4.ROUTES
+        return ("sm90", "fma")
+    if q.dtype == torch.float32 and K4.sm90_tf32_head_dim(hd) is not None:
+        return ("sm90_tf32", "fma")
     return ("fma",)
 
 
@@ -1335,11 +1352,13 @@ def phase_check_attention() -> dict:
     """Every case and type of the reference's attention sweep, the head
     dims beside it (also above 256), the fully masked rows and two long
     cases, on every route that takes each (the route :func:`K4.route`
-    picks through ``flash_attention``, the other by ``via``), against
-    the plain version.  Controls: a window off by one, the last visited
-    key tile dropped (every case and route), the output accumulator
-    rounded to bf16 once per key tile (sm90; it must fail on the long
-    cases).  Returns the launches by route."""
+    picks through ``flash_attention``, the other by ``via``: f32 on
+    ``sm90_tf32`` and ``fma``, bf16 on ``sm90`` and ``fma``, where the
+    tensor-core route's widths take the head dim), against the plain
+    version.  Controls: a window off by one, the last visited key tile
+    dropped (every case and route), the output accumulator rounded to
+    bf16 once per key tile (sm90; it must fail on the long cases).
+    Returns the launches by route."""
     gen = torch.Generator().manual_seed(SEED + 4)
     by_route = dict.fromkeys(K4.ROUTES, 0)
     for dtype in DTYPES:
@@ -1572,14 +1591,92 @@ def library_kernels(fn) -> list[str]:
                    if str(getattr(e, "device_type", "")).endswith("CUDA")})
 
 
+def attention_bounds(flops: float, n_bytes: float, dtype, route: str
+                     ) -> dict:
+    """The least time the card takes for one attention call on
+    ``route`` (``ops_s``: f32 on the tensor cores as 3xTF32), and for f32
+    the FMA kernel's bound beside it."""
+    t_ops, t_bytes = ops_s(flops, dtype, route), n_bytes / HBM_BYTES_PER_S
+    row = {"bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    if dtype == torch.float32 and route != "fma":
+        row.update(fma_bound(flops, t_bytes))
+    return row
+
+
+def exact_attention(q, k, v, *, groups: int, window: int,
+                    causal: bool) -> torch.Tensor:
+    """float64 attention on heads-first tensors with the plain version's
+    masks (a masked score -1e30), one kv head's group at a time: the
+    yardstick the f32 routes' and the plain version's errors are read
+    against (``err_over_max_exact``)."""
+    sq, hd = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= k_pos <= q_pos
+    if window:
+        keep &= k_pos > q_pos - window
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for i in range(k.shape[0]):
+        rows = slice(i * groups, (i + 1) * groups)
+        sc = q[rows].double() @ k[i].double().T * hd ** -0.5
+        out[rows] = torch.softmax(sc.masked_fill(~keep, -1e30), dim=-1) \
+            @ v[i].double()
+    return out
+
+
+def tf32_attention_controls(qf, kf, vf, plain, *, groups: int,
+                            window: int, causal: bool, out) -> dict:
+    """K4's 3xTF32 kernel on heads-first inputs it has already run:
+    a second launch gives the same bits (``out``'s, required); 1xTF32
+    (every lo word dropped, one launch of the same plan) errs at least
+    4x the route (required), whether it fails the f32 gate reported;
+    the transposers reading V one key off fail ``CARD_TOL`` (required).
+    """
+    plan = K4.sm90_tf32_plan(K4.sm90_tf32_head_dim(qf.shape[-1]))
+    kw = dict(groups=groups, window=window, causal=causal)
+    again = K4._sm90_tf32(qf, kf, vf, plan, **kw)
+    one = K4._sm90_tf32(qf, kf, vf, plan, lo_terms=False, **kw)
+    bad = K4._sm90_tf32(qf, kf, vf, dataclasses.replace(plan, v_key_off=1),
+                        **kw)
+    torch.cuda.synchronize()
+    right = (out - plain).abs().max().item()
+    one_gate = within(one, plain, torch.float32)
+    row = {"same_bits_second_launch": bool(torch.equal(again, out)),
+           "control_1xtf32": {
+               "what": "1xTF32: every lo word dropped",
+               "max_abs_err": one_gate["max_abs_err"],
+               "over_route": one_gate["max_abs_err"] / max(right, 1e-30),
+               "worst_over_tol": one_gate["worst_over_tol"],
+               "fails_gate": one_gate["worst_over_tol"] > 1.0},
+           "control_v_key_off": control(
+               "the transposers read V one key off", bad, plain,
+               torch.float32)}
+    require(row["same_bits_second_launch"],
+            "attention sm90_tf32: a second launch gave other bits")
+    require(row["control_1xtf32"]["over_route"] >= 4,
+            f"attention sm90_tf32: 1xTF32 errs {row['control_1xtf32']}, "
+            f"under 4x the route's {right}")
+    return row
+
+
 def phase_attention(card: str) -> tuple[dict, list[dict]]:
-    """``flash_attention`` at full width, f32 (route fma) and bf16
-    (route sm90): the main path run (launches by route), then each call
-    held against the plain version and the kernel timed alone beside
-    its bound, the pairs it visits against the unmasked ones, and
+    """``flash_attention`` at full width, f32 (route sm90_tf32) and bf16
+    (route sm90), both required: the main path run (launches by route),
+    then each call held against the plain version and the kernel timed
+    alone beside its bound (f32: 3xTF32, with the FMA bound beside it),
+    the pairs it visits against the unmasked ones, the host's time to
+    enqueue one call (``host_us``) and
     ``F.scaled_dot_product_attention`` (whose kernels the profiler
-    names).  Controls: kv head ``h % KV``; on sm90 the output sums
-    rounded to bf16 once per key tile."""
+    names); f32 also the FMA kernel through ``via="fma"`` on the same
+    inputs (``fma_ms``, ``fma_err`` gated like the route), and the
+    route's, the FMA kernel's and the plain version's errors against
+    float64 (:func:`exact_attention`, reported).  Controls: kv head
+    ``h % KV``; on sm90 the output sums rounded to bf16 once per key
+    tile; on sm90_tf32 :func:`tf32_attention_controls`."""
     gen = torch.Generator().manual_seed(SEED + 6)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     cases = [(cfg, b, s, h, kv, hd, win, causal, dtype,
@@ -1596,22 +1693,25 @@ def phase_attention(card: str) -> tuple[dict, list[dict]]:
     launches = {"launches": K4.attention.launches,
                 "by_route": dict(K4.attention.launches_by_route)}
     require(launches["launches"] == len(cases)
-            and launches["by_route"]["sm90"] == len(ATTN_FULL),
+            and launches["by_route"]["sm90"] == len(ATTN_FULL)
+            and launches["by_route"]["sm90_tf32"] == len(ATTN_FULL),
             f"attention: {launches} for {len(cases)} calls: every bf16 "
-            f"call must take sm90")
+            f"call must take sm90, every f32 call sm90_tf32")
     rows = []
     for (cfg, b, s, h, kv, hd, win, causal, dtype, q, k, v), out in zip(
             cases, outs):
-        rt = K4.route(*(heads_first(t) for t in (q, k, v)))
-        require(rt == ("sm90" if dtype == torch.bfloat16 else "fma"),
+        qf, kf, vf = (heads_first(t) for t in (q, k, v))
+        rt = K4.route(qf, kf, vf)
+        require(rt == ("sm90" if dtype == torch.bfloat16 else "sm90_tf32"),
                 f"attention {cfg} {dtype}: route {rt}")
+        g = h // kv
+        kw = dict(groups=g, window=win, causal=causal)
         plain = plain_attention(q, k, v, window=win, causal=causal)
         chk = within(out, plain, dtype)
         require(chk["worst_over_tol"] <= 1.0 and
                 bool(torch.isfinite(out).all()),
                 f"attention {cfg} {dtype}: {chk}")
         # query head h on kv head h % KV instead of h // (H / KV)
-        g = h // kv
         chk["control"] = control(
             "kv head h % KV", plain_attention(
                 q, k.repeat(1, 1, g, 1), v.repeat(1, 1, g, 1),
@@ -1621,31 +1721,53 @@ def phase_attention(card: str) -> tuple[dict, list[dict]]:
                 "output sums rounded to bf16 per key tile",
                 _fault(q, k, v, window=win, causal=causal,
                        fault="round_o"), plain, dtype)
+        fma = {}
+        if rt == "sm90_tf32":
+            plain_hf = plain.transpose(1, 2).reshape(qf.shape)
+            out_hf = heads_first(out)
+            chk.update(tf32_attention_controls(qf, kf, vf, plain_hf,
+                                               out=out_hf, **kw))
+            fma_out = K4.attention(qf, kf, vf, via="fma", **kw)
+            fma_gate = within(fma_out, plain_hf, dtype)
+            require(fma_gate["worst_over_tol"] <= 1.0,
+                    f"attention {cfg}: the FMA kernel {fma_gate}")
+            exact = exact_attention(qf, kf, vf, **kw)
+            top = exact.abs().max().item()
+            chk["err_over_max_exact"] = {
+                name: (t.double() - exact).abs().max().item() / top
+                for name, t in (("route", out_hf), ("fma", fma_out),
+                                ("plain", plain_hf))}
+            del fma_out, plain_hf, out_hf, exact
+            fma = {"fma_ms": _time_ms(lambda: K4.attention(
+                       qf, kf, vf, via="fma", **kw), flush),
+                   "fma_err": fma_gate["worst_over_tol"],
+                   "fma_max_abs_err": fma_gate["max_abs_err"]}
         del plain
-        qf, kf, vf = (heads_first(t) for t in (q, k, v))
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         pairs = b * h * unmasked_pairs(s, s, win, causal)
         visited = b * h * K4.visited_pairs(s, s, win, causal)
         flops = 4.0 * hd * pairs
         n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
-        t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
         library = _library_attention(qh, kh, vh, window=win, causal=causal)
+
+        def kernel():
+            return K4.attention(qf, kf, vf, **kw)
+
         row = {"phase": "attention", "config": cfg,
                "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd},
                "window": win, "causal": causal, "dtype": str(dtype),
                "route": rt, **chk,
-               "ms": _time_ms(lambda: K4.attention(
-                   qf, kf, vf, groups=h // kv, window=win,
-                   causal=causal), flush),
+               "ms": _time_ms(kernel, flush),
                "entry_ms": _time_ms(lambda: flash_attention(
                    q, k, v, window=win, causal=causal), flush),
                "plain_ms": _time_ms(lambda: plain_attention(
                    q, k, v, window=win, causal=causal), flush, reps=3),
                "library_ms": _time_ms(library, flush),
                "library_kernels": library_kernels(library),
-               "bound_ms": max(t_ops, t_bytes) * 1e3,
-               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "peak_flops": PEAK[dtype], "unmasked_pairs": pairs,
+               "host_us": _host_us(kernel),
+               **attention_bounds(flops, n_bytes, dtype, rt), **fma,
+               "peak_flops": flops / ops_s(flops, dtype, rt),
+               "unmasked_pairs": pairs,
                "visited_pairs": visited,
                "visited_over_unmasked": visited / pairs,
                "flops": flops, "bytes": n_bytes, "card": card}
@@ -1655,17 +1777,20 @@ def phase_attention(card: str) -> tuple[dict, list[dict]]:
 
 
 # name, b, s, h, kv, hd, window, causal: head dims the configs do not
-# use, at 4096 tokens (80 and 96 run at their own width, 256 with one
-# K/V stage in f32 and one consumer warpgroup in bf16)
+# use, at 4096 tokens (80 and 96 run at width 96 on sm90_tf32 in f32 and
+# at their own width on sm90 in bf16; 256 on FMA with one K/V stage in
+# f32, with one consumer warpgroup on sm90 in bf16)
 ATTN_HEAD_DIM_FULL = [("hd80", 1, 4096, 32, 32, 80, 0, True),
                       ("hd96", 1, 4096, 32, 8, 96, 0, True),
                       ("hd256", 1, 4096, 16, 16, 256, 0, True)]
 
 
 def phase_attention_head_dims(card: str) -> list[dict]:
-    """K4 at head dims 80, 96 and 256, f32 (route fma) and bf16 (route
-    sm90): each call held against the plain version and timed alone
-    beside its bound and ``F.scaled_dot_product_attention``."""
+    """K4 at head dims 80, 96 and 256, f32 and bf16, each on the route
+    :func:`K4.route` gives it (f32 80 and 96 ``sm90_tf32``, 256 ``fma``;
+    bf16 ``sm90``): each call held against the plain version and timed
+    alone beside its route's bound and
+    ``F.scaled_dot_product_attention``."""
     gen = torch.Generator().manual_seed(SEED + 7)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     rows = []
@@ -1689,8 +1814,8 @@ def phase_attention_head_dims(card: str) -> list[dict]:
             pairs = b * h * unmasked_pairs(s, s, win, causal)
             flops = 4.0 * hd * pairs
             n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
-            t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
             width = (K4.sm90_head_dim(hd) if rt == "sm90"
+                     else K4.sm90_tf32_head_dim(hd) if rt == "sm90_tf32"
                      else K4.padded_head_dim(hd))
             row = {"phase": "attention_head_dims", "case": name,
                    "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd},
@@ -1704,10 +1829,8 @@ def phase_attention_head_dims(card: str) -> list[dict]:
                        q, k, v, window=win, causal=causal), flush, reps=3),
                    "library_ms": _time_ms(_library_attention(
                        qh, kh, vh, window=win, causal=causal), flush),
-                   "bound_ms": max(t_ops, t_bytes) * 1e3,
-                   "bound_by": "operations" if t_ops >= t_bytes
-                   else "bytes", "flops": flops, "bytes": n_bytes,
-                   "card": card}
+                   **attention_bounds(flops, n_bytes, dtype, rt),
+                   "flops": flops, "bytes": n_bytes, "card": card}
             emit(row)
             rows.append(row)
     return rows
@@ -2122,6 +2245,108 @@ def phase_layers_bwd_resnet(card: str) -> list[dict]:
     return rows
 
 
+def _gate(out, ref, dtype) -> dict:
+    """K1's gate: f32 within ``TOL`` of max |plain|, bf16 within the bf16
+    card gate; required."""
+    if dtype == torch.float32:
+        err, rel = rel_err(out, ref)
+        return {"max_abs_err": err, "max_abs_err_over_max_ref": rel,
+                "tol": TOL, "ok": rel <= TOL}
+    gate = within(out, ref, dtype)
+    return dict(gate, ok=gate["worst_over_tol"] <= 1.0)
+
+
+def phase_layers_resnet(card: str) -> list[dict]:
+    """K1 on FMA at the inputs its main path gives it: ResNet-20/32's
+    four strided convs at batch 8 (the two stride-2 3x3 convs and the two
+    1x1/2 projections), forward (bias, and ReLU where the layer has one)
+    and dgrad in the geometry ``dgrad_lb`` runs (dy with one zero row and
+    column appended, lhs-dilated by the stride, against the flipped
+    weights), f32 and bf16, each on route ``fma`` (required), held to
+    ``TOL`` (f32) or the bf16 card gate, and timed beside its bound,
+    cuDNN in the same type (``F.conv2d``, ``conv2d_input``; TF32 off)
+    and the host's time to enqueue one call of each."""
+    batch = 8
+    gen = torch.Generator().manual_seed(SEED + 8)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    rows = []
+    for st in graph_stages(resnet_graph(), 32, 32):
+        node = st.node
+        if node.stride == 1:
+            continue
+        ci, co, k, s, pad = node.ci, node.co, node.hk, node.stride, node.pad
+        x32 = _randn(gen, batch, st.h, st.w, ci)
+        w32 = _randn(gen, k, k, ci, co, scale=(k * k * ci) ** -0.5)
+        b32 = _randn(gen, co, scale=0.1)
+        gy32 = _randn(gen, batch, st.ho, st.wo, co)
+        flops = 2.0 * batch * st.ho * st.wo * co * ci * k * k
+        for dtype in DTYPES:
+            x, w, b, gy = (t.to(dtype) for t in (x32, w32, b32, gy32))
+            cl = torch.channels_last
+            x_nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
+            gy_nchw = gy.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            gyp = F.pad(gy, (0, 0, 0, 1, 0, 1))
+            wf = flip_w(w)
+            calls = {
+                "forward": (
+                    dict(x=x, w=w, bias=b, stride=(s, s), padding=(pad, pad),
+                         relu=node.relu),
+                    lambda: F.conv2d(x_nchw, w_oihw, b, stride=s,
+                                     padding=pad),
+                    x.numel() + w.numel() + b.numel()
+                    + batch * st.ho * st.wo * co),
+                "dgrad": (
+                    dict(x=gyp, w=wf, stride=(1, 1),
+                         padding=(k - 1 - pad,) * 2, lhs_dilation=(s, s)),
+                    lambda: torch.nn.grad.conv2d_input(
+                        x_nchw.shape, w_oihw, gy_nchw, stride=s,
+                        padding=pad),
+                    gy.numel() + w.numel() + x.numel())}
+            for op, (args, library, words) in calls.items():
+                a = dict(args)
+                xa, wa, ba = a.pop("x"), a.pop("w"), a.pop("bias", None)
+                rt, tile = conv_route(xa, wa, ba, **{
+                    key: v for key, v in a.items() if key != "relu"})
+                require(rt == "fma", f"resnet {op} {node.name} {dtype}: "
+                                     f"on {rt}, want fma")
+
+                def kernel():
+                    return K.conv_lb(xa, wa, ba, **a)
+
+                before = K.conv_lb.launches_by_route["fma"]
+                out = kernel()
+                require(K.conv_lb.launches_by_route["fma"] == before + 1,
+                        f"resnet {op} {node.name} {dtype}: not one FMA "
+                        f"launch")
+                ref = conv2d_ref(xa, wa, ba, **a)
+                gate = _gate(out.float(), ref.float(), dtype)
+                require(gate.pop("ok"), f"resnet {op} {node.name} {dtype}: "
+                                        f"kernel vs plain {gate}")
+                n_bytes = float(x.element_size() * words)
+                t_ops = ops_s(flops, dtype, rt)
+                t_bytes = n_bytes / HBM_BYTES_PER_S
+                row = {"phase": "layers_resnet", "model": "resnet20",
+                       "layer": node.name, "op": op, "dtype": str(dtype),
+                       "batch": batch, "in": [st.h, st.w, ci], "co": co,
+                       "k": k, "stride": s, "route": rt, "tile": tile,
+                       "ms": _time_ms(kernel, flush),
+                       "plain_ms": _time_ms(
+                           lambda: conv2d_ref(xa, wa, ba, **a), flush),
+                       "library_ms": _time_ms(library, flush),
+                       "bound_ms": max(t_ops, t_bytes) * 1e3,
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes", "flops": flops, "bytes": n_bytes,
+                       "peak_flops": PEAK[dtype], **gate,
+                       "host_us": _host_us(kernel),
+                       "library_host_us": _host_us(library), "card": card}
+                emit(row)
+                rows.append(row)
+    require(len(rows) == 16, f"layers_resnet: {len(rows)} rows, want 4 "
+                             f"layers x forward and dgrad x 2 types")
+    return rows
+
+
 def _sums(rows: list[dict]) -> dict:
     ops_ms = sum(r["bound_ms"] for r in rows
                  if r["bound_by"] == "operations")
@@ -2188,6 +2413,9 @@ def main() -> int:
     rows = phase_layers(card)
     dgrad_rows, wgrad_rows = phase_layers_bwd(card)
     resnet_wgrad = phase_layers_bwd_resnet(card)
+    resnet_k1 = phase_layers_resnet(card)
+    k1_fwd = [r for r in resnet_k1 if r["op"] == "forward"]
+    k1_dgrad = [r for r in resnet_k1 if r["op"] == "dgrad"]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dgrad = {str(d): {k: v for k, v in _sums(_of(dgrad_rows, d)).items()
                       if k in keys} for d in DTYPES}
@@ -2265,11 +2493,22 @@ def main() -> int:
           "k3_f32_fma_bound_ms": sum(r["fma_bound_ms"] for r in tf32_rows),
           "card": card})
     attn_sums = {rt: _sums([r for r in attn_rows if r["route"] == rt])
-                 for rt in K4.ROUTES}
+                 for rt in ("sm90", "sm90_tf32")}
+    tf32_attn = [r for r in attn_rows if r["route"] == "sm90_tf32"]
+    emit({"phase": "k4_targets",
+          "f32_ms": attn_sums["sm90_tf32"]["ms"],
+          "f32_bound_ms": attn_sums["sm90_tf32"]["bound_ms"],
+          "f32_fma_bound_ms": sum(r["fma_bound_ms"] for r in tf32_attn),
+          "f32_fma_ms": sum(r["fma_ms"] for r in tf32_attn),
+          "f32_library_ms": attn_sums["sm90_tf32"]["library_ms"],
+          "f32_over_bound": attn_sums["sm90_tf32"]["ms"]
+          / attn_sums["sm90_tf32"]["bound_ms"],
+          "predicted_ms": [7, 11], "card": card})
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
     kernels = [
-        dict(_sums(_fma_of(f32_rows)), name="conv_lb", route="cuda",
-             kernel_route="fma", source=SOURCE, replaces=REPLACES,
+        dict(_sums(_of(k1_fwd, torch.float32)), name="conv_lb",
+             route="cuda", kernel_route="fma", source=SOURCE,
+             replaces=REPLACES,
              launches=resnet_f32["fma"],
              launches_train_resnet=train_resnet["conv_lb_by_route"]["fma"],
              launches_serve_by_route={"vgg_f32": vgg_f32,
@@ -2278,7 +2517,13 @@ def main() -> int:
              launches_train_vgg_by_route=train_vgg["conv_lb_by_route"],
              launches_train_resnet_by_route=train_resnet["conv_lb_by_route"],
              launches_bwd_bf16=bwd_bf16["conv_lb"],
-             dgrad=_sums(_fma_of(f32_dgrad)),
+             dgrad=_sums(_of(k1_dgrad, torch.float32)),
+             by_dtype=_by_dtype(k1_fwd), dgrad_by_dtype=_by_dtype(k1_dgrad),
+             host_us=sum(r["host_us"] for r in _of(k1_fwd, torch.float32)),
+             library_host_us=sum(r["library_host_us"]
+                                 for r in _of(k1_fwd, torch.float32)),
+             vgg_inputs=_sums(_fma_of(f32_rows)),
+             vgg_inputs_dgrad=_sums(_fma_of(f32_dgrad)),
              route_by_dtype=_by_dtype(rows), route_dgrad_by_dtype=dgrad,
              bf16_by_route={
                  rt: {"layers": [r["layer"] for r in bf16_rows
@@ -2290,15 +2535,20 @@ def main() -> int:
                                       if r["route"] == rt]) if any(
                           r["route"] == rt for r in bf16_dgrad) else None}
                  for rt in K.ROUTES},
-             times_are=f"the FMA kernel through its own launcher on the f32 "
-                       f"inputs of the {vgg_times} (which take the "
-                       f"tensor-core routes; bound_ms: one multiply-add at "
-                       f"the FMA rate; dgrad: the 12 whose dgrad a step "
-                       f"runs); route_by_dtype: every layer on the route it "
-                       f"takes, f32 and bf16; bf16_by_route: split by "
-                       f"route; launches: ResNet-20/32's four strided convs "
-                       f"in the f32 serving run (launches_train_resnet: "
-                       f"with their recomputes and lhs-dilated dgrads)",
+             times_are="f32 sums over ResNet-20/32's four strided convs at "
+                       "batch 8, the FMA route's main-path inputs "
+                       "(layers_resnet: forward with bias and ReLU; dgrad: "
+                       "the lhs-dilated conv dgrad_lb runs; by_dtype, "
+                       "dgrad_by_dtype: f32 and bf16; bound_ms: f32 at the "
+                       "FMA rate); vgg_inputs: the FMA kernel through its "
+                       f"own launcher on the f32 inputs of the {vgg_times} "
+                       "(which take the tensor-core routes; dgrad: the 12 "
+                       "a step runs); route_by_dtype: every VGG layer on "
+                       "the route it takes, f32 and bf16; bf16_by_route: "
+                       "split by route; launches: ResNet-20/32's four "
+                       "strided convs in the f32 serving run "
+                       "(launches_train_resnet: with their recomputes and "
+                       "lhs-dilated dgrads)",
              card=card),
         dict(k1_f32, name="conv_lb_sm90_tf32", route="cuda",
              kernel_route="sm90_tf32", source=CONV_TF32_SOURCE,
@@ -2480,20 +2730,55 @@ def main() -> int:
                        "FFN down at 4096 tokens, bf16, w N-major "
                        "(launches: also wq with w K-major)",
              card=card),
-        dict(attn_sums["fma"], name="attention", route="cuda",
+        dict(_sums(_fma_of(tf32_attn)), name="attention", route="cuda",
              kernel_route="fma", source=ATTN_SOURCE,
              replaces=ATTN_REPLACES,
              launches=attn_launches["by_route"]["fma"],
-             launches_check_attention=check_attn_by_route["fma"],
+             on_main_path=False,
+             launches_off_path=check_attn_by_route["fma"],
+             launches_check_attention_by_route=check_attn_by_route,
+             launches_attention_by_route=attn_launches["by_route"],
+             times_are="the FMA kernel through via='fma' on "
+                       "phi3-medium-14b's (S 4096, causal) and "
+                       "mixtral-8x7b's (S 8192, causal, window 4096) f32 "
+                       "attention (which take sm90_tf32; bound_ms: one "
+                       "multiply-add at the FMA rate); launches: the "
+                       "attention path, which no longer runs this kernel; "
+                       "launches_check_attention_by_route: the reference's "
+                       "sweep and the head dims beside it, each case on "
+                       "every route that takes it",
+             card=card),
+        dict(attn_sums["sm90_tf32"], name="attention_sm90_tf32",
+             route="cuda", kernel_route="sm90_tf32", source=ATTN_TF32_SOURCE,
+             replaces=ATTN_REPLACES, dtype="f32",
+             launches=attn_launches["by_route"]["sm90_tf32"],
+             launches_check_attention=check_attn_by_route["sm90_tf32"],
+             fma_bound_ms=sum(r["fma_bound_ms"] for r in tf32_attn),
+             fma_ms=sum(r["fma_ms"] for r in tf32_attn),
+             host_us=sum(r["host_us"] for r in tf32_attn),
+             control_1xtf32_over_route={
+                 r["config"]: r["control_1xtf32"]["over_route"]
+                 for r in tf32_attn},
+             control_1xtf32_fails_gate={
+                 r["config"]: r["control_1xtf32"]["fails_gate"]
+                 for r in tf32_attn},
+             control_v_key_off_worst_over_tol={
+                 r["config"]: r["control_v_key_off"]["worst_over_tol"]
+                 for r in tf32_attn},
              times_are="sums over phi3-medium-14b's (S 4096, causal) and "
                        "mixtral-8x7b's (S 8192, causal, window 4096) "
-                       "attention, f32",
+                       "attention, f32 (bound_ms: three TF32 products a "
+                       "multiply-add at 495 TFLOP/s; fma_bound_ms: one at "
+                       "the FMA rate, 67; fma_ms: attention_block.cu on the "
+                       "same inputs)",
              card=card),
         dict(attn_sums["sm90"], name="attention_sm90", route="cuda",
              kernel_route="sm90", source=ATTN_SM90_SOURCE,
              replaces=ATTN_REPLACES,
              launches=attn_launches["by_route"]["sm90"],
              launches_check_attention=check_attn_by_route["sm90"],
+             host_us=sum(r["host_us"] for r in attn_rows
+                         if r["route"] == "sm90"),
              times_are="sums over phi3-medium-14b's (S 4096, causal) and "
                        "mixtral-8x7b's (S 8192, causal, window 4096) "
                        "attention, bf16",

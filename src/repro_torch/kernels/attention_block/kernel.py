@@ -1,12 +1,18 @@
-"""The attention kernels' wrapper: build, bind and launch the two
+"""The attention kernels' wrapper: build, bind and launch the three
 hand-written CUDA kernels of K4, which together replace the TPU kernel
 ``_attn_kernel`` / ``attention_call`` of
 ``repro/kernels/attention_block/kernel.py``:
 
   * ``csrc/attention_block_sm90.cu`` (route ``"sm90"``): bf16 on the
     tensor cores, TMA into an mbarrier ring feeding ``wgmma``;
-  * ``csrc/attention_block.cu`` (route ``"fma"``): f32, the bf16 head
-    dims TMA cannot describe and every head dim above 256, on FMA.
+  * ``csrc/attention_block_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32
+    on the tensor cores in 3xTF32, the same ring in 32-key stages,
+    producer warps splitting each K tile into hi and lo and rewriting
+    each V tile into K-major hi and lo tiles of V^T
+    (:func:`sm90_tf32_plan` lays out its shared memory);
+  * ``csrc/attention_block.cu`` (route ``"fma"``): the f32 and bf16
+    head dims TMA cannot describe and every head dim above the tensor
+    -core routes' widths, on FMA.
 
 The libraries are built like the conv kernel's
 (:mod:`repro_torch.kernels.nvcc`): ``nvcc`` at first use, never at
@@ -19,10 +25,11 @@ launch, never by trying one.  Each launch adds one to
 ``attention.launches`` and to its route's entry of
 ``attention.launches_by_route``.
 
-Both kernels visit only the key tiles that hold an unmasked pair for a
+Every kernel visits only the key tiles that hold an unmasked pair for a
 query tile (:func:`key_tile_range`, which the CUDA code mirrors).  Each
 runs a head dim at the next width it is instantiated for
-(:func:`padded_head_dim`, :func:`sm90_head_dim`), with zeros in the
+(:func:`padded_head_dim`, :func:`sm90_head_dim`,
+:func:`sm90_tf32_head_dim`), with zeros in the
 padded columns and the softmax scale of the real head dim; the FMA
 kernel runs a head dim above 256 as ``ceil(hd / 256)`` column chunks
 (:func:`head_dim_chunks`).
@@ -30,6 +37,7 @@ kernel runs a head dim above 256 as ``ceil(hd / 256)`` column chunks
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 
 import torch
@@ -43,13 +51,16 @@ from repro_torch.kernels.nvcc import build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "attention_block.cu"
 SM90_SOURCE = (Path(__file__).resolve().parent / "csrc"
                / "attention_block_sm90.cu")
+TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
+               / "attention_block_sm90_tf32.cu")
 
 #: the widths the FMA kernel is instantiated for (must match
 #: csrc/attention_block.cu); a head dim runs at the next one, and one
 #: above the last as column chunks of it
 HEAD_DIMS = (8, 16, 32, 64, 80, 96, 128, 256)
-#: the tiles both kernels skip key tiles on (must match both sources):
-#: 64 query rows (an FMA CTA, an sm90 consumer warpgroup) x 64 keys
+#: the tiles every kernel skips key tiles on (must match every source):
+#: 64 query rows (an FMA CTA, a tensor-core kernel's consumer warpgroup)
+#: x 64 keys (two ring stages of the 3xTF32 kernel)
 BQ = BKV = 64
 #: the widths the sm90 kernel is instantiated for (must match
 #: csrc/attention_block_sm90.cu)
@@ -57,7 +68,19 @@ SM90_HEAD_DIMS = (64, 80, 96, 128, 256)
 #: input types the kernels take, by the code the FMA kernel's C
 #: interface uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-ROUTES = ("sm90", "fma")
+#: the 3xTF32 kernel's shape (must match csrc/attention_block_sm90_tf32.cu):
+#: the widths it is instantiated for, 128 query rows a CTA (two consumer
+#: warpgroups of 64), 32 keys a ring stage (a 64-key skip tile in two),
+#: two stages in each of its two rings, three producer warps splitting
+#: K and rewriting V as V^T
+TF32_HEAD_DIMS = (64, 96, 128)
+TF32_BQ = 128
+TF32_BK = 32
+TF32_STAGES = 2
+TF32_TRANSPOSERS = 3
+#: 3xTF32: three tensor-core products per multiply-add
+TF32_PRODUCTS = 3
+ROUTES = ("sm90", "sm90_tf32", "fma")
 #: the grid's limits: blocks along x, and along y (the column chunks)
 GRID_X, GRID_Y = 2 ** 31 - 1, 65535
 
@@ -97,14 +120,81 @@ def sm90_cta_rows(width: int) -> int:
     return BQ if width > 128 else 2 * BQ
 
 
+@dataclasses.dataclass(frozen=True)
+class Tf32Plan:
+    """The 3xTF32 kernel's shared memory at one width, in bytes from the
+    1024-byte line the kernel aligns its base to (the swizzle's period):
+    the Q tile (128 rows of 32-column boxes), the raw ring (a K tile,
+    which the producer warps overwrite with its hi words, and a V tile,
+    per stage, as TMA lays them out), the split ring (K lo, V^T hi and
+    V^T lo per stage), then a full and an empty mbarrier per stage of
+    each ring and Q's.  ``smem_bytes`` adds the alignment slack.
+    ``v_key_off`` is the key the transposers read V at, relative to the
+    one they write (0; anything else is the smoke's control, never a
+    route)."""
+    width: int
+    q_bytes: int
+    tile_bytes: int      # one 32-key K, V, K lo, V^T hi or V^T lo tile
+    raw: int
+    split: int
+    bars: int
+    smem_bytes: int
+    v_key_off: int = 0
+
+
+def sm90_tf32_plan(width: int) -> Tf32Plan | None:
+    """The 3xTF32 kernel's layout at ``width``, or ``None`` where it is
+    not instantiated or does not fit the card's shared memory."""
+    if width not in TF32_HEAD_DIMS:
+        return None
+    q_bytes = TF32_BQ * width * 4
+    tile = TF32_BK * width * 4
+    raw = q_bytes
+    split = raw + TF32_STAGES * 2 * tile
+    bars = split + TF32_STAGES * 3 * tile
+    smem = 1024 + bars + 8 * (1 + 4 * TF32_STAGES)
+    if smem > SMEM_PER_BLOCK:
+        return None
+    return Tf32Plan(width=width, q_bytes=q_bytes, tile_bytes=tile, raw=raw,
+                    split=split, bars=bars, smem_bytes=smem)
+
+
+def sm90_tf32_head_dim(hd: int) -> int | None:
+    """The width the 3xTF32 kernel runs f32 head dim ``hd`` at (the next
+    of :data:`TF32_HEAD_DIMS` whose plan fits), or ``None`` where TMA
+    cannot describe its rows (``hd * 4`` not a multiple of 16 bytes) or
+    no width takes it."""
+    if hd < 1 or hd % 4:
+        return None
+    for width in TF32_HEAD_DIMS:
+        if width >= hd and sm90_tf32_plan(width) is not None:
+            return width
+    return None
+
+
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"sm90"`` iff q, k and v are bf16 and the head dim has an sm90
-    width (:func:`sm90_head_dim`); else ``"fma"``.  Read from types
-    and shapes only."""
-    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and sm90_head_dim(q.shape[-1]) is not None):
+    width (:func:`sm90_head_dim`); ``"sm90_tf32"`` iff they are f32 and
+    the head dim has a 3xTF32 width whose plan fits
+    (:func:`sm90_tf32_head_dim`); else ``"fma"``.  Read from types and
+    shapes only."""
+    hd = q.shape[-1]
+    if q.dtype == k.dtype == v.dtype == torch.bfloat16 \
+            and sm90_head_dim(hd) is not None:
         return "sm90"
+    if q.dtype == k.dtype == v.dtype == torch.float32 \
+            and sm90_tf32_head_dim(hd) is not None:
+        return "sm90_tf32"
     return "fma"
+
+
+def cta_rows(rt: str, hd: int) -> int:
+    """Query rows of one CTA of route ``rt`` at head dim ``hd``."""
+    if rt == "sm90":
+        return sm90_cta_rows(sm90_head_dim(hd) or 0)
+    if rt == "sm90_tf32":
+        return TF32_BQ
+    return BQ
 
 
 def key_tile_range(q0: int, q1: int, skv: int, window: int, causal: bool,
@@ -125,7 +215,7 @@ def key_tile_range(q0: int, q1: int, skv: int, window: int, causal: bool,
 
 
 def visited_pairs(sq: int, skv: int, window: int, causal: bool) -> int:
-    """(query, key) pairs both kernels visit per head: each 64-row query
+    """(query, key) pairs every kernel visits per head: each 64-row query
     tile's real rows against the real keys of the key tiles
     :func:`key_tile_range` gives it."""
     pairs = 0
@@ -171,9 +261,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     -> (B*H, Sq, hd) in ``q.dtype``.
 
     A CUDA ``q`` launches the kernel :func:`route` names, or the one
-    ``via`` names (``"fma"`` takes every input; ``"sm90"`` raises on an
-    input it does not take); a CPU ``q`` runs the plain version.
-    Any other device raises."""
+    ``via`` names (``"fma"`` takes every input; ``"sm90"`` and
+    ``"sm90_tf32"`` raise on an input they do not take); a CPU ``q``
+    runs the plain version.  Any other device raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, groups=groups, window=window,
                                causal=causal)
@@ -210,13 +300,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rt not in ROUTES:
         raise ValueError(f"unknown attention route {rt!r}; expected one "
                          f"of {ROUTES}")
-    bq = sm90_cta_rows(sm90_head_dim(hd) or 0) if rt == "sm90" else BQ
+    bq = cta_rows(rt, hd)
     if ceil_div(sq, bq) * bh > GRID_X:
         raise ValueError(f"{bh} heads x {ceil_div(sq, bq)} query tiles "
                          f"exceed the grid's {GRID_X} blocks")
     if head_dim_chunks(hd) > GRID_Y:
         raise ValueError(f"head dim {hd} needs {head_dim_chunks(hd)} "
                          f"column chunks, more than the grid's {GRID_Y}")
+    if rt == "sm90_tf32":
+        width = sm90_tf32_head_dim(hd)
+        if q.dtype != torch.float32 or width is None:
+            raise ValueError(f"route sm90_tf32 takes f32 at a head dim "
+                             f"that is a multiple of 4 up to "
+                             f"{TF32_HEAD_DIMS[-1]}, not {q.dtype} at {hd}")
+        return _sm90_tf32(q, k, v, sm90_tf32_plan(width), groups=groups,
+                          window=window, causal=causal)
     out = torch.empty_like(q)
     if rt == "sm90":
         width = sm90_head_dim(hd)
@@ -239,6 +337,29 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), *args, stream)
     _launched(lib, err, name, rt)
+    return out
+
+
+def _sm90_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               plan: Tf32Plan, *, groups: int, window: int, causal: bool,
+               lo_terms: bool = True) -> torch.Tensor:
+    """One launch of ``csrc/attention_block_sm90_tf32.cu`` on ``plan``,
+    the inputs checked by :func:`attention`.  ``lo_terms=False`` drops
+    every lo word (1xTF32), and a plan with ``v_key_off`` 1 has the
+    transposers read V one key off: controls that the card's gate sees
+    each, never a route."""
+    bh, sq, hd = q.shape
+    lib = build(TF32_SOURCE)
+    forward = lib.bind("attention_block_sm90_tf32_forward", 4, 14)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), bh, sq, k.shape[1], hd, plan.width,
+                      groups, window, int(causal), plan.raw, plan.split,
+                      plan.bars, plan.smem_bytes, plan.v_key_off,
+                      int(lo_terms), stream)
+    _launched(lib, err, "attention_block_sm90_tf32", "sm90_tf32")
     return out
 
 

@@ -273,13 +273,18 @@ def test_visited_pairs_counts_the_visited_tiles():
                                 512])
 def test_route_by_type_and_head_dim(hd):
     """bf16 whose rows TMA describes (hd a multiple of 8, up to 256)
-    takes sm90 at the next of 64, 80, 96, 128, 256; everything else
-    (f32, other bf16 head dims, above 256) takes fma."""
+    takes sm90 at the next of 64, 80, 96, 128, 256; f32 whose rows TMA
+    describes (hd a multiple of 4) up to 128 takes sm90_tf32 at the next
+    of 64, 96, 128; everything else (other head dims, above those)
+    takes fma."""
     sm90 = hd % 8 == 0 and hd <= 256
+    tf32 = hd % 4 == 0 and hd <= 128
     for dtype in (torch.float32, torch.bfloat16):
         q = torch.zeros((2, 4, hd), dtype=dtype)
         kv = torch.zeros((1, 4, hd), dtype=dtype)
-        want = "sm90" if sm90 and dtype == torch.bfloat16 else "fma"
+        want = ("sm90" if sm90 and dtype == torch.bfloat16
+                else "sm90_tf32" if tf32 and dtype == torch.float32
+                else "fma")
         assert K4.route(q, kv, kv) == want
     width = K4.sm90_head_dim(hd)
     assert width == (min(w for w in K4.SM90_HEAD_DIMS if w >= hd)

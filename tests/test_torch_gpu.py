@@ -452,9 +452,10 @@ ROUTED = [
 @pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", ROUTED)
 def test_attention_every_route_matches_plain(cuda, b, sq, skv, h, kv, hd,
                                              win, causal, dtype):
-    """Each case on every route that takes it (f32 and head dims above
-    256 only fma; bf16 at a multiple of 8 up to 256 also sm90, which
-    ``route`` picks), one launch of that route each."""
+    """Each case on every route that takes it (head dims above 256 only
+    fma; bf16 at a multiple of 8 up to 256 also sm90, f32 at a multiple
+    of 4 up to 128 also sm90_tf32, which ``route`` picks), one launch of
+    that route each."""
     g = torch.Generator().manual_seed(10)
     q, k, v = (torch.randn(s, generator=g).to(cuda, dtype)
                for s in ((b * h, sq, hd), (b * kv, skv, hd),
@@ -464,6 +465,8 @@ def test_attention_every_route_matches_plain(cuda, b, sq, skv, h, kv, hd,
     routes = ["fma"]
     if dtype == torch.bfloat16 and K4.sm90_head_dim(hd) is not None:
         routes.append("sm90")
+    if dtype == torch.float32 and K4.sm90_tf32_head_dim(hd) is not None:
+        routes.append("sm90_tf32")
     assert K4.route(q, k, v) == routes[-1]
     for rt in routes:
         before = dict(K4.attention.launches_by_route)
@@ -1076,3 +1079,80 @@ def test_conv_tf32_launch_error_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="conv_lb_sm90_tf32"):
         K.conv_lb(x, w, padding=(1, 1))
     assert (K.conv_lb.launches, K.conv_lb.launches_by_route) == before
+
+
+# b, sq, skv, h, kv, hd, window, causal: K4's 3xTF32 route at the
+# reference's sweep, rows with no unmasked key, GQA with a window, the
+# widths 64, 96 (hd 80 padded) and 128, a ragged last tile, hd 20 (padded
+# to 64), and a long non-causal case (64 sub-tiles a row)
+TF32_ATTENTION = [
+    (2, 64, 64, 4, 2, 16, 0, True),
+    (1, 64, 20, 2, 1, 16, 8, True),
+    (1, 300, 300, 4, 1, 64, 100, True),
+    (1, 150, 150, 4, 2, 80, 0, True),
+    (1, 130, 130, 4, 1, 96, 32, True),
+    (2, 257, 257, 8, 2, 128, 0, True),
+    (1, 90, 90, 2, 1, 20, 16, True),
+    (1, 2048, 2048, 4, 2, 128, 0, False),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", TF32_ATTENTION)
+def test_tf32_attention_matches_plain(cuda, b, sq, skv, h, kv, hd, win,
+                                      causal):
+    """K4's f32 route ``sm90_tf32`` within the f32 card gate of the plain
+    version, one launch, the same bits on every launch (no atomics); the
+    same plan without its lo terms (1xTF32) errs at least 4x more, and
+    with the transposers reading V one key off fails the gate."""
+    import dataclasses
+    g = torch.Generator().manual_seed(26)
+    q, k, v = (torch.randn(s, generator=g).to(cuda)
+               for s in ((b * h, sq, hd), (b * kv, skv, hd),
+                         (b * kv, skv, hd)))
+    kw = dict(groups=h // kv, window=win, causal=causal)
+    assert K4.route(q, k, v) == "sm90_tf32"
+    before = dict(K4.attention.launches_by_route)
+    out = K4.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K4.attention.launches_by_route == dict(
+        before, sm90_tf32=before["sm90_tf32"] + 1)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    want = attention_plain(q, k, v, **kw)
+    _within(out, want, torch.float32)
+    plan = K4.sm90_tf32_plan(K4.sm90_tf32_head_dim(hd))
+    for _ in range(3):
+        assert torch.equal(K4._sm90_tf32(q, k, v, plan, **kw), out)
+    one = K4._sm90_tf32(q, k, v, plan, lo_terms=False, **kw)
+    assert (one - want).abs().max() >= 4 * (out - want).abs().max()
+    bad = K4._sm90_tf32(q, k, v, dataclasses.replace(plan, v_key_off=1),
+                        **kw)
+    with pytest.raises(AssertionError):
+        _within(bad, want, torch.float32)
+
+
+def test_tf32_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.randn((2, 16, 64), device=cuda)
+    with pytest.raises(ValueError, match="route sm90_tf32 takes f32"):
+        K4.attention(q.bfloat16(), q[:1].bfloat16(), q[:1].bfloat16(),
+                     groups=2, via="sm90_tf32")
+    q = torch.randn((2, 16, 130), device=cuda)
+    assert K4.route(q, q[:1], q[:1]) == "fma"
+    with pytest.raises(ValueError, match="route sm90_tf32 takes f32"):
+        K4.attention(q, q[:1], q[:1], groups=2, via="sm90_tf32")
+
+
+def test_tf32_attention_launch_error_raises(cuda):
+    """A plan whose offsets do not fit the kernel's own sizes (the split
+    ring laid over the raw one), which the wrapper would never make, is
+    refused before launch: it raises with its reason and counts no
+    launch."""
+    import dataclasses
+    q = torch.randn((2, 64, 128), device=cuda)
+    plan = K4.sm90_tf32_plan(128)
+    bad = dataclasses.replace(plan, split=plan.raw)
+    before = K4.attention.launches
+    with pytest.raises(RuntimeError, match="attention_block_sm90_tf32"):
+        K4._sm90_tf32(q, q[:1], q[:1], bad, groups=2, window=0,
+                      causal=True)
+    assert K4.attention.launches == before
+
