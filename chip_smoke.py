@@ -20,7 +20,11 @@
     of K1's im2col plane (one tap one column off) to fail the bf16 gate,
     of K2's im2col plane (one tap one column off) to fail ``WGRAD_TOL``
     by over 10x, and K2's 3xTF32 kernel without its lo terms (1xTF32)
-    to err at least 4x more than the route;
+    to err at least 4x more than the route; at a stride (ResNet-20/32's
+    s2b0_a, f32) K1's forward, its dgrad by output phases and K2 on
+    ``sm90_tf32``, with a halo read at stride 1 (K1, K2) and the
+    fullest phase's taps one column off (the dgrad) shown to fail the
+    gate and 1xTF32 to err at least 4x the route;
     one bf16 backward through K1 and K2 (both on sm90) against the
     plain autograd; the two
     backwards the kernels do not take (lhs-dilated, padding past full)
@@ -41,12 +45,15 @@
     ``repro_torch.serve.ImageServer``, every conv on K1, its launches by
     route exact (VGG: 12 convs a dispatch on the sm90 kernel in bf16 and
     the 3xTF32 kernel in f32, conv1_1 on ``sm90_im2col``: the plane,
-    then that kernel as a 1x1 conv; ResNet: its 16 stride-1 convs on the
-    3xTF32 kernel, the stem on the plane, 4 strided convs on FMA);
+    then that kernel as a 1x1 conv; ResNet: its 16 stride-1 and 4
+    strided convs on the 3xTF32 kernel, the stem on the plane, none on
+    FMA);
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
     on K1 (recompute, dgrad) and K2 (wgrad), K1's and K2's launches per
     route exact (f32 VGG: conv1_1 on ``sm90_im2col``, the 12 after it on
-    ``sm90_tf32``, forward, recompute and dgrad);
+    ``sm90_tf32``, forward, recompute and dgrad; f32 ResNet: 60
+    ``sm90_tf32`` and 2 ``sm90_im2col`` a step, the strided dgrads one
+    launch each, none on FMA);
   * ``matmul``, ``attention``: the two entry points at full width
     (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
     kernel, f32 on the 3xTF32 kernel, and wq also with a K-major ``w``
@@ -71,13 +78,18 @@
     (``bound_ms``: f32 as 3xTF32, three products at the TF32 rate) and,
     at conv1_1, the im2col staging kernel's own time (``stage_ms``; K1
     also ``plane_bound_ms``, the bound with the plane's bytes);
-  * ``layers_bwd_resnet``: K2 on FMA at its own main-path inputs,
-    ResNet-20/32's four strided wgrads at batch 8, f32 and bf16, timed
-    beside cuDNN's ``conv2d_weight`` and the bound;
-  * ``layers_resnet``: K1 on FMA at its own main-path inputs, the same
-    four strided convs, forward and dgrad (lhs-dilated, as
-    ``dgrad_lb`` runs it), f32 and bf16, timed beside cuDNN's
-    ``conv2d`` and ``conv2d_input``, the bound and the host's enqueue.
+  * ``layers_bwd_resnet``: K2 at ResNet-20/32's four strided wgrads at
+    batch 8, f32 on ``sm90_tf32`` and bf16 on FMA (required), timed
+    (``ms``, ``device_ms``, ``host_us``) beside cuDNN's
+    ``conv2d_weight`` and the bound; f32 also the FMA kernel's time
+    and error on the same inputs;
+  * ``layers_resnet``: K1 at the same four strided convs, forward and
+    dgrad as ``dgrad_lb`` runs it (f32: ``sm90_tf32``, the dgrad one
+    launch by output phases; bf16: FMA, the dgrad lhs-dilated), timed
+    the same three ways beside cuDNN's ``conv2d`` and
+    ``conv2d_input`` and the bound; f32 also the FMA kernel's time and
+    error on the same inputs; ``k1_k2_strided_targets`` sums the f32
+    rows.
 
 Times are CUDA events around one call, the L2 cache flushed before
 it; a call shorter than the host's time to enqueue it is charged that
@@ -134,6 +146,7 @@ from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
 from repro_torch.kernels.nvcc import build_many  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
+from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph)
@@ -303,15 +316,17 @@ def wgrad_route(x, dy, geom) -> tuple[str, list]:
 
 
 def want_wgrad_route(dtype, ci: int, co: int, k: int, s: int) -> str:
-    """The route a wgrad must take on aligned operands: stride 1 and Co
-    a multiple of the 16-byte pitch (8 bf16, 4 f32 channels) on the
-    tensor cores, Ci a multiple of it directly, else a plane of at most
-    64 taps; all else on FMA."""
+    """The route a wgrad must take on aligned operands: Co a multiple of
+    the 16-byte pitch (8 bf16, 4 f32 channels) on the tensor cores, Ci a
+    multiple of it directly (bf16 at stride 1, f32 at any stride), else
+    at stride 1 a plane of at most 64 taps; all else on FMA."""
     pitch = 8 if dtype == torch.bfloat16 else 4
-    if s != 1 or co % pitch:
+    if co % pitch or (s != 1 and dtype == torch.bfloat16):
         return "fma"
     if ci % pitch == 0:
         return "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
+    if s != 1:
+        return "fma"
     return "sm90_im2col" if k * k * ci <= I.IM2COL_MAX else "fma"
 
 
@@ -505,12 +520,92 @@ def check_im2col_conv_control(gen) -> None:
             f"control im2col conv: the right launch {gate}")
 
 
+def check_strided_controls(gen) -> dict:
+    """K1's and K2's 3xTF32 kernels at a stride in f32, at ResNet-20/32's
+    s2b0_a (3x3/2, 16 -> 32 channels on 32 x 32, batch 8): each route
+    passes its gate (``TOL``, the wgrad ``WGRAD_TOL``) and gives the same
+    bits on a second launch; three faults of their own are shown to
+    matter: a plan whose halo boxes are loaded at stride 1 and read as if
+    strided (K1's forward, K2) fails the gate; the fullest phase's taps
+    one gy column
+    off (K1's dgrad) fails it; 1xTF32 (the lo words dropped: K1's
+    forward and dgrad, K2) errs at least 4x the route.  Returns each
+    1xTF32 error over its route's."""
+    b, h, ci, co, k, s, pad = 8, 32, 16, 32, 3, 2, 1
+    ho = h // s
+    x = _randn(gen, b, h, h, ci)
+    w = _randn(gen, k, k, ci, co, scale=(k * k * ci) ** -0.5)
+    bias = _randn(gen, co)
+    gy = _randn(gen, b, ho, ho, co)
+    st, pd = (s, s), (pad, pad)
+    kw = dict(stride=st, padding=pd, relu=True)
+    rt, plan = K.plan_of(x, w, bias, stride=st, padding=pd)
+    args = (x, w, bias, None, ho, ho, pd, True, 1)
+    dplan = K.sm90_tf32_dgrad_plan(b, h, h, ci, co, k, k, st, pd)
+
+    def phased(p, lo_terms=True):
+        return K.Tf32Launch((b, h, h, ci), K.tf32_args(
+            gy.shape, w.shape, p, (h, h), (0, 0), False, 1,
+            lo_terms))(gy, w, None, None)
+
+    geom = W.WgradGeometry(hk=k, wk=k, stride=st, padding=pd)
+    wplan = W.plan_of(x, gy, geom)[1]
+    plain_d = _dgrad_plain(gy, w, x.shape, s, pad)
+    plain_w = wgrad_ref(x, gy, k, k, stride=s, padding=pad)
+    cases = {
+        "forward": (rt, lambda: K.conv_lb(x, w, bias, **kw),
+                    conv2d_ref(x, w, bias, **kw), TOL,
+                    ("the halo boxes loaded at stride 1",
+                     lambda: K._sm90_tf32(*args, K.halo_at_stride_one(plan))),
+                    lambda: K._sm90_tf32(*args, plan, lo_terms=False)),
+        "dgrad": (K.dgrad_route(gy, w, st, h, h, pd),
+                  lambda: K.conv_lb_dgrad(gy, w, stride=st, padding=pd,
+                                          h=h, wd=h), plain_d, TOL,
+                  ("the fullest phase's taps one gy column off",
+                   lambda: phased(K.dgrad_phase_shifted(dplan))),
+                  lambda: phased(dplan, False)),
+        "wgrad": (W.route(x, gy, geom), lambda: W.wgrad_lb(x, gy, geom),
+                  plain_w, WGRAD_TOL,
+                  ("the halo boxes loaded at stride 1",
+                   lambda: W._sm90_tf32(x, gy, geom,
+                                        K.halo_at_stride_one(wplan))),
+                  lambda: W._sm90_tf32(x, gy, geom, wplan, lo_terms=False))}
+    over_route = {}
+    for op, (route, right, plain, tol, (what, fault),
+             one_x) in cases.items():
+        require(route == "sm90_tf32", f"control strided {op}: on {route}")
+        out, again = right(), right()
+        wrong, one = fault(), one_x()
+        torch.cuda.synchronize()
+        _, rel = rel_err(out, plain)
+        _, wrel = rel_err(wrong, plain)
+        _, orel = rel_err(one, plain)
+        same = bool(torch.equal(out, again))
+        emit({"phase": "check", "geometry": f"strided_control_{op}_s2b0_a_b8",
+              "dtype": "torch.float32", "route": route,
+              "max_abs_err_over_max_ref": rel, "tol": tol,
+              "same_bits_second_launch": same,
+              "control": {"what": what, "max_abs_err_over_max_ref": wrel,
+                          "over_tol": wrel / tol},
+              "control_1xtf32": {"what": "1xTF32: the lo words dropped",
+                                 "max_abs_err_over_max_ref": orel,
+                                 "over_route": orel / max(rel, 1e-30),
+                                 "over_tol": orel / tol}})
+        require(rel <= tol and same, f"control strided {op}: the route "
+                                     f"{rel}, same bits {same}")
+        require(wrel > tol, f"control strided {op}: the faulty launch {wrel} "
+                            f"passes {tol}")
+        require(orel >= 4 * rel, f"control strided {op}: 1xTF32 errs {orel}, "
+                                 f"under 4x the route's {rel}")
+        over_route[op] = orel / max(rel, 1e-30)
+    return over_route
+
+
 #: K1's launches by route in one dispatch of each served model and type
 SERVE_ROUTES = {
     ("vgg", torch.float32): {"sm90_tf32": 12, "sm90_im2col": 1},
     ("vgg", torch.bfloat16): {"sm90": 12, "sm90_im2col": 1},
-    ("resnet", torch.float32): {"sm90_tf32": 16, "sm90_im2col": 1,
-                                "fma": 4}}
+    ("resnet", torch.float32): {"sm90_tf32": 20, "sm90_im2col": 1}}
 
 
 def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
@@ -556,8 +651,8 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
             f"dispatches of {n_convs} convs")
     # VGG: conv1_2 ... conv5_3 on the tensor-core kernel of the type,
     # conv1_1 (Ci = 3) through the im2col plane onto it (one staging
-    # launch each); ResNet (f32): its 16 stride-1 convs on the 3xTF32
-    # kernel, the stem on the plane, the 4 strided convs on FMA
+    # launch each); ResNet (f32): its 16 stride-1 and 4 strided convs on
+    # the 3xTF32 kernel, the stem on the plane, none on FMA
     want = dict.fromkeys(K.ROUTES, 0) | {
         rt: n * dispatches for rt, n in SERVE_ROUTES[model, dtype].items()}
     require(by_route == want, f"{phase}: launches by route {by_route}, "
@@ -1898,11 +1993,11 @@ class Decisions:
 
 #: K1's launches by route in one f32 SGD step (forward, the backward's
 #: recompute, and the dgrad of every conv but the first): VGG16/224's
-#: 12 stride-1 convs and conv1_1's plane; ResNet-20/32's 16 stride-1
-#: convs and its stem's plane, its 4 strided convs, their recomputes and
-#: lhs-dilated dgrads on FMA
+#: 12 stride-1 convs and conv1_1's plane; ResNet-20/32's 16 stride-1 and
+#: 4 strided convs (their dgrads one launch each, by output phases) and
+#: its stem's plane; none on FMA
 TRAIN_ROUTES = {"vgg": {"sm90_tf32": 36, "sm90_im2col": 2},
-                "resnet": {"sm90_tf32": 48, "sm90_im2col": 2, "fma": 12}}
+                "resnet": {"sm90_tf32": 60, "sm90_im2col": 2}}
 
 
 def phase_train(model: str) -> dict:
@@ -2090,7 +2185,9 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                            bound_by="operations" if t_route >= t_bytes
                            else "bytes", bytes=n_bytes,
                            max_abs_err=err, max_abs_err_over_max_ref=rel,
-                           **gate, route=route, tile=tile, **fma)
+                           **gate, route=route, tile=tile,
+                           host_us=_host_us(lambda: K.conv_lb(gy, wf, **kw)),
+                           **fma)
                 emit(row)
                 dgrad_rows.append(row)
             geom = W.WgradGeometry(hk=3, wk=3, stride=(1, 1),
@@ -2181,11 +2278,16 @@ def phase_stage(x: torch.Tensor, geom, flush: torch.Tensor) -> dict:
 
 
 def phase_layers_bwd_resnet(card: str) -> list[dict]:
-    """K2 on FMA at the inputs its main path gives it: ResNet-20/32's
-    four strided wgrads at batch 8 (the two stride-2 3x3 convs and the two
-    1x1/2 projections), f32 (the training step's type) and bf16, each on
-    route ``fma`` (required), held to ``WGRAD_TOL`` and timed beside its
-    bound and cuDNN's ``conv2d_weight`` in the same type (TF32 off)."""
+    """K2 at the inputs its main path gives it: ResNet-20/32's four
+    strided wgrads at batch 8 (the two stride-2 3x3 convs and the two
+    1x1/2 projections), f32 (the training step's type) on route
+    ``sm90_tf32`` and bf16 on ``fma`` (required), held to ``WGRAD_TOL``
+    and timed beside their bound and cuDNN's ``conv2d_weight`` in the
+    same type (TF32 off): ``ms`` (one call, L2 flushed: a call shorter
+    than its enqueue is charged the enqueue), ``device_ms`` (the
+    kernels' own time, back to back), ``host_us``; the f32 rows also the
+    FMA kernel's time, error (gated) and bound on the same inputs
+    through its own launcher."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED + 6)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
@@ -2204,7 +2306,9 @@ def phase_layers_bwd_resnet(card: str) -> list[dict]:
             x, gy = x32.to(dtype), gy32.to(dtype)
             dw, rt, plan = wgrad_launch(x, gy, geom,
                                         f"resnet wgrad {node.name} {dtype}")
-            require(rt == "fma", f"resnet wgrad {node.name}: on {rt}")
+            want = "fma" if dtype == torch.bfloat16 else "sm90_tf32"
+            require(rt == want, f"resnet wgrad {node.name} {dtype}: on {rt}, "
+                                f"want {want}")
             kw = dict(stride=node.stride, padding=node.pad)
             dw_ref = wgrad_ref(x, gy, k, k, **kw)
             err, rel = rel_err(dw, dw_ref)
@@ -2219,25 +2323,46 @@ def phase_layers_bwd_resnet(card: str) -> list[dict]:
                 return torch.nn.grad.conv2d_weight(x_nchw, w_shape, gy_nchw,
                                                    **kw)
 
+            def kernel():
+                return W.wgrad_lb(x, gy, geom)
+
             n_bytes = float(x.element_size() * (x.numel() + gy.numel())
                             + 4 * dw.numel())
-            t_ops, t_bytes = flops / PEAK[dtype], n_bytes / HBM_BYTES_PER_S
+            t_ops = ops_s(flops, dtype, rt)
+            t_bytes = n_bytes / HBM_BYTES_PER_S
             row = {"phase": "layers_bwd_resnet", "model": "resnet20",
                    "layer": node.name, "op": "wgrad", "dtype": str(dtype),
                    "batch": batch, "in": [st.h, st.w, ci], "co": co,
                    "k": k, "stride": node.stride, "route": rt,
-                   "plan": list(plan),
-                   "ms": _time_ms(lambda: W.wgrad_lb(x, gy, geom), flush),
+                   "plan": plan,
+                   "ms": _time_ms(kernel, flush),
+                   "device_ms": _device_ms(kernel),
                    "plain_ms": _time_ms(lambda: wgrad_ref(x, gy, k, k, **kw),
                                         flush),
                    "library_ms": _time_ms(library, flush),
+                   "library_device_ms": _device_ms(library),
                    "bound_ms": max(t_ops, t_bytes) * 1e3,
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                    "flops": flops, "bytes": n_bytes,
                    "peak_flops": PEAK[dtype], "max_abs_err": err,
                    "max_abs_err_over_max_ref": rel, "tol": WGRAD_TOL,
-                   "host_us": _host_us(lambda: W.wgrad_lb(x, gy, geom)),
+                   "host_us": _host_us(kernel),
                    "library_host_us": _host_us(library), "card": card}
+            if dtype == torch.float32:
+                fma_plan = W.wgrad_split(k * k * ci, co,
+                                         batch * st.ho * st.wo)
+
+                def fma():
+                    return W._fma(x, gy, geom, fma_plan)
+
+                fma_abs, fma_err = rel_err(fma(), dw_ref)
+                require(fma_err <= WGRAD_TOL, f"resnet wgrad {node.name}: "
+                        f"FMA kernel vs plain {fma_err}")
+                row.update(fma_ms=_time_ms(fma, flush),
+                           fma_device_ms=_device_ms(fma), fma_err=fma_err,
+                           fma_max_abs_err=fma_abs,
+                           fma_plan=list(fma_plan),
+                           **fma_bound(flops, t_bytes))
             emit(row)
             rows.append(row)
     require(len(rows) == 8, f"layers_bwd_resnet: {len(rows)} rows, want "
@@ -2257,15 +2382,22 @@ def _gate(out, ref, dtype) -> dict:
 
 
 def phase_layers_resnet(card: str) -> list[dict]:
-    """K1 on FMA at the inputs its main path gives it: ResNet-20/32's
-    four strided convs at batch 8 (the two stride-2 3x3 convs and the two
+    """K1 at the inputs its main path gives it: ResNet-20/32's four
+    strided convs at batch 8 (the two stride-2 3x3 convs and the two
     1x1/2 projections), forward (bias, and ReLU where the layer has one)
-    and dgrad in the geometry ``dgrad_lb`` runs (dy with one zero row and
-    column appended, lhs-dilated by the stride, against the flipped
-    weights), f32 and bf16, each on route ``fma`` (required), held to
-    ``TOL`` (f32) or the bf16 card gate, and timed beside its bound,
-    cuDNN in the same type (``F.conv2d``, ``conv2d_input``; TF32 off)
-    and the host's time to enqueue one call of each."""
+    and dgrad as ``dgrad_lb`` runs it (``conv_lb_dgrad``: f32 one launch
+    by output phases, route ``sm90_tf32``, required; bf16 dy with one
+    zero row and column appended, lhs-dilated by the stride against the
+    flipped weights on ``fma``, then cropped), f32 forward on
+    ``sm90_tf32`` and bf16 on ``fma`` (required), held to ``TOL`` (f32)
+    or the bf16 card gate, and timed beside their bound, cuDNN in the
+    same type (``F.conv2d``, ``conv2d_input``; TF32 off): ``ms`` (one
+    call, L2 flushed, charged at least its enqueue), ``device_ms`` (the
+    kernels' own time, back to back) and ``host_us`` (the enqueue), each
+    also for cuDNN; the f32 rows also the FMA kernel's time and error
+    (gated) on the same inputs through its own launcher (the dgrad: the
+    lhs-dilated conv on the padded dy and flipped weights) and its
+    bound."""
     batch = 8
     gen = torch.Generator().manual_seed(SEED + 8)
     flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
@@ -2286,40 +2418,53 @@ def phase_layers_resnet(card: str) -> list[dict]:
             x_nchw = x.permute(0, 3, 1, 2).contiguous(memory_format=cl)
             w_oihw = w.permute(3, 2, 0, 1).contiguous(memory_format=cl)
             gy_nchw = gy.permute(0, 3, 1, 2).contiguous(memory_format=cl)
+            want = "fma" if dtype == torch.bfloat16 else "sm90_tf32"
+            fwd_kw = dict(stride=(s, s), padding=(pad, pad), relu=node.relu)
+            dgrad_kw = dict(stride=(s, s), padding=(pad, pad), h=st.h,
+                            wd=st.w)
+            # the FMA kernel's own inputs: the forward's, and the
+            # lhs-dilated conv of the dgrad's composed form
             gyp = F.pad(gy, (0, 0, 0, 1, 0, 1))
             wf = flip_w(w)
+            one = (1, 1)
+            fma_args = {
+                "forward": (x, w, b, (s, s), (pad, pad), one, node.relu,
+                            st.ho, st.wo),
+                "dgrad": (gyp, wf, None, one, (k - 1 - pad,) * 2, (s, s),
+                          False, *K._out_plane(
+                              gyp.shape[1], gyp.shape[2], k, k, one,
+                              (k - 1 - pad,) * 2, one, (s, s)))}
             calls = {
                 "forward": (
-                    dict(x=x, w=w, bias=b, stride=(s, s), padding=(pad, pad),
-                         relu=node.relu),
+                    lambda: K.conv_lb(x, w, b, **fwd_kw),
+                    lambda: conv2d_ref(x, w, b, **fwd_kw),
+                    K.route(x, w, (s, s), bias=b, padding=(pad, pad)),
                     lambda: F.conv2d(x_nchw, w_oihw, b, stride=s,
                                      padding=pad),
                     x.numel() + w.numel() + b.numel()
                     + batch * st.ho * st.wo * co),
                 "dgrad": (
-                    dict(x=gyp, w=wf, stride=(1, 1),
-                         padding=(k - 1 - pad,) * 2, lhs_dilation=(s, s)),
+                    lambda: K.conv_lb_dgrad(gy, w, **dgrad_kw),
+                    lambda: _dgrad_plain(gy, w, x.shape, s, pad),
+                    K.dgrad_route(gy, w, (s, s), st.h, st.w, (pad, pad)),
                     lambda: torch.nn.grad.conv2d_input(
                         x_nchw.shape, w_oihw, gy_nchw, stride=s,
                         padding=pad),
                     gy.numel() + w.numel() + x.numel())}
-            for op, (args, library, words) in calls.items():
-                a = dict(args)
-                xa, wa, ba = a.pop("x"), a.pop("w"), a.pop("bias", None)
-                rt, tile = conv_route(xa, wa, ba, **{
-                    key: v for key, v in a.items() if key != "relu"})
-                require(rt == "fma", f"resnet {op} {node.name} {dtype}: "
-                                     f"on {rt}, want fma")
-
-                def kernel():
-                    return K.conv_lb(xa, wa, ba, **a)
-
-                before = K.conv_lb.launches_by_route["fma"]
+            for op, (kernel, plain, rt, library, words) in calls.items():
+                # the dgrad's bf16 route composes an lhs-dilated conv on
+                # conv_lb's route for it
+                asked = ("composed" if op == "dgrad"
+                         and dtype == torch.bfloat16 else want)
+                require(rt == asked, f"resnet {op} {node.name} {dtype}: "
+                                     f"on {rt}, want {asked}")
+                rt = want
+                before = K.conv_lb.launches_by_route[rt]
                 out = kernel()
-                require(K.conv_lb.launches_by_route["fma"] == before + 1,
-                        f"resnet {op} {node.name} {dtype}: not one FMA "
-                        f"launch")
-                ref = conv2d_ref(xa, wa, ba, **a)
+                launched = K.conv_lb.launches_by_route[rt] - before
+                require(launched == 1, f"resnet {op} {node.name} {dtype}: "
+                                       f"{launched} launches on {rt}")
+                ref = plain()
                 gate = _gate(out.float(), ref.float(), dtype)
                 require(gate.pop("ok"), f"resnet {op} {node.name} {dtype}: "
                                         f"kernel vs plain {gate}")
@@ -2329,22 +2474,53 @@ def phase_layers_resnet(card: str) -> list[dict]:
                 row = {"phase": "layers_resnet", "model": "resnet20",
                        "layer": node.name, "op": op, "dtype": str(dtype),
                        "batch": batch, "in": [st.h, st.w, ci], "co": co,
-                       "k": k, "stride": s, "route": rt, "tile": tile,
+                       "k": k, "stride": s, "route": rt,
                        "ms": _time_ms(kernel, flush),
-                       "plain_ms": _time_ms(
-                           lambda: conv2d_ref(xa, wa, ba, **a), flush),
+                       "device_ms": _device_ms(kernel),
+                       "plain_ms": _time_ms(plain, flush),
                        "library_ms": _time_ms(library, flush),
+                       "library_device_ms": _device_ms(library),
                        "bound_ms": max(t_ops, t_bytes) * 1e3,
                        "bound_by": "operations" if t_ops >= t_bytes
                        else "bytes", "flops": flops, "bytes": n_bytes,
                        "peak_flops": PEAK[dtype], **gate,
                        "host_us": _host_us(kernel),
                        "library_host_us": _host_us(library), "card": card}
+                if dtype == torch.float32:
+                    fx, fw, fb, fs, fp, fl, frelu, fho, fwo = fma_args[op]
+                    plan = K.cta_plan(batch, fho, fwo, fw.shape[-1], 1, k,
+                                      k, fs, one, 4)
+
+                    def fma():
+                        return K._fma(fx, fw, fb, None, fho, fwo, fs, fp,
+                                      one, fl, frelu, 1, plan)
+
+                    fout = fma()
+                    if op == "dgrad":
+                        fout = fout[:, :st.h, :st.w]
+                    fma_abs, fma_err = rel_err(fout, ref)
+                    require(fma_err <= TOL, f"resnet {op} {node.name}: FMA "
+                                            f"kernel vs plain {fma_err}")
+                    row.update(fma_ms=_time_ms(fma, flush),
+                               fma_device_ms=_device_ms(fma),
+                               fma_err=fma_err, fma_max_abs_err=fma_abs,
+                               fma_tile=list(plan),
+                               **fma_bound(flops, t_bytes))
                 emit(row)
                 rows.append(row)
     require(len(rows) == 16, f"layers_resnet: {len(rows)} rows, want 4 "
                              f"layers x forward and dgrad x 2 types")
     return rows
+
+
+def _dgrad_plain(gy, w, x_shape, s: int, pad: int) -> torch.Tensor:
+    """dx of the plain forward conv, by its autograd."""
+    xg = torch.zeros(x_shape, dtype=gy.dtype, device=gy.device,
+                     requires_grad=True)
+    with torch.enable_grad():
+        (dx,) = torch.autograd.grad(conv2d_ref(xg, w, stride=s,
+                                               padding=pad), xg, gy)
+    return dx
 
 
 def _sums(rows: list[dict]) -> dict:
@@ -2393,8 +2569,16 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    k1_before = dict(K.conv_lb.launches_by_route)
+    k2_before = dict(W.wgrad_lb.launches_by_route)
     tf32_controls = phase_check()
+    strided_controls = check_strided_controls(
+        torch.Generator().manual_seed(SEED + 9))
     phase_check_bwd()
+    # the FMA kernels' launches off the main paths: the checks' bf16
+    # strides, lhs dilation and what TMA cannot describe
+    k1_check_fma = K.conv_lb.launches_by_route["fma"] - k1_before["fma"]
+    k2_check_fma = W.wgrad_lb.launches_by_route["fma"] - k2_before["fma"]
     bwd_bf16 = check_bwd_bf16()
     check_matmul_by_route = phase_check_matmul()
     check_attn_by_route = phase_check_attention()
@@ -2416,6 +2600,20 @@ def main() -> int:
     resnet_k1 = phase_layers_resnet(card)
     k1_fwd = [r for r in resnet_k1 if r["op"] == "forward"]
     k1_dgrad = [r for r in resnet_k1 if r["op"] == "dgrad"]
+    f32 = torch.float32
+    strided = {"forward": _of(k1_fwd, f32), "dgrad": _of(k1_dgrad, f32),
+               "wgrad": _of(resnet_wgrad, f32)}
+    emit({"phase": "k1_k2_strided_targets",
+          **{f"{op}_4_{key}": sum(r[key] for r in rows)
+             for op, rows in strided.items()
+             for key in ("ms", "device_ms", "host_us", "bound_ms",
+                         "library_ms", "library_device_ms",
+                         "library_host_us", "fma_ms", "fma_device_ms",
+                         "fma_bound_ms")},
+          "routes": {op: sorted({r["route"] for r in rows})
+                     for op, rows in strided.items()},
+          "forward_asked_over_library_at_most": 1,
+          "control_1xtf32_over_route": strided_controls, "card": card})
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     dgrad = {str(d): {k: v for k, v in _sums(_of(dgrad_rows, d)).items()
                       if k in keys} for d in DTYPES}
@@ -2506,10 +2704,11 @@ def main() -> int:
           "predicted_ms": [7, 11], "card": card})
     vgg_times = "sums over the 13 VGG16/224 convs at batch 8"
     kernels = [
-        dict(_sums(_of(k1_fwd, torch.float32)), name="conv_lb",
+        dict(_sums(_fma_of(strided["forward"])), name="conv_lb",
              route="cuda", kernel_route="fma", source=SOURCE,
              replaces=REPLACES,
-             launches=resnet_f32["fma"],
+             launches=resnet_f32["fma"], on_main_path=False,
+             launches_off_path=k1_check_fma,
              launches_train_resnet=train_resnet["conv_lb_by_route"]["fma"],
              launches_serve_by_route={"vgg_f32": vgg_f32,
                                       "vgg_bf16": vgg_bf16,
@@ -2517,11 +2716,12 @@ def main() -> int:
              launches_train_vgg_by_route=train_vgg["conv_lb_by_route"],
              launches_train_resnet_by_route=train_resnet["conv_lb_by_route"],
              launches_bwd_bf16=bwd_bf16["conv_lb"],
-             dgrad=_sums(_of(k1_dgrad, torch.float32)),
-             by_dtype=_by_dtype(k1_fwd), dgrad_by_dtype=_by_dtype(k1_dgrad),
-             host_us=sum(r["host_us"] for r in _of(k1_fwd, torch.float32)),
-             library_host_us=sum(r["library_host_us"]
-                                 for r in _of(k1_fwd, torch.float32)),
+             dgrad=_sums(_fma_of(strided["dgrad"])),
+             device_ms=sum(r["fma_device_ms"] for r in strided["forward"]),
+             dgrad_device_ms=sum(r["fma_device_ms"]
+                                 for r in strided["dgrad"]),
+             bf16_strided=_sums(_of(k1_fwd, torch.bfloat16)),
+             bf16_strided_dgrad=_sums(_of(k1_dgrad, torch.bfloat16)),
              vgg_inputs=_sums(_fma_of(f32_rows)),
              vgg_inputs_dgrad=_sums(_fma_of(f32_dgrad)),
              route_by_dtype=_by_dtype(rows), route_dgrad_by_dtype=dgrad,
@@ -2535,20 +2735,24 @@ def main() -> int:
                                       if r["route"] == rt]) if any(
                           r["route"] == rt for r in bf16_dgrad) else None}
                  for rt in K.ROUTES},
-             times_are="f32 sums over ResNet-20/32's four strided convs at "
-                       "batch 8, the FMA route's main-path inputs "
-                       "(layers_resnet: forward with bias and ReLU; dgrad: "
-                       "the lhs-dilated conv dgrad_lb runs; by_dtype, "
-                       "dgrad_by_dtype: f32 and bf16; bound_ms: f32 at the "
-                       "FMA rate); vgg_inputs: the FMA kernel through its "
-                       f"own launcher on the f32 inputs of the {vgg_times} "
-                       "(which take the tensor-core routes; dgrad: the 12 "
-                       "a step runs); route_by_dtype: every VGG layer on "
-                       "the route it takes, f32 and bf16; bf16_by_route: "
-                       "split by route; launches: ResNet-20/32's four "
-                       "strided convs in the f32 serving run "
-                       "(launches_train_resnet: with their recomputes and "
-                       "lhs-dilated dgrads)",
+             times_are="the FMA kernel through its own launcher on the f32 "
+                       "inputs of ResNet-20/32's four strided convs at "
+                       "batch 8, which take sm90_tf32 (dgrad: the "
+                       "lhs-dilated conv of the composed form, dy padded "
+                       "against the flipped weights; bound_ms: f32 at the "
+                       "FMA rate; device_ms: back to back); bf16_strided, "
+                       "bf16_strided_dgrad: its own route on the bf16 "
+                       "inputs (bf16 strides, on no main path); "
+                       "vgg_inputs: the FMA kernel through its own "
+                       f"launcher on the f32 inputs of the {vgg_times} "
+                       "(dgrad: the 12 a step runs); route_by_dtype: every "
+                       "VGG layer on the route it takes, f32 and bf16; "
+                       "bf16_by_route: split by route; launches: the f32 "
+                       "ResNet serving run, which no longer runs this "
+                       "kernel (launches_train_resnet: its training run); "
+                       "launches_off_path: the check phase's FMA rows "
+                       "(bf16 strides, lhs dilation, what TMA cannot "
+                       "describe)",
              card=card),
         dict(k1_f32, name="conv_lb_sm90_tf32", route="cuda",
              kernel_route="sm90_tf32", source=CONV_TF32_SOURCE,
@@ -2570,15 +2774,29 @@ def main() -> int:
              host_us=sum(r["host_us"] for r in f32_rows),
              library_host_us=sum(r["library_host_us"] for r in f32_rows),
              conv1_1_plane=_sums([plane_f32]),
+             resnet_strided=_sums(strided["forward"]),
+             resnet_strided_dgrad=_sums(strided["dgrad"]),
+             resnet_strided_device_ms=sum(r["device_ms"]
+                                          for r in strided["forward"]),
+             resnet_strided_dgrad_device_ms=sum(r["device_ms"]
+                                                for r in strided["dgrad"]),
+             resnet_strided_host_us=sum(r["host_us"]
+                                        for r in strided["forward"]),
+             resnet_strided_dgrad_host_us=sum(r["host_us"]
+                                              for r in strided["dgrad"]),
              promote=K.TF32_PROMOTE,
              control_1xtf32_over_route=tf32_controls,
+             control_strided_1xtf32_over_route=strided_controls,
              times_are=f"f32 {vgg_times} (12 on sm90_tf32, conv1_1 on "
                        f"sm90_im2col: the plane, then this kernel as a 1x1 "
                        f"conv; bound_ms: three TF32 products a multiply-add "
                        f"at 495 TFLOP/s; fma_bound_ms: one at the FMA rate, "
                        f"67; fma_ms: conv_lb.cu on the same inputs); dgrad: "
-                       f"the 12 a step runs; launches: the f32 VGG serving "
-                       f"run (sm90_tf32 and sm90_im2col layers)",
+                       f"the 12 a step runs; resnet_strided(_dgrad): "
+                       f"ResNet-20/32's four strided convs at batch 8 (the "
+                       f"dgrad one launch by output phases); launches: the "
+                       f"f32 VGG serving run (sm90_tf32 and sm90_im2col "
+                       f"layers)",
              card=card),
         dict(_sums([plane_fwd]), name="conv_lb_sm90_im2col", route="cuda",
              kernel_route="sm90_im2col", source=CONV_SM90_SOURCE,
@@ -2610,29 +2828,35 @@ def main() -> int:
                        f"conv1_1 at batch 8 (dgrad: the same 12 layers' "
                        f"dgrads); launches: the bf16 serving run",
              card=card),
-        dict(_sums(_of(resnet_wgrad, torch.float32)), name="wgrad_lb",
+        dict(_sums(_fma_of(strided["wgrad"])), name="wgrad_lb",
              route="cuda", kernel_route="fma", source=WGRAD_SOURCE,
              replaces=WGRAD_REPLACES,
              launches=(train_vgg["wgrad_lb_by_route"]["fma"]
                        + train_resnet["wgrad_lb_by_route"]["fma"]),
+             on_main_path=False, launches_off_path=k2_check_fma,
              launches_train_vgg_by_route=train_vgg["wgrad_lb_by_route"],
              launches_train_resnet_by_route=train_resnet[
                  "wgrad_lb_by_route"],
              reduce_launches=train_vgg["wgrad_reduce"],
-             by_dtype=_by_dtype(resnet_wgrad),
+             device_ms=sum(r["fma_device_ms"] for r in strided["wgrad"]),
+             bf16_strided=_sums(_of(resnet_wgrad, torch.bfloat16)),
              vgg_inputs_by_dtype={str(d): _sums(_fma_of(_of(wgrad_rows, d)))
                                   for d in DTYPES},
              route_by_dtype={str(d): _sums(_of(wgrad_rows, d))
                              for d in DTYPES},
-             times_are="f32 sums over ResNet-20/32's four strided wgrads "
-                       "at batch 8 (the two stride-2 3x3 convs and the two "
-                       "1x1/2 projections: the FMA route's main-path "
-                       "inputs; by_dtype: f32 and bf16); "
+             times_are="the FMA kernel through its own launcher on the f32 "
+                       "inputs of ResNet-20/32's four strided wgrads at "
+                       "batch 8 (the two stride-2 3x3 convs and the two "
+                       "1x1/2 projections), which take sm90_tf32 "
+                       "(device_ms: back to back); bf16_strided: its own "
+                       "route on the bf16 inputs (on no main path); "
                        "vgg_inputs_by_dtype: the FMA kernel through its "
                        f"own launcher on the inputs of every VGG wgrad "
                        f"row ({vgg_times}), which take the tensor-core "
                        "routes (route_by_dtype); launches: the FMA route "
-                       "in the VGG and ResNet training runs",
+                       "in the VGG and ResNet training runs, none; "
+                       "launches_off_path: the backward checks' FMA rows "
+                       "(bf16 strides, what no tensor-core route takes)",
              card=card),
         dict(_sums(sm90_wgrad), name="wgrad_lb_sm90", route="cuda",
              kernel_route="sm90", source=WGRAD_SM90_SOURCE,
@@ -2657,13 +2881,19 @@ def main() -> int:
              host_us=sum(r["host_us"] for r in tf32_wgrad),
              library_host_us=sum(r["library_host_us"] for r in tf32_wgrad),
              conv1_1_plane=_sums([plane_wgrad[str(torch.float32)]]),
+             resnet_strided=_sums(strided["wgrad"]),
+             resnet_strided_device_ms=sum(r["device_ms"]
+                                          for r in strided["wgrad"]),
+             resnet_strided_host_us=sum(r["host_us"]
+                                        for r in strided["wgrad"]),
              times_are="f32 sums over the 12 VGG16/224 layers after "
                        "conv1_1 at batch 8 (bound_ms: three TF32 products "
                        "a multiply-add at 495 TFLOP/s; fma_bound_ms: one at "
                        "the FMA rate, 67); "
                        "conv1_1_plane: conv1_1's whole route (plane + 1x1 "
-                       "on this kernel); launches: the f32 VGG training "
-                       "run (sm90_tf32 and sm90_im2col layers)",
+                       "on this kernel); resnet_strided: ResNet-20/32's four "
+                       "strided wgrads at batch 8; launches: the f32 VGG "
+                       "training run (sm90_tf32 and sm90_im2col layers)",
              card=card),
         dict(_stage_of(plane_wgrad[str(torch.float32)]),
              name="wgrad_im2col", route="cuda", kernel_route="sm90_im2col",

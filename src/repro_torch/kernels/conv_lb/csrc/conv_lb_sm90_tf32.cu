@@ -1,10 +1,11 @@
-// Batch-folded NHWC convolution in f32 on Hopper's tensor cores (sm_90a),
-// stride 1, in 3xTF32, with the fused bias -> residual -> ReLU -> 2x2
-// max-pool epilogue: f32 in, f32 sums, f32 out.
+// Batch-folded NHWC convolution in f32 on Hopper's tensor cores (sm_90a)
+// in 3xTF32, at any stride, with the fused bias -> residual -> ReLU -> 2x2
+// max-pool epilogue, and the data gradient of a strided conv by output
+// phases: f32 in, f32 sums, f32 out.
 //
 // Replaces, with csrc/conv_lb_sm90.cu (bf16) and csrc/conv_lb.cu (which
-// keeps strides, lhs dilation and the layouts TMA cannot describe), the
-// TPU kernel `_conv_kernel` launched by `conv_lb_call`
+// keeps bf16 at strides, lhs dilation and the layouts TMA cannot
+// describe), the TPU kernel `_conv_kernel` launched by `conv_lb_call`
 // (src/repro/kernels/conv_lb/kernel.py:116, :177).  It computes the same
 // function; it is not a block-by-block copy of it.
 //
@@ -16,7 +17,9 @@
 // bits; 3xTF32 splits each word v into hi and lo and sums lo*hi + hi*lo +
 // hi*hi (lo*lo, about 2^-20 of a product, is dropped): close to f32
 // accuracy at a third of the TF32 rate, a bound of 1.49 ms for the same
-// work.
+// work.  ResNet-20/32's strided convs at batch 8 are bounded under 1 us
+// each: there the host's time to enqueue a launch is the cost, and the
+// launch entry below is built for it.
 //
 // What the design does about it (csrc/conv_lb_sm90.cu's implicit GEMM,
 // with csrc/matmul_lb_sm90_tf32.cu's 3xTF32 machinery).
@@ -27,20 +30,44 @@
 //    is one window of one Ci block of 32 channels.
 //  * A, the input, from registers.  TF32 wgmma reads shared memory
 //    K-major only, and x is channel-contiguous per pixel; A may come from
-//    registers in any order.  Per Ci block one 4-D TMA load over (Ci, W,
-//    H, B) brings the (ty + (Hk-1)*dly) x (tx + (Wk-1)*dlx) halo of the
-//    CTA's bb images, one 128-byte row of 32 channels per pixel with the
-//    128-byte swizzle; padding and ragged edges arrive as TMA's
-//    out-of-bounds zeros, so no padded copy of x is made.  Every window
-//    of the Ci block reads that halo: window (ky, kx) is the same rows
-//    shifted by (ky*dly*hx + kx*dlx) whole rows (the wrapper's win_off).
-//    Thread t of warp v owns block pixels (2v, t/4) and (2v + 1, t/4)
+//    registers in any order.  Per Ci block 4-D TMA loads over (Ci, W, H,
+//    B) bring the halo of the CTA's bb images, one 128-byte row of 32
+//    channels per pixel with the 128-byte swizzle; padding and ragged
+//    edges arrive as TMA's out-of-bounds zeros, so no padded copy of x is
+//    made.  Every window of the Ci block reads that halo at its own shift
+//    (the wrapper's win_off).
+//  * Strides: the halo as parts.  At stride (sy, sx) output pixel (oy,
+//    ox) of window (ky, kx) reads x at (sy*oy + ky*dly - py, sx*ox +
+//    kx*dlx - px).  The halo is loaded as one box per residue (ry, rx) =
+//    (ky*dly mod sy, kx*dlx mod sx) that some window has (a part: 4 at a
+//    3x3/2, 1 at a 1x1/2), each with a TMA traversal stride of (sy, sx)
+//    (cuTensorMapEncodeTiled's elementStrides), so that a part holds the
+//    strided pixels densely: ty + ((Hk-1)*dly)/sy rows of tx +
+//    ((Wk-1)*dlx)/sx.  Window (ky, kx) reads its part at the shift
+//    (ky*dly/sy, kx*dlx/sx): consecutive output pixels read consecutive
+//    halo rows, as at stride 1, and the loads stay conflict-free (one
+//    dense box read at steps of s pixels would put a quarter warp's two
+//    rows on one swizzle parity: 2-way conflicts).  At stride 1 there is
+//    one part and the layout is the stride-1 kernel's.
+//  * Thread t of warp v owns block pixels (2v, t/4) and (2v + 1, t/4)
 //    (the accumulator's rows) and loads channels [8c, 8c + 8) of each (c
 //    = t % 4), two 16-byte loads a pixel, conflict-free: a quarter warp
 //    is two consecutive halo rows x 4 chunks, which the swizzle puts in 8
 //    distinct 16-byte chunks.  k8 step kk takes word 2kk as fragment
 //    column c and word 2kk + 1 as column c + 4: the K order inside a Ci
 //    block is permuted, and B is written in the same order.
+//  * The data gradient of a strided conv, by phases (wt = 1).  dx of the
+//    conv x -> gy at stride s is, for dx pixels = (qy, qx) mod s (a
+//    phase, one grid z index of the launch), a stride-1 conv of the
+//    compact gy over the taps that land on real samples: tap ky with (qy
+//    + py - ky*dly) = ey*s reads gy row my + ey for dx row s*my + qy.
+//    Each phase carries its own windows (win0, nwin), halo origin (y0,
+//    x0) and store offset (qy, qx); stores go out at stride (osy, osx).
+//    The lhs-dilated zeros are never multiplied, gy is not padded (the
+//    rows past it are TMA's zeros), dx is written at its own size, and w
+//    is read as it is: window i takes weight tap win_w[i] (no flipped
+//    copy), and its (Ci, Co) slice transposed by the transposers.  A
+//    phase with no tap writes zeros.
 //  * The split is hi = v's top 19 bits (a TF32 value exactly, read
 //    unchanged however the tensor cores read an operand's low 13 bits)
 //    and lo = v - hi (exact in f32, read as TF32 in turn), two
@@ -56,7 +83,11 @@
 //    the async proxy and signal the consumers.  wCi is Ci, or fewer: the
 //    1x1 conv of an im2col plane (route sm90_im2col,
 //    csrc/wgrad_im2col.cu) reads w (Hk, Wk, Ci, Co) as its Hk*Wk*Ci rows
-//    against the plane's 32 channels.
+//    against the plane's 32 channels.  For a data gradient the same map
+//    over w's (Co, Ci, Hk*Wk) brings boxes whose rows are output channels
+//    (N) of 32 input channels (K): K-major already, so the transposers
+//    read each row's 16-byte chunks (conflict-free) and only permute and
+//    split them.
 //  * The products.  Each consumer warpgroup runs three wgmma m64nBNk8
 //    .tf32 per k8 step into one accumulator: lo*hi, hi*lo, hi*hi.  A
 //    fragments alternate between two buffers with one group left in
@@ -79,6 +110,12 @@
 //    thread, so only pooled words are stored, with no rounding.
 //  * lo_terms = 0 zeroes the lo words (1xTF32): a control that the small
 //    terms are real, never a route.
+//  * One lean launch.  The wrapper packs every integer of a plan once per
+//    geometry into `Args` and fills in only the pointers and the stream
+//    per call; the entry takes it by pointer.  Tensor maps are pure
+//    functions of their base, extents, strides and box, so the entry
+//    keeps the last kMapCache of them and encodes a map only for a key it
+//    has not seen (a layer's w is the same from call to call).
 //  * No persistence, no clusters, no TMA store yet.
 
 #include <cuda.h>
@@ -86,6 +123,7 @@
 
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -97,24 +135,62 @@ constexpr int kWStages = 4;      // weight ring: (Ci block, window) stages
 constexpr int kBStages = 2;      // ring of the hi/lo B tiles
 constexpr int kHStages = 2;      // halo ring: Ci blocks
 constexpr int kMaxWin = 128;     // windows whose offsets a launch carries
+constexpr int kMaxPart = 16;     // halo boxes of a Ci block (sy * sx residues)
+constexpr int kMaxPhase = 16;    // output phases of one launch
+constexpr int kMapCache = 32;    // tensor maps the entry keeps
 // K steps the tensor cores sum before the consumers promote their sums
 // into the CUDA cores' (0: never): the wrapper's TF32_PROMOTE
 constexpr int kPromote = 2;
 
+// one output phase: its plane, tiles, halo origin, stores and windows
+struct Phase {
+  int ho, wo;            // the phase's output plane (its tiles cover it)
+  int nty, ntx;          // tiles along ho and wo
+  int y0, x0;            // tile (oy0, ox0)'s halo box p starts at (sy*oy0
+                         // + y0 + part_y[p], sx*ox0 + x0 + part_x[p])
+  int qy, qx;            // pixel (my, mx) is stored at (osy*my + qy, osx*mx + qx)
+  int win0, nwin;        // its windows: win_off / win_w [win0, win0 + nwin)
+};
+
+// what the kernel reads of a launch (the wrapper's `Tf32ConvGeom`)
 struct Geom {
-  int B, Ho, Wo, Co;
-  int py, px;            // the halo of output (oy, ox) starts at (oy-py, ox-px)
+  int B, OH, OW, Co;     // out (B, OH/pool, OW/pool, Co)
   int bb, ty, tx;        // CTA tile: bb images x ty x tx output pixels
-  int nty, ntx;          // tiles along Ho and Wo
   int ncb;               // Ci blocks of 32 channels
-  int nwin;              // Hk * Wk
+  int sy, sx;            // halo rows and columns a tile row or column moves
+  int nparts;            // halo boxes of a Ci block
+  int part_bytes;        // one box (a 1024-byte multiple)
   int h_stage;           // bytes of one halo stage (a 1024-byte multiple)
-  int sbo;               // one halo row: hx * 128 bytes
   int halo_tx;           // bytes TMA writes into one halo stage
+  int row_step;          // bytes between output rows in the halo (a box row)
+  int osy, osx;          // output stride of a phase's pixels
   int pool, relu;
+  int wt;                // 1: a data gradient by phases, w's (Ci, Co) slices
+                         // read transposed (the launch's DGRAD)
   uint32_t lo_mask;      // 0xffffffff (3xTF32) or 0 (1xTF32 control)
   int blk_off[kConsumers];  // each consumer's block inside the halo
-  int win_off[kMaxWin];     // window ky*Wk + kx -> byte shift in the halo
+  int part_y[kMaxPart];     // each box's residue row and column
+  int part_x[kMaxPart];
+  Phase ph[kMaxPhase];
+  int win_off[kMaxWin];     // window -> byte shift in the halo
+  int win_w[kMaxWin];       // window -> weight tap ky * Wk + kx
+};
+
+// one launch as the wrapper packs it (`Tf32ConvArgs`): the pointers and
+// the stream per call, the rest once per geometry
+struct Args {
+  const void* x;
+  const void* w;
+  const void* bias;      // or null
+  const void* res;       // or null
+  void* out;
+  void* stream;
+  int H, W, Ci;          // x (B, H, W, Ci)
+  int wd0, wd1, wd2;     // w's map: its last extent, the one before, Hk*Wk
+  int box_y, box_x;      // the x box in the tensor (traversal stride included)
+  int es_y, es_x;        // the x map's traversal strides
+  int bn, nphase, tiles, smem_bytes;
+  Geom g;
 };
 
 template <int BN>
@@ -367,8 +443,11 @@ __device__ __forceinline__ void wgmma_tile(float* d, const uint32_t* a,
 }
 
 // BN: output channels per CTA, a constant so that the steps unroll and
-// the sums and A fragments stay in registers
-template <int BN>
+// the sums and A fragments stay in registers.  DGRAD: a data gradient by
+// phases (the phase a grid z index, w's slices read transposed); a
+// forward reads phase 0 at constant offsets, so that no register holds a
+// phase's fields (at BN 128 the consumers have none to spare)
+template <int BN, bool DGRAD>
 __global__ void __launch_bounds__(kThreads, 1)
 conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_w,
@@ -400,16 +479,20 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
     return bars + 8 * (2 * kWStages + 2 * kBStages + kHStages + s);
   };
 
+  // this CTA's phase and tile; a tile past the phase's plane (phases
+  // differ by a row or column) has no work
+  const Phase& ph = g.ph[DGRAD ? blockIdx.z : 0];
   int t = blockIdx.x;
-  const int xt = t % g.ntx;
-  t /= g.ntx;
-  const int yt = t % g.nty;
-  const int b0 = (t / g.nty) * g.bb;
+  const int xt = t % ph.ntx;
+  t /= ph.ntx;
+  const int yt = t % ph.nty;
+  const int b0 = (t / ph.nty) * g.bb;
+  if (b0 >= g.B) return;
   const int oy0 = yt * g.ty, ox0 = xt * g.tx;
   const int n0 = blockIdx.y * BN;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
-  const int nsteps = g.ncb * g.nwin;
+  const int nsteps = g.ncb * ph.nwin;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kWStages; ++s) {
@@ -436,26 +519,33 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
       // (a Ci block's halo, then its windows' weight slices); the first
       // pass finds every stage empty (the parity of the phase before the
       // first)
-      if (lane != 0) return;
+      // (a phase with no window loads nothing)
+      if (lane != 0 || nsteps == 0) return;
       int ws = 0, hs = 0;
       uint32_t wph = 0, hph = 0;
+      const int hy0 = g.sy * oy0 + ph.y0, hx0 = g.sx * ox0 + ph.x0;
       for (int cb = 0; cb < g.ncb; ++cb) {
         mbar_wait(h_empty(hs), hph ^ 1);
         mbar_expect_tx(h_full(hs), g.halo_tx);
-        tma_load4(h_ring + hs * g.h_stage, &map_x, h_full(hs), cb * kBK,
-                  ox0 - g.px, oy0 - g.py, b0);
+        for (int p = 0; p < g.nparts; ++p)
+          tma_load4(h_ring + hs * g.h_stage + p * g.part_bytes, &map_x,
+                    h_full(hs), cb * kBK, hx0 + g.part_x[p],
+                    hy0 + g.part_y[p], b0);
         if (++hs == kHStages) {
           hs = 0;
           hph ^= 1;
         }
-        for (int w = 0; w < g.nwin; ++w) {
+        for (int w = 0; w < ph.nwin; ++w) {
           mbar_wait(w_empty(ws), wph ^ 1);
           mbar_expect_tx(w_full(ws), S::kW);
-          // BN/32 boxes of 32 output channels x 32 input channels
+          // BN/32 boxes of 32 output channels x 32 input channels (rows
+          // input channels; for a data gradient rows output channels)
+          const int tap = DGRAD ? g.win_w[ph.win0 + w] : w;
 #pragma unroll
           for (int j = 0; j < BN / 32; ++j)
             tma_load3(w_ring + ws * S::kW + j * 32 * kBK * 4, &map_w,
-                      w_full(ws), n0 + 32 * j, cb * kBK, w);
+                      w_full(ws), DGRAD ? cb * kBK : n0 + 32 * j,
+                      DGRAD ? n0 + 32 * j : cb * kBK, tap);
           if (++ws == kWStages) {
             ws = 0;
             wph ^= 1;
@@ -482,12 +572,25 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
         const int nb = u / 2, hf = u % 2;
         const int n = nb * 32 + lane;
         float v[4][4];   // v[j][q]: input channel 4hf + j + 8q of column n
+        if (DGRAD) {
+          // rows are columns n: chunk 2q + hf of row n holds channels
+          // 8q + 4hf .. + 3 (8 lanes, 8 rows of an atom: no conflict)
 #pragma unroll
-        for (int q = 0; q < 4; ++q)
+          for (int q = 0; q < 4; ++q) {
+            const float4 c =
+                lds4(swz(src + nb * 32 * kBK * 4 + lane * 128 +
+                         (2 * q + hf) * 16));
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            v[j][q] = lds(swz(src + nb * 32 * kBK * 4 +
-                              (4 * hf + j + 8 * q) * 128 + lane * 4));
+            for (int j = 0; j < 4; ++j) v[j][q] = word(c, j);
+          }
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j][q] = lds(swz(src + nb * 32 * kBK * 4 +
+                                (4 * hf + j + 8 * q) * 128 + lane * 4));
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           uint32_t hi[4], lo[4];
@@ -521,10 +624,10 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
   const int cw = wg - 1;   // this consumer's block of the CTA tile
   const int v4 = (threadIdx.x % 128) / 32;
   // this thread's pixels (2v, t/4) and (2v + 1, t/4) of its block: halo
-  // rows 2v*hx + t/4 and one halo row (sbo) on, channels [8c, 8c + 8)
+  // rows 2v*hx + t/4 and one box row (row_step) on, channels [8c, 8c + 8)
   const int cq = lane % 4;
-  const uint32_t a_off = g.blk_off[cw] +
-                         (2 * v4 * (g.sbo / 128) + lane / 4) * 128 + cq * 32;
+  const uint32_t a_off = g.blk_off[cw] + 2 * v4 * g.row_step +
+                         (lane / 4) * 128 + cq * 32;
   // zeroed by an opaque move: a plain 0.f assignment lets the compiler
   // fold the zeros into the first group and serialize every wgmma
   float acc[BN / 2], sum[BN / 2];
@@ -545,16 +648,16 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
       h_base = h_ring + hs * g.h_stage;
     }
     mbar_wait(b_full(bs), bph);
-    const uint32_t at = h_base + a_off + g.win_off[w];
+    const uint32_t at = h_base + a_off + g.win_off[DGRAD ? ph.win0 + w : w];
     const uint32_t bt = b_ring + bs * 2 * S::kBt;
-    const bool last = w == g.nwin - 1;
+    const bool last = w == ph.nwin - 1;
     float4 x[2];   // pixels p0, p1: channels 8c + 4h .. + 3 of half h
 #pragma unroll
     for (int kk = 0; kk < kBK / 8; ++kk) {
       const int h = kk / 2, f = kk % 2;
       if (f == 0) {
         x[0] = lds4(swz(at + h * 16));
-        x[1] = lds4(swz(at + g.sbo + h * 16));
+        x[1] = lds4(swz(at + g.row_step + h * 16));
         if (h == 1 && last) {
           // every A word of this Ci block is loaded: its halo is free.
           // The loads' values are not used yet, so nothing has waited for
@@ -618,14 +721,18 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
 
   // thread t of warp v holds block rows 2v (acc 4j, 4j+1) and 2v + 1
   // (4j+2, 4j+3), block column t/4, channels 8j + 2(t%4), +1
+  // (my, mx) in the phase's plane, stored at (oy, ox) = (osy*my + qy,
+  // osx*mx + qx)
   const int b = b0 + cw * (g.bb - 1);
-  const int oy = oy0 + 2 * v4;
-  const int ox = ox0 + cw * (g.tx - 8) + lane / 4;
+  const int my = oy0 + 2 * v4;
+  const int mx = ox0 + cw * (g.tx - 8) + lane / 4;
   const bool img = b < g.B;
-  const bool ok0 = img && oy < g.Ho && ox < g.Wo;
-  const bool ok1 = img && oy + 1 < g.Ho && ox < g.Wo;
-  const size_t px0 = (static_cast<size_t>(b) * g.Ho + oy) * g.Wo + ox;
-  const size_t px1 = px0 + g.Wo;
+  const bool ok0 = img && my < ph.ho && mx < ph.wo;
+  const bool ok1 = img && my + 1 < ph.ho && mx < ph.wo;
+  const int oy = DGRAD ? g.osy * my + ph.qy : my;
+  const int ox = DGRAD ? g.osx * mx + ph.qx : mx;
+  const size_t px0 = (static_cast<size_t>(b) * g.OH + oy) * g.OW + ox;
+  const size_t px1 = px0 + static_cast<size_t>(DGRAD ? g.osy : 1) * g.OW;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
     // Co % 4 == 0 and co even: the pair is in range or not as one
@@ -672,7 +779,7 @@ conv_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
       m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 4));
       m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 4));
       if (in_co && ok0 && (lane / 4) % 2 == 0) {
-        const int hp = g.Ho / 2, wp = g.Wo / 2;
+        const int hp = g.OH / 2, wp = g.OW / 2;
         const size_t q = (static_cast<size_t>(b) * hp + oy / 2) * wp + ox / 2;
         *reinterpret_cast<float2*>(out + q * g.Co + co) = make_float2(m0, m1);
       }
@@ -707,115 +814,155 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// an f32 map of `rank` dimensions (innermost first), strides in bytes of
-// dimensions 1.., boxes of `box`, 128-byte swizzle, zero fill out of bounds
-int make_map(CUtensorMap* map, const void* base, int rank,
-             const cuuint64_t* dims, const cuuint64_t* strides,
-             const cuuint32_t* box) {
+// an f32 map: `rank` dimensions (innermost first), strides in bytes of
+// dimensions 1.., boxes of `box` traversed at `elem` (the box holds
+// box[i] / elem[i] elements along i), 128-byte swizzle, zero fill out of
+// bounds.  A map is a pure function of these, so the last kMapCache of
+// them are kept and a key seen before is not encoded again
+struct MapKey {
+  const void* base;
+  int rank;
+  cuuint64_t dims[4];
+  cuuint64_t strides[3];
+  cuuint32_t box[4];
+  cuuint32_t elem[4];
+};
+
+struct MapSlot {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+
+int cached_map(CUtensorMap* map, const MapKey& key) {
+  static MapSlot slots[kMapCache];
+  static int next = 0;
+  for (int i = 0; i < kMapCache; ++i)
+    if (slots[i].used && memcmp(&slots[i].key, &key, sizeof key) == 0) {
+      *map = slots[i].map;
+      return 0;
+    }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -1;
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, const_cast<void*>(base),
-      dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, key.rank,
+      const_cast<void*>(key.base), key.dims, key.strides, key.box, key.elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  MapSlot& slot = slots[next];
+  next = (next + 1) % kMapCache;
+  slot.key = key;
+  slot.map = *map;
+  slot.used = true;
+  return 0;
+}
+
+template <int BN, bool DGRAD>
+cudaError_t launch_kernel(const CUtensorMap& mx, const CUtensorMap& mw,
+                          const Args& a) {
+  static int opted_in = 48 * 1024;
+  if (a.smem_bytes > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        conv_lb_sm90_tf32_kernel<BN, DGRAD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+    if (err != cudaSuccess) return err;
+    opted_in = a.smem_bytes;
+  }
+  const dim3 grid(a.tiles, (a.g.Co + BN - 1) / BN, a.nphase);
+  conv_lb_sm90_tf32_kernel<BN, DGRAD>
+      <<<grid, kThreads, a.smem_bytes, static_cast<cudaStream_t>(a.stream)>>>(
+          mx, mw, static_cast<const float*>(a.bias),
+          static_cast<const float*>(a.res), static_cast<float*>(a.out), a.g);
+  return cudaGetLastError();
 }
 
 template <int BN>
 cudaError_t launch(const CUtensorMap& mx, const CUtensorMap& mw,
-                   const void* bias, const void* res, void* out,
-                   const Geom& g, int smem_bytes, cudaStream_t stream) {
-  static int opted_in = 48 * 1024;
-  if (smem_bytes > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        conv_lb_sm90_tf32_kernel<BN>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-    opted_in = smem_bytes;
-  }
-  const long long tiles = static_cast<long long>((g.B + g.bb - 1) / g.bb) *
-                          g.nty * g.ntx;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(tiles), (g.Co + BN - 1) / BN);
-  conv_lb_sm90_tf32_kernel<BN><<<grid, kThreads, smem_bytes, stream>>>(
-      mx, mw, static_cast<const float*>(bias), static_cast<const float*>(res),
-      static_cast<float*>(out), g);
-  return cudaGetLastError();
+                   const Args& a) {
+  return a.g.wt ? launch_kernel<BN, true>(mx, mw, a)
+                : launch_kernel<BN, false>(mx, mw, a);
 }
 
 }  // namespace
 
-// x (B, H, W, Ci), w (Hk, Wk, wCi, Co) with 1 <= wCi <= Ci (channels
-// wCi .. Ci - 1 of x meet zero weights), bias (Co) or null, res (B, Ho,
-// Wo, Co) or null, out (B, Ho/pool, Wo/pool, Co): contiguous f32, bases
-// 16-byte aligned, Ci and Co multiples of 4, stride 1 (the wrapper's
-// route checks all of it).  The tile (bb, ty, tx, bn), the halo box (hy,
-// hx) and every shared-memory offset come from the wrapper's
-// sm90_tf32_plan: h_stage (one halo stage), blk_off0/1 (the consumers'
-// blocks) and win_off (Hk*Wk window shifts, host memory).  lo_terms = 0
-// drops the lo words (1xTF32, a control).  Returns a CUDA error code, or
-// 1000 + the CUresult of a refused tensor map, or -1 if the driver has no
-// cuTensorMapEncodeTiled.
-extern "C" int conv_lb_sm90_tf32_forward(
-    const void* x, const void* w, const void* bias, const void* res,
-    void* out, const void* win_off, int B, int H, int W, int Ci, int wCi,
-    int Co, int Hk, int Wk, int Ho, int Wo, int py, int px, int pool, int relu,
-    int bb, int ty, int tx, int hy, int hx, int bn, int h_stage, int blk_off0,
-    int blk_off1, int smem_bytes, int lo_terms, void* stream) {
-  const int nwin = Hk * Wk;
-  if (B < 1 || Ci < 1 || wCi < 1 || wCi > Ci || Co < 1 || Ci % 4 ||
-      Co % 4 || nwin < 1 || nwin > kMaxWin || (pool != 1 && pool != 2) ||
-      ty != 8 || bb * tx != 16 || hy > 256 || hx > 256 ||
-      h_stage % 1024 != 0 || h_stage < bb * hy * hx * 128)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Geom g;
-  g.B = B; g.Ho = Ho; g.Wo = Wo; g.Co = Co;
-  g.py = py; g.px = px;
-  g.bb = bb; g.ty = ty; g.tx = tx;
-  g.nty = (Ho + ty - 1) / ty;
-  g.ntx = (Wo + tx - 1) / tx;
-  g.ncb = (Ci + kBK - 1) / kBK;
-  g.nwin = nwin;
-  g.h_stage = h_stage;
-  g.sbo = hx * 128;
-  g.halo_tx = bb * hy * hx * 128;
-  g.pool = pool; g.relu = relu;
-  g.lo_mask = lo_terms ? 0xffffffffu : 0u;
-  g.blk_off[0] = blk_off0;
-  g.blk_off[1] = blk_off1;
-  const int* offs = static_cast<const int*>(win_off);
-  for (int i = 0; i < kMaxWin; ++i) g.win_off[i] = i < nwin ? offs[i] : 0;
+// One launch from `a` (the wrapper's `Tf32ConvArgs`): x (B, H, W, Ci), w
+// (Hk, Wk, wd1, wd0) (a forward: wd1 = wCi <= Ci input channels, channels
+// wCi .. Ci - 1 of x meeting zero weights, wd0 = Co; a data gradient, wt
+// = 1: the forward's w, wd1 its input channels = Co here, wd0 its output
+// channels <= Ci), bias (Co) or null, res (B, OH, OW, Co) or null, out
+// (B, OH/pool, OW/pool, Co): contiguous f32, bases 16-byte aligned, Ci
+// and Co multiples of 4 (the wrapper's route checks all of it).  The
+// tile, the halo's parts and steps, the phases and every window's shift
+// and weight tap come from the wrapper's plan.  Returns a CUDA error
+// code, or 1000 + the CUresult of a refused tensor map, or -1 if the
+// driver has no cuTensorMapEncodeTiled.
+// (`args` is an `Args`, whose type is this file's own: the entry takes it
+// as a plain pointer so that its name is exported)
+extern "C" int conv_lb_sm90_tf32_launch(const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  const Geom& g = a.g;
+  bool ok = g.B >= 1 && a.Ci >= 1 && g.Co >= 1 && a.Ci % 4 == 0 &&
+            g.Co % 4 == 0 && a.wd0 % 4 == 0 && (g.pool == 1 || g.pool == 2) &&
+            g.ty == 8 && g.bb * g.tx == 16 && a.box_y <= 256 &&
+            a.box_x <= 256 && a.es_y >= 1 && a.es_y <= 8 && a.es_x >= 1 &&
+            a.es_x <= 8 && g.nparts >= 1 && g.nparts <= kMaxPart &&
+            g.part_bytes % 1024 == 0 && g.h_stage % 1024 == 0 &&
+            g.nparts * g.part_bytes <= g.h_stage && a.nphase >= 1 &&
+            a.nphase <= kMaxPhase && a.tiles >= 1 &&
+            (g.wt || a.nphase == 1) &&
+            (g.pool == 1 || (!g.wt && g.osy == 1 && g.osx == 1));
+  for (int i = 0; ok && i < a.nphase; ++i)
+    ok = g.ph[i].nwin >= 0 && g.ph[i].win0 >= 0 &&
+         g.ph[i].win0 + g.ph[i].nwin <= kMaxWin;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
-  // x: (Ci, W, H, B), the halo of one Ci block per box
-  const cuuint64_t x_dims[4] = {static_cast<cuuint64_t>(Ci),
-                                static_cast<cuuint64_t>(W),
-                                static_cast<cuuint64_t>(H),
-                                static_cast<cuuint64_t>(B)};
-  const cuuint64_t x_strides[3] = {4ull * Ci, 4ull * Ci * W, 4ull * Ci * W * H};
-  const cuuint32_t x_box[4] = {kBK, static_cast<cuuint32_t>(hx),
-                               static_cast<cuuint32_t>(hy),
-                               static_cast<cuuint32_t>(bb)};
-  // w: (Co, wCi, Hk*Wk), 32 output channels x 32 input channels per box
-  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(Co),
-                                static_cast<cuuint64_t>(wCi),
-                                static_cast<cuuint64_t>(nwin)};
-  const cuuint64_t w_strides[2] = {4ull * Co, 4ull * Co * wCi};
-  const cuuint32_t w_box[3] = {32, kBK, 1};
+  // x: (Ci, W, H, B), one halo box of one Ci block per load
+  MapKey kx;
+  memset(&kx, 0, sizeof kx);
+  kx.base = a.x;
+  kx.rank = 4;
+  kx.dims[0] = a.Ci;
+  kx.dims[1] = a.W;
+  kx.dims[2] = a.H;
+  kx.dims[3] = g.B;
+  kx.strides[0] = 4ull * a.Ci;
+  kx.strides[1] = 4ull * a.Ci * a.W;
+  kx.strides[2] = 4ull * a.Ci * a.W * a.H;
+  kx.box[0] = kBK;
+  kx.box[1] = a.box_x;
+  kx.box[2] = a.box_y;
+  kx.box[3] = g.bb;
+  kx.elem[0] = 1;
+  kx.elem[1] = a.es_x;
+  kx.elem[2] = a.es_y;
+  kx.elem[3] = 1;
+  // w: (wd0, wd1, Hk*Wk), boxes of 32 x 32 of one tap
+  MapKey kw;
+  memset(&kw, 0, sizeof kw);
+  kw.base = a.w;
+  kw.rank = 3;
+  kw.dims[0] = a.wd0;
+  kw.dims[1] = a.wd1;
+  kw.dims[2] = a.wd2;
+  kw.strides[0] = 4ull * a.wd0;
+  kw.strides[1] = 4ull * a.wd0 * a.wd1;
+  kw.box[0] = 32;
+  kw.box[1] = kBK;
+  kw.box[2] = 1;
+  kw.elem[0] = kw.elem[1] = kw.elem[2] = 1;
   CUtensorMap mx, mw;
-  int err = make_map(&mx, x, 4, x_dims, x_strides, x_box);
+  int err = cached_map(&mx, kx);
   if (err) return err;
-  err = make_map(&mw, w, 3, w_dims, w_strides, w_box);
+  err = cached_map(&mw, kw);
   if (err) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (bn == 32)
-    e = launch<32>(mx, mw, bias, res, out, g, smem_bytes, s);
-  else if (bn == 64)
-    e = launch<64>(mx, mw, bias, res, out, g, smem_bytes, s);
-  else if (bn == 128)
-    e = launch<128>(mx, mw, bias, res, out, g, smem_bytes, s);
+  if (a.bn == 32)
+    e = launch<32>(mx, mw, a);
+  else if (a.bn == 64)
+    e = launch<64>(mx, mw, a);
+  else if (a.bn == 128)
+    e = launch<128>(mx, mw, a);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

@@ -1,13 +1,13 @@
 // Weight gradient of an NHWC convolution in f32 on Hopper's tensor
-// cores (sm_90a), stride 1, in 3xTF32:
+// cores (sm_90a), at any stride, in 3xTF32:
 //
 //   dW[ky, kx, ci, co] = sum_{b, oy, ox}
-//       x[b, oy + ky*dly - py, ox + kx*dlx - px, ci] * dy[b, oy, ox, co]
+//       x[b, sy*oy + ky*dly - py, sx*ox + kx*dlx - px, ci] * dy[b, oy, ox, co]
 //
 // (x read as zero outside the plane.)  f32 x and dy, f32 sums, f32 dW.
 //
 // Replaces, with csrc/wgrad_lb_sm90.cu (bf16) and csrc/wgrad_lb.cu (which
-// keeps strides and the layouts TMA cannot describe), the TPU kernel
+// keeps bf16 at strides and the layouts TMA cannot describe), the TPU kernel
 // `_wgrad_kernel` launched by `wgrad_lb_call`
 // (src/repro/kernels/conv_lb/wgrad.py:50, :94).  It computes the same
 // function; it is not a block-by-block copy of it.
@@ -72,6 +72,16 @@
 //    step) with two groups of wgmma left in flight, so a step's loads
 //    and splits run while the tensor cores work on the two before; the
 //    tile is at most 64 sums a thread.
+//  * Strides: the halo as parts (csrc/conv_lb_sm90_tf32.cu's design).
+//    Reduction pixel (oy, ox) of window (ky, kx) reads x at (sy*oy +
+//    ky*dly - py, sx*ox + kx*dlx - px).  Per pixel block the halo is one
+//    box per residue (ky*dly mod sy, kx*dlx mod sx) that some window has,
+//    loaded at the TMA traversal stride (sy, sx), so each box holds its
+//    strided pixels densely (8 + (Hk-1)*dly/sy rows of 8 + (Wk-1)*dlx/sx)
+//    and window (ky, kx) reads its box at the shift (ky*dly/sy,
+//    kx*dlx/sx): consecutive pixels of a row in consecutive halo rows, as
+//    at stride 1, so the bank pattern above holds.  dy is compact: B and
+//    its rewrite do not change.
 //  * A row block is 64 rows of (window, channel): 64 channels of one
 //    window, or 32 or 16 channels of 2 or 4 windows (cpr channels a
 //    window) where Ci is small.  The wrapper passes every window's
@@ -83,6 +93,10 @@
 //    in split order (no atomics: two runs give the same bits).
 //  * lo_terms = 0 zeroes the lo words (1xTF32): a control that the
 //    small terms are real, never a route.
+//  * One lean launch: the wrapper packs every integer of a plan once per
+//    geometry into `Args` and fills in only the pointers and the stream
+//    per call; the entry keeps the last kMapCache tensor maps and
+//    encodes one only for a key it has not seen.
 //  * No persistence, no clusters, no TMA store yet.
 
 #include <cuda.h>
@@ -90,6 +104,7 @@
 
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -101,10 +116,14 @@ constexpr int kBox = 32;         // channels of one 128-byte f32 box row
 constexpr int kMaxWin = 128;     // windows whose offsets a launch carries
 constexpr int kMaxStages = 8;    // TMA ring stages (dy tile + halo)
 constexpr int kBStages = 2;      // ring stages of the hi/lo B tiles
+constexpr int kMaxPart = 16;     // halo boxes of a slice (sy * sx residues)
+constexpr int kMapCache = 32;    // tensor maps the entry keeps
 
+// what the kernel reads of a launch (the wrapper's `Tf32WgradGeom`)
 struct Geom {
   int Ci, Co, nwin;
-  int py, px;            // the halo of block (oy0, ox0) starts at (oy0-py, ox0-px)
+  int py, px;            // box p of block (oy0, ox0) starts at (sy*oy0 - py
+  int sy, sx;            // + part_y[p], sx*ox0 - px + part_x[p])
   int nby, nbx;          // pixel blocks along Ho, Wo
   int nblk;              // B * nby * nbx
   int bps;               // pixel blocks per split
@@ -114,11 +133,30 @@ struct Geom {
   int nrb;               // row blocks per Ci block: slices * nwg
   int ngrp;              // CTA row-block groups per Ci block
   int stages;            // TMA ring depth
-  int sub_bytes;         // one 32-channel halo box (a 1024-byte multiple)
-  int sbo;               // one halo row (hx * 128 bytes)
+  int sub_bytes;         // one 32-channel slice of the halo: nparts boxes
+  int part_bytes;        // one box (a 1024-byte multiple)
+  int nparts;            // boxes of a slice
+  int row_step;          // bytes between pixel rows of a block (a box row)
   int halo_tx;           // bytes TMA writes into one halo stage
   uint32_t lo_mask;      // 0xffffffff (3xTF32) or 0 (1xTF32 control)
+  int part_y[kMaxPart];  // each box's residue row and column
+  int part_x[kMaxPart];
   int win_off[kMaxWin];  // window ky*Wk + kx -> byte shift in the halo
+};
+
+// one launch as the wrapper packs it (`Tf32WgradArgs`): the pointers and
+// the stream per call, the rest once per geometry
+struct Args {
+  const void* x;
+  const void* dy;
+  float* dw;
+  float* ws;             // splits x Hk*Wk*Ci x Co words, or null
+  void* stream;
+  int B, H, W, Ho, Wo;   // x (B, H, W, Ci), dy (B, Ho, Wo, Co)
+  int box_y, box_x;      // the x box in the tensor (traversal stride included)
+  int es_y, es_x;        // the x map's traversal strides
+  int bn, nwc, splits, smem_bytes;
+  Geom g;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -382,8 +420,11 @@ wgrad_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
           tma_load4(dst + j * 8192, &map_dy, full(s), n0 + kBox * j, ox0,
                     oy0, b);
         for (int p = 0; p < g.cib / kBox; ++p)
-          tma_load4(dst + dy_bytes + p * g.sub_bytes, &map_x, full(s),
-                    cb * g.cib + kBox * p, ox0 - g.px, oy0 - g.py, b);
+          for (int q = 0; q < g.nparts; ++q)
+            tma_load4(dst + dy_bytes + p * g.sub_bytes + q * g.part_bytes,
+                      &map_x, full(s), cb * g.cib + kBox * p,
+                      g.sx * ox0 - g.px + g.part_x[q],
+                      g.sy * oy0 - g.py + g.part_y[q], b);
         if (++s == g.stages) {
           s = 0;
           phase ^= 1;
@@ -486,7 +527,7 @@ wgrad_lb_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_x,
         // a0 (row r, pixel 2t), a1 (row r + 8, 2t), a2 (r, 2t + 1),
         // a3 (r + 8, 2t + 1) of output row kk: rows r and r + 8 are
         // adjacent channels, one 8-byte load a pixel
-        const uint32_t a = hb + a_off[j] + kk * g.sbo;
+        const uint32_t a = hb + a_off[j] + kk * g.row_step;
         const float2 p0 = lds2(swz(a));
         const float2 p1 = lds2(swz(a + 128));
         split_tf32(p0.x, g.lo_mask, af[f][j][0], af[f][j][4]);
@@ -623,24 +664,59 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// an f32 map of 4 dimensions (innermost first) over an NHWC tensor
-// (C, W, H, B), boxes of `box`, 128-byte swizzle, zero fill out of bounds
+// an f32 map of 4 dimensions (innermost first) over an NHWC tensor (C,
+// W, H, B), boxes of `box` traversed at `elem` (the box holds box[i] /
+// elem[i] elements along i), 128-byte swizzle, zero fill out of bounds.
+// A map is a pure function of these, so the last kMapCache of them are
+// kept and a key seen before is not encoded again
+struct MapKey {
+  const void* base;
+  cuuint64_t dims[4];
+  cuuint32_t box[4];
+  cuuint32_t elem[4];
+};
+
+struct MapSlot {
+  MapKey key;
+  CUtensorMap map;
+  bool used;
+};
+
 int make_map(CUtensorMap* map, const void* base, int C, int W, int H, int B,
-             const cuuint32_t* box) {
+             const cuuint32_t* box, const cuuint32_t* elem) {
+  static MapSlot slots[kMapCache];
+  static int next = 0;
+  MapKey key;
+  memset(&key, 0, sizeof key);
+  key.base = base;
+  key.dims[0] = C;
+  key.dims[1] = W;
+  key.dims[2] = H;
+  key.dims[3] = B;
+  for (int i = 0; i < 4; ++i) {
+    key.box[i] = box[i];
+    key.elem[i] = elem[i];
+  }
+  for (int i = 0; i < kMapCache; ++i)
+    if (slots[i].used && memcmp(&slots[i].key, &key, sizeof key) == 0) {
+      *map = slots[i].map;
+      return 0;
+    }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -1;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
-                              static_cast<cuuint64_t>(W),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {4ull * C, 4ull * C * W, 4ull * C * W * H};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+      key.dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+  if (r != CUDA_SUCCESS) return 1000 + static_cast<int>(r);
+  MapSlot& slot = slots[next];
+  next = (next + 1) % kMapCache;
+  slot.key = key;
+  slot.map = *map;
+  slot.used = true;
+  return 0;
 }
 
 template <int BN, int NWC>
@@ -677,78 +753,57 @@ cudaError_t launch_tile(int bn, int nwc, const CUtensorMap& mx,
 
 }  // namespace
 
-// dW (Hk, Wk, Ci, Co) f32 from x (B, H, W, Ci) and dy (B, Ho, Wo, Co):
-// contiguous f32, bases 16-byte aligned, Ci and Co multiples of 4,
-// stride 1 (the wrapper's route checks all of it).  The tile (bn, nwc,
-// cib, cpr), the ring depth, the halo box (hy, hx), the split (splits
-// ranges of bps pixel blocks) and the shared-memory offsets come from
-// the wrapper's plan: sub_bytes (one 32-channel halo box) and win_off
-// (Hk*Wk window shifts, host memory).  lo_terms = 0 drops the lo words
-// (1xTF32, a control).  With splits > 1 the partial tiles go to `ws`
-// (splits x Hk*Wk*Ci x Co words) and a second kernel sums them into
-// `dw`.  Returns a CUDA error code, or 1000 + the CUresult of a refused
-// tensor map, or -1 if the driver has no cuTensorMapEncodeTiled.
-extern "C" int wgrad_lb_sm90_tf32_forward(
-    const void* x, const void* dy, float* dw, float* ws, const void* win_off,
-    int B, int H, int W, int Ci, int Co, int Hk, int Wk, int Ho, int Wo,
-    int py, int px, int hy, int hx, int bn, int nwc, int cib, int cpr,
-    int stages, int sub_bytes, int splits, int bps, int smem_bytes,
-    int lo_terms, void* stream) {
-  const int nwin = Hk * Wk;
-  const int nblk = B * ((Ho + kBlock - 1) / kBlock) *
-                   ((Wo + kBlock - 1) / kBlock);
-  if (B < 1 || Ci < 1 || Co < 1 || Ci % 4 || Co % 4 || nwin < 1 ||
-      nwin > kMaxWin || (cib != 32 && cib != 64 && cib != 128) ||
-      (cpr != 16 && cpr != 32 && cpr != 64) || cpr > cib || stages < 2 ||
-      stages > kMaxStages || sub_bytes % 1024 != 0 ||
-      sub_bytes < hy * hx * 128 || splits < 1 || bps < 1 ||
-      static_cast<long long>(splits - 1) * bps >= nblk ||
-      static_cast<long long>(splits) * bps < nblk ||
-      (splits > 1 && ws == nullptr))
+// dW (Hk, Wk, Ci, Co) f32 from x (B, H, W, Ci) and dy (B, Ho, Wo, Co),
+// one launch from `a` (the wrapper's `Tf32WgradArgs`): contiguous f32,
+// bases 16-byte aligned, Ci and Co multiples of 4 (the wrapper's route
+// checks all of it).  The tile (bn, nwc, cib, cpr), the ring depth, the
+// halo's boxes and steps, the split (splits ranges of bps pixel blocks)
+// and every window's shift come from the wrapper's plan.  With splits > 1
+// the partial tiles go to `ws` and a second kernel sums them into `dw`.
+// Returns a CUDA error code, or 1000 + the CUresult of a refused tensor
+// map, or -1 if the driver has no cuTensorMapEncodeTiled.
+// (`args` is an `Args`, whose type is this file's own: the entry takes it
+// as a plain pointer so that its name is exported)
+extern "C" int wgrad_lb_sm90_tf32_launch(const void* args) {
+  const Args& a = *static_cast<const Args*>(args);
+  const Geom& g = a.g;
+  if (a.B < 1 || g.Ci < 1 || g.Co < 1 || g.Ci % 4 || g.Co % 4 ||
+      g.nwin < 1 || g.nwin > kMaxWin ||
+      (g.cib != 32 && g.cib != 64 && g.cib != 128) ||
+      (g.cpr != 16 && g.cpr != 32 && g.cpr != 64) || g.cpr > g.cib ||
+      g.stages < 2 || g.stages > kMaxStages || g.part_bytes % 1024 != 0 ||
+      g.nparts < 1 || g.nparts > kMaxPart ||
+      g.sub_bytes < g.nparts * g.part_bytes || a.box_y > 256 ||
+      a.box_x > 256 || a.es_y < 1 || a.es_y > 8 || a.es_x < 1 ||
+      a.es_x > 8 || a.splits < 1 || g.bps < 1 ||
+      static_cast<long long>(a.splits - 1) * g.bps >= g.nblk ||
+      static_cast<long long>(a.splits) * g.bps < g.nblk ||
+      (a.splits > 1 && a.ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  Geom g;
-  g.Ci = Ci; g.Co = Co; g.nwin = nwin;
-  g.py = py; g.px = px;
-  g.nby = (Ho + kBlock - 1) / kBlock;
-  g.nbx = (Wo + kBlock - 1) / kBlock;
-  g.nblk = nblk;
-  g.bps = bps;
-  g.cib = cib;
-  g.cpr = cpr;
-  const int per_block = Ci < cib ? Ci : cib;
-  const int slices = (per_block + cpr - 1) / cpr;
-  g.nwg = (nwin + 64 / cpr - 1) / (64 / cpr);
-  g.nrb = slices * g.nwg;
-  g.ngrp = (g.nrb + kConsumers * nwc - 1) / (kConsumers * nwc);
-  g.stages = stages;
-  g.sub_bytes = sub_bytes;
-  g.sbo = hx * 128;
-  g.halo_tx = (cib / kBox) * hy * hx * 128;
-  g.lo_mask = lo_terms ? 0xffffffffu : 0u;
-  const int* offs = static_cast<const int*>(win_off);
-  for (int i = 0; i < kMaxWin; ++i) g.win_off[i] = i < nwin ? offs[i] : 0;
-
-  // x: 32 channels of the halo per box; dy: 32 channels of one 8 x 8
+  // x: 32 channels of one halo box per load; dy: 32 channels of one 8 x 8
   // pixel block per box; both 128-byte swizzled
-  const cuuint32_t x_box[4] = {kBox, static_cast<cuuint32_t>(hx),
-                               static_cast<cuuint32_t>(hy), 1};
+  const cuuint32_t x_box[4] = {kBox, static_cast<cuuint32_t>(a.box_x),
+                               static_cast<cuuint32_t>(a.box_y), 1};
+  const cuuint32_t x_elem[4] = {1, static_cast<cuuint32_t>(a.es_x),
+                                static_cast<cuuint32_t>(a.es_y), 1};
   const cuuint32_t dy_box[4] = {kBox, kBlock, kBlock, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   CUtensorMap mx, mdy;
-  int err = make_map(&mx, x, Ci, W, H, B, x_box);
+  int err = make_map(&mx, a.x, g.Ci, a.W, a.H, a.B, x_box, x_elem);
   if (err) return err;
-  err = make_map(&mdy, dy, Co, Wo, Ho, B, dy_box);
+  err = make_map(&mdy, a.dy, g.Co, a.Wo, a.Ho, a.B, dy_box, unit);
   if (err) return err;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* dst = splits > 1 ? ws : dw;
+  const cudaStream_t s = static_cast<cudaStream_t>(a.stream);
+  float* dst = a.splits > 1 ? a.ws : a.dw;
   cudaError_t e =
-      launch_tile(bn, nwc, mx, mdy, dst, g, splits, smem_bytes, s);
-  if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  const size_t n4 = static_cast<size_t>(nwin) * Ci * Co / 4;
+      launch_tile(a.bn, a.nwc, mx, mdy, dst, g, a.splits, a.smem_bytes, s);
+  if (e != cudaSuccess || a.splits == 1) return static_cast<int>(e);
+  const size_t n4 = static_cast<size_t>(g.nwin) * g.Ci * g.Co / 4;
   const int blocks =
       static_cast<int>((n4 + 127) / 128 < 4096 ? (n4 + 127) / 128 : 4096);
   wgrad_tf32_reduce_kernel<<<blocks, 128, 0, s>>>(
-      reinterpret_cast<const float4*>(ws), reinterpret_cast<float4*>(dw), n4,
-      splits);
+      reinterpret_cast<const float4*>(a.ws), reinterpret_cast<float4*>(a.dw),
+      n4, a.splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,9 +5,11 @@ CUDA kernels of K1, which together replace the TPU kernel
 
   * ``csrc/conv_lb_sm90.cu`` (route ``"sm90"``): bf16 at stride 1 on
     the tensor cores, TMA into mbarrier rings feeding ``wgmma``;
-  * ``csrc/conv_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 at
-    stride 1 on the tensor cores in 3xTF32, A (the halo) from registers,
+  * ``csrc/conv_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 at any
+    stride on the tensor cores in 3xTF32, A (the halo) from registers,
     the weights rewritten once per K step into K-major hi and lo tiles;
+    also a strided conv's data gradient in one launch by output phases
+    (:func:`conv_lb_dgrad`);
   * ``csrc/wgrad_im2col.cu``, then one of the two kernels above (route
     ``"sm90_im2col"``): stride 1 with a channel count too small for a
     TMA map (VGG16's conv1_1, Ci = 3) staged as an im2col plane of at
@@ -15,8 +17,9 @@ CUDA kernels of K1, which together replace the TPU kernel
     with K2), then a 1x1 conv of the plane on the tensor-core kernel of
     its type against w read as Hk*Wk*Ci rows (its weight map zero past
     them);
-  * ``csrc/conv_lb.cu`` (route ``"fma"``): strides, lhs dilation and
-    every conv :func:`route` does not send to the tensor cores, on FMA.
+  * ``csrc/conv_lb.cu`` (route ``"fma"``): bf16 strides, lhs dilation
+    and every conv :func:`route` does not send to the tensor cores, on
+    FMA.
 
 Build (:mod:`repro_torch.kernels.nvcc`, shared by every wrapper): at
 first use ``nvcc`` compiles a source in this checkout for ``sm_90a``
@@ -29,7 +32,9 @@ failed build, a refused launch, a geometry or dtype the kernel does not
 take); a CPU tensor runs the plain version
 (:func:`~repro_torch.kernels.conv_lb.ref.conv2d_ref`).  The route is
 read from types, geometry and pointers before launch, never by trying
-one; :func:`plan_of` names it with the tile its kernel runs.  Each
+one, and read once per geometry key (:func:`lookup`,
+:class:`~repro_torch.kernels.lean.LaunchCache`); :func:`plan_of` names
+it with the tile its kernel runs.  Each
 layer call that launches adds one to ``conv_lb.launches`` and to its
 route's entry of ``conv_lb.launches_by_route``; the im2col staging
 kernel adds one to ``conv_lb.stage_launches`` where it launches.
@@ -44,16 +49,18 @@ from functools import lru_cache
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.hopper_adapter import (REGS_PER_SM, SM_COUNT,
                                              SMEM_PER_BLOCK)
 from repro_torch.core.layer import ceil_div
-from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, _c_ints,
+from repro_torch.kernels.conv_lb.im2col import (Im2colPlan,
                                                 im2col_channels,
                                                 im2col_taps, stage,
                                                 stage_fits)
-from repro_torch.kernels.conv_lb.ref import conv2d_ref
-from repro_torch.kernels.nvcc import Library, _entry
+from repro_torch.kernels.conv_lb.ref import conv2d_ref, flip_w
+from repro_torch.kernels.lean import LaunchCache, on_device, operand_key
+from repro_torch.kernels.nvcc import Library, _entry, _entry_struct
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_lb_sm90.cu"
@@ -288,27 +295,52 @@ def sm90_plan(batch: int, ho: int, wo: int, co: int, ci: int, hk: int = 1,
     return None if best is None else best[1]
 
 
+#: halo boxes of one Ci block (the residues of a stride: ``sy * sx``
+#: at most), output phases of one launch, window offsets of a launch
+#: (must match csrc/conv_lb_sm90_tf32.cu)
+TF32_MAX_PARTS = 16
+TF32_MAX_PHASES = 16
+TF32_MAX_STRIDE = 8          # a TMA map's traversal stride
+
+
 @dataclasses.dataclass(frozen=True)
 class Sm90Tf32Plan:
     """The 3xTF32 kernel's tile and every shared-memory offset it is
-    passed (bytes).  The halo of one Ci block lies as ``bb`` images x
-    ``hy`` x ``hx`` pixels, one 128-byte swizzled row of 32 channels a
-    pixel, in a stage of ``h_stage`` bytes; a consumer's pixel (r, c)
-    of its block reads row ``blk_off / 128 + r * hx + c``, and window
-    ``(ky, kx)`` the same rows shifted by ``win_off[ky * wk + kx]``."""
+    passed (bytes).  The halo of one Ci block lies as ``len(parts)``
+    boxes, ``part_bytes`` apart, each ``bb`` images x ``hy`` x ``hx``
+    pixels, one 128-byte swizzled row of 32 channels a pixel, in a
+    stage of ``h_stage`` bytes.  A box is loaded at the TMA traversal
+    stride ``es`` (so its extent in the tensor is ``hy * es`` rows by
+    ``hx * es`` columns), starting ``stride``
+    x the tile's origin plus its residue ``parts[i]``; a consumer's
+    pixel (r, c) of its block reads the halo at ``blk_off + r * sbo + c
+    * 128`` (``sbo``: one box row), window ``i`` the same rows shifted
+    by ``win_off[i]``.  At stride 1 there is one box.
+
+    A data gradient's plan (:func:`sm90_tf32_dgrad_plan`) adds its
+    output ``phases``, one ``(qy, qx, ho, wo, y0, x0, win0, nwin)`` each
+    (its plane, halo origin and windows), each window's weight tap
+    (``win_w``), and ``wt``: w's (Ci, Co) slices read transposed."""
 
     bb: int
     ty: int
     tx: int
     bn: int                    # output channels per CTA
-    hy: int                    # halo box rows
+    hy: int                    # halo box rows (in the box)
     hx: int                    # halo box columns
     h_stage: int               # one halo stage (a 1024-byte multiple)
-    sbo: int                   # one halo row (hx * 128)
+    sbo: int                   # bytes between output rows in the halo
     blk_off: tuple[int, int]   # each consumer's block in the halo
-    win_off: tuple[int, ...]   # window ky * wk + kx -> shift in the halo
+    win_off: tuple[int, ...]   # window -> shift in the halo
     smem_bytes: int
+    parts: tuple[tuple[int, int], ...]   # each box's residue (ry, rx)
+    part_bytes: int            # one box (a 1024-byte multiple)
+    es: tuple[int, int]        # the x map's traversal strides
+    stride: tuple[int, int]    # halo rows, columns a tile row, column moves
     ctas: int
+    phases: tuple[tuple[int, ...], ...] = ()
+    win_w: tuple[int, ...] = ()
+    wt: bool = False
 
     @property
     def tile(self) -> tuple[int, int, int, int]:
@@ -316,58 +348,173 @@ class Sm90Tf32Plan:
         return self.bb, self.ty, self.tx, self.bn
 
 
+def tf32_parts(hk: int, wk: int, dilation: tuple[int, int],
+               stride: tuple[int, int]) -> tuple[tuple[int, int], ...]:
+    """The residues ``(ky*dly mod sy, kx*dlx mod sx)`` some window has:
+    one halo box each (4 at a 3x3/2, 1 at a 1x1/2 or at stride 1)."""
+    (dy, dx), (sy, sx) = dilation, stride
+    ys = sorted({ky * dy % sy for ky in range(hk)})
+    xs = sorted({kx * dx % sx for kx in range(wk)})
+    return tuple((ry, rx) for ry in ys for rx in xs)
+
+
 def sm90_tf32_layout(bb: int, ty: int, tx: int, bn: int, hk: int, wk: int,
-                     dilation: tuple[int, int]) -> dict:
-    """The halo box and the shared-memory offsets of one 3xTF32 tile
+                     dilation: tuple[int, int],
+                     stride: tuple[int, int] = (1, 1)) -> dict:
+    """The halo boxes and the shared-memory offsets of one 3xTF32 tile
     (the fields of :class:`Sm90Tf32Plan` but ``ctas``): from a
     1024-byte line the weight ring (``bn`` x 32 words a stage), the B
     ring (a hi and a lo tile of ``bn`` x 32 words a stage), the halo
-    ring, then a full and an empty mbarrier per stage of each ring."""
-    dy, dx = dilation
-    hy, hx = ty + (hk - 1) * dy, tx + (wk - 1) * dx
-    h_stage = ceil_div(bb * hy * hx * 128, 1024) * 1024
-    # the second consumer's block: the next image's, or 8 columns on
-    blk = ((bb - 1) * hy * hx + (tx - SM90_BLOCK)) * 128
-    win = tuple((ky * dy * hx + kx * dx) * 128
+    ring, then a full and an empty mbarrier per stage of each ring.  At
+    stride (sy, sx) the halo is one box per residue of
+    :func:`tf32_parts`, each at the traversal stride (sy, sx), so window
+    (ky, kx) reads its box densely at the shift (ky*dly // sy, kx*dlx
+    // sx): consecutive pixels in consecutive rows, as at stride 1."""
+    (dy, dx), (sy, sx) = dilation, stride
+    parts = tf32_parts(hk, wk, dilation, stride)
+    hy, hx = ty + (hk - 1) * dy // sy, tx + (wk - 1) * dx // sx
+    part = ceil_div(bb * hy * hx * 128, 1024) * 1024
+    index = {r: i for i, r in enumerate(parts)}
+    win = tuple(index[ky * dy % sy, kx * dx % sx] * part
+                + ((ky * dy // sy) * hx + kx * dx // sx) * 128
                 for ky in range(hk) for kx in range(wk))
+    h_stage = len(parts) * part
+    # the second consumer's block: the next image's, or 8 columns on
+    blk = ((bb - 1) * hy * hx + tx - SM90_BLOCK) * 128
     tile = bn * TF32_BK * 4
     smem = (1024 + TF32_W_STAGES * tile + TF32_B_STAGES * 2 * tile
             + TF32_H_STAGES * h_stage
             + 16 * (TF32_W_STAGES + TF32_B_STAGES + TF32_H_STAGES))
     return dict(bb=bb, ty=ty, tx=tx, bn=bn, hy=hy, hx=hx, h_stage=h_stage,
                 sbo=hx * 128, blk_off=(0, blk), win_off=win,
-                smem_bytes=smem)
+                smem_bytes=smem, parts=parts, part_bytes=part,
+                es=(sy, sx), stride=(sy, sx))
+
+
+def _tf32_fits(lay: dict) -> bool:
+    return (lay["smem_bytes"] <= SMEM_PER_BLOCK
+            and len(lay["win_off"]) <= SM90_MAX_WIN
+            and len(lay["parts"]) <= TF32_MAX_PARTS
+            and max(lay["es"]) <= TF32_MAX_STRIDE
+            and max(lay["hy"] * lay["es"][0], lay["hx"] * lay["es"][1])
+            <= SM90_BOX_MAX)
+
+
+def _rank_tf32(lays, batch: int, ho: int, wo: int, co: int, phases: int = 1):
+    """The best of ``lays`` (tiles that fit) by :func:`sm90_tf32_plan`'s
+    ranking, as an :class:`Sm90Tf32Plan` without its phases; ``None``
+    if none fits."""
+    best = None
+    for lay in lays:
+        if not _tf32_fits(lay):
+            continue
+        ty, tx, bn = lay["ty"], lay["tx"], lay["bn"]
+        ctas = (ceil_div(batch, lay["bb"]) * ceil_div(ho, ty)
+                * ceil_div(wo, tx) * ceil_div(co, bn) * phases)
+        waves = ceil_div(ctas, SM_COUNT)
+        halo = len(lay["parts"]) * lay["hy"] * lay["hx"] / (ty * tx)
+        key = (waves * bn, ctas * bn, halo, -bn)
+        if best is None or key < best[0]:
+            best = (key, Sm90Tf32Plan(**lay, ctas=ctas))
+    return None if best is None else best[1]
 
 
 @lru_cache(maxsize=4096)
 def sm90_tf32_plan(batch: int, ho: int, wo: int, co: int, ci: int,
                    hk: int = 1, wk: int = 1,
-                   dilation: tuple[int, int] = (1, 1)
+                   dilation: tuple[int, int] = (1, 1),
+                   stride: tuple[int, int] = (1, 1)
                    ) -> Sm90Tf32Plan | None:
-    """The 3xTF32 kernel's tile for one stride-1 f32 conv, ranked as
-    :func:`sm90_plan` ranks (one CTA per SM): the fewest waves of CTAs
-    over the card's SMs, then the fewest CTAs (each does 128 x ``bn``
-    work whatever part of it is real), then the least halo per output
-    pixel, then the widest ``bn`` (a narrower one where Co is small:
-    ResNet-20's 16 and 32 channels).  ``ci`` does not enter the rank:
-    every tile steps over 32-channel Ci blocks.  Only tiles whose shared
-    memory fits with at most ``SM90_MAX_WIN`` windows are ranked;
-    ``None`` if none does."""
-    best = None
-    for bn, (bb, ty, tx) in itertools.product(TF32_BN, SM90_TILES):
-        if bn > TF32_BN[0] and co <= bn // 2:
-            continue
-        lay = sm90_tf32_layout(bb, ty, tx, bn, hk, wk, tuple(dilation))
-        if not _sm90_fits(lay):
-            continue
-        ctas = (ceil_div(batch, bb) * ceil_div(ho, ty) * ceil_div(wo, tx)
-                * ceil_div(co, bn))
-        waves = ceil_div(ctas, SM_COUNT)
-        halo = lay["hy"] * lay["hx"] / (ty * tx)
-        key = (waves * bn, ctas * bn, halo, -bn)
-        if best is None or key < best[0]:
-            best = (key, Sm90Tf32Plan(**lay, ctas=ctas))
-    return None if best is None else best[1]
+    """The 3xTF32 kernel's tile for one f32 conv at ``stride``, ranked
+    as :func:`sm90_plan` ranks (one CTA per SM): the fewest waves of
+    CTAs over the card's SMs, then the fewest CTAs (each does 128 x
+    ``bn`` work whatever part of it is real), then the least halo per
+    output pixel, then the widest ``bn`` (a narrower one where Co is
+    small: ResNet-20's 16 and 32 channels).  ``ci`` does not enter the
+    rank: every tile steps over 32-channel Ci blocks.  Only tiles whose
+    shared memory fits with at most ``SM90_MAX_WIN`` windows and boxes
+    TMA takes are ranked; ``None`` if none does."""
+    lays = (sm90_tf32_layout(bb, ty, tx, bn, hk, wk, tuple(dilation),
+                             tuple(stride))
+            for bn, (bb, ty, tx) in itertools.product(TF32_BN, SM90_TILES)
+            if bn == TF32_BN[0] or co > bn // 2)
+    return _rank_tf32(lays, batch, ho, wo, co)
+
+
+def dgrad_taps(n: int, k: int, s: int, p: int, d: int):
+    """Per output phase q (dx rows q, q + s, ...) of one axis of the
+    data gradient of a conv (``n`` input rows, window ``k`` at dilation
+    ``d``, stride ``s``, padding ``p``): its rows ``ceil((n - q) / s)``
+    and its taps ``[(k_i, e_i)]``, tap ``k_i`` reading gy row ``m + e_i``
+    for dx row ``s*m + q`` (``q + p - k_i*d = e_i*s``)."""
+    return [(max(0, ceil_div(n - q, s)),
+             [(kk, (q + p - kk * d) // s) for kk in range(k)
+              if (q + p - kk * d) % s == 0])
+            for q in range(s)]
+
+
+@lru_cache(maxsize=4096)
+def sm90_tf32_dgrad_plan(batch: int, h: int, wd: int, ci: int, co: int,
+                         hk: int, wk: int, stride: tuple[int, int],
+                         padding: tuple[int, int],
+                         dilation: tuple[int, int] = (1, 1)
+                         ) -> Sm90Tf32Plan | None:
+    """The 3xTF32 kernel's plan for dx (batch, h, wd, ci) of the conv x
+    -> gy (batch, ho, wo, co) with w (hk, wk, ci, co) at ``stride``, by
+    output phases: phase (qy, qx) is a stride-1 conv of the compact gy
+    over the taps of :func:`dgrad_taps` on each axis (w's slices read
+    transposed, tap by tap as they lie: no flipped copy), its halo box
+    starting at the phase's least tap offset, stored at stride ``s``
+    from (qy, qx); a phase with no tap writes zeros.  The tile is ranked
+    as :func:`sm90_tf32_plan` ranks, over phase (0, 0)'s plane, with
+    one halo box as wide as the widest phase's span of taps."""
+    (sy, sx), (py, px), (dly, dlx) = stride, padding, dilation
+    ys = dgrad_taps(h, hk, sy, py, dly)
+    xs = dgrad_taps(wd, wk, sx, px, dlx)
+
+    def span(axis):
+        return max((max(e for _, e in t) - min(e for _, e in t) if t else 0)
+                   for _, t in axis)
+
+    if sy * sx > TF32_MAX_PHASES or hk * wk > SM90_MAX_WIN:
+        return None
+    lays = (sm90_tf32_layout(bb, ty, tx, bn, span(ys) + 1, span(xs) + 1,
+                             (1, 1))
+            for bn, (bb, ty, tx) in itertools.product(TF32_BN, SM90_TILES)
+            if bn == TF32_BN[0] or ci > bn // 2)
+    base = _rank_tf32(lays, batch, ys[0][0], xs[0][0], ci, sy * sx)
+    if base is None:
+        return None
+    phases, win_off, win_w = [], [], []
+    for qy, (hq, ty_) in enumerate(ys):
+        for qx, (wq, tx_) in enumerate(xs):
+            y0 = min((e for _, e in ty_), default=0)
+            x0 = min((e for _, e in tx_), default=0)
+            phases.append((qy, qx, hq, wq, y0, x0, len(win_off),
+                           len(ty_) * len(tx_)))
+            for ky, ey in ty_:
+                for kx, ex in tx_:
+                    win_off.append(((ey - y0) * base.hx + ex - x0) * 128)
+                    win_w.append(ky * wk + kx)
+    return dataclasses.replace(base, win_off=tuple(win_off),
+                               phases=tuple(phases), win_w=tuple(win_w),
+                               wt=True)
+
+
+def halo_at_stride_one(plan):
+    """``plan`` (K1's or K2's 3xTF32 plan) with each halo box loaded
+    without its traversal stride but read as if strided: a control that
+    the card's gate sees a strided halo, never a route."""
+    return dataclasses.replace(plan, es=(1, 1))
+
+
+def dgrad_phase_shifted(plan: Sm90Tf32Plan) -> Sm90Tf32Plan:
+    """``plan`` with its fullest phase's windows one gy column off: a
+    control that the card's gate sees a phase's taps, never a route."""
+    *_, win0, nwin = max(plan.phases, key=lambda ph: ph[-1])
+    off = list(plan.win_off)
+    off[win0:win0 + nwin] = [o + 128 for o in off[win0:win0 + nwin]]
+    return dataclasses.replace(plan, win_off=tuple(off))
 
 
 def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
@@ -375,20 +522,22 @@ def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
           residual: torch.Tensor | None = None, dilation=(1, 1),
           pool: int = 1, padding=(0, 0)) -> str:
     """The tensor-core routes need x, w, bias and residual (where given)
-    of one type, bf16 or f32, stride and lhs dilation (1, 1) (any
-    dilation and padding), Co a multiple of ``pitch`` (8 bf16, 4 f32
-    channels: a 16-byte row pitch that a TMA map describes), every base
-    address 16-byte aligned and the fused pool 1 or 2 (the epilogue
-    pools 2 x 2 in registers); then
+    of one type, bf16 or f32, lhs dilation (1, 1) (any dilation and
+    padding), Co a multiple of ``pitch`` (8 bf16, 4 f32 channels: a
+    16-byte row pitch that a TMA map describes), every base address
+    16-byte aligned and the fused pool 1 or 2 (the epilogue pools 2 x 2
+    in registers); then
 
-      * ``"sm90"`` (bf16) or ``"sm90_tf32"`` (f32): Ci a multiple of
-        ``pitch`` and a tile of :func:`sm90_plan` or
-        :func:`sm90_tf32_plan` that fits shared memory with at most
-        ``SM90_MAX_WIN`` windows;
-      * ``"sm90_im2col"``: Ci not a multiple of ``pitch``, Hk*Wk*Ci <=
-        ``im2col.IM2COL_MAX`` (VGG16's conv1_1 and ResNet-20's stem:
-        27), the staging kernel takes the plane (``stage_fits``) and a
-        tile of the type's plan fits the plane's 1x1 conv.
+      * ``"sm90"`` (bf16, stride (1, 1)) or ``"sm90_tf32"`` (f32, any
+        stride up to ``TF32_MAX_STRIDE``; the pool 1 where the stride is
+        not 1): Ci a multiple of ``pitch`` and a tile of
+        :func:`sm90_plan` or :func:`sm90_tf32_plan` that fits shared
+        memory with at most ``SM90_MAX_WIN`` windows;
+      * ``"sm90_im2col"``: stride (1, 1), Ci not a multiple of
+        ``pitch``, Hk*Wk*Ci <= ``im2col.IM2COL_MAX`` (VGG16's conv1_1
+        and ResNet-20's stem: 27), the staging kernel takes the plane
+        (``stage_fits``) and a tile of the type's plan fits the plane's
+        1x1 conv.
 
     Else ``"fma"``.  Read from types, geometry and pointers only, before
     launch."""
@@ -396,20 +545,28 @@ def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
     dt = x.dtype
+    stride = tuple(stride)
     if not (dt in (torch.bfloat16, torch.float32)
             and all(t.dtype == dt for t in operands)
-            and tuple(stride) == (1, 1) and tuple(lhs_dilation) == (1, 1)
+            and tuple(lhs_dilation) == (1, 1)
             and all(t.data_ptr() % 16 == 0 for t in operands)
             and pool in (1, 2)):
         return "fma"
     bf16 = dt == torch.bfloat16
+    strided = stride != (1, 1)
+    if strided and (bf16 or pool > 1 or max(stride) > TF32_MAX_STRIDE):
+        return "fma"
     pitch = SM90_PLANE if bf16 else 4
-    plan = sm90_plan if bf16 else sm90_tf32_plan
     if co % pitch:
         return "fma"
     if ci % pitch == 0:
-        fits = plan(1, 1, 1, co, ci, hk, wk, tuple(dilation))
+        fits = (sm90_plan(1, 1, 1, co, ci, hk, wk, tuple(dilation)) if bf16
+                else sm90_tf32_plan(1, 1, 1, co, ci, hk, wk,
+                                    tuple(dilation), stride))
         return "fma" if fits is None else ("sm90" if bf16 else "sm90_tf32")
+    if strided:
+        return "fma"
+    plan = sm90_plan if bf16 else sm90_tf32_plan
     cp = im2col_channels(ci, hk, wk)
     ho, wo = _out_plane(h, wd, hk, wk, (1, 1), tuple(padding),
                         tuple(dilation), (1, 1))
@@ -452,7 +609,8 @@ def plan_of(x: torch.Tensor, w: torch.Tensor,
     if rt == "sm90":
         return rt, sm90_plan(b, ho, wo, co, ci, hk, wk, dilation)
     if rt == "sm90_tf32":
-        return rt, sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dilation)
+        return rt, sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dilation,
+                                  stride)
     if rt == "sm90_im2col":
         cp = im2col_channels(ci, hk, wk)
         inner = sm90_plan if x.dtype == torch.bfloat16 else sm90_tf32_plan
@@ -493,7 +651,9 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     bias (Co,), residual (B, Ho, Wo, Co) -> (B, Ho/pool, Wo/pool, Co).
 
     A CUDA ``x`` launches the kernel :func:`route` names; a CPU ``x``
-    runs the plain version.  Any other device raises."""
+    runs the plain version.  Any other device raises.  The route, the
+    plan and the checks are read once per geometry key
+    (:func:`lookup`)."""
     if x.device.type == "cpu":
         return conv2d_ref(x, w, bias, residual, stride=stride,
                           padding=padding, dilation=dilation,
@@ -501,6 +661,48 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"the conv kernel runs on CUDA tensors (or its "
                          f"plain version on CPU ones), not {x.device}")
+    key, entry, fresh = lookup(x, w, bias, residual, stride=stride,
+                               padding=padding, dilation=dilation,
+                               lhs_dilation=lhs_dilation, relu=relu,
+                               pool=pool)
+    try:
+        out = entry.launch(x, w, bias, residual)
+    except BaseException:
+        if fresh:
+            launch_cache.drop(key)
+        raise
+    conv_lb.launches += 1
+    conv_lb.launches_by_route[entry.route] += 1
+    return out
+
+
+def lookup(x, w, bias=None, residual=None, *, stride=(1, 1),
+           padding=(0, 0), dilation=(1, 1), lhs_dilation=(1, 1),
+           relu: bool = False, pool: int = 1):
+    """``(key, entry, fresh)``: the launch entry of this call's geometry
+    key (:func:`~repro_torch.kernels.lean.operand_key` of each operand
+    and the geometry), made (checks, route and plan) on its first call
+    only."""
+    key = (operand_key(x), operand_key(w), operand_key(bias),
+           operand_key(residual), tuple(stride), tuple(padding),
+           tuple(dilation), tuple(lhs_dilation), bool(relu), pool)
+    entry, fresh = launch_cache.get(key, lambda: _prepare(
+        x, w, bias, residual, tuple(stride), tuple(padding),
+        tuple(dilation), tuple(lhs_dilation), bool(relu), pool))
+    return key, entry, fresh
+
+
+class _Launch:
+    """One geometry's route, plan and launcher."""
+
+    def __init__(self, route: str, plan, launch):
+        self.route, self.plan, self.launch = route, plan, launch
+
+
+def _prepare(x, w, bias, residual, stride, padding, dilation, lhs_dilation,
+             relu: bool, pool: int) -> _Launch:
+    """Check the operands, read the route and plan, and bind the
+    launcher of one geometry."""
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
     sy, sx = stride
@@ -529,19 +731,24 @@ def conv_lb(x: torch.Tensor, w: torch.Tensor,
                        padding=padding, dilation=dilation,
                        lhs_dilation=lhs_dilation, pool=pool)
     if rt == "sm90":
-        out = _sm90(x, w, bias, residual, ho, wo, (py, px), relu, pool,
-                    plan)
-    elif rt == "sm90_tf32":
-        out = _sm90_tf32(x, w, bias, residual, ho, wo, (py, px), relu,
-                         pool, plan)
-    elif rt == "sm90_im2col":
-        out = _im2col_sm90(x, w, bias, residual, ho, wo, relu, pool, plan)
-    else:
-        out = _fma(x, w, bias, residual, ho, wo, stride, padding, dilation,
-                   lhs_dilation, relu, pool, plan)
-    conv_lb.launches += 1
-    conv_lb.launches_by_route[rt] += 1
-    return out
+        return _Launch(rt, plan, lambda x, w, bias, res: _sm90(
+            x, w, bias, res, ho, wo, padding, relu, pool, plan))
+    if rt == "sm90_tf32":
+        return _Launch(rt, plan, Tf32Launch(
+            (b, ho // pool, wo // pool, co),
+            tf32_args(x.shape, w.shape, plan, (ho, wo), padding, relu,
+                      pool)))
+    if rt == "sm90_im2col":
+        # f32: the plane's 1x1 conv packed once too
+        inner = None if x.dtype == torch.bfloat16 else Tf32Launch(
+            (b, ho // pool, wo // pool, co),
+            tf32_args((b, ho, wo, plan.cp), (1, 1, hk * wk * ci, co),
+                      plan.inner, (ho, wo), (0, 0), relu, pool))
+        return _Launch(rt, plan, lambda x, w, bias, res: _im2col_sm90(
+            x, w, bias, res, ho, wo, relu, pool, plan, inner))
+    return _Launch(rt, plan, lambda x, w, bias, res: _fma(
+        x, w, bias, res, ho, wo, stride, padding, dilation, lhs_dilation,
+        relu, pool, plan))
 
 
 def _launched(lib: Library, err: int, name: str) -> None:
@@ -578,50 +785,234 @@ def _sm90(x, w, bias, residual, ho: int, wo: int, padding, relu: bool,
     return out
 
 
+class Tf32Phase(ctypes.Structure):
+    """One output phase of a launch (``Phase`` in the kernel)."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "ho", "wo", "nty", "ntx", "y0", "x0", "qy", "qx", "win0", "nwin")]
+
+
+class Tf32ConvGeom(ctypes.Structure):
+    """What the 3xTF32 kernel reads of a launch (``Geom`` in the
+    kernel)."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "B", "OH", "OW", "Co", "bb", "ty", "tx", "ncb", "sy", "sx",
+        "nparts", "part_bytes", "h_stage", "halo_tx", "row_step", "osy",
+        "osx", "pool", "relu", "wt")]
+        + [("lo_mask", ctypes.c_uint32),
+           ("blk_off", ctypes.c_int * 2),
+           ("part_y", ctypes.c_int * TF32_MAX_PARTS),
+           ("part_x", ctypes.c_int * TF32_MAX_PARTS),
+           ("ph", Tf32Phase * TF32_MAX_PHASES),
+           ("win_off", ctypes.c_int * SM90_MAX_WIN),
+           ("win_w", ctypes.c_int * SM90_MAX_WIN)])
+
+
+class Tf32ConvArgs(ctypes.Structure):
+    """One launch of ``csrc/conv_lb_sm90_tf32.cu`` (``Args`` in the
+    kernel): the pointers and the stream, filled in per call, then
+    every integer of the plan, packed once per geometry."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "w", "bias", "res", "out", "stream")]
+        + [(n, ctypes.c_int) for n in (
+            "H", "W", "Ci", "wd0", "wd1", "wd2", "box_y", "box_x", "es_y",
+            "es_x", "bn", "nphase", "tiles", "smem_bytes")]
+        + [("g", Tf32ConvGeom)])
+
+
+def tf32_args(xshape, wshape, plan: Sm90Tf32Plan, plane: tuple[int, int],
+              padding, relu: bool, pool: int, lo_terms: bool = True
+              ) -> Tf32ConvArgs:
+    """Every integer of one launch on ``plan``: a forward of x against w
+    (HWIO) onto the ``plane`` (ho, wo) before the pool (one phase), or,
+    where ``plan`` has phases, a data gradient of x = gy against the
+    forward's w onto the plane (h, wd) of dx, stored at the stride."""
+    b, h, wd, ci = xshape
+    hk, wk, wd1, wd0 = wshape
+    a = Tf32ConvArgs()
+    g = a.g
+    oh, ow = plane
+    if plan.phases:
+        phases, win_w = plan.phases, plan.win_w
+        g.osy, g.osx = plan.phases[-1][0] + 1, plan.phases[-1][1] + 1
+        co = wd1
+    else:
+        phases = ((0, 0, oh, ow, -padding[0], -padding[1], 0,
+                   len(plan.win_off)),)
+        win_w = range(hk * wk)
+        g.osy = g.osx = 1
+        co = wd0
+    tiles = 0
+    for i, (qy, qx, hq, wq, y0, x0, win0, nwin) in enumerate(phases):
+        nty, ntx = max(1, ceil_div(hq, plan.ty)), max(1, ceil_div(wq, plan.tx))
+        g.ph[i] = Tf32Phase(hq, wq, nty, ntx, y0, x0, qy, qx, win0,
+                            nwin if min(hq, wq) > 0 else 0)
+        tiles = max(tiles, ceil_div(b, plan.bb) * nty * ntx)
+    g.B, g.OH, g.OW, g.Co = b, oh, ow, co
+    g.bb, g.ty, g.tx = plan.bb, plan.ty, plan.tx
+    g.ncb = ceil_div(ci, TF32_BK)
+    g.sy, g.sx = plan.stride
+    g.nparts, g.part_bytes = len(plan.parts), plan.part_bytes
+    g.h_stage = plan.h_stage
+    g.halo_tx = len(plan.parts) * plan.bb * plan.hy * plan.hx * 128
+    g.row_step = plan.sbo
+    g.pool, g.relu, g.wt = pool, int(relu), int(plan.wt)
+    g.lo_mask = 0xFFFFFFFF if lo_terms else 0
+    g.blk_off[:] = plan.blk_off
+    for i, (ry, rx) in enumerate(plan.parts):
+        g.part_y[i], g.part_x[i] = ry, rx
+    g.win_off[:len(plan.win_off)] = plan.win_off
+    g.win_w[:len(plan.win_off)] = tuple(win_w)
+    a.H, a.W, a.Ci = h, wd, ci
+    a.wd0, a.wd1, a.wd2 = wd0, wd1, hk * wk
+    (a.es_y, a.es_x) = plan.es
+    a.box_y, a.box_x = plan.hy * a.es_y, plan.hx * a.es_x
+    a.bn, a.nphase, a.tiles = plan.bn, len(phases), tiles
+    a.smem_bytes = plan.smem_bytes
+    return a
+
+
+class Tf32Launch:
+    """The launcher of one geometry on ``csrc/conv_lb_sm90_tf32.cu``:
+    its packed arguments, into which each call writes only the pointers
+    and the stream."""
+
+    def __init__(self, out_shape: tuple, args: Tf32ConvArgs):
+        self.out_shape, self.args = out_shape, args
+        self.ref = ctypes.byref(args)
+        self.lib = self.fn = None
+
+    def __call__(self, x, w, bias, residual) -> torch.Tensor:
+        out = torch.empty(self.out_shape, dtype=x.dtype, device=x.device)
+        on_device(x.device, lambda stream: self.fire(
+            x, w, bias, residual, out, stream))
+        return out
+
+    def fire(self, x, w, bias, residual, out, stream: int) -> None:
+        """Fill in the pointers and the stream and call the C entry."""
+        if self.fn is None:
+            self.lib, self.fn = _entry_struct(TF32_SOURCE,
+                                              "conv_lb_sm90_tf32_launch",
+                                              Tf32ConvArgs)
+        a = self.args
+        a.x, a.w, a.out, a.stream = (x.data_ptr(), w.data_ptr(),
+                                     out.data_ptr(), stream)
+        a.bias = None if bias is None else bias.data_ptr()
+        a.res = None if residual is None else residual.data_ptr()
+        err = self.fn(self.ref)
+        if err:
+            _launched(self.lib, err, "conv_lb_sm90_tf32")
+
+
 def _sm90_tf32(x, w, bias, residual, ho: int, wo: int, padding,
                relu: bool, pool: int, plan: Sm90Tf32Plan,
                lo_terms: bool = True) -> torch.Tensor:
     """One launch of ``csrc/conv_lb_sm90_tf32.cu`` on the tile and
     offsets of ``plan``: :func:`sm90_tf32_plan`'s, or a wrong one that a
-    check passes to show that the card's gate sees it.  w's input
-    channels may be fewer than x's (the 1x1 conv of an im2col plane):
-    the weight map reads zeros past them.  ``lo_terms=False`` drops the
-    lo words (1xTF32): a control that the card's gate sees the small
-    terms, never a route."""
-    b, h, wd, ci = x.shape
-    hk, wk, wci, co = w.shape
-    lib, forward = _entry(TF32_SOURCE, "conv_lb_sm90_tf32_forward", 6, 25)
-    out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
-                      device=x.device)
-    win_off = _c_ints(plan.win_off)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = forward(
-            x.data_ptr(), w.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if residual is None else residual.data_ptr(),
-            out.data_ptr(), ctypes.addressof(win_off), b, h, wd, ci, wci, co,
-            hk, wk, ho, wo, padding[0], padding[1], pool, int(relu), plan.bb,
-            plan.ty, plan.tx, plan.hy, plan.hx, plan.bn, plan.h_stage,
-            plan.blk_off[0], plan.blk_off[1], plan.smem_bytes, int(lo_terms),
-            stream)
-    _launched(lib, err, "conv_lb_sm90_tf32")
-    return out
+    check passes to show that the card's gate sees it, packed anew.  w's
+    input channels may be fewer than x's (the 1x1 conv of an im2col
+    plane): the weight map reads zeros past them.  ``lo_terms=False``
+    drops the lo words (1xTF32): a control that the card's gate sees the
+    small terms, never a route."""
+    co = w.shape[-1]
+    return Tf32Launch((x.shape[0], ho // pool, wo // pool, co),
+                      tf32_args(x.shape, w.shape, plan, (ho, wo), padding,
+                                relu, pool, lo_terms))(x, w, bias, residual)
+
+
+def dgrad_route(gy: torch.Tensor, w: torch.Tensor, stride, h: int,
+                wd: int, padding, dilation=(1, 1)) -> str:
+    """The route of :func:`conv_lb_dgrad`: ``"sm90_tf32"`` (by output
+    phases, one launch) for f32 gy and w with both bases 16-byte
+    aligned, a stride other than (1, 1), Ci and Co multiples of 4 and a
+    plan of :func:`sm90_tf32_dgrad_plan`; else ``"composed"``: gy
+    padded, lhs-dilated by the stride against a flipped copy of w on
+    :func:`conv_lb`'s route (the FMA kernel at a stride), then cropped.
+    Read from types, geometry and pointers only, before launch."""
+    hk, wk, ci, co = w.shape
+    stride = tuple(stride)
+    if not (gy.dtype == w.dtype == torch.float32 and stride != (1, 1)
+            and max(stride) <= TF32_MAX_STRIDE
+            and gy.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+            and ci % 4 == 0 and co % 4 == 0):
+        return "composed"
+    plan = sm90_tf32_dgrad_plan(gy.shape[0], h, wd, ci, co, hk, wk, stride,
+                                tuple(padding), tuple(dilation))
+    return "composed" if plan is None else "sm90_tf32"
+
+
+def conv_lb_dgrad(gy: torch.Tensor, w: torch.Tensor, *, stride, padding,
+                  dilation=(1, 1), h: int, wd: int) -> torch.Tensor:
+    """dx (B, h, wd, Ci) of one group of the conv x -> gy (B, Ho, Wo,
+    Co) with w (Hk, Wk, Ci, Co) at ``stride``, ``padding`` and
+    ``dilation``.
+
+    At a stride on a CUDA gy, on route ``"sm90_tf32"``
+    (:func:`dgrad_route`, read once per geometry key) one launch of the
+    3xTF32 kernel by output phases (:func:`sm90_tf32_dgrad_plan`); else
+    (route ``"composed"``, a stride of 1, a CPU gy) gy with
+    ``(h + 2p - ekh) % s`` zero rows and columns appended, lhs-dilated
+    by the stride against w's flipped copy through :func:`conv_lb`, then
+    cropped to (h, wd)."""
+    if gy.device.type == "cuda" and tuple(stride) != (1, 1):
+        key = ("dgrad", operand_key(gy), operand_key(w), tuple(stride),
+               tuple(padding), tuple(dilation), h, wd)
+        entry, fresh = launch_cache.get(key, lambda: _prepare_dgrad(
+            gy, w, tuple(stride), tuple(padding), tuple(dilation), h, wd))
+        if entry.route == "sm90_tf32":
+            try:
+                dx = entry.launch(gy, w, None, None)
+            except BaseException:
+                if fresh:
+                    launch_cache.drop(key)
+                raise
+            conv_lb.launches += 1
+            conv_lb.launches_by_route[entry.route] += 1
+            return dx
+    (sy, sx), (py, px), (dy, dx_) = stride, padding, dilation
+    hk, wk = w.shape[0], w.shape[1]
+    if sy > 1 or sx > 1:
+        gy = F.pad(gy, (0, 0, 0, int(sx > 1), 0, int(sy > 1)))
+    gx = conv_lb(gy, flip_w(w), stride=(1, 1),
+                 padding=((hk - 1) * dy - py, (wk - 1) * dx_ - px),
+                 dilation=(dy, dx_), lhs_dilation=(sy, sx))
+    return gx[:, :h, :wd].contiguous()
+
+
+def _prepare_dgrad(gy, w, stride, padding, dilation, h: int,
+                   wd: int) -> _Launch:
+    hk, wk, ci, co = w.shape
+    _check_cuda_operand("gy", gy, gy.device, tuple(gy.shape), gy.dtype)
+    _check_cuda_operand("w", w, gy.device, (hk, wk, ci, co), gy.dtype)
+    rt = dgrad_route(gy, w, stride, h, wd, padding, dilation)
+    if rt != "sm90_tf32":
+        return _Launch(rt, None, None)
+    plan = sm90_tf32_dgrad_plan(gy.shape[0], h, wd, ci, co, hk, wk, stride,
+                                padding, dilation)
+    return _Launch(rt, plan, Tf32Launch(
+        (gy.shape[0], h, wd, ci),
+        tf32_args(gy.shape, w.shape, plan, (h, wd), (0, 0), False, 1)))
 
 
 def _im2col_sm90(x, w, bias, residual, ho: int, wo: int, relu: bool,
-                 pool: int, plan: Im2colPlan) -> torch.Tensor:
+                 pool: int, plan: Im2colPlan, inner=None) -> torch.Tensor:
     """Route ``sm90_im2col``: the plane on ``plan``'s taps, then its 1x1
     conv on the tensor-core kernel of x's type (``csrc/conv_lb_sm90.cu``
-    in bf16, ``csrc/conv_lb_sm90_tf32.cu`` in f32) against w (Hk, Wk,
-    Ci, Co) read as (1, 1, Hk*Wk*Ci, Co), the plane's channels past
-    those rows times the weight map's zeros."""
+    in bf16, ``csrc/conv_lb_sm90_tf32.cu`` in f32, through ``inner``
+    where the launch cache packed it) against w (Hk, Wk, Ci, Co) read as
+    (1, 1, Hk*Wk*Ci, Co), the plane's channels past those rows times the
+    weight map's zeros."""
     hk, wk, ci, co = w.shape
     plane = stage(x, plan.taps, ho, wo, plan.cp)
     conv_lb.stage_launches += 1
+    wv = w.view(1, 1, hk * wk * ci, co)
+    if inner is not None:
+        return inner(plane, wv, bias, residual)
     launch = _sm90 if x.dtype == torch.bfloat16 else _sm90_tf32
-    return launch(plane, w.view(1, 1, hk * wk * ci, co), bias, residual, ho,
-                  wo, (0, 0), relu, pool, plan.inner)
+    return launch(plane, wv, bias, residual, ho, wo, (0, 0), relu, pool,
+                  plan.inner)
 
 
 def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,
@@ -659,6 +1050,9 @@ def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,
     _launched(lib, err, "conv_lb")
     return out
 
+
+#: the launch entries of :func:`conv_lb` and :func:`conv_lb_dgrad`
+launch_cache = LaunchCache()
 
 conv_lb.launches = 0
 conv_lb.launches_by_route = dict.fromkeys(ROUTES, 0)

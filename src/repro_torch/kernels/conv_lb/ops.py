@@ -50,8 +50,8 @@ from repro_torch.core.hopper_adapter import (REF_PLAN_BUDGET,
 from repro_torch.core.layer import balanced_candidates, ceil_div
 from repro_torch.core.lower_bound import (q_dram_dgrad, q_dram_practical,
                                           q_dram_wgrad)
-from repro_torch.kernels.conv_lb.kernel import conv_lb
-from repro_torch.kernels.conv_lb.ref import (conv2d_ref, epilogue, flip_w,
+from repro_torch.kernels.conv_lb.kernel import conv_lb, conv_lb_dgrad
+from repro_torch.kernels.conv_lb.ref import (conv2d_ref, epilogue,
                                             lhs_dilate)
 from repro_torch.kernels.conv_lb.wgrad import WgradGeometry, wgrad_lb
 from repro_torch.obs.tracer import active_tracer
@@ -752,26 +752,22 @@ def epilogue_vjp(y: torch.Tensor, bias, residual, relu: bool, pool: int,
 
 def dgrad_lb(gy: torch.Tensor, w: torch.Tensor, a: ConvArgs, h: int,
              wd: int) -> torch.Tensor:
-    """dx through the conv kernel: gy against the flipped weights at
-    full padding; a strided forward hands the compact gy plane over
-    with ``lhs_dilation = stride`` after one appended zero row/col
-    (its dilated plane otherwise ends ``(h + 2p - ekh) % s`` rows short
-    of the last input rows), and the surplus is cropped."""
-    (sy, sx), (py, px), (dy, dx) = a.stride, a.padding, a.dilation
-    hk, wk = w.shape[0], w.shape[1]
-    if sy > 1 or sx > 1:
-        gy = F.pad(gy, (0, 0, 0, int(sx > 1), 0, int(sy > 1)))
-    ci_g, co_g = w.shape[2], w.shape[3] // a.groups
-    outs = []
-    for g in range(a.groups):
-        gyg = gy if a.groups == 1 else \
-            gy[..., g * co_g:(g + 1) * co_g].contiguous()
-        outs.append(conv_lb(
-            gyg, flip_w(w[..., g * co_g:(g + 1) * co_g]),
-            stride=(1, 1), padding=((hk - 1) * dy - py, (wk - 1) * dx - px),
-            dilation=(dy, dx), lhs_dilation=(sy, sx)))
-    gx = outs[0] if a.groups == 1 else torch.cat(outs, dim=-1)
-    return gx[:, :h, :wd].contiguous()
+    """dx through the conv kernel, group by group
+    (:func:`~repro_torch.kernels.conv_lb.kernel.conv_lb_dgrad`): a
+    strided f32 forward's in one launch by output phases on the compact
+    gy, written at (h, wd); otherwise gy against the flipped weights at
+    full padding, lhs-dilated by the stride after one appended zero
+    row/col (its dilated plane otherwise ends ``(h + 2p - ekh) % s``
+    rows short of the last input rows), the surplus cropped."""
+    kw = dict(stride=a.stride, padding=a.padding, dilation=a.dilation,
+              h=h, wd=wd)
+    if a.groups == 1:
+        return conv_lb_dgrad(gy, w, **kw)
+    co_g = w.shape[3] // a.groups
+    return torch.cat([conv_lb_dgrad(
+        gy[..., g * co_g:(g + 1) * co_g].contiguous(),
+        w[..., g * co_g:(g + 1) * co_g].contiguous(), **kw)
+        for g in range(a.groups)], dim=-1)
 
 
 def _wgrad(x: torch.Tensor, gy: torch.Tensor, hk: int, wk: int,

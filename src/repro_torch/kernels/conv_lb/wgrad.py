@@ -5,15 +5,16 @@ CUDA kernels of K2, which together replace the TPU kernel
 
   * ``csrc/wgrad_lb_sm90.cu`` (route ``"sm90"``): bf16 at stride 1 on
     the tensor cores, TMA into an mbarrier ring feeding ``wgmma``;
-  * ``csrc/wgrad_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 at
-    stride 1 on the tensor cores in 3xTF32, A (x) from registers, B
-    (dy) rewritten once per pixel block into K-major hi and lo tiles;
+  * ``csrc/wgrad_lb_sm90_tf32.cu`` (route ``"sm90_tf32"``): f32 at any
+    stride on the tensor cores in 3xTF32, A (x) from registers (a
+    strided halo as one box per residue), B (dy) rewritten once per
+    pixel block into K-major hi and lo tiles;
   * ``csrc/wgrad_im2col.cu`` (route ``"sm90_im2col"``): a channel
     count too small for a TMA map (VGG16's conv1_1, Ci = 3) staged as
     an im2col plane of ``Cp`` <= 64 channels
     (:mod:`~repro_torch.kernels.conv_lb.im2col`, shared with K1), then
     one of the two tensor-core kernels above on it as a 1x1 wgrad;
-  * ``csrc/wgrad_lb.cu`` (route ``"fma"``): strides, and what no
+  * ``csrc/wgrad_lb.cu`` (route ``"fma"``): bf16 strides, and what no
     tensor-core route takes, on FMA.
 
 dW is the conv of the input with the incoming gradient as the kernel
@@ -29,7 +30,8 @@ lie: a CUDA tensor launches the kernel :func:`route` names or raises; a
 CPU tensor runs the plain version
 (:func:`~repro_torch.kernels.conv_lb.ref.wgrad_ref`).  The route is
 read from types, geometry and pointers before launch, never by trying
-one; :func:`plan_of` names it with the plan its kernel runs.  Each
+one, and read once per geometry key (:func:`lookup`); :func:`plan_of`
+names it with the plan its kernel runs.  Each
 layer call that launches a kernel adds one to ``wgrad_lb.launches`` and
 to its route's entry of ``wgrad_lb.launches_by_route``; a split
 reduction's second pass adds one to ``wgrad_lb.reduce_launches``; the
@@ -58,11 +60,14 @@ from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, _c_ints,
                                                 im2col_taps, stage,
                                                 stage_fits)
 from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, DTYPES,
+                                                TF32_MAX_PARTS,
+                                                TF32_MAX_STRIDE,
                                                 _aligned,
                                                 _check_cuda_operand,
-                                                _launched)
+                                                _launched, tf32_parts)
 from repro_torch.kernels.conv_lb.ref import _pair, wgrad_ref
-from repro_torch.kernels.nvcc import _entry
+from repro_torch.kernels.lean import LaunchCache, on_device, operand_key
+from repro_torch.kernels.nvcc import _entry, _entry_struct
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_lb.cu"
 SM90_SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_lb_sm90.cu"
@@ -329,9 +334,14 @@ class Sm90Tf32Plan:
     A row block is 64 rows: ``cpr`` channels of each of ``64 / cpr``
     windows (a window group), of one channel slice; row blocks run
     slice-major.  The halo of one pixel block lies as ``cib / 32``
-    boxes ``[hy][hx][32 channels]``, ``sub_bytes`` apart, one 128-byte
-    swizzled row per pixel; window ``(ky, kx)`` reads it shifted by
-    ``win_off[ky * wk + kx]``."""
+    slices, ``sub_bytes`` apart, each ``len(parts)`` boxes
+    ``[hy][hx][32 channels]``, ``part_bytes`` apart, one 128-byte
+    swizzled row per pixel; a box is loaded at the traversal stride
+    ``es`` (its extent in the tensor ``hy * es`` by ``hx * es``) from
+    the block's origin times the stride plus its residue.  Pixel (r, c)
+    of a block reads
+    ``r * row_step + c * 128`` into the halo, window ``(ky, kx)``
+    shifted by ``win_off[ky * wk + kx]``."""
 
     bn: int                    # dW columns (output channels) per CTA
     nwc: int                   # row blocks per consumer
@@ -340,7 +350,7 @@ class Sm90Tf32Plan:
     stages: int                # TMA ring depth
     hy: int                    # halo box rows
     hx: int                    # halo box columns
-    sub_bytes: int             # one 32-channel halo box
+    sub_bytes: int             # one 32-channel slice of the halo
     win_off: tuple[int, ...]   # window ky * wk + kx -> shift in the halo
     smem_bytes: int
     nblk: int                  # pixel blocks of the reduction
@@ -348,6 +358,11 @@ class Sm90Tf32Plan:
     bps: int                   # pixel blocks per range
     tiles: int                 # CTAs per range
     ws_bytes: int              # the second pass's workspace
+    parts: tuple[tuple[int, int], ...]   # each box's residue (ry, rx)
+    part_bytes: int            # one box (a 1024-byte multiple)
+    row_step: int              # bytes between a block's pixel rows
+    es: tuple[int, int]        # the x map's traversal strides
+    stride: tuple[int, int]    # x rows, columns a dy row, column moves
 
     @property
     def ctas(self) -> int:
@@ -360,7 +375,8 @@ class Sm90Tf32Plan:
 
 
 def sm90_tf32_wgrad_layout(bn: int, nwc: int, cib: int, ci: int, hk: int,
-                           wk: int, dilation: tuple[int, int]) -> dict:
+                           wk: int, dilation: tuple[int, int],
+                           stride: tuple[int, int] = (1, 1)) -> dict:
     """The halo box, the row-block shape, the ring depth and the
     shared-memory offsets of one 3xTF32 tile: from a 1024-byte line the
     TMA ring (per stage a 64-pixel x ``bn`` dy tile, then ``cib / 32``
@@ -369,13 +385,20 @@ def sm90_tf32_wgrad_layout(bn: int, nwc: int, cib: int, ci: int, hk: int,
     full and an empty mbarrier per stage of each ring; as many TMA
     stages as fit, up to ``SM90_MAX_STAGES``.  ``cpr``, the channels of
     one window in a row block, is the next power of two of ``ci`` from
-    16 up to ``cib`` and 64."""
-    dy, dx = dilation
-    hy = SM90_BLOCK + (hk - 1) * dy
-    hx = SM90_BLOCK + (wk - 1) * dx
-    sub = ceil_div(hy * hx * 128, 1024) * 1024
-    win = tuple((ky * dy * hx + kx * dx) * 128
+    16 up to ``cib`` and 64.  At stride (sy, sx) the halo of a slice is
+    one box per residue of K1's
+    :func:`~repro_torch.kernels.conv_lb.kernel.tf32_parts`, each at the
+    traversal stride, as K1 lays out its halo."""
+    (dy, dx), (sy, sx) = dilation, stride
+    parts = tf32_parts(hk, wk, dilation, stride)
+    hy = SM90_BLOCK + (hk - 1) * dy // sy
+    hx = SM90_BLOCK + (wk - 1) * dx // sx
+    part = ceil_div(hy * hx * 128, 1024) * 1024
+    index = {r: i for i, r in enumerate(parts)}
+    win = tuple(index[ky * dy % sy, kx * dx % sx] * part
+                + ((ky * dy // sy) * hx + kx * dx // sx) * 128
                 for ky in range(hk) for kx in range(wk))
+    sub = len(parts) * part
     tile = bn * SM90_BLOCK * SM90_BLOCK * 4
     stage = tile + (cib // TF32_BOX) * sub
     fixed = 1024 + TF32_BSTAGES * (2 * tile + 16)
@@ -383,17 +406,29 @@ def sm90_tf32_wgrad_layout(bn: int, nwc: int, cib: int, ci: int, hk: int,
     cpr = min(cib, 64, max(16, 1 << (ci - 1).bit_length()))
     return dict(bn=bn, nwc=nwc, cib=cib, cpr=cpr, stages=stages, hy=hy,
                 hx=hx, sub_bytes=sub, win_off=win,
-                smem_bytes=fixed + stages * (stage + 16))
+                smem_bytes=fixed + stages * (stage + 16), parts=parts,
+                part_bytes=part, row_step=hx * 128, es=(sy, sx),
+                stride=(sy, sx))
+
+
+def _tf32_fits(lay: dict) -> bool:
+    return (lay["stages"] >= 2 and lay["smem_bytes"] <= SMEM_PER_BLOCK
+            and len(lay["win_off"]) <= SM90_MAX_WIN
+            and len(lay["parts"]) <= TF32_MAX_PARTS
+            and max(lay["es"]) <= TF32_MAX_STRIDE
+            and max(lay["hy"] * lay["es"][0], lay["hx"] * lay["es"][1])
+            <= SM90_BOX_MAX)
 
 
 @lru_cache(maxsize=4096)
 def sm90_tf32_wgrad_plan(batch: int, ho: int, wo: int, ci: int, co: int,
                          hk: int = 1, wk: int = 1,
                          dilation: tuple[int, int] = (1, 1),
-                         only: tuple[int, int, int] | None = None
+                         only: tuple[int, int, int] | None = None,
+                         stride: tuple[int, int] = (1, 1)
                          ) -> Sm90Tf32Plan | None:
-    """The 3xTF32 wgrad kernel's tile and split for one stride-1 f32
-    conv (one CTA per SM), on :func:`sm90_wgrad_plan`'s model of the
+    """The 3xTF32 wgrad kernel's tile and split for one f32 conv at
+    ``stride`` (one CTA per SM), on :func:`sm90_wgrad_plan`'s model of the
     time: a pixel block's time the largest of its ``wgmma`` work (three
     products a multiply-add, rows past the last included) at the TF32
     tensor-core rate, the shared memory it moves at
@@ -419,8 +454,8 @@ def sm90_tf32_wgrad_plan(batch: int, ho: int, wo: int, ci: int, co: int,
                              or (cib > 32 and ci <= cib // 2)):
             continue
         lay = sm90_tf32_wgrad_layout(bn, nwc, cib, ci, hk, wk,
-                                     tuple(dilation))
-        if not _sm90_fits(lay):
+                                     tuple(dilation), tuple(stride))
+        if not _tf32_fits(lay):
             continue
         cpr = lay["cpr"]
         nrb = ceil_div(min(cib, ci), cpr) * ceil_div(nwin, 64 // cpr)
@@ -464,23 +499,25 @@ def _out_plane(xshape, g: WgradGeometry) -> tuple[int, int]:
 def route(x: torch.Tensor, dy: torch.Tensor, geom) -> str:
     """The kernel a wgrad runs on, read from types, geometry and
     pointers only, before launch.  The tensor-core routes need x and dy
-    of one type, the stride (1, 1) (any dilation and padding) and both
-    base addresses 16-byte aligned; then, with ``pitch`` 8 channels in
-    bf16 and 4 in f32 (16-byte pixels that a TMA map describes) and Co a
-    multiple of it:
+    of one type (any dilation and padding) and both base addresses
+    16-byte aligned; then, with ``pitch`` 8 channels in bf16 and 4 in
+    f32 (16-byte pixels that a TMA map describes) and Co a multiple of
+    it:
 
-      * ``"sm90"``: bf16, Ci a multiple of 8, and :func:`sm90_wgrad_plan`
-        finds a tile that fits shared memory with at most
-        ``SM90_MAX_WIN`` windows and a split of this call's reduction;
-      * ``"sm90_tf32"``: f32, Ci a multiple of 4, and
-        :func:`sm90_tf32_wgrad_plan` finds the same;
-      * ``"sm90_im2col"``: Ci not a multiple of ``pitch`` and
+      * ``"sm90"``: bf16, stride (1, 1), Ci a multiple of 8, and
+        :func:`sm90_wgrad_plan` finds a tile that fits shared memory
+        with at most ``SM90_MAX_WIN`` windows and a split of this call's
+        reduction;
+      * ``"sm90_tf32"``: f32 at any stride up to ``TF32_MAX_STRIDE``, Ci
+        a multiple of 4, and :func:`sm90_tf32_wgrad_plan` finds the
+        same;
+      * ``"sm90_im2col"``: stride (1, 1), Ci not a multiple of ``pitch`` and
         Hk*Wk*Ci <= ``im2col.IM2COL_MAX`` (VGG16's conv1_1: 27), staged as an
         im2col plane of :func:`im2col_channels` channels (where the
         staging kernel takes the plane: ``stage_fits``) whose 1x1 wgrad
         the tensor-core kernel of its type plans likewise.
 
-    Everything else (strides, misaligned or mixed operands, channel
+    Everything else (bf16 strides, misaligned or mixed operands, channel
     counts no staging fits, a reduction no split of ranges of at most
     ``SM90_MAX_RANGE`` or ``TF32_MAX_RANGE`` pixel blocks covers)
     ``"fma"``."""
@@ -509,14 +546,21 @@ def _plan_of(dt: torch.dtype, dy_dt: torch.dtype, xshape: tuple, co: int,
     ho, wo = _out_plane(xshape, g)
     plan = None
     pitch = 8 if dt == torch.bfloat16 else 4
+    stride = _pair(g.stride)
+    f32_strided = (dt == torch.float32 and stride != (1, 1)
+                   and max(stride) <= TF32_MAX_STRIDE)
     if (dt == dy_dt and dt in (torch.bfloat16, torch.float32)
-            and _pair(g.stride) == (1, 1) and aligned and co % pitch == 0):
+            and (stride == (1, 1) or f32_strided) and aligned
+            and co % pitch == 0):
         dil = _pair(g.dilation)
         if ci % pitch == 0:
-            rt, plan = (("sm90", sm90_wgrad_plan) if dt == torch.bfloat16
-                        else ("sm90_tf32", sm90_tf32_wgrad_plan))
-            plan = plan(b, ho, wo, ci, co, g.hk, g.wk, dil)
-        elif stage_fits(b, *xshape[1:], ho, wo,
+            if dt == torch.bfloat16:
+                rt, plan = "sm90", sm90_wgrad_plan(b, ho, wo, ci, co, g.hk,
+                                                   g.wk, dil)
+            else:
+                rt, plan = "sm90_tf32", sm90_tf32_wgrad_plan(
+                    b, ho, wo, ci, co, g.hk, g.wk, dil, stride=stride)
+        elif stride == (1, 1) and stage_fits(b, *xshape[1:], ho, wo,
                         cp := im2col_channels(ci, g.hk, g.wk),
                         2 if dt == torch.bfloat16 else 4):
             rt, plan = "sm90_im2col", _im2col_inner(dt, b, ho, wo, cp, co)
@@ -535,17 +579,56 @@ def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
     :class:`~repro_torch.kernels.conv_lb.ops.WgradPlan`.
 
     A CUDA ``x`` launches the kernel :func:`route` names; a CPU ``x``
-    runs the plain version.  Any other device raises."""
+    runs the plain version.  Any other device raises.  The route, the
+    plan and the checks are read once per geometry key
+    (:func:`lookup`)."""
     g = WgradGeometry.of(geom)
-    sy, sx = _pair(g.stride)
-    py, px = _pair(g.padding)
-    dly, dlx = _pair(g.dilation)
     if x.device.type == "cpu":
-        return wgrad_ref(x, dy, g.hk, g.wk, stride=(sy, sx),
-                         padding=(py, px), dilation=(dly, dlx))
+        return wgrad_ref(x, dy, g.hk, g.wk, stride=_pair(g.stride),
+                         padding=_pair(g.padding),
+                         dilation=_pair(g.dilation))
     if x.device.type != "cuda":
         raise ValueError(f"the wgrad kernel runs on CUDA tensors (or its "
                          f"plain version on CPU ones), not {x.device}")
+    key, entry, fresh = lookup(x, dy, g)
+    try:
+        dw = entry.launch(x, dy)
+    except BaseException:
+        if fresh:
+            launch_cache.drop(key)
+        raise
+    wgrad_lb.launches += 1
+    wgrad_lb.launches_by_route[entry.route] += 1
+    if entry.splits > 1:
+        wgrad_lb.reduce_launches += 1
+    return dw
+
+
+def lookup(x, dy, geom):
+    """``(key, entry, fresh)``: the launch entry of this call's geometry
+    key (:func:`~repro_torch.kernels.lean.operand_key` of x and dy and
+    the geometry), made (checks, route and plan) on its first call
+    only."""
+    g = WgradGeometry.of(geom)
+    key = (operand_key(x), operand_key(dy), g)
+    entry, fresh = launch_cache.get(key, lambda: _prepare(x, dy, g))
+    return key, entry, fresh
+
+
+class _Launch:
+    """One geometry's route, plan, split count and launcher."""
+
+    def __init__(self, route: str, plan, splits: int, launch):
+        self.route, self.plan, self.splits = route, plan, splits
+        self.launch = launch
+
+
+def _prepare(x, dy, g: WgradGeometry) -> _Launch:
+    """Check the operands, read the route and plan, and bind the
+    launcher of one geometry."""
+    sy, sx = _pair(g.stride)
+    py, px = _pair(g.padding)
+    dly, dlx = _pair(g.dilation)
     if min(sy, sx, dly, dlx) < 1 or min(py, px) < 0:
         raise ValueError("stride and dilation must be >= 1 and padding "
                          ">= 0")
@@ -562,15 +645,19 @@ def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:
         raise ValueError(f"wgrad of {m} x {co} over {k} pixels exceeds "
                          f"the kernel's index range")
     rt, plan = plan_of(x, dy, g)
-    launch = {"sm90": _sm90, "sm90_tf32": _sm90_tf32,
-              "sm90_im2col": _im2col_wgrad, "fma": _fma}[rt]
-    dw = launch(x, dy, g, plan)
-    splits = plan[1] if rt == "fma" else plan.splits
-    wgrad_lb.launches += 1
-    wgrad_lb.launches_by_route[rt] += 1
-    if splits > 1:
-        wgrad_lb.reduce_launches += 1
-    return dw
+    if rt == "sm90_tf32":
+        return _Launch(rt, plan, plan.splits, Tf32WgradLaunch(
+            (g.hk, g.wk, ci, co), tf32_wgrad_args(x.shape, dy.shape, g,
+                                                  plan)))
+    if rt == "sm90_im2col" and x.dtype == torch.float32:
+        # the plane's 1x1 wgrad packed once too
+        inner = Tf32WgradLaunch((1, 1, plan.cp, co), tf32_wgrad_args(
+            (b, ho, wo, plan.cp), dy.shape, _ONE_BY_ONE, plan.inner))
+        return _Launch(rt, plan, plan.inner.splits,
+                       lambda x, dy: _im2col_wgrad(x, dy, g, plan, inner))
+    launch = {"sm90": _sm90, "sm90_im2col": _im2col_wgrad, "fma": _fma}[rt]
+    return _Launch(rt, plan, plan[1] if rt == "fma" else plan.splits,
+                   lambda x, dy: launch(x, dy, g, plan))
 
 
 def _sm90(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
@@ -601,45 +688,124 @@ def _sm90(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
     return dw
 
 
+class Tf32WgradGeom(ctypes.Structure):
+    """What the 3xTF32 wgrad kernel reads of a launch (``Geom`` in the
+    kernel)."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "Ci", "Co", "nwin", "py", "px", "sy", "sx", "nby", "nbx", "nblk",
+        "bps", "cib", "cpr", "nwg", "nrb", "ngrp", "stages", "sub_bytes",
+        "part_bytes", "nparts", "row_step", "halo_tx")]
+        + [("lo_mask", ctypes.c_uint32),
+           ("part_y", ctypes.c_int * TF32_MAX_PARTS),
+           ("part_x", ctypes.c_int * TF32_MAX_PARTS),
+           ("win_off", ctypes.c_int * SM90_MAX_WIN)])
+
+
+class Tf32WgradArgs(ctypes.Structure):
+    """One launch of ``csrc/wgrad_lb_sm90_tf32.cu`` (``Args`` in the
+    kernel): the pointers and the stream, filled in per call, then every
+    integer of the plan, packed once per geometry."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "x", "dy", "dw", "ws", "stream")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "H", "W", "Ho", "Wo", "box_y", "box_x", "es_y", "es_x",
+            "bn", "nwc", "splits", "smem_bytes")]
+        + [("g", Tf32WgradGeom)])
+
+
+def tf32_wgrad_args(xshape, dyshape, g: WgradGeometry, plan: Sm90Tf32Plan,
+                    lo_terms: bool = True) -> Tf32WgradArgs:
+    """Every integer of one launch on ``plan``."""
+    b, h, wd, ci = xshape
+    _, ho, wo, co = dyshape
+    nwin = g.hk * g.wk
+    a = Tf32WgradArgs()
+    k = a.g
+    k.Ci, k.Co, k.nwin = ci, co, nwin
+    (k.py, k.px), (k.sy, k.sx) = _pair(g.padding), plan.stride
+    k.nby, k.nbx = ceil_div(ho, SM90_BLOCK), ceil_div(wo, SM90_BLOCK)
+    k.nblk, k.bps = b * k.nby * k.nbx, plan.bps
+    k.cib, k.cpr, k.stages = plan.cib, plan.cpr, plan.stages
+    k.nwg = ceil_div(nwin, 64 // plan.cpr)
+    k.nrb = ceil_div(min(ci, plan.cib), plan.cpr) * k.nwg
+    k.ngrp = ceil_div(k.nrb, SM90_CONSUMERS * plan.nwc)
+    k.sub_bytes, k.part_bytes = plan.sub_bytes, plan.part_bytes
+    k.nparts = len(plan.parts)
+    k.row_step = plan.row_step
+    k.halo_tx = (plan.cib // TF32_BOX) * len(plan.parts) * plan.hy \
+        * plan.hx * 128
+    k.lo_mask = 0xFFFFFFFF if lo_terms else 0
+    for i, (ry, rx) in enumerate(plan.parts):
+        k.part_y[i], k.part_x[i] = ry, rx
+    k.win_off[:nwin] = plan.win_off
+    a.B, a.H, a.W, a.Ho, a.Wo = b, h, wd, ho, wo
+    (a.es_y, a.es_x) = plan.es
+    a.box_y, a.box_x = plan.hy * a.es_y, plan.hx * a.es_x
+    a.bn, a.nwc, a.splits = plan.bn, plan.nwc, plan.splits
+    a.smem_bytes = plan.smem_bytes
+    return a
+
+
+class Tf32WgradLaunch:
+    """The launcher of one geometry on ``csrc/wgrad_lb_sm90_tf32.cu``:
+    its packed arguments, into which each call writes only the pointers
+    and the stream."""
+
+    def __init__(self, dw_shape: tuple, args: Tf32WgradArgs):
+        self.dw_shape, self.args = dw_shape, args
+        self.ref = ctypes.byref(args)
+        self.lib = self.fn = None
+
+    def __call__(self, x, dy) -> torch.Tensor:
+        dw = torch.empty(self.dw_shape, dtype=torch.float32, device=x.device)
+        splits = self.args.splits
+        ws = (torch.empty((splits,) + (dw.numel(),), dtype=torch.float32,
+                          device=x.device) if splits > 1 else None)
+        on_device(x.device, lambda stream: self.fire(x, dy, dw, ws, stream))
+        return dw
+
+    def fire(self, x, dy, dw, ws, stream: int) -> None:
+        """Fill in the pointers and the stream and call the C entry."""
+        if self.fn is None:
+            self.lib, self.fn = _entry_struct(TF32_SOURCE,
+                                              "wgrad_lb_sm90_tf32_launch",
+                                              Tf32WgradArgs)
+        a = self.args
+        a.x, a.dy, a.dw, a.stream = (x.data_ptr(), dy.data_ptr(),
+                                     dw.data_ptr(), stream)
+        a.ws = None if ws is None else ws.data_ptr()
+        err = self.fn(self.ref)
+        if err:
+            _launched(self.lib, err, "wgrad_lb_sm90_tf32")
+
+
 def _sm90_tf32(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
                plan: Sm90Tf32Plan, lo_terms: bool = True) -> torch.Tensor:
     """One launch of ``csrc/wgrad_lb_sm90_tf32.cu`` (and its second
-    pass) on the tile, split and offsets of ``plan``.  ``lo_terms=False``
-    drops the lo words (1xTF32): a control that the card's gate sees the
-    small terms, never a route."""
-    b, h, wd, ci = x.shape
-    _, ho, wo, co = dy.shape
-    py, px = _pair(g.padding)
-    lib, forward = _entry(TF32_SOURCE, "wgrad_lb_sm90_tf32_forward", 5, 23)
-    dw = torch.empty((g.hk, g.wk, ci, co), dtype=torch.float32,
-                     device=x.device)
-    ws = (torch.empty((plan.splits, g.hk * g.wk * ci, co),
-                      dtype=torch.float32, device=x.device)
-          if plan.splits > 1 else None)
-    win_off = _c_ints(plan.win_off)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = forward(
-            x.data_ptr(), dy.data_ptr(), dw.data_ptr(),
-            None if ws is None else ws.data_ptr(), ctypes.addressof(win_off),
-            b, h, wd, ci, co, g.hk, g.wk, ho, wo, py, px, plan.hy, plan.hx,
-            plan.bn, plan.nwc, plan.cib, plan.cpr, plan.stages,
-            plan.sub_bytes, plan.splits, plan.bps, plan.smem_bytes,
-            int(lo_terms), stream)
-    _launched(lib, err, "wgrad_lb_sm90_tf32")
-    return dw
+    pass) on the tile, split and offsets of ``plan``, packed anew.
+    ``lo_terms=False`` drops the lo words (1xTF32): a control that the
+    card's gate sees the small terms, never a route."""
+    return Tf32WgradLaunch((g.hk, g.wk, x.shape[-1], dy.shape[-1]),
+                           tf32_wgrad_args(x.shape, dy.shape, g, plan,
+                                           lo_terms))(x, dy)
 
 
 def _im2col_wgrad(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
-                  plan: Im2colPlan) -> torch.Tensor:
+                  plan: Im2colPlan, inner=None) -> torch.Tensor:
     """Route ``sm90_im2col``: the plane on ``plan``'s taps, its 1x1
-    wgrad on the tensor-core kernel of x's type, and rows 0 ..
-    Hk*Wk*Ci - 1 of that dW (a view) as dW (Hk, Wk, Ci, Co)."""
+    wgrad on the tensor-core kernel of x's type (through ``inner`` where
+    the launch cache packed it), and rows 0 .. Hk*Wk*Ci - 1 of that dW
+    (a view) as dW (Hk, Wk, Ci, Co)."""
     ci, co = x.shape[-1], dy.shape[-1]
     plane = stage(x, plan.taps, *_out_plane(x.shape, g), plan.cp)
     wgrad_lb.stage_launches += 1
-    launch = _sm90 if x.dtype == torch.bfloat16 else _sm90_tf32
-    dw = launch(plane, dy, _ONE_BY_ONE, plan.inner)
+    if inner is not None:
+        dw = inner(plane, dy)
+    else:
+        launch = _sm90 if x.dtype == torch.bfloat16 else _sm90_tf32
+        dw = launch(plane, dy, _ONE_BY_ONE, plan.inner)
     return dw.view(plan.cp, co)[:g.hk * g.wk * ci].view(g.hk, g.wk, ci, co)
 
 
@@ -672,6 +838,9 @@ def _fma(x: torch.Tensor, dy: torch.Tensor, g: WgradGeometry,
     _launched(lib, err, "wgrad_lb")
     return dw
 
+
+#: the launch entries of :func:`wgrad_lb`
+launch_cache = LaunchCache()
 
 wgrad_lb.launches = 0
 wgrad_lb.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -6,7 +6,8 @@ At first use ``nvcc`` compiles a source in this checkout for
 is rebuilt), and ``ctypes`` binds it.  Nothing is compiled when a module
 is imported.  The C interface of ``csrc/<stem>.cu`` exports
 ``<stem>_error_string``; each entry point takes pointers, then ints,
-then the stream, and returns a CUDA error code.
+then the stream, and returns a CUDA error code; a lean entry takes one
+pointer to a structure of them (:func:`_entry_struct`).
 """
 
 from __future__ import annotations
@@ -47,6 +48,16 @@ class Library:
             fn = getattr(self.lib, name)
             fn.argtypes = ([ctypes.c_void_p] * n_pointers
                            + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+            self._bound[name] = fn
+        return self._bound[name]
+
+    def bind_struct(self, name: str, struct: type):
+        """The C function ``name`` taking a pointer to one ``struct``
+        (a ``ctypes.Structure``) and returning a CUDA error code."""
+        if name not in self._bound:
+            fn = getattr(self.lib, name)
+            fn.argtypes = [ctypes.POINTER(struct)]
             fn.restype = ctypes.c_int
             self._bound[name] = fn
         return self._bound[name]
@@ -120,3 +131,11 @@ def _entry(source: Path, name: str, n_pointers: int, n_ints: int):
     process: a launch then spends no host time on either."""
     lib = build(source)
     return lib, lib.bind(name, n_pointers, n_ints)
+
+
+@lru_cache(maxsize=None)
+def _entry_struct(source: Path, name: str, struct: type):
+    """``(library, bound C function)`` of a lean entry, built and bound
+    once per process."""
+    lib = build(source)
+    return lib, lib.bind_struct(name, struct)

@@ -24,7 +24,6 @@ measurement of the card has no CPU fallback.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 
 import torch
@@ -32,7 +31,6 @@ import torch.nn.functional as F
 
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.kernels.conv_lb import kernel as K
-from repro_torch.kernels.conv_lb.im2col import _c_ints
 from repro_torch.kernels.conv_lb.ref import conv2d_ref
 from repro_torch.kernels.nvcc import BUILD_DIR, build_many
 from repro_torch.launch.tf32_promote import PROMOTE
@@ -57,7 +55,8 @@ def variants(promotes: list[int]) -> dict[int, object]:
         path.write_text(PROMOTE.sub(f"constexpr int kPromote = {r};", src))
         paths.append(path)
     libs = build_many(paths)
-    return {r: (lib, lib.bind("conv_lb_sm90_tf32_forward", 6, 25))
+    return {r: (lib, lib.bind_struct("conv_lb_sm90_tf32_launch",
+                                     K.Tf32ConvArgs))
             for r, lib in zip(promotes, libs)}
 
 
@@ -70,13 +69,10 @@ def launch(entry, x: torch.Tensor, w: torch.Tensor,
     b, h, wd, ci = x.shape
     co = w.shape[-1]
     out = torch.empty((b, h, wd, co), dtype=x.dtype, device=x.device)
-    win_off = _c_ints(plan.win_off)
-    err = forward(x.data_ptr(), w.data_ptr(), None, None, out.data_ptr(),
-                  ctypes.addressof(win_off), b, h, wd, ci, ci, co, 3, 3, h,
-                  wd, 1, 1, 1, 0, plan.bb, plan.ty, plan.tx, plan.hy,
-                  plan.hx, plan.bn, plan.h_stage, plan.blk_off[0],
-                  plan.blk_off[1], plan.smem_bytes, 1,
-                  torch.cuda.current_stream().cuda_stream)
+    args = K.tf32_args(x.shape, w.shape, plan, (h, wd), (1, 1), False, 1)
+    args.x, args.w, args.out = x.data_ptr(), w.data_ptr(), out.data_ptr()
+    args.stream = torch.cuda.current_stream().cuda_stream
+    err = forward(args)
     if err != 0:
         raise RuntimeError(f"conv_lb_sm90_tf32 variant: "
                            f"{lib.error_string(err)} (error {err})")

@@ -88,9 +88,10 @@ def test_backward_matches_reference_vjp(name):
 ])
 def test_backward_runs_through_the_kernel_wrappers(monkeypatch, name,
                                                    x_grad, kernel_calls):
-    """The backward calls the conv kernel's wrapper for the recompute
-    and the dgrad and the wgrad kernel's wrapper for dW — on the CPU
-    their plain versions, on the card the kernels."""
+    """The backward calls the conv kernel's wrappers for the recompute
+    (``conv_lb``) and the dgrad (``conv_lb_dgrad``) and the wgrad
+    kernel's wrapper for dW — on the CPU their plain versions, on the
+    card the kernels."""
     calls = {"conv": 0, "wgrad": 0}
     conv_lb, wgrad_lb = ops.conv_lb, ops.wgrad_lb
 
@@ -101,6 +102,8 @@ def test_backward_runs_through_the_kernel_wrappers(monkeypatch, name,
         return wrapped
 
     monkeypatch.setattr(ops, "conv_lb", count("conv", conv_lb))
+    monkeypatch.setattr(ops, "conv_lb_dgrad",
+                        count("conv", ops.conv_lb_dgrad))
     monkeypatch.setattr(ops, "wgrad_lb", count("wgrad", wgrad_lb))
     a, kw = _inputs(CASES[name])
     x = torch.from_numpy(a["x"]).requires_grad_(x_grad)

@@ -37,6 +37,7 @@ The kernel itself runs only on the card (``tests/test_torch_gpu.py``).
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,7 +95,10 @@ def _misaligned(*shape):
     ("w off by 4 bytes", "fma"),
     ("bias off by 4 bytes", "fma"),
     ("residual off by 4 bytes", "fma"),
-    ("stride 2", "fma"),
+    ("stride 2", "sm90_tf32"),
+    ("stride 2 pool 2", "fma"),
+    ("stride 9", "fma"),
+    ("ci 3 stride 2", "fma"),
     ("lhs dilation 2", "fma"),
     ("pool 4", "fma"),
     ("f32 x, bf16 w", "fma"),
@@ -102,9 +106,10 @@ def _misaligned(*shape):
 ])
 def test_route_reads_types_geometry_and_pointers(case, want):
     """Ci 6 has 54 taps (the plane takes it); Ci 10 has 90, more than
-    the plane's 64."""
+    the plane's 64.  A stride takes ``sm90_tf32`` up to TMA's traversal
+    stride of 8, without a fused pool and not through the plane."""
     ci = {"ci 3": 3, "ci 4": 4, "ci 6": 6, "ci 10": 10,
-          "ci 12": 12}.get(case, 64)
+          "ci 12": 12, "ci 3 stride 2": 3}.get(case, 64)
     co = {"co 10": 10, "co 200": 200}.get(case, 64)
     x = torch.zeros((2, 8, 8, ci))
     w = torch.zeros((3, 3, ci, co))
@@ -123,8 +128,10 @@ def test_route_reads_types_geometry_and_pointers(case, want):
         kw["pool"] = int(case[-1])
     elif case == "rhs dilation 2":
         kw["dilation"] = (2, 2)
-    elif case == "stride 2":
-        stride = (2, 2)
+    elif case in ("stride 2", "ci 3 stride 2", "stride 9"):
+        stride = (int(case[-1]),) * 2
+    elif case == "stride 2 pool 2":
+        stride, kw["pool"] = (2, 2), 2
     elif case == "lhs dilation 2":
         lhs = (2, 2)
     elif case == "f32 x, bf16 w":
@@ -234,36 +241,43 @@ BK = K.TF32_BK
 
 
 def _halo_stage(xp: np.ndarray, margin: int, p: K.Sm90Tf32Plan, b0: int,
-                oy0: int, ox0: int, cb: int, pad) -> np.ndarray:
-    """The halo of Ci block ``cb`` as the kernel's 4-D TMA load lays it
-    out in a stage: ``bb`` images x ``hy`` x ``hx`` pixels from (oy0 - py,
-    ox0 - px), pixel row R's channel k at swz(R * 128 + 4k).  ``xp``
+                y: int, x: int, cb: int) -> np.ndarray:
+    """The halo of Ci block ``cb`` as the kernel's 4-D TMA loads lay it
+    out in a stage: per box i (residue (ry, rx) = ``p.parts[i]``, at
+    ``i * part_bytes``) ``bb`` images x ``hy`` x ``hx`` pixels from (y +
+    ry, x + rx), every ``es``-th pixel of the tensor (the traversal
+    stride), pixel row R's channel k at swz(R * 128 + 4k).  ``xp``
     carries zeros past every edge (TMA's out-of-bounds fill)."""
-    y0, x0 = oy0 - pad[0] + margin, ox0 - pad[1] + margin
-    box = xp[b0:b0 + p.bb, y0:y0 + p.hy, x0:x0 + p.hx,
-             cb * BK:(cb + 1) * BK]
+    (ey, ex) = p.es
     words = np.zeros(p.h_stage // 4, np.float32)
     r, k = np.meshgrid(np.arange(p.bb * p.hy * p.hx), np.arange(BK),
                        indexing="ij")
-    words[_swz(r * 128 + 4 * k) // 4] = box.reshape(-1, BK)
+    for i, (ry, rx) in enumerate(p.parts):
+        y0, x0 = y + ry + margin, x + rx + margin
+        box = xp[b0:b0 + p.bb, y0:y0 + p.hy * ey:ey, x0:x0 + p.hx * ex:ex,
+                 cb * BK:(cb + 1) * BK]
+        assert box.shape[1:3] == (p.hy, p.hx)
+        words[(i * p.part_bytes + _swz(r * 128 + 4 * k)) // 4] = \
+            box.reshape(-1, BK)
     return words
 
 
 def _threads(p: K.Sm90Tf32Plan):
     """Each consumer thread's A offset in the halo (pixel (2v, t/4) of
-    its block, chunk 2c), its accumulator row r0 (r0 + 8: pixel (2v + 1,
-    t/4)) and its c = lane % 4, over the CTA's 256 consumer threads."""
+    its block: 2v box rows and t/4 pixels in, chunk 2c), its
+    accumulator row r0 (r0 + 8: pixel (2v + 1, t/4)) and its c = lane %
+    4, over the CTA's 256 consumer threads."""
     t = np.arange(256)
     cw, tid = t // 128, t % 128
     v, lane = tid // 32, tid % 32
-    a_off = (np.asarray(p.blk_off)[cw] + (2 * v * p.hx + lane // 4) * 128
-             + (lane % 4) * 32)
+    a_off = (np.asarray(p.blk_off)[cw] + 2 * v * p.sbo
+             + (lane // 4) * 128 + (lane % 4) * 32)
     return a_off, cw * 64 + 16 * v + lane // 4, lane % 4
 
 
 def _a_words(words: np.ndarray, at: np.ndarray, sbo: int) -> np.ndarray:
     """Each thread's 16 A words of one K step: its two pixels (the second
-    one halo row on), two 16-byte chunks a pixel, as the kernel loads
+    one row step on), two 16-byte chunks a pixel, as the kernel loads
     them: [thread][pixel][8]."""
     out = np.empty((len(at), 2, 8), np.float32)
     for r in range(2):
@@ -274,60 +288,74 @@ def _a_words(words: np.ndarray, at: np.ndarray, sbo: int) -> np.ndarray:
     return out
 
 
+def _cta_sums(steps, p: K.Sm90Tf32Plan, promote: int, lo_terms: bool):
+    """One CTA's 128 x bn sums from its K steps, each ``(words, w_tile,
+    kmajor)``: the thread's A words, the weight slice as TMA laid it
+    out; per k8 step the three products lo*hi + hi*lo + hi*hi on TF32
+    operands into sums rounding toward zero, promoted into
+    round-to-nearest sums every ``promote`` K steps."""
+    _, r0, cq = _threads(p)
+    acc = np.zeros((128, p.bn), np.float32)
+    total = np.zeros_like(acc)
+    since = 0
+    steps = list(steps)
+    for step, (words, w_words, kmajor) in enumerate(steps, 1):
+        hi_t, lo_t = _transpose(w_words, p.bn, kmajor, lo_terms)
+        for kk in range(BK // 8):
+            a_hi, a_lo = _split(_fragment(words, r0, cq, kk), lo_terms)
+            b_hi = _b_operand(hi_t, kk, p.bn)
+            b_lo = _b_operand(lo_t, kk, p.bn)
+            for a_op, b_op in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+                prod = (_tc(a_op).astype(np.float64)
+                        @ _tc(b_op).astype(np.float64))
+                acc = _rtz(acc.astype(np.float64) + prod)
+        since += 1
+        if promote and since == promote and step < len(steps):
+            total = (total + acc).astype(np.float32)
+            acc = np.zeros_like(acc)
+            since = 0
+    return total + acc
+
+
 def _model(x, w, bias, res, *, pad, dil=(1, 1), pool=1, relu=True,
-           plan=None, promote=K.TF32_PROMOTE, lo_terms=True) -> np.ndarray:
+           plan=None, promote=K.TF32_PROMOTE, lo_terms=True,
+           stride=(1, 1)) -> np.ndarray:
     """The kernel's output, CTA by CTA and K step by K step, from its
-    plan's tile and offsets."""
+    plan's tile and offsets (at ``stride``: each Ci block's halo boxes
+    from (sy*oy0 - py, sx*ox0 - px) plus their residues)."""
     b, h, wd, ci = x.shape
     hk, wk, _, co = w.shape
-    ho = h + 2 * pad[0] - (hk - 1) * dil[0]
-    wo = wd + 2 * pad[1] - (wk - 1) * dil[1]
-    p = plan or K.sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dil)
+    (sy, sx) = stride
+    ho = (h + 2 * pad[0] - (hk - 1) * dil[0] - 1) // sy + 1
+    wo = (wd + 2 * pad[1] - (wk - 1) * dil[1] - 1) // sx + 1
+    p = plan or K.sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dil, stride)
     ncb = -(-ci // BK)
-    margin = max(p.hy, p.hx) + max(pad) + 16
+    margin = 2 * max(p.hy, p.hx) * max(p.es) + max(pad) + 16
     xp = np.zeros((b + p.bb, h + 2 * margin, wd + 2 * margin, ncb * BK),
                   np.float32)
     xp[:b, margin:margin + h, margin:margin + wd, :ci] = x
     npad = -(-co // p.bn) * p.bn
     wp = np.zeros((hk * wk, ncb * BK, npad), np.float32)
     wp[:, :ci, :co] = w.reshape(hk * wk, ci, co)
-    a_off, r0, cq = _threads(p)
-    nsteps = ncb * hk * wk
+    a_off, _, _ = _threads(p)
     pre = np.zeros((b + p.bb, ho + 16, wo + 16, npad), np.float32)
     for b0 in range(0, b, p.bb):
         for oy0 in range(0, ho, p.ty):
             for ox0 in range(0, wo, p.tx):
                 for n0 in range(0, co, p.bn):
-                    acc = np.zeros((128, p.bn), np.float32)
-                    total = np.zeros_like(acc)
-                    since = step = 0
-                    for cb in range(ncb):
-                        halo = _halo_stage(xp, margin, p, b0, oy0, ox0, cb,
-                                           pad)
-                        for win in range(hk * wk):
-                            words = _a_words(halo, a_off + p.win_off[win],
-                                             p.sbo)
-                            hi_t, lo_t = _transpose(
-                                _w_tile(wp[win, cb * BK:(cb + 1) * BK,
-                                           n0:n0 + p.bn], False),
-                                p.bn, False, lo_terms)
-                            for kk in range(BK // 8):
-                                a_hi, a_lo = _split(
-                                    _fragment(words, r0, cq, kk), lo_terms)
-                                b_hi = _b_operand(hi_t, kk, p.bn)
-                                b_lo = _b_operand(lo_t, kk, p.bn)
-                                for a_op, b_op in ((a_lo, b_hi), (a_hi, b_lo),
-                                                   (a_hi, b_hi)):
-                                    prod = (_tc(a_op).astype(np.float64)
-                                            @ _tc(b_op).astype(np.float64))
-                                    acc = _rtz(acc.astype(np.float64) + prod)
-                            step += 1
-                            since += 1
-                            if promote and since == promote and step < nsteps:
-                                total = (total + acc).astype(np.float32)
-                                acc = np.zeros_like(acc)
-                                since = 0
-                    sums = total + acc
+                    def steps():
+                        for cb in range(ncb):
+                            halo = _halo_stage(xp, margin, p, b0,
+                                               sy * oy0 - pad[0],
+                                               sx * ox0 - pad[1], cb)
+                            for win in range(hk * wk):
+                                yield (_a_words(halo, a_off + p.win_off[win],
+                                                p.sbo),
+                                       _w_tile(wp[win, cb * BK:(cb + 1) * BK,
+                                                  n0:n0 + p.bn], False),
+                                       False)
+
+                    sums = _cta_sums(steps(), p, promote, lo_terms)
                     # accumulator row m: consumer m // 64, block pixel
                     # ((m % 64) // 8, m % 8)
                     for cw in range(2):
@@ -345,6 +373,64 @@ def _model(x, w, bias, res, *, pad, dil=(1, 1), pool=1, relu=True,
     if pool > 1:
         v = v.reshape(b, ho // 2, 2, wo // 2, 2, co).max(axis=(2, 4))
     return v.astype(np.float32)
+
+
+def _dgrad_model(gy, w, *, stride, pad, h, wd, dil=(1, 1), plan=None,
+                 promote=K.TF32_PROMOTE, lo_terms=True) -> np.ndarray:
+    """The kernel's dx by output phases, CTA by CTA and K step by K step,
+    from :func:`K.sm90_tf32_dgrad_plan`: phase (qy, qx)'s tiles over its
+    plane, each Ci block's halo of the compact gy from (my0 + y0, mx0 +
+    x0), the phase's windows at their shifts against w's slice of tap
+    ``win_w`` as TMA lays it out (rows the output channels n: K-major,
+    read by the transposers' 16-byte chunks), the sums stored at (s*my
+    + qy, s*mx + qx)."""
+    b, ho, wo, co = gy.shape
+    hk, wk, ci, _ = w.shape
+    p = plan or K.sm90_tf32_dgrad_plan(b, h, wd, ci, co, hk, wk,
+                                       tuple(stride), tuple(pad), tuple(dil))
+    ncb = -(-co // BK)
+    margin = 2 * max(p.hy, p.hx) + 16
+    gp = np.zeros((b + p.bb, ho + 2 * margin, wo + 2 * margin, ncb * BK),
+                  np.float32)
+    gp[:b, margin:margin + ho, margin:margin + wo, :co] = gy
+    npad = -(-ci // p.bn) * p.bn
+    # B of tap t: K = co (gy's channels), N = ci; w[ky, kx, ci, co]
+    wt = np.zeros((hk * wk, ncb * BK, npad), np.float32)
+    wt[:, :co, :ci] = w.reshape(hk * wk, ci, co).transpose(0, 2, 1)
+    a_off, _, _ = _threads(p)
+    sy, sx = stride
+    dx = np.full((b + p.bb, h + 16 * sy, wd + 16 * sx, npad), np.nan,
+                 np.float32)
+    for qy, qx, hq, wq, y0, x0, win0, nwin in p.phases:
+        for b0 in range(0, b, p.bb):
+            for my0 in range(0, hq, p.ty):
+                for mx0 in range(0, wq, p.tx):
+                    for n0 in range(0, ci, p.bn):
+                        def steps():
+                            for cb in range(ncb):
+                                halo = _halo_stage(gp, margin, p, b0,
+                                                   my0 + y0, mx0 + x0, cb)
+                                for i in range(win0, win0 + nwin):
+                                    yield (_a_words(halo,
+                                                    a_off + p.win_off[i],
+                                                    p.sbo),
+                                           _w_tile(wt[p.win_w[i],
+                                                      cb * BK:(cb + 1) * BK,
+                                                      n0:n0 + p.bn], True),
+                                           True)
+
+                        sums = _cta_sums(steps(), p, promote, lo_terms)
+                        for cw in range(2):
+                            bi = b0 + cw * (p.bb - 1)
+                            for m in range(64):
+                                my = my0 + m // 8
+                                mx = mx0 + cw * (p.tx - 8) + m % 8
+                                if my < hq and mx < wq:
+                                    dx[bi, sy * my + qy, sx * mx + qx,
+                                       n0:n0 + p.bn] = sums[64 * cw + m]
+    out = dx[:b, :h, :wd, :ci]
+    assert not np.isnan(out).any()      # every dx pixel stored once
+    return out
 
 
 def _inputs(b, h, ci, co, k, pad, d, res, seed):
@@ -468,6 +554,221 @@ def test_tf32_model_at_conv5_depth_needs_its_promotion():
     assert err_n > 2 * err_p
 
 
+# ----------------------------- strides: the halo as parts, dgrad phases
+
+# b, h, w, ci, co, k, stride, pad: ResNet-20's four strided convs at
+# batch 2 (3x3/2 and 1x1/2 at 32 -> 16 and 16 -> 8: 32 + 2 - 3 = 31, so
+# the data gradient's gy plane ends one row short of dx's last rows, the
+# row the lhs-dilated form appends), stride (1, 2) on a ragged plane,
+# and a 15 x 13 plane at 3x3/2, whose last dx rows every tap reaches
+STRIDED_CASES = [
+    (2, 32, 32, 16, 32, 3, (2, 2), 1),
+    (2, 32, 32, 16, 32, 1, (2, 2), 0),
+    (2, 16, 16, 32, 64, 3, (2, 2), 1),
+    (2, 16, 16, 32, 64, 1, (2, 2), 0),
+    (1, 10, 13, 8, 12, 3, (1, 2), 1),
+    (2, 15, 13, 4, 8, 3, (2, 2), 1),
+]
+
+
+def _strided_inputs(b, h, w, ci, co, k, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, ci, co))
+          / np.sqrt(k * k * ci)).astype(np.float32)
+    bias = rng.standard_normal(co).astype(np.float32)
+    return x, wt, bias
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,s,pad", STRIDED_CASES)
+def test_tf32_strided_model_reproduces_the_reference(b, h, w, ci, co, k, s,
+                                                     pad):
+    """The halo as one box per residue at the traversal stride, each
+    window reading its box densely at (ky*dly // sy, kx*dlx // sx):
+    against the reference's ``conv2d_ref`` and ``conv2d_lb(...,
+    fallback=True)`` within the reference's f32 tolerance (rtol 2e-5,
+    atol 2e-4)."""
+    x, wt, bias = _strided_inputs(b, h, w, ci, co, k, seed=h + ci + k)
+    got = _model(x, wt, bias, None, pad=(pad, pad), stride=s)
+    kw = dict(stride=s, padding=pad, relu=True)
+    ref = np.asarray(jax_conv2d_ref(jnp.asarray(x), jnp.asarray(wt),
+                                    jnp.asarray(bias), **kw))
+    lb = np.asarray(jax_conv2d_lb(jnp.asarray(x), jnp.asarray(wt),
+                                  jnp.asarray(bias), fallback=True, **kw))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4)
+    np.testing.assert_allclose(got, lb, rtol=2e-5, atol=2e-4)
+
+
+def test_tf32_strided_halo_read_at_stride_one_fails():
+    """A strided launch whose plan reads its halo at stride 1 (each box
+    loaded without the traversal stride: the card's control) misses the
+    reference by far more than the tolerance."""
+    b, h, w, ci, co, k, s, pad = STRIDED_CASES[0]
+    x, wt, bias = _strided_inputs(b, h, w, ci, co, k, seed=1)
+    p = K.sm90_tf32_plan(b, 16, 16, co, ci, k, k, (1, 1), s)
+    bad = K.halo_at_stride_one(p)
+    assert bad.es == (1, 1) and p.es == s
+    ref = np.asarray(jax_conv2d_ref(jnp.asarray(x), jnp.asarray(wt),
+                                    jnp.asarray(bias), stride=s,
+                                    padding=pad, relu=True))
+    right = _model(x, wt, bias, None, pad=(pad, pad), stride=s, plan=p)
+    np.testing.assert_allclose(right, ref, rtol=2e-5, atol=2e-4)
+    wrong = _model(x, wt, bias, None, pad=(pad, pad), stride=s, plan=bad)
+    assert np.abs(wrong - ref).max() > 100 * (2e-4 + 2e-5 * np.abs(ref).max())
+
+
+def _dgrad_reference(gy, wt, x_shape, s, pad):
+    def f(x):
+        return jax_conv2d_ref(x, jnp.asarray(wt), stride=s, padding=pad)
+
+    _, vjp = jax.vjp(f, jnp.zeros(x_shape, jnp.float32))
+    return np.asarray(vjp(jnp.asarray(gy))[0])
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,s,pad", STRIDED_CASES)
+def test_tf32_dgrad_phases_reproduce_the_reference_vjp(b, h, w, ci, co, k,
+                                                       s, pad):
+    """dx by output phases, one launch: each phase a stride-1 conv of
+    the compact gy over its own taps, stored at the stride, against the
+    VJP of the reference's ``conv2d_ref`` within its f32 tolerance; no
+    gy padding (the rows past gy are TMA's zeros) and no flipped copy of
+    w (each window reads its tap, transposed)."""
+    x, wt, _ = _strided_inputs(b, h, w, ci, co, k, seed=h + co)
+    sy, sx = s
+    ho, wo = (h + 2 * pad - k) // sy + 1, (w + 2 * pad - k) // sx + 1
+    gy = np.random.default_rng(h).standard_normal(
+        (b, ho, wo, co)).astype(np.float32)
+    got = _dgrad_model(gy, wt, stride=s, pad=(pad, pad), h=h, wd=w)
+    ref = _dgrad_reference(gy, wt, x.shape, s, pad)
+    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-4)
+    one = _dgrad_model(gy, wt, stride=s, pad=(pad, pad), h=h, wd=w,
+                       lo_terms=False)
+    exact = _dgrad_exact(gy, wt, x.shape, s, pad)
+    assert (np.abs(one - exact).max()
+            >= 4 * np.abs(got - exact).max())
+
+
+def _dgrad_exact(gy, wt, x_shape, s, pad):
+    t = torch.zeros(x_shape, dtype=torch.float64, requires_grad=True)
+    out = torch.nn.functional.conv2d(
+        t.permute(0, 3, 1, 2), torch.from_numpy(wt).double().permute(3, 2, 0, 1),
+        stride=s, padding=pad)
+    (g,) = torch.autograd.grad(out, t, torch.from_numpy(gy).double()
+                               .permute(0, 3, 1, 2))
+    return g.numpy()
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,s,pad", STRIDED_CASES)
+def test_dgrad_phases_partition_taps_and_pixels(b, h, w, ci, co, k, s,
+                                                pad):
+    """Every tap lies in exactly one phase of each axis, each phase's
+    stores cover exactly the dx pixels of its residue, and each window's
+    shift is its tap's gy offset less the phase's halo origin."""
+    sy, sx = s
+    p = K.sm90_tf32_dgrad_plan(b, h, w, ci, co, k, k, s, (pad, pad))
+    assert len(p.phases) == sy * sx and p.wt and p.parts == ((0, 0),)
+    assert sorted(p.win_w) == list(range(k * k))
+    cover = np.zeros((h, w), int)
+    for qy, qx, hq, wq, y0, x0, win0, nwin in p.phases:
+        assert (hq, wq) == (len(range(qy, h, sy)), len(range(qx, w, sx)))
+        cover[qy::sy, qx::sx] += 1
+        for i in range(win0, win0 + nwin):
+            ky, kx = divmod(p.win_w[i], k)
+            ey, ry = divmod(qy + pad - ky, sy)
+            ex, rx = divmod(qx + pad - kx, sx)
+            assert ry == rx == 0
+            assert p.win_off[i] == ((ey - y0) * p.hx + ex - x0) * 128
+            assert 0 <= ey - y0 < p.hy - p.ty + 1
+    assert (cover == 1).all()
+
+
+def test_dgrad_phase_taps_shifted_by_one_fail():
+    """One phase's taps shifted by one (each window of the fullest
+    phase one gy column off: the card's control) miss the reference."""
+    b, h, w, ci, co, k, s, pad = STRIDED_CASES[0]
+    x, wt, _ = _strided_inputs(b, h, w, ci, co, k, seed=3)
+    gy = np.random.default_rng(3).standard_normal(
+        (b, 16, 16, co)).astype(np.float32)
+    p = K.sm90_tf32_dgrad_plan(b, h, w, ci, co, k, k, s, (pad, pad))
+    bad = K.dgrad_phase_shifted(p)
+    ref = _dgrad_reference(gy, wt, x.shape, s, pad)
+    wrong = _dgrad_model(gy, wt, stride=s, pad=(pad, pad), h=h, wd=w,
+                         plan=bad)
+    assert np.abs(wrong - ref).max() > 100 * (2e-4 + 2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("k,s", [(3, (2, 2)), (1, (2, 2)), (3, (1, 2))])
+def test_strided_a_loads_are_conflict_free(k, s):
+    """At a stride, each window reads its box at consecutive halo rows:
+    every quarter warp's 16-byte A loads fall in 8 distinct chunks, as
+    at stride 1."""
+    for tile in K.SM90_TILES:
+        p = K.Sm90Tf32Plan(**K.sm90_tf32_layout(*tile, 64, k, k, (1, 1), s),
+                           ctas=0)
+        a_off, _, _ = _threads(p)
+        for shift in p.win_off:
+            for r in range(2):
+                for hh in range(2):
+                    addr = _swz(a_off + shift + r * p.sbo + hh * 16)
+                    for quarter in range(256 // 8):
+                        chunks = (addr[8 * quarter:8 * quarter + 8]
+                                  % 128) // 16
+                        assert len(set(chunks.tolist())) == 8
+
+
+def test_dgrad_route_and_plan_on_resnet20():
+    """ResNet-20's four strided convs' data gradients take ``sm90_tf32``
+    in f32 (one launch by phases: four phases of 1, 2, 2 and 4 taps at a
+    3x3/2, one tap and three zero phases at a 1x1/2); bf16 and a stride
+    of 1 take the composed path."""
+    for st in _resnet_stages():
+        n = st.node
+        gy = torch.zeros((8, st.ho, st.wo, n.co))
+        w = torch.zeros((n.hk, n.wk, n.ci, n.co))
+        s = (n.stride, n.stride)
+        want = "sm90_tf32" if n.stride > 1 else "composed"
+        assert K.dgrad_route(gy, w, s, st.h, st.w, (n.pad, n.pad)) == want
+        assert K.dgrad_route(gy.bfloat16(), w.bfloat16(), s, st.h, st.w,
+                             (n.pad, n.pad)) == "composed"
+        if n.stride > 1:
+            p = K.sm90_tf32_dgrad_plan(8, st.h, st.w, n.ci, n.co, n.hk,
+                                       n.wk, s, (n.pad, n.pad))
+            taps = sorted(ph[-1] for ph in p.phases)
+            assert taps == ([1, 2, 2, 4] if n.hk == 3 else [0, 0, 0, 1])
+            assert p.smem_bytes <= SMEM_PER_BLOCK
+
+
+def test_launch_cache_plans_a_geometry_once_and_reroutes_a_misaligned_one(
+        monkeypatch):
+    """:func:`K.lookup` reads the route and plan once per geometry key
+    (a second call with other tensors of the same shapes, types and
+    alignment finds the entry), and a base 4 bytes off a 16-byte line is
+    another key: it is planned anew, on ``fma``."""
+    calls = []
+    plan_of = K.plan_of
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return plan_of(*a, **kw)
+
+    monkeypatch.setattr(K, "plan_of", counted)
+    K.launch_cache.clear()
+    before = K.launch_cache.plans
+    kw = dict(stride=(2, 2), padding=(1, 1))
+    x, w = torch.zeros((8, 32, 32, 16)), torch.zeros((3, 3, 16, 32))
+    _, first, fresh = K.lookup(x, w, **kw)
+    _, again, fresh2 = K.lookup(x.clone(), w.clone(), **kw)
+    assert fresh and not fresh2 and again is first and len(calls) == 1
+    assert first.route == "sm90_tf32" and first.plan.stride == (2, 2)
+    _, off, fresh3 = K.lookup(_misaligned(*x.shape), w, **kw)
+    assert fresh3 and off.route == "fma" and len(calls) == 2
+    assert K.launch_cache.plans == before + 2
+    args = first.launch.args
+    assert (args.g.nparts, args.box_y, args.es_y) == (4, 18, 2)
+    K.launch_cache.clear()
+
+
 # ----------------------------------------------------- bank conflicts
 
 
@@ -537,17 +838,54 @@ def test_tf32_kernel_constants_match_the_wrapper():
     assert "uint32_t af[2][8];" in src and "float4 x[2];" in src
 
 
-def test_wrapper_binds_the_kernels_c_interface():
-    sig = re.search(r'extern "C" int conv_lb_sm90_tf32_forward\((.*?)\)',
-                    _src(), re.S)[1]
-    params = [p.strip() for p in sig.split(",")]
-    assert sum(p.startswith("int ") for p in params) == 25
-    assert sum("*" in p for p in params) == 6 + 1        # + stream
-    assert params.index("int Ci") + 1 == params.index("int wCi")
-    assert params[-2] == "int lo_terms"
-    assert ('_entry(TF32_SOURCE, "conv_lb_sm90_tf32_forward", 6, 25)'
-            in Path(K.__file__).read_text())
+def c_struct_fields(src: str, name: str) -> list[tuple[str, str, int]]:
+    """The fields of C struct ``name`` in ``src``, in order: ``(type,
+    name, count)`` (count 1, or an array's length by its constant)."""
+    body = re.search(rf"struct {name} {{(.*?)\n}};", src, re.S)[1]
+    body = re.sub(r"//[^\n]*", "", body)
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        typ, names = re.match(r"((?:const )?\w+\*?)\s+(.*)", decl, re.S
+                              ).groups()
+        for item in names.split(","):
+            item = item.strip()
+            m = re.match(r"(\w+)\[(\w+)\]", item)
+            if m:
+                n = m[2]
+                fields.append((typ, m[1], consts.get(n) or int(n)))
+            else:
+                fields.append((typ, item, 1))
+    return fields
 
+
+def ctypes_fields(struct) -> list[tuple[str, int]]:
+    """``(name, count)`` of a ``ctypes.Structure``'s fields."""
+    return [(n, getattr(t, "_length_", 1)) for n, t in struct._fields_]
+
+
+def test_wrapper_binds_the_kernels_c_interface():
+    """The lean entry takes one pointer to ``Args``; the wrapper's
+    ``Tf32ConvArgs`` / ``Tf32ConvGeom`` / ``Tf32Phase`` lay out the
+    kernel's ``Args`` / ``Geom`` / ``Phase`` field by field (pointers
+    first, then ints, the nested geometry last), and binds the entry by
+    name."""
+    src = _src()
+    assert re.search(r'extern "C" int conv_lb_sm90_tf32_launch\('
+                     r'const void\* args\)', src)
+    for c_name, struct in (("Args", K.Tf32ConvArgs),
+                           ("Geom", K.Tf32ConvGeom),
+                           ("Phase", K.Tf32Phase)):
+        c = c_struct_fields(src, c_name)
+        assert [(n, k) for _, n, k in c] == ctypes_fields(struct), c_name
+        for typ, n, _ in c:
+            assert (typ.endswith("*")) == (
+                dict(struct._fields_)[n] is __import__("ctypes").c_void_p)
+    assert ('_entry_struct(TF32_SOURCE,\n'
+            in Path(K.__file__).read_text())
+    assert '"conv_lb_sm90_tf32_launch"' in Path(K.__file__).read_text()
+    assert "conv_lb_sm90_tf32_forward" not in src
 
 
 def test_the_sweeps_copies_change_only_the_promotion_interval():

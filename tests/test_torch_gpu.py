@@ -31,7 +31,7 @@ from repro_torch.kernels.attention_block.ref import attention_plain
 from repro_torch.kernels.conv_lb import im2col as I
 from repro_torch.kernels.conv_lb import kernel as K
 from repro_torch.kernels.conv_lb import wgrad as W
-from repro_torch.kernels.conv_lb.ops import conv2d_lb
+from repro_torch.kernels.conv_lb.ops import ConvArgs, conv2d_lb, dgrad_lb
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w, im2col_ref,
                                              wgrad_ref)
 from repro_torch.kernels.matmul_lb import kernel as K3
@@ -291,13 +291,12 @@ def test_profile_step_sees_the_ports_kernels(cuda):
     own = {r["kernel"]: r for r in rep["own_kernels"]}
     # f32 at width 0.25 (4, 8 and 16 channels): K1's and K2's stems
     # through the im2col plane onto the 3xTF32 kernels, the 16 stride-1
-    # 3x3 convs on them (K1: forward, recompute, dgrad), the stride-2
-    # convs and the projections (4) on FMA (K1: forward, recompute and
-    # the lhs-dilated dgrad)
-    assert own["K1 conv_lb"]["launches_per_step"] == 12
-    assert own["K1 conv_lb_sm90_tf32"]["launches_per_step"] == 50
-    assert own["K2 wgrad_lb"]["launches_per_step"] == 4
-    assert own["K2 wgrad_lb_sm90_tf32"]["launches_per_step"] == 17
+    # 3x3 convs and the 4 strided ones (the stride-2 convs and the
+    # projections) on them (K1: forward, recompute, dgrad: a strided
+    # one's by output phases, one launch), none on FMA
+    assert "K1 conv_lb" not in own and "K2 wgrad_lb" not in own
+    assert own["K1 conv_lb_sm90_tf32"]["launches_per_step"] == 62
+    assert own["K2 wgrad_lb_sm90_tf32"]["launches_per_step"] == 21
     assert own["K1/K2 im2col staging"]["launches_per_step"] == 3
     assert 0.0 <= rep["device_idle_share"] < 1.0
 
@@ -1156,3 +1155,141 @@ def test_tf32_attention_launch_error_raises(cuda):
                       causal=True)
     assert K4.attention.launches == before
 
+
+
+# b, h, ci, co, k, stride, pad: ResNet-20/32's four strided convs at
+# batch 8
+RESNET_STRIDED = [
+    (8, 32, 16, 32, 3, 2, 1),
+    (8, 32, 16, 32, 1, 2, 0),
+    (8, 16, 32, 64, 3, 2, 1),
+    (8, 16, 32, 64, 1, 2, 0),
+]
+
+
+def _strided(cuda, b, h, ci, co, k, s, p, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((b, h, h, ci), generator=g).to(cuda)
+    w = (torch.randn((k, k, ci, co), generator=g) / (k * k * ci) ** 0.5
+         ).to(cuda)
+    bias = torch.randn((co,), generator=g).to(cuda)
+    ho = (h + 2 * p - k) // s + 1
+    gy = torch.randn((b, ho, ho, co), generator=g).to(cuda)
+    return x, w, bias, gy
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,s,p", RESNET_STRIDED)
+def test_tf32_strided_forward_matches_plain(cuda, b, h, ci, co, k, s, p):
+    """ResNet-20/32's strided convs in f32 on ``sm90_tf32`` (the halo as
+    parts at the traversal stride): one launch, within 1e-4 of max
+    |plain|, the same bits on a second launch."""
+    x, w, bias, _ = _strided(cuda, b, h, ci, co, k, s, p, seed=31)
+    kw = dict(stride=(s, s), padding=(p, p), relu=True)
+    assert K.route(x, w, (s, s), bias=bias, padding=(p, p)) == "sm90_tf32"
+    before = dict(K.conv_lb.launches_by_route)
+    out = K.conv_lb(x, w, bias, **kw)
+    again = K.conv_lb(x, w, bias, **kw)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == dict.fromkeys(K.ROUTES, 0) | {
+        "sm90_tf32": 2}
+    _close(out, conv2d_ref(x, w, bias, **kw))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,s,p", RESNET_STRIDED)
+def test_tf32_phased_dgrad_matches_plain(cuda, b, h, ci, co, k, s, p):
+    """Their data gradients by output phases: one launch on
+    ``sm90_tf32`` (no pad, flip or crop: K1's only launch, and dx comes
+    back at the input's size, contiguous), within 1e-4 of max |plain
+    autograd|."""
+    x, w, _, gy = _strided(cuda, b, h, ci, co, k, s, p, seed=32)
+    a = ConvArgs(stride=(s, s), padding=(p, p), dilation=(1, 1),
+                 lhs_dilation=(1, 1), groups=1, relu=False, pool=1)
+    before = dict(K.conv_lb.launches_by_route)
+    dx = dgrad_lb(gy, w, a, h, h)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == dict.fromkeys(K.ROUTES, 0) | {
+        "sm90_tf32": 1}
+    assert dx.shape == x.shape and dx.is_contiguous()
+    xg = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(conv2d_ref(xg, w, stride=s, padding=p),
+                                  xg, gy)
+    _close(dx, want)
+
+
+def test_stride_one_dgrad_is_composed_outside_the_dgrad_cache(cuda):
+    """A stride-1 f32 dgrad (ResNet-20/32's s2b1_a: route ``composed``)
+    is one launch on the conv's own route, puts no entry in the
+    phased dgrad's cache and is within 1e-4 of max |plain autograd|."""
+    b, h, c = 8, 16, 32
+    g = torch.Generator().manual_seed(35)
+    x = torch.randn((b, h, h, c), generator=g).to(cuda)
+    w = (torch.randn((3, 3, c, c), generator=g) / (9 * c) ** 0.5).to(cuda)
+    gy = torch.randn((b, h, h, c), generator=g).to(cuda)
+    assert K.dgrad_route(gy, w, (1, 1), h, h, (1, 1)) == "composed"
+    K.launch_cache.clear()
+    before = dict(K.conv_lb.launches_by_route)
+    dx = K.conv_lb_dgrad(gy, w, stride=(1, 1), padding=(1, 1), h=h, wd=h)
+    torch.cuda.synchronize()
+    assert _sm90_launched(before) == _on_conv("sm90_tf32")
+    assert not any(key[0] == "dgrad" for key in K.launch_cache.entries)
+    xg = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(conv2d_ref(xg, w, padding=1), xg, gy)
+    _close(dx, want)
+
+
+@pytest.mark.parametrize("b,h,ci,co,k,s,p", RESNET_STRIDED)
+def test_tf32_strided_wgrad_matches_plain(cuda, b, h, ci, co, k, s, p):
+    """Their weight gradients on ``sm90_tf32``: one launch, within 2e-4
+    of max |plain|."""
+    x, _, _, gy = _strided(cuda, b, h, ci, co, k, s, p, seed=33)
+    geom = W.WgradGeometry(hk=k, wk=k, stride=(s, s), padding=(p, p))
+    assert W.route(x, gy, geom) == "sm90_tf32"
+    before = dict(W.wgrad_lb.launches_by_route)
+    dw = W.wgrad_lb(x, gy, geom)
+    torch.cuda.synchronize()
+    assert _wgrad_launched(before) == _one_on("sm90_tf32")
+    _close(dw, wgrad_ref(x, gy, k, k, stride=s, padding=p), tol=2e-4)
+
+
+def test_strided_controls_fail_their_gates(cuda):
+    """At ResNet-20/32's s2b0_a: halo boxes loaded at stride 1 (K1
+    forward, K2), the fullest phase's taps one gy column off (K1 dgrad)
+    fail the f32 gates; 1xTF32 errs at least 4x the route."""
+    b, h, ci, co, k, s, p = RESNET_STRIDED[0]
+    x, w, bias, gy = _strided(cuda, b, h, ci, co, k, s, p, seed=34)
+    st, pd = (s, s), (p, p)
+
+    def rel(out, ref):
+        return ((out - ref).abs().max() / ref.abs().max()).item()
+
+    ref = conv2d_ref(x, w, bias, stride=st, padding=pd)
+    plan = K.plan_of(x, w, bias, stride=st, padding=pd)[1]
+    args = (x, w, bias, None, 16, 16, pd, False, 1)
+    right = rel(K._sm90_tf32(*args, plan), ref)
+    assert right <= 1e-4
+    assert rel(K._sm90_tf32(*args, K.halo_at_stride_one(plan)), ref) > 1e-4
+    assert rel(K._sm90_tf32(*args, plan, lo_terms=False), ref) >= 4 * right
+    xg = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(conv2d_ref(xg, w, stride=st, padding=pd),
+                                  xg, gy)
+    dplan = K.sm90_tf32_dgrad_plan(b, h, h, ci, co, k, k, st, pd)
+
+    def phased(pl, lo_terms=True):
+        return K.Tf32Launch((b, h, h, ci), K.tf32_args(
+            gy.shape, w.shape, pl, (h, h), (0, 0), False, 1,
+            lo_terms))(gy, w, None, None)
+
+    right = rel(phased(dplan), want)
+    assert right <= 1e-4
+    assert rel(phased(K.dgrad_phase_shifted(dplan)), want) > 1e-4
+    assert rel(phased(dplan, False), want) >= 4 * right
+    geom = W.WgradGeometry(hk=k, wk=k, stride=st, padding=pd)
+    dref = wgrad_ref(x, gy, k, k, stride=s, padding=p)
+    wplan = W.plan_of(x, gy, geom)[1]
+    right = rel(W._sm90_tf32(x, gy, geom, wplan), dref)
+    assert right <= 2e-4
+    assert rel(W._sm90_tf32(x, gy, geom, K.halo_at_stride_one(wplan)),
+               dref) > 2e-4
+    assert rel(W._sm90_tf32(x, gy, geom, wplan, lo_terms=False),
+               dref) >= 4 * right

@@ -51,6 +51,7 @@ from repro.kernels.conv_lb.wgrad import wgrad_lb_call
 from repro_torch.core.hopper_adapter import (PEAK_TF32_FLOPS,
                                              SMEM_PER_BLOCK)
 from repro_torch.kernels.conv_lb import im2col as I
+from repro_torch.kernels.conv_lb import kernel as K
 from repro_torch.kernels.conv_lb import wgrad as W
 from repro_torch.kernels.conv_lb.ref import im2col_ref, wgrad_ref
 from repro_torch.models.cnn import resnet_graph, vgg_graph, vgg_layer_dims
@@ -95,7 +96,8 @@ def _misaligned(*shape, dtype=F32):
     ("f32 co 12", "sm90_tf32"),
     ("f32 co 6", "fma"),
     ("f32 dilation 2", "sm90_tf32"),
-    ("f32 stride 2", "fma"),
+    ("f32 stride 2", "sm90_tf32"),
+    ("bf16 ci 64 stride 2", "fma"),
     ("f32 ci 3", "sm90_im2col"),
     ("f32 ci 7", "sm90_im2col"),
     ("f32 ci 10 (90 taps)", "fma"),
@@ -160,7 +162,8 @@ def test_route_on_vgg16():
 def test_route_on_resnet20(dtype):
     """The stem (Ci = 3) through the plane; the stride-1 3x3 convs on
     the tensor cores; the stride-2 3x3 convs and the 1x1/2 projections
-    on FMA."""
+    on the 3xTF32 kernel in f32 (the halo as parts at the traversal
+    stride), on FMA in bf16."""
     tc = "sm90" if dtype == BF else "sm90_tf32"
     for st in _resnet_stages():
         n = st.node
@@ -168,7 +171,7 @@ def test_route_on_resnet20(dtype):
         dy = torch.zeros((1, st.ho, st.wo, n.co), dtype=dtype)
         rt = W.route(x, dy, _geom(k=n.hk, s=n.stride, p=n.pad))
         want = ("sm90_im2col" if n.name == "stem" else
-                "fma" if n.stride > 1 else tc)
+                "fma" if n.stride > 1 and dtype == BF else tc)
         assert rt == want, n.name
 
 
@@ -449,22 +452,29 @@ def _tma_stage(xp, dyp, p: W.Sm90Tf32Plan, pad, margin, b, oy0, ox0, ci0,
                n0) -> tuple[np.ndarray, np.ndarray]:
     """One TMA ring stage in f32 words, as the kernel's 4-D loads lay it
     out, 128-byte swizzled from 1024-byte lines: the dy tile (bn / 32
-    boxes of 32 channels x 8 x 8 pixels, 8 KB apart) and the halo (box
-    q, channels ci0 + 32q .., at q * sub_bytes, [hy][hx] pixels of 128
-    bytes from (oy0 - py, ox0 - px)).  ``xp`` and ``dyp`` carry zeros
-    past every edge (TMA's out-of-bounds fill)."""
+    boxes of 32 channels x 8 x 8 pixels, 8 KB apart) and the halo (slice
+    q, channels ci0 + 32q .., at q * sub_bytes, its box i (residue (ry,
+    rx) = ``p.parts[i]``) at i * part_bytes, [hy][hx] pixels of 128 bytes
+    from (sy*oy0 - py + ry, sx*ox0 - px + rx), every ``es``-th pixel of
+    the tensor).  ``xp`` and ``dyp`` carry zeros past every edge (TMA's
+    out-of-bounds fill)."""
     dy_w = np.zeros(p.bn * 64, np.float32)
     for j in range(p.bn // 32):
         box = dyp[b, oy0:oy0 + 8, ox0:ox0 + 8, n0 + 32 * j:n0 + 32 * j + 32]
         off = j * 8192 + np.arange(64 * 128, step=4)
         dy_w[_swz(off) // 4] = box.reshape(-1)
     h_w = np.zeros((p.cib // 32) * p.sub_bytes // 4, np.float32)
-    y0, x0 = oy0 - pad[0] + margin, ox0 - pad[1] + margin
+    (sy, sx), (ey, ex) = p.stride, p.es
     for q in range(p.cib // 32):
-        box = xp[b, y0:y0 + p.hy, x0:x0 + p.hx,
-                 ci0 + 32 * q:ci0 + 32 * q + 32]
-        off = q * p.sub_bytes + np.arange(box.size * 4, step=4)
-        h_w[_swz(off) // 4] = box.reshape(-1)
+        for i, (ry, rx) in enumerate(p.parts):
+            y0 = sy * oy0 - pad[0] + ry + margin
+            x0 = sx * ox0 - pad[1] + rx + margin
+            box = xp[b, y0:y0 + p.hy * ey:ey, x0:x0 + p.hx * ex:ex,
+                     ci0 + 32 * q:ci0 + 32 * q + 32]
+            assert box.shape[:2] == (p.hy, p.hx)
+            off = (q * p.sub_bytes + i * p.part_bytes
+                   + np.arange(box.size * 4, step=4))
+            h_w[_swz(off) // 4] = box.reshape(-1)
     return dy_w, h_w
 
 
@@ -556,7 +566,7 @@ def _model_tf32(x: np.ndarray, dy: np.ndarray, p: W.Sm90Tf32Plan, k: int,
     b, h, wd, ci = x.shape
     _, ho, wo, co = dy.shape
     nwin = k * k
-    margin = max(p.hy, p.hx) + max(pad)
+    margin = 2 * max(p.hy, p.hx) * max(p.es) + max(pad) + 8
     ncb, nco = -(-ci // p.cib), -(-co // p.bn)
     xp = np.zeros((b, h + 2 * margin, wd + 2 * margin, ncb * p.cib),
                   np.float32)
@@ -591,7 +601,7 @@ def _model_tf32(x: np.ndarray, dy: np.ndarray, p: W.Sm90Tf32Plan, k: int,
                     for i, (row0, off) in enumerate(thr):
                         a_hi, a_lo = (_tc(f).astype(np.float64) for f in
                                       _fragments(h_w, off, row0, kk,
-                                                 p.hx * 128, lo_terms))
+                                                 p.row_step, lo_terms))
                         acc[i] += a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
             for i, r in enumerate(rbs):
                 if r >= nrb:
@@ -609,8 +619,9 @@ def _model_tf32(x: np.ndarray, dy: np.ndarray, p: W.Sm90Tf32Plan, k: int,
     return out.reshape(k, k, ci, co)
 
 
-def _tf32_plan(b, ho, wo, ci, co, k, d, tile=None, splits=None):
-    p = W.sm90_tf32_wgrad_plan(b, ho, wo, ci, co, k, k, (d, d), only=tile)
+def _tf32_plan(b, ho, wo, ci, co, k, d, tile=None, splits=None, s=1):
+    p = W.sm90_tf32_wgrad_plan(b, ho, wo, ci, co, k, k, (d, d), only=tile,
+                               stride=(s, s))
     if p is not None and splits is not None:
         bps = -(-p.nblk // splits)
         p = dataclasses.replace(p, splits=splits, bps=bps)
@@ -702,6 +713,138 @@ def test_tf32_model_at_the_plans_own_tile_matches_the_reference():
                           padding=pad).numpy())
 
 
+# b, h, w, ci, co, k, stride, pad: ResNet-20's four strided wgrads at
+# batch 2 (3x3/2 and 1x1/2, 32 -> 16 and 16 -> 8), stride (1, 2) on a
+# ragged plane, and a 15 x 13 plane at 3x3/2
+STRIDED_CASES = [
+    (2, 32, 32, 16, 32, 3, (2, 2), 1),
+    (2, 32, 32, 16, 32, 1, (2, 2), 0),
+    (2, 16, 16, 32, 64, 3, (2, 2), 1),
+    (2, 16, 16, 32, 64, 1, (2, 2), 0),
+    (1, 10, 13, 8, 12, 3, (1, 2), 1),
+    (2, 15, 13, 4, 8, 3, (2, 2), 1),
+]
+
+
+def _strided(b, h, w, ci, co, k, s, pad, seed):
+    sy, sx = s
+    ho, wo = (h + 2 * pad - k) // sy + 1, (w + 2 * pad - k) // sx + 1
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, h, w, ci)).astype(np.float32)
+    dy = rng.standard_normal((b, ho, wo, co)).astype(np.float32)
+    return x, dy, ho, wo
+
+
+def _reference_wgrad(x, dy, k, s, pad):
+    """The reference's dW: the VJP of its ``conv2d_ref`` in w."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.conv_lb.ref import conv2d_ref as jax_conv2d_ref
+
+    def f(w):
+        return jax_conv2d_ref(jnp.asarray(x), w, stride=s, padding=pad)
+
+    _, vjp = jax.vjp(f, jnp.zeros((k, k, x.shape[-1], dy.shape[-1]),
+                                  jnp.float32))
+    return np.asarray(vjp(jnp.asarray(dy))[0])
+
+
+@pytest.mark.parametrize("b,h,w,ci,co,k,s,pad", STRIDED_CASES)
+def test_tf32_strided_model_reproduces_the_reference(b, h, w, ci, co, k, s,
+                                                     pad):
+    """At a stride the halo of each pixel block is one box per residue at
+    the traversal stride, each window reading its box at (ky*dly // sy,
+    kx*dlx // sx): the model of the plan the route takes, over two split
+    ranges where the reduction has two blocks, against the VJP of the
+    reference's ``conv2d_ref`` and the port's ``wgrad_ref`` (max |err| <=
+    1e-5 of max |dW|)."""
+    x, dy, ho, wo = _strided(b, h, w, ci, co, k, s, pad, seed=h + ci + k)
+    p = W.sm90_tf32_wgrad_plan(b, ho, wo, ci, co, k, k, (1, 1),
+                               stride=s)
+    assert p is not None and p.stride == s and p.es == s
+    if p.nblk > 1:
+        p = dataclasses.replace(p, splits=2, bps=-(-p.nblk // 2))
+    got = _model_tf32(x, dy, p, k, (pad, pad))
+    _close(got, _reference_wgrad(x, dy, k, s, pad))
+    _close(got, wgrad_ref(torch.from_numpy(x), torch.from_numpy(dy), k, k,
+                          stride=s, padding=pad).numpy())
+
+
+def test_tf32_strided_model_matches_the_reference_kernel():
+    """A 3x3/2 wgrad through the plan's parts against the reference's
+    Pallas ``wgrad_lb_call`` at its interpret target (cropped to the
+    layer's channels)."""
+    b, h, w, ci, co, k, s, pad = 2, 12, 12, 8, 16, 3, (2, 2), 1
+    x, dy, ho, wo = _strided(b, h, w, ci, co, k, s, pad, seed=4)
+    p = W.sm90_tf32_wgrad_plan(b, ho, wo, ci, co, k, k, (1, 1), stride=s)
+    got = _model_tf32(x, dy, p, k, (pad, pad))
+    rplan = jax_plan_wgrad(jax_plan_conv(h, w, ci, co, k, k, batch=b,
+                                         stride=s, padding=(pad, pad),
+                                         dilation=(1, 1)))
+    ref_kernel = np.asarray(wgrad_lb_call(x, dy, rplan))
+    _close(got, ref_kernel[..., :ci, :co])
+
+
+def test_tf32_strided_halo_read_at_stride_one_fails():
+    """A strided launch whose plan reads its halo at stride 1 (each box
+    loaded without the traversal stride: the card's control) misses the
+    reference by far more than the gate."""
+    b, h, w, ci, co, k, s, pad = STRIDED_CASES[0]
+    x, dy, ho, wo = _strided(b, h, w, ci, co, k, s, pad, seed=2)
+    p = W.sm90_tf32_wgrad_plan(b, ho, wo, ci, co, k, k, (1, 1), stride=s)
+    want = _reference_wgrad(x, dy, k, s, pad)
+    _close(_model_tf32(x, dy, p, k, (pad, pad)), want)
+    bad = K.halo_at_stride_one(p)
+    err = np.abs(_model_tf32(x, dy, bad, k, (pad, pad)) - want).max()
+    assert err > 100 * TOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize("k,s", [(3, (2, 2)), (1, (2, 2)), (3, (1, 2))])
+def test_tf32_strided_fragment_loads_are_conflict_free(k, s):
+    """At a stride the parts keep each half-warp's 8-byte fragment loads
+    in 32 distinct banks, as at stride 1."""
+    p = W.sm90_tf32_wgrad_plan(1, 8, 8, 32, 64, k, k, (1, 1),
+                               only=(64, 2, 32), stride=s)
+    nwin = k * k
+    nwg = -(-nwin // (64 // p.cpr))
+    for r in range(nwg):
+        _, off = _thread_offsets(p, r, nwin, nwg)
+        for kk in range(8):
+            for delta in (0, 128):
+                addr = _swz(off + kk * p.row_step + delta)
+                for half in range(8):
+                    words = addr[16 * half:16 * half + 16] // 4
+                    banks = np.concatenate([words, words + 1]) % 32
+                    assert len(set(banks.tolist())) == 32
+
+
+def test_launch_cache_plans_a_geometry_once_and_reroutes_a_misaligned_one(
+        monkeypatch):
+    """:func:`W.lookup` reads the route and plan once per geometry key,
+    and a base 4 bytes off a 16-byte line is another key, planned anew on
+    ``fma``; the packed arguments carry the plan's parts."""
+    calls = []
+    plan_of = W.plan_of
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return plan_of(*a, **kw)
+
+    monkeypatch.setattr(W, "plan_of", counted)
+    W.launch_cache.clear()
+    geom = _geom(k=3, s=2, p=1)
+    x, dy = torch.zeros((8, 32, 32, 16)), torch.zeros((8, 16, 16, 32))
+    _, first, fresh = W.lookup(x, dy, geom)
+    _, again, fresh2 = W.lookup(x.clone(), dy.clone(), geom)
+    assert fresh and not fresh2 and again is first and len(calls) == 1
+    assert first.route == "sm90_tf32"
+    a = first.launch.args
+    assert (a.g.nparts, a.g.sy, a.es_x, a.box_x) == (4, 2, 2, 18)
+    _, off, fresh3 = W.lookup(x, _misaligned(*dy.shape), geom)
+    assert fresh3 and off.route == "fma" and len(calls) == 2
+    W.launch_cache.clear()
+
+
 @pytest.mark.parametrize("ci", [64, 32, 16])
 def test_tf32_fragment_loads_are_conflict_free(ci):
     """Each half-warp's 8-byte fragment loads, at every window shift of a
@@ -753,7 +896,6 @@ def test_tf32_kernel_constants_match_the_wrapper():
 
 
 @pytest.mark.parametrize("source,name,pointers,ints", [
-    (W.TF32_SOURCE, "wgrad_lb_sm90_tf32_forward", 5, 23),
     (I.SOURCE, "wgrad_im2col_forward", 3, 9),
 ])
 def test_wrapper_binds_the_kernels_c_interface(source, name, pointers,
@@ -765,7 +907,26 @@ def test_wrapper_binds_the_kernels_c_interface(source, name, pointers,
     params = [p.strip() for p in sig.split(",")]
     assert sum(p.startswith("int ") for p in params) == ints
     assert sum("*" in p for p in params) == pointers + 1   # + stream
-    module, var = ((W, "TF32_SOURCE") if "tf32" in name
-                   else (I, "SOURCE"))
-    assert (f'_entry({var}, "{name}", {pointers}, {ints})'
-            in Path(module.__file__).read_text())
+    assert (f'_entry(SOURCE, "{name}", {pointers}, {ints})'
+            in Path(I.__file__).read_text())
+
+
+def test_wrapper_packs_the_tf32_kernels_c_structs():
+    """The 3xTF32 wgrad's lean entry takes one pointer to ``Args``; the
+    wrapper's ``Tf32WgradArgs`` / ``Tf32WgradGeom`` lay out the kernel's
+    ``Args`` / ``Geom`` field by field, and bind the entry by name."""
+    import ctypes
+
+    from test_torch_conv_tc import c_struct_fields, ctypes_fields
+    src = _src(W.TF32_SOURCE)
+    assert re.search(r'extern "C" int wgrad_lb_sm90_tf32_launch\('
+                     r'const void\* args\)', src)
+    for c_name, struct in (("Args", W.Tf32WgradArgs),
+                           ("Geom", W.Tf32WgradGeom)):
+        c = c_struct_fields(src, c_name)
+        assert [(n, k) for _, n, k in c] == ctypes_fields(struct), c_name
+        for typ, n, _ in c:
+            assert typ.endswith("*") == (dict(struct._fields_)[n]
+                                         is ctypes.c_void_p)
+    assert '"wgrad_lb_sm90_tf32_launch"' in Path(W.__file__).read_text()
+    assert "wgrad_lb_sm90_tf32_forward" not in src
