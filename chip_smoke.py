@@ -48,6 +48,17 @@
     then that kernel as a 1x1 conv; ResNet: its 16 stride-1 and 4
     strided convs on the 3xTF32 kernel, the stem on the plane, none on
     FMA);
+  * ``serve_loop``: VGG16/224 f32 through the fault-tolerant
+    ``repro_torch.serve.ServingLoop``: on a virtual clock the reference
+    benchmark's bursty trace, plain and under ``FaultPlan.random`` for
+    two seeds, each rid's terminal state and attempts equal to the
+    port's account-only run of the same schedule on the CPU; on the real
+    clock ``run_sync`` and ``run_async(max_inflight=2)`` under injected
+    failures, the breaker tripping to account-only and recovering; in
+    every run 13 K1 launches a computed dispatch and none a degraded
+    one, degraded results without logits, no library rung, computed
+    logits within ``TOL`` of the plain forward (``serve_loop_summary``:
+    goodput, shed fraction, latency, dispatch ms, retries, trips);
   * ``train_vgg``, ``train_resnet``: a few SGD steps with the backward
     on K1 (recompute, dgrad) and K2 (wgrad), K1's and K2's launches per
     route exact (f32 VGG: conv1_1 on ``sm90_im2col``, the 12 after it on
@@ -107,6 +118,7 @@ Without a CUDA device it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import asyncio
 import dataclasses
 import json
 import subprocess
@@ -153,7 +165,8 @@ from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
 from repro_torch.models.graph import (graph_logits, graph_stages,  # noqa: E402
                                       graph_training_step_report)
 from repro_torch.obs.tracer import Tracer  # noqa: E402
-from repro_torch.serve import ImageServer  # noqa: E402
+from repro_torch.serve import (FaultPlan, ImageServer,  # noqa: E402
+                               ServingLoop, VirtualClock)
 
 #: kernel vs plain version: sums run in another order over K <= 4608
 TOL = 1e-4
@@ -601,6 +614,13 @@ def check_strided_controls(gen) -> dict:
     return over_route
 
 
+def _reset_k1() -> None:
+    """Set K1's launch counts to 0 before a path is driven."""
+    K.conv_lb.launches = 0
+    K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
+    K.conv_lb.stage_launches = 0
+
+
 #: K1's launches by route in one dispatch of each served model and type
 SERVE_ROUTES = {
     ("vgg", torch.float32): {"sm90_tf32": 12, "sm90_im2col": 1},
@@ -631,9 +651,7 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
     srv = ImageServer(params, size, size, graph=graph, device="cuda",
                       dtype=dtype, tracer=tracer)
     srv.warm()
-    K.conv_lb.launches = 0
-    K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
-    K.conv_lb.stage_launches = 0
+    _reset_k1()
     results = []
     for im in images:
         srv.submit(im)
@@ -695,6 +713,236 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
         require(gate["worst_over_tol"] <= 1.0,
                 f"{phase}: logits vs plain {gate}")
     return by_route
+
+
+#: the reference benchmark's bursty trace (``benchmarks/serve_bench.py``
+#: ``bench_serve_loop_bursty``): 6 bursts of 16 images 0.25 s apart, then
+#: a storm of 24 requests (64 images), against a 0.3 s budget and 50 ms
+#: of virtual service a dispatch
+LOOP_BURSTS = ([(t * 0.25, (4, 2, 1, 1, 4, 2, 1, 1)) for t in range(6)]
+               + [(6 * 0.25, (4, 4, 2, 2, 4, 1, 1, 2, 4, 2, 4, 2,
+                              4, 4, 2, 2, 4, 1, 1, 2, 4, 2, 4, 2))])
+LOOP_DEADLINE_S = 0.30
+LOOP_SERVICE_S = 0.05
+#: FaultPlan.random seeds on the bursty trace: the first two whose
+#: schedules fire a fail, a delay and a skew on it
+LOOP_SEEDS = (1, 2)
+#: the real-clock runs' plan: the first three attempts fail, so two
+#: consecutive failures trip the breaker before any success can land,
+#: in ``run_async``'s order as in ``run_sync``'s
+LOOP_REAL_PLAN = "fail@0,fail@1,fail@2,delay@5:0.02"
+#: the real-clock runs serve the bursty trace's first three bursts
+LOOP_REAL_REQUESTS = 24
+
+
+def _k1_counts() -> dict:
+    return {"launches": K.conv_lb.launches,
+            "by_route": dict(K.conv_lb.launches_by_route),
+            "stage": K.conv_lb.stage_launches}
+
+
+def _loop_checks(what: str, loop, tracer: Tracer, results, k1: dict,
+                 plain: dict) -> dict:
+    """What every serving-loop run must show: each rid terminal once
+    and the ledger reconciled; K1's launches 13 a computed dispatch
+    (12 ``sm90_tf32`` + 1 ``sm90_im2col`` and its staging launch), none
+    for a degraded one; degraded results without logits, counted in the
+    ledger; no library rung; every computed logits tensor within
+    ``TOL`` of the plain forward (``plain``: rid -> logits)."""
+    led = loop.server.ledger
+    c = loop.counters
+    states = [t.state.value for t in loop.requests.values()]
+    require(loop.all_terminal()
+            and c["done"] + c["shed"] + c["failed"] == c["submitted"]
+            == len(states) == led.submitted_requests,
+            f"{what}: not every rid terminal once: {c}")
+    require(sorted(r.rid for r in results)
+            == sorted(rid for rid, t in loop.requests.items()
+                      if t.state.value == "done"),
+            f"{what}: results and DONE rids differ")
+    s = led.summary()
+    require((s["shed_requests"], s["failed_requests"],
+             s["served_requests"]) == (c["shed"], c["failed"], c["done"]),
+            f"{what}: ledger does not reconcile with {c}")
+    attempts = tracer.find("dispatch.attempt")
+    degraded = [sp for sp in attempts if sp.attrs.get("outcome") == "done"
+                and sp.attrs["mode"] == "account-only"]
+    require(len(degraded) == led.degraded_dispatches,
+            f"{what}: {len(degraded)} degraded attempts, ledger "
+            f"{led.degraded_dispatches}")
+    computed = led.dispatches - led.degraded_dispatches
+    want = dict.fromkeys(K.ROUTES, 0) | {"sm90_tf32": 12 * computed,
+                                         "sm90_im2col": computed}
+    require(k1["launches"] == 13 * computed and k1["by_route"] == want
+            and k1["stage"] == computed,
+            f"{what}: K1 {k1} for {computed} computed and "
+            f"{led.degraded_dispatches} degraded dispatches")
+    no_logits = {int(r) for sp in degraded
+                 for r in sp.attrs["rids"].split(",")}
+    require({r.rid for r in results if r.logits is None} == no_logits,
+            f"{what}: results without logits are not the degraded ones")
+    worst = 0.0
+    for r in results:
+        if r.logits is None:
+            continue
+        _, rel = rel_err(r.logits, plain[r.rid])
+        worst = max(worst, rel)
+    require(worst <= TOL, f"{what}: logits vs plain {worst} > {TOL}")
+    require(s["exec_fallbacks"] == 0,
+            f"{what}: {s['exec_fallbacks']} library-rung passes")
+    return {"requests": c["submitted"], "done": c["done"],
+            "shed": c["shed"], "failed": c["failed"],
+            "retries": c["retries"], "trips": loop.breaker.trips,
+            "recoveries": len(tracer.find("breaker.recover")),
+            "degraded_dispatches": led.degraded_dispatches,
+            "dispatches": led.dispatches, "computed_dispatches": computed,
+            "k1_launches": k1["launches"], "k1_by_route": k1["by_route"],
+            "peak_inflight": c["peak_inflight"],
+            "max_rel_err_vs_plain": worst, "goodput": s["goodput"],
+            "shed_frac": s["shed_frac"],
+            "p50_latency_ms": s["p50_latency_s"] * 1e3,
+            "p99_latency_ms": s["p99_latency_s"] * 1e3,
+            "dispatch_ms": [sp.attrs["us"] / 1e3
+                            for sp in tracer.find("serve.execute")],
+            "exec_fallbacks": s["exec_fallbacks"]}
+
+
+def _bursty(params, graph, device, plan, images=None, **kw):
+    """The bursty trace through a ServingLoop on a VirtualClock:
+    ``images`` (rid -> payload) on ``device`` at the kernel target, or
+    account-only (``images=None``); returns (loop, tracer, results,
+    the clock).  The tracer keeps real time: its ``serve.execute``
+    spans time the card."""
+    clock = VirtualClock()
+    tracer = Tracer()
+    srv = ImageServer(params, 224, 224, graph=graph, device=device,
+                      clock=clock, wait_budget=0.02, tracer=tracer,
+                      target="kernel" if images else "account-only")
+    loop = ServingLoop(srv, deadline_s=LOOP_DEADLINE_S, fault_plan=plan,
+                       service_estimate_s=LOOP_SERVICE_S, seed=SEED, **kw)
+    results, rid = [], 0
+    for at, sizes in LOOP_BURSTS:
+        if clock.now < at:
+            clock.sleep(at - clock.now)
+        for n in sizes:
+            if images:
+                loop.submit(images[rid])
+            else:
+                loop.submit(n_images=n)
+            rid += 1
+        results += loop.pump()
+    results += loop.run_sync(tick_s=0.01)
+    return loop, tracer, results, clock
+
+
+def phase_serve_loop(card: str) -> dict:
+    """VGG16/224 f32 (full width, He weights from seed 0, buckets {1, 2,
+    4, 8}) through the fault-tolerant ``ServingLoop`` on the card.
+
+    Virtual clock: the reference benchmark's bursty trace, then the same
+    trace under ``FaultPlan.random(seed)`` for two seeds (breaker
+    threshold 2, so dispatches degrade to account-only): per-rid terminal
+    states and attempts equal to the port's own account-only run of the
+    same schedule on the CPU.  Real clock: ``run_sync``, then
+    ``run_async(max_inflight=2)``, under ``LOOP_REAL_PLAN``: the breaker
+    trips to account-only and recovers.  Every run passes
+    ``_loop_checks``; returns K1's launches by route over the phase."""
+    gen = torch.Generator().manual_seed(SEED)
+    params = init_vgg(gen, device="cuda")
+    graph = vgg_graph(params)
+    sizes = [n for _, burst in LOOP_BURSTS for n in burst]
+    images = [torch.randn((n, 224, 224, 3), generator=gen) for n in sizes]
+    with torch.no_grad():
+        plain = {rid: graph_logits(graph, params, x.cuda(), conv=conv2d_ref)
+                 for rid, x in enumerate(images)}
+    conv_ops.reset_fallback_counts()
+    warm = ImageServer(params, 224, 224, graph=graph, device="cuda")
+    warm.warm()
+    total = dict.fromkeys(K.ROUTES, 0)
+    rows = {}
+    plans = [("bursty", lambda: FaultPlan(service_s=LOOP_SERVICE_S), {})]
+    plans += [(f"random_{s}",
+               lambda s=s: FaultPlan.random(s, service_s=LOOP_SERVICE_S),
+               {"breaker_threshold": 2, "breaker_cooldown_s": 0.1})
+              for s in LOOP_SEEDS]
+    for name, plan, kw in plans:
+        ref = _bursty(params, graph, "cpu", plan(), **kw)[0]
+        _reset_k1()
+        loop, tracer, results, clock = _bursty(params, graph, "cuda",
+                                               plan(), images=images, **kw)
+        k1 = _k1_counts()
+        for rt, n in k1["by_route"].items():
+            total[rt] += n
+        row = _loop_checks(f"serve_loop {name}", loop, tracer, results,
+                           k1, plain)
+        got = {rid: (t.state.value, t.attempts)
+               for rid, t in loop.requests.items()}
+        want = {rid: (t.state.value, t.attempts)
+                for rid, t in ref.requests.items()}
+        require(got == want, f"serve_loop {name}: per-rid states and "
+                             f"attempts differ from the account-only run")
+        row.update(clock="virtual", same_as_account_only=True,
+                   goodput_rps=row["done"] / clock.now,
+                   p99_x_budget=row["p99_latency_ms"] / 1e3
+                   / LOOP_DEADLINE_S)
+        rows[name] = row
+    for name in ("run_sync", "run_async"):
+        tracer = Tracer()
+        srv = ImageServer(params, 224, 224, graph=graph, device="cuda",
+                          wait_budget=0.02, tracer=tracer)
+        loop = ServingLoop(srv, deadline_s=None, breaker_threshold=2,
+                           breaker_cooldown_s=0.01, max_inflight=2,
+                           fault_plan=FaultPlan.parse(LOOP_REAL_PLAN),
+                           seed=SEED)
+        srv.warm()
+        _reset_k1()
+        t0 = time.perf_counter()
+        results = []
+        for x in images[:LOOP_REAL_REQUESTS]:
+            loop.submit(x)
+            if name == "run_sync":
+                results += loop.pump()
+        results += (loop.run_sync(tick_s=0.002) if name == "run_sync"
+                    else asyncio.run(loop.run_async()))
+        wall = time.perf_counter() - t0
+        k1 = _k1_counts()
+        for rt, n in k1["by_route"].items():
+            total[rt] += n
+        row = _loop_checks(f"serve_loop {name}", loop, tracer, results,
+                           k1, plain)
+        require(row["done"] == LOOP_REAL_REQUESTS and row["trips"] >= 1
+                and row["recoveries"] >= 1 and loop.breaker.level == 0
+                and row["degraded_dispatches"] >= 1,
+                f"serve_loop {name}: the breaker did not trip to "
+                f"account-only and recover: {row}")
+        row.update(clock="real", wall_s=wall,
+                   goodput_rps=row["done"] / wall)
+        rows[name] = row
+        print(srv.ledger.format_summary(), flush=True)
+    for name, row in rows.items():
+        emit({"phase": "serve_loop", "run": name, **row, "card": card})
+    bursty, sync, asy = rows["bursty"], rows["run_sync"], rows["run_async"]
+    emit({"phase": "serve_loop_summary", "card": card,
+          "bursty_goodput_rps": bursty["goodput_rps"],
+          "bursty_shed_frac": bursty["shed_frac"],
+          "bursty_p99_x_budget": bursty["p99_x_budget"],
+          "real_goodput_rps": {"run_sync": sync["goodput_rps"],
+                               "run_async": asy["goodput_rps"]},
+          "real_shed_frac": {"run_sync": sync["shed_frac"],
+                             "run_async": asy["shed_frac"]},
+          "real_p50_latency_ms": {"run_sync": sync["p50_latency_ms"],
+                                  "run_async": asy["p50_latency_ms"]},
+          "real_p99_latency_ms": {"run_sync": sync["p99_latency_ms"],
+                                  "run_async": asy["p99_latency_ms"]},
+          "dispatch_ms": {name: row["dispatch_ms"]
+                          for name, row in rows.items()},
+          "retries": {name: row["retries"] for name, row in rows.items()},
+          "trips": {name: row["trips"] for name, row in rows.items()},
+          "degraded_dispatches": {name: row["degraded_dispatches"]
+                                  for name, row in rows.items()},
+          "exec_fallbacks": {name: row["exec_fallbacks"]
+                             for name, row in rows.items()}})
+    return total
 
 
 def _host_us(fn, calls: int = 20) -> float:
@@ -2043,9 +2291,7 @@ def phase_train(model: str) -> dict:
 
     tracer = Tracer()
     with tracer.activate():
-        K.conv_lb.launches = 0
-        K.conv_lb.launches_by_route = dict.fromkeys(K.ROUTES, 0)
-        K.conv_lb.stage_launches = 0
+        _reset_k1()
         W.wgrad_lb.launches = 0
         W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
         W.wgrad_lb.reduce_launches = 0
@@ -2585,6 +2831,7 @@ def main() -> int:
     vgg_f32 = phase_serve("vgg")
     vgg_bf16 = phase_serve("vgg", torch.bfloat16)
     resnet_f32 = phase_serve("resnet")
+    serve_loop = phase_serve_loop(card)
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
     matmul_launches, matmul_all = phase_matmul(card)
@@ -2760,6 +3007,8 @@ def main() -> int:
              launches=vgg_f32["sm90_tf32"] + vgg_f32["sm90_im2col"],
              launches_serve_resnet=(resnet_f32["sm90_tf32"]
                                     + resnet_f32["sm90_im2col"]),
+             launches_serve_loop=(serve_loop["sm90_tf32"]
+                                  + serve_loop["sm90_im2col"]),
              launches_train_vgg=(
                  train_vgg["conv_lb_by_route"]["sm90_tf32"]
                  + train_vgg["conv_lb_by_route"]["sm90_im2col"]),
@@ -2796,13 +3045,15 @@ def main() -> int:
                        f"ResNet-20/32's four strided convs at batch 8 (the "
                        f"dgrad one launch by output phases); launches: the "
                        f"f32 VGG serving run (sm90_tf32 and sm90_im2col "
-                       f"layers)",
+                       f"layers; launches_serve_loop: the serve_loop "
+                       f"phase's)",
              card=card),
         dict(_sums([plane_fwd]), name="conv_lb_sm90_im2col", route="cuda",
              kernel_route="sm90_im2col", source=CONV_SM90_SOURCE,
              staging_source=WGRAD_IM2COL_SOURCE, replaces=REPLACES,
              dtype="bf16", launches=vgg_bf16["sm90_im2col"],
              launches_f32=vgg_f32["sm90_im2col"], f32=_sums([plane_f32]),
+             launches_serve_loop=serve_loop["sm90_im2col"],
              host_us=plane_fwd["host_us"],
              library_host_us=plane_fwd["library_host_us"],
              stage_ms=plane_fwd["stage_ms"],
@@ -2816,7 +3067,8 @@ def main() -> int:
                        "alone; fma_ms: conv_lb.cu on the same inputs); "
                        "f32: the same layer onto conv_lb_sm90_tf32.cu; "
                        "launches: the bf16 serving run (launches_f32: the "
-                       "f32 one)",
+                       "f32 one; launches_serve_loop: the serve_loop "
+                       "phase's)",
              card=card),
         dict(_sums(sm90_fwd), name="conv_lb_sm90", route="cuda",
              kernel_route="sm90", source=CONV_SM90_SOURCE,

@@ -13,6 +13,13 @@ Two targets:
 There is no rung between them.  In particular nothing steps from the
 kernel down to the plain version on the card: a CUDA tensor launches
 the kernel or raises.
+
+The port's counterpart of ``repro/core/exec_target.py``: ``clamp`` is
+the one downward-only negotiation (a request or the serving loop's
+circuit breaker can degrade a server's target, never upgrade it), and
+``ladder`` the breaker's degradation ladder, which is therefore
+KERNEL -> ACCOUNT_ONLY: a degraded dispatch plans and charges the
+ledger but computes nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +38,21 @@ class ExecTarget:
 
     def __str__(self) -> str:
         return self.name
+
+    def clamp(self, other: "ExecTarget | str | None") -> "ExecTarget":
+        """The lower of self and ``other`` (``None`` keeps self): a
+        request can degrade a computing target to account-only, never
+        upgrade one."""
+        if other is None:
+            return self
+        other = resolve_target(other)
+        return other if self.compute and not other.compute else self
+
+    def ladder(self) -> tuple["ExecTarget", ...]:
+        """The circuit breaker's degradation ladder from this target:
+        itself, then ACCOUNT_ONLY below a computing one.  There is no
+        rung between (no plain version, no library call on the card)."""
+        return (self, ACCOUNT_ONLY) if self.compute else (self,)
 
 
 ACCOUNT_ONLY = ExecTarget(name="account-only", compute=False)

@@ -958,6 +958,15 @@ def conv2d_lb(x: torch.Tensor, w: torch.Tensor,
     if (ldy, ldx) != (1, 1) and (pool > 1 or residual is not None):
         raise ValueError("lhs-dilated convs fuse no pool/residual "
                          "epilogue")
+    if pool > 1:
+        # as plan_conv, and the reference's kernel target, refuse: the
+        # card's kernel cannot take it, and the plain version's backward
+        # would not either
+        ho = (x.shape[1] + 2 * py - (w.shape[0] - 1) * dy - 1) // sy + 1
+        wo = (x.shape[2] + 2 * px - (w.shape[1] - 1) * dx - 1) // sx + 1
+        if ho % pool or wo % pool:
+            raise ValueError(f"fused pool={pool} needs pool-divisible "
+                             f"output plane, got {ho}x{wo}")
     a = ConvArgs(stride=(sy, sx), padding=(py, px), dilation=(dy, dx),
                  lhs_dilation=(ldy, ldx), groups=groups, relu=relu,
                  pool=pool)

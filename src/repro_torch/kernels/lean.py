@@ -11,12 +11,21 @@ contiguity and 16-byte alignment of each) and the call's geometry, so a
 call with the same key passes the same checks and takes the same route
 with the same plan.  The packed arguments of a geometry (and the C
 side's cache of tensor maps) are shared, so launches come from one
-thread, as every caller in this package makes them.
+thread at a time: every caller in this package launches from one
+thread, except the serving loop's ``run_async``, whose attempts enqueue
+under :data:`LAUNCH_LOCK` (``ImageServer._execute``).
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+#: held over a dispatch's enqueue by a caller that launches from more
+#: than one thread, so the shared packed arguments are filled in and
+#: launched by one thread at a time
+LAUNCH_LOCK = threading.Lock()
 
 #: the most entries a :class:`LaunchCache` keeps before it starts afresh
 #: (the plan functions' own caches keep as many)

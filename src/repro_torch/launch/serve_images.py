@@ -18,6 +18,12 @@ bucketing bought vs per-image dispatch.
   # ResNet-20 through the same server and ledger, plain version on CPU:
   PYTHONPATH=src python -m repro_torch.launch.serve_images \\
       --model resnet --device cpu --width-mult 0.25 --image 32
+
+  # the fault-tolerant loop: deadline shedding + seeded fault injection
+  # (account-only runs ride a virtual clock; compute runs real time)
+  PYTHONPATH=src python -m repro_torch.launch.serve_images \\
+      --account-only --device cpu --requests 32 --deadline 0.25 \\
+      --fault-plan "fail@1,delay@3:0.05,service:0.02"
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.cnn import init_resnet, init_vgg, resnet_graph
-from repro_torch.serve import ImageServer
+from repro_torch.serve import FaultPlan, ImageServer, ServingLoop, VirtualClock
 
 
 def main(argv=None) -> None:
@@ -51,6 +57,18 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda runs the CUDA kernel; cpu its plain "
                          "PyTorch version")
+    ap.add_argument("--deadline", type=float, default=None,
+                    metavar="SECONDS",
+                    help="serve through the fault-tolerant ServingLoop "
+                         "with this per-request latency budget "
+                         "(deadline shedding + retry/backoff + "
+                         "circuit-breaker degradation to account-only)")
+    ap.add_argument("--fault-plan", default=None, metavar="SPEC",
+                    help="inject a deterministic fault schedule, e.g. "
+                         "'fail@1,delay@3:0.05,service:0.02' or "
+                         "'random:7' (implies the ServingLoop; "
+                         "account-only runs use a virtual clock so "
+                         "delays cost no wall time)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -63,31 +81,52 @@ def main(argv=None) -> None:
         graph = None
         params = init_vgg(gen, n_classes=args.classes,
                           width_mult=args.width_mult, device=args.device)
+    fault_tolerant = (args.deadline is not None
+                      or args.fault_plan is not None)
+    # account-only fault-tolerant runs ride a virtual clock, so injected
+    # delays and backoff waits are free; compute runs keep real time
+    clock = VirtualClock() if fault_tolerant and args.account_only \
+        else None
     server = ImageServer(params, args.image, args.image, graph=graph,
                          buckets=args.buckets,
                          wait_budget=args.wait_ms / 1e3,
                          account_budget=args.budget_kib * 1024,
                          target=("account-only" if args.account_only
                                  else "kernel"),
-                         device=args.device)
+                         device=args.device,
+                         **({"clock": clock} if clock else {}))
+    loop = None
+    if fault_tolerant:
+        plan = FaultPlan.parse(args.fault_plan) if args.fault_plan \
+            else None
+        loop = ServingLoop(server, deadline_s=args.deadline,
+                           fault_plan=plan, seed=args.seed)
+    if not args.account_only:
+        # build the kernels and run each bucket once first: a first
+        # dispatch that paid the build would set the loop's service
+        # estimate, and the deadline policy would shed on it
+        server.warm()
     rng = np.random.default_rng(args.seed)
     max_req = max(args.buckets)
     t0 = time.perf_counter()
     results = []
+    front = server if loop is None else loop
     for _ in range(args.requests):
         n = int(rng.integers(1, max_req + 1))
         if args.account_only:
-            server.submit(n_images=n)
+            front.submit(n_images=n)
         else:
-            server.submit(rng.standard_normal(
+            front.submit(rng.standard_normal(
                 (n, args.image, args.image, 3), dtype=np.float32))
-        results += server.poll()
-    results += server.drain()
+        results += server.poll() if loop is None else loop.pump()
+    results += server.drain() if loop is None else loop.run_sync()
     dt = time.perf_counter() - t0
 
     s = server.ledger.summary()
     print(server.ledger.format_summary())
     print(f"stats: {server.stats}")
+    if loop is not None:
+        print(f"loop: {loop.stats}")
     print(f"served {s['requests']} requests / {s['images']} images in "
           f"{dt:.2f}s on {args.device}")
 

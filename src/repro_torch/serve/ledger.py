@@ -1,6 +1,6 @@
 """Per-request traffic ledger for the batched image server — the
-port's copy of ``repro/serve/ledger.py`` (the serving loop's
-shed/failed/degraded bookkeeping waits with the loop).
+port's copy of ``repro/serve/ledger.py``, the serving loop's terminal
+states (shed, failed, degraded) included.
 
 Every dispatch moves a knowable number of words:
 :meth:`ConvPlan.traffic` gives each plan's volume analytically.  The
@@ -22,6 +22,10 @@ Three observables per request / per horizon:
                            bucketing recovered;
   * ``vs_serving_x``     — accounted bytes vs the serving-horizon bound
                            :func:`~repro_torch.core.lower_bound.q_dram_serving`.
+
+Shed and failed requests carry no charge, but sit in the same ledger
+as the served ones, so goodput and shed fraction are over every
+submitted request (:meth:`TrafficLedger.summary`'s health fields).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from collections import deque
 from typing import Sequence
 
 from repro_torch.core.lower_bound import q_dram_serving
-from repro_torch.kernels.conv_lb.ops import plan_conv
+from repro_torch.kernels.conv_lb.ops import exec_fallback_counts, plan_conv
 from repro_torch.obs.metrics import MetricsRegistry
 
 
@@ -98,6 +102,10 @@ class TrafficLedger:
         self._geos: dict[tuple, _GeometryTally] = {}
         self._sum_bytes = self._sum_w = self._sum_bound = 0.0
         self._n_requests = self._n_images = 0
+        # terminal states of the serving loop: no charge, but counted
+        self.shed_requests = self.shed_images = 0
+        self.failed_requests = self.failed_images = 0
+        self.degraded_dispatches = 0
 
     @staticmethod
     def _geo_key(handles) -> tuple:
@@ -171,6 +179,41 @@ class TrafficLedger:
                              bucket=bucket).inc(total_all * db)
         return out
 
+    # -- terminal states (serving-loop health) -----------------------------
+
+    def record_shed(self, rid: int, n_images: int, *,
+                    waited_s: float | None = None,
+                    reason: str = "deadline") -> None:
+        """One request shed by the deadline policy: terminal without a
+        dispatch, so no charge, only its slot in the served + shed +
+        failed reconciliation."""
+        del rid, waited_s      # identity kept by the loop
+        self.shed_requests += 1
+        self.shed_images += int(n_images)
+        self.metrics.counter("serve_shed", reason=reason).inc()
+
+    def record_failed(self, rid: int, n_images: int, *,
+                      waited_s: float | None = None,
+                      error: str | None = None) -> None:
+        """One request whose dispatch exhausted every retry."""
+        del rid, waited_s, error
+        self.failed_requests += 1
+        self.failed_images += int(n_images)
+        self.metrics.counter("serve_failed").inc()
+
+    def record_degraded(self, mode: str) -> None:
+        """One dispatch the circuit breaker served below the server's
+        target (in the port: account-only, which computes nothing)."""
+        self.degraded_dispatches += 1
+        self.metrics.counter("serve_degraded", mode=mode).inc()
+
+    @property
+    def submitted_requests(self) -> int:
+        """Every request that reached a terminal state: served (has a
+        charge) + shed + failed."""
+        return (self._n_requests + self.shed_requests
+                + self.failed_requests)
+
     def _baseline_w_words(self, tally: _GeometryTally) -> float:
         """Per-image weight words of the per-image (b_block=1)
         closed-form planner."""
@@ -196,9 +239,32 @@ class TrafficLedger:
     def total_images(self) -> int:
         return self._n_images
 
+    def _health(self) -> dict:
+        """Terminal-state reconciliation, goodput and shed fraction over
+        every submitted request, and the conv op's library-rung tally
+        (:func:`~repro_torch.kernels.conv_lb.ops.exec_fallback_counts`):
+        a nonzero ``exec_fallbacks`` means some conv pass left the
+        kernels for cuDNN."""
+        submitted = self.submitted_requests
+        fallbacks = exec_fallback_counts()
+        return {
+            "exec_fallbacks": sum(fallbacks.values()),
+            "exec_fallbacks_by_pass": fallbacks,
+            "served_requests": self._n_requests,
+            "shed_requests": self.shed_requests,
+            "failed_requests": self.failed_requests,
+            "submitted_requests": submitted,
+            "shed_images": self.shed_images,
+            "failed_images": self.failed_images,
+            "goodput": self._n_requests / max(submitted, 1),
+            "shed_frac": self.shed_requests / max(submitted, 1),
+            "degraded_dispatches": self.degraded_dispatches,
+        }
+
     def summary(self) -> dict:
         if not self._n_requests:
-            return {"requests": 0, "images": 0, "dispatches": 0}
+            return {"requests": 0, "images": 0, "dispatches": 0,
+                    **self._health()}
         images = self._n_images
         total = self._sum_bytes
         weights = self._sum_w
@@ -252,12 +318,50 @@ class TrafficLedger:
                               if lat else float("nan")),
             "max_latency_s": lat[-1] if lat else float("nan"),
             "by_model": by_model,
+            **self._health(),
         }
+
+    def _health_line(self, s: dict) -> str:
+        line = (f"  health: goodput {s['goodput'] * 100:.1f}% "
+                f"({s['served_requests']} ok / {s['shed_requests']} "
+                f"shed / {s['failed_requests']} failed)")
+        if s["degraded_dispatches"]:
+            line += f", {s['degraded_dispatches']} degraded dispatches"
+        if s["exec_fallbacks"]:
+            by = ", ".join(f"{k} x{v}" for k, v in
+                           sorted(s["exec_fallbacks_by_pass"].items()))
+            line += (f"\n  exec fallbacks: {s['exec_fallbacks']} "
+                     f"conv pass(es) left the kernels for the library "
+                     f"rung ({by})")
+        return line
+
+    def _gauge_lines(self) -> str:
+        """Per-bucket in-flight/backlog gauges (fed by the serving loop
+        through the shared registry), one line per bucket with live
+        work; empty when nothing is in flight."""
+        inflight = self.metrics.find("serve_inflight{")
+        backlog = self.metrics.find("serve_backlog{")
+        buckets = sorted(
+            {int(k.split("bucket=")[1].rstrip("}"))
+             for k in list(inflight) + list(backlog)})
+        parts = []
+        for b in buckets:
+            inf = inflight.get(f"serve_inflight{{bucket={b}}}", 0)
+            bkl = backlog.get(f"serve_backlog{{bucket={b}}}", 0)
+            if inf or bkl:
+                parts.append(f"b{b}: {inf:g} in-flight / "
+                             f"{bkl:g} backlog")
+        if not parts:
+            return ""
+        return "\n  buckets: " + ", ".join(parts)
 
     def format_summary(self) -> str:
         s = self.summary()
         if not s["requests"]:
-            return "ledger: no traffic charged"
+            if s["submitted_requests"]:
+                return ("ledger: no traffic charged\n"
+                        + self._health_line(s) + self._gauge_lines())
+            return "ledger: no traffic charged" + self._gauge_lines()
         out = (f"ledger: {s['requests']} req / {s['images']} img in "
                f"{s['dispatches']} dispatches (+{s['padded_images']} pad)\n"
                f"  {s['bytes_per_image'] / 1e6:.2f} MB/img "
@@ -268,7 +372,8 @@ class TrafficLedger:
                f"  vs serving horizon   {s['vs_serving_x']:.3f}x\n"
                f"  latency p50/p99/max  {s['p50_latency_s'] * 1e3:.1f}/"
                f"{s['p99_latency_s'] * 1e3:.1f}/"
-               f"{s['max_latency_s'] * 1e3:.1f} ms")
+               f"{s['max_latency_s'] * 1e3:.1f} ms\n"
+               + self._health_line(s) + self._gauge_lines())
         for label, row in sorted(s["by_model"].items()):
             out += (f"\n  [{label}] {row['images']} img, "
                     f"{row['bytes_per_image'] / 1e6:.2f} MB/img, "

@@ -18,7 +18,10 @@ Two costs are cached and paid once per bucket:
 
 An ``account-only`` server runs admission, bucketing, planning and the
 ledger without executing anything: full-scale VGG16/224 serving
-economics in milliseconds on any host.
+economics in milliseconds on any host.  A dispatch's ``target`` clamps
+downward against the server's (:meth:`ExecTarget.clamp`), so the
+serving loop's circuit breaker (:mod:`repro_torch.serve.loop`) can
+degrade a kernel server's dispatch to account-only, never upgrade one.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch.core.exec_target import (KERNEL, ExecTarget,
                                           resolve_device, resolve_target)
+from repro_torch.kernels.lean import LAUNCH_LOCK
 from repro_torch.models.cnn import vgg_graph
 from repro_torch.models.graph import ConvGraph, graph_logits, \
     graph_plan_handles
@@ -76,7 +80,8 @@ class ImageServer:
     (default: the paper's 1 MiB GBuf).  ``dtype`` is the served word:
     the ledger charges ``dtype.itemsize`` bytes a word, as the
     reference does.  ``target`` is ``"kernel"`` (the default) or
-    ``"account-only"``; ``device`` is where a computing server runs —
+    ``"account-only"``, the ceiling of every dispatch's target;
+    ``device`` is where a computing server runs —
     ``cuda`` unless the caller asks for ``cpu``.
 
     A computing server runs K1 in its ``dtype``, float32 or bfloat16
@@ -166,13 +171,20 @@ class ImageServer:
             n = int(images.shape[0])
             if n_images is not None and n_images != n:
                 raise ValueError("n_images disagrees with payload")
-        rid = self._next_rid
-        self._next_rid += 1
+        rid = self.reserve_rid()
         self.queue.submit(ImageRequest(rid=rid, n_images=n, arrival=now,
                                        images=images))
         self.tracer.event("serve.admit", rid=rid, n_images=n)
         self.metrics.counter("serve_admitted").inc()
         self.metrics.gauge("serve_queue_depth").set(self.queue.depth)
+        return rid
+
+    def reserve_rid(self) -> int:
+        """Allocate the next request id without enqueueing anything:
+        the serving loop's id for a request it sheds at admission, so
+        admitted and shed work share one rid space."""
+        rid = self._next_rid
+        self._next_rid += 1
         return rid
 
     # -- bucket caches -----------------------------------------------------
@@ -196,9 +208,14 @@ class ImageServer:
             self.metrics.counter("plan_cache_hit").inc()
         return self._handles[key]
 
-    def pipeline(self, bucket: int):
+    def pipeline(self, bucket: int, target: ExecTarget | str | None = None):
         """The (bucket, H, W, C) -> logits callable, built once per
-        bucket."""
+        bucket; ``target`` clamps against the server's, and an
+        account-only one runs no pipeline (the kernel is the one target
+        that computes)."""
+        tgt = self.target.clamp(target)
+        if not tgt.compute:
+            raise ValueError(f"an {tgt.name} dispatch runs no pipeline")
         if bucket in self._pipelines:
             self._counters["pipeline_hits"] += 1
             return self._pipelines[bucket]
@@ -208,7 +225,7 @@ class ImageServer:
         def fwd(imgs: torch.Tensor) -> torch.Tensor:
             with torch.no_grad():     # serving records no backward
                 if forward is not None:
-                    return forward(params, imgs, self.target)
+                    return forward(params, imgs, tgt)
                 return graph_logits(graph, params, imgs)
 
         self._pipelines[bucket] = fwd
@@ -227,10 +244,14 @@ class ImageServer:
 
     # -- dispatch ----------------------------------------------------------
 
-    def _execute(self, group: list[ImageRequest], bucket: int):
-        """Run one dispatch's pipeline and wait for it; ``None`` for an
-        account-only server."""
-        if not self.compute:
+    def _execute(self, group: list[ImageRequest], bucket: int, *,
+                 target: ExecTarget | str | None = None):
+        """Run one dispatch's pipeline and wait for it: the compute half
+        of a dispatch, which the serving loop calls off its lock.
+        ``target`` clamps downward against the server's; at
+        account-only this returns ``None`` and launches nothing."""
+        tgt = self.target.clamp(target)
+        if not tgt.compute:
             return None
         payload = torch.cat([r.images for r in group], dim=0)
         pad = bucket - payload.shape[0]
@@ -243,12 +264,13 @@ class ImageServer:
             n_bytes = sum(p.traffic(bucket).total
                           for _, p in self.plan_handles(bucket)) \
                 * self.dtype.itemsize
-        with tr.span("serve.execute", bucket=int(bucket),
+        with tr.span("serve.execute", bucket=int(bucket), mode=tgt.name,
                      n_images=int(payload.shape[0]) - pad,
                      traffic_bytes=n_bytes) as sp:
             t0 = tr.now()
-            out = self.pipeline(bucket)(payload)
-            if out.is_cuda:
+            with LAUNCH_LOCK:     # enqueue from one thread at a time
+                out = self.pipeline(bucket, tgt)(payload)
+            if out.is_cuda:       # the card's compute is in the span
                 torch.cuda.synchronize(out.device)
             dt = tr.now() - t0
             sp.set(us=dt * 1e6)

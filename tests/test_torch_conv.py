@@ -134,6 +134,46 @@ def test_other_devices_raise():
         conv2d_lb(x, w, padding=1)
 
 
+@pytest.mark.parametrize("h,w,k,s,p,d,pool", [
+    (7, 7, 3, 1, 0, 1, 2),                 # Ho = Wo = 5
+    (8, 7, 3, 1, 1, 1, 2),                 # 8 x 7: only Wo is odd
+    (12, 12, 3, 1, 1, 1, 3),               # 12 x 12 divides 3 ...
+    (11, 11, 3, 1, 1, 1, 3),               # ... 11 x 11 does not
+    (9, 9, 3, 2, 1, 1, 2),                 # strided: 5 x 5
+    (10, 10, 3, 1, 1, 2, 2),               # rhs dilation 2: 8 x 8 ...
+    (10, 9, 3, 1, 1, 2, 2),                # ... 8 x 7
+])
+def test_fused_pool_that_does_not_divide_the_plane_is_refused(h, w, k, s,
+                                                               p, d, pool):
+    """``conv2d_lb`` refuses a fused pool that does not divide the conv
+    output plane before anything runs, with the reference's kernel
+    target's message (its ``plan_conv``), as the card's kernel does; a
+    pool that divides computes as the reference's."""
+    from repro.kernels.conv_lb.ops import plan_conv as jax_plan_conv
+
+    ci, co = 4, 8
+    ho = (h + 2 * p - (k - 1) * d - 1) // s + 1
+    wo = (w + 2 * p - (k - 1) * d - 1) // s + 1
+    x, wt, b = _arrays(7, (1, h, w, ci), (k, k, ci, co), (co,))
+    kw = dict(stride=s, padding=p, dilation=d, relu=True, pool=pool)
+    if ho % pool == 0 and wo % pool == 0:
+        _assert_close(conv2d_lb(_t(x), _t(wt), _t(b), **kw),
+                      jax_conv2d_lb(x, wt, b, fallback=True, **kw))
+        return
+    want = (f"fused pool={pool} needs pool-divisible output plane, got "
+            f"{ho}x{wo}")
+    xt = _t(x).requires_grad_(True)
+    before = torch_kernel.conv_lb.launches
+    with pytest.raises(ValueError) as got:
+        conv2d_lb(xt, _t(wt), _t(b), **kw)
+    assert str(got.value) == want
+    assert xt.grad is None and torch_kernel.conv_lb.launches == before
+    with pytest.raises(ValueError) as ref:
+        jax_plan_conv(h, w, ci, co, k, k, batch=1, stride=(s, s),
+                      padding=(p, p), dilation=(d, d), pool=pool)
+    assert str(ref.value) == want
+
+
 def test_op_rejects_bad_geometry():
     x = torch.zeros((1, 6, 6, 4))
     with pytest.raises(ValueError, match="groups"):

@@ -1293,3 +1293,71 @@ def test_strided_controls_fail_their_gates(cuda):
                dref) > 2e-4
     assert rel(W._sm90_tf32(x, gy, geom, wplan, lo_terms=False),
                dref) >= 4 * right
+
+
+def _loop_server(cuda, **kw):
+    from repro_torch.models.cnn import init_vgg, vgg_graph
+    from repro_torch.serve import ImageServer
+    params = init_vgg(torch.Generator().manual_seed(40), width_mult=0.25,
+                      device=cuda)
+    graph = vgg_graph(params)
+    return ImageServer(params, 32, 32, graph=graph, device=cuda,
+                       buckets=(1, 2, 4), wait_budget=0.0, **kw), graph
+
+
+def test_serving_loop_async_on_the_card_matches_plain(cuda):
+    """``run_async(max_inflight=2)`` with faults: every rid DONE once,
+    13 K1 launches a computed dispatch (each enqueued under the launch
+    lock, from the worker threads), logits within 1e-4 of max |plain|."""
+    import asyncio
+
+    from repro_torch.serve import FaultPlan, RequestState, ServingLoop
+    srv, graph = _loop_server(cuda)
+    loop = ServingLoop(srv, deadline_s=None, max_inflight=2,
+                       fault_plan=FaultPlan.parse("fail@1,delay@3:0.01"))
+    g = torch.Generator().manual_seed(41)
+    imgs = [torch.randn((n, 32, 32, 3), generator=g) for n in
+            (1, 2, 4, 1, 2, 4, 3)]
+    srv.warm()
+    before = K.conv_lb.launches
+    for x in imgs:
+        loop.submit(x)
+    results = asyncio.run(loop.run_async())
+    assert sorted(r.rid for r in results) == list(range(len(imgs)))
+    assert all(t.state is RequestState.DONE
+               for t in loop.requests.values())
+    assert loop.counters["retries"] == 1
+    assert K.conv_lb.launches - before == 13 * srv.ledger.dispatches
+    for r in results:
+        want = graph_logits(graph, srv.params, imgs[r.rid].to(cuda),
+                            conv=conv2d_ref)
+        _close(r.logits, want)
+
+
+def test_poisoned_kernel_path_degrades_to_account_only_on_the_card(cuda):
+    """The kernel pipeline raises; the breaker degrades the retry to
+    account-only, which launches nothing and returns no logits: no
+    plain version and no library call stands in on the card."""
+    from repro_torch.kernels.conv_lb.ops import exec_fallback_counts
+    from repro_torch.serve import ServingLoop
+    from repro_torch.serve import server as S
+
+    fallbacks = exec_fallback_counts()
+    srv, _ = _loop_server(cuda)
+
+    def poisoned(tgt):
+        raise RuntimeError("kernel path poisoned")
+
+    srv.pipeline = lambda bucket, target=None: poisoned(target)
+    loop = ServingLoop(srv, deadline_s=None, breaker_threshold=1,
+                       max_retries=3, backoff_base_s=0.01)
+    before = (K.conv_lb.launches, dict(K.conv_lb.launches_by_route))
+    loop.submit(torch.randn((2, 32, 32, 3)))
+    (res,) = loop.run_sync(tick_s=0.005)
+    assert res.logits is None
+    assert loop.breaker.mode.name == "account-only"
+    assert srv.ledger.degraded_dispatches == 1
+    assert (K.conv_lb.launches, dict(K.conv_lb.launches_by_route)) == before
+    assert exec_fallback_counts() == fallbacks
+    assert S.LAUNCH_LOCK.acquire(blocking=False)   # released after the raise
+    S.LAUNCH_LOCK.release()
