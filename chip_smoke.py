@@ -65,6 +65,17 @@
     ``sm90_tf32``, forward, recompute and dgrad; f32 ResNet: 60
     ``sm90_tf32`` and 2 ``sm90_im2col`` a step, the strided dgrads one
     launch each, none on FMA);
+  * ``trace``: the traced path (``repro_torch.obs``): VGG16/224 at
+    bucket 8 through ``ImageServer`` under an active tracer, three f32
+    dispatches of the ``vgg`` phase's payload and one bf16, each conv a
+    ``graph.layer`` span holding one ``kernel.conv2d_lb`` span with the
+    port's ``plan_conv`` bytes and the card's time between CUDA events
+    (``trace_layers``: per layer route, bytes, ``us``, ``device_us``,
+    ``device_gbps``), the f32 logits bit for bit the untraced ones and
+    K1's launches the untraced ones; one traced f32 SGD step (the loss
+    and the K1/K2 launches of an untraced ``train_vgg`` step); and
+    ``launch/serve_images.py --trace`` under ``random:7`` faults, its
+    Perfetto file reconciled with its metrics;
   * ``matmul``, ``attention``: the two entry points at full width
     (phi3-medium-14b's projections at 4096 tokens, bf16 on the sm90
     kernel, f32 on the 3xTF32 kernel, and wq also with a K-major ``w``
@@ -123,6 +134,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -156,6 +168,7 @@ from repro_torch.kernels.matmul_lb.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
                                              im2col_ref, wgrad_ref)
 from repro_torch.kernels.nvcc import build_many  # noqa: E402
+from repro_torch.launch import serve_images  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
@@ -628,9 +641,12 @@ SERVE_ROUTES = {
     ("resnet", torch.float32): {"sm90_tf32": 20, "sm90_im2col": 1}}
 
 
-def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
+def phase_serve(model: str, dtype: torch.dtype = torch.float32,
+                keep: dict | None = None) -> dict:
     """Serve 16 requests of 1-8 images in ``dtype`` (bf16: the same
-    weights rounded once); returns K1's launches by route."""
+    weights rounded once); returns K1's launches by route.  ``keep``
+    receives the weights, the payloads, the rids of the first bucket-8
+    dispatch and every rid's logits, for the ``trace`` phase."""
     gen = torch.Generator().manual_seed(SEED)
     if model == "vgg":
         params = init_vgg(gen, device="cuda")
@@ -691,7 +707,21 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
             else within(got, plain, dtype))
     dispatch_ms = [s.attrs["us"] / 1e3
                    for s in tracer.find("serve.execute")]
+    b8_ms = [s.attrs["us"] / 1e3 for s in tracer.find("serve.execute")
+             if s.attrs["bucket"] == 8]
     summary = srv.ledger.summary()
+    if keep is not None:
+        # a dispatch's rids: the serve.complete events after its
+        # serve.execute span
+        groups = []
+        for rec in tracer.records:
+            if rec.name == "serve.execute":
+                groups.append((rec.attrs["bucket"], []))
+            elif rec.name == "serve.complete":
+                groups[-1][1].append(rec.attrs["rid"])
+        keep.update(params=params, graph=graph, images=images,
+                    group=next(rids for b, rids in groups if b == 8),
+                    logits={r.rid: r.logits for r in results})
     emit({"phase": phase, "dtype": str(dtype), "logits_dtype":
           str(got.dtype), **gate, "requests": len(images),
           "images": int(sum(sizes)), "dispatches": dispatches,
@@ -700,7 +730,10 @@ def phase_serve(model: str, dtype: torch.dtype = torch.float32) -> dict:
           "every_rid_answered_once": True,
           "logits_shape": list(got.shape), "logits_finite": finite,
           "max_abs_err_vs_plain": err, "max_rel_err_vs_plain": rel,
-          "dispatch_ms": dispatch_ms, "stats": srv.stats,
+          "dispatch_ms": dispatch_ms,
+          "dispatch_ms_b8_median": (float(np.median(b8_ms)) if b8_ms
+                                    else None),
+          "stats": srv.stats,
           "ledger": {k: summary[k] for k in (
               "bytes_per_image", "vs_bound_x", "w_amortization_x",
               "vs_serving_x", "dispatches", "padded_images")}})
@@ -943,6 +976,214 @@ def phase_serve_loop(card: str) -> dict:
           "exec_fallbacks": {name: row["exec_fallbacks"]
                              for name, row in rows.items()}})
     return total
+
+
+#: the ``trace`` phase's traced f32 dispatches of one bucket-8 group
+TRACE_DISPATCHES = 3
+
+
+def _children(tracer: Tracer) -> dict:
+    """sid -> the records whose parent it is, in begin order."""
+    out: dict[int, list] = {}
+    for rec in tracer.records:
+        out.setdefault(rec.parent, []).append(rec)
+    return out
+
+
+def _traced_dispatches(what: str, run: dict, dtype, n: int,
+                       card: str) -> dict:
+    """``n`` dispatches of ``run``'s first bucket-8 group (the ``vgg``
+    or ``serve_bf16_vgg`` phase's weights, payloads and logits) under an
+    active real-clock tracer: each one ``graph.forward`` under
+    ``serve.execute``, 13 ``graph.layer`` spans in it and one
+    ``kernel.conv2d_lb`` in each, with the port's own ``plan_conv``
+    bytes and the card's time between CUDA events; K1's launches by
+    route a dispatch the untraced ones.  Returns the per-layer rows
+    (medians over the dispatches) and whether the logits kept their
+    bits."""
+    params, graph, images = run["params"], run["graph"], run["images"]
+    group = run["group"]
+    stages = graph_stages(graph, 224, 224)
+    tracer = Tracer()
+    srv = ImageServer(params, 224, 224, graph=graph, device="cuda",
+                      dtype=dtype, tracer=tracer)
+    with tracer.activate():
+        # one traced dispatch first, then forgotten: the timed path's
+        # plans and CUDA events exist before the measured ones
+        for rid in group:
+            srv.submit(images[rid])
+        srv.drain()
+        tracer.clear()
+        _reset_k1()
+        same = True
+        for _ in range(n):
+            of = {srv.submit(images[rid]): rid for rid in group}
+            for r in srv.drain():
+                same &= bool(torch.equal(r.logits, run["logits"][of[r.rid]]))
+    k1 = _k1_counts()
+    word = dtype.itemsize
+    want_bytes, routes = [], []
+    for p, st in zip(params["convs"], stages):
+        nd = st.node
+        pool = st.pool if st.fused_pool else 1
+        plan = conv_ops.plan_conv(st.h, st.w, nd.ci, nd.co, nd.hk, nd.wk,
+                                  batch=8, stride=(nd.stride,) * 2,
+                                  padding=(nd.pad,) * 2, pool=pool,
+                                  residual=st.residual, dtype_bytes=word)
+        want_bytes.append(plan.traffic_bytes(8, word))
+        x = torch.empty((8, st.h, st.w, nd.ci), dtype=dtype, device="cuda")
+        routes.append(conv_route(x, p["w"], p.get("b"), None,
+                                 stride=nd.stride, padding=nd.pad,
+                                 pool=pool)[0])
+    kids = _children(tracer)
+    executes = tracer.find("serve.execute")
+    require(len(executes) == n, f"{what}: {len(executes)} dispatches")
+    per_layer = [[] for _ in stages]
+    fwd_us, dev_sums = [], []
+    for ex in executes:
+        (fwd,) = [c for c in kids.get(ex.sid, [])
+                  if c.name == "graph.forward"]
+        layers = [c for c in kids.get(fwd.sid, [])
+                  if c.name == "graph.layer"]
+        require([sp.attrs["layer"] for sp in layers]
+                == [st.node.name for st in stages],
+                f"{what}: graph.layer spans {len(layers)}")
+        dev = 0.0
+        for i, sp in enumerate(layers):
+            (kn,) = [c for c in kids.get(sp.sid, [])
+                     if c.name == "kernel.conv2d_lb"]
+            a = kn.attrs
+            require(a["traffic_bytes"] == want_bytes[i],
+                    f"{what}: {sp.attrs['layer']} traffic_bytes "
+                    f"{a['traffic_bytes']} != plan_conv's {want_bytes[i]}")
+            require(a["device_us"] > 0 and a["mode"] == "kernel",
+                    f"{what}: {sp.attrs['layer']} {a}")
+            dev += a["device_us"]
+            per_layer[i].append(a)
+        require(dev <= fwd.dur * 1e6, f"{what}: the layers' device time "
+                                      f"{dev} us exceeds graph.forward's "
+                                      f"{fwd.dur * 1e6} us")
+        fwd_us.append(fwd.dur * 1e6)
+        dev_sums.append(dev)
+    want = dict.fromkeys(K.ROUTES, 0) | {
+        rt: c * n for rt, c in SERVE_ROUTES["vgg", dtype].items()}
+    require(k1["by_route"] == want and k1["stage"] == n
+            and k1["launches"] == 13 * n,
+            f"{what}: K1 {k1}, want {want} and {n} staging launches")
+
+    def med(rows, key):
+        return float(np.median([r[key] for r in rows]))
+
+    rows = [{"layer": st.node.name, "route": rt,
+             "traffic_bytes": want_bytes[i], "us": med(per_layer[i], "us"),
+             "device_us": med(per_layer[i], "device_us"),
+             "device_gbps": want_bytes[i] / med(per_layer[i], "device_us")
+             / 1e3}
+            for i, (st, rt) in enumerate(zip(stages, routes))]
+    total_bytes = sum(want_bytes)
+    out = {"phase": "trace_layers", "dtype": str(dtype), "bucket": 8,
+           "dispatches": n, "group_rids": group, "rows": rows,
+           "device_us_sum": dev_sums, "graph_forward_us": fwd_us,
+           "serve_execute_us": [ex.attrs["us"] for ex in executes],
+           "traffic_bytes_sum": total_bytes,
+           "device_gbps_overall": [total_bytes / d / 1e3 for d in dev_sums],
+           "k1_by_route": k1["by_route"], "k1_stage": k1["stage"],
+           "logits_same_bits_as_untraced": same,
+           "device_us_is": "CUDA events around one conv2d_lb call on a "
+                           "stream the previous layer's wait left idle: "
+                           "the call's kernels and its host work before "
+                           "the first launch",
+           "card": card}
+    emit(out)
+    return out
+
+
+def phase_trace(card: str, vgg_run: dict, bf16_run: dict,
+                train_vgg: dict) -> dict:
+    """The traced path on the card.  (a) VGG16/224 f32 at bucket 8, the
+    ``vgg`` phase's weights and payloads: ``TRACE_DISPATCHES`` dispatches
+    under an active real-clock tracer, whose logits keep the untraced
+    ``vgg`` phase's bits (K1 ``sm90_tf32`` sums each output word in one
+    order); (b) one bf16 dispatch likewise; (c) one traced f32 VGG16/224
+    batch-8 SGD step, whose loss is the untraced step 0's and whose K1
+    and K2 launches are a ``train_vgg`` step's; (d)
+    ``launch/serve_images.py --deadline 0.5 --fault-plan random:7
+    --trace`` at VGG16/224: the trace file loads, its phases are X, i
+    and M, one ``request.terminal`` per rid, and its ``done`` count is
+    the metrics' ``serve_served``."""
+    t0 = time.perf_counter()
+    f32 = _traced_dispatches("trace f32", vgg_run, torch.float32,
+                             TRACE_DISPATCHES, card)
+    require(f32["logits_same_bits_as_untraced"],
+            "trace f32: traced logits differ from the vgg phase's")
+    bf16 = _traced_dispatches("trace bf16", bf16_run, torch.bfloat16, 1,
+                              card)
+    # (c) the step: the same weights and batch as train_vgg's
+    gen = torch.Generator().manual_seed(SEED)
+    graph, params = T.build_model("vgg", width_mult=1.0, n_classes=10,
+                                  generator=gen, device="cuda")
+    images, labels = T.make_batch(8, 224, 10, gen, "cuda")
+    tracer = Tracer()
+    _reset_k1()
+    _reset_k2()
+    with tracer.activate():
+        (loss,) = T.train(graph, params, images, labels, steps=1,
+                          lr=TRAIN_LR["vgg"])
+    got = _k1_k2_launches()
+    per_step = {k: {rt: c // TRAIN_STEPS for rt, c in train_vgg[k].items()}
+                for k in ("conv_lb_by_route", "wgrad_lb_by_route")}
+    (step,) = tracer.find("train.step")
+    kernels = tracer.find("kernel.conv2d_lb")
+    step_row = {"loss": loss, "untraced_loss_step0": train_vgg["losses"][0],
+                "k1_by_route": got["conv_lb_by_route"],
+                "k2_by_route": got["wgrad_lb_by_route"],
+                "step_us": step.attrs["us"],
+                "forward_layers": len(kernels),
+                "forward_device_us": sum(k.attrs["device_us"]
+                                         for k in kernels)}
+    require(loss == train_vgg["losses"][0],
+            f"trace step: loss {loss} != the untraced step 0's "
+            f"{train_vgg['losses'][0]}")
+    require(got["conv_lb_by_route"] == per_step["conv_lb_by_route"]
+            and got["wgrad_lb_by_route"] == per_step["wgrad_lb_by_route"],
+            f"trace step: launches {got} != a train_vgg step's {per_step}")
+    require(len(kernels) == 13 and all(k.attrs["device_us"] > 0
+                                       for k in kernels),
+            f"trace step: {len(kernels)} timed forward layers")
+    # (d) the serving CLI with --trace, real clock, on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve.json"
+        serve_images.main(["--deadline", "0.5", "--fault-plan", "random:7",
+                           "--trace", str(path)])
+        doc = json.loads(path.read_text())
+        jsonl = [json.loads(line) for line in
+                 Path(str(path) + ".jsonl").read_text().splitlines()]
+    events = doc["traceEvents"]
+    phases = {e["ph"] for e in events}
+    terminals = [e for e in events if e["name"] == "request.terminal"]
+    rids = sorted(e["args"]["rid"] for e in terminals)
+    done = sum(e["args"]["state"] == "done" for e in terminals)
+    served = doc["otherData"]["metrics"].get("serve_served", 0)
+    cli = {"events": len(events), "jsonl_records": len(jsonl),
+           "phases": sorted(phases), "requests": len(rids), "done": done,
+           "serve_served": served,
+           "layer_spans": sum(e["name"] == "graph.layer" for e in events),
+           "dispatch_us": [e["args"]["us"] for e in events
+                           if e["name"] == "serve.execute"]}
+    require(phases <= {"X", "i", "M"}, f"trace cli: phases {phases}")
+    require(rids == list(range(16)), f"trace cli: terminal rids {rids}")
+    require(done == served, f"trace cli: {done} done, {served} served")
+    require(cli["layer_spans"] == 0,
+            "trace cli: a serving trace holds per-layer spans")
+    row = {"phase": "trace", "f32_dispatch_device_us": f32["device_us_sum"],
+           "f32_graph_forward_us": f32["graph_forward_us"],
+           "bf16_dispatch_device_us": bf16["device_us_sum"],
+           "bf16_logits_same_bits_as_untraced":
+           bf16["logits_same_bits_as_untraced"],
+           "step": step_row, "cli": cli,
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(row)
+    return row
 
 
 def _host_us(fn, calls: int = 20) -> float:
@@ -2289,24 +2530,16 @@ def phase_train(model: str) -> dict:
             errs.append(abs(float(loss) - float(plain_loss))
                         / abs(float(plain_loss)))
 
+    # the steps' spans only: the tracer is not made ambient, so the
+    # forward records no per-layer spans and waits for no layer (the
+    # ``trace`` phase drives a traced step)
     tracer = Tracer()
-    with tracer.activate():
-        _reset_k1()
-        W.wgrad_lb.launches = 0
-        W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
-        W.wgrad_lb.reduce_launches = 0
-        W.wgrad_lb.stage_launches = 0
-        losses = T.train(graph, params, images, labels,
-                         steps=TRAIN_STEPS, lr=TRAIN_LR[model],
-                         traffic_bytes=rep["bytes_per_step"],
-                         on_step=check)
-        launches = {"conv_lb": K.conv_lb.launches,
-                    "conv_lb_by_route": dict(K.conv_lb.launches_by_route),
-                    "conv_stage": K.conv_lb.stage_launches,
-                    "wgrad_lb": W.wgrad_lb.launches,
-                    "wgrad_lb_by_route": dict(W.wgrad_lb.launches_by_route),
-                    "wgrad_reduce": W.wgrad_lb.reduce_launches,
-                    "wgrad_stage": W.wgrad_lb.stage_launches}
+    _reset_k1()
+    _reset_k2()
+    losses = T.train(graph, params, images, labels, steps=TRAIN_STEPS,
+                     lr=TRAIN_LR[model], traffic_bytes=rep["bytes_per_step"],
+                     on_step=check, tracer=tracer)
+    launches = _k1_k2_launches()
     k1 = [c - p for (c, _), (p, _) in zip(per_step, [(0, 0)] + per_step)]
     k2 = [c - p for (_, c), (_, p) in zip(per_step, [(0, 0)] + per_step)]
     step_ms = [sp.attrs["us"] / 1e3 for sp in tracer.find("train.step")]
@@ -2350,7 +2583,25 @@ def phase_train(model: str) -> dict:
     require(launches["wgrad_stage"] == want_routes["sm90_im2col"],
             f"train_{model}: im2col staging launches "
             f"{launches['wgrad_stage']}")
-    return launches
+    return launches | {"losses": losses}
+
+
+def _reset_k2() -> None:
+    """Set K2's launch counts to 0 before a path is driven."""
+    W.wgrad_lb.launches = 0
+    W.wgrad_lb.launches_by_route = dict.fromkeys(W.ROUTES, 0)
+    W.wgrad_lb.reduce_launches = 0
+    W.wgrad_lb.stage_launches = 0
+
+
+def _k1_k2_launches() -> dict:
+    return {"conv_lb": K.conv_lb.launches,
+            "conv_lb_by_route": dict(K.conv_lb.launches_by_route),
+            "conv_stage": K.conv_lb.stage_launches,
+            "wgrad_lb": W.wgrad_lb.launches,
+            "wgrad_lb_by_route": dict(W.wgrad_lb.launches_by_route),
+            "wgrad_reduce": W.wgrad_lb.reduce_launches,
+            "wgrad_stage": W.wgrad_lb.stage_launches}
 
 
 def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
@@ -2828,12 +3079,15 @@ def main() -> int:
     bwd_bf16 = check_bwd_bf16()
     check_matmul_by_route = phase_check_matmul()
     check_attn_by_route = phase_check_attention()
-    vgg_f32 = phase_serve("vgg")
-    vgg_bf16 = phase_serve("vgg", torch.bfloat16)
+    vgg_run, bf16_run = {}, {}
+    vgg_f32 = phase_serve("vgg", keep=vgg_run)
+    vgg_bf16 = phase_serve("vgg", torch.bfloat16, keep=bf16_run)
     resnet_f32 = phase_serve("resnet")
     serve_loop = phase_serve_loop(card)
     train_vgg = phase_train("vgg")
     train_resnet = phase_train("resnet")
+    phase_trace(card, vgg_run, bf16_run, train_vgg)
+    del vgg_run, bf16_run
     matmul_launches, matmul_all = phase_matmul(card)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]

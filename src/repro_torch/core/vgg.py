@@ -1,5 +1,12 @@
-"""VGG-16 conv configuration (paper Sec. VI: VGGNet-16) — the port's
-copy of ``_CFG`` from ``repro/core/vgg.py``."""
+"""VGG-16 workload (paper Sec. VI: VGGNet-16, batch size 3, as in
+Eyeriss [10]).  The 13 conv layers; FC layers as R=1 matmul workloads.
+
+The port's copy of ``repro/core/vgg.py``.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.layer import ConvLayer, fc_layer
 
 _CFG = [
     # name,      ci,  co,  hi,  wi
@@ -17,3 +24,19 @@ _CFG = [
     ("conv5_2", 512, 512,  14,  14),
     ("conv5_3", 512, 512,  14,  14),
 ]
+
+
+def vgg16_conv_layers(batch: int = 3) -> list[ConvLayer]:
+    return [ConvLayer(name=n, batch=batch, ci=ci, co=co, hi=h, wi=w,
+                      hk=3, wk=3, stride=1, pad=1)
+            for n, ci, co, h, w in _CFG]
+
+
+def vgg16_fc_layers(batch: int = 3) -> list[ConvLayer]:
+    return [fc_layer(batch, 25088, 4096, "fc6"),
+            fc_layer(batch, 4096, 4096, "fc7"),
+            fc_layer(batch, 4096, 1000, "fc8")]
+
+
+def vgg16_total_macs(batch: int = 3) -> int:
+    return sum(l.macs for l in vgg16_conv_layers(batch))

@@ -34,6 +34,7 @@ Two halves, kept apart on purpose:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from functools import lru_cache
 from math import gcd as _gcd
 
@@ -43,6 +44,7 @@ import torch.nn.functional as F
 from repro_torch.analysis.plan_check import (Diagnostic, PlanLegalityError,
                                              check_conv_plan, errors)
 from repro_torch.core.dataflow import Traffic
+from repro_torch.core.exec_target import KERNEL
 from repro_torch.core.hopper_adapter import (REF_PLAN_BUDGET,
                                              ConvBlockShape, balanced_tile,
                                              conv_block_candidates,
@@ -971,3 +973,80 @@ def conv2d_lb(x: torch.Tensor, w: torch.Tensor,
                  lhs_dilation=(ldy, ldx), groups=groups, relu=relu,
                  pool=pool)
     return ConvLb.apply(x, w, bias, residual, a)
+
+
+#: per thread: device -> the (start, end) CUDA events
+#: :func:`conv2d_lb_timed` records around one call, made once
+_TIMING_EVENTS = threading.local()
+
+
+def _timing_events(device: torch.device):
+    pairs = getattr(_TIMING_EVENTS, "pairs", None)
+    if pairs is None:
+        pairs = _TIMING_EVENTS.pairs = {}
+    if device not in pairs:
+        pairs[device] = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+    return pairs[device]
+
+
+def conv2d_lb_timed(x: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor | None = None,
+                    residual: torch.Tensor | None = None, *,
+                    stride=1, padding=0, dilation=1, groups: int = 1,
+                    relu: bool = False, pool: int = 1,
+                    tracer=None, clock=None,
+                    name: str = "kernel.conv2d_lb") -> torch.Tensor:
+    """:func:`conv2d_lb` with a synced, *accounted* span around the
+    call — the port's counterpart of the reference's
+    ``conv2d_lb_timed``: one span carrying both the measured seconds and
+    the plan's analytic ``traffic_bytes``, i.e. the achieved-GB/s sample
+    the roofline needs, per layer.
+
+    ``tracer`` defaults to the ambient tracer; ``clock`` defaults to the
+    tracer's own clock, so under a virtual clock the span's ``us`` and
+    ``achieved_gbps`` stay deterministic.  The bytes are
+    :func:`plan_conv`'s for this geometry and word size, times
+    ``groups``.  On a CUDA tensor the call runs between a pair of CUDA
+    events on the current stream and then waits for the device
+    (``torch.cuda.synchronize``), so ``us`` holds the host's enqueue and
+    the card's work; the span also carries the time between the events
+    on the card, ``device_us``, and ``device_gbps``.  Where the stream
+    is idle when the call starts (the previous timed layer waited for
+    it), ``device_us`` also holds the call's host work before its first
+    launch.  It launches the kernel through :func:`conv2d_lb` or raises,
+    like it, and returns its output, autograd graph and all."""
+    tr = active_tracer() if tracer is None else tracer
+    clk = tr.now if clock is None else clock
+    sy, sx = _pair(stride)
+    py, px = _pair(padding)
+    dy, dx = _pair(dilation)
+    b, h, wd, ci = x.shape
+    hk, wk, ci_g, co = w.shape
+    word = x.element_size()
+    plan = plan_conv(h, wd, ci_g, co // groups, hk, wk, batch=b,
+                     stride=(sy, sx), padding=(py, px), dilation=(dy, dx),
+                     pool=pool, residual=residual is not None,
+                     dtype_bytes=word)
+    n_bytes = groups * plan.traffic_bytes(b, dtype_bytes=word)
+    events = _timing_events(x.device) if x.is_cuda else None
+    with tr.span(name, layer=f"{ci}->{co}k{hk}x{wk}", mode=KERNEL.name,
+                 batch=b, traffic_bytes=n_bytes) as sp:
+        t0 = clk()
+        if events is not None:
+            events[0].record()
+        out = conv2d_lb(x, w, bias, residual, stride=stride,
+                        padding=padding, dilation=dilation, groups=groups,
+                        relu=relu, pool=pool)
+        if events is not None:
+            events[1].record()
+            torch.cuda.synchronize(x.device)
+        dt = clk() - t0
+        sp.set(us=dt * 1e6,
+               achieved_gbps=(n_bytes / dt / 1e9) if dt > 0 else None)
+        if events is not None:
+            dev_us = events[0].elapsed_time(events[1]) * 1e3
+            sp.set(device_us=dev_us,
+                   device_gbps=(n_bytes / dev_us / 1e3) if dev_us > 0
+                   else None)
+    return out

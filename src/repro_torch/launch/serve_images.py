@@ -24,6 +24,12 @@ bucketing bought vs per-image dispatch.
   PYTHONPATH=src python -m repro_torch.launch.serve_images \\
       --account-only --device cpu --requests 32 --deadline 0.25 \\
       --fault-plan "fail@1,delay@3:0.05,service:0.02"
+
+  # a Perfetto/Chrome trace of the run (+ a JSONL event log beside it);
+  # an account-only fault-tolerant run's is byte-deterministic per seed
+  PYTHONPATH=src python -m repro_torch.launch.serve_images \\
+      --account-only --device cpu --deadline 0.25 --fault-plan random:7 \\
+      --trace serve.trace.json
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.cnn import init_resnet, init_vgg, resnet_graph
+from repro_torch.obs import Tracer, write_trace
 from repro_torch.serve import FaultPlan, ImageServer, ServingLoop, VirtualClock
 
 
@@ -70,6 +77,11 @@ def main(argv=None) -> None:
                          "account-only runs use a virtual clock so "
                          "delays cost no wall time)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Perfetto/Chrome trace JSON (+ JSONL "
+                         "event log at PATH.jsonl); under a virtual "
+                         "clock the trace is byte-deterministic per "
+                         "seed")
     args = ap.parse_args(argv)
 
     gen = torch.Generator().manual_seed(args.seed)
@@ -87,13 +99,19 @@ def main(argv=None) -> None:
     # delays and backoff waits are free; compute runs keep real time
     clock = VirtualClock() if fault_tolerant and args.account_only \
         else None
+    # a virtual-clock run gets a virtual-clock trace; the tracer is not
+    # made ambient, so the trace holds the server's and the loop's spans
+    # and no per-layer ones (which would wait for the card every layer)
+    tracer = None
+    if args.trace:
+        tracer = Tracer(**({"clock": clock} if clock else {}))
     server = ImageServer(params, args.image, args.image, graph=graph,
                          buckets=args.buckets,
                          wait_budget=args.wait_ms / 1e3,
                          account_budget=args.budget_kib * 1024,
                          target=("account-only" if args.account_only
                                  else "kernel"),
-                         device=args.device,
+                         device=args.device, tracer=tracer,
                          **({"clock": clock} if clock else {}))
     loop = None
     if fault_tolerant:
@@ -129,6 +147,10 @@ def main(argv=None) -> None:
         print(f"loop: {loop.stats}")
     print(f"served {s['requests']} requests / {s['images']} images in "
           f"{dt:.2f}s on {args.device}")
+    if tracer is not None:
+        out = write_trace(args.trace, tracer, server.metrics)
+        print(f"trace: {out} ({len(tracer.records)} records; open in "
+              f"ui.perfetto.dev)")
 
 
 if __name__ == "__main__":

@@ -21,13 +21,23 @@ fwd+dgrad+wgrad bytes against ``q_dram_training``.
   PYTHONPATH=src python -m repro_torch.launch.train_vgg --model resnet \\
       --image 32 --width-mult 1.0 --steps 3 --lr 1e-3
 
+  # a Perfetto/Chrome trace (+ JSONL): planning, the training report,
+  # each step and, inside it, each layer's forward with its bytes
+  PYTHONPATH=src python -m repro_torch.launch.train_vgg --device cpu \\
+      --steps 1 --trace train.trace.json
+
 (The stacks have no normalization layers; at full width the default
 rate of the small demo diverges.)
+
+A traced step runs eagerly, so it holds each forward layer's
+``graph.layer`` / ``kernel.conv2d_lb`` spans; each of those waits for
+the device, so a traced step's ``us`` is not an untraced step's time.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import torch
@@ -38,6 +48,7 @@ from repro_torch.models.cnn import (graph_loss, init_resnet, init_vgg,
                                     resnet_graph, vgg_graph)
 from repro_torch.models.graph import (ConvGraph,
                                       graph_training_step_report)
+from repro_torch.obs import Tracer, write_trace
 from repro_torch.obs.tracer import active_tracer
 
 N_CLASSES = 4       # as in examples/train_vgg.py
@@ -110,12 +121,15 @@ def sgd_step(graph: ConvGraph, params: dict, images: torch.Tensor,
 
 def train(graph: ConvGraph, params: dict, images: torch.Tensor,
           labels: torch.Tensor, *, steps: int, lr: float,
-          traffic_bytes: float = 0.0, on_step=None) -> list[float]:
+          traffic_bytes: float = 0.0, on_step=None,
+          tracer=None) -> list[float]:
     """``steps`` SGD steps on one batch; each is a ``train.step`` span
-    of the ambient tracer (with ``traffic_bytes`` and its wall ``us``
-    after the device finished).  ``on_step(i, loss, grads)`` sees each
-    step.  Returns the losses."""
-    tr = active_tracer()
+    of ``tracer`` (default: the ambient one; with ``traffic_bytes`` and
+    its wall ``us`` after the device finished).  A tracer passed here
+    and not made ambient times the steps alone: the forward's per-layer
+    spans, and their waits, follow the ambient tracer.
+    ``on_step(i, loss, grads)`` sees each step.  Returns the losses."""
+    tr = active_tracer() if tracer is None else tracer
     cuda = images.device.type == "cuda"
     losses = []
     for i in range(steps):
@@ -149,8 +163,26 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="cuda runs the CUDA kernels; cpu their plain "
                          "PyTorch versions")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Perfetto/Chrome trace JSON (+ JSONL "
+                         "event log at PATH.jsonl): planning spans, the "
+                         "training report span, per-step spans and the "
+                         "forward's per-layer spans (each layer waits "
+                         "for the device)")
     args = ap.parse_args(argv)
+    tracer = Tracer() if args.trace else None
+    # the ambient tracer over the whole run: planning (inside the
+    # memoized plan_conv), the report and every step land in one trace
+    with tracer.activate() if tracer else contextlib.nullcontext():
+        run(args)
+    if tracer is not None:
+        out = write_trace(args.trace, tracer)
+        print(f"trace: {out} ({len(tracer.records)} records; open in "
+              f"ui.perfetto.dev)")
 
+
+def run(args) -> None:
+    """The run :func:`main` parsed ``args`` for."""
     dev = resolve_device(args.device)
     gen = torch.Generator().manual_seed(0)
     graph, params = build_model(args.model, width_mult=args.width_mult,

@@ -31,12 +31,12 @@ import torch
 
 from repro_torch.analysis.plan_check import (Diagnostic, PlanLegalityError,
                                              audit_handles)
-from repro_torch.core.exec_target import resolve_device
+from repro_torch.core.exec_target import KERNEL, resolve_device
 from repro_torch.core.layer import ConvLayer
-from repro_torch.kernels.conv_lb.ops import (conv2d_lb, plan_conv,
-                                            plan_conv_training)
+from repro_torch.kernels.conv_lb.ops import (conv2d_lb, conv2d_lb_timed,
+                                            plan_conv, plan_conv_training)
 from repro_torch.kernels.conv_lb.ref import max_pool
-from repro_torch.obs.tracer import active_tracer
+from repro_torch.obs.tracer import NULL_SPAN, active_tracer
 
 GRAPH_INPUT = "input"
 
@@ -170,7 +170,7 @@ def init_graph(generator: torch.Generator, graph: ConvGraph,
 
 
 def graph_forward(graph: ConvGraph, conv_params, x: torch.Tensor, *,
-                  conv=conv2d_lb) -> torch.Tensor:
+                  conv=conv2d_lb, tracer=None) -> torch.Tensor:
     """Execute the graph on ``x`` (B, H, W, Ci) -> (B, H', W', Co).
 
     ``conv_params`` aligns with ``graph.nodes``.  Every conv runs
@@ -178,24 +178,51 @@ def graph_forward(graph: ConvGraph, conv_params, x: torch.Tensor, *,
     CUDA ``x`` — with its epilogue fused; a pool the plane does not
     divide runs unfused after it.  Passing the plain
     :func:`~repro_torch.kernels.conv_lb.ref.conv2d_ref` gives the
-    reference forward a kernel run is held against.  The ambient
-    tracer records a ``graph.forward`` span."""
-    tr = active_tracer()
+    reference forward a kernel run is held against.
+
+    ``tracer`` (default: the ambient tracer), when active, records a
+    ``graph.forward`` span and one ``graph.layer`` span per node; with
+    the default ``conv`` each layer runs through
+    :func:`~repro_torch.kernels.conv_lb.ops.conv2d_lb_timed` inside it,
+    which waits for the device after every layer and records the
+    layer's accounted bytes beside its seconds (on the card also its
+    device time).  Inside a ``torch.jit`` trace or a ``torch.compile``
+    nothing is recorded, and with the tracer inactive nothing of this
+    runs at all: no span, no event, no wait."""
+    tr = active_tracer() if tracer is None else tracer
+    timing = (tr.active and not torch.jit.is_tracing()
+              and not torch.compiler.is_compiling())
+    timed = timing and conv is conv2d_lb
     stages = graph_stages(graph, x.shape[1], x.shape[2], x.shape[3])
     tensors = {GRAPH_INPUT: x}
     prev = GRAPH_INPUT
     out = x
-    with tr.span("graph.forward", model=graph.name, batch=x.shape[0]):
+    fwd_span = NULL_SPAN
+    if timing:      # mode: the kernel target, or the conv's own name
+        mode = KERNEL.name if timed else \
+            getattr(conv, "__name__", type(conv).__name__)
+        fwd_span = tr.span("graph.forward", model=graph.name,
+                           batch=x.shape[0], mode=mode)
+    with fwd_span:
         for p, st in zip(conv_params, stages):
             node = st.node
             src = tensors[node.src or prev]
             res = (None if node.residual is None
                    else tensors[node.residual])
             bias = p.get("b") if node.bias else None
-            y = conv(src, p["w"], bias, res, stride=node.stride,
-                     padding=node.pad, groups=node.groups,
-                     relu=node.relu,
-                     pool=st.pool if st.fused_pool else 1)
+            kw = dict(stride=node.stride, padding=node.pad,
+                      groups=node.groups, relu=node.relu,
+                      pool=st.pool if st.fused_pool else 1)
+            if timing:
+                with tr.span("graph.layer", layer=node.name,
+                             model=graph.name):
+                    if timed:
+                        y = conv2d_lb_timed(src, p["w"], bias, res,
+                                            tracer=tr, **kw)
+                    else:
+                        y = conv(src, p["w"], bias, res, **kw)
+            else:
+                y = conv(src, p["w"], bias, res, **kw)
             if st.pool > 1 and not st.fused_pool:
                 y = max_pool(y, st.pool)
             tensors[node.name] = y
@@ -207,7 +234,8 @@ def graph_forward(graph: ConvGraph, conv_params, x: torch.Tensor, *,
 def graph_logits(graph: ConvGraph, params, images: torch.Tensor, *,
                  conv=conv2d_lb) -> torch.Tensor:
     """Full classification forward: graph features, global mean pool,
-    linear head (``params`` from :func:`init_graph`)."""
+    linear head (``params`` from :func:`init_graph`); the features'
+    spans go to the ambient tracer, as in :func:`graph_forward`."""
     h = graph_forward(graph, params["convs"], images, conv=conv)
     return h.mean(dim=(1, 2)) @ params["head"]
 

@@ -1,7 +1,7 @@
 """Span-based tracer: the seconds half of the bytes-vs-seconds story.
 
-The port's copy of ``repro/obs/tracer.py`` (without the Perfetto
-export and the timed-call helper, which wait).  The
+The port's copy of ``repro/obs/tracer.py``; the Perfetto export is
+:mod:`repro_torch.obs.export`.  The
 :class:`~repro_torch.serve.ledger.TrafficLedger` says how many bytes a
 plan moves; this tracer says where the wall-clock goes, with the
 cheapest abstraction that still composes: a :class:`Span` is a named interval
@@ -199,7 +199,7 @@ class Tracer:
     (``time.perf_counter`` default; a
     virtual clock makes every trace deterministic and replayable).
     Records (spans + instant events) accumulate in memory in begin
-    order.
+    order; export them with :mod:`repro_torch.obs.export`.
     """
 
     def __init__(self, clock: Callable[[], float] = time.perf_counter,
@@ -382,3 +382,32 @@ class _Activation:
     def __exit__(self, *exc) -> bool:
         set_active(self._prev)
         return False
+
+
+# -- timed-call helper (the benchmark substrate) ----------------------------
+
+def timed_call(fn: Callable, *args, reps: int = 3, warmup: int = 1,
+               tracer: Tracer | NullTracer | None = None,
+               name: str = "timed_call",
+               clock: Callable[[], float] = time.perf_counter,
+               **attrs) -> float:
+    """Synced mean microseconds per call of ``fn(*args)``.
+
+    ``fn`` must block until its result is ready: on the card, end it
+    with ``torch.cuda.synchronize()`` (this helper adds no sync), or the
+    time is the host's enqueue, not the work.  Each rep records one span
+    on ``tracer`` (ambient by default), timestamped by the *tracer's*
+    clock but measured with ``clock``, so a virtual-clock trace still
+    carries honest ``us`` attributes."""
+    tr = active_tracer() if tracer is None else tracer
+    for _ in range(max(0, warmup)):
+        fn(*args)
+    total = 0.0
+    for _ in range(max(1, reps)):
+        with tr.span(name, **attrs) as sp:
+            t0 = clock()
+            fn(*args)
+            dt = clock() - t0
+            sp.set(us=dt * 1e6)
+        total += dt
+    return total / max(1, reps) * 1e6

@@ -82,7 +82,11 @@ class ImageServer:
     reference does.  ``target`` is ``"kernel"`` (the default) or
     ``"account-only"``, the ceiling of every dispatch's target;
     ``device`` is where a computing server runs —
-    ``cuda`` unless the caller asks for ``cpu``.
+    ``cuda`` unless the caller asks for ``cpu``.  ``tracer`` (default:
+    the no-op tracer) and ``metrics`` (default: a registry of this
+    server's own) are shared with the ledger and any ServingLoop
+    mounted on this server, so a caller can export one trace with the
+    metrics it was run with.
 
     A computing server runs K1 in its ``dtype``, float32 or bfloat16
     (bf16 operands, f32 sums and epilogue, one rounding on store; the
@@ -100,7 +104,8 @@ class ImageServer:
                  target: ExecTarget | str = KERNEL,
                  device="cuda",
                  clock=time.monotonic,
-                 tracer=None):
+                 tracer=None,
+                 metrics: MetricsRegistry | None = None):
         self.params = params
         if graph is None and forward is not None:
             raise ValueError("a custom forward= needs an explicit graph= "
@@ -122,7 +127,7 @@ class ImageServer:
         self.account_budget = int(account_budget)
         self._clock = clock
         self.tracer = NULL_TRACER if tracer is None else tracer
-        self.metrics = MetricsRegistry()
+        self.metrics = MetricsRegistry() if metrics is None else metrics
         self.queue = AdmissionQueue(buckets, wait_budget)
         self.ledger = TrafficLedger(vmem_budget=account_budget,
                                     dtype_bytes=self.dtype.itemsize,
@@ -197,7 +202,9 @@ class ImageServer:
                self.dtype.itemsize)
         if key not in self._handles:
             with self.tracer.span("plan.handles", bucket=int(bucket),
-                                  model=self.graph.name):
+                                  model=self.graph.name,
+                                  plan_key=f"{self.graph.name}/b{bucket}"
+                                           f"/{self.h}x{self.w}"):
                 self._handles[key] = graph_plan_handles(
                     self.graph, self.h, self.w, batch=bucket,
                     in_ch=self.in_ch, dtype_bytes=self.dtype.itemsize,
@@ -205,6 +212,8 @@ class ImageServer:
             self.metrics.counter("plan_cache_miss").inc()
         else:
             self._counters["plan_hits"] += 1
+            self.tracer.event("plan.cache_hit", bucket=int(bucket),
+                              model=self.graph.name)
             self.metrics.counter("plan_cache_hit").inc()
         return self._handles[key]
 

@@ -1361,3 +1361,41 @@ def test_poisoned_kernel_path_degrades_to_account_only_on_the_card(cuda):
     assert exec_fallback_counts() == fallbacks
     assert S.LAUNCH_LOCK.acquire(blocking=False)   # released after the raise
     S.LAUNCH_LOCK.release()
+
+
+def test_traced_dispatch_times_each_layer_on_the_card(cuda):
+    """A dispatch under an active tracer: every conv's
+    ``kernel.conv2d_lb`` span carries the card's own time between CUDA
+    events (``device_us`` > 0, within the ``graph.forward`` span), its
+    K1 launches are the untraced dispatch's, and so are its logits, bit
+    for bit."""
+    from repro_torch.models.cnn import init_vgg
+    from repro_torch.obs import Tracer
+    from repro_torch.serve import ImageServer
+    params = init_vgg(torch.Generator().manual_seed(16), width_mult=0.25,
+                      device=cuda)
+    x = torch.randn((4, 32, 32, 3), generator=torch.Generator()
+                    .manual_seed(17))
+    plain = ImageServer(params, 32, 32, device=cuda, buckets=(4,))
+    plain.submit(x)
+    before = dict(K.conv_lb.launches_by_route)
+    (want,) = plain.drain()
+    untraced = _sm90_launched(before)
+    tr = Tracer()
+    srv = ImageServer(params, 32, 32, device=cuda, buckets=(4,), tracer=tr)
+    with tr.activate():
+        srv.submit(x)
+        before = dict(K.conv_lb.launches_by_route)
+        (got,) = srv.drain()
+    assert _sm90_launched(before) == untraced
+    assert sum(untraced.values()) == 13
+    assert torch.equal(got.logits, want.logits)
+    (ex,) = tr.find(name="serve.execute")
+    (fwd,) = tr.find(name="graph.forward")
+    assert fwd.parent == ex.sid
+    kernels = tr.find(name="kernel.conv2d_lb")
+    assert len(kernels) == 13
+    dev = [k.attrs["device_us"] for k in kernels]
+    assert all(d > 0 for d in dev)
+    assert all(k.attrs["device_gbps"] > 0 for k in kernels)
+    assert sum(dev) <= fwd.dur * 1e6
