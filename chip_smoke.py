@@ -89,6 +89,22 @@
     and gated on the f32 inputs through ``via="fma"``), f32 and bf16,
     held against the plain versions and timed beside their bounds, the
     host's enqueue and a library call;
+  * ``plan_audit``: the ``sm90`` legality profile
+    (``repro_torch.analysis.plan_check``) on the card, running no
+    kernel: the card's opt-in shared memory a block, SM count and
+    registers an SM (``torch.cuda.get_device_properties``, else
+    ``cudaDeviceGetAttribute``) equal to the constants the plans are
+    sized by; every built kernel's REG, SHARED and LOCAL from
+    ``cuobjdump --dump-resource-usage`` (LOCAL > 0 printed as a spill
+    warning); ``audit_graph(target="sm90")`` over VGG16/224 and
+    ResNet-20/32 at batches 1, 2, 4 and 8, training, f32 and bf16, every
+    entry legal with those register counts and no traffic or bound
+    mismatch; every K1 and K2 launch of the serving, training and traced
+    phases (their launch caches' keys) the plan its shape-only core
+    picks and an audited entry's, and every K3 and K4 launch plan of the
+    ``matmul`` and ``attention`` phases legal; the control, a K1 3xTF32
+    plan one weight stage past the fit, flagged ``sm90.smem`` and larger
+    than the device's opt-in limit; under 10 s;
   * ``attention_head_dims``: K4 at head dims 80, 96 and 256, timed;
   * ``layers``, ``layers_bwd``: each kernel timed per VGG layer, f32
     and bf16, each row with its route and tile (K2: plan) and the
@@ -130,6 +146,9 @@ Without a CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import asyncio
+import collections
+import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -144,10 +163,12 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.analysis import plan_check as PC  # noqa: E402
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
                                              PEAK_BF16_FLOPS,
                                              PEAK_F32_FLOPS,
-                                             PEAK_TF32_FLOPS,
+                                             PEAK_TF32_FLOPS, REGS_PER_SM,
+                                             SM_COUNT, SMEM_PER_BLOCK,
                                              hbm_traffic_model)
 from repro_torch.kernels.attention_block import kernel as K4  # noqa: E402
 from repro_torch.kernels.attention_block.ops import (  # noqa: E402
@@ -167,15 +188,18 @@ from repro_torch.kernels.matmul_lb.ops import (accounted_block,  # noqa: E402
 from repro_torch.kernels.matmul_lb.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
                                              im2col_ref, wgrad_ref)
-from repro_torch.kernels.nvcc import build_many  # noqa: E402
+from repro_torch.kernels.nvcc import (build_many,  # noqa: E402
+                                      parse_ptxas_spills, resource_usage)
 from repro_torch.launch import serve_images  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
-                                    resnet_graph, vgg_graph)
-from repro_torch.models.graph import (graph_logits, graph_stages,  # noqa: E402
+                                    resnet_graph, vgg_graph,
+                                    vgg_layer_dims)
+from repro_torch.models.graph import (graph_logits,  # noqa: E402
+                                      graph_plan_handles, graph_stages,
                                       graph_training_step_report)
 from repro_torch.obs.tracer import Tracer  # noqa: E402
 from repro_torch.serve import (FaultPlan, ImageServer,  # noqa: E402
@@ -254,7 +278,7 @@ def phase_device() -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> list:
     """Every kernel, one nvcc each, all started together."""
     t0 = time.perf_counter()
     libs = build_many([K.SOURCE, K.SM90_SOURCE, K.TF32_SOURCE, W.SOURCE,
@@ -275,6 +299,7 @@ def phase_build() -> None:
                         or "smem" in ln or "Compiling entry" in ln
                         or "Performance Loss" in ln]})
     emit({"phase": "build", "wall_seconds": time.perf_counter() - t0})
+    return libs
 
 
 def _randn(gen, *shape, scale=1.0):
@@ -2604,6 +2629,346 @@ def _k1_k2_launches() -> dict:
             "wgrad_stage": W.wgrad_lb.stage_launches}
 
 
+# --------------------------------------------------------------------------
+# plan_audit: the sm90 legality profile against the card and the launches
+# --------------------------------------------------------------------------
+
+#: the card facts the plans are sized by: the constant, the field of
+#: ``torch.cuda.get_device_properties`` and the ``cudaDeviceAttr`` that
+#: read it where torch lacks the field
+CARD_FACTS = (("SMEM_PER_BLOCK", SMEM_PER_BLOCK,
+               "shared_memory_per_block_optin", 97),
+              ("SM_COUNT", SM_COUNT, "multi_processor_count", 16),
+              ("REGS_PER_SM", REGS_PER_SM, "regs_per_multiprocessor", 82))
+#: the audit's batches (the serving buckets; training runs at 8)
+AUDIT_BATCHES = (1, 2, 4, 8)
+
+
+def _cuda_attribute(attr: int) -> int:
+    """``cudaDeviceGetAttribute(attr, 0)`` through the CUDA runtime."""
+    for name in ("libcudart.so", "libcudart.so.12",
+                 "/usr/local/cuda/lib64/libcudart.so"):
+        try:
+            rt = ctypes.CDLL(name)
+            break
+        except OSError:
+            continue
+    else:
+        raise SmokeFailure("plan_audit: no CUDA runtime library to read "
+                           "the card's attributes")
+    value = ctypes.c_int()
+    err = rt.cudaDeviceGetAttribute(ctypes.byref(value), attr, 0)
+    require(err == 0, f"plan_audit: cudaDeviceGetAttribute({attr}) = {err}")
+    return value.value
+
+
+def card_facts() -> dict:
+    """``{constant: (the device's value, where it was read)}``."""
+    props = torch.cuda.get_device_properties(0)
+    facts = {}
+    for name, _, field, attr in CARD_FACTS:
+        value = getattr(props, field, None)
+        facts[name] = ((int(value), f"torch:{field}") if value is not None
+                       else (_cuda_attribute(attr),
+                             f"cudaDeviceGetAttribute:{attr}"))
+    return facts
+
+
+def _dtype_of(*keys):
+    """The one type of the operands whose launch-cache keys these are
+    (``None`` where they differ), and whether every base is aligned."""
+    keys = [k for k in keys if k is not None]
+    types = {k[1] for k in keys}
+    return (types.pop() if len(types) == 1 else None,
+            all(k[4] for k in keys))
+
+
+def _k3_launch(rt: str, x, w) -> tuple:
+    m, k = x.shape
+    n = w.shape[1]
+    kmajor = K3.w_layout(w) == "k-major"
+    ldb = w.stride(1) if kmajor else w.stride(0)
+    return ("matmul_lb", rt, K3.tile_of(rt, m, n),
+            (m, n, k, kmajor, x.stride(0), ldb), x.dtype)
+
+
+class LaunchLog:
+    """Every K1 and K2 launch-cache entry looked up, and every K3 and K4
+    launch plan asked for, while the respective recorder is on."""
+
+    def __init__(self):
+        self.k1: dict = {}
+        self.k2: dict = {}
+        self.dense: set = set()
+
+    @contextlib.contextmanager
+    def conv(self):
+        """Record K1's and K2's launch-cache lookups (one per launch)."""
+        def recording(get, into):
+            def get_and_record(key, make):
+                entry, fresh = get(key, make)
+                into[key] = entry
+                return entry, fresh
+            return get_and_record
+
+        K.launch_cache.get = recording(K.launch_cache.get, self.k1)
+        W.launch_cache.get = recording(W.launch_cache.get, self.k2)
+        try:
+            yield self
+        finally:
+            del K.launch_cache.get, W.launch_cache.get
+
+    @contextlib.contextmanager
+    def matmul_attention(self):
+        """Record K3's and K4's launch plans: K3's ``route`` and K4's
+        ``plan_of`` (one per routed call) and the launchers the smoke
+        calls directly."""
+        saved = {(m, n): getattr(m, n) for m, n in (
+            (K3, "route"), (K3, "_sm90_tf32"), (K3, "_fma"),
+            (K4, "plan_of"), (K4, "_sm90_tf32"))}
+        k3_route, k4_plan = saved[K3, "route"], saved[K4, "plan_of"]
+        k4_tf32 = saved[K4, "_sm90_tf32"]
+
+        def k3_route_of(x, w):
+            rt = k3_route(x, w)
+            self.dense.add(_k3_launch(rt, x, w))
+            return rt
+
+        def k3_direct(rt, launch):
+            def launch_and_record(x, w, **kw):
+                self.dense.add(_k3_launch(rt, x, w))
+                return launch(x, w, **kw)
+            return launch_and_record
+
+        def k4_shape(q, k):
+            return (q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                    q.shape[0] // k.shape[0])
+
+        def k4_plan_of(q, k, v, via=None):
+            rt, plan = k4_plan(q, k, v, via)
+            if plan is not None:
+                self.dense.add(("attention", rt, plan, k4_shape(q, k),
+                                q.dtype))
+            return rt, plan
+
+        def k4_sm90_tf32(q, k, v, plan, **kw):
+            self.dense.add(("attention", "sm90_tf32", plan,
+                            k4_shape(q, k), q.dtype))
+            return k4_tf32(q, k, v, plan, **kw)
+
+        K3.route, K4.plan_of = k3_route_of, k4_plan_of
+        K3._sm90_tf32 = k3_direct("sm90_tf32", saved[K3, "_sm90_tf32"])
+        K3._fma = k3_direct("fma", saved[K3, "_fma"])
+        K4._sm90_tf32 = k4_sm90_tf32
+        try:
+            yield self
+        finally:
+            for (m, n), fn in saved.items():
+                setattr(m, n, fn)
+
+
+def _registers(libs) -> tuple[dict, list[dict]]:
+    """Each built library's kernels' REG, SHARED, LOCAL and STACK
+    (``cuobjdump --dump-resource-usage`` of the toolkit that built
+    them) beside the spill stores and loads ``ptxas -v`` printed for
+    them, and ``{source: {kernel: REG}}``."""
+    regs, rows = {}, []
+    for lib in libs:
+        stem = lib.path.stem.rsplit("-", 1)[0]
+        usage = resource_usage(lib)
+        require(usage, f"plan_audit: cuobjdump read no kernel of {stem}")
+        spills = parse_ptxas_spills(lib.log)
+        regs[stem] = {fn: u["REG"] for fn, u in usage.items()}
+        for fn, u in usage.items():
+            sp = spills.get(fn, {})
+            rows.append({"source": stem, "function": fn, "REG": u["REG"],
+                         "SHARED": u.get("SHARED", 0),
+                         "LOCAL": u.get("LOCAL", 0),
+                         "STACK": u.get("STACK", 0),
+                         "spill_stores": sp.get("spill_stores"),
+                         "spill_loads": sp.get("spill_loads")})
+    return regs, rows
+
+
+def _k4_instances() -> list[tuple]:
+    """A legal launch of every instantiation K4's kernels carry (the
+    phases launch only some widths): ``check_launch_plan``'s
+    arguments."""
+    out = [("attention", "sm90", w, (1, 128, 128, w, 1), torch.bfloat16)
+           for w in K4.SM90_HEAD_DIMS]
+    out += [("attention", "sm90_tf32", K4.sm90_tf32_plan(w),
+             (1, 128, 128, w, 1), torch.float32) for w in K4.TF32_HEAD_DIMS]
+    out += [("attention", "fma", K4.padded_head_dim(hd), (1, 128, 128, hd, 1),
+             dt) for hd in K4.HEAD_DIMS + (512,) for dt in DTYPES]
+    return out
+
+
+def phase_plan_audit(card: str, libs, log: LaunchLog) -> dict:
+    """The ``sm90`` profile on the card: its facts against the
+    constants the plans are sized by; each built kernel's registers and
+    local memory (spills); ``audit_graph(target="sm90")`` over VGG16/224
+    and ResNet-20/32, batches 1-8, training, f32 and bf16, every entry
+    legal with the real register counts; every K1 and K2 launch the
+    serving, training and traced phases made the plan its shape-only
+    core picks and an audited entry's, and every K3 and K4 launch of
+    the matmul and attention phases legal; the control: a K1 3xTF32
+    plan one weight stage past the fit, flagged ``sm90.smem`` and over
+    the device's opt-in limit.  Runs no kernel."""
+    t0 = time.perf_counter()
+    facts = card_facts()
+    emit({"phase": "plan_audit", "card": card,
+          "device": {n: v for n, (v, _) in facts.items()},
+          "read_by": {n: how for n, (_, how) in facts.items()}})
+    for name, want, *_ in CARD_FACTS:
+        require(facts[name][0] == want, f"plan_audit: the card's {name} is "
+                f"{facts[name][0]}, the plans assume {want}")
+    regs, usage = _registers(libs)
+    spills = [u for u in usage if u["LOCAL"] > 0 or u["spill_stores"]]
+    emit({"phase": "plan_audit", "registers": usage, "card": card})
+    for u in spills:
+        print(f"plan_audit: spill warning: {u['source']} {u['function']} "
+              f"LOCAL {u['LOCAL']} B, stack {u['STACK']} B, spill stores "
+              f"{u['spill_stores']} B at REG {u['REG']}", flush=True)
+    checked = set()         # (source, function) of every launch checked
+
+    def check(launch, what: str) -> None:
+        diags = PC.errors(PC.check_launch_plan(*launch, regs=regs))
+        require(not diags, f"plan_audit: {what}: {diags}")
+        checked.update((f.source, f.function)
+                       for f in PC.launch_facts(*launch))
+
+    shapes = {"convs": [{"w": torch.empty((3, 3, ci, co), device="meta")}
+                        for _, ci, co, *_ in vgg_layer_dims()]}
+    nets = {"vgg": (vgg_graph(shapes), 224), "resnet": (resnet_graph(), 32)}
+    audited = {"conv_lb": set(), "wgrad_lb": set()}
+    for net, (graph, size) in nets.items():
+        for dtype in DTYPES:
+            n_plans = n_legal = 0
+            by_route = collections.Counter()
+            for batch in AUDIT_BATCHES:
+                audit = PC.audit_graph(graph, size, size, batch=batch,
+                                       training=True, target="sm90",
+                                       dtype=dtype, regs=regs)
+                require(audit.n_legal == audit.n_plans
+                        and audit.traffic_mismatches == 0
+                        and audit.bound_mismatches == 0,
+                        f"plan_audit: {net} {dtype} batch {batch}:\n"
+                        f"{audit.report()}")
+                n_plans += audit.n_plans
+                n_legal += audit.n_legal
+                for e in audit.entries:
+                    by_route[e.route] += 1
+                    kind = "wgrad_lb" if e.name.endswith("/wgrad") \
+                        else "conv_lb"
+                    audited[kind].add((e.route, e.launch))
+                for layer, handle in graph_plan_handles(
+                        graph, size, size, batch=batch, training=True):
+                    for launch in PC.sm90_launches(
+                            layer, handle, batch=batch,
+                            dtype=dtype).values():
+                        if launch[0] is not None:
+                            check(launch, f"{net} {layer.name}")
+            emit({"phase": "plan_audit", "net": net, "dtype": str(dtype),
+                  "batches": list(AUDIT_BATCHES), "training": True,
+                  "n_plans": n_plans, "n_legal": n_legal,
+                  "entries_by_route": dict(by_route)})
+
+    # every K1 and K2 launch of the serving, training and traced phases
+    matched = collections.Counter()
+    for key, entry in log.k1.items():
+        if key[0] == "dgrad":
+            _, gyk, wk, stride, padding, dilation, h, wd = key
+            if entry.plan is None:      # composed: its conv_lb launch
+                continue                # is a key of its own
+            dtype, aligned = _dtype_of(gyk, wk)
+            plan = K.dgrad_plan(dtype, tuple(gyk[0]), tuple(wk[0]), stride,
+                                padding, dilation, h, wd, aligned)
+            launch = ("conv_lb_dgrad", "sm90_tf32", plan,
+                      (tuple(gyk[0]), tuple(wk[0]), stride, padding,
+                       dilation, h, wd), dtype)
+        else:
+            xk, wk, bk, rk, stride, padding, dilation, lhs, _, pool = key
+            dtype, aligned = _dtype_of(xk, wk, bk, rk)
+            conv = (tuple(xk[0]), tuple(wk[0]), stride, padding, dilation,
+                    lhs, pool)
+            rt, plan = K.launch_plan(dtype, *conv, aligned)
+            launch = ("conv_lb", rt, plan, conv, dtype)
+        require((launch[1], launch[2]) == (entry.route, entry.plan),
+                f"plan_audit: K1 launched {entry.route} {entry.plan} where "
+                f"its core picks {launch[1]} {launch[2]} ({key})")
+        require((entry.route, entry.plan) in audited["conv_lb"],
+                f"plan_audit: K1 launch {entry.route} {entry.plan} is no "
+                f"audited entry's ({key})")
+        check(launch, f"K1 launch {key}")
+        matched[f"conv_lb:{entry.route}"] += 1
+    for key, entry in log.k2.items():
+        xk, dyk, geom = key
+        dtype, aligned = _dtype_of(xk, dyk)
+        rt, plan = W.launch_plan(dtype, tuple(xk[0]), dyk[0][-1], geom,
+                                 aligned)
+        require((rt, plan) == (entry.route, entry.plan),
+                f"plan_audit: K2 launched {entry.route} where its core "
+                f"picks {rt} ({key})")
+        require((rt, plan) in audited["wgrad_lb"],
+                f"plan_audit: K2 launch {rt} {plan} is no audited entry's "
+                f"({key})")
+        check(("wgrad_lb", rt, plan, (tuple(xk[0]), tuple(dyk[0]), geom),
+               dtype), f"K2 launch {key}")
+        matched[f"wgrad_lb:{rt}"] += 1
+    require(matched and log.k2, "plan_audit: no K1 or K2 launch recorded")
+    # every K3 and K4 launch of the matmul and attention phases
+    dense = collections.Counter()
+    for launch in sorted(log.dense, key=str):
+        check(launch, f"{launch[0]} {launch[1]} at {launch[3]}")
+        dense[f"{launch[0]}:{launch[1]}"] += 1
+    require(dense, "plan_audit: no K3 or K4 launch recorded")
+    # sm90.regs held with every built kernel's registers: K4's widths
+    # the phases do not launch are checked at a legal shape
+    for launch in _k4_instances():
+        check(launch, f"attention {launch[1]} at {launch[3]}")
+    unchecked = sorted((src, fn) for src, fns in regs.items() for fn in fns
+                       if not any(s == src and f in fn for s, f in checked))
+    require(not unchecked, f"plan_audit: no checked launch of {unchecked}")
+    # the control: one weight stage past the fit
+    conv = ((8, 56, 56, 128), (3, 3, 128, 256), (1, 1), (1, 1), (1, 1),
+            (1, 1), 1)
+    rt, plan = K.launch_plan(torch.float32, *conv)
+    over = K.tf32_overfull(plan, 3, 3)
+    rules = {d.rule for d in PC.errors(PC.check_launch_plan(
+        "conv_lb", rt, over, conv, torch.float32, regs=regs))}
+    require(rt == "sm90_tf32" and rules == {"sm90.smem"}
+            and over.smem_bytes > facts["SMEM_PER_BLOCK"][0],
+            f"plan_audit: control {over.smem_bytes} B flagged {rules}")
+    seconds = time.perf_counter() - t0
+    out = {"phase": "plan_audit", "launch_geometries": dict(matched),
+           "k1_k2_launches_all_audited": True,
+           "k3_k4_launch_plans": dict(dense),
+           "kernels_checked_with_registers": sum(map(len, regs.values())),
+           "spills": [{k: u[k] for k in ("source", "function", "LOCAL",
+                                         "STACK", "spill_stores", "REG")}
+                      for u in spills],
+           "control": {"route": rt, "tile": list(plan.tile),
+                       "smem_bytes": over.smem_bytes,
+                       "device_optin": facts["SMEM_PER_BLOCK"][0],
+                       "flagged": sorted(rules)},
+           "seconds": seconds, "card": card}
+    emit(out)
+    require(seconds < 10, f"plan_audit took {seconds} s")
+    return out
+
+
+def _library_conv2d_input(*args, **kw) -> torch.Tensor:
+    """cuDNN's data gradient, timed beside K1's (``library_ms``): the
+    library call of a measurement, on no gradient path."""
+    return torch.nn.grad.conv2d_input(*args, **kw)
+
+
+def _library_conv2d_weight(*args, **kw) -> torch.Tensor:
+    """cuDNN's weight gradient, timed beside K2's (``library_ms``): the
+    library call of a measurement, on no gradient path."""
+    return torch.nn.grad.conv2d_weight(*args, **kw)
+
+
 def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
     """dgrad (K1) and wgrad (K2) per VGG16/224 layer at batch 8, f32
     and bf16 (the same words rounded once; K2's dW is f32 in both),
@@ -2675,7 +3040,7 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                            plain_ms=_time_ms(
                                lambda: conv2d_ref(gy, wf, **kw), flush),
                            library_ms=_time_ms(
-                               lambda: torch.nn.grad.conv2d_input(
+                               lambda: _library_conv2d_input(
                                    x_nchw.shape, w_oihw, gy_nchw,
                                    padding=1), flush),
                            bound_ms=max(t_route, t_bytes) * 1e3,
@@ -2708,7 +3073,7 @@ def phase_layers_bwd(card: str) -> tuple[list[dict], list[dict]]:
                                           f"kernel vs plain {fma_err}")
 
             def library():
-                return torch.nn.grad.conv2d_weight(
+                return _library_conv2d_weight(
                     x_nchw, w_oihw.shape, gy_nchw, padding=1)
 
             # x and dy read in their type, dW written in f32; on the
@@ -2817,8 +3182,7 @@ def phase_layers_bwd_resnet(card: str) -> list[dict]:
             w_shape = (co, ci, k, k)
 
             def library():
-                return torch.nn.grad.conv2d_weight(x_nchw, w_shape, gy_nchw,
-                                                   **kw)
+                return _library_conv2d_weight(x_nchw, w_shape, gy_nchw, **kw)
 
             def kernel():
                 return W.wgrad_lb(x, gy, geom)
@@ -3065,7 +3429,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card = phase_device()
-    phase_build()
+    libs = phase_build()
     k1_before = dict(K.conv_lb.launches_by_route)
     k2_before = dict(W.wgrad_lb.launches_by_route)
     tf32_controls = phase_check()
@@ -3080,20 +3444,24 @@ def main() -> int:
     check_matmul_by_route = phase_check_matmul()
     check_attn_by_route = phase_check_attention()
     vgg_run, bf16_run = {}, {}
-    vgg_f32 = phase_serve("vgg", keep=vgg_run)
-    vgg_bf16 = phase_serve("vgg", torch.bfloat16, keep=bf16_run)
-    resnet_f32 = phase_serve("resnet")
-    serve_loop = phase_serve_loop(card)
-    train_vgg = phase_train("vgg")
-    train_resnet = phase_train("resnet")
-    phase_trace(card, vgg_run, bf16_run, train_vgg)
+    log = LaunchLog()
+    with log.conv():
+        vgg_f32 = phase_serve("vgg", keep=vgg_run)
+        vgg_bf16 = phase_serve("vgg", torch.bfloat16, keep=bf16_run)
+        resnet_f32 = phase_serve("resnet")
+        serve_loop = phase_serve_loop(card)
+        train_vgg = phase_train("vgg")
+        train_resnet = phase_train("resnet")
+        phase_trace(card, vgg_run, bf16_run, train_vgg)
     del vgg_run, bf16_run
-    matmul_launches, matmul_all = phase_matmul(card)
+    with log.matmul_attention():
+        matmul_launches, matmul_all = phase_matmul(card)
+        attn_launches, attn_rows = phase_attention(card)
+    phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
     sm90_rows = [r for r in matmul_rows if r["route"] == "sm90"]
     tf32_rows = [r for r in matmul_rows if r["route"] == "sm90_tf32"]
-    attn_launches, attn_rows = phase_attention(card)
     phase_attention_head_dims(card)
     rows = phase_layers(card)
     dgrad_rows, wgrad_rows = phase_layers_bwd(card)

@@ -1,5 +1,6 @@
 """Static conv plan verifier and traffic cross-audit — the port's copy
-of the accounting-profile half of ``repro/analysis/plan_check.py``.
+of ``repro/analysis/plan_check.py``, with a Hopper legality profile in
+place of the reference's TPU one.
 
   * **Legality pass** — :func:`check_conv_plan` verifies a
     :class:`~repro_torch.kernels.conv_lb.ops.ConvPlan` against the
@@ -13,23 +14,48 @@ of the accounting-profile half of ``repro/analysis/plan_check.py``.
     rules, severities and messages, its alignment rules included
     (:func:`_lane_rule` / :func:`_sublane_rule`): warnings under the
     ``interpret`` profile the port plans at, errors under ``mosaic``.
-    The conv plans' alignment rules are TPU legality and are not
-    ported.
   * **Traffic cross-audit** — :func:`symbolic_conv_traffic` /
     :func:`symbolic_wgrad_traffic` / :func:`symbolic_bound_words`
     re-derive each plan's words and its Eq. (15) bound by a second,
     simpler route, and :func:`audit_handles` asserts exact agreement
     with the accountant for every handle the serve ledger and the
     training report charge (forward, dgrad and wgrad plans).
+  * **Graph audit** — :func:`audit_graph` runs both passes over every
+    node of a :class:`~repro_torch.models.graph.ConvGraph`, giving the
+    ``plans checked / plans legal`` counts (``repro/analysis/
+    plan_check.py:581-709``).
+
+Targets: ``TARGET_INTERPRET`` is the reference's accounting profile,
+and audits the same plans to the same counts.  The reference's
+``TARGET_MOSAIC`` gates a compiled TPU kernel's blocks by TPU
+alignment, which has no counterpart on the card: a conv audit at it
+raises.  In its place ``TARGET_SM90`` gates what the Hopper kernels
+launch.  At it every fwd, dgrad and wgrad entry also carries the route
+and the launch plan its kernel takes at the audit's batch (from the
+kernels' shape-only cores, so the audit picks exactly what the launcher
+picks), and :func:`check_launch_plan` holds that plan to the card's
+limits (the ``sm90.*`` rules of :data:`RULES`): dynamic shared memory,
+grid extents, TMA boxes, traversal strides and 16-byte alignment,
+registers, the kernels' argument arrays and the im2col staging plane.
+The launchers' own fit predicates (``_sm90_fits``, ``_tf32_fits``,
+``stage_fits``, the split's grid limit) are :func:`tile_fits` and
+:func:`grid_rule`, so the launcher and the checker cannot disagree.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import math
 
 from repro_torch.core.dataflow import Traffic
-from repro_torch.core.hopper_adapter import (REF_ALIGN, REF_PLAN_BUDGET,
+from repro_torch.core.hopper_adapter import (GRID_X_MAX, GRID_YZ_MAX,
+                                             REF_ALIGN, REF_PLAN_BUDGET,
+                                             REG_ALLOC_UNIT, REGS_PER_SM,
+                                             SMEM_PER_BLOCK, TMA_ALIGN,
+                                             TMA_BOX_MAX,
+                                             TMA_ELEM_STRIDE_MAX,
+                                             launch_bounds_regs,
                                              row_align_for)
 from repro_torch.core.layer import ceil_div
 
@@ -37,18 +63,80 @@ ERROR = "error"
 WARN = "warn"
 
 #: the reference's plan profiles: ``interpret`` (accounting; alignment
-#: findings are warnings) and ``mosaic`` (alignment findings are errors)
+#: findings are warnings) and ``mosaic`` (alignment findings are errors;
+#: the matmul's accounted block only)
 TARGET_INTERPRET = "interpret"
 TARGET_MOSAIC = "mosaic"
+#: the Hopper profile: the launch plans of the card's kernels
+TARGET_SM90 = "sm90"
 #: the reference's last-dim tile and systolic-array edge
 LANE = MXU_DIM = REF_ALIGN
+
+#: rule id -> one-line meaning: the reference's texts
+#: (``repro/analysis/plan_check.py:72-116``) for the rules the port
+#: checks, and the Hopper profile's
+RULES = {
+    "conv.grid": "padded output/channel dims must divide the blocks "
+                 "(Pallas grid = padded // block exactly)",
+    "conv.halo": "the halo-extended input window of every tile must "
+                 "stay inside the padded input plane",
+    "conv.pool": "a fused pool must divide the spatial blocks and the "
+                 "true output plane (windows never straddle tiles)",
+    "conv.vmem": "psums + double-buffered operand panels (+ residual "
+                 "join panel, + pinned-weight single buffer) must fit "
+                 "the VMEM budget",
+    "conv.lhsdil": "an lhs-dilated plan's compact fetches must start "
+                   "on the dilation phase (block*stride divisible by "
+                   "lhs_dilation) and fuse no pool/residual epilogue",
+    "wgrad.vmem": "resident f32 dW block + double-buffered x/dy "
+                  "strips must fit the VMEM budget",
+    "wgrad.grid": "dW channel blocks must not exceed the layer's "
+                  "channel counts",
+    "wgrad.strip": "the lagged carry must cover the strip halo "
+                   "(lag * strip*stride >= ekh - stride) so the "
+                   "rolling disjoint fetches stay exact",
+    "matmul.shape": "block dims must be positive and not exceed the "
+                    "padded operand dims",
+    "matmul.vmem": "psum block + double-buffered A/B panels must fit "
+                   "the VMEM budget",
+    "mosaic.lane": "a block's last dim must be a LANE (128) multiple "
+                   "or cover the full (padded) array dim",
+    "mosaic.sublane": "a block's second-minor dim must be a sublane "
+                      "multiple for the dtype (f32 8 / bf16 16 / "
+                      "int8 32) or cover the full dim",
+    "mosaic.mxu": "a reduction slice far below the 128-wide MXU "
+                  "leaves the systolic array underfilled (perf, not "
+                  "legality)",
+    "autotune.vmem": "a search candidate was rejected because its "
+                     "working set exceeds the VMEM budget",
+    "audit.traffic": "the symbolic traffic/bound re-derivation "
+                     "disagrees with the accountant (planner or "
+                     "accountant drift)",
+    "sm90.smem": "a tile's dynamic shared memory must fit the card's "
+                 "opt-in limit per block (and a ring sized to it hold "
+                 "two stages)",
+    "sm90.grid": "a launch's grid must have 1 to 2^31-1 blocks along x "
+                 "and 1 to 65535 along y and z",
+    "sm90.tma": "every TMA box extent must be at most 256, every "
+                "traversal stride at most 8, and every global stride "
+                "and base 16-byte aligned",
+    "sm90.regs": "threads x the registers a thread holds (at most what "
+                 "__launch_bounds__ allows) x the CTAs per SM a plan's "
+                 "wave count assumes must fit an SM's registers",
+    "sm90.args": "a launch's windows, halo boxes and output phases must "
+                 "fit the kernel's argument arrays",
+    "sm90.stage": "the im2col plane must fit the staging kernel "
+                  "(stage_fits)",
+    "sm90.fma": "a main-path geometry that falls to an FMA route leaves "
+                "the tensor cores idle (perf, not legality)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class Diagnostic:
-    """One finding of the static verifier: ``severity`` is ``error``
-    (the plan must not be served) or ``warn``; ``hint`` says how to
-    repair the shape."""
+    """One finding of the static verifier: ``rule`` indexes
+    :data:`RULES`; ``severity`` is ``error`` (the plan must not be
+    served) or ``warn``; ``hint`` says how to repair the shape."""
 
     rule: str
     severity: str
@@ -129,8 +217,8 @@ def check_matmul_block(blk, m: int, n: int, k: int, *,
     :class:`~repro_torch.core.hopper_adapter.BlockShape`: a degenerate
     block and a working set over the budget are errors; the alignment
     rules follow ``target``; a reduction slice under the 128-wide
-    array is a warning.  The CUDA kernel's own CTA tile is not this
-    block and is not checked here."""
+    array is a warning.  The CUDA kernels' own tiles are held to the
+    card by :func:`check_launch_plan`."""
     budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
     diags: list[Diagnostic] = []
     for name, b in (("bm", blk.bm), ("bn", blk.bn), ("bk", blk.bk)):
@@ -391,16 +479,256 @@ def symbolic_bound_words(plan, layer) -> float:
     return q
 
 
+# --------------------------------------------------------------------------
+# the Hopper profile: what a launch asks of the card
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TmaMap:
+    """One TMA tensor map of a launch: its box extents and traversal
+    strides (innermost dimension first; ``elem`` empty for unit
+    strides), its global strides in bytes (dimensions 1..) and whether
+    its base address is 16-byte aligned."""
+
+    operand: str
+    box: tuple[int, ...]
+    strides: tuple[int, ...]
+    elem: tuple[int, ...] = ()
+    aligned: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchFacts:
+    """What one kernel launch asks of the card, from its plan and
+    shapes alone.  ``source`` is the stem of the kernel's source (and
+    library); ``min_blocks`` the second argument of its
+    ``__launch_bounds__``; ``ctas_per_sm`` the CTAs per SM its plan's
+    wave count assumes; ``args`` each argument array's ``(what, count,
+    capacity)``; ``stages`` the ring depth where a plan sizes its ring
+    to the shared memory; ``stage`` the staging plane ``(b, h, w, ci,
+    ho, wo, cp, elt)`` of an im2col launch; ``function`` the part of the
+    kernel's (mangled) name that picks the instantiations the launch
+    may run; ``regs`` a thread's registers where they are known (the
+    card's ``cuobjdump``), else the launch bound's cap is assumed."""
+
+    source: str
+    function: str
+    grid: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+    min_blocks: int = 1
+    ctas_per_sm: int = 1
+    maps: tuple[TmaMap, ...] = ()
+    args: tuple[tuple[str, int, int], ...] = ()
+    stages: int | None = None
+    stage: tuple[int, ...] | None = None
+    regs: int | None = None
+
+
+def smem_rule(smem_bytes: int, stages: int | None = None, *,
+              where: str = "") -> Diagnostic | None:
+    """``sm90.smem``: at most ``SMEM_PER_BLOCK`` bytes, and a ring sized
+    to the shared memory holds at least two stages."""
+    if smem_bytes > SMEM_PER_BLOCK:
+        return _err("sm90.smem", f"{smem_bytes} B of dynamic shared "
+                    f"memory exceeds the card's {SMEM_PER_BLOCK} B a block",
+                    hint="a narrower tile or fewer ring stages",
+                    where=where)
+    if stages is not None and stages < 2:
+        return _err("sm90.smem", f"a ring of {stages} stage(s) fits; the "
+                    f"kernel needs two", hint="a narrower tile",
+                    where=where)
+    return None
+
+
+def grid_rule(grid, *, where: str = "") -> Diagnostic | None:
+    """``sm90.grid``: 1 to ``GRID_X_MAX`` blocks along x, 1 to
+    ``GRID_YZ_MAX`` along y and z."""
+    gx, gy, gz = grid
+    if 1 <= gx <= GRID_X_MAX and 1 <= gy <= GRID_YZ_MAX \
+            and 1 <= gz <= GRID_YZ_MAX:
+        return None
+    return _err("sm90.grid", f"grid {tuple(grid)} is outside (1..{GRID_X_MAX},"
+                f" 1..{GRID_YZ_MAX}, 1..{GRID_YZ_MAX})",
+                hint="fold the excess into x, or split the launch",
+                where=where)
+
+
+def _box_rules(boxes, elems=(), *, where: str = "") -> list[Diagnostic]:
+    """``sm90.tma`` on boxes alone: every extent 1 to ``TMA_BOX_MAX``,
+    every traversal stride 1 to ``TMA_ELEM_STRIDE_MAX``."""
+    diags = []
+    for i, box in enumerate(boxes):
+        elem = elems[i] if i < len(elems) and elems[i] else (1,) * len(box)
+        if not all(1 <= b <= TMA_BOX_MAX for b in box):
+            diags.append(_err("sm90.tma", f"TMA box {tuple(box)} has an "
+                              f"extent outside 1..{TMA_BOX_MAX}",
+                              hint="a smaller tile or halo", where=where))
+        if not all(1 <= e <= TMA_ELEM_STRIDE_MAX for e in elem):
+            diags.append(_err("sm90.tma", f"TMA traversal strides "
+                              f"{tuple(elem)} exceed {TMA_ELEM_STRIDE_MAX}",
+                              where=where))
+    return diags
+
+
+def _args_rules(args, *, where: str = "") -> list[Diagnostic]:
+    """``sm90.args``: each of a launch's argument arrays holds its
+    entries."""
+    return [_err("sm90.args", f"{n} {what} exceed the kernel's {cap}",
+                 where=where)
+            for what, n, cap in args if n > cap]
+
+
+def tile_fits(smem_bytes: int, *, boxes=(), elems=(), args=(),
+              stages: int | None = None) -> bool:
+    """The part of the ``sm90`` rules a tile must pass wherever it
+    launches (shared memory, TMA boxes, argument arrays): the fit
+    predicate every tensor-core launcher ranks its tiles by."""
+    return (smem_rule(smem_bytes, stages) is None
+            and not _box_rules(boxes, elems) and not _args_rules(args))
+
+
+def regs_rule(threads: int, min_blocks: int = 1, ctas_per_sm: int = 1,
+              regs: int | None = None, *,
+              where: str = "") -> Diagnostic | None:
+    """``sm90.regs``: a thread holds at most what ``__launch_bounds__
+    (threads, min_blocks)`` allows (``regs``, where known, else that
+    cap), and ``ctas_per_sm`` CTAs of ``threads`` at that count, each
+    thread's registers allocated in units of ``REG_ALLOC_UNIT``, fit
+    ``REGS_PER_SM``."""
+    cap = launch_bounds_regs(threads, min_blocks)
+    r = cap if regs is None else regs
+    if r > cap:
+        return _err("sm90.regs", f"{r} registers a thread exceed the "
+                    f"{cap} __launch_bounds__({threads}, {min_blocks}) "
+                    f"allows", where=where)
+    need = (ceil_div(r, REG_ALLOC_UNIT) * REG_ALLOC_UNIT
+            * ceil_div(threads, 32) * 32 * ctas_per_sm)
+    if need > REGS_PER_SM:
+        return _err("sm90.regs", f"{ctas_per_sm} CTA(s) of {threads} "
+                    f"threads at {r} registers need {need}, more than an "
+                    f"SM's {REGS_PER_SM}",
+                    hint="fewer CTAs per SM in the plan's wave count, or "
+                         "a tighter __launch_bounds__", where=where)
+    return None
+
+
+def stage_rule(stage, *, where: str = "") -> Diagnostic | None:
+    """``sm90.stage``: the staging kernel takes the plane
+    (:func:`~repro_torch.kernels.conv_lb.im2col.stage_fits`)."""
+    from repro_torch.kernels.conv_lb.im2col import stage_fits
+
+    if stage_fits(*stage):
+        return None
+    b, h, w, ci, ho, wo, cp, elt = stage
+    return _err("sm90.stage", f"the staging kernel does not take a {b} x "
+                f"{ho} x {wo} x {cp} plane of a {h} x {w} x {ci} input "
+                f"({elt}-byte words)", where=where)
+
+
+def check_launch(facts: LaunchFacts, *, where: str = "") -> list[Diagnostic]:
+    """Every ``sm90`` rule on one launch's facts."""
+    diags = []
+    for d in (smem_rule(facts.smem_bytes, facts.stages, where=where),
+              grid_rule(facts.grid, where=where),
+              regs_rule(facts.threads, facts.min_blocks, facts.ctas_per_sm,
+                        facts.regs, where=where),
+              None if facts.stage is None
+              else stage_rule(facts.stage, where=where)):
+        if d is not None:
+            diags.append(d)
+    diags += _box_rules([m.box for m in facts.maps],
+                        [m.elem for m in facts.maps], where=where)
+    for m in facts.maps:
+        bad = [s for s in m.strides if s % TMA_ALIGN]
+        if bad or not m.aligned:
+            diags.append(_err(
+                "sm90.tma", f"{m.operand}'s tensor map needs 16-byte "
+                f"aligned global strides and base; strides {m.strides} B"
+                f"{'' if m.aligned else ', base misaligned'}",
+                hint="a channel count of 16 bytes' multiple, an aligned "
+                     "allocation", where=where))
+    diags += _args_rules(facts.args, where=where)
+    return diags
+
+
+#: the modules whose ``launch_facts`` describe each kernel entry point
+LAUNCH_MODULES = {
+    "conv_lb": "repro_torch.kernels.conv_lb.kernel",
+    "conv_lb_dgrad": "repro_torch.kernels.conv_lb.kernel",
+    "wgrad_lb": "repro_torch.kernels.conv_lb.wgrad",
+    "matmul_lb": "repro_torch.kernels.matmul_lb.kernel",
+    "attention": "repro_torch.kernels.attention_block.kernel",
+}
+
+
+def launch_facts(kernel: str, route: str, plan, shape,
+                 dtype) -> tuple[LaunchFacts, ...]:
+    """The launches one call of ``kernel`` makes on ``route`` with
+    ``plan`` (the staging launch and the 1x1 launch of an im2col
+    route), from the kernel module's own ``launch_facts``."""
+    if kernel not in LAUNCH_MODULES:
+        raise ValueError(f"unknown kernel {kernel!r}; expected one of "
+                         f"{tuple(LAUNCH_MODULES)}")
+    mod = importlib.import_module(LAUNCH_MODULES[kernel])
+    return mod.launch_facts(kernel, route, plan, shape, dtype)
+
+
+def check_launch_plan(kernel: str, route: str, plan, shape, dtype, *,
+                      regs: dict | None = None,
+                      where: str = "") -> list[Diagnostic]:
+    """The ``sm90`` profile on one launch plan: ``kernel`` one of
+    :data:`LAUNCH_MODULES`, ``route`` and ``plan`` what its ``plan_of``
+    names, ``shape`` the call's geometry as that module's
+    ``launch_facts`` reads it (``conv_lb``: ``(xshape, wshape, stride,
+    padding, dilation, lhs_dilation, pool)``; ``conv_lb_dgrad``:
+    ``(gyshape, wshape, stride, padding, dilation, h, wd)``;
+    ``wgrad_lb``: ``(xshape, dyshape, WgradGeometry)``; ``matmul_lb``:
+    ``(m, n, k, w_kmajor)``; ``attention``: ``(bh, sq, skv, hd,
+    groups)``), ``dtype`` the operands' type.  ``regs`` maps a source
+    stem to ``{kernel name: registers a thread}`` as read off the built
+    library; a launch is held to the most of the kernels its
+    ``function`` names.  A route ``fma`` is an ``sm90.fma`` warning."""
+    diags = []
+    if route == "fma":
+        diags.append(Diagnostic(
+            rule="sm90.fma", severity=WARN, where=where,
+            message=f"{kernel} falls to its FMA route"))
+    for facts in launch_facts(kernel, route, plan, shape, dtype):
+        if regs:
+            facts = with_registers(facts, regs)
+        diags += check_launch(facts, where=where)
+    return diags
+
+
+def with_registers(facts: LaunchFacts, regs: dict) -> LaunchFacts:
+    """``facts`` with the most registers a thread of the kernels its
+    ``function`` names holds in ``regs`` (``{source: {kernel name:
+    registers}}``); unchanged where ``regs`` names none of them."""
+    found = [r for name, r in regs.get(facts.source, {}).items()
+             if facts.function in name]
+    return dataclasses.replace(facts, regs=max(found)) if found else facts
+
+
+# --------------------------------------------------------------------------
+# the audit
+# --------------------------------------------------------------------------
+
 @dataclasses.dataclass(frozen=True)
 class PlanAuditEntry:
-    """One plan's verdict: legality diagnostics + cross-audit flags."""
+    """One plan's verdict: legality diagnostics + cross-audit flags;
+    under ``sm90`` also the route and launch plan its kernel takes
+    (``None`` under ``interpret``, and where the library rung runs the
+    pass)."""
 
-    name: str
+    name: str            # "<layer>/<pass>" e.g. "conv3_1/dgrad"
     diagnostics: tuple[Diagnostic, ...]
     traffic_ok: bool     # symbolic re-derivation == accountant
     bound_ok: bool       # symbolic Eq. (15) == ConvPlan.bound_words
-    words: float
-    bound: float
+    words: float         # accountant words at the audit batch
+    bound: float         # bound words (0.0 where not applicable)
+    route: str | None = None
+    launch: object = None
 
     @property
     def legal(self) -> bool:
@@ -416,6 +744,27 @@ class PlanAudit:
     """The audit over a set of plan handles."""
 
     entries: tuple[PlanAuditEntry, ...]
+    target: str = TARGET_INTERPRET
+
+    @property
+    def n_plans(self) -> int:
+        return len(self.entries)
+
+    @property
+    def n_legal(self) -> int:
+        return sum(e.legal for e in self.entries)
+
+    @property
+    def legal_frac(self) -> float:
+        return self.n_legal / max(1, self.n_plans)
+
+    @property
+    def traffic_mismatches(self) -> int:
+        return sum(not e.traffic_ok for e in self.entries)
+
+    @property
+    def bound_mismatches(self) -> int:
+        return sum(not e.bound_ok for e in self.entries)
 
     @property
     def ok(self) -> bool:
@@ -425,67 +774,157 @@ class PlanAudit:
         return [d for e in self.entries for d in errors(e.diagnostics)]
 
     def report(self) -> str:
-        lines = [f"plan audit: "
-                 f"{sum(e.legal for e in self.entries)}/"
-                 f"{len(self.entries)} legal, "
-                 f"{sum(not e.traffic_ok for e in self.entries)} traffic"
-                 f" mismatch(es), "
-                 f"{sum(not e.bound_ok for e in self.entries)} bound "
-                 f"mismatch(es)"]
+        """Human-readable audit summary (one line per plan, details
+        for anything that failed)."""
+        lines = [f"plan audit [{self.target}]: {self.n_legal}/"
+                 f"{self.n_plans} legal, "
+                 f"{self.traffic_mismatches} traffic mismatch(es), "
+                 f"{self.bound_mismatches} bound mismatch(es)"]
         for e in self.entries:
             flag = "ok " if e.ok else "BAD"
-            lines.append(f"  {flag} {e.name}: {e.words:.3g} words vs "
-                         f"bound {e.bound:.3g}")
-            for d in errors(e.diagnostics):
-                lines.append(f"       {d}")
+            lines.append(f"  {flag} {e.name}: {e.words:.3g} words"
+                         + (f" vs bound {e.bound:.3g}" if e.bound
+                            else "")
+                         + (f" [{e.route}]" if e.route else ""))
+            for d in e.diagnostics:
+                if d.severity == ERROR or not e.legal:
+                    lines.append(f"       {d}")
         return "\n".join(lines)
 
 
-def _audit_conv(name, layer, plan, *, batch, dtype_bytes,
-                vmem_budget) -> PlanAuditEntry:
+def _audit_conv(name, layer, plan, *, batch, dtype_bytes, vmem_budget,
+                launch=None, regs=None) -> PlanAuditEntry:
     diags = check_conv_plan(plan, batch=batch, dtype_bytes=dtype_bytes,
                             vmem_budget=vmem_budget, where=name)
     acct = plan.traffic(batch)
     bound = plan.bound_words(layer) if layer is not None else 0.0
     return PlanAuditEntry(
-        name=name, diagnostics=tuple(diags),
+        name=name,
+        diagnostics=tuple(diags) + _launch_diags(launch, name, regs),
         traffic_ok=symbolic_conv_traffic(plan, batch) == acct,
         bound_ok=(layer is None
                   or symbolic_bound_words(plan, layer) == bound),
-        words=acct.total, bound=bound)
+        words=acct.total, bound=bound, **_launch_fields(launch))
 
 
-def _audit_wgrad(name, wplan, *, batch, dtype_bytes,
-                 vmem_budget) -> PlanAuditEntry:
+def _audit_wgrad(name, wplan, *, batch, dtype_bytes, vmem_budget,
+                 launch=None, regs=None) -> PlanAuditEntry:
     diags = check_wgrad_plan(wplan, dtype_bytes=dtype_bytes,
                              vmem_budget=vmem_budget, where=name)
     acct = wplan.traffic(batch)
     return PlanAuditEntry(
-        name=name, diagnostics=tuple(diags),
+        name=name,
+        diagnostics=tuple(diags) + _launch_diags(launch, name, regs),
         traffic_ok=symbolic_wgrad_traffic(wplan, batch) == acct,
-        bound_ok=True, words=acct.total, bound=0.0)
+        bound_ok=True, words=acct.total, bound=0.0,
+        **_launch_fields(launch))
+
+
+def _launch_fields(launch) -> dict:
+    if launch is None:
+        return {}
+    return {"route": launch[1], "launch": launch[2]}
+
+
+def _launch_diags(launch, where: str, regs) -> tuple[Diagnostic, ...]:
+    if launch is None or launch[0] is None:
+        return ()
+    return tuple(check_launch_plan(*launch, regs=regs, where=where))
+
+
+def sm90_launches(layer, handle, *, batch: int, dtype):
+    """The K1 and K2 launches of one handle at ``batch`` in ``dtype``,
+    as the kernels' shape-only cores pick them: ``{pass: (kernel,
+    route, plan, shape, dtype)}`` for ``fwd`` and, for a training
+    handle, ``dgrad`` (``(None, "library", None, None, dtype)`` where
+    the library rung takes dx) and ``wgrad``.  The backward's recompute
+    (no epilogue) takes the forward's plan on every tensor-core route."""
+    from repro_torch.kernels.conv_lb import kernel as K1
+    from repro_torch.kernels.conv_lb import wgrad as K2
+
+    fwd = handle.fwd if hasattr(handle, "fwd") else handle
+    stride, padding = (layer.stride,) * 2, (layer.pad,) * 2
+    xshape = (batch, layer.hi, layer.wi, layer.ci)
+    wshape = (layer.hk, layer.wk, layer.ci, layer.co)
+    conv = (xshape, wshape, stride, padding, tuple(fwd.dilation), (1, 1),
+            fwd.pool)
+    out = {"fwd": ("conv_lb", *K1.launch_plan(dtype, *conv), conv, dtype)}
+    if hasattr(handle, "fwd"):
+        gy = (batch, fwd.ho, fwd.wo, layer.co)
+        if K1.dgrad_on_kernel(layer.hk, layer.wk, padding, fwd.dilation):
+            out["dgrad"] = K1.dgrad_launch(dtype, gy, wshape, stride,
+                                           padding, tuple(fwd.dilation),
+                                           layer.hi, layer.wi)
+        else:
+            out["dgrad"] = (None, "library", None, None, dtype)
+        geom = K2.WgradGeometry(hk=layer.hk, wk=layer.wk, stride=stride,
+                                padding=padding,
+                                dilation=tuple(fwd.dilation))
+        out["wgrad"] = ("wgrad_lb",
+                        *K2.launch_plan(dtype, xshape, layer.co, geom),
+                        (xshape, gy, geom), dtype)
+    return out
 
 
 def audit_handles(handles, *, batch: int, dtype_bytes: int = 4,
-                  vmem_budget: int | None = None) -> PlanAudit:
+                  vmem_budget: int | None = None,
+                  target: str = TARGET_INTERPRET,
+                  dtype=None, regs: dict | None = None) -> PlanAudit:
     """Audit ``[(ConvLayer, ConvPlan | ConvTrainingPlan)]`` handles (the
     :func:`~repro_torch.models.graph.graph_plan_handles` export): the
     legality pass on every constituent plan and the exact traffic/bound
-    cross-audit against the accountant."""
+    cross-audit against the accountant; under ``target="sm90"`` also
+    each pass's launch plan at ``batch`` in ``dtype`` (a ``torch``
+    type; default f32) against the card (:func:`check_launch_plan`,
+    with ``regs`` where the built libraries' registers are known)."""
+    if target == TARGET_MOSAIC:
+        raise ValueError("the conv plans' mosaic profile is TPU "
+                         "alignment, which has no counterpart on the "
+                         "card; audit the launch plans at target='sm90'")
+    if target not in (TARGET_INTERPRET, TARGET_SM90):
+        raise ValueError(f"unknown audit target {target!r}")
+    if target == TARGET_SM90 and dtype is None:
+        import torch
+        dtype = torch.float32
     kw = dict(batch=batch, dtype_bytes=dtype_bytes,
-              vmem_budget=vmem_budget)
+              vmem_budget=vmem_budget, regs=regs)
     entries = []
     for layer, handle in handles:
+        launch = (sm90_launches(layer, handle, batch=batch, dtype=dtype)
+                  if target == TARGET_SM90 else {})
         if hasattr(handle, "fwd"):        # ConvTrainingPlan triple
             entries.append(_audit_conv(f"{layer.name}/fwd", layer,
-                                       handle.fwd, **kw))
+                                       handle.fwd, launch=launch.get("fwd"),
+                                       **kw))
             # the dgrad conv is its own layer geometry; legality and
             # the traffic re-derivation apply, the fwd bound does not
             entries.append(_audit_conv(f"{layer.name}/dgrad", None,
-                                       handle.dgrad, **kw))
+                                       handle.dgrad,
+                                       launch=launch.get("dgrad"), **kw))
             entries.append(_audit_wgrad(f"{layer.name}/wgrad",
-                                        handle.wgrad, **kw))
+                                        handle.wgrad,
+                                        launch=launch.get("wgrad"), **kw))
         else:
             entries.append(_audit_conv(f"{layer.name}/fwd", layer,
-                                       handle, **kw))
-    return PlanAudit(entries=tuple(entries))
+                                       handle, launch=launch.get("fwd"),
+                                       **kw))
+    return PlanAudit(entries=tuple(entries), target=target)
+
+
+def audit_graph(graph, h: int, w: int, *, batch: int, in_ch: int = 3,
+                dtype_bytes: int = 4, vmem_budget: int | None = None,
+                training: bool = True, target: str = TARGET_INTERPRET,
+                dtype=None, regs: dict | None = None) -> PlanAudit:
+    """Run the full static audit over every node of a conv graph:
+    forward plans, and with ``training=True`` the planned dgrad/wgrad
+    convs too — the ``plans checked / plans legal`` gate; under
+    ``target="sm90"`` with each pass's launch plan in ``dtype``."""
+    from repro_torch.models.graph import graph_plan_handles
+
+    handles = graph_plan_handles(graph, h, w, batch=batch, in_ch=in_ch,
+                                 dtype_bytes=dtype_bytes,
+                                 vmem_budget=vmem_budget,
+                                 training=training)
+    return audit_handles(handles, batch=batch, dtype_bytes=dtype_bytes,
+                         vmem_budget=vmem_budget, target=target,
+                         dtype=dtype, regs=regs)

@@ -50,11 +50,32 @@ REF_ROW_ALIGN = {1: 32, 2: 16, 4: 8}
 SM_COUNT = 132
 SMEM_PER_BLOCK = 232_448          # bytes, dynamic, after opt-in above 48 KB
 REGS_PER_SM = 65_536
+#: registers a thread may hold, and the unit a thread's count is
+#: allocated in
+REGS_PER_THREAD_MAX = 255
+REG_ALLOC_UNIT = 8
+#: a launch's grid: blocks along x, and along y or z
+GRID_X_MAX = 2 ** 31 - 1
+GRID_YZ_MAX = 65_535
+#: a TMA tensor map: a box's extent in any dimension, a traversal
+#: stride, and the alignment (bytes) of its base and global strides
+TMA_BOX_MAX = 256
+TMA_ELEM_STRIDE_MAX = 8
+TMA_ALIGN = 16
 #: published dense peaks at the 700 W limit
 PEAK_F32_FLOPS = 67e12            # f32 FMA outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 PEAK_TF32_FLOPS = 495e12          # TF32 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
+
+
+def launch_bounds_regs(threads: int, min_blocks: int = 1) -> int:
+    """The registers a thread may hold under ``__launch_bounds__(threads,
+    min_blocks)``: ``min_blocks`` CTAs of ``threads`` in one SM's
+    registers, rounded down to the allocation unit, at most
+    ``REGS_PER_THREAD_MAX``."""
+    regs = REGS_PER_SM // (threads * max(1, min_blocks))
+    return min(REGS_PER_THREAD_MAX, regs - regs % REG_ALLOC_UNIT)
 
 
 def row_align_for(dtype_bytes: int) -> int:

@@ -42,7 +42,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.hopper_adapter import SMEM_PER_BLOCK
+from repro_torch.analysis.plan_check import LaunchFacts, TmaMap, tile_fits
 from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.attention_block.ref import attention_plain
 from repro_torch.kernels.conv_lb.kernel import _aligned
@@ -153,7 +153,7 @@ def sm90_tf32_plan(width: int) -> Tf32Plan | None:
     split = raw + TF32_STAGES * 2 * tile
     bars = split + TF32_STAGES * 3 * tile
     smem = 1024 + bars + 8 * (1 + 4 * TF32_STAGES)
-    if smem > SMEM_PER_BLOCK:
+    if not tile_fits(smem):
         return None
     return Tf32Plan(width=width, q_bytes=q_bytes, tile_bytes=tile, raw=raw,
                     split=split, bars=bars, smem_bytes=smem)
@@ -229,8 +229,7 @@ def visited_pairs(sq: int, skv: int, window: int, causal: bool) -> int:
 def attention_stages(width: int, dtype: torch.dtype) -> int:
     """K/V stages the FMA kernel keeps at ``width``: two where they fit
     in the card's shared memory, else one (f32 at 256)."""
-    return 2 if attention_smem_bytes(width, dtype, 2) <= SMEM_PER_BLOCK \
-        else 1
+    return 2 if tile_fits(attention_smem_bytes(width, dtype, 2)) else 1
 
 
 def attention_smem_bytes(width: int, dtype: torch.dtype,
@@ -244,6 +243,71 @@ def attention_smem_bytes(width: int, dtype: torch.dtype,
     elt = torch.empty((), dtype=dtype).element_size()
     return ((BQ + 2 * stages * BKV) * (width + 16 // elt) * elt
             + BQ * (BKV + 4) * 4)
+
+
+def sm90_smem_bytes(width: int) -> int:
+    """The sm90 kernel's dynamic shared memory at ``width``
+    (``Cfg<HD>::kBytes``): 1024 bytes of alignment, the Q tile and two
+    stages of a K and a V tile, each in 64-column boxes of 128-byte
+    rows, a full and an empty mbarrier a stage and Q's."""
+    boxes = ceil_div(width, 64)
+    return (1024 + sm90_cta_rows(width) * 128 * boxes
+            + 2 * 2 * BKV * 128 * boxes + 8 * (1 + 2 * 2))
+
+
+def plan_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            via: str | None = None):
+    """The route :func:`attention` takes (``via``, where given) and its
+    kernel's plan: the sm90 kernel's width (``"sm90"``), the 3xTF32
+    kernel's :class:`Tf32Plan` (``"sm90_tf32"``), or the FMA kernel's
+    width (``"fma"``); the plan ``None`` where ``via`` names a route
+    that does not take the input."""
+    rt = route(q, k, v) if via is None else via
+    hd = q.shape[-1]
+    if rt == "sm90":
+        return rt, (sm90_head_dim(hd) if q.dtype == torch.bfloat16
+                    else None)
+    if rt == "sm90_tf32":
+        width = sm90_tf32_head_dim(hd) if q.dtype == torch.float32 else None
+        return rt, None if width is None else sm90_tf32_plan(width)
+    return rt, padded_head_dim(hd)
+
+
+def launch_facts(kernel: str, route: str, plan, shape, dtype
+                 ) -> tuple[LaunchFacts, ...]:
+    """What one launch of route ``route`` with ``plan`` (its
+    :func:`plan_of`) asks of the card, for
+    :func:`~repro_torch.analysis.plan_check.check_launch_plan`:
+    ``shape`` is ``(bh, sq, skv, hd, groups)``."""
+    if kernel != "attention":
+        raise ValueError(f"{kernel!r} is not this module's kernel")
+    bh, sq, skv, hd, _ = shape
+    if route == "fma":
+        wide = head_dim_chunks(hd) > 1
+        return (LaunchFacts(
+            source=SOURCE.stem,
+            function="attention_wide_kernel" if wide else "attention_kernel",
+            grid=(ceil_div(sq, BQ) * bh, head_dim_chunks(hd), 1),
+            threads=256, smem_bytes=attention_smem_bytes(
+                plan, dtype, 1 if wide else None)),)
+    tf32 = route == "sm90_tf32"
+    if tf32:
+        elt, cols, rows, width = 4, TF32_BK, TF32_BQ, plan.width
+        threads, smem, kv_rows = 384, plan.smem_bytes, TF32_BK
+        function = f"attention_sm90_tf32_kernelILi{width}E"
+    else:
+        elt, cols, rows, width = 2, 64, sm90_cta_rows(plan), plan
+        threads = 128 * (1 + rows // BQ)
+        smem, kv_rows = sm90_smem_bytes(plan), BKV
+        function = f"attention_sm90_kernelILi{width}E"
+    return (LaunchFacts(
+        source=(TF32_SOURCE if tf32 else SM90_SOURCE).stem,
+        function=function,
+        grid=(ceil_div(sq, rows) * bh, 1, 1), threads=threads,
+        smem_bytes=smem,
+        maps=(TmaMap("q", (cols, rows, 1), (hd * elt, hd * elt * sq)),
+              TmaMap("k", (cols, kv_rows, 1), (hd * elt, hd * elt * skv)),
+              TmaMap("v", (cols, kv_rows, 1), (hd * elt, hd * elt * skv)))),)
 
 
 def _launched(lib, err: int, name: str, rt: str) -> None:
@@ -296,7 +360,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             max(q.numel(), k.numel()) >= 2 ** 62:
         raise ValueError(f"attention of {bh} heads x {sq} x {skv} keys at "
                          f"head dim {hd} exceeds the kernel's index range")
-    rt = route(q, k, v) if via is None else via
+    rt, _ = plan_of(q, k, v, via)
     if rt not in ROUTES:
         raise ValueError(f"unknown attention route {rt!r}; expected one "
                          f"of {ROUTES}")

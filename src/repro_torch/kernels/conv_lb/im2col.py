@@ -35,7 +35,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.hopper_adapter import round_up
+from repro_torch.analysis.plan_check import LaunchFacts, grid_rule
+from repro_torch.core.hopper_adapter import GRID_X_MAX, round_up
 from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.conv_lb.ref import _pair, im2col_ref
 from repro_torch.kernels.nvcc import _entry
@@ -46,9 +47,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "wgrad_im2col.cu"
 #: multiple of 8 (16-byte bf16 pixels); its staging kernel's taps
 IM2COL_MAX = 64
 #: the staging kernel's grid: one x index per 256 16-byte chunks of an
-#: output row, rows of every image folded into x
+#: output row, rows of every image folded into x, at most ``GRID_X_MAX``
 THREADS = 256
-GRID_X_MAX = 2 ** 31 - 1
 #: operand types the staging kernel takes, by the code its C interface
 #: uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -90,15 +90,33 @@ def im2col_taps(hk: int, wk: int, padding=(0, 0), dilation=(1, 1)
                  for ky in range(hk) for kx in range(wk))
 
 
+def stage_grid(ho: int, wo: int, cp: int, elt: int, b: int
+               ) -> tuple[int, int, int]:
+    """The staging kernel's grid: ``ceil(wo * cp * elt / 16 / THREADS)
+    * ho * b`` blocks along x."""
+    return ceil_div(wo * cp * elt // 16, THREADS) * ho * b, 1, 1
+
+
 def stage_fits(b: int, h: int, w: int, ci: int, ho: int, wo: int, cp: int,
                elt: int) -> bool:
-    """The staging kernel takes this plane: ``cp`` <= ``IM2COL_MAX``, one
-    image of x and one plane row each under 2^31 words, and a grid of
-    ``ceil(wo * cp * elt / 16 / THREADS) * ho * b`` blocks in its x
-    dimension."""
-    rows = ceil_div(wo * cp * elt // 16, THREADS)
+    """The staging kernel takes this plane (the ``sm90.stage`` rule):
+    ``cp`` <= ``IM2COL_MAX``, one image of x and one plane row each
+    under 2^31 words, and a grid (:func:`stage_grid`) that
+    :func:`~repro_torch.analysis.plan_check.grid_rule` passes."""
     return (cp <= IM2COL_MAX and h * w * ci < 2 ** 31
-            and wo * cp < 2 ** 31 and rows * ho * b <= GRID_X_MAX)
+            and wo * cp < 2 ** 31
+            and grid_rule(stage_grid(ho, wo, cp, elt, b)) is None)
+
+
+def stage_facts(xshape: tuple, ho: int, wo: int, cp: int, elt: int
+                ) -> LaunchFacts:
+    """What one staging launch asks of the card
+    (:func:`~repro_torch.analysis.plan_check.check_launch`)."""
+    b, h, w, ci = xshape
+    return LaunchFacts(source=SOURCE.stem, function="wgrad_im2col_kernel",
+                       grid=stage_grid(ho, wo, cp, elt, b),
+                       threads=THREADS, smem_bytes=0,
+                       stage=(b, h, w, ci, ho, wo, cp, elt))
 
 
 @lru_cache(maxsize=4096)

@@ -51,13 +51,17 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis.plan_check import (LaunchFacts, TmaMap,
+                                             smem_rule, tile_fits)
 from repro_torch.core.hopper_adapter import (REGS_PER_SM, SM_COUNT,
-                                             SMEM_PER_BLOCK)
+                                             SMEM_PER_BLOCK,
+                                             TMA_ELEM_STRIDE_MAX,
+                                             launch_bounds_regs)
 from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.conv_lb.im2col import (Im2colPlan,
                                                 im2col_channels,
                                                 im2col_taps, stage,
-                                                stage_fits)
+                                                stage_facts, stage_fits)
 from repro_torch.kernels.conv_lb.ref import conv2d_ref, flip_w
 from repro_torch.kernels.lean import LaunchCache, on_device, operand_key
 from repro_torch.kernels.nvcc import Library, _entry, _entry_struct
@@ -71,8 +75,12 @@ TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
 TILE_M = 128        # output pixels per CTA
 CI_BLOCK = 8        # input channels staged per step
 THREADS = 256
-MAX_REGS = 128      # per thread, as __launch_bounds__(256, 2) caps it
+MIN_BLOCKS = 2      # __launch_bounds__(256, 2)
+MAX_REGS = launch_bounds_regs(THREADS, MIN_BLOCKS)    # per thread: 128
 CTAS_PER_SM = REGS_PER_SM // (THREADS * MAX_REGS)
+#: the tensor-core kernels' CTA: a producer and two consumer warpgroups
+#: under __launch_bounds__(384, 1), one CTA an SM
+SM90_THREADS = 384
 #: operand types the conv and wgrad kernels take, by the code their C
 #: interfaces use
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,9 +101,9 @@ def _best_tile(batch: int, ho: int, wo: int, co: int, pool: int, hk: int,
             for ty in range(pool, min(TILE_M // tx,
                                       -(-ho // pool) * pool) + 1, pool):
                 bb = max(1, min(batch, TILE_M // (ty * tx)))
-                if fit and cta_smem_bytes(bb, ty, tx, tn, hk, wk, stride,
-                                          dilation, pool, krows,
-                                          elt) > SMEM_PER_BLOCK:
+                if fit and not tile_fits(cta_smem_bytes(
+                        bb, ty, tx, tn, hk, wk, stride, dilation, pool,
+                        krows, elt)):
                     continue
                 ctas = (ceil_div(batch, bb) * ceil_div(ho, ty)
                         * ceil_div(wo, tx) * nco)
@@ -175,7 +183,6 @@ SM90_BN = (64, 128, 256)     # output channels per CTA
 SM90_W_STAGES = 4            # weight ring: (Ci block, window) stages
 SM90_H_STAGES = 2            # halo ring: Ci blocks
 SM90_MAX_WIN = 128           # windows whose offsets a launch carries
-SM90_BOX_MAX = 256           # a TMA box's extent in any dimension
 SM90_PLANE = 8               # channels of one 16-byte halo plane
 ROUTES = ("sm90", "sm90_tf32", "sm90_im2col", "fma")
 
@@ -259,10 +266,17 @@ def sm90_layout(bb: int, ty: int, tx: int, bn: int, cib: int, hk: int,
                 win_off=win, smem_bytes=smem)
 
 
+def _sm90_tile(lay: dict) -> dict:
+    """The sm90 kernel's TMA boxes (the halo's 8-channel planes, the
+    weights' 64 x ``cib`` slices) and argument arrays at one layout
+    (:func:`sm90_layout`'s dict, or an :class:`Sm90Plan`'s ``vars``)."""
+    return dict(boxes=((SM90_PLANE, lay["hx"], lay["hy"], lay["bb"]),
+                       (64, lay["cib"], 1)),
+                args=(("windows", len(lay["win_off"]), SM90_MAX_WIN),))
+
+
 def _sm90_fits(lay: dict) -> bool:
-    return (lay["smem_bytes"] <= SMEM_PER_BLOCK
-            and len(lay["win_off"]) <= SM90_MAX_WIN
-            and max(lay["hy"], lay["hx"]) <= SM90_BOX_MAX)
+    return tile_fits(lay["smem_bytes"], **_sm90_tile(lay))
 
 
 @lru_cache(maxsize=4096)
@@ -300,7 +314,7 @@ def sm90_plan(batch: int, ho: int, wo: int, co: int, ci: int, hk: int = 1,
 #: (must match csrc/conv_lb_sm90_tf32.cu)
 TF32_MAX_PARTS = 16
 TF32_MAX_PHASES = 16
-TF32_MAX_STRIDE = 8          # a TMA map's traversal stride
+TF32_MAX_STRIDE = TMA_ELEM_STRIDE_MAX    # a TMA map's traversal stride
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,7 +374,8 @@ def tf32_parts(hk: int, wk: int, dilation: tuple[int, int],
 
 def sm90_tf32_layout(bb: int, ty: int, tx: int, bn: int, hk: int, wk: int,
                      dilation: tuple[int, int],
-                     stride: tuple[int, int] = (1, 1)) -> dict:
+                     stride: tuple[int, int] = (1, 1),
+                     w_stages: int = TF32_W_STAGES) -> dict:
     """The halo boxes and the shared-memory offsets of one 3xTF32 tile
     (the fields of :class:`Sm90Tf32Plan` but ``ctas``): from a
     1024-byte line the weight ring (``bn`` x 32 words a stage), the B
@@ -369,7 +384,10 @@ def sm90_tf32_layout(bb: int, ty: int, tx: int, bn: int, hk: int, wk: int,
     stride (sy, sx) the halo is one box per residue of
     :func:`tf32_parts`, each at the traversal stride (sy, sx), so window
     (ky, kx) reads its box densely at the shift (ky*dly // sy, kx*dlx
-    // sx): consecutive pixels in consecutive rows, as at stride 1."""
+    // sx): consecutive pixels in consecutive rows, as at stride 1.
+    ``w_stages`` other than the kernel's ``TF32_W_STAGES`` sizes a ring
+    the kernel does not have: the legality checks' control, never a
+    route."""
     (dy, dx), (sy, sx) = dilation, stride
     parts = tf32_parts(hk, wk, dilation, stride)
     hy, hx = ty + (hk - 1) * dy // sy, tx + (wk - 1) * dx // sx
@@ -382,22 +400,34 @@ def sm90_tf32_layout(bb: int, ty: int, tx: int, bn: int, hk: int, wk: int,
     # the second consumer's block: the next image's, or 8 columns on
     blk = ((bb - 1) * hy * hx + tx - SM90_BLOCK) * 128
     tile = bn * TF32_BK * 4
-    smem = (1024 + TF32_W_STAGES * tile + TF32_B_STAGES * 2 * tile
+    smem = (1024 + w_stages * tile + TF32_B_STAGES * 2 * tile
             + TF32_H_STAGES * h_stage
-            + 16 * (TF32_W_STAGES + TF32_B_STAGES + TF32_H_STAGES))
+            + 16 * (w_stages + TF32_B_STAGES + TF32_H_STAGES))
     return dict(bb=bb, ty=ty, tx=tx, bn=bn, hy=hy, hx=hx, h_stage=h_stage,
                 sbo=hx * 128, blk_off=(0, blk), win_off=win,
                 smem_bytes=smem, parts=parts, part_bytes=part,
                 es=(sy, sx), stride=(sy, sx))
 
 
+def _tf32_tile(lay: dict) -> dict:
+    """The 3xTF32 kernel's TMA boxes (a halo box of 32 channels, its
+    extent in the tensor ``hy * es`` by ``hx * es``, traversed at
+    ``es``; the weights' 32 x 32 slices) and argument arrays at one
+    layout (:func:`sm90_tf32_layout`'s dict, or an
+    :class:`Sm90Tf32Plan`'s ``vars``: a forward's one phase, or a data
+    gradient's ``phases``)."""
+    esy, esx = lay["es"]
+    return dict(boxes=((TF32_BK, lay["hx"] * esx, lay["hy"] * esy,
+                        lay["bb"]), (32, TF32_BK, 1)),
+                elems=((1, esx, esy, 1), ()),
+                args=(("windows", len(lay["win_off"]), SM90_MAX_WIN),
+                      ("halo boxes", len(lay["parts"]), TF32_MAX_PARTS),
+                      ("output phases", len(lay.get("phases") or (0,)),
+                       TF32_MAX_PHASES)))
+
+
 def _tf32_fits(lay: dict) -> bool:
-    return (lay["smem_bytes"] <= SMEM_PER_BLOCK
-            and len(lay["win_off"]) <= SM90_MAX_WIN
-            and len(lay["parts"]) <= TF32_MAX_PARTS
-            and max(lay["es"]) <= TF32_MAX_STRIDE
-            and max(lay["hy"] * lay["es"][0], lay["hx"] * lay["es"][1])
-            <= SM90_BOX_MAX)
+    return tile_fits(lay["smem_bytes"], **_tf32_tile(lay))
 
 
 def _rank_tf32(lays, batch: int, ho: int, wo: int, co: int, phases: int = 1):
@@ -508,6 +538,21 @@ def halo_at_stride_one(plan):
     return dataclasses.replace(plan, es=(1, 1))
 
 
+def tf32_overfull(plan: Sm90Tf32Plan, hk: int, wk: int,
+                  dilation=(1, 1), stride=(1, 1)) -> Sm90Tf32Plan:
+    """``plan``'s tile with one weight-ring stage past the most whose
+    shared memory fits: a control that the ``sm90.smem`` rule sees a
+    tile the card refuses, never a route (nothing launches it)."""
+    def lay(stages):
+        return sm90_tf32_layout(plan.bb, plan.ty, plan.tx, plan.bn, hk, wk,
+                                tuple(dilation), tuple(stride), stages)
+
+    stages = TF32_W_STAGES
+    while tile_fits(lay(stages + 1)["smem_bytes"]):
+        stages += 1
+    return Sm90Tf32Plan(**lay(stages + 1), ctas=plan.ctas)
+
+
 def dgrad_phase_shifted(plan: Sm90Tf32Plan) -> Sm90Tf32Plan:
     """``plan`` with its fullest phase's windows one gy column off: a
     control that the card's gate sees a phase's taps, never a route."""
@@ -521,60 +566,113 @@ def route(x: torch.Tensor, w: torch.Tensor, stride=(1, 1),
           lhs_dilation=(1, 1), *, bias: torch.Tensor | None = None,
           residual: torch.Tensor | None = None, dilation=(1, 1),
           pool: int = 1, padding=(0, 0)) -> str:
-    """The tensor-core routes need x, w, bias and residual (where given)
-    of one type, bf16 or f32, lhs dilation (1, 1) (any dilation and
-    padding), Co a multiple of ``pitch`` (8 bf16, 4 f32 channels: a
-    16-byte row pitch that a TMA map describes), every base address
-    16-byte aligned and the fused pool 1 or 2 (the epilogue pools 2 x 2
-    in registers); then
+    """The route :func:`conv_lb` takes for these operands
+    (:func:`launch_plan`'s, from their types, shapes and whether every
+    base address is 16-byte aligned).  Read before launch."""
+    ops = (x, w, bias, residual)
+    return launch_plan(operand_type(*ops), tuple(x.shape), tuple(w.shape),
+                       tuple(stride), tuple(padding), tuple(dilation),
+                       tuple(lhs_dilation), pool, aligned(*ops))[0]
 
-      * ``"sm90"`` (bf16, stride (1, 1)) or ``"sm90_tf32"`` (f32, any
-        stride up to ``TF32_MAX_STRIDE``; the pool 1 where the stride is
-        not 1): Ci a multiple of ``pitch`` and a tile of
-        :func:`sm90_plan` or :func:`sm90_tf32_plan` that fits shared
-        memory with at most ``SM90_MAX_WIN`` windows;
-      * ``"sm90_im2col"``: stride (1, 1), Ci not a multiple of
-        ``pitch``, Hk*Wk*Ci <= ``im2col.IM2COL_MAX`` (VGG16's conv1_1
-        and ResNet-20's stem: 27), the staging kernel takes the plane
-        (``stage_fits``) and a tile of the type's plan fits the plane's
-        1x1 conv.
 
-    Else ``"fma"``.  Read from types, geometry and pointers only, before
-    launch."""
-    operands = [t for t in (x, w, bias, residual) if t is not None]
-    b, h, wd, ci = x.shape
-    hk, wk, _, co = w.shape
-    dt = x.dtype
-    stride = tuple(stride)
-    if not (dt in (torch.bfloat16, torch.float32)
-            and all(t.dtype == dt for t in operands)
-            and tuple(lhs_dilation) == (1, 1)
-            and all(t.data_ptr() % 16 == 0 for t in operands)
-            and pool in (1, 2)):
-        return "fma"
-    bf16 = dt == torch.bfloat16
-    strided = stride != (1, 1)
-    if strided and (bf16 or pool > 1 or max(stride) > TF32_MAX_STRIDE):
-        return "fma"
+def operand_type(*operands) -> torch.dtype | None:
+    """The operands' one type, or ``None`` where they differ (``None``
+    operands are skipped)."""
+    types = {t.dtype for t in operands if t is not None}
+    return types.pop() if len(types) == 1 else None
+
+
+def aligned(*operands) -> bool:
+    """Every base address of the operands is 16-byte aligned."""
+    return all(t.data_ptr() % 16 == 0 for t in operands if t is not None)
+
+
+@lru_cache(maxsize=4096)
+def launch_plan(dtype: torch.dtype | None, xshape: tuple, wshape: tuple,
+                stride=(1, 1), padding=(0, 0), dilation=(1, 1),
+                lhs_dilation=(1, 1), pool: int = 1, aligned: bool = True
+                ) -> tuple[str, Sm90Plan | Sm90Tf32Plan | Im2colPlan
+                           | tuple]:
+    """The shape-only core of :func:`route` and :func:`plan_of`: the
+    route of one group of the conv x ``xshape`` (B, H, W, Ci) against w
+    ``wshape`` (Hk, Wk, Ci, Co), its operands of type ``dtype``
+    (``None``: of more than one) and ``aligned`` (every base 16-byte
+    aligned), and the plan its kernel runs.  The tensor-core routes need
+    bf16 or f32, lhs dilation (1, 1) (any dilation and padding), Co a
+    multiple of ``pitch`` (8 bf16, 4 f32 channels: a 16-byte row pitch
+    that a TMA map describes), every base aligned and the fused pool 1
+    or 2 (the epilogue pools 2 x 2 in registers); then
+
+      * ``"sm90"`` (bf16, stride (1, 1)) with an :class:`Sm90Plan`, or
+        ``"sm90_tf32"`` (f32, any stride up to ``TF32_MAX_STRIDE``; the
+        pool 1 where the stride is not 1) with an
+        :class:`Sm90Tf32Plan`: Ci a multiple of ``pitch`` and a tile of
+        :func:`sm90_plan` or :func:`sm90_tf32_plan` that fits
+        (:func:`~repro_torch.analysis.plan_check.tile_fits`);
+      * ``"sm90_im2col"`` with an :class:`Im2colPlan`: stride (1, 1),
+        Ci not a multiple of ``pitch``, Hk*Wk*Ci <= ``im2col.IM2COL_MAX``
+        (VGG16's conv1_1 and ResNet-20's stem: 27), the staging kernel
+        takes the plane (``stage_fits``) and a tile of the type's plan
+        fits the plane's 1x1 conv.
+
+    Else ``"fma"`` with :func:`cta_plan`'s ``(bb, ty, tx, tn, krows)``
+    (``None`` where the conv has no output)."""
+    b, h, wd, ci = xshape
+    co = wshape[3]
+    stride, padding = tuple(stride), tuple(padding)
+    dilation, lhs_dilation = tuple(dilation), tuple(lhs_dilation)
+    ho, wo = _out_plane(h, wd, wshape[0], wshape[1], stride, padding,
+                        dilation, lhs_dilation)
+    bf16 = dtype == torch.bfloat16
     pitch = SM90_PLANE if bf16 else 4
-    if co % pitch:
-        return "fma"
-    if ci % pitch == 0:
-        fits = (sm90_plan(1, 1, 1, co, ci, hk, wk, tuple(dilation)) if bf16
-                else sm90_tf32_plan(1, 1, 1, co, ci, hk, wk,
-                                    tuple(dilation), stride))
-        return "fma" if fits is None else ("sm90" if bf16 else "sm90_tf32")
-    if strided:
-        return "fma"
-    plan = sm90_plan if bf16 else sm90_tf32_plan
-    cp = im2col_channels(ci, hk, wk)
-    ho, wo = _out_plane(h, wd, hk, wk, (1, 1), tuple(padding),
-                        tuple(dilation), (1, 1))
-    if (min(ho, wo) >= 1 and stage_fits(b, h, wd, ci, ho, wo, cp,
-                                        x.element_size())
-            and plan(1, 1, 1, co, cp) is not None):
-        return "sm90_im2col"
-    return "fma"
+    strided = stride != (1, 1)
+    tensor_cores = (
+        dtype in (torch.bfloat16, torch.float32) and aligned
+        and lhs_dilation == (1, 1) and pool in (1, 2) and co % pitch == 0
+        and not (strided and (bf16 or pool > 1
+                              or max(stride) > TF32_MAX_STRIDE)))
+    rt = "fma"
+    if tensor_cores and ci % pitch == 0:
+        rt = "sm90" if bf16 else "sm90_tf32"
+    elif tensor_cores and not strided and min(ho, wo) >= 1 and stage_fits(
+            b, h, wd, ci, ho, wo, im2col_channels(ci, *wshape[:2]),
+            2 if bf16 else 4):
+        rt = "sm90_im2col"
+    key = (dtype, tuple(xshape), tuple(wshape), stride, padding, dilation,
+           lhs_dilation, pool)
+    plan = route_plan(rt, *key)
+    if plan is None and rt != "fma":        # no tile fits
+        rt, plan = "fma", route_plan("fma", *key)
+    return rt, plan
+
+
+@lru_cache(maxsize=4096)
+def route_plan(rt: str, dtype: torch.dtype | None, xshape: tuple,
+               wshape: tuple, stride, padding, dilation, lhs_dilation,
+               pool: int):
+    """The plan route ``rt``'s kernel runs this conv on (the arguments
+    as :func:`launch_plan`'s): :func:`sm90_plan`'s, :func:`sm90_tf32_plan`'s,
+    an :class:`Im2colPlan` of the plane and its 1x1 conv's plan, or
+    :func:`cta_plan`'s; ``None`` where no tile fits or the conv has no
+    output."""
+    b, h, wd, ci = xshape
+    hk, wk, _, co = wshape
+    ho, wo = _out_plane(h, wd, hk, wk, stride, padding, dilation,
+                        lhs_dilation)
+    bf16 = dtype == torch.bfloat16
+    if rt == "sm90":
+        return sm90_plan(b, ho, wo, co, ci, hk, wk, dilation)
+    if rt == "sm90_tf32":
+        return sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dilation, stride)
+    if rt == "sm90_im2col":
+        cp = im2col_channels(ci, hk, wk)
+        inner = (sm90_plan if bf16 else sm90_tf32_plan)(b, ho, wo, co, cp)
+        return None if inner is None else Im2colPlan(
+            cp, im2col_taps(hk, wk, padding, dilation), inner)
+    if min(ho, wo) < 1:         # no output: a launch refuses it
+        return None
+    return cta_plan(b, ho, wo, co, pool, hk, wk, stride, dilation,
+                    2 if bf16 else 4)
 
 
 def _out_plane(h: int, wd: int, hk: int, wk: int, stride, padding,
@@ -596,28 +694,101 @@ def plan_of(x: torch.Tensor, w: torch.Tensor,
     its kernel then runs: an :class:`Sm90Plan` (``"sm90"``), an
     :class:`Sm90Tf32Plan` (``"sm90_tf32"``), an :class:`Im2colPlan`
     (``"sm90_im2col"``, its inner plan the one of x's type) or
-    :func:`cta_plan`'s ``(bb, ty, tx, tn, krows)`` (``"fma"``).  Read
-    from types, geometry and pointers only, before launch."""
-    b, h, wd, ci = x.shape
-    hk, wk, _, co = w.shape
-    stride, padding = tuple(stride), tuple(padding)
-    dilation, lhs_dilation = tuple(dilation), tuple(lhs_dilation)
-    ho, wo = _out_plane(h, wd, hk, wk, stride, padding, dilation,
-                        lhs_dilation)
+    :func:`cta_plan`'s ``(bb, ty, tx, tn, krows)`` (``"fma"``): the
+    plan :func:`route_plan` gives :func:`route`'s route, read before
+    launch."""
     rt = route(x, w, stride, lhs_dilation, bias=bias, residual=residual,
                dilation=dilation, pool=pool, padding=padding)
-    if rt == "sm90":
-        return rt, sm90_plan(b, ho, wo, co, ci, hk, wk, dilation)
-    if rt == "sm90_tf32":
-        return rt, sm90_tf32_plan(b, ho, wo, co, ci, hk, wk, dilation,
-                                  stride)
-    if rt == "sm90_im2col":
-        cp = im2col_channels(ci, hk, wk)
-        inner = sm90_plan if x.dtype == torch.bfloat16 else sm90_tf32_plan
-        return rt, Im2colPlan(cp, im2col_taps(hk, wk, padding, dilation),
-                              inner(b, ho, wo, co, cp))
-    return rt, cta_plan(b, ho, wo, co, pool, hk, wk, stride, dilation,
-                        x.element_size())
+    return rt, route_plan(rt, operand_type(x, w, bias, residual),
+                          tuple(x.shape), tuple(w.shape), tuple(stride),
+                          tuple(padding), tuple(dilation),
+                          tuple(lhs_dilation), pool)
+
+
+def launch_facts(kernel: str, route: str, plan, shape, dtype
+                 ) -> tuple[LaunchFacts, ...]:
+    """What one call of ``kernel`` (``"conv_lb"`` or ``"conv_lb_dgrad"``)
+    on ``route`` with ``plan`` asks of the card, for
+    :func:`~repro_torch.analysis.plan_check.check_launch_plan`:
+    ``shape`` is ``(xshape, wshape, stride, padding, dilation,
+    lhs_dilation, pool)`` for a conv, ``(gyshape, wshape, stride,
+    padding, dilation, h, wd)`` for a data gradient by output phases."""
+    if kernel == "conv_lb_dgrad":
+        gy, w, *_, h, wd = shape
+        if route != "sm90_tf32":
+            raise ValueError(f"a data gradient launches on sm90_tf32, not "
+                             f"{route}")
+        return (_tf32_facts(plan, gy, w, (h, wd)),)
+    x, w, stride, padding, dilation, lhs_dilation, pool = shape
+    b, h, wd, ci = x
+    hk, wk, _, co = w
+    ho, wo = _out_plane(h, wd, hk, wk, tuple(stride), tuple(padding),
+                        tuple(dilation), tuple(lhs_dilation))
+    if route == "sm90":
+        return (_sm90_facts(plan, x, w, (ho, wo)),)
+    if route == "sm90_tf32":
+        return (_tf32_facts(plan, x, w, (ho, wo)),)
+    if route == "sm90_im2col":
+        elt = 2 if dtype == torch.bfloat16 else 4
+        inner = _sm90_facts if dtype == torch.bfloat16 else _tf32_facts
+        return (stage_facts(x, ho, wo, plan.cp, elt),
+                inner(plan.inner, (b, ho, wo, plan.cp),
+                      (1, 1, hk * wk * ci, co), (ho, wo)))
+    bb, ty, tx, tn, krows = plan
+    return (LaunchFacts(
+        source=SOURCE.stem, function="conv_lb_kernel",
+        grid=(ceil_div(b, bb) * ceil_div(ho, ty) * ceil_div(wo, tx),
+              ceil_div(co, tn), 1),
+        threads=THREADS, min_blocks=MIN_BLOCKS, ctas_per_sm=CTAS_PER_SM,
+        smem_bytes=cta_smem_bytes(bb, ty, tx, tn, hk, wk, tuple(stride),
+                                  tuple(dilation), pool, krows,
+                                  2 if dtype == torch.bfloat16 else 4)),)
+
+
+def _sm90_facts(plan: Sm90Plan, x, w, plane) -> LaunchFacts:
+    """One launch of ``csrc/conv_lb_sm90.cu``: x (B, H, W, Ci) as
+    (Ci, W, H, B) in 8-channel halo planes, w as (Co, wCi, Hk*Wk) in 64 x
+    ``cib`` slices, one CTA per ``bb x ty x tx`` pixels and ``bn``
+    output channels."""
+    b, h, wd, ci = x
+    *_, wci, co = w
+    ho, wo = plane
+    tile = _sm90_tile(vars(plan))
+    maps = (TmaMap("x", tile["boxes"][0], (2 * ci, 2 * ci * wd,
+                                           2 * ci * wd * h)),
+            TmaMap("w", tile["boxes"][1], (2 * co, 2 * co * wci)))
+    return LaunchFacts(
+        source=SM90_SOURCE.stem, function="conv_lb_sm90_kernel",
+        grid=(ceil_div(b, plan.bb) * ceil_div(ho, plan.ty)
+              * ceil_div(wo, plan.tx), ceil_div(co, plan.bn), 1),
+        threads=SM90_THREADS, smem_bytes=plan.smem_bytes, maps=maps,
+        args=tile["args"])
+
+
+def _tf32_facts(plan: Sm90Tf32Plan, x, w, plane) -> LaunchFacts:
+    """One launch of ``csrc/conv_lb_sm90_tf32.cu`` as :func:`tf32_args`
+    packs it: x (B, H, W, Ci) as (Ci, W, H, B) in halo boxes, w (Hk, Wk,
+    wd1, wd0) as (wd0, wd1, Hk*Wk) in 32 x 32 slices; a grid of the
+    largest phase's tiles x ``bn`` output channels x the phases."""
+    b, h, wd, ci = x
+    hk, wk, wd1, wd0 = w
+    if plan.phases:
+        co = wd1
+        phases = [(hq, wq) for _, _, hq, wq, *_ in plan.phases]
+    else:
+        co, phases = wd0, [plane]
+    tiles = max(ceil_div(b, plan.bb) * max(1, ceil_div(hq, plan.ty))
+                * max(1, ceil_div(wq, plan.tx)) for hq, wq in phases)
+    tile = _tf32_tile(vars(plan))
+    maps = (TmaMap("x", tile["boxes"][0], (4 * ci, 4 * ci * wd,
+                                           4 * ci * wd * h),
+                   elem=tile["elems"][0]),
+            TmaMap("w", tile["boxes"][1], (4 * wd0, 4 * wd0 * wd1)))
+    return LaunchFacts(
+        source=TF32_SOURCE.stem, function="conv_lb_sm90_tf32_kernel",
+        grid=(tiles, ceil_div(co, plan.bn), len(phases)),
+        threads=SM90_THREADS, smem_bytes=plan.smem_bytes, maps=maps,
+        args=tile["args"])
 
 
 def _check_cuda_operand(name: str, t: torch.Tensor, device,
@@ -925,22 +1096,76 @@ def _sm90_tf32(x, w, bias, residual, ho: int, wo: int, padding,
 def dgrad_route(gy: torch.Tensor, w: torch.Tensor, stride, h: int,
                 wd: int, padding, dilation=(1, 1)) -> str:
     """The route of :func:`conv_lb_dgrad`: ``"sm90_tf32"`` (by output
-    phases, one launch) for f32 gy and w with both bases 16-byte
-    aligned, a stride other than (1, 1), Ci and Co multiples of 4 and a
-    plan of :func:`sm90_tf32_dgrad_plan`; else ``"composed"``: gy
-    padded, lhs-dilated by the stride against a flipped copy of w on
-    :func:`conv_lb`'s route (the FMA kernel at a stride), then cropped.
-    Read from types, geometry and pointers only, before launch."""
-    hk, wk, ci, co = w.shape
-    stride = tuple(stride)
-    if not (gy.dtype == w.dtype == torch.float32 and stride != (1, 1)
-            and max(stride) <= TF32_MAX_STRIDE
-            and gy.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-            and ci % 4 == 0 and co % 4 == 0):
-        return "composed"
-    plan = sm90_tf32_dgrad_plan(gy.shape[0], h, wd, ci, co, hk, wk, stride,
-                                tuple(padding), tuple(dilation))
+    phases, one launch) where :func:`dgrad_plan` gives a plan; else
+    ``"composed"``: gy padded, lhs-dilated by the stride against a
+    flipped copy of w on :func:`conv_lb`'s route (the FMA kernel at a
+    stride), then cropped.  Read before launch."""
+    plan = dgrad_plan(operand_type(gy, w), tuple(gy.shape), tuple(w.shape),
+                      tuple(stride), tuple(padding), tuple(dilation), h, wd,
+                      aligned(gy, w))
     return "composed" if plan is None else "sm90_tf32"
+
+
+@lru_cache(maxsize=4096)
+def dgrad_plan(dtype: torch.dtype | None, gyshape: tuple, wshape: tuple,
+               stride, padding, dilation, h: int, wd: int,
+               aligned: bool = True) -> Sm90Tf32Plan | None:
+    """The shape-only core of :func:`dgrad_route`: the
+    :func:`sm90_tf32_dgrad_plan` of f32 gy ``gyshape`` and w ``wshape``
+    (``dtype`` their one type), both bases 16-byte ``aligned``, at a
+    stride other than (1, 1) up to ``TF32_MAX_STRIDE``, Ci and Co
+    multiples of 4; ``None`` where the dgrad is composed."""
+    hk, wk, ci, co = wshape
+    stride = tuple(stride)
+    if not (dtype == torch.float32 and stride != (1, 1)
+            and max(stride) <= TF32_MAX_STRIDE and aligned
+            and ci % 4 == 0 and co % 4 == 0):
+        return None
+    return sm90_tf32_dgrad_plan(gyshape[0], h, wd, ci, co, hk, wk, stride,
+                                tuple(padding), tuple(dilation))
+
+
+def dgrad_on_kernel(hk: int, wk: int, padding, dilation=(1, 1)) -> bool:
+    """Whether K1 runs a conv's dgrad: not for a padding past the
+    full-padding transform (the dgrad conv's padding would be
+    negative), as the reference's ``dgrad_rides_kernel``."""
+    (py, px), (dy, dx) = padding, dilation
+    return py <= (hk - 1) * dy and px <= (wk - 1) * dx
+
+
+def dgrad_launch(dtype: torch.dtype | None, gyshape: tuple, wshape: tuple,
+                 stride, padding, dilation, h: int, wd: int,
+                 aligned: bool = True):
+    """The K1 launch :func:`conv_lb_dgrad` makes, from shapes alone, as
+    ``(kernel, route, plan, shape, dtype)`` for
+    :func:`~repro_torch.analysis.plan_check.check_launch_plan`: one
+    ``conv_lb_dgrad`` launch by output phases, or the composed form's
+    ``conv_lb`` launch (gy with a zero row and column appended at a
+    stride, lhs-dilated by it against the flipped w)."""
+    stride, padding = tuple(stride), tuple(padding)
+    dilation = tuple(dilation)
+    plan = dgrad_plan(dtype, gyshape, wshape, stride, padding, dilation, h,
+                      wd, aligned)
+    if plan is not None:
+        return ("conv_lb_dgrad", "sm90_tf32", plan,
+                (gyshape, wshape, stride, padding, dilation, h, wd), dtype)
+    hk, wk, ci, co = wshape
+    b, gh, gw, _ = gyshape
+    (ey, ex), padding = _composed(stride, padding, dilation, hk, wk)
+    conv = ((b, gh + ey, gw + ex, co), (hk, wk, co, ci), (1, 1), padding,
+            dilation, stride, 1)
+    return ("conv_lb", *launch_plan(dtype, *conv, aligned), conv, dtype)
+
+
+def _composed(stride, padding, dilation, hk: int, wk: int):
+    """The composed data gradient's geometry: the zero rows and columns
+    appended to gy (one at a stride: its dilated plane otherwise ends
+    ``(h + 2p - ekh) % s`` rows short of the last input rows) and the
+    padding of its lhs-dilated conv against the flipped w (the full
+    padding)."""
+    (sy, sx), (py, px), (dy, dx) = stride, padding, dilation
+    return ((int(sy > 1), int(sx > 1)),
+            ((hk - 1) * dy - py, (wk - 1) * dx - px))
 
 
 def conv_lb_dgrad(gy: torch.Tensor, w: torch.Tensor, *, stride, padding,
@@ -971,13 +1196,12 @@ def conv_lb_dgrad(gy: torch.Tensor, w: torch.Tensor, *, stride, padding,
             conv_lb.launches += 1
             conv_lb.launches_by_route[entry.route] += 1
             return dx
-    (sy, sx), (py, px), (dy, dx_) = stride, padding, dilation
-    hk, wk = w.shape[0], w.shape[1]
-    if sy > 1 or sx > 1:
-        gy = F.pad(gy, (0, 0, 0, int(sx > 1), 0, int(sy > 1)))
-    gx = conv_lb(gy, flip_w(w), stride=(1, 1),
-                 padding=((hk - 1) * dy - py, (wk - 1) * dx_ - px),
-                 dilation=(dy, dx_), lhs_dilation=(sy, sx))
+    (ey, ex), full = _composed(tuple(stride), tuple(padding),
+                               tuple(dilation), w.shape[0], w.shape[1])
+    if ey or ex:
+        gy = F.pad(gy, (0, 0, 0, ex, 0, ey))
+    gx = conv_lb(gy, flip_w(w), stride=(1, 1), padding=full,
+                 dilation=tuple(dilation), lhs_dilation=tuple(stride))
     return gx[:, :h, :wd].contiguous()
 
 
@@ -986,12 +1210,11 @@ def _prepare_dgrad(gy, w, stride, padding, dilation, h: int,
     hk, wk, ci, co = w.shape
     _check_cuda_operand("gy", gy, gy.device, tuple(gy.shape), gy.dtype)
     _check_cuda_operand("w", w, gy.device, (hk, wk, ci, co), gy.dtype)
-    rt = dgrad_route(gy, w, stride, h, wd, padding, dilation)
-    if rt != "sm90_tf32":
-        return _Launch(rt, None, None)
-    plan = sm90_tf32_dgrad_plan(gy.shape[0], h, wd, ci, co, hk, wk, stride,
-                                padding, dilation)
-    return _Launch(rt, plan, Tf32Launch(
+    plan = dgrad_plan(operand_type(gy, w), tuple(gy.shape), (hk, wk, ci, co),
+                      stride, padding, dilation, h, wd, aligned(gy, w))
+    if plan is None:
+        return _Launch("composed", None, None)
+    return _Launch("sm90_tf32", plan, Tf32Launch(
         (gy.shape[0], h, wd, ci),
         tf32_args(gy.shape, w.shape, plan, (h, wd), (0, 0), False, 1)))
 
@@ -1028,11 +1251,10 @@ def _fma(x, w, bias, residual, ho: int, wo: int, stride, padding,
     bb, ty, tx, tn, krows = plan
     smem = cta_smem_bytes(bb, ty, tx, tn, hk, wk, (sy, sx), (dy, dx),
                           pool, krows, elt)
-    if smem > SMEM_PER_BLOCK:
+    refused = smem_rule(smem)
+    if refused is not None:
         raise ValueError(f"a {hk}x{wk} stride {stride} dilation "
-                         f"{dilation} conv needs {smem} B of shared "
-                         f"memory per CTA, more than the card's "
-                         f"{SMEM_PER_BLOCK} B")
+                         f"{dilation} conv: {refused.message}")
     lib, forward = _entry(SOURCE, "conv_lb_forward", 5, 29)
     out = torch.empty((b, ho // pool, wo // pool, co), dtype=x.dtype,
                       device=x.device)

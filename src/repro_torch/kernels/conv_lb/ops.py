@@ -41,8 +41,12 @@ from math import gcd as _gcd
 import torch
 import torch.nn.functional as F
 
-from repro_torch.analysis.plan_check import (Diagnostic, PlanLegalityError,
-                                             check_conv_plan, errors)
+from repro_torch.analysis.plan_check import (TARGET_INTERPRET, TARGET_SM90,
+                                             Diagnostic, PlanLegalityError,
+                                             check_conv_plan,
+                                             check_launch_plan, errors,
+                                             format_diagnostics,
+                                             launch_facts)
 from repro_torch.core.dataflow import Traffic
 from repro_torch.core.exec_target import KERNEL
 from repro_torch.core.hopper_adapter import (REF_PLAN_BUDGET,
@@ -52,7 +56,9 @@ from repro_torch.core.hopper_adapter import (REF_PLAN_BUDGET,
 from repro_torch.core.layer import balanced_candidates, ceil_div
 from repro_torch.core.lower_bound import (q_dram_dgrad, q_dram_practical,
                                           q_dram_wgrad)
-from repro_torch.kernels.conv_lb.kernel import conv_lb, conv_lb_dgrad
+from repro_torch.kernels.conv_lb.kernel import (conv_lb, conv_lb_dgrad,
+                                                dgrad_on_kernel,
+                                                launch_plan)
 from repro_torch.kernels.conv_lb.ref import (conv2d_ref, epilogue,
                                             lhs_dilate)
 from repro_torch.kernels.conv_lb.wgrad import WgradGeometry, wgrad_lb
@@ -70,6 +76,26 @@ def compact_halo(halo: int, ld: int, pad: int) -> int:
     if ld == 1:
         return halo
     return ceil_div(pad, ld) + max(1, ceil_div(halo - pad, ld))
+
+
+def compact_axis_dims(block: int, halo: int, stride: int, ld: int,
+                      pad: int) -> tuple[int, int, int]:
+    """Compact-plane walk geometry for one lhs-dilated axis — a copy of
+    ``repro/kernels/conv_lb/kernel.py:99-113``.
+
+    Returns ``(chalo, step, off)``: the compact rows fetched per tile,
+    the compact-row advance between neighbouring tiles, and the local
+    offset of logical dilated row 0 inside the reconstructed tile
+    (``ceil(pad/ld)*ld - pad``, the phase shift that aligns the conv
+    padding onto the zero-dilation grid).  Requires the dilated-plane
+    tile offset ``block*stride`` to divide by ``ld``."""
+    if ld == 1:
+        return halo, block * stride, 0
+    if (block * stride) % ld:
+        raise ValueError(f"block {block} * stride {stride} is not a "
+                         f"multiple of lhs_dilation {ld}")
+    off = ceil_div(pad, ld) * ld - pad      # in [0, ld)
+    return compact_halo(halo, ld, pad), (block * stride) // ld, off
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +132,41 @@ class ConvPlan:
     residual: bool = False
 
     @property
+    def grid(self) -> tuple[int, int, int, int]:
+        """(ny, nx, nco, nci) — spatial/channel grid extents (the
+        batch extent is ceil(B / blocks.b), B is not plan state)."""
+        return (self.ho_pad // self.blocks.y,
+                self.wo_pad // self.blocks.x,
+                self.co_pad // self.blocks.co,
+                self.ci_pad // self.blocks.ci)
+
+    @property
     def lhs_dilated(self) -> bool:
         return self.lhs_dilation != (1, 1)
+
+    def compact_geometry(self) -> tuple[tuple[int, int, int, int],
+                                        tuple[int, int, int, int]]:
+        """Per-axis ``(chalo, step, pad_lo, total)`` of the compact
+        plane the blocks walk when ``lhs_dilated``: rows fetched per
+        tile, compact rows advanced between tiles, leading zero-rows of
+        conv padding (``ceil(p/ld)``), and the padded compact plane
+        extent the last tile's fetch reaches.  For a plain plan this
+        degenerates to the dilated-coordinate walk ``(halo,
+        block*stride, p, hp_pad)`` (``repro/kernels/conv_lb/ops.py:
+        150-176``)."""
+        out = []
+        for blk, s, halo, ld, p, n, full in (
+                (self.blocks.y, self.stride[0], self.blocks.halo_y,
+                 self.lhs_dilation[0], self.py,
+                 self.ho_pad // self.blocks.y, self.hp_pad),
+                (self.blocks.x, self.stride[1], self.blocks.halo_x,
+                 self.lhs_dilation[1], self.px,
+                 self.wo_pad // self.blocks.x, self.wp_pad)):
+            chalo, step, _off = compact_axis_dims(blk, halo, s, ld, p)
+            pc = ceil_div(p, ld)
+            total = ((n - 1) * step + chalo) if ld > 1 else full
+            out.append((chalo, step, pc if ld > 1 else p, total))
+        return tuple(out)
 
     def traffic(self, batch: int) -> Traffic:
         """Words this plan moves for one group at ``batch`` images."""
@@ -133,6 +192,81 @@ class ConvPlan:
         if self.residual:
             q += float(layer.n_outputs)
         return q
+
+    def training_traffic(self, batch: int, *, dtype_bytes: int = 4,
+                         vmem_budget: int | None = None,
+                         autotune: bool = True) -> "TrainingTraffic":
+        """Words one *training step* moves through this layer: forward
+        + dgrad + wgrad, each accounted off its own planned dataflow
+        (the backward plans derived from this forward handle by
+        :func:`plan_conv_training`)."""
+        return plan_conv_training(
+            self, batch=batch, dtype_bytes=dtype_bytes,
+            vmem_budget=vmem_budget, autotune=autotune).traffic(batch)
+
+    def launch(self, batch: int, dtype: torch.dtype):
+        """``(route, plan, shape)`` of K1's launch of this conv at
+        ``batch`` in ``dtype`` (:func:`~repro_torch.kernels.conv_lb.
+        kernel.launch_plan`, operands aligned), ``shape`` as
+        :func:`~repro_torch.analysis.plan_check.check_launch_plan`
+        reads it."""
+        conv = ((batch, self.h, self.w, self.ci),
+                (self.hk, self.wk, self.ci, self.co), tuple(self.stride),
+                (self.py, self.px), tuple(self.dilation),
+                tuple(self.lhs_dilation), self.pool)
+        return (*launch_plan(dtype, *conv), conv)
+
+    def explain(self, *, batch: int = 1, dtype_bytes: int = 4,
+                vmem_budget: int | None = None,
+                target: str | None = None,
+                dtype: torch.dtype | None = None) -> str:
+        """Human-readable account of this plan: block geometry, grid,
+        working set against the budget (``REF_PLAN_BUDGET``, the
+        reference's ``VMEM_BYTES // 2``), per-operand traffic split, and
+        every :class:`~repro_torch.analysis.plan_check.Diagnostic` the
+        verifier raises against it (``repro/kernels/conv_lb/ops.py:
+        220-258``).  Under ``target="sm90"`` a line more names K1's
+        launch at ``batch`` in ``dtype`` (default f32): its route, tile,
+        and each launch's shared memory and grid; the verifier line
+        then holds the ``sm90`` rules' findings too."""
+        target = TARGET_INTERPRET if target is None else target
+        budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
+        blk = self.blocks
+        pinned = blk.ci >= self.ci_pad and blk.co >= self.co_pad
+        need = blk.vmem_bytes(self.hk, self.wk, dtype_bytes,
+                              w_pinned=pinned, residual=self.residual)
+        t = self.traffic(batch)
+        ny, nx, nco, nci = self.grid
+        diags = check_conv_plan(self, batch=batch, dtype_bytes=dtype_bytes,
+                                vmem_budget=vmem_budget)
+        lines = [
+            f"conv plan {self.ci}->{self.co} k{self.hk}x{self.wk} "
+            f"s{self.stride} d{self.dilation} on {self.h}x{self.w} "
+            f"(out {self.ho}x{self.wo}, pool {self.pool}"
+            f"{', residual join' if self.residual else ''})",
+            f"  blocks: b={blk.b} y={blk.y} x={blk.x} ci={blk.ci} "
+            f"co={blk.co} halo={blk.halo_y}x{blk.halo_x}"
+            f"{' [weights pinned]' if pinned else ''}",
+            f"  grid:   ny={ny} nx={nx} nco={nco} nci={nci} "
+            f"(x ceil(B/{blk.b}) batch blocks)",
+            f"  vmem:   {need} B of {budget} B "
+            f"({100.0 * need / max(1, budget):.0f}%)",
+            f"  traffic @B={batch}: in={t.reads_in:.4g} "
+            f"w={t.reads_w:.4g} out={t.writes_out:.4g} "
+            f"(total {t.total:.4g} words)"]
+        if target == TARGET_SM90:
+            dtype = torch.float32 if dtype is None else dtype
+            rt, plan, conv = self.launch(batch, dtype)
+            tile = plan if isinstance(plan, tuple) else plan.tile
+            facts = launch_facts("conv_lb", rt, plan, conv, dtype)
+            lines.append(
+                f"  launch @B={batch} {str(dtype).removeprefix('torch.')}: "
+                f"{rt} tile {tile}; " + "; ".join(
+                    f"{f.source} smem {f.smem_bytes} B grid {f.grid}"
+                    for f in facts))
+            diags += check_launch_plan("conv_lb", rt, plan, conv, dtype)
+        lines.append(f"  verifier [{target}]: {format_diagnostics(diags)}")
+        return "\n".join(lines)
 
 
 def _blocks_traffic(batch: int, blk: ConvBlockShape, hk: int, wk: int,
@@ -548,7 +682,6 @@ class WgradPlan:
                 + self.strip * self.wo * self.co_b)
 
 
-@lru_cache(maxsize=1024)
 def plan_conv_wgrad(plan: ConvPlan, *, dtype_bytes: int = 4,
                     vmem_budget: int | None = None,
                     autotune: bool = True) -> WgradPlan:
@@ -556,31 +689,42 @@ def plan_conv_wgrad(plan: ConvPlan, *, dtype_bytes: int = 4,
     forward handle: minimize the re-read volume
     ``n_co_blocks*|x| + n_ci_blocks*|dy|`` under the budget (resident
     f32 dW block + double-buffered x/dy strips).  LRU-cached on the
-    (hashable) forward handle, like ``plan_conv``."""
+    forward geometry it reads, which leaves out the forward's blocks: the
+    handles of every arrival batch share one search."""
+    return _plan_conv_wgrad(plan.hk, plan.wk, plan.ci, plan.co, plan.h,
+                            plan.w, plan.ho, plan.wo, plan.py, plan.px,
+                            tuple(plan.stride), tuple(plan.dilation),
+                            dtype_bytes, vmem_budget, autotune)
+
+
+@lru_cache(maxsize=1024)
+def _plan_conv_wgrad(hk: int, wk: int, ci: int, co: int, h: int, w: int,
+                     ho: int, wo: int, py: int, px: int,
+                     stride: tuple[int, int], dilation: tuple[int, int],
+                     dtype_bytes: int, vmem_budget: int | None,
+                     autotune: bool) -> WgradPlan:
     budget = REF_PLAN_BUDGET if vmem_budget is None else vmem_budget
     db = dtype_bytes
-    sy, sx = plan.stride
-    ekh = (plan.hk - 1) * plan.dilation[0] + 1
-    ekw = (plan.wk - 1) * plan.dilation[1] + 1
-    wp = plan.w + 2 * plan.px
+    sy, sx = stride
+    ekh = (hk - 1) * dilation[0] + 1
+    ekw = (wk - 1) * dilation[1] + 1
+    wp = w + 2 * px
 
     def mk(cib, cob, s):
-        return WgradPlan(hk=plan.hk, wk=plan.wk, ci=plan.ci, co=plan.co,
-                         ho=plan.ho, wo=plan.wo, wp=wp, ekh=ekh, sy=sy,
-                         ci_b=cib, co_b=cob, strip=s,
-                         sx=sx, ekw=ekw,
-                         dly=plan.dilation[0], dlx=plan.dilation[1],
-                         py=plan.py, px=plan.px, h=plan.h)
+        return WgradPlan(hk=hk, wk=wk, ci=ci, co=co, ho=ho, wo=wo, wp=wp,
+                         ekh=ekh, sy=sy, ci_b=cib, co_b=cob, strip=s,
+                         sx=sx, ekw=ekw, dly=dilation[0], dlx=dilation[1],
+                         py=py, px=px, h=h)
 
     def vmem_bytes(cib, cob, s):
         xrows = (s - 1) * sy + ekh
-        return (4 * plan.hk * plan.wk * cib * cob     # f32 dW psums
+        return (4 * hk * wk * cib * cob               # f32 dW psums
                 + 2 * db * xrows * wp * cib           # double-buffered
-                + 2 * db * s * plan.wo * cob)         # streamed strips
+                + 2 * db * s * wo * cob)              # streamed strips
 
-    ci_cands = balanced_candidates(plan.ci)
-    co_cands = balanced_candidates(plan.co)
-    s_cands = balanced_candidates(plan.ho) if autotune else [1]
+    ci_cands = balanced_candidates(ci)
+    co_cands = balanced_candidates(co)
+    s_cands = balanced_candidates(ho) if autotune else [1]
     best = mk(1, 1, 1)      # minimal block: always the fallback
     best_cost = None
     for cib in ci_cands:
@@ -811,12 +955,9 @@ def reset_fallback_counts() -> None:
 
 
 def _dgrad_on_kernel(a: ConvArgs, hk: int, wk: int) -> bool:
-    """Whether K1 runs this conv's dgrad: not for a padding past the
-    full-padding transform (the dgrad conv's padding would be
-    negative), as the reference's ``dgrad_rides_kernel``."""
-    ekh = (hk - 1) * a.dilation[0] + 1
-    ekw = (wk - 1) * a.dilation[1] + 1
-    return a.padding[0] <= ekh - 1 and a.padding[1] <= ekw - 1
+    """Whether K1 runs this conv's dgrad
+    (:func:`~repro_torch.kernels.conv_lb.kernel.dgrad_on_kernel`)."""
+    return dgrad_on_kernel(hk, wk, a.padding, a.dilation)
 
 
 def _no_tf32():

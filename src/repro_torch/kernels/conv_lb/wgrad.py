@@ -49,7 +49,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,
+from repro_torch.analysis.plan_check import (LaunchFacts, TmaMap,
+                                             tile_fits)
+from repro_torch.core.hopper_adapter import (GRID_YZ_MAX, HBM_BYTES_PER_S,
                                              PEAK_BF16_FLOPS,
                                              PEAK_F32_FLOPS,
                                              PEAK_TF32_FLOPS, SM_COUNT,
@@ -58,13 +60,15 @@ from repro_torch.core.layer import ceil_div
 from repro_torch.kernels.conv_lb.im2col import (Im2colPlan, _c_ints,
                                                 im2col_channels,
                                                 im2col_taps, stage,
-                                                stage_fits)
+                                                stage_facts, stage_fits)
 from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, DTYPES,
+                                                MIN_BLOCKS, SM90_THREADS,
                                                 TF32_MAX_PARTS,
-                                                TF32_MAX_STRIDE,
+                                                TF32_MAX_STRIDE, THREADS,
                                                 _aligned,
                                                 _check_cuda_operand,
-                                                _launched, tf32_parts)
+                                                _launched, aligned,
+                                                operand_type, tf32_parts)
 from repro_torch.kernels.conv_lb.ref import _pair, wgrad_ref
 from repro_torch.kernels.lean import LaunchCache, on_device, operand_key
 from repro_torch.kernels.nvcc import _entry, _entry_struct
@@ -79,7 +83,7 @@ TILE_M = 128        # dW rows (ky, kx, ci) per CTA
 CHUNK = 16          # reduction pixels staged per step
 MAX_SPLITS = 1024
 #: the tensor-core kernels' grid runs one z index a split range
-GRID_Z_MAX = 65535
+GRID_Z_MAX = GRID_YZ_MAX
 ROUTES = ("sm90", "sm90_tf32", "sm90_im2col", "fma")
 
 #: the sm90 kernel's fixed shape (must match csrc/wgrad_lb_sm90.cu): a K
@@ -93,7 +97,6 @@ SM90_TILES = ((256, 1), (128, 1), (128, 2), (64, 1), (64, 3))  # (bn, nwc)
 SM90_CIBS = (64, 128)          # channels of one halo (one Ci block)
 SM90_MAX_STAGES = 8            # ring stages: a dy tile and a halo each
 SM90_MAX_WIN = 128             # windows whose offsets a launch carries
-SM90_BOX_MAX = 256             # a TMA box's extent in any dimension
 #: pixel blocks a split range may hold (16,384 pixels, 1,024 k16
 #: steps): a bound on the f32 sums the tensor cores carry in registers
 SM90_MAX_RANGE = 256
@@ -240,10 +243,19 @@ def sm90_wgrad_layout(bn: int, nwc: int, cib: int, hk: int, wk: int,
                 smem_bytes=1024 + stages * (stage + 16))
 
 
+def _sm90_tile(lay: dict) -> dict:
+    """The sm90 wgrad kernel's TMA boxes (a 64-channel halo box, a 64
+    channel x 8 x 8 dy box), ring and argument arrays at one layout
+    (:func:`sm90_wgrad_layout`'s dict, or a :class:`Sm90WgradPlan`'s
+    ``vars``)."""
+    return dict(boxes=((64, lay["hx"], lay["hy"], 1),
+                       (64, SM90_BLOCK, SM90_BLOCK, 1)),
+                stages=lay["stages"],
+                args=(("windows", len(lay["win_off"]), SM90_MAX_WIN),))
+
+
 def _sm90_fits(lay: dict) -> bool:
-    return (lay["stages"] >= 2 and lay["smem_bytes"] <= SMEM_PER_BLOCK
-            and len(lay["win_off"]) <= SM90_MAX_WIN
-            and max(lay["hy"], lay["hx"]) <= SM90_BOX_MAX)
+    return tile_fits(lay["smem_bytes"], **_sm90_tile(lay))
 
 
 @lru_cache(maxsize=4096)
@@ -411,13 +423,22 @@ def sm90_tf32_wgrad_layout(bn: int, nwc: int, cib: int, ci: int, hk: int,
                 stride=(sy, sx))
 
 
+def _tf32_tile(lay: dict) -> dict:
+    """The 3xTF32 wgrad kernel's TMA boxes (a 32-channel halo box, its
+    extent ``hy * es`` by ``hx * es`` traversed at ``es``; a 32-channel
+    x 8 x 8 dy box), ring and argument arrays at one layout
+    (:func:`sm90_tf32_wgrad_layout`'s dict, or an :class:`Sm90Tf32Plan`'s
+    ``vars``)."""
+    esy, esx = lay["es"]
+    return dict(boxes=((TF32_BOX, lay["hx"] * esx, lay["hy"] * esy, 1),
+                       (TF32_BOX, SM90_BLOCK, SM90_BLOCK, 1)),
+                elems=((1, esx, esy, 1), ()), stages=lay["stages"],
+                args=(("windows", len(lay["win_off"]), SM90_MAX_WIN),
+                      ("halo boxes", len(lay["parts"]), TF32_MAX_PARTS)))
+
+
 def _tf32_fits(lay: dict) -> bool:
-    return (lay["stages"] >= 2 and lay["smem_bytes"] <= SMEM_PER_BLOCK
-            and len(lay["win_off"]) <= SM90_MAX_WIN
-            and len(lay["parts"]) <= TF32_MAX_PARTS
-            and max(lay["es"]) <= TF32_MAX_STRIDE
-            and max(lay["hy"] * lay["es"][0], lay["hx"] * lay["es"][1])
-            <= SM90_BOX_MAX)
+    return tile_fits(lay["smem_bytes"], **_tf32_tile(lay))
 
 
 @lru_cache(maxsize=4096)
@@ -532,16 +553,20 @@ def plan_of(x: torch.Tensor, dy: torch.Tensor, geom
     :class:`Sm90WgradPlan` (``"sm90"``), a :class:`Sm90Tf32Plan`
     (``"sm90_tf32"``), an :class:`Im2colPlan` (``"sm90_im2col"``) or
     :func:`wgrad_split`'s ``(tn, splits, chunks_per_split)``
-    (``"fma"``).  Read from types, geometry and pointers only, before
-    launch."""
-    return _plan_of(x.dtype, dy.dtype, tuple(x.shape), dy.shape[-1],
-                    WgradGeometry.of(geom),
-                    x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    (``"fma"``): :func:`launch_plan` of their types, shapes and
+    alignment, read before launch."""
+    return launch_plan(operand_type(x, dy), tuple(x.shape), dy.shape[-1],
+                       WgradGeometry.of(geom), aligned(x, dy))
 
 
 @lru_cache(maxsize=4096)
-def _plan_of(dt: torch.dtype, dy_dt: torch.dtype, xshape: tuple, co: int,
-             g: WgradGeometry, aligned: bool):
+def launch_plan(dtype: torch.dtype | None, xshape: tuple, co: int,
+                g: WgradGeometry, aligned: bool = True):
+    """The shape-only core of :func:`route` and :func:`plan_of`: the
+    route and plan of the weight gradient of x ``xshape`` against a dy
+    of ``co`` channels in geometry ``g``, x and dy of type ``dtype``
+    (``None``: of two types), both bases 16-byte ``aligned``."""
+    dt = dtype
     b, _, _, ci = xshape
     ho, wo = _out_plane(xshape, g)
     plan = None
@@ -549,7 +574,7 @@ def _plan_of(dt: torch.dtype, dy_dt: torch.dtype, xshape: tuple, co: int,
     stride = _pair(g.stride)
     f32_strided = (dt == torch.float32 and stride != (1, 1)
                    and max(stride) <= TF32_MAX_STRIDE)
-    if (dt == dy_dt and dt in (torch.bfloat16, torch.float32)
+    if (dt in (torch.bfloat16, torch.float32)
             and (stride == (1, 1) or f32_strided) and aligned
             and co % pitch == 0):
         dil = _pair(g.dilation)
@@ -570,6 +595,99 @@ def _plan_of(dt: torch.dtype, dy_dt: torch.dtype, xshape: tuple, co: int,
     if plan is not None:
         return rt, plan
     return "fma", wgrad_split(g.hk * g.wk * ci, co, b * ho * wo)
+
+
+def launch_facts(kernel: str, route: str, plan, shape, dtype
+                 ) -> tuple[LaunchFacts, ...]:
+    """What one call of ``wgrad_lb`` on ``route`` with ``plan`` asks of
+    the card, for :func:`~repro_torch.analysis.plan_check.check_launch_plan`:
+    ``shape`` is ``(xshape, dyshape, geom)``; a split reduction adds
+    its second pass."""
+    if kernel != "wgrad_lb":
+        raise ValueError(f"{kernel!r} is not this module's kernel")
+    x, dy, geom = shape
+    g = WgradGeometry.of(geom)
+    b, h, wd, ci = x
+    co = dy[-1]
+    ho, wo = _out_plane(x, g)
+    dw = g.hk * g.wk * ci * co
+    if route == "sm90":
+        return _sm90_facts(plan, x, (b, ho, wo, co), dw)
+    if route == "sm90_tf32":
+        return _tf32_facts(plan, x, (b, ho, wo, co), dw)
+    if route == "sm90_im2col":
+        elt = 2 if dtype == torch.bfloat16 else 4
+        inner = _sm90_facts if dtype == torch.bfloat16 else _tf32_facts
+        return (stage_facts(x, ho, wo, plan.cp, elt),
+                *inner(plan.inner, (b, ho, wo, plan.cp), (b, ho, wo, co),
+                       plan.cp * co))
+    tn, splits, _ = plan
+    return (LaunchFacts(
+        source=SOURCE.stem, function="wgrad_lb_kernel",
+        grid=(ceil_div(g.hk * g.wk * ci, TILE_M), ceil_div(co, tn), splits),
+        threads=THREADS, min_blocks=MIN_BLOCKS, ctas_per_sm=CTAS_PER_SM,
+        smem_bytes=0),) + _reduce_facts(SOURCE.stem, "wgrad_reduce_kernel",
+                                        splits, dw, 1, 256, 4096)
+
+
+def _reduce_facts(source: str, function: str, splits: int, n: int,
+                  vec: int, threads: int, most: int) -> tuple:
+    """A split reduction's second pass over ``n`` dW words, ``vec`` a
+    thread, at most ``most`` blocks of ``threads``; none unsplit."""
+    if splits == 1:
+        return ()
+    return (LaunchFacts(
+        source=source, function=function,
+        grid=(min(ceil_div(n // vec, threads), most), 1, 1),
+        threads=threads, smem_bytes=0),)
+
+
+def _grid(plan, co: int) -> tuple[int, int, int]:
+    """The tensor-core kernels' grid: the CTAs of a range over Co's
+    blocks, Co's blocks, the ranges."""
+    nco = ceil_div(co, plan.bn)
+    return plan.tiles // nco, nco, plan.splits
+
+
+def _sm90_facts(plan: Sm90WgradPlan, x, dy, dw: int) -> tuple:
+    """One launch of ``csrc/wgrad_lb_sm90.cu``: x and dy as (C, W, H, B)
+    maps in 64-channel boxes; then a split's second pass over the ``dw``
+    words."""
+    _, h, wd, ci = x
+    _, ho, wo, co = dy
+    tile = _sm90_tile(vars(plan))
+    maps = (TmaMap("x", tile["boxes"][0], (2 * ci, 2 * ci * wd,
+                                           2 * ci * wd * h)),
+            TmaMap("dy", tile["boxes"][1], (2 * co, 2 * co * wo,
+                                            2 * co * wo * ho)))
+    return (LaunchFacts(source=SM90_SOURCE.stem,
+                        function="wgrad_lb_sm90_kernel",
+                        grid=_grid(plan, co), threads=SM90_THREADS,
+                        smem_bytes=plan.smem_bytes, maps=maps,
+                        args=tile["args"], stages=tile["stages"]),
+            *_reduce_facts(SM90_SOURCE.stem, "wgrad_sm90_reduce_kernel",
+                           plan.splits, dw, 4, 256, 2048))
+
+
+def _tf32_facts(plan: Sm90Tf32Plan, x, dy, dw: int) -> tuple:
+    """One launch of ``csrc/wgrad_lb_sm90_tf32.cu``: x and dy as (C, W,
+    H, B) maps in 32-channel boxes, x's traversed at the stride; then a
+    split's second pass over the ``dw`` words."""
+    _, h, wd, ci = x
+    _, ho, wo, co = dy
+    tile = _tf32_tile(vars(plan))
+    maps = (TmaMap("x", tile["boxes"][0], (4 * ci, 4 * ci * wd,
+                                           4 * ci * wd * h),
+                   elem=tile["elems"][0]),
+            TmaMap("dy", tile["boxes"][1], (4 * co, 4 * co * wo,
+                                            4 * co * wo * ho)))
+    return (LaunchFacts(source=TF32_SOURCE.stem,
+                        function="wgrad_lb_sm90_tf32_kernel",
+                        grid=_grid(plan, co), threads=SM90_THREADS,
+                        smem_bytes=plan.smem_bytes, maps=maps,
+                        args=tile["args"], stages=tile["stages"]),
+            *_reduce_facts(TF32_SOURCE.stem, "wgrad_tf32_reduce_kernel",
+                           plan.splits, dw, 4, 128, 4096))
 
 
 def wgrad_lb(x: torch.Tensor, dy: torch.Tensor, geom) -> torch.Tensor:

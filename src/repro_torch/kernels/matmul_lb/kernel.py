@@ -33,9 +33,12 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.analysis.plan_check import LaunchFacts, TmaMap
 from repro_torch.core.hopper_adapter import SM_COUNT
 from repro_torch.core.layer import ceil_div
-from repro_torch.kernels.conv_lb.kernel import CTAS_PER_SM, _aligned
+from repro_torch.kernels.conv_lb.kernel import (CTAS_PER_SM, MIN_BLOCKS,
+                                                SM90_THREADS, THREADS,
+                                                _aligned)
 from repro_torch.kernels.matmul_lb.ref import matmul_ref
 from repro_torch.kernels.nvcc import build
 
@@ -48,8 +51,11 @@ TF32_SOURCE = (Path(__file__).resolve().parent / "csrc"
 TILE_M = 128        # output rows per CTA
 #: input types the kernel takes, by the code its C interface uses
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the sm90 kernel's column tiles (must match csrc/matmul_lb_sm90.cu)
+#: the sm90 kernel's column tiles and ring (must match
+#: csrc/matmul_lb_sm90.cu): 64 of K a stage
 SM90_TILES = (128, 256)
+SM90_BK = 64
+SM90_STAGES = 4
 #: the 3xTF32 kernel's shape (must match csrc/matmul_lb_sm90_tf32.cu):
 #: 128-row CTAs of two consumer warpgroups, 64 or 128 columns (two f32
 #: accumulators a thread, BN / 2 words each), 32 of K a stage
@@ -108,6 +114,68 @@ def tf32_tile(m: int, n: int) -> int:
     """The 3xTF32 kernel's column tile ``BN`` (64 or 128) for an ``m`` x
     ``n`` output."""
     return _one_per_sm_tile(m, n, TF32_TILES)
+
+
+def sm90_smem_bytes(bn: int) -> int:
+    """The sm90 kernel's dynamic shared memory at column tile ``bn``
+    (``Smem<BN>::kBytes``): 1024 bytes to align the ring, the ring's A
+    and B tiles, a full and an empty mbarrier a stage."""
+    return (1024 + SM90_STAGES * (TILE_M + bn) * SM90_BK * 2
+            + 2 * SM90_STAGES * 8)
+
+
+def tf32_smem_bytes(bn: int) -> int:
+    """The 3xTF32 kernel's dynamic shared memory at column tile ``bn``
+    (``Smem<BN>::kBytes``): 1024 bytes of alignment, the TMA ring's A
+    and w tiles, the hi/lo B ring, a full and an empty mbarrier a stage
+    of each ring."""
+    return (1024 + TF32_STAGES * (TILE_M + bn) * TF32_BK * 4
+            + TF32_BSTAGES * 2 * bn * TF32_BK * 4
+            + 8 * 2 * (TF32_STAGES + TF32_BSTAGES))
+
+
+def tile_of(rt: str, m: int, n: int) -> int:
+    """The column tile route ``rt``'s kernel runs an ``m`` x ``n``
+    output at: :func:`sm90_tile` (``"sm90"``), :func:`tf32_tile`
+    (``"sm90_tf32"``) or :func:`cta_tile` (``"fma"``)."""
+    return {"sm90": sm90_tile, "sm90_tf32": tf32_tile,
+            "fma": cta_tile}[rt](m, n)
+
+
+def plan_of(x: torch.Tensor, w: torch.Tensor) -> tuple[str, int]:
+    """The route :func:`matmul_lb` takes and its kernel's column tile
+    (:func:`tile_of`)."""
+    rt = route(x, w)
+    return rt, tile_of(rt, x.shape[0], w.shape[1])
+
+
+def launch_facts(kernel: str, route: str, plan: int, shape, dtype
+                 ) -> tuple[LaunchFacts, ...]:
+    """What one launch of route ``route`` at column tile ``plan`` asks of
+    the card, for :func:`~repro_torch.analysis.plan_check.check_launch_plan`:
+    ``shape`` is ``(m, n, k, w_kmajor)``, or with the row pitches
+    ``(m, n, k, w_kmajor, lda, ldb)`` in words (default dense)."""
+    if kernel != "matmul_lb":
+        raise ValueError(f"{kernel!r} is not this module's kernel")
+    m, n, k, kmajor, *pitches = shape
+    lda, ldb = pitches or (k, k if kmajor else n)
+    bn = plan
+    if route == "fma":
+        return (LaunchFacts(source=SOURCE.stem, function="matmul_lb_kernel",
+                            grid=(ceil_div(n, bn), ceil_div(m, TILE_M), 1),
+                            threads=THREADS, min_blocks=MIN_BLOCKS,
+                            ctas_per_sm=CTAS_PER_SM, smem_bytes=0),)
+    tf32 = route == "sm90_tf32"
+    elt, bk = (4, TF32_BK) if tf32 else (2, SM90_BK)
+    b_box = (bk, bn) if kmajor else (128 // elt, bk)
+    source = (TF32_SOURCE if tf32 else SM90_SOURCE).stem
+    return (LaunchFacts(
+        source=source, function=f"{source}_kernel",
+        grid=(ceil_div(n, bn) * ceil_div(m, TILE_M), 1, 1),
+        threads=SM90_THREADS,
+        smem_bytes=tf32_smem_bytes(bn) if tf32 else sm90_smem_bytes(bn),
+        maps=(TmaMap("x", (bk, TILE_M), (lda * elt,)),
+              TmaMap("w", b_box, (ldb * elt,)))),)
 
 
 def _pitched(t: torch.Tensor, dim: int) -> bool:

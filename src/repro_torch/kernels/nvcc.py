@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -76,6 +77,61 @@ def _nvcc() -> str:
                            "their csrc/*.cu sources at first use and "
                            "need the CUDA toolkit")
     return found
+
+
+def cuobjdump() -> str:
+    """The ``cuobjdump`` of the toolkit whose ``nvcc`` builds the
+    kernels; raises where that toolkit has none."""
+    found = os.path.join(os.path.dirname(os.path.realpath(_nvcc())),
+                         "cuobjdump")
+    if not os.path.exists(found):
+        raise RuntimeError(f"cuobjdump not found beside nvcc ({found})")
+    return found
+
+
+def parse_resource_usage(text: str) -> dict[str, dict[str, int]]:
+    """``cuobjdump --dump-resource-usage``'s report as ``{function:
+    {"REG": n, "STACK": n, "SHARED": n, "LOCAL": n, ...}}``."""
+    usage: dict[str, dict[str, int]] = {}
+    name = None
+    for line in text.splitlines():
+        head = re.match(r"\s*Function (\S+?):?\s*$", line)
+        if head:
+            name = head.group(1)
+        elif name is not None and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in
+                           re.findall(r"(\w+(?:\[\d+\])?):(\d+)", line)}
+            name = None
+    return usage
+
+
+def parse_ptxas_spills(log: str) -> dict[str, dict[str, int]]:
+    """``ptxas -v``'s function properties in a build log as ``{function:
+    {"stack": bytes, "spill_stores": bytes, "spill_loads": bytes}}``."""
+    spills: dict[str, dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        head = re.search(r"Function properties for (\S+)", line)
+        if head:
+            name = head.group(1)
+            continue
+        props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if name is not None and props:
+            spills[name] = dict(zip(("stack", "spill_stores",
+                                     "spill_loads"),
+                                    map(int, props.groups())))
+            name = None
+    return spills
+
+
+def resource_usage(lib: Library) -> dict[str, dict[str, int]]:
+    """Each kernel's registers, shared memory (static) and local memory
+    (spills) in a built library, read by :func:`cuobjdump`."""
+    proc = subprocess.run([cuobjdump(), "--dump-resource-usage",
+                           str(lib.path)], capture_output=True, text=True,
+                          check=True)
+    return parse_resource_usage(proc.stdout)
 
 
 def build_many(sources) -> list[Library]:

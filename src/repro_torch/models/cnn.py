@@ -7,20 +7,27 @@ stacks are both :class:`~repro_torch.models.graph.ConvGraph` s; the
 ResNet is the one that carries stride-2 downsampling, 1x1 projection
 shortcuts and residual joins.  Init is He (Kaiming) with the sqrt(2)
 ReLU gain, drawn from a ``torch.Generator``.  The training loss
-(:func:`graph_loss` / :func:`vgg_loss`) and the VGG training-step
-report are the reference's.
+(:func:`graph_loss` / :func:`vgg_loss`), the VGG training-step report
+and the VGG helpers (:class:`ConvStage`, :func:`vgg_conv_geometry`,
+:func:`vgg_conv_layers_for`, :func:`vgg_plan_handles`,
+:func:`vgg_forward`, and :func:`resnet_forward`;
+``repro/models/cnn.py:82-137, 148, 228``) are the reference's, thin
+wrappers over the graph walk.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.core.exec_target import resolve_device
+from repro_torch.core.layer import ConvLayer
 from repro_torch.core.vgg import _CFG
 from repro_torch.kernels.conv_lb.ops import conv2d_lb
 from repro_torch.models.graph import (ConvGraph, ConvNode, graph_logits,
+                                      graph_plan_handles, graph_stages,
                                       graph_training_step_report,
                                       init_graph)
 
@@ -62,6 +69,83 @@ def vgg_graph(params, name: str = "vgg") -> ConvGraph:
         nodes.append(ConvNode(name=cfg_name, ci=ci, co=co,
                               pool=2 if cfg_name in _POOL_AFTER else 1))
     return ConvGraph(name=name, nodes=tuple(nodes))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvStage:
+    """One conv layer of the stack as the forward pass will execute it
+    for a given input-plane geometry (the VGG view of
+    :class:`~repro_torch.models.graph.GraphStage`)."""
+
+    name: str
+    ci: int
+    co: int
+    h: int             # input plane entering this layer
+    w: int
+    pool: bool         # a 2x2 maxpool follows this layer
+    fused_pool: bool   # ... and the kernel path fuses it in-epilogue
+
+
+def vgg_conv_geometry(params, h: int, w: int, in_ch: int = 3, *,
+                      strict: bool = False) -> list[ConvStage]:
+    """Walk the conv stack for an (h, w, in_ch) image: a thin wrapper
+    over :func:`~repro_torch.models.graph.graph_stages`.
+    ``strict=False`` truncates the stack at the first channel mismatch
+    (the reduced-width path); ``strict=True`` raises there."""
+    return [ConvStage(name=st.node.name, ci=st.node.ci, co=st.node.co,
+                      h=st.h, w=st.w, pool=st.pool > 1,
+                      fused_pool=st.fused_pool)
+            for st in graph_stages(vgg_graph(params), h, w, in_ch,
+                                   strict=strict)]
+
+
+def vgg_conv_layers_for(params, h: int, w: int, *, batch: int,
+                        in_ch: int = 3) -> list[ConvLayer]:
+    """The stack as :class:`~repro_torch.core.layer.ConvLayer`
+    workloads at an arrival batch — the analytic side of the serve
+    ledger."""
+    return [ConvLayer(name=g.name, batch=batch, ci=g.ci, co=g.co,
+                      hi=g.h, wi=g.w, hk=3, wk=3, stride=1, pad=1)
+            for g in vgg_conv_geometry(params, h, w, in_ch)]
+
+
+def vgg_plan_handles(params, h: int, w: int, *, batch: int,
+                     in_ch: int = 3, dtype_bytes: int = 4,
+                     vmem_budget: int | None = None,
+                     training: bool = False):
+    """Exported plan handles: [(ConvLayer, ConvPlan)] per conv stage at
+    this arrival batch —
+    :func:`~repro_torch.models.graph.graph_plan_handles` over the VGG
+    graph, its walk truncated at a channel mismatch."""
+    return graph_plan_handles(vgg_graph(params), h, w, batch=batch,
+                              in_ch=in_ch, dtype_bytes=dtype_bytes,
+                              vmem_budget=vmem_budget, training=training,
+                              strict=False)
+
+
+def vgg_forward(params, images: torch.Tensor) -> torch.Tensor:
+    """images (B, H, W, 3) -> logits (B, n_classes):
+    :func:`~repro_torch.models.graph.graph_logits` over the VGG graph,
+    its walk truncated at a channel mismatch.  Every conv runs K1 with
+    its epilogue fused on CUDA images, its plain version on CPU ones."""
+    graph = vgg_graph(params)
+    stages = graph_stages(graph, images.shape[1], images.shape[2],
+                          images.shape[3], strict=False)
+    if len(stages) < len(graph.nodes):
+        graph = ConvGraph(name=graph.name,
+                          nodes=graph.nodes[:len(stages)])
+        params = {"convs": params["convs"][:len(stages)],
+                  "head": params["head"]}
+    return graph_logits(graph, params, images)
+
+
+def resnet_forward(graph: ConvGraph, params,
+                   images: torch.Tensor) -> torch.Tensor:
+    """images (B, H, W, in_ch) -> logits:
+    :func:`~repro_torch.models.graph.graph_logits` over a ResNet graph
+    (residual joins fused), on K1 for CUDA images, the plain version
+    for CPU ones."""
+    return graph_logits(graph, params, images)
 
 
 def vgg_training_step_report(params, h: int, w: int, *, batch: int,
