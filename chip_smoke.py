@@ -36,7 +36,8 @@
     ``sm90_tf32`` where TMA describes the operands; K4 on every
     route that takes each case (f32 ``sm90_tf32`` and ``fma``, bf16
     ``sm90`` and ``fma``), also at head dims 20, 80, 96, 256, 320
-    and 512 and two long cases) and a fully masked row case, against
+    and 512, two long cases and the LM path's decode shapes: one query
+    row against 1, 37 and 128 keys) and a fully masked row case, against
     their plain versions (``CARD_TOL``; deliberately wrong results, a
     dropped key tile and a bf16 output accumulator among them, are
     shown to fail the same gate), one launch per call;
@@ -89,6 +90,21 @@
     and gated on the f32 inputs through ``via="fma"``), f32 and bf16,
     held against the plain versions and timed beside their bounds, the
     host's enqueue and a library call;
+  * ``lm_serve``, ``lm_attention``, ``lm_serve_f32``: phi3-medium-14b
+    at full width and depth in bf16 served through
+    ``repro_torch.launch.serve.BatchedServer`` (6 requests, 4 slots, 16
+    new tokens, max_seq 128; weights drawn on the card, cast once):
+    every request completes, 40 K4 launches a decode step on ``sm90``
+    and no other kernel of K1-K4, no plain attention (patched to
+    raise); each step replayed from a clone of its caches with the plain
+    attention, the logits within 2e-2 of max |plain|, the decode gather
+    without the newest slot shown to fail that gate; every layer's K4
+    output on a 4096-token prefill and the decode step after it within
+    ``CARD_TOL``; step and prefill times, tokens/s, peak memory, one
+    step's enqueue, wall and profiled device time; K4 alone at the
+    decode and prefill shapes beside its bound and SDPA; then 4 layers
+    in f32 (``sm90_tf32``): the served logits, decode against prefill
+    and a window-64 ring's wrap within ``TOL``;
   * ``plan_audit``: the ``sm90`` legality profile
     (``repro_torch.analysis.plan_check``) on the card, running no
     kernel: the card's opt-in shared memory a block, SM count and
@@ -164,6 +180,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.analysis import plan_check as PC  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
                                              PEAK_BF16_FLOPS,
                                              PEAK_F32_FLOPS,
@@ -192,9 +209,13 @@ from repro_torch.kernels.nvcc import (build_many,  # noqa: E402
                                       parse_ptxas_spills, resource_usage)
 from repro_torch.launch import serve_images  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
+from repro_torch.launch.serve import BatchedServer  # noqa: E402
+from repro_torch.launch.serve import Request as LmRequest  # noqa: E402
 from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
+from repro_torch.models import attention as LM_A  # noqa: E402
+from repro_torch.models.api import build as build_lm  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph,
                                     vgg_layer_dims)
@@ -1867,6 +1888,13 @@ ATTN_LONG = [
     (1, 2048, 2048, 4, 2, 128, 0, False),
     (1, 2048, 2048, 2, 2, 64, 0, False),
 ]
+#: the LM path's decode shapes (phi3-medium-14b at batch 4: one query
+#: row against 1, 37 and 128 kept cache slots, no causal mask)
+ATTN_DECODE = [
+    (4, 1, 1, 40, 10, 128, 0, False),
+    (4, 1, 37, 40, 10, 128, 0, False),
+    (4, 1, 128, 40, 10, 128, 0, False),
+]
 
 
 def tile_ranges(sq: int, skv: int, window: int, causal: bool,
@@ -1959,8 +1987,8 @@ def _attention_via(q, k, v, *, window: int, causal: bool, via: str):
 
 def phase_check_attention() -> dict:
     """Every case and type of the reference's attention sweep, the head
-    dims beside it (also above 256), the fully masked rows and two long
-    cases, on every route that takes each (the route :func:`K4.route`
+    dims beside it (also above 256), the fully masked rows, two long
+    cases and the LM path's decode shapes, on every route that takes each (the route :func:`K4.route`
     picks through ``flash_attention``, the other by ``via``: f32 on
     ``sm90_tf32`` and ``fma``, bf16 on ``sm90`` and ``fma``, where the
     tensor-core route's widths take the head dim), against the plain
@@ -1971,7 +1999,8 @@ def phase_check_attention() -> dict:
     gen = torch.Generator().manual_seed(SEED + 4)
     by_route = dict.fromkeys(K4.ROUTES, 0)
     for dtype in DTYPES:
-        for case in ATTN_SWEEP + ATTN_HEAD_DIMS + ATTN_LONG:
+        for case in (ATTN_SWEEP + ATTN_HEAD_DIMS + ATTN_LONG
+                     + ATTN_DECODE):
             b, sq, skv, h, kv, hd, win, causal = case
             q = _randn(gen, b, sq, h, hd).to(dtype)
             k = _randn(gen, b, skv, kv, hd).to(dtype)
@@ -2443,6 +2472,469 @@ def phase_attention_head_dims(card: str) -> list[dict]:
             emit(row)
             rows.append(row)
     return rows
+
+
+# --------------------------------------------------------------------------
+# lm_serve: phi3-medium-14b served through BatchedServer, K4 on every
+# attention
+# --------------------------------------------------------------------------
+
+LM_ARCH = "phi3-medium-14b"
+#: the reference server's defaults (repro/launch/serve.py ``main``)
+LM_REQUESTS, LM_SLOTS, LM_GEN, LM_MAX_SEQ, LM_PROMPT = 6, 4, 16, 128, 8
+#: served bf16 logits against the plain replay of the same step, relative
+#: to max |plain| (the reference's bf16-against-f32 tolerance): 40
+#: layers of bf16 activations downstream of two attentions that round
+#: their outputs in other orders
+LM_BF16_TOL = 2e-2
+#: the per-layer check's prefill length (batch 1)
+LM_PREFILL_S = 4096
+#: the f32 run: phi3 at full width cut to 4 layers; the window of its
+#: ring wrap; the decode-against-prefill length
+LM_F32_LAYERS, LM_WINDOW, LM_S = 4, 64, 64
+#: decode steps (by position) whose control drops the newest slot
+LM_CONTROL_POS = (1, 8)
+#: every kernel's launch counter
+LAUNCH_COUNTERS = (("conv_lb", K.conv_lb), ("wgrad_lb", W.wgrad_lb),
+                   ("matmul_lb", K3.matmul_lb), ("attention", K4.attention))
+
+
+@contextlib.contextmanager
+def counted(into: dict):
+    """Every kernel's launches by route (and K1's and K2's staging
+    launches) set to 0 for the block, read into ``into`` after it, then
+    added back onto the counts from before."""
+    saved = {}
+    for name, fn in LAUNCH_COUNTERS:
+        saved[name] = (fn.launches, dict(fn.launches_by_route),
+                       getattr(fn, "stage_launches", None))
+        fn.launches = 0
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+        if hasattr(fn, "stage_launches"):
+            fn.stage_launches = 0
+    try:
+        yield into
+    finally:
+        for name, fn in LAUNCH_COUNTERS:
+            launches, by_route, stages = saved[name]
+            into[name] = dict(fn.launches_by_route)
+            if stages is not None:
+                into[name]["stage"] = fn.stage_launches
+                fn.stage_launches += stages
+            fn.launches += launches
+            fn.launches_by_route = {r: n + by_route[r] for r, n
+                                    in fn.launches_by_route.items()}
+
+
+@contextlib.contextmanager
+def patched(*swaps):
+    """``(module, name, value)``: each attribute replaced for the block."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, v in swaps:
+        setattr(m, n, v)
+    try:
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def _refuse(*_args, **_kw):
+    raise SmokeFailure("a plain attention ran on the lm_serve path")
+
+
+def no_plain_attention():
+    """Every plain attention the LM path could reach raises."""
+    return patched((LM_A, "attention_chunked", _refuse),
+                   (LM_A, "decode_attention", _refuse),
+                   (K4, "attention_plain", _refuse))
+
+
+def drop_newest_slot():
+    """The control: decode's gather without its newest slot, the current
+    token's own key."""
+    kept = LM_A.kept_slots
+
+    def without_newest(pos, cur_pos, window):
+        idx = kept(pos, cur_pos, window)
+        return idx[np.asarray(pos)[idx] != cur_pos]
+    return patched((LM_A, "kept_slots", without_newest))
+
+
+def clone_caches(caches: list) -> list:
+    return [{s: {n: x.clone() if isinstance(x, torch.Tensor) else x.copy()
+                 for n, x in c.items()} for s, c in block.items()}
+            for block in caches]
+
+
+def lm_requests(cfg, seed: int) -> list:
+    gen = torch.Generator().manual_seed(seed)
+    return [LmRequest(rid=rid, prompt=torch.randint(
+        0, cfg.vocab, (LM_PROMPT,), generator=gen).tolist(), max_new=LM_GEN)
+        for rid in range(LM_REQUESTS)]
+
+
+def serve_lm(server, reqs, k4_route: str, per_step: int):
+    """``server`` over ``reqs`` until every request completes: each step
+    from a clone of the caches it starts from, timed on the host clock
+    (a step ends in the greedy choice's copy to the host), its K4
+    launches ``per_step`` on ``k4_route`` and none elsewhere, required.
+    Returns each step's (caches before, tokens, pos, logits) and its
+    seconds."""
+    for r in reqs:
+        server.submit(r)
+    steps, secs = [], []
+    while (server.active or server.queue) and len(steps) < server.max_seq:
+        before, pos = clone_caches(server.caches), server.pos
+        k4 = dict(K4.attention.launches_by_route)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, logits = server.step()
+        secs.append(time.perf_counter() - t0)
+        launched = {r: K4.attention.launches_by_route[r] - k4[r] for r in k4}
+        require(launched == dict.fromkeys(K4.ROUTES, 0) | {k4_route: per_step},
+                f"lm_serve step at pos {pos}: K4 launches {launched}, want "
+                f"{per_step} on {k4_route}")
+        steps.append((before, tok, pos, logits))
+    require(all(r.done and len(r.out) == r.max_new for r in reqs),
+            f"lm_serve: requests left unfinished after {len(steps)} steps")
+    return steps, secs
+
+
+def _rel(out, ref, vocab: int) -> float:
+    out, ref = out[..., :vocab].float(), ref[..., :vocab].float()
+    return (out - ref).abs().max().item() / ref.abs().max().item()
+
+
+def replay_plain(api, params, steps, tol: float, what: str) -> dict:
+    """Each served step again from a clone of its caches with the plain
+    attention: the served logits' max error over max |plain| (required
+    within ``tol``) and the steps whose greedy tokens agree."""
+    worst, agree = 0.0, 0
+    for caches, tok, pos, logits in steps:
+        plain, _ = api.decode_step(params, clone_caches(caches), tok, pos,
+                                   attn="plain")
+        worst = max(worst, _rel(logits, plain, api.cfg.vocab))
+        agree += bool(torch.equal(logits.argmax(-1), plain.argmax(-1)))
+    require(worst <= tol, f"{what}: served logits err {worst} of max "
+                          f"|plain| > {tol}")
+    return {"max_err_over_max_plain": worst, "gate": tol,
+            "steps_greedy_equal": agree, "steps": len(steps)}
+
+
+def control_drop_newest(api, params, steps, tol: float) -> list:
+    """The decode gather without the current token's own key, at the
+    steps of :data:`LM_CONTROL_POS`: each must fail ``tol``."""
+    rows = []
+    for caches, tok, pos, _logits in steps:
+        if pos not in LM_CONTROL_POS:
+            continue
+        plain, _ = api.decode_step(params, clone_caches(caches), tok, pos,
+                                   attn="plain")
+        with drop_newest_slot():
+            wrong, _ = api.decode_step(params, clone_caches(caches), tok,
+                                       pos)
+        err = _rel(wrong, plain, api.cfg.vocab)
+        rows.append({"what": "decode gather without the newest slot",
+                     "pos": pos, "err_over_max_plain": err, "gate": tol})
+        require(err > tol, f"lm_serve control at pos {pos} passes: {err}")
+    require(len(rows) == len(LM_CONTROL_POS), f"lm_serve controls {rows}")
+    return rows
+
+
+def per_layer_k4(api, params, dtype, gen) -> dict:
+    """One prefill (batch 1, :data:`LM_PREFILL_S` tokens) and one decode
+    step after it with a tap on every K4 call: each layer's output held
+    to the plain version on the same inputs at ``CARD_TOL``."""
+    rows = {"prefill": [], "decode": []}
+
+    def tap(kind):
+        def check(layer, q, k, v, out, *, window, causal):
+            r = within(out, plain_attention(q, k, v, window=window,
+                                            causal=causal), dtype)
+            rows[kind].append({"layer": layer, "skv": k.shape[1], **r})
+        return check
+
+    toks = torch.randint(0, api.cfg.vocab, (1, LM_PREFILL_S + 1),
+                         generator=gen).cuda()
+    _, caches = api.prefill(params, {"tokens": toks[:, :-1]},
+                            max_seq=LM_PREFILL_S + 1, tap=tap("prefill"))
+    api.decode_step(params, caches, toks[:, -1:], LM_PREFILL_S,
+                    tap=tap("decode"))
+    out = {}
+    for kind, rs in rows.items():
+        out[kind] = {"layers": len(rs),
+                     "worst_over_tol": max(r["worst_over_tol"] for r in rs),
+                     "max_abs_err": max(r["max_abs_err"] for r in rs),
+                     "skv": rs[0]["skv"]}
+        require(len(rs) == api.cfg.n_layers
+                and out[kind]["worst_over_tol"] <= 1.0,
+                f"lm_serve per-layer K4 {kind}: {out[kind]}")
+    return out
+
+
+def k4_lm_rows(cfg, dtype, gen, flush, card: str, shapes) -> list:
+    """K4 alone at the LM path's shapes, ``(what, b, sq, skv, causal)``:
+    held to the plain version, timed (one flushed call, and back to back
+    on the card alone: ``device_ms``) beside its bound, the plain
+    version and ``F.scaled_dot_product_attention``, the host's
+    enqueue."""
+    rows = []
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    for what, b, sq, skv, causal in shapes:
+        q = _randn(gen, b, sq, h, hd).to(dtype)
+        k, v = (_randn(gen, b, skv, kv, hd).to(dtype) for _ in range(2))
+        kw = dict(window=0, causal=causal)
+        chk = within(flash_attention(q, k, v, **kw),
+                     plain_attention(q, k, v, **kw), dtype)
+        require(chk["worst_over_tol"] <= 1.0,
+                f"lm_attention {what} {dtype}: {chk}")
+        qf, kf, vf = (heads_first(t) for t in (q, k, v))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rt = K4.route(qf, kf, vf)
+        pairs = b * h * unmasked_pairs(sq, skv, 0, causal)
+        flops = 4.0 * hd * pairs
+        n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
+        library = _library_attention(qh, kh, vh, **kw)
+
+        def kernel():
+            return K4.attention(qf, kf, vf, groups=h // kv, **kw)
+
+        row = {"phase": "lm_attention", "config": cfg.name, "what": what,
+               "shape": {"b": b, "sq": sq, "skv": skv, "h": h, "kv": kv,
+                         "hd": hd},
+               "causal": causal, "dtype": str(dtype), "route": rt, **chk,
+               "ms": _time_ms(kernel, flush),
+               "device_ms": _device_ms(kernel),
+               "plain_ms": _time_ms(lambda: plain_attention(q, k, v, **kw),
+                                    flush, reps=3),
+               "library_ms": _time_ms(library, flush),
+               "library_device_ms": _device_ms(library),
+               "library_kernels": library_kernels(library),
+               "host_us": _host_us(kernel),
+               **attention_bounds(flops, n_bytes, dtype, rt),
+               "flops": flops, "bytes": n_bytes, "card": card}
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def profile_decode_step(api, params, steps) -> dict:
+    """The last served step again, on clones of its caches: once timed
+    on the host clock (its enqueue until ``decode_step`` returns, and
+    the wall time to the card's end), once under ``torch.profiler``:
+    the card's busy time summed over its kernels, the idle share of the
+    unprofiled wall time, the top kernels by device time, and the
+    top-level ``aten`` ops the step runs on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    caches, tok, pos, _ = steps[-1]
+    api.decode_step(params, clone_caches(caches), tok, pos)
+    run = clone_caches(caches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    api.decode_step(params, run, tok, pos)
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = clone_caches(caches)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        api.decode_step(params, run, tok, pos)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+            kernels[e.key] = (us / 1e3, e.count)
+    host_ops = sum(1 for e in prof.events() if e.cpu_parent is None
+                   and e.name.startswith("aten::"))
+    busy = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    return {"step_enqueue_ms": enqueue * 1e3, "step_wall_ms": wall * 1e3,
+            "step_device_busy_ms": busy,
+            "step_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+            "step_kernels": sum(n for _, n in kernels.values()),
+            "step_aten_ops": host_ops,
+            "step_top_kernels": [{"kernel": k[:80], "ms": ms, "calls": n}
+                                 for k, (ms, n) in top]}
+
+
+def _median(xs: list) -> float:
+    return float(np.median(xs))
+
+
+def phase_lm_serve(card: str) -> dict:
+    """phi3-medium-14b at full width and depth in bf16 through
+    ``repro_torch.launch.serve.BatchedServer`` (the reference server's
+    defaults: 6 requests of 8 prompt tokens, 4 slots, 16 new tokens,
+    max_seq 128), weights drawn on the card from the seed and cast once
+    block by block: every request completes, every decode step launches
+    K4 40 times on ``sm90`` and nothing else of K1-K4, no plain
+    attention runs (each raises); each step replayed from a clone of its
+    caches with the plain attention, the served logits within
+    :data:`LM_BF16_TOL` of max |plain|, and the control (the gather
+    without the newest slot) failing that gate; every layer's K4 output
+    on one 4096-token prefill and one decode step after it within the
+    bf16 ``CARD_TOL``; the median step, tokens/s, the host's and the
+    card's time of one step, the prefill's time, peak memory; K4 alone
+    at the decode and prefill shapes.  Then the same config cut to 4
+    layers in f32 (:func:`lm_f32`).  Returns the launches of both
+    runs."""
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    cfg = get_config(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           device="cuda", seed=SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(t.numel() * t.element_size() for t in _tensors(
+        server.params))
+    reqs = lm_requests(cfg, SEED + 12)
+    counts = {}
+    with counted(counts), no_plain_attention():
+        steps, secs = serve_lm(server, reqs, "sm90", cfg.n_layers)
+    serve_peak = torch.cuda.max_memory_allocated()
+    require(counts["attention"]["sm90"] == cfg.n_layers * len(steps)
+            and sum(counts["attention"].values())
+            == counts["attention"]["sm90"]
+            and not any(n for name in ("conv_lb", "wgrad_lb", "matmul_lb")
+                        for n in counts[name].values()),
+            f"lm_serve launches {counts}")
+    api, params = server.api, server.params
+    teacher = replay_plain(api, params, steps, LM_BF16_TOL, "lm_serve")
+    controls = control_drop_newest(api, params, steps, LM_BF16_TOL)
+    timing = profile_decode_step(api, params, steps)
+    generated = sum(len(r.out) for r in reqs)
+    del steps
+    layers = per_layer_k4(api, params, cfg.compute_dtype, gen)
+    toks = torch.randint(0, cfg.vocab, (1, LM_PREFILL_S),
+                         generator=gen).cuda()
+    prefill_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(params, {"tokens": toks},
+                                     max_seq=LM_PREFILL_S)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+        require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+                "lm_serve prefill: logits not finite")
+        del logits, caches
+    peak = torch.cuda.max_memory_allocated()
+    del server, api, params
+    torch.cuda.empty_cache()
+    k4_rows = k4_lm_rows(cfg, cfg.compute_dtype, gen, flush, card, (
+        ("decode", LM_SLOTS, 1, LM_MAX_SEQ, False),
+        ("prefill", 1, LM_PREFILL_S, LM_PREFILL_S, True)))
+    row = {"phase": "lm_serve", "config": LM_ARCH,
+           "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "dtype": str(cfg.compute_dtype), "requests": len(reqs),
+           "completed": sum(r.done for r in reqs), "slots": LM_SLOTS,
+           "gen": LM_GEN, "max_seq": LM_MAX_SEQ, "steps": len(secs),
+           "generated_tokens": generated, "launches": counts,
+           "k4_sm90_per_step": cfg.n_layers,
+           "init_s": init_s, "weights_gb": weights / 1e9,
+           "step_ms_median": _median(secs) * 1e3,
+           "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
+           "tokens_per_s": generated / sum(secs), **timing,
+           "prefill_tokens": LM_PREFILL_S,
+           "prefill_ms_median": _median(prefill_s) * 1e3,
+           "prefill_ms": [s * 1e3 for s in prefill_s],
+           "serve_peak_gb": serve_peak / 1e9, "peak_gb": peak / 1e9,
+           "teacher_forced": teacher, "control_drop_newest": controls,
+           "per_layer_k4": layers, "card": card}
+    emit(row)
+    f32 = lm_f32(card, flush, gen)
+    return {"bf16": counts, "f32": f32["launches"], "rows": k4_rows,
+            "f32_rows": f32["rows"], "step_ms_median": row["step_ms_median"],
+            "prefill_ms_median": row["prefill_ms_median"]}
+
+
+def _tensors(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def lm_f32(card: str, flush, gen) -> dict:
+    """phi3-medium-14b at full width cut to 4 layers, f32 compute (K4 on
+    ``sm90_tf32``): served through ``BatchedServer`` as the bf16 run is,
+    4 K4 launches a step, every step's logits within ``TOL`` of the
+    plain replay; decode against prefill (a prefill of S - 1 tokens and
+    one decode step against a prefill of S) within ``TOL`` of max
+    |logits|; with ``window`` 64, a 60-token prefill and 8 decode steps
+    across the ring's wrap, each within ``TOL`` of its plain replay and
+    the last of a 68-token prefill."""
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_F32_LAYERS,
+                              compute_dtype=torch.float32)
+    server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           device="cuda", seed=SEED)
+    reqs = lm_requests(cfg, SEED + 12)
+    counts = {}
+    with counted(counts), no_plain_attention():
+        steps, secs = serve_lm(server, reqs, "sm90_tf32", cfg.n_layers)
+    require(counts["attention"]["sm90_tf32"] == cfg.n_layers * len(steps)
+            and sum(counts["attention"].values())
+            == counts["attention"]["sm90_tf32"],
+            f"lm_serve f32 launches {counts}")
+    api, params = server.api, server.params
+    teacher = replay_plain(api, params, steps, TOL, "lm_serve f32")
+    del steps
+    toks = torch.randint(0, cfg.vocab, (LM_SLOTS, LM_WINDOW + 8),
+                         generator=gen).cuda()
+    full, _ = api.prefill(params, {"tokens": toks[:, :LM_S]}, max_seq=LM_S)
+    _, caches = api.prefill(params, {"tokens": toks[:, :LM_S - 1]},
+                            max_seq=LM_S)
+    dec, _ = api.decode_step(params, caches, toks[:, LM_S - 1:LM_S],
+                             LM_S - 1)
+    decode_vs_prefill = _rel(dec, full, cfg.vocab)
+    require(decode_vs_prefill <= TOL, f"lm_serve f32: decode against "
+                                      f"prefill {decode_vs_prefill}")
+    wapi = build_lm(dataclasses.replace(cfg, window=LM_WINDOW))
+    start = LM_WINDOW - 4
+    _, caches = wapi.prefill(params, {"tokens": toks[:, :start]},
+                             max_seq=LM_MAX_SEQ)
+    ring = []
+    for pos in range(start, LM_WINDOW + 4):
+        plain, _ = wapi.decode_step(params, clone_caches(caches),
+                                    toks[:, pos:pos + 1], pos, attn="plain")
+        logits, caches = wapi.decode_step(params, caches,
+                                          toks[:, pos:pos + 1], pos)
+        ring.append(_rel(logits, plain, cfg.vocab))
+    slots = caches[0]["sub0"]["pos"]
+    full, _ = wapi.prefill(params, {"tokens": toks[:, :LM_WINDOW + 4]},
+                           max_seq=LM_MAX_SEQ)
+    wrap_vs_prefill = _rel(logits, full, cfg.vocab)
+    require(max(ring) <= TOL and wrap_vs_prefill <= TOL,
+            f"lm_serve f32 ring: {ring}, against prefill {wrap_vs_prefill}")
+    require(len(slots) == LM_WINDOW and int(slots[0]) == LM_WINDOW,
+            f"lm_serve f32 ring: slots {slots.tolist()} did not wrap")
+    del server, api, params, caches
+    torch.cuda.empty_cache()
+    rows = k4_lm_rows(cfg, torch.float32, gen, flush, card,
+                      (("decode", LM_SLOTS, 1, LM_MAX_SEQ, False),))
+    emit({"phase": "lm_serve_f32", "config": LM_ARCH,
+          "layers": cfg.n_layers, "dtype": "torch.float32",
+          "requests": len(reqs), "completed": sum(r.done for r in reqs),
+          "steps": len(secs), "launches": counts,
+          "k4_sm90_tf32_per_step": cfg.n_layers,
+          "step_ms_median": _median(secs) * 1e3,
+          "teacher_forced": teacher,
+          "decode_vs_prefill": {"err_over_max": decode_vs_prefill,
+                                "gate": TOL, "s": LM_S},
+          "ring": {"window": LM_WINDOW, "positions": [start, LM_WINDOW + 3],
+                   "err_over_max_plain": max(ring),
+                   "last_vs_prefill": wrap_vs_prefill, "gate": TOL},
+          "card": card})
+    return {"launches": counts, "rows": rows}
 
 
 class Decisions:
@@ -3457,6 +3949,7 @@ def main() -> int:
     with log.matmul_attention():
         matmul_launches, matmul_all = phase_matmul(card)
         attn_launches, attn_rows = phase_attention(card)
+    lm = phase_lm_serve(card)
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
@@ -3887,6 +4380,35 @@ def main() -> int:
                        "mixtral-8x7b's (S 8192, causal, window 4096) "
                        "attention, bf16",
              card=card)]
+    lm_rows = {(r["dtype"], r["what"]): r
+               for r in lm["rows"] + lm["f32_rows"]}
+    for k in kernels:
+        counter = next(c for c in ("conv_lb", "wgrad", "matmul", "attention")
+                       if k["name"].startswith(c))
+        if counter == "attention":
+            k["launches_lm_serve"] = sum(lm[part]["attention"][
+                k["kernel_route"]] for part in ("bf16", "f32"))
+        else:   # K1-K3 run nowhere on the LM path: none required
+            k["launches_lm_serve"] = sum(
+                n for part in ("bf16", "f32") for name in (
+                    "conv_lb", "wgrad_lb", "matmul_lb")
+                if name.startswith(counter)
+                for n in lm[part][name].values())
+            require(k["launches_lm_serve"] == 0,
+                    f"{k['name']}: launched on the lm_serve path")
+    by_name = {k["name"]: k for k in kernels}
+    require(by_name["attention"]["launches_lm_serve"] == 0
+            and by_name["attention_sm90"]["launches_lm_serve"] > 0
+            and by_name["attention_sm90_tf32"]["launches_lm_serve"] > 0,
+            "lm_serve: K4's launches by route")
+    for name, dtype in (("attention_sm90", "torch.bfloat16"),
+                        ("attention_sm90_tf32", "torch.float32")):
+        by_name[name]["lm_serve"] = {
+            what: {f: r[f] for f in ("ms", "device_ms", "bound_ms",
+                                     "bound_by", "plain_ms", "library_ms",
+                                     "library_device_ms", "host_us",
+                                     "max_abs_err", "shape")}
+            for (dt, what), r in lm_rows.items() if dt == dtype}
     for k in kernels:
         if k.get("on_main_path", True):
             require(k["launches"] > 0, f"{k['name']}: no launch on its path")

@@ -1,0 +1,166 @@
+"""Batched LM serving: continuous batched decode — the port's
+copy of ``repro/launch/serve.py`` (``Request``, ``BatchedServer``,
+``main``) at tp = 1.
+
+Requests arrive with prompts and advance one token a step against the
+shared per-block KV caches; every decode step feeds each active slot
+the token at the server's global position (a prompt token while there
+is one, then its own last output) and appends the greedy choice once
+past the prompt.  Requests finishing early free their slot for queued
+requests (continuous batching on slot granularity).  The same
+admission, slot reuse, global ``pos`` and greedy choice as the
+reference's.  Attention runs on K4 on the card (prefill causal, decode
+over the cache slots its mask keeps).
+
+Memory: the server draws its weights block by block and keeps each
+block's matmul weights only in the compute type (``init_params(...,
+cast_blocks=True)``), so phi3-medium-14b (14.15e9 parameters) holds
+about 29.3 GB in bf16 (the f32 embedding 2.06 GB of it) where f32
+master weights beside them would not fit 80 GB.
+
+  # phi3-medium-14b at full size on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b
+
+  # a reduced config on the CPU (K4's plain version):
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import subprocess
+import time
+
+import torch
+
+from repro_torch.configs import get_config, reduced
+from repro_torch.core.exec_target import resolve_device
+from repro_torch.models.api import build
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: list[int]
+    max_new: int
+    out: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchedServer:
+    """Fixed-slot continuous batching over shared per-block caches.
+
+    ``params`` (the port's layout, e.g. from
+    :func:`repro_torch.convert.lm_params_from_numpy`) are used as given;
+    without them the weights are drawn from ``seed`` on ``device``."""
+
+    def __init__(self, cfg, *, slots: int, max_seq: int, device="cuda",
+                 seed: int = 0, params=None):
+        self.cfg = cfg
+        self.slots = slots
+        self.max_seq = max_seq
+        self.device = resolve_device(device)
+        self.api = build(cfg, tp=1)
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = self.api.init(gen, cast_blocks=True)
+        self.params = params
+        self.caches = self.api.init_cache(slots, max_seq, device=self.device)
+        self.active: dict[int, Request] = {}
+        self.queue: list[Request] = []
+        self.pos = 0
+
+    def submit(self, req: Request):
+        self.queue.append(req)
+
+    def _admit(self):
+        while self.queue and len(self.active) < self.slots:
+            req = self.queue.pop(0)
+            slot = next(i for i in range(self.slots)
+                        if i not in self.active)
+            self.active[slot] = req
+
+    def step(self):
+        """Advance every active request by one token (greedy).  Returns
+        the step's (tokens (slots, 1), logits (slots, V)), or ``None``
+        when nothing is active."""
+        self._admit()
+        if not self.active:
+            return None
+        tok = [0] * self.slots
+        for slot, req in self.active.items():
+            seq = req.prompt + req.out
+            idx = min(self.pos, len(seq) - 1) if seq else 0
+            tok[slot] = seq[idx] if idx < len(seq) else (req.out or [0])[-1]
+        tokens = torch.tensor(tok, dtype=torch.int64).reshape(
+            self.slots, 1).to(self.device)
+        logits, self.caches = self.api.decode_step(
+            self.params, self.caches, tokens, self.pos)
+        choice = logits.argmax(dim=-1).tolist()
+        for slot, req in list(self.active.items()):
+            past_prompt = self.pos >= len(req.prompt) - 1
+            if past_prompt:
+                req.out.append(int(choice[slot]))
+            if len(req.out) >= req.max_new:
+                req.done = True
+                del self.active[slot]
+        self.pos += 1
+        return tokens, logits
+
+
+def card_line(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, or
+    the device's name off the card."""
+    if device.type != "cuda":
+        return str(device)
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="phi3-medium-14b",
+                    help="a dense decoder (attention + dense FFN blocks)")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg, capacity_factor=8.0)
+    device = resolve_device(args.device)
+    server = BatchedServer(cfg, slots=args.slots, max_seq=args.max_seq,
+                           device=device, seed=args.seed)
+    # one throwaway step first: on the card it builds the attention
+    # kernel and sets up the libraries, which the clock should not see
+    server.api.decode_step(
+        server.params, server.api.init_cache(args.slots, 1, device=device),
+        torch.zeros((args.slots, 1), dtype=torch.int64, device=device), 0)
+    gen = torch.Generator().manual_seed(args.seed + 1)
+    for rid in range(args.requests):
+        prompt = torch.randint(0, cfg.vocab, (8,), generator=gen).tolist()
+        server.submit(Request(rid=rid, prompt=prompt, max_new=args.gen))
+    t0 = time.time()
+    steps = 0
+    while (server.active or server.queue) and steps < args.max_seq:
+        server.step()
+        steps += 1
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    total_tokens = args.requests * args.gen
+    print(card_line(device))
+    print(f"served {args.requests} requests, {total_tokens} tokens in "
+          f"{dt:.1f}s ({total_tokens/dt:.1f} tok/s) over {steps} steps")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,2 @@
-"""Conv-graph IR and the VGG / ResNet builders."""
+"""Conv-graph IR and the VGG / ResNet graphs; the dense-decoder LM
+stack (layers, embedding, attention, transformer, api)."""

@@ -1,0 +1,78 @@
+"""Unified model API: one entry point per (config, tp) pair — the port's
+copy of ``repro/models/api.py`` at tp = 1 for the decoder-only stack.
+
+``build(cfg)`` returns a :class:`ModelAPI` whose members close over
+:mod:`repro_torch.models.transformer`:
+
+  * ``init(key, cast_blocks=False)``: weights drawn from the
+    ``torch.Generator`` ``key``, on its device;
+  * ``prefill(params, batch, max_seq=None, **kw)``: ``batch`` holds
+    ``tokens`` (B, S) and, for the ``vision_stub`` frontend,
+    ``prefix_embeds``; returns (last-token logits, caches);
+  * ``decode_step(params, caches, token, cur_pos, **kw)``;
+  * ``init_cache(batch, max_seq, device="cuda")``: empty caches on the
+    card unless the caller passes ``device="cpu"``.
+
+``train_loss`` raises until the training slice; so do the encoder-
+decoder family and tp > 1.  The reference's ``input_specs`` and
+``make_batch`` wait for the port's dry-run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.exec_target import resolve_device
+from repro_torch.models import transformer
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    tp: int
+    init: Callable[..., Any]
+    train_loss: Callable[..., Any]
+    prefill: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_cache: Callable[..., Any]
+
+
+def _train_loss(params, batch):
+    raise NotImplementedError("train_loss (lm_loss, the optimizer and the "
+                              "training launch) is not ported yet: "
+                              "ROADMAP.md §1 item 6, the training slice")
+
+
+def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
+    if tp != 1:
+        raise NotImplementedError(f"tp={tp}: the port runs one device "
+                                  f"(tp = 1); sharding waits for "
+                                  f"ROADMAP.md §1 item 6's parallel/")
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: the encoder-decoder "
+                                  f"family (models/encdec.py) is not "
+                                  f"ported yet: ROADMAP.md §1 item 6")
+    transformer.check_ported(cfg)
+
+    def _prefill(p, b, max_seq=None, **kw):
+        return transformer.prefill(p, b["tokens"], cfg, tp,
+                                   prefix_embeds=b.get("prefix_embeds"),
+                                   max_seq=max_seq, **kw)
+
+    def _decode(p, c, tok, pos, **kw):
+        return transformer.decode_step(p, c, tok, pos, cfg, tp, **kw)
+
+    def _init_cache(b, s, device="cuda"):
+        return transformer.init_cache_tree(cfg, b, s, tp,
+                                           device=resolve_device(device))
+
+    return ModelAPI(
+        cfg=cfg, tp=tp,
+        init=lambda key, **kw: transformer.init_params(cfg, key, tp, **kw),
+        train_loss=_train_loss,
+        prefill=_prefill,
+        decode_step=_decode,
+        init_cache=_init_cache,
+    )

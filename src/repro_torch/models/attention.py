@@ -1,0 +1,192 @@
+"""GQA attention sublayer: projections + RoPE + cache management — the
+port's copy of ``repro/models/attention.py`` at tp = 1.
+
+Prefill runs the blocked attention kernel, K4
+(:func:`~repro_torch.kernels.attention_block.ops.flash_attention`),
+causal over absolute positions from 0, with the config's window.
+Decode writes the token's K and V into its cache slot (a ring of
+``window`` slots for sliding-window archs) and runs K4 without a causal
+mask over exactly the slots the reference's decode mask keeps
+(:func:`kept_slots`): softmax does not depend on the keys' order, so
+that is the reference's ``decode_attention``.  The cache's ``pos``
+vector, shared by every batch row as in the reference, lives on the
+host, so choosing the slots costs no device sync.  On a CPU tensor K4
+runs its plain version; on a CUDA tensor it launches or raises.
+
+``attn="plain"`` runs the reference's plain attentions instead
+(:func:`~repro_torch.models.layers.attention_chunked`,
+:func:`~repro_torch.models.layers.decode_attention`): the yardstick the
+tests and the chip smoke hold the kernel path to.  ``tap``, where
+given, is called with every K4 call's inputs and output.
+
+Cross-attention and non-causal prefill (enc-dec) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.attention_block.ops import flash_attention
+from repro_torch.models.layers import (apply_rope, attention_chunked,
+                                       decode_attention, dense_init,
+                                       split_keys)
+
+ATTN = ("kernel", "plain")
+_ENCDEC = ("cross-attention and non-causal attention belong to the "
+           "encoder-decoder family, which ROADMAP.md §1 item 6 ports "
+           "later")
+
+
+def init_attention(key, d_model: int, n_heads: int, n_kv_heads: int,
+                   head_dim: int, dtype):
+    ks = split_keys(key, 4)
+    return {
+        "wq": dense_init(ks[0], (d_model, n_heads * head_dim), dtype),
+        "wk": dense_init(ks[1], (d_model, n_kv_heads * head_dim), dtype),
+        "wv": dense_init(ks[2], (d_model, n_kv_heads * head_dim), dtype),
+        "wo": dense_init(ks[3], (n_heads * head_dim, d_model), dtype,
+                         fan_in=n_heads * head_dim),
+    }
+
+
+def _project_qkv(params, h, n_heads, n_kv_heads, head_dim):
+    b, s, _ = h.shape
+    q = (h @ params["wq"]).reshape(b, s, n_heads, head_dim)
+    k = (h @ params["wk"]).reshape(b, s, n_kv_heads, head_dim)
+    v = (h @ params["wv"]).reshape(b, s, n_kv_heads, head_dim)
+    return q, k, v
+
+
+def _check_attn(attn: str) -> None:
+    if attn not in ATTN:
+        raise ValueError(f"attn must be one of {ATTN}, got {attn!r}")
+
+
+def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
+                    cross_kv=None, causal=True, attn="kernel", tap=None):
+    """Prefill attention.  h: (B, S, d); pos: (S,) absolute positions,
+    ``arange(S)`` (K4's causal mask counts from 0 on both sides).
+
+    Returns (out, (k, v)) so prefill can hand k/v to ``cache_from_prefill``.
+    """
+    _check_attn(attn)
+    if cross_kv is not None or not causal:
+        raise NotImplementedError(_ENCDEC)
+    hd = cfg.head_dim
+    b, s = h.shape[0], h.shape[1]
+    q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    if attn == "plain":
+        out = attention_chunked(q, k, v, pos, pos, cfg.window,
+                                cfg.attn_chunk)
+    else:
+        out = flash_attention(q, k, v, window=cfg.window, causal=True)
+        if tap is not None:
+            tap(q, k, v, out, window=cfg.window, causal=True)
+    return out.reshape(b, s, n_heads * hd) @ params["wo"], (k, v)
+
+
+def init_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
+               window: int, dtype, *, device="cpu"):
+    """Empty decode cache.  Ring-buffered to ``window`` slots for SWA;
+    ``pos`` (-1 = empty) is a host ``numpy`` int32 vector."""
+    slots = min(max_seq, window) if window else max_seq
+    return {
+        "k": torch.zeros((batch, slots, n_kv_heads, head_dim), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, slots, n_kv_heads, head_dim), dtype=dtype,
+                         device=device),
+        "pos": np.full((slots,), -1, np.int32),
+    }
+
+
+def cache_from_prefill(k, v, pos, max_seq: int, window: int):
+    """Scatter prefilled K/V into a fresh cache (ring-aware).  ``pos``
+    are the prefill's absolute positions, on the host; as the
+    reference's scatter does, a position past the last slot (no window)
+    is dropped."""
+    b, s, kvh, hd = k.shape
+    slots = min(max_seq, window) if window else max_seq
+    take = min(s, slots)
+    p_t = np.asarray(pos, np.int32)[-take:]
+    idx = p_t % slots if window else p_t
+    keep = np.flatnonzero(idx < slots)
+    cache = init_cache(b, max_seq, kvh, hd, window, k.dtype,
+                       device=k.device)
+    dst = torch.as_tensor(idx[keep], device=k.device)
+    src = torch.as_tensor(keep + (s - take), device=k.device)
+    cache["k"][:, dst] = k[:, src].to(cache["k"].dtype)
+    cache["v"][:, dst] = v[:, src].to(cache["v"].dtype)
+    cache["pos"][idx[keep]] = p_t[keep]
+    return cache
+
+
+def kept_slots(pos, cur_pos: int, window: int) -> np.ndarray:
+    """The cache slots the reference's decode mask keeps for a token at
+    ``cur_pos``: ``0 <= pos <= cur_pos`` and, under a window,
+    ``pos > cur_pos - window``; ascending."""
+    pos = np.asarray(pos)
+    keep = (pos >= 0) & (pos <= cur_pos)
+    if window:
+        keep &= pos > cur_pos - window
+    return np.flatnonzero(keep)
+
+
+def _gather(c: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """The slots ``idx`` of cache tensor ``c`` (B, slots, KV, hd): a
+    slice when they are a prefix, else an ``index_select``."""
+    n = len(idx)
+    if n and idx[-1] == n - 1:
+        return c[:, :n]
+    return c.index_select(1, torch.as_tensor(idx, device=c.device))
+
+
+def _decode_local(q, new_k, new_v, cache, cur_pos: int, window: int,
+                  chunk: int, attn: str, tap):
+    """Write the token into its slot, attend: the reference's
+    ``_decode_local`` on the whole cache (no shard axis).  The slot is
+    ``cur_pos``, or ``cur_pos % slots`` in a ring under a window;
+    ``cache`` is written in place.  Past the last slot (no window) the
+    reference's single shard owns no slot and writes nothing, and
+    neither does this.  Where the mask keeps no slot, the reference's
+    scores are all -1e30 and its softmax uniform: K4 gets the same from
+    a zero query over every slot."""
+    slots = cache["k"].shape[1]
+    slot = cur_pos % slots if window else cur_pos
+    if 0 <= slot < slots:
+        cache["k"][:, slot] = new_k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = new_v[:, 0].to(cache["v"].dtype)
+        cache["pos"][slot] = cur_pos
+    if attn == "plain":
+        return decode_attention(q, cache["k"], cache["v"], cache["pos"],
+                                cur_pos, window=window, chunk=chunk)
+    idx = kept_slots(cache["pos"], cur_pos, window)
+    if not len(idx):
+        q, idx = torch.zeros_like(q), np.arange(slots)
+    k_sel = _gather(cache["k"], idx).to(q.dtype)
+    v_sel = _gather(cache["v"], idx).to(q.dtype)
+    out = flash_attention(q, k_sel, v_sel, window=0, causal=False)
+    if tap is not None:
+        tap(q, k_sel, v_sel, out, window=0, causal=False)
+    return out
+
+
+def decode_block(params, h, cache, cur_pos, cfg, n_heads, n_kv_heads, *,
+                 cross_kv=None, attn="kernel", tap=None):
+    """One-token decode.  h: (B, 1, d).  Writes the token's K/V and
+    position into ``cache`` in place (the reference's server donates
+    its cache) and returns (out, cache)."""
+    _check_attn(attn)
+    if cross_kv is not None:
+        raise NotImplementedError(_ENCDEC)
+    hd = cfg.head_dim
+    b = h.shape[0]
+    cur = int(cur_pos)
+    q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
+    q = apply_rope(q, cur, cfg.rope_theta)
+    k = apply_rope(k, cur, cfg.rope_theta)
+    out = _decode_local(q, k, v, cache, cur, cfg.window, cfg.attn_chunk,
+                        attn, tap)
+    return out.reshape(b, 1, n_heads * hd) @ params["wo"], cache

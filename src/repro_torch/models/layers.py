@@ -1,18 +1,84 @@
-"""The attention oracle of the LM substrate — the port's copy of
-``attention_naive`` and ``_gqa_scores_scale`` from
-``repro/models/layers.py:172-202``, which
-:func:`~repro_torch.kernels.attention_block.ref.attention_ref` needs.
-Nothing else of the LM substrate is ported yet."""
+"""Shared transformer building blocks — the port's copy of
+``repro/models/layers.py`` at tp = 1 (no mesh, no sequence parallelism).
+
+Norms, RoPE, the SwiGLU MLP, the parameter-init helpers and three
+attentions:
+
+  * ``attention_naive``   — the O(S^2) oracle (:func:`~repro_torch.
+    kernels.attention_block.ref.attention_ref` reads it);
+  * ``attention_chunked`` — the double-chunked online softmax over
+    absolute positions;
+  * ``decode_attention``  — one token against a cache whose slots carry
+    absolute positions (-1 = empty).
+
+The last two are plain versions that the tests hold against the
+reference's.  The model path never calls them on the card: it runs the
+attention kernel (``flash_attention``, K4) in
+:mod:`repro_torch.models.attention`, and only a caller that asks for
+``attn="plain"`` gets them.
+"""
 
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
+
+# --------------------------------------------------------------------------
+# norms / positional / MLP
+# --------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x32 = x.to(torch.float32)
+    var = x32.square().mean(dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * w).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, pos, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); pos: (S,) or a scalar position index (a
+    Python ``int`` costs no host-to-device copy)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)
+    if isinstance(pos, int):
+        angles = freqs * float(pos)
+    else:
+        angles = torch.as_tensor(pos, dtype=torch.float32,
+                                 device=x.device)[..., None] * freqs
+    cos = torch.cos(angles)[..., None, :]                 # (S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP (the reference's tp = 1 branch)."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
 
 def _gqa_scores_scale(head_dim: int) -> float:
     return 1.0 / math.sqrt(head_dim)
+
+
+def repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, hd) -> (B, S, KV*groups, hd)."""
+    b, s, kv, hd = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, groups, hd).reshape(
+        b, s, kv * groups, hd)
 
 
 def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -35,3 +101,166 @@ def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", probs, v.to(torch.float32))
     return out.reshape(b, sq, h, hd).to(q.dtype)
+
+
+def _online_update(carry, scores, v_chunk):
+    """One online-softmax step: fold a (…, Ck) score panel and its
+    (…, Ck, hd) value panel into the running (acc, m, l) accumulator."""
+    acc, m, l = carry
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[..., None])
+    l = l * alpha + p.sum(dim=-1)
+    acc = acc * alpha[..., None] + torch.einsum("...qs,...sh->...qh", p,
+                                                v_chunk)
+    return acc, m_new, l
+
+
+def _pad_pos(pos, pad: int, value: int, device) -> torch.Tensor:
+    """Positions (any device, numpy too) as int64 on ``device``, with
+    ``pad`` more of ``value``."""
+    pos = torch.as_tensor(pos, device=device).to(torch.int64)
+    return torch.cat([pos, torch.full((pad,), value, dtype=torch.int64,
+                                      device=device)])
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                      window: int = 0, chunk: int = 1024) -> torch.Tensor:
+    """Double-chunked online-softmax attention: query chunks outer, KV
+    chunks inner with the (acc, m, l) accumulator resident; a masked
+    score is -1e30.  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd)."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    cq, ck = min(chunk, sq), min(chunk, skv)
+    nq, nk = -(-sq // cq), -(-skv // ck)
+    pad_q, pad_k = nq * cq - sq, nk * ck - skv
+    scale = _gqa_scores_scale(hd)
+    dev = q.device
+
+    qp = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    qpos = _pad_pos(q_pos, pad_q, -1, dev)
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    kpos = _pad_pos(kv_pos, pad_k, torch.iinfo(torch.int32).max, dev)
+
+    outs = []
+    for i in range(nq):
+        qi = qp[:, i * cq:(i + 1) * cq].reshape(b, cq, kvh, g, hd)
+        qpi = qpos[i * cq:(i + 1) * cq]
+        carry = (torch.zeros((b, kvh, g, cq, hd), device=dev),
+                 torch.full((b, kvh, g, cq), -1e30, device=dev),
+                 torch.zeros((b, kvh, g, cq), device=dev))
+        for j in range(nk):
+            ki = kp[:, j * ck:(j + 1) * ck]
+            vi = vp[:, j * ck:(j + 1) * ck]
+            kpi = kpos[j * ck:(j + 1) * ck]
+            s = torch.einsum("bqkgh,bskh->bkgqs", qi.to(torch.float32),
+                             ki.to(torch.float32)) * scale
+            mask = kpi[None, :] <= qpi[:, None]
+            if window:
+                mask &= kpi[None, :] > (qpi[:, None] - window)
+            s = s.masked_fill(~mask[None, None, None], -1e30)
+            vi32 = vi.to(torch.float32).transpose(1, 2)   # (B, KV, ck, hd)
+            carry = _online_update(carry, s, vi32[:, :, None])
+        acc, _, l = carry
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))           # (B, cq, KV, G, hd)
+    out = torch.cat(outs, dim=1).reshape(b, nq * cq, h, hd)
+    return out[:, :sq].to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, kv_pos, cur_pos,
+                     window: int = 0, chunk: int = 2048) -> torch.Tensor:
+    """Single-token attention against a cache (the reference's without
+    its ``axis_name`` combine).
+
+    q: (B, 1, H, hd); caches: (B, Skv, KV, hd); ``kv_pos`` gives the
+    absolute position of every cache slot (-1 = empty), on any device.
+    A slot is kept iff ``0 <= pos <= cur_pos`` (and ``pos > cur_pos -
+    window`` under a window); a masked score is -1e30."""
+    b, _, h, hd = q.shape
+    kvh = k_cache.shape[2]
+    g = h // kvh
+    scale = _gqa_scores_scale(hd)
+    skv = k_cache.shape[1]
+    ck = min(chunk, skv)
+    nk = -(-skv // ck)
+    pad = nk * ck - skv
+    dev = q.device
+    kp = F.pad(k_cache, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v_cache, (0, 0, 0, 0, 0, pad))
+    pp = _pad_pos(kv_pos, pad, -1, dev)
+    cur = int(cur_pos)
+    qg = q.reshape(b, kvh, g, 1, hd)     # Sq = 1
+    carry = (torch.zeros((b, kvh, g, 1, hd), device=dev),
+             torch.full((b, kvh, g, 1), -1e30, device=dev),
+             torch.zeros((b, kvh, g, 1), device=dev))
+    for j in range(nk):
+        ki = kp[:, j * ck:(j + 1) * ck]
+        vi = vp[:, j * ck:(j + 1) * ck]
+        pi = pp[j * ck:(j + 1) * ck]
+        s = torch.einsum("bkgqh,bskh->bkgqs", qg.to(torch.float32),
+                         ki.to(torch.float32)) * scale
+        mask = (pi >= 0) & (pi <= cur)
+        if window:
+            mask &= pi > (cur - window)
+        s = s.masked_fill(~mask[None, None, None, None], -1e30)
+        vi32 = vi.to(torch.float32).transpose(1, 2)
+        carry = _online_update(carry, s, vi32[:, :, None])
+    acc, _, l = carry
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+# --------------------------------------------------------------------------
+# parameter init helpers
+# --------------------------------------------------------------------------
+
+_KEEP_F32 = {"A_log", "D", "dt_bias", "router", "ln1", "ln2", "lnx",
+             "norm_w", "final_ln", "enc_ln"}
+
+
+def cast_params_for_compute(tree, dtype):
+    """Mixed precision: cast f32 master matmul weights to the compute
+    dtype at use (norm/router/SSM decay params stay f32).  A leaf's name
+    is its dict key (a list element has none); what is not a tensor
+    passes through."""
+    def f(node, name):
+        if isinstance(node, dict):
+            return {k: f(v, k) for k, v in node.items()}
+        if isinstance(node, list):
+            return [f(v, None) for v in node]
+        if isinstance(node, torch.Tensor) and node.dtype == torch.float32 \
+                and name not in _KEEP_F32 and node.dim() >= 2:
+            return node.to(dtype)
+        return node
+    return f(tree, None)
+
+
+def dense_init(key: torch.Generator | None, shape: tuple[int, ...], dtype,
+               fan_in: int | None = None, *, device=None) -> torch.Tensor:
+    """N(0, 1/fan_in) in f32, then ``dtype``, drawn from ``key`` on
+    ``device`` (the generator's own device).  On the ``meta`` device
+    (``key`` None) only the shape and type are made."""
+    if key is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    fan_in = fan_in if fan_in is not None else shape[0]
+    std = 1.0 / math.sqrt(fan_in)
+    dev = key.device if device is None else device
+    return (torch.randn(shape, generator=key, dtype=torch.float32,
+                        device=dev) * std).to(dtype)
+
+
+def split_keys(key: torch.Generator | None,
+               n: int) -> list[torch.Generator | None]:
+    """``n`` generators on ``key``'s device, seeded from ``key``'s stream
+    (``None`` stays ``None``: shapes only)."""
+    if key is None:
+        return [None] * n
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=key,
+                          device=key.device).tolist()
+    return [torch.Generator(device=key.device).manual_seed(s)
+            for s in seeds]

@@ -1,0 +1,253 @@
+"""Decoder stack — the port's copy of ``repro/models/transformer.py`` at
+tp = 1, for the families whose blocks are attention + dense FFN
+(dense decoders and the ``vision_stub`` VLM).
+
+``params["blocks"]`` and the decode caches are lists of per-block dicts
+(the reference stacks them on a leading axis and scans); a block's
+sublayers are ``sub0``, ``sub1``, ... as in the reference.  Each block's
+matmul weights are cast to the compute type as the block runs, as the
+reference does (``cast_params_for_compute``); weights made with
+``init_params(..., cast_blocks=True)`` are already of that type, so the
+cast is a no-op and the numbers are the same.  ``remat`` is a training
+matter and is ignored here.
+
+A ``mamba`` mixer or a ``moe`` FFN is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.embedding import embed_tokens, lm_logits
+from repro_torch.models.layers import (cast_params_for_compute, dense_init,
+                                       rms_norm, split_keys, swiglu)
+
+_NOT_PORTED = {
+    "mamba": "the mamba mixer (models/ssm.py) is not ported yet: "
+             "ROADMAP.md §1 item 6, after the MoE FFN",
+    "moe": "the MoE FFN (models/moe.py) is not ported yet: ROADMAP.md §1 "
+           "item 6, next in its queue",
+}
+
+
+# --------------------------------------------------------------------------
+# block structure
+# --------------------------------------------------------------------------
+
+def block_spec(cfg: ModelConfig) -> list[tuple[str, str | None]]:
+    """Sublayers of one block: (mixer, ffn) kinds."""
+    if cfg.family == "ssm":
+        return [("mamba", None)]
+    if cfg.family == "hybrid":
+        out = []
+        for i in range(cfg.attn_every):
+            mixer = "attn" if i == 0 else "mamba"
+            ffn = "moe" if (i % cfg.moe_every == 1) else "dense"
+            out.append((mixer, ffn))
+        return out
+    ffn = "moe" if cfg.family == "moe" else "dense"
+    return [("attn", ffn)]
+
+
+def n_blocks(cfg: ModelConfig) -> int:
+    return max(1, cfg.n_layers // len(block_spec(cfg)))
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a block kind not ported yet."""
+    for mixer, ffn in block_spec(cfg):
+        for kind in (mixer, ffn):
+            if kind in _NOT_PORTED:
+                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def _init_ffn(key, cfg, dtype):
+    ks = split_keys(key, 3)
+    return {
+        "wg": dense_init(ks[0], (cfg.d_model, cfg.d_ff), dtype),
+        "wi": dense_init(ks[1], (cfg.d_model, cfg.d_ff), dtype),
+        "wo": dense_init(ks[2], (cfg.d_ff, cfg.d_model), dtype,
+                         fan_in=cfg.d_ff),
+    }
+
+
+def _ones(d: int, key) -> torch.Tensor:
+    return torch.ones((d,), dtype=torch.float32,
+                      device="meta" if key is None else key.device)
+
+
+def _init_block(key, cfg: ModelConfig, tp: int):
+    nh, nkv = cfg.padded_heads(tp)
+    dtype = cfg.param_dtype
+    subs = {}
+    keys = split_keys(key, len(block_spec(cfg)))
+    for j, (_mixer, ffn) in enumerate(block_spec(cfg)):
+        ks = split_keys(keys[j], 2)
+        sub: dict[str, Any] = {"ln1": _ones(cfg.d_model, key)}
+        sub["attn"] = attn_mod.init_attention(
+            ks[0], cfg.d_model, nh, nkv, cfg.head_dim, dtype)
+        if ffn is not None:
+            sub["ln2"] = _ones(cfg.d_model, key)
+            sub["ffn"] = _init_ffn(ks[1], cfg, dtype)
+        subs[f"sub{j}"] = sub
+    return subs
+
+
+def init_params(cfg: ModelConfig, key: torch.Generator | None, tp: int = 1,
+                *, cast_blocks: bool = False):
+    """Weights drawn from ``key`` on its device (``None``: shapes only,
+    on the ``meta`` device).  ``cast_blocks`` casts each block's matmul
+    weights to ``cfg.compute_dtype`` as the block is made and keeps only
+    those: what the reference computes at every step, made once, so a
+    14B-parameter model's bf16 blocks fit beside nothing else of it."""
+    check_ported(cfg)
+    kb, ke, kh = split_keys(key, 3)
+    blocks = []
+    for k in split_keys(kb, n_blocks(cfg)):
+        block = _init_block(k, cfg, tp)
+        if cast_blocks:
+            block = cast_params_for_compute(block, cfg.compute_dtype)
+        blocks.append(block)
+    params = {
+        "embed": dense_init(ke, (cfg.padded_vocab(tp), cfg.d_model),
+                            cfg.param_dtype),
+        "blocks": blocks,
+        "final_ln": _ones(cfg.d_model, key),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(
+            kh, (cfg.padded_vocab(tp), cfg.d_model), cfg.param_dtype)
+    return params
+
+
+# --------------------------------------------------------------------------
+# forward (prefill)
+# --------------------------------------------------------------------------
+
+def _apply_dense_ffn(p, h):
+    return swiglu(h, p["wg"], p["wi"], p["wo"])
+
+
+def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
+                      want_cache, max_seq, attn, tap):
+    _mixer, ffn = kind
+    cache_out = {}
+    hn = rms_norm(h, sub["ln1"], cfg.norm_eps)
+    out, (k, v) = attn_mod.attention_block(sub["attn"], hn, pos, cfg, nh,
+                                           nkv, attn=attn, tap=tap)
+    if want_cache:
+        cache_out = attn_mod.cache_from_prefill(k, v, pos_host, max_seq,
+                                                cfg.window)
+    h = h + out
+    if ffn is not None:
+        hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
+        h = h + _apply_dense_ffn(sub["ffn"], hn)
+    return h, cache_out
+
+
+def _tap(tap, layer: int):
+    return None if tap is None else functools.partial(tap, layer)
+
+
+def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
+            prefix_embeds=None, want_cache: bool = False,
+            max_seq: int | None = None, attn: str = "kernel", tap=None):
+    """Full-sequence forward.  Returns (h_final, caches_or_None).
+    ``tap(layer, q, k, v, out, window=, causal=)`` sees every K4 call."""
+    check_ported(cfg)
+    nh, nkv = cfg.padded_heads(tp)
+    spec = block_spec(cfg)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev)
+    b, s = tokens.shape
+    max_seq = max_seq or s
+    h = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
+    if prefix_embeds is not None:
+        pl = prefix_embeds.shape[1]
+        h[:, :pl] = torch.as_tensor(prefix_embeds, device=dev).to(
+            cfg.compute_dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=dev)
+    pos_host = np.arange(s, dtype=np.int32)
+    caches = []
+    for i, block_params in enumerate(params["blocks"]):
+        block_params = cast_params_for_compute(block_params,
+                                               cfg.compute_dtype)
+        block_caches = {}
+        for j, kind in enumerate(spec):
+            h, c = _sublayer_forward(
+                block_params[f"sub{j}"], kind, h, pos, pos_host, cfg, nh,
+                nkv, want_cache, max_seq, attn,
+                _tap(tap, i * len(spec) + j))
+            block_caches[f"sub{j}"] = c
+        caches.append(block_caches)
+    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return h, caches if want_cache else None
+
+
+# --------------------------------------------------------------------------
+# decode
+# --------------------------------------------------------------------------
+
+def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
+                    tp: int = 1, *, device="cpu"):
+    """Per-block empty decode caches (a list, one dict per block)."""
+    check_ported(cfg)
+    _nh, nkv = cfg.padded_heads(tp)
+    kv_dtype = cfg.kv_cache_dtype or cfg.compute_dtype
+    return [{f"sub{j}": attn_mod.init_cache(batch, max_seq, nkv,
+                                            cfg.head_dim, cfg.window,
+                                            kv_dtype, device=device)
+             for j in range(len(block_spec(cfg)))}
+            for _ in range(n_blocks(cfg))]
+
+
+def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
+                tp: int = 1, *, attn: str = "kernel", tap=None):
+    """One serve step: token (B, 1) ints, cur_pos a scalar position.
+    Writes each block's cache in place; returns (logits (B, V), caches).
+    """
+    check_ported(cfg)
+    nh, nkv = cfg.padded_heads(tp)
+    spec = block_spec(cfg)
+    dev = params["embed"].device
+    cur = int(cur_pos)
+    h = embed_tokens(params["embed"], torch.as_tensor(token, device=dev)
+                     ).to(cfg.compute_dtype)
+    for i, (block_params, block_caches) in enumerate(
+            zip(params["blocks"], caches)):
+        block_params = cast_params_for_compute(block_params,
+                                               cfg.compute_dtype)
+        for j, (_mixer, ffn) in enumerate(spec):
+            sub = block_params[f"sub{j}"]
+            out, block_caches[f"sub{j}"] = attn_mod.decode_block(
+                sub["attn"], rms_norm(h, sub["ln1"], cfg.norm_eps),
+                block_caches[f"sub{j}"], cur, cfg, nh, nkv, attn=attn,
+                tap=_tap(tap, i * len(spec) + j))
+            h = h + out
+            if ffn is not None:
+                hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
+                h = h + _apply_dense_ffn(sub["ffn"], hn)
+    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    table = params.get("lm_head", params["embed"])
+    return lm_logits(h, table, cfg.vocab), caches
+
+
+def prefill(params, tokens, cfg: ModelConfig, tp: int = 1, *,
+            prefix_embeds=None, max_seq: int | None = None,
+            attn: str = "kernel", tap=None):
+    """Run the full prompt, return (last-token logits, caches)."""
+    h, caches = forward(params, tokens, cfg, tp,
+                        prefix_embeds=prefix_embeds, want_cache=True,
+                        max_seq=max_seq, attn=attn, tap=tap)
+    table = params.get("lm_head", params["embed"])
+    return lm_logits(h[:, -1:], table, cfg.vocab), caches

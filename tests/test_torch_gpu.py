@@ -1399,3 +1399,43 @@ def test_traced_dispatch_times_each_layer_on_the_card(cuda):
     assert all(d > 0 for d in dev)
     assert all(k.attrs["device_gbps"] > 0 for k in kernels)
     assert sum(dev) <= fwd.dur * 1e6
+
+
+@pytest.mark.parametrize("dtype,route,tol", [
+    (torch.float32, "sm90_tf32", 1e-4), (torch.bfloat16, "sm90", 2e-2)])
+def test_reduced_lm_decode_runs_k4(cuda, dtype, route, tol):
+    """A reduced phi3 (head dim 128, window 8) on the card: a 12-token
+    prefill, then 4 decode steps across the 8-slot ring's wrap, each
+    attention one K4 launch on the route of its type and nothing on any
+    other, the logits within ``tol`` of max |plain| of the same calls
+    with ``attn="plain"`` (f32: sums in other orders; bf16: activations
+    rounded after attentions that round differently)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.api import build
+    cfg = dataclasses.replace(
+        reduced(get_config("phi3-medium-14b"), head_dim=128, window=8),
+        compute_dtype=dtype)
+    api = build(cfg)
+    params = api.init(torch.Generator(device=cuda).manual_seed(0),
+                      cast_blocks=True)
+    toks = torch.randint(0, cfg.vocab, (2, 16),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = dict(K4.attention.launches_by_route)
+    got, caches = api.prefill(params, {"tokens": toks[:, :12]}, max_seq=32)
+    want, plain_caches = api.prefill(params, {"tokens": toks[:, :12]},
+                                     max_seq=32, attn="plain")
+    _close(got, want, tol)
+    for pos in range(12, 16):
+        got, caches = api.decode_step(params, caches, toks[:, pos:pos + 1],
+                                      pos)
+        want, plain_caches = api.decode_step(params, plain_caches,
+                                             toks[:, pos:pos + 1], pos,
+                                             attn="plain")
+        _close(got, want, tol)
+    torch.cuda.synchronize()
+    launched = {r: K4.attention.launches_by_route[r] - before[r]
+                for r in before}
+    assert launched == dict.fromkeys(K4.ROUTES, 0) | {
+        route: 5 * cfg.n_layers}
+    assert caches[0]["sub0"]["pos"].tolist() == list(range(8, 16))

@@ -1,0 +1,138 @@
+"""The port's continuous-batching ``BatchedServer`` on the CPU against the
+reference's, on the same weights and requests.
+
+The reference's server cannot be built as it is under the installed JAX
+(its mesh's sharding constraints raise inside ``constrain``), so the
+reference side here is its own ``BatchedServer.step`` driven mesh-free:
+the object made without ``__init__``, with no axis rules and no mesh
+(``constrain`` is then a no-op), its decode the reference's
+``build(cfg).decode_step`` under ``jax.jit``, its params the ones the
+port gets through ``repro_torch.convert``.  Both run the reference's
+``test_serve_continuous_batching`` scenario (phi3 reduced to d_model 32,
+vocab 64, one layer; 2 slots, max_seq 48, 4 requests of 3 prompt tokens
+and 4 new ones): every step feeds the same tokens, its logits agree
+within 1e-5 of max |ref|, its greedy tokens are equal, every request
+completes and freed slots are reused.  Then the CLI on the CPU.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.launch import serve as jax_serve
+from repro.models.api import build as jax_build
+from repro_torch.configs import get_config, reduced
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.launch.serve import BatchedServer, Request
+
+REPO = Path(__file__).resolve().parent.parent
+SCENARIO = dict(d_model=32, vocab=64, n_layers=1, attn_chunk=32)
+SLOTS, MAX_SEQ = 2, 48
+
+
+def _reference_server(jcfg, jparams, record):
+    """The reference's ``BatchedServer`` with no mesh, each decode's
+    tokens, position and logits appended to ``record``."""
+    api = jax_build(jcfg, tp=1)
+    decode = jax.jit(api.decode_step)
+
+    def recorded(params, caches, tok, pos):
+        logits, caches = decode(params, caches, tok, pos)
+        record.append((np.asarray(tok), int(pos), np.asarray(logits)))
+        return logits, caches
+
+    server = object.__new__(jax_serve.BatchedServer)
+    server.cfg, server.mesh = jcfg, None
+    server.slots, server.max_seq = SLOTS, MAX_SEQ
+    server.api, server.rules = api, {}
+    server.params = jparams
+    server.caches = api.init_cache(SLOTS, MAX_SEQ)
+    server._decode = recorded
+    server.active, server.queue, server.pos = {}, [], 0
+    return server
+
+
+def _requests(cls):
+    return [cls(rid=rid, prompt=[1 + rid, 2, 3], max_new=4)
+            for rid in range(4)]
+
+
+def _drive(server, reqs, slots_seen):
+    for r in reqs:
+        server.submit(r)
+    steps = 0
+    while (server.active or server.queue) and steps < MAX_SEQ:
+        out = server.step()
+        slots_seen.append({s: r.rid for s, r in server.active.items()})
+        steps += 1
+        yield out
+
+
+def test_serve_continuous_batching_matches_the_reference_server():
+    jcfg = jax_reduced(jax_get_config("phi3-medium-14b"), **SCENARIO)
+    cfg = reduced(get_config("phi3-medium-14b"), **SCENARIO)
+    jparams = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray,
+                                                         jparams),
+                                  device="cpu")
+    record = []
+    ref = _reference_server(jcfg, jparams, record)
+    ref_reqs = _requests(jax_serve.Request)
+    list(_drive(ref, ref_reqs, []))
+
+    server = BatchedServer(cfg, slots=SLOTS, max_seq=MAX_SEQ, device="cpu",
+                           params=params)
+    reqs = _requests(Request)
+    seen = []
+    steps = list(_drive(server, reqs, seen))
+
+    assert len(steps) == len(record) == server.pos
+    for pos, ((tok, logits), (ref_tok, ref_pos, ref_logits)) in enumerate(
+            zip(steps, record)):
+        assert pos == ref_pos
+        np.testing.assert_array_equal(tok.numpy(), ref_tok)
+        err = np.abs(logits.numpy() - ref_logits).max()
+        assert err <= 1e-5 * np.abs(ref_logits).max(), (pos, err)
+        np.testing.assert_array_equal(logits.argmax(-1).numpy(),
+                                      ref_logits.argmax(-1))
+    assert [r.out for r in reqs] == [r.out for r in ref_reqs]
+    assert all(r.done and len(r.out) >= 4 for r in reqs)
+    assert not server.active and not server.queue
+    # freed slots were reused: each slot served more than one request
+    served = {}
+    for active in seen:
+        for slot, rid in active.items():
+            served.setdefault(slot, set()).add(rid)
+    assert sorted(served) == [0, 1]
+    assert all(len(rids) >= 2 for rids in served.values())
+
+
+def test_server_draws_its_own_weights_from_a_seed():
+    cfg = reduced(get_config("phi3-medium-14b"), **SCENARIO)
+    a = BatchedServer(cfg, slots=SLOTS, max_seq=8, device="cpu", seed=3)
+    b = BatchedServer(cfg, slots=SLOTS, max_seq=8, device="cpu", seed=3)
+    wq = a.params["blocks"][0]["sub0"]["attn"]["wq"]
+    assert wq.dtype == cfg.compute_dtype
+    assert all(np.array_equal(x["sub0"]["attn"]["wq"].numpy(),
+                              y["sub0"]["attn"]["wq"].numpy())
+               for x, y in zip(a.params["blocks"], b.params["blocks"]))
+    assert a.step() is None      # nothing submitted, nothing run
+
+
+def test_serve_cli_on_the_cpu():
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu", "--requests", "3", "--gen", "4"],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[-2] == "cpu"
+    assert lines[-1].startswith("served 3 requests, 12 tokens in ")
+    assert lines[-1].endswith("over 11 steps")
