@@ -96,15 +96,40 @@
     new tokens, max_seq 128; weights drawn on the card, cast once):
     every request completes, 40 K4 launches a decode step on ``sm90``
     and no other kernel of K1-K4, no plain attention (patched to
-    raise); each step replayed from a clone of its caches with the plain
-    attention, the logits within 2e-2 of max |plain|, the decode gather
-    without the newest slot shown to fail that gate; every layer's K4
+    raise); each step replayed from a clone of its caches: every K4 call
+    within ``CARD_TOL`` of the plain version on its own inputs, the
+    logits within 2e-2 of max |plain| of the plain attention's, the
+    decode gather without the newest slot shown to fail that gate; every layer's K4
     output on a 4096-token prefill and the decode step after it within
     ``CARD_TOL``; step and prefill times, tokens/s, peak memory, one
     step's enqueue, wall and profiled device time; K4 alone at the
     decode and prefill shapes beside its bound and SDPA; then 4 layers
     in f32 (``sm90_tf32``): the served logits, decode against prefill
     and a window-64 ring's wrap within ``TOL``;
+  * ``lm_serve_moe``, ``lm_serve_moe_f32``: mixtral-8x7b at full width
+    (8 experts, top-2, capacity factor 1.25, window 4096) and 20 of its
+    32 blocks in bf16 through ``BatchedServer`` at the same defaults:
+    every request completes, 20 K4 ``sm90`` launches a decode step and
+    nothing else of K1-K4, no plain attention; each step replayed under
+    the served routing (the MoE layers' choices recorded in the served
+    step; the replay's own flips counted): every K4 call of every step
+    within ``CARD_TOL`` of the plain version on its own inputs, the
+    logits within 2e-2 of max |plain| of the plain replay's, the gather
+    control failing that gate; the pairs the capacity dropped per
+    step; every layer's K4 on an
+    8192-token prefill (a 4096-slot ring) and the decode step after it
+    within ``CARD_TOL``; step, prefill and tokens/s, one step's device
+    time beside the byte bound of the weights it reads, peak memory; K4
+    alone at mixtral's decode shape and its windowed 8192-token
+    prefill; then 4 blocks in f32 as ``lm_serve_f32`` does;
+  * ``lm_serve_ssm``: mamba2-1.3b at full width and depth in bf16
+    through ``BatchedServer`` (no K1-K4 launch: attention-free), step
+    time, tokens/s, peak; in f32 decode against a 600-token prefill
+    (two 256-row chunks and a padded third) within ``TOL``;
+  * ``lm_serve_hybrid``: jamba-1.5-large-398b at ``reduced()`` size in
+    f32 (one full-width block is 88.1 GB): one K4 ``sm90_tf32`` launch
+    a decode step, the served logits (under the served routing) and
+    decode against prefill within ``TOL``;
   * ``plan_audit``: the ``sm90`` legality profile
     (``repro_torch.analysis.plan_check``) on the card, running no
     kernel: the card's opt-in shared memory a block, SM count and
@@ -153,8 +178,10 @@ call of the kernel and of the library (``host_us``,
 
     python3 chip_smoke.py        # on a host with one NVIDIA H100
 
-Every phase prints one JSON line; any failed phase raises and the
-script exits non-zero.  The last line is
+Every phase prints one JSON line; any failed check raises and the
+script exits non-zero, except the LM paths' end-to-end logits gates:
+a miss there is printed to stderr, the phases run on, and the script
+exits non-zero after the kernels' line.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -180,7 +207,7 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.analysis import plan_check as PC  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
                                              PEAK_BF16_FLOPS,
                                              PEAK_F32_FLOPS,
@@ -215,6 +242,8 @@ from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
 from repro_torch.models import attention as LM_A  # noqa: E402
+from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import transformer as LM_T  # noqa: E402
 from repro_torch.models.api import build as build_lm  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph,
@@ -275,6 +304,21 @@ def emit(obj: dict) -> None:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+#: the gates missed by :func:`expect`, each failing the smoke at its end
+MISSED: list[str] = []
+
+
+def expect(cond: bool, what: str) -> None:
+    """A gate whose miss fails the smoke once every phase has run and
+    the kernels' line is printed (not at once, as :func:`require`
+    does), so that one end-to-end gate's miss leaves the other phases'
+    readings whole."""
+    if not cond:
+        print(f"chip_smoke: gate missed: {what}", file=sys.stderr,
+              flush=True)
+        MISSED.append(what)
 
 
 def card_line() -> str:
@@ -1889,11 +1933,13 @@ ATTN_LONG = [
     (1, 2048, 2048, 2, 2, 64, 0, False),
 ]
 #: the LM path's decode shapes (phi3-medium-14b at batch 4: one query
-#: row against 1, 37 and 128 kept cache slots, no causal mask)
+#: row against 1, 37 and 128 kept cache slots, no causal mask; and
+#: mixtral-8x7b's: 32 heads over 8 kv heads against 128 slots)
 ATTN_DECODE = [
     (4, 1, 1, 40, 10, 128, 0, False),
     (4, 1, 37, 40, 10, 128, 0, False),
     (4, 1, 128, 40, 10, 128, 0, False),
+    (4, 1, 128, 32, 8, 128, 0, False),
 ]
 
 
@@ -2576,16 +2622,16 @@ def lm_requests(cfg, seed: int) -> list:
 
 def serve_lm(server, reqs, k4_route: str, per_step: int):
     """``server`` over ``reqs`` until every request completes: each step
-    from a clone of the caches it starts from, timed on the host clock
-    (a step ends in the greedy choice's copy to the host), its K4
-    launches ``per_step`` on ``k4_route`` and none elsewhere, required.
-    Returns each step's (caches before, tokens, pos, logits) and its
-    seconds."""
+    from a clone of the caches it starts from, timed on the host clock (a step ends in the greedy
+    choice's copy to the host), its K4 launches ``per_step`` on
+    ``k4_route`` and none elsewhere, required.  Returns each step's
+    (caches before, tokens, pos, logits) and its seconds."""
     for r in reqs:
         server.submit(r)
     steps, secs = [], []
     while (server.active or server.queue) and len(steps) < server.max_seq:
-        before, pos = clone_caches(server.caches), server.pos
+        before = clone_caches(server.caches)
+        pos = server.pos
         k4 = dict(K4.attention.launches_by_route)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2601,37 +2647,136 @@ def serve_lm(server, reqs, k4_route: str, per_step: int):
     return steps, secs
 
 
+#: the port's own router, whatever a replay patches in its place
+_ROUTER_TOP_K = MOE.router_top_k
+
+
+class Routing:
+    """Each served step's expert choices (:meth:`record`: every MoE
+    layer's ``idx`` in call order, ``per_step`` a step), handed back in
+    a replay of that step (:meth:`served`) with gates from the replay's
+    own probabilities at them: with MoE, one bf16 ulp upstream can flip a
+    near-tied top-k choice and move a token's FFN output in a jump,
+    which would fail a replay for a reason that is not the attention's.
+    ``flips`` counts the (token, layer) rows whose own top-k set differs
+    from the served one."""
+
+    def __init__(self, per_step: int):
+        self.per_step = per_step
+        self.calls: list[torch.Tensor] = []
+        self.flips = 0
+        self.rows = 0
+
+    def record(self):
+        def rec(x, router, top_k):
+            gates, idx = _ROUTER_TOP_K(x, router, top_k)
+            self.calls.append(idx)
+            return gates, idx
+        return patched((MOE, "router_top_k", rec))
+
+    def step(self, i: int) -> list:
+        return self.calls[i * self.per_step:(i + 1) * self.per_step]
+
+    def served(self, i: int, count: bool = False):
+        served = iter(self.step(i))
+
+        def replay(x, router, top_k):
+            want = next(served)
+            probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+            if count:
+                _, own = _ROUTER_TOP_K(x, router, top_k)
+                self.flips += int((own.sort(-1).values
+                                   != want.sort(-1).values).any(-1).sum())
+                self.rows += own.shape[0]
+            gates = probs.gather(-1, want)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            return gates, want
+        return patched((MOE, "router_top_k", replay))
+
+    def dropped(self, i: int, n_experts: int, cap: int) -> int:
+        """Pairs the capacity dropped in served step ``i``: per layer and
+        expert, its choices past ``cap``."""
+        return sum(int(torch.clamp(torch.bincount(
+            idx.reshape(-1), minlength=n_experts) - cap, min=0).sum())
+            for idx in self.step(i))
+
+
 def _rel(out, ref, vocab: int) -> float:
     out, ref = out[..., :vocab].float(), ref[..., :vocab].float()
     return (out - ref).abs().max().item() / ref.abs().max().item()
 
 
-def replay_plain(api, params, steps, tol: float, what: str) -> dict:
-    """Each served step again from a clone of its caches with the plain
-    attention: the served logits' max error over max |plain| (required
-    within ``tol``) and the steps whose greedy tokens agree."""
-    worst, agree = 0.0, 0
-    for caches, tok, pos, logits in steps:
-        plain, _ = api.decode_step(params, clone_caches(caches), tok, pos,
-                                   attn="plain")
-        worst = max(worst, _rel(logits, plain, api.cfg.vocab))
+def _recorded(routing):
+    return routing.record() if routing else contextlib.nullcontext()
+
+
+def _routed(routing, i: int, count: bool = False):
+    return routing.served(i, count) if routing else contextlib.nullcontext()
+
+
+def replay_plain(api, params, steps, tol: float, what: str,
+                 routing: Routing | None = None) -> dict:
+    """Each served step again from a clone of its caches (under the
+    served routing, where there are experts; the replay's own flips
+    counted):
+
+      * with the plain attention: the served logits' max error over max
+        |plain| against ``tol`` (:func:`expect`: a miss fails the smoke
+        after its last phase);
+      * the served path with a tap on every K4 call: each output held to
+        the plain version on the same q/k/v at ``CARD_TOL`` (required:
+        the kernel, teacher-forced at every call of every step), and the
+        step's logits equal to the served ones bit for bit (required).
+
+    Also the steps whose greedy tokens agree."""
+    dtype = api.cfg.compute_dtype
+    errs, per_call, agree = [], [], 0
+
+    def tap(layer, q, k, v, out, *, window, causal):
+        per_call.append(within(out, plain_attention(
+            q, k, v, window=window, causal=causal), dtype)["worst_over_tol"])
+    for i, (caches, tok, pos, logits) in enumerate(steps):
+        with _routed(routing, i, count=True):
+            plain, _ = api.decode_step(params, clone_caches(caches), tok,
+                                       pos, attn="plain")
+        with _routed(routing, i):
+            again, _ = api.decode_step(params, clone_caches(caches), tok,
+                                       pos, tap=tap)
+        require(torch.equal(again, logits),
+                f"{what}: the served step at pos {pos} did not repeat")
+        errs.append(_rel(logits, plain, api.cfg.vocab))
         agree += bool(torch.equal(logits.argmax(-1), plain.argmax(-1)))
-    require(worst <= tol, f"{what}: served logits err {worst} of max "
-                          f"|plain| > {tol}")
-    return {"max_err_over_max_plain": worst, "gate": tol,
-            "steps_greedy_equal": agree, "steps": len(steps)}
+    require(len(per_call) == attention_layers(api.cfg) * len(steps)
+            and max(per_call) <= 1.0,
+            f"{what}: K4 calls against the plain version, worst "
+            f"{max(per_call)} of CARD_TOL over {len(per_call)} calls")
+    worst = max(errs)
+    expect(worst <= tol, f"{what}: served logits err {worst} of max "
+                         f"|plain| > {tol}")
+    out = {"max_err_over_max_plain": worst, "gate": tol,
+           "within_gate": worst <= tol, "err_over_max_plain_by_step": errs,
+           "per_call_worst_over_card_tol": max(per_call),
+           "per_call_calls": len(per_call),
+           "steps_greedy_equal": agree, "steps": len(steps)}
+    if routing:
+        out.update(routing="served", routing_flips=routing.flips,
+                   routing_rows=routing.rows)
+    return out
 
 
-def control_drop_newest(api, params, steps, tol: float) -> list:
+def control_drop_newest(api, params, steps, tol: float,
+                        routing: Routing | None = None) -> list:
     """The decode gather without the current token's own key, at the
     steps of :data:`LM_CONTROL_POS`: each must fail ``tol``."""
     rows = []
-    for caches, tok, pos, _logits in steps:
+    for i, (caches, tok, pos, _logits) in enumerate(steps):
         if pos not in LM_CONTROL_POS:
             continue
-        plain, _ = api.decode_step(params, clone_caches(caches), tok, pos,
-                                   attn="plain")
-        with drop_newest_slot():
+        with _routed(routing, i):
+            plain, _ = api.decode_step(params, clone_caches(caches), tok,
+                                       pos, attn="plain")
+        with drop_newest_slot(), _routed(routing, i):
             wrong, _ = api.decode_step(params, clone_caches(caches), tok,
                                        pos)
         err = _rel(wrong, plain, api.cfg.vocab)
@@ -2642,10 +2787,13 @@ def control_drop_newest(api, params, steps, tol: float) -> list:
     return rows
 
 
-def per_layer_k4(api, params, dtype, gen) -> dict:
-    """One prefill (batch 1, :data:`LM_PREFILL_S` tokens) and one decode
-    step after it with a tap on every K4 call: each layer's output held
-    to the plain version on the same inputs at ``CARD_TOL``."""
+def per_layer_k4(api, params, dtype, gen, length: int = LM_PREFILL_S
+                 ) -> dict:
+    """One prefill (batch 1, ``length`` tokens) and one decode step
+    after it (max_seq ``length`` + 1: under a window shorter than that,
+    a ring) with a tap on every K4 call: each layer's output held to
+    the plain version on the same inputs (the window's, the causal
+    mask's) at ``CARD_TOL``."""
     rows = {"prefill": [], "decode": []}
 
     def tap(kind):
@@ -2655,11 +2803,11 @@ def per_layer_k4(api, params, dtype, gen) -> dict:
             rows[kind].append({"layer": layer, "skv": k.shape[1], **r})
         return check
 
-    toks = torch.randint(0, api.cfg.vocab, (1, LM_PREFILL_S + 1),
+    toks = torch.randint(0, api.cfg.vocab, (1, length + 1),
                          generator=gen).cuda()
     _, caches = api.prefill(params, {"tokens": toks[:, :-1]},
-                            max_seq=LM_PREFILL_S + 1, tap=tap("prefill"))
-    api.decode_step(params, caches, toks[:, -1:], LM_PREFILL_S,
+                            max_seq=length + 1, tap=tap("prefill"))
+    api.decode_step(params, caches, toks[:, -1:], length,
                     tap=tap("decode"))
     out = {}
     for kind, rs in rows.items():
@@ -2674,17 +2822,17 @@ def per_layer_k4(api, params, dtype, gen) -> dict:
 
 
 def k4_lm_rows(cfg, dtype, gen, flush, card: str, shapes) -> list:
-    """K4 alone at the LM path's shapes, ``(what, b, sq, skv, causal)``:
-    held to the plain version, timed (one flushed call, and back to back
-    on the card alone: ``device_ms``) beside its bound, the plain
-    version and ``F.scaled_dot_product_attention``, the host's
-    enqueue."""
+    """K4 alone at the LM path's shapes, ``(what, b, sq, skv, causal,
+    window)``: held to the plain version, timed (one flushed call, and
+    back to back on the card alone: ``device_ms``) beside its bound
+    (the pairs the window and the causal mask leave), the plain version
+    and ``F.scaled_dot_product_attention``, the host's enqueue."""
     rows = []
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    for what, b, sq, skv, causal in shapes:
+    for what, b, sq, skv, causal, window in shapes:
         q = _randn(gen, b, sq, h, hd).to(dtype)
         k, v = (_randn(gen, b, skv, kv, hd).to(dtype) for _ in range(2))
-        kw = dict(window=0, causal=causal)
+        kw = dict(window=window, causal=causal)
         chk = within(flash_attention(q, k, v, **kw),
                      plain_attention(q, k, v, **kw), dtype)
         require(chk["worst_over_tol"] <= 1.0,
@@ -2692,7 +2840,7 @@ def k4_lm_rows(cfg, dtype, gen, flush, card: str, shapes) -> list:
         qf, kf, vf = (heads_first(t) for t in (q, k, v))
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         rt = K4.route(qf, kf, vf)
-        pairs = b * h * unmasked_pairs(sq, skv, 0, causal)
+        pairs = b * h * unmasked_pairs(sq, skv, window, causal)
         flops = 4.0 * hd * pairs
         n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
         library = _library_attention(qh, kh, vh, **kw)
@@ -2703,7 +2851,7 @@ def k4_lm_rows(cfg, dtype, gen, flush, card: str, shapes) -> list:
         row = {"phase": "lm_attention", "config": cfg.name, "what": what,
                "shape": {"b": b, "sq": sq, "skv": skv, "h": h, "kv": kv,
                          "hd": hd},
-               "causal": causal, "dtype": str(dtype), "route": rt, **chk,
+               "causal": causal, "window": window, "dtype": str(dtype), "route": rt, **chk,
                "ms": _time_ms(kernel, flush),
                "device_ms": _device_ms(kernel),
                "plain_ms": _time_ms(lambda: plain_attention(q, k, v, **kw),
@@ -2765,38 +2913,36 @@ def _median(xs: list) -> float:
     return float(np.median(xs))
 
 
-def phase_lm_serve(card: str) -> dict:
-    """phi3-medium-14b at full width and depth in bf16 through
-    ``repro_torch.launch.serve.BatchedServer`` (the reference server's
-    defaults: 6 requests of 8 prompt tokens, 4 slots, 16 new tokens,
-    max_seq 128), weights drawn on the card from the seed and cast once
-    block by block: every request completes, every decode step launches
-    K4 40 times on ``sm90`` and nothing else of K1-K4, no plain
-    attention runs (each raises); each step replayed from a clone of its
-    caches with the plain attention, the served logits within
-    :data:`LM_BF16_TOL` of max |plain|, and the control (the gather
-    without the newest slot) failing that gate; every layer's K4 output
-    on one 4096-token prefill and one decode step after it within the
-    bf16 ``CARD_TOL``; the median step, tokens/s, the host's and the
-    card's time of one step, the prefill's time, peak memory; K4 alone
-    at the decode and prefill shapes.  Then the same config cut to 4
-    layers in f32 (:func:`lm_f32`).  Returns the launches of both
-    runs."""
-    torch.cuda.empty_cache()
-    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
-    gen = torch.Generator().manual_seed(SEED + 11)
-    cfg = get_config(LM_ARCH)
+def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
+    """``cfg`` in bf16 through ``repro_torch.launch.serve.BatchedServer``
+    (the reference server's defaults: 6 requests of 8 prompt tokens, 4
+    slots, 16 new tokens, max_seq 128), weights drawn on the card from
+    the seed and cast once block by block: every request completes,
+    every decode step launches K4 once a layer on ``sm90`` and nothing
+    else of K1-K4, no plain attention runs (each raises); each step
+    replayed from a clone of its caches (:func:`replay_plain`, with
+    experts under the served routing): every K4 call within the bf16
+    ``CARD_TOL``, the logits within :data:`LM_BF16_TOL` of max |plain|
+    of the plain attention's, and the control (the gather without the
+    newest slot) failing that gate; every layer's K4 output on
+    one ``length``-token prefill and one decode step after it within
+    the bf16 ``CARD_TOL``; the median step, tokens/s, the host's and
+    the card's time of one step beside the byte bound of the weights a
+    step reads, the prefill's time, peak memory; K4 alone at the decode
+    and prefill shapes.  Returns the phase's row, its launches and the
+    K4 rows."""
+    _free()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
                            device="cuda", seed=SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    weights = sum(t.numel() * t.element_size() for t in _tensors(
-        server.params))
+    weights = _nbytes(server.params)
     reqs = lm_requests(cfg, SEED + 12)
+    routing = Routing(moe_layers(cfg)) if cfg.n_experts else None
     counts = {}
-    with counted(counts), no_plain_attention():
+    with counted(counts), no_plain_attention(), _recorded(routing):
         steps, secs = serve_lm(server, reqs, "sm90", cfg.n_layers)
     serve_peak = torch.cuda.max_memory_allocated()
     require(counts["attention"]["sm90"] == cfg.n_layers * len(steps)
@@ -2804,56 +2950,87 @@ def phase_lm_serve(card: str) -> dict:
             == counts["attention"]["sm90"]
             and not any(n for name in ("conv_lb", "wgrad_lb", "matmul_lb")
                         for n in counts[name].values()),
-            f"lm_serve launches {counts}")
+            f"{phase} launches {counts}")
     api, params = server.api, server.params
-    teacher = replay_plain(api, params, steps, LM_BF16_TOL, "lm_serve")
-    controls = control_drop_newest(api, params, steps, LM_BF16_TOL)
+    extra = {}
+    teacher = replay_plain(api, params, steps, LM_BF16_TOL, phase, routing)
+    if routing:
+        cap = MOE.bin_capacity(LM_SLOTS, cfg.top_k, cfg.n_experts,
+                               cfg.capacity_factor)
+        dropped = [routing.dropped(i, cfg.n_experts, cap)
+                   for i in range(len(steps))]
+        extra = {"n_experts": cfg.n_experts, "top_k": cfg.top_k,
+                 "capacity_factor": cfg.capacity_factor,
+                 "decode_capacity": cap, "dropped_pairs_per_step": dropped,
+                 "dropped_pairs": sum(dropped),
+                 "block_weights_gb": _nbytes(params["blocks"]) / 1e9}
+    controls = control_drop_newest(api, params, steps, LM_BF16_TOL,
+                                   routing)
     timing = profile_decode_step(api, params, steps)
     generated = sum(len(r.out) for r in reqs)
-    del steps
-    layers = per_layer_k4(api, params, cfg.compute_dtype, gen)
-    toks = torch.randint(0, cfg.vocab, (1, LM_PREFILL_S),
-                         generator=gen).cuda()
+    del steps, routing
+    layers = per_layer_k4(api, params, cfg.compute_dtype, gen, length)
+    toks = torch.randint(0, cfg.vocab, (1, length), generator=gen).cuda()
     prefill_s = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, caches = api.prefill(params, {"tokens": toks},
-                                     max_seq=LM_PREFILL_S)
+                                     max_seq=length)
         torch.cuda.synchronize()
         prefill_s.append(time.perf_counter() - t0)
         require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
-                "lm_serve prefill: logits not finite")
+                f"{phase} prefill: logits not finite")
         del logits, caches
     peak = torch.cuda.max_memory_allocated()
     del server, api, params
-    torch.cuda.empty_cache()
+    _free()
     k4_rows = k4_lm_rows(cfg, cfg.compute_dtype, gen, flush, card, (
-        ("decode", LM_SLOTS, 1, LM_MAX_SEQ, False),
-        ("prefill", 1, LM_PREFILL_S, LM_PREFILL_S, True)))
-    row = {"phase": "lm_serve", "config": LM_ARCH,
+        ("decode", LM_SLOTS, 1, LM_MAX_SEQ, False, 0),
+        ("prefill", 1, length, length, True, cfg.window)))
+    row = {"phase": phase, "config": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
            "dtype": str(cfg.compute_dtype), "requests": len(reqs),
            "completed": sum(r.done for r in reqs), "slots": LM_SLOTS,
            "gen": LM_GEN, "max_seq": LM_MAX_SEQ, "steps": len(secs),
            "generated_tokens": generated, "launches": counts,
            "k4_sm90_per_step": cfg.n_layers,
            "init_s": init_s, "weights_gb": weights / 1e9,
+           "step_bound_ms": weights / HBM_BYTES_PER_S * 1e3,
+           "step_bound_by": "bytes",
            "step_ms_median": _median(secs) * 1e3,
            "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
            "tokens_per_s": generated / sum(secs), **timing,
-           "prefill_tokens": LM_PREFILL_S,
+           "prefill_tokens": length,
            "prefill_ms_median": _median(prefill_s) * 1e3,
-           "prefill_ms": [s * 1e3 for s in prefill_s],
+           "prefill_ms": [t * 1e3 for t in prefill_s],
            "serve_peak_gb": serve_peak / 1e9, "peak_gb": peak / 1e9,
            "teacher_forced": teacher, "control_drop_newest": controls,
-           "per_layer_k4": layers, "card": card}
+           "per_layer_k4": layers, **extra, "card": card}
+    return row, counts, k4_rows
+
+
+def phase_lm_serve(card: str) -> dict:
+    """phi3-medium-14b at full width and depth in bf16
+    (:func:`serve_bf16`: 40 K4 ``sm90`` launches a decode step, the
+    served logits within :data:`LM_BF16_TOL` of max |plain| of the plain
+    replay, the per-layer check on a 4096-token prefill).  Then the same
+    config cut to 4 layers in f32 (:func:`lm_f32`).  Returns the
+    launches of both runs."""
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    gen = torch.Generator().manual_seed(SEED + 11)
+    row, counts, k4_rows = serve_bf16(card, flush, gen, get_config(LM_ARCH),
+                                      "lm_serve", LM_PREFILL_S)
     emit(row)
     f32 = lm_f32(card, flush, gen)
     return {"bf16": counts, "f32": f32["launches"], "rows": k4_rows,
             "f32_rows": f32["rows"], "step_ms_median": row["step_ms_median"],
             "prefill_ms_median": row["prefill_ms_median"]}
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
 def _tensors(tree) -> list:
@@ -2864,30 +3041,57 @@ def _tensors(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
-def lm_f32(card: str, flush, gen) -> dict:
-    """phi3-medium-14b at full width cut to 4 layers, f32 compute (K4 on
+def attention_layers(cfg) -> int:
+    """The attention sublayers a decode step runs (each one K4 call)."""
+    return sum(mixer == "attn" for mixer, _ in LM_T.block_spec(cfg)) \
+        * LM_T.n_blocks(cfg)
+
+
+def moe_layers(cfg) -> int:
+    """The MoE FFNs a decode step runs (each one ``router_top_k`` call)."""
+    return sum(ffn == "moe" for _, ffn in LM_T.block_spec(cfg)) \
+        * LM_T.n_blocks(cfg)
+
+
+def no_drops(cfg):
+    """``cfg`` with a capacity factor that drops no pair (the
+    reference's decode-against-prefill tests' setting), where there are
+    experts: a prefill and a decode step route different token counts
+    into bins of different capacity."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+
+
+def lm_f32(card: str, flush, gen, arch: str = LM_ARCH,
+           phase: str = "lm_serve_f32") -> dict:
+    """``arch`` at full width cut to 4 layers, f32 compute (K4 on
     ``sm90_tf32``): served through ``BatchedServer`` as the bf16 run is,
     4 K4 launches a step, every step's logits within ``TOL`` of the
-    plain replay; decode against prefill (a prefill of S - 1 tokens and
-    one decode step against a prefill of S) within ``TOL`` of max
-    |logits|; with ``window`` 64, a 60-token prefill and 8 decode steps
-    across the ring's wrap, each within ``TOL`` of its plain replay and
-    the last of a 68-token prefill."""
-    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=LM_F32_LAYERS,
+    plain replay (under the served routing, where there are experts)
+    and every K4 call within ``CARD_TOL`` (:func:`replay_plain`);
+    decode against prefill (a prefill of S - 1 tokens and one decode
+    step against a prefill of S) within ``TOL`` of max |logits|; with
+    ``window`` 64, a 60-token prefill and 8 decode steps across the
+    ring's wrap, each within ``TOL`` of its plain replay and the last of
+    a 68-token prefill (these two with :func:`no_drops`)."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=LM_F32_LAYERS,
                               compute_dtype=torch.float32)
     server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
                            device="cuda", seed=SEED)
     reqs = lm_requests(cfg, SEED + 12)
+    routing = Routing(moe_layers(cfg)) if cfg.n_experts else None
     counts = {}
-    with counted(counts), no_plain_attention():
+    with counted(counts), no_plain_attention(), _recorded(routing):
         steps, secs = serve_lm(server, reqs, "sm90_tf32", cfg.n_layers)
     require(counts["attention"]["sm90_tf32"] == cfg.n_layers * len(steps)
             and sum(counts["attention"].values())
             == counts["attention"]["sm90_tf32"],
-            f"lm_serve f32 launches {counts}")
-    api, params = server.api, server.params
-    teacher = replay_plain(api, params, steps, TOL, "lm_serve f32")
+            f"{phase} launches {counts}")
+    params = server.params
+    teacher = replay_plain(server.api, params, steps, TOL, phase, routing)
     del steps
+    api = build_lm(no_drops(cfg))
     toks = torch.randint(0, cfg.vocab, (LM_SLOTS, LM_WINDOW + 8),
                          generator=gen).cuda()
     full, _ = api.prefill(params, {"tokens": toks[:, :LM_S]}, max_seq=LM_S)
@@ -2896,32 +3100,37 @@ def lm_f32(card: str, flush, gen) -> dict:
     dec, _ = api.decode_step(params, caches, toks[:, LM_S - 1:LM_S],
                              LM_S - 1)
     decode_vs_prefill = _rel(dec, full, cfg.vocab)
-    require(decode_vs_prefill <= TOL, f"lm_serve f32: decode against "
+    require(decode_vs_prefill <= TOL, f"{phase}: decode against "
                                       f"prefill {decode_vs_prefill}")
-    wapi = build_lm(dataclasses.replace(cfg, window=LM_WINDOW))
+    wapi = build_lm(dataclasses.replace(no_drops(cfg), window=LM_WINDOW))
     start = LM_WINDOW - 4
     _, caches = wapi.prefill(params, {"tokens": toks[:, :start]},
                              max_seq=LM_MAX_SEQ)
     ring = []
     for pos in range(start, LM_WINDOW + 4):
-        plain, _ = wapi.decode_step(params, clone_caches(caches),
-                                    toks[:, pos:pos + 1], pos, attn="plain")
-        logits, caches = wapi.decode_step(params, caches,
-                                          toks[:, pos:pos + 1], pos)
+        before = clone_caches(caches)
+        step = Routing(moe_layers(cfg)) if cfg.n_experts else None
+        with _recorded(step):
+            logits, caches = wapi.decode_step(params, caches,
+                                              toks[:, pos:pos + 1], pos)
+        with _routed(step, 0):
+            plain, _ = wapi.decode_step(params, before,
+                                        toks[:, pos:pos + 1], pos,
+                                        attn="plain")
         ring.append(_rel(logits, plain, cfg.vocab))
     slots = caches[0]["sub0"]["pos"]
     full, _ = wapi.prefill(params, {"tokens": toks[:, :LM_WINDOW + 4]},
                            max_seq=LM_MAX_SEQ)
     wrap_vs_prefill = _rel(logits, full, cfg.vocab)
     require(max(ring) <= TOL and wrap_vs_prefill <= TOL,
-            f"lm_serve f32 ring: {ring}, against prefill {wrap_vs_prefill}")
+            f"{phase} ring: {ring}, against prefill {wrap_vs_prefill}")
     require(len(slots) == LM_WINDOW and int(slots[0]) == LM_WINDOW,
-            f"lm_serve f32 ring: slots {slots.tolist()} did not wrap")
+            f"{phase} ring: slots {slots.tolist()} did not wrap")
     del server, api, params, caches
     torch.cuda.empty_cache()
     rows = k4_lm_rows(cfg, torch.float32, gen, flush, card,
-                      (("decode", LM_SLOTS, 1, LM_MAX_SEQ, False),))
-    emit({"phase": "lm_serve_f32", "config": LM_ARCH,
+                      (("decode", LM_SLOTS, 1, LM_MAX_SEQ, False, 0),))
+    emit({"phase": phase, "config": arch,
           "layers": cfg.n_layers, "dtype": "torch.float32",
           "requests": len(reqs), "completed": sum(r.done for r in reqs),
           "steps": len(secs), "launches": counts,
@@ -2935,6 +3144,202 @@ def lm_f32(card: str, flush, gen) -> dict:
                    "last_vs_prefill": wrap_vs_prefill, "gate": TOL},
           "card": card})
     return {"launches": counts, "rows": rows}
+
+
+# --------------------------------------------------------------------------
+# lm_serve_moe, lm_serve_ssm, lm_serve_hybrid: mixtral-8x7b (MoE FFN,
+# window 4096), mamba2-1.3b (Mamba2 mixer) and jamba (both) through
+# BatchedServer
+# --------------------------------------------------------------------------
+
+MOE_ARCH, SSM_ARCH, HYBRID_ARCH = ("mixtral-8x7b", "mamba2-1.3b",
+                                   "jamba-1.5-large-398b")
+#: mixtral at full width is cut to 20 of its 32 blocks (92.9 GB of bf16
+#: blocks at full depth do not fit 80 GB)
+MOE_LAYERS = 20
+#: the windowed per-layer check's prefill: twice mixtral's 4096 window
+MOE_PREFILL_S = 8192
+#: mamba2's f32 decode-against-prefill prompt: two 256-row chunks and a
+#: padded third
+SSM_PROMPT = 600
+
+
+def block_reckoning(cfg) -> dict:
+    """One block's parameters from ``ModelConfig.param_count`` (the
+    config at one block's layers, less the tied embedding and the final
+    norm), its bytes in the compute type, the f32 embedding, and the
+    whole depth's blocks."""
+    per = len(LM_T.block_spec(cfg))
+    one = dataclasses.replace(cfg, n_layers=per).param_count() \
+        - cfg.vocab * cfg.d_model - cfg.d_model
+    elt = torch.finfo(cfg.compute_dtype).bits // 8
+    full = get_config(cfg.name)
+    return {"block_params": one, "block_gb": one * elt / 1e9,
+            "embed_gb_f32": cfg.vocab * cfg.d_model * 4 / 1e9,
+            "blocks": LM_T.n_blocks(cfg),
+            "blocks_gb": one * elt * LM_T.n_blocks(cfg) / 1e9,
+            "full_depth_blocks": LM_T.n_blocks(full),
+            "full_depth_blocks_gb": one * elt * LM_T.n_blocks(full) / 1e9}
+
+
+def _free() -> None:
+    """Return the cached blocks of freed tensors to the card before the
+    next model is drawn."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve_moe(card: str, flush) -> dict:
+    """mixtral-8x7b at full width (d_model 4096, 8 experts of d_ff 14336,
+    top-2, capacity factor 1.25, window 4096) and 20 of its 32 blocks in
+    bf16 through :func:`serve_bf16`: 20 K4 ``sm90`` launches a decode
+    step; each step replayed under the served routing (the MoE layers'
+    choices recorded in the served step; the replay's own flips
+    counted) by :func:`replay_plain`: every K4 call of every step
+    within ``CARD_TOL`` of the plain version on its own inputs, the
+    served logits within :data:`LM_BF16_TOL` of max |plain| of the
+    plain replay's; the control failing that gate; the pairs the capacity dropped per step; the per-layer check
+    on an 8192-token prefill and the decode step after it (max_seq
+    8193: a 4096-slot ring, the window masking keys at the prefill's
+    end and at decode).  Then 4 blocks in f32 (:func:`lm_f32`)."""
+    gen = torch.Generator().manual_seed(SEED + 21)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    row, counts, k4_rows = serve_bf16(card, flush, gen, cfg, "lm_serve_moe",
+                                      MOE_PREFILL_S)
+    emit({**row, "full_depth_layers": get_config(MOE_ARCH).n_layers,
+          "reduced": f"depth: {cfg.n_layers} of "
+                     f"{get_config(MOE_ARCH).n_layers} blocks",
+          "reckoning": block_reckoning(cfg)})
+    f32 = lm_f32(card, flush, gen, MOE_ARCH, "lm_serve_moe_f32")
+    return {"bf16": counts, "f32": f32["launches"], "rows": k4_rows,
+            "f32_rows": f32["rows"], "step_ms_median": row["step_ms_median"]}
+
+
+def phase_lm_serve_ssm(card: str) -> dict:
+    """mamba2-1.3b (attention-free, 48 Mamba2 layers, d_model 2048, state
+    128) at full width and depth in bf16 through ``BatchedServer`` at the
+    reference server's defaults: every request completes, no launch of
+    K1-K4; the step time, tokens/s and peak memory.  Then at full width
+    and depth in f32: a :data:`SSM_PROMPT`-token prefill's last logits
+    against a prefill of one token fewer and one decode step, within
+    ``TOL`` of max |logits| (the chunked scan over two full 256-row
+    chunks and a padded third, its state handoff, and the recurrence)."""
+    _free()
+    cfg = get_config(SSM_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           device="cuda", seed=SEED)
+    weights = _nbytes(server.params)
+    reqs = lm_requests(cfg, SEED + 12)
+    counts = {}
+    with counted(counts), no_plain_attention():
+        steps, secs = serve_lm(server, reqs, "sm90", 0)
+    require(not any(n for c in counts.values() for n in c.values()),
+            f"lm_serve_ssm: a kernel launched on an attention-free path "
+            f"{counts}")
+    logits = steps[-1][3]
+    require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+            "lm_serve_ssm: logits not finite")
+    serve_peak = torch.cuda.max_memory_allocated()
+    generated = sum(len(r.out) for r in reqs)
+    del server, steps, logits
+    _free()
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    api = build_lm(f32)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED))
+    toks = torch.randint(0, cfg.vocab, (2, SSM_PROMPT),
+                         generator=torch.Generator().manual_seed(
+                             SEED + 31)).cuda()
+    f32_counts = {}
+    with counted(f32_counts):
+        full, _ = api.prefill(params, {"tokens": toks}, max_seq=SSM_PROMPT)
+        _, caches = api.prefill(params, {"tokens": toks[:, :-1]},
+                                max_seq=SSM_PROMPT)
+        dec, _ = api.decode_step(params, caches, toks[:, -1:],
+                                 SSM_PROMPT - 1)
+    decode_vs_prefill = _rel(dec, full, cfg.vocab)
+    require(decode_vs_prefill <= TOL, f"lm_serve_ssm f32: decode against "
+                                      f"prefill {decode_vs_prefill}")
+    require(not any(n for c in f32_counts.values() for n in c.values()),
+            f"lm_serve_ssm f32: launches {f32_counts}")
+    del api, params, caches, full, dec
+    _free()
+    emit({"phase": "lm_serve_ssm", "config": SSM_ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "ssm_state": cfg.ssm_state, "ssm_heads": cfg.ssm_heads,
+          "vocab": cfg.vocab, "dtype": str(cfg.compute_dtype),
+          "weights_gb": weights / 1e9, "requests": len(reqs),
+          "completed": sum(r.done for r in reqs), "steps": len(secs),
+          "generated_tokens": generated, "launches": counts,
+          "step_ms_median": _median(secs) * 1e3,
+          "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
+          "tokens_per_s": generated / sum(secs),
+          "serve_peak_gb": serve_peak / 1e9,
+          "f32_decode_vs_prefill": {"err_over_max": decode_vs_prefill,
+                                    "gate": TOL, "prompt": SSM_PROMPT,
+                                    "chunks": -(-SSM_PROMPT // 256)},
+          "card": card})
+    return {"bf16": counts, "f32": f32_counts}
+
+
+def phase_lm_serve_hybrid(card: str) -> dict:
+    """jamba-1.5-large-398b at ``reduced()`` size in f32 (one block of 8
+    sublayers: one attention and seven Mamba2 mixers, an MoE FFN on
+    every odd sublayer) through ``BatchedServer``: every request
+    completes, one K4 ``sm90_tf32`` launch a decode step per block and
+    nothing else of K1-K4; each step's logits within ``TOL`` of the
+    plain replay under the served routing; decode against prefill within
+    ``TOL`` (:func:`no_drops`).  Full width does not fit the card: one
+    8-sublayer block is 44.06e9 parameters, 88.1 GB in bf16."""
+    _free()
+    full = get_config(HYBRID_ARCH)
+    cfg = reduced(full)
+    server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           device="cuda", seed=SEED)
+    reqs = lm_requests(cfg, SEED + 12)
+    routing = Routing(moe_layers(cfg))
+    per_step = attention_layers(cfg)
+    counts = {}
+    with counted(counts), no_plain_attention(), routing.record():
+        steps, secs = serve_lm(server, reqs, "sm90_tf32", per_step)
+    require(counts["attention"]["sm90_tf32"] == per_step * len(steps)
+            and sum(n for c in counts.values() for n in c.values())
+            == counts["attention"]["sm90_tf32"],
+            f"lm_serve_hybrid launches {counts}")
+    params = server.params
+    teacher = replay_plain(server.api, params, steps, TOL,
+                           "lm_serve_hybrid", routing)
+    api = build_lm(no_drops(cfg))
+    toks = torch.randint(0, cfg.vocab, (LM_SLOTS, LM_S),
+                         generator=torch.Generator().manual_seed(
+                             SEED + 41)).cuda()
+    full_logits, _ = api.prefill(params, {"tokens": toks}, max_seq=LM_S)
+    _, caches = api.prefill(params, {"tokens": toks[:, :-1]}, max_seq=LM_S)
+    dec, _ = api.decode_step(params, caches, toks[:, -1:], LM_S - 1)
+    decode_vs_prefill = _rel(dec, full_logits, cfg.vocab)
+    require(decode_vs_prefill <= TOL, f"lm_serve_hybrid: decode against "
+                                      f"prefill {decode_vs_prefill}")
+    del server, api, params, caches, steps
+    _free()
+    emit({"phase": "lm_serve_hybrid", "config": HYBRID_ARCH,
+          "size": "reduced()", "blocks": LM_T.n_blocks(cfg),
+          "block_spec": LM_T.block_spec(cfg), "d_model": cfg.d_model,
+          "n_experts": cfg.n_experts, "dtype": "torch.float32",
+          "why_reduced": "one full-width block of 8 sublayers is "
+                         f"{block_reckoning(full)['block_params']:.4g} "
+                         f"parameters, "
+                         f"{block_reckoning(full)['block_gb']:.1f} GB in "
+                         "bf16: more than the card's 80 GB; full width "
+                         "waits for parallel/ on four cards",
+          "requests": len(reqs), "completed": sum(r.done for r in reqs),
+          "steps": len(secs), "launches": counts,
+          "k4_sm90_tf32_per_step": per_step,
+          "step_ms_median": _median(secs) * 1e3,
+          "teacher_forced": teacher,
+          "decode_vs_prefill": {"err_over_max": decode_vs_prefill,
+                                "gate": TOL, "s": LM_S},
+          "card": card})
+    return {"f32": counts}
 
 
 class Decisions:
@@ -3950,6 +4355,11 @@ def main() -> int:
         matmul_launches, matmul_all = phase_matmul(card)
         attn_launches, attn_rows = phase_attention(card)
     lm = phase_lm_serve(card)
+    lm_flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    moe = phase_lm_serve_moe(card, lm_flush)
+    ssm = phase_lm_serve_ssm(card)
+    hybrid = phase_lm_serve_hybrid(card)
+    del lm_flush
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
@@ -4382,33 +4792,54 @@ def main() -> int:
              card=card)]
     lm_rows = {(r["dtype"], r["what"]): r
                for r in lm["rows"] + lm["f32_rows"]}
+    moe_rows = {(r["dtype"], r["what"]): r
+                for r in moe["rows"] + moe["f32_rows"]}
+    #: each LM phase's launch counts, by part
+    lm_runs = {"launches_lm_serve": lm, "launches_lm_serve_moe": moe,
+               "launches_lm_serve_ssm": ssm,
+               "launches_lm_serve_hybrid": hybrid}
     for k in kernels:
         counter = next(c for c in ("conv_lb", "wgrad", "matmul", "attention")
                        if k["name"].startswith(c))
-        if counter == "attention":
-            k["launches_lm_serve"] = sum(lm[part]["attention"][
-                k["kernel_route"]] for part in ("bf16", "f32"))
-        else:   # K1-K3 run nowhere on the LM path: none required
-            k["launches_lm_serve"] = sum(
-                n for part in ("bf16", "f32") for name in (
+        for key, run in lm_runs.items():
+            parts = [run[part] for part in ("bf16", "f32") if part in run]
+            if counter == "attention":
+                k[key] = sum(c["attention"][k["kernel_route"]]
+                             for c in parts)
+            else:   # K1-K3 run nowhere on the LM paths: none required
+                k[key] = sum(n for c in parts for name in (
                     "conv_lb", "wgrad_lb", "matmul_lb")
-                if name.startswith(counter)
-                for n in lm[part][name].values())
-            require(k["launches_lm_serve"] == 0,
-                    f"{k['name']}: launched on the lm_serve path")
+                    if name.startswith(counter) for n in c[name].values())
+                require(k[key] == 0, f"{k['name']}: launched on the "
+                                     f"{key.removeprefix('launches_')} "
+                                     f"path")
     by_name = {k["name"]: k for k in kernels}
     require(by_name["attention"]["launches_lm_serve"] == 0
             and by_name["attention_sm90"]["launches_lm_serve"] > 0
             and by_name["attention_sm90_tf32"]["launches_lm_serve"] > 0,
             "lm_serve: K4's launches by route")
-    for name, dtype in (("attention_sm90", "torch.bfloat16"),
-                        ("attention_sm90_tf32", "torch.float32")):
-        by_name[name]["lm_serve"] = {
-            what: {f: r[f] for f in ("ms", "device_ms", "bound_ms",
-                                     "bound_by", "plain_ms", "library_ms",
-                                     "library_device_ms", "host_us",
-                                     "max_abs_err", "shape")}
-            for (dt, what), r in lm_rows.items() if dt == dtype}
+    require(by_name["attention"]["launches_lm_serve_moe"] == 0
+            and by_name["attention_sm90"]["launches_lm_serve_moe"] > 0
+            and by_name["attention_sm90_tf32"]["launches_lm_serve_moe"] > 0,
+            "lm_serve_moe: K4's launches by route")
+    require(all(by_name[n]["launches_lm_serve_ssm"] == 0
+                for n in ("attention", "attention_sm90",
+                          "attention_sm90_tf32")),
+            "lm_serve_ssm: K4 launched on an attention-free path")
+    require(by_name["attention_sm90_tf32"]["launches_lm_serve_hybrid"] > 0
+            and by_name["attention"]["launches_lm_serve_hybrid"] == 0
+            and by_name["attention_sm90"]["launches_lm_serve_hybrid"] == 0,
+            "lm_serve_hybrid: K4's launches by route")
+    for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows)):
+        for name, dtype in (("attention_sm90", "torch.bfloat16"),
+                            ("attention_sm90_tf32", "torch.float32")):
+            by_name[name][key] = {
+                what: {f: r[f] for f in ("ms", "device_ms", "bound_ms",
+                                         "bound_by", "plain_ms",
+                                         "library_ms", "library_device_ms",
+                                         "host_us", "max_abs_err", "shape",
+                                         "window")}
+                for (dt, what), r in rows.items() if dt == dtype}
     for k in kernels:
         if k.get("on_main_path", True):
             require(k["launches"] > 0, f"{k['name']}: no launch on its path")
@@ -4418,6 +4849,7 @@ def main() -> int:
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(card, flush=True)
     emit({"kernels": kernels})
+    require(not MISSED, f"gates missed: {MISSED}")
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

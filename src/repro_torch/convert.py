@@ -12,7 +12,8 @@ identical weights.
 The reference's LM params (``{"embed", "blocks", "final_ln",
 ["lm_head"]}``, ``blocks`` a pytree whose every leaf is stacked on a
 leading block axis) and its decode caches (``{"sub0": {"k", "v",
-"pos"}}``, stacked likewise) go to the port's per-block lists and back
+"pos"}}`` for an attention sublayer, ``{"ssm", "conv"}`` for a Mamba
+one, stacked likewise) go to the port's per-block lists and back
 through :func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` and
 :func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy`, bit for bit
 in both types (a bfloat16 leaf comes back as numpy's bfloat16 of
@@ -124,20 +125,24 @@ def lm_params_to_numpy(params: dict) -> dict:
 
 
 def lm_cache_from_numpy(tree: dict, device="cuda") -> list:
-    """The reference's stacked decode caches as numpy leaves -> the
-    port's list of per-block caches: ``k``/``v`` tensors on ``device``,
-    ``pos`` a host int32 vector."""
+    """The reference's stacked decode caches (``{sub: {name: array}}``)
+    as numpy leaves -> the port's list of per-block caches: a leaf named
+    ``pos`` a host int32 vector, every other (``k``, ``v``, ``ssm``,
+    ``conv``) a tensor on ``device``."""
     dev = resolve_device(device)
 
-    def leaf(a):
-        return np.array(a, np.int32) if a.ndim == 1 else _tensor(a).to(dev)
-    return _unstack(tree, leaf)
+    def leaf(name: str, a):
+        return np.array(a, np.int32) if name == "pos" \
+            else _tensor(a).to(dev)
+    n = len(_leaves(tree)[0])
+    return [{sub: {name: leaf(name, a[i]) for name, a in c.items()}
+             for sub, c in tree.items()} for i in range(n)]
 
 
 def lm_cache_to_numpy(caches: list) -> dict:
     """The port's per-block caches -> the reference's stacked numpy
     layout."""
-    def leaf(x):
-        return np.array(x, np.int32) if isinstance(x, np.ndarray) \
-            else _numpy(x)
-    return _stack(caches, leaf)
+    return {sub: {name: np.stack([
+        np.array(b[sub][name], np.int32) if name == "pos"
+        else _numpy(b[sub][name]) for b in caches])
+        for name in c} for sub, c in caches[0].items()}

@@ -3,26 +3,38 @@ copy of ``repro/launch/serve.py`` (``Request``, ``BatchedServer``,
 ``main``) at tp = 1.
 
 Requests arrive with prompts and advance one token a step against the
-shared per-block KV caches; every decode step feeds each active slot
+shared per-block caches (KV for attention, state and conv tail for a
+Mamba mixer); every decode step feeds each active slot
 the token at the server's global position (a prompt token while there
 is one, then its own last output) and appends the greedy choice once
 past the prompt.  Requests finishing early free their slot for queued
 requests (continuous batching on slot granularity).  The same
 admission, slot reuse, global ``pos`` and greedy choice as the
-reference's.  Attention runs on K4 on the card (prefill causal, decode
-over the cache slots its mask keeps).
+reference's; like the reference's, a freed slot's caches are not
+reset when a new request takes it.  Every decoder-only arch serves:
+dense (phi3-medium-14b, granite-34b, deepseek-7b, minitron-4b), MoE
+(mixtral-8x7b, dbrx-132b: the reference's dense MoE mode), SSM
+(mamba2-1.3b), hybrid (jamba-1.5-large-398b) and the VLM
+(llava-next-34b, text only).  Attention runs on K4 on the card
+(prefill causal, decode over the cache slots its mask keeps).
 
 Memory: the server draws its weights block by block and keeps each
 block's matmul weights only in the compute type (``init_params(...,
 cast_blocks=True)``), so phi3-medium-14b (14.15e9 parameters) holds
 about 29.3 GB in bf16 (the f32 embedding 2.06 GB of it) where f32
-master weights beside them would not fit 80 GB.
+master weights beside them would not fit 80 GB.  mixtral-8x7b at full
+depth holds 92.9 GB of bf16 blocks and one jamba-1.5-large-398b block
+88.1 GB: neither fits one 80 GB card (the chip smoke serves mixtral at
+full width and 20 of its 32 blocks), so both run here ``--reduced``.
+The default arch stays phi3-medium-14b.
 
   # phi3-medium-14b at full size on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b
 
   # a reduced config on the CPU (K4's plain version):
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+      --reduced --device cpu
 """
 
 from __future__ import annotations
@@ -123,7 +135,11 @@ def card_line(device: torch.device) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-medium-14b",
-                    help="a dense decoder (attention + dense FFN blocks)")
+                    help="a decoder-only arch: dense (phi3-medium-14b, "
+                         "granite-34b, deepseek-7b, minitron-4b), MoE "
+                         "(mixtral-8x7b, dbrx-132b), SSM (mamba2-1.3b), "
+                         "hybrid (jamba-1.5-large-398b) or the VLM "
+                         "(llava-next-34b)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)

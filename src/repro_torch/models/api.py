@@ -1,5 +1,6 @@
 """Unified model API: one entry point per (config, tp) pair — the port's
-copy of ``repro/models/api.py`` at tp = 1 for the decoder-only stack.
+copy of ``repro/models/api.py`` at tp = 1 for the decoder-only stack
+(dense, MoE, SSM, hybrid and VLM families).
 
 ``build(cfg)`` returns a :class:`ModelAPI` whose members close over
 :mod:`repro_torch.models.transformer`:
@@ -13,9 +14,11 @@ copy of ``repro/models/api.py`` at tp = 1 for the decoder-only stack.
   * ``init_cache(batch, max_seq, device="cuda")``: empty caches on the
     card unless the caller passes ``device="cpu"``.
 
-``train_loss`` raises until the training slice; so do the encoder-
-decoder family and tp > 1.  The reference's ``input_specs`` and
-``make_batch`` wait for the port's dry-run.
+Without a mesh the reference's MoE mode (``_moe_mode``) is always
+``dense``, and so is the port's.  ``train_loss`` raises until the
+training slice; so do the encoder-decoder family and tp > 1.  The
+reference's ``input_specs`` and ``make_batch`` wait for the port's
+dry-run.
 """
 
 from __future__ import annotations
@@ -54,7 +57,6 @@ def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder "
                                   f"family (models/encdec.py) is not "
                                   f"ported yet: ROADMAP.md §1 item 6")
-    transformer.check_ported(cfg)
 
     def _prefill(p, b, max_seq=None, **kw):
         return transformer.prefill(p, b["tokens"], cfg, tp,

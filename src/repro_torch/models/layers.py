@@ -254,6 +254,14 @@ def dense_init(key: torch.Generator | None, shape: tuple[int, ...], dtype,
                         device=dev) * std).to(dtype)
 
 
+def filled(shape: tuple[int, ...], value: float,
+           key: torch.Generator | None) -> torch.Tensor:
+    """An f32 tensor of ``value`` on ``key``'s device (the ``meta``
+    device without a key, as :func:`dense_init`)."""
+    return torch.full(shape, value, dtype=torch.float32,
+                      device="meta" if key is None else key.device)
+
+
 def split_keys(key: torch.Generator | None,
                n: int) -> list[torch.Generator | None]:
     """``n`` generators on ``key``'s device, seeded from ``key``'s stream

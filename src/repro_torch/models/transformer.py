@@ -1,17 +1,18 @@
 """Decoder stack — the port's copy of ``repro/models/transformer.py`` at
-tp = 1, for the families whose blocks are attention + dense FFN
-(dense decoders and the ``vision_stub`` VLM).
+tp = 1, for the dense, MoE, SSM, hybrid and VLM families (the
+encoder-decoder family, ``models/encdec.py``, is not ported yet).
 
 ``params["blocks"]`` and the decode caches are lists of per-block dicts
 (the reference stacks them on a leading axis and scans); a block's
-sublayers are ``sub0``, ``sub1``, ... as in the reference.  Each block's
-matmul weights are cast to the compute type as the block runs, as the
-reference does (``cast_params_for_compute``); weights made with
-``init_params(..., cast_blocks=True)`` are already of that type, so the
-cast is a no-op and the numbers are the same.  ``remat`` is a training
-matter and is ignored here.
-
-A ``mamba`` mixer or a ``moe`` FFN is not ported yet and raises.
+sublayers are ``sub0``, ``sub1``, ... as in the reference
+(:func:`block_spec`: one attention or Mamba mixer each, then a dense or
+MoE FFN, or none).  Each block's matmul weights are cast to the compute
+type as the block runs, as the reference does
+(``cast_params_for_compute``); weights made with ``init_params(...,
+cast_blocks=True)`` are already of that type, so the cast is a no-op
+and the numbers are the same.  The MoE FFN runs the reference's
+``dense`` mode (no mesh).  ``remat`` is a training matter and is
+ignored here.
 """
 
 from __future__ import annotations
@@ -24,17 +25,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.embedding import embed_tokens, lm_logits
 from repro_torch.models.layers import (cast_params_for_compute, dense_init,
-                                       rms_norm, split_keys, swiglu)
-
-_NOT_PORTED = {
-    "mamba": "the mamba mixer (models/ssm.py) is not ported yet: "
-             "ROADMAP.md §1 item 6, after the MoE FFN",
-    "moe": "the MoE FFN (models/moe.py) is not ported yet: ROADMAP.md §1 "
-           "item 6, next in its queue",
-}
-
+                                       filled, rms_norm, split_keys, swiglu)
 
 # --------------------------------------------------------------------------
 # block structure
@@ -59,14 +54,6 @@ def n_blocks(cfg: ModelConfig) -> int:
     return max(1, cfg.n_layers // len(block_spec(cfg)))
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a block kind not ported yet."""
-    for mixer, ffn in block_spec(cfg):
-        for kind in (mixer, ffn):
-            if kind in _NOT_PORTED:
-                raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[kind]}")
-
-
 # --------------------------------------------------------------------------
 # init
 # --------------------------------------------------------------------------
@@ -81,24 +68,31 @@ def _init_ffn(key, cfg, dtype):
     }
 
 
-def _ones(d: int, key) -> torch.Tensor:
-    return torch.ones((d,), dtype=torch.float32,
-                      device="meta" if key is None else key.device)
-
-
 def _init_block(key, cfg: ModelConfig, tp: int):
     nh, nkv = cfg.padded_heads(tp)
+    tpe = (cfg.moe_tpe or max(1, tp // cfg.n_experts)) \
+        if cfg.n_experts else 1
     dtype = cfg.param_dtype
     subs = {}
     keys = split_keys(key, len(block_spec(cfg)))
-    for j, (_mixer, ffn) in enumerate(block_spec(cfg)):
+    for j, (mixer, ffn) in enumerate(block_spec(cfg)):
         ks = split_keys(keys[j], 2)
-        sub: dict[str, Any] = {"ln1": _ones(cfg.d_model, key)}
-        sub["attn"] = attn_mod.init_attention(
-            ks[0], cfg.d_model, nh, nkv, cfg.head_dim, dtype)
+        sub: dict[str, Any] = {"ln1": filled((cfg.d_model,), 1.0, key)}
+        if mixer == "attn":
+            sub["attn"] = attn_mod.init_attention(
+                ks[0], cfg.d_model, nh, nkv, cfg.head_dim, dtype)
+        else:
+            sub["mamba"] = ssm_mod.init_mamba(
+                ks[0], cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                cfg.ssm_expand, cfg.ssm_conv, dtype)
         if ffn is not None:
-            sub["ln2"] = _ones(cfg.d_model, key)
-            sub["ffn"] = _init_ffn(ks[1], cfg, dtype)
+            sub["ln2"] = filled((cfg.d_model,), 1.0, key)
+            if ffn == "moe":
+                sub["moe"] = moe_mod.init_moe(
+                    ks[1], cfg.d_model, cfg.d_ff, cfg.n_experts, dtype,
+                    tpe=tpe)
+            else:
+                sub["ffn"] = _init_ffn(ks[1], cfg, dtype)
         subs[f"sub{j}"] = sub
     return subs
 
@@ -110,7 +104,6 @@ def init_params(cfg: ModelConfig, key: torch.Generator | None, tp: int = 1,
     weights to ``cfg.compute_dtype`` as the block is made and keeps only
     those: what the reference computes at every step, made once, so a
     14B-parameter model's bf16 blocks fit beside nothing else of it."""
-    check_ported(cfg)
     kb, ke, kh = split_keys(key, 3)
     blocks = []
     for k in split_keys(kb, n_blocks(cfg)):
@@ -122,7 +115,7 @@ def init_params(cfg: ModelConfig, key: torch.Generator | None, tp: int = 1,
         "embed": dense_init(ke, (cfg.padded_vocab(tp), cfg.d_model),
                             cfg.param_dtype),
         "blocks": blocks,
-        "final_ln": _ones(cfg.d_model, key),
+        "final_ln": filled((cfg.d_model,), 1.0, key),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
@@ -138,20 +131,40 @@ def _apply_dense_ffn(p, h):
     return swiglu(h, p["wg"], p["wi"], p["wo"])
 
 
+def _apply_moe(p, h, cfg):
+    """The reference's ``dense`` mode: every token of the batch routed
+    together."""
+    b, s, d = h.shape
+    out = moe_mod.moe_ffn_dense(h.reshape(b * s, d), p, cfg.top_k,
+                                cfg.capacity_factor)
+    return out.reshape(b, s, d)
+
+
+def _apply_ffn(sub, ffn, h, cfg):
+    hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
+    if ffn == "moe":
+        return h + _apply_moe(sub["moe"], hn, cfg)
+    return h + _apply_dense_ffn(sub["ffn"], hn)
+
+
 def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
                       want_cache, max_seq, attn, tap):
-    _mixer, ffn = kind
+    mixer, ffn = kind
     cache_out = {}
     hn = rms_norm(h, sub["ln1"], cfg.norm_eps)
-    out, (k, v) = attn_mod.attention_block(sub["attn"], hn, pos, cfg, nh,
-                                           nkv, attn=attn, tap=tap)
-    if want_cache:
-        cache_out = attn_mod.cache_from_prefill(k, v, pos_host, max_seq,
-                                                cfg.window)
+    if mixer == "attn":
+        out, (k, v) = attn_mod.attention_block(sub["attn"], hn, pos, cfg,
+                                               nh, nkv, attn=attn, tap=tap)
+        if want_cache:
+            cache_out = attn_mod.cache_from_prefill(k, v, pos_host, max_seq,
+                                                    cfg.window)
+    else:
+        out, (st, conv) = ssm_mod.mamba_forward(sub["mamba"], hn, cfg)
+        if want_cache:
+            cache_out = {"ssm": st, "conv": conv}
     h = h + out
     if ffn is not None:
-        hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
-        h = h + _apply_dense_ffn(sub["ffn"], hn)
+        h = _apply_ffn(sub, ffn, h, cfg)
     return h, cache_out
 
 
@@ -164,7 +177,6 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             max_seq: int | None = None, attn: str = "kernel", tap=None):
     """Full-sequence forward.  Returns (h_final, caches_or_None).
     ``tap(layer, q, k, v, out, window=, causal=)`` sees every K4 call."""
-    check_ported(cfg)
     nh, nkv = cfg.padded_heads(tp)
     spec = block_spec(cfg)
     dev = params["embed"].device
@@ -198,25 +210,39 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
 # decode
 # --------------------------------------------------------------------------
 
+def _init_sub_cache(cfg: ModelConfig, mixer: str, batch: int,
+                    max_seq: int, nkv: int, device):
+    if mixer == "attn":
+        return attn_mod.init_cache(batch, max_seq, nkv, cfg.head_dim,
+                                   cfg.window,
+                                   cfg.kv_cache_dtype or cfg.compute_dtype,
+                                   device=device)
+    # the SSM state, a recurrent accumulator, in f32; the conv tail in
+    # the compute type
+    conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+    return {"ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=torch.float32,
+                               device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim),
+                                dtype=cfg.compute_dtype, device=device)}
+
+
 def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     tp: int = 1, *, device="cpu"):
     """Per-block empty decode caches (a list, one dict per block)."""
-    check_ported(cfg)
     _nh, nkv = cfg.padded_heads(tp)
-    kv_dtype = cfg.kv_cache_dtype or cfg.compute_dtype
-    return [{f"sub{j}": attn_mod.init_cache(batch, max_seq, nkv,
-                                            cfg.head_dim, cfg.window,
-                                            kv_dtype, device=device)
-             for j in range(len(block_spec(cfg)))}
+    return [{f"sub{j}": _init_sub_cache(cfg, mixer, batch, max_seq, nkv,
+                                        device)
+             for j, (mixer, _) in enumerate(block_spec(cfg))}
             for _ in range(n_blocks(cfg))]
 
 
 def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
                 tp: int = 1, *, attn: str = "kernel", tap=None):
     """One serve step: token (B, 1) ints, cur_pos a scalar position.
-    Writes each block's cache in place; returns (logits (B, V), caches).
+    Writes each block's attention cache in place and replaces its SSM
+    caches; returns (logits (B, V), caches).
     """
-    check_ported(cfg)
     nh, nkv = cfg.padded_heads(tp)
     spec = block_spec(cfg)
     dev = params["embed"].device
@@ -227,16 +253,21 @@ def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
             zip(params["blocks"], caches)):
         block_params = cast_params_for_compute(block_params,
                                                cfg.compute_dtype)
-        for j, (_mixer, ffn) in enumerate(spec):
+        for j, (mixer, ffn) in enumerate(spec):
             sub = block_params[f"sub{j}"]
-            out, block_caches[f"sub{j}"] = attn_mod.decode_block(
-                sub["attn"], rms_norm(h, sub["ln1"], cfg.norm_eps),
-                block_caches[f"sub{j}"], cur, cfg, nh, nkv, attn=attn,
-                tap=_tap(tap, i * len(spec) + j))
+            c = block_caches[f"sub{j}"]
+            hn = rms_norm(h, sub["ln1"], cfg.norm_eps)
+            if mixer == "attn":
+                out, block_caches[f"sub{j}"] = attn_mod.decode_block(
+                    sub["attn"], hn, c, cur, cfg, nh, nkv, attn=attn,
+                    tap=_tap(tap, i * len(spec) + j))
+            else:
+                out, (st, conv) = ssm_mod.mamba_decode(
+                    sub["mamba"], hn, cfg, c["ssm"], c["conv"])
+                block_caches[f"sub{j}"] = {"ssm": st, "conv": conv}
             h = h + out
             if ffn is not None:
-                hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
-                h = h + _apply_dense_ffn(sub["ffn"], hn)
+                h = _apply_ffn(sub, ffn, h, cfg)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     table = params.get("lm_head", params["embed"])
     return lm_logits(h, table, cfg.vocab), caches

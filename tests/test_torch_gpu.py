@@ -1439,3 +1439,28 @@ def test_reduced_lm_decode_runs_k4(cuda, dtype, route, tol):
     assert launched == dict.fromkeys(K4.ROUTES, 0) | {
         route: 5 * cfg.n_layers}
     assert caches[0]["sub0"]["pos"].tolist() == list(range(8, 16))
+
+
+def test_mixtral_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """One mixtral-8x7b MoE FFN at full width (d_model 4096, d_ff 14336,
+    8 experts, top-2, capacity factor 1.25), bf16, 64 tokens: the same
+    PyTorch ops on the card and on the CPU choose the same experts and
+    give outputs within 2e-2 of max |cpu| (the LM path's bf16 gate:
+    bf16 products summed in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as M
+    cfg = get_config("mixtral-8x7b")
+    gen = torch.Generator().manual_seed(0)
+    p = M.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                   torch.bfloat16)
+    x = torch.randn((64, cfg.d_model), generator=gen).to(torch.bfloat16)
+    on_card = {n: t.to(cuda) for n, t in p.items()}
+    _, idx = M.router_top_k(x, p["router"], cfg.top_k)
+    _, idx_card = M.router_top_k(x.to(cuda), on_card["router"], cfg.top_k)
+    assert torch.equal(idx_card.cpu(), idx)
+    want = M.moe_ffn_dense(x, p, cfg.top_k, cfg.capacity_factor)
+    got = M.moe_ffn_dense(x.to(cuda), on_card, cfg.top_k,
+                          cfg.capacity_factor)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err

@@ -1,7 +1,7 @@
 """The port imports nothing of JAX and nothing of the reference package
 ``repro``: checked by importing every ``repro_torch`` module and
 ``chip_smoke.py`` in a fresh interpreter, and by an AST scan of their
-sources."""
+sources and of the chip probes under ``probes/``."""
 
 import ast
 import json
@@ -14,7 +14,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "probes").glob("*.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -1,21 +1,28 @@
-"""The port's dense decoders on the CPU against the reference's, on the
-same weights: the reference's ``build(cfg).init`` drawn with a JAX key,
+"""The port's decoders on the CPU against the reference's, on the same
+weights: the reference's ``build(cfg).init`` drawn with a JAX key,
 handed over as numpy leaves through ``repro_torch.convert``.
 
-For the five archs whose blocks are attention + dense FFN
-(phi3-medium-14b, granite-34b (MQA), deepseek-7b, minitron-4b,
-llava-next-34b with its ``vision_stub`` prefix) at ``reduced()``, f32:
-``prefill``'s logits and caches and ``decode_step``'s logits within
-1e-5 of max |ref| (the two sum in other orders; attention on the port's
-side is K4's plain version), also across a ring wrap; the reference's
-``test_arch_smoke_decode_matches_prefill`` (rtol/atol 2e-4),
-``test_multi_token_decode_chain`` (3e-4, on phi3) and
-``test_sliding_window_masks_old_tokens`` (1e-4, phi3 with window 8)
-mirrored on the port; one bf16-compute case within 2e-2 of max |ref|
-(both sides round every matmul to bf16, in other orders).
-``param_count`` and ``padded_heads`` equal the reference's for all ten
-archs, and the port's init shapes at full size sum to ``param_count()``.
-LM params and caches go to the port and back bit for bit.
+For the nine decoder-only archs at ``reduced()``, f32 — dense
+(phi3-medium-14b, granite-34b (MQA), deepseek-7b, minitron-4b), the VLM
+(llava-next-34b with its ``vision_stub`` prefix), MoE (mixtral-8x7b,
+dbrx-132b: the dense MoE mode), SSM (mamba2-1.3b) and the hybrid
+(jamba-1.5-large-398b: attention, Mamba and MoE sublayers):
+``prefill``'s logits and caches and ``decode_step``'s logits and caches
+within 1e-5 of max |ref| (the two sum in other orders; attention on the
+port's side is K4's plain version), also across a ring wrap; the
+reference's ``test_arch_smoke_decode_matches_prefill`` (rtol/atol
+2e-4, ``capacity_factor = n_experts`` where there are experts, as
+there), ``test_multi_token_decode_chain`` (3e-4; phi3, and mixtral,
+mamba2 and jamba as the reference runs it) and
+``test_sliding_window_masks_old_tokens`` (1e-4; phi3, and mixtral as
+the reference runs it, window 8) mirrored on the port; one bf16-compute
+case within 2e-2 of max |ref| (both sides round every matmul to bf16,
+in other orders).  ``param_count`` and ``padded_heads`` equal the
+reference's for all ten archs; the port's init shapes at full size
+equal the reference's leaf for leaf and sum to ``param_count()`` (for
+a Mamba mixer plus what the analytic count leaves out).  LM params and
+caches (KV, SSM state and conv tail) go to the port and back bit for
+bit.
 """
 
 import dataclasses
@@ -34,6 +41,7 @@ from repro.models.layers import cast_params_for_compute as jax_cast
 from repro_torch.configs import ARCHS, get_config, reduced
 from repro_torch.convert import (lm_cache_from_numpy, lm_cache_to_numpy,
                                  lm_params_from_numpy, lm_params_to_numpy)
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.api import build
 from repro_torch.models.layers import cast_params_for_compute
@@ -41,6 +49,10 @@ from repro_torch.models.layers import cast_params_for_compute
 KEY = jax.random.PRNGKey(0)
 DENSE = ["phi3-medium-14b", "granite-34b", "deepseek-7b", "minitron-4b",
          "llava-next-34b"]
+#: the decoder-only archs beyond the dense ones: MoE, SSM, hybrid
+MOE_SSM = ["mixtral-8x7b", "dbrx-132b", "mamba2-1.3b",
+           "jamba-1.5-large-398b"]
+DECODERS = DENSE + MOE_SSM
 
 
 def _numpy_tree(tree):
@@ -88,14 +100,26 @@ def _within(out, ref, rel):
 def _caches_within(port_caches, ref_caches, rel):
     port = lm_cache_to_numpy(port_caches)
     ref = _numpy_tree(ref_caches)
+    assert port.keys() == ref.keys()
     for sub in ref:
-        np.testing.assert_array_equal(port[sub]["pos"], ref[sub]["pos"])
-        for n in ("k", "v"):
+        assert port[sub].keys() == ref[sub].keys()
+        if "pos" in ref[sub]:
+            np.testing.assert_array_equal(port[sub]["pos"], ref[sub]["pos"])
+        for n in ref[sub].keys() - {"pos"}:
+            assert port[sub][n].dtype == ref[sub][n].dtype, (sub, n)
             _within(port[sub][n].astype(np.float32),
                     ref[sub][n].astype(np.float32), rel)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+def _for_parity(cfg):
+    """The reference's decode tests' config: no token dropped."""
+    if cfg.n_experts:
+        return dataclasses.replace(cfg, capacity_factor=float(
+            cfg.n_experts))
+    return cfg
+
+
+@pytest.mark.parametrize("arch", DECODERS)
 def test_prefill_and_decode_match_reference(arch):
     jcfg, cfg, jparams, params = _pair(arch)
     b, s = 2, 16
@@ -139,11 +163,11 @@ def test_decode_across_a_ring_wrap_matches_reference():
         _caches_within(caches, ref_caches, 1e-5)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DECODERS)
 def test_arch_smoke_decode_matches_prefill(arch):
     """Greedy decode of token t equals teacher-forced logits at t."""
     _, cfg, _, params = _pair(arch)
-    api = build(cfg)
+    api = build(_for_parity(cfg))
     b, s = 2, 16
     batch = _port_batch(_batch(cfg, b, s))
     full, _ = api.prefill(params, batch, max_seq=s + 4)
@@ -173,6 +197,80 @@ def test_multi_token_decode_chain():
     full, _ = api.prefill(params, {"tokens": toks}, max_seq=s + extra + 1)
     np.testing.assert_allclose(outs[-1].numpy(), full.numpy(), rtol=3e-4,
                                atol=3e-4)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b"])
+def test_multi_token_decode_chain_moe_ssm_hybrid(arch):
+    """The reference's chain over its MoE, SSM and hybrid archs: 4
+    tokens decoded one by one == prefill of the longer sequence."""
+    _, cfg, _, params = _pair(arch)
+    api = build(_for_parity(cfg))
+    b, s, extra = 2, 8, 4
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (b, s + extra)).astype(np.int32))
+    _, caches = api.prefill(params, {"tokens": toks[:, :s]},
+                            max_seq=s + extra)
+    for i in range(extra):
+        logits, caches = api.decode_step(params, caches,
+                                         toks[:, s + i:s + i + 1], s + i)
+    full, _ = api.prefill(params, {"tokens": toks}, max_seq=s + extra + 1)
+    np.testing.assert_allclose(logits.numpy(), full.numpy(), rtol=3e-4,
+                               atol=3e-4)
+
+
+def test_decode_chain_matches_reference_with_drops(monkeypatch):
+    """mixtral at capacity factor 0.5: a decode step's 2 tokens route 4
+    pairs into 4 experts' bins of 1 row, the prefill's 12 tokens 24
+    pairs into bins of 3, so pairs drop; the prefill's and every decode
+    step's logits and caches against the reference's."""
+    jcfg, cfg, jparams, params = _pair("mixtral-8x7b", capacity_factor=0.5)
+    dropped = []
+    dispatch = moe_mod.moe_dispatch_local
+
+    def counting(x, gates, idx, n_experts, capacity):
+        bins, slot = dispatch(x, gates, idx, n_experts, capacity)
+        dropped.append(int((slot == n_experts * capacity).sum()))
+        return bins, slot
+    monkeypatch.setattr(moe_mod, "moe_dispatch_local", counting)
+    batch = _batch(cfg, 2, 6)
+    japi, api = jax_build(jcfg), build(cfg)
+    ref_logits, ref_caches = japi.prefill(jparams, _jax_batch(batch),
+                                          max_seq=16)
+    logits, caches = api.prefill(params, _port_batch(batch), max_seq=16)
+    _within(logits, ref_logits, 1e-5)
+    _caches_within(caches, ref_caches, 1e-5)
+    rng = np.random.default_rng(5)
+    for pos in range(6, 12):
+        tok = rng.integers(0, cfg.vocab, (2, 1)).astype(np.int32)
+        ref_logits, ref_caches = japi.decode_step(
+            jparams, ref_caches, jnp.asarray(tok),
+            jnp.asarray(pos, jnp.int32))
+        logits, caches = api.decode_step(params, caches,
+                                         torch.from_numpy(tok), pos)
+        _within(logits, ref_logits, 1e-5)
+        _caches_within(caches, ref_caches, 1e-5)
+    assert len(dropped) == 7 * cfg.n_layers and sum(dropped) > 0
+
+
+def test_sliding_window_masks_old_tokens_mixtral():
+    """The reference's own window test, on mixtral (window 8, one layer,
+    capacity factor 8)."""
+    _, cfg, _, params = _pair("mixtral-8x7b", window=8, n_layers=1,
+                              capacity_factor=8.0)
+    api = build(cfg)
+    b, s = 1, 24
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))
+    toks2 = toks.clone()
+    toks2[:, :s - 9] = (toks[:, :s - 9] + 7) % cfg.vocab
+    l1, _ = api.prefill(params, {"tokens": toks}, max_seq=s)
+    l2, _ = api.prefill(params, {"tokens": toks2}, max_seq=s)
+    np.testing.assert_allclose(l1.numpy(), l2.numpy(), rtol=1e-4, atol=1e-4)
+    toks3 = toks.clone()
+    toks3[:, s - 2] = (toks[:, s - 2] + 7) % cfg.vocab
+    l3, _ = api.prefill(params, {"tokens": toks3}, max_seq=s)
+    assert np.abs(l3.numpy() - l1.numpy()).max() > 1e-3
 
 
 def test_sliding_window_masks_old_tokens():
@@ -263,6 +361,55 @@ def test_full_size_init_shapes_sum_to_param_count(arch):
     assert len(params["blocks"]) == cfg.n_layers
 
 
+def _leaf_shapes(tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: v for n, sub in tree.items()
+                for k, v in _leaf_shapes(sub, prefix + (n,)).items()}
+    return {prefix: tuple(tree.shape)}
+
+
+@pytest.mark.parametrize("arch", MOE_SSM)
+def test_full_size_init_matches_reference_shapes(arch):
+    """The port's full-size init on ``meta`` against the reference's
+    (``jax.eval_shape``, nothing drawn) leaf for leaf, its blocks one
+    slice each of the reference's stacked leaves; the sum is
+    ``param_count()``, plus for each Mamba mixer what the analytic
+    count leaves out (the dt columns of ``in_proj``, the B/C taps of
+    ``conv_w``, ``D`` and ``dt_bias``), less the second norm an
+    FFN-less (SSM) layer lacks, plus the vocab's padding."""
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    params = T.init_params(cfg, None)
+    ref = jax.eval_shape(jax_build(jcfg).init, KEY)
+    blocks = ref["blocks"]
+    assert len(params["blocks"]) == T.n_blocks(cfg)
+    want = _leaf_shapes(blocks)
+    for block in params["blocks"]:
+        got = _leaf_shapes(block)
+        assert got.keys() == want.keys()
+        for k, shape in got.items():
+            assert (T.n_blocks(cfg),) + shape == want[k], k
+    assert tuple(params["embed"].shape) == tuple(ref["embed"].shape)
+    leaves = [t for block in params["blocks"] for t in
+              _tensors(block)] + [params["embed"], params["final_ln"]]
+    assert all(t.device.type == "meta" for t in leaves)
+    d, h = cfg.d_model, cfg.ssm_heads
+    n_mamba = sum(mixer == "mamba" for mixer, _ in T.block_spec(cfg)) \
+        * T.n_blocks(cfg)
+    extra = n_mamba * (d * h + 2 * cfg.ssm_state * cfg.ssm_conv + 2 * h)
+    if cfg.family == "ssm":
+        extra -= cfg.n_layers * d
+    extra += (cfg.padded_vocab(1) - cfg.vocab) * d
+    assert sum(t.numel() for t in leaves) == cfg.param_count() + extra
+    if cfg.family == "moe":
+        assert extra == 0
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree]
+
+
 def test_cast_blocks_init_equals_the_per_step_cast():
     cfg = dataclasses.replace(reduced(get_config("phi3-medium-14b")),
                               compute_dtype=torch.bfloat16)
@@ -317,15 +464,72 @@ def test_convert_round_trip_is_bit_exact(half):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("arch", MOE_SSM)
+@pytest.mark.parametrize("half", [False, True])
+def test_convert_round_trip_moe_ssm_is_bit_exact(arch, half):
+    """MoE (router, wg/wi/wo) and Mamba (in_proj, conv_w, A_log, D,
+    dt_bias, norm_w, out_proj) params, and the SSM state and conv-tail
+    caches beside the KV ones, to the port and back bit for bit."""
+    jcfg = jax_reduced(jax_get_config(arch))
+    jparams = jax_build(jcfg).init(KEY)
+    if half:
+        jparams = dict(jparams, blocks=jax_cast(jparams["blocks"],
+                                                jnp.bfloat16))
+    tree = _numpy_tree(jparams)
+    params = lm_params_from_numpy(tree, device="cpu")
+    subs = params["blocks"][0].values()
+    for sub in subs:
+        if "moe" in sub:
+            assert sub["moe"]["router"].dtype == torch.float32
+            assert sub["moe"]["wg"].dtype == (torch.bfloat16 if half
+                                              else torch.float32)
+        if "mamba" in sub:
+            assert sub["mamba"]["A_log"].dtype == torch.float32
+    assert any("moe" in sub for sub in subs) == bool(jcfg.n_experts)
+    assert any("mamba" in sub for sub in subs) == bool(jcfg.ssm_state)
+    back = lm_params_to_numpy(params)
+    flat, treedef = jax.tree_util.tree_flatten(tree)
+    flat_back, treedef_back = jax.tree_util.tree_flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+    jcaches = jax_build(dataclasses.replace(
+        jcfg, compute_dtype=jnp.bfloat16 if half else jnp.float32)
+    ).init_cache(2, 8)
+    jcaches = jax.tree_util.tree_map(lambda a: a + 1, jcaches)
+    ctree = _numpy_tree(jcaches)
+    caches = lm_cache_from_numpy(ctree, device="cpu")
+    kinds = {n for block in caches for c in block.values() for n in c}
+    assert ({"ssm", "conv"} <= kinds) == bool(jcfg.ssm_state)
+    for block in caches:
+        for c in block.values():
+            for n, x in c.items():
+                assert isinstance(x, np.ndarray) == (n == "pos")
+    cback = lm_cache_to_numpy(caches)
+    flat, treedef = jax.tree_util.tree_flatten(ctree)
+    flat_back, treedef_back = jax.tree_util.tree_flatten(cback)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+def test_ssm_cache_leaf_of_one_dim_is_not_pos():
+    """``pos`` is told by its name: a one-long SSM leaf (a 1-block
+    cache's stacked state sliced to one dim) stays a tensor."""
+    tree = {"sub0": {"ssm": np.ones((2, 3), np.float32),
+                     "conv": np.ones((2, 3), np.float32)}}
+    caches = lm_cache_from_numpy(tree, device="cpu")
+    assert all(isinstance(x, torch.Tensor) for b in caches
+               for c in b.values() for x in c.values())
+
+
 def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="tp"):
         build(reduced(get_config("phi3-medium-14b")), tp=2)
-    for arch, what in (("whisper-medium", "encoder-decoder"),
-                       ("mixtral-8x7b", "MoE"), ("dbrx-132b", "MoE"),
-                       ("mamba2-1.3b", "mamba"),
-                       ("jamba-1.5-large-398b", "mamba")):
-        with pytest.raises(NotImplementedError, match=what):
-            build(reduced(get_config(arch)))
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build(reduced(get_config("whisper-medium")))
     api = build(reduced(get_config("phi3-medium-14b")))
     with pytest.raises(NotImplementedError, match="train_loss"):
         api.train_loss({}, {})

@@ -12,7 +12,11 @@ port gets through ``repro_torch.convert``.  Both run the reference's
 vocab 64, one layer; 2 slots, max_seq 48, 4 requests of 3 prompt tokens
 and 4 new ones): every step feeds the same tokens, its logits agree
 within 1e-5 of max |ref|, its greedy tokens are equal, every request
-completes and freed slots are reused.  Then the CLI on the CPU.
+completes and freed slots are reused.  The same for reduced mixtral
+(capacity factor 8.0, as the reference's ``main --reduced``), mamba2
+and jamba: a reused slot's SSM state and conv tail carry over from its
+previous request on both sides, as its KV entries do.  Then the CLI on
+the CPU, also with ``--arch mixtral-8x7b``.
 """
 
 import os
@@ -22,6 +26,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
@@ -75,8 +80,18 @@ def _drive(server, reqs, slots_seen):
 
 
 def test_serve_continuous_batching_matches_the_reference_server():
-    jcfg = jax_reduced(jax_get_config("phi3-medium-14b"), **SCENARIO)
-    cfg = reduced(get_config("phi3-medium-14b"), **SCENARIO)
+    _serve_against_reference("phi3-medium-14b")
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b",
+                                  "jamba-1.5-large-398b"])
+def test_serve_moe_ssm_hybrid_matches_the_reference_server(arch):
+    _serve_against_reference(arch, capacity_factor=8.0)
+
+
+def _serve_against_reference(arch, **overrides):
+    jcfg = jax_reduced(jax_get_config(arch), **SCENARIO, **overrides)
+    cfg = reduced(get_config(arch), **SCENARIO, **overrides)
     jparams = jax_build(jcfg).init(jax.random.PRNGKey(0))
     params = lm_params_from_numpy(jax.tree_util.tree_map(np.asarray,
                                                          jparams),
@@ -126,9 +141,17 @@ def test_server_draws_its_own_weights_from_a_seed():
 
 
 def test_serve_cli_on_the_cpu():
+    _cli_on_the_cpu([])
+
+
+def test_serve_cli_mixtral_on_the_cpu():
+    _cli_on_the_cpu(["--arch", "mixtral-8x7b"])
+
+
+def _cli_on_the_cpu(args):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
-         "--device", "cpu", "--requests", "3", "--gen", "4"],
+         "--device", "cpu", "--requests", "3", "--gen", "4", *args],
         capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert proc.returncode == 0, proc.stderr
