@@ -36,11 +36,15 @@
     ``sm90_tf32`` where TMA describes the operands; K4 on every
     route that takes each case (f32 ``sm90_tf32`` and ``fma``, bf16
     ``sm90`` and ``fma``), also at head dims 20, 80, 96, 256, 320
-    and 512, two long cases and the LM path's decode shapes: one query
-    row against 1, 37 and 128 keys) and a fully masked row case, against
-    their plain versions (``CARD_TOL``; deliberately wrong results, a
-    dropped key tile and a bf16 output accumulator among them, are
-    shown to fail the same gate), one launch per call;
+    and 512, two long cases, the LM path's decode shapes: one query
+    row against 1, 37 and 128 keys, and whisper-medium's encoder (1500
+    x 1500, non-causal) and cross-decode (1 x 1500) shapes) and a fully
+    masked row case, against their plain versions (``CARD_TOL``;
+    deliberately wrong results, a dropped key tile and a bf16 output
+    accumulator among them, are shown to fail the same gate; at
+    whisper's shapes so is the plain attention with the reference's
+    zero pad keys, 1500 keys padded to two 1024-key chunks), one launch
+    per call;
   * ``vgg``, ``serve_bf16_vgg``, ``resnet``: VGG16/224 (full width, f32
     and bf16) and ResNet-20/32 served through
     ``repro_torch.serve.ImageServer``, every conv on K1, its launches by
@@ -130,6 +134,19 @@
     f32 (one full-width block is 88.1 GB): one K4 ``sm90_tf32`` launch
     a decode step, the served logits (under the served routing) and
     decode against prefill within ``TOL``;
+  * ``lm_serve_encdec``: whisper-medium at full width and depth (24
+    encoder and 24 decoder layers) in bf16 through ``BatchedServer``
+    as the reference's server serves it (decode only, from
+    ``init_cache``): every request completes, 48 K4 ``sm90`` launches a
+    step (24 self, 24 cross over 1500 zero slots) and nothing else of
+    K1-K4, each step replayed as ``lm_serve`` does, the gather control;
+    the audio path (``lm_serve_encdec_audio``: 4 x 1500 frames and an
+    8-token prompt through ``prefill``, 72 K4 launches, then 16 greedy
+    decode steps) in bf16 and f32, the logits within 2e-2 (bf16) and
+    ``TOL`` (f32) of the plain replay, every K4 call within
+    ``CARD_TOL``, in f32 decode against prefill; encode, prefill and
+    step times; K4 alone at whisper's encoder, cross-prefill and
+    cross-decode shapes;
   * ``plan_audit``: the ``sm90`` legality profile
     (``repro_torch.analysis.plan_check``) on the card, running no
     kernel: the card's opt-in shared memory a block, SM count and
@@ -242,6 +259,7 @@ from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
 from repro_torch.models import attention as LM_A  # noqa: E402
+from repro_torch.models import encdec as LM_E  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import transformer as LM_T  # noqa: E402
 from repro_torch.models.api import build as build_lm  # noqa: E402
@@ -1941,6 +1959,17 @@ ATTN_DECODE = [
     (4, 1, 128, 40, 10, 128, 0, False),
     (4, 1, 128, 32, 8, 128, 0, False),
 ]
+#: whisper-medium's encoder (1500 frames, non-causal) and
+#: cross-attention decode shapes: 1500 is a multiple of no K4 tile, so
+#: the last query and key tiles are ragged
+ATTN_ENCDEC = [
+    (1, 1500, 1500, 16, 16, 64, 0, False),
+    (4, 1, 1500, 16, 16, 64, 0, False),
+]
+#: the reference's plain chunked attention pads the keys to a multiple
+#: of its chunk (whisper's ``attn_chunk``) and lets a non-causal query
+#: see the zero pad keys
+ATTN_PAD_CHUNK = 1024
 
 
 def tile_ranges(sq: int, skv: int, window: int, causal: bool,
@@ -2031,22 +2060,33 @@ def _attention_via(q, k, v, *, window: int, causal: bool, via: str):
     return out.reshape(b, h, sq, hd).transpose(1, 2)
 
 
+def pad_keys(t: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, S, KV, hd) with zero keys appended up to a multiple of
+    ``chunk``, as the reference's chunked attention pads them."""
+    return F.pad(t, (0, 0, 0, 0, 0, -t.shape[1] % chunk))
+
+
 def phase_check_attention() -> dict:
     """Every case and type of the reference's attention sweep, the head
     dims beside it (also above 256), the fully masked rows, two long
-    cases and the LM path's decode shapes, on every route that takes each (the route :func:`K4.route`
-    picks through ``flash_attention``, the other by ``via``: f32 on
+    cases, the LM path's decode shapes and whisper's encoder and
+    cross-decode shapes, on every route that takes each (the route
+    :func:`K4.route` picks through ``flash_attention``, the other by
+    ``via``: f32 on
     ``sm90_tf32`` and ``fma``, bf16 on ``sm90`` and ``fma``, where the
     tensor-core route's widths take the head dim), against the plain
     version.  Controls: a window off by one, the last visited key tile
     dropped (every case and route), the output accumulator rounded to
-    bf16 once per key tile (sm90; it must fail on the long cases).
+    bf16 once per key tile (sm90; it must fail on the long cases); at
+    whisper's shapes, the plain attention with the reference's zero pad
+    keys (1500 keys padded to two 1024-key chunks) against K4's output
+    (it must fail: K4 attends over the real keys only).
     Returns the launches by route."""
     gen = torch.Generator().manual_seed(SEED + 4)
     by_route = dict.fromkeys(K4.ROUTES, 0)
     for dtype in DTYPES:
         for case in (ATTN_SWEEP + ATTN_HEAD_DIMS + ATTN_LONG
-                     + ATTN_DECODE):
+                     + ATTN_DECODE + ATTN_ENCDEC):
             b, sq, skv, h, kv, hd, win, causal = case
             q = _randn(gen, b, sq, h, hd).to(dtype)
             k = _randn(gen, b, skv, kv, hd).to(dtype)
@@ -2072,6 +2112,12 @@ def phase_check_attention() -> dict:
                 row["control_drop"] = control(
                     "last visited key tile dropped",
                     _fault(q, k, v, fault="drop", **kw), plain, dtype)
+                if case in ATTN_ENCDEC:
+                    row["control_pad_keys"] = control(
+                        f"{-skv % ATTN_PAD_CHUNK} zero pad keys in the "
+                        f"softmax", plain_attention(
+                            q, pad_keys(k, ATTN_PAD_CHUNK),
+                            pad_keys(v, ATTN_PAD_CHUNK), **kw), out, dtype)
                 if rt == "sm90":
                     wrong = _fault(q, k, v, fault="round_o", **kw)
                     if case in ATTN_LONG:
@@ -2572,6 +2618,14 @@ def counted(into: dict):
                                     in fn.launches_by_route.items()}
 
 
+def k4_only(counts: dict, route: str, n: int) -> bool:
+    """``n`` K4 launches on ``route`` and nothing else of K1-K4, in the
+    counts of a :func:`counted` block."""
+    return (counts["attention"] == dict.fromkeys(K4.ROUTES, 0) | {route: n}
+            and not any(v for name in ("conv_lb", "wgrad_lb", "matmul_lb")
+                        for v in counts[name].values()))
+
+
 @contextlib.contextmanager
 def patched(*swaps):
     """``(module, name, value)``: each attribute replaced for the block."""
@@ -2608,9 +2662,11 @@ def drop_newest_slot():
 
 
 def clone_caches(caches: list) -> list:
-    return [{s: {n: x.clone() if isinstance(x, torch.Tensor) else x.copy()
-                 for n, x in c.items()} for s, c in block.items()}
-            for block in caches]
+    def clone(x):
+        if isinstance(x, dict):
+            return {n: clone(v) for n, v in x.items()}
+        return x.clone() if isinstance(x, torch.Tensor) else x.copy()
+    return [clone(block) for block in caches]
 
 
 def lm_requests(cfg, seed: int) -> list:
@@ -2715,6 +2771,16 @@ def _routed(routing, i: int, count: bool = False):
     return routing.served(i, count) if routing else contextlib.nullcontext()
 
 
+def k4_against_plain(dtype, into: list):
+    """A ``tap`` that holds each K4 call to the plain version on its own
+    inputs at ``CARD_TOL``, appending its worst |err| / tolerance to
+    ``into``."""
+    def tap(layer, q, k, v, out, *, window, causal):
+        into.append(within(out, plain_attention(
+            q, k, v, window=window, causal=causal), dtype)["worst_over_tol"])
+    return tap
+
+
 def replay_plain(api, params, steps, tol: float, what: str,
                  routing: Routing | None = None) -> dict:
     """Each served step again from a clone of its caches (under the
@@ -2730,12 +2796,8 @@ def replay_plain(api, params, steps, tol: float, what: str,
         step's logits equal to the served ones bit for bit (required).
 
     Also the steps whose greedy tokens agree."""
-    dtype = api.cfg.compute_dtype
     errs, per_call, agree = [], [], 0
-
-    def tap(layer, q, k, v, out, *, window, causal):
-        per_call.append(within(out, plain_attention(
-            q, k, v, window=window, causal=causal), dtype)["worst_over_tol"])
+    tap = k4_against_plain(api.cfg.compute_dtype, per_call)
     for i, (caches, tok, pos, logits) in enumerate(steps):
         with _routed(routing, i, count=True):
             plain, _ = api.decode_step(params, clone_caches(caches), tok,
@@ -2945,11 +3007,7 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
     with counted(counts), no_plain_attention(), _recorded(routing):
         steps, secs = serve_lm(server, reqs, "sm90", cfg.n_layers)
     serve_peak = torch.cuda.max_memory_allocated()
-    require(counts["attention"]["sm90"] == cfg.n_layers * len(steps)
-            and sum(counts["attention"].values())
-            == counts["attention"]["sm90"]
-            and not any(n for name in ("conv_lb", "wgrad_lb", "matmul_lb")
-                        for n in counts[name].values()),
+    require(k4_only(counts, "sm90", cfg.n_layers * len(steps)),
             f"{phase} launches {counts}")
     api, params = server.api, server.params
     extra = {}
@@ -3042,7 +3100,10 @@ def _tensors(tree) -> list:
 
 
 def attention_layers(cfg) -> int:
-    """The attention sublayers a decode step runs (each one K4 call)."""
+    """The attention sublayers a decode step runs (each one K4 call):
+    the encoder-decoder's self- and cross-attention a decoder layer."""
+    if cfg.family == "encdec":
+        return 2 * cfg.n_layers
     return sum(mixer == "attn" for mixer, _ in LM_T.block_spec(cfg)) \
         * LM_T.n_blocks(cfg)
 
@@ -3084,9 +3145,7 @@ def lm_f32(card: str, flush, gen, arch: str = LM_ARCH,
     counts = {}
     with counted(counts), no_plain_attention(), _recorded(routing):
         steps, secs = serve_lm(server, reqs, "sm90_tf32", cfg.n_layers)
-    require(counts["attention"]["sm90_tf32"] == cfg.n_layers * len(steps)
-            and sum(counts["attention"].values())
-            == counts["attention"]["sm90_tf32"],
+    require(k4_only(counts, "sm90_tf32", cfg.n_layers * len(steps)),
             f"{phase} launches {counts}")
     params = server.params
     teacher = replay_plain(server.api, params, steps, TOL, phase, routing)
@@ -3302,9 +3361,7 @@ def phase_lm_serve_hybrid(card: str) -> dict:
     counts = {}
     with counted(counts), no_plain_attention(), routing.record():
         steps, secs = serve_lm(server, reqs, "sm90_tf32", per_step)
-    require(counts["attention"]["sm90_tf32"] == per_step * len(steps)
-            and sum(n for c in counts.values() for n in c.values())
-            == counts["attention"]["sm90_tf32"],
+    require(k4_only(counts, "sm90_tf32", per_step * len(steps)),
             f"lm_serve_hybrid launches {counts}")
     params = server.params
     teacher = replay_plain(server.api, params, steps, TOL,
@@ -3340,6 +3397,208 @@ def phase_lm_serve_hybrid(card: str) -> dict:
                                 "gate": TOL, "s": LM_S},
           "card": card})
     return {"f32": counts}
+
+
+# --------------------------------------------------------------------------
+# lm_serve_encdec: whisper-medium (the encoder-decoder) at full size
+# --------------------------------------------------------------------------
+
+ENCDEC_ARCH = "whisper-medium"
+#: the audio path: frames drawn as the reference's ``make_batch`` draws
+#: them (normal x 0.02), an 8-token prompt, then greedy decode steps
+ENCDEC_FRAMES_SCALE, ENCDEC_STEPS = 0.02, 16
+#: K4 alone at whisper's shapes: the encoder (non-causal 1500 x 1500),
+#: the cross-attention prefill (8 x 1500) and decode (1 x 1500)
+ENCDEC_K4_SHAPES = (
+    ("encoder", LM_SLOTS, LM_E.ENC_FRAMES, LM_E.ENC_FRAMES, False, 0),
+    ("cross_prefill", LM_SLOTS, LM_PROMPT, LM_E.ENC_FRAMES, False, 0),
+    ("cross_decode", LM_SLOTS, 1, LM_E.ENC_FRAMES, False, 0))
+
+
+def _merged(*counts: dict) -> dict:
+    """Launch counts of several :func:`counted` blocks, summed."""
+    return {name: {r: sum(c[name][r] for c in counts)
+                   for r in counts[0][name]} for name in counts[0]}
+
+
+def _median_ms(fn, reps: int = 3) -> float:
+    """The median host-clock ms of ``reps`` calls of ``fn``, each ended
+    by a synchronize."""
+    secs = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return _median(secs) * 1e3
+
+
+def encdec_audio(api, params, gen, tol: float, what: str) -> dict:
+    """whisper's audio path on ``params``: ``LM_SLOTS`` utterances of
+    ``ENC_FRAMES`` frames and an ``LM_PROMPT``-token prompt through
+    ``api.prefill`` (72 K4 launches on the route of the compute type:
+    24 non-causal encoder, 24 causal self, 24 cross, and nothing else
+    of K1-K4), then :data:`ENCDEC_STEPS` greedy ``decode_step``s from
+    its caches (48 a step).  The prefill's logits and every step's
+    within ``tol`` of max |plain| of the plain replay (:func:`expect`),
+    every K4 call within ``CARD_TOL`` on its own inputs and each call
+    repeating bit for bit (:func:`replay_plain`); in f32 also the last
+    logits of a 9-token prefill against an 8-token prefill and one
+    decode step, within ``TOL``.  Encode, prefill and step times."""
+    cfg = api.cfg
+    dtype = cfg.compute_dtype
+    rt = "sm90" if dtype == torch.bfloat16 else "sm90_tf32"
+    frames = _randn(gen, LM_SLOTS, LM_E.ENC_FRAMES, cfg.d_model,
+                    scale=ENCDEC_FRAMES_SCALE)
+    toks = torch.randint(0, cfg.vocab, (LM_SLOTS, LM_PROMPT + 1),
+                         generator=gen).cuda()
+    batch = {"tokens": toks[:, :LM_PROMPT], "frames": frames}
+    prefill_counts, decode_counts = {}, {}
+    with counted(prefill_counts), no_plain_attention():
+        logits, caches = api.prefill(params, batch, max_seq=LM_MAX_SEQ)
+        torch.cuda.synchronize()
+    require(k4_only(prefill_counts, rt, 3 * cfg.n_layers),
+            f"{what} prefill launches {prefill_counts}")
+    plain, _ = api.prefill(params, batch, max_seq=LM_MAX_SEQ, attn="plain")
+    per_call = []
+    again, _ = api.prefill(params, batch, max_seq=LM_MAX_SEQ,
+                           tap=k4_against_plain(dtype, per_call))
+    require(torch.equal(again, logits), f"{what}: the prefill did not "
+                                        f"repeat")
+    require(len(per_call) == 3 * cfg.n_layers and max(per_call) <= 1.0,
+            f"{what} prefill: K4 calls against the plain version, worst "
+            f"{max(per_call)} of CARD_TOL over {len(per_call)} calls")
+    prefill_err = _rel(logits, plain, cfg.vocab)
+    expect(prefill_err <= tol, f"{what} prefill: logits err {prefill_err} "
+                               f"of max |plain| > {tol}")
+    del plain, again
+    steps, secs = [], []
+    tok = logits.argmax(-1, keepdim=True)
+    with counted(decode_counts), no_plain_attention():
+        for pos in range(LM_PROMPT, LM_PROMPT + ENCDEC_STEPS):
+            before = clone_caches(caches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = api.decode_step(params, caches, tok, pos)
+            nxt = logits.argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            steps.append((before, tok, pos, logits))
+            tok = nxt
+    require(k4_only(decode_counts, rt, 2 * cfg.n_layers * ENCDEC_STEPS),
+            f"{what} decode launches {decode_counts}")
+    teacher = replay_plain(api, params, steps, tol, what)
+    del steps, caches
+    out = {"frames": list(frames.shape), "prompt": LM_PROMPT,
+           "k4_route": rt, "k4_per_prefill": 3 * cfg.n_layers,
+           "k4_per_step": 2 * cfg.n_layers,
+           "launches": _merged(prefill_counts, decode_counts),
+           "prefill_err_over_max_plain": prefill_err,
+           "prefill_per_call_worst_over_card_tol": max(per_call),
+           "decode": teacher, "gate": tol,
+           "encode_ms_median": _median_ms(
+               lambda: LM_E.encode(params, frames, cfg)),
+           "prefill_ms_median": _median_ms(
+               lambda: api.prefill(params, batch, max_seq=LM_MAX_SEQ)),
+           "step_ms_median": _median(secs) * 1e3,
+           "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3}
+    if dtype == torch.float32:
+        full, _ = api.prefill(params, dict(batch, tokens=toks),
+                              max_seq=LM_MAX_SEQ)
+        _, caches = api.prefill(params, batch, max_seq=LM_MAX_SEQ)
+        dec, _ = api.decode_step(params, caches, toks[:, LM_PROMPT:],
+                                 LM_PROMPT)
+        err = _rel(dec, full, cfg.vocab)
+        require(err <= TOL, f"{what}: decode against prefill {err}")
+        out["decode_vs_prefill"] = {"err_over_max": err, "gate": TOL,
+                                    "s": LM_PROMPT + 1}
+    return out
+
+
+def phase_lm_serve_encdec(card: str, flush) -> dict:
+    """whisper-medium at full width and depth (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads of 64, vocab 51865):
+
+      * served in bf16 through ``BatchedServer`` at the reference
+        server's defaults, as the reference's server serves it (decode
+        only, from ``init_cache``: the cross-attention over 1500 zero
+        slots adds 0): every request completes, 48 K4 ``sm90`` launches
+        a step (24 self, 24 cross) and nothing else of K1-K4, no plain
+        attention; each step replayed (:func:`replay_plain`) and the
+        gather control (:func:`control_drop_newest`); step time,
+        tokens/s, one profiled step beside the byte bound of what a step
+        reads (the decoder's blocks, the table and the caches), peak;
+      * the audio path (:func:`encdec_audio`) in bf16 on the served
+        weights, then in f32 on weights drawn in f32;
+      * K4 alone at :data:`ENCDEC_K4_SHAPES` in both types.
+
+    Returns the launches by type and the K4 rows."""
+    _free()
+    gen = torch.Generator().manual_seed(SEED + 51)
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                           device="cuda", seed=SEED)
+    api, params = server.api, server.params
+    weights = _nbytes(params)
+    step_bytes = _nbytes([params["dec_blocks"], params["embed"],
+                          params["final_ln"], server.caches])
+    reqs = lm_requests(cfg, SEED + 12)
+    per_step = attention_layers(cfg)
+    counts = {}
+    with counted(counts), no_plain_attention():
+        steps, secs = serve_lm(server, reqs, "sm90", per_step)
+    serve_peak = torch.cuda.max_memory_allocated()
+    require(k4_only(counts, "sm90", per_step * len(steps)),
+            f"lm_serve_encdec launches {counts}")
+    teacher = replay_plain(api, params, steps, LM_BF16_TOL,
+                           "lm_serve_encdec")
+    controls = control_drop_newest(api, params, steps, LM_BF16_TOL)
+    timing = profile_decode_step(api, params, steps)
+    generated = sum(len(r.out) for r in reqs)
+    n_steps, step_ms = len(steps), _median(secs) * 1e3
+    del steps
+    audio_bf16 = encdec_audio(api, params, gen, LM_BF16_TOL,
+                              "lm_serve_encdec audio bf16")
+    peak = torch.cuda.max_memory_allocated()
+    del server, api, params
+    _free()
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    f32_api = build_lm(f32)
+    f32_params = f32_api.init(torch.Generator(device="cuda").manual_seed(
+        SEED))
+    audio_f32 = encdec_audio(f32_api, f32_params, gen, TOL,
+                             "lm_serve_encdec audio f32")
+    del f32_api, f32_params
+    _free()
+    rows = [r for dtype in DTYPES for r in k4_lm_rows(
+        dataclasses.replace(cfg, compute_dtype=dtype), dtype, gen, flush,
+        card, ENCDEC_K4_SHAPES)]
+    emit({"phase": "lm_serve_encdec", "config": ENCDEC_ARCH,
+          "enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "heads": cfg.n_heads,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "dtype": str(cfg.compute_dtype), "requests": len(reqs),
+          "completed": sum(r.done for r in reqs), "slots": LM_SLOTS,
+          "gen": LM_GEN, "max_seq": LM_MAX_SEQ, "steps": n_steps,
+          "generated_tokens": generated, "launches": counts,
+          "k4_sm90_per_step": per_step, "weights_gb": weights / 1e9,
+          "step_gb": step_bytes / 1e9,
+          "step_bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+          "step_bound_by": "bytes", "step_ms_median": step_ms,
+          "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
+          "tokens_per_s": generated / sum(secs), **timing,
+          "serve_peak_gb": serve_peak / 1e9, "peak_gb": peak / 1e9,
+          "teacher_forced": teacher, "control_drop_newest": controls,
+          "card": card})
+    for dtype, audio in ((torch.bfloat16, audio_bf16),
+                         (torch.float32, audio_f32)):
+        emit({"phase": "lm_serve_encdec_audio", "config": ENCDEC_ARCH,
+              "dtype": str(dtype), **audio, "card": card})
+    return {"bf16": _merged(counts, audio_bf16["launches"]),
+            "f32": audio_f32["launches"], "rows": rows,
+            "step_ms_median": step_ms}
 
 
 class Decisions:
@@ -4359,6 +4618,7 @@ def main() -> int:
     moe = phase_lm_serve_moe(card, lm_flush)
     ssm = phase_lm_serve_ssm(card)
     hybrid = phase_lm_serve_hybrid(card)
+    encdec = phase_lm_serve_encdec(card, lm_flush)
     del lm_flush
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
@@ -4794,10 +5054,12 @@ def main() -> int:
                for r in lm["rows"] + lm["f32_rows"]}
     moe_rows = {(r["dtype"], r["what"]): r
                 for r in moe["rows"] + moe["f32_rows"]}
+    encdec_rows = {(r["dtype"], r["what"]): r for r in encdec["rows"]}
     #: each LM phase's launch counts, by part
     lm_runs = {"launches_lm_serve": lm, "launches_lm_serve_moe": moe,
                "launches_lm_serve_ssm": ssm,
-               "launches_lm_serve_hybrid": hybrid}
+               "launches_lm_serve_hybrid": hybrid,
+               "launches_lm_serve_encdec": encdec}
     for k in kernels:
         counter = next(c for c in ("conv_lb", "wgrad", "matmul", "attention")
                        if k["name"].startswith(c))
@@ -4830,7 +5092,12 @@ def main() -> int:
             and by_name["attention"]["launches_lm_serve_hybrid"] == 0
             and by_name["attention_sm90"]["launches_lm_serve_hybrid"] == 0,
             "lm_serve_hybrid: K4's launches by route")
-    for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows)):
+    require(by_name["attention_sm90"]["launches_lm_serve_encdec"] > 0
+            and by_name["attention_sm90_tf32"]["launches_lm_serve_encdec"] > 0
+            and by_name["attention"]["launches_lm_serve_encdec"] == 0,
+            "lm_serve_encdec: K4's launches by route")
+    for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows),
+                      ("lm_serve_encdec", encdec_rows)):
         for name, dtype in (("attention_sm90", "torch.bfloat16"),
                             ("attention_sm90_tf32", "torch.float32")):
             by_name[name][key] = {

@@ -9,15 +9,24 @@ Layouts are kept — HWIO weights stay HWIO, the ``(Co,)`` bias and the
 ``(C, n_classes)`` head as they are — so both packages compute on
 identical weights.
 
-The reference's LM params (``{"embed", "blocks", "final_ln",
-["lm_head"]}``, ``blocks`` a pytree whose every leaf is stacked on a
-leading block axis) and its decode caches (``{"sub0": {"k", "v",
-"pos"}}`` for an attention sublayer, ``{"ssm", "conv"}`` for a Mamba
-one, stacked likewise) go to the port's per-block lists and back
-through :func:`lm_params_from_numpy` / :func:`lm_params_to_numpy` and
-:func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy`, bit for bit
-in both types (a bfloat16 leaf comes back as numpy's bfloat16 of
-``ml_dtypes``); a cache's ``pos`` stays a host numpy vector.
+The reference's LM params and decode caches go to the port's per-layer
+lists and back through :func:`lm_params_from_numpy` /
+:func:`lm_params_to_numpy` and :func:`lm_cache_from_numpy` /
+:func:`lm_cache_to_numpy`, bit for bit in both types (a bfloat16 leaf
+comes back as numpy's bfloat16 of ``ml_dtypes``), for both LM families:
+
+  * decoder-only: params ``{"embed", "blocks", "final_ln",
+    ["lm_head"]}``, ``blocks`` a pytree whose every leaf is stacked on a
+    leading block axis; caches ``{"sub0": {"k", "v", "pos"}}`` for an
+    attention sublayer, ``{"ssm", "conv"}`` for a Mamba one, stacked
+    likewise;
+  * encoder-decoder: params ``{"embed", "enc_blocks", "dec_blocks",
+    "enc_ln", "final_ln"}``, both block stacks stacked; caches
+    ``{"self": {"k", "v", "pos"}, "cross_k", "cross_v"}``, the cross
+    leaves at the top of the tree.
+
+Every params key that ends in ``blocks`` is a stack of layers; a
+cache's ``pos`` stays a host numpy vector.
 """
 
 from __future__ import annotations
@@ -106,29 +115,38 @@ def _stack(trees: list, fn):
     return np.stack([fn(t) for t in trees])
 
 
+def _is_stack(key: str) -> bool:
+    """A params key that holds a stack of layers."""
+    return key.endswith("blocks")
+
+
 def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
     """The reference's LM params as numpy leaves -> the port's: each
-    leaf a tensor of its type on ``device``, ``blocks`` split into a
-    list of per-block dicts."""
+    leaf a tensor of its type on ``device``, each stack of layers
+    (``blocks``; ``enc_blocks``, ``dec_blocks``) split into a list of
+    per-layer dicts."""
     dev = resolve_device(device)
-    out = {k: _tensor(v).to(dev) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = _unstack(tree["blocks"], lambda a: _tensor(a).to(dev))
-    return out
+
+    def t(a) -> torch.Tensor:
+        return _tensor(a).to(dev)
+    return {k: _unstack(v, t) if _is_stack(k) else t(v)
+            for k, v in tree.items()}
 
 
 def lm_params_to_numpy(params: dict) -> dict:
     """The port's LM params -> the reference's layout of numpy arrays
-    (blocks stacked), bit for bit."""
-    out = {k: _numpy(v) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = _stack(params["blocks"], _numpy)
-    return out
+    (layers stacked), bit for bit."""
+    return {k: _stack(v, _numpy) if _is_stack(k) else _numpy(v)
+            for k, v in params.items()}
 
 
 def lm_cache_from_numpy(tree: dict, device="cuda") -> list:
-    """The reference's stacked decode caches (``{sub: {name: array}}``)
-    as numpy leaves -> the port's list of per-block caches: a leaf named
-    ``pos`` a host int32 vector, every other (``k``, ``v``, ``ssm``,
-    ``conv``) a tensor on ``device``."""
+    """The reference's stacked decode caches as numpy leaves (``{sub:
+    {name: array}}``, or the encoder-decoder's, which also holds
+    ``cross_k``/``cross_v`` arrays at its top) -> the port's list of
+    per-layer caches: a leaf named ``pos`` a host int32 vector, every
+    other (``k``, ``v``, ``ssm``, ``conv``, ``cross_k``, ``cross_v``) a
+    tensor on ``device``."""
     dev = resolve_device(device)
 
     def leaf(name: str, a):
@@ -136,13 +154,17 @@ def lm_cache_from_numpy(tree: dict, device="cuda") -> list:
             else _tensor(a).to(dev)
     n = len(_leaves(tree)[0])
     return [{sub: {name: leaf(name, a[i]) for name, a in c.items()}
+             if isinstance(c, dict) else leaf(sub, c[i])
              for sub, c in tree.items()} for i in range(n)]
 
 
 def lm_cache_to_numpy(caches: list) -> dict:
-    """The port's per-block caches -> the reference's stacked numpy
+    """The port's per-layer caches -> the reference's stacked numpy
     layout."""
-    return {sub: {name: np.stack([
-        np.array(b[sub][name], np.int32) if name == "pos"
-        else _numpy(b[sub][name]) for b in caches])
-        for name in c} for sub, c in caches[0].items()}
+    def stack(name: str, xs: list) -> np.ndarray:
+        return np.stack([np.array(x, np.int32) if name == "pos"
+                         else _numpy(x) for x in xs])
+    return {sub: {name: stack(name, [b[sub][name] for b in caches])
+                  for name in c} if isinstance(c, dict)
+            else stack(sub, [b[sub] for b in caches])
+            for sub, c in caches[0].items()}

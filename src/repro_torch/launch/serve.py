@@ -3,8 +3,9 @@ copy of ``repro/launch/serve.py`` (``Request``, ``BatchedServer``,
 ``main``) at tp = 1.
 
 Requests arrive with prompts and advance one token a step against the
-shared per-block caches (KV for attention, state and conv tail for a
-Mamba mixer); every decode step feeds each active slot
+shared per-layer caches (KV for attention, state and conv tail for a
+Mamba mixer, the static cross K/V of an encoder-decoder); every decode
+step feeds each active slot
 the token at the server's global position (a prompt token while there
 is one, then its own last output) and appends the greedy choice once
 past the prompt.  Requests finishing early free their slot for queued
@@ -15,8 +16,12 @@ reset when a new request takes it.  Every decoder-only arch serves:
 dense (phi3-medium-14b, granite-34b, deepseek-7b, minitron-4b), MoE
 (mixtral-8x7b, dbrx-132b: the reference's dense MoE mode), SSM
 (mamba2-1.3b), hybrid (jamba-1.5-large-398b) and the VLM
-(llava-next-34b, text only).  Attention runs on K4 on the card
-(prefill causal, decode over the cache slots its mask keeps).
+(llava-next-34b, text only); so does the encoder-decoder
+(whisper-medium), as the reference's server serves it: decode steps
+only, from ``init_cache``, with no frames, so that its cross-attention
+runs over ``ENC_FRAMES`` zero slots and adds exactly 0.  Attention runs
+on K4 on the card (prefill causal, decode over the cache slots its mask
+keeps, cross-attention over every cross slot).
 
 Memory: the server draws its weights block by block and keeps each
 block's matmul weights only in the compute type (``init_params(...,
@@ -26,7 +31,10 @@ master weights beside them would not fit 80 GB.  mixtral-8x7b at full
 depth holds 92.9 GB of bf16 blocks and one jamba-1.5-large-398b block
 88.1 GB: neither fits one 80 GB card (the chip smoke serves mixtral at
 full width and 20 of its 32 blocks), so both run here ``--reduced``.
-The default arch stays phi3-medium-14b.
+whisper-medium holds 2.02 GB in bf16 (24 encoder blocks 0.81 GB, 24
+decoder blocks 1.01 GB, the f32 embedding 0.21 GB) and its 4 slots'
+cross K/V 0.59 GB: it serves at full size.  The default arch stays
+phi3-medium-14b.
 
   # phi3-medium-14b at full size on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b
@@ -35,6 +43,9 @@ The default arch stays phi3-medium-14b.
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --reduced --device cpu
+
+  # whisper-medium at full size on the card:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 """
 
 from __future__ import annotations
@@ -61,7 +72,7 @@ class Request:
 
 
 class BatchedServer:
-    """Fixed-slot continuous batching over shared per-block caches.
+    """Fixed-slot continuous batching over shared per-layer caches.
 
     ``params`` (the port's layout, e.g. from
     :func:`repro_torch.convert.lm_params_from_numpy`) are used as given;
@@ -135,11 +146,12 @@ def card_line(device: torch.device) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="phi3-medium-14b",
-                    help="a decoder-only arch: dense (phi3-medium-14b, "
+                    help="any arch: dense (phi3-medium-14b, "
                          "granite-34b, deepseek-7b, minitron-4b), MoE "
                          "(mixtral-8x7b, dbrx-132b), SSM (mamba2-1.3b), "
-                         "hybrid (jamba-1.5-large-398b) or the VLM "
-                         "(llava-next-34b)")
+                         "hybrid (jamba-1.5-large-398b), the VLM "
+                         "(llava-next-34b) or the encoder-decoder "
+                         "(whisper-medium)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)

@@ -1,22 +1,25 @@
 """Unified model API: one entry point per (config, tp) pair — the port's
-copy of ``repro/models/api.py`` at tp = 1 for the decoder-only stack
-(dense, MoE, SSM, hybrid and VLM families).
+copy of ``repro/models/api.py`` at tp = 1 for every family: the
+decoder-only stack (dense, MoE, SSM, hybrid and VLM) and the
+encoder-decoder (whisper-medium).
 
 ``build(cfg)`` returns a :class:`ModelAPI` whose members close over
-:mod:`repro_torch.models.transformer`:
+:mod:`repro_torch.models.transformer`, or :mod:`repro_torch.models.encdec`
+for the ``encdec`` family:
 
   * ``init(key, cast_blocks=False)``: weights drawn from the
     ``torch.Generator`` ``key``, on its device;
   * ``prefill(params, batch, max_seq=None, **kw)``: ``batch`` holds
     ``tokens`` (B, S) and, for the ``vision_stub`` frontend,
-    ``prefix_embeds``; returns (last-token logits, caches);
+    ``prefix_embeds``, for the encoder-decoder ``frames`` (B, T, d);
+    returns (last-token logits, caches);
   * ``decode_step(params, caches, token, cur_pos, **kw)``;
   * ``init_cache(batch, max_seq, device="cuda")``: empty caches on the
     card unless the caller passes ``device="cpu"``.
 
 Without a mesh the reference's MoE mode (``_moe_mode``) is always
 ``dense``, and so is the port's.  ``train_loss`` raises until the
-training slice; so do the encoder-decoder family and tp > 1.  The
+training slice; so does tp > 1.  The
 reference's ``input_specs`` and ``make_batch`` wait for the port's
 dry-run.
 """
@@ -28,7 +31,7 @@ from typing import Any, Callable
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec_target import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +57,18 @@ def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
                                   f"(tp = 1); sharding waits for "
                                   f"ROADMAP.md §1 item 6's parallel/")
     if cfg.family == "encdec":
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder "
-                                  f"family (models/encdec.py) is not "
-                                  f"ported yet: ROADMAP.md §1 item 6")
+        return ModelAPI(
+            cfg=cfg, tp=tp,
+            init=lambda key, **kw: encdec.init_params(cfg, key, tp, **kw),
+            train_loss=lambda p, b: encdec.train_loss(p, b, cfg, tp),
+            prefill=lambda p, b, max_seq=None, **kw: encdec.prefill(
+                p, b["tokens"], b["frames"], cfg, tp, max_seq=max_seq,
+                **kw),
+            decode_step=lambda p, c, tok, pos, **kw: encdec.decode_step(
+                p, c, tok, pos, cfg, tp, **kw),
+            init_cache=lambda b, s, device="cuda": encdec.init_cache_tree(
+                cfg, b, s, tp, device=resolve_device(device)),
+        )
 
     def _prefill(p, b, max_seq=None, **kw):
         return transformer.prefill(p, b["tokens"], cfg, tp,

@@ -19,7 +19,24 @@ runs its plain version; on a CUDA tensor it launches or raises.
 tests and the chip smoke hold the kernel path to.  ``tap``, where
 given, is called with every K4 call's inputs and output.
 
-Cross-attention and non-causal prefill (enc-dec) are not ported yet.
+The encoder-decoder family (:mod:`repro_torch.models.encdec`) adds two
+kinds, both on K4 without a causal mask, as the reference runs them:
+
+  * non-causal self-attention (the encoder): RoPE on q and k at
+    ``pos``, every key kept;
+  * cross-attention (``cross_kv``: the encoder's K and V with their
+    positions): no RoPE on either side, every cross slot kept; at
+    decode nothing is written to any cache.
+
+Non-causal attention departs from the reference on purpose where its
+chunked plain version pads the keys: the reference gives its pad keys
+the position ``INT32_MAX`` and every query of a non-causal call the
+same, so the zero pad keys pass its ``kpos <= qpos`` mask and dilute the
+softmax whenever ``Skv`` is not a multiple of the chunk (whisper's 1500
+frames at ``attn_chunk`` 1024: 548 zero keys a row).  K4 attends over
+the real keys only, and so does ``attn="plain"`` here.  A non-causal
+call under a window raises: there the reference's result depends on its
+chunk padding.
 """
 
 from __future__ import annotations
@@ -33,9 +50,9 @@ from repro_torch.models.layers import (apply_rope, attention_chunked,
                                        split_keys)
 
 ATTN = ("kernel", "plain")
-_ENCDEC = ("cross-attention and non-causal attention belong to the "
-           "encoder-decoder family, which ROADMAP.md §1 item 6 ports "
-           "later")
+#: the query position of a non-causal plain call: past every real key,
+#: short of the ``INT32_MAX`` the chunked attention gives its pad keys
+NONCAUSAL_Q_POS = torch.iinfo(torch.int32).max - 1
 
 
 def init_attention(key, d_model: int, n_heads: int, n_kv_heads: int,
@@ -68,23 +85,37 @@ def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
     """Prefill attention.  h: (B, S, d); pos: (S,) absolute positions,
     ``arange(S)`` (K4's causal mask counts from 0 on both sides).
 
-    Returns (out, (k, v)) so prefill can hand k/v to ``cache_from_prefill``.
+    ``cross_kv``: ``(k, v, kv_pos)`` for encoder-decoder
+    cross-attention, used as given (no RoPE; only q is projected).
+    ``causal=False`` keeps every key.  Returns (out, (k, v)) so prefill
+    can hand k/v to ``cache_from_prefill``.
     """
     _check_attn(attn)
-    if cross_kv is not None or not causal:
-        raise NotImplementedError(_ENCDEC)
+    if not causal and cfg.window:
+        raise ValueError(f"non-causal attention under a window "
+                         f"({cfg.window}) is not defined: the reference's "
+                         f"result depends on its chunk padding")
     hd = cfg.head_dim
     b, s = h.shape[0], h.shape[1]
-    q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    if cross_kv is None:
+        q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+        kv_pos = pos
+    else:
+        q = (h @ params["wq"]).reshape(b, s, n_heads, hd)
+        k, v, kv_pos = cross_kv
     if attn == "plain":
-        out = attention_chunked(q, k, v, pos, pos, cfg.window,
+        # INT32_MAX - 1, not the reference's INT32_MAX: the chunked
+        # attention's pad keys sit at INT32_MAX and must stay masked
+        q_pos = pos if causal else torch.full(
+            (s,), NONCAUSAL_Q_POS, dtype=torch.int64, device=h.device)
+        out = attention_chunked(q, k, v, q_pos, kv_pos, cfg.window,
                                 cfg.attn_chunk)
     else:
-        out = flash_attention(q, k, v, window=cfg.window, causal=True)
+        out = flash_attention(q, k, v, window=cfg.window, causal=causal)
         if tap is not None:
-            tap(q, k, v, out, window=cfg.window, causal=True)
+            tap(q, k, v, out, window=cfg.window, causal=causal)
     return out.reshape(b, s, n_heads * hd) @ params["wo"], (k, v)
 
 
@@ -177,13 +208,27 @@ def decode_block(params, h, cache, cur_pos, cfg, n_heads, n_kv_heads, *,
                  cross_kv=None, attn="kernel", tap=None):
     """One-token decode.  h: (B, 1, d).  Writes the token's K/V and
     position into ``cache`` in place (the reference's server donates
-    its cache) and returns (out, cache)."""
+    its cache) and returns (out, cache).
+
+    ``cross_kv``: ``(k, v, kv_pos)``, the static cross-attention cache:
+    only q is projected, without RoPE, and attends over every cross
+    slot; ``cache`` is returned untouched."""
     _check_attn(attn)
-    if cross_kv is not None:
-        raise NotImplementedError(_ENCDEC)
     hd = cfg.head_dim
     b = h.shape[0]
     cur = int(cur_pos)
+    if cross_kv is not None:
+        q = (h @ params["wq"]).reshape(b, 1, n_heads, hd)
+        ck, cv, cpos = cross_kv
+        if attn == "plain":
+            out = decode_attention(q, ck, cv, cpos,
+                                   torch.iinfo(torch.int32).max, window=0,
+                                   chunk=cfg.attn_chunk)
+        else:
+            out = flash_attention(q, ck, cv, window=0, causal=False)
+            if tap is not None:
+                tap(q, ck, cv, out, window=0, causal=False)
+        return out.reshape(b, 1, n_heads * hd) @ params["wo"], cache
     q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
     q = apply_rope(q, cur, cfg.rope_theta)
     k = apply_rope(k, cur, cfg.rope_theta)

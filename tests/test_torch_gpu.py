@@ -1464,3 +1464,48 @@ def test_mixtral_moe_layer_on_the_card_matches_the_cpu(cuda):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     err = (got.cpu().float() - want.float()).abs().max().item()
     assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_whisper_encoder_layer_and_cross_decode_on_the_card(cuda):
+    """whisper-medium at full width (d_model 1024, 16 heads of 64, d_ff
+    4096) in f32: one encoder layer over 1500 frames (K4 non-causal,
+    1500 x 1500, ragged last query and key tiles) and one
+    cross-attention decode of 4 rows against 1500 cross slots, each one
+    K4 ``sm90_tf32`` launch, within 1e-4 of max |cpu| of the same
+    weights and inputs on the CPU (K4's plain version)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import encdec as E
+    cfg = dataclasses.replace(get_config("whisper-medium"), enc_layers=1,
+                              n_layers=1, compute_dtype=torch.float32)
+    params = E.init_params(cfg, torch.Generator().manual_seed(0))
+    card = _to(params, cuda)
+    gen = torch.Generator().manual_seed(1)
+    frames = torch.randn((1, E.ENC_FRAMES, cfg.d_model), generator=gen) * .02
+    before = dict(K4.attention.launches_by_route)
+    got = E.encode(card, frames.to(cuda), cfg)
+    _close(got.cpu(), E.encode(params, frames, cfg))
+    nh, nkv = cfg.padded_heads(1)
+    bp = params["dec_blocks"][0]["cross_attn"]
+    h = torch.randn((4, 1, cfg.d_model), generator=gen)
+    ck, cv = (torch.randn((4, E.ENC_FRAMES, nkv, cfg.head_dim),
+                          generator=gen) for _ in range(2))
+    cpos = torch.arange(E.ENC_FRAMES, dtype=torch.int32)
+    want, _ = A.decode_block(bp, h, None, 7, cfg, nh, nkv,
+                             cross_kv=(ck, cv, cpos))
+    got, _ = A.decode_block(_to(bp, cuda), h.to(cuda), None, 7, cfg, nh, nkv,
+                            cross_kv=(ck.to(cuda), cv.to(cuda), cpos))
+    _close(got.cpu(), want)
+    torch.cuda.synchronize()
+    launched = {r: K4.attention.launches_by_route[r] - before[r]
+                for r in before}
+    assert launched == dict.fromkeys(K4.ROUTES, 0) | {"sm90_tf32": 2}

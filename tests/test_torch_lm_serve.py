@@ -15,8 +15,10 @@ within 1e-5 of max |ref|, its greedy tokens are equal, every request
 completes and freed slots are reused.  The same for reduced mixtral
 (capacity factor 8.0, as the reference's ``main --reduced``), mamba2
 and jamba: a reused slot's SSM state and conv tail carry over from its
-previous request on both sides, as its KV entries do.  Then the CLI on
-the CPU, also with ``--arch mixtral-8x7b``.
+previous request on both sides, as its KV entries do; and whisper-medium
+(decode only, its cross-attention over the cache's zero slots).  Then
+the CLI on the CPU, also with ``--arch mixtral-8x7b`` and ``--arch
+whisper-medium``.
 """
 
 import os
@@ -83,6 +85,12 @@ def test_serve_continuous_batching_matches_the_reference_server():
     _serve_against_reference("phi3-medium-14b")
 
 
+def test_serve_encdec_matches_the_reference_server():
+    """whisper-medium as both servers serve it: decode steps only, from
+    ``init_cache`` (cross-attention over 1500 zero slots)."""
+    _serve_against_reference("whisper-medium")
+
+
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b",
                                   "jamba-1.5-large-398b"])
 def test_serve_moe_ssm_hybrid_matches_the_reference_server(arch):
@@ -146,6 +154,10 @@ def test_serve_cli_on_the_cpu():
 
 def test_serve_cli_mixtral_on_the_cpu():
     _cli_on_the_cpu(["--arch", "mixtral-8x7b"])
+
+
+def test_serve_cli_whisper_on_the_cpu():
+    _cli_on_the_cpu(["--arch", "whisper-medium"])
 
 
 def _cli_on_the_cpu(args):
