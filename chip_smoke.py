@@ -38,7 +38,9 @@
     ``sm90`` and ``fma``), also at head dims 20, 80, 96, 256, 320
     and 512, two long cases, the LM path's decode shapes: one query
     row against 1, 37 and 128 keys, and whisper-medium's encoder (1500
-    x 1500, non-causal) and cross-decode (1 x 1500) shapes) and a fully
+    x 1500, non-causal) and cross-decode (1 x 1500) shapes, and
+    minitron-4b's training shapes, 24 heads over 8 at 8 x 128 and
+    1 x 4096) and a fully
     masked row case, against their plain versions (``CARD_TOL``;
     deliberately wrong results, a dropped key tile and a bf16 output
     accumulator among them, are shown to fail the same gate; at
@@ -147,6 +149,34 @@
     ``CARD_TOL``, in f32 decode against prefill; encode, prefill and
     step times; K4 alone at whisper's encoder, cross-prefill and
     cross-decode shapes;
+  * ``lm_train``: minitron-4b at full width and 24 of its 32 blocks,
+    bf16 on f32 masters, trained through ``launch/train.py``'s
+    ``make_trainer`` step in a plain loop at the reference driver's
+    defaults (batch 8 x 128, 20 steps, peak lr 3e-4, warmup 2): at
+    step 0 every K4 call (forward and recompute) within ``CARD_TOL`` of
+    the plain version on its own inputs, and every gradient tensor
+    within ``LM_TRAIN_GRAD_TOL`` of a plain replay's (``attn="plain"``),
+    which a backward with its mask one key off and an attention with
+    no gradient must each miss; 48 K4 ``sm90`` launches a step (the
+    forward and the remat recompute) and nothing else of K1-K4, no
+    plain attention; step 0's loss and global gradient norm within 2e-2
+    relative of the replay; finite every step; params unchanged by
+    step 0 (lr 0) and changed by step 1; a 1 x 4096 step twice, and its
+    K4 calls held as at step 0; step ms, tokens/s, peak memory, one
+    profiled step per shape (wall, device busy and idle share of that
+    step, time by part: K4 forward, the attention backward, cuBLAS,
+    AdamW) beside the step's FLOP and byte bounds;
+  * ``lm_train_f32``: step 0 in f32 (K4 ``sm90_tf32``) of minitron-4b
+    at 2 blocks and whisper-medium at 2 + 2 layers (K4 non-causal over
+    1500 frames) against the plain replay: the loss within ``TOL``,
+    every gradient tensor within ``GRAD_TOL`` of its max; the control,
+    a backward whose causal mask keeps key q + 1, must miss that gate;
+  * ``lm_train_resilient``: ``examples/train_100m.py``'s 75.5M-parameter
+    config in bf16 (batch 8 x 256, peak lr 1e-3), 30 steps through
+    ``run_resilient`` with an asynchronous checkpoint every 10, clean
+    and with a failure injected before step 15 (restored from step 10
+    and replayed): the final params and moments equal bit for bit, the
+    replayed losses equal, the loss falling; step and save times;
   * ``plan_audit``: the ``sm90`` legality profile
     (``repro_torch.analysis.plan_check``) on the card, running no
     kernel: the card's opt-in shared memory a block, SM count and
@@ -211,6 +241,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -223,6 +254,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import tree as TREE  # noqa: E402
 from repro_torch.analysis import plan_check as PC  # noqa: E402
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
@@ -231,7 +263,11 @@ from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
                                              PEAK_TF32_FLOPS, REGS_PER_SM,
                                              SM_COUNT, SMEM_PER_BLOCK,
                                              hbm_traffic_model)
+from repro_torch.data.synthetic import (DataConfig,  # noqa: E402
+                                        global_batch_at)
 from repro_torch.kernels.attention_block import kernel as K4  # noqa: E402
+from repro_torch.kernels.attention_block import backward as K4_BWD  # noqa: E402,E501
+from repro_torch.kernels.attention_block import ops as K4_OPS  # noqa: E402
 from repro_torch.kernels.attention_block.ops import (  # noqa: E402
     flash_attention, heads_first)
 from repro_torch.kernels.attention_block.ref import (  # noqa: E402
@@ -252,9 +288,11 @@ from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
 from repro_torch.kernels.nvcc import (build_many,  # noqa: E402
                                       parse_ptxas_spills, resource_usage)
 from repro_torch.launch import serve_images  # noqa: E402
+from repro_torch.launch import steps as LM_STEPS  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.serve import Request as LmRequest  # noqa: E402
+from repro_torch.launch.train import make_trainer  # noqa: E402
 from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
@@ -270,6 +308,9 @@ from repro_torch.models.graph import (graph_logits,  # noqa: E402
                                       graph_plan_handles, graph_stages,
                                       graph_training_step_report)
 from repro_torch.obs.tracer import Tracer  # noqa: E402
+from repro_torch.optim import adamw as ADAMW  # noqa: E402
+from repro_torch.runtime.fault_tolerance import (  # noqa: E402
+    ResilienceConfig, run_resilient)
 from repro_torch.serve import (FaultPlan, ImageServer,  # noqa: E402
                                ServingLoop, VirtualClock)
 
@@ -1966,6 +2007,12 @@ ATTN_ENCDEC = [
     (1, 1500, 1500, 16, 16, 64, 0, False),
     (4, 1, 1500, 16, 16, 64, 0, False),
 ]
+#: minitron-4b's training shapes (24 heads over 8 at head dim 128,
+#: causal): the reference driver's 8 x 128 and the long step's 1 x 4096
+ATTN_TRAIN = [
+    (8, 128, 128, 24, 8, 128, 0, True),
+    (1, 4096, 4096, 24, 8, 128, 0, True),
+]
 #: the reference's plain chunked attention pads the keys to a multiple
 #: of its chunk (whisper's ``attn_chunk``) and lets a non-causal query
 #: see the zero pad keys
@@ -2069,10 +2116,10 @@ def pad_keys(t: torch.Tensor, chunk: int) -> torch.Tensor:
 def phase_check_attention() -> dict:
     """Every case and type of the reference's attention sweep, the head
     dims beside it (also above 256), the fully masked rows, two long
-    cases, the LM path's decode shapes and whisper's encoder and
-    cross-decode shapes, on every route that takes each (the route
-    :func:`K4.route` picks through ``flash_attention``, the other by
-    ``via``: f32 on
+    cases, the LM path's decode shapes, whisper's encoder and
+    cross-decode shapes and minitron's training shapes, on every route
+    that takes each (the route :func:`K4.route` picks through
+    ``flash_attention``, the other by ``via``: f32 on
     ``sm90_tf32`` and ``fma``, bf16 on ``sm90`` and ``fma``, where the
     tensor-core route's widths take the head dim), against the plain
     version.  Controls: a window off by one, the last visited key tile
@@ -2086,7 +2133,7 @@ def phase_check_attention() -> dict:
     by_route = dict.fromkeys(K4.ROUTES, 0)
     for dtype in DTYPES:
         for case in (ATTN_SWEEP + ATTN_HEAD_DIMS + ATTN_LONG
-                     + ATTN_DECODE + ATTN_ENCDEC):
+                     + ATTN_DECODE + ATTN_ENCDEC + ATTN_TRAIN):
             b, sq, skv, h, kv, hd, win, causal = case
             q = _randn(gen, b, sq, h, hd).to(dtype)
             k = _randn(gen, b, skv, kv, hd).to(dtype)
@@ -3092,11 +3139,7 @@ def _nbytes(tree) -> int:
 
 
 def _tensors(tree) -> list:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _tensors(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _tensors(v)]
-    return [tree] if isinstance(tree, torch.Tensor) else []
+    return [t for t in TREE.leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def attention_layers(cfg) -> int:
@@ -3599,6 +3642,634 @@ def phase_lm_serve_encdec(card: str, flush) -> dict:
     return {"bf16": _merged(counts, audio_bf16["launches"]),
             "f32": audio_f32["launches"], "rows": rows,
             "step_ms_median": step_ms}
+
+
+# --------------------------------------------------------------------------
+# LM training
+# --------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "minitron-4b"
+#: minitron-4b on the card: full width, 24 of its 32 blocks (full depth
+#: is 4.31e9 parameters, 69.0 GB of f32 params, grads and both moments at
+#: 16 bytes a parameter; 24 blocks are 3.43e9, 54.9 GB)
+LM_TRAIN_BLOCKS = 24
+#: the reference driver's defaults (``repro/launch/train.py`` ``main``):
+#: batch, sequence, steps, peak lr, and its warmup max(1, steps // 10)
+LM_TRAIN_B, LM_TRAIN_S, LM_TRAIN_N, LM_TRAIN_LR = 8, 128, 20, 3e-4
+LM_TRAIN_WARMUP = max(1, LM_TRAIN_N // 10)
+#: the long step: one sequence of 4096 tokens
+LM_TRAIN_LONG_S = 4096
+#: minitron's bf16 step-0 gradients against the plain replay's: each
+#: tensor's max |err| over its max |plain|.  On an H100 the worst tensor
+#: read 0.031 (an ln2; wq, wk, wv 0.021-0.029), the backward with its
+#: mask one key off 0.76 and an attention with no gradient 1.10
+LM_TRAIN_GRAD_TOL = 0.1
+#: ``lm_train_resilient``: ``examples/train_100m.py``'s config, batch,
+#: sequence and peak lr; 30 steps, a checkpoint every 10, a failure
+#: injected before step 15
+RESILIENT_CUT = dict(n_layers=8, d_model=768, n_heads=12, n_kv_heads=4,
+                     d_ff=2048, vocab=32768, head_dim=64, attn_chunk=256)
+RESILIENT_B, RESILIENT_S, RESILIENT_LR = 8, 256, 1e-3
+RESILIENT_N, RESILIENT_EVERY, RESILIENT_FAIL = 30, 10, 15
+#: kernel names of the parts of a profiled training step
+K4_KERNELS = ("attention_sm90", "attention_kernel", "attention_wide_kernel")
+CUBLAS_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "gemv", "dot_kernel",
+                  "splitk", "cublas")
+#: the host ranges the port marks a step's parts with
+LM_TRAIN_RANGES = ("attention_vjp", "adamw.update")
+
+
+def _cuda_batch(batch: dict) -> dict:
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def train_bounds(cfg, b: int, s: int, n_params: int) -> dict:
+    """The least time of one training step of the decoder ``cfg`` at
+    ``b`` x ``s`` tokens (causal, no window): the FLOPs of the forward
+    and the backward (3x the forward's products, no recompute), the
+    blocks' projections and attention at the compute type's peak and
+    the f32 loss head at the f32 FMA peak; the bytes of the f32 params
+    and both moments, each read once and written once (24 a parameter:
+    the gradients need not leave the chip)."""
+    t, d, hd = b * s, cfg.d_model, cfg.head_dim
+    nh, nkv = cfg.padded_heads(1)
+    n_blocks = LM_T.n_blocks(cfg)
+    per_block = 2 * d * nh * hd + 2 * d * nkv * hd + 3 * d * cfg.d_ff
+    pairs = b * s * (s + 1) // 2
+    block_flops = 3 * n_blocks * (2 * t * per_block + 4 * pairs * nh * hd)
+    head_flops = 3 * 2 * t * cfg.padded_vocab(1) * d
+    flop_ms = (block_flops / PEAK[cfg.compute_dtype]
+               + head_flops / PEAK_F32_FLOPS) * 1e3
+    byte_ms = 24 * n_params / HBM_BYTES_PER_S * 1e3
+    return {"flops": block_flops + head_flops, "bytes": 24 * n_params,
+            "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
+            "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+
+
+def _train_part(kernel: str, event) -> str:
+    """Which part of a training step a device span belongs to: K4's
+    forward by name, the attention backward and AdamW by the host range
+    the launching op (``event``) sits in, cuBLAS's products by name."""
+    if any(n in kernel for n in K4_KERNELS):
+        return "k4_forward"
+    e = event
+    parts = dict(zip(LM_TRAIN_RANGES, ("attention_backward", "adamw")))
+    while e is not None:
+        if e.name in parts:
+            return parts[e.name]
+        e = e.cpu_parent
+    if any(n in kernel.lower() for n in CUBLAS_KERNELS):
+        return "cublas"
+    return "other"
+
+
+def _device_spans(prof) -> list[tuple]:
+    """The card's kernels, copies and fills in a profile, from the
+    profiler's own records: (name, start us, end us, stream, the id of
+    the host op that launched it), without the device-side spans of
+    host ranges (which cover the kernels inside them)."""
+    def read(k, what: str, default):
+        # not every torch release has every one of these readers
+        return getattr(k, what, lambda: default)()
+    out = []
+    for k in prof.profiler.kineto_results.events():
+        if not str(k.device_type()).endswith("CUDA"):
+            continue
+        name = k.name()
+        if (read(k, "is_user_annotation", False) or name in LM_TRAIN_RANGES
+                or "annotation" in str(read(k, "activity_type", ""))):
+            continue
+        t0 = k.start_ns() / 1e3
+        out.append((name, t0, t0 + k.duration_ns() / 1e3,
+                    read(k, "device_resource_id", -1),
+                    read(k, "linked_correlation_id", 0)))
+    return out
+
+
+def profile_train_step(run_step, state, batch: dict):
+    """One step under ``torch.profiler``, and of that same step: its
+    wall on the host clock, from the call (after a synchronize) to the
+    card's end, and the call's own return (``step_enqueue_ms``); the
+    card's busy time, the union of its kernels', copies' and fills'
+    spans, and their plain sum (above the union by what ran at once, on
+    another stream); the idle share of the wall (the phase fails where
+    busy exceeds the wall); each span's time by part (:func:`_train_part`,
+    through the host op it is linked to) and by stream.  Beside them the
+    sum of the profiler's per-op kernel lists (``ops_kernels_ms``, what
+    an earlier version of this phase summed by part), the kernel names
+    those lists hold more time of than the spans, and the host op ids
+    that more than one host event carries (the profiler lists such a
+    span under each of them).  Returns (state, readings)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = run_step(state, batch)
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = _device_spans(prof)
+    host = collections.defaultdict(list)
+    listed = collections.Counter()
+    for e in prof.events():
+        if not str(e.device_type).endswith("CUDA"):
+            host[e.id].append(e)
+            for k in getattr(e, "kernels", ()):
+                listed[k.name] += k.duration / 1e3
+    busy, end = 0.0, None
+    for _, t0, t1, _, _ in sorted(spans, key=lambda x: x[1]):
+        if end is None or t0 >= end:
+            busy, end = busy + t1 - t0, t1
+        elif t1 > end:
+            busy, end = busy + t1 - end, t1
+    busy /= 1e3
+    parts, calls, streams, by_name = (collections.Counter()
+                                      for _ in range(4))
+    unlinked, shared = 0, {}
+    for name, t0, t1, stream, link in spans:
+        ops = host.get(link, [])
+        unlinked += not ops
+        if len(ops) > 1:
+            shared[link] = [e.name for e in ops]
+        ms = (t1 - t0) / 1e3
+        # an id an op shares with a runtime call or an overhead record:
+        # the op's own event, whose parents hold the step's ranges
+        ops = sorted(ops, key=lambda e: not e.name.startswith("aten::"))
+        part = _train_part(name, ops[0] if ops else None)
+        parts[part] += ms
+        calls[part] += 1
+        streams[str(stream)] += ms
+        by_name[name] += ms
+    span_sum = sum(by_name.values())
+    extra = {n: listed[n] - by_name[n] for n in listed
+             if listed[n] - by_name[n] > 1e-3}
+    require(busy <= wall, f"profiled step: the card busy {busy} ms in a "
+                          f"{wall} ms wall")
+    return state, {
+        "step_enqueue_ms": enqueue, "step_wall_ms": wall,
+        "step_device_busy_ms": busy, "step_idle_share": 1 - busy / wall,
+        "device_spans": len(spans), "device_span_sum_ms": span_sum,
+        "device_overlap_ms": span_sum - busy, "by_stream_ms": dict(streams),
+        "spans_without_host_op": unlinked,
+        "by_part_ms": dict(parts), "by_part_kernels": dict(calls),
+        "ops_kernels_ms": sum(listed.values()),
+        "ops_kernels_extra_ms": dict(sorted(
+            extra.items(), key=lambda x: -x[1])[:8]),
+        "ops_kernels_extra_names": len(extra),
+        "host_ids_shared": len(shared),
+        "host_ids_shared_names": list(shared.values())[:5]}
+
+
+def _key_range_all(q0, q1, skv, window, causal):
+    return 0, skv
+
+
+def _mask_one_key_off(q0, q1, lo, hi, *, window, causal, device):
+    """The control's backward mask: under ``causal`` key k kept up to
+    query q + 1, one key past the forward's."""
+    mask = _PANEL_MASK(q0, q1, lo, hi, window=window, causal=False,
+                       device=device)
+    if causal:
+        mask &= (torch.arange(lo, hi, device=device)[None, :]
+                 <= torch.arange(q0, q1, device=device)[:, None] + 1)
+    return mask
+
+
+_PANEL_MASK = K4_BWD.panel_mask
+
+
+def one_key_off_backward():
+    """The control: the attention backward (``backward.py``) with its
+    causal mask one key off, the forward unchanged."""
+    return patched((K4_BWD, "panel_mask", _mask_one_key_off),
+                   (K4_BWD, "_key_range", _key_range_all))
+
+
+def _zero_vjp(q, k, v, dout, **_kw):
+    return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+
+
+def no_attention_gradient():
+    """The control: the trap of a K4 launch autograd cannot see, an
+    attention that passes no gradient to q, k and v."""
+    return patched((K4_OPS, "attention_vjp", _zero_vjp))
+
+
+def _grad_gate(grads, plain) -> float:
+    """The worst gradient tensor's max |err| over ``GRAD_TOL`` x its max
+    |plain| (the gate is <= 1)."""
+    return max((a - b).abs().max().item()
+               / (GRAD_TOL * max(b.abs().max().item(), 1e-30))
+               for a, b in zip(TREE.leaves(grads), TREE.leaves(plain)))
+
+
+def _leaf_errs(grads, plain: list) -> dict:
+    """Each gradient tensor's max |err| over its max |plain|, by path;
+    ``plain`` the replay's leaves (on the host) in flattening order."""
+    errs = {}
+    for (path, g), p in zip(TREE.leaves_with_paths(grads), plain):
+        p = p.to(g.device)
+        errs[path] = ((g - p).abs().max()
+                      / p.abs().max().clamp_min(1e-30)).item()
+    return errs
+
+
+def _by_kind(errs: dict) -> dict:
+    """The worst reading of each kind of tensor (a path's last part:
+    wq, wk, ..., embed)."""
+    out = {}
+    for path, e in errs.items():
+        kind = path.rsplit("/", 1)[-1]
+        out[kind] = max(out.get(kind, 0.0), e)
+    return out
+
+
+def _detached(tap):
+    """``tap`` on detached tensors under ``no_grad``: in training it sees
+    each K4 call of the forward and of the remat recompute and adds
+    nothing to the graph."""
+    def run(layer, q, k, v, out, **kw):
+        with torch.no_grad():
+            tap(layer, q.detach(), k.detach(), v.detach(), out.detach(),
+                **kw)
+    return run
+
+
+def tapped_value_and_grad(api, params, batch, per_step: int, what: str):
+    """``value_and_grad`` on the K4 path with every K4 call (forward and
+    recompute, ``per_step`` of them) held to the plain version on its
+    own inputs at ``CARD_TOL`` (required).  Returns (loss, grads,
+    readings)."""
+    per_call, c = [], {}
+    tap = _detached(k4_against_plain(api.cfg.compute_dtype, per_call))
+    with counted(c), no_plain_attention():
+        loss, grads = LM_STEPS.value_and_grad(api, params, batch, tap=tap)
+    require(k4_only(c, "sm90", per_step) and len(per_call) == per_step
+            and max(per_call) <= 1.0,
+            f"{what}: launches {c}, K4 calls against the plain version "
+            f"worst {max(per_call, default=None)} of CARD_TOL over "
+            f"{len(per_call)} calls (want {per_step})")
+    return loss, grads, {"k4_calls": len(per_call),
+                         "k4_worst_over_card_tol": max(per_call),
+                         "launches": c}
+
+
+def lm_train_step0(api, params, batch: dict, per_step: int) -> dict:
+    """Step 0's loss and gradients on the same weights and batch: the
+    plain replay (``attn="plain"``), kept on the host; the K4 path with
+    each K4 call tapped (:func:`tapped_value_and_grad`), each gradient
+    tensor within :data:`LM_TRAIN_GRAD_TOL` of its max |plain|
+    (required); and two controls of that gate, the backward's mask one
+    key off and an attention with no gradient, each of which must miss
+    it."""
+    plain_loss, grads = LM_STEPS.value_and_grad(api, params, batch,
+                                                attn="plain")
+    plain_gnorm = float(ADAMW.global_norm(grads))
+    plain = [g.cpu() for g in TREE.leaves(grads)]
+    del grads
+    _free()
+    loss, grads, row = tapped_value_and_grad(api, params, batch, per_step,
+                                             "lm_train step 0")
+    errs = _leaf_errs(grads, plain)
+    row.update(loss=float(loss), gnorm=float(ADAMW.global_norm(grads)),
+               plain_loss=float(plain_loss), plain_gnorm=plain_gnorm,
+               grad_leaves=len(errs), grad_worst=max(errs.values()),
+               grad_worst_leaf=max(errs, key=errs.get),
+               grad_by_kind=_by_kind(errs), grad_tol=LM_TRAIN_GRAD_TOL)
+    del grads
+    _free()
+    for name, control in (("one_key_off", one_key_off_backward),
+                          ("no_attention_gradient", no_attention_gradient)):
+        with counted({}), control():
+            _, wrong = LM_STEPS.value_and_grad(api, params, batch)
+        bad = _leaf_errs(wrong, plain)
+        del wrong
+        _free()
+        row[f"control_{name}"] = {"grad_worst": max(bad.values()),
+                                  "grad_by_kind": _by_kind(bad)}
+    del plain
+    emit({"phase": "lm_train_step0", **row})
+    require(row["grad_worst"] <= LM_TRAIN_GRAD_TOL,
+            f"lm_train step 0: gradient {row['grad_worst_leaf']} at "
+            f"{row['grad_worst']} of max |plain| > {LM_TRAIN_GRAD_TOL}")
+    for name in ("one_key_off", "no_attention_gradient"):
+        require(row[f"control_{name}"]["grad_worst"] > LM_TRAIN_GRAD_TOL,
+                f"lm_train: the {name} control passed the gradient gate "
+                f"({row[f'control_{name}']})")
+    return row
+
+
+def phase_lm_train(card: str) -> dict:
+    """minitron-4b at full width (d_model 3072, 24 heads over 8 at head
+    dim 128, d_ff 9216, vocab 256000) and 24 of its 32 blocks, bf16
+    compute on f32 masters, trained through ``make_trainer``'s step in a
+    plain loop at the reference driver's defaults (batch 8 x 128 tokens
+    of the synthetic stream, 20 steps, peak lr 3e-4, warmup 2):
+
+      * before the loop, step 0's gradients (:func:`lm_train_step0`):
+        every K4 call of the forward and the recompute within
+        ``CARD_TOL`` of the plain version on its own inputs, every
+        gradient tensor within :data:`LM_TRAIN_GRAD_TOL` of the plain
+        replay's, and the two controls missing that gate;
+      * every step 48 K4 ``sm90`` launches (24 forward, 24 in the
+        remat recompute) and nothing else of K1-K4, no plain attention;
+      * step 0's loss and global gradient norm within
+        :data:`LM_BF16_TOL` relative of the plain replay;
+      * loss and gradient norm finite at every step; the params
+        unchanged by step 0 (lr 0) and changed by step 1;
+      * then one step at 1 x 4096 tokens, twice (the first warms), and
+        its ``value_and_grad`` with every K4 call tapped;
+      * step ms, tokens/s, peak memory; one profiled step at each shape
+        beside its byte and FLOP bounds (:func:`train_bounds`)."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_BLOCKS)
+    run_step, state, api = make_trainer(
+        cfg, global_batch=LM_TRAIN_B, seq_len=LM_TRAIN_S,
+        peak_lr=LM_TRAIN_LR, total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP,
+        device="cuda")
+    n_params = sum(t.numel() for t in TREE.leaves(state.params))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
+                    global_batch=LM_TRAIN_B, seed=SEED)
+    batches = [global_batch_at(dc, i) for i in range(LM_TRAIN_N)]
+    per_step = 2 * attention_layers(cfg)
+    step0 = lm_train_step0(api, state.params, _cuda_batch(batches[0]),
+                           per_step)
+    wq = state.params["blocks"][0]["sub0"]["attn"]["wq"]
+    wq0, embed0 = wq.clone(), state.params["embed"][:256].clone()
+    counts, losses, gnorms, secs = [], [], [], []
+    for i, batch in enumerate(batches):
+        c = {}
+        with counted(c), no_plain_attention():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_step(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        require(k4_only(c, "sm90", per_step),
+                f"lm_train step {i} launches {c}")
+        require(np.isfinite(loss) and np.isfinite(gnorm),
+                f"lm_train step {i}: loss {loss}, grad norm {gnorm}")
+        counts.append(c)
+        losses.append(loss)
+        gnorms.append(gnorm)
+        if i == 0:
+            require(torch.equal(wq, wq0)
+                    and torch.equal(state.params["embed"][:256], embed0),
+                    "lm_train: step 0 (lr 0) moved a parameter")
+        if i == 1:
+            require(not torch.equal(wq, wq0),
+                    "lm_train: step 1 left wq unchanged")
+    del wq0, embed0
+    loss_err = abs(losses[0] - step0["plain_loss"]) / abs(step0["plain_loss"])
+    gnorm_err = (abs(gnorms[0] - step0["plain_gnorm"])
+                 / abs(step0["plain_gnorm"]))
+    expect(loss_err <= LM_BF16_TOL and gnorm_err <= LM_BF16_TOL,
+           f"lm_train step 0: loss {loss_err}, grad norm {gnorm_err} "
+           f"relative to the plain replay > {LM_BF16_TOL}")
+    short = _cuda_batch(batches[-1])
+    state, short_profile = profile_train_step(run_step, state, short)
+    long_dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_LONG_S,
+                         global_batch=1, seed=SEED)
+    long_batch = global_batch_at(long_dc, LM_TRAIN_N)
+    long_secs = []
+    for _ in range(2):
+        c = {}
+        with counted(c), no_plain_attention():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_step(state, long_batch)
+            long_loss = float(m["loss"])
+            torch.cuda.synchronize()
+            long_secs.append(time.perf_counter() - t0)
+        require(k4_only(c, "sm90", per_step) and np.isfinite(long_loss),
+                f"lm_train long step: launches {c}, loss {long_loss}")
+        counts.append(c)
+    long_batch = _cuda_batch(long_batch)
+    _, grads, long_tapped = tapped_value_and_grad(
+        api, state.params, long_batch, per_step, "lm_train 1 x 4096")
+    del grads
+    _free()
+    state, long_profile = profile_train_step(run_step, state, long_batch)
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = _median(secs) * 1e3
+    emit({"phase": "lm_train", "config": LM_TRAIN_ARCH,
+          "blocks": LM_TRAIN_BLOCKS, "full_depth_blocks":
+          LM_T.n_blocks(get_config(LM_TRAIN_ARCH)), "d_model": cfg.d_model,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+          "params": n_params, "state_gb": 16 * n_params / 1e9,
+          "dtype": str(cfg.compute_dtype), "batch": LM_TRAIN_B,
+          "seq": LM_TRAIN_S, "steps": LM_TRAIN_N, "peak_lr": LM_TRAIN_LR,
+          "warmup": LM_TRAIN_WARMUP, "k4_sm90_per_step": per_step,
+          "launches": _merged(*counts), "losses": losses,
+          "grad_norms": gnorms, "step0_plain_loss": step0["plain_loss"],
+          "step0_plain_grad_norm": step0["plain_gnorm"],
+          "step0_grad_worst": step0["grad_worst"],
+          "step0_loss_rel_err": loss_err,
+          "step0_grad_norm_rel_err": gnorm_err, "gate": LM_BF16_TOL,
+          "step_ms_median": step_ms, "step_ms_min": min(secs) * 1e3,
+          "step_ms_max": max(secs) * 1e3,
+          "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / _median(secs),
+          "profile": short_profile,
+          **{f"bound_{k}": v for k, v in train_bounds(
+              cfg, LM_TRAIN_B, LM_TRAIN_S, n_params).items()},
+          "long": {"batch": 1, "seq": LM_TRAIN_LONG_S, "loss": long_loss,
+                   "step_ms": [s * 1e3 for s in long_secs],
+                   "tokens_per_s": LM_TRAIN_LONG_S / long_secs[-1],
+                   "tapped": long_tapped, "profile": long_profile,
+                   **{f"bound_{k}": v for k, v in train_bounds(
+                       cfg, 1, LM_TRAIN_LONG_S, n_params).items()}},
+          "peak_gb": peak / 1e9, "card": card})
+    del state, run_step, api
+    _free()
+    return {"bf16": _merged(*counts), "step_ms_median": step_ms}
+
+
+def phase_lm_train_f32(card: str) -> dict:
+    """Step 0 of training in f32 at full width, the depth cut: K4 on
+    ``sm90_tf32`` forward, the reference's VJP backward, against a plain
+    replay (``attn="plain"``: PyTorch's autograd through the chunked
+    attention) on the same weights and batch: the loss within ``TOL``
+    relative, every gradient tensor within ``GRAD_TOL`` of its max
+    |plain|.
+
+      * minitron-4b, 2 blocks, batch 8 x 128: 4 K4 launches (2 forward,
+        2 recompute); the control, a backward whose causal mask keeps
+        key q + 1, must miss the gradient gate;
+      * whisper-medium, 2 encoder and 2 decoder layers, 2 x 1500 frames
+        and 64 tokens: 12 K4 launches (the encoder's non-causal 1500 x
+        1500 with a ragged last tile, the decoder's causal self- and
+        non-causal cross-attention, each twice)."""
+    f32 = torch.float32
+    out, counts = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    for arch, cut in (("minitron-4b", dict(n_layers=2)),
+                      ("whisper-medium", dict(n_layers=2, enc_layers=2))):
+        _free()
+        cfg = dataclasses.replace(get_config(arch), compute_dtype=f32, **cut)
+        api = build_lm(cfg)
+        params = api.init(torch.Generator(device="cuda").manual_seed(SEED))
+        if cfg.family == "encdec":
+            b, s = 2, 64
+            batch = {"frames": torch.randn(
+                (b, LM_E.ENC_FRAMES, cfg.d_model), generator=gen,
+                device="cuda") * ENCDEC_FRAMES_SCALE}
+            calls = cfg.enc_layers + 2 * cfg.n_layers
+        else:
+            b, s = LM_TRAIN_B, LM_TRAIN_S
+            batch = {}
+            calls = attention_layers(cfg)
+        toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                             device="cuda")
+        batch.update(tokens=toks[:, :-1], labels=toks[:, 1:])
+        plain_loss, plain = LM_STEPS.value_and_grad(api, params, batch,
+                                                    attn="plain")
+        c = {}
+        with counted(c), no_plain_attention():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = LM_STEPS.value_and_grad(api, params, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        require(k4_only(c, "sm90_tf32", 2 * calls),
+                f"lm_train_f32 {arch} launches {c}")
+        counts.append(c)
+        loss_err = abs(float(loss) - float(plain_loss)) / abs(
+            float(plain_loss))
+        gate = _grad_gate(grads, plain)
+        require(loss_err <= TOL and gate <= 1.0,
+                f"lm_train_f32 {arch}: loss {loss_err} of TOL {TOL}, "
+                f"worst gradient {gate} of GRAD_TOL")
+        row = {"config": arch, "blocks": cut, "batch": b, "seq": s,
+               "k4_sm90_tf32": 2 * calls, "loss": float(loss),
+               "plain_loss": float(plain_loss), "loss_rel_err": loss_err,
+               "grad_worst_over_gate": gate, "grad_leaves":
+               len(TREE.leaves(grads)), "value_and_grad_ms": ms}
+        del grads
+        if cfg.family != "encdec":
+            with counted({}), one_key_off_backward():
+                _, wrong = LM_STEPS.value_and_grad(api, params, batch)
+            row["control_mask_one_key_off_over_gate"] = _grad_gate(wrong,
+                                                                   plain)
+            require(row["control_mask_one_key_off_over_gate"] > 1.0,
+                    f"lm_train_f32: the one-key-off backward passed the "
+                    f"gradient gate ({row})")
+            del wrong
+        out[arch] = row
+        del plain, params, api
+    emit({"phase": "lm_train_f32", "dtype": str(f32), "gate_loss": TOL,
+          "gate_grad": GRAD_TOL, "rows": out, "card": card})
+    _free()
+    return {"f32": _merged(*counts)}
+
+
+def phase_lm_train_resilient(card: str) -> dict:
+    """``examples/train_100m.py``'s config (8 layers, d_model 768, 12
+    heads over 4 at head dim 64, vocab 32768) in bf16 at its batch 8 x
+    256 tokens and peak lr 1e-3, 30 steps through ``run_resilient`` with
+    a checkpoint every 10 steps (asynchronous) into a temporary
+    directory removed after the run: once without a failure, once with
+    a ``failure_hook`` raising before step 15, which restores step 10
+    and replays (16 K4 ``sm90`` launches a step: 480 and 560).  The two
+    runs' final params and moments equal bit for bit, the replayed
+    steps' losses equal the first pass's, and the loss at step 29 below
+    step 0's.  Step times on the host clock (one step's end to the
+    next's, the batch drawn included), the loop's own step times (to
+    the step's return) and the worker's save times."""
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), **RESILIENT_CUT)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=RESILIENT_S,
+                    global_batch=RESILIENT_B, seed=SEED)
+    per_step = 2 * attention_layers(cfg)
+    runs = {}
+    for name, fail_at in (("clean", None), ("failed", RESILIENT_FAIL)):
+        _free()
+        run_step, state, _api = make_trainer(
+            cfg, global_batch=RESILIENT_B, seq_len=RESILIENT_S,
+            peak_lr=RESILIENT_LR, total_steps=RESILIENT_N, device="cuda")
+        seen, ends = [], [time.perf_counter()]
+        fired = []
+
+        def hook(step, fail_at=fail_at, fired=fired):
+            if step == fail_at and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        def cb(step, m, seen=seen, ends=ends):
+            seen.append((step, float(m["loss"])))
+            ends.append(time.perf_counter())
+        c = {}
+        with tempfile.TemporaryDirectory() as d, counted(c), \
+                no_plain_attention():
+            report = run_resilient(
+                state, run_step, lambda s: global_batch_at(dc, s),
+                RESILIENT_N, ResilienceConfig(ckpt_dir=d,
+                                              ckpt_every=RESILIENT_EVERY),
+                failure_hook=hook, metrics_cb=cb)
+            saved = sorted(os.listdir(d))
+        runs[name] = {"report": report, "seen": seen, "counts": c,
+                      "saved": saved, "secs": np.diff(ends)}
+        del state, run_step
+    clean, failed = runs["clean"], runs["failed"]
+    a, b = clean["report"], failed["report"]
+    require(a.steps_done == b.steps_done == RESILIENT_N and a.restarts == 0
+            and b.restarts == 1 and a.failures == []
+            and b.failures == [(RESILIENT_FAIL,
+                                "RuntimeError('injected node failure')")],
+            f"lm_train_resilient: steps {a.steps_done}/{b.steps_done}, "
+            f"restarts {a.restarts}/{b.restarts}, failures {b.failures}")
+    replayed = RESILIENT_FAIL - RESILIENT_FAIL // RESILIENT_EVERY \
+        * RESILIENT_EVERY
+    for run, steps in ((clean, RESILIENT_N),
+                       (failed, RESILIENT_N + replayed)):
+        require(k4_only(run["counts"], "sm90", per_step * steps),
+                f"lm_train_resilient launches {run['counts']}, want "
+                f"{per_step} x {steps}")
+    unequal = [p for part in ("params", "opt") for (p, x), (_, y) in zip(
+        TREE.leaves_with_paths(getattr(a.final_state, part)),
+        TREE.leaves_with_paths(getattr(b.final_state, part)))
+        if not torch.equal(x, y)]
+    require(not unequal, f"lm_train_resilient: the resumed run's final "
+                         f"state differs from the clean run's at "
+                         f"{unequal[:5]} ({len(unequal)} leaves)")
+    first = dict(clean["seen"])
+    replay_equal = all(first[s] == v for s, v in failed["seen"])
+    require(replay_equal, "lm_train_resilient: a replayed step's loss "
+                          "differs from the clean run's")
+    require(first[RESILIENT_N - 1] < first[0],
+            f"lm_train_resilient: loss {first[0]} -> "
+            f"{first[RESILIENT_N - 1]}")
+    n_params = sum(t.numel() for t in TREE.leaves(a.final_state.params))
+    emit({"phase": "lm_train_resilient", "config": "train_100m",
+          "cut": RESILIENT_CUT, "params": n_params,
+          "dtype": str(cfg.compute_dtype), "batch": RESILIENT_B,
+          "seq": RESILIENT_S, "steps": RESILIENT_N,
+          "peak_lr": RESILIENT_LR, "ckpt_every": RESILIENT_EVERY,
+          "fail_before_step": RESILIENT_FAIL,
+          "restarts": [a.restarts, b.restarts],
+          "failures": b.failures, "steps_replayed": replayed,
+          "launches": {k: v["counts"] for k, v in runs.items()},
+          "final_state_bit_equal": not unequal,
+          "state_leaves": len(TREE.leaves(a.final_state)),
+          "replayed_losses_equal": replay_equal,
+          "loss_first_last": [first[0], first[RESILIENT_N - 1]],
+          "saved_dirs": {k: v["saved"] for k, v in runs.items()},
+          "step_ms_median": {k: float(np.median(v["secs"])) * 1e3
+                             for k, v in runs.items()},
+          "loop_step_ms_median": {
+              k: float(np.median(v["report"].step_times)) * 1e3
+              for k, v in runs.items()},
+          "save_s": {k: v["report"].save_seconds for k, v in runs.items()},
+          "tokens_per_s": RESILIENT_B * RESILIENT_S
+          / float(np.median(clean["secs"])),
+          "card": card})
+    del runs, a, b
+    _free()
+    return {"bf16": _merged(clean["counts"], failed["counts"])}
 
 
 class Decisions:
@@ -4620,6 +5291,11 @@ def main() -> int:
     hybrid = phase_lm_serve_hybrid(card)
     encdec = phase_lm_serve_encdec(card, lm_flush)
     del lm_flush
+    train = phase_lm_train(card)
+    train_f32 = phase_lm_train_f32(card)
+    resilient = phase_lm_train_resilient(card)
+    lm_train = {"bf16": _merged(train["bf16"], resilient["bf16"]),
+                "f32": train_f32["f32"]}
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
@@ -5059,7 +5735,8 @@ def main() -> int:
     lm_runs = {"launches_lm_serve": lm, "launches_lm_serve_moe": moe,
                "launches_lm_serve_ssm": ssm,
                "launches_lm_serve_hybrid": hybrid,
-               "launches_lm_serve_encdec": encdec}
+               "launches_lm_serve_encdec": encdec,
+               "launches_lm_train": lm_train}
     for k in kernels:
         counter = next(c for c in ("conv_lb", "wgrad", "matmul", "attention")
                        if k["name"].startswith(c))
@@ -5096,6 +5773,10 @@ def main() -> int:
             and by_name["attention_sm90_tf32"]["launches_lm_serve_encdec"] > 0
             and by_name["attention"]["launches_lm_serve_encdec"] == 0,
             "lm_serve_encdec: K4's launches by route")
+    require(by_name["attention_sm90"]["launches_lm_train"] > 0
+            and by_name["attention_sm90_tf32"]["launches_lm_train"] > 0
+            and by_name["attention"]["launches_lm_train"] == 0,
+            "lm_train: K4's launches by route")
     for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows),
                       ("lm_serve_encdec", encdec_rows)):
         for name, dtype in (("attention_sm90", "torch.bfloat16"),

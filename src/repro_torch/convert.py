@@ -27,6 +27,11 @@ comes back as numpy's bfloat16 of ``ml_dtypes``), for both LM families:
 
 Every params key that ends in ``blocks`` is a stack of layers; a
 cache's ``pos`` stays a host numpy vector.
+
+A training state goes across through :func:`train_state_from_numpy`
+and back through :func:`train_state_to_numpy`: the params and the AdamW
+moments ``m`` and ``v`` (trees of the params' structure) as above, the
+optimizer's and the state's ``step`` as 0-d int32 tensors on the host.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.exec_target import resolve_device
+from repro_torch.tree import leaves, tree_map
 
 
 def _tensor(a) -> torch.Tensor:
@@ -87,24 +93,11 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(tree, fn):
-    """``fn`` on every leaf of a tree of dicts."""
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
-
-
 def _unstack(tree, fn) -> list:
     """A tree stacked on a leading block axis -> one tree per block, each
     leaf's slice through ``fn``."""
-    n = len(_leaves(tree)[0])
-    return [_map(tree, lambda a, i=i: fn(a[i])) for i in range(n)]
+    n = len(leaves(tree)[0])
+    return [tree_map(lambda a, i=i: fn(a[i]), tree) for i in range(n)]
 
 
 def _stack(trees: list, fn):
@@ -152,7 +145,7 @@ def lm_cache_from_numpy(tree: dict, device="cuda") -> list:
     def leaf(name: str, a):
         return np.array(a, np.int32) if name == "pos" \
             else _tensor(a).to(dev)
-    n = len(_leaves(tree)[0])
+    n = len(leaves(tree)[0])
     return [{sub: {name: leaf(name, a[i]) for name, a in c.items()}
              if isinstance(c, dict) else leaf(sub, c[i])
              for sub, c in tree.items()} for i in range(n)]
@@ -168,3 +161,30 @@ def lm_cache_to_numpy(caches: list) -> dict:
                   for name in c} if isinstance(c, dict)
             else stack(sub, [b[sub] for b in caches])
             for sub, c in caches[0].items()}
+
+
+def train_state_from_numpy(state, device="cuda"):
+    """The reference's ``TrainState`` with numpy leaves (``params``,
+    ``opt.m``, ``opt.v``, ``opt.step``, ``step``, read as attributes)
+    -> the port's :class:`~repro_torch.launch.steps.TrainState`."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import AdamWState
+
+    def step(a) -> torch.Tensor:
+        return torch.tensor(int(np.asarray(a)), dtype=torch.int32)
+    return TrainState(
+        params=lm_params_from_numpy(state.params, device),
+        opt=AdamWState(m=lm_params_from_numpy(state.opt.m, device),
+                       v=lm_params_from_numpy(state.opt.v, device),
+                       step=step(state.opt.step)),
+        step=step(state.step))
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's ``TrainState`` -> ``{"params", "m", "v", "opt_step",
+    "step"}`` in the reference's layout (layers stacked), bit for bit."""
+    return {"params": lm_params_to_numpy(state.params),
+            "m": lm_params_to_numpy(state.opt.m),
+            "v": lm_params_to_numpy(state.opt.v),
+            "opt_step": np.int32(int(state.opt.step)),
+            "step": np.int32(int(state.step))}

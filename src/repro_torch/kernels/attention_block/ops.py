@@ -10,6 +10,17 @@ The semantics are those of the reference's ``lax`` target: a row with
 no unmasked key gets the mean of V over the real keys, whatever the
 block sizes (the reference's Pallas kernel agrees whenever ``Skv`` is a
 multiple of its ``bk``).
+
+Where an input requires a gradient (and grad mode is on),
+:func:`flash_attention` runs through :class:`Attention`, an autograd
+``Function`` on both devices: its forward is the same K4 launch (or, on
+the CPU, the plain version) and saves q, k and v; its backward is
+:func:`~repro_torch.kernels.attention_block.backward.attention_vjp`, the
+exact VJP of the reference's ``_lax_attention`` in f32 by query panel.
+The reference has no backward kernel (JAX differentiates its XLA
+attention), and the port has none either.  K4's CUDA launch fills a
+tensor through ``ctypes``, which autograd cannot see: without the
+Function a loss on the card would silently get no attention gradient.
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import torch
 
 from repro_torch.core.exec_target import resolve_target
 from repro_torch.kernels.attention_block import kernel
+from repro_torch.kernels.attention_block.backward import attention_vjp
 
 
 def heads_first(t: torch.Tensor) -> torch.Tensor:
@@ -55,6 +67,34 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bk = min(bk, max(8, skv))
     if bq < 1 or bk < 1:
         raise ValueError(f"blocks must be >= 1, got bq={bq}, bk={bk}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return Attention.apply(q, k, v, window, causal)
+    return _forward(q, k, v, window=window, causal=causal)
+
+
+def _forward(q, k, v, *, window: int, causal: bool) -> torch.Tensor:
+    """K4 (the plain version on the CPU) in the reference's layout."""
+    b, sq, h, hd = q.shape
     out = kernel.attention(heads_first(q), heads_first(k), heads_first(v),
-                           groups=h // kv, window=window, causal=causal)
+                           groups=h // k.shape[2], window=window,
+                           causal=causal)
     return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+class Attention(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the K4 forward, the
+    reference's VJP as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        return _forward(q, k, v, window=window, causal=causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_vjp(q, k, v, dout, window=ctx.window,
+                                   causal=ctx.causal)
+        return dq, dk, dv, None, None

@@ -1,2 +1,3 @@
-"""Conv-graph IR and the VGG / ResNet graphs; the dense-decoder LM
-stack (layers, embedding, attention, transformer, api)."""
+"""Conv-graph IR and the VGG / ResNet graphs; the LM stack (layers,
+embedding and loss, attention, MoE, SSM, transformer, encoder-decoder,
+api)."""

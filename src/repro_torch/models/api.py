@@ -15,13 +15,18 @@ for the ``encdec`` family:
     returns (last-token logits, caches);
   * ``decode_step(params, caches, token, cur_pos, **kw)``;
   * ``init_cache(batch, max_seq, device="cuda")``: empty caches on the
-    card unless the caller passes ``device="cpu"``.
+    card unless the caller passes ``device="cpu"``;
+  * ``train_loss(params, batch, **kw)``: ``batch`` holds ``tokens`` and
+    ``labels`` (B, S) and, as for ``prefill``, ``prefix_embeds`` or
+    ``frames``; returns the mean next-token NLL (a 0-d f32 tensor),
+    differentiable in the f32 master ``params`` (K4's forward, the
+    reference's attention VJP as its backward).
 
+``attn`` and ``tap`` pass through every member that runs attention.
 Without a mesh the reference's MoE mode (``_moe_mode``) is always
-``dense``, and so is the port's.  ``train_loss`` raises until the
-training slice; so does tp > 1.  The
-reference's ``input_specs`` and ``make_batch`` wait for the port's
-dry-run.
+``dense``, and so is the port's.  tp > 1 raises until ``parallel/``
+(ROADMAP.md §1 item 6.3).  The reference's ``input_specs`` and
+``make_batch`` wait for the port's dry-run.
 """
 
 from __future__ import annotations
@@ -45,22 +50,17 @@ class ModelAPI:
     init_cache: Callable[..., Any]
 
 
-def _train_loss(params, batch):
-    raise NotImplementedError("train_loss (lm_loss, the optimizer and the "
-                              "training launch) is not ported yet: "
-                              "ROADMAP.md §1 item 6, the training slice")
-
-
 def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
     if tp != 1:
         raise NotImplementedError(f"tp={tp}: the port runs one device "
                                   f"(tp = 1); sharding waits for "
-                                  f"ROADMAP.md §1 item 6's parallel/")
+                                  f"parallel/, ROADMAP.md §1 item 6.3")
     if cfg.family == "encdec":
         return ModelAPI(
             cfg=cfg, tp=tp,
             init=lambda key, **kw: encdec.init_params(cfg, key, tp, **kw),
-            train_loss=lambda p, b: encdec.train_loss(p, b, cfg, tp),
+            train_loss=lambda p, b, **kw: encdec.train_loss(p, b, cfg, tp,
+                                                            **kw),
             prefill=lambda p, b, max_seq=None, **kw: encdec.prefill(
                 p, b["tokens"], b["frames"], cfg, tp, max_seq=max_seq,
                 **kw),
@@ -81,6 +81,9 @@ def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
     def _init_cache(b, s, device="cuda"):
         return transformer.init_cache_tree(cfg, b, s, tp,
                                            device=resolve_device(device))
+
+    def _train_loss(p, b, **kw):
+        return transformer.train_loss(p, b, cfg, tp, **kw)
 
     return ModelAPI(
         cfg=cfg, tp=tp,

@@ -1,16 +1,76 @@
-"""Token embedding and decode-time logits — the port's copy of
-``embed_tokens`` and ``lm_logits`` from ``repro/models/embedding.py``
-at tp = 1 (the table whole on one device, no vocab sharding).
-``lm_loss`` waits for the training slice."""
+"""Token embedding, the training loss and decode-time logits — the
+port's copy of ``embed_tokens``, ``lm_loss`` and ``lm_logits`` from
+``repro/models/embedding.py`` at tp = 1 (the table whole on one device,
+no vocab sharding).
+
+``lm_loss`` runs the reference's scan over sequence chunks of
+:data:`LOSS_CHUNK` as a loop (a sequence that is not a multiple of the
+chunk is taken whole, as the reference takes it), each chunk's sums
+added in order.  Under autograd each chunk runs inside
+``torch.utils.checkpoint``, so one chunk's (B, C, V) f32 logits are
+alive at a time in the backward (256000 words a token at
+minitron-4b's vocab); that changes memory, not the numbers.
+"""
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+LOSS_CHUNK = 512
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """tokens (B, S) -> (B, S, d); table (V, d)."""
     return table[tokens]
+
+
+def _chunk_ce(h_c, table, labels_c, valid_c, real_vocab: int):
+    """CE sums of one sequence chunk: h_c (B, C, d), labels_c and
+    valid_c (B, C) -> (sum of the valid tokens' NLL, their count)."""
+    logits = h_c.to(torch.float32) @ table.to(torch.float32).T
+    v = table.shape[0]
+    if v > real_vocab:       # the padded vocabulary, never a label
+        pad = torch.arange(v, device=logits.device) >= real_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    gmax = logits.detach().amax(dim=-1)
+    sumexp = torch.exp(logits - gmax[..., None]).sum(dim=-1)
+    lse = torch.log(sumexp) + gmax
+    lab = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = (lse - lab) * valid_c
+    return nll.sum(), valid_c.sum()
+
+
+def _loss_local(h, table, labels, valid, real_vocab: int,
+                chunk: int = LOSS_CHUNK):
+    """h: (B, S, d); the chunks' sums added in order."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    if s % c:
+        c = s
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    count = torch.zeros((), dtype=torch.float32, device=h.device)
+    remat = torch.is_grad_enabled() and (h.requires_grad
+                                         or table.requires_grad)
+    for i in range(0, s, c):
+        args = (h[:, i:i + c], table, labels[:, i:i + c],
+                valid[:, i:i + c], real_vocab)
+        ls, cnt = checkpoint(_chunk_ce, *args, use_reentrant=False) \
+            if remat else _chunk_ce(*args)
+        loss_sum = loss_sum + ls
+        count = count + cnt
+    return loss_sum, count
+
+
+def lm_loss(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+            real_vocab: int) -> torch.Tensor:
+    """Mean next-token NLL.  h: (B, S, d), table: (V, d), labels:
+    (B, S) with -1 = ignore; a 0-d f32 tensor."""
+    labels = torch.as_tensor(labels, device=h.device)
+    valid = (labels >= 0).to(torch.float32)
+    labels_c = torch.clamp(labels, min=0).to(torch.int64)
+    s, c = _loss_local(h, table, labels_c, valid, real_vocab)
+    return s / torch.clamp(c, min=1.0)
 
 
 def lm_logits(h: torch.Tensor, table: torch.Tensor,

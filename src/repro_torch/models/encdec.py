@@ -15,7 +15,15 @@ and scans).  A layer's cache is ``{"self": {k, v, pos}, "cross_k",
 "cross_v"}``, ``pos`` a host int32 vector.  ``attn`` and ``tap`` pass
 through as in :mod:`repro_torch.models.transformer`; ``tap(layer, q, k,
 v, out, window=, causal=)`` names its layer ``enc<i>``, ``self<i>`` or
-``cross<i>``.  ``remat`` is a training matter and is ignored here.
+``cross<i>``.
+
+Training (:func:`train_loss`: encode, the decoder, ``lm_loss`` against
+the tied table): with ``cfg.remat`` each encoder and decoder layer runs
+under ``torch.utils.checkpoint``, as the reference wraps both scanned
+bodies in ``jax.checkpoint`` with its default policy (nothing saved,
+whatever ``remat_policy`` says).  The encoder's non-causal K4 and the
+cross-attention run through the same autograd ``Function`` as the
+decoder's self-attention.
 """
 
 from __future__ import annotations
@@ -25,10 +33,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.embedding import embed_tokens, lm_logits
+from repro_torch.models.embedding import embed_tokens, lm_logits, lm_loss
 from repro_torch.models.layers import (cast_params_for_compute, dense_init,
                                        filled, rms_norm, split_keys)
-from repro_torch.models.transformer import _apply_dense_ffn, _init_ffn, _tap
+from repro_torch.models.transformer import (_apply_dense_ffn, _init_ffn,
+                                           _tap, remat)
 
 ENC_FRAMES = 1500      # whisper mel frames after the conv frontend
 
@@ -92,14 +101,19 @@ def encode(params, frames, cfg: ModelConfig, tp: int = 1, *,
     dev = params["embed"].device
     h = torch.as_tensor(frames, device=dev).to(cfg.compute_dtype)
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
-    for i, bp in enumerate(params["enc_blocks"]):
+
+    def block(i, hh, bp):
         bp = cast_params_for_compute(bp, cfg.compute_dtype)
         out, _ = attn_mod.attention_block(
-            bp["attn"], rms_norm(h, bp["ln1"], cfg.norm_eps), pos, cfg, nh,
+            bp["attn"], rms_norm(hh, bp["ln1"], cfg.norm_eps), pos, cfg, nh,
             nkv, causal=False, attn=attn, tap=_tap(tap, f"enc{i}"))
-        h = h + out
-        h = h + _apply_dense_ffn(bp["ffn"],
-                                 rms_norm(h, bp["ln2"], cfg.norm_eps))
+        hh = hh + out
+        return hh + _apply_dense_ffn(bp["ffn"],
+                                     rms_norm(hh, bp["ln2"], cfg.norm_eps))
+
+    for i, bp in enumerate(params["enc_blocks"]):
+        h = remat(lambda hh, p, i=i: block(i, hh, p), cfg, h, bp,
+                  policy="nothing")
     return rms_norm(h, params["enc_ln"], cfg.norm_eps)
 
 
@@ -123,33 +137,45 @@ def decoder_forward(params, tokens, enc_out, cfg: ModelConfig, tp: int = 1,
     h = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     pos_host = np.arange(s, dtype=np.int32)
-    caches = []
-    for i, bp in enumerate(params["dec_blocks"]):
+
+    def block(i, hh, bp):
         bp = cast_params_for_compute(bp, cfg.compute_dtype)
         out, (k, v) = attn_mod.attention_block(
-            bp["self_attn"], rms_norm(h, bp["ln1"], cfg.norm_eps), pos, cfg,
-            nh, nkv, attn=attn, tap=_tap(tap, f"self{i}"))
-        h = h + out
+            bp["self_attn"], rms_norm(hh, bp["ln1"], cfg.norm_eps), pos,
+            cfg, nh, nkv, attn=attn, tap=_tap(tap, f"self{i}"))
+        hh = hh + out
         ck, cv, cpos = _cross_kv(bp, enc_out, cfg, nkv)
         out, _ = attn_mod.attention_block(
-            bp["cross_attn"], rms_norm(h, bp["lnx"], cfg.norm_eps), pos, cfg,
-            nh, nkv, cross_kv=(ck, cv, cpos), causal=False, attn=attn,
+            bp["cross_attn"], rms_norm(hh, bp["lnx"], cfg.norm_eps), pos,
+            cfg, nh, nkv, cross_kv=(ck, cv, cpos), causal=False, attn=attn,
             tap=_tap(tap, f"cross{i}"))
-        h = h + out
-        h = h + _apply_dense_ffn(bp["ffn"],
-                                 rms_norm(h, bp["ln2"], cfg.norm_eps))
-        if want_cache:
-            caches.append({"self": attn_mod.cache_from_prefill(
-                k, v, pos_host, max_seq, cfg.window),
-                "cross_k": ck, "cross_v": cv})
+        hh = hh + out
+        hh = hh + _apply_dense_ffn(bp["ffn"],
+                                   rms_norm(hh, bp["ln2"], cfg.norm_eps))
+        return hh, (k, v, ck, cv)
+
+    caches = []
+    for i, bp in enumerate(params["dec_blocks"]):
+        if not want_cache:
+            h = remat(lambda hh, p, i=i: block(i, hh, p)[0], cfg, h, bp,
+                      policy="nothing")
+            continue
+        h, (k, v, ck, cv) = block(i, h, bp)
+        caches.append({"self": attn_mod.cache_from_prefill(
+            k, v, pos_host, max_seq, cfg.window),
+            "cross_k": ck, "cross_v": cv})
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return h, caches if want_cache else None
 
 
-def train_loss(params, batch, cfg: ModelConfig, tp: int = 1):
-    raise NotImplementedError("train_loss (lm_loss, the optimizer and the "
-                              "training launch) is not ported yet: "
-                              "ROADMAP.md §1 item 6, the training slice")
+def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
+               attn: str = "kernel", tap=None):
+    """batch: {tokens (B, S), labels (B, S), frames (B, T, d)} -> the
+    mean next-token NLL, a 0-d f32 tensor."""
+    enc_out = encode(params, batch["frames"], cfg, tp, attn=attn, tap=tap)
+    h, _ = decoder_forward(params, batch["tokens"], enc_out, cfg, tp,
+                           attn=attn, tap=tap)
+    return lm_loss(h, params["embed"], batch["labels"], cfg.vocab)
 
 
 def prefill(params, tokens, frames, cfg: ModelConfig, tp: int = 1, *,

@@ -1,6 +1,6 @@
 """Decoder stack — the port's copy of ``repro/models/transformer.py`` at
 tp = 1, for the dense, MoE, SSM, hybrid and VLM families (the
-encoder-decoder family, ``models/encdec.py``, is not ported yet).
+encoder-decoder family is :mod:`repro_torch.models.encdec`).
 
 ``params["blocks"]`` and the decode caches are lists of per-block dicts
 (the reference stacks them on a leading axis and scans); a block's
@@ -10,9 +10,18 @@ MoE FFN, or none).  Each block's matmul weights are cast to the compute
 type as the block runs, as the reference does
 (``cast_params_for_compute``); weights made with ``init_params(...,
 cast_blocks=True)`` are already of that type, so the cast is a no-op
-and the numbers are the same.  The MoE FFN runs the reference's
-``dense`` mode (no mesh).  ``remat`` is a training matter and is
-ignored here.
+and the numbers are the same (serving only: training differentiates
+the f32 masters).  The MoE FFN runs the reference's ``dense`` mode (no
+mesh).
+
+Training (:func:`train_loss`): with ``cfg.remat`` each block, the cast
+of its f32 masters included, runs under ``torch.utils.checkpoint``
+(non-reentrant), as the reference wraps its scanned block in
+``jax.checkpoint``: only the block's input is kept, and the backward
+runs the block again (K4 included).  ``remat_policy="dots"`` keeps the
+matmul outputs (``aten.mm``/``bmm``: the reference's
+``dots_with_no_batch_dims_saveable``) through a selective-checkpoint
+context; ``"nothing"`` keeps none.
 """
 
 from __future__ import annotations
@@ -22,14 +31,16 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.embedding import embed_tokens, lm_logits
+from repro_torch.models.embedding import embed_tokens, lm_logits, lm_loss
 from repro_torch.models.layers import (cast_params_for_compute, dense_init,
                                        filled, rms_norm, split_keys, swiglu)
+from repro_torch.tree import leaves
 
 # --------------------------------------------------------------------------
 # block structure
@@ -124,7 +135,7 @@ def init_params(cfg: ModelConfig, key: torch.Generator | None, tp: int = 1,
 
 
 # --------------------------------------------------------------------------
-# forward (prefill)
+# forward (train / prefill)
 # --------------------------------------------------------------------------
 
 def _apply_dense_ffn(p, h):
@@ -172,11 +183,46 @@ def _tap(tap, layer: int):
     return None if tap is None else functools.partial(tap, layer)
 
 
+def _saved_ops():
+    """The matmuls the ``dots`` policy keeps: what an ``h @ w`` or an
+    expert product dispatches to."""
+    aten = torch.ops.aten
+    return {aten.mm.default, aten.bmm.default, aten.addmm.default}
+
+
+def _dots_context():
+    """Selective-checkpoint contexts keeping the matmul outputs."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+    keep = _saved_ops()
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in keep
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def remat(body, cfg: ModelConfig, *args, policy: str | None = None):
+    """``body(*args)`` under ``torch.utils.checkpoint`` when ``cfg.remat``
+    and autograd records a tensor of ``args`` (the reference's
+    ``jax.checkpoint`` of a scanned block), with the ``dots`` context
+    where ``policy`` (by default ``cfg.remat_policy``) asks for it."""
+    if not (cfg.remat and torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in leaves(args))):
+        return body(*args)
+    if (policy or cfg.remat_policy) == "dots":
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(body, *args, use_reentrant=False)
+
+
 def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             prefix_embeds=None, want_cache: bool = False,
             max_seq: int | None = None, attn: str = "kernel", tap=None):
     """Full-sequence forward.  Returns (h_final, caches_or_None).
-    ``tap(layer, q, k, v, out, window=, causal=)`` sees every K4 call."""
+    ``tap(layer, q, k, v, out, window=, causal=)`` sees every K4 call.
+    Without ``want_cache`` each block runs under :func:`remat`."""
     nh, nkv = cfg.padded_heads(tp)
     spec = block_spec(cfg)
     dev = params["embed"].device
@@ -190,20 +236,41 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             cfg.compute_dtype)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     pos_host = np.arange(s, dtype=np.int32)
-    caches = []
-    for i, block_params in enumerate(params["blocks"]):
+
+    def block(i, hh, block_params):
         block_params = cast_params_for_compute(block_params,
                                                cfg.compute_dtype)
         block_caches = {}
         for j, kind in enumerate(spec):
-            h, c = _sublayer_forward(
-                block_params[f"sub{j}"], kind, h, pos, pos_host, cfg, nh,
+            hh, c = _sublayer_forward(
+                block_params[f"sub{j}"], kind, hh, pos, pos_host, cfg, nh,
                 nkv, want_cache, max_seq, attn,
                 _tap(tap, i * len(spec) + j))
             block_caches[f"sub{j}"] = c
-        caches.append(block_caches)
+        return hh, block_caches
+
+    caches = []
+    for i, block_params in enumerate(params["blocks"]):
+        if want_cache:
+            h, block_caches = block(i, h, block_params)
+            caches.append(block_caches)
+        else:
+            h = remat(lambda hh, bp, i=i: block(i, hh, bp)[0], cfg, h,
+                      block_params)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return h, caches if want_cache else None
+
+
+def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
+               attn: str = "kernel", tap=None):
+    """batch: {tokens (B, S), labels (B, S), [prefix_embeds]} -> the
+    mean next-token NLL, a 0-d f32 tensor (:func:`lm_loss` against the
+    tied table or ``lm_head``)."""
+    h, _ = forward(params, batch["tokens"], cfg, tp,
+                   prefix_embeds=batch.get("prefix_embeds"), attn=attn,
+                   tap=tap)
+    table = params.get("lm_head", params["embed"])
+    return lm_loss(h, table, batch["labels"], cfg.vocab)
 
 
 # --------------------------------------------------------------------------

@@ -1509,3 +1509,86 @@ def test_whisper_encoder_layer_and_cross_decode_on_the_card(cuda):
     launched = {r: K4.attention.launches_by_route[r] - before[r]
                 for r in before}
     assert launched == dict.fromkeys(K4.ROUTES, 0) | {"sm90_tf32": 2}
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.float32, 64, "sm90_tf32"), (torch.bfloat16, 128, "sm90")])
+@pytest.mark.parametrize("window,causal", [(0, True), (24, True),
+                                           (0, False)])
+def test_attention_grads_on_the_card_match_the_cpu(cuda, dtype, hd, route,
+                                                   window, causal):
+    """``flash_attention`` under autograd on the card: one K4 launch on
+    the route of its type, then the reference's VJP; dq, dk and dv
+    against the same call on the CPU (K4's plain version forward, the
+    same VJP): f32 within 1e-5 of max |cpu| (f32 sums in other orders,
+    TF32 off), bf16 within the bf16 ``CARD_TOL`` (both round the f32
+    gradients once)."""
+    from repro_torch.launch.yardstick import within
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=gen).to(dtype) for s in (
+        (2, 96, 8, hd), (2, 80 if not causal else 96, 2, hd),
+        (2, 80 if not causal else 96, 2, hd)))
+    do = torch.randn((2, 96, 8, hd), generator=gen).to(dtype)
+
+    def grads(device):
+        ins = [t.to(device).requires_grad_() for t in (q, k, v)]
+        out = flash_attention(*ins, window=window, causal=causal)
+        return torch.autograd.grad(out, ins, do.to(device))
+    before = dict(K4.attention.launches_by_route)
+    card = grads(cuda)
+    torch.cuda.synchronize()
+    assert {r: K4.attention.launches_by_route[r] - before[r]
+            for r in before} == dict.fromkeys(K4.ROUTES, 0) | {route: 1}
+    for got, want in zip(card, grads("cpu")):
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            _close(got.cpu(), want, 1e-5)
+        else:
+            gate = within(got.cpu(), want, dtype)
+            assert gate["worst_over_tol"] <= 1.0, gate
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.float32, "sm90_tf32"),
+                                         (torch.bfloat16, "sm90")])
+def test_loss_backward_through_k4_reaches_every_wq(cuda, dtype, route):
+    """A reduced minitron (head dim 128) on the card: after
+    ``loss.backward()`` every block's wq, wk and wv has a non-zero
+    ``.grad`` (K4's launch fills its output through ctypes, so without
+    the autograd Function they would get none), each attention two K4
+    launches (the forward and its remat recompute); in f32 the
+    gradients within 1e-3 of each tensor's max |cpu| of the same loss on
+    the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.api import build
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(
+        reduced(get_config("minitron-4b"), head_dim=128),
+        compute_dtype=dtype)
+    api = build(cfg)
+    params = api.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 33), generator=gen)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    card = _to(params, cuda)
+    for t in leaves(card):
+        t.requires_grad_(True)
+    before = dict(K4.attention.launches_by_route)
+    loss = api.train_loss(card, _to(batch, cuda))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert {r: K4.attention.launches_by_route[r] - before[r]
+            for r in before} == dict.fromkeys(K4.ROUTES, 0) | {
+        route: 2 * cfg.n_layers}
+    assert torch.isfinite(loss)
+    for block in card["blocks"]:
+        for name in ("wq", "wk", "wv"):
+            grad = block["sub0"]["attn"][name].grad
+            assert grad is not None and grad.abs().max() > 0, name
+    if dtype == torch.float32:
+        cpu_loss, cpu_g = value_and_grad(api, params, batch)
+        assert abs(float(loss.detach()) - float(cpu_loss)) \
+            <= 1e-4 * float(cpu_loss)
+        for got, want in zip(leaves(card), leaves(cpu_g)):
+            _close(got.grad.cpu(), want, 1e-3)

@@ -1,7 +1,8 @@
 """The port imports nothing of JAX and nothing of the reference package
 ``repro``: checked by importing every ``repro_torch`` module and
 ``chip_smoke.py`` in a fresh interpreter, and by an AST scan of their
-sources and of the chip probes under ``probes/``."""
+sources, of the chip probes under ``probes/`` and of the examples' port
+siblings (``examples/*_torch.py``)."""
 
 import ast
 import json
@@ -15,7 +16,8 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 SOURCES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-           + sorted((REPO / "probes").glob("*.py")))
+           + sorted((REPO / "probes").glob("*.py"))
+           + sorted((REPO / "examples").glob("*_torch.py")))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

@@ -431,9 +431,15 @@ def test_noncausal_attention_under_a_window_raises():
 
 
 def test_train_loss_raises_until_the_training_slice():
+    """The training slice has landed: ``train_loss`` gives a finite loss
+    and, as ``prefill``, refuses an unknown ``attn``."""
     api = build(reduced(get_config(ARCH)))
-    with pytest.raises(NotImplementedError, match="train_loss"):
-        api.train_loss({}, {})
+    params = api.init(torch.Generator().manual_seed(0))
+    batch = _port(_batch(api.cfg, 1, 4, frames=8))
+    batch["labels"] = batch["tokens"]
+    assert torch.isfinite(api.train_loss(params, batch))
+    with pytest.raises(ValueError, match="attn"):
+        api.train_loss(params, batch, attn="fast")
     with pytest.raises(ValueError, match="attn"):
         api.prefill(api.init(torch.Generator().manual_seed(0)),
                     _port(_batch(api.cfg, 1, 4, frames=8)), attn="fast")

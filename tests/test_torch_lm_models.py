@@ -529,8 +529,10 @@ def test_what_is_not_ported_raises():
     with pytest.raises(NotImplementedError, match="tp"):
         build(reduced(get_config("phi3-medium-14b")), tp=2)
     api = build(reduced(get_config("phi3-medium-14b")))
-    with pytest.raises(NotImplementedError, match="train_loss"):
-        api.train_loss({}, {})
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="attn"):
+        api.train_loss(api.init(torch.Generator().manual_seed(0)),
+                       {"tokens": tokens, "labels": tokens}, attn="fast")
     with pytest.raises(ValueError, match="attn"):
         api.prefill(api.init(torch.Generator().manual_seed(0)),
                     {"tokens": torch.zeros((1, 4), dtype=torch.int64)},
