@@ -129,9 +129,15 @@
     alone at mixtral's decode shape and its windowed 8192-token
     prefill; then 4 blocks in f32 as ``lm_serve_f32`` does;
   * ``lm_serve_ssm``: mamba2-1.3b at full width and depth in bf16
-    through ``BatchedServer`` (no K1-K4 launch: attention-free), step
-    time, tokens/s, peak; in f32 decode against a 600-token prefill
-    (two 256-row chunks and a padded third) within ``TOL``;
+    through ``BatchedServer`` (no K1-K4 launch: attention-free), each
+    served step replayed layer by layer, teacher-forced, in f32 from the
+    same bf16-rounded weights and an f32 clone of its caches (each
+    layer's output within ``LM_BF16_TOL`` of max |f32| and each mixer's
+    own output within ``SSM_MIXER_TOL``, its state and conv tail handed
+    to the next step bit for bit; the control, the SSM state reset to
+    zero, must fail both; the whole f32 step's logits reported beside
+    it), step time, tokens/s, peak; in f32 decode against a 600-token
+    prefill (two 256-row chunks and a padded third) within ``TOL``;
   * ``lm_serve_hybrid``: jamba-1.5-large-398b at ``reduced()`` size in
     f32 (one full-width block is 88.1 GB): one K4 ``sm90_tf32`` launch
     a decode step, the served logits (under the served routing) and
@@ -177,6 +183,26 @@
     and with a failure injected before step 15 (restored from step 10
     and replayed): the final params and moments equal bit for bit, the
     replayed losses equal, the loss falling; step and save times;
+  * ``mesh_attention``: K4's log-sum-exp output at the sharded decode's
+    shapes (phi3's 4 x 40 heads over 10 and mixtral's 4 x 32 over 8,
+    hd 128, one query against 4096 slots) on ``sm90`` (bf16),
+    ``sm90_tf32`` (f32) and ``fma`` (``via="fma"``, both types): ``out``
+    the same bits with and without ``lse``, ``lse`` within ``CARD_TOL``
+    of the plain version's, the cache cut into 4 slot shards merged by
+    ``combine_partials`` within ``CARD_TOL`` of K4 over the whole cache
+    and of the plain version, an ``lse`` shifted by ln 2 and a dropped
+    shard failing that gate, an empty shard moving nothing; K4 ``sm90``
+    at phi3's decode shape timed with and without ``lse`` beside its
+    bound and SDPA;
+  * ``lm_serve_mesh``: phi3-medium-14b at full width and 40 layers in
+    bf16 through ``BatchedServer(cfg, mesh)`` on a one-rank NCCL
+    group's (1, 1) mesh, on the weights of a mesh-free server: tokens
+    and logits equal to the mesh-free server's bit for bit, 40 K4
+    ``sm90`` launches a step with their log-sum-exp, the collectives
+    counted by op; then ``build(cfg, tp=4)`` without a mesh at full
+    width (heads padded to 40 over 20): a prefill of 8 tokens and 16
+    decode steps replayed against the plain attention within
+    ``LM_BF16_TOL``, ``drop_newest_slot`` failing it; peak memory;
   * ``plan_audit``: the ``sm90`` legality profile
     (``repro_torch.analysis.plan_check``) on the card, running no
     kernel: the card's opt-in shared memory a block, SM count and
@@ -240,7 +266,9 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import datetime
 import json
+import math
 import os
 import subprocess
 import sys
@@ -288,6 +316,7 @@ from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
 from repro_torch.kernels.nvcc import (build_many,  # noqa: E402
                                       parse_ptxas_spills, resource_usage)
 from repro_torch.launch import serve_images  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import steps as LM_STEPS  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
@@ -297,10 +326,13 @@ from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
 from repro_torch.models import attention as LM_A  # noqa: E402
+from repro_torch.models import embedding as LM_EMB  # noqa: E402
 from repro_torch.models import encdec as LM_E  # noqa: E402
 from repro_torch.models import moe as MOE  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as LM_T  # noqa: E402
 from repro_torch.models.api import build as build_lm  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph,
                                     vgg_layer_dims)
@@ -309,6 +341,7 @@ from repro_torch.models.graph import (graph_logits,  # noqa: E402
                                       graph_training_step_report)
 from repro_torch.obs.tracer import Tracer  # noqa: E402
 from repro_torch.optim import adamw as ADAMW  # noqa: E402
+from repro_torch.parallel import collectives as COL  # noqa: E402
 from repro_torch.runtime.fault_tolerance import (  # noqa: E402
     ResilienceConfig, run_resilient)
 from repro_torch.serve import (FaultPlan, ImageServer,  # noqa: E402
@@ -2641,8 +2674,9 @@ LAUNCH_COUNTERS = (("conv_lb", K.conv_lb), ("wgrad_lb", W.wgrad_lb),
 @contextlib.contextmanager
 def counted(into: dict):
     """Every kernel's launches by route (and K1's and K2's staging
-    launches) set to 0 for the block, read into ``into`` after it, then
-    added back onto the counts from before."""
+    launches, and K4's launches that also wrote a log-sum-exp, as
+    ``attention_lse``) set to 0 for the block, read into ``into`` after
+    it, then added back onto the counts from before."""
     saved = {}
     for name, fn in LAUNCH_COUNTERS:
         saved[name] = (fn.launches, dict(fn.launches_by_route),
@@ -2651,6 +2685,8 @@ def counted(into: dict):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
         if hasattr(fn, "stage_launches"):
             fn.stage_launches = 0
+    lse = dict(K4.attention.lse_launches_by_route)
+    K4.attention.lse_launches_by_route = dict.fromkeys(lse, 0)
     try:
         yield into
     finally:
@@ -2663,6 +2699,9 @@ def counted(into: dict):
             fn.launches += launches
             fn.launches_by_route = {r: n + by_route[r] for r, n
                                     in fn.launches_by_route.items()}
+        into["attention_lse"] = dict(K4.attention.lse_launches_by_route)
+        K4.attention.lse_launches_by_route = {
+            r: n + lse[r] for r, n in into["attention_lse"].items()}
 
 
 def k4_only(counts: dict, route: str, n: int) -> bool:
@@ -2875,12 +2914,13 @@ def replay_plain(api, params, steps, tol: float, what: str,
 
 
 def control_drop_newest(api, params, steps, tol: float,
-                        routing: Routing | None = None) -> list:
+                        routing: Routing | None = None,
+                        positions: tuple = LM_CONTROL_POS) -> list:
     """The decode gather without the current token's own key, at the
-    steps of :data:`LM_CONTROL_POS`: each must fail ``tol``."""
+    steps of ``positions``: each must fail ``tol``."""
     rows = []
     for i, (caches, tok, pos, _logits) in enumerate(steps):
-        if pos not in LM_CONTROL_POS:
+        if pos not in positions:
             continue
         with _routed(routing, i):
             plain, _ = api.decode_step(params, clone_caches(caches), tok,
@@ -2892,7 +2932,7 @@ def control_drop_newest(api, params, steps, tol: float,
         rows.append({"what": "decode gather without the newest slot",
                      "pos": pos, "err_over_max_plain": err, "gate": tol})
         require(err > tol, f"lm_serve control at pos {pos} passes: {err}")
-    require(len(rows) == len(LM_CONTROL_POS), f"lm_serve controls {rows}")
+    require(len(rows) == len(positions), f"lm_serve controls {rows}")
     return rows
 
 
@@ -3264,6 +3304,13 @@ MOE_PREFILL_S = 8192
 #: mamba2's f32 decode-against-prefill prompt: two 256-row chunks and a
 #: padded third
 SSM_PROMPT = 600
+#: mamba2's gate on one served bf16 mixer's own output against the same
+#: mixer in f32 on the same input, over max |f32|: a fixed constant, set
+#: from the first full-width readings (sound mixers 0.0377 at worst, the
+#: reset-state control 0.59 on the residual).  On the CPU the port's bf16
+#: mixer lies as far from f32 as the reference's own
+#: (``tests/test_torch_ssm_bf16.py``).
+SSM_MIXER_TOL = 0.1
 
 
 def block_reckoning(cfg) -> dict:
@@ -3317,11 +3364,147 @@ def phase_lm_serve_moe(card: str, flush) -> dict:
             "f32_rows": f32["rows"], "step_ms_median": row["step_ms_median"]}
 
 
+def _f32_caches(caches: list, zero_state: bool = False) -> list:
+    """A clone of a step's caches in f32 (the conv tail widened from the
+    compute type; the SSM state already f32), the state zeroed for the
+    control."""
+    out = clone_caches(caches)
+    for block in out:
+        for c in block.values():
+            if "conv" in c:
+                c["conv"] = c["conv"].float()
+            if zero_state and "ssm" in c:
+                c["ssm"] = torch.zeros_like(c["ssm"])
+    return out
+
+
+def _rel_max(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def ssm_f32_replay(cfg, params, steps) -> dict:
+    """Each served bf16 step of mamba2 (every block one Mamba2 mixer)
+    replayed layer by layer, teacher-forced: the step's own bf16 layers
+    again from a clone of its caches (their logits equal to the served
+    ones bit for bit, and each layer's new SSM state and conv tail equal
+    to what the server holds for the next step, both required), and
+    beside each layer the same layer in f32 on that layer's input
+    widened, from the same bf16-rounded weights widened exactly and an
+    f32 clone of its caches.  Each layer's output (the residual stream
+    the next layer and the logits read) within :data:`LM_BF16_TOL` of
+    max |f32|, and each mixer's own output within :data:`SSM_MIXER_TOL`
+    of max |f32 mixer| (:func:`expect`); the control, the f32 layer's
+    SSM state reset to zero at :data:`LM_CONTROL_POS`, must fail both
+    gates.  (A plain-attention replay would repeat an attention-free
+    model bit for bit.)  Reported beside it, not gated: each mixer's new
+    state against the f32 layer's, and the whole step in f32 from the
+    step's caches, whose logits carry 48 layers of bf16 rounding (the
+    reference's own bf16 logits lie beyond 2e-2 of its f32 logits at 4
+    layers: ``tests/test_torch_ssm_bf16.py``)."""
+    require(LM_T.block_spec(cfg) == [("mamba", None)],
+            f"ssm_f32_replay takes Mamba-only blocks, not "
+            f"{LM_T.block_spec(cfg)}")
+    f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    api = build_lm(f32)
+    wide = TREE.tree_map(lambda t: t.float() if isinstance(t, torch.Tensor)
+                         and t.is_floating_point() else t, params)
+    table = params.get("lm_head", params["embed"])
+    res_errs, out_errs, state_errs, logits_errs = [], [], [], []
+    controls, handoff = [], True
+    for t, (caches, tok, pos, logits) in enumerate(steps):
+        wide_caches = _f32_caches(caches)
+        zeroed = _f32_caches(caches, zero_state=True)
+        nxt = steps[t + 1][0] if t + 1 < len(steps) else None
+        h = LM_EMB.embed_tokens(params["embed"], tok).to(cfg.compute_dtype)
+        res, outs, sts, ctrl, ctrl_mix = [], [], [], [], []
+        for i, (bp, c) in enumerate(zip(params["blocks"], caches)):
+            sub, sub32 = bp["sub0"], wide["blocks"][i]["sub0"]
+            x = rms_norm(h, sub["ln1"], cfg.norm_eps)
+            out, (st, conv) = SSM.mamba_decode(
+                sub["mamba"], x, cfg, c["sub0"]["ssm"].clone(),
+                c["sub0"]["conv"].clone())
+            if nxt is not None:
+                handoff &= bool(torch.equal(st, nxt[i]["sub0"]["ssm"])
+                                and torch.equal(conv,
+                                                nxt[i]["sub0"]["conv"]))
+            x32 = rms_norm(h.float(), sub32["ln1"], cfg.norm_eps)
+            out32, (st32, _c32) = SSM.mamba_decode(
+                sub32["mamba"], x32, f32, wide_caches[i]["sub0"]["ssm"],
+                wide_caches[i]["sub0"]["conv"])
+            h_next = h + out
+            res.append(_rel_max(h_next, h.float() + out32))
+            outs.append(_rel_max(out, out32))
+            sts.append(_rel_max(st, st32))
+            if pos in LM_CONTROL_POS:
+                wrong, _ = SSM.mamba_decode(
+                    sub32["mamba"], x32, f32, zeroed[i]["sub0"]["ssm"],
+                    zeroed[i]["sub0"]["conv"])
+                ctrl.append(_rel_max(h_next, h.float() + wrong))
+                ctrl_mix.append(_rel_max(out, wrong))
+            h = h_next
+        again = LM_EMB.lm_logits(rms_norm(h, params["final_ln"],
+                                          cfg.norm_eps), table, cfg.vocab)
+        require(torch.equal(again, logits),
+                f"lm_serve_ssm: the layer-by-layer replay at pos {pos} "
+                f"does not repeat the served step")
+        whole, _ = api.decode_step(wide, wide_caches, tok, pos)
+        res_errs.append(max(res))
+        out_errs.append(max(outs))
+        state_errs.append(max(sts))
+        logits_errs.append(_rel(logits, whole, cfg.vocab))
+        if ctrl:
+            controls.append({"what": "SSM state reset to zero", "pos": pos,
+                             "worst_layer_err_over_max_f32": max(ctrl),
+                             "layers_over_gate": sum(
+                                 e > LM_BF16_TOL for e in ctrl),
+                             "gate": LM_BF16_TOL,
+                             "worst_mixer_err_over_max_f32": max(ctrl_mix),
+                             "mixers_over_gate": sum(
+                                 e > SSM_MIXER_TOL for e in ctrl_mix),
+                             "mixer_gate": SSM_MIXER_TOL})
+            require(max(ctrl) > LM_BF16_TOL
+                    and max(ctrl_mix) > SSM_MIXER_TOL,
+                    f"lm_serve_ssm control at pos {pos} passes: layer "
+                    f"{max(ctrl)}, mixer {max(ctrl_mix)}")
+    require(handoff, "lm_serve_ssm: a layer's new state or conv tail is not "
+                     "what the server holds for the next step")
+    require(len(controls) == len(LM_CONTROL_POS),
+            f"lm_serve_ssm controls {controls}")
+    worst, worst_mix = max(res_errs), max(out_errs)
+    expect(worst <= LM_BF16_TOL, f"lm_serve_ssm: a served bf16 layer's "
+                                 f"output err {worst} of max |f32 replay| "
+                                 f"> {LM_BF16_TOL}")
+    expect(worst_mix <= SSM_MIXER_TOL,
+           f"lm_serve_ssm: a served bf16 mixer's own output err "
+           f"{worst_mix} of max |f32 mixer| > {SSM_MIXER_TOL}")
+    del api, wide
+    return {"max_layer_err_over_max_f32": worst, "gate": LM_BF16_TOL,
+            "within_gate": worst <= LM_BF16_TOL,
+            "layer_err_by_step": res_errs, "layers": cfg.n_layers,
+            "max_mixer_err_over_max_f32": worst_mix,
+            "mixer_gate": SSM_MIXER_TOL,
+            "mixer_within_gate": worst_mix <= SSM_MIXER_TOL,
+            "mixer_err_by_step": out_errs,
+            "steps": len(steps), "state_handoff_bit_equal": handoff,
+            "control_state_reset": controls,
+            "ungated": {
+                "state_err_max": max(state_errs),
+                "state_err_by_step": state_errs,
+                "logits_vs_whole_f32_step_max": max(logits_errs),
+                "logits_vs_whole_f32_step_by_step": logits_errs}}
+
+
 def phase_lm_serve_ssm(card: str) -> dict:
     """mamba2-1.3b (attention-free, 48 Mamba2 layers, d_model 2048, state
     128) at full width and depth in bf16 through ``BatchedServer`` at the
     reference server's defaults: every request completes, no launch of
-    K1-K4; the step time, tokens/s and peak memory.  Then at full width
+    K1-K4; each step replayed layer by layer in f32
+    (:func:`ssm_f32_replay`: every layer's output within
+    :data:`LM_BF16_TOL` of max |f32| and every mixer's own output within
+    :data:`SSM_MIXER_TOL`, the state handed to the next step bit for bit,
+    the reset-state control failing both gates); the step
+    time, tokens/s and peak memory.  Then at full width
     and depth in f32: a :data:`SSM_PROMPT`-token prefill's last logits
     against a prefill of one token fewer and one decode step, within
     ``TOL`` of max |logits| (the chunked scan over two full 256-row
@@ -3344,6 +3527,7 @@ def phase_lm_serve_ssm(card: str) -> dict:
             "lm_serve_ssm: logits not finite")
     serve_peak = torch.cuda.max_memory_allocated()
     generated = sum(len(r.out) for r in reqs)
+    f32_replay = ssm_f32_replay(cfg, server.params, steps)
     del server, steps, logits
     _free()
     f32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
@@ -3376,7 +3560,7 @@ def phase_lm_serve_ssm(card: str) -> dict:
           "step_ms_median": _median(secs) * 1e3,
           "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
           "tokens_per_s": generated / sum(secs),
-          "serve_peak_gb": serve_peak / 1e9,
+          "serve_peak_gb": serve_peak / 1e9, "f32_replay": f32_replay,
           "f32_decode_vs_prefill": {"err_over_max": decode_vs_prefill,
                                     "gate": TOL, "prompt": SSM_PROMPT,
                                     "chunks": -(-SSM_PROMPT // 256)},
@@ -4270,6 +4454,309 @@ def phase_lm_train_resilient(card: str) -> dict:
     del runs, a, b
     _free()
     return {"bf16": _merged(clean["counts"], failed["counts"])}
+
+
+#: ``mesh_attention``: the decode shapes whose cache is cut into slot
+#: shards, ``(config, batch, heads, kv heads, head dim, slots)``: phi3's
+#: (a 4096-slot cache) and mixtral's (its 4096-slot window's ring, full)
+MESH_ATTN_SHAPES = (("phi3-medium-14b", 4, 40, 10, 128, 4096),
+                    ("mixtral-8x7b", 4, 32, 8, 128, 4096))
+MESH_SHARDS = 4
+#: the merge also read at the production model axis's 8 and 16 shards
+#: (bf16 partials are rounded before the merge, f32 ones are not)
+MESH_SHARDS_MORE = (8, 16)
+#: each route with its type: bf16 on sm90, f32 on sm90_tf32, and the FMA
+#: kernel through ``via="fma"`` in both
+MESH_ROUTES = (("sm90", torch.bfloat16), ("sm90_tf32", torch.float32),
+               ("fma", torch.bfloat16), ("fma", torch.float32))
+#: the one-rank NCCL group's rendezvous file (``build/`` is not committed)
+MESH_RENDEZVOUS = Path(__file__).resolve().parent / "build" / \
+    "nccl_rendezvous"
+#: ``lm_serve_mesh``: the tensor-parallel degree of the mesh-free padded
+#: model (phi3's 40 query heads over 10 kv heads pad to 40 over 20)
+MESH_TP = 4
+
+
+def _shard_partials(q, k, v, rt: str, groups: int,
+                    shards: int = MESH_SHARDS):
+    """K4 with its log-sum-exp on each of ``shards`` slot shards of (q,
+    k, v) in the kernel layout: the stacked outputs and log-sum-exps."""
+    n = k.shape[1] // shards
+    parts = [K4.attention(q, k[:, i * n:(i + 1) * n].contiguous(),
+                          v[:, i * n:(i + 1) * n].contiguous(),
+                          groups=groups, causal=False, via=rt, lse=True)
+             for i in range(shards)]
+    return (torch.stack([o for o, _ in parts]),
+            torch.stack([l for _, l in parts]))
+
+
+def phase_mesh_attention(card: str, flush) -> dict:
+    """K4's log-sum-exp at the sharded decode's shapes
+    (:data:`MESH_ATTN_SHAPES`), on every route (:data:`MESH_ROUTES`):
+    (a) ``out`` with ``lse`` equal to ``out`` without it, bit for bit;
+    (b) ``lse`` within ``CARD_TOL`` of the plain version's; (c) the cache
+    cut into 4 slot shards of 1024, K4 with ``lse`` on each and
+    ``combine_partials`` merging them: within ``CARD_TOL`` of K4 over the
+    whole cache and of the plain version, and so at 8 and 16 shards (the
+    production model axis; a bf16 partial is rounded to bf16 before the
+    merge, where the reference merges f32 partials); (d) the controls,
+    one shard's ``lse`` shifted by ln 2 and one shard dropped, must fail
+    that gate;
+    (e) a fifth shard that keeps no slot (``lse`` -inf) changes the merge
+    by nothing.  Then K4 ``sm90`` at phi3's decode shape timed with and
+    without ``lse`` (flushed and back to back) beside its bound and
+    SDPA's time.  Returns the phase's launches."""
+    gen = torch.Generator().manual_seed(SEED + 41)
+    rows, timing = [], {}
+    counts = {}
+    with counted(counts):
+        for config, b, h, kv, hd, slots in MESH_ATTN_SHAPES:
+            q32 = _randn(gen, b, 1, h, hd)
+            k32, v32 = (_randn(gen, b, slots, kv, hd) for _ in range(2))
+            for rt, dtype in MESH_ROUTES:
+                qf, kf, vf = (heads_first(t.to(dtype))
+                              for t in (q32, k32, v32))
+                kw = dict(groups=h // kv, window=0, causal=False)
+                alone = K4.attention(qf, kf, vf, via=rt, **kw)
+                out, lse = K4.attention(qf, kf, vf, via=rt, lse=True, **kw)
+                plain, plain_lse = attention_plain(qf, kf, vf,
+                                                   return_lse=True, **kw)
+                require(torch.equal(out, alone),
+                        f"mesh_attention {config} {rt} {dtype}: out "
+                        f"changes when lse is asked for")
+                lse_chk = within(lse, plain_lse, dtype)
+                require(lse_chk["worst_over_tol"] <= 1.0,
+                        f"mesh_attention {config} {rt} {dtype}: lse "
+                        f"{lse_chk}")
+                outs, lses = _shard_partials(qf, kf, vf, rt, kw["groups"])
+                merged = K4_OPS.combine_partials(outs, lses)
+                vs_whole = within(merged, out, dtype)
+                vs_plain = within(merged, plain, dtype)
+                require(max(vs_whole["worst_over_tol"],
+                            vs_plain["worst_over_tol"]) <= 1.0,
+                        f"mesh_attention {config} {rt} {dtype}: the merge "
+                        f"against the whole {vs_whole}, the plain "
+                        f"{vs_plain}")
+                more = {}
+                for n in MESH_SHARDS_MORE:
+                    m = K4_OPS.combine_partials(*_shard_partials(
+                        qf, kf, vf, rt, kw["groups"], n))
+                    more[n] = {"vs_whole": within(m, out, dtype),
+                               "vs_plain": within(m, plain, dtype)}
+                    require(max(more[n]["vs_whole"]["worst_over_tol"],
+                                more[n]["vs_plain"]["worst_over_tol"])
+                            <= 1.0,
+                            f"mesh_attention {config} {rt} {dtype}: the "
+                            f"merge of {n} shards {more[n]}")
+                shifted = lses.clone()
+                shifted[1] += math.log(2.0)
+                c_shift = within(K4_OPS.combine_partials(outs, shifted),
+                                 out, dtype)
+                c_drop = within(K4_OPS.combine_partials(outs[1:], lses[1:]),
+                                out, dtype)
+                require(c_shift["worst_over_tol"] > 1.0
+                        and c_drop["worst_over_tol"] > 1.0,
+                        f"mesh_attention {config} {rt} {dtype}: a control "
+                        f"passes: shifted {c_shift}, dropped {c_drop}")
+                empty = K4_OPS.combine_partials(
+                    torch.cat([outs, outs[:1]]),
+                    torch.cat([lses, torch.full_like(lses[:1],
+                                                     -torch.inf)]))
+                moved = (empty.float() - merged.float()).abs().max().item()
+                require(moved <= 1e-6 * merged.float().abs().max().item(),
+                        f"mesh_attention {config} {rt} {dtype}: an empty "
+                        f"shard moved the merge by {moved}")
+                row = {"phase": "mesh_attention", "config": config,
+                       "route": rt, "dtype": str(dtype),
+                       "shape": {"b": b, "h": h, "kv": kv, "hd": hd,
+                                 "slots": slots, "shards": MESH_SHARDS},
+                       "out_bit_equal_with_lse": True,
+                       "lse_vs_plain": lse_chk, "merge_vs_whole": vs_whole,
+                       "merge_vs_plain": vs_plain,
+                       "merge_more_shards": more,
+                       "control_lse_shift_ln2": c_shift,
+                       "control_shard_dropped": c_drop,
+                       "empty_shard_moved": moved,
+                       "empty_shard_bit_equal": bool(torch.equal(empty,
+                                                                 merged)),
+                       "card": card}
+                emit(row)
+                rows.append(row)
+                if config == LM_ARCH and rt == "sm90":
+                    timing = {"qf": qf, "kf": kf, "vf": vf, "kw": kw,
+                              "dtype": dtype, "q": q32, "k": k32, "v": v32}
+    # the timing launches are not the checks'
+    qf, kf, vf, kw, dtype = (timing[n] for n in ("qf", "kf", "vf", "kw",
+                                                 "dtype"))
+    qh, kh, vh = (t.to(dtype).transpose(1, 2).contiguous()
+                  for t in (timing["q"], timing["k"], timing["v"]))
+    library = _library_attention(qh, kh, vh, window=0, causal=False)
+
+    def without():
+        return K4.attention(qf, kf, vf, **kw)
+
+    def with_lse():
+        return K4.attention(qf, kf, vf, lse=True, **kw)
+    flops = 4.0 * qf.shape[-1] * qf.shape[0] * kf.shape[1]
+    n_bytes = float((2 * qf.numel() + kf.numel() + vf.numel())
+                    * qf.element_size())
+    time_row = {"phase": "mesh_attention_time", "config": LM_ARCH,
+                "route": "sm90", "dtype": str(dtype),
+                "shape": dict(rows[0]["shape"]),
+                "ms": _time_ms(without, flush),
+                "ms_lse": _time_ms(with_lse, flush),
+                "device_ms": _device_ms(without),
+                "device_ms_lse": _device_ms(with_lse),
+                "library_ms": _time_ms(library, flush),
+                "library_device_ms": _device_ms(library),
+                "library_kernels": library_kernels(library),
+                **attention_bounds(flops, n_bytes, dtype, "sm90"),
+                "lse_bytes": qf.shape[0] * qf.shape[1] * 4, "flops": flops,
+                "bytes": n_bytes, "card": card}
+    emit(time_row)
+    require(counts["attention_lse"] == {
+        rt: len(MESH_ATTN_SHAPES) * (1 + MESH_SHARDS + sum(MESH_SHARDS_MORE))
+        * sum(r == rt for r, _ in MESH_ROUTES)
+        for rt in K4.ROUTES},
+        f"mesh_attention: lse launches {counts['attention_lse']}")
+    return {"checks": counts, "time": time_row}
+
+
+@contextlib.contextmanager
+def one_rank_nccl():
+    """A one-rank NCCL process group (rendezvous through a file under
+    ``build/``, collectives timing out after 60 s) and its (1, 1) host
+    mesh; the group is destroyed on the way out, an error passed on."""
+    import torch.distributed as dist
+    MESH_RENDEZVOUS.parent.mkdir(parents=True, exist_ok=True)
+    MESH_RENDEZVOUS.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{MESH_RENDEZVOUS}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_host_mesh("cuda")
+    finally:
+        dist.destroy_process_group()
+        MESH_RENDEZVOUS.unlink(missing_ok=True)
+
+
+def phase_lm_serve_mesh(card: str) -> dict:
+    """phi3-medium-14b at full width and its 40 layers in bf16 through
+    ``BatchedServer(cfg, mesh, ...)`` on a one-rank NCCL group's (1, 1)
+    mesh, holding the weights of a mesh-free ``BatchedServer`` (the same
+    tensors), at the reference server's defaults: its tokens and each
+    step's logits equal the mesh-free server's bit for bit; 40 K4
+    ``sm90`` launches a step, each with its log-sum-exp (the sharded
+    decode's merge over one shard); the collectives it counted, by op.
+    Then without a mesh ``build(cfg, tp=4)`` at full width: heads padded
+    to 40 over 20 (K4 sees that shape), a prefill of 8 tokens in 4 rows
+    and 16 greedy decode steps, each replayed (:func:`replay_plain`:
+    every K4 call within ``CARD_TOL``, the logits within
+    :data:`LM_BF16_TOL` of max |plain|), the ``drop_newest_slot``
+    control failing that gate.  Peak memory of each part."""
+    cfg = get_config(LM_ARCH)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    free = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                         device="cuda", seed=SEED)
+    reqs_free = lm_requests(cfg, SEED + 12)
+    c_free = {}
+    with counted(c_free), no_plain_attention():
+        steps_free, secs_free = serve_lm(free, reqs_free, "sm90",
+                                         cfg.n_layers)
+    logits_free = [s[3] for s in steps_free]
+    del steps_free
+    with one_rank_nccl() as mesh:
+        server = BatchedServer(cfg, mesh, slots=LM_SLOTS,
+                               max_seq=LM_MAX_SEQ, params=free.params)
+        same = all(a is b for a, b in zip(TREE.leaves(server.params),
+                                          TREE.leaves(free.params)))
+        require(same, "lm_serve_mesh: the mesh server's weights are not "
+                      "the mesh-free server's tensors")
+        reqs = lm_requests(cfg, SEED + 12)
+        COL.reset()
+        c_mesh = {}
+        with counted(c_mesh), no_plain_attention():
+            steps, secs = serve_lm(server, reqs, "sm90", cfg.n_layers)
+        collectives = COL.counts_by_op()
+        mesh_shape = dict(mesh.shape)
+        backend = torch.distributed.get_backend()
+    logits = [s[3] for s in steps]
+    del steps
+    tokens_equal = [r.out for r in reqs] == [r.out for r in reqs_free]
+    logits_equal = len(logits) == len(logits_free) and all(
+        torch.equal(a, b) for a, b in zip(logits, logits_free))
+    require(tokens_equal and logits_equal,
+            f"lm_serve_mesh: the mesh server's tokens equal "
+            f"{tokens_equal}, logits equal {logits_equal}")
+    n = cfg.n_layers * len(secs)
+    require(k4_only(c_mesh, "sm90", n)
+            and c_mesh["attention_lse"] == dict.fromkeys(K4.ROUTES, 0)
+            | {"sm90": n}, f"lm_serve_mesh launches {c_mesh}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    generated = sum(len(r.out) for r in reqs)
+    del server, free, logits, logits_free
+    _free()
+
+    # the padded-head model, whole on the card
+    torch.cuda.reset_peak_memory_stats()
+    api = build_lm(cfg, tp=MESH_TP)
+    heads = cfg.padded_heads(MESH_TP)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED + 51),
+                      cast_blocks=True)
+    gen = torch.Generator().manual_seed(SEED + 52)
+    toks = torch.randint(0, cfg.vocab, (LM_SLOTS, LM_PROMPT),
+                         generator=gen).cuda()
+    seen = set()
+
+    def shape(layer, q, k, v, out, *, window, causal):
+        seen.add((q.shape[2], k.shape[2]))
+    c_tp = {}
+    steps = []
+    with counted(c_tp), no_plain_attention():
+        lg, caches = api.prefill(params, {"tokens": toks},
+                                 max_seq=LM_PROMPT + LM_GEN, tap=shape)
+        tok = lg.argmax(-1, keepdim=True)
+        for i in range(LM_GEN):
+            before = clone_caches(caches)
+            lg, caches = api.decode_step(params, caches, tok, LM_PROMPT + i,
+                                         tap=shape)
+            steps.append((before, tok, LM_PROMPT + i, lg))
+            tok = lg.argmax(-1, keepdim=True)
+    require(heads == (40, 20) and seen == {heads},
+            f"lm_serve_mesh tp={MESH_TP}: heads {heads}, K4 saw {seen}")
+    require(k4_only(c_tp, "sm90", cfg.n_layers * (1 + LM_GEN)),
+            f"lm_serve_mesh tp={MESH_TP} launches {c_tp}")
+    teacher = replay_plain(api, params, steps, LM_BF16_TOL,
+                           f"lm_serve_mesh tp={MESH_TP}")
+    controls = control_drop_newest(
+        api, params, steps, LM_BF16_TOL,
+        positions=tuple(LM_PROMPT + p for p in LM_CONTROL_POS))
+    tp_peak = torch.cuda.max_memory_allocated()
+    weights = _nbytes(params)
+    del api, params, caches, steps
+    _free()
+    emit({"phase": "lm_serve_mesh", "config": LM_ARCH,
+          "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "dtype": str(cfg.compute_dtype), "mesh": mesh_shape,
+          "backend": backend, "requests": len(reqs), "steps": len(secs),
+          "generated_tokens": generated, "tokens_equal": tokens_equal,
+          "logits_bit_equal": logits_equal, "launches": c_mesh,
+          "k4_sm90_per_step": cfg.n_layers, "collectives": collectives,
+          "step_ms_median": _median(secs) * 1e3,
+          "step_ms_median_mesh_free": _median(secs_free) * 1e3,
+          "tokens_per_s": generated / sum(secs), "serve_peak_gb":
+          serve_peak / 1e9,
+          "tp4": {"tp": MESH_TP, "heads": list(heads),
+                  "weights_gb": weights / 1e9, "prefill_tokens": LM_PROMPT,
+                  "rows": LM_SLOTS, "decode_steps": LM_GEN,
+                  "launches": c_tp, "teacher_forced": teacher,
+                  "control_drop_newest": controls,
+                  "peak_gb": tp_peak / 1e9},
+          "card": card})
+    return {"bf16": _merged(c_mesh, c_tp), "mesh_lse": c_mesh[
+        "attention_lse"]}
 
 
 class Decisions:
@@ -5248,6 +5735,12 @@ def _stage_of(row: dict) -> dict:
             "host_us": row["stage_host_us"]}
 
 
+def counter_of(kernel: dict) -> str:
+    """The launch counter a kernels-line entry reads."""
+    return next(c for c in ("conv_lb", "wgrad", "matmul", "attention")
+                if kernel["name"].startswith(c))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5296,6 +5789,10 @@ def main() -> int:
     resilient = phase_lm_train_resilient(card)
     lm_train = {"bf16": _merged(train["bf16"], resilient["bf16"]),
                 "f32": train_f32["f32"]}
+    mesh_flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    mesh_attn = phase_mesh_attention(card, mesh_flush)
+    del mesh_flush
+    lm_mesh = phase_lm_serve_mesh(card)
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
@@ -5736,10 +6233,10 @@ def main() -> int:
                "launches_lm_serve_ssm": ssm,
                "launches_lm_serve_hybrid": hybrid,
                "launches_lm_serve_encdec": encdec,
-               "launches_lm_train": lm_train}
+               "launches_lm_train": lm_train,
+               "launches_lm_serve_mesh": lm_mesh}
     for k in kernels:
-        counter = next(c for c in ("conv_lb", "wgrad", "matmul", "attention")
-                       if k["name"].startswith(c))
+        counter = counter_of(k)
         for key, run in lm_runs.items():
             parts = [run[part] for part in ("bf16", "f32") if part in run]
             if counter == "attention":
@@ -5777,6 +6274,25 @@ def main() -> int:
             and by_name["attention_sm90_tf32"]["launches_lm_train"] > 0
             and by_name["attention"]["launches_lm_train"] == 0,
             "lm_train: K4's launches by route")
+    mesh_runs = {n: by_name[n]["launches_lm_serve_mesh"]
+                 for n in ("attention_sm90", "attention",
+                           "attention_sm90_tf32")}
+    require(mesh_runs["attention_sm90"] > 0 and mesh_runs["attention"] == 0
+            and mesh_runs["attention_sm90_tf32"] == 0,
+            f"lm_serve_mesh: K4's launches by route {mesh_runs}")
+    for k in kernels:
+        if counter_of(k) == "attention":
+            rt = k["kernel_route"]
+            # the launches that also wrote each row's log-sum-exp
+            k["lse_launches"] = {
+                "mesh_attention": mesh_attn["checks"]["attention_lse"][rt],
+                "lm_serve_mesh": lm_mesh["mesh_lse"][rt]}
+            require(k["lse_launches"]["mesh_attention"] > 0,
+                    f"{k['name']}: no lse launch in mesh_attention")
+    by_name["attention_sm90"]["mesh_decode_lse"] = {
+        f: mesh_attn["time"][f] for f in (
+            "ms", "ms_lse", "device_ms", "device_ms_lse", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms", "shape")}
     for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows),
                       ("lm_serve_encdec", encdec_rows)):
         for name, dtype in (("attention_sm90", "torch.bfloat16"),

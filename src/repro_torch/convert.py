@@ -26,7 +26,12 @@ comes back as numpy's bfloat16 of ``ml_dtypes``), for both LM families:
     leaves at the top of the tree.
 
 Every params key that ends in ``blocks`` is a stack of layers; a
-cache's ``pos`` stays a host numpy vector.
+cache's ``pos`` stays a host numpy vector.  Params at any ``tp`` (the
+reference's padded heads, vocabulary and expert slices) go across as
+they are; with a ``mesh``, :func:`lm_params_from_numpy` and
+:func:`lm_cache_from_numpy` keep this rank's blocks
+(:func:`~repro_torch.parallel.sharding.shard_params`,
+:func:`~repro_torch.parallel.sharding.shard_cache`).
 
 A training state goes across through :func:`train_state_from_numpy`
 and back through :func:`train_state_to_numpy`: the params and the AdamW
@@ -113,17 +118,23 @@ def _is_stack(key: str) -> bool:
     return key.endswith("blocks")
 
 
-def lm_params_from_numpy(tree: dict, device="cuda") -> dict:
+def lm_params_from_numpy(tree: dict, device="cuda", *, mesh=None,
+                         fsdp: bool = True,
+                         moe_ep_data: bool = False) -> dict:
     """The reference's LM params as numpy leaves -> the port's: each
     leaf a tensor of its type on ``device``, each stack of layers
     (``blocks``; ``enc_blocks``, ``dec_blocks``) split into a list of
-    per-layer dicts."""
+    per-layer dicts; with ``mesh``, this rank's blocks of them."""
     dev = resolve_device(device)
 
     def t(a) -> torch.Tensor:
         return _tensor(a).to(dev)
-    return {k: _unstack(v, t) if _is_stack(k) else t(v)
-            for k, v in tree.items()}
+    params = {k: _unstack(v, t) if _is_stack(k) else t(v)
+              for k, v in tree.items()}
+    if mesh is None:
+        return params
+    from repro_torch.parallel.sharding import shard_params
+    return shard_params(params, mesh, fsdp=fsdp, moe_ep_data=moe_ep_data)
 
 
 def lm_params_to_numpy(params: dict) -> dict:
@@ -133,22 +144,28 @@ def lm_params_to_numpy(params: dict) -> dict:
             for k, v in params.items()}
 
 
-def lm_cache_from_numpy(tree: dict, device="cuda") -> list:
+def lm_cache_from_numpy(tree: dict, device="cuda", *, mesh=None,
+                        rules: dict | None = None) -> list:
     """The reference's stacked decode caches as numpy leaves (``{sub:
     {name: array}}``, or the encoder-decoder's, which also holds
     ``cross_k``/``cross_v`` arrays at its top) -> the port's list of
     per-layer caches: a leaf named ``pos`` a host int32 vector, every
     other (``k``, ``v``, ``ssm``, ``conv``, ``cross_k``, ``cross_v``) a
-    tensor on ``device``."""
+    tensor on ``device``; with ``mesh`` (and its ``rules``), this
+    rank's blocks of them."""
     dev = resolve_device(device)
 
     def leaf(name: str, a):
         return np.array(a, np.int32) if name == "pos" \
             else _tensor(a).to(dev)
     n = len(leaves(tree)[0])
-    return [{sub: {name: leaf(name, a[i]) for name, a in c.items()}
-             if isinstance(c, dict) else leaf(sub, c[i])
-             for sub, c in tree.items()} for i in range(n)]
+    caches = [{sub: {name: leaf(name, a[i]) for name, a in c.items()}
+               if isinstance(c, dict) else leaf(sub, c[i])
+               for sub, c in tree.items()} for i in range(n)]
+    if mesh is None:
+        return caches
+    from repro_torch.parallel.sharding import shard_cache
+    return shard_cache(caches, mesh, rules)
 
 
 def lm_cache_to_numpy(caches: list) -> dict:

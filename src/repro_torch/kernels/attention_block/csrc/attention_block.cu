@@ -65,6 +65,11 @@
 // unmasked key gets the mean of V over the Skv real keys, as the
 // reference's lax target gives.  A key at k >= Skv does not exist: it
 // is predicated away and not counted.
+//
+// Where the caller passes an lse buffer (f32, (B*H, Sq)), lane 0 of each
+// row writes m + ln l over the row's unmasked keys, or -inf where it has
+// none (column chunk 0 only above 256); O is computed and stored as
+// without it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +93,7 @@ struct Geom {
   int nqt;   // query tiles per head
   int chunks;  // 256-column chunks of hd (attention_wide_kernel)
   float scale;
+  float* lse;  // (BH, Sq) f32 log-sum-exp, or nullptr
 };
 
 // the key tiles [lo, hi) that query rows [q0, q1) visit: every tile
@@ -371,6 +377,20 @@ __device__ __forceinline__ void store_rows(T* out,
   }
 }
 
+// each row's log-sum-exp, m + ln l over its unmasked keys (-inf where it
+// has none: m is still the initial -1e30), written by the row's lane 0
+__device__ __forceinline__ void store_lse(const float (&m_run)[4],
+                                          const float (&l_run)[4], int bh,
+                                          int q0, int tq, const Geom& g) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qp = q0 + tq + 16 * i;
+    if (qp < g.Sq)
+      g.lse[static_cast<size_t>(bh) * g.Sq + qp] =
+          m_run[i] <= kNegInf ? -INFINITY : m_run[i] + logf(l_run[i]);
+  }
+}
+
 // EXACT: hd == HD, so the pitch and every column bound are constants
 template <typename T, int HD, int STAGES, bool EXACT>
 __global__ void __launch_bounds__(kThreads)
@@ -454,6 +474,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
 
+  if (g.lse != nullptr && tk == 0) store_lse(m_run, l_run, bh, q0, tq, g);
   if (!Cols<HD>::active(tk)) return;
   store_rows<T, HD, EXACT>(out, acc, l_run, bh, q0, 0, tq, tk, g);
 }
@@ -527,6 +548,9 @@ attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     value_tile<T, HD>(acc, s_p, s_v, tq, tk);
     __syncthreads();
   }
+  // the scores, so m and l, are the same in every column chunk
+  if (g.lse != nullptr && tk == 0 && blockIdx.y == 0)
+    store_lse(m_run, l_run, bh, q0, tq, g);
   store_rows<T, HD, false>(out, acc, l_run, bh, q0, c0, tq, tk, g);
 }
 
@@ -603,12 +627,15 @@ cudaError_t launch_hd(int HD, const void* q, const void* k, const void* v,
 // dtype: 0 = f32, 1 = bf16.  hd is the real head dim, hd_pad the
 // instantiated width the kernel runs it at (256 for a head dim above
 // 256, which runs as ceil(hd / 256) column chunks).  Every operand's base must
-// be 16-byte aligned (the wrapper checks it).
-extern "C" int attention_block_forward(const void* q, const void* k,
-                                       const void* v, void* out, int BH,
-                                       int Sq, int Skv, int hd, int hd_pad,
-                                       int groups, int window, int causal,
-                                       int dtype, void* stream) {
+// be 16-byte aligned (the wrapper checks it).  lse is nullptr or an f32
+// (BH, Sq) buffer for each row's log-sum-exp.
+extern "C" int attention_block_forward_lse(const void* q, const void* k,
+                                           const void* v, void* out,
+                                           void* lse, int BH, int Sq,
+                                           int Skv, int hd, int hd_pad,
+                                           int groups, int window,
+                                           int causal, int dtype,
+                                           void* stream) {
   const int nqt = (Sq + kBQ - 1) / kBQ;
   const int chunks = (hd + kWide - 1) / kWide;
   if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || hd < 1 || window < 0 ||
@@ -628,6 +655,7 @@ extern "C" int attention_block_forward(const void* q, const void* k,
   g.chunks = chunks;
   // the reference's 1 / hd ** 0.5 of the real hd, rounded once to f32
   g.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
+  g.lse = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
@@ -637,6 +665,17 @@ extern "C" int attention_block_forward(const void* q, const void* k,
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);
+}
+
+// the same without the log-sum-exp
+extern "C" int attention_block_forward(const void* q, const void* k,
+                                       const void* v, void* out, int BH,
+                                       int Sq, int Skv, int hd, int hd_pad,
+                                       int groups, int window, int causal,
+                                       int dtype, void* stream) {
+  return attention_block_forward_lse(q, k, v, out, nullptr, BH, Sq, Skv, hd,
+                                     hd_pad, groups, window, causal, dtype,
+                                     stream);
 }
 
 extern "C" const char* attention_block_error_string(int err) {

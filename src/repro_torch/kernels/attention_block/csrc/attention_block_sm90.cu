@@ -67,6 +67,13 @@
 // split costs one more P V product per tile.  The row sum l is taken
 // over the f32 P.  A masked score is the finite -1e30 of the reference
 // (in the exp2 domain), a key at k >= Skv does not exist (-inf).
+//
+// Log-sum-exp.  Where the caller passes an lse buffer (f32, (B*H, Sq)),
+// the first lane of each row writes the natural log of the row's sum
+// over its unmasked keys, ln 2 * (m + log2 l) from the exp2-domain max m
+// and sum l, or -inf for a row with no unmasked key (m is then the
+// masked -1e30).  Shards of one row's keys merge through it.  O is
+// computed and stored as without it.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -103,7 +110,15 @@ static_assert(Cfg<128>::kBytes <= 232448, "tiles exceed shared memory");
 struct Geom {
   int BH, Sq, Skv, hd, groups, window, causal, nqt;
   float scale_log2;   // 1/sqrt(hd) * log2(e)
+  float* lse;         // (BH, Sq) f32 log-sum-exp, or nullptr
 };
+
+// the natural log-sum-exp of a row from its exp2-domain max and sum;
+// -inf where no key was unmasked
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m <= kMasked ? -INFINITY
+                      : 0.6931471805599453f * (m + log2f(l));
+}
 
 // the key tiles [lo, hi) that query rows [q0, q1) visit: every tile
 // that holds an unmasked pair, or every tile if a row has no unmasked
@@ -634,6 +649,10 @@ attention_sm90_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (g.lse != nullptr && c2 == 0) {
+    if (r0 < g.Sq) g.lse[static_cast<size_t>(bh) * g.Sq + r0] = row_lse(m0, l0);
+    if (r1 < g.Sq) g.lse[static_cast<size_t>(bh) * g.Sq + r1] = row_lse(m1, l1);
+  }
   __nv_bfloat16* row0 = out + (static_cast<size_t>(bh) * g.Sq + r0) * g.hd;
   __nv_bfloat16* row1 = row0 + static_cast<size_t>(8) * g.hd;
 #pragma unroll
@@ -728,15 +747,16 @@ int launch(const void* q, const void* k, const void* v, void* out, Geom g,
 
 // q (BH, Sq, hd), k, v (BH / groups, Skv, hd), out like q: contiguous
 // bf16, bases 16-byte aligned, hd % 8 == 0 (the wrapper's route checks
-// both); width is the instantiated head dim hd runs at.  Returns a CUDA
+// both); width is the instantiated head dim hd runs at; lse is nullptr
+// or an f32 (BH, Sq) buffer for each row's log-sum-exp.  Returns a CUDA
 // error code, or 1000 + the CUresult of a refused tensor map, or -1 if
 // the driver has no cuTensorMapEncodeTiled.
-extern "C" int attention_block_sm90_forward(const void* q, const void* k,
-                                            const void* v, void* out, int BH,
-                                            int Sq, int Skv, int hd,
-                                            int width, int groups,
-                                            int window, int causal,
-                                            void* stream) {
+extern "C" int attention_block_sm90_forward_lse(const void* q, const void* k,
+                                                const void* v, void* out,
+                                                void* lse, int BH, int Sq,
+                                                int Skv, int hd, int width,
+                                                int groups, int window,
+                                                int causal, void* stream) {
   if (BH < 1 || Sq < 1 || Skv < 1 || groups < 1 || BH % groups ||
       hd < 1 || hd % 8 || hd > width || window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -751,6 +771,7 @@ extern "C" int attention_block_sm90_forward(const void* q, const void* k,
   // the reference's 1 / hd ** 0.5 of the real hd, in the exp2 domain
   g.scale_log2 =
       static_cast<float>(1.0 / sqrt(static_cast<double>(hd)) * 1.4426950408889634);
+  g.lse = static_cast<float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (width) {
     case 64: return launch<64>(q, k, v, out, g, s);
@@ -760,6 +781,18 @@ extern "C" int attention_block_sm90_forward(const void* q, const void* k,
     case 256: return launch<256>(q, k, v, out, g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the same without the log-sum-exp
+extern "C" int attention_block_sm90_forward(const void* q, const void* k,
+                                            const void* v, void* out, int BH,
+                                            int Sq, int Skv, int hd,
+                                            int width, int groups,
+                                            int window, int causal,
+                                            void* stream) {
+  return attention_block_sm90_forward_lse(q, k, v, out, nullptr, BH, Sq, Skv,
+                                          hd, width, groups, window, causal,
+                                          stream);
 }
 
 extern "C" const char* attention_block_sm90_error_string(int err) {

@@ -83,6 +83,11 @@
 //    (sm90_tf32_plan) and is checked here against the kernel's sizes.
 //  * Controls, never routes: lo_terms = 0 zeroes every lo word (1xTF32);
 //    v_key_off = 1 has the transposers read V one key off.
+//  * Log-sum-exp, where the caller passes an lse buffer (f32, (B*H,
+//    Sq)): the first lane of each row of a consumer warpgroup writes
+//    ln 2 * (m + log2 l) from its exp2-domain max m and sum l, or -inf
+//    for a row with no unmasked key; O is computed and stored as without
+//    it.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -123,7 +128,15 @@ struct Cfg {
 struct Geom {
   int BH, Sq, Skv, hd, groups, window, causal, nqt;
   float scale_log2;   // 1/sqrt(hd) * log2(e)
+  float* lse;         // (BH, Sq) f32 log-sum-exp, or nullptr
 };
+
+// the natural log-sum-exp of a row from its exp2-domain max and sum;
+// -inf where no key was unmasked
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m <= kMasked ? -INFINITY
+                      : 0.6931471805599453f * (m + log2f(l));
+}
 
 // offsets from the 1024-byte-aligned base (the wrapper's plan), and the
 // controls
@@ -713,6 +726,10 @@ attention_sm90_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
   }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (g.lse != nullptr && c == 0) {
+    if (r0 < g.Sq) g.lse[static_cast<size_t>(bh) * g.Sq + r0] = row_lse(m0, l0);
+    if (r1 < g.Sq) g.lse[static_cast<size_t>(bh) * g.Sq + r1] = row_lse(m1, l1);
+  }
   float* row0 = out + (static_cast<size_t>(bh) * g.Sq + r0) * g.hd;
   float* row1 = row0 + static_cast<size_t>(8) * g.hd;
 #pragma unroll
@@ -820,11 +837,13 @@ int launch(const void* q, const void* k, const void* v, void* out, Geom g,
 // f32, bases 16-byte aligned, hd % 4 == 0 (the wrapper's route checks
 // both); width is the instantiated head dim hd runs at; raw_off,
 // split_off, bars_off and smem_bytes are the wrapper's plan
-// (sm90_tf32_plan); v_key_off (0) and lo_terms (1) are controls.
+// (sm90_tf32_plan); v_key_off (0) and lo_terms (1) are controls; lse is
+// nullptr or an f32 (BH, Sq) buffer for each row's log-sum-exp.
 // Returns a CUDA error code, or 1000 + the CUresult of a refused tensor
 // map, or -1 if the driver has no cuTensorMapEncodeTiled.
-extern "C" int attention_block_sm90_tf32_forward(
-    const void* q, const void* k, const void* v, void* out, int BH, int Sq,
+extern "C" int attention_block_sm90_tf32_forward_lse(
+    const void* q, const void* k, const void* v, void* out, void* lse,
+    int BH, int Sq,
     int Skv, int hd, int width, int groups, int window, int causal,
     int raw_off, int split_off, int bars_off, int smem_bytes, int v_key_off,
     int lo_terms, void* stream) {
@@ -843,6 +862,7 @@ extern "C" int attention_block_sm90_tf32_forward(
   // the reference's 1 / hd ** 0.5 of the real hd, in the exp2 domain
   g.scale_log2 = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)) *
                                     1.4426950408889634);
+  g.lse = static_cast<float*>(lse);
   Layout lay;
   lay.v_key_off = v_key_off;
   lay.lo_mask = lo_terms ? 0xffffffffu : 0u;
@@ -853,6 +873,17 @@ extern "C" int attention_block_sm90_tf32_forward(
     case 128: return launch<128>(q, k, v, out, g, raw_off, split_off, bars_off, smem_bytes, lay, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// the same without the log-sum-exp
+extern "C" int attention_block_sm90_tf32_forward(
+    const void* q, const void* k, const void* v, void* out, int BH, int Sq,
+    int Skv, int hd, int width, int groups, int window, int causal,
+    int raw_off, int split_off, int bars_off, int smem_bytes, int v_key_off,
+    int lo_terms, void* stream) {
+  return attention_block_sm90_tf32_forward_lse(
+      q, k, v, out, nullptr, BH, Sq, Skv, hd, width, groups, window, causal,
+      raw_off, split_off, bars_off, smem_bytes, v_key_off, lo_terms, stream);
 }
 
 extern "C" const char* attention_block_sm90_tf32_error_string(int err) {

@@ -23,7 +23,19 @@ runs the plain version
 the card :func:`route` picks the kernel from type and head dim before
 launch, never by trying one.  Each launch adds one to
 ``attention.launches`` and to its route's entry of
-``attention.launches_by_route``.
+``attention.launches_by_route``; a launch that also writes each row's
+log-sum-exp (``lse=True``) adds one to its route's entry of
+``attention.lse_launches_by_route`` besides.
+
+Log-sum-exp: each of the three kernels can write, beside O, each row's
+``lse`` in f32, (B*H, Sq): the natural log of the row's sum of
+``exp(scale * s)`` over its unmasked keys, ``scale * max + log sum
+exp(scale * s - scale * max)`` (the bf16 and 3xTF32 kernels keep their
+row max in the exp2 domain and write ``ln 2 * (m2 + log2 l)``), and
+``-inf`` for a row with no unmasked key (whose O keeps the mean-of-V
+rule).  O is the same, bit for bit, with and without it.  Partial
+attentions over shards of the keys merge through it
+(:func:`~repro_torch.kernels.attention_block.ops.combine_partials`).
 
 Every kernel visits only the key tiles that hold an unmasked pair for a
 query tile (:func:`key_tile_range`, which the CUDA code mirrors).  Each
@@ -310,19 +322,32 @@ def launch_facts(kernel: str, route: str, plan, shape, dtype
               TmaMap("v", (cols, kv_rows, 1), (hd * elt, hd * elt * skv)))),)
 
 
-def _launched(lib, err: int, name: str, rt: str) -> None:
+def _launched(lib, err: int, name: str, rt: str, lse=None) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            f"{lib.error_string(err)} (error {err})")
     attention.launches += 1
     attention.launches_by_route[rt] += 1
+    if lse is not None:
+        attention.lse_launches_by_route[rt] += 1
+
+
+def _lse_buffer(lse: bool, q: torch.Tensor) -> torch.Tensor | None:
+    """The f32 (B*H, Sq) tensor the log-sum-exp goes to, where ``lse``
+    asks for it."""
+    if not lse:
+        return None
+    return torch.empty(tuple(q.shape[:2]), dtype=torch.float32,
+                       device=q.device)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               groups: int, window: int = 0, causal: bool = True,
-              via: str | None = None) -> torch.Tensor:
+              via: str | None = None, lse: bool = False):
     """q (B*H, Sq, hd); k, v (B*KV, Skv, hd) with H = KV * ``groups``
-    -> (B*H, Sq, hd) in ``q.dtype``.
+    -> (B*H, Sq, hd) in ``q.dtype``; with ``lse`` the pair (out, lse),
+    ``lse`` the f32 (B*H, Sq) log-sum-exp of each row (module
+    docstring).
 
     A CUDA ``q`` launches the kernel :func:`route` names, or the one
     ``via`` names (``"fma"`` takes every input; ``"sm90"`` and
@@ -330,7 +355,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     runs the plain version.  Any other device raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, groups=groups, window=window,
-                               causal=causal)
+                               causal=causal, return_lse=bool(lse))
     if q.device.type != "cuda":
         raise ValueError(f"the attention kernel runs on CUDA tensors (or "
                          f"its plain version on CPU ones), not {q.device}")
@@ -371,14 +396,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if head_dim_chunks(hd) > GRID_Y:
         raise ValueError(f"head dim {hd} needs {head_dim_chunks(hd)} "
                          f"column chunks, more than the grid's {GRID_Y}")
+    buf = _lse_buffer(lse, q)
     if rt == "sm90_tf32":
         width = sm90_tf32_head_dim(hd)
         if q.dtype != torch.float32 or width is None:
             raise ValueError(f"route sm90_tf32 takes f32 at a head dim "
                              f"that is a multiple of 4 up to "
                              f"{TF32_HEAD_DIMS[-1]}, not {q.dtype} at {hd}")
-        return _sm90_tf32(q, k, v, sm90_tf32_plan(width), groups=groups,
-                          window=window, causal=causal)
+        out = _sm90_tf32(q, k, v, sm90_tf32_plan(width), groups=groups,
+                         window=window, causal=causal, lse=buf)
+        return out if buf is None else (out, buf)
     out = torch.empty_like(q)
     if rt == "sm90":
         width = sm90_head_dim(hd)
@@ -387,45 +414,56 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"is a multiple of 8 up to 256, not {q.dtype} "
                              f"at {hd}")
         lib = build(SM90_SOURCE)
-        forward = lib.bind("attention_block_sm90_forward", 4, 8)
+        entry = "attention_block_sm90_forward"
         args = (bh, sq, skv, hd, width, groups, window, int(causal))
         name = "attention_block_sm90"
     else:
         lib = build(SOURCE)
-        forward = lib.bind("attention_block_forward", 4, 9)
+        entry = "attention_block_forward"
         args = (bh, sq, skv, hd, padded_head_dim(hd), groups, window,
                 int(causal), DTYPES[q.dtype])
         name = "attention_block"
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    if buf is not None:
+        entry += "_lse"
+        ptrs += (buf.data_ptr(),)
+    forward = lib.bind(entry, len(ptrs), len(args))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), *args, stream)
-    _launched(lib, err, name, rt)
-    return out
+        err = forward(*ptrs, *args, stream)
+    _launched(lib, err, name, rt, buf)
+    return out if buf is None else (out, buf)
 
 
 def _sm90_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                plan: Tf32Plan, *, groups: int, window: int, causal: bool,
-               lo_terms: bool = True) -> torch.Tensor:
+               lo_terms: bool = True,
+               lse: torch.Tensor | None = None) -> torch.Tensor:
     """One launch of ``csrc/attention_block_sm90_tf32.cu`` on ``plan``,
-    the inputs checked by :func:`attention`.  ``lo_terms=False`` drops
-    every lo word (1xTF32), and a plan with ``v_key_off`` 1 has the
-    transposers read V one key off: controls that the card's gate sees
-    each, never a route."""
+    the inputs checked by :func:`attention`; ``lse``, where given, the
+    f32 (B*H, Sq) tensor the kernel writes each row's log-sum-exp to.
+    ``lo_terms=False`` drops every lo word (1xTF32), and a plan with
+    ``v_key_off`` 1 has the transposers read V one key off: controls
+    that the card's gate sees each, never a route."""
     bh, sq, hd = q.shape
     lib = build(TF32_SOURCE)
-    forward = lib.bind("attention_block_sm90_tf32_forward", 4, 14)
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    entry = "attention_block_sm90_tf32_forward"
+    if lse is not None:
+        entry += "_lse"
+        ptrs += (lse.data_ptr(),)
+    forward = lib.bind(entry, len(ptrs), 14)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = forward(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), bh, sq, k.shape[1], hd, plan.width,
+        err = forward(*ptrs, bh, sq, k.shape[1], hd, plan.width,
                       groups, window, int(causal), plan.raw, plan.split,
                       plan.bars, plan.smem_bytes, plan.v_key_off,
                       int(lo_terms), stream)
-    _launched(lib, err, "attention_block_sm90_tf32", "sm90_tf32")
+    _launched(lib, err, "attention_block_sm90_tf32", "sm90_tf32", lse)
     return out
 
 
 attention.launches = 0
 attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+attention.lse_launches_by_route = dict.fromkeys(ROUTES, 0)

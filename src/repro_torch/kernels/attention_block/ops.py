@@ -21,6 +21,12 @@ The reference has no backward kernel (JAX differentiates its XLA
 attention), and the port has none either.  K4's CUDA launch fills a
 tensor through ``ctypes``, which autograd cannot see: without the
 Function a loss on the card would silently get no attention gradient.
+
+``flash_attention(..., return_lse=True)`` also returns each row's
+log-sum-exp, f32 (B, H, Sq) (the kernel's, or the plain version's on
+the CPU); :func:`combine_partials` merges attentions over disjoint
+shards of the keys through it (the reference's flash-decoding combine,
+``repro/models/layers.py:324-330``).  It runs no autograd.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ def heads_first(t: torch.Tensor) -> torch.Tensor:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0, causal: bool = True,
                     bq: int = 128, bk: int = 128,
-                    target=None) -> torch.Tensor:
+                    target=None, return_lse: bool = False):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) -> (B, Sq, H, hd).
 
     Causal keeps key k <= query q by absolute position from 0 on both
@@ -51,7 +57,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     reference's query and key blocks, clamped as it clamps them; the
     result does not depend on them, and the CUDA kernel tiles for the
     card on its own.  ``target`` is ``kernel`` (the default) or
-    ``account-only``, which cannot execute attention and raises."""
+    ``account-only``, which cannot execute attention and raises.
+    ``return_lse`` returns (out, lse (B, H, Sq) f32), and refuses inputs
+    that require a gradient."""
     if target is not None and not resolve_target(target).compute:
         raise ValueError("account-only target cannot execute attention")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -67,19 +75,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bk = min(bk, max(8, skv))
     if bq < 1 or bk < 1:
         raise ValueError(f"blocks must be >= 1, got bq={bq}, bk={bk}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if return_lse:
+        if grad:
+            raise ValueError("return_lse runs no autograd: its inputs "
+                             "must not require a gradient")
+        return _forward(q, k, v, window=window, causal=causal,
+                        return_lse=True)
+    if grad:
         return Attention.apply(q, k, v, window, causal)
     return _forward(q, k, v, window=window, causal=causal)
 
 
-def _forward(q, k, v, *, window: int, causal: bool) -> torch.Tensor:
+def _forward(q, k, v, *, window: int, causal: bool,
+             return_lse: bool = False):
     """K4 (the plain version on the CPU) in the reference's layout."""
     b, sq, h, hd = q.shape
     out = kernel.attention(heads_first(q), heads_first(k), heads_first(v),
                            groups=h // k.shape[2], window=window,
-                           causal=causal)
+                           causal=causal, lse=return_lse)
+    if return_lse:
+        out, lse = out
+        return (out.reshape(b, h, sq, hd).transpose(1, 2),
+                lse.reshape(b, h, sq))
     return out.reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """Merge attentions over disjoint shards of one set of keys: ``outs``
+    (S, ..., hd), each shard's normalized output, and ``lses`` (S, ...),
+    its rows' log-sum-exp (``outs.shape[:-1]``) ->
+    ``sum_s w_s out_s / sum_s w_s`` with ``w_s = exp(lse_s - max_s
+    lse_s)``, in f32, then ``outs.dtype``.  A shard whose row kept no
+    key (``lse`` -inf) adds nothing; a row no shard kept a key of is 0.
+    """
+    if lses.shape != outs.shape[:-1]:
+        raise ValueError(f"lses {tuple(lses.shape)} do not match outs "
+                         f"{tuple(outs.shape)} less the head dim")
+    m = lses.amax(dim=0)
+    w = torch.exp(lses - torch.where(torch.isfinite(m), m, 0.0))
+    num = (w[..., None] * outs.to(torch.float32)).sum(dim=0)
+    den = w.sum(dim=0)[..., None]
+    return torch.where(den > 0, num / torch.where(den > 0, den, 1.0),
+                       0.0).to(outs.dtype)
 
 
 class Attention(torch.autograd.Function):

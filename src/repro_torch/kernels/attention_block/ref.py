@@ -25,8 +25,8 @@ def attention_ref(q, k, v, *, window: int = 0, causal: bool = True):
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    groups: int, window: int = 0,
-                    causal: bool = True) -> torch.Tensor:
+                    groups: int, window: int = 0, causal: bool = True,
+                    return_lse: bool = False):
     """The plain version of the attention kernel, in its layout: q
     (B*H, Sq, hd); k, v (B*KV, Skv, hd) -> (B*H, Sq, hd), query head
     ``bh`` reading kv head ``bh // groups``.
@@ -35,7 +35,11 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``attention_block/ops.py:15``), not of :func:`attention_ref`: a
     masked score is the finite -1e30, so a row with no unmasked key
     gets the mean of V over the Skv keys where the oracle gives NaN.
-    Scores and softmax in f32, the output in ``q.dtype``."""
+    Scores and softmax in f32, the output in ``q.dtype``.
+
+    ``return_lse`` also returns each row's log-sum-exp over its unmasked
+    keys' scaled scores, f32 (B*H, Sq), ``-inf`` for a row with none:
+    the pair (out, lse), as the kernels give it."""
     sq, hd = q.shape[1], q.shape[2]
     skv = k.shape[1]
     kx = k.to(torch.float32).repeat_interleave(groups, dim=0)
@@ -48,5 +52,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= k_pos <= q_pos
     if window:
         mask &= k_pos > q_pos - window
-    s = s.masked_fill(~mask, -1e30)
-    return torch.bmm(torch.softmax(s, dim=-1), vx).to(q.dtype)
+    out = torch.bmm(torch.softmax(s.masked_fill(~mask, -1e30), dim=-1),
+                    vx).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(s.masked_fill(~mask, -torch.inf), dim=-1)

@@ -1,6 +1,6 @@
 """Batched LM serving: continuous batched decode — the port's
 copy of ``repro/launch/serve.py`` (``Request``, ``BatchedServer``,
-``main``) at tp = 1.
+``main``).
 
 Requests arrive with prompts and advance one token a step against the
 shared per-layer caches (KV for attention, state and conv tail for a
@@ -22,6 +22,17 @@ only, from ``init_cache``, with no frames, so that its cross-attention
 runs over ``ENC_FRAMES`` zero slots and adds exactly 0.  Attention runs
 on K4 on the card (prefill causal, decode over the cache slots its mask
 keeps, cross-attention over every cross slot).
+
+On a mesh (``BatchedServer(cfg, mesh, ...)``), as the reference's server
+does, the model is built at ``tp = mesh.shape["model"]`` and runs under
+``sharding.axis_rules(mesh, slots, max_seq)``; the server holds this
+rank's blocks of the weights (``sharding.shard_params``) and of the
+caches.  Every rank runs the same admission and the same step: it
+hands the model its rows of the step's tokens, gathers the logits over
+"model" and the batch axes into whole rows, and takes the greedy choice
+on the whole row (ties as ``torch.argmax`` breaks them), so every rank
+holds the same requests and outputs.  Without a mesh it is the one-rank
+server it was.
 
 Memory: the server draws its weights block by block and keeps each
 block's matmul weights only in the compute type (``init_params(...,
@@ -46,12 +57,21 @@ phi3-medium-14b.
 
   # whisper-medium at full size on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
+
+  # on the (1, world) host mesh, one card a rank (NCCL), under torchrun:
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --mesh host
+  # ... or over gloo on the CPU:
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --mesh host --reduced --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import subprocess
 import time
 
@@ -60,6 +80,9 @@ import torch
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.models.api import build
+from repro_torch.models.embedding import gather_logits
+from repro_torch.parallel import axes as axes_mod
+from repro_torch.parallel import sharding as sh
 
 
 @dataclasses.dataclass
@@ -74,25 +97,49 @@ class Request:
 class BatchedServer:
     """Fixed-slot continuous batching over shared per-layer caches.
 
-    ``params`` (the port's layout, e.g. from
+    ``params`` (the port's layout, whole, e.g. from
     :func:`repro_torch.convert.lm_params_from_numpy`) are used as given;
-    without them the weights are drawn from ``seed`` on ``device``."""
+    without them the weights are drawn from ``seed`` on ``device``.  On
+    a ``mesh`` the device is the mesh's, and the server keeps this
+    rank's blocks of the weights (a leaf no axis splits is the given
+    tensor itself)."""
 
-    def __init__(self, cfg, *, slots: int, max_seq: int, device="cuda",
-                 seed: int = 0, params=None):
+    def __init__(self, cfg, mesh=None, *, slots: int, max_seq: int,
+                 device="cuda", seed: int = 0, params=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.slots = slots
         self.max_seq = max_seq
-        self.device = resolve_device(device)
-        self.api = build(cfg, tp=1)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.rules = None
+            tp = 1
+        else:
+            self.device = mesh.device
+            self.rules = sh.axis_rules(mesh, slots, max_seq)
+            tp = mesh.shape.get("model", 1)
+        self.api = build(cfg, tp=tp)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = self.api.init(gen, cast_blocks=True)
+        if mesh is not None:
+            params = sh.shard_params(params, mesh,
+                                     fsdp=self.rules["_fsdp"],
+                                     moe_ep_data=cfg.moe_ep_data)
         self.params = params
-        self.caches = self.api.init_cache(slots, max_seq, device=self.device)
+        with self._rules():
+            self.caches = self.api.init_cache(slots, max_seq,
+                                              device=self.device)
         self.active: dict[int, Request] = {}
         self.queue: list[Request] = []
         self.pos = 0
+
+    def _rules(self):
+        """The mesh's rules for the duration of a call (nothing without
+        a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return axes_mod.axis_rules(self.rules, self.mesh)
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -118,8 +165,12 @@ class BatchedServer:
             tok[slot] = seq[idx] if idx < len(seq) else (req.out or [0])[-1]
         tokens = torch.tensor(tok, dtype=torch.int64).reshape(
             self.slots, 1).to(self.device)
-        logits, self.caches = self.api.decode_step(
-            self.params, self.caches, tokens, self.pos)
+        with self._rules():
+            if self.mesh is not None:
+                tokens = sh.batch_rows(tokens, self.mesh, self.rules)
+            logits, self.caches = self.api.decode_step(
+                self.params, self.caches, tokens, self.pos)
+            logits = gather_logits(logits)
         choice = logits.argmax(dim=-1).tolist()
         for slot, req in list(self.active.items()):
             past_prompt = self.pos >= len(req.prompt) - 1
@@ -159,19 +210,55 @@ def main(argv=None) -> None:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", choices=("none", "host"), default="none",
+                    help="host: the (1, world) mesh of the process group "
+                         "torchrun starts (NCCL on the card, gloo with "
+                         "--device cpu)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg, capacity_factor=8.0)
-    device = resolve_device(args.device)
-    server = BatchedServer(cfg, slots=args.slots, max_seq=args.max_seq,
-                           device=device, seed=args.seed)
+    mesh = None
+    if args.mesh == "host":
+        mesh = _host_mesh(args.device)
+    try:
+        _serve(args, cfg, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _host_mesh(device: str):
+    """Join torchrun's process group (its environment gives the rank,
+    the world and the address) and build the (1, world) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return make_host_mesh(dev.type)
+
+
+def _serve(args, cfg, mesh) -> None:
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    server = BatchedServer(cfg, mesh, slots=args.slots,
+                           max_seq=args.max_seq, device=device,
+                           seed=args.seed)
     # one throwaway step first: on the card it builds the attention
     # kernel and sets up the libraries, which the clock should not see
-    server.api.decode_step(
-        server.params, server.api.init_cache(args.slots, 1, device=device),
-        torch.zeros((args.slots, 1), dtype=torch.int64, device=device), 0)
+    # (a cache of one slot a model shard)
+    with server._rules():
+        tokens = torch.zeros((args.slots, 1), dtype=torch.int64,
+                             device=device)
+        if mesh is not None:
+            tokens = sh.batch_rows(tokens, mesh, server.rules)
+        server.api.decode_step(
+            server.params,
+            server.api.init_cache(args.slots, server.api.tp, device=device),
+            tokens, 0)
     gen = torch.Generator().manual_seed(args.seed + 1)
     for rid in range(args.requests):
         prompt = torch.randint(0, cfg.vocab, (8,), generator=gen).tolist()
@@ -185,9 +272,12 @@ def main(argv=None) -> None:
         torch.cuda.synchronize(device)
     dt = time.time() - t0
     total_tokens = args.requests * args.gen
-    print(card_line(device))
-    print(f"served {args.requests} requests, {total_tokens} tokens in "
-          f"{dt:.1f}s ({total_tokens/dt:.1f} tok/s) over {steps} steps")
+    if mesh is None or torch.distributed.get_rank() == 0:
+        print(card_line(device))
+        where = "" if mesh is None else f" on mesh {dict(mesh.shape)}"
+        print(f"served {args.requests} requests, {total_tokens} tokens in "
+              f"{dt:.1f}s ({total_tokens/dt:.1f} tok/s) over {steps} "
+              f"steps{where}")
 
 
 if __name__ == "__main__":

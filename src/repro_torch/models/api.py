@@ -1,7 +1,7 @@
 """Unified model API: one entry point per (config, tp) pair — the port's
-copy of ``repro/models/api.py`` at tp = 1 for every family: the
-decoder-only stack (dense, MoE, SSM, hybrid and VLM) and the
-encoder-decoder (whisper-medium).
+copy of ``repro/models/api.py`` for every family: the decoder-only stack
+(dense, MoE, SSM, hybrid and VLM) and the encoder-decoder
+(whisper-medium).
 
 ``build(cfg)`` returns a :class:`ModelAPI` whose members close over
 :mod:`repro_torch.models.transformer`, or :mod:`repro_torch.models.encdec`
@@ -23,10 +23,14 @@ for the ``encdec`` family:
     reference's attention VJP as its backward).
 
 ``attn`` and ``tap`` pass through every member that runs attention.
-Without a mesh the reference's MoE mode (``_moe_mode``) is always
-``dense``, and so is the port's.  tp > 1 raises until ``parallel/``
-(ROADMAP.md §1 item 6.3).  The reference's ``input_specs`` and
-``make_batch`` wait for the port's dry-run.
+``tp`` pads the heads and the vocabulary (and splits the experts into
+``tp // E`` slices) as the reference does; on a mesh
+(:func:`~repro_torch.parallel.axes.axis_rules` installed) the members
+take and return this rank's blocks and ``tp`` must be the mesh's
+"model" size.  :func:`_moe_mode` picks the MoE mode as the reference's
+does: ``dense`` without a mesh, ``psum`` at decode and ``a2a``
+otherwise.  The reference's ``input_specs`` and ``make_batch`` wait
+for the port's dry-run (ROADMAP.md §1 item 6.3b).
 """
 
 from __future__ import annotations
@@ -37,6 +41,13 @@ from typing import Any, Callable
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.parallel.axes import current_mesh
+
+
+def _moe_mode(kind: str) -> str:
+    if current_mesh() is None:
+        return "dense"
+    return "psum" if kind == "decode" else "a2a"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +62,8 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: the port runs one device "
-                                  f"(tp = 1); sharding waits for "
-                                  f"parallel/, ROADMAP.md §1 item 6.3")
+    if tp < 1:
+        raise ValueError(f"tp must be >= 1, got {tp}")
     if cfg.family == "encdec":
         return ModelAPI(
             cfg=cfg, tp=tp,
@@ -73,10 +82,12 @@ def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
     def _prefill(p, b, max_seq=None, **kw):
         return transformer.prefill(p, b["tokens"], cfg, tp,
                                    prefix_embeds=b.get("prefix_embeds"),
-                                   max_seq=max_seq, **kw)
+                                   max_seq=max_seq,
+                                   moe_mode=_moe_mode("prefill"), **kw)
 
     def _decode(p, c, tok, pos, **kw):
-        return transformer.decode_step(p, c, tok, pos, cfg, tp, **kw)
+        return transformer.decode_step(p, c, tok, pos, cfg, tp,
+                                       moe_mode=_moe_mode("decode"), **kw)
 
     def _init_cache(b, s, device="cuda"):
         return transformer.init_cache_tree(cfg, b, s, tp,

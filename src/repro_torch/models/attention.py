@@ -1,5 +1,5 @@
 """GQA attention sublayer: projections + RoPE + cache management — the
-port's copy of ``repro/models/attention.py`` at tp = 1.
+port's copy of ``repro/models/attention.py``.
 
 Prefill runs the blocked attention kernel, K4
 (:func:`~repro_torch.kernels.attention_block.ops.flash_attention`),
@@ -37,6 +37,32 @@ frames at ``attn_chunk`` 1024: 548 zero keys a row).  K4 attends over
 the real keys only, and so does ``attn="plain"`` here.  A non-causal
 call under a window raises: there the reference's result depends on its
 chunk padding.
+
+On a mesh (:mod:`repro_torch.parallel`; ``n_heads`` and ``n_kv_heads``
+are the model's padded counts, which split evenly over "model"):
+
+  * prefill: ``wq``/``wk``/``wv`` are column shards, so each rank
+    projects and attends over its own heads (query heads
+    ``[r * H_l, (r + 1) * H_l)`` read kv heads ``[r * KV_l, ...)``, the
+    same groups as the whole); ``wo`` is a row shard, its partial
+    products summed over "model";
+  * decode: the cache's slots are sharded over "model" (slot ``s``
+    belongs to shard ``s // slots_local``), with every kv head; the new
+    token's q, k and v are all-gathered over "model", the owner of slot
+    ``cur_pos`` (``cur_pos % total`` in a window's ring) writes it, and
+    each shard attends over the slots it keeps (K4 with its
+    log-sum-exp, or the reference's ``decode_attention`` with ``axis``
+    under ``attn="plain"``).  The shards' partials are merged with one
+    all-reduce MAX and one all-reduce SUM over "model"
+    (:func:`merge_shards`, the reference's ``pmax``/``psum``); a shard
+    that keeps no slot launches nothing and adds nothing.  Where no
+    shard keeps a slot, each runs K4 from a zero query over all its
+    slots, and the merge gives the mean of V over every slot, the
+    reference's result.  The cache's ``pos`` vector is kept whole on
+    every rank (every rank writes the same positions), so which slots a
+    shard keeps, and whether any shard keeps one, costs no collective;
+  * cross-attention (whisper): the cross K/V are replicated, with every
+    head; each rank attends with its own query heads over its kv heads.
 """
 
 from __future__ import annotations
@@ -47,7 +73,9 @@ import torch
 from repro_torch.kernels.attention_block.ops import flash_attention
 from repro_torch.models.layers import (apply_rope, attention_chunked,
                                        decode_attention, dense_init,
-                                       split_keys)
+                                       row_parallel, split_keys)
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_mesh, model_size
 
 ATTN = ("kernel", "plain")
 #: the query position of a non-causal plain call: past every real key,
@@ -97,6 +125,7 @@ def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
                          f"result depends on its chunk padding")
     hd = cfg.head_dim
     b, s = h.shape[0], h.shape[1]
+    n_heads, n_kv_heads = _local_heads(n_heads, n_kv_heads)
     if cross_kv is None:
         q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
         q = apply_rope(q, pos, cfg.rope_theta)
@@ -116,36 +145,86 @@ def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
         out = flash_attention(q, k, v, window=cfg.window, causal=causal)
         if tap is not None:
             tap(q, k, v, out, window=cfg.window, causal=causal)
-    return out.reshape(b, s, n_heads * hd) @ params["wo"], (k, v)
+    return row_parallel(out.reshape(b, s, n_heads * hd), params["wo"]), \
+        (k, v)
+
+
+def _local_heads(n_heads: int, n_kv_heads: int) -> tuple[int, int]:
+    """This rank's query and kv head counts: the whole over "model"."""
+    mp = model_size()
+    if n_heads % mp or n_kv_heads % mp:
+        raise ValueError(f"{n_heads} query and {n_kv_heads} kv heads do not "
+                         f"split over {mp} model shards: build at tp={mp}")
+    return n_heads // mp, n_kv_heads // mp
+
+
+def gather_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H_l, hd) of this rank's heads -> (B, S, H, hd) of all."""
+    return col.all_gather(t, "model", dim=2) if model_size() > 1 else t
+
+
+def own_heads(t: torch.Tensor, n_local: int) -> torch.Tensor:
+    """This rank's ``n_local`` heads of (B, S, H, hd)."""
+    if model_size() == 1:
+        return t
+    r = col.axis_index("model")
+    return t[:, :, r * n_local:(r + 1) * n_local]
 
 
 def init_cache(batch: int, max_seq: int, n_kv_heads: int, head_dim: int,
                window: int, dtype, *, device="cpu"):
     """Empty decode cache.  Ring-buffered to ``window`` slots for SWA;
-    ``pos`` (-1 = empty) is a host ``numpy`` int32 vector."""
+    ``pos`` (-1 = empty) is a host ``numpy`` int32 vector.  On a mesh
+    ``batch`` is this rank's rows, K and V hold its shard of the slots,
+    and ``pos`` every slot's position."""
     slots = min(max_seq, window) if window else max_seq
+    local = _local_slots(slots)
     return {
-        "k": torch.zeros((batch, slots, n_kv_heads, head_dim), dtype=dtype,
+        "k": torch.zeros((batch, local, n_kv_heads, head_dim), dtype=dtype,
                          device=device),
-        "v": torch.zeros((batch, slots, n_kv_heads, head_dim), dtype=dtype,
+        "v": torch.zeros((batch, local, n_kv_heads, head_dim), dtype=dtype,
                          device=device),
         "pos": np.full((slots,), -1, np.int32),
     }
 
 
+def _local_slots(slots: int) -> int:
+    mp = model_size()
+    if slots % mp:
+        raise ValueError(f"{slots} cache slots do not split over {mp} "
+                         f"model shards")
+    return slots // mp
+
+
+def prefill_cache(k, v, pos, max_seq: int, window: int):
+    """The decode cache of a prefill's K and V (B, S, KV_l, hd) of this
+    rank's kv heads: :func:`cache_from_prefill` of every head
+    (all-gathered over "model"), of which this rank keeps its shard of
+    the slots (and every slot's position)."""
+    mp = model_size()
+    cache = cache_from_prefill(gather_heads(k), gather_heads(v), pos,
+                               max_seq, window)
+    if mp > 1:
+        local = cache["k"].shape[1] // mp
+        r = col.axis_index("model")
+        for name in ("k", "v"):
+            cache[name] = cache[name][:, r * local:(r + 1) * local].clone()
+    return cache
+
+
 def cache_from_prefill(k, v, pos, max_seq: int, window: int):
-    """Scatter prefilled K/V into a fresh cache (ring-aware).  ``pos``
-    are the prefill's absolute positions, on the host; as the
-    reference's scatter does, a position past the last slot (no window)
-    is dropped."""
+    """Scatter prefilled K/V into a fresh cache of every slot
+    (ring-aware).  ``pos`` are the prefill's absolute positions, on the
+    host; as the reference's scatter does, a position past the last
+    slot (no window) is dropped."""
     b, s, kvh, hd = k.shape
     slots = min(max_seq, window) if window else max_seq
     take = min(s, slots)
     p_t = np.asarray(pos, np.int32)[-take:]
     idx = p_t % slots if window else p_t
     keep = np.flatnonzero(idx < slots)
-    cache = init_cache(b, max_seq, kvh, hd, window, k.dtype,
-                       device=k.device)
+    cache = {name: k.new_zeros((b, slots, kvh, hd)) for name in ("k", "v")}
+    cache["pos"] = np.full((slots,), -1, np.int32)
     dst = torch.as_tensor(idx[keep], device=k.device)
     src = torch.as_tensor(keep + (s - take), device=k.device)
     cache["k"][:, dst] = k[:, src].to(cache["k"].dtype)
@@ -177,31 +256,69 @@ def _gather(c: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
 def _decode_local(q, new_k, new_v, cache, cur_pos: int, window: int,
                   chunk: int, attn: str, tap):
     """Write the token into its slot, attend: the reference's
-    ``_decode_local`` on the whole cache (no shard axis).  The slot is
-    ``cur_pos``, or ``cur_pos % slots`` in a ring under a window;
-    ``cache`` is written in place.  Past the last slot (no window) the
-    reference's single shard owns no slot and writes nothing, and
-    neither does this.  Where the mask keeps no slot, the reference's
-    scores are all -1e30 and its softmax uniform: K4 gets the same from
-    a zero query over every slot."""
-    slots = cache["k"].shape[1]
-    slot = cur_pos % slots if window else cur_pos
-    if 0 <= slot < slots:
-        cache["k"][:, slot] = new_k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = new_v[:, 0].to(cache["v"].dtype)
+    ``_decode_local``.  The slot is ``cur_pos``, or ``cur_pos % total``
+    in a ring under a window (``total`` slots over every shard); its
+    owner, shard ``slot // slots_local``, writes it in place.  Past the
+    last slot (no window) no shard owns it and nothing is written, as in
+    the reference.  Where the mask keeps no slot, the reference's scores
+    are all -1e30 and its softmax uniform: K4 gets the same from a zero
+    query over every slot.  On a mesh (q, k and v of every head) the
+    shards attend over their own slots and :func:`merge_shards` joins
+    them."""
+    mesh = current_mesh()
+    local = cache["k"].shape[1]
+    mp = model_size()
+    r = col.axis_index("model") if mp > 1 else 0
+    total = local * mp
+    slot = cur_pos % total if window else cur_pos
+    if 0 <= slot < total:
+        if slot // local == r:
+            cache["k"][:, slot - r * local] = new_k[:, 0].to(
+                cache["k"].dtype)
+            cache["v"][:, slot - r * local] = new_v[:, 0].to(
+                cache["v"].dtype)
         cache["pos"][slot] = cur_pos
+    pos_local = cache["pos"][r * local:(r + 1) * local]
     if attn == "plain":
-        return decode_attention(q, cache["k"], cache["v"], cache["pos"],
-                                cur_pos, window=window, chunk=chunk)
-    idx = kept_slots(cache["pos"], cur_pos, window)
+        return decode_attention(q, cache["k"], cache["v"], pos_local,
+                                cur_pos, window=window, chunk=chunk,
+                                axis="model" if mp > 1 else None)
+    if not len(kept_slots(cache["pos"], cur_pos, window)):
+        q, idx = torch.zeros_like(q), np.arange(local)
+    else:
+        idx = kept_slots(pos_local, cur_pos, window)
     if not len(idx):
-        q, idx = torch.zeros_like(q), np.arange(slots)
+        # a shard that keeps no slot launches nothing and adds nothing
+        b, _, h, hd = q.shape
+        return merge_shards(q.new_zeros((b, 1, h, hd)),
+                            torch.full((b, 1, h), -torch.inf,
+                                       device=q.device)).to(q.dtype)
     k_sel = _gather(cache["k"], idx).to(q.dtype)
     v_sel = _gather(cache["v"], idx).to(q.dtype)
-    out = flash_attention(q, k_sel, v_sel, window=0, causal=False)
+    out = flash_attention(q, k_sel, v_sel, window=0, causal=False,
+                          return_lse=mesh is not None)
+    if mesh is not None:
+        out, lse = out
     if tap is not None:
         tap(q, k_sel, v_sel, out, window=0, causal=False)
-    return out
+    if mesh is None:
+        return out
+    return merge_shards(out, lse.transpose(1, 2)).to(q.dtype)
+
+
+def merge_shards(out: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """The attention over every shard's keys from this shard's ``out``
+    (B, Sq, H, hd) and row log-sum-exp ``lse`` (B, Sq, H), in f32: the
+    weights ``exp(lse - max)`` through one all-reduce MAX over "model"
+    and the weighted outputs and weights through one all-reduce SUM
+    (:func:`~repro_torch.kernels.attention_block.ops.combine_partials`
+    with the shard dim across ranks).  Some shard keeps a key of every
+    row."""
+    m = col.pmax(lse, "model")
+    w = torch.exp(lse - m)[..., None]
+    both = col.psum(torch.cat([w * out.to(torch.float32), w], dim=-1),
+                    "model")
+    return both[..., :-1] / both[..., -1:]
 
 
 def decode_block(params, h, cache, cur_pos, cfg, n_heads, n_kv_heads, *,
@@ -217,9 +334,11 @@ def decode_block(params, h, cache, cur_pos, cfg, n_heads, n_kv_heads, *,
     hd = cfg.head_dim
     b = h.shape[0]
     cur = int(cur_pos)
+    nh_l, nkv_l = _local_heads(n_heads, n_kv_heads)
     if cross_kv is not None:
-        q = (h @ params["wq"]).reshape(b, 1, n_heads, hd)
+        q = (h @ params["wq"]).reshape(b, 1, nh_l, hd)
         ck, cv, cpos = cross_kv
+        ck, cv = own_heads(ck, nkv_l), own_heads(cv, nkv_l)
         if attn == "plain":
             out = decode_attention(q, ck, cv, cpos,
                                    torch.iinfo(torch.int32).max, window=0,
@@ -228,10 +347,12 @@ def decode_block(params, h, cache, cur_pos, cfg, n_heads, n_kv_heads, *,
             out = flash_attention(q, ck, cv, window=0, causal=False)
             if tap is not None:
                 tap(q, ck, cv, out, window=0, causal=False)
-        return out.reshape(b, 1, n_heads * hd) @ params["wo"], cache
-    q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
+        return row_parallel(out.reshape(b, 1, nh_l * hd), params["wo"]), \
+            cache
+    q, k, v = _project_qkv(params, h, nh_l, nkv_l, hd)
     q = apply_rope(q, cur, cfg.rope_theta)
     k = apply_rope(k, cur, cfg.rope_theta)
-    out = _decode_local(q, k, v, cache, cur, cfg.window, cfg.attn_chunk,
-                        attn, tap)
-    return out.reshape(b, 1, n_heads * hd) @ params["wo"], cache
+    out = _decode_local(gather_heads(q), gather_heads(k), gather_heads(v),
+                        cache, cur, cfg.window, cfg.attn_chunk, attn, tap)
+    return row_parallel(own_heads(out, nh_l).reshape(b, 1, nh_l * hd),
+                        params["wo"]), cache

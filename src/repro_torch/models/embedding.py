@@ -1,7 +1,17 @@
 """Token embedding, the training loss and decode-time logits — the
 port's copy of ``embed_tokens``, ``lm_loss`` and ``lm_logits`` from
-``repro/models/embedding.py`` at tp = 1 (the table whole on one device,
-no vocab sharding).
+``repro/models/embedding.py``.
+
+On a mesh whose "model" axis is above 1 the table is vocab-sharded:
+this rank holds rows ``[r * V_l, (r + 1) * V_l)``.  ``embed_tokens``
+gathers the tokens of its range (the others masked to 0) and sums the
+partials over "model" (the reference reduce-scatters that sum onto the
+sequence; the port keeps the residual whole on every model rank).
+``lm_logits`` gives this rank's vocab block, the padded vocabulary
+masked to -1e30; :func:`gather_logits` joins the blocks (over "model",
+then the batch axes) into whole rows.  ``lm_loss`` on such a mesh (the
+reference's vocab-parallel cross-entropy) belongs to training on a
+mesh, ROADMAP.md §1 item 6.3b, and raises.
 
 ``lm_loss`` runs the reference's scan over sequence chunks of
 :data:`LOSS_CHUNK` as a loop (a sequence that is not a multiple of the
@@ -17,12 +27,29 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_mesh, current_rules, model_size
+
 LOSS_CHUNK = 512
 
 
+def _vocab_start(table: torch.Tensor) -> int:
+    """The first vocab id of this rank's rows of ``table``."""
+    return col.axis_index("model") * table.shape[0] if model_size() > 1 \
+        else 0
+
+
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> (B, S, d); table (V, d)."""
-    return table[tokens]
+    """tokens (B, S) -> (B, S, d); table (V, d), vocab-sharded over
+    "model" on a mesh (a masked gather, then a sum over "model")."""
+    if model_size() == 1:
+        return table[tokens]
+    v_l = table.shape[0]
+    start = _vocab_start(table)
+    idx = torch.clamp(tokens - start, 0, v_l - 1)
+    mask = (tokens >= start) & (tokens < start + v_l)
+    vals = torch.where(mask[..., None], table[idx], 0)
+    return col.psum(vals, "model")
 
 
 def _chunk_ce(h_c, table, labels_c, valid_c, real_vocab: int):
@@ -66,6 +93,11 @@ def lm_loss(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
             real_vocab: int) -> torch.Tensor:
     """Mean next-token NLL.  h: (B, S, d), table: (V, d), labels:
     (B, S) with -1 = ignore; a 0-d f32 tensor."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "lm_loss on a mesh of more than one rank (the vocab-parallel "
+            "loss) waits for training on a mesh: ROADMAP.md §1 item 6.3b")
     labels = torch.as_tensor(labels, device=h.device)
     valid = (labels >= 0).to(torch.float32)
     labels_c = torch.clamp(labels, min=0).to(torch.int64)
@@ -76,9 +108,24 @@ def lm_loss(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
 def lm_logits(h: torch.Tensor, table: torch.Tensor,
               real_vocab: int) -> torch.Tensor:
     """Logits of the last position in f32: h (B, S, d) -> (B, V), the
-    padded vocabulary (ids >= ``real_vocab``) masked to -1e30."""
+    padded vocabulary (ids >= ``real_vocab``) masked to -1e30; on a
+    vocab-sharded mesh this rank's block (B, V_l) of them."""
     logits = h[:, -1].to(torch.float32) @ table.to(torch.float32).T
-    v = table.shape[0]
-    if v > real_vocab:
-        logits[:, real_vocab:] = -1e30
+    start = _vocab_start(table)
+    pad = real_vocab - start
+    if pad < table.shape[0]:
+        logits[:, max(pad, 0):] = -1e30
     return logits
+
+
+def gather_logits(logits: torch.Tensor) -> torch.Tensor:
+    """This rank's (B_l, V_l) block of a step's logits -> the whole
+    (B, V) rows: all-gathered over "model" (the vocab), then over the
+    rules' batch axes (the last first, so the first is major).  Without
+    a mesh, ``logits`` itself."""
+    if current_mesh() is None:
+        return logits
+    out = col.all_gather(logits, "model", dim=-1)
+    for axis in reversed((current_rules() or {}).get("batch") or ()):
+        out = col.all_gather(out, axis, dim=0)
+    return out

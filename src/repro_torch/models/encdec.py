@@ -1,5 +1,5 @@
 """Encoder-decoder backbone (whisper-medium) — the port's copy of
-``repro/models/encdec.py`` at tp = 1.
+``repro/models/encdec.py``.
 
 The conv/mel frontend is a stub, as in the reference: the caller hands
 over precomputed frame embeddings (B, T_frames, d).  The encoder is a
@@ -24,6 +24,14 @@ bodies in ``jax.checkpoint`` with its default policy (nothing saved,
 whatever ``remat_policy`` says).  The encoder's non-causal K4 and the
 cross-attention run through the same autograd ``Function`` as the
 decoder's self-attention.
+
+On a mesh (as :mod:`repro_torch.models.transformer`): the encoder's
+and the decoder's attentions and FFNs are tensor-parallel over
+"model"; the decoder's self-attention decodes against a cache whose
+slots are sharded over "model"; the cross K/V are kept with every head
+on every model rank (the reference's ``_cache_spec`` gives
+``cross_k``/``cross_v`` no model axis), each rank reading its own kv
+heads.
 """
 
 from __future__ import annotations
@@ -35,9 +43,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.embedding import embed_tokens, lm_logits, lm_loss
 from repro_torch.models.layers import (cast_params_for_compute, dense_init,
-                                       filled, rms_norm, split_keys)
+                                       filled, fsdp_gather, rms_norm,
+                                       split_keys)
 from repro_torch.models.transformer import (_apply_dense_ffn, _init_ffn,
-                                           _tap, remat)
+                                           _no_mesh_training, _tap,
+                                           local_batch, remat)
 
 ENC_FRAMES = 1500      # whisper mel frames after the conv frontend
 
@@ -103,7 +113,8 @@ def encode(params, frames, cfg: ModelConfig, tp: int = 1, *,
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
 
     def block(i, hh, bp):
-        bp = cast_params_for_compute(bp, cfg.compute_dtype)
+        bp = fsdp_gather(cast_params_for_compute(bp, cfg.compute_dtype),
+                         ("enc_blocks", i))
         out, _ = attn_mod.attention_block(
             bp["attn"], rms_norm(hh, bp["ln1"], cfg.norm_eps), pos, cfg, nh,
             nkv, causal=False, attn=attn, tap=_tap(tap, f"enc{i}"))
@@ -118,9 +129,14 @@ def encode(params, frames, cfg: ModelConfig, tp: int = 1, *,
 
 
 def _cross_kv(bp, enc_out, cfg, nkv):
+    """The cross K and V of this rank's kv heads (``wk``/``wv`` column
+    shards on a mesh), with their positions."""
     b, t, _ = enc_out.shape
-    k = (enc_out @ bp["cross_attn"]["wk"]).reshape(b, t, nkv, cfg.head_dim)
-    v = (enc_out @ bp["cross_attn"]["wv"]).reshape(b, t, nkv, cfg.head_dim)
+    nkv_l = bp["cross_attn"]["wk"].shape[1] // cfg.head_dim
+    k = (enc_out @ bp["cross_attn"]["wk"]).reshape(b, t, nkv_l,
+                                                   cfg.head_dim)
+    v = (enc_out @ bp["cross_attn"]["wv"]).reshape(b, t, nkv_l,
+                                                   cfg.head_dim)
     return k, v, torch.arange(t, dtype=torch.int32, device=enc_out.device)
 
 
@@ -139,7 +155,8 @@ def decoder_forward(params, tokens, enc_out, cfg: ModelConfig, tp: int = 1,
     pos_host = np.arange(s, dtype=np.int32)
 
     def block(i, hh, bp):
-        bp = cast_params_for_compute(bp, cfg.compute_dtype)
+        bp = fsdp_gather(cast_params_for_compute(bp, cfg.compute_dtype),
+                         ("dec_blocks", i))
         out, (k, v) = attn_mod.attention_block(
             bp["self_attn"], rms_norm(hh, bp["ln1"], cfg.norm_eps), pos,
             cfg, nh, nkv, attn=attn, tap=_tap(tap, f"self{i}"))
@@ -161,9 +178,10 @@ def decoder_forward(params, tokens, enc_out, cfg: ModelConfig, tp: int = 1,
                       policy="nothing")
             continue
         h, (k, v, ck, cv) = block(i, h, bp)
-        caches.append({"self": attn_mod.cache_from_prefill(
+        caches.append({"self": attn_mod.prefill_cache(
             k, v, pos_host, max_seq, cfg.window),
-            "cross_k": ck, "cross_v": cv})
+            "cross_k": attn_mod.gather_heads(ck),
+            "cross_v": attn_mod.gather_heads(cv)})
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     return h, caches if want_cache else None
 
@@ -172,6 +190,7 @@ def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
                attn: str = "kernel", tap=None):
     """batch: {tokens (B, S), labels (B, S), frames (B, T, d)} -> the
     mean next-token NLL, a 0-d f32 tensor."""
+    _no_mesh_training()
     enc_out = encode(params, batch["frames"], cfg, tp, attn=attn, tap=tap)
     h, _ = decoder_forward(params, batch["tokens"], enc_out, cfg, tp,
                            attn=attn, tap=tap)
@@ -192,9 +211,11 @@ def prefill(params, tokens, frames, cfg: ModelConfig, tp: int = 1, *,
 def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     tp: int = 1, *, device="cpu"):
     """Per-layer empty decode caches: the self-attention's (``pos`` -1
-    on the host) and :data:`ENC_FRAMES` zero cross slots."""
+    on the host) and :data:`ENC_FRAMES` zero cross slots; on a mesh
+    this rank's blocks of them for a global ``batch``."""
     _nh, nkv = cfg.padded_heads(tp)
     dtype = cfg.compute_dtype
+    batch = local_batch(batch)
 
     def cross():
         return torch.zeros((batch, ENC_FRAMES, nkv, cfg.head_dim),
@@ -216,7 +237,8 @@ def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
     h = embed_tokens(params["embed"], torch.as_tensor(token, device=dev)
                      ).to(cfg.compute_dtype)
     for i, (bp, c) in enumerate(zip(params["dec_blocks"], caches)):
-        bp = cast_params_for_compute(bp, cfg.compute_dtype)
+        bp = fsdp_gather(cast_params_for_compute(bp, cfg.compute_dtype),
+                         ("dec_blocks", i))
         out, c["self"] = attn_mod.decode_block(
             bp["self_attn"], rms_norm(h, bp["ln1"], cfg.norm_eps),
             c["self"], cur, cfg, nh, nkv, attn=attn,

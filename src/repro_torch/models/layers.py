@@ -1,15 +1,30 @@
 """Shared transformer building blocks — the port's copy of
-``repro/models/layers.py`` at tp = 1 (no mesh, no sequence parallelism).
+``repro/models/layers.py`` (without its sequence-parallel ``sp_rs``
+helpers, which serve training on a mesh: ROADMAP.md §1 item 6.3b).
 
-Norms, RoPE, the SwiGLU MLP, the parameter-init helpers and three
-attentions:
+Norms, RoPE, the SwiGLU MLP, the parameter-init helpers, the mesh's
+column- and row-parallel helpers and three attentions:
 
   * ``attention_naive``   — the O(S^2) oracle (:func:`~repro_torch.
     kernels.attention_block.ref.attention_ref` reads it);
   * ``attention_chunked`` — the double-chunked online softmax over
     absolute positions;
   * ``decode_attention``  — one token against a cache whose slots carry
-    absolute positions (-1 = empty).
+    absolute positions (-1 = empty); with ``axis`` the slots are this
+    rank's shard of the cache and the shards' partial ``(acc, m, l)``
+    are merged by a ``pmax`` and two ``psum`` over the axis
+    (flash-decoding, the reference's combine).
+
+On a mesh (:mod:`repro_torch.parallel`) the residual stream is
+replicated over "model" and its rows sharded over the batch axes; a
+column-parallel weight (``wq``/``wk``/``wv``/``wg``/``wi``) holds this
+rank's output columns, a row-parallel one (``wo``) its input rows, whose
+partial products :func:`row_parallel` sums over "model".  Under the
+rules' ``fsdp`` each block's weights are sharded over "data" as well and
+:func:`fsdp_gather` all-gathers them as the block runs (the reference's
+GSPMD gathers them at use).  The reference scatters the residual over
+the sequence between sublayers (Megatron SP); the port keeps it whole
+on every model rank, which costs memory, not numbers.
 
 The last two are plain versions that the tests hold against the
 reference's.  The model path never calls them on the card: it runs the
@@ -24,6 +39,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import current_fsdp, current_mesh
 
 
 # --------------------------------------------------------------------------
@@ -60,10 +78,44 @@ def apply_rope(x: torch.Tensor, pos, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` of a row-parallel ``w`` (this rank's input rows): the
+    partial products summed over "model" (nothing without a mesh)."""
+    out = x @ w
+    return col.psum(out, "model") if current_mesh() is not None else out
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP (the reference's tp = 1 branch)."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    """SwiGLU MLP; on a mesh ``w_gate``/``w_up`` are column shards and
+    ``w_down`` a row shard (the hidden activations sharded over
+    "model")."""
+    return row_parallel(F.silu(x @ w_gate) * (x @ w_up), w_down)
+
+
+def fsdp_gather(tree, path: tuple):
+    """A block's weights whole over "data": every leaf that
+    :func:`~repro_torch.parallel.sharding.leaf_spec` shards over "data"
+    (the rules' ``fsdp``) all-gathered on that dim; ``path`` is the
+    block's path from the params' root.  MoE expert weights are left
+    sharded: the MoE modes gather them themselves, as the reference's
+    bodies do.  Without a mesh, a "data" axis of size 1 or ``fsdp`` off,
+    ``tree`` itself."""
+    from repro_torch.parallel.sharding import leaf_spec
+    mesh = current_mesh()
+    if mesh is None or mesh.shape.get("data", 1) == 1 or not current_fsdp():
+        return tree
+
+    def walk(node, p):
+        if isinstance(node, dict):
+            return {k: walk(v, p + (k,)) for k, v in node.items()}
+        if not isinstance(node, torch.Tensor) or "moe" in p:
+            return node
+        for dim, entry in enumerate(leaf_spec(p, node)):
+            if entry == "data":
+                return col.all_gather(node, "data", dim)
+        return node
+    return walk(tree, tuple(path))
 
 
 # --------------------------------------------------------------------------
@@ -173,14 +225,17 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_pos, cur_pos,
-                     window: int = 0, chunk: int = 2048) -> torch.Tensor:
-    """Single-token attention against a cache (the reference's without
-    its ``axis_name`` combine).
+                     window: int = 0, chunk: int = 2048,
+                     axis: str | None = None) -> torch.Tensor:
+    """Single-token attention against a (possibly slot-sharded) cache.
 
-    q: (B, 1, H, hd); caches: (B, Skv, KV, hd); ``kv_pos`` gives the
-    absolute position of every cache slot (-1 = empty), on any device.
-    A slot is kept iff ``0 <= pos <= cur_pos`` (and ``pos > cur_pos -
-    window`` under a window); a masked score is -1e30."""
+    q: (B, 1, H, hd); caches: (B, Skv_local, KV, hd); ``kv_pos`` gives
+    the absolute position of every local cache slot (-1 = empty), on any
+    device.  A slot is kept iff ``0 <= pos <= cur_pos`` (and ``pos >
+    cur_pos - window`` under a window); a masked score is -1e30.  With
+    ``axis`` the partial accumulators are merged across the axis's
+    shards: renormalized by the global max (``pmax``), then summed
+    (``psum``), as the reference does."""
     b, _, h, hd = q.shape
     kvh = k_cache.shape[2]
     g = h // kvh
@@ -210,7 +265,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         s = s.masked_fill(~mask[None, None, None, None], -1e30)
         vi32 = vi.to(torch.float32).transpose(1, 2)
         carry = _online_update(carry, s, vi32[:, :, None])
-    acc, _, l = carry
+    acc, m, l = carry
+    if axis is not None:
+        m_glob = col.pmax(m, axis)
+        corr = torch.exp(m - m_glob)
+        acc = col.psum(acc * corr[..., None], axis)
+        l = col.psum(l * corr, axis)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(b, 1, h, hd).to(q.dtype)
 

@@ -1,5 +1,25 @@
-"""Mixture-of-Experts FFN — the port's copy of ``repro/models/moe.py`` in
-its ``dense`` mode (no mesh, tp = 1).
+"""Mixture-of-Experts FFN with expert parallelism — the port's copy of
+``repro/models/moe.py``.  Three modes, one set of weights:
+
+  * ``dense`` — no mesh: every expert computed over its bins on one
+    rank (below);
+  * ``a2a``   — prefill on a mesh (:func:`moe_ffn_a2a`): this rank's
+    tokens dispatched into fixed-capacity bins, exchanged with one
+    all-to-all over "model", run through this rank's expert slice, and
+    returned by a second all-to-all;
+  * ``psum``  — decode on a mesh (:func:`moe_ffn_psum`): the tokens
+    whole on every model rank, each rank's expert slice computed densely
+    for all of them and the partials summed over "model";
+    :func:`moe_ffn_psum_ep2` is its two-axis form for the serving layout
+    whose experts lie over ("model", "data") jointly.
+
+Each is the body of the reference's ``shard_map`` on this rank's blocks,
+with its collectives from :mod:`repro_torch.parallel.collectives`.  When
+there are fewer experts than model shards, each expert is split over
+``tpe = mp // E`` shards (its f dim) and the dispatch repeats its bin to
+all of them; under ``fsdp`` the f dim is sharded over "data" too and
+gathered at use.  The expert products stay ``torch.bmm``: the reference
+computes them outside any kernel.
 
 Tokens are routed to their ``top_k`` experts (ties toward the lower
 expert, as ``jax.lax.top_k`` breaks them), sort-dispatched into
@@ -11,8 +31,6 @@ the outputs are gathered back per (token, choice), weighted by the
 gates and summed over the choices.  Every shape is known on the host:
 nothing here waits on the device.
 
-The mesh modes (``a2a``, ``psum``, ``psum_ep2``) wait for the port's
-``parallel/`` and raise.
 """
 
 from __future__ import annotations
@@ -23,9 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init, split_keys
-
-_MESH = ("the mesh modes of the MoE FFN wait for the port's parallel/: "
-         "ROADMAP.md §1 item 6")
+from repro_torch.parallel import collectives as col
 
 
 def init_moe(key, d_model: int, d_ff: int, n_experts: int, dtype,
@@ -128,13 +144,89 @@ def moe_ffn_dense(x, params, top_k: int, capacity_factor: float):
     return moe_combine_local(ret, slot, gates, t, top_k)
 
 
-def moe_ffn_a2a(*_args, **_kw):
-    raise NotImplementedError(f"moe_ffn_a2a: {_MESH}")
+def _one_row(n_experts: int, tpe: int, mp: int) -> None:
+    if n_experts * tpe != mp:
+        raise ValueError(f"{n_experts} experts x {tpe} slices must equal "
+                         f"the {mp} model shards (one expert row a rank)")
 
 
-def moe_ffn_psum(*_args, **_kw):
-    raise NotImplementedError(f"moe_ffn_psum: {_MESH}")
+def _gather_data(params, data_axis: str | None):
+    """The expert weights with their f dim whole over ``data_axis``
+    (ZeRO-3 gathered at use)."""
+    wg, wi, wo = params["wg"], params["wi"], params["wo"]
+    if data_axis is not None:
+        wg = col.all_gather(wg, data_axis, dim=2)
+        wi = col.all_gather(wi, data_axis, dim=2)
+        wo = col.all_gather(wo, data_axis, dim=1)
+    return wg, wi, wo
 
 
-def moe_ffn_psum_ep2(*_args, **_kw):
-    raise NotImplementedError(f"moe_ffn_psum_ep2: {_MESH}")
+def moe_ffn_a2a(x, params, top_k: int, capacity_factor: float,
+                model_axis: str, data_axis: str | None):
+    """x (T_local, d), this rank's tokens; the expert weights this rank's
+    row (E * tpe rows over the model shards).  Dispatch -> all-to-all ->
+    the local expert slice -> all-to-all -> combine."""
+    t, d = x.shape
+    mp = col.axis_size(model_axis)
+    n_experts = params["router"].shape[1]
+    tpe = max(1, mp // n_experts)
+    _one_row(n_experts, tpe, mp)
+    wg, wi, wo = _gather_data(params, data_axis)
+    gates, idx = router_top_k(x, params["router"], top_k)
+    cap = bin_capacity(t, top_k, n_experts, capacity_factor)
+    bins, slot = moe_dispatch_local(x, gates, idx, n_experts, cap)
+    send = torch.repeat_interleave(bins, tpe, dim=0)      # (mp, C, d)
+    # recv: (mp, C, d), the tokens for this rank's expert slice from
+    # every source
+    recv = col.all_to_all(send, model_axis)
+    out = _expert_ffn(recv.reshape(1, mp * cap, d), wg, wi, wo)
+    # ret: (mp, C, d), per (expert, slice) partials for this rank's tokens
+    ret = col.all_to_all(out.reshape(mp, cap, d), model_axis)
+    ret = ret.reshape(n_experts, tpe, cap, d).sum(dim=1)
+    return moe_combine_local(ret, slot, gates, t, top_k)
+
+
+def moe_ffn_psum(x, params, top_k: int, model_axis: str,
+                 data_axis: str | None):
+    """Decode: x (T, d) whole on every model rank; each rank computes its
+    expert slice densely for all T tokens, weighted by the tokens' gates
+    for its expert, and the partials are summed over ``model_axis``."""
+    mp = col.axis_size(model_axis)
+    n_experts = params["router"].shape[1]
+    tpe = max(1, mp // n_experts)
+    _one_row(n_experts, tpe, mp)
+    wg, wi, wo = _gather_data(params, data_axis)
+    my_expert = col.axis_index(model_axis) // tpe
+    gates, idx = router_top_k(x, params["router"], top_k)
+    # the weight of this rank's expert for each token (0 if not routed)
+    w_tok = ((idx == my_expert).to(torch.float32) * gates).sum(dim=1)
+    out = _expert_ffn(x[None], wg, wi, wo)[0]
+    out = out * w_tok[:, None].to(out.dtype)
+    return col.psum(out, model_axis)
+
+
+def moe_ffn_psum_ep2(x, params, top_k: int, axes: tuple,
+                     batch_axis: str | None):
+    """Two-axis expert parallelism for serving (no weight gathers): the
+    expert weights (E * tpe2, d, f/tpe2) lie over ``axes`` =
+    ("model", "data") jointly, one (expert, f slice) pair a rank.  The
+    batch-sharded tokens are all-gathered over ``batch_axis``, this
+    rank's slice computed for every token routed to its expert, the
+    partials summed over both axes, and this rank's rows kept."""
+    t_local, d = x.shape
+    if batch_axis is not None:
+        xg = col.all_gather(x, batch_axis, dim=0)
+        my_rows = col.axis_index(batch_axis)
+    else:
+        xg, my_rows = x, 0
+    n_experts = params["router"].shape[1]
+    tpe2 = max(1, col.axis_size(axes) // n_experts)
+    my_expert = col.axis_index(axes) // tpe2
+    gates, idx = router_top_k(xg, params["router"], top_k)
+    w_tok = ((idx == my_expert).to(torch.float32) * gates).sum(dim=1)
+    out = _expert_ffn(xg[None], params["wg"], params["wi"],
+                      params["wo"])[0]
+    out = col.psum(out * w_tok[:, None].to(out.dtype), axes)
+    if batch_axis is not None:
+        out = out[my_rows * t_local:(my_rows + 1) * t_local]
+    return out

@@ -1,6 +1,6 @@
-"""Decoder stack — the port's copy of ``repro/models/transformer.py`` at
-tp = 1, for the dense, MoE, SSM, hybrid and VLM families (the
-encoder-decoder family is :mod:`repro_torch.models.encdec`).
+"""Decoder stack — the port's copy of ``repro/models/transformer.py``,
+for the dense, MoE, SSM, hybrid and VLM families (the encoder-decoder
+family is :mod:`repro_torch.models.encdec`).
 
 ``params["blocks"]`` and the decode caches are lists of per-block dicts
 (the reference stacks them on a leading axis and scans); a block's
@@ -11,8 +11,26 @@ type as the block runs, as the reference does
 (``cast_params_for_compute``); weights made with ``init_params(...,
 cast_blocks=True)`` are already of that type, so the cast is a no-op
 and the numbers are the same (serving only: training differentiates
-the f32 masters).  The MoE FFN runs the reference's ``dense`` mode (no
-mesh).
+the f32 masters).
+
+``tp`` pads the heads and the vocabulary as the reference does
+(``padded_heads``/``padded_vocab``) and splits each expert into
+``tpe = tp // E`` slices where there are fewer experts than ``tp``;
+without a mesh such a model runs whole on one rank, equal to the
+reference's mesh-free ``build(cfg, tp)``.  On a mesh
+(:mod:`repro_torch.parallel`; the params, caches, tokens and logits are
+this rank's blocks, as ``sharding`` lays them out) the attention and
+the dense FFN are tensor-parallel over "model"
+(:mod:`repro_torch.models.attention`, ``layers.swiglu``), the
+embedding and the logits vocab-parallel, the MoE FFN in the mode
+``moe_mode`` names (``a2a`` at prefill, ``psum`` at decode, or the
+two-axis ``ep2`` for a ``moe_ep_data`` config), the decode caches'
+slots sharded over "model" and their rows over the batch axes; each
+block's weights are all-gathered over "data" under the rules' ``fsdp``.
+The SSM families (mamba2, jamba) raise on a mesh whose "model" axis is
+above 1: the reference shards ``in_proj``'s packed output over "model"
+in one contiguous split, which does not fall on the SSD heads
+(ROADMAP.md §1 item 6.3b).  Training on a mesh is item 6.3b as well.
 
 Training (:func:`train_loss`): with ``cfg.remat`` each block, the cast
 of its f32 masters included, runs under ``torch.utils.checkpoint``
@@ -39,8 +57,16 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.embedding import embed_tokens, lm_logits, lm_loss
 from repro_torch.models.layers import (cast_params_for_compute, dense_init,
-                                       filled, rms_norm, split_keys, swiglu)
+                                       filled, fsdp_gather, rms_norm,
+                                       split_keys, swiglu)
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.axes import (current_fsdp, current_mesh,
+                                       current_rules, model_size)
 from repro_torch.tree import leaves
+
+#: what the port's NotImplementedError messages on a mesh cite: the SSM
+#: families on a model axis above 1, and training on a mesh
+MESH_ITEM = "ROADMAP.md §1 item 6.3b"
 
 # --------------------------------------------------------------------------
 # block structure
@@ -142,24 +168,73 @@ def _apply_dense_ffn(p, h):
     return swiglu(h, p["wg"], p["wi"], p["wo"])
 
 
-def _apply_moe(p, h, cfg):
-    """The reference's ``dense`` mode: every token of the batch routed
-    together."""
+def _apply_moe(p, h, cfg, moe_mode: str = "dense"):
+    """The MoE FFN in ``moe_mode`` (the reference's dispatch): ``dense``
+    without a mesh or on a "model" axis of 1; on a mesh ``a2a`` (this
+    rank's share of the tokens through the all-to-all, the outputs
+    all-gathered back over "model"), ``psum``, or ``ep2`` for a
+    ``moe_ep_data`` config."""
     b, s, d = h.shape
-    out = moe_mod.moe_ffn_dense(h.reshape(b * s, d), p, cfg.top_k,
-                                cfg.capacity_factor)
+    mesh = current_mesh()
+    if moe_mode == "dense" or mesh is None \
+            or mesh.shape.get("model", 1) == 1:
+        out = moe_mod.moe_ffn_dense(h.reshape(b * s, d), p, cfg.top_k,
+                                    cfg.capacity_factor)
+        return out.reshape(b, s, d)
+    batch = (current_rules() or {}).get("batch")
+    data_axis = "data" if ("data" in mesh.shape and mesh.shape["data"] > 1
+                           and current_fsdp()) else None
+    if cfg.moe_ep_data and "data" in mesh.shape:
+        # the serving layout: experts over (model x data) jointly, always
+        # the psum path
+        out = moe_mod.moe_ffn_psum_ep2(
+            h.reshape(b * s, d), p, cfg.top_k, ("model", "data"),
+            batch_axis="data" if batch is not None else None)
+        return out.reshape(b, s, d)
+    if moe_mode == "a2a":
+        return _moe_a2a(p, h, cfg, data_axis)
+    out = moe_mod.moe_ffn_psum(h.reshape(b * s, d), p, cfg.top_k, "model",
+                               data_axis)
     return out.reshape(b, s, d)
 
 
-def _apply_ffn(sub, ffn, h, cfg):
+def _moe_a2a(p, h, cfg, data_axis):
+    """``a2a`` in the reference's layout: this rank's (B, S / mp) block
+    of the sequence through the all-to-all, the outputs all-gathered back
+    over "model".  S must split over the "model" axis, as the reference's
+    ``shard_map`` over ``P(batch, "model", None)`` requires."""
+    b, s, d = h.shape
+    mp = model_size()
+    if s % mp:
+        raise ValueError(f"a2a shards the sequence over the model axis: "
+                         f"{s} tokens do not split over {mp} shards")
+    sl = s // mp
+    r = col.axis_index("model")
+    x = h[:, r * sl:(r + 1) * sl].reshape(b * sl, d)
+    out = moe_mod.moe_ffn_a2a(x, p, cfg.top_k, cfg.capacity_factor, "model",
+                              data_axis)
+    return col.all_gather(out.reshape(b, sl, d), "model", dim=1)
+
+
+def _apply_ffn(sub, ffn, h, cfg, moe_mode: str = "dense"):
     hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
     if ffn == "moe":
-        return h + _apply_moe(sub["moe"], hn, cfg)
+        return h + _apply_moe(sub["moe"], hn, cfg, moe_mode)
     return h + _apply_dense_ffn(sub["ffn"], hn)
 
 
+def _check_mesh(cfg: ModelConfig) -> None:
+    """The SSM families run on a mesh only where its "model" axis is 1."""
+    if model_size() > 1 and any(m == "mamba" for m, _ in block_spec(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: a Mamba mixer on a mesh whose model axis is "
+            f"{model_size()}: the reference splits in_proj's packed output "
+            f"contiguously over 'model', which does not fall on the SSD "
+            f"heads; {MESH_ITEM}")
+
+
 def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
-                      want_cache, max_seq, attn, tap):
+                      want_cache, max_seq, attn, tap, moe_mode="dense"):
     mixer, ffn = kind
     cache_out = {}
     hn = rms_norm(h, sub["ln1"], cfg.norm_eps)
@@ -167,15 +242,15 @@ def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
         out, (k, v) = attn_mod.attention_block(sub["attn"], hn, pos, cfg,
                                                nh, nkv, attn=attn, tap=tap)
         if want_cache:
-            cache_out = attn_mod.cache_from_prefill(k, v, pos_host, max_seq,
-                                                    cfg.window)
+            cache_out = attn_mod.prefill_cache(k, v, pos_host, max_seq,
+                                               cfg.window)
     else:
         out, (st, conv) = ssm_mod.mamba_forward(sub["mamba"], hn, cfg)
         if want_cache:
             cache_out = {"ssm": st, "conv": conv}
     h = h + out
     if ffn is not None:
-        h = _apply_ffn(sub, ffn, h, cfg)
+        h = _apply_ffn(sub, ffn, h, cfg, moe_mode)
     return h, cache_out
 
 
@@ -219,10 +294,12 @@ def remat(body, cfg: ModelConfig, *args, policy: str | None = None):
 
 def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             prefix_embeds=None, want_cache: bool = False,
-            max_seq: int | None = None, attn: str = "kernel", tap=None):
+            max_seq: int | None = None, attn: str = "kernel", tap=None,
+            moe_mode: str = "dense"):
     """Full-sequence forward.  Returns (h_final, caches_or_None).
     ``tap(layer, q, k, v, out, window=, causal=)`` sees every K4 call.
     Without ``want_cache`` each block runs under :func:`remat`."""
+    _check_mesh(cfg)
     nh, nkv = cfg.padded_heads(tp)
     spec = block_spec(cfg)
     dev = params["embed"].device
@@ -238,14 +315,14 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
     pos_host = np.arange(s, dtype=np.int32)
 
     def block(i, hh, block_params):
-        block_params = cast_params_for_compute(block_params,
-                                               cfg.compute_dtype)
+        block_params = fsdp_gather(cast_params_for_compute(
+            block_params, cfg.compute_dtype), ("blocks", i))
         block_caches = {}
         for j, kind in enumerate(spec):
             hh, c = _sublayer_forward(
                 block_params[f"sub{j}"], kind, hh, pos, pos_host, cfg, nh,
                 nkv, want_cache, max_seq, attn,
-                _tap(tap, i * len(spec) + j))
+                _tap(tap, i * len(spec) + j), moe_mode)
             block_caches[f"sub{j}"] = c
         return hh, block_caches
 
@@ -266,6 +343,7 @@ def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
     """batch: {tokens (B, S), labels (B, S), [prefix_embeds]} -> the
     mean next-token NLL, a 0-d f32 tensor (:func:`lm_loss` against the
     tied table or ``lm_head``)."""
+    _no_mesh_training()
     h, _ = forward(params, batch["tokens"], cfg, tp,
                    prefix_embeds=batch.get("prefix_embeds"), attn=attn,
                    tap=tap)
@@ -273,9 +351,25 @@ def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
     return lm_loss(h, table, batch["labels"], cfg.vocab)
 
 
+def _no_mesh_training() -> None:
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(f"training on a mesh of {mesh.size} "
+                                  f"ranks: {MESH_ITEM}")
+
+
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
+
+def local_batch(batch: int) -> int:
+    """This rank's rows of a global batch of ``batch`` under the current
+    rules' batch axes (``batch`` without a mesh)."""
+    mesh, rules = current_mesh(), current_rules() or {}
+    n = 1
+    for a in (rules.get("batch") or ()) if mesh is not None else ():
+        n *= mesh.shape[a]
+    return batch // n
 
 def _init_sub_cache(cfg: ModelConfig, mixer: str, batch: int,
                     max_seq: int, nkv: int, device):
@@ -296,8 +390,11 @@ def _init_sub_cache(cfg: ModelConfig, mixer: str, batch: int,
 
 def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
                     tp: int = 1, *, device="cpu"):
-    """Per-block empty decode caches (a list, one dict per block)."""
+    """Per-block empty decode caches (a list, one dict per block); on a
+    mesh this rank's blocks of the caches of a global ``batch``."""
+    _check_mesh(cfg)
     _nh, nkv = cfg.padded_heads(tp)
+    batch = local_batch(batch)
     return [{f"sub{j}": _init_sub_cache(cfg, mixer, batch, max_seq, nkv,
                                         device)
              for j, (mixer, _) in enumerate(block_spec(cfg))}
@@ -305,11 +402,15 @@ def init_cache_tree(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
-                tp: int = 1, *, attn: str = "kernel", tap=None):
+                tp: int = 1, *, attn: str = "kernel", tap=None,
+                moe_mode: str = "dense"):
     """One serve step: token (B, 1) ints, cur_pos a scalar position.
     Writes each block's attention cache in place and replaces its SSM
-    caches; returns (logits (B, V), caches).
+    caches; returns (logits (B, V), caches).  ``moe_mode`` ``a2a`` runs
+    as ``psum``, as in the reference.
     """
+    _check_mesh(cfg)
+    moe_mode = "psum" if moe_mode == "a2a" else moe_mode
     nh, nkv = cfg.padded_heads(tp)
     spec = block_spec(cfg)
     dev = params["embed"].device
@@ -318,8 +419,8 @@ def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
                      ).to(cfg.compute_dtype)
     for i, (block_params, block_caches) in enumerate(
             zip(params["blocks"], caches)):
-        block_params = cast_params_for_compute(block_params,
-                                               cfg.compute_dtype)
+        block_params = fsdp_gather(cast_params_for_compute(
+            block_params, cfg.compute_dtype), ("blocks", i))
         for j, (mixer, ffn) in enumerate(spec):
             sub = block_params[f"sub{j}"]
             c = block_caches[f"sub{j}"]
@@ -334,7 +435,7 @@ def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
                 block_caches[f"sub{j}"] = {"ssm": st, "conv": conv}
             h = h + out
             if ffn is not None:
-                h = _apply_ffn(sub, ffn, h, cfg)
+                h = _apply_ffn(sub, ffn, h, cfg, moe_mode)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     table = params.get("lm_head", params["embed"])
     return lm_logits(h, table, cfg.vocab), caches
@@ -342,10 +443,11 @@ def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
 
 def prefill(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             prefix_embeds=None, max_seq: int | None = None,
-            attn: str = "kernel", tap=None):
+            attn: str = "kernel", tap=None, moe_mode: str = "dense"):
     """Run the full prompt, return (last-token logits, caches)."""
     h, caches = forward(params, tokens, cfg, tp,
                         prefix_embeds=prefix_embeds, want_cache=True,
-                        max_seq=max_seq, attn=attn, tap=tap)
+                        max_seq=max_seq, attn=attn, tap=tap,
+                        moe_mode=moe_mode)
     table = params.get("lm_head", params["embed"])
     return lm_logits(h[:, -1:], table, cfg.vocab), caches

@@ -604,11 +604,17 @@ def test_tf32_kernel_constants_match_the_wrapper():
 
 
 def test_wrapper_binds_the_kernels_c_interface():
-    sig = re.search(
-        r'extern "C" int attention_block_sm90_tf32_forward\((.*?)\)',
-        _src(), re.S)[1]
-    params = [p.strip() for p in sig.split(",")]
-    assert sum(p.startswith("int ") for p in params) == 14
-    assert sum("*" in p for p in params) == 4 + 1        # + stream
-    assert 'lib.bind("attention_block_sm90_tf32_forward", 4, 14)' in \
-        Path(K4.__file__).read_text()
+    """The entry without the log-sum-exp (4 pointers) and the one with
+    it (an ``lse`` pointer after ``out``), 14 ints and the stream each;
+    the wrapper binds the one it calls by its pointer count."""
+    for entry, pointers in (("attention_block_sm90_tf32_forward", 4),
+                            ("attention_block_sm90_tf32_forward_lse", 5)):
+        sig = re.search(rf'extern "C" int {entry}\((.*?)\)', _src(),
+                        re.S)[1]
+        params = [p.strip() for p in sig.split(",")]
+        assert sum(p.startswith("int ") for p in params) == 14
+        assert sum("*" in p for p in params) == pointers + 1  # + stream
+    wrapper = Path(K4.__file__).read_text()
+    assert 'entry = "attention_block_sm90_tf32_forward"' in wrapper
+    assert 'entry += "_lse"' in wrapper
+    assert "lib.bind(entry, len(ptrs), 14)" in wrapper

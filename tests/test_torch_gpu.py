@@ -1592,3 +1592,37 @@ def test_loss_backward_through_k4_reaches_every_wq(cuda, dtype, route):
             <= 1e-4 * float(cpu_loss)
         for got, want in zip(leaves(card), leaves(cpu_g)):
             _close(got.grad.cpu(), want, 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,h,kv,hd,win,causal", ROUTED)
+def test_attention_lse_on_every_route(cuda, b, sq, skv, h, kv, hd, win,
+                                      causal, dtype):
+    """``lse=True`` on every route that takes the case: ``out`` the same
+    bits as without it, each row's log-sum-exp within the route's gate of
+    the plain version's (``-inf`` exactly where a row keeps no key), and
+    one ``lse`` launch counted for the route."""
+    g = torch.Generator().manual_seed(11)
+    q, k, v = (torch.randn(s, generator=g).to(cuda, dtype)
+               for s in ((b * h, sq, hd), (b * kv, skv, hd),
+                         (b * kv, skv, hd)))
+    _, want = attention_plain(q, k, v, groups=h // kv, window=win,
+                              causal=causal, return_lse=True)
+    routes = ["fma"]
+    if dtype == torch.bfloat16 and K4.sm90_head_dim(hd) is not None:
+        routes.append("sm90")
+    if dtype == torch.float32 and K4.sm90_tf32_head_dim(hd) is not None:
+        routes.append("sm90_tf32")
+    for rt in routes:
+        args = dict(groups=h // kv, window=win, causal=causal, via=rt)
+        plain_out = K4.attention(q, k, v, **args)
+        before = dict(K4.attention.lse_launches_by_route)
+        out, lse = K4.attention(q, k, v, lse=True, **args)
+        torch.cuda.synchronize()
+        assert K4.attention.lse_launches_by_route == dict(
+            before, **{rt: before[rt] + 1})
+        assert torch.equal(out, plain_out)
+        assert lse.dtype == torch.float32 and lse.shape == (b * h, sq)
+        empty = torch.isneginf(want)
+        assert torch.equal(torch.isneginf(lse), empty)
+        _within(lse[~empty], want[~empty], dtype)

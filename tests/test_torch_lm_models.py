@@ -525,9 +525,27 @@ def test_ssm_cache_leaf_of_one_dim_is_not_pos():
                for c in b.values() for x in c.values())
 
 
+class _StandInMesh:
+    """What the models read of a mesh before any collective runs."""
+    shape = {"data": 1, "model": 2}
+    axis_names = ("data", "model")
+    size = 2
+
+
 def test_what_is_not_ported_raises():
-    with pytest.raises(NotImplementedError, match="tp"):
-        build(reduced(get_config("phi3-medium-14b")), tp=2)
+    """A Mamba mixer on a mesh whose model axis is above 1, and training
+    on a mesh, wait for ROADMAP.md §1 item 6.3b; tp itself no longer
+    raises."""
+    from repro_torch.parallel.axes import axis_rules
+    for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
+        api = build(reduced(get_config(arch)), tp=2)
+        with axis_rules({"batch": None}, _StandInMesh()):
+            with pytest.raises(NotImplementedError, match="6.3b"):
+                api.init_cache(2, 8, device="cpu")
+    phi3 = build(reduced(get_config("phi3-medium-14b")), tp=2)
+    with axis_rules({"batch": None}, _StandInMesh()):
+        with pytest.raises(NotImplementedError, match="6.3b"):
+            phi3.train_loss({}, {"tokens": None, "labels": None})
     api = build(reduced(get_config("phi3-medium-14b")))
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="attn"):

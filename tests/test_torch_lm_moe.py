@@ -220,5 +220,16 @@ def test_init_moe_shapes():
 @pytest.mark.parametrize("mode", ["moe_ffn_a2a", "moe_ffn_psum",
                                   "moe_ffn_psum_ep2"])
 def test_mesh_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        getattr(M, mode)(None, None, 2, 1.25)
+    """The mesh modes are the bodies of the reference's shard_map: with no
+    mesh installed their first collective refuses
+    (tests/test_torch_parallel.py holds them against the reference's on
+    a mesh)."""
+    x = torch.zeros((4, 8))
+    params = {"router": torch.zeros((8, 2)), "wg": torch.zeros((1, 8, 4)),
+              "wi": torch.zeros((1, 8, 4)), "wo": torch.zeros((1, 4, 8))}
+    args = {"moe_ffn_a2a": (x, params, 2, 1.25, "model", None),
+            "moe_ffn_psum": (x, params, 2, "model", None),
+            "moe_ffn_psum_ep2": (x, params, 2, ("model", "data"),
+                                 None)}[mode]
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        getattr(M, mode)(*args)
