@@ -183,6 +183,19 @@
     and with a failure injected before step 15 (restored from step 10
     and replayed): the final params and moments equal bit for bit, the
     replayed losses equal, the loss falling; step and save times;
+  * ``lm_train_mesh``: ``lm_train``'s 20 steps again through
+    ``make_trainer(cfg, mesh, ...)`` on a one-rank NCCL group's (1, 1)
+    mesh (the sharded step: FSDP gathers, tensor-parallel boundaries,
+    vocab-parallel loss, gradient sync and the global norm across
+    shards, every one on an axis of size 1): each step's loss and grad
+    norm and every param's fingerprint after step 20 equal
+    ``lm_train``'s bit for bit, 48 K4 ``sm90`` launches a step, no
+    collective counted; step ms beside ``lm_train``'s;
+  * ``lm_train_mesh_resilient``: ``lm_train_resilient``'s failed run on
+    that mesh, its checkpoints sharded (whole leaves, rank 0 writing),
+    ``on_restart`` building a fresh mesh from ``plan_remesh(1, 1, 8)``
+    and resharding the restored state onto it: the final state and the
+    step-10 checkpoint equal the clean mesh-free run's bit for bit;
   * ``mesh_attention``: K4's log-sum-exp output at the sharded decode's
     shapes (phi3's 4 x 40 heads over 10 and mixtral's 4 x 32 over 8,
     hd 128, one query against 4096 slots) on ``sm90`` (bf16),
@@ -270,6 +283,7 @@ import datetime
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -321,7 +335,7 @@ from repro_torch.launch import steps as LM_STEPS  # noqa: E402
 from repro_torch.launch import train_vgg as T  # noqa: E402
 from repro_torch.launch.serve import BatchedServer  # noqa: E402
 from repro_torch.launch.serve import Request as LmRequest  # noqa: E402
-from repro_torch.launch.train import make_trainer  # noqa: E402
+from repro_torch.launch.train import make_step, make_trainer  # noqa: E402
 from repro_torch.launch.yardstick import WGRAD_TOL, within  # noqa: E402
 from repro_torch.launch.yardstick import device_ms as _device_ms  # noqa: E402,E501
 from repro_torch.launch.yardstick import time_ms as _time_ms  # noqa: E402
@@ -342,6 +356,7 @@ from repro_torch.models.graph import (graph_logits,  # noqa: E402
 from repro_torch.obs.tracer import Tracer  # noqa: E402
 from repro_torch.optim import adamw as ADAMW  # noqa: E402
 from repro_torch.parallel import collectives as COL  # noqa: E402
+from repro_torch.runtime.elastic import plan_remesh  # noqa: E402
 from repro_torch.runtime.fault_tolerance import (  # noqa: E402
     ResilienceConfig, run_resilient)
 from repro_torch.serve import (FaultPlan, ImageServer,  # noqa: E402
@@ -4166,12 +4181,15 @@ def phase_lm_train(card: str) -> dict:
       * then one step at 1 x 4096 tokens, twice (the first warms), and
         its ``value_and_grad`` with every K4 call tapped;
       * step ms, tokens/s, peak memory; one profiled step at each shape
-        beside its byte and FLOP bounds (:func:`train_bounds`)."""
+        beside its byte and FLOP bounds (:func:`train_bounds`);
+      * after step 20 every param leaf's fingerprint
+        (:func:`param_fingerprint`), which ``lm_train_mesh`` is held to
+        with each step's loss and grad norm."""
     _free()
     torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
                               n_layers=LM_TRAIN_BLOCKS)
-    run_step, state, api = make_trainer(
+    run_step, state, api, _rules = make_trainer(
         cfg, global_batch=LM_TRAIN_B, seq_len=LM_TRAIN_S,
         peak_lr=LM_TRAIN_LR, total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP,
         device="cuda")
@@ -4209,6 +4227,7 @@ def phase_lm_train(card: str) -> dict:
             require(not torch.equal(wq, wq0),
                     "lm_train: step 1 left wq unchanged")
     del wq0, embed0
+    fingerprint = param_fingerprint(state.params)
     loss_err = abs(losses[0] - step0["plain_loss"]) / abs(step0["plain_loss"])
     gnorm_err = (abs(gnorms[0] - step0["plain_gnorm"])
                  / abs(step0["plain_gnorm"]))
@@ -4271,7 +4290,9 @@ def phase_lm_train(card: str) -> dict:
           "peak_gb": peak / 1e9, "card": card})
     del state, run_step, api
     _free()
-    return {"bf16": _merged(*counts), "step_ms_median": step_ms}
+    return {"bf16": _merged(*counts), "step_ms_median": step_ms,
+            "losses": losses, "grad_norms": gnorms,
+            "fingerprint": fingerprint, "peak_gb": peak / 1e9}
 
 
 def phase_lm_train_f32(card: str) -> dict:
@@ -4364,15 +4385,18 @@ def phase_lm_train_resilient(card: str) -> dict:
     steps' losses equal the first pass's, and the loss at step 29 below
     step 0's.  Step times on the host clock (one step's end to the
     next's, the batch drawn included), the loop's own step times (to
-    the step's return) and the worker's save times."""
+    the step's return) and the worker's save times.  The clean run's
+    final state and its checkpoint directory are handed on to
+    ``lm_train_mesh_resilient`` (which removes the directory)."""
     cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), **RESILIENT_CUT)
     dc = DataConfig(vocab=cfg.vocab, seq_len=RESILIENT_S,
                     global_batch=RESILIENT_B, seed=SEED)
     per_step = 2 * attention_layers(cfg)
     runs = {}
+    clean_dir = tempfile.mkdtemp(prefix="lm_train_resilient_")
     for name, fail_at in (("clean", None), ("failed", RESILIENT_FAIL)):
         _free()
-        run_step, state, _api = make_trainer(
+        run_step, state, _api, _rules = make_trainer(
             cfg, global_batch=RESILIENT_B, seq_len=RESILIENT_S,
             peak_lr=RESILIENT_LR, total_steps=RESILIENT_N, device="cuda")
         seen, ends = [], [time.perf_counter()]
@@ -4387,13 +4411,15 @@ def phase_lm_train_resilient(card: str) -> dict:
             seen.append((step, float(m["loss"])))
             ends.append(time.perf_counter())
         c = {}
-        with tempfile.TemporaryDirectory() as d, counted(c), \
-                no_plain_attention():
-            report = run_resilient(
-                state, run_step, lambda s: global_batch_at(dc, s),
-                RESILIENT_N, ResilienceConfig(ckpt_dir=d,
-                                              ckpt_every=RESILIENT_EVERY),
-                failure_hook=hook, metrics_cb=cb)
+        with contextlib.ExitStack() as stack:
+            d = clean_dir if fail_at is None else stack.enter_context(
+                tempfile.TemporaryDirectory())
+            with counted(c), no_plain_attention():
+                report = run_resilient(
+                    state, run_step, lambda s: global_batch_at(dc, s),
+                    RESILIENT_N, ResilienceConfig(
+                        ckpt_dir=d, ckpt_every=RESILIENT_EVERY),
+                    failure_hook=hook, metrics_cb=cb)
             saved = sorted(os.listdir(d))
         runs[name] = {"report": report, "seen": seen, "counts": c,
                       "saved": saved, "secs": np.diff(ends)}
@@ -4451,9 +4477,11 @@ def phase_lm_train_resilient(card: str) -> dict:
           "tokens_per_s": RESILIENT_B * RESILIENT_S
           / float(np.median(clean["secs"])),
           "card": card})
-    del runs, a, b
+    del runs, b
     _free()
-    return {"bf16": _merged(clean["counts"], failed["counts"])}
+    return {"bf16": _merged(clean["counts"], failed["counts"]),
+            "clean_state": a.final_state, "clean_dir": clean_dir,
+            "clean_losses": first}
 
 
 #: ``mesh_attention``: the decode shapes whose cache is cut into slot
@@ -4639,6 +4667,214 @@ def one_rank_nccl():
     finally:
         dist.destroy_process_group()
         MESH_RENDEZVOUS.unlink(missing_ok=True)
+
+
+def param_fingerprint(params) -> list:
+    """Every leaf's f64 sum and sum of squares, in flattening order, each
+    taken over slices of 2^26 elements (no f64 copy of a whole leaf)."""
+    out = []
+    for t in TREE.leaves(params):
+        flat = t.detach().reshape(-1)
+        total = squares = 0.0
+        for i in range(0, flat.numel(), 1 << 26):
+            x = flat[i:i + (1 << 26)].to(torch.float64)
+            total += float(x.sum())
+            squares += float(x.square().sum())
+        out.append((total, squares))
+    return out
+
+
+def phase_lm_train_mesh(card: str, mesh, train: dict) -> dict:
+    """``lm_train``'s run through ``make_trainer(cfg, mesh, ...)`` on the
+    one-rank NCCL group's (1, 1) mesh: minitron-4b at full width and 24
+    blocks, bf16 compute on f32 masters, the same 20 batches and
+    schedule (8 x 128, peak lr 3e-4, warmup 2), after ``lm_train``'s
+    state is freed (two 55 GB states do not fit).  Gated bit for bit
+    against ``lm_train``'s recorded mesh-free run: each step's loss and
+    grad norm, and after step 20 every param leaf's fingerprint.  Also
+    gated: 48 K4 ``sm90`` launches a step and nothing else of K1-K4, no
+    plain attention, and no collective counted (every axis has size 1:
+    the mesh path's boundaries, gathers, gradient sync and shard-aware
+    norm are all no-ops).  Step ms beside ``lm_train``'s, tokens/s and
+    peak memory."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
+                              n_layers=LM_TRAIN_BLOCKS)
+    COL.reset()
+    run_step, state, _api, rules = make_trainer(
+        cfg, mesh, global_batch=LM_TRAIN_B, seq_len=LM_TRAIN_S,
+        peak_lr=LM_TRAIN_LR, total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
+                    global_batch=LM_TRAIN_B, seed=SEED)
+    per_step = 2 * attention_layers(cfg)
+    counts, losses, gnorms, secs = [], [], [], []
+    for i in range(LM_TRAIN_N):
+        batch = global_batch_at(dc, i)
+        c = {}
+        with counted(c), no_plain_attention():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_step(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        require(k4_only(c, "sm90", per_step),
+                f"lm_train_mesh step {i} launches {c}")
+        counts.append(c)
+        losses.append(loss)
+        gnorms.append(gnorm)
+    fingerprint = param_fingerprint(state.params)
+    collectives = COL.counts_by_op()
+    peak = torch.cuda.max_memory_allocated()
+    losses_equal = losses == train["losses"]
+    gnorms_equal = gnorms == train["grad_norms"]
+    params_equal = fingerprint == train["fingerprint"]
+    require(losses_equal and gnorms_equal and params_equal,
+            f"lm_train_mesh against lm_train: losses equal {losses_equal}, "
+            f"grad norms equal {gnorms_equal}, params equal {params_equal} "
+            f"(losses {losses} vs {train['losses']})")
+    require(not collectives, f"lm_train_mesh: collectives counted on a "
+                             f"(1, 1) mesh: {collectives}")
+    step_ms = _median(secs) * 1e3
+    emit({"phase": "lm_train_mesh", "config": LM_TRAIN_ARCH,
+          "blocks": LM_TRAIN_BLOCKS, "mesh": dict(mesh.shape),
+          "backend": torch.distributed.get_backend(),
+          "rules": {k: v for k, v in rules.items()},
+          "dtype": str(cfg.compute_dtype), "batch": LM_TRAIN_B,
+          "seq": LM_TRAIN_S, "steps": LM_TRAIN_N, "peak_lr": LM_TRAIN_LR,
+          "warmup": LM_TRAIN_WARMUP, "k4_sm90_per_step": per_step,
+          "launches": _merged(*counts), "collectives": collectives,
+          "losses": losses, "grad_norms": gnorms,
+          "losses_bit_equal": losses_equal,
+          "grad_norms_bit_equal": gnorms_equal,
+          "param_fingerprints_equal": params_equal,
+          "param_leaves": len(fingerprint),
+          "step_ms_median": step_ms, "step_ms_min": min(secs) * 1e3,
+          "step_ms_max": max(secs) * 1e3,
+          "step_ms_median_mesh_free": train["step_ms_median"],
+          "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / _median(secs),
+          "peak_gb": peak / 1e9, "peak_gb_mesh_free": train["peak_gb"],
+          "card": card})
+    del state, run_step, _api
+    _free()
+    return {"bf16": _merged(*counts), "step_ms_median": step_ms}
+
+
+def _read_checkpoint(d: str, step: int) -> tuple[dict, dict]:
+    """A checkpoint step's manifest (less its time) and its arrays."""
+    path = os.path.join(d, f"step_{step:08d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    manifest.pop("time")
+    with np.load(os.path.join(path, "shard_0.npz")) as data:
+        return manifest, {k: data[k] for k in data.files}
+
+
+def phase_lm_train_mesh_resilient(card: str, mesh, resilient: dict) -> dict:
+    """``lm_train_resilient``'s failed run on the one-rank NCCL group's
+    (1, 1) mesh: the 75.5M ``train_100m`` config in bf16, 30 steps of
+    8 x 256 through ``make_trainer(cfg, mesh, ...)`` and
+    ``run_resilient``, sharded checkpoints (whole leaves, written by
+    rank 0) every 10 steps, a failure before step 15; ``on_restart``
+    builds a fresh mesh from ``plan_remesh(1, 1, 8)`` and returns its
+    step (``make_step``), onto which the restored whole leaves are
+    resharded.  Gated: the final params and moments equal the clean
+    mesh-free run's bit for bit; the step-10 checkpoint's manifest and
+    leaves equal the clean mesh-free run's; 16 K4 ``sm90`` launches a
+    step (35 steps); no collective counted.  Removes the clean run's
+    checkpoint directory."""
+    cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH), **RESILIENT_CUT)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=RESILIENT_S,
+                    global_batch=RESILIENT_B, seed=SEED)
+    per_step = 2 * attention_layers(cfg)
+    kw = dict(global_batch=RESILIENT_B, seq_len=RESILIENT_S,
+              peak_lr=RESILIENT_LR, total_steps=RESILIENT_N)
+    _free()
+    COL.reset()
+    run_step, state, _api, _rules = make_trainer(cfg, mesh, **kw)
+    fired, meshes, seen = [], [], []
+
+    def hook(step):
+        if step == RESILIENT_FAIL and not fired:
+            fired.append(step)
+            raise RuntimeError("injected node failure")
+
+    def on_restart(restarts):
+        plan = plan_remesh(1, 1, RESILIENT_B)
+        new = plan.build_mesh("cuda")
+        meshes.append((plan.shape, plan.global_batch, dict(new.shape)))
+        return make_step(cfg, new, **dict(kw, global_batch=plan.global_batch))
+
+    c = {}
+    clean_dir = resilient["clean_dir"]
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            with counted(c), no_plain_attention():
+                report = run_resilient(
+                    state, run_step, lambda s: global_batch_at(dc, s),
+                    RESILIENT_N, ResilienceConfig(
+                        ckpt_dir=d, ckpt_every=RESILIENT_EVERY),
+                    failure_hook=hook, on_restart=on_restart,
+                    metrics_cb=lambda i, m: seen.append((i, float(
+                        m["loss"]))))
+            saved = sorted(os.listdir(d))
+            mine = _read_checkpoint(d, RESILIENT_EVERY)
+        theirs = _read_checkpoint(clean_dir, RESILIENT_EVERY)
+    finally:
+        shutil.rmtree(clean_dir, ignore_errors=True)
+    collectives = COL.counts_by_op()
+    replayed = RESILIENT_FAIL - RESILIENT_FAIL // RESILIENT_EVERY \
+        * RESILIENT_EVERY
+    require(report.steps_done == RESILIENT_N and report.restarts == 1
+            and report.failures == [(RESILIENT_FAIL,
+                                     "RuntimeError('injected node failure')")]
+            and len(meshes) == 1 and meshes[0][0] == (1, 1),
+            f"lm_train_mesh_resilient: steps {report.steps_done}, restarts "
+            f"{report.restarts}, failures {report.failures}, meshes "
+            f"{meshes}")
+    require(k4_only(c, "sm90", per_step * (RESILIENT_N + replayed)),
+            f"lm_train_mesh_resilient launches {c}, want {per_step} x "
+            f"{RESILIENT_N + replayed}")
+    require(not collectives, f"lm_train_mesh_resilient: collectives "
+                             f"counted on a (1, 1) mesh: {collectives}")
+    clean = resilient["clean_state"]
+    unequal = [p for part in ("params", "opt") for (p, x), (_, y) in zip(
+        TREE.leaves_with_paths(getattr(clean, part)),
+        TREE.leaves_with_paths(getattr(report.final_state, part)))
+        if not torch.equal(x, y)]
+    require(not unequal, f"lm_train_mesh_resilient: the final state differs "
+                         f"from the clean mesh-free run's at {unequal[:5]} "
+                         f"({len(unequal)} leaves)")
+    ckpt_equal = mine[0] == theirs[0] and mine[1].keys() == theirs[1].keys() \
+        and all(np.array_equal(v, theirs[1][k]) for k, v in mine[1].items())
+    require(ckpt_equal, f"lm_train_mesh_resilient: the step-"
+                        f"{RESILIENT_EVERY} checkpoint differs from the "
+                        f"clean mesh-free run's")
+    losses = resilient["clean_losses"]
+    replay_equal = all(losses[i] == v for i, v in seen)
+    require(replay_equal, "lm_train_mesh_resilient: a step's loss differs "
+                          "from the clean mesh-free run's")
+    emit({"phase": "lm_train_mesh_resilient", "config": "train_100m",
+          "cut": RESILIENT_CUT, "mesh": dict(mesh.shape),
+          "dtype": str(cfg.compute_dtype), "batch": RESILIENT_B,
+          "seq": RESILIENT_S, "steps": RESILIENT_N,
+          "ckpt_every": RESILIENT_EVERY, "fail_before_step": RESILIENT_FAIL,
+          "restarts": report.restarts, "failures": report.failures,
+          "remesh": [{"plan": list(p), "global_batch": gb, "mesh": m}
+                     for p, gb, m in meshes],
+          "steps_replayed": replayed, "launches": c,
+          "collectives": collectives,
+          "final_state_bit_equal_clean": not unequal,
+          "ckpt_step_leaves": len(mine[1]),
+          "ckpt_bit_equal_clean": ckpt_equal,
+          "losses_equal_clean": replay_equal, "saved_dirs": saved,
+          "loop_step_ms_median": float(np.median(report.step_times)) * 1e3,
+          "save_s": report.save_seconds, "card": card})
+    del report, state, run_step
+    resilient.pop("clean_state")
+    _free()
+    return {"bf16": c}
 
 
 def phase_lm_serve_mesh(card: str) -> dict:
@@ -5789,6 +6025,12 @@ def main() -> int:
     resilient = phase_lm_train_resilient(card)
     lm_train = {"bf16": _merged(train["bf16"], resilient["bf16"]),
                 "f32": train_f32["f32"]}
+    with one_rank_nccl() as mesh:
+        train_mesh = phase_lm_train_mesh(card, mesh, train)
+        train_mesh_resilient = phase_lm_train_mesh_resilient(card, mesh,
+                                                             resilient)
+    lm_train_mesh = {"bf16": _merged(train_mesh["bf16"],
+                                     train_mesh_resilient["bf16"])}
     mesh_flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
     mesh_attn = phase_mesh_attention(card, mesh_flush)
     del mesh_flush
@@ -6234,6 +6476,7 @@ def main() -> int:
                "launches_lm_serve_hybrid": hybrid,
                "launches_lm_serve_encdec": encdec,
                "launches_lm_train": lm_train,
+               "launches_lm_train_mesh": lm_train_mesh,
                "launches_lm_serve_mesh": lm_mesh}
     for k in kernels:
         counter = counter_of(k)
@@ -6274,6 +6517,13 @@ def main() -> int:
             and by_name["attention_sm90_tf32"]["launches_lm_train"] > 0
             and by_name["attention"]["launches_lm_train"] == 0,
             "lm_train: K4's launches by route")
+    train_mesh_runs = {n: by_name[n]["launches_lm_train_mesh"]
+                       for n in ("attention_sm90", "attention",
+                                 "attention_sm90_tf32")}
+    require(train_mesh_runs["attention_sm90"] > 0
+            and train_mesh_runs["attention"] == 0
+            and train_mesh_runs["attention_sm90_tf32"] == 0,
+            f"lm_train_mesh: K4's launches by route {train_mesh_runs}")
     mesh_runs = {n: by_name[n]["launches_lm_serve_mesh"]
                  for n in ("attention_sm90", "attention",
                            "attention_sm90_tf32")}

@@ -21,7 +21,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = reduced(get_config("minitron-4b"), d_model=64, vocab=64,
                   n_layers=2, attn_chunk=32)
-    run_step, state, api = make_trainer(
+    run_step, state, api, _rules = make_trainer(
         cfg, global_batch=8, seq_len=64, peak_lr=3e-3, total_steps=40,
         device=args.device)
     dc = DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=8)

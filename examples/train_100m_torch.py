@@ -43,7 +43,7 @@ def main(argv=None):
     n_params = cfg.param_count()
     print(f"config: {cfg.name}-100m  ~{n_params/1e6:.0f}M params")
 
-    run_step, state, api = make_trainer(
+    run_step, state, api, _rules = make_trainer(
         cfg, global_batch=args.batch, seq_len=args.seq, peak_lr=1e-3,
         total_steps=args.steps, device=args.device)
     dc = DataConfig(vocab=cfg.vocab, seq_len=args.seq,

@@ -19,6 +19,19 @@ first takes a snapshot of every tensor on its own device (a copy
 enqueued on the caller's stream ahead of the next step's update); the
 worker copies the snapshot to the host and writes it, so training does
 not wait for the device-to-host copy or the filesystem.
+
+A state sharded over a mesh (``layout``, a
+:class:`~repro_torch.parallel.sharding.Layout`) is saved as the
+reference saves its sharded state: whole leaves under the reference's
+manifest, each gathered from every rank's block
+(:func:`~repro_torch.parallel.sharding.gather_whole`; a collective, so
+every rank calls ``save``/``submit`` and none returns before every
+rank's blocks are in the gathered copy), written by rank 0 alone; the
+ranks meet at a barrier after a synchronous save and in
+:meth:`AsyncCheckpointer.wait`, so none reads a step before it is on
+disk.  ``restore(..., whole=True)`` reads the whole leaves by the
+manifest's shapes, whatever the mesh ``like`` was sharded for, for the
+caller to cut onto any mesh (``runtime.elastic.reshard_state``).
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import leaves, paths, tree_map, unflatten
 
@@ -72,9 +86,35 @@ def _shape(leaf) -> list[int]:
         else list(np.shape(leaf))
 
 
+def _writer(layout) -> bool:
+    """Does this rank write a ``layout``'s checkpoints (rank 0 does)?"""
+    return layout is None or dist.get_rank() == 0
+
+
+def barrier(layout) -> None:
+    """Every rank of a ``layout``'s world waits for the others (nothing
+    without a layout or on one rank)."""
+    if layout is not None and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def save(ckpt_dir: str, step: int, tree: Any, *, host_id: int = 0,
-         n_hosts: int = 1) -> str:
-    """Write one checkpoint step atomically.  Returns the final path."""
+         n_hosts: int = 1, layout=None) -> str:
+    """Write one checkpoint step atomically.  Returns the final path.
+    With ``layout`` every rank calls it: the whole leaves are gathered,
+    rank 0 writes them, and the ranks meet at a barrier."""
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if layout is not None:
+        tree = layout.whole(tree)
+        if _writer(layout):
+            _write(ckpt_dir, step, tree, host_id=0, n_hosts=1)
+        barrier(layout)
+        return final
+    return _write(ckpt_dir, step, tree, host_id=host_id, n_hosts=n_hosts)
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, *, host_id: int,
+           n_hosts: int) -> str:
     flat = leaves(tree)
     names = paths(tree)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -125,8 +165,10 @@ def _restored(arr: np.ndarray, dtype: str, like):
 
 
 def restore(ckpt_dir: str, step: int, like: Any, *, host_id: int = 0,
-            n_hosts: int = 1) -> Any:
-    """Restore into the structure of ``like`` (shapes validated)."""
+            n_hosts: int = 1, whole: bool = False) -> Any:
+    """Restore into the structure of ``like`` (shapes validated against
+    ``like``'s leaves, or with ``whole`` against the manifest's: the
+    whole leaves of a state ``like`` holds blocks of)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -140,10 +182,11 @@ def restore(ckpt_dir: str, step: int, like: Any, *, host_id: int = 0,
             for key in data.files:
                 i = int(key.split("_")[1])
                 arr = data[key]
-                if list(arr.shape) != _shape(flat[i]):
+                want = manifest["shapes"][i] if whole else _shape(flat[i])
+                if list(arr.shape) != list(want):
                     raise ValueError(
                         f"shape mismatch restoring leaf {i}: "
-                        f"{arr.shape} vs {tuple(_shape(flat[i]))}")
+                        f"{arr.shape} vs {tuple(want)}")
                 out[i] = _restored(arr, manifest["dtypes"][i], flat[i])
     return unflatten(like, out)
 
@@ -163,11 +206,14 @@ def _snapshot(leaf):
 
 
 class AsyncCheckpointer:
-    """Non-blocking saves; at most one in flight, newest wins."""
+    """Non-blocking saves; at most one in flight, newest wins.  With
+    ``layout`` every rank submits (the gather is a collective) and waits;
+    rank 0's worker writes."""
 
-    def __init__(self, ckpt_dir: str, *, keep: int = 3):
+    def __init__(self, ckpt_dir: str, *, keep: int = 3, layout=None):
         self.ckpt_dir = ckpt_dir
         self.keep = keep
+        self.layout = layout
         self._pending: tuple[int, Any] | None = None
         self._lock = threading.Lock()
         self._event = threading.Event()
@@ -180,6 +226,10 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def submit(self, step: int, tree: Any):
+        if self.layout is not None:
+            tree = self.layout.whole(tree)
+            if not _writer(self.layout):
+                return
         snap = tree_map(_snapshot, tree)
         with self._lock:
             self._pending = (step, snap)
@@ -200,7 +250,8 @@ class AsyncCheckpointer:
                 continue
             step, tree = job
             t0 = time.perf_counter()
-            save(self.ckpt_dir, step, tree)    # the host copy happens here
+            # the host copy happens here
+            _write(self.ckpt_dir, step, tree, host_id=0, n_hosts=1)
             del tree
             self.save_seconds.append(time.perf_counter() - t0)
             self._last_saved = step
@@ -227,6 +278,7 @@ class AsyncCheckpointer:
         t0 = time.time()
         while self._busy and time.time() - t0 < timeout:
             time.sleep(0.01)
+        barrier(self.layout)
 
     def close(self):
         self._stop = True

@@ -8,6 +8,14 @@ which writes the new params and moments into the state's own tensors
 ``step`` and its optimizer's are 0-d int32 tensors on the host, so the
 learning rate is chosen on the host without a device sync; ``loss`` and
 ``grad_norm`` come back as 0-d device tensors, ``lr`` as a float.
+
+On a mesh (the rules installed: :func:`repro_torch.parallel.axes.
+axis_rules`) the state's params and moments are this rank's blocks and
+its step counters host ints on every rank; :func:`value_and_grad` syncs
+the gradients over the batch axes
+(:func:`~repro_torch.parallel.sharding.sync_grads`) and the optimizer
+takes the global norm across the shards
+(:func:`~repro_torch.parallel.sharding.norm_axes`).
 """
 
 from __future__ import annotations
@@ -20,6 +28,9 @@ import torch
 
 from repro_torch.models.api import ModelAPI
 from repro_torch.optim import adamw
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.axes import current_fsdp, current_mesh, \
+    current_rules
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.tree import leaves, unflatten
 
@@ -53,9 +64,13 @@ def value_and_grad(api: ModelAPI, params, batch, **kw):
         for t in flat:
             t.requires_grad_(False)
     # a leaf the loss does not reach gets zeros, as under jax.grad
-    grads = [torch.zeros_like(t) if g is None else g
-             for t, g in zip(flat, grads)]
-    return loss.detach(), unflatten(params, grads)
+    grads = unflatten(params, [torch.zeros_like(t) if g is None else g
+                               for t, g in zip(flat, grads)])
+    mesh = current_mesh()
+    if mesh is not None:
+        grads = sh.sync_grads(grads, mesh, current_rules(), current_fsdp(),
+                              api.cfg.moe_ep_data)
+    return loss.detach(), grads
 
 
 def make_train_step(api: ModelAPI, *, peak_lr: float = 3e-4,
@@ -67,8 +82,12 @@ def make_train_step(api: ModelAPI, *, peak_lr: float = 3e-4,
     def train_step(state: TrainState, batch):
         loss, grads = value_and_grad(api, state.params, batch)
         lr = lr_fn(int(state.step))
+        mesh = current_mesh()
+        axes = sh.norm_axes(state.params, mesh, current_fsdp(),
+                            api.cfg.moe_ep_data) if mesh is not None else None
         new_params, new_opt, gnorm = adamw.update(
-            state.params, grads, state.opt, lr=lr, clip=clip)
+            state.params, grads, state.opt, lr=lr, clip=clip,
+            norm_axes=axes)
         del grads
         new_state = TrainState(params=new_params, opt=new_opt,
                                step=state.step + 1)

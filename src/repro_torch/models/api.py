@@ -29,8 +29,8 @@ for the ``encdec`` family:
 take and return this rank's blocks and ``tp`` must be the mesh's
 "model" size.  :func:`_moe_mode` picks the MoE mode as the reference's
 does: ``dense`` without a mesh, ``psum`` at decode and ``a2a``
-otherwise.  The reference's ``input_specs`` and ``make_batch`` wait
-for the port's dry-run (ROADMAP.md §1 item 6.3b).
+otherwise (prefill and training).  The reference's ``input_specs`` and
+``make_batch`` wait for the port's dry-run (ROADMAP.md §1 item 6.3d).
 """
 
 from __future__ import annotations
@@ -94,7 +94,8 @@ def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:
                                            device=resolve_device(device))
 
     def _train_loss(p, b, **kw):
-        return transformer.train_loss(p, b, cfg, tp, **kw)
+        return transformer.train_loss(p, b, cfg, tp,
+                                      moe_mode=_moe_mode("train"), **kw)
 
     return ModelAPI(
         cfg=cfg, tp=tp,

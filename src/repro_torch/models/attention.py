@@ -41,11 +41,14 @@ chunk padding.
 On a mesh (:mod:`repro_torch.parallel`; ``n_heads`` and ``n_kv_heads``
 are the model's padded counts, which split evenly over "model"):
 
-  * prefill: ``wq``/``wk``/``wv`` are column shards, so each rank
-    projects and attends over its own heads (query heads
+  * prefill and training: ``wq``/``wk``/``wv`` are column shards, so
+    each rank projects and attends over its own heads (query heads
     ``[r * H_l, (r + 1) * H_l)`` read kv heads ``[r * KV_l, ...)``, the
     same groups as the whole); ``wo`` is a row shard, its partial
-    products summed over "model";
+    products summed over "model" (the boundaries of
+    :func:`~repro_torch.models.layers.column_input` and ``row_output``,
+    under autograd; K4's backward, ``attention_vjp``, stays on the
+    rank's heads);
   * decode: the cache's slots are sharded over "model" (slot ``s``
     belongs to shard ``s // slots_local``), with every kv head; the new
     token's q, k and v are all-gathered over "model", the owner of slot
@@ -72,8 +75,9 @@ import torch
 
 from repro_torch.kernels.attention_block.ops import flash_attention
 from repro_torch.models.layers import (apply_rope, attention_chunked,
-                                       decode_attention, dense_init,
-                                       row_parallel, split_keys)
+                                       column_input, decode_attention,
+                                       dense_init, row_output, row_parallel,
+                                       split_keys)
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.axes import current_mesh, model_size
 
@@ -109,14 +113,19 @@ def _check_attn(attn: str) -> None:
 
 
 def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
-                    cross_kv=None, causal=True, attn="kernel", tap=None):
-    """Prefill attention.  h: (B, S, d); pos: (S,) absolute positions,
-    ``arange(S)`` (K4's causal mask counts from 0 on both sides).
+                    cross_kv=None, causal=True, attn="kernel", tap=None,
+                    sp: bool = False):
+    """Prefill and training attention.  h: (B, S, d); pos: (S,) absolute
+    positions, ``arange(S)`` (K4's causal mask counts from 0 on both
+    sides).
 
     ``cross_kv``: ``(k, v, kv_pos)`` for encoder-decoder
     cross-attention, used as given (no RoPE; only q is projected).
-    ``causal=False`` keeps every key.  Returns (out, (k, v)) so prefill
-    can hand k/v to ``cache_from_prefill``.
+    ``causal=False`` keeps every key.  ``sp``: ``h`` is this rank's
+    (B, S / mp, d) sequence block (the rules' ``sp_rs``), gathered for
+    the projections (the reference's ``sp_qkv``) and the output
+    reduce-scattered back (its ``row_parallel_proj``).  Returns (out,
+    (k, v)) so prefill can hand k/v to ``cache_from_prefill``.
     """
     _check_attn(attn)
     if not causal and cfg.window:
@@ -124,15 +133,16 @@ def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
                          f"({cfg.window}) is not defined: the reference's "
                          f"result depends on its chunk padding")
     hd = cfg.head_dim
-    b, s = h.shape[0], h.shape[1]
     n_heads, n_kv_heads = _local_heads(n_heads, n_kv_heads)
+    x = column_input(h, sp)
+    b, s = x.shape[0], x.shape[1]
     if cross_kv is None:
-        q, k, v = _project_qkv(params, h, n_heads, n_kv_heads, hd)
+        q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, hd)
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
         kv_pos = pos
     else:
-        q = (h @ params["wq"]).reshape(b, s, n_heads, hd)
+        q = (x @ params["wq"]).reshape(b, s, n_heads, hd)
         k, v, kv_pos = cross_kv
     if attn == "plain":
         # INT32_MAX - 1, not the reference's INT32_MAX: the chunked
@@ -145,7 +155,7 @@ def attention_block(params, h, pos, cfg, n_heads, n_kv_heads, *,
         out = flash_attention(q, k, v, window=cfg.window, causal=causal)
         if tap is not None:
             tap(q, k, v, out, window=cfg.window, causal=causal)
-    return row_parallel(out.reshape(b, s, n_heads * hd), params["wo"]), \
+    return row_output(out.reshape(b, s, n_heads * hd) @ params["wo"], sp), \
         (k, v)
 
 

@@ -31,7 +31,13 @@ and the decoder's attentions and FFNs are tensor-parallel over
 slots are sharded over "model"; the cross K/V are kept with every head
 on every model rank (the reference's ``_cache_spec`` gives
 ``cross_k``/``cross_v`` no model axis), each rank reading its own kv
-heads.
+heads.  Training on a mesh: the encoder output enters the cross K/V
+projections (column-parallel) once, whole
+(:func:`~repro_torch.models.layers.column_input`), for every decoder
+layer; under the rules' ``sp_rs`` the encoder's and the decoder's
+residuals are each sequence-sharded over "model" where their lengths
+split (:func:`~repro_torch.models.transformer.seq_parallel`), the
+frames split at the encoder's entry.
 """
 
 from __future__ import annotations
@@ -42,12 +48,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.embedding import embed_tokens, lm_logits, lm_loss
-from repro_torch.models.layers import (cast_params_for_compute, dense_init,
-                                       filled, fsdp_gather, rms_norm,
+from repro_torch.models.layers import (cast_params_for_compute,
+                                       column_input, dense_init, filled,
+                                       fsdp_gather, norm, rms_norm,
                                        split_keys)
 from repro_torch.models.transformer import (_apply_dense_ffn, _init_ffn,
-                                           _no_mesh_training, _tap,
-                                           local_batch, remat)
+                                           _tap, local_batch, remat,
+                                           seq_parallel)
+from repro_torch.parallel import collectives as col
 
 ENC_FRAMES = 1500      # whisper mel frames after the conv frontend
 
@@ -105,27 +113,30 @@ def init_params(cfg: ModelConfig, key: torch.Generator | None, tp: int = 1,
 
 
 def encode(params, frames, cfg: ModelConfig, tp: int = 1, *,
-           attn: str = "kernel", tap=None):
-    """frames: (B, T, d) stub embeddings -> (B, T, d)."""
+           attn: str = "kernel", tap=None, sp: bool = False):
+    """frames: (B, T, d) stub embeddings -> (B, T, d); with ``sp`` (the
+    rules' ``sp_rs``) this rank's (B, T / mp, d) sequence block."""
     nh, nkv = cfg.padded_heads(tp)
     dev = params["embed"].device
     h = torch.as_tensor(frames, device=dev).to(cfg.compute_dtype)
     pos = torch.arange(h.shape[1], dtype=torch.int32, device=dev)
+    if sp:
+        h = col.split(h, "model", dim=1)
 
     def block(i, hh, bp):
         bp = fsdp_gather(cast_params_for_compute(bp, cfg.compute_dtype),
                          ("enc_blocks", i))
         out, _ = attn_mod.attention_block(
-            bp["attn"], rms_norm(hh, bp["ln1"], cfg.norm_eps), pos, cfg, nh,
-            nkv, causal=False, attn=attn, tap=_tap(tap, f"enc{i}"))
+            bp["attn"], norm(hh, bp["ln1"], cfg.norm_eps, sp), pos, cfg, nh,
+            nkv, causal=False, attn=attn, tap=_tap(tap, f"enc{i}"), sp=sp)
         hh = hh + out
-        return hh + _apply_dense_ffn(bp["ffn"],
-                                     rms_norm(hh, bp["ln2"], cfg.norm_eps))
+        return hh + _apply_dense_ffn(
+            bp["ffn"], norm(hh, bp["ln2"], cfg.norm_eps, sp), sp)
 
     for i, bp in enumerate(params["enc_blocks"]):
         h = remat(lambda hh, p, i=i: block(i, hh, p), cfg, h, bp,
                   policy="nothing")
-    return rms_norm(h, params["enc_ln"], cfg.norm_eps)
+    return norm(h, params["enc_ln"], cfg.norm_eps, sp)
 
 
 def _cross_kv(bp, enc_out, cfg, nkv):
@@ -142,33 +153,37 @@ def _cross_kv(bp, enc_out, cfg, nkv):
 
 def decoder_forward(params, tokens, enc_out, cfg: ModelConfig, tp: int = 1,
                     *, want_cache: bool = False, max_seq: int | None = None,
-                    attn: str = "kernel", tap=None):
-    """The decoder over ``tokens`` (B, S) against ``enc_out``.  Returns
-    (h_final, per-layer caches or None)."""
+                    attn: str = "kernel", tap=None, sp_enc: bool = False):
+    """The decoder over ``tokens`` (B, S) against ``enc_out`` (with
+    ``sp_enc``, this rank's sequence block of it).  Returns (h_final,
+    per-layer caches or None); under the rules' ``sp_rs`` and without
+    ``want_cache``, ``h_final`` is this rank's sequence block."""
     nh, nkv = cfg.padded_heads(tp)
     dev = params["embed"].device
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
     max_seq = max_seq or s
-    h = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
+    sp = seq_parallel(s, want_cache)
+    h = embed_tokens(params["embed"], tokens, sp).to(cfg.compute_dtype)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     pos_host = np.arange(s, dtype=np.int32)
+    enc_out = column_input(enc_out, sp_enc)
 
     def block(i, hh, bp):
         bp = fsdp_gather(cast_params_for_compute(bp, cfg.compute_dtype),
                          ("dec_blocks", i))
         out, (k, v) = attn_mod.attention_block(
-            bp["self_attn"], rms_norm(hh, bp["ln1"], cfg.norm_eps), pos,
-            cfg, nh, nkv, attn=attn, tap=_tap(tap, f"self{i}"))
+            bp["self_attn"], norm(hh, bp["ln1"], cfg.norm_eps, sp), pos,
+            cfg, nh, nkv, attn=attn, tap=_tap(tap, f"self{i}"), sp=sp)
         hh = hh + out
         ck, cv, cpos = _cross_kv(bp, enc_out, cfg, nkv)
         out, _ = attn_mod.attention_block(
-            bp["cross_attn"], rms_norm(hh, bp["lnx"], cfg.norm_eps), pos,
+            bp["cross_attn"], norm(hh, bp["lnx"], cfg.norm_eps, sp), pos,
             cfg, nh, nkv, cross_kv=(ck, cv, cpos), causal=False, attn=attn,
-            tap=_tap(tap, f"cross{i}"))
+            tap=_tap(tap, f"cross{i}"), sp=sp)
         hh = hh + out
-        hh = hh + _apply_dense_ffn(bp["ffn"],
-                                   rms_norm(hh, bp["ln2"], cfg.norm_eps))
+        hh = hh + _apply_dense_ffn(
+            bp["ffn"], norm(hh, bp["ln2"], cfg.norm_eps, sp), sp)
         return hh, (k, v, ck, cv)
 
     caches = []
@@ -182,19 +197,24 @@ def decoder_forward(params, tokens, enc_out, cfg: ModelConfig, tp: int = 1,
             k, v, pos_host, max_seq, cfg.window),
             "cross_k": attn_mod.gather_heads(ck),
             "cross_v": attn_mod.gather_heads(cv)})
-    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    h = norm(h, params["final_ln"], cfg.norm_eps, sp)
     return h, caches if want_cache else None
 
 
 def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
-               attn: str = "kernel", tap=None):
+               attn: str = "kernel", tap=None, moe_mode: str = "dense"):
     """batch: {tokens (B, S), labels (B, S), frames (B, T, d)} -> the
-    mean next-token NLL, a 0-d f32 tensor."""
-    _no_mesh_training()
-    enc_out = encode(params, batch["frames"], cfg, tp, attn=attn, tap=tap)
+    mean next-token NLL, a 0-d f32 tensor.  On a mesh ``params`` and the
+    batch's rows are this rank's blocks; the loss is the global mean.
+    ``moe_mode`` is taken for the API's sake (whisper has no MoE)."""
+    del moe_mode
+    sp_enc = seq_parallel(batch["frames"].shape[1])
+    enc_out = encode(params, batch["frames"], cfg, tp, attn=attn, tap=tap,
+                     sp=sp_enc)
     h, _ = decoder_forward(params, batch["tokens"], enc_out, cfg, tp,
-                           attn=attn, tap=tap)
-    return lm_loss(h, params["embed"], batch["labels"], cfg.vocab)
+                           attn=attn, tap=tap, sp_enc=sp_enc)
+    return lm_loss(h, params["embed"], batch["labels"], cfg.vocab,
+                   sp=seq_parallel(batch["tokens"].shape[1]))
 
 
 def prefill(params, tokens, frames, cfg: ModelConfig, tp: int = 1, *,

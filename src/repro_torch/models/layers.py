@@ -1,9 +1,9 @@
 """Shared transformer building blocks — the port's copy of
-``repro/models/layers.py`` (without its sequence-parallel ``sp_rs``
-helpers, which serve training on a mesh: ROADMAP.md §1 item 6.3b).
+``repro/models/layers.py``.
 
-Norms, RoPE, the SwiGLU MLP, the parameter-init helpers, the mesh's
-column- and row-parallel helpers and three attentions:
+Norms, RoPE, the SwiGLU MLP (the reference's ``sp_ffn`` with ``sp``),
+the parameter-init helpers, the mesh's column- and row-parallel
+boundaries (with the reference's ``use_sp_rs``) and three attentions:
 
   * ``attention_naive``   — the O(S^2) oracle (:func:`~repro_torch.
     kernels.attention_block.ref.attention_ref` reads it);
@@ -15,20 +15,38 @@ column- and row-parallel helpers and three attentions:
     are merged by a ``pmax`` and two ``psum`` over the axis
     (flash-decoding, the reference's combine).
 
-On a mesh (:mod:`repro_torch.parallel`) the residual stream is
-replicated over "model" and its rows sharded over the batch axes; a
-column-parallel weight (``wq``/``wk``/``wv``/``wg``/``wi``) holds this
-rank's output columns, a row-parallel one (``wo``) its input rows, whose
-partial products :func:`row_parallel` sums over "model".  Under the
-rules' ``fsdp`` each block's weights are sharded over "data" as well and
-:func:`fsdp_gather` all-gathers them as the block runs (the reference's
-GSPMD gathers them at use).  The reference scatters the residual over
-the sequence between sublayers (Megatron SP); the port keeps it whole
-on every model rank, which costs memory, not numbers.
+On a mesh (:mod:`repro_torch.parallel`) the residual stream's rows are
+sharded over the batch axes.  A column-parallel weight
+(``wq``/``wk``/``wv``/``wg``/``wi``) holds this rank's output columns,
+a row-parallel one (``wo``) its input rows.  Between sublayers the
+residual is whole on every model rank, as the port serves; under the
+rules' ``sp_rs`` (:func:`use_sp_rs`: the reference's explicit
+sequence-parallel boundaries) a training stack keeps it
+sequence-sharded over "model" instead, as the reference lays it out.
+The boundaries, under autograd (:mod:`repro_torch.parallel.
+collectives`):
 
-The last two are plain versions that the tests hold against the
-reference's.  The model path never calls them on the card: it runs the
-attention kernel (``flash_attention``, K4) in
+  * entering a column-parallel projection (:func:`column_input`): a
+    whole residual passes as it is and its cotangent is summed over
+    "model" on the way back (Megatron's "f"); a sequence-sharded one
+    is all-gathered over the sequence, its cotangent reduce-scattered
+    (the gather of the reference's ``sp_qkv`` and ``sp_ffn``);
+  * leaving a row-parallel one (:func:`row_output`): the partial
+    products summed over "model" with an identity backward ("g"), or
+    reduce-scattered onto the sequence (the reference's
+    ``row_parallel_proj``);
+  * a replicated norm weight applied to sequence-sharded rows
+    (:func:`norm`) has its cotangent summed over "model", as the
+    reference's ``shard_map`` sums that of a replicated input.
+
+Under the rules' ``fsdp`` each block's weights are sharded over "data"
+as well and :func:`fsdp_gather` all-gathers them as the block runs
+(the reference's GSPMD gathers them at use); their cotangents come
+back reduce-scattered over "data".
+
+The last two attentions are plain versions that the tests hold against
+the reference's.  The model path never calls them on the card: it runs
+the attention kernel (``flash_attention``, K4) in
 :mod:`repro_torch.models.attention`, and only a caller that asks for
 ``attn="plain"`` gets them.
 """
@@ -41,7 +59,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.axes import current_fsdp, current_mesh
+from repro_torch.parallel.axes import (current_flag, current_fsdp,
+                                       current_mesh, current_rules,
+                                       model_size)
 
 
 # --------------------------------------------------------------------------
@@ -78,29 +98,87 @@ def apply_rope(x: torch.Tensor, pos, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def use_sp_rs(seq_len: int) -> bool:
+    """Are the rules' explicit sequence-parallel boundaries on and
+    applicable to a ``seq_len``-token stack (the reference's test)?"""
+    mesh = current_mesh()
+    if mesh is None or not current_flag("sp_rs"):
+        return False
+    mp = mesh.shape.get("model", 1)
+    return mp > 1 and seq_len % mp == 0 and seq_len >= mp
+
+
+def column_input(x: torch.Tensor, sp: bool = False) -> torch.Tensor:
+    """``x`` (B, S, d), whole on every model rank, or with ``sp`` its
+    (B, S / mp, d) sequence block, as a column-parallel projection
+    takes it: whole.  Backward, the cotangent summed over "model", or
+    with ``sp`` reduce-scattered onto the sequence."""
+    if model_size() == 1:
+        return x
+    if sp:
+        return col.all_gather(x, "model", dim=1)
+    return col.psum_grad(x, "model")
+
+
+def row_output(part: torch.Tensor, sp: bool = False) -> torch.Tensor:
+    """The partial products of a row-parallel projection summed over
+    "model" (identity backward), or with ``sp`` reduce-scattered onto
+    the sequence (all-gathered backward)."""
+    if current_mesh() is None:
+        return part
+    if sp:
+        return col.psum_scatter(part, "model", dim=1)
+    return col.psum(part, "model")
+
+
 def row_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` of a row-parallel ``w`` (this rank's input rows): the
     partial products summed over "model" (nothing without a mesh)."""
-    out = x @ w
-    return col.psum(out, "model") if current_mesh() is not None else out
+    return row_output(x @ w)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
+           w_down: torch.Tensor, sp: bool = False) -> torch.Tensor:
     """SwiGLU MLP; on a mesh ``w_gate``/``w_up`` are column shards and
     ``w_down`` a row shard (the hidden activations sharded over
-    "model")."""
-    return row_parallel(F.silu(x @ w_gate) * (x @ w_up), w_down)
+    "model"); with ``sp`` the reference's ``sp_ffn``: one all-gather of
+    the sequence, the three local products, one reduce-scatter back."""
+    x = column_input(x, sp)
+    return row_output((F.silu(x @ w_gate) * (x @ w_up)) @ w_down, sp)
+
+
+def norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+         sp: bool = False) -> torch.Tensor:
+    """:func:`rms_norm`; with ``sp`` (``x`` this rank's sequence block)
+    the replicated weight's cotangent summed over "model"."""
+    if sp:
+        w = col.psum_grad(w, "model")
+    return rms_norm(x, w, eps)
+
+
+def batch_axes() -> tuple[str, ...]:
+    """The current rules' batch axes (none without a mesh)."""
+    if current_mesh() is None:
+        return ()
+    return tuple((current_rules() or {}).get("batch") or ())
+
+
+def gather_weight(w: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    """A weight block all-gathered whole over ``axis`` (ZeRO-3 at use).
+    Its cotangent is reduce-scattered back where the batch rows are
+    split over ``axis`` (each rank's use of it is a partial), and
+    sliced where they are not (each rank's is whole)."""
+    return col.all_gather(w, axis, dim, whole_grad=axis not in batch_axes())
 
 
 def fsdp_gather(tree, path: tuple):
     """A block's weights whole over "data": every leaf that
     :func:`~repro_torch.parallel.sharding.leaf_spec` shards over "data"
-    (the rules' ``fsdp``) all-gathered on that dim; ``path`` is the
-    block's path from the params' root.  MoE expert weights are left
-    sharded: the MoE modes gather them themselves, as the reference's
-    bodies do.  Without a mesh, a "data" axis of size 1 or ``fsdp`` off,
-    ``tree`` itself."""
+    (the rules' ``fsdp``) all-gathered on that dim
+    (:func:`gather_weight`); ``path`` is the block's path from the
+    params' root.  MoE expert weights are left sharded: the MoE modes
+    gather them themselves, as the reference's bodies do.  Without a
+    mesh, a "data" axis of size 1 or ``fsdp`` off, ``tree`` itself."""
     from repro_torch.parallel.sharding import leaf_spec
     mesh = current_mesh()
     if mesh is None or mesh.shape.get("data", 1) == 1 or not current_fsdp():
@@ -113,7 +191,7 @@ def fsdp_gather(tree, path: tuple):
             return node
         for dim, entry in enumerate(leaf_spec(p, node)):
             if entry == "data":
-                return col.all_gather(node, "data", dim)
+                return gather_weight(node, "data", dim)
         return node
     return walk(tree, tuple(path))
 

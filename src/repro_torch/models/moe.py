@@ -3,10 +3,10 @@
 
   * ``dense`` — no mesh: every expert computed over its bins on one
     rank (below);
-  * ``a2a``   — prefill on a mesh (:func:`moe_ffn_a2a`): this rank's
-    tokens dispatched into fixed-capacity bins, exchanged with one
-    all-to-all over "model", run through this rank's expert slice, and
-    returned by a second all-to-all;
+  * ``a2a``   — prefill and training on a mesh (:func:`moe_ffn_a2a`):
+    this rank's tokens dispatched into fixed-capacity bins, exchanged
+    with one all-to-all over "model", run through this rank's expert
+    slice, and returned by a second all-to-all;
   * ``psum``  — decode on a mesh (:func:`moe_ffn_psum`): the tokens
     whole on every model rank, each rank's expert slice computed densely
     for all of them and the partials summed over "model";
@@ -40,7 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, split_keys
+from repro_torch.models.layers import dense_init, gather_weight, split_keys
 from repro_torch.parallel import collectives as col
 
 
@@ -150,14 +150,15 @@ def _one_row(n_experts: int, tpe: int, mp: int) -> None:
                          f"the {mp} model shards (one expert row a rank)")
 
 
-def _gather_data(params, data_axis: str | None):
+def gather_data(params, data_axis: str | None):
     """The expert weights with their f dim whole over ``data_axis``
-    (ZeRO-3 gathered at use)."""
+    (ZeRO-3 gathered at use; under autograd their cotangents come back
+    reduce-scattered, :func:`~repro_torch.models.layers.gather_weight`)."""
     wg, wi, wo = params["wg"], params["wi"], params["wo"]
     if data_axis is not None:
-        wg = col.all_gather(wg, data_axis, dim=2)
-        wi = col.all_gather(wi, data_axis, dim=2)
-        wo = col.all_gather(wo, data_axis, dim=1)
+        wg = gather_weight(wg, data_axis, dim=2)
+        wi = gather_weight(wi, data_axis, dim=2)
+        wo = gather_weight(wo, data_axis, dim=1)
     return wg, wi, wo
 
 
@@ -165,14 +166,21 @@ def moe_ffn_a2a(x, params, top_k: int, capacity_factor: float,
                 model_axis: str, data_axis: str | None):
     """x (T_local, d), this rank's tokens; the expert weights this rank's
     row (E * tpe rows over the model shards).  Dispatch -> all-to-all ->
-    the local expert slice -> all-to-all -> combine."""
+    the local expert slice -> all-to-all -> combine.
+
+    Under autograd the all-to-alls carry the cotangents back the same
+    way; the routing indices carry none, the gates do.  The router,
+    replicated, routes only this rank's tokens, so its cotangent is
+    summed over ``model_axis`` (the transpose of the reference's
+    ``shard_map`` over a replicated input)."""
     t, d = x.shape
     mp = col.axis_size(model_axis)
     n_experts = params["router"].shape[1]
     tpe = max(1, mp // n_experts)
     _one_row(n_experts, tpe, mp)
-    wg, wi, wo = _gather_data(params, data_axis)
-    gates, idx = router_top_k(x, params["router"], top_k)
+    wg, wi, wo = gather_data(params, data_axis)
+    router = col.psum_grad(params["router"], model_axis)
+    gates, idx = router_top_k(x, router, top_k)
     cap = bin_capacity(t, top_k, n_experts, capacity_factor)
     bins, slot = moe_dispatch_local(x, gates, idx, n_experts, cap)
     send = torch.repeat_interleave(bins, tpe, dim=0)      # (mp, C, d)
@@ -195,7 +203,7 @@ def moe_ffn_psum(x, params, top_k: int, model_axis: str,
     n_experts = params["router"].shape[1]
     tpe = max(1, mp // n_experts)
     _one_row(n_experts, tpe, mp)
-    wg, wi, wo = _gather_data(params, data_axis)
+    wg, wi, wo = gather_data(params, data_axis)
     my_expert = col.axis_index(model_axis) // tpe
     gates, idx = router_top_k(x, params["router"], top_k)
     # the weight of this rank's expert for each token (0 if not routed)

@@ -23,14 +23,15 @@ this rank's blocks, as ``sharding`` lays them out) the attention and
 the dense FFN are tensor-parallel over "model"
 (:mod:`repro_torch.models.attention`, ``layers.swiglu``), the
 embedding and the logits vocab-parallel, the MoE FFN in the mode
-``moe_mode`` names (``a2a`` at prefill, ``psum`` at decode, or the
-two-axis ``ep2`` for a ``moe_ep_data`` config), the decode caches'
-slots sharded over "model" and their rows over the batch axes; each
-block's weights are all-gathered over "data" under the rules' ``fsdp``.
-The SSM families (mamba2, jamba) raise on a mesh whose "model" axis is
-above 1: the reference shards ``in_proj``'s packed output over "model"
-in one contiguous split, which does not fall on the SSD heads
-(ROADMAP.md §1 item 6.3b).  Training on a mesh is item 6.3b as well.
+``moe_mode`` names (``a2a`` at prefill and in training, ``psum`` at
+decode, or the two-axis ``ep2`` for a ``moe_ep_data`` config), the
+decode caches' slots sharded over "model" and their rows over the batch
+axes; each block's weights are all-gathered over "data" under the
+rules' ``fsdp``.  The SSM families (mamba2, jamba) raise on a mesh
+whose "model" axis is above 1: the reference shards ``in_proj``'s
+packed output over "model" in one contiguous split, which does not fall
+on the SSD heads (:data:`MESH_ITEM`); they run, and train, where it is
+1.
 
 Training (:func:`train_loss`): with ``cfg.remat`` each block, the cast
 of its f32 masters included, runs under ``torch.utils.checkpoint``
@@ -40,6 +41,21 @@ runs the block again (K4 included).  ``remat_policy="dots"`` keeps the
 matmul outputs (``aten.mm``/``bmm``: the reference's
 ``dots_with_no_batch_dims_saveable``) through a selective-checkpoint
 context; ``"nothing"`` keeps none.
+
+Training on a mesh (``train_loss`` with the rules installed, ``moe_mode``
+``a2a``): the same forward under autograd, every collective with its
+adjoint (:mod:`repro_torch.parallel.collectives`); the tensor-parallel
+boundaries of :mod:`repro_torch.models.layers`; the loss vocab-parallel.
+Under the rules' ``sp_rs`` (:func:`~repro_torch.models.layers.
+use_sp_rs` of the sequence) the residual is sequence-sharded over
+"model" from the embedding's reduce-scatter to the loss's all-gather,
+as the reference lays it out.  A block's ``fsdp_gather`` runs inside
+its :func:`remat` region, so its whole weights are not kept and the
+recompute gathers them again: every rank recomputes the same blocks in
+the same order, since every rank runs the same backward graph.  The
+loss is the global mean on every rank; the gradients of weights
+replicated over the batch axes are partial until
+:func:`~repro_torch.parallel.sharding.sync_grads` sums them.
 """
 
 from __future__ import annotations
@@ -57,16 +73,16 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.embedding import embed_tokens, lm_logits, lm_loss
 from repro_torch.models.layers import (cast_params_for_compute, dense_init,
-                                       filled, fsdp_gather, rms_norm,
-                                       split_keys, swiglu)
+                                       filled, fsdp_gather, norm, rms_norm,
+                                       split_keys, swiglu, use_sp_rs)
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.axes import (current_fsdp, current_mesh,
                                        current_rules, model_size)
 from repro_torch.tree import leaves
 
-#: what the port's NotImplementedError messages on a mesh cite: the SSM
-#: families on a model axis above 1, and training on a mesh
-MESH_ITEM = "ROADMAP.md §1 item 6.3b"
+#: what the port's NotImplementedError message on a mesh cites: the SSM
+#: families on a model axis above 1
+MESH_ITEM = "ROADMAP.md §1 item 6.3c"
 
 # --------------------------------------------------------------------------
 # block structure
@@ -164,26 +180,30 @@ def init_params(cfg: ModelConfig, key: torch.Generator | None, tp: int = 1,
 # forward (train / prefill)
 # --------------------------------------------------------------------------
 
-def _apply_dense_ffn(p, h):
-    return swiglu(h, p["wg"], p["wi"], p["wo"])
+def _apply_dense_ffn(p, h, sp: bool = False):
+    return swiglu(h, p["wg"], p["wi"], p["wo"], sp)
 
 
-def _apply_moe(p, h, cfg, moe_mode: str = "dense"):
+def _apply_moe(p, h, cfg, moe_mode: str = "dense", sp: bool = False):
     """The MoE FFN in ``moe_mode`` (the reference's dispatch): ``dense``
     without a mesh or on a "model" axis of 1; on a mesh ``a2a`` (this
-    rank's share of the tokens through the all-to-all, the outputs
-    all-gathered back over "model"), ``psum``, or ``ep2`` for a
-    ``moe_ep_data`` config."""
+    rank's share of the tokens through the all-to-all), ``psum``, or
+    ``ep2`` for a ``moe_ep_data`` config.  ``sp``: ``h`` is this rank's
+    sequence block."""
     b, s, d = h.shape
     mesh = current_mesh()
+    data_axis = "data" if (mesh is not None and "data" in mesh.shape
+                           and mesh.shape["data"] > 1
+                           and current_fsdp()) else None
     if moe_mode == "dense" or mesh is None \
             or mesh.shape.get("model", 1) == 1:
-        out = moe_mod.moe_ffn_dense(h.reshape(b * s, d), p, cfg.top_k,
-                                    cfg.capacity_factor)
+        # on a mesh the experts whole over "data" first (ZeRO-3)
+        wg, wi, wo = moe_mod.gather_data(p, data_axis)
+        out = moe_mod.moe_ffn_dense(h.reshape(b * s, d),
+                                    {**p, "wg": wg, "wi": wi, "wo": wo},
+                                    cfg.top_k, cfg.capacity_factor)
         return out.reshape(b, s, d)
     batch = (current_rules() or {}).get("batch")
-    data_axis = "data" if ("data" in mesh.shape and mesh.shape["data"] > 1
-                           and current_fsdp()) else None
     if cfg.moe_ep_data and "data" in mesh.shape:
         # the serving layout: experts over (model x data) jointly, always
         # the psum path
@@ -192,35 +212,39 @@ def _apply_moe(p, h, cfg, moe_mode: str = "dense"):
             batch_axis="data" if batch is not None else None)
         return out.reshape(b, s, d)
     if moe_mode == "a2a":
-        return _moe_a2a(p, h, cfg, data_axis)
+        return _moe_a2a(p, h, cfg, data_axis, sp)
     out = moe_mod.moe_ffn_psum(h.reshape(b * s, d), p, cfg.top_k, "model",
                                data_axis)
     return out.reshape(b, s, d)
 
 
-def _moe_a2a(p, h, cfg, data_axis):
+def _moe_a2a(p, h, cfg, data_axis, sp: bool = False):
     """``a2a`` in the reference's layout: this rank's (B, S / mp) block
-    of the sequence through the all-to-all, the outputs all-gathered back
-    over "model".  S must split over the "model" axis, as the reference's
-    ``shard_map`` over ``P(batch, "model", None)`` requires."""
-    b, s, d = h.shape
-    mp = model_size()
-    if s % mp:
-        raise ValueError(f"a2a shards the sequence over the model axis: "
-                         f"{s} tokens do not split over {mp} shards")
-    sl = s // mp
-    r = col.axis_index("model")
-    x = h[:, r * sl:(r + 1) * sl].reshape(b * sl, d)
-    out = moe_mod.moe_ffn_a2a(x, p, cfg.top_k, cfg.capacity_factor, "model",
-                              data_axis)
-    return col.all_gather(out.reshape(b, sl, d), "model", dim=1)
+    of the sequence through the all-to-all.  A whole ``h`` is split
+    over "model" first and the outputs all-gathered back (their
+    cotangents whole on every rank: each rank takes its block); with
+    ``sp`` ``h`` is that block already and stays it.  S must split over
+    the "model" axis, as the reference's ``shard_map`` over
+    ``P(batch, "model", None)`` requires."""
+    if not sp:
+        s, mp = h.shape[1], model_size()
+        if s % mp:
+            raise ValueError(f"a2a shards the sequence over the model axis: "
+                             f"{s} tokens do not split over {mp} shards")
+        h = col.split(h, "model", dim=1)
+    b, sl, d = h.shape
+    out = moe_mod.moe_ffn_a2a(h.reshape(b * sl, d), p, cfg.top_k,
+                              cfg.capacity_factor, "model", data_axis)
+    out = out.reshape(b, sl, d)
+    return out if sp else col.all_gather(out, "model", dim=1,
+                                         whole_grad=True)
 
 
-def _apply_ffn(sub, ffn, h, cfg, moe_mode: str = "dense"):
-    hn = rms_norm(h, sub["ln2"], cfg.norm_eps)
+def _apply_ffn(sub, ffn, h, cfg, moe_mode: str = "dense", sp: bool = False):
+    hn = norm(h, sub["ln2"], cfg.norm_eps, sp)
     if ffn == "moe":
-        return h + _apply_moe(sub["moe"], hn, cfg, moe_mode)
-    return h + _apply_dense_ffn(sub["ffn"], hn)
+        return h + _apply_moe(sub["moe"], hn, cfg, moe_mode, sp)
+    return h + _apply_dense_ffn(sub["ffn"], hn, sp)
 
 
 def _check_mesh(cfg: ModelConfig) -> None:
@@ -234,13 +258,15 @@ def _check_mesh(cfg: ModelConfig) -> None:
 
 
 def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
-                      want_cache, max_seq, attn, tap, moe_mode="dense"):
+                      want_cache, max_seq, attn, tap, moe_mode="dense",
+                      sp: bool = False):
     mixer, ffn = kind
     cache_out = {}
-    hn = rms_norm(h, sub["ln1"], cfg.norm_eps)
+    hn = norm(h, sub["ln1"], cfg.norm_eps, sp)
     if mixer == "attn":
         out, (k, v) = attn_mod.attention_block(sub["attn"], hn, pos, cfg,
-                                               nh, nkv, attn=attn, tap=tap)
+                                               nh, nkv, attn=attn, tap=tap,
+                                               sp=sp)
         if want_cache:
             cache_out = attn_mod.prefill_cache(k, v, pos_host, max_seq,
                                                cfg.window)
@@ -250,7 +276,7 @@ def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
             cache_out = {"ssm": st, "conv": conv}
     h = h + out
     if ffn is not None:
-        h = _apply_ffn(sub, ffn, h, cfg, moe_mode)
+        h = _apply_ffn(sub, ffn, h, cfg, moe_mode, sp)
     return h, cache_out
 
 
@@ -298,7 +324,9 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             moe_mode: str = "dense"):
     """Full-sequence forward.  Returns (h_final, caches_or_None).
     ``tap(layer, q, k, v, out, window=, causal=)`` sees every K4 call.
-    Without ``want_cache`` each block runs under :func:`remat`."""
+    Without ``want_cache`` each block runs under :func:`remat`, and
+    under the rules' ``sp_rs`` ``h_final`` is this rank's sequence block
+    (:func:`seq_parallel`)."""
     _check_mesh(cfg)
     nh, nkv = cfg.padded_heads(tp)
     spec = block_spec(cfg)
@@ -306,11 +334,11 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
     max_seq = max_seq or s
-    h = embed_tokens(params["embed"], tokens).to(cfg.compute_dtype)
+    sp = seq_parallel(s, want_cache)
+    h = embed_tokens(params["embed"], tokens, sp).to(cfg.compute_dtype)
     if prefix_embeds is not None:
-        pl = prefix_embeds.shape[1]
-        h[:, :pl] = torch.as_tensor(prefix_embeds, device=dev).to(
-            cfg.compute_dtype)
+        h = _with_prefix(h, torch.as_tensor(prefix_embeds, device=dev).to(
+            cfg.compute_dtype), sp)
     pos = torch.arange(s, dtype=torch.int32, device=dev)
     pos_host = np.arange(s, dtype=np.int32)
 
@@ -322,7 +350,7 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
             hh, c = _sublayer_forward(
                 block_params[f"sub{j}"], kind, hh, pos, pos_host, cfg, nh,
                 nkv, want_cache, max_seq, attn,
-                _tap(tap, i * len(spec) + j), moe_mode)
+                _tap(tap, i * len(spec) + j), moe_mode, sp)
             block_caches[f"sub{j}"] = c
         return hh, block_caches
 
@@ -334,28 +362,42 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
         else:
             h = remat(lambda hh, bp, i=i: block(i, hh, bp)[0], cfg, h,
                       block_params)
-    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    h = norm(h, params["final_ln"], cfg.norm_eps, sp)
     return h, caches if want_cache else None
 
 
+def seq_parallel(s: int, want_cache: bool = False) -> bool:
+    """Does a forward over ``s`` tokens keep the residual
+    sequence-sharded (the rules' ``sp_rs``, applicable to ``s``)?
+    Never while building caches: prefill serves from whole rows."""
+    return not want_cache and use_sp_rs(s)
+
+
+def _with_prefix(h: torch.Tensor, prefix: torch.Tensor,
+                 sp: bool) -> torch.Tensor:
+    """``h`` with its first positions replaced by ``prefix`` (B, P, d);
+    with ``sp`` only those that fall in this rank's block.  A new tensor:
+    ``h`` may be a collective's output, which autograd forbids writing
+    in place."""
+    start = col.axis_index("model") * h.shape[1] if sp else 0
+    n = min(prefix.shape[1] - start, h.shape[1])
+    if n <= 0:
+        return h
+    return torch.cat([prefix[:, start:start + n], h[:, n:]], dim=1)
+
+
 def train_loss(params, batch, cfg: ModelConfig, tp: int = 1, *,
-               attn: str = "kernel", tap=None):
+               attn: str = "kernel", tap=None, moe_mode: str = "dense"):
     """batch: {tokens (B, S), labels (B, S), [prefix_embeds]} -> the
     mean next-token NLL, a 0-d f32 tensor (:func:`lm_loss` against the
-    tied table or ``lm_head``)."""
-    _no_mesh_training()
+    tied table or ``lm_head``).  On a mesh ``params`` and the batch's
+    rows are this rank's blocks; the loss is the global mean."""
     h, _ = forward(params, batch["tokens"], cfg, tp,
                    prefix_embeds=batch.get("prefix_embeds"), attn=attn,
-                   tap=tap)
+                   tap=tap, moe_mode=moe_mode)
     table = params.get("lm_head", params["embed"])
-    return lm_loss(h, table, batch["labels"], cfg.vocab)
-
-
-def _no_mesh_training() -> None:
-    mesh = current_mesh()
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(f"training on a mesh of {mesh.size} "
-                                  f"ranks: {MESH_ITEM}")
+    return lm_loss(h, table, batch["labels"], cfg.vocab,
+                   sp=seq_parallel(batch["tokens"].shape[1]))
 
 
 # --------------------------------------------------------------------------

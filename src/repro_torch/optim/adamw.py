@@ -28,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.parallel import collectives as col
 from repro_torch.tree import leaves, tree_map
 
 #: elements of one slice of a leaf's update: its f32 temporaries stay
@@ -48,14 +49,20 @@ def init(params) -> AdamWState:
                       step=torch.zeros((), dtype=torch.int32))
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, axes=None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's f32 sum of squares,
     the leaves added in flattening order (as the reference's Python
-    ``sum``); a 0-d f32 tensor on the leaves' device."""
+    ``sum``); a 0-d f32 tensor on the leaves' device.  On a mesh
+    ``axes`` gives, leaf by leaf, the axes this rank's block of the leaf
+    is sharded over (:func:`~repro_torch.parallel.sharding.norm_axes`):
+    the block's sum of squares is summed over them, and a leaf
+    replicated over an axis is counted once."""
     total = None
-    for x in leaves(tree):
+    for i, x in enumerate(leaves(tree)):
         x32 = x.detach().reshape(-1).to(torch.float32)
         sq = torch.dot(x32, x32)
+        if axes is not None and axes[i]:
+            sq = col.psum(sq, axes[i])
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -99,13 +106,15 @@ def _update_leaf(p, g, m, v, scale, *, lr, b1, b2, eps, wd, b1c, b2c):
 
 def update(params, grads, state: AdamWState, *, lr, b1: float = 0.9,
            b2: float = 0.95, eps: float = 1e-8, wd: float = 0.1,
-           clip: float = 1.0):
+           clip: float = 1.0, norm_axes=None):
     """Returns (params, new_state, grad_norm): ``params`` and the
     moments updated in place, ``grad_norm`` the global norm before
     clipping (a 0-d device tensor).  ``lr`` is a Python float (the f32
-    value of a schedule)."""
+    value of a schedule).  On a mesh ``params``, ``grads`` and the
+    moments are this rank's blocks and ``norm_axes`` their shard axes
+    (:func:`global_norm`); every elementwise term is the reference's."""
     with torch.profiler.record_function("adamw.update"):
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, norm_axes)
         scale = _clip_scale(gnorm, clip) if clip else None
         step = int(state.step) + 1
         # the bias corrections in f32, as the reference computes them

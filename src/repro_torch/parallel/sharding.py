@@ -20,9 +20,19 @@ The rules and specs are the reference's, entry for entry
 What the reference gets from ``jax.device_put`` onto a
 ``NamedSharding``, the port gets from :func:`local_shard` (this rank's
 block of a whole tensor) and :func:`shard_params` (every weight's block
-under :func:`param_specs`).  The port's params keep one dict per block
-in a list where the reference stacks the blocks on a leading axis, so
-:func:`param_specs` drops the stacked axis's (always ``None``) entry.
+under :func:`param_specs`; a train state's moments under their params'
+specs, since a leaf's spec reads only the names on its path);
+:func:`gather_whole` and :func:`whole_params` are the inverse, for
+checkpoints and tests.  The port's params keep one dict per
+block in a list where the reference stacks the blocks on a leading
+axis, so :func:`param_specs` drops the stacked axis's (always ``None``)
+entry.
+
+Training on a mesh adds what the reference's ``jax.grad`` of a sharded
+step gets from its partitioner: :func:`sync_grads` (the gradient sync,
+whose rule its docstring states), :func:`norm_axes` (the axes a leaf's
+sum of squares is summed over for the global gradient norm) and the
+train batch's rows (:func:`train_batch_specs`, :func:`shard_batch`).
 
 ``compat.py`` has no counterpart here: it is the reference's shim over
 JAX versions' ``shard_map`` spellings.
@@ -30,10 +40,12 @@ JAX versions' ``shard_map`` spellings.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
+from repro_torch.parallel import collectives as col
 from repro_torch.parallel.axes import P, Mesh
 
 
@@ -56,8 +68,9 @@ def axis_rules(mesh, global_batch: int, seq_len: int, tp_ok: bool = True,
                *, fsdp: bool = True, sp_rs: bool = False) -> dict[str, Any]:
     """Logical-name -> mesh-axis rules (the reference's, entry for
     entry).  ``fsdp``: ZeRO-3 parameter sharding over "data"; ``sp_rs``:
-    the reference's explicit sequence-parallel reduce-scatters (read by
-    its training path, which the port has not taken to a mesh yet)."""
+    the reference's explicit sequence-parallel boundaries, which a
+    training stack reads (:func:`~repro_torch.models.layers.use_sp_rs`:
+    the residual sequence-sharded over "model" between sublayers)."""
     mp = mesh.shape.get("model", 1)
     batch = batch_axes_for(mesh, global_batch)
     seq = "model" if (tp_ok and seq_len % mp == 0 and seq_len >= mp) \
@@ -142,10 +155,16 @@ class _Dims:
 
 
 def _map(fn, tree, path=()):
+    """``fn(path, leaf)`` over dicts, lists and dataclasses (a train
+    state: a field's name is its key)."""
     if isinstance(tree, dict):
         return {k: _map(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_map(fn, v, path + (i,)) for i, v in enumerate(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map(fn, getattr(tree, f.name), path + (f.name,))
+            for f in dataclasses.fields(tree)})
     return fn(path, tree)
 
 
@@ -258,13 +277,26 @@ def local_shard(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+def gather_whole(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's block under
+    ``spec`` (the inverse of :func:`local_shard`): every split dim
+    all-gathered over its axes, the last axis first, so the first is
+    major.  Outside autograd; ``t`` itself where no dim is split."""
+    out = t.detach()
+    for dim, entry in enumerate(spec):
+        for a in reversed(_entry_axes(entry)):
+            out = col.all_gather(out, a, dim, mesh)
+    return out
+
+
 def shard_params(params, mesh: Mesh, fsdp: bool = True,
                  moe_ep_data: bool = False):
-    """Whole params (the port's layout) -> this rank's blocks under
-    :func:`param_specs`, each on the mesh's device; a leaf that no
-    axis splits is kept as it is, a split one is copied."""
+    """Whole params (the port's layout), or a whole train state ->
+    this rank's blocks under :func:`param_specs`, each on the mesh's
+    device; a leaf that no axis splits is kept as it is, a split one is
+    copied; a 0-d step counter stays where it is (on the host)."""
     def shard(path, leaf):
-        if not isinstance(leaf, torch.Tensor):
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0:
             return leaf
         block = local_shard(leaf, leaf_spec(path, leaf, fsdp, moe_ep_data),
                             mesh)
@@ -300,3 +332,111 @@ def batch_rows(t: torch.Tensor, mesh: Mesh, rules: dict,
     spec = [None] * t.dim()
     spec[dim] = rules["batch"]
     return local_shard(t, tuple(spec), mesh)
+
+
+def whole_params(tree, mesh: Mesh, fsdp: bool = True,
+                 moe_ep_data: bool = False):
+    """This rank's blocks of params or a train state -> the whole
+    tensors (:func:`gather_whole` of every leaf under its spec; a
+    collective on every rank)."""
+    def whole(path, leaf):
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() == 0:
+            return leaf
+        return gather_whole(leaf, leaf_spec(path, leaf, fsdp, moe_ep_data),
+                            mesh)
+    return _map(whole, tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a train state's blocks lie: the mesh and the spec rules'
+    switches.  :meth:`whole` gathers every leaf (a collective on every
+    rank), :meth:`local` cuts a whole state into this rank's blocks."""
+    mesh: Mesh
+    fsdp: bool = True
+    moe_ep_data: bool = False
+
+    def whole(self, tree):
+        return whole_params(tree, self.mesh, self.fsdp, self.moe_ep_data)
+
+    def local(self, tree):
+        return shard_params(tree, self.mesh, self.fsdp, self.moe_ep_data)
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+def _split_axes(spec, mesh: Mesh) -> set[str]:
+    return {a for e in spec for a in _entry_axes(e) if mesh.shape[a] > 1}
+
+
+def sync_grads(grads, mesh: Mesh, rules: dict, fsdp: bool = True,
+               moe_ep_data: bool = False):
+    """The gradient sync of a step on a mesh: each leaf's
+    gradient summed over every mesh axis that the leaf is replicated on
+    and on which its cotangent arrives partial.
+
+    Where the cotangents arrive partial follows from where the
+    collectives' adjoints sit (:mod:`repro_torch.parallel.collectives`,
+    :mod:`repro_torch.models.layers`):
+
+      * over the batch axes (the rules' ``batch``), the rows differ by
+        rank, so every leaf's cotangent is this rank's rows' share.  A
+        leaf sharded over such an axis (the ``fsdp`` weights over
+        "data") got the sum in its gather's backward, a reduce-scatter;
+        a leaf replicated over it is summed here (the data-parallel
+        all-reduce);
+      * over "model", every cotangent arrives whole or is made whole
+        where it is used: a whole residual entering a column-parallel
+        projection or the vocab-parallel loss sums its cotangent over
+        "model" there ("f"), a norm weight applied to sequence-sharded
+        rows (``sp_rs``) and the MoE router of ``a2a`` (each rank
+        routes its own tokens) likewise, and the expert and
+        tensor-parallel weights are sharded over "model".  Nothing is
+        summed over "model" here;
+      * over a data axis the batch is not split on, every rank computes
+        the same rows: whole, and not summed.
+
+    ``grads`` has the params' structure; returns the synced tree."""
+    batch = [a for a in (rules.get("batch") or ()) if mesh.shape[a] > 1]
+
+    def sync(path, g):
+        if not isinstance(g, torch.Tensor) or not batch:
+            return g
+        split = _split_axes(leaf_spec(path, g, fsdp, moe_ep_data), mesh)
+        axes = [a for a in batch if a not in split]
+        return col.psum(g, axes, mesh) if axes else g
+    return _map(sync, grads)
+
+
+def norm_axes(params, mesh: Mesh, fsdp: bool = True,
+              moe_ep_data: bool = False) -> list[tuple[str, ...]]:
+    """For each leaf of ``params`` in :mod:`repro_torch.tree`'s
+    flattening order, the mesh axes (of size above 1) its spec shards it
+    on: the global gradient norm sums the leaf's sum of squares over
+    them, and over no axis it is replicated on (counted once)."""
+    from repro_torch.tree import leaves_with_paths
+    out = []
+    for p, leaf in leaves_with_paths(params):
+        keys = tuple(int(k) if k.isdigit() else k for k in p.split("/"))
+        spec = leaf_spec(keys, leaf, fsdp, moe_ep_data)
+        out.append(tuple(a for a in mesh.axis_names
+                         if a in _split_axes(spec, mesh)))
+    return out
+
+
+def train_batch_specs(batch, rules: dict):
+    """Specs of a train batch: ``tokens``, ``labels`` (and ``frames``,
+    ``prefix_embeds``) rows over the rules' batch axes, every other dim
+    whole (each model rank reads its rows' whole sequence)."""
+    return {k: P(rules["batch"], *([None] * (v.ndim - 1)))
+            for k, v in batch.items()}
+
+
+def shard_batch(batch, mesh: Mesh, rules: dict) -> dict:
+    """This rank's rows of a global train batch (:func:`train_batch_specs`),
+    in order: data rank ``i`` takes the ``i``-th block of rows."""
+    specs = train_batch_specs(batch, rules)
+    return {k: local_shard(torch.as_tensor(v), specs[k], mesh)
+            for k, v in batch.items()}

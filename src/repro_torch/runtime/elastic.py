@@ -49,9 +49,11 @@ def plan_remesh(n_devices: int, tp: int, global_batch: int) -> ElasticPlan:
     return ElasticPlan(dp=dp, tp=mp, global_batch=gb)
 
 
-def reshard_state(state: Any, mesh: Mesh, fsdp: bool = True) -> Any:
+def reshard_state(state: Any, mesh: Mesh, fsdp: bool = True,
+                  moe_ep_data: bool = False) -> Any:
     """Whole state -> this rank's blocks on ``mesh``: every leaf under
     the spec its path names (a params tree, or one that holds params
-    trees, as ``{"params", "m", "v", "step"}`` does: the moments take
-    their params' specs; a scalar stays whole)."""
-    return sh.shard_params(state, mesh, fsdp=fsdp)
+    trees, as a ``TrainState`` or ``{"params", "m", "v", "step"}`` does:
+    the moments take their params' specs; a step counter stays whole,
+    on the host)."""
+    return sh.shard_params(state, mesh, fsdp=fsdp, moe_ep_data=moe_ep_data)

@@ -10,6 +10,16 @@ replays consume identical batches.  A step-0 checkpoint is written
 first, so recovery never needs ``init_state``'s tensors, which the
 trainer's step updates in place.  ``step_times`` are host-clock seconds
 from drawing the batch to the step's return.
+
+On a mesh the step function says where the state's blocks lie (its
+``layout``: ``launch.train.MeshStep``).  Every rank runs the loop; the
+checkpoints hold whole leaves (``checkpointer``, written by rank 0).
+After a failure ``on_restart(restarts)`` may return the step of a new
+mesh (``runtime.elastic.plan_remesh`` chooses it): the newest
+checkpoint's whole leaves are read by the manifest's shapes, not by
+``init_state``'s blocks (cut for the old mesh), and resharded onto the
+new step's layout with ``runtime.elastic.reshard_state``; the saves go
+on from there in the new layout.
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import time
 from typing import Any, Callable
 
 from repro_torch.checkpoint import checkpointer as ckpt
+from repro_torch.runtime.elastic import reshard_state
 from repro_torch.runtime.straggler import StragglerMonitor
 
 log = logging.getLogger(__name__)
@@ -56,18 +67,36 @@ def run_resilient(init_state: Any,
                   metrics_cb: Callable[[int, dict], None] | None = None,
                   clock: Callable[[], float] = time.perf_counter
                   ) -> RunReport:
+    def restore(layout):
+        if layout is None:
+            return ckpt.restore_latest(cfg.ckpt_dir, init_state)
+        found = ckpt.restore_latest(cfg.ckpt_dir, init_state, whole=True)
+        if found is None:
+            return None
+        whole, at = found
+        return reshard_state(whole, layout.mesh, layout.fsdp,
+                             layout.moe_ep_data), at
+
+    def saver_for(layout):
+        return ckpt.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep,
+                                      layout=layout) \
+            if cfg.async_save else None
+
+    layout = getattr(step_fn, "layout", None)
     state = init_state
     start = 0
-    restored = ckpt.restore_latest(cfg.ckpt_dir, init_state)
+    restored = restore(layout)
+    # every rank has looked for a checkpoint before rank 0 writes one
+    ckpt.barrier(layout)
     if restored is not None:
         state, start = restored
         log.info("resumed from step %d", start)
     else:
         # seed a step-0 checkpoint so recovery never needs the initial
         # tensors (the step updates them in place)
-        ckpt.save(cfg.ckpt_dir, 0, init_state)
-    saver = ckpt.AsyncCheckpointer(cfg.ckpt_dir, keep=cfg.keep) \
-        if cfg.async_save else None
+        ckpt.save(cfg.ckpt_dir, 0, init_state, layout=layout)
+    saver = saver_for(layout)
+    save_seconds: list = []
     monitor = StragglerMonitor()
     restarts = 0
     failures: list = []
@@ -89,7 +118,7 @@ def run_resilient(init_state: Any,
                     if saver is not None:
                         saver.submit(step, state)
                     else:
-                        ckpt.save(cfg.ckpt_dir, step, state)
+                        ckpt.save(cfg.ckpt_dir, step, state, layout=layout)
             except Exception as e:  # noqa: BLE001 - deliberate catch-all
                 failures.append((step, repr(e)))
                 restarts += 1
@@ -101,19 +130,26 @@ def run_resilient(init_state: Any,
                             step, e, restarts, cfg.max_restarts)
                 if saver is not None:
                     saver.wait()
-                restored = ckpt.restore_latest(cfg.ckpt_dir, init_state)
+                if on_restart is not None:
+                    step_fn = on_restart(restarts)
+                    new_layout = getattr(step_fn, "layout", None)
+                    if new_layout is not layout and saver is not None:
+                        saver.close()
+                        save_seconds += saver.save_seconds
+                        saver = saver_for(new_layout)
+                    layout = new_layout
+                restored = restore(layout)
                 if restored is not None:
                     state, step = restored
                 else:
                     state, step = init_state, 0
-                if on_restart is not None:
-                    step_fn = on_restart(restarts)
     finally:
         if saver is not None:
             saver.submit(step, state)
             saver.wait()
             saver.close()
+            save_seconds += saver.save_seconds
     return RunReport(final_state=state, steps_done=step,
                      restarts=restarts, failures=failures,
                      step_times=monitor.times,
-                     save_seconds=list(saver.save_seconds) if saver else [])
+                     save_seconds=save_seconds)

@@ -1,6 +1,8 @@
-"""One rank of the CPU process groups of ``tests/test_torch_parallel.py``
-and ``tests/test_torch_parallel_lm.py`` (started by
-``tests/_torch_group.py``; imports neither JAX nor the reference).
+"""One rank of the CPU process groups of ``tests/test_torch_parallel.py``,
+``tests/test_torch_parallel_lm.py`` and
+``tests/test_torch_parallel_train.py`` (started by
+``tests/_torch_group.py``; imports neither JAX nor the reference; the
+training job is ``tests/_torch_train_worker.py``'s).
 
   python -m _torch_mesh_worker <job> <rank> <world> <workdir>
 
@@ -214,7 +216,14 @@ def job_lm(mesh, inp):
     return out
 
 
-JOBS = {"parallel": job_parallel, "lm": job_lm}
+def job_train(mesh, inp, workdir):
+    from _torch_train_worker import job_train as run
+    return run(mesh, inp, workdir)
+
+
+JOBS = {"parallel": lambda mesh, inp, workdir: job_parallel(mesh, inp),
+        "lm": lambda mesh, inp, workdir: job_lm(mesh, inp),
+        "train": job_train}
 
 
 def main(argv=None) -> None:
@@ -228,7 +237,7 @@ def main(argv=None) -> None:
         mesh = make_mesh_for(world, SHAPE[1], device="cpu")
         with open(workdir / "inputs.pkl", "rb") as f:
             inp = pickle.load(f)
-        result = JOBS[job](mesh, inp)
+        result = JOBS[job](mesh, inp, workdir)
         gathered = [None] * world if rank == 0 else None
         dist.gather_object(result, gathered, dst=0)
         if rank == 0:

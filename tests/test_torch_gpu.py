@@ -1626,3 +1626,78 @@ def test_attention_lse_on_every_route(cuda, b, sq, skv, h, kv, hd, win,
         empty = torch.isneginf(want)
         assert torch.equal(torch.isneginf(lse), empty)
         _within(lse[~empty], want[~empty], dtype)
+
+
+def test_mesh_trainer_on_a_one_rank_nccl_group(cuda, tmp_path):
+    """``make_trainer(cfg, mesh)`` on a one-rank NCCL group's (1, 1)
+    mesh: reduced minitron-4b in f32, 4 steps equal to the mesh-free
+    trainer's bit for bit with K4 ``sm90_tf32`` in every attention; then
+    ``run_resilient`` with a failure and ``on_restart`` onto a fresh
+    mesh ends in the clean mesh-free run's state, bit for bit."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data.synthetic import DataConfig, global_batch_at
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_step, make_trainer
+    from repro_torch.parallel import collectives as col
+    from repro_torch.runtime.elastic import plan_remesh
+    from repro_torch.runtime.fault_tolerance import (ResilienceConfig,
+                                                     run_resilient)
+    cfg = reduced(get_config("minitron-4b"), n_layers=2)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=8)
+    kw = dict(global_batch=8, seq_len=32, peak_lr=3e-3, total_steps=8)
+
+    def train(mesh):
+        run, state, _api, _rules = make_trainer(cfg, mesh, device="cuda",
+                                                **kw)
+        out = []
+        for i in range(4):
+            state, m = run(state, global_batch_at(dc, i))
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return out, [t.clone() for t in tree.leaves(state.params)]
+
+    def resilient(mesh, fail):
+        run, state, _api, _rules = make_trainer(cfg, mesh, device="cuda",
+                                                **kw)
+        fired = []
+
+        def hook(step):
+            if fail and step == 5 and not fired:
+                fired.append(step)
+                raise RuntimeError("injected node failure")
+
+        def on_restart(_n):
+            plan = plan_remesh(1, 1, 8)
+            return make_step(cfg, plan.build_mesh("cuda"), **kw)
+        return run_resilient(
+            state, run, lambda s: global_batch_at(dc, s), 8,
+            ResilienceConfig(ckpt_dir=str(tmp_path / f"ckpt_{fail}"),
+                             ckpt_every=4), failure_hook=hook,
+            on_restart=on_restart if fail else None).final_state
+
+    launches = dict(K4.attention.launches_by_route)
+    free, free_params = train(None)
+    clean = resilient(None, False)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh("cuda")
+        col.reset()
+        on_mesh, mesh_params = train(mesh)
+        resumed = resilient(mesh, True)
+        assert col.COUNTS == {}
+    finally:
+        dist.destroy_process_group()
+    assert on_mesh == free
+    assert all(torch.equal(a, b) for a, b in zip(mesh_params, free_params))
+    assert all(torch.equal(a, b) for a, b in zip(tree.leaves(resumed),
+                                                 tree.leaves(clean)))
+    ran = {r: K4.attention.launches_by_route[r] - launches[r]
+           for r in launches}
+    assert ran["sm90_tf32"] > 0 and ran["fma"] == 0 and ran["sm90"] == 0

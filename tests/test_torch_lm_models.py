@@ -533,19 +533,19 @@ class _StandInMesh:
 
 
 def test_what_is_not_ported_raises():
-    """A Mamba mixer on a mesh whose model axis is above 1, and training
-    on a mesh, wait for ROADMAP.md §1 item 6.3b; tp itself no longer
-    raises."""
+    """A Mamba mixer on a mesh whose model axis is above 1, serving or
+    training, waits for ROADMAP.md §1 item 6.3c; tp itself no longer
+    raises, nor does training on a mesh
+    (``tests/test_torch_parallel_train.py``)."""
     from repro_torch.parallel.axes import axis_rules
     for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
         api = build(reduced(get_config(arch)), tp=2)
         with axis_rules({"batch": None}, _StandInMesh()):
-            with pytest.raises(NotImplementedError, match="6.3b"):
+            with pytest.raises(NotImplementedError, match="6.3c"):
                 api.init_cache(2, 8, device="cpu")
-    phi3 = build(reduced(get_config("phi3-medium-14b")), tp=2)
-    with axis_rules({"batch": None}, _StandInMesh()):
-        with pytest.raises(NotImplementedError, match="6.3b"):
-            phi3.train_loss({}, {"tokens": None, "labels": None})
+            with pytest.raises(NotImplementedError, match="6.3c"):
+                api.train_loss({}, {"tokens": torch.zeros((1, 4)),
+                                    "labels": None})
     api = build(reduced(get_config("phi3-medium-14b")))
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="attn"):
