@@ -216,6 +216,22 @@
     width (heads padded to 40 over 20): a prefill of 8 tokens and 16
     decode steps replayed against the plain attention within
     ``LM_BF16_TOL``, ``drop_newest_slot`` failing it; peak memory;
+  * ``mesh_ssm``: the Mamba mixer's shards on a model axis of 4, 8 and
+    16, emulated in one process at full width (mamba2-1.3b's mixer and
+    one of jamba's, f32 and bf16, a 4096-token prefill and 4 decode
+    steps): every output and cache against the whole mixer (f32 1e-5
+    of max |whole|, bf16 ``CARD_TOL``); the reference's contiguous
+    split read as whole heads must fail that gate;
+  * ``lm_serve_mesh_ssm``: mamba2-1.3b at full size in bf16 and jamba
+    at ``reduced()`` in f32 through the one-rank NCCL mesh, bit-equal
+    to the mesh-free servers; jamba's K4 launches counted;
+  * ``dryrun``: the dry-run's meta cells (mamba2-1.3b x decode_32k and
+    train_4k, phi3-medium-14b x decode_32k on (16, 16), and mamba2's
+    decode_32k on (1, 1)), run on the CPU one after another at the
+    lowest priority from just after ``build`` and printed here, then that (1, 1) cell run on the card
+    through the one-rank NCCL mesh: its FLOPs equal to the meta run's,
+    its params' and caches' bytes equal to the memory model's, its
+    peak memory beside ``analytic_memory_gb``;
   * ``plan_audit``: the ``sm90`` legality profile
     (``repro_torch.analysis.plan_check``) on the card, running no
     kernel: the card's opt-in shared memory a block, SM count and
@@ -283,6 +299,7 @@ import datetime
 import json
 import math
 import os
+import shlex
 import shutil
 import subprocess
 import sys
@@ -298,6 +315,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import tree as TREE  # noqa: E402
 from repro_torch.analysis import plan_check as PC  # noqa: E402
+from repro_torch.analysis.memory_model import (  # noqa: E402
+    sharded_bytes_per_chip)
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.hopper_adapter import (HBM_BYTES_PER_S,  # noqa: E402
                                              PEAK_BF16_FLOPS,
@@ -329,6 +348,7 @@ from repro_torch.kernels.conv_lb.ref import (conv2d_ref, flip_w,  # noqa: E402
                                              im2col_ref, wgrad_ref)
 from repro_torch.kernels.nvcc import (build_many,  # noqa: E402
                                       parse_ptxas_spills, resource_usage)
+from repro_torch.launch import dryrun as DRY  # noqa: E402
 from repro_torch.launch import serve_images  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch import steps as LM_STEPS  # noqa: E402
@@ -356,6 +376,7 @@ from repro_torch.models.graph import (graph_logits,  # noqa: E402
 from repro_torch.obs.tracer import Tracer  # noqa: E402
 from repro_torch.optim import adamw as ADAMW  # noqa: E402
 from repro_torch.parallel import collectives as COL  # noqa: E402
+from repro_torch.parallel import sharding as SH  # noqa: E402
 from repro_torch.runtime.elastic import plan_remesh  # noqa: E402
 from repro_torch.runtime.fault_tolerance import (  # noqa: E402
     ResilienceConfig, run_resilient)
@@ -4995,6 +5016,304 @@ def phase_lm_serve_mesh(card: str) -> dict:
         "attention_lse"]}
 
 
+# --------------------------------------------------------------------------
+# the Mamba mixer on a "model" axis above 1, and the dry-run
+# --------------------------------------------------------------------------
+
+#: ``mesh_ssm``: the model-axis sizes the shards are emulated at, the
+#: prefill's tokens and the decode steps after it
+MESH_SSM_SHARDS = (4, 8, 16)
+MESH_SSM_PROMPT, MESH_SSM_STEPS = 4096, 4
+#: the f32 gate: every output and cache within this of max |whole|
+MESH_SSM_F32_TOL = 1e-5
+#: ``dryrun``: the meta cells, each ``(arch, shape, mesh)`` (a mesh
+#: ``--mesh-shape``; ``None`` the production (16, 16)); the last is the
+#: (1, 1) cell the card's decode step is held to
+DRYRUN_CELLS = (("mamba2-1.3b", "decode_32k", None),
+                ("mamba2-1.3b", "train_4k", None),
+                ("phi3-medium-14b", "decode_32k", None),
+                ("mamba2-1.3b", "decode_32k", "1x1"))
+DRYRUN_OUT = Path(__file__).resolve().parent / "build" / "dryrun_torch"
+
+
+def contiguous_cut(cfg, r: int, mp: int):
+    """The control: rank ``r``'s conv channels read at its contiguous
+    block of ``conv_dim`` (the reference's split of ``conv_w``) as if
+    they were its heads'."""
+    cut = SSM.heads_cut(cfg, r, mp)
+    block = (cfg.d_inner + 2 * cfg.ssm_state) // mp
+    return SSM.Cut(z=cut.z, x=(r * block, r * block + cut.x[1] - cut.x[0]),
+                   dt=cut.dt)
+
+
+def _mixer_params(cfg, dtype, gen):
+    """One Mamba2 mixer at full width drawn on the card, its matrices in
+    ``dtype``; ``A_log``, ``dt_bias``, ``D`` and ``norm_w`` (f32) drawn
+    away from their init so that every head differs."""
+    p = SSM.init_mamba(gen, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                       cfg.ssm_expand, cfg.ssm_conv, torch.float32)
+    h = cfg.ssm_heads
+    p["A_log"] = torch.randn(h, generator=gen, device="cuda") * 0.5
+    p["dt_bias"] = torch.randn(h, generator=gen, device="cuda") * 0.5
+    p["D"] = torch.randn(h, generator=gen, device="cuda")
+    p["norm_w"] = 1 + 0.1 * torch.randn(cfg.d_inner, generator=gen,
+                                        device="cuda")
+    return {k: v.to(dtype) if v.dim() == 2 else v for k, v in p.items()}
+
+
+def _mixer_run(p, x, steps, cfg, mp=None, cut=SSM.heads_cut):
+    """The prefill of ``x`` and a decode step of each of ``steps``:
+    whole (``mp`` None) or as ``mp`` shards (:func:`SSM.run_shards`).
+    Returns every output, then the final SSM state and conv tail."""
+    if mp is None:
+        y, (st, tail) = SSM.mamba_forward(p, x, cfg)
+    else:
+        y, (st, tail) = SSM.run_shards(p, x, cfg, mp, cut=cut)
+    outs = [y]
+    for xt in steps:
+        if mp is None:
+            y, (st, tail) = SSM.mamba_decode(p, xt, cfg, st, tail)
+        else:
+            y, (st, tail) = SSM.run_shards(p, xt, cfg, mp, caches=(st, tail),
+                                           cut=cut)
+        outs.append(y)
+    return outs + [st, tail]
+
+
+def _mixer_gate(got: list, whole: list, dtype) -> dict:
+    """Each of ``got`` against ``whole``: f32 within
+    :data:`MESH_SSM_F32_TOL` of max |whole|, bf16 within ``CARD_TOL``;
+    the worst of them, over its gate (<= 1 passes)."""
+    worst = 0.0
+    for a, b in zip(got, whole):
+        if dtype == torch.float32:
+            err = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            worst = max(worst, err / (MESH_SSM_F32_TOL * max(top, 1e-30)))
+        else:
+            worst = max(worst, within(a, b, dtype)["worst_over_tol"])
+    return {"worst_over_gate": worst}
+
+
+def phase_mesh_ssm(card: str) -> dict:
+    """The Mamba mixer's shards at full width, emulated in one process:
+    mamba2-1.3b's (d_model 2048, 64 heads) and one of jamba's (d_model
+    8192, 256 heads), in f32 and bf16, a :data:`MESH_SSM_PROMPT`-token
+    prefill and :data:`MESH_SSM_STEPS` decode steps.  At each model-axis
+    size of :data:`MESH_SSM_SHARDS`, shard r runs its body
+    (:func:`SSM.mix`/``mix_decode``) on its contiguous ``in_proj``
+    columns and its cache blocks, the gather and the sums done in the
+    process (:func:`SSM.run_shards`): every output, the SSM state and
+    the conv tail against the whole mixer's, gated (f32
+    :data:`MESH_SSM_F32_TOL` of max |whole|, bf16 ``CARD_TOL``).  The
+    control, the reference's contiguous split read as whole heads
+    (:func:`contiguous_cut`), must fail the gate.  No kernel of K1-K4
+    runs here."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    rows, counts = [], {}
+    with counted(counts):
+        for arch in (SSM_ARCH, HYBRID_ARCH):
+            cfg = get_config(arch)
+            for dtype in DTYPES:
+                p = _mixer_params(cfg, dtype, gen)
+                x = torch.randn((1, MESH_SSM_PROMPT, cfg.d_model),
+                                generator=gen, device="cuda").to(dtype)
+                steps = [torch.randn((1, 1, cfg.d_model), generator=gen,
+                                     device="cuda").to(dtype)
+                         for _ in range(MESH_SSM_STEPS)]
+                with torch.no_grad():
+                    whole = _mixer_run(p, x, steps, cfg)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    whole = _mixer_run(p, x, steps, cfg)
+                    torch.cuda.synchronize()
+                    whole_s = time.perf_counter() - t0
+                    gates = {}
+                    for mp in MESH_SSM_SHARDS:
+                        gates[mp] = _mixer_gate(
+                            _mixer_run(p, x, steps, cfg, mp), whole, dtype)
+                        require(gates[mp]["worst_over_gate"] <= 1.0,
+                                f"mesh_ssm {arch} {dtype} at {mp} shards: "
+                                f"{gates[mp]}")
+                    ctl = _mixer_gate(_mixer_run(
+                        p, x, steps, cfg, MESH_SSM_SHARDS[0],
+                        cut=contiguous_cut)[:1], whole[:1], dtype)
+                require(ctl["worst_over_gate"] > 1.0,
+                        f"mesh_ssm {arch} {dtype}: the contiguous-split "
+                        f"control passes {ctl}")
+                row = {"phase": "mesh_ssm", "config": arch,
+                       "dtype": str(dtype), "d_model": cfg.d_model,
+                       "ssm_heads": cfg.ssm_heads, "prompt": MESH_SSM_PROMPT,
+                       "decode_steps": MESH_SSM_STEPS,
+                       "shards": {str(mp): g for mp, g in gates.items()},
+                       "control_contiguous_split": ctl,
+                       "whole_s": whole_s, "card": card}
+                emit(row)
+                rows.append(row)
+                del p, x, steps, whole
+                _free()
+    require(not any(n for c in counts.values() for n in c.values()),
+            f"mesh_ssm: a kernel launched {counts}")
+    return {"f32": counts}
+
+
+def phase_lm_serve_mesh_ssm(card: str) -> dict:
+    """The Mamba families through a one-rank NCCL group's (1, 1) mesh
+    (``BatchedServer(cfg, mesh, ...)``, holding a mesh-free server's
+    weights): mamba2-1.3b at full size in bf16, its tokens and every
+    step's logits equal to the mesh-free server's bit for bit, no launch
+    of K1-K4; jamba at ``reduced()`` in f32 likewise, one K4
+    ``sm90_tf32`` launch a step per attention layer and nothing else,
+    no plain attention."""
+    runs, out = {}, {}
+    for arch, cfg, route in (
+            (SSM_ARCH, get_config(SSM_ARCH), "sm90"),
+            (HYBRID_ARCH, reduced(get_config(HYBRID_ARCH)), "sm90_tf32")):
+        _free()
+        per_step = attention_layers(cfg) if cfg.family == "hybrid" else 0
+        free = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
+                             device="cuda", seed=SEED)
+        reqs_free = lm_requests(cfg, SEED + 12)
+        c_free = {}
+        with counted(c_free), no_plain_attention():
+            steps_free, secs_free = serve_lm(free, reqs_free, route,
+                                             per_step)
+        logits_free = [s[3] for s in steps_free]
+        del steps_free
+        with one_rank_nccl() as mesh:
+            server = BatchedServer(cfg, mesh, slots=LM_SLOTS,
+                                   max_seq=LM_MAX_SEQ, params=free.params)
+            reqs = lm_requests(cfg, SEED + 12)
+            COL.reset()
+            c_mesh = {}
+            with counted(c_mesh), no_plain_attention():
+                steps, secs = serve_lm(server, reqs, route, per_step)
+            collectives = COL.counts_by_op()
+        logits = [s[3] for s in steps]
+        del steps
+        tokens_equal = [r.out for r in reqs] == [r.out for r in reqs_free]
+        logits_equal = len(logits) == len(logits_free) and all(
+            torch.equal(a, b) for a, b in zip(logits, logits_free))
+        require(tokens_equal and logits_equal,
+                f"lm_serve_mesh_ssm {arch}: tokens equal {tokens_equal}, "
+                f"logits equal {logits_equal}")
+        n = per_step * len(secs)
+        require(k4_only(c_mesh, route, n),
+                f"lm_serve_mesh_ssm {arch} launches {c_mesh}")
+        runs[arch] = c_mesh
+        out[arch] = {"dtype": str(cfg.compute_dtype),
+                     "size": "full" if arch == SSM_ARCH else "reduced()",
+                     "steps": len(secs), "tokens_equal": tokens_equal,
+                     "logits_bit_equal": logits_equal, "launches": c_mesh,
+                     "k4_per_step": {route: per_step},
+                     "collectives": collectives,
+                     "step_ms_median": _median(secs) * 1e3,
+                     "step_ms_median_mesh_free": _median(secs_free) * 1e3}
+        del server, free, logits, logits_free
+    _free()
+    emit({"phase": "lm_serve_mesh_ssm", "runs": out, "card": card})
+    return {"bf16": runs[SSM_ARCH], "f32": runs[HYBRID_ARCH]}
+
+
+def start_dryrun() -> list:
+    """The dry-run's :data:`DRYRUN_CELLS` on the ``meta`` device, one
+    process each (one ``"fake"`` group each), run one after another at
+    the lowest CPU priority in one shell, so that the host-bound phases
+    beside them keep their cores; :func:`phase_dryrun` waits for it."""
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent
+                                           / "src"),
+           "OMP_NUM_THREADS": "1", "CUDA_VISIBLE_DEVICES": ""}
+    cmds = []
+    for arch, shape, dims in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--json", "--out", str(DRYRUN_OUT)]
+        cmd += ["--mesh-shape", dims] if dims else ["--mesh", "single"]
+        cmds.append(" ".join(shlex.quote(c) for c in cmd))
+    return [subprocess.Popen(["nice", "-n", "19", "sh", "-c",
+                              " && ".join(cmds)], env=env,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)]
+
+
+def stop(procs: list) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def phase_dryrun(card: str, procs: list) -> dict:
+    """The meta cells of :func:`start_dryrun` (each record printed on a
+    line), then mamba2-1.3b x decode_32k at full shape on the card
+    through a one-rank NCCL group's (1, 1) mesh (``launch.dryrun.
+    run_cell``: f32 params drawn on the card, the inputs and caches from
+    ``make_batch``, one decode step under the same counters):
+    ``sharded_bytes_per_chip`` of its params and caches equal to the
+    bytes allocated for them, and the FLOPs counted on the card equal to
+    the meta run's of the (1, 1) cell; the card's peak memory beside
+    ``analytic_memory_gb``, ungated."""
+    (proc,) = procs
+    try:
+        text, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        stop(procs)
+        raise SmokeFailure("dryrun: the meta cells gave no result in time")
+    recs = [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+    require(proc.returncode == 0 and len(recs) == len(DRYRUN_CELLS),
+            f"dryrun: rc {proc.returncode}, {len(recs)} records, "
+            f"{text[-2000:]}")
+    require(all((r["arch"], r["shape"]) == (a, sh)
+                for (a, sh, _d), r in zip(DRYRUN_CELLS, recs)),
+            f"dryrun: records out of order {[r['arch'] for r in recs]}")
+    records = dict(zip(DRYRUN_CELLS, recs))
+    for rec in recs:
+        emit({"phase": "dryrun_meta", **rec, "card": card})
+    arch, shape_name, dims = DRYRUN_CELLS[-1]
+    meta = records[DRYRUN_CELLS[-1]]
+    cfg, shape = DRY.cell_config(arch, shape_name)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_nccl() as mesh:
+        api = build_lm(cfg, tp=1)
+        rules = SH.axis_rules(mesh, shape.global_batch, shape.seq_len)
+        launches = {}
+        with counted(launches), torch.no_grad():
+            t0 = time.perf_counter()
+            counts, memo, params, caches = DRY.run_cell(
+                api, shape, mesh, rules,
+                key=torch.Generator(device="cuda").manual_seed(SEED + 81))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        allocated = sum(t.numel() * t.element_size()
+                        for t in TREE.leaves((params, caches))
+                        if isinstance(t, torch.Tensor))
+        analytic = sum(sharded_bytes_per_chip(tree, specs, mesh)
+                       for tree, specs in memo.values())
+    peak = torch.cuda.max_memory_allocated()
+    require(allocated == analytic,
+            f"dryrun: {allocated} bytes allocated for the params and "
+            f"caches, the memory model says {analytic}")
+    require(counts["flops"] == meta["flops_per_chip"],
+            f"dryrun: {counts['flops']} FLOPs counted on the card, "
+            f"{meta['flops_per_chip']} on meta")
+    del params, caches, memo
+    _free()
+    row = {"phase": "dryrun_card", "config": arch, "shape": shape_name,
+           "mesh": "1x1", "global_batch": shape.global_batch,
+           "seq_len": shape.seq_len, "state_bytes": allocated,
+           "state_bytes_memory_model": analytic,
+           "flops": counts["flops"], "flops_meta": meta["flops_per_chip"],
+           "bytes_counted": counts["bytes"],
+           "bytes_counted_meta": meta["hbm_bytes_per_chip"],
+           "max_memory_allocated_gb": peak / 1e9,
+           "analytic_memory_gb": meta["analytic_memory_gb"],
+           "step_with_setup_s": secs, "launches": launches, "card": card}
+    emit(row)
+    return {"f32": launches}
+
+
 class Decisions:
     """The discrete choices of a forward, shared between two runs.
 
@@ -5986,6 +6305,14 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
     libs = phase_build()
+    dry_procs = start_dryrun()
+    try:
+        return _main(card, libs, dry_procs, t0)
+    finally:
+        stop(dry_procs)
+
+
+def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     k1_before = dict(K.conv_lb.launches_by_route)
     k2_before = dict(W.wgrad_lb.launches_by_route)
     tf32_controls = phase_check()
@@ -6035,6 +6362,9 @@ def main() -> int:
     mesh_attn = phase_mesh_attention(card, mesh_flush)
     del mesh_flush
     lm_mesh = phase_lm_serve_mesh(card)
+    mesh_ssm = phase_mesh_ssm(card)
+    lm_mesh_ssm = phase_lm_serve_mesh_ssm(card)
+    dryrun = phase_dryrun(card, dry_procs)
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
     matmul_rows = [r for r in matmul_all if r["layout"] == "n-major"]
@@ -6477,7 +6807,10 @@ def main() -> int:
                "launches_lm_serve_encdec": encdec,
                "launches_lm_train": lm_train,
                "launches_lm_train_mesh": lm_train_mesh,
-               "launches_lm_serve_mesh": lm_mesh}
+               "launches_lm_serve_mesh": lm_mesh,
+               "launches_mesh_ssm": mesh_ssm,
+               "launches_lm_serve_mesh_ssm": lm_mesh_ssm,
+               "launches_dryrun": dryrun}
     for k in kernels:
         counter = counter_of(k)
         for key, run in lm_runs.items():
@@ -6524,6 +6857,16 @@ def main() -> int:
             and train_mesh_runs["attention"] == 0
             and train_mesh_runs["attention_sm90_tf32"] == 0,
             f"lm_train_mesh: K4's launches by route {train_mesh_runs}")
+    ssm_runs = {n: (by_name[n]["launches_mesh_ssm"],
+                    by_name[n]["launches_lm_serve_mesh_ssm"],
+                    by_name[n]["launches_dryrun"])
+                for n in ("attention_sm90", "attention",
+                          "attention_sm90_tf32")}
+    require(ssm_runs["attention_sm90_tf32"][1] > 0
+            and not any(ssm_runs["attention_sm90_tf32"][0::2])
+            and not any(ssm_runs["attention_sm90"] + ssm_runs["attention"]),
+            f"mesh_ssm, lm_serve_mesh_ssm, dryrun: K4's launches by route "
+            f"{ssm_runs}")
     mesh_runs = {n: by_name[n]["launches_lm_serve_mesh"]
                  for n in ("attention_sm90", "attention",
                            "attention_sm90_tf32")}

@@ -78,14 +78,15 @@ def resolve_target(value: "ExecTarget | str") -> ExecTarget:
 
 def resolve_device(device: "torch.device | str" = "cuda") -> torch.device:
     """The device an entry point runs on: ``cuda`` unless the caller
-    asks for ``cpu``.  A CUDA request on a host without a card raises;
-    it never carries on on the CPU."""
+    asks for ``cpu``, or for ``meta`` (shapes and types only, as the
+    dry-run makes them).  A CUDA request on a host without a card
+    raises; it never carries on on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass "
                            "device='cpu' to run the plain PyTorch "
                            "version on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or "
-                         f"'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda', 'cpu' "
+                         f"or 'meta' (shapes only)")
     return dev

@@ -24,6 +24,10 @@ word for word.
 Maps {S, u, z, k} of the paper onto a batch-folded conv block
 (:class:`ConvBlockShape`): u = b*y*x psum rows, z = co channels
 resident, k = ci slice streamed per pass, with halos for WndR.
+
+:class:`ShardPlan` and :func:`balanced_shard_plan`, the mesh-level
+communication balance, are the reference's (``tpu_adapter.py:289-315``)
+word for word.
 """
 
 from __future__ import annotations
@@ -67,6 +71,10 @@ PEAK_F32_FLOPS = 67e12            # f32 FMA outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # bf16 on the tensor cores, dense
 PEAK_TF32_FLOPS = 495e12          # TF32 on the tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12
+#: published H100 SXM figures: NVLink 4's 900 GB/s a card, 450 GB/s in
+#: each direction, and 80 GB of HBM3
+NVLINK_BYTES_PER_S = 450e9
+HBM_BYTES = 80e9
 
 
 def launch_bounds_regs(threads: int, min_blocks: int = 1) -> int:
@@ -287,3 +295,32 @@ def conv_block_candidates(batch: int, ho: int, wo: int, ci: int
 
     return itertools.product(cands(batch, 1.6), cands(ho, 2.0),
                              cands(wo, 2.0), cands(ci, 2.0))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """Mesh-level communication balance (beyond-paper, DESIGN.md §5)."""
+
+    m_shards: int
+    n_shards: int
+
+    def per_chip_tile(self, m: int, n: int) -> tuple[int, int]:
+        return -(-m // self.m_shards), -(-n // self.n_shards)
+
+
+def balanced_shard_plan(m: int, n: int, chips: int,
+                        r: float = 1.0) -> ShardPlan:
+    """Apply u ~= R*z at the mesh level: per-chip output tile as square
+    as R allows, which minimizes the all-gather volume of the two
+    operand panels (the interconnect analogue of Eq. (14))."""
+    best, best_cost = None, None
+    for mshard in range(1, chips + 1):
+        if chips % mshard:
+            continue
+        nshard = chips // mshard
+        pm, pn = -(-m // mshard), -(-n // nshard)
+        # per-chip panel traffic ~ pm*K + K*pn ;  minimized when pm ~= r*pn
+        cost = pm / r + pn
+        if best_cost is None or cost < best_cost:
+            best, best_cost = ShardPlan(mshard, nshard), cost
+    return best

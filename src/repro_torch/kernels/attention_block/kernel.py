@@ -352,10 +352,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     A CUDA ``q`` launches the kernel :func:`route` names, or the one
     ``via`` names (``"fma"`` takes every input; ``"sm90"`` and
     ``"sm90_tf32"`` raise on an input they do not take); a CPU ``q``
-    runs the plain version.  Any other device raises."""
+    runs the plain version; a ``meta`` ``q`` gives the output's shape
+    and type and computes nothing (:func:`_meta`).  Any other device
+    raises."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, groups=groups, window=window,
                                causal=causal, return_lse=bool(lse))
+    if q.device.type == "meta":
+        return _meta(q, k, v, window=window, causal=causal, lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"the attention kernel runs on CUDA tensors (or "
                          f"its plain version on CPU ones), not {q.device}")
@@ -462,6 +466,46 @@ def _sm90_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       int(lo_terms), stream)
     _launched(lib, err, "attention_block_sm90_tf32", "sm90_tf32", lse)
     return out
+
+
+def _meta_op():
+    """``repro_torch::attention_meta``, registered at first use: K4's
+    stand-in on the ``meta`` device (the dry-run), an op whose fake
+    implementation gives the output's shape and type, and which
+    ``torch.utils.flop_counter.FlopCounterMode`` counts at 4 * hd FLOPs
+    for each (query, key) pair the kernels visit
+    (:func:`visited_pairs`).  It computes nothing, on any device."""
+    try:
+        return torch.ops.repro_torch.attention_meta
+    except AttributeError:
+        pass
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op("repro_torch::attention_meta", mutates_args=())
+    def op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+           causal: bool) -> torch.Tensor:
+        raise ValueError("attention_meta computes nothing: it takes meta "
+                         "tensors only")
+
+    @op.register_fake
+    def _shape(q, k, v, window, causal):
+        return torch.empty_like(q)
+
+    @register_flop_formula(torch.ops.repro_torch.attention_meta)
+    def _flops(q_shape, k_shape, v_shape, window, causal, *args, **kwargs):
+        bh, sq, hd = q_shape
+        return 4 * hd * bh * visited_pairs(sq, k_shape[1], window, causal)
+    return torch.ops.repro_torch.attention_meta
+
+
+def _meta(q, k, v, *, window: int, causal: bool, lse: bool):
+    """:func:`attention` of ``meta`` tensors: the output (and the f32
+    log-sum-exp) as empty tensors of the right shape and type, counted
+    by :func:`_meta_op`'s FLOP formula.  Nothing is launched."""
+    out = _meta_op()(q, k, v, int(window), bool(causal))
+    if not lse:
+        return out
+    return out, torch.empty(q.shape[:2], dtype=torch.float32, device="meta")
 
 
 attention.launches = 0

@@ -29,8 +29,14 @@ for the ``encdec`` family:
 take and return this rank's blocks and ``tp`` must be the mesh's
 "model" size.  :func:`_moe_mode` picks the MoE mode as the reference's
 does: ``dense`` without a mesh, ``psum`` at decode and ``a2a``
-otherwise (prefill and training).  The reference's ``input_specs`` and
-``make_batch`` wait for the port's dry-run (ROADMAP.md §1 item 6.3d).
+otherwise (prefill and training).
+
+The dry-run's stand-ins (the reference's ``input_specs``/``make_batch``):
+:meth:`ModelAPI.input_specs` gives an input shape's tensors on the
+``meta`` device (shapes and types, the port's ``ShapeDtypeStruct``;
+decode's caches from ``init_cache(..., device="meta")``, whose ``pos``
+is a host numpy vector); :meth:`ModelAPI.make_batch` draws concrete
+ones from a ``torch.Generator`` on its device.
 """
 
 from __future__ import annotations
@@ -38,10 +44,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable
 
-from repro_torch.configs.base import ModelConfig
+import numpy as np
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.exec_target import resolve_device
 from repro_torch.models import encdec, transformer
+from repro_torch.models.encdec import ENC_FRAMES
 from repro_torch.parallel.axes import current_mesh
+from repro_torch.tree import tree_map
 
 
 def _moe_mode(kind: str) -> str:
@@ -59,6 +70,55 @@ class ModelAPI:
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
+
+    # ---- dry-run stand-ins ------------------------------------------------
+    def input_specs(self, shape: InputShape) -> dict[str, Any]:
+        """The inputs of one step of ``shape`` as ``meta`` tensors (and
+        the caches' host ``pos`` vectors)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+
+        def spec(*dims, dtype=torch.int32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+        if shape.kind in ("train", "prefill"):
+            batch: dict[str, Any] = {"tokens": spec(b, s)}
+            if shape.kind == "train":
+                batch["labels"] = spec(b, s)
+            if cfg.family == "encdec":
+                batch["frames"] = spec(b, ENC_FRAMES, cfg.d_model,
+                                       dtype=cfg.compute_dtype)
+            elif cfg.frontend == "vision_stub":
+                batch["prefix_embeds"] = spec(b, cfg.frontend_len,
+                                              cfg.d_model,
+                                              dtype=cfg.compute_dtype)
+            return batch
+        # decode: one new token against a seq_len cache
+        return {"caches": self.init_cache(b, s, device="meta"),
+                "token": spec(b, 1), "cur_pos": spec()}
+
+    def make_batch(self, key: torch.Generator,
+                   shape: InputShape) -> dict[str, Any]:
+        """Concrete tensors matching :meth:`input_specs`, drawn from
+        ``key`` on its device: integer tensors in [0, vocab), 0-d ones
+        0, everything else N(0, 1) * 0.02 in its type.  The caches'
+        host ``pos`` vectors are integers too, drawn on ``key``'s device
+        and brought to the host."""
+        dev = key.device
+
+        def concretize(leaf):
+            if isinstance(leaf, np.ndarray):
+                return torch.randint(0, self.cfg.vocab, leaf.shape,
+                                     generator=key, device=dev).cpu(
+                                     ).numpy().astype(leaf.dtype)
+            if leaf.dim() == 0:
+                return torch.zeros((), dtype=leaf.dtype, device=dev)
+            if not leaf.dtype.is_floating_point:
+                return torch.randint(0, self.cfg.vocab, leaf.shape,
+                                     generator=key, device=dev,
+                                     dtype=leaf.dtype)
+            return (torch.randn(leaf.shape, generator=key, device=dev)
+                    * 0.02).to(leaf.dtype)
+        return tree_map(concretize, self.input_specs(shape))
 
 
 def build(cfg: ModelConfig, tp: int = 1) -> ModelAPI:

@@ -27,11 +27,10 @@ embedding and the logits vocab-parallel, the MoE FFN in the mode
 decode, or the two-axis ``ep2`` for a ``moe_ep_data`` config), the
 decode caches' slots sharded over "model" and their rows over the batch
 axes; each block's weights are all-gathered over "data" under the
-rules' ``fsdp``.  The SSM families (mamba2, jamba) raise on a mesh
-whose "model" axis is above 1: the reference shards ``in_proj``'s
-packed output over "model" in one contiguous split, which does not fall
-on the SSD heads (:data:`MESH_ITEM`); they run, and train, where it is
-1.
+rules' ``fsdp``.  A Mamba mixer splits its SSD heads over "model"
+(:func:`~repro_torch.models.ssm.mamba_forward_mesh`: the reference's
+contiguous split of ``in_proj``'s packed output all-gathered, each rank
+taking its heads), so their count must divide by the axis's size.
 
 Training (:func:`train_loss`): with ``cfg.remat`` each block, the cast
 of its f32 masters included, runs under ``torch.utils.checkpoint``
@@ -79,10 +78,6 @@ from repro_torch.parallel import collectives as col
 from repro_torch.parallel.axes import (current_fsdp, current_mesh,
                                        current_rules, model_size)
 from repro_torch.tree import leaves
-
-#: what the port's NotImplementedError message on a mesh cites: the SSM
-#: families on a model axis above 1
-MESH_ITEM = "ROADMAP.md §1 item 6.3c"
 
 # --------------------------------------------------------------------------
 # block structure
@@ -248,13 +243,10 @@ def _apply_ffn(sub, ffn, h, cfg, moe_mode: str = "dense", sp: bool = False):
 
 
 def _check_mesh(cfg: ModelConfig) -> None:
-    """The SSM families run on a mesh only where its "model" axis is 1."""
-    if model_size() > 1 and any(m == "mamba" for m, _ in block_spec(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: a Mamba mixer on a mesh whose model axis is "
-            f"{model_size()}: the reference splits in_proj's packed output "
-            f"contiguously over 'model', which does not fall on the SSD "
-            f"heads; {MESH_ITEM}")
+    """A Mamba mixer splits its heads over the "model" axis: they must
+    divide evenly."""
+    if any(m == "mamba" for m, _ in block_spec(cfg)):
+        ssm_mod.shard_heads(cfg, model_size())
 
 
 def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
@@ -271,7 +263,11 @@ def _sublayer_forward(sub, kind, h, pos, pos_host, cfg, nh, nkv,
             cache_out = attn_mod.prefill_cache(k, v, pos_host, max_seq,
                                                cfg.window)
     else:
-        out, (st, conv) = ssm_mod.mamba_forward(sub["mamba"], hn, cfg)
+        if model_size() > 1:
+            out, (st, conv) = ssm_mod.mamba_forward_mesh(sub["mamba"], hn,
+                                                         cfg, sp)
+        else:
+            out, (st, conv) = ssm_mod.mamba_forward(sub["mamba"], hn, cfg)
         if want_cache:
             cache_out = {"ssm": st, "conv": conv}
     h = h + out
@@ -421,12 +417,17 @@ def _init_sub_cache(cfg: ModelConfig, mixer: str, batch: int,
                                    cfg.kv_cache_dtype or cfg.compute_dtype,
                                    device=device)
     # the SSM state, a recurrent accumulator, in f32; the conv tail in
-    # the compute type
+    # the compute type; on a mesh this rank's heads and its block of
+    # the conv channels
+    mp = model_size()
     conv_dim = cfg.d_inner + 2 * cfg.ssm_state
-    return {"ssm": torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
-                                cfg.ssm_state), dtype=torch.float32,
-                               device=device),
-            "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim),
+    if conv_dim % mp:
+        raise ValueError(f"{conv_dim} conv channels do not split over "
+                         f"{mp} model shards")
+    return {"ssm": torch.zeros((batch, ssm_mod.shard_heads(cfg, mp),
+                                cfg.ssm_head_dim, cfg.ssm_state),
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim // mp),
                                 dtype=cfg.compute_dtype, device=device)}
 
 
@@ -472,8 +473,10 @@ def decode_step(params, caches, token, cur_pos, cfg: ModelConfig,
                     sub["attn"], hn, c, cur, cfg, nh, nkv, attn=attn,
                     tap=_tap(tap, i * len(spec) + j))
             else:
-                out, (st, conv) = ssm_mod.mamba_decode(
-                    sub["mamba"], hn, cfg, c["ssm"], c["conv"])
+                decode = ssm_mod.mamba_decode_mesh if model_size() > 1 \
+                    else ssm_mod.mamba_decode
+                out, (st, conv) = decode(sub["mamba"], hn, cfg, c["ssm"],
+                                         c["conv"])
                 block_caches[f"sub{j}"] = {"ssm": st, "conv": conv}
             h = h + out
             if ffn is not None:

@@ -38,9 +38,11 @@ class Mesh:
     ``groups`` (each axis's process group), ``index`` (this rank's index
     along each axis) and ``device`` (where this rank's tensors lie).
 
-    ``device_type`` is ``"cuda"`` (the rank's current card, NCCL only)
-    or ``"cpu"`` (gloo).  The process group must be initialized and its
-    world must hold ``prod(shape)`` ranks."""
+    ``device_type`` is ``"cuda"`` (the rank's current card, NCCL only),
+    ``"cpu"`` (gloo), or ``"meta"`` (shapes only, over PyTorch's
+    ``"fake"`` backend alone, whose collectives move nothing: the
+    dry-run's one rank of a large world).  The process group must be
+    initialized and its world must hold ``prod(shape)`` ranks."""
 
     def __init__(self, shape, axis_names, device_type: str = "cuda"):
         import torch.distributed as dist
@@ -52,22 +54,27 @@ class Mesh:
         if not dist.is_initialized():
             raise RuntimeError("a Mesh needs torch.distributed's process "
                                "group: call init_process_group first")
-        if device_type not in ("cuda", "cpu"):
-            raise ValueError(f"device_type must be 'cuda' or 'cpu', not "
-                             f"{device_type!r}")
+        if device_type not in ("cuda", "cpu", "meta"):
+            raise ValueError(f"device_type must be 'cuda', 'cpu' or "
+                             f"'meta', not {device_type!r}")
         backend = dist.get_backend()
         if device_type == "cuda" and backend != "nccl":
             raise ValueError(f"a mesh of CUDA tensors runs over NCCL, not "
                              f"{backend}: gloo stages CUDA tensors through "
                              f"the host")
+        if (device_type == "meta") != (backend == "fake"):
+            raise ValueError(f"a mesh of meta tensors runs over the 'fake' "
+                             f"backend and that backend carries nothing "
+                             f"else; got {device_type!r} over {backend}")
         n = 1
         for s in shape:
             n *= s
         if n != dist.get_world_size():
             raise ValueError(f"mesh {shape} holds {n} ranks, the world "
                              f"{dist.get_world_size()}")
-        self.device_mesh = init_device_mesh(device_type, shape,
-                                            mesh_dim_names=axis_names)
+        self.device_mesh = init_device_mesh(
+            "cpu" if device_type == "meta" else device_type, shape,
+            mesh_dim_names=axis_names)
         self.shape = collections.OrderedDict(zip(axis_names, shape))
         self.axis_names = axis_names
         self.groups = {a: self.device_mesh.get_group(a) for a in axis_names}
@@ -75,7 +82,8 @@ class Mesh:
                       for a in axis_names}
         self.device_type = device_type
         self.device = (torch.device("cuda", torch.cuda.current_device())
-                       if device_type == "cuda" else torch.device("cpu"))
+                       if device_type == "cuda"
+                       else torch.device(device_type))
 
     @property
     def size(self) -> int:

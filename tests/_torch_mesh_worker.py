@@ -1,6 +1,7 @@
 """One rank of the CPU process groups of ``tests/test_torch_parallel.py``,
-``tests/test_torch_parallel_lm.py`` and
-``tests/test_torch_parallel_train.py`` (started by
+``tests/test_torch_parallel_lm.py``,
+``tests/test_torch_parallel_train.py`` and
+``tests/test_torch_parallel_ssm.py`` (started by
 ``tests/_torch_group.py``; imports neither JAX nor the reference; the
 training job is ``tests/_torch_train_worker.py``'s).
 
@@ -14,6 +15,7 @@ writes the job's result to ``workdir / "result.pkl"``.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import pickle
 import sys
@@ -24,12 +26,14 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.convert import lm_cache_from_numpy, lm_params_from_numpy
+from repro_torch.convert import (lm_cache_from_numpy, lm_cache_to_numpy,
+                                lm_params_from_numpy)
 from repro_torch.kernels.attention_block import kernel as K4
 from repro_torch.launch.mesh import make_mesh_for
 from repro_torch.launch.serve import BatchedServer, Request
 from repro_torch.models import attention as A
 from repro_torch.models import moe as M
+from repro_torch.models import ssm as S
 from repro_torch.models.api import build
 from repro_torch.models.embedding import gather_logits
 from repro_torch.parallel import collectives as col
@@ -154,6 +158,8 @@ def _run_arch(mesh, spec) -> dict:
             lg, caches = api.decode_step(params, caches, tok, s + i)
             logits.append(_np(gather_logits(lg)))
         decode_counts = col.counts_by_op()
+        whole = _whole_caches(caches, mesh, rules) if spec.get("caches") \
+            else None
         unsplit = None
         if "unsplit" in spec:          # a prompt the model axis does not split
             try:
@@ -165,7 +171,20 @@ def _run_arch(mesh, spec) -> dict:
     return {"logits": logits, "slots_local": slots,
             "prefill_counts": prefill_counts, "decode_counts": decode_counts,
             "lse_launches": dict(K4.attention.lse_launches_by_route),
-            "unsplit": unsplit}
+            "unsplit": unsplit, "caches": whole}
+
+
+def _whole_caches(caches, mesh, rules) -> dict:
+    """Every rank's blocks of the decode caches gathered whole, in the
+    reference's stacked numpy layout (``pos`` is whole already)."""
+    def whole(name, t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        spec = sh._cache_spec(name, sh._Dims(t.dim() + 1),
+                              rules["batch"])[1:]
+        return sh.gather_whole(t, spec, mesh)
+    return lm_cache_to_numpy([{sub: {n: whole(n, t) for n, t in c.items()}
+                               for sub, c in blk.items()} for blk in caches])
 
 
 def _run_decode_block(mesh, c) -> dict:
@@ -221,9 +240,52 @@ def job_train(mesh, inp, workdir):
     return run(mesh, inp, workdir)
 
 
+_HEADS_CUT = S.heads_cut
+
+
+def contiguous_cut(cfg, r: int, mp: int):
+    """The control of the Mamba mixer's regrouping: rank ``r``'s conv
+    channels read at its contiguous block of ``conv_dim`` (the
+    reference's split of ``conv_w``) as if they were its heads'."""
+    cut = _HEADS_CUT(cfg, r, mp)
+    block = (cfg.d_inner + 2 * cfg.ssm_state) // mp
+    return S.Cut(z=cut.z, x=(r * block, r * block + cut.x[1] - cut.x[0]),
+                 dt=cut.dt)
+
+
+@contextlib.contextmanager
+def _ssm_cut(name: str | None):
+    """``contiguous``: :func:`contiguous_cut` in place of the mixer's
+    ``heads_cut`` (a control, patched here alone)."""
+    if name != "contiguous":
+        yield
+        return
+    S.heads_cut = contiguous_cut
+    try:
+        yield
+    finally:
+        S.heads_cut = _HEADS_CUT
+
+
+def job_ssm(mesh, inp, workdir):
+    """The Mamba mixer on the model axis of 4: serving (prefill, decode
+    steps, the caches gathered whole; a control under ``_ssm_cut``) and
+    the training cases of ``_torch_train_worker``."""
+    from _torch_train_worker import _case
+    keep = dist.get_rank() == 0
+    out = {"serve": {}, "train": {}}
+    for name, spec in inp["serve"].items():
+        with _ssm_cut(spec.get("control")):
+            out["serve"][name] = _run_arch(mesh, spec)
+    for name, case in inp["cases"].items():
+        out["train"][name] = _case(mesh, case, inp["archs"][case["arch"]],
+                                   keep)
+    return out
+
+
 JOBS = {"parallel": lambda mesh, inp, workdir: job_parallel(mesh, inp),
         "lm": lambda mesh, inp, workdir: job_lm(mesh, inp),
-        "train": job_train}
+        "train": job_train, "ssm": job_ssm}
 
 
 def main(argv=None) -> None:

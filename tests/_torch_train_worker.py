@@ -11,7 +11,8 @@ returns the gradients and the params gathered whole.  A case may name a
 ``control``: a boundary broken for that case alone, monkeypatched here
 and never in the program.  Then ``run_resilient`` on (2, 4), once clean
 and once failing before a step and restarting onto the (4, 2) mesh of
-``plan_remesh``.
+``plan_remesh``.  Last, ``value_and_grad`` of mamba2 and jamba at tp 4
+on (2, 4) (``inputs["mamba_tp4"]``).
 """
 
 from __future__ import annotations
@@ -203,13 +204,9 @@ def job_train(mesh, inp, workdir=None):
         out["cases"][name] = _case(mesh, case, inp["archs"][case["arch"]],
                                    keep)
     out["resilient"] = _resilient(mesh, inp["resilient"], workdir, keep)
-    mamba = build(reduced(get_config("mamba2-1.3b")), tp=4)
-    rules = sh.axis_rules(mesh, 8, 32)
-    with axis_rules(rules, mesh):
-        try:
-            mamba.train_loss({}, {"tokens": torch.zeros((2, 32)),
-                                  "labels": None})
-            out["mamba"] = None
-        except NotImplementedError as e:
-            out["mamba"] = str(e)
+    # the SSM families on the group's model axis of 4
+    out["mamba_tp4"] = {
+        arch: _case(mesh, {"mesh": (2, 4), "fsdp": True, "sp_rs": False},
+                    spec, keep)
+        for arch, spec in inp["mamba_tp4"].items()}
     return out

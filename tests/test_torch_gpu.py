@@ -1701,3 +1701,98 @@ def test_mesh_trainer_on_a_one_rank_nccl_group(cuda, tmp_path):
     ran = {r: K4.attention.launches_by_route[r] - launches[r]
            for r in launches}
     assert ran["sm90_tf32"] > 0 and ran["fma"] == 0 and ran["sm90"] == 0
+
+
+def test_sharded_mamba_mixer_at_16_shards_on_the_card(cuda):
+    """mamba2-1.3b's mixer at full width in f32 as 16 shards run in turn
+    (``ssm.run_shards``): a 512-token prefill and 2 decode steps, every
+    output and the final caches within 1e-5 of max |whole|; the
+    reference's contiguous split of the conv channels read as whole
+    heads misses by over 100x."""
+    from _torch_mesh_worker import contiguous_cut
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+    cfg = get_config("mamba2-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = S.init_mamba(gen, cfg.d_model, cfg.ssm_state, cfg.ssm_head_dim,
+                     cfg.ssm_expand, cfg.ssm_conv, torch.float32)
+    p["A_log"] = torch.randn(cfg.ssm_heads, generator=gen,
+                             device="cuda") * 0.5
+    p["dt_bias"] = torch.randn(cfg.ssm_heads, generator=gen,
+                               device="cuda") * 0.5
+    x = torch.randn((1, 512, cfg.d_model), generator=gen, device="cuda")
+    xs = [torch.randn((1, 1, cfg.d_model), generator=gen, device="cuda")
+          for _ in range(2)]
+
+    def run(mp=None, cut=S.heads_cut):
+        if mp is None:
+            y, (st, tail) = S.mamba_forward(p, x, cfg)
+        else:
+            y, (st, tail) = S.run_shards(p, x, cfg, mp, cut=cut)
+        outs = [y]
+        for xt in xs:
+            if mp is None:
+                y, (st, tail) = S.mamba_decode(p, xt, cfg, st, tail)
+            else:
+                y, (st, tail) = S.run_shards(p, xt, cfg, mp,
+                                             caches=(st, tail), cut=cut)
+            outs.append(y)
+        return outs + [st, tail]
+
+    with torch.no_grad():
+        whole = run()
+        for got, ref in zip(run(16), whole):
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-5 * ref.abs().max().item(), err
+        wrong = run(16, contiguous_cut)[0]
+    assert (wrong - whole[0]).abs().max().item() \
+        > 1e-3 * whole[0].abs().max().item()
+
+
+def test_dryrun_one_rank_cell_counts_what_the_card_runs(cuda, tmp_path):
+    """mamba2-1.3b at full width, a decode step at batch 4 against a
+    64-slot context: on a one-rank ``"fake"`` (1, 1) mesh of ``meta``
+    tensors, then on a one-rank NCCL (1, 1) mesh on the card with
+    ``make_batch``'s inputs (``launch.dryrun.run_cell``): the same FLOPs
+    counted, and the memory model's bytes equal to those allocated for
+    the card's params and caches."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import tree
+    from repro_torch.analysis.memory_model import sharded_bytes_per_chip
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import build
+    from repro_torch.parallel import sharding as sh
+    cfg = get_config("mamba2-1.3b")
+    shape = dataclasses.replace(SHAPES["decode_32k"], seq_len=64,
+                                global_batch=4)
+    api = build(cfg, tp=1)
+    with D.fake_world(1):
+        mesh = D.Mesh((1, 1), ("data", "model"), "meta")
+        rules = sh.axis_rules(mesh, shape.global_batch, shape.seq_len)
+        meta, *_ = D.run_cell(api, shape, mesh, rules)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_host_mesh("cuda")
+        rules = sh.axis_rules(mesh, shape.global_batch, shape.seq_len)
+        with torch.no_grad():
+            card, memo, params, caches = D.run_cell(
+                api, shape, mesh, rules,
+                key=torch.Generator(device="cuda").manual_seed(0))
+        analytic = sum(sharded_bytes_per_chip(t, s, mesh)
+                       for t, s in memo.values())
+    finally:
+        dist.destroy_process_group()
+    allocated = sum(t.numel() * t.element_size()
+                    for t in tree.leaves((params, caches))
+                    if isinstance(t, torch.Tensor))
+    assert card["flops"] == meta["flops"] > 0
+    assert allocated == analytic

@@ -527,24 +527,24 @@ def test_ssm_cache_leaf_of_one_dim_is_not_pos():
 
 class _StandInMesh:
     """What the models read of a mesh before any collective runs."""
-    shape = {"data": 1, "model": 2}
+    shape = {"data": 1, "model": 3}
     axis_names = ("data", "model")
-    size = 2
+    size = 3
 
 
-def test_what_is_not_ported_raises():
-    """A Mamba mixer on a mesh whose model axis is above 1, serving or
-    training, waits for ROADMAP.md §1 item 6.3c; tp itself no longer
-    raises, nor does training on a mesh
-    (``tests/test_torch_parallel_train.py``)."""
+def test_heads_off_the_model_axis_and_unknown_attn_raise():
+    """A Mamba mixer on a mesh whose model axis does not split its SSD
+    heads (8 over 3), serving or training, raises ``ValueError`` naming
+    both numbers (on an axis that splits them it runs:
+    ``tests/test_torch_parallel_ssm.py``); so does an unknown ``attn``."""
     from repro_torch.parallel.axes import axis_rules
     for arch in ("mamba2-1.3b", "jamba-1.5-large-398b"):
-        api = build(reduced(get_config(arch)), tp=2)
+        api = build(reduced(get_config(arch)), tp=3)
         with axis_rules({"batch": None}, _StandInMesh()):
-            with pytest.raises(NotImplementedError, match="6.3c"):
-                api.init_cache(2, 8, device="cpu")
-            with pytest.raises(NotImplementedError, match="6.3c"):
-                api.train_loss({}, {"tokens": torch.zeros((1, 4)),
+            with pytest.raises(ValueError, match="8 SSD heads .* of 3"):
+                api.init_cache(2, 9, device="cpu")
+            with pytest.raises(ValueError, match="8 SSD heads .* of 3"):
+                api.train_loss({}, {"tokens": torch.zeros((1, 3)),
                                     "labels": None})
     api = build(reduced(get_config("phi3-medium-14b")))
     tokens = torch.zeros((1, 4), dtype=torch.int64)

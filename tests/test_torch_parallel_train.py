@@ -32,8 +32,10 @@ gate: the column-parallel entry's backward sum over "model" replaced by
 the identity, and the gradient sync over "data" skipped.
 ``run_resilient`` with a failure and ``on_restart`` onto the (4, 2)
 mesh ends where the clean run ends; its sharded checkpoints hold whole
-leaves under the manifest the mesh-free checkpointer writes.  A Mamba
-mixer on the model axis of 4 still raises.
+leaves under the manifest the mesh-free checkpointer writes.  mamba2
+and jamba also at tp 4 on (2, 4), the Mamba mixers over the model axis
+of 4: the loss and gradients against the reference's ``build(cfg,
+tp=4)``.
 
 The reference's own sharded test (``tests/test_distributed.py::
 test_sharded_train_step_matches_single_device``) fails under JAX 0.9.0;
@@ -93,6 +95,8 @@ CASES = {
 }
 GATED = [c for c in CASES if not c.startswith("control")]
 RESILIENT = dict(steps=4, every=2, fail_at=3, remesh_tp=2)
+#: the SSM families also run at tp 4 on the group's (2, 4) mesh
+SSM_TP4 = ("mamba2-1.3b", "jamba-1.5-large-398b")
 
 
 def _over(arch):
@@ -180,9 +184,16 @@ def group(tmp_path_factory):
                     "sp_rs": sp_rs, "control": control,
                     "steps": control is None, "schedule": SCHEDULE}
              for name, (arch, fsdp, sp_rs, control) in CASES.items()}
+    # mamba2 and jamba at tp 4 on the group's (2, 4) mesh, batch 0 alone
+    mamba_tp4 = {}
+    for arch in SSM_TP4:
+        jcfg, _tp, batches = jobs[arch]
+        mamba_tp4[arch] = dict(archs[arch], tp=4, params=_np_tree(
+            jax_build(jcfg, tp=4).init(KEY)), batches=batches[:1])
     inputs = {"archs": archs, "cases": cases,
               "resilient": dict(RESILIENT, arch=archs["phi3-medium-14b"],
-                                schedule=SCHEDULE)}
+                                schedule=SCHEDULE),
+              "mamba_tp4": mamba_tp4}
     with open(work / "inputs.pkl", "wb") as f:
         pickle.dump(inputs, f)
     procs = start_group("train", 8, work)
@@ -190,6 +201,14 @@ def group(tmp_path_factory):
     try:
         for arch, (jcfg, tp, batches) in jobs.items():   # while they run
             refs[arch] = _reference(jcfg, tp, batches)
+        for arch in SSM_TP4:
+            jcfg, _tp, batches = jobs[arch]
+            api = jax_build(jcfg, tp=4)
+            loss, grads = jax.jit(jax.value_and_grad(api.train_loss))(
+                api.init(KEY), {k: jnp.asarray(v)
+                                for k, v in batches[0].items()})
+            refs[arch + "@tp4"] = {"loss": float(loss),
+                                   "grads": _np_tree(grads)}
     finally:
         ranks = join_group(procs, work, DEADLINE)
     return ranks, refs
@@ -331,7 +350,18 @@ def test_sharded_checkpoint_holds_whole_leaves(group, run):
     assert shapes["opt/m/blocks/0/sub0/attn/wq"][0] == cfg.d_model
 
 
-def test_mamba_mixer_on_a_model_axis_still_raises(group):
-    ranks, _ = group
+@pytest.mark.parametrize("arch", SSM_TP4)
+def test_mamba_mixer_on_a_model_axis_matches_reference(group, arch):
+    """mamba2 and jamba at tp 4 on the group's (2, 4) mesh, the Mamba
+    mixers over the model axis of 4 (``tests/test_torch_parallel_ssm.py``
+    holds serving, the steps, ``fsdp`` off and ``sp_rs``): the loss and
+    every gradient leaf against the reference's ``build(cfg, tp=4)``,
+    with the mixer's all-gathers over "model" run."""
+    ranks, refs = group
+    ref = refs[arch + "@tp4"]
     for out in ranks:
-        assert out["mamba"] is not None and "6.3c" in out["mamba"]
+        got = out["mamba_tp4"][arch]
+        assert abs(got["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+        assert got["counts"]["all_gather@model"] > 0
+    err, leaf = _worst(ranks[0]["mamba_tp4"][arch]["grads"], ref["grads"])
+    assert err <= 1e-4, (arch, leaf, err)
