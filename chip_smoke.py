@@ -173,16 +173,45 @@
     step, time by part: K4 forward, the attention backward, cuBLAS,
     AdamW) beside the step's FLOP and byte bounds;
   * ``lm_train_f32``: step 0 in f32 (K4 ``sm90_tf32``) of minitron-4b
-    at 2 blocks and whisper-medium at 2 + 2 layers (K4 non-causal over
-    1500 frames) against the plain replay: the loss within ``TOL``,
-    every gradient tensor within ``GRAD_TOL`` of its max; the control,
-    a backward whose causal mask keeps key q + 1, must miss that gate;
+    at 2 blocks, whisper-medium at 2 + 2 layers (K4 non-causal over
+    1500 frames) and mixtral-8x7b at 2 blocks over 1 x 8192 tokens
+    under its 4096 window (the replay under the K4 forward's expert
+    choices) against the plain replay: the loss within ``TOL``, every
+    gradient tensor within ``GRAD_TOL`` of its max; the control, a
+    backward whose causal mask keeps key q + 1, must miss that gate;
+    at mixtral each ``attention_vjp`` call's dq at the window's edge
+    within ``TOL`` of autograd, and a backward window one key wider
+    must miss both gates;
   * ``lm_train_resilient``: ``examples/train_100m.py``'s 75.5M-parameter
     config in bf16 (batch 8 x 256, peak lr 1e-3), 30 steps through
     ``run_resilient`` with an asynchronous checkpoint every 10, clean
     and with a failure injected before step 15 (restored from step 10
     and replayed): the final params and moments equal bit for bit, the
     replayed losses equal, the loss falling; step and save times;
+  * ``lm_train_moe``: mixtral-8x7b at full width and 2 of its 32
+    blocks (3.03e9 parameters, 48.5 GB of state), bf16, trained as
+    ``lm_train`` is: step 0's gradients within ``LM_TRAIN_GRAD_TOL`` of
+    the plain replay under the K4 forward's expert choices (every
+    router call of the forward and the remat recompute on them), each
+    K4 call within ``CARD_TOL``, the two controls missing;
+    ``value_and_grad`` repeated bit for bit; 4 K4 ``sm90`` launches a
+    step; the pairs the 1.25 capacity dropped; a 1 x 8192 step twice,
+    where the window bites: each ``attention_vjp`` call's dq at the
+    window's edge within ``TOL`` of autograd, a backward window one key
+    wider missing that gate (its distance from the right gradients,
+    under the bf16 gate, printed);
+  * ``lm_train_ssm``: mamba2-1.3b at full size in bf16, the same loop
+    (finite, no launch of K1-K4), a 1 x 4096 step (16 SSD chunks), the
+    bf16 loss beside an f32 replay's; then 2 layers at full width over
+    1 x 1024 tokens in f32 on the card against the same step on the
+    host's CPU (loss ``TOL``, gradients ``GRAD_TOL``), the scan with
+    its carry between chunks dropped missing;
+  * ``lm_train_hybrid``: jamba at ``reduced()`` in f32: step 0 against
+    the plain replay under the K4 forward's routing (loss ``TOL``,
+    gradients ``GRAD_TOL``, K4 ``sm90_tf32`` at ``CARD_TOL``, the
+    one-key-off control missing), 20 steps at 2 K4 launches a step and
+    a 1 x 1024 step across SSD chunks; each phase with step ms, tokens/s,
+    peak memory, a profiled step by part and its bound;
   * ``lm_train_mesh``: ``lm_train``'s 20 steps again through
     ``make_trainer(cfg, mesh, ...)`` on a one-rank NCCL group's (1, 1)
     mesh (the sharded step: FSDP gathers, tensor-parallel boundaries,
@@ -3895,46 +3924,91 @@ RESILIENT_N, RESILIENT_EVERY, RESILIENT_FAIL = 30, 10, 15
 K4_KERNELS = ("attention_sm90", "attention_kernel", "attention_wide_kernel")
 CUBLAS_KERNELS = ("gemm", "nvjet", "xmma", "cutlass", "gemv", "dot_kernel",
                   "splitk", "cublas")
-#: the host ranges the port marks a step's parts with
-LM_TRAIN_RANGES = ("attention_vjp", "adamw.update")
+#: the host ranges the port marks a step's parts with, and the part
+#: each names (the SSD scan's and the MoE dispatch's cover their forward
+#: and remat recompute; their autograd backward falls to cuBLAS and
+#: "other" by kernel name)
+LM_TRAIN_RANGES = ("attention_vjp", "adamw.update", "ssd_chunked",
+                   "moe_dispatch", "moe_combine")
+LM_TRAIN_PARTS = ("attention_backward", "adamw", "ssd_scan",
+                  "moe_dispatch", "moe_dispatch")
 
 
 def _cuda_batch(batch: dict) -> dict:
     return {k: v.cuda() for k, v in batch.items()}
 
 
+def _pairs(b: int, s: int, window: int) -> int:
+    """The causal (query, key) pairs of ``b`` sequences of ``s`` tokens,
+    each query keeping at most ``window`` keys (every earlier one at
+    0)."""
+    w = window or s
+    if s <= w:
+        return b * s * (s + 1) // 2
+    return b * (w * (w + 1) // 2 + (s - w) * w)
+
+
+def _ssd_flops(cfg, b: int, s: int) -> int:
+    """One Mamba2 mixer's SSD products at ``b`` x ``s`` (f32, 256-row
+    chunks): within each chunk C B^T and the weighted sums of x over its
+    causal pairs, across chunks the state's read (C h) and write
+    (B^T x)."""
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    q = min(256, s)
+    pairs = sum(min(q, s - c) * (min(q, s - c) + 1) // 2
+                for c in range(0, s, q))
+    return b * (2 * pairs * (n + h * p) + 4 * s * h * p * n)
+
+
 def train_bounds(cfg, b: int, s: int, n_params: int) -> dict:
     """The least time of one training step of the decoder ``cfg`` at
-    ``b`` x ``s`` tokens (causal, no window): the FLOPs of the forward
-    and the backward (3x the forward's products, no recompute), the
-    blocks' projections and attention at the compute type's peak and
-    the f32 loss head at the f32 FMA peak; the bytes of the f32 params
-    and both moments, each read once and written once (24 a parameter:
-    the gradients need not leave the chip)."""
+    ``b`` x ``s`` tokens: the FLOPs of the forward and the backward (3x
+    the forward's products, no recompute), each block's sublayers by
+    ``block_spec`` at the compute type's peak: attention's projections
+    and its causal pairs, limited to the window; a Mamba2 mixer's in and
+    out projections; a dense FFN, or ``top_k`` of the experts' products
+    a token (not the capacity's padded rows).  At the f32 FMA peak: the
+    SSD's products (:func:`_ssd_flops`), the routers and the loss head.
+    The bytes of the f32 params and both moments, each read once and
+    written once (24 a parameter: the gradients need not leave the
+    chip)."""
     t, d, hd = b * s, cfg.d_model, cfg.head_dim
     nh, nkv = cfg.padded_heads(1)
+    low = f32 = 0       # one block's forward FLOPs, compute type and f32
+    for mixer, ffn in LM_T.block_spec(cfg):
+        if mixer == "attn":
+            low += (2 * t * (2 * d * nh * hd + 2 * d * nkv * hd)
+                    + 4 * _pairs(b, s, cfg.window) * nh * hd)
+        else:
+            proj = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+            low += 2 * t * (d * proj + cfg.d_inner * d)
+            f32 += _ssd_flops(cfg, b, s)
+        if ffn == "moe":
+            low += 2 * t * cfg.top_k * 3 * d * cfg.d_ff
+            f32 += 2 * t * d * cfg.n_experts
+        elif ffn == "dense":
+            low += 2 * t * 3 * d * cfg.d_ff
     n_blocks = LM_T.n_blocks(cfg)
-    per_block = 2 * d * nh * hd + 2 * d * nkv * hd + 3 * d * cfg.d_ff
-    pairs = b * s * (s + 1) // 2
-    block_flops = 3 * n_blocks * (2 * t * per_block + 4 * pairs * nh * hd)
     head_flops = 3 * 2 * t * cfg.padded_vocab(1) * d
-    flop_ms = (block_flops / PEAK[cfg.compute_dtype]
-               + head_flops / PEAK_F32_FLOPS) * 1e3
+    flop_ms = (3 * n_blocks * low / PEAK[cfg.compute_dtype]
+               + (3 * n_blocks * f32 + head_flops) / PEAK_F32_FLOPS) * 1e3
     byte_ms = 24 * n_params / HBM_BYTES_PER_S * 1e3
-    return {"flops": block_flops + head_flops, "bytes": 24 * n_params,
-            "flop_bound_ms": flop_ms, "byte_bound_ms": byte_ms,
-            "bound_ms": max(flop_ms, byte_ms),
+    return {"flops": 3 * n_blocks * (low + f32) + head_flops,
+            "bytes": 24 * n_params, "flop_bound_ms": flop_ms,
+            "byte_bound_ms": byte_ms, "bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
 
 
 def _train_part(kernel: str, event) -> str:
     """Which part of a training step a device span belongs to: K4's
-    forward by name, the attention backward and AdamW by the host range
-    the launching op (``event``) sits in, cuBLAS's products by name."""
+    forward by name; the attention backward, AdamW, the SSD scan and
+    the MoE dispatch and combine by the host range the launching op
+    (``event``) sits in (:data:`LM_TRAIN_RANGES`); cuBLAS's products by
+    name."""
     if any(n in kernel for n in K4_KERNELS):
         return "k4_forward"
     e = event
-    parts = dict(zip(LM_TRAIN_RANGES, ("attention_backward", "adamw")))
+    parts = dict(zip(LM_TRAIN_RANGES, LM_TRAIN_PARTS))
     while e is not None:
         if e.name in parts:
             return parts[e.name]
@@ -4117,68 +4191,381 @@ def _detached(tap):
     return run
 
 
-def tapped_value_and_grad(api, params, batch, per_step: int, what: str):
+class TrainRouting:
+    """The expert choices of one K4-path forward of ``batch`` (no
+    gradient, no recompute), by MoE layer: a layer's router is the same
+    f32 tensor in the forward and in the remat recompute, so its
+    ``data_ptr`` names the layer in both.  :meth:`check` counts a
+    ``value_and_grad``'s router calls, ``2 x moe_layers`` (the forward
+    and the recompute), and those whose choice is not the recorded
+    forward's; :meth:`replay` hands every call, the recompute's too,
+    its layer's recorded choice with gates from the replay's own
+    probabilities there (the ``Routing`` of serving, by layer), the
+    replay's own flips counted."""
+
+    def __init__(self, api, params, batch: dict):
+        self.by_layer: dict[int, torch.Tensor] = {}
+
+        def rec(x, router, top_k):
+            gates, idx = _ROUTER_TOP_K(x, router, top_k)
+            self.by_layer[router.data_ptr()] = idx
+            return gates, idx
+        with torch.no_grad(), patched((MOE, "router_top_k", rec)), \
+                counted({}), no_plain_attention():
+            api.train_loss(params, batch)
+        require(len(self.by_layer) == moe_layers(api.cfg),
+                f"routing: {len(self.by_layer)} layers recorded, want "
+                f"{moe_layers(api.cfg)}")
+        self.calls = self.off = self.flips = self.rows = 0
+
+    @contextlib.contextmanager
+    def check(self):
+        self.calls = self.off = 0
+
+        def own(x, router, top_k):
+            gates, idx = _ROUTER_TOP_K(x, router, top_k)
+            self.calls += 1
+            want = self.by_layer[router.data_ptr()]
+            self.off += not torch.equal(idx, want)
+            return gates, idx
+        with patched((MOE, "router_top_k", own)):
+            yield
+
+    def replay(self):
+        def replay(x, router, top_k):
+            want = self.by_layer[router.data_ptr()]
+            probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+            _, idx = _ROUTER_TOP_K(x, router, top_k)
+            self.flips += int((idx.sort(-1).values
+                               != want.sort(-1).values).any(-1).sum())
+            self.rows += idx.shape[0]
+            gates = probs.gather(-1, want)
+            gates = gates / torch.clamp(gates.sum(-1, keepdim=True),
+                                        min=1e-9)
+            return gates, want
+        return patched((MOE, "router_top_k", replay))
+
+
+def train_routing(api, params, batch: dict) -> TrainRouting | None:
+    return TrainRouting(api, params, batch) if api.cfg.n_experts else None
+
+
+def _checked(routing):
+    return routing.check() if routing else contextlib.nullcontext()
+
+
+def _replayed(routing):
+    return routing.replay() if routing else contextlib.nullcontext()
+
+
+#: the query rows around the window's edge whose dq the edge tap holds
+#: (:func:`edge_tapped`): 64 before the first row the window bites, 192
+#: from it
+EDGE_ROWS = (64, 192)
+
+
+def _edge_dq(q, k, v, dout, *, window: int, rows: tuple) -> torch.Tensor:
+    """dq of the causal query rows ``rows`` under ``window``, in f32, by
+    autograd through a plain masked softmax attention of those rows
+    (keys ``rows[0] - window + 1 .. rows[1]``, query head i reading kv
+    head i // groups): independent of ``backward.py``."""
+    r0, r1 = rows
+    g = q.shape[2] // k.shape[2]
+    lo = max(0, r0 - window + 1)
+    with torch.enable_grad():
+        qp = q[:, r0:r1].float().requires_grad_(True)
+        kp = k[:, lo:r1].float().repeat_interleave(g, dim=2)
+        vp = v[:, lo:r1].float().repeat_interleave(g, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qp, kp) / math.sqrt(q.shape[3])
+        qpos = torch.arange(r0, r1, device=q.device)[:, None]
+        kpos = torch.arange(lo, r1, device=q.device)[None, :]
+        keep = (kpos <= qpos) & (kpos > qpos - window)
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, vp)
+        (dq,) = torch.autograd.grad(out, qp, dout[:, r0:r1].float())
+    return dq
+
+
+@contextlib.contextmanager
+def edge_tapped(into: list | None):
+    """``attention_vjp`` (whatever is installed when the block starts: a
+    control's too) with each call's dq at the window's edge held to
+    :func:`_edge_dq`: the call again on f32 copies of its inputs (it
+    works in f32, so the model's call must be that one rounded to the
+    input type, bit for bit), its rows :data:`EDGE_ROWS` about the
+    window within ``TOL`` of max |ref|; each call's worst err over that
+    gate appended to ``into``.  ``None``: nothing tapped."""
+    if into is None:
+        yield
+        return
+    inner = K4_OPS.attention_vjp
+
+    def run(q, k, v, dout, *, window=0, causal=True):
+        dq, dk, dv = inner(q, k, v, dout, window=window, causal=causal)
+        require(causal and 0 < window < q.shape[1] - EDGE_ROWS[1],
+                f"edge tap: window {window} over {q.shape[1]} queries")
+        with torch.no_grad():
+            dq32, _, _ = inner(q.float(), k.float(), v.float(),
+                               dout.float(), window=window, causal=causal)
+            require(torch.equal(dq, dq32.to(dq.dtype)),
+                    "edge tap: attention_vjp in f32 gave other bits")
+            rows = (window - EDGE_ROWS[0], window + EDGE_ROWS[1])
+            ref = _edge_dq(q, k, v, dout, window=window, rows=rows)
+            err = (dq32[:, rows[0]:rows[1]] - ref).abs().max()
+            into.append((err / (TOL * ref.abs().max())).item())
+        return dq, dk, dv
+    with patched((K4_OPS, "attention_vjp", run)):
+        yield
+
+
+def window_one_key_wider():
+    """The control: the attention backward (``attention_vjp``) under a
+    window one key wider than the forward's."""
+    inner = K4_OPS.attention_vjp
+
+    def wider(q, k, v, dout, *, window=0, causal=True):
+        return inner(q, k, v, dout, window=window + 1 if window else 0,
+                     causal=causal)
+    return patched((K4_OPS, "attention_vjp", wider))
+
+
+#: the gradient controls by name
+GRAD_CONTROLS = {"one_key_off": one_key_off_backward,
+                 "no_attention_gradient": no_attention_gradient,
+                 "window_one_key_wider": window_one_key_wider}
+
+
+def tapped_value_and_grad(api, params, batch, per_step: int, what: str,
+                          route: str = "sm90", routing=None,
+                          edge: list | None = None):
     """``value_and_grad`` on the K4 path with every K4 call (forward and
-    recompute, ``per_step`` of them) held to the plain version on its
-    own inputs at ``CARD_TOL`` (required).  Returns (loss, grads,
+    recompute, ``per_step`` of them, on ``route``) held to the plain
+    version on its own inputs at ``CARD_TOL`` (required); with
+    ``routing`` (:class:`TrainRouting`) every router call, the
+    recompute's too, the recorded forward's choice (required); with
+    ``edge`` (a list) each backward call's dq at the window's edge held
+    by :func:`edge_tapped` (required).  Returns (loss, grads,
     readings)."""
     per_call, c = [], {}
     tap = _detached(k4_against_plain(api.cfg.compute_dtype, per_call))
-    with counted(c), no_plain_attention():
+    with counted(c), no_plain_attention(), _checked(routing), \
+            edge_tapped(edge):
         loss, grads = LM_STEPS.value_and_grad(api, params, batch, tap=tap)
-    require(k4_only(c, "sm90", per_step) and len(per_call) == per_step
+    require(k4_only(c, route, per_step) and len(per_call) == per_step
             and max(per_call) <= 1.0,
             f"{what}: launches {c}, K4 calls against the plain version "
             f"worst {max(per_call, default=None)} of CARD_TOL over "
             f"{len(per_call)} calls (want {per_step})")
-    return loss, grads, {"k4_calls": len(per_call),
-                         "k4_worst_over_card_tol": max(per_call),
-                         "launches": c}
+    row = {"k4_calls": len(per_call), "k4_worst_over_card_tol":
+           max(per_call), "launches": c}
+    if routing:
+        require(routing.calls == 2 * moe_layers(api.cfg)
+                and routing.off == 0,
+                f"{what}: {routing.calls} router calls, {routing.off} off "
+                f"the forward's choice (want "
+                f"{2 * moe_layers(api.cfg)}, 0)")
+        row.update(router_calls=routing.calls,
+                   router_calls_off_forward=routing.off)
+    if edge is not None:
+        require(len(edge) == attention_layers(api.cfg) and max(edge) <= 1,
+                f"{what}: attention_vjp at the window's edge {edge} of "
+                f"TOL")
+        row["edge_dq_worst_over_tol"] = max(edge)
+    return loss, grads, row
 
 
-def lm_train_step0(api, params, batch: dict, per_step: int) -> dict:
+def lm_train_step0(api, params, batch: dict, per_step: int, *,
+                   route: str = "sm90", tol: float = LM_TRAIN_GRAD_TOL,
+                   loss_tol: float | None = None,
+                   controls=("one_key_off", "no_attention_gradient"),
+                   what: str = "lm_train step 0",
+                   phase: str = "lm_train_step0") -> dict:
     """Step 0's loss and gradients on the same weights and batch: the
-    plain replay (``attn="plain"``), kept on the host; the K4 path with
-    each K4 call tapped (:func:`tapped_value_and_grad`), each gradient
-    tensor within :data:`LM_TRAIN_GRAD_TOL` of its max |plain|
-    (required); and two controls of that gate, the backward's mask one
-    key off and an attention with no gradient, each of which must miss
-    it."""
-    plain_loss, grads = LM_STEPS.value_and_grad(api, params, batch,
-                                                attn="plain")
+    plain replay (``attn="plain"``; with experts under the K4 path's
+    routing, :class:`TrainRouting`), kept on the host; the K4 path with
+    each K4 call on ``route`` tapped (:func:`tapped_value_and_grad`),
+    each gradient tensor within ``tol`` of its max |plain| (required;
+    with ``loss_tol`` the loss within it relative, required); and the
+    ``controls`` of that gate (:data:`GRAD_CONTROLS`), each of which
+    must miss it."""
+    routing = train_routing(api, params, batch)
+    with _replayed(routing):
+        plain_loss, grads = LM_STEPS.value_and_grad(api, params, batch,
+                                                    attn="plain")
     plain_gnorm = float(ADAMW.global_norm(grads))
     plain = [g.cpu() for g in TREE.leaves(grads)]
     del grads
     _free()
     loss, grads, row = tapped_value_and_grad(api, params, batch, per_step,
-                                             "lm_train step 0")
+                                             what, route, routing)
     errs = _leaf_errs(grads, plain)
-    row.update(loss=float(loss), gnorm=float(ADAMW.global_norm(grads)),
+    gnorm = float(ADAMW.global_norm(grads))
+    row.update(loss=float(loss), gnorm=gnorm,
                plain_loss=float(plain_loss), plain_gnorm=plain_gnorm,
+               loss_rel_err=abs(float(loss) - float(plain_loss))
+               / abs(float(plain_loss)),
+               gnorm_rel_err=abs(gnorm - plain_gnorm) / plain_gnorm,
                grad_leaves=len(errs), grad_worst=max(errs.values()),
                grad_worst_leaf=max(errs, key=errs.get),
-               grad_by_kind=_by_kind(errs), grad_tol=LM_TRAIN_GRAD_TOL)
+               grad_by_kind=_by_kind(errs), grad_tol=tol)
+    if routing:
+        row.update(routing="the K4 path's forward",
+                   replay_flips=routing.flips, replay_rows=routing.rows)
     del grads
     _free()
-    for name, control in (("one_key_off", one_key_off_backward),
-                          ("no_attention_gradient", no_attention_gradient)):
-        with counted({}), control():
+    for name in controls:
+        with counted({}), GRAD_CONTROLS[name](), _checked(routing):
             _, wrong = LM_STEPS.value_and_grad(api, params, batch)
+        if routing:
+            require(routing.off == 0,
+                    f"{what}: the {name} control routed {routing.off} "
+                    f"calls off the forward's choice")
         bad = _leaf_errs(wrong, plain)
         del wrong
         _free()
         row[f"control_{name}"] = {"grad_worst": max(bad.values()),
                                   "grad_by_kind": _by_kind(bad)}
     del plain
-    emit({"phase": "lm_train_step0", **row})
-    require(row["grad_worst"] <= LM_TRAIN_GRAD_TOL,
-            f"lm_train step 0: gradient {row['grad_worst_leaf']} at "
-            f"{row['grad_worst']} of max |plain| > {LM_TRAIN_GRAD_TOL}")
-    for name in ("one_key_off", "no_attention_gradient"):
-        require(row[f"control_{name}"]["grad_worst"] > LM_TRAIN_GRAD_TOL,
-                f"lm_train: the {name} control passed the gradient gate "
+    emit({"phase": phase, **row})
+    require(row["grad_worst"] <= tol,
+            f"{what}: gradient {row['grad_worst_leaf']} at "
+            f"{row['grad_worst']} of max |plain| > {tol}")
+    if loss_tol is not None:
+        require(row["loss_rel_err"] <= loss_tol,
+                f"{what}: loss {row['loss_rel_err']} relative > "
+                f"{loss_tol}")
+    for name in controls:
+        require(row[f"control_{name}"]["grad_worst"] > tol,
+                f"{what}: the {name} control passed the gradient gate "
                 f"({row[f'control_{name}']})")
     return row
+
+
+def _trainer(cfg):
+    """``make_trainer``'s step and state for ``cfg`` on the card at the
+    reference trainer's defaults (``repro/launch/train.py``), and its
+    :data:`LM_TRAIN_N` batches of the synthetic stream; the peak memory
+    counted from here."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    run_step, state, api, _rules = make_trainer(
+        cfg, global_batch=LM_TRAIN_B, seq_len=LM_TRAIN_S,
+        peak_lr=LM_TRAIN_LR, total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP,
+        device="cuda")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
+                    global_batch=LM_TRAIN_B, seed=SEED)
+    return run_step, state, api, [global_batch_at(dc, i)
+                                  for i in range(LM_TRAIN_N)]
+
+
+def _long_batch(cfg, s: int) -> dict:
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=1, seed=SEED)
+    return _cuda_batch(global_batch_at(dc, LM_TRAIN_N))
+
+
+def _probe_leaf(params) -> torch.Tensor:
+    """The first matrix of the first block, in flattening order."""
+    return next(t for t in TREE.leaves(params["blocks"][0]) if t.dim() >= 2)
+
+
+def train_loop(run_step, state, batches, per_step: int, route: str,
+               what: str, cfg, moved: bool = True):
+    """Each batch through ``run_step`` in a plain loop, each step timed
+    on the host clock to the card's end: its K4 launches ``per_step`` on
+    ``route`` and nothing else of K1-K4 (required; 0: none), no plain
+    attention, loss and grad norm finite (required); with experts
+    ``2 x moe_layers`` router calls (the forward and the remat
+    recompute, required) and the pairs the capacity dropped in the
+    forward (:meth:`Routing.dropped` over its first calls); with
+    ``moved`` the params unchanged by the first step (lr 0: a block's
+    first matrix and the embedding's first rows) and that matrix
+    changed by the second (required).  Returns (state, readings)."""
+    out = {"counts": [], "losses": [], "grad_norms": [], "secs": [],
+           "dropped_pairs": []}
+    probe = _probe_leaf(state.params)
+    before = (probe.clone(), state.params["embed"][:256].clone())
+    for i, batch in enumerate(batches):
+        c, routing = {}, Routing(moe_layers(cfg))
+        with counted(c), no_plain_attention(), routing.record():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = run_step(state, batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            out["secs"].append(time.perf_counter() - t0)
+        require(k4_only(c, route, per_step),
+                f"{what} step {i} launches {c}, want {per_step} on {route}")
+        require(np.isfinite(loss) and np.isfinite(gnorm),
+                f"{what} step {i}: loss {loss}, grad norm {gnorm}")
+        require(len(routing.calls) == 2 * moe_layers(cfg),
+                f"{what} step {i}: {len(routing.calls)} router calls, want "
+                f"{2 * moe_layers(cfg)}")
+        if cfg.n_experts:
+            out["dropped_pairs"].append(routing.dropped(
+                0, cfg.n_experts, MOE.bin_capacity(
+                    batch["tokens"].numel(), cfg.top_k, cfg.n_experts,
+                    cfg.capacity_factor)))
+        out["counts"].append(c)
+        out["losses"].append(loss)
+        out["grad_norms"].append(gnorm)
+        if moved and i == 0:
+            require(torch.equal(probe, before[0]) and torch.equal(
+                state.params["embed"][:256], before[1]),
+                f"{what}: step 0 (lr 0) moved a parameter")
+        if moved and i == 1:
+            require(not torch.equal(probe, before[0]),
+                    f"{what}: step 1 left the first block's first matrix "
+                    f"unchanged")
+    out["launches"] = _merged(*out.pop("counts"))
+    return state, out
+
+
+def _loop_fields(loop: dict, tokens: int) -> dict:
+    secs = loop["secs"]
+    return {"losses": loop["losses"], "grad_norms": loop["grad_norms"],
+            "step_ms": [x * 1e3 for x in secs],
+            "step_ms_median": _median(secs) * 1e3,
+            "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
+            "tokens_per_s": tokens / _median(secs),
+            "launches": loop["launches"],
+            **({"dropped_pairs": loop["dropped_pairs"]}
+               if loop["dropped_pairs"] else {})}
+
+
+def _size_fields(cfg, n_params: int) -> dict:
+    return {"config": cfg.name, "layers": cfg.n_layers,
+            "blocks": LM_T.n_blocks(cfg),
+            "full_depth_blocks": LM_T.n_blocks(get_config(cfg.name)),
+            "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "dtype": str(cfg.compute_dtype), "params": n_params,
+            "state_gb": 16 * n_params / 1e9, "batch": LM_TRAIN_B,
+            "seq": LM_TRAIN_S, "steps": LM_TRAIN_N, "peak_lr": LM_TRAIN_LR,
+            "warmup": LM_TRAIN_WARMUP}
+
+
+def _bounds(cfg, b: int, s: int, n_params: int) -> dict:
+    return {f"bound_{k}": v
+            for k, v in train_bounds(cfg, b, s, n_params).items()}
+
+
+def bit_repeat(api, params, batch: dict, what: str) -> dict:
+    """``value_and_grad`` on the K4 path twice on the same weights and
+    batch: the loss and every gradient leaf equal bit for bit
+    (required)."""
+    with counted({}), no_plain_attention():
+        l1, g1 = LM_STEPS.value_and_grad(api, params, batch)
+        l2, g2 = LM_STEPS.value_and_grad(api, params, batch)
+    differ = [p for (p, a), b in zip(TREE.leaves_with_paths(g1),
+                                     TREE.leaves(g2))
+              if not torch.equal(a, b)]
+    out = {"loss_equal": bool(torch.equal(l1, l2)),
+           "grad_leaves": len(TREE.leaves(g1)),
+           "grad_leaves_differing": len(differ), "differing": differ[:8]}
+    del g1, g2
+    _free()
+    require(out["loss_equal"] and not differ,
+            f"{what}: value_and_grad did not repeat bit for bit {out}")
+    return out
 
 
 def phase_lm_train(card: str) -> dict:
@@ -4206,48 +4593,17 @@ def phase_lm_train(card: str) -> dict:
       * after step 20 every param leaf's fingerprint
         (:func:`param_fingerprint`), which ``lm_train_mesh`` is held to
         with each step's loss and grad norm."""
-    _free()
-    torch.cuda.reset_peak_memory_stats()
     cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
                               n_layers=LM_TRAIN_BLOCKS)
-    run_step, state, api, _rules = make_trainer(
-        cfg, global_batch=LM_TRAIN_B, seq_len=LM_TRAIN_S,
-        peak_lr=LM_TRAIN_LR, total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP,
-        device="cuda")
+    run_step, state, api, batches = _trainer(cfg)
     n_params = sum(t.numel() for t in TREE.leaves(state.params))
-    dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
-                    global_batch=LM_TRAIN_B, seed=SEED)
-    batches = [global_batch_at(dc, i) for i in range(LM_TRAIN_N)]
     per_step = 2 * attention_layers(cfg)
     step0 = lm_train_step0(api, state.params, _cuda_batch(batches[0]),
                            per_step)
-    wq = state.params["blocks"][0]["sub0"]["attn"]["wq"]
-    wq0, embed0 = wq.clone(), state.params["embed"][:256].clone()
-    counts, losses, gnorms, secs = [], [], [], []
-    for i, batch in enumerate(batches):
-        c = {}
-        with counted(c), no_plain_attention():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = run_step(state, batch)
-            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        require(k4_only(c, "sm90", per_step),
-                f"lm_train step {i} launches {c}")
-        require(np.isfinite(loss) and np.isfinite(gnorm),
-                f"lm_train step {i}: loss {loss}, grad norm {gnorm}")
-        counts.append(c)
-        losses.append(loss)
-        gnorms.append(gnorm)
-        if i == 0:
-            require(torch.equal(wq, wq0)
-                    and torch.equal(state.params["embed"][:256], embed0),
-                    "lm_train: step 0 (lr 0) moved a parameter")
-        if i == 1:
-            require(not torch.equal(wq, wq0),
-                    "lm_train: step 1 left wq unchanged")
-    del wq0, embed0
+    state, loop = train_loop(run_step, state, batches, per_step, "sm90",
+                             "lm_train", cfg)
+    counts, losses, gnorms, secs = ([loop["launches"]], loop["losses"],
+                                    loop["grad_norms"], loop["secs"])
     fingerprint = param_fingerprint(state.params)
     loss_err = abs(losses[0] - step0["plain_loss"]) / abs(step0["plain_loss"])
     gnorm_err = (abs(gnorms[0] - step0["plain_gnorm"])
@@ -4257,23 +4613,11 @@ def phase_lm_train(card: str) -> dict:
            f"relative to the plain replay > {LM_BF16_TOL}")
     short = _cuda_batch(batches[-1])
     state, short_profile = profile_train_step(run_step, state, short)
-    long_dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_LONG_S,
-                         global_batch=1, seed=SEED)
-    long_batch = global_batch_at(long_dc, LM_TRAIN_N)
-    long_secs = []
-    for _ in range(2):
-        c = {}
-        with counted(c), no_plain_attention():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, m = run_step(state, long_batch)
-            long_loss = float(m["loss"])
-            torch.cuda.synchronize()
-            long_secs.append(time.perf_counter() - t0)
-        require(k4_only(c, "sm90", per_step) and np.isfinite(long_loss),
-                f"lm_train long step: launches {c}, loss {long_loss}")
-        counts.append(c)
-    long_batch = _cuda_batch(long_batch)
+    long_batch = _long_batch(cfg, LM_TRAIN_LONG_S)
+    state, long = train_loop(run_step, state, [long_batch] * 2, per_step,
+                             "sm90", "lm_train 1 x 4096", cfg, moved=False)
+    counts.append(long["launches"])
+    long_loss, long_secs = long["losses"][-1], long["secs"]
     _, grads, long_tapped = tapped_value_and_grad(
         api, state.params, long_batch, per_step, "lm_train 1 x 4096")
     del grads
@@ -4300,14 +4644,12 @@ def phase_lm_train(card: str) -> dict:
           "step_ms_max": max(secs) * 1e3,
           "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / _median(secs),
           "profile": short_profile,
-          **{f"bound_{k}": v for k, v in train_bounds(
-              cfg, LM_TRAIN_B, LM_TRAIN_S, n_params).items()},
+          **_bounds(cfg, LM_TRAIN_B, LM_TRAIN_S, n_params),
           "long": {"batch": 1, "seq": LM_TRAIN_LONG_S, "loss": long_loss,
                    "step_ms": [s * 1e3 for s in long_secs],
                    "tokens_per_s": LM_TRAIN_LONG_S / long_secs[-1],
                    "tapped": long_tapped, "profile": long_profile,
-                   **{f"bound_{k}": v for k, v in train_bounds(
-                       cfg, 1, LM_TRAIN_LONG_S, n_params).items()}},
+                   **_bounds(cfg, 1, LM_TRAIN_LONG_S, n_params)},
           "peak_gb": peak / 1e9, "card": card})
     del state, run_step, api
     _free()
@@ -4320,9 +4662,10 @@ def phase_lm_train_f32(card: str) -> dict:
     """Step 0 of training in f32 at full width, the depth cut: K4 on
     ``sm90_tf32`` forward, the reference's VJP backward, against a plain
     replay (``attn="plain"``: PyTorch's autograd through the chunked
-    attention) on the same weights and batch: the loss within ``TOL``
-    relative, every gradient tensor within ``GRAD_TOL`` of its max
-    |plain|.
+    attention; with experts under the K4 forward's routing,
+    :class:`TrainRouting`) on the same weights and batch: the loss
+    within ``TOL`` relative, every gradient tensor within ``GRAD_TOL``
+    of its max |plain|.
 
       * minitron-4b, 2 blocks, batch 8 x 128: 4 K4 launches (2 forward,
         2 recompute); the control, a backward whose causal mask keeps
@@ -4330,13 +4673,21 @@ def phase_lm_train_f32(card: str) -> dict:
       * whisper-medium, 2 encoder and 2 decoder layers, 2 x 1500 frames
         and 64 tokens: 12 K4 launches (the encoder's non-causal 1500 x
         1500 with a ragged last tile, the decoder's causal self- and
-        non-causal cross-attention, each twice)."""
+        non-causal cross-attention, each twice);
+      * mixtral-8x7b, 2 blocks, 1 x 8192 tokens under its 4096 window:
+        4 K4 launches, every router call on the forward's choice, each
+        ``attention_vjp`` call's dq at the window's edge within ``TOL``
+        of autograd (:func:`edge_tapped`); the one-key-off control and
+        a backward window one key wider (:func:`window_one_key_wider`)
+        must each miss the gradient gate, the second also the edge's."""
     f32 = torch.float32
     out, counts = {}, []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
     for arch, cut in (("minitron-4b", dict(n_layers=2)),
-                      ("whisper-medium", dict(n_layers=2, enc_layers=2))):
+                      ("whisper-medium", dict(n_layers=2, enc_layers=2)),
+                      (MOE_ARCH, dict(n_layers=2))):
         _free()
+        t_row = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch), compute_dtype=f32, **cut)
         api = build_lm(cfg)
         params = api.init(torch.Generator(device="cuda").manual_seed(SEED))
@@ -4347,16 +4698,21 @@ def phase_lm_train_f32(card: str) -> dict:
                 device="cuda") * ENCDEC_FRAMES_SCALE}
             calls = cfg.enc_layers + 2 * cfg.n_layers
         else:
-            b, s = LM_TRAIN_B, LM_TRAIN_S
+            b, s = (1, MOE_TRAIN_LONG_S) if cfg.window else (LM_TRAIN_B,
+                                                              LM_TRAIN_S)
             batch = {}
             calls = attention_layers(cfg)
         toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
                              device="cuda")
         batch.update(tokens=toks[:, :-1], labels=toks[:, 1:])
-        plain_loss, plain = LM_STEPS.value_and_grad(api, params, batch,
-                                                    attn="plain")
+        routing = train_routing(api, params, batch)
+        with _replayed(routing):
+            plain_loss, plain = LM_STEPS.value_and_grad(api, params, batch,
+                                                        attn="plain")
+        edge = [] if cfg.window else None
         c = {}
-        with counted(c), no_plain_attention():
+        with counted(c), no_plain_attention(), _checked(routing), \
+                edge_tapped(edge):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss, grads = LM_STEPS.value_and_grad(api, params, batch)
@@ -4376,22 +4732,361 @@ def phase_lm_train_f32(card: str) -> dict:
                "plain_loss": float(plain_loss), "loss_rel_err": loss_err,
                "grad_worst_over_gate": gate, "grad_leaves":
                len(TREE.leaves(grads)), "value_and_grad_ms": ms}
+        if routing:
+            require(routing.calls == 2 * moe_layers(cfg)
+                    and not routing.off,
+                    f"lm_train_f32 {arch}: {routing.calls} router calls, "
+                    f"{routing.off} off the forward's choice")
+            row.update(window=cfg.window, router_calls=routing.calls,
+                       replay_flips=routing.flips,
+                       replay_rows=routing.rows)
+        if edge is not None:
+            require(len(edge) == calls and max(edge) <= 1.0,
+                    f"lm_train_f32 {arch}: the window's edge {edge} of "
+                    f"TOL")
+            row.update(edge_dq_worst_over_tol=max(edge),
+                       value_and_grad_ms_with_edge_tap=True)
         del grads
         if cfg.family != "encdec":
-            with counted({}), one_key_off_backward():
-                _, wrong = LM_STEPS.value_and_grad(api, params, batch)
-            row["control_mask_one_key_off_over_gate"] = _grad_gate(wrong,
-                                                                   plain)
-            require(row["control_mask_one_key_off_over_gate"] > 1.0,
-                    f"lm_train_f32: the one-key-off backward passed the "
-                    f"gradient gate ({row})")
-            del wrong
+            controls = ["one_key_off"] + (["window_one_key_wider"]
+                                          if cfg.window else [])
+            for name in controls:
+                wrong_edge = [] if name == "window_one_key_wider" else None
+                with counted({}), GRAD_CONTROLS[name](), \
+                        _checked(routing), edge_tapped(wrong_edge):
+                    _, wrong = LM_STEPS.value_and_grad(api, params, batch)
+                key = ("control_mask_one_key_off_over_gate"
+                       if name == "one_key_off"
+                       else f"control_{name}_over_gate")
+                row[key] = _grad_gate(wrong, plain)
+                require(row[key] > 1.0,
+                        f"lm_train_f32 {arch}: the {name} control passed "
+                        f"the gradient gate ({row})")
+                if wrong_edge is not None:
+                    row["control_window_one_key_wider_edge_over_tol"] = \
+                        min(wrong_edge)
+                    require(min(wrong_edge) > 1.0,
+                            f"lm_train_f32 {arch}: the window_one_key_wider "
+                            f"control passed the edge gate {wrong_edge}")
+                del wrong
+        row["seconds"] = time.perf_counter() - t_row
         out[arch] = row
         del plain, params, api
     emit({"phase": "lm_train_f32", "dtype": str(f32), "gate_loss": TOL,
           "gate_grad": GRAD_TOL, "rows": out, "card": card})
     _free()
     return {"f32": _merged(*counts)}
+
+
+# --------------------------------------------------------------------------
+# lm_train_moe, lm_train_ssm, lm_train_hybrid: mixtral-8x7b (MoE FFN,
+# window 4096), mamba2-1.3b (Mamba2 mixer) and jamba (both) trained
+# through make_trainer
+# --------------------------------------------------------------------------
+
+#: mixtral-8x7b trained at full width, 2 of its 32 blocks: 3.03e9
+#: parameters, 48.5 GB of f32 params, grads and both moments at 16
+#: bytes a parameter (3 blocks would be 71 GB)
+MOE_TRAIN_BLOCKS = 2
+#: the windowed step: one sequence of twice mixtral's 4096-token window
+MOE_TRAIN_LONG_S = 8192
+#: mamba2-1.3b's long step: one sequence of 4096 tokens, 16 SSD chunks
+SSM_TRAIN_LONG_S = 4096
+#: the f32 gate of the scan under autograd: 2 of mamba2's 48 layers at
+#: full width, one sequence of 1024 tokens (4 chunks), on the card and
+#: on the host's CPU
+SSM_GATE_LAYERS, SSM_GATE_S = 2, 1024
+#: jamba's long step: one sequence of 1024 tokens across 4 SSD chunks
+HYBRID_TRAIN_LONG_S = 1024
+
+
+def window_edge_gate(api, params, batch: dict, per_step: int, route: str,
+                     what: str) -> dict:
+    """One sequence past the window, on the K4 path: every K4 call
+    tapped, every router call on the forward's choice and every
+    ``attention_vjp`` call's dq at the window's edge within ``TOL`` of
+    autograd (:func:`tapped_value_and_grad`, :func:`edge_tapped`); then
+    :func:`window_one_key_wider` under the same taps, whose edge
+    reading must miss, and the distance of its gradients from the K4
+    path's (the worst leaf's max |err| over max |K4 path|)."""
+    routing = train_routing(api, params, batch)
+    loss, grads, row = tapped_value_and_grad(api, params, batch, per_step,
+                                             what, route, routing, [])
+    wrong_edge = []
+    with counted({}), window_one_key_wider(), edge_tapped(wrong_edge), \
+            _checked(routing):
+        _, wrong = LM_STEPS.value_and_grad(api, params, batch)
+    moved = max(((w - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+                for w, g in zip(TREE.leaves(wrong), TREE.leaves(grads)))
+    del wrong, grads
+    _free()
+    row.update(loss=float(loss), control_window_one_key_wider={
+        "edge_dq_worst_over_tol": max(wrong_edge),
+        "edge_dq_least_over_tol": min(wrong_edge),
+        "grad_worst_against_k4_path": moved})
+    require(len(wrong_edge) == attention_layers(api.cfg)
+            and min(wrong_edge) > 1.0,
+            f"{what}: the window_one_key_wider control passed the edge "
+            f"gate ({wrong_edge})")
+    return row
+
+
+def phase_lm_train_moe(card: str) -> dict:
+    """mixtral-8x7b at full width (d_model 4096, 32 heads over 8, 8
+    experts of d_ff 14336, top-2, capacity factor 1.25, window 4096) and
+    :data:`MOE_TRAIN_BLOCKS` of its 32 blocks, bf16 compute on f32
+    masters, trained through ``make_trainer``'s step in a plain loop at
+    the reference trainer's defaults (batch 8 x 128, 20 steps, peak lr
+    3e-4, warmup 2):
+
+      * step 0 (:func:`lm_train_step0`): every K4 call of the forward
+        and the recompute within ``CARD_TOL`` of the plain version,
+        every router call on the K4 forward's choice, every gradient
+        tensor within :data:`LM_TRAIN_GRAD_TOL` of the plain replay's
+        under that routing (:class:`TrainRouting`), the one-key-off and
+        no-gradient controls missing it; ``value_and_grad`` twice, bit
+        for bit (:func:`bit_repeat`: the MoE backward's index ops);
+      * every step ``2 x attention_layers`` K4 ``sm90`` launches and
+        nothing else of K1-K4, no plain attention, finite; the pairs the
+        capacity dropped; step 0's loss and grad norm within
+        :data:`LM_BF16_TOL` of the replay's;
+      * then 1 x 8192 tokens, where the window bites, twice
+        (launches exact), and :func:`window_edge_gate` on it;
+      * step ms, tokens/s, peak memory, a profiled step a shape beside
+        its bound (:func:`train_bounds`)."""
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_BLOCKS)
+    run_step, state, api, batches = _trainer(cfg)
+    n_params = sum(t.numel() for t in TREE.leaves(state.params))
+    per_step = 2 * attention_layers(cfg)
+    b0 = _cuda_batch(batches[0])
+    step0 = lm_train_step0(api, state.params, b0, per_step,
+                           what="lm_train_moe step 0",
+                           phase="lm_train_moe_step0")
+    repeat = bit_repeat(api, state.params, b0, "lm_train_moe step 0")
+    del b0
+    state, loop = train_loop(run_step, state, batches, per_step, "sm90",
+                             "lm_train_moe", cfg)
+    loss_err = (abs(loop["losses"][0] - step0["plain_loss"])
+                / abs(step0["plain_loss"]))
+    gnorm_err = (abs(loop["grad_norms"][0] - step0["plain_gnorm"])
+                 / abs(step0["plain_gnorm"]))
+    expect(loss_err <= LM_BF16_TOL and gnorm_err <= LM_BF16_TOL,
+           f"lm_train_moe step 0: loss {loss_err}, grad norm {gnorm_err} "
+           f"relative to the plain replay > {LM_BF16_TOL}")
+    state, short_profile = profile_train_step(run_step, state,
+                                              _cuda_batch(batches[-1]))
+    loop_peak = torch.cuda.max_memory_allocated()
+    long_batch = _long_batch(cfg, MOE_TRAIN_LONG_S)
+    torch.cuda.reset_peak_memory_stats()
+    state, long = train_loop(run_step, state, [long_batch] * 2, per_step,
+                             "sm90", "lm_train_moe 1 x 8192", cfg,
+                             moved=False)
+    long_peak = torch.cuda.max_memory_allocated()
+    edge = window_edge_gate(api, state.params, long_batch, per_step, "sm90",
+                            "lm_train_moe 1 x 8192")
+    state, long_profile = profile_train_step(run_step, state, long_batch)
+    peak = max(loop_peak, torch.cuda.max_memory_allocated())
+    emit({"phase": "lm_train_moe", "seconds": time.perf_counter() - t0,
+          **_size_fields(cfg, n_params),
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+          "experts": cfg.n_experts, "top_k": cfg.top_k,
+          "capacity_factor": cfg.capacity_factor, "window": cfg.window,
+          "reduced": f"depth: {cfg.n_layers} of "
+                     f"{get_config(MOE_ARCH).n_layers} blocks",
+          "k4_sm90_per_step": per_step, **_loop_fields(
+              loop, LM_TRAIN_B * LM_TRAIN_S),
+          "step0_plain_loss": step0["plain_loss"],
+          "step0_plain_grad_norm": step0["plain_gnorm"],
+          "step0_grad_worst": step0["grad_worst"],
+          "step0_loss_rel_err": loss_err,
+          "step0_grad_norm_rel_err": gnorm_err, "gate": LM_BF16_TOL,
+          "step0_repeat": repeat, "profile": short_profile,
+          **_bounds(cfg, LM_TRAIN_B, LM_TRAIN_S, n_params),
+          "long": {"batch": 1, "seq": MOE_TRAIN_LONG_S,
+                   **_loop_fields(long, MOE_TRAIN_LONG_S),
+                   "peak_gb": long_peak / 1e9, "window_edge": edge,
+                   "profile": long_profile,
+                   **_bounds(cfg, 1, MOE_TRAIN_LONG_S, n_params)},
+          "peak_gb": peak / 1e9, "card": card})
+    del state, run_step, api
+    _free()
+    return {"bf16": _merged(loop["launches"], long["launches"]),
+            "step_ms_median": _median(loop["secs"]) * 1e3}
+
+
+_CHUNK_STEP = SSM._chunk_step
+
+
+def _no_carry(state, *args):
+    return _CHUNK_STEP(torch.zeros_like(state), *args)
+
+
+def dropped_carry():
+    """The control: the SSD scan with the state carried between chunks
+    dropped (each chunk starts from zeros)."""
+    return patched((SSM, "_chunk_step", _no_carry))
+
+
+def ssm_card_against_cpu(cfg) -> dict:
+    """The scan under autograd in f32: :data:`SSM_GATE_LAYERS` layers of
+    ``cfg`` at full width, one sequence of :data:`SSM_GATE_S` tokens
+    (4 chunks): step 0's loss and gradients on the card against the
+    same step on the host's CPU, on the same weights and batch (the
+    CPU path is held to the reference by ``tests/test_torch_lm_train.
+    py``): the loss within ``TOL`` relative, every gradient tensor
+    within ``GRAD_TOL`` of its max |CPU| (required), no launch of
+    K1-K4; the control, :func:`dropped_carry`, must miss the gradient
+    gate."""
+    gcfg = dataclasses.replace(cfg, n_layers=SSM_GATE_LAYERS,
+                               compute_dtype=torch.float32)
+    api = build_lm(gcfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED))
+    toks = torch.randint(0, cfg.vocab, (1, SSM_GATE_S + 1),
+                         generator=torch.Generator().manual_seed(SEED + 71))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    c = {}
+    with counted(c):
+        loss, grads = LM_STEPS.value_and_grad(api, params,
+                                              _cuda_batch(batch))
+    require(not any(n for v in c.values() for n in v.values()),
+            f"lm_train_ssm f32: launches {c}")
+    host = TREE.tree_map(lambda t: t.cpu(), params)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = LM_STEPS.value_and_grad(api, host, batch)
+    cpu_s = time.perf_counter() - t0
+    ref = TREE.leaves(cpu_grads)
+    errs = _leaf_errs(grads, ref)
+    loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    del grads
+    with counted({}), dropped_carry():
+        wrong_loss, wrong = LM_STEPS.value_and_grad(api, params,
+                                                    _cuda_batch(batch))
+    bad = _leaf_errs(wrong, ref)
+    del wrong, params, host, cpu_grads, ref
+    _free()
+    row = {"layers": SSM_GATE_LAYERS, "seq": SSM_GATE_S,
+           "chunks": -(-SSM_GATE_S // 256), "dtype": "torch.float32",
+           "loss": float(loss), "cpu_loss": float(cpu_loss),
+           "loss_rel_err": loss_err, "gate_loss": TOL,
+           "grad_worst": max(errs.values()),
+           "grad_worst_leaf": max(errs, key=errs.get), "gate_grad": GRAD_TOL,
+           "cpu_s": cpu_s, "control_dropped_carry": {
+               "loss_rel_err": abs(float(wrong_loss) - float(cpu_loss))
+               / abs(float(cpu_loss)),
+               "grad_worst": max(bad.values()),
+               "grad_by_kind": _by_kind(bad)}, "launches": c}
+    require(loss_err <= TOL and row["grad_worst"] <= GRAD_TOL,
+            f"lm_train_ssm f32 against the CPU: {row}")
+    require(row["control_dropped_carry"]["grad_worst"] > GRAD_TOL,
+            f"lm_train_ssm: the dropped-carry control passed {row}")
+    return row
+
+
+def phase_lm_train_ssm(card: str) -> dict:
+    """mamba2-1.3b (48 Mamba2 layers, d_model 2048, state 128, 64 heads)
+    at full size, bf16 compute on f32 masters, trained through
+    ``make_trainer``'s step as :func:`phase_lm_train_moe` is: every step
+    finite, no launch of K1-K4, no param moved by step 0 and moved by
+    step 1; then one step at 1 x 4096 tokens (16 SSD chunks), its peak
+    memory; step 0's bf16 loss beside an f32 replay's (printed, no gate:
+    no yardstick rounds as the bf16 SSM path does); one profiled step at
+    8 x 128 (a 1 x 4096 step holds some 10^5 host ops, whose profile
+    takes longer to read than the step) and each shape's bound; then
+    :func:`ssm_card_against_cpu`."""
+    t0 = time.perf_counter()
+    cfg = get_config(SSM_ARCH)
+    run_step, state, api, batches = _trainer(cfg)
+    n_params = sum(t.numel() for t in TREE.leaves(state.params))
+    with torch.no_grad(), counted({}):
+        f32_loss = float(build_lm(dataclasses.replace(
+            cfg, compute_dtype=torch.float32)).train_loss(
+            state.params, _cuda_batch(batches[0])))
+    state, loop = train_loop(run_step, state, batches, 0, "sm90",
+                             "lm_train_ssm", cfg)
+    state, short_profile = profile_train_step(run_step, state,
+                                              _cuda_batch(batches[-1]))
+    loop_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, long = train_loop(run_step, state,
+                             [_long_batch(cfg, SSM_TRAIN_LONG_S)], 0, "sm90",
+                             "lm_train_ssm 1 x 4096", cfg, moved=False)
+    long_peak = torch.cuda.max_memory_allocated()
+    peak = max(loop_peak, long_peak)
+    del state, run_step, api
+    _free()
+    gate = ssm_card_against_cpu(cfg)
+    emit({"phase": "lm_train_ssm", "seconds": time.perf_counter() - t0,
+          **_size_fields(cfg, n_params),
+          "ssm_state": cfg.ssm_state, "ssm_heads": cfg.ssm_heads,
+          **_loop_fields(loop, LM_TRAIN_B * LM_TRAIN_S),
+          "step0_loss_bf16": loop["losses"][0], "step0_loss_f32": f32_loss,
+          "profile": short_profile,
+          **_bounds(cfg, LM_TRAIN_B, LM_TRAIN_S, n_params),
+          "long": {"batch": 1, "seq": SSM_TRAIN_LONG_S,
+                   "chunks": SSM_TRAIN_LONG_S // 256,
+                   **_loop_fields(long, SSM_TRAIN_LONG_S),
+                   "peak_gb": long_peak / 1e9,
+                   **_bounds(cfg, 1, SSM_TRAIN_LONG_S, n_params)},
+          "f32_against_cpu": gate, "peak_gb": peak / 1e9, "card": card})
+    return {"bf16": _merged(loop["launches"], long["launches"]),
+            "f32": gate["launches"]}
+
+
+def phase_lm_train_hybrid(card: str) -> dict:
+    """jamba-1.5-large-398b at ``reduced()`` size in f32 (one block of 8
+    sublayers: one attention, seven Mamba2 mixers, an MoE FFN on every
+    odd sublayer), as ``lm_serve_hybrid`` serves it, trained through
+    ``make_trainer``'s step: step 0 (:func:`lm_train_step0`) with K4 on
+    ``sm90_tf32``, the loss within ``TOL`` and every gradient within
+    ``GRAD_TOL`` of the plain replay under the K4 forward's routing,
+    each K4 call within ``CARD_TOL``, the one-key-off control missing;
+    20 steps at 8 x 128 (2 K4 ``sm90_tf32`` launches a step, nothing
+    else), then 1 x 1024 tokens across 4 SSD chunks.  Full width does
+    not fit: one 8-sublayer block is 44.6e9 parameters, about 713 GB of
+    training state."""
+    t0 = time.perf_counter()
+    full = get_config(HYBRID_ARCH)
+    cfg = reduced(full)
+    run_step, state, api, batches = _trainer(cfg)
+    n_params = sum(t.numel() for t in TREE.leaves(state.params))
+    per_step = 2 * attention_layers(cfg)
+    step0 = lm_train_step0(api, state.params, _cuda_batch(batches[0]),
+                           per_step, route="sm90_tf32", tol=GRAD_TOL,
+                           loss_tol=TOL, controls=("one_key_off",),
+                           what="lm_train_hybrid step 0",
+                           phase="lm_train_hybrid_step0")
+    state, loop = train_loop(run_step, state, batches, per_step,
+                             "sm90_tf32", "lm_train_hybrid", cfg)
+    state, short_profile = profile_train_step(run_step, state,
+                                              _cuda_batch(batches[-1]))
+    state, long = train_loop(run_step, state,
+                             [_long_batch(cfg, HYBRID_TRAIN_LONG_S)],
+                             per_step, "sm90_tf32",
+                             "lm_train_hybrid 1 x 1024", cfg, moved=False)
+    peak = torch.cuda.max_memory_allocated()
+    one = block_reckoning(full)
+    emit({"phase": "lm_train_hybrid", "seconds": time.perf_counter() - t0,
+          **_size_fields(cfg, n_params),
+          "size": "reduced()", "block_spec": LM_T.block_spec(cfg),
+          "experts": cfg.n_experts,
+          "why_reduced": f"one full-width block of 8 sublayers is "
+                         f"{one['block_params']:.4g} parameters, "
+                         f"{16 * one['block_params'] / 1e9:.0f} GB of "
+                         "training state at 16 bytes a parameter",
+          "k4_sm90_tf32_per_step": per_step,
+          **_loop_fields(loop, LM_TRAIN_B * LM_TRAIN_S),
+          "step0_loss_rel_err": step0["loss_rel_err"],
+          "step0_grad_worst": step0["grad_worst"], "profile": short_profile,
+          **_bounds(cfg, LM_TRAIN_B, LM_TRAIN_S, n_params),
+          "long": {"batch": 1, "seq": HYBRID_TRAIN_LONG_S,
+                   **_loop_fields(long, HYBRID_TRAIN_LONG_S),
+                   **_bounds(cfg, 1, HYBRID_TRAIN_LONG_S, n_params)},
+          "peak_gb": peak / 1e9, "card": card})
+    del state, run_step, api
+    _free()
+    return {"f32": _merged(loop["launches"], long["launches"])}
 
 
 def phase_lm_train_resilient(card: str) -> dict:
@@ -6352,6 +7047,9 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     resilient = phase_lm_train_resilient(card)
     lm_train = {"bf16": _merged(train["bf16"], resilient["bf16"]),
                 "f32": train_f32["f32"]}
+    train_moe = phase_lm_train_moe(card)
+    train_ssm = phase_lm_train_ssm(card)
+    train_hybrid = phase_lm_train_hybrid(card)
     with one_rank_nccl() as mesh:
         train_mesh = phase_lm_train_mesh(card, mesh, train)
         train_mesh_resilient = phase_lm_train_mesh_resilient(card, mesh,
@@ -6806,6 +7504,9 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
                "launches_lm_serve_hybrid": hybrid,
                "launches_lm_serve_encdec": encdec,
                "launches_lm_train": lm_train,
+               "launches_lm_train_moe": train_moe,
+               "launches_lm_train_ssm": train_ssm,
+               "launches_lm_train_hybrid": train_hybrid,
                "launches_lm_train_mesh": lm_train_mesh,
                "launches_lm_serve_mesh": lm_mesh,
                "launches_mesh_ssm": mesh_ssm,
@@ -6850,6 +7551,19 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
             and by_name["attention_sm90_tf32"]["launches_lm_train"] > 0
             and by_name["attention"]["launches_lm_train"] == 0,
             "lm_train: K4's launches by route")
+    new_runs = {n: {k: by_name[n][f"launches_lm_train_{k}"]
+                    for k in ("moe", "ssm", "hybrid")}
+                for n in ("attention_sm90", "attention",
+                          "attention_sm90_tf32")}
+    require(new_runs["attention_sm90"]["moe"] > 0
+            and new_runs["attention_sm90_tf32"]["hybrid"] > 0
+            and not any(new_runs["attention"].values())
+            and not any(new_runs["attention_sm90"][k] for k in ("ssm",
+                                                                 "hybrid"))
+            and not any(new_runs["attention_sm90_tf32"][k]
+                        for k in ("moe", "ssm")),
+            f"lm_train_moe, lm_train_ssm, lm_train_hybrid: K4's launches "
+            f"by route {new_runs}")
     train_mesh_runs = {n: by_name[n]["launches_lm_train_mesh"]
                        for n in ("attention_sm90", "attention",
                                  "attention_sm90_tf32")}

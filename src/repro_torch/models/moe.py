@@ -29,7 +29,10 @@ discarded row), every expert's SwiGLU runs over its whole bin (empty
 rows are zeros and are multiplied too, as the reference computes), and
 the outputs are gathered back per (token, choice), weighted by the
 gates and summed over the choices.  Every shape is known on the host:
-nothing here waits on the device.
+nothing here waits on the device.  In dense mode the routing and
+dispatch run in a ``moe_dispatch`` profiler range and the combine in
+``moe_combine`` (a profile splits a step by them; the ranges cover
+the forward and a remat recompute, not the autograd backward).
 
 """
 
@@ -39,6 +42,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.models.layers import dense_init, gather_weight, split_keys
 from repro_torch.parallel import collectives as col
@@ -132,16 +136,18 @@ def moe_ffn_dense(x, params, top_k: int, capacity_factor: float):
     e_rows = params["wg"].shape[0]
     n_experts = params["router"].shape[1]
     tpe = e_rows // n_experts
-    gates, idx = router_top_k(x, params["router"], top_k)
-    cap = bin_capacity(t, top_k, n_experts, capacity_factor)
-    bins, slot = moe_dispatch_local(x, gates, idx, n_experts, cap)
+    with record_function("moe_dispatch"):
+        gates, idx = router_top_k(x, params["router"], top_k)
+        cap = bin_capacity(t, top_k, n_experts, capacity_factor)
+        bins, slot = moe_dispatch_local(x, gates, idx, n_experts, cap)
     if tpe == 1:
         ret = _expert_ffn(bins, params["wg"], params["wi"], params["wo"])
     else:
         rep = torch.repeat_interleave(bins, tpe, dim=0)   # (E*tpe, C, d)
         part = _expert_ffn(rep, params["wg"], params["wi"], params["wo"])
         ret = part.reshape(n_experts, tpe, cap, d).sum(dim=1)
-    return moe_combine_local(ret, slot, gates, t, top_k)
+    with record_function("moe_combine"):
+        return moe_combine_local(ret, slot, gates, t, top_k)
 
 
 def _one_row(n_experts: int, tpe: int, mp: int) -> None:

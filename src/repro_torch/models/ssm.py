@@ -26,6 +26,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from repro_torch.models.layers import (column_input, dense_init, filled,
                                        rms_norm, row_output, split_keys)
@@ -74,10 +75,12 @@ def _chunk_step(state, xi, dti, dtai, bi, ci, tri, g: int, hg: int):
     bsz, q, _h, p = xi.shape
     cs = torch.cumsum(dtai, dim=1)                          # (B, q, H)
     seg = cs[:, :, None, :] - cs[:, None, :, :]
-    # above the diagonal exp(seg) may overflow to inf: ``where`` drops
-    # it (a product with the mask would give inf * 0 = NaN)
-    decay = torch.where(tri[None, :, :, None], torch.exp(seg),
-                        torch.zeros((), dtype=seg.dtype, device=seg.device))
+    # above the diagonal exp(seg) may overflow to inf: the mask goes in
+    # before the exp, which gives exactly 0 there.  The reference's
+    # ``where(tri, exp(seg), 0)`` has the same values, but its gradient
+    # is exp(seg) * 0 = inf * 0 = NaN past ~90 rows of a chunk.
+    decay = torch.exp(seg.masked_fill(~tri[None, :, :, None],
+                                      float("-inf")))
     xg = xi.reshape(bsz, q, g, hg, p)
     dtg = dti.reshape(bsz, q, g, hg)
     decg = decay.reshape(bsz, q, q, g, hg)
@@ -98,9 +101,10 @@ def _chunk_step(state, xi, dti, dtai, bi, ci, tri, g: int, hg: int):
     return new_state, (y_diag + y_off).reshape(bsz, q, g * hg, p)
 
 
+@record_function("ssd_chunked")
 def ssd_chunked(x, dt, a_log, b_mat, c_mat, d_skip, chunk: int,
                 init_state=None):
-    """Chunked SSD scan.
+    """Chunked SSD scan, in an ``ssd_chunked`` profiler range.
 
     x: (B, L, H, P); dt: (B, L, H); b_mat/c_mat: (B, L, G, N);
     returns y (B, L, H, P) and the final state (B, H, P, N)."""

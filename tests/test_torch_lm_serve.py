@@ -10,8 +10,11 @@ the object made without ``__init__``, with no axis rules and no mesh
 port gets through ``repro_torch.convert``.  Both run the reference's
 ``test_serve_continuous_batching`` scenario (phi3 reduced to d_model 32,
 vocab 64, one layer; 2 slots, max_seq 48, 4 requests of 3 prompt tokens
-and 4 new ones): every step feeds the same tokens, its logits agree
-within 1e-5 of max |ref|, its greedy tokens are equal, every request
+and 4 new ones): every step feeds the same tokens, its logits over the
+real vocabulary agree within 1e-5 of their max |ref| (the 192 padded
+columns, -1e30 on both sides, left out; a control moves one real logit
+by 1e-4 of that max, which the gate must see), its greedy tokens are
+equal, every request
 completes and freed slots are reused.  The same for reduced mixtral
 (capacity factor 8.0, as the reference's ``main --reduced``), mamba2
 and jamba: a reused slot's SSM state and conv tail carry over from its
@@ -120,8 +123,7 @@ def _serve_against_reference(arch, **overrides):
             zip(steps, record)):
         assert pos == ref_pos
         np.testing.assert_array_equal(tok.numpy(), ref_tok)
-        err = np.abs(logits.numpy() - ref_logits).max()
-        assert err <= 1e-5 * np.abs(ref_logits).max(), (pos, err)
+        assert _logits_within(logits.numpy(), ref_logits, cfg.vocab), pos
         np.testing.assert_array_equal(logits.argmax(-1).numpy(),
                                       ref_logits.argmax(-1))
     assert [r.out for r in reqs] == [r.out for r in ref_reqs]
@@ -134,6 +136,28 @@ def _serve_against_reference(arch, **overrides):
             served.setdefault(slot, set()).add(rid)
     assert sorted(served) == [0, 1]
     assert all(len(rids) >= 2 for rids in served.values())
+    return steps, record, cfg
+
+
+def _logits_within(logits, ref_logits, vocab: int) -> bool:
+    """The real vocabulary's logits within 1e-5 of its max |ref|.  The
+    padded columns hold -1e30 on both sides; a max over them would set
+    the gate at 1e25."""
+    out, ref = logits[..., :vocab], ref_logits[..., :vocab]
+    return np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
+def test_logit_gate_sees_one_real_logit():
+    """The control: the first served step's logits with one real logit
+    moved by 1e-4 of max |ref| fail the gate over the real vocabulary
+    and pass the old one over the padded row."""
+    steps, record, cfg = _serve_against_reference("phi3-medium-14b")
+    ref = record[0][2]
+    assert ref.shape[-1] > cfg.vocab and (ref[..., cfg.vocab:] == -1e30).all()
+    wrong = steps[0][1].numpy().copy()
+    wrong[0, cfg.vocab // 2] += 1e-4 * np.abs(ref[..., :cfg.vocab]).max()
+    assert not _logits_within(wrong, ref, cfg.vocab)
+    assert np.abs(wrong - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 def test_server_draws_its_own_weights_from_a_seed():

@@ -4,7 +4,9 @@ the reference's ``repro.models.ssm`` on the same numpy inputs, f32.
 ``ssd_chunked``: at several lengths and chunks (a ragged L padded to a
 multiple of the chunk), with and without ``init_state``, and on a chunk
 whose masked panel overflows (``A_log`` 0, large ``dt``: ``exp(seg)``
-is ``inf`` above the diagonal) with no NaN; the reference's
+is ``inf`` above the diagonal) with no NaN, and its gradients over two
+such chunks and a ragged tail finite and equal to those of the
+reference's recurrence (its chunked scan's are NaN there); the reference's
 chunk-invariance test mirrored.  ``ssd_decode_step``; ``mamba_forward``
 with and without ``conv_state`` and at L = 1 and 2 (the conv tail with
 zeros first: k - 1 rows, where at L = 1 the reference's holds k - 2,
@@ -99,6 +101,42 @@ def test_ssd_overflowing_masked_panel_gives_no_nan():
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     _close(y, np.asarray(ry), 1e-5)
     _close(s, np.asarray(rs), 1e-5)
+
+
+def test_ssd_overflowing_masked_panel_gradient_is_finite():
+    """The same overflowing chunk under autograd, over two 256-row
+    chunks and a ragged tail: the port's gradients in every input are
+    finite and within 1e-4 of max |ref| of ``jax.grad`` through the
+    reference's own recurrence (``ssd_decode_step`` scanned token by
+    token, whose decay factors are at most 1).  The reference's chunked
+    scan gives NaN in dt there: the gradient of ``where(tri, exp(seg),
+    0)`` is ``exp(seg) * 0 = inf * 0``."""
+    b, length, h, p, n = 1, 600, 2, 4, 8
+    x, _dt, _a, bm, cm, d = _ssd_inputs(b, length, h, p, n, seed=3)
+    dt = np.full((b, length, h), 0.7, np.float32)
+    a_log = np.zeros((h,), np.float32)
+    w = _rand(b, length, h, p, seed=11)
+    ins = (x, dt, a_log, bm, cm, d)
+
+    def recurrence(x, dt, a_log, bm, cm, d):
+        def step(state, t):
+            y, state = jax_ssm.ssd_decode_step(
+                x[:, t], dt[:, t], a_log, bm[:, t], cm[:, t], d, state)
+            return state, y
+        _, ys = jax.lax.scan(step, jnp.zeros((b, h, p, n), jnp.float32),
+                             jnp.arange(length))
+        return jnp.sum(jnp.moveaxis(ys, 0, 1) * w)
+
+    ref = jax.grad(recurrence, argnums=range(6))(*map(jnp.asarray, ins))
+    chunked = jax.grad(
+        lambda *a: jnp.sum(jax_ssm.ssd_chunked(*a, chunk=256)[0] * w),
+        argnums=range(6))(*map(jnp.asarray, ins))
+    assert np.isnan(np.asarray(chunked[1])).any()     # in dt
+    args = [_t(a).requires_grad_() for a in ins]
+    y, _ = S.ssd_chunked(*args, chunk=256)
+    grads = torch.autograd.grad((y * _t(w)).sum(), args)
+    for g, r in zip(grads, ref):
+        _close(g, np.asarray(r), 1e-4)
 
 
 def test_ssd_chunk_invariance():

@@ -11,10 +11,15 @@ across as numpy), at ``reduced()`` sizes in f32:
     grad`` of the reference's): the loss within 1e-5 relative, every
     gradient leaf within 1e-4 of its max |ref|, read back in the
     reference's stacked layout; whisper at ``attn_chunk`` 1500, where
-    the reference pads no key (``ROADMAP.md`` §3);
+    the reference pads no key (``ROADMAP.md`` §3); also mixtral at
+    ``window=8`` over 24 tokens, where the window bites, and mamba2 and
+    jamba over 600 tokens, two 256-row SSD chunks and a ragged tail
+    (their ``dt_bias`` Mamba2's own initialisation, where the
+    reference's gradient is finite);
   * remat on and off (and the ``dots`` policy) give the same gradients;
-  * three ``make_train_step`` steps against the reference's: ``loss``,
-    ``grad_norm`` and ``lr`` within 1e-5 relative at every step;
+  * three ``make_train_step`` steps of minitron and of mixtral against
+    the reference's: ``loss``, ``grad_norm`` and ``lr`` within 1e-5
+    relative at every step;
   * a reference ``TrainState`` carried across, through the port's
     checkpointer and back, bit for bit.
 
@@ -57,11 +62,29 @@ def _overrides(arch):
     return {"attn_chunk": 1500} if arch == "whisper-medium" else {}
 
 
-def _pair(arch, **overrides):
+def _mamba2_dt_bias(jparams):
+    """Every ``dt_bias`` drawn as Mamba2's own initialisation draws it:
+    dt log-uniform in [1e-3, 1e-1], then the inverse softplus.  The
+    reference's all-zero ``dt_bias`` sums ``dt`` past 88 within a
+    256-row chunk, where its ``where(tri, exp(seg), 0)`` has a NaN
+    gradient (``tests/test_torch_lm_ssm.py``)."""
+    rng = np.random.default_rng(7)
+
+    def draw(path, leaf):
+        if jax.tree_util.keystr(path).endswith("['dt_bias']"):
+            dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), leaf.shape))
+            return jnp.asarray(dt + np.log(-np.expm1(-dt)), leaf.dtype)
+        return leaf
+    return jax.tree_util.tree_map_with_path(draw, jparams)
+
+
+def _pair(arch, mamba2_dt=False, **overrides):
     overrides = {**_overrides(arch), **overrides}
     jcfg = jax_reduced(jax_get_config(arch), **overrides)
     cfg = reduced(get_config(arch), **overrides)
     jparams = jax_build(jcfg).init(KEY)
+    if mamba2_dt:
+        jparams = _mamba2_dt_bias(jparams)
     return jcfg, cfg, jparams, lm_params_from_numpy(_numpy_tree(jparams),
                                                     device="cpu")
 
@@ -134,10 +157,25 @@ def test_lm_loss_matches_reference(s, vocab, real):
 
 # ------------------------------------------------------------ train_loss
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_loss_and_grads_match_reference(arch):
-    jcfg, cfg, jparams, params = _pair(arch)
-    batch = _batch(cfg)
+#: beyond every arch at ``s = 16``: mixtral where its window bites
+#: (``window=8`` at 24 tokens), and the SSD scan over two 256-row chunks
+#: and a ragged tail, which the reference pads (mamba2, jamba at 600)
+#: and the reference's gradient finite, its ``dt_bias`` Mamba2's own
+#: (:func:`_mamba2_dt_bias`)
+LONGER = [pytest.param("mixtral-8x7b", {"window": 8}, 24,
+                       id="mixtral-8x7b-window8-s24"),
+          pytest.param("mamba2-1.3b", {"mamba2_dt": True}, 600,
+                       id="mamba2-1.3b-s600"),
+          pytest.param("jamba-1.5-large-398b", {"mamba2_dt": True}, 600,
+                       id="jamba-1.5-large-398b-s600")]
+
+
+@pytest.mark.parametrize(
+    "arch,overrides,s",
+    [pytest.param(a, {}, 16, id=a) for a in ARCHS] + LONGER)
+def test_train_loss_and_grads_match_reference(arch, overrides, s):
+    jcfg, cfg, jparams, params = _pair(arch, **overrides)
+    batch = _batch(cfg, s=s)
     ref, ref_grads = jax.jit(jax.value_and_grad(jax_build(jcfg).train_loss))(
         jparams, _jax(batch))
     loss, grads = steps.value_and_grad(build(cfg), params, _port(batch))
@@ -170,8 +208,8 @@ def test_remat_on_and_off_give_equal_gradients(arch, policy):
 
 # ---------------------------------------------------------------- steps
 
-def test_three_train_steps_match_reference():
-    arch = "minitron-4b"
+@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x7b"])
+def test_three_train_steps_match_reference(arch):
     jcfg = jax_reduced(jax_get_config(arch))
     cfg = reduced(get_config(arch))
     japi = jax_build(jcfg)
