@@ -155,6 +155,20 @@
     ``CARD_TOL``, in f32 decode against prefill; encode, prefill and
     step times; K4 alone at whisper's encoder, cross-prefill and
     cross-decode shapes;
+  * ``lm_serve_dense``, ``lm_serve_mqa``, ``lm_serve_dbrx``,
+    ``lm_serve_vlm`` (each with its ``_f32`` row): deepseek-7b and
+    minitron-4b at full size, granite-34b (48 query heads on one kv
+    head) at 60 of its 88 layers, dbrx-132b (16 experts, top-4,
+    capacity factor 1.25) at 9 of its 40 blocks and llava-next-34b at
+    full size (text only) in bf16 through ``BatchedServer`` as
+    ``lm_serve`` serves phi3, the logits gated at :func:`lm_bf16_tol`
+    (2e-2, 3e-2 at 60 layers), dbrx under the served routing with its
+    dropped pairs and flips; each config at 4 layers (dbrx 2 blocks) in
+    f32; then llava's vision path (``lm_serve_vlm_prefix``): a prefill
+    of 2 x 2944 tokens whose first 2880 positions are prefix embeddings
+    and 16 decode steps at about 2.9k keys, each held to its plain
+    replay and every K4 call to ``CARD_TOL``, the prefill without its
+    prefix failing the gate;
   * ``lm_train``: minitron-4b at full width and 24 of its 32 blocks,
     bf16 on f32 masters, trained through ``launch/train.py``'s
     ``make_trainer`` step in a plain loop at the reference driver's
@@ -2045,19 +2059,42 @@ def check_matmul_layouts(gen) -> None:
             require(row["worst_over_tol"] <= 1.0, f"{where}: {row}")
 
 
-def plain_attention(q, k, v, *, window: int, causal: bool,
-                    max_bytes: int = 4 << 30) -> torch.Tensor:
+def plain_budget() -> int:
+    """The f32 scores :func:`plain_attention` holds at once: 4 GiB, or
+    an eighth of the card's free memory (with what the caching allocator
+    holds unused) where that is less.  The plain version holds its
+    scores about three times over; beside llava's 68.8 GB of weights
+    the card has some 15 GB left."""
+    free, _ = torch.cuda.mem_get_info()
+    unused = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    return min(4 << 30, (free + unused) // 8)
+
+
+def plain_attention(q, k, v, *, window: int, causal: bool
+                    ) -> torch.Tensor:
     """The plain version on (B, S, H, hd) tensors, run kv head group by
-    kv head group so that no group's f32 scores exceed ``max_bytes``."""
+    kv head group so that no call's f32 scores exceed
+    :func:`plain_budget`; a group whose own scores exceed it (granite's
+    48 query heads on one kv head) a part of its query heads a call."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
     qf, kf, vf = (heads_first(t) for t in (q, k, v))
-    step = max(1, max_bytes // (4 * g * sq * skv))
-    outs = [attention_plain(qf[i * g:(i + step) * g], kf[i:i + step],
-                            vf[i:i + step], groups=g, window=window,
-                            causal=causal)
-            for i in range(0, b * kv, step)]
+    max_bytes = plain_budget()
+    per_head = 4 * sq * skv
+    if g * per_head <= max_bytes:
+        step = max_bytes // (g * per_head)
+        outs = [attention_plain(qf[i * g:(i + step) * g], kf[i:i + step],
+                                vf[i:i + step], groups=g, window=window,
+                                causal=causal)
+                for i in range(0, b * kv, step)]
+    else:
+        part = max(1, max_bytes // per_head)
+        outs = [attention_plain(qf[i * g + j:i * g + min(j + part, g)],
+                                kf[i:i + 1], vf[i:i + 1],
+                                groups=min(j + part, g) - j, window=window,
+                                causal=causal)
+                for i in range(b * kv) for j in range(0, g, part)]
     return torch.cat(outs).reshape(b, h, sq, hd).transpose(1, 2)
 
 
@@ -2089,14 +2126,20 @@ ATTN_LONG = [
     (1, 2048, 2048, 4, 2, 128, 0, False),
     (1, 2048, 2048, 2, 2, 64, 0, False),
 ]
+#: llava-next-34b's decode shape: 56 query heads over 8 kv heads, a
+#: group of 7, which is not a power of two
+ATTN_LLAVA_DECODE = (4, 1, 128, 56, 8, 128, 0, False)
 #: the LM path's decode shapes (phi3-medium-14b at batch 4: one query
-#: row against 1, 37 and 128 kept cache slots, no causal mask; and
-#: mixtral-8x7b's: 32 heads over 8 kv heads against 128 slots)
+#: row against 1, 37 and 128 kept cache slots, no causal mask;
+#: mixtral-8x7b's: 32 heads over 8 kv heads against 128 slots;
+#: granite-34b's: 48 query heads on one kv head; and llava's)
 ATTN_DECODE = [
     (4, 1, 1, 40, 10, 128, 0, False),
     (4, 1, 37, 40, 10, 128, 0, False),
     (4, 1, 128, 40, 10, 128, 0, False),
     (4, 1, 128, 32, 8, 128, 0, False),
+    (4, 1, 128, 48, 1, 128, 0, False),
+    ATTN_LLAVA_DECODE,
 ]
 #: whisper-medium's encoder (1500 frames, non-causal) and
 #: cross-attention decode shapes: 1500 is a multiple of no K4 tile, so
@@ -2225,7 +2268,9 @@ def phase_check_attention() -> dict:
     bf16 once per key tile (sm90; it must fail on the long cases); at
     whisper's shapes, the plain attention with the reference's zero pad
     keys (1500 keys padded to two 1024-key chunks) against K4's output
-    (it must fail: K4 attends over the real keys only).
+    (it must fail: K4 attends over the real keys only); at llava's
+    decode shape, the plain attention with each query head reading the
+    next group's kv head against K4's output (it must fail).
     Returns the launches by route."""
     gen = torch.Generator().manual_seed(SEED + 4)
     by_route = dict.fromkeys(K4.ROUTES, 0)
@@ -2257,6 +2302,12 @@ def phase_check_attention() -> dict:
                 row["control_drop"] = control(
                     "last visited key tile dropped",
                     _fault(q, k, v, fault="drop", **kw), plain, dtype)
+                if case == ATTN_LLAVA_DECODE:
+                    row["control_kv_head"] = control(
+                        f"query head h reading kv head (h // {h // kv} + 1)"
+                        f" % {kv}", plain_attention(
+                            q, torch.roll(k, -1, 2), torch.roll(v, -1, 2),
+                            **kw), out, dtype)
                 if case in ATTN_ENCDEC:
                     row["control_pad_keys"] = control(
                         f"{-skv % ATTN_PAD_CHUNK} zero pad keys in the "
@@ -2724,6 +2775,8 @@ LM_REQUESTS, LM_SLOTS, LM_GEN, LM_MAX_SEQ, LM_PROMPT = 6, 4, 16, 128, 8
 #: layers of bf16 activations downstream of two attentions that round
 #: their outputs in other orders
 LM_BF16_TOL = 2e-2
+#: the depth up to which :data:`LM_BF16_TOL` holds as it is
+LM_BF16_DEPTH = 40
 #: the per-layer check's prefill length (batch 1)
 LM_PREFILL_S = 4096
 #: the f32 run: phi3 at full width cut to 4 layers; the window of its
@@ -2767,6 +2820,20 @@ def counted(into: dict):
         into["attention_lse"] = dict(K4.attention.lse_launches_by_route)
         K4.attention.lse_launches_by_route = {
             r: n + lse[r] for r, n in into["attention_lse"].items()}
+
+
+def lm_bf16_tol(cfg) -> float:
+    """The served bf16 logits' gate of ``cfg``, relative to max |plain|:
+    :data:`LM_BF16_TOL` up to :data:`LM_BF16_DEPTH` attention layers,
+    and linear in the layer count past them.  The replay's error grows
+    with depth: on an H100, phi3's 40 layers read 1.9475e-2 against
+    2e-2 and mixtral's 20 blocks 1.4996e-2, a ratio of 1.30 for twice
+    the depth, close to the sqrt(2) of per-layer errors adding at
+    random; linear is the worst case, errors that add.  So llava's and
+    granite's 60 layers are gated at 3e-2 and every config of 40 layers
+    or fewer at 2e-2, as before.  A function of the config's layer
+    count only, never of a reading; every control must still fail it."""
+    return LM_BF16_TOL * max(1.0, attention_layers(cfg) / LM_BF16_DEPTH)
 
 
 def k4_only(counts: dict, route: str, n: int) -> bool:
@@ -3136,7 +3203,7 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
     else of K1-K4, no plain attention runs (each raises); each step
     replayed from a clone of its caches (:func:`replay_plain`, with
     experts under the served routing): every K4 call within the bf16
-    ``CARD_TOL``, the logits within :data:`LM_BF16_TOL` of max |plain|
+    ``CARD_TOL``, the logits within :func:`lm_bf16_tol` of max |plain|
     of the plain attention's, and the control (the gather without the
     newest slot) failing that gate; every layer's K4 output on
     one ``length``-token prefill and one decode step after it within
@@ -3163,7 +3230,8 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
             f"{phase} launches {counts}")
     api, params = server.api, server.params
     extra = {}
-    teacher = replay_plain(api, params, steps, LM_BF16_TOL, phase, routing)
+    tol = lm_bf16_tol(cfg)
+    teacher = replay_plain(api, params, steps, tol, phase, routing)
     if routing:
         cap = MOE.bin_capacity(LM_SLOTS, cfg.top_k, cfg.n_experts,
                                cfg.capacity_factor)
@@ -3174,8 +3242,7 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
                  "decode_capacity": cap, "dropped_pairs_per_step": dropped,
                  "dropped_pairs": sum(dropped),
                  "block_weights_gb": _nbytes(params["blocks"]) / 1e9}
-    controls = control_drop_newest(api, params, steps, LM_BF16_TOL,
-                                   routing)
+    controls = control_drop_newest(api, params, steps, tol, routing)
     timing = profile_decode_step(api, params, steps)
     generated = sum(len(r.out) for r in reqs)
     del steps, routing
@@ -3201,6 +3268,7 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
     row = {"phase": phase, "config": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
            "dtype": str(cfg.compute_dtype), "requests": len(reqs),
            "completed": sum(r.done for r in reqs), "slots": LM_SLOTS,
            "gen": LM_GEN, "max_seq": LM_MAX_SEQ, "steps": len(secs),
@@ -3273,8 +3341,8 @@ def no_drops(cfg):
 
 
 def lm_f32(card: str, flush, gen, arch: str = LM_ARCH,
-           phase: str = "lm_serve_f32") -> dict:
-    """``arch`` at full width cut to 4 layers, f32 compute (K4 on
+           phase: str = "lm_serve_f32", layers: int = LM_F32_LAYERS) -> dict:
+    """``arch`` at full width cut to ``layers`` (4), f32 compute (K4 on
     ``sm90_tf32``): served through ``BatchedServer`` as the bf16 run is,
     4 K4 launches a step, every step's logits within ``TOL`` of the
     plain replay (under the served routing, where there are experts)
@@ -3284,7 +3352,8 @@ def lm_f32(card: str, flush, gen, arch: str = LM_ARCH,
     ``window`` 64, a 60-token prefill and 8 decode steps across the
     ring's wrap, each within ``TOL`` of its plain replay and the last of
     a 68-token prefill (these two with :func:`no_drops`)."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=LM_F32_LAYERS,
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               compute_dtype=torch.float32)
     server = BatchedServer(cfg, slots=LM_SLOTS, max_seq=LM_MAX_SEQ,
                            device="cuda", seed=SEED)
@@ -3349,7 +3418,7 @@ def lm_f32(card: str, flush, gen, arch: str = LM_ARCH,
           "ring": {"window": LM_WINDOW, "positions": [start, LM_WINDOW + 3],
                    "err_over_max_plain": max(ring),
                    "last_vs_prefill": wrap_vs_prefill, "gate": TOL},
-          "card": card})
+          "seconds": time.perf_counter() - t0, "card": card})
     return {"launches": counts, "rows": rows}
 
 
@@ -3891,6 +3960,229 @@ def phase_lm_serve_encdec(card: str, flush) -> dict:
     return {"bf16": _merged(counts, audio_bf16["launches"]),
             "f32": audio_f32["launches"], "rows": rows,
             "step_ms_median": step_ms}
+
+
+# --------------------------------------------------------------------------
+# lm_serve_dense, lm_serve_mqa, lm_serve_dbrx, lm_serve_vlm: the decoder
+# configs beyond phi3 and mixtral through BatchedServer
+# --------------------------------------------------------------------------
+
+DENSE_ARCHS = ("deepseek-7b", "minitron-4b")
+MQA_ARCH, DBRX_ARCH, VLM_ARCH = "granite-34b", "dbrx-132b", "llava-next-34b"
+#: the depth served where 80 GB forces a cut: granite's 88 layers hold
+#: 93.3 GB of bf16 blocks, 60 of them 63.6 GB; dbrx's 40 blocks 260.7
+#: GB, 9 of them 58.7 GB (llava's 60 layers, 66.9 GB, are served whole)
+MQA_LAYERS, DBRX_LAYERS = 60, 9
+#: dbrx's f32 row: 2 blocks (4 f32 blocks are 52 GB)
+DBRX_F32_LAYERS = 2
+#: llava's vision-prefix path: a batch of 2, its first ``frontend_len``
+#: (2880) positions prefix embeddings drawn as the reference's tests
+#: draw them (normal x 0.02), 64 text tokens after them, then 16 greedy
+#: decode steps (max_seq 2960)
+VLM_BATCH, VLM_TEXT, VLM_STEPS, VLM_PREFIX_SCALE = 2, 64, 16, 0.02
+
+
+def depth_fields(cfg) -> dict:
+    """The served depth beside the published one, ``reduced`` where
+    it is cut, and the blocks' reckoning (:func:`block_reckoning`)."""
+    full = get_config(cfg.name).n_layers
+    cut = None if cfg.n_layers == full else \
+        f"depth: {cfg.n_layers} of {full} " \
+        f"{'blocks' if cfg.n_experts else 'layers'}"
+    return {"full_depth_layers": full, "reduced": cut,
+            "reckoning": block_reckoning(cfg)}
+
+
+def serve_config(card: str, flush, gen, cfg, phase: str,
+                 f32_layers: int = LM_F32_LAYERS) -> dict:
+    """``cfg`` in bf16 through :func:`serve_bf16` (the per-layer check on
+    a :data:`LM_PREFILL_S`-token prefill), its row with its depth
+    (:func:`depth_fields`) and seconds, then ``f32_layers`` of it in f32
+    (:func:`lm_f32`, phase ``<phase>_f32``)."""
+    t0 = time.perf_counter()
+    row, counts, k4_rows = serve_bf16(card, flush, gen, cfg, phase,
+                                      LM_PREFILL_S)
+    row.update(depth_fields(cfg), seconds=time.perf_counter() - t0)
+    emit(row)
+    f32 = lm_f32(card, flush, gen, cfg.name, f"{phase}_f32", f32_layers)
+    return {"bf16": counts, "f32": f32["launches"], "rows": k4_rows,
+            "f32_rows": f32["rows"]}
+
+
+def _served(*runs: dict) -> dict:
+    """Several :func:`serve_config` runs as one phase's launches and K4
+    rows (each row's ``what`` prefixed by its config)."""
+    def named(rows):
+        return [dict(r, what=f"{r['config']} {r['what']}") for r in rows]
+    return {"bf16": _merged(*(r["bf16"] for r in runs)),
+            "f32": _merged(*(r["f32"] for r in runs)),
+            "rows": [r for run in runs for r in named(run["rows"])],
+            "f32_rows": [r for run in runs for r in named(run["f32_rows"])]}
+
+
+def phase_lm_serve_dense(card: str, flush) -> dict:
+    """deepseek-7b (30 layers, 32 heads on 32 kv heads: a group of 1)
+    and minitron-4b (32 layers, 24 heads over 8, vocab 256000) at full
+    size in bf16, each through :func:`serve_config`: one K4 ``sm90``
+    launch a layer a step, the served logits within
+    :func:`lm_bf16_tol` (2e-2) of the plain replay, every K4 call within
+    ``CARD_TOL``, the gather control failing the gate, the per-layer
+    check on a 4096-token prefill; then 4 layers of each in f32."""
+    gen = torch.Generator().manual_seed(SEED + 61)
+    return _served(*(serve_config(card, flush, gen, get_config(a),
+                                  "lm_serve_dense") for a in DENSE_ARCHS))
+
+
+def phase_lm_serve_mqa(card: str, flush) -> dict:
+    """granite-34b at full width (48 query heads on one kv head: a group
+    of 48) and 60 of its 88 layers in bf16 through :func:`serve_config`
+    (gate 3e-2 at 60 layers), K4 alone at its decode shape (4 x 48 heads
+    over 1, 128 keys) and its 4096-token prefill beside SDPA
+    (``enable_gqa``) and the bound; then 4 layers in f32."""
+    gen = torch.Generator().manual_seed(SEED + 62)
+    cfg = dataclasses.replace(get_config(MQA_ARCH), n_layers=MQA_LAYERS)
+    return _served(serve_config(card, flush, gen, cfg, "lm_serve_mqa"))
+
+
+def phase_lm_serve_dbrx(card: str, flush) -> dict:
+    """dbrx-132b at full width (16 experts of d_ff 10752, top-4,
+    capacity factor 1.25; 48 heads over 8) and 9 of its 40 blocks in
+    bf16 through :func:`serve_config`, each step replayed under the
+    served routing (the replay's flips counted), the pairs the 2-row
+    decode bins dropped per step, the per-layer check on a 4096-token
+    prefill (16384 pairs into 1280-row bins); then 2 blocks in f32."""
+    gen = torch.Generator().manual_seed(SEED + 63)
+    cfg = dataclasses.replace(get_config(DBRX_ARCH), n_layers=DBRX_LAYERS)
+    return _served(serve_config(card, flush, gen, cfg, "lm_serve_dbrx",
+                                DBRX_F32_LAYERS))
+
+
+def vlm_prefix(card: str, flush, gen, cfg) -> dict:
+    """llava's vision path at full size through the model's own API, on
+    the weights the server drew (the same seed): ``prefill`` of
+    :data:`VLM_BATCH` x (2880 + 64) tokens whose first 2880 positions
+    are prefix embeddings (one K4 ``sm90`` launch a layer and nothing
+    else of K1-K4, no plain attention), then :data:`VLM_STEPS` greedy
+    ``decode_step``s from its caches at max_seq 2960 (one a layer a
+    step), each step replayed right after it is served from a clone of
+    its caches (:func:`replay_plain`: one clone of 1.45 GB lives at a
+    time).  The prefill's last-token logits and every step's within
+    :func:`lm_bf16_tol` of max |plain| of the plain replay
+    (``attn="plain"``), every K4 call of the prefill and of each step
+    within ``CARD_TOL`` on its own inputs, each repeating bit for bit;
+    the control, the same prefill without its prefix, must move the
+    logits past the gate.  Prefill and step times; K4 alone at the
+    prefix prefill's and the last step's shapes."""
+    dtype, tol = cfg.compute_dtype, lm_bf16_tol(cfg)
+    s = cfg.frontend_len + VLM_TEXT
+    max_seq = s + VLM_STEPS
+    api = build_lm(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED),
+                      cast_blocks=True)
+    toks = torch.randint(0, cfg.vocab, (VLM_BATCH, s), generator=gen).cuda()
+    prefix = _randn(gen, VLM_BATCH, cfg.frontend_len, cfg.d_model,
+                    scale=VLM_PREFIX_SCALE)
+    batch = {"tokens": toks, "prefix_embeds": prefix}
+    prefill_counts = {}
+    with counted(prefill_counts), no_plain_attention():
+        logits, caches = api.prefill(params, batch, max_seq=max_seq)
+        torch.cuda.synchronize()
+    require(k4_only(prefill_counts, "sm90", cfg.n_layers),
+            f"lm_serve_vlm prefix prefill launches {prefill_counts}")
+    per_call = []
+    again, _ = api.prefill(params, batch, max_seq=max_seq,
+                           tap=k4_against_plain(dtype, per_call))
+    require(torch.equal(again, logits),
+            "lm_serve_vlm: the prefix prefill did not repeat")
+    require(len(per_call) == cfg.n_layers and max(per_call) <= 1.0,
+            f"lm_serve_vlm prefix prefill: K4 calls against the plain "
+            f"version, worst {max(per_call)} of CARD_TOL over "
+            f"{len(per_call)} calls")
+    del again, _
+    plain, _ = api.prefill(params, batch, max_seq=max_seq, attn="plain")
+    del _
+    prefill_err = _rel(logits, plain, cfg.vocab)
+    expect(prefill_err <= tol, f"lm_serve_vlm prefix prefill: logits err "
+                               f"{prefill_err} of max |plain| > {tol}")
+    bare, _ = api.prefill(params, {"tokens": toks}, max_seq=max_seq)
+    del _
+    control_err = _rel(bare, plain, cfg.vocab)
+    require(control_err > tol, f"lm_serve_vlm control: the prefill without "
+                               f"its prefix passes, {control_err}")
+    del bare, plain
+    prefill_ms = _median_ms(lambda: api.prefill(params, batch,
+                                                max_seq=max_seq))
+    decode_counts, teacher, secs = [], [], []
+    tok = logits[..., :cfg.vocab].argmax(-1).reshape(VLM_BATCH, 1)
+    for pos in range(s, max_seq):
+        before = clone_caches(caches)
+        counts = {}
+        with counted(counts), no_plain_attention():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = api.decode_step(params, caches, tok, pos)
+            nxt = logits[..., :cfg.vocab].argmax(-1).reshape(VLM_BATCH, 1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        require(k4_only(counts, "sm90", cfg.n_layers),
+                f"lm_serve_vlm decode at pos {pos}: launches {counts}")
+        decode_counts.append(counts)
+        teacher.append(replay_plain(api, params, [(before, tok, pos, logits)],
+                                    tol, "lm_serve_vlm decode"))
+        del before
+        tok = nxt
+    del caches, params, api
+    _free()
+    k4_rows = k4_lm_rows(cfg, dtype, gen, flush, card, (
+        ("prefix_prefill", VLM_BATCH, s, s, True, 0),
+        ("prefix_decode", VLM_BATCH, 1, max_seq, False, 0)))
+    errs = [t["max_err_over_max_plain"] for t in teacher]
+    return {"launches": _merged(prefill_counts, *decode_counts),
+            "rows": k4_rows,
+            "row": {"batch": VLM_BATCH, "prefix": cfg.frontend_len,
+                    "text_tokens": VLM_TEXT, "prefill_tokens": s,
+                    "max_seq": max_seq, "decode_keys": [s + 1, max_seq],
+                    "k4_sm90_per_prefill": cfg.n_layers,
+                    "k4_sm90_per_step": cfg.n_layers, "gate": tol,
+                    "prefill_err_over_max_plain": prefill_err,
+                    "prefill_per_call_worst_over_card_tol": max(per_call),
+                    "control_no_prefix": {
+                        "what": "the prefill without its prefix embeddings",
+                        "err_over_max_plain": control_err, "gate": tol},
+                    "decode_max_err_over_max_plain": max(errs),
+                    "decode_err_over_max_plain_by_step": errs,
+                    "decode_per_call_worst_over_card_tol": max(
+                        t["per_call_worst_over_card_tol"] for t in teacher),
+                    "decode_steps_greedy_equal": sum(
+                        t["steps_greedy_equal"] for t in teacher),
+                    "steps": len(secs),
+                    "prefill_ms_median": prefill_ms,
+                    "step_ms_median": _median(secs) * 1e3,
+                    "step_ms_min": min(secs) * 1e3,
+                    "step_ms_max": max(secs) * 1e3}}
+
+
+def phase_lm_serve_vlm(card: str, flush) -> dict:
+    """llava-next-34b at full size (60 layers, 56 heads over 8: a group
+    of 7, vocab 64000) in bf16: text only through :func:`serve_config`,
+    as the reference's server serves the VLM (gate 3e-2 at 60 layers),
+    4 layers in f32; then its vision-prefix path (:func:`vlm_prefix`,
+    row ``lm_serve_vlm_prefix``)."""
+    gen = torch.Generator().manual_seed(SEED + 64)
+    cfg = get_config(VLM_ARCH)
+    run = serve_config(card, flush, gen, cfg, "lm_serve_vlm")
+    t0 = time.perf_counter()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    prefix = vlm_prefix(card, flush, gen, cfg)
+    emit({"phase": "lm_serve_vlm_prefix", "config": cfg.name,
+          "layers": cfg.n_layers, "dtype": str(cfg.compute_dtype),
+          "launches": prefix["launches"], **prefix["row"],
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "seconds": time.perf_counter() - t0, "card": card})
+    run["bf16"] = _merged(run["bf16"], prefix["launches"])
+    run["rows"] = run["rows"] + prefix["rows"]
+    return _served(run)
 
 
 # --------------------------------------------------------------------------
@@ -7041,6 +7333,10 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     ssm = phase_lm_serve_ssm(card)
     hybrid = phase_lm_serve_hybrid(card)
     encdec = phase_lm_serve_encdec(card, lm_flush)
+    dense = phase_lm_serve_dense(card, lm_flush)
+    mqa = phase_lm_serve_mqa(card, lm_flush)
+    dbrx = phase_lm_serve_dbrx(card, lm_flush)
+    vlm = phase_lm_serve_vlm(card, lm_flush)
     del lm_flush
     train = phase_lm_train(card)
     train_f32 = phase_lm_train_f32(card)
@@ -7498,11 +7794,15 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     moe_rows = {(r["dtype"], r["what"]): r
                 for r in moe["rows"] + moe["f32_rows"]}
     encdec_rows = {(r["dtype"], r["what"]): r for r in encdec["rows"]}
+    #: the configs beyond phi3 and mixtral: each phase's rows
+    new_serve = {"lm_serve_dense": dense, "lm_serve_mqa": mqa,
+                 "lm_serve_dbrx": dbrx, "lm_serve_vlm": vlm}
     #: each LM phase's launch counts, by part
     lm_runs = {"launches_lm_serve": lm, "launches_lm_serve_moe": moe,
                "launches_lm_serve_ssm": ssm,
                "launches_lm_serve_hybrid": hybrid,
                "launches_lm_serve_encdec": encdec,
+               **{f"launches_{k}": run for k, run in new_serve.items()},
                "launches_lm_train": lm_train,
                "launches_lm_train_moe": train_moe,
                "launches_lm_train_ssm": train_ssm,
@@ -7547,6 +7847,11 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
             and by_name["attention_sm90_tf32"]["launches_lm_serve_encdec"] > 0
             and by_name["attention"]["launches_lm_serve_encdec"] == 0,
             "lm_serve_encdec: K4's launches by route")
+    for key in new_serve:
+        require(by_name["attention_sm90"][f"launches_{key}"] > 0
+                and by_name["attention_sm90_tf32"][f"launches_{key}"] > 0
+                and by_name["attention"][f"launches_{key}"] == 0,
+                f"{key}: K4's launches by route")
     require(by_name["attention_sm90"]["launches_lm_train"] > 0
             and by_name["attention_sm90_tf32"]["launches_lm_train"] > 0
             and by_name["attention"]["launches_lm_train"] == 0,
@@ -7601,7 +7906,10 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
             "ms", "ms_lse", "device_ms", "device_ms_lse", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "shape")}
     for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows),
-                      ("lm_serve_encdec", encdec_rows)):
+                      ("lm_serve_encdec", encdec_rows),
+                      *((key, {(r["dtype"], r["what"]): r
+                               for r in run["rows"] + run["f32_rows"]})
+                        for key, run in new_serve.items())):
         for name, dtype in (("attention_sm90", "torch.bfloat16"),
                             ("attention_sm90_tf32", "torch.float32")):
             by_name[name][key] = {

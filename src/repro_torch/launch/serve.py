@@ -44,8 +44,15 @@ depth holds 92.9 GB of bf16 blocks and one jamba-1.5-large-398b block
 full width and 20 of its 32 blocks), so both run here ``--reduced``.
 whisper-medium holds 2.02 GB in bf16 (24 encoder blocks 0.81 GB, 24
 decoder blocks 1.01 GB, the f32 embedding 0.21 GB) and its 4 slots'
-cross K/V 0.59 GB: it serves at full size.  The default arch stays
-phi3-medium-14b.
+cross K/V 0.59 GB: it serves at full size.  So do deepseek-7b (13.8 GB:
+12.1 GB of bf16 blocks and its 1.68 GB f32 embedding), minitron-4b
+(10.2 GB, 3.15 GB of it the 256000-row embedding) and llava-next-34b
+(68.8 GB, text only; the chip smoke's serving peak on an H100 80GB
+HBM3 was 74.0 GB).
+granite-34b at full depth holds 93.3 GB of bf16 blocks and dbrx-132b
+260.7 GB: the chip smoke serves granite at 60 of its 88 layers (64.8
+GB) and dbrx at 9 of its 40 blocks (61.1 GB), and this CLI runs both
+``--reduced``.  The default arch stays phi3-medium-14b.
 
   # phi3-medium-14b at full size on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi3-medium-14b
@@ -55,7 +62,8 @@ phi3-medium-14b.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
       --reduced --device cpu
 
-  # whisper-medium at full size on the card:
+  # whisper-medium at full size on the card (deepseek-7b, minitron-4b and
+  # llava-next-34b likewise):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
   # on the (1, world) host mesh, one card a rank (NCCL), under torchrun:

@@ -322,6 +322,41 @@ def test_vlm_prefix_changes_output():
     assert np.abs(l1.numpy() - l2.numpy()).max() > 1e-6
 
 
+def test_vlm_prefix_prefill_then_decode_chain_matches_reference():
+    """llava's vision path as the chip smoke drives it at full size: a
+    prefill whose first ``frontend_len`` (8) positions are prefix
+    embeddings, then 4 ``decode_step``s from its caches, each step's
+    logits over the real vocabulary within 1e-5 of max |ref| of the
+    reference's ``prefill``/``decode_step`` on the same weights and
+    inputs, the caches after the chain likewise.  The control: the
+    port's prefill with the prefix left out misses the gate."""
+    jcfg, cfg, jparams, params = _pair("llava-next-34b")
+    b, s, extra = 2, 16, 4
+    batch = _batch(cfg, b, s)
+    japi, api = jax_build(jcfg), build(cfg)
+    ref, ref_caches = japi.prefill(jparams, _jax_batch(batch),
+                                   max_seq=s + extra)
+    logits, caches = api.prefill(params, _port_batch(batch),
+                                 max_seq=s + extra)
+    _within(logits[..., :cfg.vocab], np.asarray(ref)[..., :cfg.vocab], 1e-5)
+    bare, _ = api.prefill(params, {"tokens": _port_batch(batch)["tokens"]},
+                          max_seq=s + extra)
+    real = np.asarray(ref)[..., :cfg.vocab]
+    assert np.abs(bare.numpy()[..., :cfg.vocab] - real).max() \
+        > 1e-5 * np.abs(real).max()
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (extra, b, 1)
+                                             ).astype(np.int32)
+    for i, tok in enumerate(toks):
+        ref, ref_caches = japi.decode_step(jparams, ref_caches,
+                                           jnp.asarray(tok),
+                                           jnp.asarray(s + i, jnp.int32))
+        logits, caches = api.decode_step(params, caches,
+                                         torch.from_numpy(tok), s + i)
+        _within(logits[..., :cfg.vocab], np.asarray(ref)[..., :cfg.vocab],
+                1e-5)
+    _caches_within(caches, ref_caches, 1e-5)
+
+
 def test_configs_match_reference():
     assert ARCHS == JAX_ARCHS
     for arch in ARCHS:

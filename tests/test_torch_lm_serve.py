@@ -18,7 +18,10 @@ equal, every request
 completes and freed slots are reused.  The same for reduced mixtral
 (capacity factor 8.0, as the reference's ``main --reduced``), mamba2
 and jamba: a reused slot's SSM state and conv tail carry over from its
-previous request on both sides, as its KV entries do; and whisper-medium
+previous request on both sides, as its KV entries do; deepseek-7b (kept
+MHA), minitron-4b, llava-next-34b (text only), granite-34b at its 48:1
+grouping and dbrx-132b at 16 experts and top-4 (capacity factor 8.0,
+and 1.25, where decode steps drop pairs); and whisper-medium
 (decode only, its cross-attention over the cache's zero slots).  Then
 the CLI on the CPU, also with ``--arch mixtral-8x7b`` and ``--arch
 whisper-medium``.
@@ -40,6 +43,7 @@ from repro.models.api import build as jax_build
 from repro_torch.configs import get_config, reduced
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.models import moe as moe_mod
 
 REPO = Path(__file__).resolve().parent.parent
 SCENARIO = dict(d_model=32, vocab=64, n_layers=1, attn_chunk=32)
@@ -94,10 +98,48 @@ def test_serve_encdec_matches_the_reference_server():
     _serve_against_reference("whisper-medium")
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mamba2-1.3b",
-                                  "jamba-1.5-large-398b"])
-def test_serve_moe_ssm_hybrid_matches_the_reference_server(arch):
-    _serve_against_reference(arch, capacity_factor=8.0)
+#: each case's arch and its overrides of ``SCENARIO`` on both sides:
+#: capacity factor 8.0 (the reference's ``main --reduced``) unless the
+#: case sets its own; deepseek kept MHA (``reduced`` would give it 4
+#: heads over 2), granite at its real 48:1 grouping, dbrx at its 16
+#: experts and top-4, also at its published capacity factor 1.25, where a
+#: decode step's 2 tokens route 8 pairs into bins of 1 row and pairs drop
+SERVE_CASES = {
+    "mixtral-8x7b": ("mixtral-8x7b", {}),
+    "mamba2-1.3b": ("mamba2-1.3b", {}),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b", {}),
+    "deepseek-7b": ("deepseek-7b", dict(n_kv_heads=4)),
+    "minitron-4b": ("minitron-4b", {}),
+    "llava-next-34b": ("llava-next-34b", {}),
+    "granite-34b": ("granite-34b", dict(n_heads=48, n_kv_heads=1,
+                                        head_dim=8)),
+    "dbrx-132b": ("dbrx-132b", dict(n_experts=16, top_k=4)),
+    "dbrx-132b-cf1.25": ("dbrx-132b", dict(n_experts=16, top_k=4,
+                                           capacity_factor=1.25)),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVE_CASES))
+def test_serve_moe_ssm_hybrid_matches_the_reference_server(case,
+                                                           monkeypatch):
+    """The MoE, SSM and hybrid archs, and the dense and VLM configs
+    beyond phi3 (llava text only, as both servers serve it).  At dbrx's
+    published capacity factor the port's decode steps must have dropped
+    pairs, or that case would not test the drops."""
+    arch, overrides = SERVE_CASES[case]
+    dropped = []
+    dispatch = moe_mod.moe_dispatch_local
+
+    def counting(x, gates, idx, n_experts, capacity):
+        bins, slot = dispatch(x, gates, idx, n_experts, capacity)
+        dropped.append(int((slot == n_experts * capacity).sum()))
+        return bins, slot
+    monkeypatch.setattr(moe_mod, "moe_dispatch_local", counting)
+    _serve_against_reference(arch, **{"capacity_factor": 8.0, **overrides})
+    if overrides.get("capacity_factor", 8.0) < 8.0:
+        assert sum(dropped) > 0
+    else:
+        assert not any(dropped)
 
 
 def _serve_against_reference(arch, **overrides):
