@@ -177,12 +177,14 @@
     the plain version on its own inputs, and every gradient tensor
     within ``LM_TRAIN_GRAD_TOL`` of a plain replay's (``attn="plain"``),
     which a backward with its mask one key off and an attention with
-    no gradient must each miss; 48 K4 ``sm90`` launches a step (the
+    no gradient must each miss, and every ``attention_vjp`` call within
+    ``TOL`` of autograd in f32; 48 K4 ``sm90`` launches a step (the
     forward and the remat recompute) and nothing else of K1-K4, no
     plain attention; step 0's loss and global gradient norm within 2e-2
     relative of the replay; finite every step; params unchanged by
     step 0 (lr 0) and changed by step 1; a 1 x 4096 step twice, and its
-    K4 calls held as at step 0; step ms, tokens/s, peak memory, one
+    K4 calls held as at step 0 (:func:`long_step_gate`); step ms,
+    tokens/s, peak memory, one
     profiled step per shape (wall, device busy and idle share of that
     step, time by part: K4 forward, the attention backward, cuBLAS,
     AdamW) beside the step's FLOP and byte bounds;
@@ -193,9 +195,10 @@
     choices) against the plain replay: the loss within ``TOL``, every
     gradient tensor within ``GRAD_TOL`` of its max; the control, a
     backward whose causal mask keeps key q + 1, must miss that gate;
-    at mixtral each ``attention_vjp`` call's dq at the window's edge
-    within ``TOL`` of autograd, and a backward window one key wider
-    must miss both gates;
+    at mixtral each ``attention_vjp`` call within ``TOL`` of autograd,
+    and a backward window one key wider must miss both gates;
+    llava-next-34b at 2 layers over one batch of
+    its prefix path and granite-34b at 2 layers, 8 x 128, the same;
   * ``lm_train_resilient``: ``examples/train_100m.py``'s 75.5M-parameter
     config in bf16 (batch 8 x 256, peak lr 1e-3), 30 steps through
     ``run_resilient`` with an asynchronous checkpoint every 10, clean
@@ -210,10 +213,10 @@
     K4 call within ``CARD_TOL``, the two controls missing;
     ``value_and_grad`` repeated bit for bit; 4 K4 ``sm90`` launches a
     step; the pairs the 1.25 capacity dropped; a 1 x 8192 step twice,
-    where the window bites: each ``attention_vjp`` call's dq at the
-    window's edge within ``TOL`` of autograd, a backward window one key
-    wider missing that gate (its distance from the right gradients,
-    under the bf16 gate, printed);
+    where the window bites: each ``attention_vjp`` call within ``TOL``
+    of autograd, a backward window one key wider missing that gate
+    (its distance from the right gradients, under the bf16 gate,
+    printed);
   * ``lm_train_ssm``: mamba2-1.3b at full size in bf16, the same loop
     (finite, no launch of K1-K4), a 1 x 4096 step (16 SSD chunks), the
     bf16 loss beside an f32 replay's; then 2 layers at full width over
@@ -226,6 +229,23 @@
     one-key-off control missing), 20 steps at 2 K4 launches a step and
     a 1 x 1024 step across SSD chunks; each phase with step ms, tokens/s,
     peak memory, a profiled step by part and its bound;
+  * ``lm_train_vlm``, ``lm_train_mqa``, ``lm_train_dbrx``,
+    ``lm_train_dense``: the other decoder configs at full width, the
+    depth cut, trained as ``lm_train_moe`` is (step 0 against the plain
+    replay with its controls, ``2 x layers`` K4 ``sm90`` launches a
+    step, step ms, tokens/s, peak memory, a profiled step): llava-next-
+    34b at 5 of 60 layers through its vision prefix (2 x (2880 prefix
+    embeddings + 64 tokens), the loss over the text; the step without
+    its prefix and dk, dv summed into the wrong kv head must miss the
+    gradient gate, and the one-key-off backward, which moves a step's
+    gradients too little to miss it at 2944 keys, the gate of each
+    ``attention_vjp`` call against autograd; 10 steps); granite-34b at
+    5 of 88 (48 query heads on one kv head; dk, dv of one query head of
+    the group must miss; 20 steps of 8 x 128, then 1 x 4096 twice, the
+    long step's K4 calls held); dbrx-132b at 1 of 40 blocks
+    (16 experts, top-4, under the K4 forward's routing, its dropped
+    pairs; 20 steps); deepseek-7b at 14 of 30 and phi3-medium-14b at 8
+    of 40 (5 steps each);
   * ``lm_train_mesh``: ``lm_train``'s 20 steps again through
     ``make_trainer(cfg, mesh, ...)`` on a one-rank NCCL group's (1, 1)
     mesh (the sharded step: FSDP gathers, tensor-parallel boundaries,
@@ -4550,62 +4570,72 @@ def _replayed(routing):
     return routing.replay() if routing else contextlib.nullcontext()
 
 
-#: the query rows around the window's edge whose dq the edge tap holds
-#: (:func:`edge_tapped`): 64 before the first row the window bites, 192
-#: from it
-EDGE_ROWS = (64, 192)
-
-
-def _edge_dq(q, k, v, dout, *, window: int, rows: tuple) -> torch.Tensor:
-    """dq of the causal query rows ``rows`` under ``window``, in f32, by
-    autograd through a plain masked softmax attention of those rows
-    (keys ``rows[0] - window + 1 .. rows[1]``, query head i reading kv
-    head i // groups): independent of ``backward.py``."""
-    r0, r1 = rows
-    g = q.shape[2] // k.shape[2]
-    lo = max(0, r0 - window + 1)
-    with torch.enable_grad():
-        qp = q[:, r0:r1].float().requires_grad_(True)
-        kp = k[:, lo:r1].float().repeat_interleave(g, dim=2)
-        vp = v[:, lo:r1].float().repeat_interleave(g, dim=2)
-        s = torch.einsum("bqhd,bkhd->bhqk", qp, kp) / math.sqrt(q.shape[3])
-        qpos = torch.arange(r0, r1, device=q.device)[:, None]
-        kpos = torch.arange(lo, r1, device=q.device)[None, :]
-        keep = (kpos <= qpos) & (kpos > qpos - window)
-        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", p, vp)
-        (dq,) = torch.autograd.grad(out, qp, dout[:, r0:r1].float())
-    return dq
+def _vjp_ref(q, k, v, dout, *, window: int,
+             causal: bool) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) in f32 by autograd through a plain masked softmax
+    attention, one kv head's group of query heads at a time (keys at
+    positions from 0, as training calls it): independent of
+    ``backward.py``."""
+    sq, skv, kv = q.shape[1], k.shape[1], k.shape[2]
+    g = q.shape[2] // kv
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        keep &= kpos <= qpos
+    if window:
+        keep &= kpos > qpos - window
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for j in range(kv):
+        heads = slice(j * g, (j + 1) * g)
+        with torch.enable_grad():
+            qj = q[:, :, heads].float().requires_grad_(True)
+            kj = k[:, :, j].float().requires_grad_(True)
+            vj = v[:, :, j].float().requires_grad_(True)
+            sc = torch.einsum("bqgd,bkd->bgqk", qj, kj) / math.sqrt(
+                q.shape[3])
+            p = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+            out = torch.einsum("bgqk,bkd->bqgd", p, vj)
+            dq[:, :, heads], dk[:, :, j], dv[:, :, j] = torch.autograd.grad(
+                out, (qj, kj, vj), dout[:, :, heads].float())
+        del sc, p, out
+    return dq, dk, dv
 
 
 @contextlib.contextmanager
-def edge_tapped(into: list | None):
+def vjp_tapped(into: list | None):
     """``attention_vjp`` (whatever is installed when the block starts: a
-    control's too) with each call's dq at the window's edge held to
-    :func:`_edge_dq`: the call again on f32 copies of its inputs (it
-    works in f32, so the model's call must be that one rounded to the
-    input type, bit for bit), its rows :data:`EDGE_ROWS` about the
-    window within ``TOL`` of max |ref|; each call's worst err over that
-    gate appended to ``into``.  ``None``: nothing tapped."""
+    control's too) with each call held to :func:`_vjp_ref`: the call
+    again on f32 copies of its inputs (it works in f32, so the model's
+    call must be that one rounded to the input type, bit for bit), its
+    dq, dk and dv within ``TOL`` of max |ref|; each call's worst err
+    over that gate appended to ``into``.  The gradient gate compares a
+    whole step's tensors at :data:`LM_TRAIN_GRAD_TOL`; at thousands of
+    keys a backward with its mask one key off moves them by a few
+    percent only, and this gate sees it (and a window one key wider,
+    which touches only the rows past the window).  ``None``: nothing
+    tapped."""
     if into is None:
         yield
         return
     inner = K4_OPS.attention_vjp
 
     def run(q, k, v, dout, *, window=0, causal=True):
-        dq, dk, dv = inner(q, k, v, dout, window=window, causal=causal)
-        require(causal and 0 < window < q.shape[1] - EDGE_ROWS[1],
-                f"edge tap: window {window} over {q.shape[1]} queries")
+        got = inner(q, k, v, dout, window=window, causal=causal)
         with torch.no_grad():
-            dq32, _, _ = inner(q.float(), k.float(), v.float(),
-                               dout.float(), window=window, causal=causal)
-            require(torch.equal(dq, dq32.to(dq.dtype)),
-                    "edge tap: attention_vjp in f32 gave other bits")
-            rows = (window - EDGE_ROWS[0], window + EDGE_ROWS[1])
-            ref = _edge_dq(q, k, v, dout, window=window, rows=rows)
-            err = (dq32[:, rows[0]:rows[1]] - ref).abs().max()
-            into.append((err / (TOL * ref.abs().max())).item())
-        return dq, dk, dv
+            f32 = inner(q.float(), k.float(), v.float(), dout.float(),
+                        window=window, causal=causal)
+            require(all(torch.equal(a, b.to(a.dtype))
+                        for a, b in zip(got, f32)),
+                    "vjp tap: attention_vjp in f32 gave other bits")
+            ref = _vjp_ref(q, k, v, dout, window=window, causal=causal)
+            into.append(max(((a - r).abs().max()
+                             / (TOL * r.abs().max().clamp_min(1e-30))).item()
+                            for a, r in zip(f32, ref)))
+            del f32, ref
+        return got
     with patched((K4_OPS, "attention_vjp", run)):
         yield
 
@@ -4621,27 +4651,67 @@ def window_one_key_wider():
     return patched((K4_OPS, "attention_vjp", wider))
 
 
+def wrong_kv_head():
+    """The control: ``check_attention``'s kv-head control carried to the
+    backward, each kv head's dk and dv summed into the next kv head
+    (j into j + 1 mod KV)."""
+    inner = K4_OPS.attention_vjp
+
+    def rolled(q, k, v, dout, **kw):
+        dq, dk, dv = inner(q, k, v, dout, **kw)
+        return dq, torch.roll(dk, 1, 2), torch.roll(dv, 1, 2)
+    return patched((K4_OPS, "attention_vjp", rolled))
+
+
+def group_sum_dropped():
+    """The control: each kv head's dk and dv from the first query head of
+    its group alone, not summed over the group (at one kv head the
+    wrong-kv-head control is the identity; this is its MQA form)."""
+    inner = K4_OPS.attention_vjp
+
+    def one_head(q, k, v, dout, **kw):
+        dq, _, _ = inner(q, k, v, dout, **kw)
+        g = q.shape[2] // k.shape[2]
+        _, dk, dv = inner(q[:, :, ::g], k, v, dout[:, :, ::g], **kw)
+        return dq, dk, dv
+    return patched((K4_OPS, "attention_vjp", one_head))
+
+
+def _no_prefix(h, prefix, sp):
+    return h
+
+
+def no_prefix():
+    """The control: the step without its prefix embeddings (the token
+    embeddings kept at the prefix's positions)."""
+    return patched((LM_T, "_with_prefix", _no_prefix))
+
+
 #: the gradient controls by name
 GRAD_CONTROLS = {"one_key_off": one_key_off_backward,
                  "no_attention_gradient": no_attention_gradient,
-                 "window_one_key_wider": window_one_key_wider}
+                 "window_one_key_wider": window_one_key_wider,
+                 "wrong_kv_head": wrong_kv_head,
+                 "group_sum_dropped": group_sum_dropped,
+                 "no_prefix": no_prefix}
+#: step 0's controls of every config
+STEP0_CONTROLS = ("one_key_off", "no_attention_gradient")
 
 
 def tapped_value_and_grad(api, params, batch, per_step: int, what: str,
                           route: str = "sm90", routing=None,
-                          edge: list | None = None):
+                          vjp: list | None = None):
     """``value_and_grad`` on the K4 path with every K4 call (forward and
     recompute, ``per_step`` of them, on ``route``) held to the plain
     version on its own inputs at ``CARD_TOL`` (required); with
     ``routing`` (:class:`TrainRouting`) every router call, the
     recompute's too, the recorded forward's choice (required); with
-    ``edge`` (a list) each backward call's dq at the window's edge held
-    by :func:`edge_tapped` (required).  Returns (loss, grads,
-    readings)."""
+    ``vjp`` (a list) each backward call held by :func:`vjp_tapped`
+    (required).  Returns (loss, grads, readings)."""
     per_call, c = [], {}
     tap = _detached(k4_against_plain(api.cfg.compute_dtype, per_call))
     with counted(c), no_plain_attention(), _checked(routing), \
-            edge_tapped(edge):
+            vjp_tapped(vjp):
         loss, grads = LM_STEPS.value_and_grad(api, params, batch, tap=tap)
     require(k4_only(c, route, per_step) and len(per_call) == per_step
             and max(per_call) <= 1.0,
@@ -4658,18 +4728,17 @@ def tapped_value_and_grad(api, params, batch, per_step: int, what: str,
                 f"{2 * moe_layers(api.cfg)}, 0)")
         row.update(router_calls=routing.calls,
                    router_calls_off_forward=routing.off)
-    if edge is not None:
-        require(len(edge) == attention_layers(api.cfg) and max(edge) <= 1,
-                f"{what}: attention_vjp at the window's edge {edge} of "
-                f"TOL")
-        row["edge_dq_worst_over_tol"] = max(edge)
+    if vjp is not None:
+        require(len(vjp) == attention_layers(api.cfg) and max(vjp) <= 1,
+                f"{what}: attention_vjp against autograd {vjp} of TOL")
+        row["vjp_worst_over_tol"] = max(vjp)
     return loss, grads, row
 
 
 def lm_train_step0(api, params, batch: dict, per_step: int, *,
                    route: str = "sm90", tol: float = LM_TRAIN_GRAD_TOL,
                    loss_tol: float | None = None,
-                   controls=("one_key_off", "no_attention_gradient"),
+                   controls=STEP0_CONTROLS, backward_gated=(),
                    what: str = "lm_train step 0",
                    phase: str = "lm_train_step0") -> dict:
     """Step 0's loss and gradients on the same weights and batch: the
@@ -4677,9 +4746,13 @@ def lm_train_step0(api, params, batch: dict, per_step: int, *,
     routing, :class:`TrainRouting`), kept on the host; the K4 path with
     each K4 call on ``route`` tapped (:func:`tapped_value_and_grad`),
     each gradient tensor within ``tol`` of its max |plain| (required;
-    with ``loss_tol`` the loss within it relative, required); and the
-    ``controls`` of that gate (:data:`GRAD_CONTROLS`), each of which
-    must miss it."""
+    with ``loss_tol`` the loss within it relative, required), every
+    attention backward call also held to autograd (:func:`vjp_tapped`,
+    required); and the ``controls`` of the gradient gate
+    (:data:`GRAD_CONTROLS`), each of which must miss it, but those in
+    ``backward_gated``: a change too small for a step's gradients at
+    this shape, which must miss the backward's gate in every call
+    instead (both readings printed)."""
     routing = train_routing(api, params, batch)
     with _replayed(routing):
         plain_loss, grads = LM_STEPS.value_and_grad(api, params, batch,
@@ -4689,7 +4762,8 @@ def lm_train_step0(api, params, batch: dict, per_step: int, *,
     del grads
     _free()
     loss, grads, row = tapped_value_and_grad(api, params, batch, per_step,
-                                             what, route, routing)
+                                             what, route, routing,
+                                             vjp=[])
     errs = _leaf_errs(grads, plain)
     gnorm = float(ADAMW.global_norm(grads))
     row.update(loss=float(loss), gnorm=gnorm,
@@ -4706,7 +4780,9 @@ def lm_train_step0(api, params, batch: dict, per_step: int, *,
     del grads
     _free()
     for name in controls:
-        with counted({}), GRAD_CONTROLS[name](), _checked(routing):
+        bad_vjp = [] if name in backward_gated else None
+        with counted({}), GRAD_CONTROLS[name](), _checked(routing), \
+                vjp_tapped(bad_vjp):
             _, wrong = LM_STEPS.value_and_grad(api, params, batch)
         if routing:
             require(routing.off == 0,
@@ -4717,6 +4793,9 @@ def lm_train_step0(api, params, batch: dict, per_step: int, *,
         _free()
         row[f"control_{name}"] = {"grad_worst": max(bad.values()),
                                   "grad_by_kind": _by_kind(bad)}
+        if bad_vjp is not None:
+            row[f"control_{name}"].update(
+                vjp_calls=len(bad_vjp), vjp_least_over_tol=min(bad_vjp))
     del plain
     emit({"phase": phase, **row})
     require(row["grad_worst"] <= tol,
@@ -4727,27 +4806,33 @@ def lm_train_step0(api, params, batch: dict, per_step: int, *,
                 f"{what}: loss {row['loss_rel_err']} relative > "
                 f"{loss_tol}")
     for name in controls:
-        require(row[f"control_{name}"]["grad_worst"] > tol,
-                f"{what}: the {name} control passed the gradient gate "
-                f"({row[f'control_{name}']})")
+        ctl = row[f"control_{name}"]
+        if name in backward_gated:
+            require(ctl["vjp_calls"] == attention_layers(api.cfg)
+                    and ctl["vjp_least_over_tol"] > 1,
+                    f"{what}: the {name} control passed the backward's "
+                    f"gate ({ctl})")
+        else:
+            require(ctl["grad_worst"] > tol,
+                    f"{what}: the {name} control passed the gradient gate "
+                    f"({ctl})")
     return row
 
 
-def _trainer(cfg):
+def _trainer(cfg, b: int = LM_TRAIN_B, s: int = LM_TRAIN_S,
+             n: int = LM_TRAIN_N):
     """``make_trainer``'s step and state for ``cfg`` on the card at the
-    reference trainer's defaults (``repro/launch/train.py``), and its
-    :data:`LM_TRAIN_N` batches of the synthetic stream; the peak memory
+    reference trainer's defaults (``repro/launch/train.py``: peak lr,
+    warmup, a schedule of :data:`LM_TRAIN_N` steps), and ``n`` batches
+    of ``b`` x ``s`` tokens of the synthetic stream; the peak memory
     counted from here."""
     _free()
     torch.cuda.reset_peak_memory_stats()
     run_step, state, api, _rules = make_trainer(
-        cfg, global_batch=LM_TRAIN_B, seq_len=LM_TRAIN_S,
-        peak_lr=LM_TRAIN_LR, total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP,
-        device="cuda")
-    dc = DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
-                    global_batch=LM_TRAIN_B, seed=SEED)
-    return run_step, state, api, [global_batch_at(dc, i)
-                                  for i in range(LM_TRAIN_N)]
+        cfg, global_batch=b, seq_len=s, peak_lr=LM_TRAIN_LR,
+        total_steps=LM_TRAIN_N, warmup=LM_TRAIN_WARMUP, device="cuda")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=SEED)
+    return run_step, state, api, [global_batch_at(dc, i) for i in range(n)]
 
 
 def _long_batch(cfg, s: int) -> dict:
@@ -4824,15 +4909,15 @@ def _loop_fields(loop: dict, tokens: int) -> dict:
                if loop["dropped_pairs"] else {})}
 
 
-def _size_fields(cfg, n_params: int) -> dict:
+def _size_fields(cfg, n_params: int, b: int = LM_TRAIN_B,
+                 s: int = LM_TRAIN_S, n: int = LM_TRAIN_N) -> dict:
     return {"config": cfg.name, "layers": cfg.n_layers,
             "blocks": LM_T.n_blocks(cfg),
             "full_depth_blocks": LM_T.n_blocks(get_config(cfg.name)),
             "d_model": cfg.d_model, "vocab": cfg.vocab,
             "dtype": str(cfg.compute_dtype), "params": n_params,
-            "state_gb": 16 * n_params / 1e9, "batch": LM_TRAIN_B,
-            "seq": LM_TRAIN_S, "steps": LM_TRAIN_N, "peak_lr": LM_TRAIN_LR,
-            "warmup": LM_TRAIN_WARMUP}
+            "state_gb": 16 * n_params / 1e9, "batch": b, "seq": s,
+            "steps": n, "peak_lr": LM_TRAIN_LR, "warmup": LM_TRAIN_WARMUP}
 
 
 def _bounds(cfg, b: int, s: int, n_params: int) -> dict:
@@ -4843,13 +4928,17 @@ def _bounds(cfg, b: int, s: int, n_params: int) -> dict:
 def bit_repeat(api, params, batch: dict, what: str) -> dict:
     """``value_and_grad`` on the K4 path twice on the same weights and
     batch: the loss and every gradient leaf equal bit for bit
-    (required)."""
+    (required).  The first run's gradients wait on the host while the
+    second runs: one set on the card at a time (dbrx's block leaves
+    room for no more)."""
     with counted({}), no_plain_attention():
         l1, g1 = LM_STEPS.value_and_grad(api, params, batch)
+        g1 = TREE.tree_map(lambda t: t.cpu(), g1)
+        _free()
         l2, g2 = LM_STEPS.value_and_grad(api, params, batch)
     differ = [p for (p, a), b in zip(TREE.leaves_with_paths(g1),
                                      TREE.leaves(g2))
-              if not torch.equal(a, b)]
+              if not torch.equal(a.to(b.device), b)]
     out = {"loss_equal": bool(torch.equal(l1, l2)),
            "grad_leaves": len(TREE.leaves(g1)),
            "grad_leaves_differing": len(differ), "differing": differ[:8]}
@@ -4862,92 +4951,22 @@ def bit_repeat(api, params, batch: dict, what: str) -> dict:
 
 def phase_lm_train(card: str) -> dict:
     """minitron-4b at full width (d_model 3072, 24 heads over 8 at head
-    dim 128, d_ff 9216, vocab 256000) and 24 of its 32 blocks, bf16
-    compute on f32 masters, trained through ``make_trainer``'s step in a
-    plain loop at the reference driver's defaults (batch 8 x 128 tokens
-    of the synthetic stream, 20 steps, peak lr 3e-4, warmup 2):
-
-      * before the loop, step 0's gradients (:func:`lm_train_step0`):
-        every K4 call of the forward and the recompute within
-        ``CARD_TOL`` of the plain version on its own inputs, every
-        gradient tensor within :data:`LM_TRAIN_GRAD_TOL` of the plain
-        replay's, and the two controls missing that gate;
-      * every step 48 K4 ``sm90`` launches (24 forward, 24 in the
-        remat recompute) and nothing else of K1-K4, no plain attention;
-      * step 0's loss and global gradient norm within
-        :data:`LM_BF16_TOL` relative of the plain replay;
-      * loss and gradient norm finite at every step; the params
-        unchanged by step 0 (lr 0) and changed by step 1;
-      * then one step at 1 x 4096 tokens, twice (the first warms), and
-        its ``value_and_grad`` with every K4 call tapped;
-      * step ms, tokens/s, peak memory; one profiled step at each shape
-        beside its byte and FLOP bounds (:func:`train_bounds`);
-      * after step 20 every param leaf's fingerprint
-        (:func:`param_fingerprint`), which ``lm_train_mesh`` is held to
-        with each step's loss and grad norm."""
+    dim 128, d_ff 9216, vocab 256000) and 24 of its 32 blocks, trained
+    through :func:`train_config` at the reference driver's defaults
+    (batch 8 x 128 tokens of the synthetic stream, 20 steps, peak lr
+    3e-4, warmup 2): step 0 against the plain replay with the
+    one-key-off and no-gradient controls, 48 K4 ``sm90`` launches a step
+    (24 forward, 24 in the remat recompute), then one step at 1 x 4096
+    tokens twice and its K4 calls tapped (:func:`long_step_gate`);
+    after step 20 every param leaf's fingerprint
+    (:func:`param_fingerprint`), which ``lm_train_mesh`` is held to with
+    each step's loss and grad norm."""
     cfg = dataclasses.replace(get_config(LM_TRAIN_ARCH),
                               n_layers=LM_TRAIN_BLOCKS)
-    run_step, state, api, batches = _trainer(cfg)
-    n_params = sum(t.numel() for t in TREE.leaves(state.params))
-    per_step = 2 * attention_layers(cfg)
-    step0 = lm_train_step0(api, state.params, _cuda_batch(batches[0]),
-                           per_step)
-    state, loop = train_loop(run_step, state, batches, per_step, "sm90",
-                             "lm_train", cfg)
-    counts, losses, gnorms, secs = ([loop["launches"]], loop["losses"],
-                                    loop["grad_norms"], loop["secs"])
-    fingerprint = param_fingerprint(state.params)
-    loss_err = abs(losses[0] - step0["plain_loss"]) / abs(step0["plain_loss"])
-    gnorm_err = (abs(gnorms[0] - step0["plain_gnorm"])
-                 / abs(step0["plain_gnorm"]))
-    expect(loss_err <= LM_BF16_TOL and gnorm_err <= LM_BF16_TOL,
-           f"lm_train step 0: loss {loss_err}, grad norm {gnorm_err} "
-           f"relative to the plain replay > {LM_BF16_TOL}")
-    short = _cuda_batch(batches[-1])
-    state, short_profile = profile_train_step(run_step, state, short)
-    long_batch = _long_batch(cfg, LM_TRAIN_LONG_S)
-    state, long = train_loop(run_step, state, [long_batch] * 2, per_step,
-                             "sm90", "lm_train 1 x 4096", cfg, moved=False)
-    counts.append(long["launches"])
-    long_loss, long_secs = long["losses"][-1], long["secs"]
-    _, grads, long_tapped = tapped_value_and_grad(
-        api, state.params, long_batch, per_step, "lm_train 1 x 4096")
-    del grads
-    _free()
-    state, long_profile = profile_train_step(run_step, state, long_batch)
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = _median(secs) * 1e3
-    emit({"phase": "lm_train", "config": LM_TRAIN_ARCH,
-          "blocks": LM_TRAIN_BLOCKS, "full_depth_blocks":
-          LM_T.n_blocks(get_config(LM_TRAIN_ARCH)), "d_model": cfg.d_model,
-          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
-          "params": n_params, "state_gb": 16 * n_params / 1e9,
-          "dtype": str(cfg.compute_dtype), "batch": LM_TRAIN_B,
-          "seq": LM_TRAIN_S, "steps": LM_TRAIN_N, "peak_lr": LM_TRAIN_LR,
-          "warmup": LM_TRAIN_WARMUP, "k4_sm90_per_step": per_step,
-          "launches": _merged(*counts), "losses": losses,
-          "grad_norms": gnorms, "step0_plain_loss": step0["plain_loss"],
-          "step0_plain_grad_norm": step0["plain_gnorm"],
-          "step0_grad_worst": step0["grad_worst"],
-          "step0_loss_rel_err": loss_err,
-          "step0_grad_norm_rel_err": gnorm_err, "gate": LM_BF16_TOL,
-          "step_ms_median": step_ms, "step_ms_min": min(secs) * 1e3,
-          "step_ms_max": max(secs) * 1e3,
-          "tokens_per_s": LM_TRAIN_B * LM_TRAIN_S / _median(secs),
-          "profile": short_profile,
-          **_bounds(cfg, LM_TRAIN_B, LM_TRAIN_S, n_params),
-          "long": {"batch": 1, "seq": LM_TRAIN_LONG_S, "loss": long_loss,
-                   "step_ms": [s * 1e3 for s in long_secs],
-                   "tokens_per_s": LM_TRAIN_LONG_S / long_secs[-1],
-                   "tapped": long_tapped, "profile": long_profile,
-                   **_bounds(cfg, 1, LM_TRAIN_LONG_S, n_params)},
-          "peak_gb": peak / 1e9, "card": card})
-    del state, run_step, api
-    _free()
-    return {"bf16": _merged(*counts), "step_ms_median": step_ms,
-            "losses": losses, "grad_norms": gnorms,
-            "fingerprint": fingerprint, "peak_gb": peak / 1e9}
+    run = train_config(card, cfg, "lm_train", long_s=LM_TRAIN_LONG_S)
+    return {"bf16": run["bf16"], "fingerprint": run["fingerprint"],
+            **{k: run["row"][k] for k in ("step_ms_median", "losses",
+                                          "grad_norms", "peak_gb")}}
 
 
 def phase_lm_train_f32(card: str) -> dict:
@@ -4968,16 +4987,23 @@ def phase_lm_train_f32(card: str) -> dict:
         non-causal cross-attention, each twice);
       * mixtral-8x7b, 2 blocks, 1 x 8192 tokens under its 4096 window:
         4 K4 launches, every router call on the forward's choice, each
-        ``attention_vjp`` call's dq at the window's edge within ``TOL``
-        of autograd (:func:`edge_tapped`); the one-key-off control and
-        a backward window one key wider (:func:`window_one_key_wider`)
-        must each miss the gradient gate, the second also the edge's."""
+        ``attention_vjp`` call within ``TOL`` of autograd
+        (:func:`vjp_tapped`); the one-key-off control and a backward
+        window one key wider (:func:`window_one_key_wider`) must each
+        miss the gradient gate, the second also the backward's;
+      * llava-next-34b, 2 layers, one batch of its prefix path (2 x
+        (2880 prefix embeddings + 64 tokens), the labels -1 over the
+        prefix; 56 heads over 8) and granite-34b, 2 layers, 8 x 128 (48
+        heads on one): 4 K4 launches each, the one-key-off control
+        missing."""
     f32 = torch.float32
     out, counts = {}, []
     gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
     for arch, cut in (("minitron-4b", dict(n_layers=2)),
                       ("whisper-medium", dict(n_layers=2, enc_layers=2)),
-                      (MOE_ARCH, dict(n_layers=2))):
+                      (MOE_ARCH, dict(n_layers=2)),
+                      (VLM_ARCH, dict(n_layers=2)),
+                      (MQA_ARCH, dict(n_layers=2))):
         _free()
         t_row = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch), compute_dtype=f32, **cut)
@@ -4989,6 +5015,12 @@ def phase_lm_train_f32(card: str) -> dict:
                 (b, LM_E.ENC_FRAMES, cfg.d_model), generator=gen,
                 device="cuda") * ENCDEC_FRAMES_SCALE}
             calls = cfg.enc_layers + 2 * cfg.n_layers
+        elif cfg.frontend == "vision_stub":
+            b, s = VLM_BATCH, cfg.frontend_len + VLM_TEXT
+            batch = {"prefix_embeds": torch.randn(
+                (b, cfg.frontend_len, cfg.d_model), generator=gen,
+                device="cuda") * VLM_PREFIX_SCALE}
+            calls = attention_layers(cfg)
         else:
             b, s = (1, MOE_TRAIN_LONG_S) if cfg.window else (LM_TRAIN_B,
                                                               LM_TRAIN_S)
@@ -4996,15 +5028,17 @@ def phase_lm_train_f32(card: str) -> dict:
             calls = attention_layers(cfg)
         toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
                              device="cuda")
-        batch.update(tokens=toks[:, :-1], labels=toks[:, 1:])
+        batch.update(tokens=toks[:, :-1], labels=toks[:, 1:].clone())
+        if "prefix_embeds" in batch:
+            batch["labels"][:, :cfg.frontend_len] = -1
         routing = train_routing(api, params, batch)
         with _replayed(routing):
             plain_loss, plain = LM_STEPS.value_and_grad(api, params, batch,
                                                         attn="plain")
-        edge = [] if cfg.window else None
+        vjp = [] if cfg.window else None
         c = {}
         with counted(c), no_plain_attention(), _checked(routing), \
-                edge_tapped(edge):
+                vjp_tapped(vjp):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss, grads = LM_STEPS.value_and_grad(api, params, batch)
@@ -5032,20 +5066,20 @@ def phase_lm_train_f32(card: str) -> dict:
             row.update(window=cfg.window, router_calls=routing.calls,
                        replay_flips=routing.flips,
                        replay_rows=routing.rows)
-        if edge is not None:
-            require(len(edge) == calls and max(edge) <= 1.0,
-                    f"lm_train_f32 {arch}: the window's edge {edge} of "
-                    f"TOL")
-            row.update(edge_dq_worst_over_tol=max(edge),
-                       value_and_grad_ms_with_edge_tap=True)
+        if vjp is not None:
+            require(len(vjp) == calls and max(vjp) <= 1.0,
+                    f"lm_train_f32 {arch}: attention_vjp against autograd "
+                    f"{vjp} of TOL")
+            row.update(vjp_worst_over_tol=max(vjp),
+                       value_and_grad_ms_with_vjp_tap=True)
         del grads
         if cfg.family != "encdec":
             controls = ["one_key_off"] + (["window_one_key_wider"]
                                           if cfg.window else [])
             for name in controls:
-                wrong_edge = [] if name == "window_one_key_wider" else None
+                wrong_vjp = [] if name == "window_one_key_wider" else None
                 with counted({}), GRAD_CONTROLS[name](), \
-                        _checked(routing), edge_tapped(wrong_edge):
+                        _checked(routing), vjp_tapped(wrong_vjp):
                     _, wrong = LM_STEPS.value_and_grad(api, params, batch)
                 key = ("control_mask_one_key_off_over_gate"
                        if name == "one_key_off"
@@ -5054,12 +5088,13 @@ def phase_lm_train_f32(card: str) -> dict:
                 require(row[key] > 1.0,
                         f"lm_train_f32 {arch}: the {name} control passed "
                         f"the gradient gate ({row})")
-                if wrong_edge is not None:
-                    row["control_window_one_key_wider_edge_over_tol"] = \
-                        min(wrong_edge)
-                    require(min(wrong_edge) > 1.0,
+                if wrong_vjp is not None:
+                    row["control_window_one_key_wider_vjp_over_tol"] = \
+                        min(wrong_vjp)
+                    require(min(wrong_vjp) > 1.0,
                             f"lm_train_f32 {arch}: the window_one_key_wider "
-                            f"control passed the edge gate {wrong_edge}")
+                            f"control passed the backward's gate "
+                            f"{wrong_vjp}")
                 del wrong
         row["seconds"] = time.perf_counter() - t_row
         out[arch] = row
@@ -5092,120 +5127,60 @@ SSM_GATE_LAYERS, SSM_GATE_S = 2, 1024
 HYBRID_TRAIN_LONG_S = 1024
 
 
-def window_edge_gate(api, params, batch: dict, per_step: int, route: str,
-                     what: str) -> dict:
-    """One sequence past the window, on the K4 path: every K4 call
-    tapped, every router call on the forward's choice and every
-    ``attention_vjp`` call's dq at the window's edge within ``TOL`` of
-    autograd (:func:`tapped_value_and_grad`, :func:`edge_tapped`); then
-    :func:`window_one_key_wider` under the same taps, whose edge
-    reading must miss, and the distance of its gradients from the K4
-    path's (the worst leaf's max |err| over max |K4 path|)."""
+def long_step_gate(api, params, batch: dict, per_step: int,
+                   what: str) -> dict:
+    """One long sequence on the K4 path: every K4 call of the forward and
+    the recompute held to the plain version and every router call on
+    the forward's choice (:func:`tapped_value_and_grad`); where the
+    window bites, every ``attention_vjp`` call within ``TOL`` of
+    autograd (:func:`vjp_tapped`), then :func:`window_one_key_wider`
+    under the same taps, which every call must miss, and the distance
+    of its gradients from the K4 path's (the worst leaf's max |err|
+    over max |K4 path|)."""
+    windowed = 0 < api.cfg.window < batch["tokens"].shape[1]
     routing = train_routing(api, params, batch)
-    loss, grads, row = tapped_value_and_grad(api, params, batch, per_step,
-                                             what, route, routing, [])
-    wrong_edge = []
-    with counted({}), window_one_key_wider(), edge_tapped(wrong_edge), \
-            _checked(routing):
-        _, wrong = LM_STEPS.value_and_grad(api, params, batch)
-    moved = max(((w - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
-                for w, g in zip(TREE.leaves(wrong), TREE.leaves(grads)))
-    del wrong, grads
+    loss, grads, row = tapped_value_and_grad(
+        api, params, batch, per_step, what, "sm90", routing,
+        [] if windowed else None)
+    row["loss"] = float(loss)
+    if windowed:
+        wrong_vjp = []
+        with counted({}), window_one_key_wider(), vjp_tapped(wrong_vjp), \
+                _checked(routing):
+            _, wrong = LM_STEPS.value_and_grad(api, params, batch)
+        moved = max(((w - g).abs().max()
+                     / g.abs().max().clamp_min(1e-30)).item()
+                    for w, g in zip(TREE.leaves(wrong), TREE.leaves(grads)))
+        del wrong
+        row["control_window_one_key_wider"] = {
+            "vjp_worst_over_tol": max(wrong_vjp),
+            "vjp_least_over_tol": min(wrong_vjp),
+            "grad_worst_against_k4_path": moved}
+        require(len(wrong_vjp) == attention_layers(api.cfg)
+                and min(wrong_vjp) > 1.0,
+                f"{what}: the window_one_key_wider control passed the "
+                f"backward's gate ({wrong_vjp})")
+    del grads
     _free()
-    row.update(loss=float(loss), control_window_one_key_wider={
-        "edge_dq_worst_over_tol": max(wrong_edge),
-        "edge_dq_least_over_tol": min(wrong_edge),
-        "grad_worst_against_k4_path": moved})
-    require(len(wrong_edge) == attention_layers(api.cfg)
-            and min(wrong_edge) > 1.0,
-            f"{what}: the window_one_key_wider control passed the edge "
-            f"gate ({wrong_edge})")
     return row
 
 
 def phase_lm_train_moe(card: str) -> dict:
     """mixtral-8x7b at full width (d_model 4096, 32 heads over 8, 8
     experts of d_ff 14336, top-2, capacity factor 1.25, window 4096) and
-    :data:`MOE_TRAIN_BLOCKS` of its 32 blocks, bf16 compute on f32
-    masters, trained through ``make_trainer``'s step in a plain loop at
-    the reference trainer's defaults (batch 8 x 128, 20 steps, peak lr
-    3e-4, warmup 2):
-
-      * step 0 (:func:`lm_train_step0`): every K4 call of the forward
-        and the recompute within ``CARD_TOL`` of the plain version,
-        every router call on the K4 forward's choice, every gradient
-        tensor within :data:`LM_TRAIN_GRAD_TOL` of the plain replay's
-        under that routing (:class:`TrainRouting`), the one-key-off and
-        no-gradient controls missing it; ``value_and_grad`` twice, bit
-        for bit (:func:`bit_repeat`: the MoE backward's index ops);
-      * every step ``2 x attention_layers`` K4 ``sm90`` launches and
-        nothing else of K1-K4, no plain attention, finite; the pairs the
-        capacity dropped; step 0's loss and grad norm within
-        :data:`LM_BF16_TOL` of the replay's;
-      * then 1 x 8192 tokens, where the window bites, twice
-        (launches exact), and :func:`window_edge_gate` on it;
-      * step ms, tokens/s, peak memory, a profiled step a shape beside
-        its bound (:func:`train_bounds`)."""
-    t0 = time.perf_counter()
+    :data:`MOE_TRAIN_BLOCKS` of its 32 blocks, trained through
+    :func:`train_config` at the reference trainer's defaults (batch 8 x
+    128, 20 steps, peak lr 3e-4, warmup 2): step 0 under the K4
+    forward's routing (:class:`TrainRouting`) with the one-key-off and
+    no-gradient controls, ``value_and_grad`` twice bit for bit
+    (:func:`bit_repeat`: the MoE backward's index ops), the pairs each
+    step dropped; then 1 x 8192 tokens, where the window bites, twice,
+    and :func:`long_step_gate` on it: every ``attention_vjp`` call
+    within ``TOL`` of autograd, a backward window one key wider
+    missing."""
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_BLOCKS)
-    run_step, state, api, batches = _trainer(cfg)
-    n_params = sum(t.numel() for t in TREE.leaves(state.params))
-    per_step = 2 * attention_layers(cfg)
-    b0 = _cuda_batch(batches[0])
-    step0 = lm_train_step0(api, state.params, b0, per_step,
-                           what="lm_train_moe step 0",
-                           phase="lm_train_moe_step0")
-    repeat = bit_repeat(api, state.params, b0, "lm_train_moe step 0")
-    del b0
-    state, loop = train_loop(run_step, state, batches, per_step, "sm90",
-                             "lm_train_moe", cfg)
-    loss_err = (abs(loop["losses"][0] - step0["plain_loss"])
-                / abs(step0["plain_loss"]))
-    gnorm_err = (abs(loop["grad_norms"][0] - step0["plain_gnorm"])
-                 / abs(step0["plain_gnorm"]))
-    expect(loss_err <= LM_BF16_TOL and gnorm_err <= LM_BF16_TOL,
-           f"lm_train_moe step 0: loss {loss_err}, grad norm {gnorm_err} "
-           f"relative to the plain replay > {LM_BF16_TOL}")
-    state, short_profile = profile_train_step(run_step, state,
-                                              _cuda_batch(batches[-1]))
-    loop_peak = torch.cuda.max_memory_allocated()
-    long_batch = _long_batch(cfg, MOE_TRAIN_LONG_S)
-    torch.cuda.reset_peak_memory_stats()
-    state, long = train_loop(run_step, state, [long_batch] * 2, per_step,
-                             "sm90", "lm_train_moe 1 x 8192", cfg,
-                             moved=False)
-    long_peak = torch.cuda.max_memory_allocated()
-    edge = window_edge_gate(api, state.params, long_batch, per_step, "sm90",
-                            "lm_train_moe 1 x 8192")
-    state, long_profile = profile_train_step(run_step, state, long_batch)
-    peak = max(loop_peak, torch.cuda.max_memory_allocated())
-    emit({"phase": "lm_train_moe", "seconds": time.perf_counter() - t0,
-          **_size_fields(cfg, n_params),
-          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
-          "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
-          "experts": cfg.n_experts, "top_k": cfg.top_k,
-          "capacity_factor": cfg.capacity_factor, "window": cfg.window,
-          "reduced": f"depth: {cfg.n_layers} of "
-                     f"{get_config(MOE_ARCH).n_layers} blocks",
-          "k4_sm90_per_step": per_step, **_loop_fields(
-              loop, LM_TRAIN_B * LM_TRAIN_S),
-          "step0_plain_loss": step0["plain_loss"],
-          "step0_plain_grad_norm": step0["plain_gnorm"],
-          "step0_grad_worst": step0["grad_worst"],
-          "step0_loss_rel_err": loss_err,
-          "step0_grad_norm_rel_err": gnorm_err, "gate": LM_BF16_TOL,
-          "step0_repeat": repeat, "profile": short_profile,
-          **_bounds(cfg, LM_TRAIN_B, LM_TRAIN_S, n_params),
-          "long": {"batch": 1, "seq": MOE_TRAIN_LONG_S,
-                   **_loop_fields(long, MOE_TRAIN_LONG_S),
-                   "peak_gb": long_peak / 1e9, "window_edge": edge,
-                   "profile": long_profile,
-                   **_bounds(cfg, 1, MOE_TRAIN_LONG_S, n_params)},
-          "peak_gb": peak / 1e9, "card": card})
-    del state, run_step, api
-    _free()
-    return {"bf16": _merged(loop["launches"], long["launches"]),
-            "step_ms_median": _median(loop["secs"]) * 1e3}
+    return train_config(card, cfg, "lm_train_moe", repeat=True,
+                        long_s=MOE_TRAIN_LONG_S)
 
 
 _CHUNK_STEP = SSM._chunk_step
@@ -5379,6 +5354,235 @@ def phase_lm_train_hybrid(card: str) -> dict:
     del state, run_step, api
     _free()
     return {"f32": _merged(loop["launches"], long["launches"])}
+
+
+# --------------------------------------------------------------------------
+# lm_train_vlm, lm_train_mqa, lm_train_dbrx, lm_train_dense: the decoder
+# configs beyond minitron and mixtral trained through make_trainer
+# --------------------------------------------------------------------------
+
+#: the depth each is trained at, full width: f32 params, grads and both
+#: moments at 16 bytes a parameter (by ``param_count``): llava-next-34b
+#: 5 of 60 layers (3.25e9 parameters, 52.0 GB), granite-34b 5 of 88
+#: (2.95e9, 47.2 GB), dbrx-132b 1 of 40 blocks (3.88e9, 62.0 GB: its
+#: block alone is 3.26e9), deepseek-7b 14 of 30 (3.25e9, 52.0 GB),
+#: phi3-medium-14b 8 of 40 (3.24e9, 51.8 GB)
+VLM_TRAIN_LAYERS, MQA_TRAIN_LAYERS, DBRX_TRAIN_LAYERS = 5, 5, 1
+DENSE_TRAIN = (("deepseek-7b", 14), ("phi3-medium-14b", 8))
+#: llava's steps, each a batch of :data:`VLM_BATCH` x (2880 prefix rows
+#: + :data:`VLM_TEXT` tokens); the dense configs' steps of 8 x 128
+VLM_TRAIN_STEPS, DENSE_TRAIN_STEPS = 10, 5
+#: granite's long step: one sequence of 4096 tokens
+MQA_TRAIN_LONG_S = 4096
+
+
+def vlm_batches(cfg, n: int) -> list[dict]:
+    """``n`` training batches of llava's prefix path: :data:`VLM_BATCH`
+    sequences of ``frontend_len`` + :data:`VLM_TEXT` positions, tokens
+    and labels from the synthetic stream, the labels -1 over the prefix
+    (the loss runs over the text), and prefix embeddings drawn from the
+    seed as N(0, 1) x :data:`VLM_PREFIX_SCALE`, on the host as a loader
+    hands them over (each step copies its 165 MB to the card)."""
+    s = cfg.frontend_len + VLM_TEXT
+    dc = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=VLM_BATCH,
+                    seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 65)
+    out = []
+    for i in range(n):
+        batch = global_batch_at(dc, i)
+        batch["labels"][:, :cfg.frontend_len] = -1
+        batch["prefix_embeds"] = torch.randn(
+            (VLM_BATCH, cfg.frontend_len, cfg.d_model),
+            generator=gen) * VLM_PREFIX_SCALE
+        out.append(batch)
+    return out
+
+
+def train_config(card: str, cfg, phase: str, *, steps: int = LM_TRAIN_N,
+                 controls: tuple = STEP0_CONTROLS, backward_gated=(),
+                 repeat: bool = False, long_s: int = 0) -> dict:
+    """``cfg`` (full width, the depth cut) trained through
+    ``make_trainer``'s step in a plain loop, bf16 compute on f32
+    masters: batches of 8 x 128 from the synthetic stream, or with a
+    vision prefix :func:`vlm_batches`;
+
+      * step 0 (:func:`lm_train_step0`): every K4 call of the forward
+        and the recompute within ``CARD_TOL`` of the plain version,
+        every gradient tensor within :data:`LM_TRAIN_GRAD_TOL` of the
+        plain replay's (with experts under the K4 forward's routing),
+        every attention backward call within ``TOL`` of autograd in f32
+        (:func:`vjp_tapped`), each of ``controls`` missing the gradient
+        gate (those in ``backward_gated`` the backward's); with
+        ``repeat`` ``value_and_grad`` twice, bit for bit
+        (:func:`bit_repeat`);
+      * ``steps`` steps, each ``2 x attention_layers`` K4 ``sm90``
+        launches and nothing else of K1-K4, no plain attention, finite;
+        the params unchanged by step 0 (lr 0) and changed by step 1;
+        step 0's loss and grad norm within :data:`LM_BF16_TOL` of the
+        replay's; with experts the pairs each step dropped;
+      * with ``long_s`` one sequence of ``long_s`` tokens twice,
+        launches exact, then :func:`long_step_gate` on it;
+      * step ms, tokens/s (positions a step over its median), the peak
+        memory of step 0's checks and of the steps, a profiled step at
+        each shape beside its bound (:func:`train_bounds`).
+
+    Emits the row ``phase`` and returns the launches, the row and every
+    param leaf's fingerprint after the steps (:func:`param_fingerprint`)."""
+    t0 = time.perf_counter()
+    vlm = cfg.frontend == "vision_stub"
+    b, s = (VLM_BATCH, cfg.frontend_len + VLM_TEXT) if vlm \
+        else (LM_TRAIN_B, LM_TRAIN_S)
+    run_step, state, api, batches = _trainer(cfg, b, s,
+                                             0 if vlm else steps)
+    if vlm:
+        batches = vlm_batches(cfg, steps)
+    n_params = sum(t.numel() for t in TREE.leaves(state.params))
+    per_step = 2 * attention_layers(cfg)
+    b0 = _cuda_batch(batches[0])
+    step0 = lm_train_step0(api, state.params, b0, per_step,
+                           controls=controls, backward_gated=backward_gated,
+                           what=f"{phase} step 0", phase=f"{phase}_step0")
+    rep = bit_repeat(api, state.params, b0,
+                     f"{phase} step 0") if repeat else None
+    del b0
+    step0_peak = torch.cuda.max_memory_allocated()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    state, loop = train_loop(run_step, state, batches, per_step, "sm90",
+                             phase, cfg)
+    fingerprint = param_fingerprint(state.params)
+    loss_err = (abs(loop["losses"][0] - step0["plain_loss"])
+                / abs(step0["plain_loss"]))
+    gnorm_err = (abs(loop["grad_norms"][0] - step0["plain_gnorm"])
+                 / abs(step0["plain_gnorm"]))
+    expect(loss_err <= LM_BF16_TOL and gnorm_err <= LM_BF16_TOL,
+           f"{phase} {cfg.name} step 0: loss {loss_err}, grad norm "
+           f"{gnorm_err} relative to the plain replay > {LM_BF16_TOL}")
+    state, profile = profile_train_step(run_step, state,
+                                        _cuda_batch(batches[-1]))
+    loop_peak = torch.cuda.max_memory_allocated()
+    counts = [loop["launches"]]
+    row = {"phase": phase, **_size_fields(cfg, n_params, b, s, steps),
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "group": cfg.n_heads // cfg.n_kv_heads,
+           "head_dim": cfg.head_dim, "d_ff": cfg.d_ff, "window": cfg.window,
+           **depth_fields(cfg), "k4_sm90_per_step": per_step,
+           **_loop_fields(loop, b * s),
+           "step0_plain_loss": step0["plain_loss"],
+           "step0_plain_grad_norm": step0["plain_gnorm"],
+           "step0_grad_worst": step0["grad_worst"],
+           "step0_grad_worst_leaf": step0["grad_worst_leaf"],
+           "step0_k4_worst_over_card_tol": step0["k4_worst_over_card_tol"],
+           "step0_vjp_worst_over_tol": step0["vjp_worst_over_tol"],
+           "step0_controls": {n: {k: v for k, v in step0[
+               f"control_{n}"].items() if k != "grad_by_kind"}
+               for n in controls},
+           "step0_loss_rel_err": loss_err,
+           "step0_grad_norm_rel_err": gnorm_err, "gate": LM_BF16_TOL,
+           "grad_gate": LM_TRAIN_GRAD_TOL, "profile": profile,
+           **_bounds(cfg, b, s, n_params),
+           "step0_peak_gb": step0_peak / 1e9, "peak_gb": loop_peak / 1e9}
+    if rep is not None:
+        row["step0_repeat"] = rep
+    if vlm:
+        row.update(prefix=cfg.frontend_len, text_tokens=VLM_TEXT,
+                   labelled_tokens_per_step=b * VLM_TEXT,
+                   prefix_scale=VLM_PREFIX_SCALE)
+    if cfg.n_experts:
+        row.update(experts=cfg.n_experts, top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor,
+                   bin_rows=MOE.bin_capacity(b * s, cfg.top_k,
+                                             cfg.n_experts,
+                                             cfg.capacity_factor),
+                   step0_replay_flips=step0["replay_flips"],
+                   step0_replay_rows=step0["replay_rows"])
+    if long_s:
+        long_batch = _long_batch(cfg, long_s)
+        what = f"{phase} 1 x {long_s}"
+        torch.cuda.reset_peak_memory_stats()
+        state, long = train_loop(run_step, state, [long_batch] * 2,
+                                 per_step, "sm90", what, cfg, moved=False)
+        long_peak = torch.cuda.max_memory_allocated()
+        gate = long_step_gate(api, state.params, long_batch, per_step, what)
+        state, long_profile = profile_train_step(run_step, state,
+                                                 long_batch)
+        counts.append(long["launches"])
+        row["long"] = {"batch": 1, "seq": long_s,
+                       **_loop_fields(long, long_s),
+                       "peak_gb": long_peak / 1e9, "tapped": gate,
+                       "profile": long_profile,
+                       **_bounds(cfg, 1, long_s, n_params)}
+    row.update(seconds=time.perf_counter() - t0, card=card)
+    emit(row)
+    del state, run_step, api, batches
+    _free()
+    return {"bf16": _merged(*counts), "row": row,
+            "fingerprint": fingerprint}
+
+
+def phase_lm_train_vlm(card: str) -> dict:
+    """llava-next-34b at full width (d_model 7168, 56 heads over 8 at
+    head dim 128, d_ff 20480, vocab 64000) and
+    :data:`VLM_TRAIN_LAYERS` of its 60 layers, trained through its
+    vision-prefix path (:func:`train_config`): each batch 2 x (2880
+    prefix embeddings + 64 tokens), the prefix written over the first
+    2880 positions inside the differentiated forward, the loss over the
+    text; step 0's controls the no-gradient backward, the step without
+    its prefix and dk, dv summed into the wrong kv head, each of which
+    must miss the gradient gate, and the one-key-off backward, which at
+    2944 keys moves a step's gradients by less than that gate and must
+    miss the gate of every ``attention_vjp`` call against autograd
+    instead; ``value_and_grad`` twice bit for bit;
+    :data:`VLM_TRAIN_STEPS` steps."""
+    cfg = dataclasses.replace(get_config(VLM_ARCH),
+                              n_layers=VLM_TRAIN_LAYERS)
+    return train_config(card, cfg, "lm_train_vlm", steps=VLM_TRAIN_STEPS,
+                        controls=STEP0_CONTROLS + ("no_prefix",
+                                                   "wrong_kv_head"),
+                        backward_gated=("one_key_off",), repeat=True)
+
+
+def phase_lm_train_mqa(card: str) -> dict:
+    """granite-34b at full width (d_model 6144, 48 query heads on one kv
+    head: the backward sums 48 heads' dk and dv into it; d_ff 24576,
+    vocab 49152) and :data:`MQA_TRAIN_LAYERS` of its 88 layers
+    (:func:`train_config`): step 0 with the one-key-off and no-gradient
+    controls and :func:`group_sum_dropped` (dk and dv of one query head
+    of the group), each of which must miss the gradient gate; 20 steps
+    of 8 x 128, then 1 x 4096 twice with its K4 calls tapped
+    (:func:`long_step_gate`)."""
+    cfg = dataclasses.replace(get_config(MQA_ARCH),
+                              n_layers=MQA_TRAIN_LAYERS)
+    return train_config(card, cfg, "lm_train_mqa",
+                        controls=STEP0_CONTROLS + ("group_sum_dropped",),
+                        long_s=MQA_TRAIN_LONG_S)
+
+
+def phase_lm_train_dbrx(card: str) -> dict:
+    """dbrx-132b at full width (d_model 6144, 48 heads over 8, 16
+    experts of d_ff 10752, top-4, capacity factor 1.25: 320-row bins for
+    the 4096 pairs of 8 x 128 tokens, vocab 100352) and
+    :data:`DBRX_TRAIN_LAYERS` of its 40 blocks (:func:`train_config`):
+    step 0 under the K4 forward's routing (:class:`TrainRouting`; the
+    replay's flips), ``value_and_grad`` twice bit for bit (the MoE
+    backward's index ops), 20 steps of 8 x 128 with the pairs each
+    dropped."""
+    cfg = dataclasses.replace(get_config(DBRX_ARCH),
+                              n_layers=DBRX_TRAIN_LAYERS)
+    return train_config(card, cfg, "lm_train_dbrx", repeat=True)
+
+
+def phase_lm_train_dense(card: str) -> dict:
+    """deepseek-7b (32 heads on 32: a group of 1 in the backward) at
+    :data:`DENSE_TRAIN` depth, then phi3-medium-14b (40 heads over 10),
+    each at full width through :func:`train_config`: step 0 with its
+    controls, then :data:`DENSE_TRAIN_STEPS` steps of 8 x 128."""
+    runs = [train_config(card, dataclasses.replace(get_config(arch),
+                                                   n_layers=layers),
+                         "lm_train_dense", steps=DENSE_TRAIN_STEPS)
+            for arch, layers in DENSE_TRAIN]
+    return {"bf16": _merged(*(r["bf16"] for r in runs)),
+            "rows": [r["row"] for r in runs]}
 
 
 def phase_lm_train_resilient(card: str) -> dict:
@@ -7346,6 +7550,10 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     train_moe = phase_lm_train_moe(card)
     train_ssm = phase_lm_train_ssm(card)
     train_hybrid = phase_lm_train_hybrid(card)
+    new_train = {"lm_train_vlm": phase_lm_train_vlm(card),
+                 "lm_train_mqa": phase_lm_train_mqa(card),
+                 "lm_train_dbrx": phase_lm_train_dbrx(card),
+                 "lm_train_dense": phase_lm_train_dense(card)}
     with one_rank_nccl() as mesh:
         train_mesh = phase_lm_train_mesh(card, mesh, train)
         train_mesh_resilient = phase_lm_train_mesh_resilient(card, mesh,
@@ -7807,6 +8015,7 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
                "launches_lm_train_moe": train_moe,
                "launches_lm_train_ssm": train_ssm,
                "launches_lm_train_hybrid": train_hybrid,
+               **{f"launches_{k}": run for k, run in new_train.items()},
                "launches_lm_train_mesh": lm_train_mesh,
                "launches_lm_serve_mesh": lm_mesh,
                "launches_mesh_ssm": mesh_ssm,
@@ -7869,6 +8078,11 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
                         for k in ("moe", "ssm")),
             f"lm_train_moe, lm_train_ssm, lm_train_hybrid: K4's launches "
             f"by route {new_runs}")
+    for key in new_train:
+        require(by_name["attention_sm90"][f"launches_{key}"] > 0
+                and by_name["attention_sm90_tf32"][f"launches_{key}"] == 0
+                and by_name["attention"][f"launches_{key}"] == 0,
+                f"{key}: K4's launches by route")
     train_mesh_runs = {n: by_name[n]["launches_lm_train_mesh"]
                        for n in ("attention_sm90", "attention",
                                  "attention_sm90_tf32")}

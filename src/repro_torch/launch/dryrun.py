@@ -151,9 +151,10 @@ def cell_config(arch: str, shape_name: str, debug: bool = False,
         shape = dataclasses.replace(shape, seq_len=min(shape.seq_len, 256),
                                     global_batch=min(shape.global_batch, 16))
     if optimized and shape.kind == "decode":
-        # the reference's serving variant: exact heads (its f8 KV cache
-        # has no K4 route and is not taken)
-        cfg = dataclasses.replace(cfg, pad_heads=False)
+        # the reference's serving variant: exact heads and an f8 KV
+        # cache (decode casts the kept slots to q's type before K4)
+        cfg = dataclasses.replace(cfg, pad_heads=False,
+                                  kv_cache_dtype=torch.float8_e4m3fn)
     return cfg, shape
 
 
@@ -318,7 +319,8 @@ def main(argv=None) -> None:
     ap.add_argument("--debug", action="store_true",
                     help="reduced configs on a small mesh")
     ap.add_argument("--optimized", action="store_true",
-                    help="the serving variant: exact heads, sp_rs")
+                    help="the serving variant: exact heads, an f8 KV "
+                         "cache, sp_rs")
     ap.add_argument("--out", default=RESULTS_DIR)
     ap.add_argument("--json", action="store_true",
                     help="print each record as one JSON line")

@@ -333,6 +333,10 @@ def forward(params, tokens, cfg: ModelConfig, tp: int = 1, *,
     sp = seq_parallel(s, want_cache)
     h = embed_tokens(params["embed"], tokens, sp).to(cfg.compute_dtype)
     if prefix_embeds is not None:
+        if prefix_embeds.shape[1] > s:
+            # the reference's dynamic_update_slice refuses it too
+            raise ValueError(f"a prefix of {prefix_embeds.shape[1]} rows "
+                             f"does not fit a sequence of {s} tokens")
         h = _with_prefix(h, torch.as_tensor(prefix_embeds, device=dev).to(
             cfg.compute_dtype), sp)
     pos = torch.arange(s, dtype=torch.int32, device=dev)

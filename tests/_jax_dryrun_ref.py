@@ -8,7 +8,13 @@ mesh of 8 host devices.  Run in a process of its own by
       python tests/_jax_dryrun_ref.py <inputs.pkl> <outputs.pkl>
 
 ``inputs.pkl`` holds ``{"cells": [(arch, shape, mesh shape, axis names,
-debug), ...]}``; ``outputs.pkl`` one ``{"state", "inputs"}`` per cell.
+debug), ...], "optimized": [(arch, decode shape, debug), ...]}``;
+``outputs.pkl`` ``{"cells": one {"state", "inputs"} per cell,
+"optimized": one {"pad_heads", "kv_cache_dtype", "params", "caches"}
+per optimized cell}``.  An optimized cell's config is the one the
+reference's ``lower_cell(..., optimized=True)`` builds (caught at its
+``build``, before anything is lowered), its bytes those of its params
+and caches on the (2, 4) mesh under its ``sp_rs`` rules.
 """
 
 import dataclasses
@@ -66,11 +72,59 @@ def cell(arch, shape_name, dims, names, debug):
                 "inputs": 0}
 
 
+class _Built(Exception):
+    """Raised by the stand-in ``build``: the config is caught."""
+
+
+def optimized_cell(arch, shape_name, debug):
+    """The reference's ``--optimized`` decode config of a cell on the
+    (2, 4) mesh (its production mesh stood in by that one), and the
+    bytes a chip holds of its params and caches."""
+    from repro.launch import dryrun as ref_dryrun
+    mesh = jax.make_mesh((2, 4), ("data", "model"))
+    caught = {}
+
+    def catch(cfg, tp=1):
+        caught["cfg"] = cfg
+        raise _Built
+
+    saved = ref_dryrun.build, ref_dryrun.make_production_mesh
+    ref_dryrun.build = catch
+    ref_dryrun.make_production_mesh = lambda multi_pod=False: mesh
+    try:
+        ref_dryrun.lower_cell(arch, shape_name, False, debug=debug,
+                              optimized=True)
+    except _Built:
+        pass
+    finally:
+        ref_dryrun.build, ref_dryrun.make_production_mesh = saved
+    cfg = caught["cfg"]
+    shape = SHAPES[shape_name]
+    if debug:
+        shape = dataclasses.replace(shape, seq_len=min(shape.seq_len, 256),
+                                    global_batch=min(shape.global_batch, 16))
+    api = build(cfg, tp=mesh.shape["model"])
+    rules = sh.axis_rules(mesh, shape.global_batch, shape.seq_len,
+                          sp_rs=True)
+    with axes_mod.axis_rules(rules, mesh):
+        specs = api.input_specs(shape)
+        params = jax.eval_shape(api.init, jax.random.PRNGKey(0))
+        _, cs = sh.output_shardings_for_decode(mesh, rules, specs["caches"])
+        return {"pad_heads": cfg.pad_heads,
+                "kv_cache_dtype": None if cfg.kv_cache_dtype is None
+                else jax.numpy.dtype(cfg.kv_cache_dtype).name,
+                "params": sharded_bytes_per_chip(params, sh.param_shardings(
+                    params, mesh), mesh),
+                "caches": sharded_bytes_per_chip(specs["caches"], cs, mesh)}
+
+
 def main(inputs: str, outputs: str) -> None:
     with open(inputs, "rb") as f:
-        cells = pickle.load(f)["cells"]
+        todo = pickle.load(f)
     assert len(jax.devices()) >= 8, jax.devices()
-    out = [cell(*c) for c in cells]
+    out = {"cells": [cell(*c) for c in todo["cells"]],
+           "optimized": [optimized_cell(*c)
+                         for c in todo.get("optimized", ())]}
     with open(outputs, "wb") as f:
         pickle.dump(out, f)
 

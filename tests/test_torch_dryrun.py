@@ -29,6 +29,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -38,10 +39,13 @@ from repro.analysis import roofline as jax_rl
 from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
 from repro.core import tpu_adapter
+from repro.configs import reduced as jax_reduced
 from repro.models.api import build as jax_build
 from repro_torch.analysis import memory_model as mm
 from repro_torch.analysis import roofline as rl
-from repro_torch.configs import ARCHS, SHAPES, applicable_shapes, get_config
+from repro_torch.configs import (ARCHS, SHAPES, applicable_shapes,
+                                 get_config, reduced)
+from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import ShardPlan, balanced_shard_plan
 from repro_torch.launch import dryrun as D
 from repro_torch.models.api import build
@@ -54,6 +58,10 @@ FULL = [("phi3-medium-14b", "train_4k"), ("mamba2-1.3b", "decode_32k"),
         ("jamba-1.5-large-398b", "decode_32k"),
         ("mixtral-8x7b", "prefill_32k"), ("whisper-medium", "decode_32k")]
 MESHES = [((2, 4), ("data", "model")), ((2, 2, 2), ("pod", "data", "model"))]
+#: every arch's decode cells, full size and debug, as ``--optimized``
+#: builds them
+OPTIMIZED = [(a, s, debug) for a, s in CELLS if SHAPES[s].kind == "decode"
+             for debug in (False, True)]
 
 
 class _Mesh:
@@ -144,7 +152,7 @@ def reference_bytes(tmp_path_factory):
              for a, s in CELLS] + \
         [(a, s, (2, 4), ("data", "model"), False) for a, s in FULL]
     with open(work / "inputs.pkl", "wb") as f:
-        pickle.dump({"cells": cells}, f)
+        pickle.dump({"cells": cells, "optimized": OPTIMIZED}, f)
     env = {**os.environ, "JAX_PLATFORMS": "cpu", "PYTHONPATH": str(
         REPO / "src"), "XLA_FLAGS": "--xla_force_host_platform_device_count=8"}
     ref = subprocess.run([sys.executable, str(REPO / "tests" /
@@ -154,14 +162,16 @@ def reference_bytes(tmp_path_factory):
                          timeout=600)
     assert ref.returncode == 0, ref.stderr[-3000:]
     with open(work / "out.pkl", "rb") as f:
-        return dict(zip(cells, pickle.load(f)))
+        out = pickle.load(f)
+    return {"cells": dict(zip(cells, out["cells"])),
+            "optimized": dict(zip(OPTIMIZED, out["optimized"]))}
 
 
 def test_sharded_bytes_match_reference(reference_bytes):
     """Every cell's state (params or train state, caches) and inputs, per
     chip, equal to the reference's to the byte."""
     for (arch, shape_name, dims, names, debug), want in \
-            reference_bytes.items():
+            reference_bytes["cells"].items():
         mesh = _Mesh(dims, names)
         cfg, shape = D.cell_config(arch, shape_name, debug)
         api = build(cfg, tp=mesh.shape["model"])
@@ -175,6 +185,68 @@ def test_sharded_bytes_match_reference(reference_bytes):
                 inputs, mesh, rules), mesh)
         cell = (arch, shape_name, dims, debug)
         assert (state, got_inputs) == (want["state"], want["inputs"]), cell
+
+
+def test_optimized_decode_takes_the_reference_f8_cache(reference_bytes):
+    """``--optimized``: every decode cell, full size and debug, has the
+    reference's exact heads and f8 KV cache, and its params and caches
+    per chip on the (2, 4) mesh under the ``sp_rs`` rules equal the
+    reference's to the byte."""
+    mesh = _Mesh((2, 4), ("data", "model"))
+    for (arch, shape_name, debug), want in \
+            reference_bytes["optimized"].items():
+        cfg, shape = D.cell_config(arch, shape_name, debug, optimized=True)
+        cell = (arch, shape_name, debug)
+        assert want["kv_cache_dtype"] == "float8_e4m3fn", cell
+        assert cfg.pad_heads == want["pad_heads"], cell
+        assert str(cfg.kv_cache_dtype).removeprefix("torch.") == \
+            want["kv_cache_dtype"], cell
+        api = build(cfg, tp=mesh.shape["model"])
+        rules = sh.axis_rules(mesh, shape.global_batch, shape.seq_len,
+                              sp_rs=True)
+        memo = D.state_memo(api, shape, rules)
+        got = {k: mm.sharded_bytes_per_chip(*memo[k], mesh)
+               for k in ("params", "caches")}
+        assert got == {k: want[k] for k in got}, cell
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "mixtral-8x7b"])
+def test_optimized_f8_cache_decode_chain_matches_reference(arch):
+    """The ``--optimized`` cache type at ``reduced()`` size: 6 decode
+    steps from an empty f8 ``init_cache`` (the port casts the kept slots
+    to q's type before K4), each step's logits within 1e-5 of max |ref|
+    of the reference's on the same weights, its cache's f8 bytes equal
+    the reference's."""
+    f8 = D.cell_config(arch, "decode_32k", debug=True,
+                       optimized=True)[0].kv_cache_dtype
+    jcfg = jax_reduced(jax_get_config(arch),
+                       kv_cache_dtype=jnp.float8_e4m3fn)
+    cfg = reduced(get_config(arch), kv_cache_dtype=f8)
+    jparams = jax_build(jcfg).init(jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jparams), device="cpu")
+    japi, api = jax_build(jcfg), build(cfg)
+    b, steps = 2, 6
+    ref_caches = japi.init_cache(b, 16)
+    caches = api.init_cache(b, 16, device="cpu")
+    assert caches[0]["sub0"]["k"].dtype == torch.float8_e4m3fn
+    rng = np.random.default_rng(11)
+    for pos in range(steps):
+        tok = rng.integers(0, cfg.vocab, (b, 1)).astype(np.int32)
+        ref, ref_caches = japi.decode_step(jparams, ref_caches,
+                                           jnp.asarray(tok),
+                                           jnp.asarray(pos, jnp.int32))
+        logits, caches = api.decode_step(params, caches,
+                                         torch.from_numpy(tok), pos)
+        ref = np.asarray(ref, np.float64)
+        err = np.abs(logits.double().numpy() - ref).max()
+        assert err <= 1e-5 * np.abs(ref).max(), (pos, err)
+    for sub, leaves in jax.tree_util.tree_map(np.asarray,
+                                              ref_caches).items():
+        for name in ("k", "v"):
+            port = np.stack([block[sub][name].view(torch.uint8).numpy()
+                             for block in caches])
+            np.testing.assert_array_equal(port, leaves[name].view(np.uint8))
 
 
 @pytest.mark.parametrize("dims,names", MESHES + [((16, 16),

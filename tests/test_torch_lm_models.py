@@ -357,6 +357,38 @@ def test_vlm_prefix_prefill_then_decode_chain_matches_reference():
     _caches_within(caches, ref_caches, 1e-5)
 
 
+@pytest.mark.parametrize("entry", ["train_loss", "prefill"])
+def test_prefix_longer_than_the_sequence_is_refused(entry):
+    """llava at ``reduced()`` (8 prefix rows) over 6 tokens: the
+    reference's ``dynamic_update_slice`` refuses the prefix, and so does
+    the port, in ``train_loss`` and in ``prefill``; a prefix of exactly
+    the sequence's 6 rows both take, within 1e-5 of max |ref|."""
+    jcfg, cfg, jparams, params = _pair("llava-next-34b")
+    japi, api = jax_build(jcfg), build(cfg)
+    rng = np.random.default_rng(9)
+    b, s = 2, 6
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "prefix_embeds": (rng.standard_normal(
+                 (b, cfg.frontend_len, cfg.d_model)) * 0.02
+             ).astype(np.float32)}
+    assert cfg.frontend_len > s
+
+    def run(fn, bt):
+        if entry == "train_loss":
+            return fn.train_loss(params if fn is api else jparams, bt)
+        return fn.prefill(params if fn is api else jparams, bt,
+                          max_seq=s)[0]
+    with pytest.raises(TypeError, match="update shape"):
+        run(japi, _jax_batch(batch))
+    with pytest.raises(ValueError, match="does not fit"):
+        run(api, _port_batch(batch))
+    batch["prefix_embeds"] = batch["prefix_embeds"][:, :s]
+    ref = run(japi, _jax_batch(batch))
+    got = run(api, _port_batch(batch))
+    _within(got.detach(), np.asarray(ref), 1e-5)
+
+
 def test_configs_match_reference():
     assert ARCHS == JAX_ARCHS
     for arch in ARCHS:

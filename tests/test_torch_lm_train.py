@@ -15,11 +15,14 @@ across as numpy), at ``reduced()`` sizes in f32:
     ``window=8`` over 24 tokens, where the window bites, and mamba2 and
     jamba over 600 tokens, two 256-row SSD chunks and a ragged tail
     (their ``dt_bias`` Mamba2's own initialisation, where the
-    reference's gradient is finite);
+    reference's gradient is finite); and at the published grouping,
+    experts and prefix (head dim 8): granite's 48 query heads on one kv
+    head, dbrx's 16 experts top-4 at capacity factor 1.25 with pairs
+    dropped, llava's 24-row prefix in 32 tokens, its labels -1 there;
   * remat on and off (and the ``dots`` policy) give the same gradients;
-  * three ``make_train_step`` steps of minitron and of mixtral against
-    the reference's: ``loss``, ``grad_norm`` and ``lr`` within 1e-5
-    relative at every step;
+  * three ``make_train_step`` steps of minitron, of mixtral and of
+    that llava against the reference's: ``loss``, ``grad_norm`` and
+    ``lr`` within 1e-5 relative at every step;
   * a reference ``TrainState`` carried across, through the port's
     checkpointer and back, bit for bit.
 
@@ -47,6 +50,7 @@ from repro_torch.convert import (lm_params_from_numpy, lm_params_to_numpy,
                                  train_state_to_numpy)
 from repro_torch.launch import steps
 from repro_torch.models.api import build
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.embedding import lm_loss
 
 KEY = jax.random.PRNGKey(0)
@@ -89,7 +93,9 @@ def _pair(arch, mamba2_dt=False, **overrides):
                                                     device="cpu")
 
 
-def _batch(cfg, b=2, s=16, seed=0):
+def _batch(cfg, b=2, s=16, seed=0, mask_prefix=False):
+    """``mask_prefix``: the labels -1 over the prefix's positions, as a
+    VLM batch is trained."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
              "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
@@ -97,6 +103,8 @@ def _batch(cfg, b=2, s=16, seed=0):
     if cfg.frontend == "vision_stub":
         batch["prefix_embeds"] = (rng.standard_normal(
             (b, cfg.frontend_len, cfg.d_model)) * 0.02).astype(np.float32)
+        if mask_prefix:
+            batch["labels"][:, :cfg.frontend_len] = -1
     if cfg.family == "encdec":
         batch["frames"] = (rng.standard_normal(
             (b, 1500, cfg.d_model)) * 0.02).astype(np.float32)
@@ -168,19 +176,62 @@ LONGER = [pytest.param("mixtral-8x7b", {"window": 8}, 24,
                        id="mamba2-1.3b-s600"),
           pytest.param("jamba-1.5-large-398b", {"mamba2_dt": True}, 600,
                        id="jamba-1.5-large-398b-s600")]
+#: the published grouping, experts and prefix at narrow widths (head dim
+#: 8, d_model 64), where ``reduced()`` caps heads at 4 over 2, experts
+#: at 4 of top-2 and the prefix at 8 rows: granite's 48 query heads on
+#: one kv head (the backward sums 48 heads' dk and dv into it); dbrx's
+#: 48 over 8 with 16 experts, top-4, capacity factor 1.25, where the
+#: 32 tokens' 128 pairs overflow the 10-row bins (``drops``); llava's 56
+#: over 8 with a prefix of 24 rows in 32 tokens and the labels -1 over
+#: it (``mask_prefix``)
+PUBLISHED = {
+    "granite-34b": dict(n_heads=48, n_kv_heads=1, head_dim=8),
+    "dbrx-132b": dict(n_heads=48, n_kv_heads=8, head_dim=8, n_experts=16,
+                      top_k=4, capacity_factor=1.25),
+    "llava-next-34b": dict(n_heads=56, n_kv_heads=8, head_dim=8,
+                           frontend_len=24)}
+AT_PUBLISHED = [
+    pytest.param("granite-34b", PUBLISHED["granite-34b"], 16,
+                 id="granite-34b-48-on-1"),
+    pytest.param("dbrx-132b", {**PUBLISHED["dbrx-132b"], "drops": True}, 16,
+                 id="dbrx-132b-16-experts-top4-drops"),
+    pytest.param("llava-next-34b", {**PUBLISHED["llava-next-34b"],
+                                    "mask_prefix": True}, 32,
+                 id="llava-next-34b-prefix24-s32")]
+
+
+def _counting_drops(monkeypatch) -> list:
+    """Each dispatch's dropped pairs (a slot past the last bin)."""
+    dropped = []
+    dispatch = moe_mod.moe_dispatch_local
+
+    def counting(x, gates, idx, n_experts, capacity):
+        bins, slot = dispatch(x, gates, idx, n_experts, capacity)
+        dropped.append(int((slot == n_experts * capacity).sum()))
+        return bins, slot
+    monkeypatch.setattr(moe_mod, "moe_dispatch_local", counting)
+    return dropped
 
 
 @pytest.mark.parametrize(
     "arch,overrides,s",
-    [pytest.param(a, {}, 16, id=a) for a in ARCHS] + LONGER)
-def test_train_loss_and_grads_match_reference(arch, overrides, s):
+    [pytest.param(a, {}, 16, id=a) for a in ARCHS] + LONGER + AT_PUBLISHED)
+def test_train_loss_and_grads_match_reference(arch, overrides, s,
+                                              monkeypatch):
+    overrides = dict(overrides)
+    drops = overrides.pop("drops", False)
+    mask_prefix = overrides.pop("mask_prefix", False)
     jcfg, cfg, jparams, params = _pair(arch, **overrides)
-    batch = _batch(cfg, s=s)
+    batch = _batch(cfg, s=s, mask_prefix=mask_prefix)
     ref, ref_grads = jax.jit(jax.value_and_grad(jax_build(jcfg).train_loss))(
         jparams, _jax(batch))
+    dropped = _counting_drops(monkeypatch)
     loss, grads = steps.value_and_grad(build(cfg), params, _port(batch))
     assert abs(float(loss) - float(ref)) <= 1e-5 * abs(float(ref))
     _grads_within(grads, ref_grads, 1e-4)
+    if drops:   # the forward and the remat recompute, each layer
+        assert len(dropped) == 2 * cfg.n_layers and min(dropped) > 0, \
+            dropped
 
 
 @pytest.mark.parametrize("arch,policy", [("minitron-4b", "nothing"),
@@ -208,10 +259,13 @@ def test_remat_on_and_off_give_equal_gradients(arch, policy):
 
 # ---------------------------------------------------------------- steps
 
-@pytest.mark.parametrize("arch", ["minitron-4b", "mixtral-8x7b"])
-def test_three_train_steps_match_reference(arch):
-    jcfg = jax_reduced(jax_get_config(arch))
-    cfg = reduced(get_config(arch))
+@pytest.mark.parametrize("arch,overrides,s", [
+    ("minitron-4b", {}, 16), ("mixtral-8x7b", {}, 16),
+    pytest.param("llava-next-34b", PUBLISHED["llava-next-34b"], 32,
+                 id="llava-next-34b-prefix24-s32")])
+def test_three_train_steps_match_reference(arch, overrides, s):
+    jcfg = jax_reduced(jax_get_config(arch), **overrides)
+    cfg = reduced(get_config(arch), **overrides)
     japi = jax_build(jcfg)
     jstate = jax_steps.init_train_state(japi, KEY)
     state = train_state_from_numpy(_numpy_tree(jstate), device="cpu")
@@ -219,7 +273,7 @@ def test_three_train_steps_match_reference(arch):
     jstep = jax.jit(jax_steps.make_train_step(japi, **kw))
     step = steps.make_train_step(build(cfg), **kw)
     for i in range(3):
-        batch = _batch(cfg, seed=10 + i)
+        batch = _batch(cfg, s=s, seed=10 + i, mask_prefix=True)
         jstate, jm = jstep(jstate, _jax(batch))
         state, m = step(state, _port(batch))
         for name in ("loss", "grad_norm", "lr"):
