@@ -169,6 +169,25 @@
     and 16 decode steps at about 2.9k keys, each held to its plain
     replay and every K4 call to ``CARD_TOL``, the prefill without its
     prefix failing the gate;
+  * ``lm_attention`` long rows, ``lm_long_dense``, ``lm_long_window``
+    (each with its ``_f32`` row): the reference's long shapes
+    (``prefill_32k``, ``decode_32k``, ``long_500k``).  K4 alone at
+    phi3-medium-14b's 1 x 32768 causal prefill and 2 x 1 x 32768-key
+    decode and mixtral-8x7b's windowed prefills of 1 x 32768 and
+    1 x 524288 (q of 2^31 elements; bf16 only), each held to the plain
+    version on fixed query panels (the first, middle and last 128 rows
+    of every head) and timed beside its bound and SDPA (none at 524288:
+    its window would be a 275 GB mask); then phi3 at full size over two
+    32768-token prompts and 16 greedy decode steps over its 32784-slot
+    cache, and mixtral at 20 of 32 blocks over one 32768-token prompt
+    that fills its 4096-slot ring 8 times over and 16 steps: every K4
+    call of the prefill within ``CARD_TOL`` on its panels and every
+    decode call whole, the prefill and the steps repeating bit for bit,
+    the logits within :func:`lm_bf16_tol` of the plain replay (a
+    step's in f32), the controls (the causal mask one row off, the
+    gather without the newest slot, ``cur_pos`` one off, mixtral's
+    window one key wider) missing their gates; prefill and step times,
+    tokens/s, peak memory, one profiled step; each at 4 layers in f32;
   * ``lm_train``: minitron-4b at full width and 24 of its 32 blocks,
     bf16 on f32 masters, trained through ``launch/train.py``'s
     ``make_trainer`` step in a plain loop at the reference driver's
@@ -394,8 +413,9 @@ from repro_torch.kernels.attention_block import backward as K4_BWD  # noqa: E402
 from repro_torch.kernels.attention_block import ops as K4_OPS  # noqa: E402
 from repro_torch.kernels.attention_block.ops import (  # noqa: E402
     flash_attention, heads_first)
+from repro_torch.kernels.attention_block import ref as K4_REF  # noqa: E402
 from repro_torch.kernels.attention_block.ref import (  # noqa: E402
-    attention_plain)
+    attention_plain, attention_plain_panel)
 from repro_torch.kernels.conv_lb import im2col as I  # noqa: E402
 from repro_torch.kernels.conv_lb import kernel as K  # noqa: E402
 from repro_torch.kernels.conv_lb import ops as conv_ops  # noqa: E402
@@ -429,7 +449,8 @@ from repro_torch.models import moe as MOE  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as LM_T  # noqa: E402
 from repro_torch.models.api import build as build_lm  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.layers import (decode_attention,  # noqa: E402
+                                       rms_norm)
 from repro_torch.models.cnn import (init_resnet, init_vgg,  # noqa: E402
                                     resnet_graph, vgg_graph,
                                     vgg_layer_dims)
@@ -2095,7 +2116,10 @@ def plain_attention(q, k, v, *, window: int, causal: bool
     """The plain version on (B, S, H, hd) tensors, run kv head group by
     kv head group so that no call's f32 scores exceed
     :func:`plain_budget`; a group whose own scores exceed it (granite's
-    48 query heads on one kv head) a part of its query heads a call."""
+    48 query heads on one kv head) a part of its query heads a call; a
+    query head whose own scores exceed it (32768 or more keys) one head
+    a call, in panels of query rows over only the keys their masks
+    leave (:func:`attention_plain_panel`)."""
     b, sq, h, hd = q.shape
     skv, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -2108,14 +2132,64 @@ def plain_attention(q, k, v, *, window: int, causal: bool
                                 vf[i:i + step], groups=g, window=window,
                                 causal=causal)
                 for i in range(0, b * kv, step)]
-    else:
+    elif per_head <= max_bytes:
         part = max(1, max_bytes // per_head)
         outs = [attention_plain(qf[i * g + j:i * g + min(j + part, g)],
                                 kf[i:i + 1], vf[i:i + 1],
                                 groups=min(j + part, g) - j, window=window,
                                 causal=causal)
                 for i in range(b * kv) for j in range(0, g, part)]
+    else:
+        rows = max(1, max_bytes // (4 * skv))
+        outs = [torch.cat([attention_plain_panel(
+            qf[i:i + 1, r:r + rows], kf[i // g:i // g + 1],
+            vf[i // g:i // g + 1], row0=r, groups=1, window=window,
+            causal=causal) for r in range(0, sq, rows)], dim=1)
+            for i in range(b * h)]
     return torch.cat(outs).reshape(b, h, sq, hd).transpose(1, 2)
+
+
+def panel_rows(sq: int, rows: int = 128) -> list[tuple[int, int]]:
+    """The query panels a long attention is held to, fixed before any
+    run: the first ``rows`` rows, the ``rows`` around the middle and the
+    last ``rows`` (``(row0, rows)``; one panel where Sq is that short)."""
+    if sq <= rows:
+        return [(0, sq)]
+    return sorted({(0, rows), (sq // 2 - rows // 2, rows),
+                   (sq - rows, rows)})
+
+
+def panel_cut(t: torch.Tensor, panels) -> torch.Tensor:
+    """The panels' rows of (B, S, H, hd) ``t``, in order, heads-first
+    (B*H, rows, hd) as :func:`plain_panels` gives them."""
+    return torch.cat([heads_first(t[:, r:r + n]) for r, n in panels], dim=1)
+
+
+def plain_panels(q, k, v, *, window: int, causal: bool, panels,
+                 row_off: int = 0) -> tuple[torch.Tensor, int]:
+    """The plain version of the panels' rows of every head of (B, S, H,
+    hd) q against k, v (:func:`attention_plain_panel`, a kv head group a
+    call, its query heads split where their scores exceed
+    :func:`plain_budget`), heads-first (B*H, rows, hd) as
+    :func:`panel_cut` lays them out, and the rows a head.
+    ``row_off``: the control, the masks read ``row_off`` rows off."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    kf, vf = (heads_first(t) for t in (k, v))
+    max_bytes = plain_budget()
+    outs = []
+    for r0, n in panels:
+        qp = heads_first(q[:, r0:r0 + n])
+        lo, hi = K4_REF.key_span(r0 + row_off, n, k.shape[1], window,
+                                 causal)
+        part = max(1, min(g, max_bytes // max(1, 4 * n * (hi - lo))))
+        outs.append(torch.cat([attention_plain_panel(
+            qp[i * g + j:i * g + min(j + part, g)], kf[i:i + 1],
+            vf[i:i + 1], row0=r0 + row_off, groups=min(j + part, g) - j,
+            window=window, causal=causal)
+            for i in range(b * kv) for j in range(0, g, part)]))
+    return torch.cat(outs, dim=1), sum(n for _, n in panels)
 
 
 # b, sq, skv, h, kv, hd, window, causal: the reference's sweep and a
@@ -2510,18 +2584,22 @@ ATTN_FULL = [("phi3-medium-14b", 1, 4096, 40, 10, 128, 0, True),
 
 def _library_attention(qh, kh, vh, *, window: int, causal: bool):
     """``F.scaled_dot_product_attention`` on (B, H, S, hd): the time
-    yardstick (never called by the port)."""
+    yardstick (never called by the port).  K and V of as many heads as
+    q are passed without ``enable_gqa``, which SDPA's memory-efficient
+    kernel does not take (at 32768 keys its math fallback would hold
+    every score)."""
     sq, skv = qh.shape[2], kh.shape[2]
+    gqa = {} if kh.shape[1] == qh.shape[1] else {"enable_gqa": True}
     if not window:
         return lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=causal, enable_gqa=True)
+            qh, kh, vh, is_causal=causal, **gqa)
     q_pos = torch.arange(sq, device="cuda")[:, None]
     k_pos = torch.arange(skv, device="cuda")[None, :]
     mask = k_pos > q_pos - window
     if causal:
         mask &= k_pos <= q_pos
     return lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+        qh, kh, vh, attn_mask=mask, **gqa)
 
 
 def library_kernels(fn) -> list[str]:
@@ -2804,6 +2882,15 @@ LM_PREFILL_S = 4096
 LM_F32_LAYERS, LM_WINDOW, LM_S = 4, 64, 64
 #: decode steps (by position) whose control drops the newest slot
 LM_CONTROL_POS = (1, 8)
+#: a K4 row or call longer than this many queries is held to the plain
+#: version on its panels (:func:`panel_rows`), not whole
+PANEL_MIN_S = 8192
+#: the rows of each panel: the first, the middle and the last of a head
+LONG_PANEL = 128
+#: about how long a long row's back-to-back calls take in all (ms)
+LONG_DEVICE_MS = 300.0
+#: the largest (Sq, Skv) bool mask SDPA is handed for a window (4 GB)
+LONG_MASK_BYTES = 1 << 32
 #: every kernel's launch counter
 LAUNCH_COUNTERS = (("conv_lb", K.conv_lb), ("wgrad_lb", W.wgrad_lb),
                    ("matmul_lb", K3.matmul_lb), ("attention", K4.attention))
@@ -3122,49 +3209,126 @@ def per_layer_k4(api, params, dtype, gen, length: int = LM_PREFILL_S
     return out
 
 
+def _long_inputs(gen, b, sq, skv, h, kv, hd, dtype):
+    """q, k, v of a long K4 row drawn on the card (a CUDA generator
+    seeded from ``gen``): 2^31 elements drawn on the host would take
+    minutes."""
+    cgen = torch.Generator(device="cuda").manual_seed(
+        int(torch.randint(2 ** 62, (1,), generator=gen)))
+    return tuple(torch.randn(shape, generator=cgen, device="cuda",
+                             dtype=dtype)
+                 for shape in ((b, sq, h, hd), (b, skv, kv, hd),
+                               (b, skv, kv, hd)))
+
+
+def _sdpa_refused(sq: int, skv: int, window: int) -> str | None:
+    """Why ``F.scaled_dot_product_attention`` cannot time a row, or
+    ``None``: it takes a window only as a dense (Sq, Skv) mask."""
+    if window and sq * skv > LONG_MASK_BYTES:
+        return (f"SDPA takes the window only as a dense (Sq, Skv) mask: "
+                f"{sq} x {skv} bools are {sq * skv / 1e9:.0f} GB")
+    return None
+
+
 def k4_lm_rows(cfg, dtype, gen, flush, card: str, shapes) -> list:
     """K4 alone at the LM path's shapes, ``(what, b, sq, skv, causal,
     window)``: held to the plain version, timed (one flushed call, and
     back to back on the card alone: ``device_ms``) beside its bound
     (the pairs the window and the causal mask leave), the plain version
-    and ``F.scaled_dot_product_attention``, the host's enqueue."""
+    and ``F.scaled_dot_product_attention``, the host's enqueue.  A row
+    longer than :data:`PANEL_MIN_S` queries is held to the plain version
+    on its panels (:func:`panel_rows`: the first, middle and last
+    :data:`LONG_PANEL` rows of every head) and ``plain_ms`` times those
+    panels only; its inputs are drawn on the card, and its calls timed
+    back to back are as many as fill about :data:`LONG_DEVICE_MS`."""
     rows = []
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     for what, b, sq, skv, causal, window in shapes:
-        q = _randn(gen, b, sq, h, hd).to(dtype)
-        k, v = (_randn(gen, b, skv, kv, hd).to(dtype) for _ in range(2))
+        long = max(sq, skv) > PANEL_MIN_S
+        if long:
+            q, k, v = _long_inputs(gen, b, sq, skv, h, kv, hd, dtype)
+        else:
+            q = _randn(gen, b, sq, h, hd).to(dtype)
+            k, v = (_randn(gen, b, skv, kv, hd).to(dtype) for _ in range(2))
         kw = dict(window=window, causal=causal)
-        chk = within(flash_attention(q, k, v, **kw),
-                     plain_attention(q, k, v, **kw), dtype)
+        held = {}
+        if sq > PANEL_MIN_S:
+            panels = panel_rows(sq, LONG_PANEL)
+            ref, n_rows = plain_panels(q, k, v, panels=panels, **kw)
+            chk = within(panel_cut(flash_attention(q, k, v, **kw), panels),
+                         ref, dtype)
+            del ref
+            held = {"held_on": "panels", "panels": panels,
+                    "rows_a_head": n_rows,
+                    "last_panel_first_element":
+                        ((b * h - 1) * sq + panels[-1][0]) * hd,
+                    "plain_ms_is": f"the plain version on the panels' "
+                                   f"{n_rows} rows of each of {b * h} "
+                                   f"heads only"}
+
+            def plain():
+                return plain_panels(q, k, v, panels=panels, **kw)
+        else:
+            chk = within(flash_attention(q, k, v, **kw),
+                         plain_attention(q, k, v, **kw), dtype)
+
+            def plain():
+                return plain_attention(q, k, v, **kw)
         require(chk["worst_over_tol"] <= 1.0,
                 f"lm_attention {what} {dtype}: {chk}")
         qf, kf, vf = (heads_first(t) for t in (q, k, v))
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         rt = K4.route(qf, kf, vf)
         pairs = b * h * unmasked_pairs(sq, skv, window, causal)
         flops = 4.0 * hd * pairs
         n_bytes = float(2 * (q.numel() + k.numel()) * q.element_size())
-        library = _library_attention(qh, kh, vh, **kw)
+        refused = _sdpa_refused(sq, skv, window)
+        if refused is None:
+            # a long row's K and V repeated to every query head
+            rep = h // kv if long else 1
+            qh, kh, vh = (t.transpose(1, 2).repeat_interleave(
+                1 if t is q else rep, dim=1).contiguous() for t in (q, k, v))
+            library = _library_attention(qh, kh, vh, **kw)
 
         def kernel():
             return K4.attention(qf, kf, vf, groups=h // kv, **kw)
 
+        reps = 3 if long else 10
+        ms = _time_ms(kernel, flush, reps=reps)
+        calls = max(3, min(100, round(LONG_DEVICE_MS / ms))) if long else 100
         row = {"phase": "lm_attention", "config": cfg.name, "what": what,
                "shape": {"b": b, "sq": sq, "skv": skv, "h": h, "kv": kv,
                          "hd": hd},
-               "causal": causal, "window": window, "dtype": str(dtype), "route": rt, **chk,
-               "ms": _time_ms(kernel, flush),
-               "device_ms": _device_ms(kernel),
-               "plain_ms": _time_ms(lambda: plain_attention(q, k, v, **kw),
-                                    flush, reps=3),
-               "library_ms": _time_ms(library, flush),
-               "library_device_ms": _device_ms(library),
-               "library_kernels": library_kernels(library),
-               "host_us": _host_us(kernel),
+               "causal": causal, "window": window, "dtype": str(dtype),
+               "route": rt, **chk, **held,
+               "ms": ms, "device_ms": _device_ms(kernel, calls),
+               "device_calls": calls,
+               "plain_ms": _time_ms(plain, flush, reps=3),
+               "host_us": _host_us(kernel, 5 if long else 20),
                **attention_bounds(flops, n_bytes, dtype, rt),
                "flops": flops, "bytes": n_bytes, "card": card}
+        if refused is None:
+            try:
+                lib_ms = _time_ms(library, flush, reps=reps)
+            except torch.OutOfMemoryError as e:
+                if not long:
+                    raise
+                refused = f"SDPA ran out of memory: {str(e)[:120]}"
+        if refused is None:
+            lib_calls = max(3, min(100, round(LONG_DEVICE_MS / lib_ms))) \
+                if long else 100
+            row.update(library_ms=lib_ms,
+                       library_device_ms=_device_ms(library, lib_calls),
+                       library_kernels=library_kernels(library),
+                       library_kv_heads=kh.shape[1])
+            del qh, kh, vh, library
+        else:
+            row.update(library_ms=None, library_device_ms=None,
+                       library_kernels=[], library_null_reason=refused)
+            qh = kh = vh = library = None
+            _free()
         emit(row)
         rows.append(row)
+        del q, k, v, qf, kf, vf, plain
     return rows
 
 
@@ -3177,7 +3341,6 @@ def profile_decode_step(api, params, steps) -> dict:
     top-level ``aten`` ops the step runs on the host."""
     from torch.profiler import ProfilerActivity, profile
     caches, tok, pos, _ = steps[-1]
-    api.decode_step(params, clone_caches(caches), tok, pos)
     run = clone_caches(caches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3185,6 +3348,7 @@ def profile_decode_step(api, params, steps) -> dict:
     enqueue = time.perf_counter() - t0
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    del run     # one clone at a time: a long cache is 13.4 GB
     run = clone_caches(caches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3193,7 +3357,10 @@ def profile_decode_step(api, params, steps) -> dict:
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+        # the port's ``record_function`` ranges (``moe_dispatch``, ...)
+        # have device spans too, over the kernels they enqueue: not work
+        if str(getattr(e, "device_type", "")).endswith("CUDA") \
+                and e.key not in LM_TRAIN_RANGES:
             us = getattr(e, "device_time_total",
                          getattr(e, "cuda_time_total", 0))
             kernels[e.key] = (us / 1e3, e.count)
@@ -3268,23 +3435,25 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
     del steps, routing
     layers = per_layer_k4(api, params, cfg.compute_dtype, gen, length)
     toks = torch.randint(0, cfg.vocab, (1, length), generator=gen).cuda()
-    prefill_s = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, caches = api.prefill(params, {"tokens": toks},
-                                     max_seq=length)
-        torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t0)
-        require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
-                f"{phase} prefill: logits not finite")
-        del logits, caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = api.prefill(params, {"tokens": toks}, max_seq=length)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits[:, :cfg.vocab]).all()),
+            f"{phase} prefill: logits not finite")
+    del logits, caches
     peak = torch.cuda.max_memory_allocated()
     del server, api, params
     _free()
-    k4_rows = k4_lm_rows(cfg, cfg.compute_dtype, gen, flush, card, (
-        ("decode", LM_SLOTS, 1, LM_MAX_SEQ, False, 0),
-        ("prefill", 1, length, length, True, cfg.window)))
+    # K4 alone at the decode shape, and at the prefill's where the
+    # ``attention`` phase has not timed that shape (phi3's 4096 and
+    # mixtral's windowed 8192 are its own rows)
+    shapes = [("decode", LM_SLOTS, 1, LM_MAX_SEQ, False, 0)]
+    if (cfg.name, 1, length, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            cfg.window, True) not in ATTN_FULL:
+        shapes.append(("prefill", 1, length, length, True, cfg.window))
+    k4_rows = k4_lm_rows(cfg, cfg.compute_dtype, gen, flush, card, shapes)
     row = {"phase": phase, "config": cfg.name,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "window": cfg.window,
@@ -3301,8 +3470,7 @@ def serve_bf16(card: str, flush, gen, cfg, phase: str, length: int):
            "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3,
            "tokens_per_s": generated / sum(secs), **timing,
            "prefill_tokens": length,
-           "prefill_ms_median": _median(prefill_s) * 1e3,
-           "prefill_ms": [t * 1e3 for t in prefill_s],
+           "prefill_ms": prefill_s * 1e3,
            "serve_peak_gb": serve_peak / 1e9, "peak_gb": peak / 1e9,
            "teacher_forced": teacher, "control_drop_newest": controls,
            "per_layer_k4": layers, **extra, "card": card}
@@ -3323,8 +3491,7 @@ def phase_lm_serve(card: str) -> dict:
     emit(row)
     f32 = lm_f32(card, flush, gen)
     return {"bf16": counts, "f32": f32["launches"], "rows": k4_rows,
-            "f32_rows": f32["rows"], "step_ms_median": row["step_ms_median"],
-            "prefill_ms_median": row["prefill_ms_median"]}
+            "f32_rows": f32["rows"], "step_ms_median": row["step_ms_median"]}
 
 
 def _nbytes(tree) -> int:
@@ -3492,6 +3659,11 @@ def _free() -> None:
     torch.cuda.empty_cache()
 
 
+def moe_cfg():
+    """mixtral-8x7b at full width cut to :data:`MOE_LAYERS` blocks."""
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+
+
 def phase_lm_serve_moe(card: str, flush) -> dict:
     """mixtral-8x7b at full width (d_model 4096, 8 experts of d_ff 14336,
     top-2, capacity factor 1.25, window 4096) and 20 of its 32 blocks in
@@ -3506,7 +3678,7 @@ def phase_lm_serve_moe(card: str, flush) -> dict:
     8193: a 4096-slot ring, the window masking keys at the prefill's
     end and at decode).  Then 4 blocks in f32 (:func:`lm_f32`)."""
     gen = torch.Generator().manual_seed(SEED + 21)
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    cfg = moe_cfg()
     row, counts, k4_rows = serve_bf16(card, flush, gen, cfg, "lm_serve_moe",
                                       MOE_PREFILL_S)
     emit({**row, "full_depth_layers": get_config(MOE_ARCH).n_layers,
@@ -3802,17 +3974,13 @@ def _merged(*counts: dict) -> dict:
                    for r in counts[0][name]} for name in counts[0]}
 
 
-def _median_ms(fn, reps: int = 3) -> float:
-    """The median host-clock ms of ``reps`` calls of ``fn``, each ended
-    by a synchronize."""
-    secs = []
-    for _ in range(reps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-    return _median(secs) * 1e3
+def _once_ms(fn) -> float:
+    """The host-clock ms of one call of ``fn``, ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def encdec_audio(api, params, gen, tol: float, what: str) -> dict:
@@ -3878,9 +4046,8 @@ def encdec_audio(api, params, gen, tol: float, what: str) -> dict:
            "prefill_err_over_max_plain": prefill_err,
            "prefill_per_call_worst_over_card_tol": max(per_call),
            "decode": teacher, "gate": tol,
-           "encode_ms_median": _median_ms(
-               lambda: LM_E.encode(params, frames, cfg)),
-           "prefill_ms_median": _median_ms(
+           "encode_ms": _once_ms(lambda: LM_E.encode(params, frames, cfg)),
+           "prefill_ms": _once_ms(
                lambda: api.prefill(params, batch, max_seq=LM_MAX_SEQ)),
            "step_ms_median": _median(secs) * 1e3,
            "step_ms_min": min(secs) * 1e3, "step_ms_max": max(secs) * 1e3}
@@ -4130,8 +4297,8 @@ def vlm_prefix(card: str, flush, gen, cfg) -> dict:
     require(control_err > tol, f"lm_serve_vlm control: the prefill without "
                                f"its prefix passes, {control_err}")
     del bare, plain
-    prefill_ms = _median_ms(lambda: api.prefill(params, batch,
-                                                max_seq=max_seq))
+    prefill_ms = _once_ms(lambda: api.prefill(params, batch,
+                                              max_seq=max_seq))
     decode_counts, teacher, secs = [], [], []
     tok = logits[..., :cfg.vocab].argmax(-1).reshape(VLM_BATCH, 1)
     for pos in range(s, max_seq):
@@ -4164,6 +4331,7 @@ def vlm_prefix(card: str, flush, gen, cfg) -> dict:
                     "max_seq": max_seq, "decode_keys": [s + 1, max_seq],
                     "k4_sm90_per_prefill": cfg.n_layers,
                     "k4_sm90_per_step": cfg.n_layers, "gate": tol,
+                    "prefill_replayed": prefill_err is not None,
                     "prefill_err_over_max_plain": prefill_err,
                     "prefill_per_call_worst_over_card_tol": max(per_call),
                     "control_no_prefix": {
@@ -4176,7 +4344,7 @@ def vlm_prefix(card: str, flush, gen, cfg) -> dict:
                     "decode_steps_greedy_equal": sum(
                         t["steps_greedy_equal"] for t in teacher),
                     "steps": len(secs),
-                    "prefill_ms_median": prefill_ms,
+                    "prefill_ms": prefill_ms,
                     "step_ms_median": _median(secs) * 1e3,
                     "step_ms_min": min(secs) * 1e3,
                     "step_ms_max": max(secs) * 1e3}}
@@ -4203,6 +4371,549 @@ def phase_lm_serve_vlm(card: str, flush) -> dict:
     run["bf16"] = _merged(run["bf16"], prefix["launches"])
     run["rows"] = run["rows"] + prefix["rows"]
     return _served(run)
+
+
+# --------------------------------------------------------------------------
+# lm_long_dense, lm_long_window: the reference's long shapes (its
+# ``configs/base.py`` SHAPES: prefill_32k, decode_32k, long_500k) through
+# the LM entry points and K4 alone
+# --------------------------------------------------------------------------
+
+#: prefill_32k's and decode_32k's length, and long_500k's
+LONG_S, LONG_500K = 32768, 524288
+#: greedy decode steps after the long prefill (bf16; the f32 rows')
+LONG_STEPS, LONG_F32_STEPS = 16, 4
+#: phi3's batch (the reference's 32 to prefill and 128 to decode, cut to
+#: fit one card: 28.7 GB of weights and a 13.4 GB cache at 2 rows) and
+#: mixtral's (20 of 32 blocks are 58 GB)
+LONG_DENSE_BATCH, LONG_WINDOW_BATCH = 2, 1
+#: the f32 rows' depth
+LONG_F32_LAYERS = 4
+#: the decode steps (by index) whose controls run
+LONG_CONTROL_STEPS = (0, 8)
+
+
+def panel_tap(dtype, into: list, controls: dict):
+    """A ``tap`` that holds each K4 call of a long prefill to the plain
+    version on its panels (:func:`plain_panels`) at ``CARD_TOL``,
+    appending its worst |err| / tolerance to ``into``; and, on the same
+    call, each control of ``controls`` (``"row_off"``: the causal mask
+    one row off; ``"window_wider"``: the window one key wider), whose
+    reading it appends to the control's list."""
+    def tap(layer, q, k, v, out, *, window, causal):
+        panels = panel_rows(q.shape[1], LONG_PANEL)
+        got = panel_cut(out, panels)
+        ref, _ = plain_panels(q, k, v, window=window, causal=causal,
+                              panels=panels)
+        into.append(within(got, ref, dtype)["worst_over_tol"])
+        del ref
+        for name, readings in controls.items():
+            wider = name == "window_wider"
+            wrong, _ = plain_panels(
+                q, k, v, window=window + 1 if wider else window,
+                causal=causal, panels=panels,
+                row_off=0 if wider else 1)
+            readings.append(within(got, wrong, dtype)["worst_over_tol"])
+    return tap
+
+
+def decode_tap(dtype, caches: list, cur_pos: int, cfg, into: list,
+               outside: list | None = None):
+    """A ``tap`` that holds each K4 call of a decode step, whole (one
+    query row), to the model's own plain decode attention over the
+    layer's cache (:func:`decode_attention` in one chunk: every slot its
+    mask keeps, read by position, not K4's gathered inputs) at
+    ``CARD_TOL``,
+    appending its worst |err| / tolerance to ``into``.  ``outside``:
+    the control, each layer's (k, v) of the position one outside the
+    window (the slot the step overwrote, as it held it before), the
+    reference over K4's own keys and that one."""
+    def tap(layer, q, k, v, out, *, window, causal):
+        if outside is None:
+            c = caches[layer]["sub0"]
+            ref = decode_attention(q, c["k"], c["v"], c["pos"], cur_pos,
+                                   window=cfg.window, chunk=c["k"].shape[1])
+        else:
+            k_old, v_old = outside[layer]
+            ref = plain_attention(q, torch.cat([k, k_old], 1),
+                                  torch.cat([v, v_old], 1), window=0,
+                                  causal=False)
+        into.append(within(out, ref, dtype)["worst_over_tol"])
+    return tap
+
+
+def written_slot(cache: dict, cur_pos: int, window: int) -> int | None:
+    """The slot of an attention cache a decode step at ``cur_pos``
+    writes (its ring's under a window), or ``None`` past the last."""
+    slots = cache["k"].shape[1]
+    slot = cur_pos % slots if window else cur_pos
+    return slot if slot < slots else None
+
+
+class SlotState:
+    """The cache slots that decode steps at ``positions`` write, saved
+    for every attention layer (K, V and position), so that a long step
+    can be undone and replayed in place: at 32768 slots a clone of phi3's
+    caches is 13.4 GB.  :meth:`put` writes them back."""
+
+    def __init__(self, caches: list, positions, window: int):
+        self.caches = caches
+        self.saved = []
+        for block in caches:
+            c = block["sub0"]
+            idx = sorted({s for p in positions if (s := written_slot(
+                c, p, window)) is not None})
+            t = torch.as_tensor(idx, dtype=torch.long, device=c["k"].device)
+            self.saved.append((idx, t, c["k"][:, t].clone(),
+                               c["v"][:, t].clone(), c["pos"][idx].copy()))
+
+    def put(self) -> list:
+        for block, (idx, t, k, v, pos) in zip(self.caches, self.saved):
+            c = block["sub0"]
+            c["k"][:, t] = k
+            c["v"][:, t] = v
+            c["pos"][idx] = pos
+        return self.caches
+
+    def slot(self, layer: int, slot: int) -> tuple:
+        """Layer ``layer``'s saved (k, v), (B, 1, KV, hd), of ``slot``,
+        and the position it held."""
+        idx, _, k, v, pos = self.saved[layer]
+        i = idx.index(slot)
+        return k[:, i:i + 1], v[:, i:i + 1], int(pos[i])
+
+
+@contextlib.contextmanager
+def gather_routes(into: dict):
+    """Each decode gather of the block (``models/attention.py``
+    ``_gather``) counted by what it runs: ``slice`` (the kept slots
+    are the cache's first) or ``index_select``."""
+    gather = LM_A._gather
+
+    def counting(c, idx):
+        n = len(idx)
+        into["slice" if n and idx[-1] == n - 1 else "index_select"] += 1
+        return gather(c, idx)
+    with patched((LM_A, "_gather", counting)):
+        yield into
+
+
+def widen(tree, dtype):
+    """Every floating leaf of ``tree`` in ``dtype``: the f32 replay's
+    cast of a bf16 block's params, one block at a time (in place of
+    ``cast_params_for_compute``, which only narrows)."""
+    if isinstance(tree, dict):
+        return {k: widen(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [widen(v, dtype) for v in tree]
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree.to(dtype)
+    return tree
+
+
+def f32_replay(api, params, before: SlotState, tok, pos: int,
+               routing: Routing | None):
+    """The logits of a decode step replayed with the plain attention in
+    f32 from the caches as they were before it (``api`` built at f32
+    compute; each bf16 block widened as it runs, the bf16 cache read in
+    f32), under the served routing where there are experts."""
+    with _routed(routing, 0), patched((LM_T, "cast_params_for_compute",
+                                       widen)):
+        return api.decode_step(params, before.put(), tok, pos,
+                               attn="plain")[0]
+
+
+def long_step(api, replay_api, params, before: SlotState, tok, pos: int,
+              logits, exact, tol: float, what: str,
+              routing: Routing | None) -> dict:
+    """A served long decode step again from the caches as they were
+    before it (``before``, written back for each run), under the served
+    routing where there are experts: the logits' error over max |exact|
+    of the plain replay in f32 (``exact``, :func:`f32_replay`; in an f32
+    row the plain replay itself) against ``tol`` (:func:`expect`); with
+    the plain attention in the compute type (``replay_api``; reported
+    beside it: two bf16 computations each carry their own rounding);
+    and the served
+    path with :func:`decode_tap` on every K4 call (each within
+    ``CARD_TOL``, and the logits equal to the served ones bit for bit:
+    the step repeats)."""
+    cfg = api.cfg
+    plain = exact
+    if cfg.compute_dtype == torch.bfloat16:
+        with _routed(routing, 0, count=True):
+            plain = replay_api.decode_step(params, before.put(), tok, pos,
+                                           attn="plain")[0]
+    per_call = []
+    run = before.put()
+    with _routed(routing, 0):
+        again = api.decode_step(params, run, tok, pos, tap=decode_tap(
+            cfg.compute_dtype, run, pos, cfg, per_call))[0]
+    require(torch.equal(again, logits),
+            f"{what}: the decode step at pos {pos} did not repeat")
+    require(len(per_call) == attention_layers(cfg) and max(per_call) <= 1.0,
+            f"{what} decode at pos {pos}: K4 calls against the plain "
+            f"decode attention, worst {max(per_call)} of CARD_TOL over "
+            f"{len(per_call)} calls")
+    err = _rel(logits, exact, cfg.vocab)
+    expect(err <= tol, f"{what} decode at pos {pos}: logits err {err} of "
+                       f"max |f32 plain| > {tol}")
+    return {"err": err, "per_call": max(per_call),
+            "bf16_plain_err": _rel(logits, plain, cfg.vocab),
+            "bf16_plain_vs_f32": _rel(plain, exact, cfg.vocab),
+            "greedy_equal": bool(torch.equal(logits[..., :cfg.vocab].argmax(
+                -1), exact[..., :cfg.vocab].argmax(-1)))}
+
+
+def long_step_controls(api, params, before: SlotState, tok, pos: int, exact,
+                       routing: Routing | None) -> dict:
+    """The decode controls at one long step, each from the caches as
+    they were before it under the served routing, their logits against
+    the step's f32 plain replay ``exact``: the gather without the newest
+    slot (the logits' error, and the worst K4 call against
+    :func:`decode_tap`'s reference, which keeps it); ``cur_pos`` one off
+    (RoPE at the wrong position; the logits); under a window, each K4
+    call against the reference over its keys and the position one
+    outside the window (:func:`decode_tap` with ``outside``)."""
+    cfg = api.cfg
+    dtype = cfg.compute_dtype
+    per_call = []
+    run = before.put()
+    with drop_newest_slot(), _routed(routing, 0):
+        wrong = api.decode_step(params, run, tok, pos, tap=decode_tap(
+            dtype, run, pos, cfg, per_call))[0]
+    out = {"pos": pos,
+           "drop_newest": {"err_over_max_plain": _rel(wrong, exact,
+                                                      cfg.vocab),
+                           "per_call_worst_over_card_tol": max(per_call),
+                           "held_to": "the per-call gate"}}
+    with _routed(routing, 0):
+        wrong = api.decode_step(params, before.put(), tok, pos + 1)[0]
+    out["wrong_pos"] = {"err_over_max_plain": _rel(wrong, exact, cfg.vocab)}
+    if cfg.window:
+        outside, extra = [], []
+        for i, block in enumerate(before.caches):
+            slot = written_slot(block["sub0"], pos, cfg.window)
+            k_old, v_old, held = before.slot(i, slot)
+            require(held == pos - cfg.window,
+                    f"the ring's slot {slot} held {held}, not "
+                    f"{pos - cfg.window}")
+            outside.append((k_old, v_old))
+        with _routed(routing, 0):
+            api.decode_step(params, before.put(), tok, pos,
+                            tap=decode_tap(dtype, None, pos, cfg, extra,
+                                           outside))
+        out["window_wider"] = {"per_call_worst_over_card_tol": max(extra),
+                               "per_call_min_over_card_tol": min(extra)}
+    return out
+
+
+def prefill_replayed(cfg) -> bool:
+    """Is the long prefill's last-token logits gate run (the whole-model
+    plain replay, ``attn="plain"``)?  Under a window (mixtral: 150 of
+    the 1024 chunk pairs of a 32768-token prefill run) and at the f32
+    rows' 4 layers it is cheap; phi3's 40 causal bf16 layers took
+    62.44 s for 2 x 32768 tokens on an H100 (about 7% of the smoke's
+    time), so there every K4 call is held on its panels and the f32 row
+    holds the whole-model replay."""
+    return bool(cfg.window) or cfg.compute_dtype == torch.float32
+
+
+def long_context(card: str, cfg, phase: str, b: int, steps: int, gen
+                 ) -> dict:
+    """``cfg`` through its LM entry points at the reference's long
+    shapes: ``prefill`` of ``b`` distinct prompts of :data:`LONG_S`
+    tokens from the seed (max_seq ``LONG_S + steps``; under a window a
+    ring the prefill fills ``LONG_S / window`` times over), then
+    ``steps`` greedy ``decode_step``s over that cache.  Required: one K4
+    launch an attention layer on the type's tensor-core route
+    (``sm90``, f32 ``sm90_tf32``) and nothing else of K1-K4, no plain
+    attention; every K4 call of the prefill within ``CARD_TOL`` on its
+    panels (a tapped repeat whose logits equal the served ones bit for
+    bit), and the controls on the same calls (the causal mask one row
+    off; under a window the window one key wider) missing it; every
+    decode step repeated bit for bit and each of its K4 calls within
+    ``CARD_TOL`` whole (:func:`long_step`).  Gated by :func:`expect`,
+    each within the type's gate (bf16 :func:`lm_bf16_tol`, f32 ``TOL``)
+    of max |plain| of the whole-model plain replay (``attn="plain"``;
+    with experts under the served routing): the prefill's last-token
+    logits against the replay in the compute type (where
+    :func:`prefill_replayed`), every step's
+    against the replay in f32 (:func:`f32_replay`: at 32768 keys two
+    bf16 computations of the step, each with its own rounding, lie as
+    far apart as the gate; ``probes/long_replay_floor.py``), the bf16
+    replay's reading beside it.  The decode controls
+    (:func:`long_step_controls`) at :data:`LONG_CONTROL_STEPS`.
+    Recorded: the prefill's and the plain replay's seconds, each
+    step's, tokens/s, the peak memory, the decode gathers by route, one
+    profiled step, the phase's seconds by part."""
+    t_phase = time.perf_counter()
+    dtype = cfg.compute_dtype
+    bf16 = dtype == torch.bfloat16
+    tol, route = (lm_bf16_tol(cfg), "sm90") if bf16 else (TOL, "sm90_tf32")
+    n_attn = attention_layers(cfg)
+    s, max_seq = LONG_S, LONG_S + steps
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = build_lm(cfg)
+    # the decode replays' plain attention in one chunk over every slot
+    # (the model's chunk, 1024, walks phi3's 32784 slots in 33)
+    replay_api = build_lm(dataclasses.replace(cfg, attn_chunk=max_seq))
+    exact_api = build_lm(dataclasses.replace(
+        cfg, compute_dtype=torch.float32, attn_chunk=max_seq))
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED),
+                      cast_blocks=True)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = _nbytes(params)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen).cuda()
+    require(b == 1 or not torch.equal(toks[0], toks[1]),
+            f"{phase}: the prompts are not distinct")
+    batch = {"tokens": toks}
+    routing = Routing(moe_layers(cfg)) if cfg.n_experts else None
+    prefill_counts = {}
+    with counted(prefill_counts), no_plain_attention(), _recorded(routing):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(params, batch, max_seq=max_seq)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    require(k4_only(prefill_counts, route, n_attn),
+            f"{phase} prefill launches {prefill_counts}")
+    require(bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+            f"{phase} prefill: logits not finite")
+    cache_bytes = _nbytes(caches)
+    prefill_peak = torch.cuda.max_memory_allocated()
+    per_call = []
+    controls = {"row_off": []} | ({"window_wider": []} if cfg.window else {})
+    t0 = time.perf_counter()
+    again = api.prefill(params, batch, max_seq=max_seq,
+                        tap=panel_tap(dtype, per_call, controls))[0]
+    require(torch.equal(again, logits),
+            f"{phase}: the prefill did not repeat")
+    del again
+    require(len(per_call) == n_attn and max(per_call) <= 1.0,
+            f"{phase} prefill: K4 calls against the plain version on their "
+            f"panels, worst {max(per_call)} of CARD_TOL over "
+            f"{len(per_call)} calls")
+    for name, readings in controls.items():
+        require(len(readings) == n_attn and max(readings) > 1.0,
+                f"{phase} prefill control {name} passes the per-call gate: "
+                f"{readings}")
+    parts = {"init": init_s, "prefill": prefill_s,
+             "prefill_tapped": time.perf_counter() - t0}
+    prefill_err = plain_prefill_s = prefill_flips = None
+    if prefill_replayed(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _routed(routing, 0, count=True):
+            plain = api.prefill(params, batch, max_seq=max_seq,
+                                attn="plain")[0]
+        torch.cuda.synchronize()
+        plain_prefill_s = parts["prefill_replay"] = time.perf_counter() - t0
+        prefill_err = _rel(logits, plain, cfg.vocab)
+        expect(prefill_err <= tol, f"{phase} prefill: logits err "
+                                   f"{prefill_err} of max |plain| > {tol}")
+        prefill_flips = (routing.flips, routing.rows) if routing else None
+        del plain
+    t_decode = time.perf_counter()
+    gathers = {"slice": 0, "index_select": 0}
+    step_counts, teacher, step_controls, secs = [], [], [], []
+    timing = {}
+    tok = logits[..., :cfg.vocab].argmax(-1).reshape(b, 1)
+    def lap(part: str, t: float) -> float:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        parts[part] = parts.get(part, 0.0) + now - t
+        return now
+
+    for i, pos in enumerate(range(s, max_seq)):
+        # the slots this step writes, and the control at pos + 1 would
+        before = SlotState(caches, (pos, pos + 1), cfg.window)
+        step_routing = Routing(moe_layers(cfg)) if cfg.n_experts else None
+        c = {}
+        with counted(c), no_plain_attention(), _recorded(step_routing), \
+                gather_routes(gathers):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = api.decode_step(params, caches, tok, pos)
+            nxt = logits[..., :cfg.vocab].argmax(-1).reshape(b, 1)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        require(k4_only(c, route, n_attn),
+                f"{phase} decode at pos {pos}: launches {c}")
+        step_counts.append(c)
+        served = SlotState(caches, (pos, pos + 1), cfg.window)
+        t = time.perf_counter()
+        if bf16:
+            exact = f32_replay(exact_api, params, before, tok, pos,
+                               step_routing)
+        else:
+            with _routed(step_routing, 0, count=True):
+                exact = replay_api.decode_step(params, before.put(), tok,
+                                               pos, attn="plain")[0]
+        t = lap("decode_f32_replay", t)
+        teacher.append(long_step(api, replay_api, params, before, tok, pos,
+                                 logits, exact, tol, phase, step_routing))
+        t = lap("decode_replays", t)
+        if i in LONG_CONTROL_STEPS:
+            step_controls.append(long_step_controls(
+                api, params, before, tok, pos, exact, step_routing))
+            t = lap("decode_controls", t)
+        del exact
+        if i == steps - 1 and bf16:
+            timing = profile_decode_step(api, params,
+                                         [(before.put(), tok, pos, logits)])
+            t = lap("decode_profile", t)
+        served.put()
+        del before, served
+        tok = nxt
+    for ctl in step_controls:
+        require(ctl["wrong_pos"]["err_over_max_plain"] > tol,
+                f"{phase} control: cur_pos one off passes the gate {ctl}")
+        # one key of 32769 moves the bf16 logits less than the replay's
+        # own noise: the newest slot's loss must miss the per-call gate
+        require(ctl["drop_newest"]["per_call_worst_over_card_tol"] > 1,
+                f"{phase} control: the gather without the newest slot "
+                f"passes the per-call gate {ctl}")
+        if cfg.window:
+            require(ctl["window_wider"]["per_call_worst_over_card_tol"] > 1,
+                    f"{phase} control: the window one wider passes the "
+                    f"per-call gate {ctl}")
+    parts["decode"] = time.perf_counter() - t_decode
+    parts["decode_served"] = sum(secs)
+    peak = torch.cuda.max_memory_allocated()
+    slots = caches[0]["sub0"]["pos"]
+    ring = {"slots": len(slots), "first_slot_pos": int(slots[0]),
+            "wraps_at_prefill": s / len(slots)}
+    if cfg.window:
+        require(len(slots) == cfg.window
+                and sorted(slots.tolist()) == list(range(
+                    max_seq - cfg.window, max_seq)),
+                f"{phase}: the ring holds {slots.min()}..{slots.max()}, "
+                f"not the last {cfg.window} positions")
+    del caches, params, api, logits
+    _free()
+    errs = [t["err"] for t in teacher]
+    generated = b * steps
+    return {"launches": _merged(prefill_counts, *step_counts),
+            "row": {"phase": phase, "config": cfg.name,
+                    "layers": cfg.n_layers, "d_model": cfg.d_model,
+                    "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                    "window": cfg.window, "dtype": str(dtype),
+                    **depth_fields(cfg), "batch": b, "prefill_tokens": s,
+                    "max_seq": max_seq, "steps": steps,
+                    "launches": _merged(prefill_counts, *step_counts),
+                    f"k4_{route}_per_prefill": n_attn,
+                    f"k4_{route}_per_step": n_attn,
+                    "gate": tol, "init_s": init_s,
+                    "weights_gb": weights / 1e9,
+                    "cache_gb": cache_bytes / 1e9,
+                    "prefill_ms": prefill_s * 1e3,
+                    "prefill_tokens_per_s": b * s / prefill_s,
+                    "plain_prefill_ms": plain_prefill_s and
+                    plain_prefill_s * 1e3,
+                    "prefill_replayed": prefill_err is not None,
+                    "prefill_err_over_max_plain": prefill_err,
+                    "prefill_per_call_worst_over_card_tol": max(per_call),
+                    "prefill_panels": panel_rows(s, LONG_PANEL),
+                    "prefill_controls_per_call_worst_over_card_tol": {
+                        name: {"max": max(r), "min": min(r),
+                               "calls_missed": sum(x > 1 for x in r)}
+                        for name, r in controls.items()},
+                    "prefill_routing_flips": prefill_flips,
+                    "decode_held_to": "the plain replay in f32",
+                    "decode_err_over_max_plain_by_step": errs,
+                    "decode_max_err_over_max_plain": max(errs),
+                    "decode_bf16_plain_err_by_step": [
+                        t["bf16_plain_err"] for t in teacher],
+                    "bf16_plain_vs_f32_by_step": [
+                        t["bf16_plain_vs_f32"] for t in teacher],
+                    "decode_per_call_worst_over_card_tol": max(
+                        t["per_call"] for t in teacher),
+                    "decode_steps_greedy_equal": sum(
+                        t["greedy_equal"] for t in teacher),
+                    "decode_controls": step_controls,
+                    "decode_gathers": gathers, "ring": ring,
+                    "step_ms_median": _median(secs) * 1e3,
+                    "step_ms": [t * 1e3 for t in secs],
+                    "tokens_per_s": generated / sum(secs),
+                    "step_bound_ms": (weights + cache_bytes)
+                    / HBM_BYTES_PER_S * 1e3, "step_bound_by": "bytes",
+                    **timing, "prefill_peak_gb": prefill_peak / 1e9,
+                    "peak_gb": peak / 1e9,
+                    "seconds": time.perf_counter() - t_phase,
+                    "seconds_by_part": parts, "card": card}}
+
+
+def long_phase(card: str, cfg, phase: str, b: int, gen) -> dict:
+    """:func:`long_context` of ``cfg`` in bf16 (:data:`LONG_STEPS`
+    steps), then at :data:`LONG_F32_LAYERS` in f32 (phase
+    ``<phase>_f32``, :data:`LONG_F32_STEPS` steps)."""
+    run = long_context(card, cfg, phase, b, LONG_STEPS, gen)
+    emit(run["row"])
+    f32_cfg = dataclasses.replace(cfg, n_layers=LONG_F32_LAYERS,
+                                  compute_dtype=torch.float32)
+    f32 = long_context(card, f32_cfg, f"{phase}_f32", b, LONG_F32_STEPS, gen)
+    emit(f32["row"])
+    return {"bf16": run["launches"], "f32": f32["launches"]}
+
+
+def phase_lm_attention_long(card: str) -> dict:
+    """K4 alone at the reference's long shapes (:func:`k4_lm_rows`, rows
+    ``lm_attention``), each held to the plain version on its panels (a
+    decode whole) and timed beside its bound and SDPA: phi3-medium-14b's
+    causal prefill of 1 x 32768 (40 heads over 10) and its decode, 2 x 1
+    query against 32768 keys; mixtral-8x7b's windowed causal prefill of
+    1 x 32768 under 4096 and long_500k's 1 x 524288 (q of 2^31
+    elements; bf16 only, SDPA refused).  bf16 on ``sm90``, f32 on
+    ``sm90_tf32``.  Returns the rows by type."""
+    gen = torch.Generator().manual_seed(SEED + 70)
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    _free()
+    dense, window = get_config(LM_ARCH), moe_cfg()
+    w = window.window
+    phi3 = (("long_prefill", 1, LONG_S, LONG_S, True, 0),
+            ("long_decode", LONG_DENSE_BATCH, 1, LONG_S, False, 0))
+    mixtral = (("long_prefill", 1, LONG_S, LONG_S, True, w),
+               ("long_500k", 1, LONG_500K, LONG_500K, True, w))
+    rows = {"bf16": [], "f32": []}
+    for cfg, shapes in ((dense, phi3), (window, mixtral)):
+        rows["bf16"] += k4_lm_rows(cfg, torch.bfloat16, gen, flush, card,
+                                   shapes)
+        rows["f32"] += k4_lm_rows(cfg, torch.float32, gen, flush, card,
+                                  shapes[:1] if cfg is window else shapes)
+    for dtype, rs in rows.items():
+        want = "sm90" if dtype == "bf16" else "sm90_tf32"
+        require(all(r["route"] == want for r in rs),
+                f"lm_attention long rows: routes {[r['route'] for r in rs]}")
+    del flush
+    _free()
+    return {"rows": [dict(r, what=f"{r['config']} {r['what']}")
+                     for r in rows["bf16"]],
+            "f32_rows": [dict(r, what=f"{r['config']} {r['what']}")
+                         for r in rows["f32"]]}
+
+
+def phase_lm_long_dense(card: str) -> dict:
+    """phi3-medium-14b at full width and depth, bf16, batch 2 (cut from
+    the reference's 32 and 128): :func:`long_context` over two 32768-token
+    prompts and 16 decode steps (40 K4 ``sm90`` launches a prefill and a
+    step), then 4 layers in f32 (``sm90_tf32``)."""
+    gen = torch.Generator().manual_seed(SEED + 71)
+    return long_phase(card, get_config(LM_ARCH), "lm_long_dense",
+                      LONG_DENSE_BATCH, gen)
+
+
+def phase_lm_long_window(card: str) -> dict:
+    """mixtral-8x7b at full width and 20 of its 32 blocks (as
+    ``lm_serve_moe``), bf16, batch 1: :func:`long_context` over a
+    32768-token prompt under its 4096 window (the ring filled 8 times
+    over) and 16 decode steps, the replays under the served routing;
+    then 4 blocks in f32."""
+    gen = torch.Generator().manual_seed(SEED + 72)
+    return long_phase(card, moe_cfg(), "lm_long_window",
+                      LONG_WINDOW_BATCH, gen)
 
 
 # --------------------------------------------------------------------------
@@ -7542,6 +8253,9 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     dbrx = phase_lm_serve_dbrx(card, lm_flush)
     vlm = phase_lm_serve_vlm(card, lm_flush)
     del lm_flush
+    long_attn = phase_lm_attention_long(card)
+    long_dense = phase_lm_long_dense(card)
+    long_window = phase_lm_long_window(card)
     train = phase_lm_train(card)
     train_f32 = phase_lm_train_f32(card)
     resilient = phase_lm_train_resilient(card)
@@ -8011,6 +8725,8 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
                "launches_lm_serve_hybrid": hybrid,
                "launches_lm_serve_encdec": encdec,
                **{f"launches_{k}": run for k, run in new_serve.items()},
+               "launches_lm_long_dense": long_dense,
+               "launches_lm_long_window": long_window,
                "launches_lm_train": lm_train,
                "launches_lm_train_moe": train_moe,
                "launches_lm_train_ssm": train_ssm,
@@ -8057,6 +8773,11 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
             and by_name["attention"]["launches_lm_serve_encdec"] == 0,
             "lm_serve_encdec: K4's launches by route")
     for key in new_serve:
+        require(by_name["attention_sm90"][f"launches_{key}"] > 0
+                and by_name["attention_sm90_tf32"][f"launches_{key}"] > 0
+                and by_name["attention"][f"launches_{key}"] == 0,
+                f"{key}: K4's launches by route")
+    for key in ("lm_long_dense", "lm_long_window"):
         require(by_name["attention_sm90"][f"launches_{key}"] > 0
                 and by_name["attention_sm90_tf32"][f"launches_{key}"] > 0
                 and by_name["attention"][f"launches_{key}"] == 0,
@@ -8119,6 +8840,18 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
         f: mesh_attn["time"][f] for f in (
             "ms", "ms_lse", "device_ms", "device_ms_lse", "bound_ms",
             "bound_by", "library_ms", "library_device_ms", "shape")}
+    for name, dtype in (("attention_sm90", "torch.bfloat16"),
+                        ("attention_sm90_tf32", "torch.float32")):
+        # the reference's long shapes, held on their panels (plain_ms:
+        # the panels only; library_ms null where SDPA cannot take them)
+        by_name[name]["lm_attention_long"] = {
+            r["what"]: {f: r.get(f) for f in (
+                "ms", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                "plain_ms_is", "library_ms", "library_device_ms",
+                "library_null_reason", "host_us", "max_abs_err",
+                "worst_over_tol", "held_on", "shape", "window")}
+            for r in long_attn["rows"] + long_attn["f32_rows"]
+            if r["dtype"] == dtype}
     for key, rows in (("lm_serve", lm_rows), ("lm_serve_moe", moe_rows),
                       ("lm_serve_encdec", encdec_rows),
                       *((key, {(r["dtype"], r["what"]): r

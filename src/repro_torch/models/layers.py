@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -254,12 +255,44 @@ def _pad_pos(pos, pad: int, value: int, device) -> torch.Tensor:
                                       device=device)])
 
 
+def _chunk_pairs(q_pos, kv_pos, cq: int, ck: int, nq: int, nk: int,
+                 window: int) -> np.ndarray:
+    """Which (query chunk, key chunk) pairs :func:`attention_chunked`
+    must run, (nq, nk) bool.  A pair whose every score is masked (its
+    keys all past its last query, or all at or before its first query's
+    window) adds exactly 0 to a row that keeps some key elsewhere: a
+    later real maximum scales what it added by exp(-1e30 - m) = 0, and
+    after one its weights are exp(-1e30 - m) = 0.  So where every query
+    row keeps some key (the positions read on the host, the keys'
+    ascending), those pairs are skipped and the result is the same to
+    the bit; otherwise every pair runs."""
+    run = np.ones((nq, nk), bool)
+    qh = torch.as_tensor(q_pos).to("cpu", torch.int64).numpy()
+    kh = torch.as_tensor(kv_pos).to("cpu", torch.int64).numpy()
+    if not len(kh) or np.any(np.diff(kh) < 0):
+        return run
+    hi = np.searchsorted(kh, qh, side="right")
+    lo = np.searchsorted(kh, qh - window, side="right") if window else 0
+    if not np.all(hi > lo):
+        return run
+    for i in range(nq):
+        qi = qh[i * cq:(i + 1) * cq]
+        for j in range(nk):
+            kj = kh[j * ck:(j + 1) * ck]
+            run[i, j] = len(kj) > 0 and kj.min() <= qi.max() and not (
+                window and kj.max() <= qi.min() - window)
+    return run
+
+
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, kv_pos: torch.Tensor,
                       window: int = 0, chunk: int = 1024) -> torch.Tensor:
     """Double-chunked online-softmax attention: query chunks outer, KV
     chunks inner with the (acc, m, l) accumulator resident; a masked
-    score is -1e30.  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd)."""
+    score is -1e30.  q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd).  Chunk
+    pairs that no mask leaves a score in are skipped where that changes
+    no bit (:func:`_chunk_pairs`): a causal prefill of S tokens runs
+    about half its pairs, one under a window W about W / S of them."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -274,6 +307,7 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kp = F.pad(k, (0, 0, 0, 0, 0, pad_k))
     vp = F.pad(v, (0, 0, 0, 0, 0, pad_k))
     kpos = _pad_pos(kv_pos, pad_k, torch.iinfo(torch.int32).max, dev)
+    run = _chunk_pairs(q_pos, kv_pos, cq, ck, nq, nk, window)
 
     outs = []
     for i in range(nq):
@@ -283,6 +317,8 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  torch.full((b, kvh, g, cq), -1e30, device=dev),
                  torch.zeros((b, kvh, g, cq), device=dev))
         for j in range(nk):
+            if not run[i, j]:
+                continue
             ki = kp[:, j * ck:(j + 1) * ck]
             vi = vp[:, j * ck:(j + 1) * ck]
             kpi = kpos[j * ck:(j + 1) * ck]
