@@ -307,6 +307,18 @@
   * ``lm_serve_mesh_ssm``: mamba2-1.3b at full size in bf16 and jamba
     at ``reduced()`` in f32 through the one-rank NCCL mesh, bit-equal
     to the mesh-free servers; jamba's K4 launches counted;
+  * ``examples``: the sibling examples' paths.
+    ``examples/accelerator_analysis_torch.py``'s ``main`` in-process at
+    its defaults (B3, 128 -> 256, 56 x 56, 3 x 3) and at stride 2: the
+    layer on K1 ``sm90_tf32`` (one launch, the route it printed the one
+    whose counter rose, no ``fma``) within ``TOL`` of the plain version,
+    the weights' window flipped missing it, K1 timed beside cuDNN and
+    the bound; ``examples/serve_batched_torch.py``'s ``serve`` for
+    reduced mixtral-8x7b and minitron-4b (f32, 8 requests, 4 slots, 12
+    new tokens) through the one-rank NCCL mesh and mesh-free on the same
+    params: tokens and logits bit-equal, K4 ``sm90_tf32`` launches
+    exact (the mesh's with ``lse``), every step replayed at ``TOL`` and
+    every K4 call within ``CARD_TOL``, ``drop_newest_slot`` missing;
   * ``dryrun``: the dry-run's meta cells (mamba2-1.3b x decode_32k and
     train_4k, phi3-medium-14b x decode_32k on (16, 16), and mamba2's
     decode_32k on (1, 1)), run on the CPU one after another at the
@@ -378,9 +390,12 @@ import contextlib
 import ctypes
 import dataclasses
 import datetime
+import importlib.util
+import io
 import json
 import math
 import os
+import re
 import shlex
 import shutil
 import subprocess
@@ -7117,6 +7132,176 @@ def phase_lm_serve_mesh_ssm(card: str) -> dict:
     return {"bf16": runs[SSM_ARCH], "f32": runs[HYBRID_ARCH]}
 
 
+# --------------------------------------------------------------------------
+# examples: the sibling examples' paths on the card
+# --------------------------------------------------------------------------
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+#: the analysed layers: the sibling's defaults (B3, 128 -> 256, 56 x 56,
+#: 3 x 3, stride 1) and the same at stride 2
+ANALYSIS_ARGV = ((), ("--stride", "2"))
+#: the served archs: the sibling's default and the reference test's
+EXAMPLE_ARCHS = ("mixtral-8x7b", "minitron-4b")
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_analysis(card: str, flush) -> tuple[list, dict]:
+    """``examples/accelerator_analysis_torch.py``'s ``main`` in-process
+    for each of :data:`ANALYSIS_ARGV`, on the card: the layer's K1
+    output within ``TOL`` of max |plain| of the plain version on the
+    same inputs; the route the sibling printed the one whose counter
+    rose, the route it planned, once, and nothing else of K1-K4 (no
+    ``fma``); the control, the same call with the weights' kernel window
+    flipped, missing ``TOL``.  K1 on the layer timed (flushed, and back
+    to back as ``device_ms``) beside the plain version, ``F.conv2d``
+    (cuDNN, TF32 off) and its 3xTF32 bound."""
+    mod = load_example("accelerator_analysis_torch")
+    rows, total = [], collections.Counter()
+    for argv in ANALYSIS_ARGV:
+        c, buf = {}, io.StringIO()
+        with counted(c), contextlib.redirect_stdout(buf):
+            got = mod.main(list(argv))
+            torch.cuda.synchronize()
+        printed = buf.getvalue().splitlines()
+        (ran,) = [line for line in printed if line.startswith(mod.RAN)]
+        shown = re.search(r": route (\S+), out ", ran).group(1)
+        rose = {rt: n for rt, n in c["conv_lb"].items() if n}
+        require(shown == got["ran"] == got["route"]
+                and rose == {shown: 1} and c["conv_lb"]["fma"] == 0
+                and not any(n for name in ("wgrad_lb", "matmul_lb",
+                                           "attention")
+                            for n in c[name].values()),
+                f"examples analysis {argv}: printed {shown}, planned "
+                f"{got['route']}, launched {c}")
+        total.update(c["conv_lb"])
+        x, w, out = got["x"], got["w"], got["out"]
+        kw = dict(stride=got["stride"], padding=got["padding"])
+        plain = conv2d_ref(x, w, **kw)
+        abs_err, err = rel_err(out, plain)
+        require(err <= TOL, f"examples analysis {argv}: K1 vs plain {err}")
+        wrong = conv2d_lb(x, w.flip(0, 1).contiguous(), **kw)
+        _, control = rel_err(wrong, plain)
+        require(control > TOL, f"examples analysis {argv}: the flipped "
+                               f"window passes, {control}")
+        x_nchw = x.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        layer = got["layer"]
+        flops = 2.0 * layer.macs
+        n_bytes = 4.0 * (x.numel() + w.numel() + out.numel())
+        t_ops = ops_s(flops, torch.float32, shown)
+        t_bytes = n_bytes / HBM_BYTES_PER_S
+        row = {"phase": "examples_analysis", "argv": list(argv),
+               "layer": str(layer), "out": list(out.shape),
+               "block": [got["block"].bm, got["block"].bn,
+                         got["block"].bk],
+               "plan_words": got["plan"].traffic(layer.batch).total,
+               "eq15_words": got["plan"].bound_words(layer),
+               "route_printed": shown, "launches": c["conv_lb"],
+               "max_abs_err": abs_err, "max_abs_err_over_max_plain": err,
+               "tol": TOL, "control_flipped_window_over_max_plain": control,
+               "ms": _time_ms(lambda: conv2d_lb(x, w, **kw), flush),
+               "device_ms": _device_ms(lambda: conv2d_lb(x, w, **kw)),
+               "plain_ms": _time_ms(lambda: conv2d_ref(x, w, **kw), flush),
+               "library_ms": _time_ms(lambda: F.conv2d(
+                   x_nchw, w_oihw, **kw), flush),
+               "library_device_ms": _device_ms(lambda: F.conv2d(
+                   x_nchw, w_oihw, **kw)),
+               "bound_ms": max(t_ops, t_bytes) * 1e3,
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "lines": printed[-4:], "card": card}
+        emit(row)
+        rows.append(row)
+    return rows, dict(total)
+
+
+def example_serve(arch: str, mesh, mod) -> dict:
+    """``examples/serve_batched_torch.py``'s ``serve`` for ``arch`` at
+    its defaults (``reduced(..., capacity_factor=8.0)``, f32, 8 requests
+    of 6 tokens, 4 slots, 12 new tokens, 96 cache slots) on the card,
+    through ``mesh`` and mesh-free on the same params: every request
+    completes with its tokens; the mesh's tokens and every step's logits
+    equal the mesh-free server's bit for bit; K4 ``sm90_tf32`` launches
+    the attention layers x the steps in each run and nothing else of
+    K1-K4, the mesh's each with its log-sum-exp, no plain attention;
+    every mesh-free step replayed by :func:`replay_plain` at ``TOL``
+    (every K4 call within ``CARD_TOL``, the experts under the served
+    routing) and the ``drop_newest_slot`` control missing it."""
+    cfg = reduced(get_config(arch), capacity_factor=8.0)
+    params = build_lm(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED), cast_blocks=True)
+    kw = dict(slots=4, device="cuda", log=lambda *_: None)
+    per_step = attention_layers(cfg)
+    routing = Routing(moe_layers(cfg)) if cfg.n_experts else None
+    lines, c_free, c_mesh, free, trace = [], {}, {}, [], []
+    reqs_free = mod.make_requests(cfg, 8, 12)
+    t0 = time.perf_counter()
+    with counted(c_free), no_plain_attention(), _recorded(routing):
+        mod.serve(cfg, None, params, reqs_free, trace=free, **kw)
+    secs_free = time.perf_counter() - t0
+    reqs = mod.make_requests(cfg, 8, 12)
+    t0 = time.perf_counter()
+    with counted(c_mesh), no_plain_attention():
+        mod.serve(cfg, mesh, params, reqs, trace=trace,
+                  **(kw | {"log": lines.append}))
+    secs = time.perf_counter() - t0
+    tokens_equal = [r.out for r in reqs] == [r.out for r in reqs_free]
+    logits_equal = len(trace) == len(free) and all(
+        torch.equal(a[3], b[3]) for a, b in zip(trace, free))
+    require(tokens_equal and logits_equal
+            and all(r.done and len(r.out) == r.max_new for r in reqs),
+            f"examples serve {arch}: tokens equal {tokens_equal}, logits "
+            f"equal {logits_equal}, done {[len(r.out) for r in reqs]}")
+    n = per_step * len(trace)
+    require(k4_only(c_free, "sm90_tf32", n) and k4_only(c_mesh, "sm90_tf32", n)
+            and c_mesh["attention_lse"] == dict.fromkeys(K4.ROUTES, 0)
+            | {"sm90_tf32": n},
+            f"examples serve {arch}: launches {c_free}, {c_mesh}, want "
+            f"{n} on sm90_tf32")
+    del trace
+    api = build_lm(cfg)
+    teacher = replay_plain(api, params, free, TOL, f"examples serve {arch}",
+                           routing)
+    controls = control_drop_newest(api, params, free, TOL, routing)
+    generated = sum(len(r.out) for r in reqs)
+    return {"config": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "dtype": str(cfg.compute_dtype), "requests": len(reqs),
+            "steps": len(free), "generated_tokens": generated,
+            "tokens_equal": tokens_equal, "logits_bit_equal": logits_equal,
+            "launches": c_mesh, "launches_mesh_free": c_free,
+            "k4_sm90_tf32_per_step": per_step, "teacher_forced": teacher,
+            "control_drop_newest": controls, "serve_s": secs,
+            "serve_s_mesh_free": secs_free, "tokens_per_s": generated / secs,
+            "summary": lines[-4].strip()}
+
+
+def phase_examples(card: str) -> dict:
+    """The sibling examples' paths on the card (:func:`example_analysis`,
+    then :func:`example_serve` for each of :data:`EXAMPLE_ARCHS` on a
+    one-rank NCCL group's (1, 1) mesh); the phase's seconds."""
+    t0 = time.perf_counter()
+    flush = torch.empty(64 * 1024 * 1024 // 4, device="cuda")
+    rows, k1 = example_analysis(card, flush)
+    del flush
+    mod = load_example("serve_batched_torch")
+    with one_rank_nccl() as mesh:
+        served = [example_serve(arch, mesh, mod) for arch in EXAMPLE_ARCHS]
+    counts = _merged(*(s[key] for s in served
+                       for key in ("launches", "launches_mesh_free")))
+    emit({"phase": "examples", "served": served, "k1_launches": k1,
+          "seconds": time.perf_counter() - t0, "card": card})
+    return {"k1": k1, "f32": counts, "rows": rows}
+
+
 def start_dryrun() -> list:
     """The dry-run's :data:`DRYRUN_CELLS` on the ``meta`` device, one
     process each (one ``"fake"`` group each), run one after another at
@@ -8280,6 +8465,7 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
     lm_mesh = phase_lm_serve_mesh(card)
     mesh_ssm = phase_mesh_ssm(card)
     lm_mesh_ssm = phase_lm_serve_mesh_ssm(card)
+    examples = phase_examples(card)
     dryrun = phase_dryrun(card, dry_procs)
     phase_plan_audit(card, libs, log)
     # the sums: the four projections per type, w N-major
@@ -8736,6 +8922,7 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
                "launches_lm_serve_mesh": lm_mesh,
                "launches_mesh_ssm": mesh_ssm,
                "launches_lm_serve_mesh_ssm": lm_mesh_ssm,
+               "launches_examples_serve": examples,
                "launches_dryrun": dryrun}
     for k in kernels:
         counter = counter_of(k)
@@ -8752,6 +8939,27 @@ def _main(card: str, libs: list, dry_procs: list, t0: float) -> int:
                                      f"{key.removeprefix('launches_')} "
                                      f"path")
     by_name = {k["name"]: k for k in kernels}
+    for k in kernels:
+        # the analysed layers of examples/accelerator_analysis_torch.py
+        k["launches_examples_analysis"] = (
+            examples["k1"].get(k["kernel_route"], 0)
+            if counter_of(k) == "conv_lb" else 0)
+    by_name["conv_lb_sm90_tf32"]["examples_analysis"] = [
+        {f: r[f] for f in ("argv", "layer", "ms", "device_ms", "plain_ms",
+                           "library_ms", "library_device_ms", "bound_ms",
+                           "bound_by", "max_abs_err")}
+        for r in examples["rows"]]
+    require(by_name["conv_lb_sm90_tf32"]["launches_examples_analysis"] > 0
+            and not any(k["launches_examples_analysis"] for k in kernels
+                        if k["name"] != "conv_lb_sm90_tf32"),
+            f"examples: K1's launches by route {examples['k1']}")
+    example_runs = {n: by_name[n]["launches_examples_serve"]
+                    for n in ("attention_sm90", "attention",
+                              "attention_sm90_tf32")}
+    require(example_runs["attention_sm90_tf32"] > 0
+            and example_runs["attention"] == 0
+            and example_runs["attention_sm90"] == 0,
+            f"examples: K4's launches by route {example_runs}")
     require(by_name["attention"]["launches_lm_serve"] == 0
             and by_name["attention_sm90"]["launches_lm_serve"] > 0
             and by_name["attention_sm90_tf32"]["launches_lm_serve"] > 0,

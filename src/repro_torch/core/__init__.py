@@ -4,8 +4,10 @@ port's copy of ``repro/core/__init__.py``: communication lower bounds
 IV-A), the on-chip mapping model (Sec. IV-B) and the energy/performance
 model (Sec. V/VI).  The energy constants are the paper's 65 nm table,
 not a measurement of any device.  Of the reference's TPU adaptation
-(``tpu_adapter``) its mesh-level shard plan is exported, from the
-Hopper counterpart :mod:`repro_torch.core.hopper_adapter`."""
+(``tpu_adapter``) the matmul block geometry (``BlockShape``,
+``lb_block_shape``, planned at the reference's budget) and the
+mesh-level shard plan are exported, from the Hopper counterpart
+:mod:`repro_torch.core.hopper_adapter`."""
 
 from repro_torch.core.layer import (ConvLayer, fc_layer, matmul_layer)
 from repro_torch.core.lower_bound import (
@@ -20,7 +22,9 @@ from repro_torch.core.mapping import (PEArray, fit_tiling_to_array,
 from repro_torch.core.energy import (IMPLEMENTATIONS, Implementation,
                                      layer_energy)
 from repro_torch.core.simulator import (simulate_layer, simulate_network)
-from repro_torch.core.hopper_adapter import ShardPlan, balanced_shard_plan
+from repro_torch.core.hopper_adapter import (BlockShape, ShardPlan,
+                                            balanced_shard_plan,
+                                            lb_block_shape)
 from repro_torch.core.vgg import vgg16_conv_layers, vgg16_fc_layers
 
 __all__ = [
@@ -33,6 +37,6 @@ __all__ = [
     "PEArray", "fit_tiling_to_array", "map_iteration",
     "IMPLEMENTATIONS", "Implementation", "layer_energy",
     "simulate_layer", "simulate_network",
-    "ShardPlan", "balanced_shard_plan",
+    "BlockShape", "ShardPlan", "balanced_shard_plan", "lb_block_shape",
     "vgg16_conv_layers", "vgg16_fc_layers",
 ]

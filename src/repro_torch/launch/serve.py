@@ -149,6 +149,21 @@ class BatchedServer:
             return contextlib.nullcontext()
         return axes_mod.axis_rules(self.rules, self.mesh)
 
+    def warm_up(self) -> None:
+        """One throwaway decode step over a cache of one slot a model
+        shard, the server's own caches untouched: on the card it builds
+        the attention kernel and sets up the libraries, which a clock
+        started after it should not see."""
+        with self._rules():
+            tokens = torch.zeros((self.slots, 1), dtype=torch.int64,
+                                 device=self.device)
+            if self.mesh is not None:
+                tokens = sh.batch_rows(tokens, self.mesh, self.rules)
+            self.api.decode_step(
+                self.params, self.api.init_cache(self.slots, self.api.tp,
+                                                 device=self.device),
+                tokens, 0)
+
     def submit(self, req: Request):
         self.queue.append(req)
 
@@ -255,18 +270,7 @@ def _serve(args, cfg, mesh) -> None:
     server = BatchedServer(cfg, mesh, slots=args.slots,
                            max_seq=args.max_seq, device=device,
                            seed=args.seed)
-    # one throwaway step first: on the card it builds the attention
-    # kernel and sets up the libraries, which the clock should not see
-    # (a cache of one slot a model shard)
-    with server._rules():
-        tokens = torch.zeros((args.slots, 1), dtype=torch.int64,
-                             device=device)
-        if mesh is not None:
-            tokens = sh.batch_rows(tokens, mesh, server.rules)
-        server.api.decode_step(
-            server.params,
-            server.api.init_cache(args.slots, server.api.tp, device=device),
-            tokens, 0)
+    server.warm_up()
     gen = torch.Generator().manual_seed(args.seed + 1)
     for rid in range(args.requests):
         prompt = torch.randint(0, cfg.vocab, (8,), generator=gen).tolist()
